@@ -1,0 +1,66 @@
+"""Command-line entry point of the port:
+
+    python -m shadow_tpu_torch.cli cfg.yaml [-o key.path=value ...]
+                                            [--device cpu]
+
+Loads the config (with the reference's dotted overrides), runs it on
+the card (or, with --device cpu, on the plain PyTorch path) and prints
+the reference CLI's "simulation finished" summary line.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import sys
+
+from shadow_tpu_torch import simtime
+from shadow_tpu_torch.config import load_config
+from shadow_tpu_torch.device import runner
+from shadow_tpu_torch.device.engine import NoCudaDevice
+
+log = logging.getLogger("shadow_tpu_torch")
+
+
+def simulate(config_path: str, overrides=(), device="cuda",
+             kernels=None) -> runner.SimStats:
+    """Load a config file with dotted overrides and run it: what
+    `main` does, for callers that want the stats (and may pass their
+    own Kernels to read launch counts)."""
+    cfg = load_config(config_path, overrides=overrides)
+    if cfg.general.stop_time <= 0:
+        raise ValueError("general.stop_time must be > 0")
+    return runner.run(cfg, device=device, kernels=kernels)
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(
+        prog="shadow-tpu-torch",
+        description="discrete-event network simulator, PyTorch/CUDA "
+                    "port of shadow-tpu")
+    parser.add_argument("config", help="simulation config (YAML)")
+    parser.add_argument("-o", "--option", action="append", default=[],
+                        metavar="KEY=VALUE",
+                        help="override a config value by dotted path, "
+                             "e.g. -o general.stop_time=10s")
+    parser.add_argument("--device", default="cuda",
+                        help="cuda (default) or cpu")
+    args = parser.parse_args(argv)
+    logging.basicConfig(level=logging.INFO,
+                        format="%(name)s %(levelname)s: %(message)s")
+    try:
+        stats = simulate(args.config, args.option, device=args.device)
+    except (OSError, ValueError, KeyError, NoCudaDevice) as e:
+        print(f"shadow-tpu-torch: {e}", file=sys.stderr)
+        return 1
+    log.info("simulation finished at %s: %s",
+             simtime.format_time(stats.end_time), stats.summary())
+    if not stats.ok:
+        log.error("device engine overflow: %d events lost — raise "
+                  "experimental.event_capacity/outbox_capacity/"
+                  "exchange_in_capacity", stats.overflow)
+    return 0 if stats.ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,40 @@
+// Shared constants and bit helpers of the port's CUDA kernels.
+//
+// The encodings are the reference engine's (shadow_tpu/device/engine.py):
+// heap and outbox rows are packed int64 words, `hi32`/`lo32` split a word
+// into two int32 halves, and INF/DROP_T/IMAX are its sentinels.
+#pragma once
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace shadow {
+
+constexpr int64_t INF = int64_t(1) << 62;
+constexpr int64_t DROP_T = INF - 1;
+constexpr int64_t IMAX = INT64_MAX;
+
+constexpr int32_t KIND_BOOT = 0;
+constexpr int32_t KIND_PACKET = 2;
+
+constexpr uint32_t PURPOSE_PACKET_DROP = 1;
+constexpr uint32_t PURPOSE_APP = 3;
+
+// trace checksum (utils/checksum.py), folded in uint64: signed overflow
+// is undefined in C++, and the 63-bit mask commutes with the wrap
+constexpr uint64_t MASK63 = (uint64_t(1) << 63) - 1;
+constexpr uint64_t CHK_MUL = 1000003ull;
+constexpr uint64_t CHK_SRC = 2654435761ull;
+constexpr uint64_t CHK_KIND = 1315423911ull;
+constexpr uint64_t CHK_SEQ = 2246822519ull;
+
+__device__ __forceinline__ int64_t pack2(uint32_t hi, uint32_t lo) {
+    return (int64_t)(((uint64_t)hi << 32) | (uint64_t)lo);
+}
+__device__ __forceinline__ int32_t hi32(int64_t x) {
+    return (int32_t)(uint32_t)((uint64_t)x >> 32);
+}
+__device__ __forceinline__ int32_t lo32(int64_t x) {
+    return (int32_t)(uint32_t)(uint64_t)x;
+}
+
+}  // namespace shadow

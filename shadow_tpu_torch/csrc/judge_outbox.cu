@@ -1,0 +1,106 @@
+// K2 judge_outbox: the network judgment of one phase's outbox.
+//
+// Replaces shadow_tpu/device/engine.py `_judge_outbox` with the dense
+// `_tbl` lookup (engine.py `_tbl`, T=1) and
+// shadow_tpu/device/netsem.py `packet_drop_mask`: per send row, the path
+// latency and reliability, one threefry drop roll per packet keyed by
+// (src host, per-source packet seq), the causality bump max(t, win_end)
+// for cross-host rows, the survivor bitmask, and the sent/dropped
+// counters. One thread owns one host row and walks its OB lanes in
+// order, so the per-row packet seq base is a running sum and n_sent /
+// n_drop need no atomics. The roll compares u >= rel in float32, as the
+// reference does.
+//
+// Bound on the H100: bytes (t of all H*OB rows; m and v read, and t/m/v
+// written, for send rows only); each rolled packet costs two threefry
+// blocks (~250 integer ops), far below the card's integer rate. Rows
+// are read with a stride of OB*8 bytes between neighbouring threads, so
+// loads are not coalesced; that is later work.
+#include "common.cuh"
+#include "threefry.cuh"
+
+using namespace shadow;
+
+namespace {
+
+__global__ void judge_outbox_kernel(
+    int H, int OB, int C, int64_t win_end, int64_t boot_end,
+    int64_t* ob_t, int64_t* ob_m, int64_t* ob_v,
+    const int32_t* __restrict__ packet_seq, int32_t* n_sent,
+    int32_t* n_drop, const int32_t* __restrict__ host_vertex,
+    const int32_t* __restrict__ lat, const float* __restrict__ rel,
+    int V, uint32_t seed1, uint32_t seed2) {
+    const int h = blockIdx.x * blockDim.x + threadIdx.x;
+    if (h >= H) return;
+    const int64_t row = (int64_t)h * OB;
+    // packet_seq is the end of the phase: the first row's base is it
+    // minus every packet the row block consumed
+    uint32_t tot = 0;
+    for (int c = 0; c < OB; ++c) {
+        const int32_t kindrow = lo32(ob_m[row + c]);
+        if (ob_t[row + c] < INF && (kindrow & 0xFF) == KIND_PACKET)
+            tot += (uint32_t)(kindrow >> 8);
+    }
+    uint32_t base = (uint32_t)packet_seq[h] - tot;
+    const int vs = host_vertex[h];
+    const Key hkey = purpose_id_key(Key{seed1, seed2}, PURPOSE_PACKET_DROP,
+                                    (uint32_t)h);
+    int32_t sent = 0, lost = 0;
+    for (int c = 0; c < OB; ++c) {
+        const int64_t ft = ob_t[row + c];
+        const int64_t fm = ob_m[row + c];
+        const int32_t kindrow = lo32(fm);
+        if (!(ft < INF && (kindrow & 0xFF) == KIND_PACKET)) continue;
+        const int32_t cnt = kindrow >> 8;
+        const int32_t dst = hi32(fm);
+        const int dh = dst < 0 ? 0 : (dst > H - 1 ? H - 1 : dst);
+        const int64_t pair = (int64_t)vs * V + host_vertex[dh];
+        const int64_t latv = lat[pair];
+        const float relv = rel[pair];
+        const int64_t fv = ob_v[row + c];
+        const uint32_t wbits =
+            cnt >= 32 ? 0xFFFFFFFFu
+                      : (1u << (cnt < 0 ? 0 : cnt)) - 1u;
+        const uint32_t livemask = (uint32_t)hi32(fv) & wbits;
+        const int livecnt = __popc(livemask);
+        uint32_t surv = 0;
+        const bool lossy = relv < 1.0f && ft >= boot_end;
+        for (int j = 0; j < C; ++j) {
+            if (!((livemask >> j) & 1u)) continue;
+            bool drop = false;
+            if (lossy)
+                drop = uniform01(fold_in(hkey, base + (uint32_t)j)) >= relv;
+            if (!drop) surv |= 1u << j;
+        }
+        base += (uint32_t)cnt;
+        sent += livecnt;
+        lost += livecnt - __popc(surv);
+        int64_t deliver_t = ft + latv;
+        if (dst != h && deliver_t < win_end) deliver_t = win_end;
+        ob_t[row + c] = surv == 0 ? INF : deliver_t;
+        ob_m[row + c] =
+            pack2((uint32_t)dst, (uint32_t)(KIND_PACKET | (livecnt << 8)));
+        ob_v[row + c] = pack2(surv, (uint32_t)lo32(fv));
+    }
+    n_sent[h] += sent;
+    n_drop[h] += lost;
+}
+
+}  // namespace
+
+extern "C" int shadow_judge_outbox(
+    int H, int OB, int C, long long win_end, long long boot_end,
+    int64_t* ob_t, int64_t* ob_m, int64_t* ob_v, const int32_t* packet_seq,
+    int32_t* n_sent, int32_t* n_drop, const int32_t* host_vertex,
+    const int32_t* lat, const float* rel, int V, unsigned seed1,
+    unsigned seed2, void* stream) {
+    if (H > 0) {
+        const int threads = 128;
+        judge_outbox_kernel<<<(H + threads - 1) / threads, threads, 0,
+                              (cudaStream_t)stream>>>(
+            H, OB, C, (int64_t)win_end, (int64_t)boot_end, ob_t, ob_m,
+            ob_v, packet_seq, n_sent, n_drop, host_vertex, lat, rel, V,
+            seed1, seed2);
+    }
+    return (int)cudaGetLastError();
+}

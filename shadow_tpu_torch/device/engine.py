@@ -1,0 +1,254 @@
+"""The device simulation engine (the port of the reference package's
+device/engine.py, one GPU, PHOLD slice).
+
+The reference runs the whole simulation as one jitted program. Here the
+window loop is Python on the host, and each phase of a window is three
+CUDA kernels plus a torch route (device/kernels.py):
+
+  K1 pop_phase  -> K2 judge_outbox -> route (sort + searchsorted)
+                -> K3 merge_heaps
+
+A window [nxt, win_end) with win_end = min(nxt + lookahead, stop_time)
+runs phases while some host's head event lies below win_end; the
+window's next start is the minimum head time across hosts. The host
+reads that minimum once per phase: it both decides whether another
+phase runs and gives the next window's start (after a merge every
+host's head is slot 0, so the two reads of the reference, `more()` on
+ht[:,0] and `next_time` on the head element, are one value).
+
+State is a dict of tensors under the reference's leaf names, so a
+state moves between the two engines as numpy arrays
+(state_from_numpy / state_to_numpy):
+
+  ht hk hm hv hw [H,E] int64   sorted event heap rows: time,
+                               src<<32|seq, kind<<32|size, d0<<32|d1, d2
+  head [H] int32               consumed slots < head
+  event_seq packet_seq app_seq app n_exec n_sent n_drop n_deliv
+  overflow x_overflow occ_heap occ_ob occ_in   [H] int32 (app [H,1])
+  chk [H] int64                trace checksum
+  occ_x [1,1], occ_trips [1], occ_phases [1] int32
+
+Entry points run on the card unless the caller passes device="cpu";
+without a CUDA device they raise rather than fall back.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+
+from shadow_tpu_torch import simtime
+from shadow_tpu_torch.core.event import KIND_BOOT, KIND_STOP
+from shadow_tpu_torch.device import prng
+from shadow_tpu_torch.device.apps import PholdDevice
+from shadow_tpu_torch.device.kernels import (
+    DROP_T,
+    IMAX,
+    INF,
+    OB_FIELDS,
+    Kernels,
+    PhaseParams,
+)
+
+STATE_DTYPES = {
+    "ht": np.int64, "hk": np.int64, "hm": np.int64, "hv": np.int64,
+    "hw": np.int64, "chk": np.int64,
+    **dict.fromkeys(
+        ("head", "event_seq", "packet_seq", "app_seq", "app", "n_exec",
+         "n_sent", "n_drop", "n_deliv", "overflow", "x_overflow",
+         "occ_heap", "occ_ob", "occ_in", "occ_x", "occ_trips",
+         "occ_phases"), np.int32),
+}
+
+
+class NoCudaDevice(RuntimeError):
+    """A GPU entry point was called where torch finds no CUDA
+    device."""
+
+
+def resolve_device(device) -> torch.device:
+    """The card unless the caller asks for the CPU; no quiet
+    fallback."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise NoCudaDevice(
+            "no CUDA device: shadow_tpu_torch runs on the GPU by "
+            "default; pass device='cpu' (CLI: --device cpu) to run the "
+            "plain PyTorch path on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device!r}")
+    return dev
+
+
+@dataclass
+class EngineConfig:
+    n_hosts: int
+    event_capacity: int = 64
+    outbox_capacity: int = 32
+    lookahead: int = simtime.SIMTIME_ONE_MILLISECOND
+    stop_time: int = simtime.SIMTIME_ONE_SECOND
+    bootstrap_end: int = 0
+    seed: int = 1
+    # arrivals accepted per host per flush; 0 = event_capacity.
+    # Overflow is counted and fails the run.
+    exchange_in_capacity: int = 0
+
+
+def state_from_numpy(arrays: dict, device) -> dict:
+    """A state dict of numpy arrays (e.g. the reference engine's
+    init_state output) -> tensors on `device`, with the port's
+    dtypes."""
+    dev = torch.device(device)
+    return {k: torch.from_numpy(np.ascontiguousarray(
+                np.asarray(arrays[k]).astype(STATE_DTYPES[k]))).to(dev)
+            for k in STATE_DTYPES}
+
+
+def state_to_numpy(state: dict, keys=None) -> dict:
+    return {k: state[k].cpu().numpy() for k in (keys or state)}
+
+
+class DeviceEngine:
+    def __init__(self, config: EngineConfig, app: PholdDevice,
+                 host_vertex: np.ndarray, latency_ns: np.ndarray,
+                 reliability: np.ndarray, device="cuda",
+                 kernels: Optional[Kernels] = None):
+        self.config = config
+        self.app = app
+        self.device = resolve_device(device)
+        self.kernels = kernels if kernels is not None else Kernels()
+        latency_ns = np.asarray(latency_ns)
+        if latency_ns.ndim != 2:
+            raise ValueError("the port takes one dense [V,V] latency "
+                             "table (fault epochs are a later item)")
+        if (latency_ns > np.iinfo(np.int32).max).any():
+            raise ValueError("path latencies above ~2.1 s don't fit the "
+                             "i32 device latency matrix")
+        if config.event_capacity < 2:
+            raise ValueError("event_capacity must be >= 2 (boot+stop)")
+        H = config.n_hosts
+        K = app.max_sends
+        self.params = PhaseParams(
+            E=config.event_capacity, K=K,
+            B=max(1, config.outbox_capacity // K),
+            IN=config.exchange_in_capacity or config.event_capacity,
+            C=app.max_train, boot_end=int(config.bootstrap_end),
+            seed=prng.seed_key(config.seed), app=app)
+        dev = self.device
+
+        def put(a, dtype):
+            return torch.from_numpy(np.ascontiguousarray(
+                np.asarray(a).astype(dtype))).to(dev)
+
+        self.world = {
+            "host_vertex": put(np.asarray(host_vertex)[:H], np.int32),
+            "lat": put(latency_ns, np.int32),
+            "rel": put(reliability, np.float32),
+        }
+        self._buf = None
+
+    # ------------------------------------------------------------------
+    def init_state(self, start_times: np.ndarray,
+                   stop_times: np.ndarray) -> dict:
+        """Per host: a boot event at start_times[h] and, where
+        stop_times[h] >= 0, a stop event; heaps sorted by
+        construction (boot seq 0 precedes stop seq 1)."""
+        H, E = self.config.n_hosts, self.params.E
+        t0 = np.asarray(start_times, dtype=np.int64)
+        t1 = np.asarray(stop_times, dtype=np.int64)
+        if t0.shape != (H,) or t1.shape != (H,):
+            raise ValueError(f"need {H} start and stop times")
+        has_stop = t1 >= 0
+        if (has_stop & (t1 < t0)).any():
+            h = int(np.flatnonzero(has_stop & (t1 < t0))[0])
+            raise ValueError(f"host {h}: stop_time {int(t1[h])} precedes "
+                             f"start_time {int(t0[h])}")
+        hid = np.arange(H, dtype=np.int64)
+        ht = np.full((H, E), INF, dtype=np.int64)
+        hk = np.full((H, E), IMAX, dtype=np.int64)
+        hm = np.zeros((H, E), dtype=np.int64)
+        ht[:, 0] = t0
+        hk[:, 0] = hid << 32
+        hm[:, 0] = np.int64(KIND_BOOT) << 32
+        ht[:, 1] = np.where(has_stop, t1, INF)
+        hk[:, 1] = np.where(has_stop, (hid << 32) | 1, IMAX)
+        hm[:, 1] = np.where(has_stop, np.int64(KIND_STOP) << 32, 0)
+        zeros = np.zeros(H, dtype=np.int32)
+        arrays = {
+            "ht": ht, "hk": hk, "hm": hm,
+            "hv": np.zeros((H, E), np.int64),
+            "hw": np.zeros((H, E), np.int64),
+            "event_seq": np.where(has_stop, 2, 1).astype(np.int32),
+            "app": np.zeros((H, self.app.n_state_words), np.int32),
+            "chk": np.zeros(H, np.int64),
+            "occ_x": np.zeros((1, 1), np.int32),
+            "occ_trips": np.zeros(1, np.int32),
+            "occ_phases": np.zeros(1, np.int32),
+        }
+        for k in STATE_DTYPES:
+            arrays.setdefault(k, zeros)
+        return state_from_numpy(arrays, self.device)
+
+    # ------------------------------------------------------------------
+    def _outbox(self) -> tuple[dict, torch.Tensor]:
+        """The phase's outbox [H,OB] x 5 and pop counts [H]: allocated
+        once per engine, since K1 rewrites all of it every phase."""
+        if self._buf is None:
+            H, OB = self.config.n_hosts, self.params.OB
+            ob = {f: torch.empty((H, OB), dtype=torch.int64,
+                                 device=self.device) for f in OB_FIELDS}
+            pops = torch.empty(H, dtype=torch.int32, device=self.device)
+            self._buf = (ob, pops)
+        return self._buf
+
+    def phase(self, state: dict, win_end: int) -> None:
+        """One phase: pops (K1), then the flush: judge (K2), route, merge
+        (K3). Updates `state` in place. The caller runs a phase only
+        when some host's head time lies below win_end, so every phase
+        pops and flushes (the reference skips the flush of a phase
+        that popped nothing, which cannot happen here)."""
+        p, k = self.params, self.kernels
+        ob, pops = self._outbox()
+        k.pop_phase(state, ob, pops, self.world, win_end, p)
+        state["occ_trips"].copy_(torch.maximum(state["occ_trips"],
+                                               pops.max().view(1)))
+        k.judge_outbox(state, ob, self.world, win_end, p)
+        state["occ_ob"].copy_(torch.maximum(
+            state["occ_ob"], (ob["t"] < DROP_T).sum(-1).to(torch.int32)))
+        state["occ_phases"] += 1
+        perm, starts, counts = k.route(ob)
+        k.merge_heaps(state, ob, perm, starts, counts, p)
+
+    def next_time(self, state: dict) -> int:
+        """Minimum head-event time across hosts (one host sync)."""
+        head = state["head"].long()
+        E = self.params.E
+        nt = state["ht"].gather(1, head.clamp(max=E - 1)[:, None])[:, 0]
+        nt = torch.where(head < E, nt, INF)
+        return int(nt.min()) if nt.numel() else INF
+
+    def window(self, state: dict, win_end: int, nxt: Optional[int] = None
+               ) -> int:
+        """Run one conservative window to `win_end` from head time `nxt`
+        (computed when not given); returns the next window's start."""
+        nt = self.next_time(state) if nxt is None else nxt
+        while nt < win_end:
+            self.phase(state, win_end)
+            nt = self.next_time(state)
+        return nt
+
+    def run(self, state: dict) -> tuple[dict, int]:
+        """Advance to config.stop_time, window ends clamped to it.
+        Returns (state, rounds)."""
+        stop = self.config.stop_time
+        lookahead = max(1, int(self.config.lookahead))
+        rounds = 0
+        nxt = self.next_time(state)
+        while nxt < stop:
+            win_end = min(nxt + lookahead, stop)
+            nxt = self.window(state, win_end, nxt)
+            rounds += 1
+        return state, rounds

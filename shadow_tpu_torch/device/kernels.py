@@ -1,0 +1,564 @@
+"""The hot-path kernels of the device engine: CUDA kernels written by
+hand for Hopper (csrc/), their build and ctypes binding, and beside each
+one its plain PyTorch version.
+
+Three kernels carry one phase of a conservative window:
+
+* K1 `pop_phase` (csrc/pop_phase.cu): the reference engine's pop loop
+  (`_step` with `PholdDevice.handle` and the app draws), one thread per
+  host, up to B pops per launch;
+* K2 `judge_outbox` (csrc/judge_outbox.cu): `_judge_outbox` with the
+  dense table lookup and `packet_drop_mask`, one thread per host row;
+* K3 `merge_heaps` (csrc/merge_heaps.cu): `_merge_rows` on the window
+  path, one block per destination host, a bitonic sort in shared memory.
+
+Between K2 and K3 the flat route (a sort by destination and
+`searchsorted` segment bounds) stays in torch, as the reference leaves
+it to `lax.sort`/`searchsorted`.
+
+Every wrapper takes the plain version for tensors on the CPU and, for
+CUDA tensors, launches its kernel on the current stream or raises:
+there is no fallback. A wrapper adds one to `Kernels.launches[name]`
+where it launches its kernel, and nowhere else. All three update their
+state tensors in place, like the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from dataclasses import dataclass
+from pathlib import Path
+
+import torch
+
+from shadow_tpu_torch.core.event import KIND_PACKET
+from shadow_tpu_torch.device import prng
+from shadow_tpu_torch.device.apps import PholdDevice
+from shadow_tpu_torch.device.netsem import packet_drop_mask
+from shadow_tpu_torch.utils.checksum import (
+    CHK_KIND,
+    CHK_MUL,
+    CHK_SEQ,
+    CHK_SRC,
+    MASK63,
+)
+from shadow_tpu_torch.utils.rng import PURPOSE_APP, PURPOSE_PACKET_DROP
+
+INF = 1 << 62
+DROP_T = INF - 1
+IMAX = (1 << 63) - 1
+U32 = 0xFFFFFFFF
+
+KERNEL_NAMES = ("pop_phase", "judge_outbox", "merge_heaps")
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = CSRC.parent / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-Xcompiler", "-fPIC")
+OB_FIELDS = ("t", "k", "m", "s", "v")
+HEAP_FIELDS = ("ht", "hk", "hm", "hv", "hw")
+
+
+@dataclass(frozen=True)
+class PhaseParams:
+    """The static shape of one phase (EngineConfig plus the app)."""
+    E: int                  # heap slots per host
+    K: int                  # send lanes per pop (outbox block width)
+    B: int                  # pops per phase at most
+    IN: int                 # arrivals per host per flush at most
+    C: int                  # packets per send row at most (trains)
+    boot_end: int           # no drops before this time
+    seed: tuple             # (k1, k2) u32 seed key
+    app: PholdDevice
+
+    @property
+    def OB(self) -> int:
+        return self.B * self.K
+
+
+# ----------------------------------------------------------------------
+# integer helpers shared by the plain versions
+# ----------------------------------------------------------------------
+def pack2(hi, lo):
+    return ((hi.to(torch.int64) & U32) << 32) | (lo.to(torch.int64) & U32)
+
+
+def hi32(x):
+    return (x >> 32).to(torch.int32)
+
+
+def lo32(x):
+    return (x & U32).to(torch.int32)
+
+
+def popcount32(x):
+    """Bit count of u32 values held in int64."""
+    x = x & U32
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return ((x * 0x01010101) & U32) >> 24
+
+
+# ----------------------------------------------------------------------
+# K1: one phase of pops (reference: engine._step, P=1, judge at flush)
+# ----------------------------------------------------------------------
+def pop_phase_plain(state: dict, ob: dict, pops: torch.Tensor,
+                    world: dict, win_end: int, p: PhaseParams) -> None:
+    """Pop up to B events per host below `win_end`, in lockstep over
+    hosts, exactly as the reference's pop loop: a host stops at the
+    window end, at `dirty` (an in-window self-send it must not pass)
+    or after B pops, and stays stopped for the rest of the phase. The
+    j-th pop of a host writes outbox columns [j*K, (j+1)*K); unused
+    columns hold t = INF and zeros. `pops[h]` receives the host's pop
+    count."""
+    E, K, B, app = p.E, p.K, p.B, p.app
+    dev = state["head"].device
+    H = state["head"].shape[0]
+    gid = torch.arange(H, dtype=torch.int32, device=dev)
+    hv = world["host_vertex"].long()
+    selflat = world["lat"][hv, hv].to(torch.int64)
+    for f in OB_FIELDS:
+        ob[f].fill_(INF if f == "t" else 0)
+    head = state["head"].clone()
+    chk = state["chk"].clone()
+    n_exec = state["n_exec"].clone()
+    n_deliv = state["n_deliv"].clone()
+    event_seq = state["event_seq"].clone()
+    packet_seq = state["packet_seq"].clone()
+    app_seq = state["app_seq"].clone()
+    app_state = state["app"].clone()
+    dirty = torch.zeros(H, dtype=torch.bool, device=dev)
+    npop = torch.zeros(H, dtype=torch.int32, device=dev)
+    draw_off = torch.arange(app.max_draws, dtype=torch.int64, device=dev)
+    app_key = prng.purpose_id_key(p.seed, PURPOSE_APP, gid)
+
+    def take(arr, fill):
+        v = arr.gather(1, head.clamp(max=E - 1).long()[:, None])[:, 0]
+        return torch.where(head < E, v, fill)
+
+    for blk in range(B):
+        pt = take(state["ht"], INF)
+        runnable = (pt < win_end) & ~dirty
+        if not bool(runnable.any()):
+            break
+        pk2 = take(state["hk"], IMAX)
+        pm = take(state["hm"], 0)
+        pw = take(state["hw"], 0)
+        psrc, pseq = hi32(pk2), lo32(pk2)
+        pkind, psize = hi32(pm), lo32(pm)
+        run32 = runnable.to(torch.int32)
+        head = head + run32
+        n_exec = n_exec + run32
+        npop = npop + run32
+        n_deliv = n_deliv + torch.where(
+            runnable & (pkind == KIND_PACKET),
+            popcount32(pw).to(torch.int32), 0)
+        mix = (pt ^ (psrc.long() * CHK_SRC) ^ (pkind.long() * CHK_KIND)
+               ^ (pseq.long() * CHK_SEQ)) & MASK63
+        chk = torch.where(runnable, (chk * CHK_MUL + mix) & MASK63, chk)
+
+        seqs = (app_seq.long()[:, None] + draw_off) & U32
+        draws = prng.random_bits32(prng.fold_seq(
+            (app_key[0][:, None], app_key[1][:, None]), seqs))
+        out = app.handle(gid, pt, torch.where(runnable, pkind, -1),
+                         psrc, psize, None, None, None, app_state, draws)
+        app_state = torch.where(runnable[:, None], out.app_state,
+                                app_state)
+        app_seq = app_seq + torch.where(runnable, out.n_draws, 0)
+
+        valid = out.send_valid & runnable[:, None]           # [H,K]
+        v32 = valid.to(torch.int32)
+        vrank = v32.cumsum(-1, dtype=torch.int32) - v32
+        nvalid = v32.sum(-1, dtype=torch.int32)
+        packet_seq = packet_seq + nvalid
+        ev_seq = event_seq[:, None] + vrank
+        event_seq = event_seq + nvalid
+        dst = out.send_dst
+        g2 = gid[:, None].expand(H, K)
+        cols = slice(blk * K, (blk + 1) * K)
+        zero = torch.zeros((), dtype=torch.int64, device=dev)
+        ob["t"][:, cols] = torch.where(valid, pt[:, None], INF)
+        ob["k"][:, cols] = torch.where(valid, pack2(g2, ev_seq), zero)
+        ob["m"][:, cols] = torch.where(
+            valid, pack2(dst, torch.full_like(dst, KIND_PACKET | (1 << 8))),
+            zero)
+        ob["s"][:, cols] = torch.where(
+            valid, pack2(out.send_size, out.send_d0), zero)
+        ob["v"][:, cols] = torch.where(
+            valid, pack2(torch.full_like(dst, -1), out.send_d1), zero)
+        # an in-window self-send must land before the host pops again
+        self_in = valid & (dst == gid[:, None]) & \
+            ((pt + selflat)[:, None] < win_end)
+        dirty = dirty | (runnable & self_in.any(-1))
+
+    for name, val in (("head", head), ("chk", chk), ("n_exec", n_exec),
+                      ("n_deliv", n_deliv), ("event_seq", event_seq),
+                      ("packet_seq", packet_seq), ("app_seq", app_seq),
+                      ("app", app_state)):
+        state[name].copy_(val)
+    pops.copy_(npop)
+
+
+# ----------------------------------------------------------------------
+# K2: per-phase network judgment (reference: engine._judge_outbox)
+# ----------------------------------------------------------------------
+def judge_outbox_plain(state: dict, ob: dict, world: dict, win_end: int,
+                       p: PhaseParams) -> None:
+    """Judge every send row of the outbox: path latency and
+    reliability, one drop roll per packet keyed by (src, packet seq),
+    the causality bump to `win_end` for cross-host rows, and the
+    sent/dropped counters. A row whose packets all drop gets t = INF.
+    Rewrites ob t/m/v in place."""
+    ft, fm, fv = ob["t"], ob["m"], ob["v"]
+    H, OB = ft.shape
+    dev = ft.device
+    gid = torch.arange(H, dtype=torch.int32, device=dev)
+    hv = world["host_vertex"].long()
+    kindrow = lo32(fm)
+    is_send = (ft < INF) & ((kindrow & 0xFF) == KIND_PACKET)
+    cnt = torch.where(is_send, kindrow >> 8, 0)
+    dst = hi32(fm)
+    srcv = hv[:, None]
+    dstv = hv[dst.long().clamp(0, H - 1)]
+    latv = world["lat"][srcv, dstv].to(torch.int64)
+    relv = world["rel"][srcv, dstv]
+    # each row's first packet seq: packet_seq is the END of the phase,
+    # rows sit in consumption order
+    c64 = cnt.long()
+    base = (state["packet_seq"].long() - c64.sum(-1))[:, None] + \
+        (c64.cumsum(-1) - c64)
+    wbits = torch.where(cnt >= 32, U32,
+                        (1 << cnt.clamp(0, 31).long()) - 1)
+    livemask = (fv >> 32) & U32 & wbits
+    livecnt = popcount32(livemask)
+    js = torch.arange(p.C, dtype=torch.int64, device=dev)
+    live3 = ((livemask[..., None] >> js) & 1).bool()
+    hk = prng.purpose_id_key(p.seed, PURPOSE_PACKET_DROP, gid)
+    drop3 = packet_drop_mask(
+        p.seed, p.boot_end, ft[..., None], None, base[..., None] + js,
+        relv[..., None], src_key=(hk[0][:, None, None],
+                                  hk[1][:, None, None]))
+    surv = torch.where(live3 & ~drop3, 1 << js, 0).sum(-1)
+    lost = livecnt - popcount32(surv)
+    state["n_sent"] += livecnt.sum(-1).to(torch.int32)
+    state["n_drop"] += lost.sum(-1).to(torch.int32)
+    deliver_t = ft + latv
+    deliver_t = torch.where(dst != gid[:, None],
+                            deliver_t.clamp(min=win_end), deliver_t)
+    dead = is_send & (surv == 0)
+    new_t = torch.where(is_send, torch.where(dead, INF, deliver_t), ft)
+    new_m = torch.where(is_send, pack2(dst, KIND_PACKET | (livecnt << 8)),
+                        fm)
+    new_v = torch.where(is_send, pack2(surv, lo32(fv)), fv)
+    ft.copy_(new_t)
+    fm.copy_(new_m)
+    fv.copy_(new_v)
+
+
+# ----------------------------------------------------------------------
+# route (torch, between K2 and K3; reference: _flat_sorted/_host_windows)
+# ----------------------------------------------------------------------
+def route(ob: dict):
+    """Order the judged outbox rows by (dst, src, column): a flat sort
+    of dst*SPAN + src*OB + column over exchangeable rows (t < DROP_T),
+    then per-destination segment bounds by searchsorted. Returns
+    (perm [H*OB], starts [H], counts [H]), int64."""
+    ft, fm = ob["t"], ob["m"]
+    H, OB = ft.shape
+    dev = ft.device
+    span = H * OB
+    okey = torch.arange(H * OB, dtype=torch.int64, device=dev).view(H, OB)
+    skey = torch.where(ft < DROP_T, hi32(fm).long() * span + okey, IMAX)
+    skey_s, perm = torch.sort(skey.view(-1))
+    edges = torch.searchsorted(
+        skey_s, torch.arange(H + 1, dtype=torch.int64, device=dev) * span)
+    return perm, edges[:-1].contiguous(), (edges[1:] - edges[:-1])
+
+
+# ----------------------------------------------------------------------
+# K3: merge arrivals into the heaps (reference: the window-path merge)
+# ----------------------------------------------------------------------
+def merge_heaps_plain(state: dict, ob: dict, perm: torch.Tensor,
+                      starts: torch.Tensor, counts: torch.Tensor,
+                      p: PhaseParams) -> None:
+    """Per host: the live heap rows (slots >= head) and the first IN
+    arrivals of its segment, sorted by (time, key, column) — column
+    breaks ties, so the order is the stable lexicographic one — and
+    the first E rows kept. Rows past E with t < INF, and arrivals past
+    IN, count into `overflow`; `occ_in`/`occ_heap` take their
+    high-water marks; head resets to 0."""
+    E, IN = p.E, p.IN
+    H = state["head"].shape[0]
+    dev = perm.device
+    F = perm.shape[0]
+    live = torch.arange(E, device=dev)[None, :] >= state["head"][:, None]
+    mt = torch.where(live, state["ht"], INF)
+    mk = torch.where(live, state["hk"], IMAX)
+    # arrival windows: sorted rows starts[h] .. starts[h]+min(count, IN)
+    idx = starts[:, None] + torch.arange(IN, device=dev)
+    ok = torch.arange(IN, device=dev)[None, :] < counts.clamp(max=IN)[:, None]
+    pidx = perm[idx.clamp(0, F - 1)]
+    flat = {f: ob[f].reshape(-1)[pidx] for f in OB_FIELDS}
+    it = torch.where(ok, flat["t"], INF)
+    ik = torch.where(ok, flat["k"], IMAX)
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    fm, fs, fv = (torch.where(ok, flat[f], zero) for f in ("m", "s", "v"))
+    im = pack2(lo32(fm) & 0xFF, hi32(fs))
+    iv = pack2(lo32(fs), lo32(fv))
+    iw = (fv >> 32) & U32
+
+    ct = torch.cat([mt, it], 1)
+    ck = torch.cat([mk, ik], 1)
+    # lexicographic (t, k) with column order among ties: stable sort by
+    # the secondary key, then stable sort by the primary
+    _, o1 = torch.sort(ck, dim=1, stable=True)
+    _, o2 = torch.sort(ct.gather(1, o1), dim=1, stable=True)
+    order = o1.gather(1, o2)
+    st = ct.gather(1, order)
+    keep = order[:, :E]
+    over_in = (counts - IN).clamp(min=0)
+    over_e = (st[:, E:] < INF).sum(-1)
+    state["overflow"] += (over_in + over_e).to(torch.int32)
+    state["occ_in"].copy_(torch.maximum(state["occ_in"],
+                                        counts.to(torch.int32)))
+    new = {"ht": st[:, :E], "hk": ck.gather(1, keep),
+           "hm": torch.cat([state["hm"], im], 1).gather(1, keep),
+           "hv": torch.cat([state["hv"], iv], 1).gather(1, keep),
+           "hw": torch.cat([state["hw"], iw], 1).gather(1, keep)}
+    for f in HEAP_FIELDS:
+        state[f].copy_(new[f])
+    state["head"].zero_()
+    state["occ_heap"].copy_(torch.maximum(
+        state["occ_heap"], (state["ht"] < INF).sum(-1).to(torch.int32)))
+
+
+# ----------------------------------------------------------------------
+# build and binding
+# ----------------------------------------------------------------------
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    path = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin/nvcc"
+    if not path.exists():
+        raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, "
+                           "/usr/local/cuda/bin): the CUDA kernels build "
+                           "only where the CUDA toolkit is installed")
+    return str(path)
+
+
+def build_library(ptxas_verbose: bool = False) -> tuple[Path, str]:
+    """Compile csrc/*.cu into one shared library with a plain C
+    interface under BUILD_DIR: one nvcc per source, all started
+    together, then one link. The file name carries a hash of the
+    sources and flags, so an existing library is reused only when it
+    matches. Returns (path, compiler output)."""
+    build_dir = BUILD_DIR
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode() + src.read_bytes())
+    lib = build_dir / f"libshadow_kernels_{h.hexdigest()[:16]}.so"
+    if lib.exists() and not ptxas_verbose:
+        return lib, ""
+    build_dir.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    extra = ["-Xptxas", "-v"] if ptxas_verbose else []
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = build_dir / f"{src.stem}.{os.getpid()}.o"
+        cmd = [nvcc, *NVCC_FLAGS, *extra, "-I", str(CSRC), "-c", str(src),
+               "-o", str(obj)]
+        jobs.append((obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    log = []
+    for obj, proc in jobs:
+        out, _ = proc.communicate()
+        log.append(out)
+        if proc.returncode != 0:
+            for o, pr in jobs:
+                if pr.poll() is None:
+                    pr.kill()
+                    pr.wait()
+                o.unlink(missing_ok=True)
+            raise RuntimeError(f"nvcc failed on {obj.stem}:\n{out}")
+    tmp = build_dir / f"{lib.name}.{os.getpid()}.tmp"
+    link = subprocess.run(
+        [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+         *[str(o) for o, _ in jobs]],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    for obj, _ in jobs:
+        obj.unlink(missing_ok=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+    os.replace(tmp, lib)
+    return lib, "".join(log)
+
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+_U = ctypes.c_uint
+
+_SIGNATURES = {
+    # H, E, K, B, win_end, ht hk hm hv hw, head event_seq packet_seq
+    # app_seq app n_exec n_deliv chk, host_vertex lat V, seed k1 k2,
+    # n_total msgload size selfloop, ob t k m s v, pops, stream
+    "shadow_pop_phase": [_I, _I, _I, _I, _L] + [_P] * 5 + [_P] * 8 +
+                        [_P, _P, _I, _U, _U, _I, _I, _I, _I] + [_P] * 5 +
+                        [_P, _P],
+    # H, OB, C, win_end, boot_end, ob t m v, packet_seq n_sent n_drop,
+    # host_vertex lat rel V, seed k1 k2, stream
+    "shadow_judge_outbox": [_I, _I, _I, _L, _L] + [_P] * 3 + [_P] * 3 +
+                           [_P, _P, _P, _I, _U, _U, _P],
+    # H, E, IN, F, ht hk hm hv hw head, ob t k m s v, perm starts
+    # counts, overflow occ_in occ_heap, stream
+    "shadow_merge_heaps": [_I, _I, _I, _L] + [_P] * 6 + [_P] * 5 +
+                          [_P] * 3 + [_P] * 3 + [_P],
+}
+
+
+def _ptr(t: torch.Tensor) -> int:
+    return t.data_ptr()
+
+
+class Kernels:
+    """The three kernels of one engine: the loaded library (built on
+    first CUDA use), the wrappers and their launch counters.
+
+    `timing=True` records a CUDA event pair around every launch, and
+    around every `route` call on CUDA tensors, so `kernel_ms()` can sum
+    the device time each took on the main path; it adds no
+    synchronisation."""
+
+    def __init__(self, timing: bool = False):
+        self.timing = timing
+        self.reset_counts()
+        self._lib = None
+
+    def reset_counts(self) -> None:
+        self.launches = dict.fromkeys(KERNEL_NAMES, 0)
+        self._events = {n: [] for n in (*KERNEL_NAMES, "route")}
+
+    def kernel_ms(self) -> dict:
+        """Summed device ms per kernel, and of the route, over the
+        recorded calls (timing mode); synchronises."""
+        torch.cuda.synchronize()
+        return {n: sum(a.elapsed_time(b) for a, b in ev)
+                for n, ev in self._events.items()}
+
+    def _timed(self, name: str, fn, *args):
+        """fn(*args), with an event pair recorded around it in timing
+        mode."""
+        if not self.timing:
+            return fn(*args)
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = fn(*args)
+        ev[1].record()
+        self._events[name].append(ev)
+        return out
+
+    def library(self):
+        if self._lib is None:
+            path, _ = build_library()
+            lib = ctypes.CDLL(str(path))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            self._lib = lib
+        return self._lib
+
+    def _launch(self, name: str, c_name: str, tensors, *args) -> None:
+        """Check every (tensor, dtype) the kernel reads or writes, launch
+        it on the current stream, and count the launch."""
+        dev = tensors[0][0].device
+        for t, dtype in tensors:
+            if t.device != dev or not t.is_cuda:
+                raise ValueError(f"{name}: all tensors must be on one "
+                                 "CUDA device")
+            if t.dtype != dtype:
+                raise ValueError(f"{name}: expected {dtype}, got "
+                                 f"{t.dtype} (shape {tuple(t.shape)})")
+            if not t.is_contiguous():
+                raise ValueError(f"{name}: tensors must be contiguous")
+        fn = getattr(self.library(), c_name)
+        stream = torch.cuda.current_stream().cuda_stream
+        err = self._timed(name, fn, *args, stream)
+        if err != 0:
+            raise RuntimeError(f"{name}: CUDA launch failed with error "
+                               f"{err}")
+        self.launches[name] += 1
+
+    def route(self, ob: dict):
+        """`route(ob)`; timed on CUDA tensors in timing mode. It is
+        torch, not a kernel of this package, so it counts no launch."""
+        if not ob["t"].is_cuda:
+            return route(ob)
+        return self._timed("route", route, ob)
+
+    def pop_phase(self, state: dict, ob: dict, pops: torch.Tensor,
+                  world: dict, win_end: int, p: PhaseParams) -> None:
+        if not state["head"].is_cuda:
+            return pop_phase_plain(state, ob, pops, world, win_end, p)
+        H = state["head"].shape[0]
+        a = p.app
+        heap = [state[f] for f in HEAP_FIELDS]
+        small = [state[f] for f in ("head", "event_seq", "packet_seq",
+                                    "app_seq", "app", "n_exec",
+                                    "n_deliv", "chk")]
+        tabs = [world["host_vertex"], world["lat"]]
+        obs = [ob[f] for f in OB_FIELDS]
+        i32, i64 = torch.int32, torch.int64
+        self._launch(
+            "pop_phase", "shadow_pop_phase",
+            [(t, i64) for t in heap + obs] + [(t, i32) for t in small[:7]]
+            + [(small[7], i64), (pops, i32)] + [(t, i32) for t in tabs],
+            H, p.E, p.K, p.B, int(win_end), *map(_ptr, heap),
+            *map(_ptr, small), *map(_ptr, tabs), world["lat"].shape[0],
+            p.seed[0], p.seed[1], a.n_hosts_total, a.msgload, a.size,
+            a.selfloop, *map(_ptr, obs), _ptr(pops))
+
+    def judge_outbox(self, state: dict, ob: dict, world: dict,
+                     win_end: int, p: PhaseParams) -> None:
+        if not ob["t"].is_cuda:
+            return judge_outbox_plain(state, ob, world, win_end, p)
+        H, OB = ob["t"].shape
+        obs = [ob["t"], ob["m"], ob["v"]]
+        cnt = [state["packet_seq"], state["n_sent"], state["n_drop"]]
+        tabs = [world["host_vertex"], world["lat"], world["rel"]]
+        self._launch(
+            "judge_outbox", "shadow_judge_outbox",
+            [(t, torch.int64) for t in obs]
+            + [(t, torch.int32) for t in cnt + tabs[:2]]
+            + [(tabs[2], torch.float32)],
+            H, OB, p.C, int(win_end), int(p.boot_end), *map(_ptr, obs),
+            *map(_ptr, cnt), *map(_ptr, tabs), world["lat"].shape[0],
+            p.seed[0], p.seed[1])
+
+    def merge_heaps(self, state: dict, ob: dict, perm: torch.Tensor,
+                    starts: torch.Tensor, counts: torch.Tensor,
+                    p: PhaseParams) -> None:
+        if not perm.is_cuda:
+            return merge_heaps_plain(state, ob, perm, starts, counts, p)
+        H = state["head"].shape[0]
+        heap = [state[f] for f in HEAP_FIELDS] + [state["head"]]
+        obs = [ob[f] for f in OB_FIELDS]
+        seg = [perm, starts, counts]
+        occ = [state["overflow"], state["occ_in"], state["occ_heap"]]
+        self._launch(
+            "merge_heaps", "shadow_merge_heaps",
+            [(t, torch.int64) for t in heap[:5] + obs + seg]
+            + [(t, torch.int32) for t in heap[5:] + occ],
+            H, p.E, p.IN, perm.shape[0], *map(_ptr, heap),
+            *map(_ptr, obs), *map(_ptr, seg), *map(_ptr, occ))

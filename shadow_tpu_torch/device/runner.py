@@ -1,0 +1,100 @@
+"""A lean runner for the port's device engine (the counterpart of the
+reference package's device/runner.py `DeviceRunner`, without segments,
+supervision, capacity planning or a compile cache).
+
+It builds the engine from a config with the reference's knobs (the
+outbox floored at 8 pop iterations of send lanes, the lookahead from
+the runahead or the minimum path latency), runs to the stop time and
+returns the SimStats totals plus the per-host `events_executed` and
+`trace_checksum` arrays.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+from typing import Optional
+
+import numpy as np
+
+from shadow_tpu_torch.config.schema import ConfigOptions
+from shadow_tpu_torch.core.build import build
+from shadow_tpu_torch.device.engine import (
+    DeviceEngine,
+    EngineConfig,
+    state_to_numpy,
+)
+from shadow_tpu_torch.device.kernels import Kernels
+
+STAT_KEYS = ("n_exec", "n_sent", "n_drop", "n_deliv", "chk", "overflow",
+             "x_overflow")
+
+
+@dataclass
+class SimStats:
+    ok: bool = True
+    end_time: int = 0
+    events_executed: int = 0
+    packets_sent: int = 0
+    packets_delivered: int = 0
+    packets_dropped: int = 0
+    rounds: int = 0
+    wall_s: float = 0.0
+    # per host, [H]
+    host_events_executed: np.ndarray = field(default=None, repr=False)
+    host_trace_checksum: np.ndarray = field(default=None, repr=False)
+    overflow: int = 0
+    x_overflow: int = 0
+
+    def summary(self) -> str:
+        return (f"{self.events_executed} events, "
+                f"{self.packets_sent} packets sent "
+                f"({self.packets_delivered} delivered, "
+                f"{self.packets_dropped} dropped), "
+                f"{self.rounds} rounds")
+
+
+def make_engine(cfg: ConfigOptions, device="cuda",
+                kernels: Optional[Kernels] = None):
+    """(engine, built simulation) for a config inside the slice."""
+    sim = build(cfg)
+    xp = cfg.experimental
+    outbox = max(xp.outbox_capacity, 8 * sim.app.max_sends)
+    engine = DeviceEngine(
+        EngineConfig(
+            n_hosts=len(sim.host_vertex),
+            event_capacity=xp.event_capacity,
+            outbox_capacity=outbox,
+            lookahead=max(1, sim.lookahead),
+            stop_time=cfg.general.stop_time,
+            bootstrap_end=cfg.general.bootstrap_end_time,
+            seed=cfg.general.seed,
+            exchange_in_capacity=xp.exchange_in_capacity,
+        ),
+        sim.app, host_vertex=sim.host_vertex,
+        latency_ns=sim.topology.latency_ns,
+        reliability=sim.topology.reliability,
+        device=device, kernels=kernels)
+    return engine, sim
+
+
+def run(cfg: ConfigOptions, device="cuda",
+        kernels: Optional[Kernels] = None) -> SimStats:
+    engine, sim = make_engine(cfg, device=device, kernels=kernels)
+    state = engine.init_state(sim.start_times, sim.stop_times)
+    t0 = time.perf_counter()
+    state, rounds = engine.run(state)
+    final = state_to_numpy(state, STAT_KEYS)   # synchronises
+    wall = time.perf_counter() - t0
+    stats = SimStats(
+        end_time=cfg.general.stop_time, rounds=rounds, wall_s=wall,
+        events_executed=int(final["n_exec"].sum()),
+        packets_sent=int(final["n_sent"].sum()),
+        packets_dropped=int(final["n_drop"].sum()),
+        packets_delivered=int(final["n_deliv"].sum()),
+        host_events_executed=final["n_exec"].astype(np.int64),
+        host_trace_checksum=final["chk"],
+        overflow=int(final["overflow"].sum()),
+        x_overflow=int(final["x_overflow"].sum()))
+    stats.ok = stats.overflow == 0 and stats.x_overflow == 0
+    return stats

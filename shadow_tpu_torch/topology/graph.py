@@ -1,0 +1,327 @@
+"""Network topology as dense arrays (the port's copy of the reference
+package's topology/graph.py, cut to the dense representation).
+
+All-pairs latency and reliability matrices are computed once at load
+time, so every per-packet lookup on the card is a [V,V] gather.
+
+Semantics kept from the reference:
+
+* vertices require `bandwidth_down`/`bandwidth_up` unit strings;
+* edges require `latency` (> 0) and `packet_loss` in [0,1];
+* the graph must be connected (strongly, if directed);
+* `use_shortest_path=false` requires a complete graph and uses direct
+  edges only;
+* self-paths: a self-loop edge is used as-is; otherwise the cheapest
+  incident edge is used out-and-back (latency doubled, reliability
+  squared);
+* computed zero-latency paths are clamped to 1 ms;
+* reliability of a multi-edge path is the product of per-edge
+  (1 - packet_loss).
+
+`representation: hierarchical` (factored tables) is a later item of
+the port and is refused by the config check (core/build.py).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+
+from shadow_tpu_torch import simtime
+from shadow_tpu_torch.config.units import parse_bandwidth_bits, parse_time_ns
+from shadow_tpu_torch.topology.gml import GmlError, GmlGraph, parse_gml
+
+ONE_GBIT_SWITCH_GML = """graph [
+  directed 0
+  node [
+    id 0
+    ip_address "0.0.0.0"
+    bandwidth_up "1 Gbit"
+    bandwidth_down "1 Gbit"
+  ]
+  edge [
+    source 0
+    target 0
+    latency "1 ms"
+    packet_loss 0.0
+  ]
+]"""
+
+_MIN_PATH_LATENCY_NS = simtime.SIMTIME_ONE_MILLISECOND  # 0-latency clamp
+
+
+def dense_adjacency(n_vertices: int, directed: bool,
+                    edge_src: np.ndarray, edge_dst: np.ndarray,
+                    edge_latency_ns: np.ndarray,
+                    edge_reliability: np.ndarray
+                    ) -> tuple[np.ndarray, np.ndarray]:
+    """Dense [V,V] direct-edge latency (ns; 0 = no edge) and
+    reliability matrices, keeping the cheapest parallel edge."""
+    V = n_vertices
+    lat = np.zeros((V, V), dtype=np.int64)
+    rel = np.zeros((V, V), dtype=np.float32)
+
+    def _store(s, d, l, r):
+        if lat[s, d] == 0 or l < lat[s, d]:
+            lat[s, d] = l
+            rel[s, d] = r
+
+    for s, d, l, r in zip(edge_src, edge_dst, edge_latency_ns,
+                          edge_reliability):
+        _store(s, d, l, r)
+        if not directed:
+            _store(d, s, l, r)
+    return lat, rel
+
+
+def compute_path_matrices(direct_lat: np.ndarray, direct_rel: np.ndarray,
+                          use_shortest_path: bool
+                          ) -> tuple[np.ndarray, np.ndarray]:
+    """All-pairs (latency, reliability) path matrices from a dense
+    direct-edge adjacency."""
+    V = direct_lat.shape[0]
+    if use_shortest_path:
+        path_lat, path_rel = _all_pairs_shortest(direct_lat, direct_rel)
+    else:
+        path_lat = direct_lat.copy()
+        path_rel = direct_rel.copy()
+
+    # self paths: self-loop edge as-is, otherwise cheapest incident
+    # edge doubled
+    for v in range(V):
+        options: list[tuple[int, float]] = []
+        if direct_lat[v, v] > 0:
+            options.append((int(direct_lat[v, v]),
+                            float(direct_rel[v, v])))
+        options.extend(
+            (int(2 * direct_lat[v, u]), float(direct_rel[v, u] ** 2))
+            for u in range(V) if u != v and direct_lat[v, u] > 0)
+        if options:
+            path_lat[v, v], path_rel[v, v] = min(options)
+        else:
+            path_lat[v, v], path_rel[v, v] = 0, 1.0
+
+    # clamp only *zero*-latency paths to 1 ms
+    zero = path_lat <= 0
+    if zero.any():
+        path_rel = np.where(zero, 1.0, path_rel)
+        path_lat = np.where(zero, _MIN_PATH_LATENCY_NS, path_lat)
+    return path_lat.astype(np.int64), path_rel.astype(np.float32)
+
+
+def _all_pairs_shortest(direct_lat: np.ndarray, direct_rel: np.ndarray
+                        ) -> tuple[np.ndarray, np.ndarray]:
+    """All-pairs Dijkstra by latency; reliability accumulates along the
+    chosen (latency-)shortest path via the predecessor tree."""
+    V = direct_lat.shape[0]
+    try:
+        from scipy.sparse import csr_matrix
+        from scipy.sparse.csgraph import dijkstra
+    except ImportError:
+        return _all_pairs_minplus(direct_lat, direct_rel)
+
+    # self-loops are not transit edges; self paths are computed apart
+    w = direct_lat.astype(np.float64)
+    np.fill_diagonal(w, 0.0)
+    dist, pred = dijkstra(csr_matrix(w), directed=True,
+                          return_predecessors=True)
+    if np.isinf(dist).any():
+        raise GmlError("graph is not connected (no path between some "
+                       "vertex pair)")
+
+    # hop level of every (s, d) by fixpoint, then rel[s,d] =
+    # rel[s,pred[d]] * edge_rel[pred[d],d] level by level
+    hops = np.full((V, V), -1, dtype=np.int64)
+    np.fill_diagonal(hops, 0)
+    for _ in range(V):
+        pending = (pred >= 0) & (hops < 0)
+        if not pending.any():
+            break
+        s_idx, d_idx = np.nonzero(pending)
+        parent_hops = hops[s_idx, pred[s_idx, d_idx]]
+        ready = parent_hops >= 0
+        if not ready.any():
+            break
+        hops[s_idx[ready], d_idx[ready]] = parent_hops[ready] + 1
+
+    rel = np.zeros((V, V), dtype=np.float64)
+    np.fill_diagonal(rel, 1.0)
+    for h in range(1, int(hops.max()) + 1):
+        s_idx, d_idx = np.nonzero(hops == h)
+        pr = pred[s_idx, d_idx]
+        rel[s_idx, d_idx] = rel[s_idx, pr] * direct_rel[pr, d_idx]
+    return np.rint(dist).astype(np.int64), rel.astype(np.float32)
+
+
+def _all_pairs_minplus(direct_lat: np.ndarray, direct_rel: np.ndarray
+                       ) -> tuple[np.ndarray, np.ndarray]:
+    """Dense Floyd-Warshall carrying reliability, scipy-free."""
+    V = direct_lat.shape[0]
+    lat = np.where(direct_lat > 0, direct_lat.astype(np.float64), np.inf)
+    np.fill_diagonal(lat, 0.0)
+    rel = np.where(direct_lat > 0, direct_rel.astype(np.float64), 0.0)
+    np.fill_diagonal(rel, 1.0)
+    for k in range(V):
+        via = lat[:, k, None] + lat[None, k, :]
+        better = via < lat
+        lat = np.where(better, via, lat)
+        rel = np.where(better, rel[:, k, None] * rel[None, k, :], rel)
+    if np.isinf(lat).any():
+        raise GmlError("graph is not connected (no path between "
+                       "some vertex pair)")
+    return np.rint(lat).astype(np.int64), rel.astype(np.float32)
+
+
+def _parse_edge_latency_ns(value) -> int:
+    """Edge latency: a unit string ("50 ms"); bare numbers are
+    milliseconds."""
+    if isinstance(value, (int, float)):
+        return int(round(value * simtime.SIMTIME_ONE_MILLISECOND))
+    return parse_time_ns(value)
+
+
+@dataclass
+class Topology:
+    directed: bool
+    complete: bool
+    use_shortest_path: bool
+    vertex_ids: np.ndarray          # [V] original GML ids
+    edge_src: np.ndarray            # [E] vertex indices
+    edge_dst: np.ndarray
+    edge_latency_ns: np.ndarray     # [E] int64
+    edge_reliability: np.ndarray    # [E] float32 (1 - packet_loss)
+    latency_ns: np.ndarray          # [V,V] int64 path latency
+    reliability: np.ndarray         # [V,V] float32 path reliability
+
+    @property
+    def n_vertices(self) -> int:
+        return len(self.vertex_ids)
+
+    @property
+    def min_latency_ns(self) -> int:
+        """Minimum path latency: the conservative lookahead window."""
+        return int(self.latency_ns.min())
+
+    def vertex_index_for_id(self, gml_id: int) -> int:
+        idx = np.nonzero(self.vertex_ids == gml_id)[0]
+        if len(idx) == 0:
+            raise GmlError(f"no vertex with GML id {gml_id}")
+        return int(idx[0])
+
+    @classmethod
+    def from_gml(cls, text: str,
+                 use_shortest_path: bool = True) -> "Topology":
+        return cls.from_parsed(parse_gml(text), use_shortest_path)
+
+    @classmethod
+    def builtin_1_gbit_switch(cls) -> "Topology":
+        return cls.from_gml(ONE_GBIT_SWITCH_GML, use_shortest_path=True)
+
+    @classmethod
+    def from_parsed(cls, g: GmlGraph,
+                    use_shortest_path: bool) -> "Topology":
+        V = len(g.nodes)
+        if V == 0:
+            raise GmlError("graph has no vertices")
+        ids = np.array([int(n.get("id")) for n in g.nodes], dtype=np.int64)
+        if len(set(ids.tolist())) != V:
+            raise GmlError("duplicate vertex ids")
+        id_to_idx = {int(i): k for k, i in enumerate(ids)}
+        for node in g.nodes:
+            for key in ("bandwidth_down", "bandwidth_up"):
+                if node.get(key) is None:
+                    raise GmlError(f"vertex {node.get('id')} missing "
+                                   f"required attribute {key!r}")
+                parse_bandwidth_bits(node.get(key))
+
+        E = len(g.edges)
+        esrc = np.empty(E, dtype=np.int64)
+        edst = np.empty(E, dtype=np.int64)
+        elat = np.empty(E, dtype=np.int64)
+        erel = np.empty(E, dtype=np.float32)
+        for k, e in enumerate(g.edges):
+            try:
+                esrc[k] = id_to_idx[int(e.get("source"))]
+                edst[k] = id_to_idx[int(e.get("target"))]
+            except KeyError as bad:
+                raise GmlError(
+                    f"edge references unknown vertex id "
+                    f"{bad}") from bad
+            lat = e.get("latency")
+            if lat is None:
+                raise GmlError("edge missing required attribute 'latency'")
+            elat[k] = _parse_edge_latency_ns(lat)
+            if elat[k] <= 0:
+                raise GmlError(f"edge {k} has latency <= 0")
+            loss = e.get("packet_loss")
+            if loss is None:
+                raise GmlError("edge missing required attribute "
+                               "'packet_loss'")
+            loss = float(loss)
+            if not (0.0 <= loss <= 1.0):
+                raise GmlError(f"edge {k} packet_loss {loss} not in [0,1]")
+            erel[k] = 1.0 - loss
+
+        top = cls(
+            directed=g.directed, complete=False,
+            use_shortest_path=use_shortest_path, vertex_ids=ids,
+            edge_src=esrc, edge_dst=edst, edge_latency_ns=elat,
+            edge_reliability=erel,
+            latency_ns=np.zeros((V, V), dtype=np.int64),
+            reliability=np.zeros((V, V), dtype=np.float32),
+        )
+        top._check_connected()
+        top.complete = top._detect_complete()
+        if not use_shortest_path and not top.complete:
+            raise GmlError("use_shortest_path=false requires a complete "
+                           "graph (every ordered vertex pair needs a "
+                           "direct edge)")
+        direct_lat, direct_rel = top._adjacency()
+        top.latency_ns, top.reliability = compute_path_matrices(
+            direct_lat, direct_rel, use_shortest_path)
+        return top
+
+    def _adjacency(self) -> tuple[np.ndarray, np.ndarray]:
+        return dense_adjacency(self.n_vertices, self.directed,
+                               self.edge_src, self.edge_dst,
+                               self.edge_latency_ns,
+                               self.edge_reliability)
+
+    def _check_connected(self) -> None:
+        """Single (strongly-)connected component."""
+        V = self.n_vertices
+        adj = [[] for _ in range(V)]
+        radj = [[] for _ in range(V)]
+        for s, d in zip(self.edge_src, self.edge_dst):
+            adj[s].append(int(d))
+            radj[d].append(int(s))
+            if not self.directed:
+                adj[d].append(int(s))
+                radj[s].append(int(d))
+
+        def _bfs(start, neighbors):
+            seen = np.zeros(V, dtype=bool)
+            seen[start] = True
+            stack = [start]
+            while stack:
+                u = stack.pop()
+                for v in neighbors[u]:
+                    if not seen[v]:
+                        seen[v] = True
+                        stack.append(v)
+            return seen
+
+        if not _bfs(0, adj).all():
+            raise GmlError("graph is not connected")
+        if self.directed and not _bfs(0, radj).all():
+            raise GmlError("directed graph is not strongly connected")
+
+    def _detect_complete(self) -> bool:
+        """Every ordered pair of distinct vertices has a direct edge."""
+        V = self.n_vertices
+        if V == 1:
+            return True
+        lat, _ = self._adjacency()
+        off_diag = ~np.eye(V, dtype=bool)
+        return bool((lat[off_diag] > 0).all())

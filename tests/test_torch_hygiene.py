@@ -1,0 +1,156 @@
+"""Rules the port keeps: it imports neither jax nor the JAX package, its
+entry points run on the card unless told otherwise, it refuses configs
+outside its slice by name, and its kernel wrappers take the plain path
+only for CPU tensors, counting no launch there."""
+
+import ast
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from shadow_tpu_torch.config import load_config_str
+from shadow_tpu_torch.core.build import OutsideSlice, build
+from shadow_tpu_torch.device import engine as port_engine
+from shadow_tpu_torch.device import runner
+from shadow_tpu_torch.device.kernels import KERNEL_NAMES, Kernels
+
+ROOT = Path(__file__).resolve().parent.parent
+
+PHOLD = """
+general: {stop_time: 300ms, seed: 3}
+network:
+  graph:
+    type: gml
+    inline: |
+      graph [ directed 0
+        node [ id 0 bandwidth_down "1 Gbit" bandwidth_up "1 Gbit" ]
+        node [ id 1 bandwidth_down "1 Gbit" bandwidth_up "1 Gbit" ]
+        edge [ source 0 target 0 latency "20 ms" packet_loss 0.05 ]
+        edge [ source 0 target 1 latency "10 ms" packet_loss 0.05 ] ]
+experimental: {scheduler_policy: tpu}
+hosts:
+  a:
+    quantity: 3
+    network_node_id: 0
+    processes: [{path: model:phold, args: msgload=2, start_time: 10ms}]
+  b:
+    quantity: 3
+    network_node_id: 1
+    processes: [{path: model:phold, args: msgload=2, start_time: 12ms}]
+"""
+
+
+def _port_files():
+    files = sorted((ROOT / "shadow_tpu_torch").rglob("*.py"))
+    return files + [ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_no_jax_and_no_reference_package(path):
+    assert path.exists(), path
+    for mod in _imported_modules(path):
+        top = mod.split(".")[0]
+        assert top not in ("jax", "jaxlib", "shadow_tpu"), \
+            f"{path.relative_to(ROOT)} imports {mod}"
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it():
+    cfg = load_config_str(PHOLD)
+    if torch.cuda.is_available():
+        pytest.skip("this box has a CUDA device; the refusal is for "
+                    "boxes without one")
+    with pytest.raises(port_engine.NoCudaDevice, match="device='cpu'"):
+        runner.run(cfg)
+    with pytest.raises(port_engine.NoCudaDevice):
+        runner.make_engine(cfg)
+    assert runner.run(cfg, device="cpu").ok
+
+
+@pytest.mark.parametrize("override,item", [
+    ("hosts.a.processes=[{path: 'model:tgen_client', "
+     "args: 'server=b'}]", "queue (a) item 6"),
+    ("experimental.model_bandwidth=true", "queue (a) item 8"),
+    ("experimental.exchange=two_phase", "queue (a) item 9"),
+    ("experimental.scheduler_policy=serial", "queue (a) item 10"),
+    ("network.topology={representation: hierarchical}",
+     "queue (a) item 8"),
+    ("experimental.checkpoint_save=run.npz", "queue (a) item 7"),
+])
+def test_configs_outside_the_slice_are_refused_by_roadmap_item(
+        override, item):
+    from shadow_tpu_torch.config.loader import load_config_str as load
+
+    cfg = load(PHOLD, [override])
+    with pytest.raises(OutsideSlice, match="ROADMAP.md " +
+                       item.replace("(", r"\(").replace(")", r"\)")):
+        build(cfg)
+
+
+def test_wrappers_take_the_plain_path_on_cpu_and_count_nothing():
+    kernels = Kernels(timing=True)
+    engine, sim = runner.make_engine(load_config_str(PHOLD),
+                                     device="cpu", kernels=kernels)
+    state = engine.init_state(sim.start_times, sim.stop_times)
+    p = engine.params
+    ob, pops = engine._outbox()
+    win_end = engine.next_time(state) + engine.config.lookahead
+    kernels.pop_phase(state, ob, pops, engine.world, win_end, p)
+    assert int(pops.sum()) > 0
+    kernels.judge_outbox(state, ob, engine.world, win_end, p)
+    perm, starts, counts = kernels.route(ob)
+    kernels.merge_heaps(state, ob, perm, starts, counts, p)
+    engine.run(state)
+    assert kernels.launches == dict.fromkeys(KERNEL_NAMES, 0)
+    assert not any(kernels._events.values())     # nothing was timed
+    assert kernels._lib is None          # nothing was built or loaded
+
+
+@pytest.mark.parametrize("key,value", [
+    ("judge_placement", "flush"), ("merge_strategy", "global"),
+    ("pop_strategy", "onehot"), ("table_strategy", "gather")])
+def test_reference_layout_variant_keys_are_validated_and_ignored(
+        key, value):
+    from shadow_tpu_torch.config.loader import load_config_str as load
+
+    plain = runner.run(load_config_str(PHOLD), device="cpu")
+    pinned = runner.run(load(PHOLD, [f"experimental.{key}={value}"]),
+                        device="cpu")
+    np.testing.assert_array_equal(pinned.host_trace_checksum,
+                                  plain.host_trace_checksum)
+    with pytest.raises(ValueError, match=f"experimental.{key}="):
+        load(PHOLD, [f"experimental.{key}=bogus"])
+
+
+def test_cpu_run_is_deterministic_and_overflow_is_loud():
+    a = runner.run(load_config_str(PHOLD), device="cpu")
+    b = runner.run(load_config_str(PHOLD), device="cpu")
+    assert a.ok and a.events_executed > 0
+    np.testing.assert_array_equal(a.host_trace_checksum,
+                                  b.host_trace_checksum)
+    # two heap slots cannot hold a boot plus its in-flight messages
+    tight = runner.run(load_config_str(
+        PHOLD, ["experimental.event_capacity=2",
+                "experimental.exchange_in_capacity=1"]), device="cpu")
+    assert not tight.ok and tight.overflow > 0
+
+
+def test_build_matches_reference_columnar_layout():
+    sim = build(load_config_str(PHOLD))
+    np.testing.assert_array_equal(sim.host_vertex, [0, 0, 0, 1, 1, 1])
+    np.testing.assert_array_equal(sim.start_times,
+                                  [10**7] * 3 + [12 * 10**6] * 3)
+    assert sim.lookahead == 10**7
+    assert (sim.app.msgload, sim.app.n_hosts_total) == (2, 6)
