@@ -7,7 +7,6 @@ torch, numpy and pyyaml, never jax and never the shadow_tpu package:
 where it needs a jax-free module of that package it keeps its own copy
 under the same relative path.
 
-Slice 1 (this package's scope so far): PHOLD on one GPU, dense
-topology tables. Configs outside the slice are refused by name
-(core/build.py).
+Its scope so far: PHOLD and the tgen ladder on one GPU, dense topology
+tables. Configs outside it are refused by name (core/build.py).
 """

@@ -1,5 +1,5 @@
 """Configuration schema (the port's copy of the reference package's
-config/schema.py, cut to the PHOLD slice).
+config/schema.py, cut to the port's slices).
 
 YAML-compatible with the reference: sections `general`, `network`,
 `experimental` and `hosts.<name>` with nested `processes`. Every key
@@ -35,8 +35,6 @@ LATER_EXPERIMENTAL = {
          "router_static_capacity", "hybrid_cpu_policy",
          "hybrid_judge_min_batch"),
         "queue (a) item 10 (the hybrid policy; CPU-engine options)"),
-    **dict.fromkeys(("burst_pops",), "queue (a) item 6 (TgenDevice "
-                                     "with bursts)"),
     **dict.fromkeys(
         ("capacity_plan", "capacity_warmup", "capacity_headroom",
          "strategy_plan", "dispatch_segment", "pipeline_depth",
@@ -52,7 +50,7 @@ LATER_EXPERIMENTAL = {
                      "exchange_capacity2", "mesh_shards", "mesh_axis"),
                     "queue (a) item 9 (multi-GPU)"),
     **dict.fromkeys(("outbox_compact",),
-                    "queue (b) item 7 (the route kernel)"),
+                    "queue (b) item 7 (the outbox compaction)"),
     **dict.fromkeys(
         ("dispatch_retries", "dispatch_retry_backoff", "failover",
          "chaos", "admission", "device_memory_budget", "round_watchdog",
@@ -242,6 +240,9 @@ class ExperimentalOptions:
     event_capacity: int = 64                # heap slots per host
     outbox_capacity: int = 32               # outbox lanes per host/phase
     exchange_in_capacity: int = 0           # arrivals per host/flush
+    # events a burst host pops per iteration (0 = the app's default,
+    # 1 = no bursts); traces are the same at any width
+    burst_pops: int = 0
     # reference keys set in the config that the port does not run yet
     later: dict = field(default_factory=dict)
 
@@ -249,7 +250,7 @@ class ExperimentalOptions:
     def from_dict(cls, d: dict) -> "ExperimentalOptions":
         own = {"interpose_method", "scheduler_policy", "runahead",
                "event_capacity", "outbox_capacity",
-               "exchange_in_capacity"}
+               "exchange_in_capacity", "burst_pops"}
         _check_keys("experimental", d,
                     own | set(LAYOUT_VARIANTS) | set(LATER_EXPERIMENTAL))
         out = cls(later={k: v for k, v in d.items()
@@ -259,9 +260,11 @@ class ExperimentalOptions:
             if name == "runahead":
                 v = parse_time_ns(v) if v is not None else None
             elif name in ("event_capacity", "outbox_capacity",
-                          "exchange_in_capacity"):
+                          "exchange_in_capacity", "burst_pops"):
                 v = int(v)
             setattr(out, name, v)
+        if not 0 <= out.burst_pops <= 32:
+            raise ValueError("experimental.burst_pops must be in 0..32")
         _check_choice("experimental", "scheduler_policy",
                       out.scheduler_policy, SCHEDULER_POLICIES)
         _check_choice("experimental", "interpose_method",

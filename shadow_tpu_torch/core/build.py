@@ -1,21 +1,24 @@
 """Instantiate a config for the port's device engine.
 
 The port of the reference package's columnar build
-(core/controller.py `build`/`_build_columnar`, `_lookahead`) and of the
-PHOLD branch of device/runner.py `_plane_twin`: every per-host quantity
-is an array fill over host groups, and the app is one PholdDevice whose
-args must match across groups.
+(core/controller.py `build`/`_build_columnar`, `_lookahead`), of its
+host naming (host/plane.py `name_of`, `PlaneNameMap`) and of
+device/runner.py `_plane_twin`: every per-host quantity is an array
+fill over host groups, and the app is one device twin for the whole
+config: a PholdDevice whose args match across groups, or a TgenDevice
+that gives each host its role, its server and its client args.
 
-The port runs one slice of the reference so far: PHOLD on the `tpu`
-policy, one GPU, dense topology, no faults, no ensemble. `check_slice`
-refuses any config outside it with an error naming the ROADMAP.md item
-that will port it; nothing outside the slice runs silently.
+The port runs these slices of the reference so far: PHOLD and tgen on
+the `tpu` policy, one GPU, dense topology, no faults, no ensemble.
+`check_slice` refuses any config outside them with an error naming the
+ROADMAP.md item that will port it; nothing outside runs silently.
 """
 
 from __future__ import annotations
 
 import shlex
 from dataclasses import dataclass
+from typing import Union
 
 import numpy as np
 
@@ -23,7 +26,8 @@ from shadow_tpu_torch.config.schema import (
     LATER_EXPERIMENTAL,
     ConfigOptions,
 )
-from shadow_tpu_torch.device.apps import PholdDevice
+from shadow_tpu_torch.core.tgen_args import TgenClientArgs
+from shadow_tpu_torch.device.apps import PholdDevice, TgenDevice
 from shadow_tpu_torch.topology.graph import Topology
 
 
@@ -35,6 +39,11 @@ class OutsideSlice(ValueError):
 def _refuse(what: str, item: str) -> None:
     raise OutsideSlice(f"{what} is not ported to shadow_tpu_torch yet "
                        f"(ROADMAP.md {item})")
+
+
+# model process path -> the device twin that runs it
+MODELS = {"model:phold": "phold", "model:tgen_server": "tgen",
+          "model:tgen_client": "tgen"}
 
 
 def check_slice(cfg: ConfigOptions) -> None:
@@ -68,13 +77,21 @@ def check_slice(cfg: ConfigOptions) -> None:
                     "processes per host", "queue (a) item 10 (hybrid "
                     "policy for multi-process hosts)")
         path = procs[0].path
-        if path != "model:phold":
+        if path not in MODELS:
             _refuse(f"hosts.{g.name}: process {path!r} (the port runs "
-                    "model:phold)", "queue (a) item 6 (TgenDevice), "
-                    "item 11 (TorDevice) and item 10 (real processes)")
+                    f"{', '.join(sorted(MODELS))})", "queue (a) item 11 "
+                    "(TorDevice) and item 10 (real processes)")
         if g.ip_address_hint or g.city_code_hint or g.country_code_hint:
             _refuse(f"hosts.{g.name}: attachment hints",
                     "queue (a) item 7 (the object build)")
+    if len({MODELS[g.processes[0].path] for g in cfg.hosts}) > 1:
+        models = sorted({g.processes[0].path[len("model:"):]
+                         for g in cfg.hosts})
+        raise OutsideSlice(
+            f"no device twin registered for {models}; available: phold, "
+            "tgen (server+client) — the reference runs such a mix on "
+            "its hybrid policy, which is not ported to shadow_tpu_torch "
+            "yet (ROADMAP.md queue (a) item 10)")
 
 
 def load_topology(cfg: ConfigOptions) -> Topology:
@@ -111,25 +128,116 @@ class BuiltSimulation:
     start_times: np.ndarray     # [H] int64 boot time
     stop_times: np.ndarray      # [H] int64 stop time, -1 = none
     lookahead: int              # conservative window, ns
-    app: PholdDevice
+    app: Union[PholdDevice, TgenDevice]
+
+
+class HostNames:
+    """Host name -> id over the group layout, without a per-host
+    table: a group of one host is named after the group, a larger
+    group's hosts are name0..name{n-1} (no leading zeros). Group sets
+    whose generated names could collide are refused: the reference
+    resolves those through its object build."""
+
+    def __init__(self, groups: list[tuple[str, int, int]]):
+        self.groups = {name: (base, q) for name, base, q in groups}
+        for a in self.groups:
+            for b in self.groups:
+                if a != b and b.startswith(a) and b[len(a):].isdigit():
+                    _refuse(f"host groups {a!r} and {b!r}, whose "
+                            "generated host names can collide",
+                            "queue (a) item 7 (the object build)")
+
+    def name_of(self, host_id: int) -> str:
+        for name, (base, q) in self.groups.items():
+            if base <= host_id < base + q:
+                return name if q == 1 else f"{name}{host_id - base}"
+        raise KeyError(host_id)
+
+    def get(self, name: str):
+        g = self.groups.get(name)
+        if g is not None and g[1] == 1:
+            return g[0]
+        for prefix, (base, q) in self.groups.items():
+            if q > 1 and name.startswith(prefix):
+                suf = name[len(prefix):]
+                if suf.isdigit() and str(int(suf)) == suf and int(suf) < q:
+                    return base + int(suf)
+        return None
+
+    def members(self, name: str):
+        """A group's (first id, size), or None."""
+        return self.groups.get(name)
+
+
+def _phold_app(n_total: int, arg_list) -> PholdDevice:
+    args = {(int(a.get("msgload", 1)), int(a.get("size", 64)),
+             int(a.get("selfloop", 0))) for _, a in arg_list}
+    if len(args) != 1:
+        raise ValueError("tpu policy: phold args must match across hosts")
+    msgload, size, selfloop = args.pop()
+    return PholdDevice(n_hosts_total=n_total, msgload=msgload, size=size,
+                       selfloop=selfloop)
+
+
+def _tgen_app(n_total: int, names: HostNames, arg_list) -> TgenDevice:
+    """The tgen twin: per host its role (0 server, 1 client), its
+    server's id and its client args. `server=` is an exact host name
+    first; else it names a group, and client `id` gets
+    members[0] + id % len(members)."""
+    roles = np.zeros(n_total, np.int32)
+    server_gid = np.zeros(n_total, np.int32)
+    count = np.zeros(n_total, np.int32)
+    pause = np.zeros(n_total, np.int64)
+    retry = np.zeros(n_total, np.int64)
+    clients = [(g, TgenClientArgs.parse(a)) for g, a in arg_list
+               if g.processes[0].path == "model:tgen_client"]
+    if not clients:
+        raise ValueError("tpu policy: tgen config has no clients")
+    size = clients[0][1].size
+    for g, c in clients:
+        if c.size != size:
+            raise ValueError(
+                "tpu policy: tgen client `size` must match across "
+                "hosts (it shapes the shared servers' responses); "
+                "count/pause/retry may vary")
+    for g, c in clients:
+        base, q = names.members(g.name)
+        sl = slice(base, base + q)
+        roles[sl] = 1
+        count[sl] = c.count
+        pause[sl] = c.pause_ns
+        retry[sl] = c.retry_ns
+        sid = names.get(c.server_name)
+        if sid is not None:
+            server_gid[sl] = sid
+            continue
+        members = names.members(c.server_name)
+        if not members:
+            raise ValueError(f"tgen client on {names.name_of(base)}: "
+                             f"unknown server {c.server_name!r}")
+        ids = np.arange(base, base + q, dtype=np.int64)
+        server_gid[sl] = (members[0] + ids % members[1]).astype(np.int32)
+    return TgenDevice(roles=roles, server_gid=server_gid, size=size,
+                      count=count, pause_ns=pause, retry_ns=retry)
 
 
 def build(cfg: ConfigOptions) -> BuiltSimulation:
     check_slice(cfg)
     topology = load_topology(cfg)
     n_total = cfg.total_hosts()
-    v_parts, t0_parts, t1_parts, args = [], [], [], []
+    v_parts, t0_parts, t1_parts, arg_list, layout = [], [], [], [], []
+    base = 0
     for g in cfg.hosts:
         q = g.quantity
         if g.network_node_stride > 0:
-            base = topology.vertex_index_for_id(g.network_node_id)
-            last = base + (q - 1) * g.network_node_stride
+            vbase = topology.vertex_index_for_id(g.network_node_id)
+            last = vbase + (q - 1) * g.network_node_stride
             if last >= topology.n_vertices:
                 raise ValueError(
                     f"hosts.{g.name}: network_node_stride walks past "
                     f"the topology (host {q - 1} would attach at vertex "
                     f"{last}, the graph has {topology.n_vertices})")
-            v = base + np.arange(q, dtype=np.int64) * g.network_node_stride
+            v = vbase + np.arange(q, dtype=np.int64) * g.network_node_stride
         elif g.network_node_id is not None:
             v = np.full(q, topology.vertex_index_for_id(g.network_node_id),
                         dtype=np.int64)
@@ -144,12 +252,13 @@ def build(cfg: ConfigOptions) -> BuiltSimulation:
         t0_parts.append(np.full(q, proc.start_time, dtype=np.int64))
         t1_parts.append(np.full(q, -1 if proc.stop_time is None
                                 else proc.stop_time, dtype=np.int64))
-        a = _parse_kv_args(proc.args)
-        args.append((int(a.get("msgload", 1)), int(a.get("size", 64)),
-                     int(a.get("selfloop", 0))))
-    if len(set(args)) != 1:
-        raise ValueError("tpu policy: phold args must match across hosts")
-    msgload, size, selfloop = args[0]
+        arg_list.append((g, _parse_kv_args(proc.args)))
+        layout.append((g.name, base, q))
+        base += q
+    if MODELS[cfg.hosts[0].processes[0].path] == "phold":
+        app = _phold_app(n_total, arg_list)
+    else:
+        app = _tgen_app(n_total, HostNames(layout), arg_list)
     t0 = np.concatenate(t0_parts)
     t1 = np.concatenate(t1_parts)
     bad = np.flatnonzero((t1 >= 0) & (t1 < t0))
@@ -163,6 +272,4 @@ def build(cfg: ConfigOptions) -> BuiltSimulation:
     return BuiltSimulation(
         cfg=cfg, topology=topology,
         host_vertex=np.concatenate(v_parts).astype(np.int32),
-        start_times=t0, stop_times=t1, lookahead=int(lookahead),
-        app=PholdDevice(n_hosts_total=n_total, msgload=msgload,
-                        size=size, selfloop=selfloop))
+        start_times=t0, stop_times=t1, lookahead=int(lookahead), app=app)

@@ -1,21 +1,42 @@
-// K1 pop_phase: one phase of pops for every host.
+// K1 pop_phase and K4 pop_tgen: one phase of pops for every host.
 //
-// Replaces shadow_tpu/device/engine.py `_step` (with `_take_head`, P=1,
-// the judge hoisted to the flush) fused with
-// shadow_tpu/device/apps.py `PholdDevice.handle` and the app draws
-// chain_key(seed, PURPOSE_APP, gid, app_seq + i). The reference runs the
-// pop loop in lockstep over all hosts, one launch per pop; here one thread
-// owns one host and loops over its pops, one launch per phase. A host
-// touches only its own heap row and outbox row, and a host that stops
-// (head time >= win_end, an in-window self-send marking it dirty, or B
-// pops) stays stopped for the phase, so the per-host loop yields the
-// lockstep loop's pops, outbox columns and counters exactly.
+// Replaces shadow_tpu/device/engine.py `_step` (with `_take_head(s)`, the
+// burst branch, and the judge hoisted to the flush) fused with an app of
+// shadow_tpu/device/apps.py:
+//   K1: `PholdDevice.handle` and the app draws
+//       chain_key(seed, PURPOSE_APP, gid, app_seq + i);
+//   K4: `TgenDevice.handle`, `_server_response`, `burst_mask` and
+//       `handle_burst` (no draws: tgen draws nothing).
+// One templated kernel carries both; the app is a device struct with a
+// per-host state and an `event` hook.
+//
+// The reference runs the pop loop in lockstep over all hosts, one launch
+// per iteration; here one thread owns one host and loops over its
+// iterations, one launch per phase. A host touches only its own heap row
+// and outbox row, and a host that stops (head time >= win_end, `dirty`
+// from an in-window self-send or timer, or B iterations) stays stopped
+// for the phase, so its iterations are a prefix of the lockstep loop's:
+// iteration blk writes outbox columns [blk*M_out, (blk+1)*M_out), send
+// lanes 0..K-1 then the timer lanes, exactly as the lockstep loop does.
+//
+// Burst (P > 1): a burst host (tgen: a server) whose head event is an
+// in-window packet pops the run of consecutive in-window KIND_PACKET
+// slots from its head, up to P (slots at or past E read as INF); event j
+// of the run answers on lane j at its own popped time. Every other
+// runnable host pops one event. The checksum folds each popped event in
+// order (the 63-bit truncation between folds makes a closed form
+// wrong); `pops[h]` counts iterations, not events.
+//
+// Event seqs number the iteration's valid sends in lane order, then its
+// timers; a send row carries KIND_PACKET | count << 8 and an all-ones
+// live mask; a timer row is (t + delay, gid << 32 | seq, gid,
+// KIND_TIMER, d0).
 //
 // Bound on the H100: bytes. Per host it reads the popped heap rows and a
-// few counters and writes its outbox row: t of every column, which
-// marks the unused ones, and five fields per send. It writes all five
-// fields of every column, zeros where unused, so it moves more than
-// the bound; the threefry draws are ~100 integer ops per send. Design
+// few counters and writes its outbox row: t of every column, which marks
+// the unused ones, and five fields per send or timer. It writes all five
+// fields of every column, zeros where unused, so it moves more than the
+// bound; PHOLD's threefry draws are ~130 integer ops per send. Design
 // for correctness first: one thread per host writes its row with a
 // stride of OB*8 bytes between neighbouring threads, so stores are not
 // coalesced; a warp-per-host or transposed outbox is later work.
@@ -26,99 +47,309 @@ using namespace shadow;
 
 namespace {
 
-__global__ void pop_phase_kernel(
-    int H, int E, int K, int B, int64_t win_end,
-    const int64_t* __restrict__ ht, const int64_t* __restrict__ hk,
-    const int64_t* __restrict__ hm, const int64_t* __restrict__ hv,
-    const int64_t* __restrict__ hw,
-    int32_t* head, int32_t* event_seq, int32_t* packet_seq,
-    int32_t* app_seq, int32_t* app, int32_t* n_exec, int32_t* n_deliv,
-    int64_t* chk,
-    const int32_t* __restrict__ host_vertex,
-    const int32_t* __restrict__ lat, int V,
-    uint32_t seed1, uint32_t seed2,
-    int n_total, int msgload, int size, int selfloop,
-    int64_t* ob_t, int64_t* ob_k, int64_t* ob_m, int64_t* ob_s,
-    int64_t* ob_v, int32_t* pops) {
-    const int h = blockIdx.x * blockDim.x + threadIdx.x;
-    if (h >= H) return;
-    const int OB = B * K;
-    const int64_t row = (int64_t)h * OB;
-    for (int c = 0; c < OB; ++c) {
-        ob_t[row + c] = INF;
-        ob_k[row + c] = 0;
-        ob_m[row + c] = 0;
-        ob_s[row + c] = 0;
-        ob_v[row + c] = 0;
-    }
-    const int64_t hrow = (int64_t)h * E;
-    int hd = head[h];
-    uint32_t es = (uint32_t)event_seq[h];
-    uint32_t ps = (uint32_t)packet_seq[h];
-    uint32_t as = (uint32_t)app_seq[h];
-    uint32_t received = (uint32_t)app[h];
-    uint32_t ne = (uint32_t)n_exec[h];
-    uint32_t nd = (uint32_t)n_deliv[h];
-    uint64_t c = (uint64_t)chk[h];
-    const int vtx = host_vertex[h];
-    const int64_t selflat = lat[(int64_t)vtx * V + vtx];
-    const Key app_key =
-        purpose_id_key(Key{seed1, seed2}, PURPOSE_APP, (uint32_t)h);
-    const uint32_t n = (uint32_t)n_total;
-    const int64_t pkt_kind = pack2(0, KIND_PACKET | (1 << 8));
-    bool dirty = false;
-    int blk = 0;
-    for (; blk < B; ++blk) {
-        const int64_t pt = hd < E ? ht[hrow + hd] : INF;
-        if (!(pt < win_end) || dirty) break;
-        const int64_t pk2 = hk[hrow + hd];
-        const int64_t pm = hm[hrow + hd];
-        const int64_t pw = hw[hrow + hd];
-        ++hd;
-        ++ne;
-        const int32_t psrc = hi32(pk2), pseq = lo32(pk2);
-        const int32_t pkind = hi32(pm);
-        if (pkind == KIND_PACKET) nd += __popc((uint32_t)lo32(pw));
-        const uint64_t mix =
-            ((uint64_t)pt ^ ((uint64_t)(int64_t)psrc * CHK_SRC) ^
-             ((uint64_t)(int64_t)pkind * CHK_KIND) ^
-             ((uint64_t)(int64_t)pseq * CHK_SEQ)) & MASK63;
-        c = (c * CHK_MUL + mix) & MASK63;
+constexpr int32_t KIND_TIMER = 1;
+constexpr int32_t TAG_REQ = 1;
+constexpr int32_t TAG_DATA = 2;
 
-        // PHOLD: boot sends msgload messages, a packet one; each send
-        // draws one u32 for its peer
-        const int nsend = pkind == KIND_BOOT ? msgload
-                          : pkind == KIND_PACKET ? 1 : 0;
-        if (pkind == KIND_PACKET) ++received;
+// int32 arithmetic that wraps as the reference's does (signed overflow
+// is undefined in C++)
+__device__ __forceinline__ int32_t wadd(int32_t a, int32_t b) {
+    return (int32_t)((uint32_t)a + (uint32_t)b);
+}
+__device__ __forceinline__ int32_t wsub(int32_t a, int32_t b) {
+    return (int32_t)((uint32_t)a - (uint32_t)b);
+}
+__device__ __forceinline__ int32_t clampi(int32_t x, int32_t lo,
+                                          int32_t hi) {
+    return x < lo ? lo : (x > hi ? hi : x);
+}
+
+struct Event {
+    int64_t t;
+    int32_t src, kind, size, d0, d1, d2;
+};
+
+// The outbox of one host: the current iteration's lane block, the
+// running event and packet seqs, and the dirty mark.
+struct Lanes {
+    int64_t *t, *k, *m, *s, *v;
+    int64_t block;          // first column of this iteration
+    int K, C;
+    uint32_t h, es, ps;
+    int64_t selflat, win_end;
+    bool dirty;
+    // the iteration's timer (T <= 1), written after every send
+    bool timer_on;
+    int64_t timer_t;
+    int32_t timer_d0;
+
+    __device__ void send(int lane, int64_t lt, uint32_t dst, int32_t size,
+                         int32_t d0, int32_t d1, int32_t count) {
+        const int32_t cnt = clampi(count, 1, C);
+        const int64_t col = block + lane;
+        t[col] = lt;
+        k[col] = pack2(h, es);
+        m[col] = pack2(dst, (uint32_t)(KIND_PACKET | (cnt << 8)));
+        s[col] = pack2((uint32_t)size, (uint32_t)d0);
+        v[col] = pack2(0xFFFFFFFFu, (uint32_t)d1);
+        ++es;
+        ps += (uint32_t)cnt;
+        // an in-window self-send must land before the next pop
+        if (dst == h && lt + selflat < win_end) dirty = true;
+    }
+    __device__ void timer(int64_t tt, int32_t d0) {
+        timer_on = true;
+        timer_t = tt;
+        timer_d0 = d0;
+    }
+    __device__ void end_iteration() {
+        if (!timer_on) return;
+        const int64_t col = block + K;
+        t[col] = timer_t;
+        k[col] = pack2(h, es);
+        m[col] = pack2(h, (uint32_t)KIND_TIMER);
+        s[col] = pack2(0, (uint32_t)timer_d0);
+        v[col] = 0;
+        ++es;
+        if (timer_t < win_end) dirty = true;
+        timer_on = false;
+    }
+};
+
+// PHOLD: boot sends msgload messages, a packet one; each send draws one
+// u32 for its peer, (self + 1 + bits % (n-1)) % n.
+struct PholdApp {
+    int32_t* app;           // [H,1] received count
+    int32_t* app_seq;       // [H] draws consumed
+    uint32_t n;
+    int msgload, size, selfloop;
+    Key seed;
+
+    struct Host {
+        uint32_t received, as;
+        Key key;
+    };
+    __device__ Host load(int h) const {
+        return Host{(uint32_t)app[h], (uint32_t)app_seq[h],
+                    purpose_id_key(seed, PURPOSE_APP, (uint32_t)h)};
+    }
+    __device__ void store(int h, const Host& st) const {
+        app[h] = (int32_t)st.received;
+        app_seq[h] = (int32_t)st.as;
+    }
+    __device__ bool burst(const Host&) const { return false; }
+    __device__ void event(int, int h, const Event& e, Host& st,
+                          Lanes& out) const {
+        const int nsend = e.kind == KIND_BOOT ? msgload
+                          : e.kind == KIND_PACKET ? 1 : 0;
+        if (e.kind == KIND_PACKET) ++st.received;
         for (int k = 0; k < nsend; ++k) {
-            const uint32_t bits = random_bits32(fold_in(app_key, as + k));
+            const uint32_t bits = random_bits32(fold_in(st.key, st.as + k));
             uint32_t dst;
             if (selfloop || n == 1)
                 dst = bits % n;
             else
                 dst = ((uint32_t)h + 1u + bits % (n - 1)) % n;
-            const int64_t col = row + (int64_t)blk * K + k;
-            ob_t[col] = pt;
-            ob_k[col] = pack2((uint32_t)h, es + k);
-            ob_m[col] = pack2(dst, 0) | pkt_kind;
-            ob_s[col] = pack2((uint32_t)size, 0);
-            ob_v[col] = pack2(0xFFFFFFFFu, 0);
-            // an in-window self-send must land before the next pop
-            if ((int)dst == h && pt + selflat < win_end) dirty = true;
+            out.send(k, e.t, dst, size, 0, 0, 1);
         }
-        as += nsend;
-        ps += nsend;
-        es += nsend;
+        st.as += nsend;
     }
-    head[h] = hd;
-    event_seq[h] = (int32_t)es;
-    packet_seq[h] = (int32_t)ps;
-    app_seq[h] = (int32_t)as;
-    app[h] = (int32_t)received;
-    n_exec[h] = (int32_t)ne;
-    n_deliv[h] = (int32_t)nd;
-    chk[h] = (int64_t)c;
-    pops[h] = blk;
+};
+
+// tgen: state words [role, server_gid, chunk_start, got, downloads_done,
+// req_gen, seq_mask]; per-host client args count/pause/retry.
+struct TgenApp {
+    int32_t* app;           // [H,7]
+    const int32_t* __restrict__ count;
+    const int64_t* __restrict__ pause;
+    const int64_t* __restrict__ retry;
+    int32_t npkts, last_sz, chunk, mss;
+
+    struct Host {
+        int32_t w[7];
+    };
+    __device__ Host load(int h) const {
+        Host st;
+        for (int i = 0; i < 7; ++i) st.w[i] = app[(int64_t)h * 7 + i];
+        return st;
+    }
+    __device__ void store(int h, const Host& st) const {
+        for (int i = 0; i < 7; ++i) app[(int64_t)h * 7 + i] = st.w[i];
+    }
+    // servers are stateless responders
+    __device__ bool burst(const Host& st) const { return st.w[0] == 0; }
+
+    // the stateless answer to a REQ for chunk start d1: the chunk
+    // [d1, d1+cnt) as one train of MSS packets, the last one short where
+    // the chunk ends the file
+    __device__ void serve(int lane, const Event& e, Lanes& out) const {
+        if (!(e.kind == KIND_PACKET && e.d0 == TAG_REQ)) return;
+        const int32_t cnt = clampi(wsub(npkts, e.d1), 0, chunk);
+        if (cnt <= 0) return;
+        const bool ends_file = wadd(e.d1, cnt) >= npkts;
+        const int32_t bytes =
+            ends_file ? (cnt - 1) * mss + last_sz : cnt * mss;
+        out.send(lane, e.t, (uint32_t)e.src, bytes, TAG_DATA, e.d1, cnt);
+    }
+
+    __device__ void event(int j, int h, const Event& e, Host& st,
+                          Lanes& out) const {
+        const int32_t role = st.w[0];
+        if (role == 0) {          // server: every column answers a REQ
+            serve(j, e, out);
+            return;
+        }
+        if (role != 1 || j != 0) return;
+        const int32_t server = st.w[1], cs = st.w[2], got = st.w[3];
+        const int32_t done = st.w[4], gen = st.w[5];
+        const uint32_t mask = (uint32_t)st.w[6];
+        const int32_t count_h = count[h];
+        const bool is_data = e.kind == KIND_PACKET && e.d0 == TAG_DATA;
+        const bool is_boot = e.kind == KIND_BOOT && count_h > 0;
+        const bool is_timer = e.kind == KIND_TIMER;
+        const bool timer_pause = is_timer && e.d0 < 0;
+        const bool timer_retry = is_timer && e.d0 >= 0 && e.d0 == gen;
+
+        // window progress: align the train (d1 = its first packet, d2 =
+        // survivors) to the current window; shifts clip to 0..31, and a
+        // train 32 or more away gives nothing; fresh bits only
+        const int32_t rest = wsub(npkts, cs);
+        const int32_t chunk_len = rest < chunk ? rest : chunk;
+        const int32_t shift = wsub(e.d1, cs);
+        const uint32_t surv = (uint32_t)e.d2;
+        uint32_t aligned =
+            shift >= 0 ? surv << clampi(shift, 0, 31)
+                       : surv >> clampi(wsub(0, shift), 0, 31);
+        if (shift >= 32 || shift <= -32) aligned = 0;
+        const uint32_t wmask =
+            chunk_len >= 32 ? 0xFFFFFFFFu
+                            : (1u << clampi(chunk_len, 0, 31)) - 1u;
+        const uint32_t fresh_bits = aligned & wmask & ~mask;
+        const bool fresh = is_data && fresh_bits != 0;
+        uint32_t new_mask = fresh ? mask | fresh_bits : mask;
+        int32_t new_got = fresh ? wadd(got, __popc(fresh_bits)) : got;
+        const bool complete = fresh && new_got >= chunk_len;
+        const int32_t next_start = wadd(cs, chunk_len);
+        const bool dl_done = complete && next_start >= npkts;
+        const bool cont = complete && !dl_done;
+
+        const bool send_req = is_boot || timer_pause || timer_retry || cont;
+        const int32_t req_start = cont ? next_start : (timer_retry ? cs : 0);
+        const bool reset = send_req || dl_done;
+        const int32_t new_done = wadd(done, dl_done ? 1 : 0);
+        const int32_t new_gen = wadd(gen, reset ? 1 : 0);
+        st.w[2] = cont ? next_start
+                       : ((is_boot || timer_pause || dl_done) ? 0 : cs);
+        st.w[3] = reset ? 0 : new_got;
+        st.w[4] = new_done;
+        st.w[5] = new_gen;
+        st.w[6] = reset ? 0 : (int32_t)new_mask;
+
+        if (send_req)
+            out.send(0, e.t, (uint32_t)server, 64, TAG_REQ, req_start, 1);
+        // the timer: pause and retry exclude each other
+        const bool pause_valid = dl_done && new_done < count_h;
+        const bool retry_valid = send_req && retry[h] > 0;
+        if (pause_valid || retry_valid)
+            out.timer(e.t + (pause_valid ? pause[h] : retry[h]),
+                      pause_valid ? -1 : new_gen);
+    }
+};
+
+struct PopArgs {
+    int H, E, K, T, P, B, C;
+    int64_t win_end;
+    const int64_t *ht, *hk, *hm, *hv, *hw;
+    int32_t *head, *event_seq, *packet_seq, *n_exec, *n_deliv;
+    int64_t* chk;
+    const int32_t *host_vertex, *lat;
+    int V;
+    int64_t *ob_t, *ob_k, *ob_m, *ob_s, *ob_v;
+    int32_t* pops;
+};
+
+template <class App>
+__global__ void pop_kernel(PopArgs a, App app) {
+    const int h = blockIdx.x * blockDim.x + threadIdx.x;
+    if (h >= a.H) return;
+    const int M = a.K + a.T;
+    const int OB = a.B * M;
+    const int64_t row = (int64_t)h * OB;
+    for (int c = 0; c < OB; ++c) {
+        a.ob_t[row + c] = INF;
+        a.ob_k[row + c] = 0;
+        a.ob_m[row + c] = 0;
+        a.ob_s[row + c] = 0;
+        a.ob_v[row + c] = 0;
+    }
+    const int64_t hrow = (int64_t)h * a.E;
+    const int vtx = a.host_vertex[h];
+    Lanes out{a.ob_t, a.ob_k, a.ob_m, a.ob_s, a.ob_v, row, a.K, a.C,
+              (uint32_t)h, (uint32_t)a.event_seq[h],
+              (uint32_t)a.packet_seq[h], a.lat[(int64_t)vtx * a.V + vtx],
+              a.win_end, false, false, 0, 0};
+    typename App::Host st = app.load(h);
+    int hd = a.head[h];
+    uint32_t ne = (uint32_t)a.n_exec[h];
+    uint32_t nd = (uint32_t)a.n_deliv[h];
+    uint64_t c = (uint64_t)a.chk[h];
+    int blk = 0;
+    for (; blk < a.B; ++blk) {
+        const int64_t pt = hd < a.E ? a.ht[hrow + hd] : INF;
+        if (!(pt < a.win_end) || out.dirty) break;
+        // the run a burst host pops: consecutive in-window packets from
+        // its head, up to P; one event otherwise
+        int n = 1;
+        if (a.P > 1 && app.burst(st)) {
+            int run = 0;
+            while (run < a.P) {
+                const int i = hd + run;
+                if (i >= a.E || !(a.ht[hrow + i] < a.win_end) ||
+                    hi32(a.hm[hrow + i]) != KIND_PACKET)
+                    break;
+                ++run;
+            }
+            if (run > 0) n = run;
+        }
+        out.block = row + (int64_t)blk * M;
+        for (int j = 0; j < n; ++j) {
+            const int64_t slot = hrow + hd + j;
+            const int64_t pk2 = a.hk[slot];
+            const int64_t pm = a.hm[slot];
+            const int64_t pv = a.hv[slot];
+            Event e{j == 0 ? pt : a.ht[slot], hi32(pk2), hi32(pm), lo32(pm),
+                    hi32(pv), lo32(pv), lo32(a.hw[slot])};
+            const int32_t pseq = lo32(pk2);
+            ++ne;
+            if (e.kind == KIND_PACKET) nd += __popc((uint32_t)e.d2);
+            const uint64_t mix =
+                ((uint64_t)e.t ^ ((uint64_t)(int64_t)e.src * CHK_SRC) ^
+                 ((uint64_t)(int64_t)e.kind * CHK_KIND) ^
+                 ((uint64_t)(int64_t)pseq * CHK_SEQ)) & MASK63;
+            c = (c * CHK_MUL + mix) & MASK63;
+            app.event(j, h, e, st, out);
+        }
+        out.end_iteration();
+        hd += n;
+    }
+    app.store(h, st);
+    a.head[h] = hd;
+    a.event_seq[h] = (int32_t)out.es;
+    a.packet_seq[h] = (int32_t)out.ps;
+    a.n_exec[h] = (int32_t)ne;
+    a.n_deliv[h] = (int32_t)nd;
+    a.chk[h] = (int64_t)c;
+    a.pops[h] = blk;
+}
+
+template <class App>
+int launch(const PopArgs& a, const App& app, void* stream) {
+    if (a.H > 0) {
+        const int threads = 128;
+        pop_kernel<App><<<(a.H + threads - 1) / threads, threads, 0,
+                          (cudaStream_t)stream>>>(a, app);
+    }
+    return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -133,14 +364,32 @@ extern "C" int shadow_pop_phase(
     unsigned seed1, unsigned seed2, int n_total, int msgload, int size,
     int selfloop, int64_t* ob_t, int64_t* ob_k, int64_t* ob_m,
     int64_t* ob_s, int64_t* ob_v, int32_t* pops, void* stream) {
-    if (H > 0) {
-        const int threads = 128;
-        pop_phase_kernel<<<(H + threads - 1) / threads, threads, 0,
-                           (cudaStream_t)stream>>>(
-            H, E, K, B, (int64_t)win_end, ht, hk, hm, hv, hw, head,
-            event_seq, packet_seq, app_seq, app, n_exec, n_deliv, chk,
-            host_vertex, lat, V, seed1, seed2, n_total, msgload, size,
-            selfloop, ob_t, ob_k, ob_m, ob_s, ob_v, pops);
-    }
-    return (int)cudaGetLastError();
+    const PopArgs a{H, E, K, 0, 1, B, 1, (int64_t)win_end,
+                    ht, hk, hm, hv, hw, head, event_seq, packet_seq,
+                    n_exec, n_deliv, chk, host_vertex, lat, V,
+                    ob_t, ob_k, ob_m, ob_s, ob_v, pops};
+    const PholdApp p{app, app_seq, (uint32_t)n_total, msgload, size,
+                     selfloop, Key{seed1, seed2}};
+    return launch(a, p, stream);
+}
+
+extern "C" int shadow_pop_tgen(
+    int H, int E, int K, int T, int P, int B, int C, long long win_end,
+    const int64_t* ht, const int64_t* hk, const int64_t* hm,
+    const int64_t* hv, const int64_t* hw,
+    int32_t* head, int32_t* event_seq, int32_t* packet_seq, int32_t* app,
+    int32_t* n_exec, int32_t* n_deliv, int64_t* chk,
+    const int32_t* host_vertex, const int32_t* lat, int V,
+    const int32_t* count, const int64_t* pause, const int64_t* retry,
+    int npkts, int last_sz, int chunk, int mss, int64_t* ob_t,
+    int64_t* ob_k,
+    int64_t* ob_m, int64_t* ob_s, int64_t* ob_v, int32_t* pops,
+    void* stream) {
+    if (T > 1 || C > 32) return (int)cudaErrorInvalidValue;
+    const PopArgs a{H, E, K, T, P, B, C, (int64_t)win_end,
+                    ht, hk, hm, hv, hw, head, event_seq, packet_seq,
+                    n_exec, n_deliv, chk, host_vertex, lat, V,
+                    ob_t, ob_k, ob_m, ob_s, ob_v, pops};
+    const TgenApp g{app, count, pause, retry, npkts, last_sz, chunk, mss};
+    return launch(a, g, stream);
 }

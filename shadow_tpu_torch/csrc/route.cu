@@ -1,0 +1,220 @@
+// K5 route: group one phase's judged outbox rows by destination host.
+//
+// Replaces the flat route of shadow_tpu/device/engine.py (`_flat_sorted`
+// with outbox_compact off, the per-destination segment bounds of
+// `_host_windows`, the windows `_seg_take` reads): the exchangeable rows
+// (t < DROP_T) are grouped by destination host, in (src, column) order
+// within a destination, i.e. by their flat index src*OB + column. The
+// outputs are those of the plain version (kernels.route_plain): `perm`
+// holds the live rows' flat indices in that order, `starts[d]` and
+// `counts[d]` bound destination d's segment. That order decides which
+// arrivals past IN the merge cuts and counts as overflow.
+//
+// No comparison sort of the whole outbox: (1) a per-destination count of
+// live rows; (2) an exclusive scan of the counts into `starts`, by hand:
+// a scan within blocks of SCAN_BLOCK counts, a scan of the block
+// totals, and an add-back that also seeds the scatter cursors; (3) a
+// scatter of flat indices with per-destination atomic cursors, which
+// leaves each segment in arbitrary order; (4) a sort of each segment by
+// flat index, which makes `perm` deterministic: one thread per segment
+// of at most SHORT rows (an insertion sort in registers), one block per
+// longer segment (a rank sort through shared-memory tiles; a segment
+// longer than IN arises only in a run that overflows, and still comes
+// out in order). Flat indices are unique, so ranks are too.
+//
+// Bound on the H100: bytes (t of every row, m of live rows, perm of live
+// rows written, starts and counts written); the scratch traffic (the
+// scattered indices read back by the segment sort) is above it.
+#include "common.cuh"
+
+using namespace shadow;
+
+namespace {
+
+constexpr int SCAN_BLOCK = 1024;    // counts per scan block
+constexpr int SCAN_THREADS = 256;   // 4 counts per thread
+constexpr int SHORT = 32;           // longest segment one thread sorts
+constexpr int TILE = 1024;          // rank-sort tile, in int64
+
+__device__ __forceinline__ bool live_dst(const int64_t* ob_t,
+                                         const int64_t* ob_m, int64_t i,
+                                         int H, int* dst) {
+    if (!(ob_t[i] < DROP_T)) return false;
+    const int32_t d = hi32(ob_m[i]);
+    *dst = d;
+    return d >= 0 && d < H;
+}
+
+__global__ void count_kernel(int H, int64_t F,
+                             const int64_t* __restrict__ ob_t,
+                             const int64_t* __restrict__ ob_m,
+                             unsigned long long* counts) {
+    const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+    int d;
+    if (i < F && live_dst(ob_t, ob_m, i, H, &d)) atomicAdd(&counts[d], 1ull);
+}
+
+// exclusive scan of SCAN_BLOCK counts per block; block totals out
+__global__ void scan_blocks_kernel(int H, const int64_t* __restrict__ counts,
+                                   int64_t* starts, int64_t* block_sums) {
+    __shared__ int64_t sm[SCAN_THREADS];
+    const int tid = threadIdx.x;
+    const int64_t base = (int64_t)blockIdx.x * SCAN_BLOCK + tid * 4;
+    int64_t v[4], sum = 0;
+    for (int j = 0; j < 4; ++j) {
+        v[j] = base + j < H ? counts[base + j] : 0;
+        sum += v[j];
+    }
+    sm[tid] = sum;
+    __syncthreads();
+    // Hillis-Steele inclusive scan of the per-thread sums
+    for (int off = 1; off < SCAN_THREADS; off <<= 1) {
+        const int64_t x = tid >= off ? sm[tid - off] : 0;
+        __syncthreads();
+        sm[tid] += x;
+        __syncthreads();
+    }
+    int64_t run = sm[tid] - sum;
+    for (int j = 0; j < 4; ++j) {
+        if (base + j < H) starts[base + j] = run;
+        run += v[j];
+    }
+    if (tid == SCAN_THREADS - 1) block_sums[blockIdx.x] = sm[tid];
+}
+
+// exclusive scan of the block totals in place, one block, chunk by chunk
+__global__ void scan_sums_kernel(int nb, int64_t* block_sums) {
+    __shared__ int64_t sm[SCAN_THREADS];
+    __shared__ int64_t carry;
+    const int tid = threadIdx.x;
+    if (tid == 0) carry = 0;
+    __syncthreads();
+    for (int base = 0; base < nb; base += SCAN_THREADS) {
+        const int i = base + tid;
+        const int64_t x0 = i < nb ? block_sums[i] : 0;
+        sm[tid] = x0;
+        __syncthreads();
+        for (int off = 1; off < SCAN_THREADS; off <<= 1) {
+            const int64_t x = tid >= off ? sm[tid - off] : 0;
+            __syncthreads();
+            sm[tid] += x;
+            __syncthreads();
+        }
+        if (i < nb) block_sums[i] = carry + sm[tid] - x0;
+        __syncthreads();
+        if (tid == SCAN_THREADS - 1) carry += sm[tid];
+        __syncthreads();
+    }
+}
+
+__global__ void add_back_kernel(int H, const int64_t* __restrict__ block_sums,
+                                int64_t* starts, int64_t* cursor) {
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= H) return;
+    const int64_t s = starts[i] + block_sums[i / SCAN_BLOCK];
+    starts[i] = s;
+    cursor[i] = s;
+}
+
+__global__ void scatter_kernel(int H, int64_t F,
+                               const int64_t* __restrict__ ob_t,
+                               const int64_t* __restrict__ ob_m,
+                               unsigned long long* cursor,
+                               int64_t* scattered) {
+    const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+    int d;
+    if (i < F && live_dst(ob_t, ob_m, i, H, &d))
+        scattered[atomicAdd(&cursor[d], 1ull)] = i;
+}
+
+// segments of at most SHORT rows: one thread, an insertion sort
+__global__ void sort_short_kernel(int H, const int64_t* __restrict__ starts,
+                                  const int64_t* __restrict__ counts,
+                                  const int64_t* __restrict__ scattered,
+                                  int64_t* perm) {
+    const int d = blockIdx.x * blockDim.x + threadIdx.x;
+    if (d >= H) return;
+    const int64_t n = counts[d];
+    if (n == 0 || n > SHORT) return;
+    const int64_t s = starts[d];
+    int64_t x[SHORT];
+#pragma unroll
+    for (int i = 0; i < SHORT; ++i) x[i] = i < n ? scattered[s + i] : IMAX;
+#pragma unroll
+    for (int i = 1; i < SHORT; ++i) {
+#pragma unroll
+        for (int j = i; j > 0; --j) {
+            const int64_t a = x[j - 1], b = x[j];
+            const bool swap = b < a;
+            x[j - 1] = swap ? b : a;
+            x[j] = swap ? a : b;
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < SHORT; ++i)
+        if (i < n) perm[s + i] = x[i];
+}
+
+// longer segments: one block each (grid-strided over destinations), a
+// rank sort: row i goes to its segment's start plus the number of the
+// segment's flat indices below its own
+__global__ void sort_long_kernel(int H, const int64_t* __restrict__ starts,
+                                 const int64_t* __restrict__ counts,
+                                 const int64_t* __restrict__ scattered,
+                                 int64_t* perm) {
+    __shared__ int64_t tile[TILE];
+    for (int d = blockIdx.x; d < H; d += gridDim.x) {
+        const int64_t n = counts[d];
+        if (n <= SHORT) continue;
+        const int64_t s = starts[d];
+        for (int64_t i0 = 0; i0 < n; i0 += blockDim.x) {
+            const int64_t i = i0 + threadIdx.x;
+            const int64_t x = i < n ? scattered[s + i] : IMAX;
+            int64_t rank = 0;
+            for (int64_t b = 0; b < n; b += TILE) {
+                const int64_t w = n - b < TILE ? n - b : TILE;
+                for (int k = threadIdx.x; k < w; k += blockDim.x)
+                    tile[k] = scattered[s + b + k];
+                __syncthreads();
+                for (int k = 0; k < w; ++k) rank += tile[k] < x;
+                __syncthreads();
+            }
+            if (i < n) perm[s + rank] = x;
+        }
+    }
+}
+
+}  // namespace
+
+extern "C" int shadow_route(int H, int OB, const int64_t* ob_t,
+                            const int64_t* ob_m, int64_t* perm,
+                            int64_t* starts, int64_t* counts,
+                            int64_t* scattered, int64_t* cursor,
+                            int64_t* block_sums, void* stream) {
+    // scattered holds H*OB entries, cursor H, block_sums at least
+    // ceil(H / SCAN_BLOCK)
+    if (H <= 0) return (int)cudaGetLastError();
+    cudaStream_t st = (cudaStream_t)stream;
+    const int64_t F = (int64_t)H * OB;
+    const int threads = 256;
+    const unsigned rows_grid = (unsigned)((F + threads - 1) / threads);
+    const unsigned host_grid = (unsigned)((H + threads - 1) / threads);
+    const int nb = (H + SCAN_BLOCK - 1) / SCAN_BLOCK;
+    cudaError_t err = cudaMemsetAsync(counts, 0, sizeof(int64_t) * H, st);
+    if (err != cudaSuccess) return (int)err;
+    count_kernel<<<rows_grid, threads, 0, st>>>(
+        H, F, ob_t, ob_m, (unsigned long long*)counts);
+    scan_blocks_kernel<<<nb, SCAN_THREADS, 0, st>>>(H, counts, starts,
+                                                     block_sums);
+    scan_sums_kernel<<<1, SCAN_THREADS, 0, st>>>(nb, block_sums);
+    add_back_kernel<<<host_grid, threads, 0, st>>>(H, block_sums, starts,
+                                                   cursor);
+    scatter_kernel<<<rows_grid, threads, 0, st>>>(
+        H, F, ob_t, ob_m, (unsigned long long*)cursor, scattered);
+    sort_short_kernel<<<host_grid, threads, 0, st>>>(H, starts, counts,
+                                                     scattered, perm);
+    const int long_grid = H < 1024 ? H : 1024;
+    sort_long_kernel<<<long_grid, 256, 0, st>>>(H, starts, counts,
+                                                scattered, perm);
+    return (int)cudaGetLastError();
+}

@@ -1,22 +1,37 @@
 """Vectorized application models (the port of the reference package's
-device/apps.py, cut to PHOLD).
+device/apps.py, cut to PHOLD and tgen).
 
 `handle` processes one popped event for every host at once; inputs and
 outputs are batched over the host dimension [H]. Decisions come only
-from the counter-RNG `draws`, consumed in order, so the trace equals
-the CPU model's (shadow_tpu/models/phold.py in the reference package).
+from the counter-RNG `draws`, consumed in order, and the app state, so
+the trace equals the CPU models' (models/phold.py and models/tgen.py
+in the reference package). Sends come out in the CPU model's send
+order and timers after them: the engine numbers events sends first.
+
 This plain form serves the CPU path; the CUDA pop kernel
-(csrc/pop_phase.cu) carries the same PHOLD decision fused in.
+(csrc/pop_phase.cu) carries the same decisions as device functions,
+PHOLD in K1 `pop_phase` and tgen in K4 `pop_tgen`.
+
+torch on the CPU has no uint32 shifts, so u32 words (tgen's survivor
+and received-seq masks) are computed in int64 masked to 32 bits.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import NamedTuple
+from dataclasses import dataclass, field
+from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
-from shadow_tpu_torch.core.event import KIND_BOOT, KIND_PACKET
+from shadow_tpu_torch.core.event import KIND_BOOT, KIND_PACKET, KIND_TIMER
+from shadow_tpu_torch.core.tgen_args import (
+    CHUNK_PKTS,
+    MSS,
+    TAG_DATA,
+    TAG_REQ,
+    n_packets,
+)
 from shadow_tpu_torch.device.prng import M32
 
 
@@ -26,8 +41,35 @@ class AppOut(NamedTuple):
     send_d0: torch.Tensor        # [H,K] payload word 0 (int32)
     send_d1: torch.Tensor        # [H,K] payload word 1 (int32)
     send_valid: torch.Tensor     # [H,K] bool
+    timer_delay: torch.Tensor    # [H,T] ns (int64)
+    timer_d0: torch.Tensor       # [H,T] timer payload (int32)
+    timer_valid: torch.Tensor    # [H,T] bool
     n_draws: torch.Tensor        # [H] app RNG draws consumed (int32)
     app_state: torch.Tensor      # [H,W] updated state (int32)
+    # packets per send row [H,K] (trains); None = one each
+    send_count: Optional[torch.Tensor] = None
+
+
+def _no_timers(H: int, dev) -> dict:
+    return {"timer_delay": torch.zeros((H, 0), dtype=torch.int64,
+                                       device=dev),
+            "timer_d0": torch.zeros((H, 0), dtype=torch.int32, device=dev),
+            "timer_valid": torch.zeros((H, 0), dtype=torch.bool,
+                                       device=dev)}
+
+
+def popcount32(x):
+    """Bit count of u32 values held in int64."""
+    x = x & M32
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return ((x * 0x01010101) & M32) >> 24
+
+
+def wrap32(x):
+    """int64 values -> the int32 they wrap to (two's complement)."""
+    return (((x & M32) ^ 0x80000000) - 0x80000000).to(torch.int32)
 
 
 @dataclass
@@ -44,6 +86,7 @@ class PholdDevice:
     n_state_words = 1            # [received_count]
     max_timers = 0
     max_train = 1
+    burst_pops = 1
 
     @property
     def max_sends(self) -> int:
@@ -53,9 +96,11 @@ class PholdDevice:
     def max_draws(self) -> int:
         return max(1, self.msgload)
 
-    def init_state(self, n_hosts: int, device) -> torch.Tensor:
-        return torch.zeros((n_hosts, self.n_state_words),
-                           dtype=torch.int32, device=device)
+    def init_state(self, n_hosts: int) -> np.ndarray:
+        return np.zeros((n_hosts, self.n_state_words), np.int32)
+
+    def world_columns(self) -> dict:
+        return {}
 
     def pick_peer(self, gid: torch.Tensor, bits: torch.Tensor):
         """bits: u32 values held in int64 (prng.random_bits32)."""
@@ -66,7 +111,7 @@ class PholdDevice:
         return (((g + 1 + bits % (n - 1)) & M32) % n).to(torch.int32)
 
     def handle(self, gid, now, kind, src, size, d0, d1, d2, app_state,
-               draws) -> AppOut:
+               draws, world=None) -> AppOut:
         H, K = draws.shape[0], self.max_sends
         boot = kind == KIND_BOOT
         pkt = kind == KIND_PACKET
@@ -83,4 +128,187 @@ class PholdDevice:
         new_state[:, 0] += pkt.to(torch.int32)
         return AppOut(send_dst=peers, send_size=sizes, send_d0=zeros,
                       send_d1=zeros, send_valid=valid, n_draws=n_draws,
-                      app_state=new_state)
+                      app_state=new_state, **_no_timers(H, draws.device))
+
+
+@dataclass
+class TgenDevice:
+    """Chunked pull-based bulk download with a stateless server. One
+    app covers both roles (the per-host role word), so client/server
+    mixes run as one program.
+
+    State words: [role, server_gid, chunk_start, got, downloads_done,
+    req_gen, seq_mask]. REQ is d0=TAG_REQ d1=start; DATA is one packet
+    train row with d1=start and the network's survivor bitmask in d2;
+    a timer's d0 is -1 for a pause and the request generation for a
+    retry. seq_mask holds the received seqs of the current window:
+    only fresh in-window bits advance it, so duplicates from a
+    premature retry never complete a chunk.
+
+    `size` shapes the servers' answers and is one value; the client
+    args count/pause/retry are per host, [H] arrays that the engine
+    carries in its world (`world_columns`)."""
+
+    roles: np.ndarray = field(repr=False)        # [H] 0=server 1=client
+    server_gid: np.ndarray = field(repr=False)   # [H] client's server
+    size: int = 1 << 20
+    count: np.ndarray = field(default=1, repr=False)
+    pause_ns: np.ndarray = field(default=1_000_000_000, repr=False)
+    retry_ns: np.ndarray = field(default=0, repr=False)
+    # servers are stateless responders: one iteration answers a run
+    # of up to burst_pops REQs (experimental.burst_pops overrides)
+    burst_pops: int = 8
+
+    n_state_words = 7
+    max_sends = 1                # a whole chunk is ONE train row
+    max_train = CHUNK_PKTS
+    max_timers = 1
+    max_draws = 0                # tgen draws nothing
+
+    def __post_init__(self):
+        self.npkts = n_packets(self.size)
+        self.last_sz = self.size % MSS or MSS
+        self.chunk = CHUNK_PKTS
+        shape = np.shape(self.roles)
+        self.count = np.broadcast_to(
+            np.asarray(self.count, np.int32), shape)
+        self.pause_ns = np.broadcast_to(
+            np.asarray(self.pause_ns, np.int64), shape)
+        self.retry_ns = np.broadcast_to(
+            np.asarray(self.retry_ns, np.int64), shape)
+
+    def init_state(self, n_hosts: int) -> np.ndarray:
+        st = np.zeros((n_hosts, self.n_state_words), np.int32)
+        st[:, 0] = self.roles[:n_hosts]
+        st[:, 1] = self.server_gid[:n_hosts]
+        return st
+
+    def world_columns(self) -> dict:
+        """The per-host client args, [H] each."""
+        return {"tgen_count": np.ascontiguousarray(self.count),
+                "tgen_pause": np.ascontiguousarray(self.pause_ns),
+                "tgen_retry": np.ascontiguousarray(self.retry_ns)}
+
+    def server_response(self, d1):
+        """The stateless answer to a REQ for chunk start d1: (train
+        packet count, bytes), the chunk [d1, d1+cnt) as one train of
+        MSS packets, the last one short where the chunk ends the
+        file. One source for the single and the burst path. int32
+        arithmetic wraps as on the device."""
+        d1 = d1.to(torch.int64)
+        srv_cnt = wrap32(self.npkts - d1).clamp(0, self.chunk)
+        ends_file = wrap32(d1 + srv_cnt) >= self.npkts
+        srv_bytes = torch.where(
+            ends_file, (srv_cnt - 1) * MSS + self.last_sz, srv_cnt * MSS)
+        return srv_cnt, srv_bytes.to(torch.int32)
+
+    def burst_mask(self, app_state):
+        return app_state[:, 0] == 0          # servers: stateless
+
+    def handle(self, gid, now, kind, src, size, d0, d1, d2, app_state,
+               draws, world) -> AppOut:
+        H = app_state.shape[0]
+        dev = app_state.device
+        role, server = app_state[:, 0], app_state[:, 1]
+        chunk_start, got = app_state[:, 2], app_state[:, 3]
+        done, gen, mask = app_state[:, 4], app_state[:, 5], app_state[:, 6]
+        is_server = role == 0
+        is_client = role == 1
+        count_h = world["tgen_count"]
+        pause_h, retry_h = world["tgen_pause"], world["tgen_retry"]
+
+        is_req = is_server & (kind == KIND_PACKET) & (d0 == TAG_REQ)
+        is_data = is_client & (kind == KIND_PACKET) & (d0 == TAG_DATA)
+        is_boot = is_client & (kind == KIND_BOOT) & (count_h > 0)
+        is_timer = is_client & (kind == KIND_TIMER)
+        timer_pause = is_timer & (d0 < 0)
+        timer_retry = is_timer & (d0 >= 0) & (d0 == gen)
+
+        # client window progress: align the train (d1 = its first
+        # packet, d2 = survivors) to the current window, keep fresh
+        # bits only. Shifts clip to 0..31; a train 32 or more away
+        # gives nothing.
+        chunk_len = torch.clamp(self.npkts - chunk_start, max=self.chunk)
+        shift = wrap32(d1.long() - chunk_start.long()).long()
+        surv = d2.long() & M32
+        up = (surv << shift.clamp(0, 31)) & M32
+        down = surv >> wrap32(-shift).long().clamp(0, 31)
+        aligned = torch.where(shift >= 0, up, down)
+        aligned = torch.where((shift >= 32) | (shift <= -32), 0, aligned)
+        wmask = torch.where(chunk_len >= 32, M32,
+                            (1 << chunk_len.long().clamp(0, 31)) - 1)
+        window = aligned & wmask
+        fresh_bits = window & ~(mask.long() & M32) & M32
+        fresh = is_data & (fresh_bits != 0)
+        new_mask = torch.where(fresh, wrap32(mask.long() | fresh_bits),
+                               mask)
+        new_got = torch.where(
+            fresh, got + popcount32(fresh_bits).to(torch.int32), got)
+        complete = fresh & (new_got >= chunk_len)
+        next_start = chunk_start + chunk_len
+        dl_done = complete & (next_start >= self.npkts)
+        cont = complete & ~dl_done
+
+        send_req = is_boot | timer_pause | timer_retry | cont
+        req_start = torch.where(cont, next_start,
+                                torch.where(timer_retry, chunk_start, 0))
+        new_chunk_start = torch.where(
+            cont, next_start,
+            torch.where(is_boot | timer_pause | dl_done, 0, chunk_start))
+        reset = send_req | dl_done
+        new_got = torch.where(reset, 0, new_got)
+        new_mask = torch.where(reset, 0, new_mask)
+        new_done = done + dl_done.to(torch.int32)
+        new_gen = gen + reset.to(torch.int32)
+        st = app_state.clone()
+        for w, v in ((2, new_chunk_start), (3, new_got), (4, new_done),
+                     (5, new_gen), (6, new_mask)):
+            st[:, w] = v
+
+        # one send: a server's DATA train or a client's REQ
+        srv_cnt, srv_bytes = self.server_response(d1)
+        srv_valid = is_req & (srv_cnt > 0)
+        sv = is_server
+        i32 = torch.int32
+
+        def col(a, b):
+            return torch.where(sv, a, b).to(i32)[:, None]
+
+        # the timer: pause and retry exclude each other
+        pause_valid = dl_done & (new_done < count_h)
+        retry_valid = send_req & (retry_h > 0)
+        return AppOut(
+            send_dst=col(src, server), send_size=col(srv_bytes, 64),
+            send_d0=col(torch.full_like(d1, TAG_DATA), TAG_REQ),
+            send_d1=col(d1, req_start),
+            send_valid=torch.where(sv, srv_valid, send_req)[:, None],
+            timer_delay=torch.where(pause_valid, pause_h,
+                                    retry_h).long()[:, None],
+            timer_d0=torch.where(pause_valid, -1, new_gen).to(i32)[:, None],
+            timer_valid=(pause_valid | retry_valid)[:, None],
+            n_draws=torch.zeros(H, dtype=i32, device=dev),
+            app_state=st, send_count=col(srv_cnt, 1))
+
+    def handle_burst(self, gid, nowP, kindP, srcP, sizeP, d0P, d1P, d2P,
+                     app_state, draws, world) -> AppOut:
+        """Event args are [H,P] columns (inactive ones carry kind -1).
+        Column 0 runs the full role logic; columns 1+ can only be
+        burst-popped server REQs, answered by the same stateless
+        response, lane j answering column j."""
+        base = self.handle(gid, nowP[:, 0], kindP[:, 0], srcP[:, 0],
+                           sizeP[:, 0], d0P[:, 0], d1P[:, 0], d2P[:, 0],
+                           app_state, draws, world)
+        is_req = (app_state[:, 0] == 0)[:, None] & \
+            (kindP == KIND_PACKET) & (d0P == TAG_REQ)
+        srv_cnt, srv_bytes = self.server_response(d1P)
+
+        def lanes(l0, rest):
+            return torch.cat([l0, rest[:, 1:].to(l0.dtype)], 1)
+
+        return base._replace(
+            send_dst=lanes(base.send_dst, srcP),
+            send_size=lanes(base.send_size, srv_bytes),
+            send_d0=lanes(base.send_d0, torch.full_like(d1P, TAG_DATA)),
+            send_d1=lanes(base.send_d1, d1P),
+            send_valid=lanes(base.send_valid, is_req & (srv_cnt > 0)),
+            send_count=lanes(base.send_count, srv_cnt))

@@ -1,12 +1,12 @@
 """The device simulation engine (the port of the reference package's
-device/engine.py, one GPU, PHOLD slice).
+device/engine.py, one GPU, PHOLD and tgen).
 
 The reference runs the whole simulation as one jitted program. Here the
-window loop is Python on the host, and each phase of a window is three
-CUDA kernels plus a torch route (device/kernels.py):
+window loop is Python on the host, and each phase of a window is four
+CUDA kernels (device/kernels.py):
 
-  K1 pop_phase  -> K2 judge_outbox -> route (sort + searchsorted)
-                -> K3 merge_heaps
+  pop (K1 pop_phase for PHOLD, K4 pop_tgen for tgen) -> K2 judge_outbox
+    -> K5 route -> K3 merge_heaps
 
 A window [nxt, win_end) with win_end = min(nxt + lookahead, stop_time)
 runs phases while some host's head event lies below win_end; the
@@ -23,8 +23,9 @@ state moves between the two engines as numpy arrays
   ht hk hm hv hw [H,E] int64   sorted event heap rows: time,
                                src<<32|seq, kind<<32|size, d0<<32|d1, d2
   head [H] int32               consumed slots < head
-  event_seq packet_seq app_seq app n_exec n_sent n_drop n_deliv
-  overflow x_overflow occ_heap occ_ob occ_in   [H] int32 (app [H,1])
+  event_seq packet_seq app_seq n_exec n_sent n_drop n_deliv
+  overflow x_overflow occ_heap occ_ob occ_in   [H] int32
+  app [H,W] int32              the app's state words (PHOLD 1, tgen 7)
   chk [H] int64                trace checksum
   occ_x [1,1], occ_trips [1], occ_phases [1] int32
 
@@ -35,7 +36,7 @@ without a CUDA device they raise rather than fall back.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Union
 
 import numpy as np
 import torch
@@ -43,7 +44,7 @@ import torch
 from shadow_tpu_torch import simtime
 from shadow_tpu_torch.core.event import KIND_BOOT, KIND_STOP
 from shadow_tpu_torch.device import prng
-from shadow_tpu_torch.device.apps import PholdDevice
+from shadow_tpu_torch.device.apps import PholdDevice, TgenDevice
 from shadow_tpu_torch.device.kernels import (
     DROP_T,
     IMAX,
@@ -112,7 +113,8 @@ def state_to_numpy(state: dict, keys=None) -> dict:
 
 
 class DeviceEngine:
-    def __init__(self, config: EngineConfig, app: PholdDevice,
+    def __init__(self, config: EngineConfig,
+                 app: Union[PholdDevice, TgenDevice],
                  host_vertex: np.ndarray, latency_ns: np.ndarray,
                  reliability: np.ndarray, device="cuda",
                  kernels: Optional[Kernels] = None):
@@ -130,12 +132,18 @@ class DeviceEngine:
         if config.event_capacity < 2:
             raise ValueError("event_capacity must be >= 2 (boot+stop)")
         H = config.n_hosts
-        K = app.max_sends
+        # the outbox layout: an iteration owns M_out = K_eff + T
+        # columns, a burst host answering event j on lane j
+        P = max(1, app.burst_pops)
+        if P > 1 and app.max_sends != 1:
+            raise ValueError("burst_pops requires max_sends == 1")
+        K = P if P > 1 else app.max_sends
+        T = app.max_timers
         self.params = PhaseParams(
-            E=config.event_capacity, K=K,
-            B=max(1, config.outbox_capacity // K),
+            E=config.event_capacity, K=K, T=T, P=P,
+            B=max(1, config.outbox_capacity // (K + T)),
             IN=config.exchange_in_capacity or config.event_capacity,
-            C=app.max_train, boot_end=int(config.bootstrap_end),
+            C=max(1, app.max_train), boot_end=int(config.bootstrap_end),
             seed=prng.seed_key(config.seed), app=app)
         dev = self.device
 
@@ -147,6 +155,8 @@ class DeviceEngine:
             "host_vertex": put(np.asarray(host_vertex)[:H], np.int32),
             "lat": put(latency_ns, np.int32),
             "rel": put(reliability, np.float32),
+            **{k: put(np.asarray(v)[:H], v.dtype)
+               for k, v in app.world_columns().items()},
         }
         self._buf = None
 
@@ -182,7 +192,7 @@ class DeviceEngine:
             "hv": np.zeros((H, E), np.int64),
             "hw": np.zeros((H, E), np.int64),
             "event_seq": np.where(has_stop, 2, 1).astype(np.int32),
-            "app": np.zeros((H, self.app.n_state_words), np.int32),
+            "app": self.app.init_state(H),
             "chk": np.zeros(H, np.int64),
             "occ_x": np.zeros((1, 1), np.int32),
             "occ_trips": np.zeros(1, np.int32),
@@ -195,7 +205,8 @@ class DeviceEngine:
     # ------------------------------------------------------------------
     def _outbox(self) -> tuple[dict, torch.Tensor]:
         """The phase's outbox [H,OB] x 5 and pop counts [H]: allocated
-        once per engine, since K1 rewrites all of it every phase."""
+        once per engine, since the pop rewrites all of it every
+        phase."""
         if self._buf is None:
             H, OB = self.config.n_hosts, self.params.OB
             ob = {f: torch.empty((H, OB), dtype=torch.int64,
@@ -205,14 +216,14 @@ class DeviceEngine:
         return self._buf
 
     def phase(self, state: dict, win_end: int) -> None:
-        """One phase: pops (K1), then the flush: judge (K2), route, merge
-        (K3). Updates `state` in place. The caller runs a phase only
-        when some host's head time lies below win_end, so every phase
-        pops and flushes (the reference skips the flush of a phase
+        """One phase: pops (K1 or K4), then the flush: judge (K2),
+        route (K5), merge (K3). Updates `state` in place. The caller
+        runs a phase only when some host's head time lies below
+        win_end, so every phase pops and flushes (the reference skips the flush of a phase
         that popped nothing, which cannot happen here)."""
         p, k = self.params, self.kernels
         ob, pops = self._outbox()
-        k.pop_phase(state, ob, pops, self.world, win_end, p)
+        k.pop(state, ob, pops, self.world, win_end, p)
         state["occ_trips"].copy_(torch.maximum(state["occ_trips"],
                                                pops.max().view(1)))
         k.judge_outbox(state, ob, self.world, win_end, p)

@@ -2,25 +2,26 @@
 hand for Hopper (csrc/), their build and ctypes binding, and beside each
 one its plain PyTorch version.
 
-Three kernels carry one phase of a conservative window:
+Four steps carry one phase of a conservative window:
 
-* K1 `pop_phase` (csrc/pop_phase.cu): the reference engine's pop loop
-  (`_step` with `PholdDevice.handle` and the app draws), one thread per
-  host, up to B pops per launch;
+* the pop loop (the reference engine's `_step` with the app's
+  `handle`), one thread per host, up to B iterations per launch, in
+  one templated source (csrc/pop_phase.cu) with the app fused in:
+  K1 `pop_phase` for PHOLD (with its app draws) and K4 `pop_tgen` for
+  tgen (with the servers' burst pops, trains and timers);
 * K2 `judge_outbox` (csrc/judge_outbox.cu): `_judge_outbox` with the
   dense table lookup and `packet_drop_mask`, one thread per host row;
+* K5 `route` (csrc/route.cu): `_flat_sorted`/`_host_windows`, the
+  exchangeable rows grouped by destination in (src, column) order, by
+  a count, a scan, a scatter and a per-segment sort of flat indices;
 * K3 `merge_heaps` (csrc/merge_heaps.cu): `_merge_rows` on the window
   path, one block per destination host, a bitonic sort in shared memory.
-
-Between K2 and K3 the flat route (a sort by destination and
-`searchsorted` segment bounds) stays in torch, as the reference leaves
-it to `lax.sort`/`searchsorted`.
 
 Every wrapper takes the plain version for tensors on the CPU and, for
 CUDA tensors, launches its kernel on the current stream or raises:
 there is no fallback. A wrapper adds one to `Kernels.launches[name]`
-where it launches its kernel, and nowhere else. All three update their
-state tensors in place, like the kernels.
+where it launches its kernel, and nowhere else. The pop, judge and
+merge update their state tensors in place, like the kernels.
 """
 
 from __future__ import annotations
@@ -32,12 +33,14 @@ import shutil
 import subprocess
 from dataclasses import dataclass
 from pathlib import Path
+from typing import Union
 
 import torch
 
-from shadow_tpu_torch.core.event import KIND_PACKET
+from shadow_tpu_torch.core.event import KIND_PACKET, KIND_TIMER
+from shadow_tpu_torch.core.tgen_args import MSS
 from shadow_tpu_torch.device import prng
-from shadow_tpu_torch.device.apps import PholdDevice
+from shadow_tpu_torch.device.apps import PholdDevice, TgenDevice, popcount32
 from shadow_tpu_torch.device.netsem import packet_drop_mask
 from shadow_tpu_torch.utils.checksum import (
     CHK_KIND,
@@ -53,7 +56,8 @@ DROP_T = INF - 1
 IMAX = (1 << 63) - 1
 U32 = 0xFFFFFFFF
 
-KERNEL_NAMES = ("pop_phase", "judge_outbox", "merge_heaps")
+KERNEL_NAMES = ("pop_phase", "pop_tgen", "judge_outbox", "route",
+                "merge_heaps")
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC.parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -64,19 +68,29 @@ HEAP_FIELDS = ("ht", "hk", "hm", "hv", "hw")
 
 @dataclass(frozen=True)
 class PhaseParams:
-    """The static shape of one phase (EngineConfig plus the app)."""
+    """The static shape of one phase (EngineConfig plus the app).
+
+    An iteration of the pop loop owns M_out = K + T outbox columns:
+    K send lanes, then T timer lanes. A burst host pops up to P
+    events in one iteration and answers event j on lane j (K = P)."""
     E: int                  # heap slots per host
-    K: int                  # send lanes per pop (outbox block width)
-    B: int                  # pops per phase at most
+    K: int                  # send lanes per iteration
+    T: int                  # timer lanes per iteration
+    P: int                  # events per iteration at most (burst)
+    B: int                  # iterations per phase at most
     IN: int                 # arrivals per host per flush at most
     C: int                  # packets per send row at most (trains)
     boot_end: int           # no drops before this time
     seed: tuple             # (k1, k2) u32 seed key
-    app: PholdDevice
+    app: Union[PholdDevice, TgenDevice]
+
+    @property
+    def M_out(self) -> int:
+        return self.K + self.T
 
     @property
     def OB(self) -> int:
-        return self.B * self.K
+        return self.B * self.M_out
 
 
 # ----------------------------------------------------------------------
@@ -94,28 +108,24 @@ def lo32(x):
     return (x & U32).to(torch.int32)
 
 
-def popcount32(x):
-    """Bit count of u32 values held in int64."""
-    x = x & U32
-    x = x - ((x >> 1) & 0x55555555)
-    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
-    x = (x + (x >> 4)) & 0x0F0F0F0F
-    return ((x * 0x01010101) & U32) >> 24
-
-
 # ----------------------------------------------------------------------
-# K1: one phase of pops (reference: engine._step, P=1, judge at flush)
+# K1 / K4: one phase of pops (reference: engine._step, judge at flush)
 # ----------------------------------------------------------------------
-def pop_phase_plain(state: dict, ob: dict, pops: torch.Tensor,
-                    world: dict, win_end: int, p: PhaseParams) -> None:
-    """Pop up to B events per host below `win_end`, in lockstep over
-    hosts, exactly as the reference's pop loop: a host stops at the
-    window end, at `dirty` (an in-window self-send it must not pass)
-    or after B pops, and stays stopped for the rest of the phase. The
-    j-th pop of a host writes outbox columns [j*K, (j+1)*K); unused
-    columns hold t = INF and zeros. `pops[h]` receives the host's pop
-    count."""
-    E, K, B, app = p.E, p.K, p.B, p.app
+def pop_plain(state: dict, ob: dict, pops: torch.Tensor, world: dict,
+              win_end: int, p: PhaseParams) -> None:
+    """Pop events below `win_end`, in lockstep over hosts, exactly as
+    the reference's pop loop: a host stops at the window end, at
+    `dirty` (an in-window self-send or timer it must not pass) or
+    after B iterations, and stays stopped for the rest of the phase.
+    Each iteration pops one event per runnable host; with P > 1 a
+    burst host (`app.burst_mask`) whose head is an in-window packet
+    pops the run of consecutive in-window packets from its head, up
+    to P. Iteration j of a host writes outbox columns
+    [j*M_out, (j+1)*M_out): sends on lanes 0..K-1 (each departing at
+    its own event's time), then timers; unused columns hold t = INF
+    and zeros. `pops[h]` receives the host's iteration count."""
+    E, K, T, P, B, C, app = p.E, p.K, p.T, p.P, p.B, p.C, p.app
+    M = p.M_out
     dev = state["head"].device
     H = state["head"].shape[0]
     gid = torch.arange(H, dtype=torch.int32, device=dev)
@@ -133,67 +143,113 @@ def pop_phase_plain(state: dict, ob: dict, pops: torch.Tensor,
     app_state = state["app"].clone()
     dirty = torch.zeros(H, dtype=torch.bool, device=dev)
     npop = torch.zeros(H, dtype=torch.int32, device=dev)
+    offs = torch.arange(P, dtype=torch.int32, device=dev)
     draw_off = torch.arange(app.max_draws, dtype=torch.int64, device=dev)
     app_key = prng.purpose_id_key(p.seed, PURPOSE_APP, gid)
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
 
     def take(arr, fill):
-        v = arr.gather(1, head.clamp(max=E - 1).long()[:, None])[:, 0]
-        return torch.where(head < E, v, fill)
+        idx = head[:, None] + offs
+        v = arr.gather(1, idx.clamp(max=E - 1).long())
+        return torch.where(idx < E, v, fill)
 
     for blk in range(B):
-        pt = take(state["ht"], INF)
+        ptP = take(state["ht"], INF)
+        pt = ptP[:, 0]
         runnable = (pt < win_end) & ~dirty
         if not bool(runnable.any()):
             break
-        pk2 = take(state["hk"], IMAX)
-        pm = take(state["hm"], 0)
-        pw = take(state["hw"], 0)
-        psrc, pseq = hi32(pk2), lo32(pk2)
-        pkind, psize = hi32(pm), lo32(pm)
-        run32 = runnable.to(torch.int32)
-        head = head + run32
-        n_exec = n_exec + run32
-        npop = npop + run32
+        pk2P, pmP = take(state["hk"], IMAX), take(state["hm"], 0)
+        pvP, pwP = take(state["hv"], 0), take(state["hw"], 0)
+        srcP, seqP = hi32(pk2P), lo32(pk2P)
+        kindP, sizeP = hi32(pmP), lo32(pmP)
+        d0P, d1P, d2P = hi32(pvP), lo32(pvP), lo32(pwP)
+        if P > 1:
+            elig = ((ptP < win_end) & (kindP == KIND_PACKET)).to(torch.int32)
+            run = elig.cumprod(1).sum(-1, dtype=torch.int32)
+            burst = app.burst_mask(app_state) & (elig[:, 0] == 1)
+            popcnt = torch.where(runnable, torch.where(burst, run, 1), 0)
+        else:
+            popcnt = runnable.to(torch.int32)
+        active = offs[None, :] < popcnt[:, None]              # [H,P]
+        head = head + popcnt
+        n_exec = n_exec + popcnt
+        npop = npop + runnable.to(torch.int32)
         n_deliv = n_deliv + torch.where(
-            runnable & (pkind == KIND_PACKET),
-            popcount32(pw).to(torch.int32), 0)
-        mix = (pt ^ (psrc.long() * CHK_SRC) ^ (pkind.long() * CHK_KIND)
-               ^ (pseq.long() * CHK_SEQ)) & MASK63
-        chk = torch.where(runnable, (chk * CHK_MUL + mix) & MASK63, chk)
+            active & (kindP == KIND_PACKET),
+            popcount32(pwP).to(torch.int32), 0).sum(-1, dtype=torch.int32)
+        # fold each popped event in order (the 63-bit truncation
+        # between steps makes a closed form wrong)
+        for j in range(P):
+            mix = (ptP[:, j] ^ (srcP[:, j].long() * CHK_SRC)
+                   ^ (kindP[:, j].long() * CHK_KIND)
+                   ^ (seqP[:, j].long() * CHK_SEQ)) & MASK63
+            chk = torch.where(active[:, j], (chk * CHK_MUL + mix) & MASK63,
+                              chk)
 
         seqs = (app_seq.long()[:, None] + draw_off) & U32
         draws = prng.random_bits32(prng.fold_seq(
             (app_key[0][:, None], app_key[1][:, None]), seqs))
-        out = app.handle(gid, pt, torch.where(runnable, pkind, -1),
-                         psrc, psize, None, None, None, app_state, draws)
+        kind_app = torch.where(active, kindP, -1)
+        if P > 1:
+            out = app.handle_burst(gid, ptP, kind_app, srcP, sizeP, d0P,
+                                   d1P, d2P, app_state, draws, world)
+            lane_t = ptP
+        else:
+            out = app.handle(gid, pt, kind_app[:, 0], srcP[:, 0],
+                             sizeP[:, 0], d0P[:, 0], d1P[:, 0], d2P[:, 0],
+                             app_state, draws, world)
+            lane_t = pt[:, None].expand(H, K)
         app_state = torch.where(runnable[:, None], out.app_state,
                                 app_state)
         app_seq = app_seq + torch.where(runnable, out.n_draws, 0)
 
-        valid = out.send_valid & runnable[:, None]           # [H,K]
+        valid = out.send_valid & runnable[:, None]             # [H,K]
         v32 = valid.to(torch.int32)
+        counts = (torch.ones_like(v32) if out.send_count is None
+                  else out.send_count.clamp(1, C))
+        packet_seq = packet_seq + (counts * v32).sum(-1, dtype=torch.int32)
         vrank = v32.cumsum(-1, dtype=torch.int32) - v32
         nvalid = v32.sum(-1, dtype=torch.int32)
-        packet_seq = packet_seq + nvalid
         ev_seq = event_seq[:, None] + vrank
-        event_seq = event_seq + nvalid
+        tvalid = out.timer_valid & runnable[:, None]           # [H,T]
+        t32 = tvalid.to(torch.int32)
+        tseq = event_seq[:, None] + nvalid[:, None] + \
+            t32.cumsum(-1, dtype=torch.int32) - t32
+        event_seq = event_seq + nvalid + t32.sum(-1, dtype=torch.int32)
+        timer_t = pt[:, None] + out.timer_delay
+
         dst = out.send_dst
         g2 = gid[:, None].expand(H, K)
-        cols = slice(blk * K, (blk + 1) * K)
-        zero = torch.zeros((), dtype=torch.int64, device=dev)
-        ob["t"][:, cols] = torch.where(valid, pt[:, None], INF)
-        ob["k"][:, cols] = torch.where(valid, pack2(g2, ev_seq), zero)
-        ob["m"][:, cols] = torch.where(
-            valid, pack2(dst, torch.full_like(dst, KIND_PACKET | (1 << 8))),
-            zero)
-        ob["s"][:, cols] = torch.where(
-            valid, pack2(out.send_size, out.send_d0), zero)
-        ob["v"][:, cols] = torch.where(
-            valid, pack2(torch.full_like(dst, -1), out.send_d1), zero)
-        # an in-window self-send must land before the host pops again
+        gT = gid[:, None].expand(H, T)
+        c0 = blk * M
+        sends = {
+            "t": torch.where(valid, lane_t, INF),
+            "k": torch.where(valid, pack2(g2, ev_seq), zero),
+            "m": torch.where(valid, pack2(dst, KIND_PACKET | (counts << 8)),
+                             zero),
+            "s": torch.where(valid, pack2(out.send_size, out.send_d0),
+                             zero),
+            "v": torch.where(valid, pack2(torch.full_like(dst, -1),
+                                          out.send_d1), zero)}
+        timers = {
+            "t": torch.where(tvalid, timer_t, INF),
+            "k": torch.where(tvalid, pack2(gT, tseq), zero),
+            "m": torch.where(tvalid, pack2(gT, torch.full_like(
+                gT, KIND_TIMER)), zero),
+            "s": torch.where(tvalid, pack2(torch.zeros_like(gT),
+                                           out.timer_d0), zero),
+            "v": torch.zeros((H, T), dtype=torch.int64, device=dev)}
+        for f in OB_FIELDS:
+            ob[f][:, c0:c0 + K] = sends[f]
+            ob[f][:, c0 + K:c0 + M] = timers[f]
+        # an in-window self-send or timer must land before the host
+        # pops again (judged on the self-latency: self rows never take
+        # the causality bump)
         self_in = valid & (dst == gid[:, None]) & \
-            ((pt + selflat)[:, None] < win_end)
-        dirty = dirty | (runnable & self_in.any(-1))
+            (lane_t + selflat[:, None] < win_end)
+        tim_in = tvalid & (timer_t < win_end)
+        dirty = dirty | (runnable & (self_in.any(-1) | tim_in.any(-1)))
 
     for name, val in (("head", head), ("chk", chk), ("n_exec", n_exec),
                       ("n_deliv", n_deliv), ("event_seq", event_seq),
@@ -260,13 +316,15 @@ def judge_outbox_plain(state: dict, ob: dict, world: dict, win_end: int,
 
 
 # ----------------------------------------------------------------------
-# route (torch, between K2 and K3; reference: _flat_sorted/_host_windows)
+# K5: route (reference: _flat_sorted/_host_windows)
 # ----------------------------------------------------------------------
-def route(ob: dict):
+def route_plain(ob: dict):
     """Order the judged outbox rows by (dst, src, column): a flat sort
     of dst*SPAN + src*OB + column over exchangeable rows (t < DROP_T),
     then per-destination segment bounds by searchsorted. Returns
-    (perm [H*OB], starts [H], counts [H]), int64."""
+    (perm [H*OB], starts [H], counts [H]), int64; perm's first
+    counts.sum() entries are the live rows' flat indices in that
+    order."""
     ft, fm = ob["t"], ob["m"]
     H, OB = ft.shape
     dev = ft.device
@@ -415,10 +473,19 @@ _SIGNATURES = {
     "shadow_pop_phase": [_I, _I, _I, _I, _L] + [_P] * 5 + [_P] * 8 +
                         [_P, _P, _I, _U, _U, _I, _I, _I, _I] + [_P] * 5 +
                         [_P, _P],
+    # H, E, K, T, P, B, C, win_end, ht hk hm hv hw, head event_seq
+    # packet_seq app n_exec n_deliv chk, host_vertex lat V, count pause
+    # retry, npkts last_sz chunk mss, ob t k m s v, pops, stream
+    "shadow_pop_tgen": [_I] * 7 + [_L] + [_P] * 5 + [_P] * 7 +
+                       [_P, _P, _I] + [_P] * 3 + [_I] * 4 + [_P] * 5 +
+                       [_P, _P],
     # H, OB, C, win_end, boot_end, ob t m v, packet_seq n_sent n_drop,
     # host_vertex lat rel V, seed k1 k2, stream
     "shadow_judge_outbox": [_I, _I, _I, _L, _L] + [_P] * 3 + [_P] * 3 +
                            [_P, _P, _P, _I, _U, _U, _P],
+    # H, OB, ob t m, perm starts counts, scratch cursor block_sums,
+    # stream
+    "shadow_route": [_I, _I] + [_P] * 2 + [_P] * 3 + [_P] * 3 + [_P],
     # H, E, IN, F, ht hk hm hv hw head, ob t k m s v, perm starts
     # counts, overflow occ_in occ_heap, stream
     "shadow_merge_heaps": [_I, _I, _I, _L] + [_P] * 6 + [_P] * 5 +
@@ -431,42 +498,29 @@ def _ptr(t: torch.Tensor) -> int:
 
 
 class Kernels:
-    """The three kernels of one engine: the loaded library (built on
-    first CUDA use), the wrappers and their launch counters.
+    """The kernels of one engine: the loaded library (built on first
+    CUDA use), the wrappers and their launch counters.
 
-    `timing=True` records a CUDA event pair around every launch, and
-    around every `route` call on CUDA tensors, so `kernel_ms()` can sum
-    the device time each took on the main path; it adds no
-    synchronisation."""
+    `timing=True` records a CUDA event pair around every launch, so
+    `kernel_ms()` can sum the device time each kernel took on the main
+    path; it adds no synchronisation."""
 
     def __init__(self, timing: bool = False):
         self.timing = timing
         self.reset_counts()
         self._lib = None
+        self._route_scratch = {}
 
     def reset_counts(self) -> None:
         self.launches = dict.fromkeys(KERNEL_NAMES, 0)
-        self._events = {n: [] for n in (*KERNEL_NAMES, "route")}
+        self._events = {n: [] for n in KERNEL_NAMES}
 
     def kernel_ms(self) -> dict:
-        """Summed device ms per kernel, and of the route, over the
-        recorded calls (timing mode); synchronises."""
+        """Summed device ms per kernel over the recorded launches
+        (timing mode); synchronises."""
         torch.cuda.synchronize()
         return {n: sum(a.elapsed_time(b) for a, b in ev)
                 for n, ev in self._events.items()}
-
-    def _timed(self, name: str, fn, *args):
-        """fn(*args), with an event pair recorded around it in timing
-        mode."""
-        if not self.timing:
-            return fn(*args)
-        ev = (torch.cuda.Event(enable_timing=True),
-              torch.cuda.Event(enable_timing=True))
-        ev[0].record()
-        out = fn(*args)
-        ev[1].record()
-        self._events[name].append(ev)
-        return out
 
     def library(self):
         if self._lib is None:
@@ -481,7 +535,8 @@ class Kernels:
 
     def _launch(self, name: str, c_name: str, tensors, *args) -> None:
         """Check every (tensor, dtype) the kernel reads or writes, launch
-        it on the current stream, and count the launch."""
+        it on the current stream, and count the launch (with an event
+        pair around it in timing mode)."""
         dev = tensors[0][0].device
         for t, dtype in tensors:
             if t.device != dev or not t.is_cuda:
@@ -494,25 +549,37 @@ class Kernels:
                 raise ValueError(f"{name}: tensors must be contiguous")
         fn = getattr(self.library(), c_name)
         stream = torch.cuda.current_stream().cuda_stream
-        err = self._timed(name, fn, *args, stream)
+        ev = None
+        if self.timing:
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+        err = fn(*args, stream)
         if err != 0:
             raise RuntimeError(f"{name}: CUDA launch failed with error "
                                f"{err}")
+        if ev is not None:
+            ev[1].record()
+            self._events[name].append(ev)
         self.launches[name] += 1
 
-    def route(self, ob: dict):
-        """`route(ob)`; timed on CUDA tensors in timing mode. It is
-        torch, not a kernel of this package, so it counts no launch."""
-        if not ob["t"].is_cuda:
-            return route(ob)
-        return self._timed("route", route, ob)
-
-    def pop_phase(self, state: dict, ob: dict, pops: torch.Tensor,
-                  world: dict, win_end: int, p: PhaseParams) -> None:
+    def pop(self, state: dict, ob: dict, pops: torch.Tensor, world: dict,
+            win_end: int, p: PhaseParams) -> None:
+        """The phase's pops: K1 for PHOLD, K4 for tgen (the plain pop
+        for either on the CPU)."""
         if not state["head"].is_cuda:
-            return pop_phase_plain(state, ob, pops, world, win_end, p)
-        H = state["head"].shape[0]
+            return pop_plain(state, ob, pops, world, win_end, p)
+        if isinstance(p.app, TgenDevice):
+            return self._pop_tgen(state, ob, pops, world, win_end, p)
+        return self._pop_phase(state, ob, pops, world, win_end, p)
+
+    def _pop_phase(self, state: dict, ob: dict, pops: torch.Tensor,
+                   world: dict, win_end: int, p: PhaseParams) -> None:
         a = p.app
+        if not isinstance(a, PholdDevice) or p.T or p.P != 1:
+            raise ValueError("pop_phase runs PHOLD (no timers, no "
+                             "bursts)")
+        H = state["head"].shape[0]
         heap = [state[f] for f in HEAP_FIELDS]
         small = [state[f] for f in ("head", "event_seq", "packet_seq",
                                     "app_seq", "app", "n_exec",
@@ -528,6 +595,34 @@ class Kernels:
             *map(_ptr, small), *map(_ptr, tabs), world["lat"].shape[0],
             p.seed[0], p.seed[1], a.n_hosts_total, a.msgload, a.size,
             a.selfloop, *map(_ptr, obs), _ptr(pops))
+
+    def _pop_tgen(self, state: dict, ob: dict, pops: torch.Tensor,
+                  world: dict, win_end: int, p: PhaseParams) -> None:
+        a = p.app
+        if not isinstance(a, TgenDevice) or p.T != 1 or \
+                p.K != max(1, p.P) or p.C > 32:
+            raise ValueError("pop_tgen runs tgen: one timer lane, one "
+                             "send lane per burst column, trains of at "
+                             "most 32")
+        H = state["head"].shape[0]
+        heap = [state[f] for f in HEAP_FIELDS]
+        small = [state[f] for f in ("head", "event_seq", "packet_seq",
+                                    "app", "n_exec", "n_deliv")]
+        tabs = [world["host_vertex"], world["lat"]]
+        args = [world["tgen_count"], world["tgen_pause"],
+                world["tgen_retry"]]
+        obs = [ob[f] for f in OB_FIELDS]
+        i32, i64 = torch.int32, torch.int64
+        self._launch(
+            "pop_tgen", "shadow_pop_tgen",
+            [(t, i64) for t in heap + obs] + [(t, i32) for t in small]
+            + [(state["chk"], i64), (pops, i32)]
+            + [(t, i32) for t in tabs] + [(args[0], i32)]
+            + [(t, i64) for t in args[1:]],
+            H, p.E, p.K, p.T, p.P, p.B, p.C, int(win_end),
+            *map(_ptr, heap), *map(_ptr, small), _ptr(state["chk"]),
+            *map(_ptr, tabs), world["lat"].shape[0], *map(_ptr, args),
+            a.npkts, a.last_sz, a.chunk, MSS, *map(_ptr, obs), _ptr(pops))
 
     def judge_outbox(self, state: dict, ob: dict, world: dict,
                      win_end: int, p: PhaseParams) -> None:
@@ -545,6 +640,34 @@ class Kernels:
             H, OB, p.C, int(win_end), int(p.boot_end), *map(_ptr, obs),
             *map(_ptr, cnt), *map(_ptr, tabs), world["lat"].shape[0],
             p.seed[0], p.seed[1])
+
+    def route(self, ob: dict):
+        """K5: (perm, starts, counts) as `route_plain` gives them, for
+        destinations in [0, H). Only perm's first counts.sum() entries
+        are written; the rest are unspecified."""
+        if not ob["t"].is_cuda:
+            return route_plain(ob)
+        H, OB = ob["t"].shape
+        dev = ob["t"].device
+        key = (H, OB, dev)
+        if key not in self._route_scratch:
+            # scattered rows, cursors, and the scan's block totals (it
+            # needs fewer than H)
+            self._route_scratch = {key: tuple(
+                torch.empty(n, dtype=torch.int64, device=dev)
+                for n in (H * OB, H, H))}
+        scratch = self._route_scratch[key]
+        perm = torch.empty(H * OB, dtype=torch.int64, device=dev)
+        starts = torch.empty(H, dtype=torch.int64, device=dev)
+        counts = torch.empty(H, dtype=torch.int64, device=dev)
+        out = [perm, starts, counts]
+        self._launch(
+            "route", "shadow_route",
+            [(ob["t"], torch.int64), (ob["m"], torch.int64)]
+            + [(t, torch.int64) for t in out + list(scratch)],
+            H, OB, _ptr(ob["t"]), _ptr(ob["m"]), *map(_ptr, out),
+            *map(_ptr, scratch))
+        return perm, starts, counts
 
     def merge_heaps(self, state: dict, ob: dict, perm: torch.Tensor,
                     starts: torch.Tensor, counts: torch.Tensor,

@@ -3,10 +3,11 @@ reference package's device/runner.py `DeviceRunner`, without segments,
 supervision, capacity planning or a compile cache).
 
 It builds the engine from a config with the reference's knobs (the
-outbox floored at 8 pop iterations of send lanes, the lookahead from
+burst width of `experimental.burst_pops`, the outbox floored at 8 pop
+iterations of lanes, 4 where bursts drain backlogs, the lookahead from
 the runahead or the minimum path latency), runs to the stop time and
 returns the SimStats totals plus the per-host `events_executed` and
-`trace_checksum` arrays.
+`trace_checksum` arrays, and for tgen the downloads completed.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import numpy as np
 
 from shadow_tpu_torch.config.schema import ConfigOptions
 from shadow_tpu_torch.core.build import build
+from shadow_tpu_torch.device.apps import TgenDevice
 from shadow_tpu_torch.device.engine import (
     DeviceEngine,
     EngineConfig,
@@ -27,7 +29,7 @@ from shadow_tpu_torch.device.engine import (
 from shadow_tpu_torch.device.kernels import Kernels
 
 STAT_KEYS = ("n_exec", "n_sent", "n_drop", "n_deliv", "chk", "overflow",
-             "x_overflow")
+             "x_overflow", "app")
 
 
 @dataclass
@@ -45,12 +47,16 @@ class SimStats:
     host_trace_checksum: np.ndarray = field(default=None, repr=False)
     overflow: int = 0
     x_overflow: int = 0
+    # tgen only: downloads completed, the sum of the clients' app word 4
+    downloads_completed: Optional[int] = None
 
     def summary(self) -> str:
+        downloads = ("" if self.downloads_completed is None else
+                     f"{self.downloads_completed} downloads completed, ")
         return (f"{self.events_executed} events, "
                 f"{self.packets_sent} packets sent "
                 f"({self.packets_delivered} delivered, "
-                f"{self.packets_dropped} dropped), "
+                f"{self.packets_dropped} dropped), {downloads}"
                 f"{self.rounds} rounds")
 
 
@@ -59,7 +65,16 @@ def make_engine(cfg: ConfigOptions, device="cuda",
     """(engine, built simulation) for a config inside the slice."""
     sim = build(cfg)
     xp = cfg.experimental
-    outbox = max(xp.outbox_capacity, 8 * sim.app.max_sends)
+    if xp.burst_pops:
+        if xp.burst_pops > 1 and sim.app.burst_pops <= 1:
+            raise ValueError(
+                "experimental.burst_pops > 1 requires an app with burst "
+                "support (stateless-responder contract); this app pops "
+                "one event per iteration")
+        sim.app.burst_pops = xp.burst_pops
+    burst = max(1, sim.app.burst_pops)
+    per_iter = sim.app.max_sends * burst + sim.app.max_timers
+    outbox = max(xp.outbox_capacity, (4 if burst > 1 else 8) * per_iter)
     engine = DeviceEngine(
         EngineConfig(
             n_hosts=len(sim.host_vertex),
@@ -96,5 +111,7 @@ def run(cfg: ConfigOptions, device="cuda",
         host_trace_checksum=final["chk"],
         overflow=int(final["overflow"].sum()),
         x_overflow=int(final["x_overflow"].sum()))
+    if isinstance(engine.app, TgenDevice):
+        stats.downloads_completed = int(final["app"][:, 4].sum())
     stats.ok = stats.overflow == 0 and stats.x_overflow == 0
     return stats

@@ -80,8 +80,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
 
 
 @pytest.mark.parametrize("override,item", [
-    ("hosts.a.processes=[{path: 'model:tgen_client', "
-     "args: 'server=b'}]", "queue (a) item 6"),
+    ("experimental.outbox_compact=8", "queue (b) item 7"),
     ("experimental.model_bandwidth=true", "queue (a) item 8"),
     ("experimental.exchange=two_phase", "queue (a) item 9"),
     ("experimental.scheduler_policy=serial", "queue (a) item 10"),
@@ -107,7 +106,7 @@ def test_wrappers_take_the_plain_path_on_cpu_and_count_nothing():
     p = engine.params
     ob, pops = engine._outbox()
     win_end = engine.next_time(state) + engine.config.lookahead
-    kernels.pop_phase(state, ob, pops, engine.world, win_end, p)
+    kernels.pop(state, ob, pops, engine.world, win_end, p)
     assert int(pops.sum()) > 0
     kernels.judge_outbox(state, ob, engine.world, win_end, p)
     perm, starts, counts = kernels.route(ob)
