@@ -7,7 +7,7 @@
 Phases, in order; any failure exits non-zero before the last line:
 
 1. build: print the card's name and power limit (nvidia-smi), the torch
-   and CUDA versions, then build the five CUDA kernels from
+   and CUDA versions, then build the six CUDA kernels from
    shadow_tpu_torch/csrc/ into shadow_tpu_torch/_build/ (one nvcc per
    source, all started together; timed as set-up; ptxas register and
    shared-memory use is printed).
@@ -23,21 +23,36 @@ Phases, in order; any failure exits non-zero before the last line:
      shifts past +-32, pause and retry timers (some in-window, setting
      dirty, some stale); K2 on its outbox (trains of up to 32 packets,
      lossy paths) and K3 at E=IN=48;
-   - K5 route at the PHOLD shape (3,000,000 rows) and tgen_10000's
-     (360,000 rows), each with destinations past IN, beside
-     torch.sort + searchsorted on the same input.
+   - K6 pop_tor at examples/tor_large.yaml's layout and full width
+     (56,000 hosts, 5,600 relays, E=96, P=8, T=1, B=4, OB=36, C=16,
+     V=6), on heaps built from the port's own routes so that every
+     relay branch fires (REQ forwarded by guard and middle, served by
+     the exit, DATA trains forwarded by middle and guard): burst runs
+     cut by a non-packet slot, by win_end and by slot E, tail chunks
+     (cells - start < 16), trains with holed masks, with d2 == 0 and
+     shifted past +-32 at clients, pause and current and stale retry
+     timers (some in-window, setting dirty); K2 on its outbox (C=16,
+     holed masks) and K3 at E=96, IN=64;
+   - K5 route at the PHOLD shape (3,000,000 rows), tgen_10000's
+     (360,000 rows) and tor_large's (2,016,000 rows), each with
+     destinations past IN, beside torch.sort + searchsorted on the
+     same input.
 3. parity: on the card and on the CPU plain path, totals, rounds and
    per-host events_executed / trace_checksum (and downloads) must be
    identical: the PHOLD test shape at 2 x 1,000 hosts, loss 0.01, 1 s;
    the tgen test config (tests/test_tgen_device.py) at loss 0.25,
-   retry=120ms with TGEN_PARITY_CLIENTS clients.
+   retry=120ms with TGEN_PARITY_CLIENTS clients; examples/tor_small.yaml
+   with its stop_time cut to TOR_PARITY_STOP (past its 5 s bootstrap,
+   so drops roll).
 4. full: through the port's CLI entry function on the card, each run
    with the kernel launch counts set to 0 just before and read just
    after; fails on any overflow or on a kernel of the path that never
    launched: examples/phold.yaml at 2 x 50,000 hosts;
    examples/tgen_10000.yaml as shipped (10,000 hosts, 30 s); and the
    same file with every group's quantity x10 (tgen_100000.yaml's host
-   set, 100,000 hosts, without its multi-chip runner keys).
+   set, 100,000 hosts, without its multi-chip runner keys);
+   examples/tor_small.yaml as shipped (250 hosts, 60 s) and
+   examples/tor_large.yaml as shipped (56,000 hosts, 60 s).
 5. the `kernels` JSON line, then the card line, then the result line.
 
 It imports nothing of jax or of the shadow_tpu package.
@@ -125,6 +140,9 @@ hosts:
     - {{path: model:tgen_client, start_time: 100ms,
        args: server=server size=200KiB count=2 pause=200ms retry=120ms}}
 """
+# examples/tor_small.yaml's stop_time cut for the card == CPU parity
+# run (the plain path on the CPU takes about a minute there)
+TOR_PARITY_STOP = "30s"
 # examples/tgen_10000.yaml's groups and quantities
 TGEN_QUANTITY = {"server_nyc": 100, "server_lon": 100, "server_sin": 100,
                  "client_nyc": 1600, "client_lon": 1600,
@@ -134,6 +152,7 @@ TGEN_QUANTITY = {"server_nyc": 100, "server_lon": 100, "server_sin": 100,
 REPLACES = {
     "pop_phase": "shadow_tpu/device/engine.py:737",
     "pop_tgen": "shadow_tpu/device/engine.py:742",
+    "pop_tor": "shadow_tpu/device/apps.py:548",
     "judge_outbox": "shadow_tpu/device/engine.py:1388",
     "route": "shadow_tpu/device/engine.py:1291",
     "merge_heaps": "shadow_tpu/device/engine.py:1550",
@@ -141,6 +160,7 @@ REPLACES = {
 SOURCES = {
     "pop_phase": "shadow_tpu_torch/csrc/pop_phase.cu",
     "pop_tgen": "shadow_tpu_torch/csrc/pop_phase.cu",
+    "pop_tor": "shadow_tpu_torch/csrc/pop_phase.cu",
     "judge_outbox": "shadow_tpu_torch/csrc/judge_outbox.cu",
     "route": "shadow_tpu_torch/csrc/route.cu",
     "merge_heaps": "shadow_tpu_torch/csrc/merge_heaps.cu",
@@ -460,6 +480,54 @@ def merge_case(torch, K, scratch, rng, state0, p, H, OB, dev):
                  f"accepted={accepted} overflow={over}"})
 
 
+def pop_case(torch, K, scratch, name, state0, world, p, win_end, dev):
+    """A burst pop (K4 or K6) against the plain pop on one phase's
+    inputs: exact on every state leaf, outbox field and pop count; a
+    burst, a timer and a host stopped dirty must all occur. Returns the
+    kernel's state and outbox, the error, the counts and both times."""
+    from shadow_tpu_torch.device.engine import STATE_DTYPES
+
+    H, E, OB = state0["head"].shape[0], p.E, p.OB
+
+    def args():
+        return (clone(state0), {f: torch.empty(
+            (H, OB), dtype=torch.int64, device=dev) for f in K.OB_FIELDS},
+            torch.empty(H, dtype=torch.int32, device=dev), world, win_end,
+            p)
+
+    ka, pa = args(), args()
+    scratch.pop(*ka)
+    K.pop_plain(*pa)
+    torch.cuda.synchronize()
+    (sk, obk, pk), (sp, obp, pp) = ka[:3], pa[:3]
+    err = max(max_abs_err(sk, sp, list(STATE_DTYPES)),
+              max_abs_err(obk, obp, list(K.OB_FIELDS)),
+              max_abs_err({"pops": pk}, {"pops": pp}, ["pops"]))
+    check(err == 0.0, f"{name} differs from its plain version (max abs "
+          f"err {err})")
+    popped = int(((sk["n_exec"].long() - state0["n_exec"].long())
+                  & 0xFFFFFFFF).sum())
+    iters = int(pk.sum())
+    live = obk["t"] < K.INF
+    col = torch.arange(OB, device=dev)[None, :] % p.M_out
+    timers = int((live & (col == p.K)).sum())
+    burst_lanes = int((live & (col > 0) & (col < p.K)).sum())
+    dirty = int(((pk < p.B) & (sk["head"] < E) & (
+        sk["ht"].gather(1, sk["head"].clamp(max=E - 1).long()[:, None])[
+            :, 0] < win_end)).sum())
+    check(popped > iters and burst_lanes > 0, f"{name}: no burst ran")
+    check(timers > 0 and dirty > 0, f"{name}: no timer, or no host "
+          "stopped dirty")
+    rows = int(live.sum())
+    return {"state": sk, "ob": obk, "err": err, "popped": popped,
+            "rows": rows,
+            "counts": f"iterations={iters} events={popped} rows={rows} "
+                      f"burst_lanes={burst_lanes} timers={timers} "
+                      f"dirty={dirty}",
+            "ms": time_median(torch, scratch.pop, args, 7),
+            "plain_ms": time_median(torch, K.pop_plain, args, 3)}
+
+
 def tgen_inputs(torch, K, rng, H, E, dev):
     """State, world and params of one tgen phase at tgen_10000's layout,
     with heaps built to exercise every branch of the pop."""
@@ -555,52 +623,14 @@ def tgen_inputs(torch, K, rng, H, E, dev):
 
 def tgen_kernels(torch, K, scratch, rng, H, dev):
     """K4 at 100,000 hosts, then K2 and K3 at tgen_10000's layout."""
-    from shadow_tpu_torch.device.engine import STATE_DTYPES
-
     E = 48
     state0, world, p, win_end = tgen_inputs(torch, K, rng, H, E, dev)
-    OB = p.OB
-
-    def empty_ob():
-        return {f: torch.empty((H, OB), dtype=torch.int64, device=dev)
-                for f in K.OB_FIELDS}
-
-    sk, sp = clone(state0), clone(state0)
-    obk, obp = empty_ob(), empty_ob()
-    pk = torch.empty(H, dtype=torch.int32, device=dev)
-    pp = torch.empty_like(pk)
-    scratch.pop(sk, obk, pk, world, win_end, p)
-    K.pop_plain(sp, obp, pp, world, win_end, p)
-    torch.cuda.synchronize()
-    err = max(max_abs_err(sk, sp, list(STATE_DTYPES)),
-              max_abs_err(obk, obp, list(K.OB_FIELDS)),
-              max_abs_err({"pops": pk}, {"pops": pp}, ["pops"]))
-    check(err == 0.0, f"pop_tgen differs from its plain version (max "
-          f"abs err {err})")
-    popped = int(((sk["n_exec"].long() - state0["n_exec"].long())
-                  & 0xFFFFFFFF).sum())
-    iters = int(pk.sum())
-    live = obk["t"] < K.INF
-    col = torch.arange(OB, device=dev)[None, :] % p.M_out
-    timers = int((live & (col == p.K)).sum())
-    burst_lanes = int((live & (col > 0) & (col < p.K)).sum())
-    dirty = int(((pk < p.B) & (sk["head"] < E) & (
-        sk["ht"].gather(1, sk["head"].clamp(max=E - 1).long()[:, None])[
-            :, 0] < win_end)).sum())
-    check(popped > iters and burst_lanes > 0, "pop_tgen: no burst ran")
-    check(timers > 0 and dirty > 0, "pop_tgen: no timer, or no host "
-          "stopped dirty")
-
-    def k4_args():
-        return (clone(state0), empty_ob(),
-                torch.empty(H, dtype=torch.int32, device=dev), world,
-                win_end, p)
-
-    rows = int(live.sum())
+    c = pop_case(torch, K, scratch, "pop_tgen", state0, world, p, win_end,
+                 dev)
+    OB, sk, obk, err = p.OB, c["state"], c["ob"], c["err"]
+    popped, rows = c["popped"], c["rows"]
     out = {"pop_tgen": finish({
-        "err": err,
-        "ms": time_median(torch, scratch.pop, k4_args, 7),
-        "plain_ms": time_median(torch, K.pop_plain, k4_args, 3),
+        "err": err, "ms": c["ms"], "plain_ms": c["plain_ms"],
         # t of every outbox column, the other four fields of send and
         # timer rows; the popped heap rows (t, key, meta, d0|d1, d2);
         # the head time that stopped each host; per-host counters read
@@ -610,10 +640,211 @@ def tgen_kernels(torch, K, scratch, rng, H, dev):
                   + H * (5 * 4 + 8 + 7 * 4) * 2 + H * (4 + 8 + 8)
                   + H * 4 * 2),
         "ops": 0,
-        "shape": f"H={H} E={E} P={p.P} OB={OB} iterations={iters} "
-                 f"events={popped} rows={rows} burst_lanes={burst_lanes} "
-                 f"timers={timers} dirty={dirty}"})}
+        "shape": f"H={H} E={E} P={p.P} OB={OB} {c['counts']}"})}
     # K2 on K4's outbox, then K3, at tgen_10000's layout
+    out["judge_outbox"] = judge_case(torch, K, scratch, sk, obk, world,
+                                     win_end, p, H, OB)
+    out["merge_heaps"] = merge_case(torch, K, scratch, rng, state0, p, H,
+                                    OB, dev)
+    return out
+
+
+def tor_inputs(torch, K, rng, dev):
+    """State, world and params of one Tor phase at tor_large's layout
+    (relays are hosts 0..5,599, clients the rest), with heaps built
+    from the port's own routes so that every relay branch fires."""
+    from shadow_tpu_torch.core.tor_args import (
+        CHUNK_CELLS,
+        SEQ_BITS,
+        TAG_TOR_DATA,
+        TAG_TOR_REQ,
+    )
+    from shadow_tpu_torch.device.apps import TorDevice
+    from shadow_tpu_torch.device.engine import state_from_numpy, \
+        state_to_numpy
+    from shadow_tpu_torch.device.prng import seed_key
+
+    H, R, E, cells = 56_000, 5_600, 96, 256
+    ms = 10**6
+    win_end = 10**9
+    roles = (np.arange(H) >= R).astype(np.int32)
+    client = roles == 1
+    relay = ~client
+    app = TorDevice(
+        roles=roles, relay_gids=np.arange(R), seed=1, cells=cells,
+        count=np.where(rng.random(H) < 0.05, 0, 3),
+        pause_ns=rng.choice([1 * ms, 4000 * ms], H),
+        retry_ns=rng.choice([0, 1 * ms, 8000 * ms], H))
+    world = {k: torch.from_numpy(v.copy()).to(dev)
+             for k, v in app.world_columns().items()}
+    # every client's circuit: (relay, circuit) for each of its 3 hops,
+    # grouped by relay, so that a relay's packets name circuits it sits
+    # on (as guard, middle or exit)
+    circs = np.flatnonzero(client)
+    hops = torch.stack(app.route(torch.from_numpy(circs.astype(
+        np.int32)).to(dev), world), 1).cpu().numpy()         # [N,3]
+    on_relay = hops.reshape(-1)
+    on_circ = np.repeat(circs, 3)
+    order = np.argsort(on_relay, kind="stable")
+    first = np.searchsorted(on_relay[order], np.arange(R))
+    n_on = np.bincount(on_relay, minlength=R)
+    shape = (H, E)
+    pick = first[:R, None] + (rng.random((R, E)) * n_on[:, None]).astype(
+        np.int64)
+    circ = rng.integers(R, H, shape)
+    circ[:R] = np.where((rng.random((R, E)) < 0.85) & (n_on[:, None] > 0),
+                        on_circ[order[np.minimum(pick, 3 * len(circs) - 1)]],
+                        circ[:R])
+    circ[client] = np.flatnonzero(client)[:, None]
+    st = app.init_state(H)
+    cs = CHUNK_CELLS * rng.integers(0, cells // CHUNK_CELLS, H)
+    gen = rng.integers(0, 1000, H)
+    st[client, 1] = cs[client]
+    st[client, 2] = rng.integers(0, CHUNK_CELLS, int(client.sum()))
+    st[client, 3] = rng.integers(0, 3, int(client.sum()))
+    st[client, 4] = gen[client]
+    st[client, 5] = rng.integers(0, 2**16, int(client.sum()))
+    n_live = rng.integers(0, E + 1, H)
+    live = np.arange(E)[None, :] < n_live[:, None]
+    ht = np.sort(rng.integers(win_end // 2, 3 * win_end // 2, shape), 1)
+    kind = np.where(relay[:, None],
+                    np.where(rng.random(shape) < 0.85, 2,
+                             rng.choice([0, 1, 3], shape)),
+                    rng.choice([0, 1, 1, 2, 2, 2, 3], shape))
+    # runs cut by slot E: 5% of relays hold only in-window packets, their
+    # head three slots before E
+    full = relay & (rng.random(H) < 0.05)
+    ht[full] = np.sort(rng.integers(0, win_end, (int(full.sum()), E)), 1)
+    kind[full] = 2
+    live[full] = True
+    head = np.minimum(rng.integers(0, 4, H), n_live)
+    head[full] = E - 3
+    d0 = np.where(rng.random(shape) < 0.5, TAG_TOR_REQ, TAG_TOR_DATA)
+    d0 = np.where(client[:, None] & (rng.random(shape) < 0.9),
+                  TAG_TOR_DATA, d0)
+    g2 = gen[:, None]
+    timer_d0 = np.choose(rng.integers(0, 4, shape),
+                         [np.full(shape, -1), np.broadcast_to(g2, shape),
+                          np.broadcast_to(g2 - 1, shape),
+                          rng.integers(-5, 2000, shape)])
+    d0 = np.where(kind == 1, timer_d0, d0)
+    # chunk starts: every chunk, the tail (cells - start < 16), the end
+    # and past it; clients' trains shifted around their window
+    relay_start = rng.choice(np.array(
+        [0, 16, 128, 240, 241, 248, 255, cells, cells + 3, 4095]), shape)
+    shifts = np.array([-40, -32, -16, -1, 0, 1, 15, 16, 31, 32, 40])
+    client_start = np.clip(cs[:, None] + rng.choice(shifts, shape), 0,
+                           4095)
+    start = np.where(client[:, None], client_start, relay_start)
+    d1 = (circ.astype(np.int64) << SEQ_BITS) | start
+    d2 = np.choose(rng.integers(0, 5, shape),
+                   [np.zeros(shape, np.int64), np.full(shape, 0xFFFF),
+                    np.full(shape, 2**32 - 1),
+                    rng.integers(1, 2**16, shape),
+                    rng.integers(0, 2**32, shape)])
+    arrays = state_to_numpy(random_state(rng, H, E, dev))
+    arrays.update({
+        "ht": np.where(live, ht, K.INF).astype(np.int64),
+        "hk": np.where(live, (rng.integers(0, H, shape) << 32)
+                       | rng.integers(0, 2**32, shape), K.IMAX),
+        "hm": np.where(live, (kind << 32) | rng.integers(0, 2**16, shape),
+                       0),
+        "hv": np.where(live, (d0 << 32) | (d1 & K.U32), 0),
+        "hw": np.where(live, d2, 0),
+        "head": head.astype(np.int32), "app": st})
+    state = state_from_numpy(arrays, dev)
+    V = 6
+    lat = rng.integers(12, 95, (V, V)) * ms
+    lat = np.minimum(lat, lat.T)
+    np.fill_diagonal(lat, 15 * ms)
+    world.update({
+        "host_vertex": torch.from_numpy(
+            rng.integers(0, V, H).astype(np.int32)).to(dev),
+        "lat": torch.from_numpy(lat.astype(np.int32)).to(dev),
+        "rel": torch.from_numpy(rng.uniform(0.9, 0.999, (V, V)).astype(
+            np.float32)).to(dev)})
+    p = K.PhaseParams(E=E, K=8, T=1, P=8, B=4, IN=64, C=16,
+                      boot_end=win_end // 2, seed=seed_key(1), app=app)
+    return state, world, p, win_end
+
+
+def tor_branches(torch, K, app, world, ob, dev):
+    """Send rows of a Tor outbox by relay branch (the sender's place on
+    the row's circuit), with the rows whose live mask is partial."""
+    from shadow_tpu_torch.core.tor_args import (
+        CHUNK_CELLS,
+        SEQ_BITS,
+        TAG_TOR_DATA,
+        TAG_TOR_REQ,
+    )
+
+    H, OB = ob["t"].shape
+    send = (ob["t"] < K.INF) & ((ob["m"] & 0xFF) == 2)
+    sender = torch.arange(H, device=dev)[:, None].expand(H, OB)[send]
+    d0 = K.lo32(ob["s"])[send]
+    d1 = K.lo32(ob["v"])[send]
+    mask = (ob["v"] >> 32)[send] & K.U32
+    G, M, X = app.route(d1 >> SEQ_BITS, world)
+    relay = world["client_count"].new_zeros(H, dtype=torch.bool)
+    relay[world["relay_gids"].long()] = True
+    rs = relay[sender]
+    req, data = rs & (d0 == TAG_TOR_REQ), rs & (d0 == TAG_TOR_DATA)
+    full = (1 << CHUNK_CELLS) - 1
+    return {
+        "fwd_req_g": int((req & (sender == G)).sum()),
+        "fwd_req_m": int((req & (sender == M)).sum()),
+        "serve": int((data & (sender == X)).sum()),
+        "fwd_data_m": int((data & (sender == M)).sum()),
+        "fwd_data_g": int((data & (sender == G)).sum()),
+        "tail_chunks": int((data & (sender == X) & (mask < full)).sum()),
+        "holed_trains": int((data & (sender != X)
+                             & ((mask & full) != full)).sum()),
+        "client_reqs": int((~rs & (d0 == TAG_TOR_REQ)).sum()),
+    }
+
+
+def tor_kernels(torch, K, scratch, rng, dev):
+    """K6 at tor_large's full width, then K2 and K3 at its layout."""
+    from shadow_tpu_torch.core.tor_args import TAG_TOR_DATA, TAG_TOR_REQ
+
+    state0, world, p, win_end = tor_inputs(torch, K, rng, dev)
+    H, E, OB = state0["head"].shape[0], p.E, p.OB
+    c = pop_case(torch, K, scratch, "pop_tor", state0, world, p, win_end,
+                 dev)
+    sk, obk, err = c["state"], c["ob"], c["err"]
+    popped, rows = c["popped"], c["rows"]
+    branches = tor_branches(torch, K, p.app, world, obk, dev)
+    for name, n in branches.items():
+        check(n > 0, f"pop_tor: no {name} row in the outbox")
+    # the route draws this run's data needs: four threefry blocks for
+    # each popped relay REQ or live DATA train (the circuit fold and
+    # three hops), two for each client REQ (the fold and the guard)
+    slot = torch.arange(E, device=dev)[None, :]
+    was_popped = (slot >= state0["head"][:, None]) & \
+        (slot < sk["head"][:, None])
+    relay = (state0["app"][:, 0] == 0)[:, None]
+    pkt = was_popped & relay & ((state0["hm"] >> 32) == 2)
+    d0 = state0["hv"] >> 32
+    routed = int((pkt & ((d0 == TAG_TOR_REQ) | (
+        (d0 == TAG_TOR_DATA) & (state0["hw"] != 0)))).sum())
+    blocks = 4 * routed + 2 * branches["client_reqs"]
+
+    R = int(world["relay_gids"].shape[0])
+    out = {"pop_tor": finish({
+        "err": err, "ms": c["ms"], "plain_ms": c["plain_ms"],
+        # t of every outbox column, the other four fields of send and
+        # timer rows; the popped heap rows (t, key, meta, d0|d1, d2);
+        # the head time that stopped each host; per-host counters read
+        # and written (head, event/packet seq, n_exec, n_deliv, chk, six
+        # app words); client args, vertex and pop count; the relay ids
+        "bytes": (H * OB * 8 + rows * 4 * 8 + popped * 5 * 8 + H * 8
+                  + H * (5 * 4 + 8 + 6 * 4) * 2 + H * (4 + 8 + 8)
+                  + H * 4 * 2 + R * 4),
+        "ops": blocks * THREEFRY_OPS,
+        "shape": f"H={H} R={R} E={E} P={p.P} OB={OB} C={p.C} "
+                 f"{c['counts']} route_blocks={blocks} "
+                 + " ".join(f"{k}={v}" for k, v in branches.items())})}
+    # K2 on K6's outbox (holed masks), then K3 at E=96, IN=64
     out["judge_outbox"] = judge_case(torch, K, scratch, sk, obk, world,
                                      win_end, p, H, OB)
     out["merge_heaps"] = merge_case(torch, K, scratch, rng, state0, p, H,
@@ -663,22 +894,31 @@ def kernels_phase(torch, report, H=100_000, dev="cuda"):
     scratch = K.Kernels()      # comparison launches: not the main path's
     phold = phold_kernels(torch, K, scratch, rng, H, dev)
     tgen = tgen_kernels(torch, K, scratch, rng, H, dev)
+    tor = tor_kernels(torch, K, scratch, rng, dev)
     route = {"phold": route_case(torch, K, scratch, rng, H, 30, 64, dev),
              "tgen": route_case(torch, K, scratch, rng, 10_000, 36, 48,
-                                dev)}
+                                dev),
+             "tor": route_case(torch, K, scratch, rng, 56_000, 36, 64,
+                               dev)}
     for name, r in phold.items():
         report_line(f"{name} (PHOLD shapes)", r)
     for name, r in tgen.items():
         report_line(f"{name} (tgen shapes)", r)
+    for name, r in tor.items():
+        report_line(f"{name} (Tor shapes)", r)
     for shape, r in route.items():
         report_line(f"route ({shape} shape)", r)
     report.update({
         "pop_phase": phold["pop_phase"], "pop_tgen": tgen["pop_tgen"],
+        "pop_tor": tor["pop_tor"],
         "judge_outbox": {**phold["judge_outbox"],
-                         "at_tgen_shape": tgen["judge_outbox"]},
+                         "at_tgen_shape": tgen["judge_outbox"],
+                         "at_tor_shape": tor["judge_outbox"]},
         "merge_heaps": {**phold["merge_heaps"],
-                        "at_tgen_shape": tgen["merge_heaps"]},
-        "route": {**route["phold"], "at_tgen_shape": route["tgen"]}})
+                        "at_tgen_shape": tgen["merge_heaps"],
+                        "at_tor_shape": tor["merge_heaps"]},
+        "route": {**route["phold"], "at_tgen_shape": route["tgen"],
+                  "at_tor_shape": route["tor"]}})
 
 
 def same_run(a, b, what):
@@ -699,10 +939,18 @@ def parity_phase(torch):
     from shadow_tpu_torch.config import load_config_str
     from shadow_tpu_torch.device import runner
 
-    for what, yaml in (("PHOLD 2x1000 hosts, 1 s", PARITY_YAML),
-                       (f"tgen 1 server + {TGEN_PARITY_CLIENTS} clients, "
-                        "loss 0.25, retry=120ms, 6 s", TGEN_PARITY_YAML)):
-        cfg = load_config_str(yaml)
+    from shadow_tpu_torch.config import load_config
+
+    tor_small = os.path.join(REPO, "examples", "tor_small.yaml")
+    for what, load in (
+            ("PHOLD 2x1000 hosts, 1 s", lambda: load_config_str(
+                PARITY_YAML)),
+            (f"tgen 1 server + {TGEN_PARITY_CLIENTS} clients, loss 0.25, "
+             "retry=120ms, 6 s", lambda: load_config_str(TGEN_PARITY_YAML)),
+            (f"examples/tor_small.yaml (250 hosts), stop_time cut from 60 s "
+             f"to {TOR_PARITY_STOP}", lambda: load_config(
+                 tor_small, [f"general.stop_time={TOR_PARITY_STOP}"]))):
+        cfg = load()
         gpu = runner.run(cfg, device="cuda")
         cpu = runner.run(cfg, device="cpu")
         same_run(gpu, cpu, what)
@@ -723,6 +971,10 @@ FULL_RUNS = (
      tuple(f"hosts.{g}.quantity={10 * q}"
            for g, q in TGEN_QUANTITY.items()),
      ("pop_tgen", "judge_outbox", "route", "merge_heaps")),
+    ("tor_small", "tor_small.yaml", (),
+     ("pop_tor", "judge_outbox", "route", "merge_heaps")),
+    ("tor_large", "tor_large.yaml", (),
+     ("pop_tor", "judge_outbox", "route", "merge_heaps")),
 )
 
 
@@ -774,15 +1026,17 @@ def full_phase(torch, card, report):
 def kernels_line(report):
     runs = report.pop("_full")
     rows = []
-    for n in ("pop_phase", "pop_tgen", "judge_outbox", "route",
+    for n in ("pop_phase", "pop_tgen", "pop_tor", "judge_outbox", "route",
               "merge_heaps"):
         r = report[n]
+        shapes = {k: r[k] for k in ("at_tgen_shape", "at_tor_shape")
+                  if k in r}
         rows.append({
             "name": n, "route": "cuda", "source": SOURCES[n],
             "replaces": REPLACES[n],
             "launches": sum(run["launches"][n] for run in runs.values()),
-            "max_abs_err": max(r["err"], r.get("at_tgen_shape",
-                                                {"err": 0.0})["err"]),
+            "max_abs_err": max([r["err"]] + [x["err"] for x in
+                                             shapes.values()]),
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r.get("library_ms"),
@@ -794,10 +1048,17 @@ def kernels_line(report):
                                     for k, run in runs.items()},
             **({"torch_sort_ms": r["torch_sort_ms"]}
                if "torch_sort_ms" in r else {}),
-            **({"at_tgen_shape": r["at_tgen_shape"]}
-               if "at_tgen_shape" in r else {}),
+            **shapes,
         })
     return json.dumps({"kernels": rows})
+
+
+def result_line(kind: str) -> str:
+    """The last line: the platform, the card's name, and the number of
+    cards the run used, which is one (every phase runs on device 0,
+    whatever else the machine holds)."""
+    return json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": 1}})
 
 
 def main(argv=None) -> int:
@@ -846,9 +1107,7 @@ def main(argv=None) -> int:
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
+    print(result_line(torch.cuda.get_device_name(0)), flush=True)
     return 0
 
 

@@ -5,11 +5,15 @@ The port of the reference package's columnar build
 host naming (host/plane.py `name_of`, `PlaneNameMap`) and of
 device/runner.py `_plane_twin`: every per-host quantity is an array
 fill over host groups, and the app is one device twin for the whole
-config: a PholdDevice whose args match across groups, or a TgenDevice
-that gives each host its role, its server and its client args.
+config: a PholdDevice whose args match across groups, a TgenDevice that
+gives each host its role, its server and its client args, or a
+TorDevice that gives each host its role and client args and holds the
+relays' ids. (The reference builds the Tor twin from host objects, not
+from its columnar plane; both number hosts in group order, so the
+columns here equal that object build.)
 
-The port runs these slices of the reference so far: PHOLD and tgen on
-the `tpu` policy, one GPU, dense topology, no faults, no ensemble.
+The port runs these slices of the reference so far: PHOLD, tgen and Tor
+on the `tpu` policy, one GPU, dense topology, no faults, no ensemble.
 `check_slice` refuses any config outside them with an error naming the
 ROADMAP.md item that will port it; nothing outside runs silently.
 """
@@ -27,7 +31,8 @@ from shadow_tpu_torch.config.schema import (
     ConfigOptions,
 )
 from shadow_tpu_torch.core.tgen_args import TgenClientArgs
-from shadow_tpu_torch.device.apps import PholdDevice, TgenDevice
+from shadow_tpu_torch.core.tor_args import TorClientArgs
+from shadow_tpu_torch.device.apps import PholdDevice, TgenDevice, TorDevice
 from shadow_tpu_torch.topology.graph import Topology
 
 
@@ -43,7 +48,18 @@ def _refuse(what: str, item: str) -> None:
 
 # model process path -> the device twin that runs it
 MODELS = {"model:phold": "phold", "model:tgen_server": "tgen",
-          "model:tgen_client": "tgen"}
+          "model:tgen_client": "tgen", "model:tor_relay": "tor",
+          "model:tor_client": "tor"}
+# model process path -> the reference's CPU app class (its refusals
+# name those)
+APP_CLASSES = {"model:phold": "PholdApp",
+               "model:tgen_server": "TgenServerApp",
+               "model:tgen_client": "TgenClientApp",
+               "model:tor_relay": "TorRelayApp",
+               "model:tor_client": "TorClientApp"}
+HYBRID = ("the reference runs such a mix on its hybrid policy, which is "
+          "not ported to shadow_tpu_torch yet (ROADMAP.md queue (a) item "
+          "10)")
 
 
 def check_slice(cfg: ConfigOptions) -> None:
@@ -79,19 +95,25 @@ def check_slice(cfg: ConfigOptions) -> None:
         path = procs[0].path
         if path not in MODELS:
             _refuse(f"hosts.{g.name}: process {path!r} (the port runs "
-                    f"{', '.join(sorted(MODELS))})", "queue (a) item 11 "
-                    "(TorDevice) and item 10 (real processes)")
+                    f"{', '.join(sorted(MODELS))})", "queue (a) item 10 "
+                    "(real processes and the hybrid policy)")
         if g.ip_address_hint or g.city_code_hint or g.country_code_hint:
             _refuse(f"hosts.{g.name}: attachment hints",
                     "queue (a) item 7 (the object build)")
-    if len({MODELS[g.processes[0].path] for g in cfg.hosts}) > 1:
-        models = sorted({g.processes[0].path[len("model:"):]
-                         for g in cfg.hosts})
+    twins = {MODELS[g.processes[0].path] for g in cfg.hosts}
+    if len(twins) > 1:
+        paths = {g.processes[0].path for g in cfg.hosts}
+        if "tor" not in twins:
+            # phold + tgen: the reference's columnar plane names models
+            models = sorted(p[len("model:"):] for p in paths)
+            raise OutsideSlice(
+                f"no device twin registered for {models}; available: "
+                f"phold, tgen (server+client) — {HYBRID}")
+        # with Tor, the reference's object build names app classes
+        names = sorted(APP_CLASSES[p] for p in paths)
         raise OutsideSlice(
-            f"no device twin registered for {models}; available: phold, "
-            "tgen (server+client) — the reference runs such a mix on "
-            "its hybrid policy, which is not ported to shadow_tpu_torch "
-            "yet (ROADMAP.md queue (a) item 10)")
+            f"no device twin registered for {names}; available: phold, "
+            f"tgen (server+client), tor (relay+client) — {HYBRID}")
 
 
 def load_topology(cfg: ConfigOptions) -> Topology:
@@ -128,7 +150,7 @@ class BuiltSimulation:
     start_times: np.ndarray     # [H] int64 boot time
     stop_times: np.ndarray      # [H] int64 stop time, -1 = none
     lookahead: int              # conservative window, ns
-    app: Union[PholdDevice, TgenDevice]
+    app: Union[PholdDevice, TgenDevice, TorDevice]
 
 
 class HostNames:
@@ -221,6 +243,40 @@ def _tgen_app(n_total: int, names: HostNames, arg_list) -> TgenDevice:
                       count=count, pause_ns=pause, retry_ns=retry)
 
 
+def _tor_app(n_total: int, layout, arg_list, seed: int) -> TorDevice:
+    """The Tor twin: per host its role (0 relay, 1 client) and client
+    args, and the relays' ids in id order. `cells` shapes the exits'
+    answers and must match across clients."""
+    roles = np.zeros(n_total, np.int32)
+    count = np.zeros(n_total, np.int32)
+    pause = np.zeros(n_total, np.int64)
+    retry = np.zeros(n_total, np.int64)
+    relay_gids = []
+    clients = []
+    for (g, a), (_, base, q) in zip(arg_list, layout):
+        if g.processes[0].path == "model:tor_client":
+            clients.append((slice(base, base + q), TorClientArgs.parse(a)))
+        else:
+            relay_gids.extend(range(base, base + q))
+    if not clients:
+        raise ValueError("tpu policy: tor config has no clients")
+    cells = clients[0][1].cells
+    for sl, c in clients:
+        if c.cells != cells:
+            raise ValueError(
+                "tpu policy: tor client `cells` must match across hosts "
+                "(it shapes the exit relays' responses); "
+                "count/pause/retry may vary")
+        roles[sl] = 1
+        count[sl] = c.count
+        pause[sl] = c.pause_ns
+        retry[sl] = c.retry_ns
+    # TorDevice refuses fewer than 3 relays
+    return TorDevice(roles=roles, relay_gids=np.array(relay_gids, np.int64),
+                     seed=seed, cells=cells, count=count, pause_ns=pause,
+                     retry_ns=retry)
+
+
 def build(cfg: ConfigOptions) -> BuiltSimulation:
     check_slice(cfg)
     topology = load_topology(cfg)
@@ -255,10 +311,13 @@ def build(cfg: ConfigOptions) -> BuiltSimulation:
         arg_list.append((g, _parse_kv_args(proc.args)))
         layout.append((g.name, base, q))
         base += q
-    if MODELS[cfg.hosts[0].processes[0].path] == "phold":
+    twin = MODELS[cfg.hosts[0].processes[0].path]
+    if twin == "phold":
         app = _phold_app(n_total, arg_list)
-    else:
+    elif twin == "tgen":
         app = _tgen_app(n_total, HostNames(layout), arg_list)
+    else:
+        app = _tor_app(n_total, layout, arg_list, cfg.general.seed)
     t0 = np.concatenate(t0_parts)
     t1 = np.concatenate(t1_parts)
     bad = np.flatnonzero((t1 >= 0) & (t1 < t0))

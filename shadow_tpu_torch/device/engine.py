@@ -1,12 +1,12 @@
 """The device simulation engine (the port of the reference package's
-device/engine.py, one GPU, PHOLD and tgen).
+device/engine.py, one GPU, PHOLD, tgen and Tor).
 
 The reference runs the whole simulation as one jitted program. Here the
 window loop is Python on the host, and each phase of a window is four
 CUDA kernels (device/kernels.py):
 
-  pop (K1 pop_phase for PHOLD, K4 pop_tgen for tgen) -> K2 judge_outbox
-    -> K5 route -> K3 merge_heaps
+  pop (K1 pop_phase for PHOLD, K4 pop_tgen for tgen, K6 pop_tor for
+    Tor) -> K2 judge_outbox -> K5 route -> K3 merge_heaps
 
 A window [nxt, win_end) with win_end = min(nxt + lookahead, stop_time)
 runs phases while some host's head event lies below win_end; the
@@ -25,7 +25,8 @@ state moves between the two engines as numpy arrays
   head [H] int32               consumed slots < head
   event_seq packet_seq app_seq n_exec n_sent n_drop n_deliv
   overflow x_overflow occ_heap occ_ob occ_in   [H] int32
-  app [H,W] int32              the app's state words (PHOLD 1, tgen 7)
+  app [H,W] int32              the app's state words (PHOLD 1, tgen 7,
+                               Tor 6)
   chk [H] int64                trace checksum
   occ_x [1,1], occ_trips [1], occ_phases [1] int32
 
@@ -44,7 +45,7 @@ import torch
 from shadow_tpu_torch import simtime
 from shadow_tpu_torch.core.event import KIND_BOOT, KIND_STOP
 from shadow_tpu_torch.device import prng
-from shadow_tpu_torch.device.apps import PholdDevice, TgenDevice
+from shadow_tpu_torch.device.apps import PholdDevice, TgenDevice, TorDevice
 from shadow_tpu_torch.device.kernels import (
     DROP_T,
     IMAX,
@@ -114,7 +115,7 @@ def state_to_numpy(state: dict, keys=None) -> dict:
 
 class DeviceEngine:
     def __init__(self, config: EngineConfig,
-                 app: Union[PholdDevice, TgenDevice],
+                 app: Union[PholdDevice, TgenDevice, TorDevice],
                  host_vertex: np.ndarray, latency_ns: np.ndarray,
                  reliability: np.ndarray, device="cuda",
                  kernels: Optional[Kernels] = None):
@@ -155,8 +156,8 @@ class DeviceEngine:
             "host_vertex": put(np.asarray(host_vertex)[:H], np.int32),
             "lat": put(latency_ns, np.int32),
             "rel": put(reliability, np.float32),
-            **{k: put(np.asarray(v)[:H], v.dtype)
-               for k, v in app.world_columns().items()},
+            # the app's columns: [H] client args, Tor's [R] relay ids
+            **{k: put(v, v.dtype) for k, v in app.world_columns().items()},
         }
         self._buf = None
 
@@ -216,7 +217,7 @@ class DeviceEngine:
         return self._buf
 
     def phase(self, state: dict, win_end: int) -> None:
-        """One phase: pops (K1 or K4), then the flush: judge (K2),
+        """One phase: pops (K1, K4 or K6), then the flush: judge (K2),
         route (K5), merge (K3). Updates `state` in place. The caller
         runs a phase only when some host's head time lies below
         win_end, so every phase pops and flushes (the reference skips the flush of a phase

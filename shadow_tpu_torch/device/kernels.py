@@ -7,8 +7,10 @@ Four steps carry one phase of a conservative window:
 * the pop loop (the reference engine's `_step` with the app's
   `handle`), one thread per host, up to B iterations per launch, in
   one templated source (csrc/pop_phase.cu) with the app fused in:
-  K1 `pop_phase` for PHOLD (with its app draws) and K4 `pop_tgen` for
-  tgen (with the servers' burst pops, trains and timers);
+  K1 `pop_phase` for PHOLD (with its app draws), K4 `pop_tgen` for
+  tgen (with the servers' burst pops, trains and timers) and K6
+  `pop_tor` for Tor (the relays' burst pops and onion routes, trains
+  that carry the previous hop's survivors as their live mask);
 * K2 `judge_outbox` (csrc/judge_outbox.cu): `_judge_outbox` with the
   dense table lookup and `packet_drop_mask`, one thread per host row;
 * K5 `route` (csrc/route.cu): `_flat_sorted`/`_host_windows`, the
@@ -40,7 +42,12 @@ import torch
 from shadow_tpu_torch.core.event import KIND_PACKET, KIND_TIMER
 from shadow_tpu_torch.core.tgen_args import MSS
 from shadow_tpu_torch.device import prng
-from shadow_tpu_torch.device.apps import PholdDevice, TgenDevice, popcount32
+from shadow_tpu_torch.device.apps import (
+    PholdDevice,
+    TgenDevice,
+    TorDevice,
+    popcount32,
+)
 from shadow_tpu_torch.device.netsem import packet_drop_mask
 from shadow_tpu_torch.utils.checksum import (
     CHK_KIND,
@@ -56,8 +63,8 @@ DROP_T = INF - 1
 IMAX = (1 << 63) - 1
 U32 = 0xFFFFFFFF
 
-KERNEL_NAMES = ("pop_phase", "pop_tgen", "judge_outbox", "route",
-                "merge_heaps")
+KERNEL_NAMES = ("pop_phase", "pop_tgen", "pop_tor", "judge_outbox",
+                "route", "merge_heaps")
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC.parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -82,7 +89,7 @@ class PhaseParams:
     C: int                  # packets per send row at most (trains)
     boot_end: int           # no drops before this time
     seed: tuple             # (k1, k2) u32 seed key
-    app: Union[PholdDevice, TgenDevice]
+    app: Union[PholdDevice, TgenDevice, TorDevice]
 
     @property
     def M_out(self) -> int:
@@ -123,7 +130,9 @@ def pop_plain(state: dict, ob: dict, pops: torch.Tensor, world: dict,
     to P. Iteration j of a host writes outbox columns
     [j*M_out, (j+1)*M_out): sends on lanes 0..K-1 (each departing at
     its own event's time), then timers; unused columns hold t = INF
-    and zeros. `pops[h]` receives the host's iteration count."""
+    and zeros. A send row's v hi word is its live-lane mask (the app's
+    `send_mask`, all ones when it gives none). `pops[h]` receives the
+    host's iteration count."""
     E, K, T, P, B, C, app = p.E, p.K, p.T, p.P, p.B, p.C, p.app
     M = p.M_out
     dev = state["head"].device
@@ -208,6 +217,8 @@ def pop_plain(state: dict, ob: dict, pops: torch.Tensor, world: dict,
         v32 = valid.to(torch.int32)
         counts = (torch.ones_like(v32) if out.send_count is None
                   else out.send_count.clamp(1, C))
+        smask = (torch.full_like(v32, -1) if out.send_mask is None
+                 else out.send_mask)
         packet_seq = packet_seq + (counts * v32).sum(-1, dtype=torch.int32)
         vrank = v32.cumsum(-1, dtype=torch.int32) - v32
         nvalid = v32.sum(-1, dtype=torch.int32)
@@ -230,8 +241,7 @@ def pop_plain(state: dict, ob: dict, pops: torch.Tensor, world: dict,
                              zero),
             "s": torch.where(valid, pack2(out.send_size, out.send_d0),
                              zero),
-            "v": torch.where(valid, pack2(torch.full_like(dst, -1),
-                                          out.send_d1), zero)}
+            "v": torch.where(valid, pack2(smask, out.send_d1), zero)}
         timers = {
             "t": torch.where(tvalid, timer_t, INF),
             "k": torch.where(tvalid, pack2(gT, tseq), zero),
@@ -291,14 +301,15 @@ def judge_outbox_plain(state: dict, ob: dict, world: dict, win_end: int,
                         (1 << cnt.clamp(0, 31).long()) - 1)
     livemask = (fv >> 32) & U32 & wbits
     livecnt = popcount32(livemask)
+    # roll the live lanes only: (host, column, lane) of each packet
     js = torch.arange(p.C, dtype=torch.int64, device=dev)
-    live3 = ((livemask[..., None] >> js) & 1).bool()
+    h, c, j = ((livemask[..., None] >> js) & 1).nonzero(as_tuple=True)
     hk = prng.purpose_id_key(p.seed, PURPOSE_PACKET_DROP, gid)
-    drop3 = packet_drop_mask(
-        p.seed, p.boot_end, ft[..., None], None, base[..., None] + js,
-        relv[..., None], src_key=(hk[0][:, None, None],
-                                  hk[1][:, None, None]))
-    surv = torch.where(live3 & ~drop3, 1 << js, 0).sum(-1)
+    drop = packet_drop_mask(
+        p.seed, p.boot_end, ft[h, c], None, base[h, c] + j, relv[h, c],
+        src_key=(hk[0][h], hk[1][h]))
+    surv = torch.zeros_like(livemask).index_put_(
+        (h, c), torch.where(drop, 0, 1 << j), accumulate=True)
     lost = livecnt - popcount32(surv)
     state["n_sent"] += livecnt.sum(-1).to(torch.int32)
     state["n_drop"] += lost.sum(-1).to(torch.int32)
@@ -479,6 +490,13 @@ _SIGNATURES = {
     "shadow_pop_tgen": [_I] * 7 + [_L] + [_P] * 5 + [_P] * 7 +
                        [_P, _P, _I] + [_P] * 3 + [_I] * 4 + [_P] * 5 +
                        [_P, _P],
+    # H, E, K, T, P, B, C, win_end, ht hk hm hv hw, head event_seq
+    # packet_seq app n_exec n_deliv chk, host_vertex lat V, count pause
+    # retry, relay_gids R, route key k1 k2, cells, ob t k m s v, pops,
+    # stream
+    "shadow_pop_tor": [_I] * 7 + [_L] + [_P] * 5 + [_P] * 7 +
+                      [_P, _P, _I] + [_P] * 3 + [_P, _I, _U, _U, _I] +
+                      [_P] * 5 + [_P, _P],
     # H, OB, C, win_end, boot_end, ob t m v, packet_seq n_sent n_drop,
     # host_vertex lat rel V, seed k1 k2, stream
     "shadow_judge_outbox": [_I, _I, _I, _L, _L] + [_P] * 3 + [_P] * 3 +
@@ -565,12 +583,14 @@ class Kernels:
 
     def pop(self, state: dict, ob: dict, pops: torch.Tensor, world: dict,
             win_end: int, p: PhaseParams) -> None:
-        """The phase's pops: K1 for PHOLD, K4 for tgen (the plain pop
-        for either on the CPU)."""
+        """The phase's pops: K1 for PHOLD, K4 for tgen, K6 for Tor (the
+        plain pop for each on the CPU)."""
         if not state["head"].is_cuda:
             return pop_plain(state, ob, pops, world, win_end, p)
         if isinstance(p.app, TgenDevice):
             return self._pop_tgen(state, ob, pops, world, win_end, p)
+        if isinstance(p.app, TorDevice):
+            return self._pop_tor(state, ob, pops, world, win_end, p)
         return self._pop_phase(state, ob, pops, world, win_end, p)
 
     def _pop_phase(self, state: dict, ob: dict, pops: torch.Tensor,
@@ -599,30 +619,49 @@ class Kernels:
     def _pop_tgen(self, state: dict, ob: dict, pops: torch.Tensor,
                   world: dict, win_end: int, p: PhaseParams) -> None:
         a = p.app
-        if not isinstance(a, TgenDevice) or p.T != 1 or \
-                p.K != max(1, p.P) or p.C > 32:
-            raise ValueError("pop_tgen runs tgen: one timer lane, one "
-                             "send lane per burst column, trains of at "
-                             "most 32")
+        if not isinstance(a, TgenDevice):
+            raise ValueError("pop_tgen runs tgen")
+        self._pop_trains("pop_tgen", state, ob, pops, world, win_end, p,
+                         [], (a.npkts, a.last_sz, a.chunk, MSS))
+
+    def _pop_tor(self, state: dict, ob: dict, pops: torch.Tensor,
+                 world: dict, win_end: int, p: PhaseParams) -> None:
+        a = p.app
+        if not isinstance(a, TorDevice):
+            raise ValueError("pop_tor runs Tor")
+        relays = world["relay_gids"]
+        self._pop_trains("pop_tor", state, ob, pops, world, win_end, p,
+                         [relays], (relays.shape[0], *a.route_key, a.cells))
+
+    def _pop_trains(self, name: str, state: dict, ob: dict,
+                    pops: torch.Tensor, world: dict, win_end: int,
+                    p: PhaseParams, app_tensors: list, app_scalars) -> None:
+        """K4 or K6: the pops of an app with trains, one timer lane and
+        per-host client args; `app_tensors` (int32) and `app_scalars`
+        are the app's own arguments, after the client args."""
+        if p.T != 1 or p.K != max(1, p.P) or p.C > 32:
+            raise ValueError(f"{name}: one timer lane, one send lane per "
+                             "burst column, trains of at most 32")
         H = state["head"].shape[0]
         heap = [state[f] for f in HEAP_FIELDS]
         small = [state[f] for f in ("head", "event_seq", "packet_seq",
                                     "app", "n_exec", "n_deliv")]
         tabs = [world["host_vertex"], world["lat"]]
-        args = [world["tgen_count"], world["tgen_pause"],
-                world["tgen_retry"]]
+        args = [world["client_count"], world["client_pause"],
+                world["client_retry"]]
         obs = [ob[f] for f in OB_FIELDS]
         i32, i64 = torch.int32, torch.int64
         self._launch(
-            "pop_tgen", "shadow_pop_tgen",
+            name, f"shadow_{name}",
             [(t, i64) for t in heap + obs] + [(t, i32) for t in small]
             + [(state["chk"], i64), (pops, i32)]
             + [(t, i32) for t in tabs] + [(args[0], i32)]
-            + [(t, i64) for t in args[1:]],
+            + [(t, i64) for t in args[1:]] + [(t, i32) for t in app_tensors],
             H, p.E, p.K, p.T, p.P, p.B, p.C, int(win_end),
             *map(_ptr, heap), *map(_ptr, small), _ptr(state["chk"]),
             *map(_ptr, tabs), world["lat"].shape[0], *map(_ptr, args),
-            a.npkts, a.last_sz, a.chunk, MSS, *map(_ptr, obs), _ptr(pops))
+            *map(_ptr, app_tensors), *app_scalars, *map(_ptr, obs),
+            _ptr(pops))
 
     def judge_outbox(self, state: dict, ob: dict, world: dict,
                      win_end: int, p: PhaseParams) -> None:

@@ -7,7 +7,7 @@ burst width of `experimental.burst_pops`, the outbox floored at 8 pop
 iterations of lanes, 4 where bursts drain backlogs, the lookahead from
 the runahead or the minimum path latency), runs to the stop time and
 returns the SimStats totals plus the per-host `events_executed` and
-`trace_checksum` arrays, and for tgen the downloads completed.
+`trace_checksum` arrays, and for tgen and Tor the downloads completed.
 """
 
 from __future__ import annotations
@@ -20,7 +20,6 @@ import numpy as np
 
 from shadow_tpu_torch.config.schema import ConfigOptions
 from shadow_tpu_torch.core.build import build
-from shadow_tpu_torch.device.apps import TgenDevice
 from shadow_tpu_torch.device.engine import (
     DeviceEngine,
     EngineConfig,
@@ -47,7 +46,7 @@ class SimStats:
     host_trace_checksum: np.ndarray = field(default=None, repr=False)
     overflow: int = 0
     x_overflow: int = 0
-    # tgen only: downloads completed, the sum of the clients' app word 4
+    # tgen and Tor: downloads completed (the app's `downloads`)
     downloads_completed: Optional[int] = None
 
     def summary(self) -> str:
@@ -111,7 +110,6 @@ def run(cfg: ConfigOptions, device="cuda",
         host_trace_checksum=final["chk"],
         overflow=int(final["overflow"].sum()),
         x_overflow=int(final["x_overflow"].sum()))
-    if isinstance(engine.app, TgenDevice):
-        stats.downloads_completed = int(final["app"][:, 4].sum())
+    stats.downloads_completed = engine.app.downloads(final["app"])
     stats.ok = stats.overflow == 0 and stats.x_overflow == 0
     return stats

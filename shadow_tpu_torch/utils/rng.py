@@ -4,3 +4,4 @@ package's utils/rng.py so both engines draw from the same domains."""
 
 PURPOSE_PACKET_DROP = 1
 PURPOSE_APP = 3
+PURPOSE_TOR_ROUTE = 5

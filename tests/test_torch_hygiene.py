@@ -153,3 +153,19 @@ def test_build_matches_reference_columnar_layout():
                                   [10**7] * 3 + [12 * 10**6] * 3)
     assert sim.lookahead == 10**7
     assert (sim.app.msgload, sim.app.n_hosts_total) == (2, 6)
+
+
+def test_chip_smoke_reports_the_one_card_it_used():
+    """chip_smoke.py drives device 0 alone: its last line counts one
+    card, whatever torch.cuda.device_count() says on a larger
+    machine."""
+    import importlib.util
+    import json
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    line = json.loads(smoke.result_line("NVIDIA H100 80GB HBM3"))
+    assert line == {"ok": True, "device": {
+        "platform": "gpu", "kind": "NVIDIA H100 80GB HBM3", "count": 1}}

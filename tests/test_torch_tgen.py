@@ -480,6 +480,49 @@ def test_arrivals_past_in_cut_the_same_rows_as_jax(reference):
     assert int(final["overflow"].sum()) == port.overflow
 
 
+PHOLD_MASK = """
+general: {stop_time: 400ms, seed: 3}
+network:
+  graph:
+    type: gml
+    inline: |
+      graph [ directed 0
+        node [ id 0 bandwidth_down "1 Gbit" bandwidth_up "1 Gbit" ]
+        edge [ source 0 target 0 latency "20 ms" packet_loss 0.05 ] ]
+experimental: {scheduler_policy: tpu}
+hosts:
+  a:
+    quantity: 6
+    network_node_id: 0
+    processes: [{path: model:phold, args: msgload=2, start_time: 10ms}]
+"""
+
+
+@pytest.mark.parametrize("text", [BURST, PHOLD_MASK], ids=["tgen", "phold"])
+def test_phold_and_tgen_send_rows_keep_an_all_ones_live_mask(text):
+    """PHOLD and tgen give no send mask: every send row's outbox `v` hi
+    word is 0xFFFFFFFF (all lanes live), as before Tor's masked trains
+    shared the send path."""
+    from shadow_tpu_torch.config import load_config_str
+    from shadow_tpu_torch.device import kernels as K
+    from shadow_tpu_torch.device.runner import make_engine
+
+    his = []
+
+    class Recording(K.Kernels):
+        def pop(self, state, ob, pops, world, win_end, p):
+            super().pop(state, ob, pops, world, win_end, p)
+            send = (ob["t"] < K.INF) & ((ob["m"] & 0xFF) == 2)
+            his.append((ob["v"][send] >> 32) & K.U32)
+
+    engine, sim = make_engine(load_config_str(_cfg(text, "tpu")),
+                              device="cpu", kernels=Recording())
+    engine.run(engine.init_state(sim.start_times, sim.stop_times))
+    hi = torch.cat(his)
+    assert hi.numel() > 0
+    assert bool((hi == 0xFFFFFFFF).all())
+
+
 def test_tgen_wrappers_take_the_plain_path_on_cpu_and_count_nothing():
     """On CPU tensors the pop (K4's wrapper) and the route (K5's) run
     their plain versions: nothing is built, launched or timed."""
