@@ -7,7 +7,8 @@
 Phases, in order; any failure exits non-zero before the last line:
 
 1. build: print the card's name and power limit (nvidia-smi), the torch
-   and CUDA versions, then build the six CUDA kernels from
+   and CUDA versions, then build the CUDA kernels (six, the pops and
+   the judge each instantiated on dense and on factored tables) from
    shadow_tpu_torch/csrc/ into shadow_tpu_torch/_build/ (one nvcc per
    source, all started together; timed as set-up; ptxas register and
    shared-memory use is printed).
@@ -36,14 +37,24 @@ Phases, in order; any failure exits non-zero before the last line:
    - K5 route at the PHOLD shape (3,000,000 rows), tgen_10000's
      (360,000 rows) and tor_large's (2,016,000 rows), each with
      destinations past IN, beside torch.sort + searchsorted on the
-     same input.
+     same input;
+   - the `_hier` instantiations, which look the path tables up in two
+     levels (the reference's `gather_parts`): K1 and K2 on the factored
+     tables of examples/tgen_1000000.yaml (V=1,000,200, C=200) at its
+     1,000,000 hosts, tiled as that file tiles them, with its hubs made
+     lossy (PHOLD_1M_HUB_LOSS) so that drops roll, K2's send rows
+     retargeted to every kind of pair (same vertex, the sender itself,
+     same cluster, another cluster), and K2 again on the tables as
+     shipped; K4 and K6 at their shapes on a factored 6-vertex star.
 3. parity: on the card and on the CPU plain path, totals, rounds and
    per-host events_executed / trace_checksum (and downloads) must be
    identical: the PHOLD test shape at 2 x 1,000 hosts, loss 0.01, 1 s;
    the tgen test config (tests/test_tgen_device.py) at loss 0.25,
    retry=120ms with TGEN_PARITY_CLIENTS clients; examples/tor_small.yaml
    with its stop_time cut to TOR_PARITY_STOP (past its 5 s bootstrap,
-   so drops roll).
+   so drops roll); and STAR_PARITY_YAML (a star_clusters tgen run cut
+   from examples/tgen_1000000.yaml's shape) four ways: card and CPU,
+   hierarchical and dense tables.
 4. full: through the port's CLI entry function on the card, each run
    with the kernel launch counts set to 0 just before and read just
    after; fails on any overflow or on a kernel of the path that never
@@ -52,8 +63,14 @@ Phases, in order; any failure exits non-zero before the last line:
    same file with every group's quantity x10 (tgen_100000.yaml's host
    set, 100,000 hosts, without its multi-chip runner keys);
    examples/tor_small.yaml as shipped (250 hosts, 60 s) and
-   examples/tor_large.yaml as shipped (56,000 hosts, 60 s).
-5. the `kernels` JSON line, then the card line, then the result line.
+   examples/tor_large.yaml as shipped (56,000 hosts, 60 s); and
+   PHOLD_1M_YAML (phold_1m_hier: PHOLD on 1,000,000 hosts on
+   examples/tgen_1000000.yaml's factored topology, 1 s), whose measured
+   peak device memory must lie within capacity.FOOTPRINT_TOLERANCE of
+   its admission estimate.
+5. boot: examples/tgen_1000000.yaml as shipped built (timed), admitted
+   and booted (engine and init_state) on the card; not run.
+6. the `kernels` JSON line, then the card line, then the result line.
 
 It imports nothing of jax or of the shadow_tpu package.
 """
@@ -71,7 +88,7 @@ import time
 import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("build", "kernels", "parity", "full")
+PHASES = ("build", "kernels", "parity", "full", "boot")
 # H100 SXM (NVIDIA data sheet): HBM rate, and the integer ALU rate:
 # 64 INT32 lanes per SM x 132 SMs x 1.98 GHz boost. (The 67 TFLOP/s
 # float32 peak is 128 lanes with an FMA counted as two operations.)
@@ -149,6 +166,78 @@ TGEN_QUANTITY = {"server_nyc": 100, "server_lon": 100, "server_sin": 100,
                  "client_fra": 1600, "client_sfo": 1600,
                  "client_sin": 1600, "client_syd": 1700}
 
+# examples/tgen_1000000.yaml's network block cut to 8 clusters of 120
+# spokes (V=968 <= 2048: the build verifies the factored tables against
+# dense), with lossy hubs; one server per cluster on its first spoke and
+# a client on every spoke from vertex 9, tiled as that file tiles them
+# (`server=server` cycling over the 8 servers); its client args; the
+# capacities raised until nothing overflows (IN 64 overflows)
+STAR_PARITY_YAML = """
+general: {stop_time: 2s, seed: 1}
+network:
+  topology:
+    representation: hierarchical
+  graph:
+    type: star_clusters
+    clusters: 8
+    spokes_per_cluster: 120
+    hub_latency: 10 ms
+    access_latency: 1 ms
+    hub_packet_loss: 0.02
+experimental:
+  scheduler_policy: tpu
+  event_capacity: 128
+  exchange_in_capacity: 128
+hosts:
+  server:
+    quantity: 8
+    network_node_id: 8
+    network_node_stride: 120
+    processes:
+    - path: model:tgen_server
+      start_time: 10ms
+  client:
+    quantity: 952
+    network_node_id: 9
+    network_node_stride: 1
+    processes:
+    - path: model:tgen_client
+      args: server=server size=50KiB count=2 pause=200ms retry=500ms
+      start_time: 100ms
+"""
+# the full run at a million hosts: examples/tgen_1000000.yaml's network
+# and experimental blocks verbatim, plus hub_packet_loss so that drops
+# roll (access stays lossless: the factored form's reliability-exactness
+# condition), and examples/phold.yaml's PHOLD (msgload=3 size=512, seed
+# 7, start 10 ms) on one host per spoke, for tgen_1000000.yaml's 1 s
+PHOLD_1M_HUB_LOSS = 0.02
+PHOLD_1M_YAML = f"""
+general: {{stop_time: 1s, seed: 7}}
+network:
+  topology:
+    representation: hierarchical
+  graph:
+    type: star_clusters
+    clusters: 200
+    spokes_per_cluster: 5000
+    hub_latency: 10 ms
+    access_latency: 1 ms
+    hub_packet_loss: {PHOLD_1M_HUB_LOSS}
+experimental:
+  scheduler_policy: tpu
+  admission: auto
+  device_memory_budget: 8 GiB
+hosts:
+  peer:
+    quantity: 1000000
+    network_node_id: 200
+    network_node_stride: 1
+    processes:
+    - path: model:phold
+      args: msgload=3 size=512
+      start_time: 10ms
+"""
+
 REPLACES = {
     "pop_phase": "shadow_tpu/device/engine.py:737",
     "pop_tgen": "shadow_tpu/device/engine.py:742",
@@ -156,6 +245,10 @@ REPLACES = {
     "judge_outbox": "shadow_tpu/device/engine.py:1388",
     "route": "shadow_tpu/device/engine.py:1291",
     "merge_heaps": "shadow_tpu/device/engine.py:1550",
+    # gather_parts at its two call sites: the judge's lookup
+    # (engine.py:1428-1430) and the pop's self latency (engine.py:1186)
+    "judge_outbox_hier": "shadow_tpu/topology/hierarchy.py:192",
+    "pop_phase_hier": "shadow_tpu/device/engine.py:1186",
 }
 SOURCES = {
     "pop_phase": "shadow_tpu_torch/csrc/pop_phase.cu",
@@ -164,6 +257,8 @@ SOURCES = {
     "judge_outbox": "shadow_tpu_torch/csrc/judge_outbox.cu",
     "route": "shadow_tpu_torch/csrc/route.cu",
     "merge_heaps": "shadow_tpu_torch/csrc/merge_heaps.cu",
+    "judge_outbox_hier": "shadow_tpu_torch/csrc/judge_outbox.cu",
+    "pop_phase_hier": "shadow_tpu_torch/csrc/pop_phase.cu",
 }
 
 
@@ -309,8 +404,13 @@ def report_line(name, r):
           f"operations){extra}", flush=True)
 
 
-def phold_kernels(torch, K, scratch, rng, H, dev):
-    """K1, K2 and K3 at the PHOLD full-width shapes."""
+def phold_kernels(torch, K, scratch, rng, H, dev, world=None,
+                  lossless=None):
+    """K1, K2 and K3 at the PHOLD full-width shapes, on a 2-vertex dense
+    world; given a world of factored tables (`million_world`), K1 and
+    K2 on it instead (their `_hier` instantiations), with K1's send rows
+    retargeted so that K2 sees every kind of pair, and K2 also on the
+    `lossless` world's tables, where nothing may drop."""
     from shadow_tpu_torch.device.apps import PholdDevice
     from shadow_tpu_torch.device.engine import STATE_DTYPES
     from shadow_tpu_torch.device.prng import seed_key
@@ -319,15 +419,17 @@ def phold_kernels(torch, K, scratch, rng, H, dev):
     KS = max(1, msgload)
     B = 32 // KS
     OB = B * KS
-    world = {
-        "host_vertex": torch.from_numpy(
-            rng.integers(0, 2, H).astype(np.int32)).to(dev),
-        "lat": torch.tensor([[30_000_000, 50_000_000],
-                             [50_000_000, 30_000_000]], dtype=torch.int32,
-                            device=dev),
-        "rel": torch.tensor([[0.98, 0.9], [0.9, 0.98]],
-                            dtype=torch.float32, device=dev),
-    }
+    hier = world is not None
+    if not hier:
+        world = {
+            "host_vertex": torch.from_numpy(
+                rng.integers(0, 2, H).astype(np.int32)).to(dev),
+            "lat": torch.tensor([[30_000_000, 50_000_000],
+                                 [50_000_000, 30_000_000]],
+                                dtype=torch.int32, device=dev),
+            "rel": torch.tensor([[0.98, 0.9], [0.9, 0.98]],
+                                dtype=torch.float32, device=dev),
+        }
     win_end = 10**9
     state0 = random_state(rng, H, E, dev)
     state_keys = list(STATE_DTYPES)
@@ -384,11 +486,25 @@ def phold_kernels(torch, K, scratch, rng, H, dev):
         + total_pops * 4 * 8           # popped rows: t, key, meta, d2
         + H * 8                        # the head time that stopped it
         + H * (7 * 4 + 8) * 2          # per-host counters read+written
-        + H * 4 * 2)                   # host vertex, pop count
+        + H * 4 * 2                    # host vertex, pop count
+        + (H * 4 if hier else 0))      # the self-latency vector
     out["pop_phase"]["ops"] = (2 * H + 2 * sends) * THREEFRY_OPS
     out["pop_phase"]["shape"] = f"H={H} E={E} OB={OB} pops={total_pops}"
     finish(out["pop_phase"])
 
+    if hier:
+        # K2 on K1's outbox, its destinations retargeted to every kind
+        # of pair
+        pairs = retarget(torch, K, ob_k1, world, rng)
+        out["judge_outbox"] = judge_case(
+            torch, K, scratch, state_k1, ob_k1, world, win_end, p, H, OB,
+            pairs)
+        err, sk = judge_compare(torch, K, scratch, state_k1, ob_k1,
+                                lossless, win_end, p)
+        check(bool((sk["n_drop"] == state_k1["n_drop"]).all()),
+              "judge_outbox on lossless factored tables dropped a packet")
+        out["judge_outbox"]["err_on_shipped_tables"] = err
+        return out
     # K2 on K1's real outbox
     out["judge_outbox"] = judge_case(torch, K, scratch, state_k1, ob_k1,
                                      world, win_end, p, H, OB)
@@ -398,7 +514,9 @@ def phold_kernels(torch, K, scratch, rng, H, dev):
     return out
 
 
-def judge_case(torch, K, scratch, state, ob, world, win_end, p, H, OB):
+def judge_compare(torch, K, scratch, state, ob, world, win_end, p):
+    """K2 against the plain judge on one outbox: exact on every state
+    leaf and outbox field. Returns (error, the kernel's state)."""
     from shadow_tpu_torch.device.engine import STATE_DTYPES
 
     sk, sp = clone(state), clone(state)
@@ -408,8 +526,18 @@ def judge_case(torch, K, scratch, state, ob, world, win_end, p, H, OB):
     torch.cuda.synchronize()
     err = max(max_abs_err(sk, sp, list(STATE_DTYPES)),
               max_abs_err(obk, obp, list(K.OB_FIELDS)))
-    check(err == 0.0, f"judge_outbox (C={p.C}) differs from its plain "
-          f"version (max abs err {err})")
+    tables = "factored" if isinstance(world["lat"], tuple) else "dense"
+    check(err == 0.0, f"judge_outbox (C={p.C}, {tables} tables) differs "
+          f"from its plain version (max abs err {err})")
+    return err, sk
+
+
+def judge_case(torch, K, scratch, state, ob, world, win_end, p, H, OB,
+               pairs=None):
+    """K2 against the plain judge, timed. `pairs` (factored tables,
+    from `retarget`) adds the table bytes the lookups touch to the
+    bound and the kinds of pair to the shape."""
+    err, sk = judge_compare(torch, K, scratch, state, ob, world, win_end, p)
     dropped = int(((sk["n_drop"].long() - state["n_drop"].long())
                    & 0xFFFFFFFF).sum())
     check(dropped > 0, "judge_outbox dropped nothing: the roll went "
@@ -429,11 +557,134 @@ def judge_case(torch, K, scratch, state, ob, world, win_end, p, H, OB):
         "ms": time_median(torch, scratch.judge_outbox, k2_args, 7),
         "plain_ms": time_median(torch, K.judge_outbox_plain, k2_args, 3),
         # t of every row; m and v read, t/m/v written, for sends; the
-        # destination's vertex per send; per-host counters and vertex
-        "bytes": H * OB * 8 + sends * (2 * 8 + 3 * 8 + 4) + H * 4 * 6,
+        # destination's vertex per send; per-host counters and vertex;
+        # on factored tables, the table entries the lookups touch
+        "bytes": (H * OB * 8 + sends * (2 * 8 + 3 * 8 + 4) + H * 4 * 6
+                  + (pairs["table_bytes"] if pairs else 0)),
         "ops": (2 * H + 2 * packets) * THREEFRY_OPS,
         "shape": f"H={H} OB={OB} C={p.C} sends={sends} "
-                 f"packets={packets} dropped={dropped}"})
+                 f"packets={packets} dropped={dropped}"
+                 + ("".join(f" {k}={v}" for k, v in pairs.items())
+                    if pairs else "")})
+
+
+def retarget(torch, K, ob, world, rng):
+    """Rewrite the destinations of an outbox's send rows so that the
+    factored lookup meets every kind of pair: a tenth go to a host in
+    the sender's own cluster, a tenth to the sender itself, a tenth to
+    another host on the sender's vertex where there is one; the rest
+    keep PHOLD's uniform destinations (nearly all in another cluster).
+    Returns the count of each kind and the table bytes the lookups
+    touch (each entry read once)."""
+    hv = world["host_vertex"].long()
+    cl = world["lat"][1].long()
+    H, OB = ob["t"].shape
+    dev = hv.device
+    host_cl = cl[hv]
+    C = int(world["lat"][0].shape[0])
+    order = torch.argsort(host_cl, stable=True)
+    counts = torch.bincount(host_cl, minlength=C)
+    starts = torch.cumsum(counts, 0) - counts
+    u = torch.from_numpy(rng.random((H, OB))).to(dev)
+    same_cl = order[(starts[host_cl][:, None]
+                     + (u * counts[host_cl][:, None]).long()).clamp(
+                         max=H - 1)]
+    # the other host on the sender's vertex (itself where it is alone)
+    by_v = torch.argsort(hv, stable=True)
+    sv = hv[by_v]
+    partner = torch.arange(H, device=dev)
+    pair = sv[1:] == sv[:-1]
+    partner[by_v[:-1][pair]] = by_v[1:][pair]
+    partner[by_v[1:][pair]] = by_v[:-1][pair]
+    gid = torch.arange(H, device=dev)[:, None].expand(H, OB)
+    send = (ob["t"] < K.INF) & ((ob["m"] & 0xFF) == 2)
+    pick = torch.from_numpy(rng.random((H, OB))).to(dev)
+    dst = ob["m"] >> 32
+    dst = torch.where(pick < 0.1, same_cl, torch.where(
+        pick < 0.2, gid, torch.where(pick < 0.3, partner[:, None]
+                                     .expand(H, OB), dst)))
+    ob["m"] = torch.where(send, (dst << 32) | (ob["m"] & K.U32), ob["m"])
+    d = ob["m"] >> 32
+    sv_, dv_ = hv[:, None].expand(H, OB), hv[d]
+    same_v = send & (sv_ == dv_)
+    kinds = {
+        "self_sends": int((same_v & (d == gid)).sum()),
+        "same_vertex_other_host": int((same_v & (d != gid)).sum()),
+        "same_cluster": int((send & ~same_v & (cl[sv_] == cl[dv_])).sum()),
+        "cross_cluster": int((send & (cl[sv_] != cl[dv_])).sum())}
+    for k, n in kinds.items():
+        check(n > 0, f"judge_outbox on factored tables: no {k} pair")
+    # cl, acc_lat and acc_rel of every vertex a lookup names, the self
+    # vectors of sv == dv pairs, and the core pair
+    touched = torch.unique(torch.cat([sv_[send], dv_[send]]))
+    selfv = torch.unique(sv_[same_v])
+    kinds["table_bytes"] = int(touched.numel() * 12 + selfv.numel() * 8
+                               + C * C * 8)
+    return kinds
+
+
+def million_world(dev):
+    """examples/tgen_1000000.yaml built as shipped: its 1,000,000 hosts
+    tiled as the file tiles them (a server on each cluster's first
+    spoke, a client on every spoke from vertex 201, so that clients
+    4,999, 9,999, ... share servers 1-199's vertices) on its factored
+    tables (V=1,000,200, C=200). Returns (config, built simulation,
+    world(hub_loss)), the last giving the engine world on the card with
+    the tables' `hub_packet_loss` set to `hub_loss`."""
+    from shadow_tpu_torch.config import load_config
+    from shadow_tpu_torch.core.build import build
+    from shadow_tpu_torch.device.apps import PholdDevice
+    from shadow_tpu_torch.device.engine import DeviceEngine, EngineConfig
+    from shadow_tpu_torch.topology.generate import generate_star_clusters
+
+    cfg = load_config(os.path.join(REPO, "examples", "tgen_1000000.yaml"))
+    sim = build(cfg)
+    H = len(sim.host_vertex)
+
+    def world(hub_loss):
+        ht = sim.topology.hier if hub_loss == 0 else generate_star_clusters(
+            {**cfg.network.graph_params, "hub_packet_loss": hub_loss},
+            representation="hierarchical").hier
+        return DeviceEngine(
+            EngineConfig(n_hosts=H), PholdDevice(n_hosts_total=H),
+            sim.host_vertex, ht.lat_parts(), ht.rel_parts(),
+            device=dev).world
+
+    return cfg, sim, world
+
+
+def star_world(torch, world, dev):
+    """`world` with its dense tables replaced by the factored tables
+    of a 2-hub star with 2 spokes each (V=6, the dense worlds' vertex
+    count), lossy hubs and access."""
+    from shadow_tpu_torch.topology.generate import generate_star_clusters
+
+    ht = generate_star_clusters(
+        {"clusters": 2, "spokes_per_cluster": 2, "hub_latency": "40 ms",
+         "access_latency": "6 ms", "hub_packet_loss": 0.05,
+         "access_packet_loss": 0.01}, representation="hierarchical").hier
+    lat = tuple(torch.from_numpy(np.asarray(a, np.int32)).to(dev)
+                for a in ht.lat_parts())
+    rel = tuple(lat[1] if i == 1 else torch.from_numpy(
+        np.asarray(a, np.float32)).to(dev)
+        for i, a in enumerate(ht.rel_parts()))
+    check(ht.n_vertices == 6, "star_world: need 6 vertices")
+    return {**world, "lat": lat, "rel": rel}
+
+
+def hier_kernels(torch, K, scratch, rng, dev):
+    """K1 and K2 on the factored tables of examples/tgen_1000000.yaml
+    at its full width (1,000,000 hosts), with hub_packet_loss 0.02 as
+    in the full run phold_1m_hier; K2 also on the tables as shipped
+    (lossless: nothing may drop)."""
+    cfg, sim, world = million_world(dev)
+    check(cfg.network.graph_params.get("hub_packet_loss", 0.0) == 0.0,
+          "tgen_1000000.yaml: expected lossless tables")
+    out = phold_kernels(torch, K, scratch, rng, len(sim.host_vertex), dev,
+                        world=world(PHOLD_1M_HUB_LOSS),
+                        lossless=world(0.0))
+    return {"pop_phase_hier": out["pop_phase"],
+            "judge_outbox_hier": out["judge_outbox"]}
 
 
 def merge_case(torch, K, scratch, rng, state0, p, H, OB, dev):
@@ -526,6 +777,17 @@ def pop_case(torch, K, scratch, name, state0, world, p, win_end, dev):
                       f"dirty={dirty}",
             "ms": time_median(torch, scratch.pop, args, 7),
             "plain_ms": time_median(torch, K.pop_plain, args, 3)}
+
+
+def factored_pop(torch, K, scratch, name, state0, world, p, win_end, dev):
+    """A burst pop (K4 or K6) on the same phase's inputs with its
+    tables factored (`star_world`): its `_hier` instantiation against
+    the plain pop."""
+    c = pop_case(torch, K, scratch, f"{name} on factored tables", state0,
+                 star_world(torch, world, dev), p, win_end, dev)
+    check(scratch.launches[name + K.HIER] > 0,
+          f"{name}: the factored instantiation never launched")
+    return {"err": c["err"], "ms": c["ms"], "plain_ms": c["plain_ms"]}
 
 
 def tgen_inputs(torch, K, rng, H, E, dev):
@@ -641,6 +903,8 @@ def tgen_kernels(torch, K, scratch, rng, H, dev):
                   + H * 4 * 2),
         "ops": 0,
         "shape": f"H={H} E={E} P={p.P} OB={OB} {c['counts']}"})}
+    out["pop_tgen"]["on_factored_tables"] = factored_pop(
+        torch, K, scratch, "pop_tgen", state0, world, p, win_end, dev)
     # K2 on K4's outbox, then K3, at tgen_10000's layout
     out["judge_outbox"] = judge_case(torch, K, scratch, sk, obk, world,
                                      win_end, p, H, OB)
@@ -844,6 +1108,8 @@ def tor_kernels(torch, K, scratch, rng, dev):
         "shape": f"H={H} R={R} E={E} P={p.P} OB={OB} C={p.C} "
                  f"{c['counts']} route_blocks={blocks} "
                  + " ".join(f"{k}={v}" for k, v in branches.items())})}
+    out["pop_tor"]["on_factored_tables"] = factored_pop(
+        torch, K, scratch, "pop_tor", state0, world, p, win_end, dev)
     # K2 on K6's outbox (holed masks), then K3 at E=96, IN=64
     out["judge_outbox"] = judge_case(torch, K, scratch, sk, obk, world,
                                      win_end, p, H, OB)
@@ -900,17 +1166,28 @@ def kernels_phase(torch, report, H=100_000, dev="cuda"):
                                 dev),
              "tor": route_case(torch, K, scratch, rng, 56_000, 36, 64,
                                dev)}
+    hier = hier_kernels(torch, K, scratch, rng, dev)
     for name, r in phold.items():
         report_line(f"{name} (PHOLD shapes)", r)
     for name, r in tgen.items():
         report_line(f"{name} (tgen shapes)", r)
     for name, r in tor.items():
         report_line(f"{name} (Tor shapes)", r)
+    for name, r in hier.items():
+        report_line(f"{name} (examples/tgen_1000000.yaml's factored "
+                    f"tables, hub loss {PHOLD_1M_HUB_LOSS})", r)
+    for name, r in (("pop_tgen", tgen["pop_tgen"]),
+                    ("pop_tor", tor["pop_tor"])):
+        f = r["on_factored_tables"]
+        print(f"[kernels] {name}{K.HIER}: equal to plain (max abs err "
+              f"{f['err']}) at its shapes on a factored 6-vertex star; "
+              f"kernel {f['ms']:.4f} ms, plain {f['plain_ms']:.4f} ms",
+              flush=True)
     for shape, r in route.items():
         report_line(f"route ({shape} shape)", r)
     report.update({
         "pop_phase": phold["pop_phase"], "pop_tgen": tgen["pop_tgen"],
-        "pop_tor": tor["pop_tor"],
+        "pop_tor": tor["pop_tor"], **hier,
         "judge_outbox": {**phold["judge_outbox"],
                          "at_tgen_shape": tgen["judge_outbox"],
                          "at_tor_shape": tor["judge_outbox"]},
@@ -921,13 +1198,13 @@ def kernels_phase(torch, report, H=100_000, dev="cuda"):
                   "at_tor_shape": route["tor"]}})
 
 
-def same_run(a, b, what):
+def same_run(a, b, what, names=("card", "cpu")):
     for field in ("events_executed", "packets_sent", "packets_dropped",
                   "packets_delivered", "downloads_completed", "rounds",
                   "ok"):
         check(getattr(a, field) == getattr(b, field),
-              f"parity ({what}): {field} card {getattr(a, field)} != cpu "
-              f"{getattr(b, field)}")
+              f"parity ({what}): {field} {names[0]} {getattr(a, field)} "
+              f"!= {names[1]} {getattr(b, field)}")
     check(np.array_equal(a.host_events_executed, b.host_events_executed),
           f"parity ({what}): per-host events_executed differ")
     check(np.array_equal(a.host_trace_checksum, b.host_trace_checksum),
@@ -957,6 +1234,46 @@ def parity_phase(torch):
         print(f"[parity] {what}: card == cpu plain path: "
               f"{gpu.summary()}; card wall {gpu.wall_s:.3f} s, cpu wall "
               f"{cpu.wall_s:.3f} s", flush=True)
+    star_parity(torch)
+
+
+def star_parity(torch):
+    """The star_clusters tgen run four ways: card and CPU, hierarchical
+    and dense tables; the card's hierarchical run goes through the
+    `_hier` kernels and its dense run through the others."""
+    from shadow_tpu_torch.config import load_config_str
+    from shadow_tpu_torch.device import runner
+    from shadow_tpu_torch.device.kernels import HIER, TOPO_KERNELS, Kernels
+
+    what = ("star_clusters tgen, 8 clusters x 120 spokes, 8 servers + 952 "
+            "clients, hub loss 0.02, 2 s")
+    runs = {}
+    for rep in ("hierarchical", "dense"):
+        cfg = load_config_str(STAR_PARITY_YAML, [
+            f"network.topology.representation={rep}"])
+        kernels = Kernels()
+        runs[("card", rep)] = runner.run(cfg, device="cuda",
+                                         kernels=kernels)
+        runs[("cpu", rep)] = runner.run(cfg, device="cpu")
+        for n in TOPO_KERNELS:
+            on, off = ((n + HIER, n) if rep == "hierarchical"
+                       else (n, n + HIER))
+            check(kernels.launches[off] == 0, f"parity ({what}, {rep}): "
+                  f"{off} launched")
+            if n in ("pop_tgen", "judge_outbox"):
+                check(kernels.launches[on] > 0, f"parity ({what}, {rep}): "
+                      f"{on} never launched")
+    base = runs[("card", "hierarchical")]
+    for key, other in runs.items():
+        same_run(base, other, what, ("card hierarchical", " ".join(key)))
+    check(base.packets_dropped > 0 and base.downloads_completed > 0,
+          f"parity ({what}): no drop or no download")
+    print(f"[parity] {what}: card hierarchical == card dense == cpu "
+          f"hierarchical == cpu dense: {base.summary()}; card walls "
+          f"{base.wall_s:.3f} s hierarchical, "
+          f"{runs[('card', 'dense')].wall_s:.3f} s dense; cpu walls "
+          f"{runs[('cpu', 'hierarchical')].wall_s:.3f} s, "
+          f"{runs[('cpu', 'dense')].wall_s:.3f} s", flush=True)
 
 
 FULL_RUNS = (
@@ -975,26 +1292,50 @@ FULL_RUNS = (
      ("pop_tor", "judge_outbox", "route", "merge_heaps")),
     ("tor_large", "tor_large.yaml", (),
      ("pop_tor", "judge_outbox", "route", "merge_heaps")),
+    # PHOLD_1M_YAML, written here (no example file holds it)
+    ("phold_1m_hier", None, (),
+     ("pop_phase_hier", "judge_outbox_hier", "route", "merge_heaps")),
 )
 
 
 def full_phase(torch, card, report):
     from shadow_tpu_torch import cli
+    from shadow_tpu_torch.config import load_config_str
+    from shadow_tpu_torch.device import capacity, runner
     from shadow_tpu_torch.device.kernels import KERNEL_NAMES, Kernels
 
     runs = {}
     for name, example, overrides, path in FULL_RUNS:
-        print(f"[full:{name}] examples/{example} with {list(overrides)}",
-              flush=True)
+        print(f"[full:{name}] "
+              + (f"examples/{example}" if example else
+                 "PHOLD_1M_YAML (chip_smoke.py)")
+              + f" with {list(overrides)}", flush=True)
         kernels = Kernels(timing=True)
         kernels.library()
+        torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_counts()
-        stats = cli.simulate(os.path.join(REPO, "examples", example),
-                             overrides, device="cuda", kernels=kernels)
+        if example is None:
+            stats = runner.run(load_config_str(PHOLD_1M_YAML, overrides),
+                               device="cuda", kernels=kernels)
+        else:
+            stats = cli.simulate(os.path.join(REPO, "examples", example),
+                                 overrides, device="cuda", kernels=kernels)
         launches = dict(kernels.launches)
         kernel_ms = kernels.kernel_ms()
         peak = torch.cuda.max_memory_allocated()
+        est = stats.admission["estimate"]["per_device"]
+        print(f"[full:{name}] {capacity.verdict_line(stats.admission)}; "
+              f"measured peak {peak} B ({peak / est:.3f} x the estimate)",
+              flush=True)
+        if name == "phold_1m_hier":
+            check(stats.admission["action"] == "admit",
+                  f"full {name}: admission {stats.admission['action']}")
+            check(est / capacity.FOOTPRINT_TOLERANCE <= peak
+                  <= est * capacity.FOOTPRINT_TOLERANCE,
+                  f"full {name}: peak {peak} B is not within "
+                  f"{capacity.FOOTPRINT_TOLERANCE}x of the estimate "
+                  f"{est} B")
         check(stats.overflow == 0 and stats.x_overflow == 0,
               f"full {name}: overflow {stats.overflow}, x_overflow "
               f"{stats.x_overflow}")
@@ -1019,29 +1360,71 @@ def full_phase(torch, card, report):
         print(f"[full:{name}] outside the kernels (the host loop, a "
               f"remainder): {1e3 * stats.wall_s - sum(kernel_ms.values()):.3f}"
               f" ms of the wall; card {card}", flush=True)
-        runs[name] = {"launches": launches, "kernel_ms": kernel_ms}
+        runs[name] = {"launches": launches, "kernel_ms": kernel_ms,
+                      "wall_s": stats.wall_s, "peak": peak}
     report["_full"] = runs
+
+
+def boot_phase(torch, card):
+    """examples/tgen_1000000.yaml as shipped, booted on the card: the
+    build (timed), the admission verdict, the engine and init_state;
+    not run (its clients all ask server0, which overflows)."""
+    from shadow_tpu_torch.config import load_config
+    from shadow_tpu_torch.core.build import build
+    from shadow_tpu_torch.device import capacity, runner
+
+    path = os.path.join(REPO, "examples", "tgen_1000000.yaml")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg = load_config(path)
+    sim = build(cfg)
+    t_build = time.perf_counter() - t0
+    engine = runner.engine_from(cfg, sim, device="cuda")
+    state = engine.init_state(sim.start_times, sim.stop_times)
+    torch.cuda.synchronize()
+    t_boot = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    top = sim.topology
+    hosts = int(state["head"].shape[0])
+    check(top.n_vertices == 1_000_200 and top.hier is not None
+          and top.hier.n_clusters == 200, "tgen_1000000: not the "
+          "1,000,200-vertex factored topology")
+    check(hosts == 1_000_000 and engine.next_time(state) == 10**7,
+          "tgen_1000000: boot state wrong")
+    print(f"[boot:tgen_1000000] {hosts} hosts, V={top.n_vertices}, "
+          f"C={top.hier.n_clusters}, table bytes {top.table_nbytes()}, "
+          f"lookahead {sim.lookahead} ns; build {t_build:.3f} s, boot "
+          f"(build + admission + engine + init_state on the card) "
+          f"{t_boot:.3f} s; peak device memory {peak} B; "
+          f"{capacity.verdict_line(engine.admission)}; card {card}",
+          flush=True)
 
 
 def kernels_line(report):
     runs = report.pop("_full")
     rows = []
     for n in ("pop_phase", "pop_tgen", "pop_tor", "judge_outbox", "route",
-              "merge_heaps"):
+              "merge_heaps", "pop_phase_hier", "judge_outbox_hier"):
         r = report[n]
-        shapes = {k: r[k] for k in ("at_tgen_shape", "at_tor_shape")
-                  if k in r}
+        shapes = {k: r[k] for k in ("at_tgen_shape", "at_tor_shape",
+                                    "on_factored_tables",
+                                    "err_on_shipped_tables") if k in r}
         rows.append({
             "name": n, "route": "cuda", "source": SOURCES[n],
             "replaces": REPLACES[n],
             "launches": sum(run["launches"][n] for run in runs.values()),
-            "max_abs_err": max([r["err"]] + [x["err"] for x in
-                                             shapes.values()]),
+            "max_abs_err": max([r["err"]] + [
+                x["err"] if isinstance(x, dict) else x
+                for x in shapes.values()]),
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r.get("library_ms"),
             "bytes": r["bytes"], "ops": r["ops"],
             "shape": r["shape"],
+            **({"view": "shadow_tpu_torch/csrc/topo.cuh"}
+               if n.endswith("_hier") else {}),
             "launches_by_run": {k: run["launches"][n]
                                 for k, run in runs.items()},
             "main_path_ms_by_run": {k: run["kernel_ms"][n]
@@ -1101,6 +1484,8 @@ def main(argv=None) -> int:
             parity_phase(torch)
         if "full" in phases:
             full_phase(torch, card, report)
+        if "boot" in phases:
+            boot_phase(torch, card)
         if "kernels" in phases and "full" in phases:
             print(kernels_line(report), flush=True)
         print(f"card: {card}", flush=True)

@@ -16,7 +16,7 @@ import sys
 
 from shadow_tpu_torch import simtime
 from shadow_tpu_torch.config import load_config
-from shadow_tpu_torch.device import runner
+from shadow_tpu_torch.device import capacity, runner
 from shadow_tpu_torch.device.engine import NoCudaDevice
 
 log = logging.getLogger("shadow_tpu_torch")
@@ -55,6 +55,7 @@ def main(argv=None) -> int:
         return 1
     log.info("simulation finished at %s: %s",
              simtime.format_time(stats.end_time), stats.summary())
+    log.info("%s", capacity.verdict_line(stats.admission))
     if not stats.ok:
         log.error("device engine overflow: %d events lost — raise "
                   "experimental.event_capacity/outbox_capacity/"

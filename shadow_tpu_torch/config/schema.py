@@ -17,8 +17,15 @@ from typing import Any, Optional
 
 from shadow_tpu_torch.config.units import (
     parse_bandwidth_bits,
+    parse_size_bytes,
     parse_time_ns,
 )
+
+# network.graph keys of the star_clusters generator
+STAR_CLUSTERS_KEYS = ("clusters", "spokes_per_cluster", "hub_latency",
+                      "access_latency", "hub_packet_loss",
+                      "access_packet_loss", "bandwidth_down",
+                      "bandwidth_up")
 
 SCHEDULER_POLICIES = ("host", "steal", "thread", "threadXthread",
                       "threadXhost", "serial", "tpu", "hybrid")
@@ -53,8 +60,7 @@ LATER_EXPERIMENTAL = {
                     "queue (b) item 7 (the outbox compaction)"),
     **dict.fromkeys(
         ("dispatch_retries", "dispatch_retry_backoff", "failover",
-         "chaos", "admission", "device_memory_budget", "round_watchdog",
-         "round_watchdog_dump"),
+         "chaos", "round_watchdog", "round_watchdog_dump"),
         "queue (a) item 13 (the robustness layer)"),
     **dict.fromkeys(("compile_cache", "compile_cache_cap_mb"),
                     "queue (a) item 14 (compile cache, tune, serve)"),
@@ -191,6 +197,8 @@ class NetworkOptions:
     graph_type: str = "1_gbit_switch"
     graph_file: Optional[str] = None
     graph_inline: Optional[str] = None
+    # generator keys (graph.type: star_clusters, topology/generate.py)
+    graph_params: dict = field(default_factory=dict)
     use_shortest_path: bool = True
     representation: str = "dense"
     faults: list = field(default_factory=list)   # raw; refused by slice
@@ -200,17 +208,20 @@ class NetworkOptions:
         _check_keys("network", d, {"graph", "use_shortest_path",
                                    "topology", "faults"})
         graph = d.get("graph", {}) or {}
-        _check_keys("network.graph", graph, {
-            "type", "file", "inline",
-            "clusters", "spokes_per_cluster", "hub_latency",
-            "access_latency", "hub_packet_loss", "access_packet_loss",
-            "bandwidth_down", "bandwidth_up"})
+        _check_keys("network.graph", graph,
+                    {"type", "file", "inline", *STAR_CLUSTERS_KEYS})
         gtype = graph.get("type", "1_gbit_switch")
         gfile = None
         if isinstance(graph.get("file"), dict):
             gfile = graph["file"].get("path")
         elif isinstance(graph.get("file"), str):
             gfile = graph["file"]
+        params = {k: graph[k] for k in STAR_CLUSTERS_KEYS if k in graph}
+        if params and gtype != "star_clusters":
+            raise ValueError(
+                "network.graph: generator keys "
+                f"{sorted(params)} are only valid with "
+                "type: star_clusters")
         topo = d.get("topology", {}) or {}
         _check_keys("network.topology", topo, {"representation"})
         rep = str(topo.get("representation", "dense"))
@@ -226,6 +237,7 @@ class NetworkOptions:
             graph_type=gtype,
             graph_file=gfile,
             graph_inline=graph.get("inline"),
+            graph_params=params,
             use_shortest_path=bool(d.get("use_shortest_path", True)),
             representation=rep,
             faults=list(raw_faults),
@@ -243,6 +255,13 @@ class ExperimentalOptions:
     # events a burst host pops per iteration (0 = the app's default,
     # 1 = no bursts); traces are the same at any width
     burst_pops: int = 0
+    # preflight admission (device/capacity.py): "auto" admits, loudly
+    # when over budget; "strict" refuses an over-budget run; "off"
+    # skips the check
+    admission: str = "auto"
+    # per-device memory budget in bytes ("8 GiB" accepted), used where
+    # the backend reports no limit; 0 = none
+    device_memory_budget: int = 0
     # reference keys set in the config that the port does not run yet
     later: dict = field(default_factory=dict)
 
@@ -250,7 +269,8 @@ class ExperimentalOptions:
     def from_dict(cls, d: dict) -> "ExperimentalOptions":
         own = {"interpose_method", "scheduler_policy", "runahead",
                "event_capacity", "outbox_capacity",
-               "exchange_in_capacity", "burst_pops"}
+               "exchange_in_capacity", "burst_pops", "admission",
+               "device_memory_budget"}
         _check_keys("experimental", d,
                     own | set(LAYOUT_VARIANTS) | set(LATER_EXPERIMENTAL))
         out = cls(later={k: v for k, v in d.items()
@@ -262,6 +282,8 @@ class ExperimentalOptions:
             elif name in ("event_capacity", "outbox_capacity",
                           "exchange_in_capacity", "burst_pops"):
                 v = int(v)
+            elif name == "device_memory_budget":
+                v = parse_size_bytes(v)
             setattr(out, name, v)
         if not 0 <= out.burst_pops <= 32:
             raise ValueError("experimental.burst_pops must be in 0..32")
@@ -272,6 +294,22 @@ class ExperimentalOptions:
         for name in LAYOUT_VARIANTS.keys() & d.keys():
             _check_choice("experimental", name, d[name],
                           LAYOUT_VARIANTS[name])
+        if isinstance(out.admission, bool):
+            # YAML 1.1 reads bare `off`/`on` as booleans; `on` is the
+            # default mode, auto
+            out.admission = "auto" if out.admission else "off"
+        _check_choice("experimental", "admission", out.admission,
+                      ("auto", "off", "strict"))
+        if out.admission == "strict" and out.scheduler_policy != "tpu":
+            raise ValueError(
+                "experimental.admission: strict gates DEVICE engine "
+                "footprints and requires scheduler_policy: tpu (CPU "
+                "policies have no device budget to admit against)")
+        if out.device_memory_budget and out.scheduler_policy != "tpu":
+            raise ValueError(
+                "experimental.device_memory_budget bounds the DEVICE "
+                "engine's footprint and requires scheduler_policy: "
+                "tpu")
         return out
 
 

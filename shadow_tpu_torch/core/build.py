@@ -13,7 +13,8 @@ from its columnar plane; both number hosts in group order, so the
 columns here equal that object build.)
 
 The port runs these slices of the reference so far: PHOLD, tgen and Tor
-on the `tpu` policy, one GPU, dense topology, no faults, no ensemble.
+on the `tpu` policy, one GPU, GML, builtin or `star_clusters` graphs
+with dense or hierarchical tables, no faults, no ensemble.
 `check_slice` refuses any config outside them with an error naming the
 ROADMAP.md item that will port it; nothing outside runs silently.
 """
@@ -33,6 +34,7 @@ from shadow_tpu_torch.config.schema import (
 from shadow_tpu_torch.core.tgen_args import TgenClientArgs
 from shadow_tpu_torch.core.tor_args import TorClientArgs
 from shadow_tpu_torch.device.apps import PholdDevice, TgenDevice, TorDevice
+from shadow_tpu_torch.topology.generate import generate_star_clusters
 from shadow_tpu_torch.topology.graph import Topology
 
 
@@ -76,14 +78,9 @@ def check_slice(cfg: ConfigOptions) -> None:
     if cfg.ensemble:
         _refuse("ensemble", "queue (a) item 12 (ensemble campaigns)")
     if cfg.network.faults:
+        # under either representation: fault epochs stack a [T] axis on
+        # every table, dense or factored
         _refuse("network.faults", "queue (a) item 8 (fault epochs)")
-    if cfg.network.representation != "dense":
-        _refuse("network.topology.representation: "
-                f"{cfg.network.representation}",
-                "queue (a) item 8 (hierarchical tables)")
-    if cfg.network.graph_type not in ("gml", "1_gbit_switch"):
-        _refuse(f"network.graph.type: {cfg.network.graph_type}",
-                "queue (a) item 8 (generated topologies)")
     if not cfg.hosts:
         raise ValueError("config has no host groups")
     for g in cfg.hosts:
@@ -118,14 +115,24 @@ def check_slice(cfg: ConfigOptions) -> None:
 
 def load_topology(cfg: ConfigOptions) -> Topology:
     net = cfg.network
+    rep = net.representation
     if net.graph_type == "1_gbit_switch":
-        return Topology.builtin_1_gbit_switch()
-    if net.graph_inline:
-        return Topology.from_gml(net.graph_inline, net.use_shortest_path)
-    if net.graph_file:
-        with open(net.graph_file) as f:
-            return Topology.from_gml(f.read(), net.use_shortest_path)
-    raise ValueError("network.graph.type=gml needs file.path or inline")
+        return Topology.builtin_1_gbit_switch(representation=rep)
+    if net.graph_type == "gml":
+        if net.graph_inline:
+            return Topology.from_gml(net.graph_inline,
+                                     net.use_shortest_path,
+                                     representation=rep)
+        if net.graph_file:
+            with open(net.graph_file) as f:
+                return Topology.from_gml(f.read(), net.use_shortest_path,
+                                         representation=rep)
+        raise ValueError("network.graph.type=gml needs file.path or inline")
+    if net.graph_type == "star_clusters":
+        return generate_star_clusters(net.graph_params,
+                                      net.use_shortest_path,
+                                      representation=rep)
+    raise ValueError(f"unknown graph type {net.graph_type!r}")
 
 
 def _parse_kv_args(args) -> dict[str, str]:

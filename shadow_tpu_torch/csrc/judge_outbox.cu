@@ -1,7 +1,9 @@
 // K2 judge_outbox: the network judgment of one phase's outbox.
 //
-// Replaces shadow_tpu/device/engine.py `_judge_outbox` with the dense
-// `_tbl` lookup (engine.py `_tbl`, T=1) and
+// Replaces shadow_tpu/device/engine.py `_judge_outbox` with its `_tbl`
+// lookup (T=1: the dense gather, or under the hierarchical
+// representation shadow_tpu/topology/hierarchy.py `gather_parts`, both
+// through the views of topo.cuh, of which the kernel is a template) and
 // shadow_tpu/device/netsem.py `packet_drop_mask`: per send row, the path
 // latency and reliability, one threefry drop roll per packet keyed by
 // (src host, per-source packet seq), the causality bump max(t, win_end)
@@ -18,18 +20,19 @@
 // loads are not coalesced; that is later work.
 #include "common.cuh"
 #include "threefry.cuh"
+#include "topo.cuh"
 
 using namespace shadow;
 
 namespace {
 
+template <class Topo>
 __global__ void judge_outbox_kernel(
     int H, int OB, int C, int64_t win_end, int64_t boot_end,
     int64_t* ob_t, int64_t* ob_m, int64_t* ob_v,
     const int32_t* __restrict__ packet_seq, int32_t* n_sent,
-    int32_t* n_drop, const int32_t* __restrict__ host_vertex,
-    const int32_t* __restrict__ lat, const float* __restrict__ rel,
-    int V, uint32_t seed1, uint32_t seed2) {
+    int32_t* n_drop, const int32_t* __restrict__ host_vertex, Topo topo,
+    uint32_t seed1, uint32_t seed2) {
     const int h = blockIdx.x * blockDim.x + threadIdx.x;
     if (h >= H) return;
     const int64_t row = (int64_t)h * OB;
@@ -54,9 +57,9 @@ __global__ void judge_outbox_kernel(
         const int32_t cnt = kindrow >> 8;
         const int32_t dst = hi32(fm);
         const int dh = dst < 0 ? 0 : (dst > H - 1 ? H - 1 : dst);
-        const int64_t pair = (int64_t)vs * V + host_vertex[dh];
-        const int64_t latv = lat[pair];
-        const float relv = rel[pair];
+        const int vd = host_vertex[dh];
+        const int64_t latv = topo.lat(vs, vd);
+        const float relv = topo.rel(vs, vd);
         const int64_t fv = ob_v[row + c];
         const uint32_t wbits =
             cnt >= 32 ? 0xFFFFFFFFu
@@ -86,21 +89,36 @@ __global__ void judge_outbox_kernel(
     n_drop[h] += lost;
 }
 
+template <class Topo>
+void launch(int H, int OB, int C, int64_t win_end, int64_t boot_end,
+            int64_t* ob_t, int64_t* ob_m, int64_t* ob_v,
+            const int32_t* packet_seq, int32_t* n_sent, int32_t* n_drop,
+            const int32_t* host_vertex, Topo topo, uint32_t seed1,
+            uint32_t seed2, cudaStream_t stream) {
+    const int threads = 128;
+    judge_outbox_kernel<Topo><<<(H + threads - 1) / threads, threads, 0,
+                                stream>>>(
+        H, OB, C, win_end, boot_end, ob_t, ob_m, ob_v, packet_seq, n_sent,
+        n_drop, host_vertex, topo, seed1, seed2);
+}
+
 }  // namespace
 
 extern "C" int shadow_judge_outbox(
     int H, int OB, int C, long long win_end, long long boot_end,
     int64_t* ob_t, int64_t* ob_m, int64_t* ob_v, const int32_t* packet_seq,
     int32_t* n_sent, int32_t* n_drop, const int32_t* host_vertex,
-    const int32_t* lat, const float* rel, int V, unsigned seed1,
-    unsigned seed2, void* stream) {
+    const TopoArgs* topo, unsigned seed1, unsigned seed2, void* stream) {
+    if (!topo_ok(topo)) return (int)cudaErrorInvalidValue;
     if (H > 0) {
-        const int threads = 128;
-        judge_outbox_kernel<<<(H + threads - 1) / threads, threads, 0,
-                              (cudaStream_t)stream>>>(
-            H, OB, C, (int64_t)win_end, (int64_t)boot_end, ob_t, ob_m,
-            ob_v, packet_seq, n_sent, n_drop, host_vertex, lat, rel, V,
-            seed1, seed2);
+        if (topo->hier)
+            launch(H, OB, C, (int64_t)win_end, (int64_t)boot_end, ob_t,
+                   ob_m, ob_v, packet_seq, n_sent, n_drop, host_vertex,
+                   hier_topo(*topo), seed1, seed2, (cudaStream_t)stream);
+        else
+            launch(H, OB, C, (int64_t)win_end, (int64_t)boot_end, ob_t,
+                   ob_m, ob_v, packet_seq, n_sent, n_drop, host_vertex,
+                   dense_topo(*topo), seed1, seed2, (cudaStream_t)stream);
     }
     return (int)cudaGetLastError();
 }

@@ -38,6 +38,13 @@
 // advances by the whole count); a timer row is (t + delay,
 // gid << 32 | seq, gid, KIND_TIMER, d0).
 //
+// The in-window self-send test (`dirty`) reads the host's self latency
+// through a view of the path tables (topo.cuh): DenseTopo's diagonal or,
+// under the hierarchical representation, HierTopo's self vector (the
+// reference's `gather_parts(lat, v, v)`). The kernel is a template over
+// the view; each entry point launches the instantiation its TopoArgs
+// selects.
+//
 // Bound on the H100: bytes. Per host it reads the popped heap rows and a
 // few counters and writes its outbox row: t of every column, which marks
 // the unused ones, and five fields per send or timer. It writes all five
@@ -49,6 +56,7 @@
 // a warp-per-host or transposed outbox is later work.
 #include "common.cuh"
 #include "threefry.cuh"
+#include "topo.cuh"
 
 using namespace shadow;
 
@@ -430,14 +438,13 @@ struct PopArgs {
     const int64_t *ht, *hk, *hm, *hv, *hw;
     int32_t *head, *event_seq, *packet_seq, *n_exec, *n_deliv;
     int64_t* chk;
-    const int32_t *host_vertex, *lat;
-    int V;
+    const int32_t* host_vertex;
     int64_t *ob_t, *ob_k, *ob_m, *ob_s, *ob_v;
     int32_t* pops;
 };
 
-template <class App>
-__global__ void pop_kernel(PopArgs a, App app) {
+template <class App, class Topo>
+__global__ void pop_kernel(PopArgs a, App app, Topo topo) {
     const int h = blockIdx.x * blockDim.x + threadIdx.x;
     if (h >= a.H) return;
     const int M = a.K + a.T;
@@ -454,7 +461,7 @@ __global__ void pop_kernel(PopArgs a, App app) {
     const int vtx = a.host_vertex[h];
     Lanes out{a.ob_t, a.ob_k, a.ob_m, a.ob_s, a.ob_v, row, a.K, a.C,
               (uint32_t)h, (uint32_t)a.event_seq[h],
-              (uint32_t)a.packet_seq[h], a.lat[(int64_t)vtx * a.V + vtx],
+              (uint32_t)a.packet_seq[h], topo.self_lat(vtx),
               a.win_end, false, false, 0, 0};
     typename App::Host st = app.load(h);
     int hd = a.head[h];
@@ -510,12 +517,23 @@ __global__ void pop_kernel(PopArgs a, App app) {
     a.pops[h] = blk;
 }
 
+template <class App, class Topo>
+void launch_on(const PopArgs& a, const App& app, Topo topo,
+               cudaStream_t stream) {
+    const int threads = 128;
+    pop_kernel<App, Topo><<<(a.H + threads - 1) / threads, threads, 0,
+                            stream>>>(a, app, topo);
+}
+
 template <class App>
-int launch(const PopArgs& a, const App& app, void* stream) {
+int launch(const PopArgs& a, const App& app, const TopoArgs* topo,
+           void* stream) {
+    if (!topo_ok(topo)) return (int)cudaErrorInvalidValue;
     if (a.H > 0) {
-        const int threads = 128;
-        pop_kernel<App><<<(a.H + threads - 1) / threads, threads, 0,
-                          (cudaStream_t)stream>>>(a, app);
+        if (topo->hier)
+            launch_on(a, app, hier_topo(*topo), (cudaStream_t)stream);
+        else
+            launch_on(a, app, dense_topo(*topo), (cudaStream_t)stream);
     }
     return (int)cudaGetLastError();
 }
@@ -528,17 +546,17 @@ extern "C" int shadow_pop_phase(
     const int64_t* hv, const int64_t* hw,
     int32_t* head, int32_t* event_seq, int32_t* packet_seq,
     int32_t* app_seq, int32_t* app, int32_t* n_exec, int32_t* n_deliv,
-    int64_t* chk, const int32_t* host_vertex, const int32_t* lat, int V,
+    int64_t* chk, const int32_t* host_vertex, const TopoArgs* topo,
     unsigned seed1, unsigned seed2, int n_total, int msgload, int size,
     int selfloop, int64_t* ob_t, int64_t* ob_k, int64_t* ob_m,
     int64_t* ob_s, int64_t* ob_v, int32_t* pops, void* stream) {
     const PopArgs a{H, E, K, 0, 1, B, 1, (int64_t)win_end,
                     ht, hk, hm, hv, hw, head, event_seq, packet_seq,
-                    n_exec, n_deliv, chk, host_vertex, lat, V,
+                    n_exec, n_deliv, chk, host_vertex,
                     ob_t, ob_k, ob_m, ob_s, ob_v, pops};
     const PholdApp p{app, app_seq, (uint32_t)n_total, msgload, size,
                      selfloop, Key{seed1, seed2}};
-    return launch(a, p, stream);
+    return launch(a, p, topo, stream);
 }
 
 extern "C" int shadow_pop_tgen(
@@ -547,7 +565,7 @@ extern "C" int shadow_pop_tgen(
     const int64_t* hv, const int64_t* hw,
     int32_t* head, int32_t* event_seq, int32_t* packet_seq, int32_t* app,
     int32_t* n_exec, int32_t* n_deliv, int64_t* chk,
-    const int32_t* host_vertex, const int32_t* lat, int V,
+    const int32_t* host_vertex, const TopoArgs* topo,
     const int32_t* count, const int64_t* pause, const int64_t* retry,
     int npkts, int last_sz, int chunk, int mss, int64_t* ob_t,
     int64_t* ob_k,
@@ -556,10 +574,10 @@ extern "C" int shadow_pop_tgen(
     if (T > 1 || C > 32) return (int)cudaErrorInvalidValue;
     const PopArgs a{H, E, K, T, P, B, C, (int64_t)win_end,
                     ht, hk, hm, hv, hw, head, event_seq, packet_seq,
-                    n_exec, n_deliv, chk, host_vertex, lat, V,
+                    n_exec, n_deliv, chk, host_vertex,
                     ob_t, ob_k, ob_m, ob_s, ob_v, pops};
     const TgenApp g{app, count, pause, retry, npkts, last_sz, chunk, mss};
-    return launch(a, g, stream);
+    return launch(a, g, topo, stream);
 }
 
 extern "C" int shadow_pop_tor(
@@ -568,7 +586,7 @@ extern "C" int shadow_pop_tor(
     const int64_t* hv, const int64_t* hw,
     int32_t* head, int32_t* event_seq, int32_t* packet_seq, int32_t* app,
     int32_t* n_exec, int32_t* n_deliv, int64_t* chk,
-    const int32_t* host_vertex, const int32_t* lat, int V,
+    const int32_t* host_vertex, const TopoArgs* topo,
     const int32_t* count, const int64_t* pause, const int64_t* retry,
     const int32_t* relay_gids, int R, unsigned route_k1,
     unsigned route_k2, int cells, int64_t* ob_t, int64_t* ob_k,
@@ -577,9 +595,9 @@ extern "C" int shadow_pop_tor(
     if (T > 1 || C > 32 || R < 3) return (int)cudaErrorInvalidValue;
     const PopArgs a{H, E, K, T, P, B, C, (int64_t)win_end,
                     ht, hk, hm, hv, hw, head, event_seq, packet_seq,
-                    n_exec, n_deliv, chk, host_vertex, lat, V,
+                    n_exec, n_deliv, chk, host_vertex,
                     ob_t, ob_k, ob_m, ob_s, ob_v, pops};
     const TorApp t{app, count, pause, retry, relay_gids, (uint32_t)R,
                    Key{route_k1, route_k2}, cells};
-    return launch(a, t, stream);
+    return launch(a, t, topo, stream);
 }

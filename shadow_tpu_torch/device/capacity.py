@@ -1,0 +1,175 @@
+"""Preflight admission: the device footprint of a run against the
+card's memory budget (the port's copy of the reference package's
+device/capacity.py `footprint`, `fmt_bytes`, `device_budget`,
+`admission_diagnostic` and `admission_verdict`, cut to one GPU with
+no pipeline, ensemble or degradation ladder).
+
+The runner calls `admission_verdict` after the build and before the
+engine allocates anything on the device. The byte model prices the
+tensors the port's engine really holds:
+
+* the state dict, one copy (the engine updates it in place; there is
+  no segment pipeline and no rewind snapshot);
+* the per-phase scratch: the five [H,OB] int64 outbox fields and the
+  [H] pop counts, and the route's outputs and scratch (K5: perm and
+  scattered rows [H*OB] int64, starts, counts, cursors and block sums
+  [H] int64); the judge and the merge work in place;
+* the world: the host vertices, the path tables (dense [V,V], or the
+  factored leaves with one shared cl vector) and the app's columns.
+
+Transient allocations of the Python window loop (a few [H] vectors a
+phase) are not modelled: the estimate is a floor on the live bytes,
+and chip_smoke.py holds the measured peak within FOOTPRINT_TOLERANCE of
+it, as the reference's tests hold its own.
+"""
+
+from __future__ import annotations
+
+import logging
+
+import numpy as np
+import torch
+
+from shadow_tpu_torch.device.engine import STATE_DTYPES
+from shadow_tpu_torch.device.kernels import PhaseParams
+
+log = logging.getLogger("shadow_tpu_torch.admission")
+
+FOOTPRINT_TOLERANCE = 4.0
+
+
+def state_nbytes(n_hosts: int, params: PhaseParams) -> int:
+    """Bytes of one state dict (device/engine.py STATE_DTYPES): the
+    [H,E] heap fields and chk int64, app [H,W] and the [H] counters
+    int32, the three occupancy scalars."""
+    H, E = n_hosts, params.E
+    n = 0
+    for k, dt in STATE_DTYPES.items():
+        size = np.dtype(dt).itemsize
+        if k in ("ht", "hk", "hm", "hv", "hw"):
+            n += H * E * size
+        elif k == "app":
+            n += H * params.app.n_state_words * size
+        elif k in ("occ_x", "occ_trips", "occ_phases"):
+            n += size
+        else:
+            n += H * size
+    return n
+
+
+def footprint(n_hosts: int, params: PhaseParams, world: dict) -> dict:
+    """The byte model of a run on one device. `world` holds the
+    arrays the engine uploads (device/engine.py `world_arrays`)."""
+    H, OB = n_hosts, params.OB
+    state = state_nbytes(H, params)
+    outbox = 5 * H * OB * 8 + H * 4
+    route = 2 * H * OB * 8 + 4 * H * 8
+    seen, world_bytes = set(), 0
+    for v in world.values():
+        for a in (v if isinstance(v, tuple) else (v,)):
+            if id(a) not in seen:
+                seen.add(id(a))
+                world_bytes += int(np.asarray(a).nbytes)
+    hier = isinstance(world["lat"], tuple)
+    per_device = state + outbox + route + world_bytes
+    return {
+        "representation": "hierarchical" if hier else "dense",
+        "per_device": int(per_device),
+        "state_bytes": int(state),
+        "scratch_bytes": int(outbox + route),
+        "world_bytes": int(world_bytes),
+        "copies": 1,
+        "replicas": 1,
+        "n_devices": 1,
+    }
+
+
+def fmt_bytes(n) -> str:
+    """A byte count for admission diagnostics."""
+    n = float(int(n))
+    for unit in ("B", "KiB", "MiB", "GiB"):
+        if abs(n) < 1024.0:
+            return (f"{int(n)} B" if unit == "B"
+                    else f"{n:.1f} {unit}")
+        n /= 1024.0
+    return f"{n:.1f} TiB"
+
+
+def device_budget(device: torch.device, xp) -> tuple:
+    """(budget bytes, source): the card's own memory
+    (`torch.cuda.mem_get_info` total) when the run is on a card, else
+    `experimental.device_memory_budget`, else (0, "")."""
+    if device.type == "cuda":
+        _, total = torch.cuda.mem_get_info(device)
+        if int(total) > 0:
+            return int(total), "backend"
+    b = int(getattr(xp, "device_memory_budget", 0) or 0)
+    if b > 0:
+        return b, "config"
+    return 0, ""
+
+
+def admission_diagnostic(est: dict, budget: int, source: str) -> str:
+    return (
+        f"admission: needs {fmt_bytes(est['per_device'])} per device, "
+        f"budget {fmt_bytes(budget)} ({source}) on "
+        f"{est['n_devices']} device(s) — state "
+        f"{fmt_bytes(est['state_bytes'])} x {est['copies']} copies x "
+        f"R={est['replicas']}, scratch "
+        f"{fmt_bytes(est['scratch_bytes'])}, world "
+        f"{fmt_bytes(est['world_bytes'])} "
+        f"({est.get('representation', 'dense')} tables); raise the "
+        "budget or lower pipeline_depth / ensemble.replicas / "
+        "capacities")
+
+
+def admission_verdict(est: dict, device: torch.device, xp) -> dict:
+    """The preflight gate on a footprint estimate:
+
+    * `strict` refuses an over-budget estimate (ValueError with the
+      diagnostic), and a run with no budget at all;
+    * `auto` admits; over budget it admits loudly (the port has no
+      pipeline depth or replica batch to shed, so no rung to degrade
+      to);
+    * `off` skips the check.
+
+    Returns the verdict dict SimStats.admission carries."""
+    mode = str(getattr(xp, "admission", "auto"))
+    budget, source = device_budget(device, xp)
+    out = {"mode": mode, "budget": int(budget), "budget_source": source,
+           "estimate": est, "action": "admit", "fits": True,
+           "overrides": {}}
+    if mode == "off":
+        out["action"] = "off"
+        return out
+    if budget <= 0:
+        if mode == "strict":
+            raise ValueError(
+                "experimental.admission: strict needs a per-device "
+                "budget, but the backend reports none and "
+                "experimental.device_memory_budget is unset")
+        out["action"] = "no-budget"
+        return out
+    if est["per_device"] <= budget:
+        log.info("admission: fits — %s per device of %s (%s)",
+                 fmt_bytes(est["per_device"]), fmt_bytes(budget), source)
+        return out
+    diag = admission_diagnostic(est, budget, source)
+    if mode == "strict":
+        raise ValueError(diag)
+    out["fits"] = False
+    out["action"] = "over"
+    log.warning("%s — admitting anyway (admission: auto); no rung to "
+                "degrade to", diag)
+    return out
+
+
+def verdict_line(v: dict) -> str:
+    """One line for a log: the action, the estimate and the budget."""
+    est = v["estimate"]
+    budget = (f"{fmt_bytes(v['budget'])} ({v['budget_source']})"
+              if v["budget"] else "none")
+    return (f"admission {v['mode']}: {v['action']} — estimate "
+            f"{fmt_bytes(est['per_device'])} ({est['per_device']} B, "
+            f"{est['representation']} tables "
+            f"{fmt_bytes(est['world_bytes'])}), budget {budget}")

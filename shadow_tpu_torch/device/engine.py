@@ -54,6 +54,7 @@ from shadow_tpu_torch.device.kernels import (
     Kernels,
     PhaseParams,
 )
+from shadow_tpu_torch.topology import hierarchy
 
 STATE_DTYPES = {
     "ht": np.int64, "hk": np.int64, "hm": np.int64, "hv": np.int64,
@@ -113,53 +114,90 @@ def state_to_numpy(state: dict, keys=None) -> dict:
     return {k: state[k].cpu().numpy() for k in (keys or state)}
 
 
+def phase_params(config: EngineConfig,
+                 app: Union[PholdDevice, TgenDevice, TorDevice]
+                 ) -> PhaseParams:
+    """The static shape of a phase: the outbox layout gives an
+    iteration M_out = K_eff + T columns, a burst host answering event j
+    on lane j."""
+    if config.event_capacity < 2:
+        raise ValueError("event_capacity must be >= 2 (boot+stop)")
+    P = max(1, app.burst_pops)
+    if P > 1 and app.max_sends != 1:
+        raise ValueError("burst_pops requires max_sends == 1")
+    K = P if P > 1 else app.max_sends
+    T = app.max_timers
+    return PhaseParams(
+        E=config.event_capacity, K=K, T=T, P=P,
+        B=max(1, config.outbox_capacity // (K + T)),
+        IN=config.exchange_in_capacity or config.event_capacity,
+        C=max(1, app.max_train), boot_end=int(config.bootstrap_end),
+        seed=prng.seed_key(config.seed), app=app)
+
+
+def world_arrays(n_hosts: int,
+                 app: Union[PholdDevice, TgenDevice, TorDevice],
+                 host_vertex: np.ndarray, latency_ns, reliability) -> dict:
+    """The world's arrays as the card holds them: the [H] host
+    vertices, the path tables (dense [V,V], or the factored
+    (cluster, cl, access, self) leaves of hierarchy.world_tables, with
+    one shared cl vector) and the app's columns. Latency leaves and cl
+    are int32, reliability leaves float32, as the reference casts
+    them; every composed latency must fit int32."""
+    hier = isinstance(latency_ns, tuple)
+    over = (hierarchy.max_composed_latency(latency_ns) if hier
+            else int(np.asarray(latency_ns).max()))
+    if over > np.iinfo(np.int32).max:
+        raise ValueError("path latencies above ~2.1 s don't fit the "
+                         "i32 device latency matrix")
+    if hier:
+        lat = tuple(np.asarray(a).astype(np.int32) for a in latency_ns)
+        cl = lat[1]
+        rel = tuple(cl if i == 1 else np.asarray(a).astype(np.float32)
+                    for i, a in enumerate(reliability))
+    else:
+        lat = np.asarray(latency_ns)
+        if lat.ndim != 2:
+            raise ValueError("the port takes one [V,V] latency table "
+                             "(fault epochs are a later item)")
+        lat = lat.astype(np.int32)
+        rel = np.asarray(reliability).astype(np.float32)
+    return {"host_vertex": np.asarray(host_vertex)[:n_hosts].astype(
+                np.int32),
+            "lat": lat, "rel": rel,
+            # the app's columns: [H] client args, Tor's [R] relay ids
+            **app.world_columns()}
+
+
 class DeviceEngine:
+    """`latency_ns`/`reliability` are dense [V,V] arrays or the
+    factored part tuples of hierarchy.world_tables."""
+
     def __init__(self, config: EngineConfig,
                  app: Union[PholdDevice, TgenDevice, TorDevice],
-                 host_vertex: np.ndarray, latency_ns: np.ndarray,
-                 reliability: np.ndarray, device="cuda",
-                 kernels: Optional[Kernels] = None):
+                 host_vertex: np.ndarray, latency_ns, reliability,
+                 device="cuda", kernels: Optional[Kernels] = None):
         self.config = config
         self.app = app
         self.device = resolve_device(device)
         self.kernels = kernels if kernels is not None else Kernels()
-        latency_ns = np.asarray(latency_ns)
-        if latency_ns.ndim != 2:
-            raise ValueError("the port takes one dense [V,V] latency "
-                             "table (fault epochs are a later item)")
-        if (latency_ns > np.iinfo(np.int32).max).any():
-            raise ValueError("path latencies above ~2.1 s don't fit the "
-                             "i32 device latency matrix")
-        if config.event_capacity < 2:
-            raise ValueError("event_capacity must be >= 2 (boot+stop)")
-        H = config.n_hosts
-        # the outbox layout: an iteration owns M_out = K_eff + T
-        # columns, a burst host answering event j on lane j
-        P = max(1, app.burst_pops)
-        if P > 1 and app.max_sends != 1:
-            raise ValueError("burst_pops requires max_sends == 1")
-        K = P if P > 1 else app.max_sends
-        T = app.max_timers
-        self.params = PhaseParams(
-            E=config.event_capacity, K=K, T=T, P=P,
-            B=max(1, config.outbox_capacity // (K + T)),
-            IN=config.exchange_in_capacity or config.event_capacity,
-            C=max(1, app.max_train), boot_end=int(config.bootstrap_end),
-            seed=prng.seed_key(config.seed), app=app)
+        self.params = phase_params(config, app)
+        arrays = world_arrays(config.n_hosts, app, host_vertex,
+                              latency_ns, reliability)
         dev = self.device
+        uploaded = {}
 
-        def put(a, dtype):
-            return torch.from_numpy(np.ascontiguousarray(
-                np.asarray(a).astype(dtype))).to(dev)
+        def put(a):
+            # a leaf shared by both tables (cl) is uploaded once
+            if id(a) not in uploaded:
+                uploaded[id(a)] = torch.tensor(a, device=dev)
+            return uploaded[id(a)]
 
-        self.world = {
-            "host_vertex": put(np.asarray(host_vertex)[:H], np.int32),
-            "lat": put(latency_ns, np.int32),
-            "rel": put(reliability, np.float32),
-            # the app's columns: [H] client args, Tor's [R] relay ids
-            **{k: put(v, v.dtype) for k, v in app.world_columns().items()},
-        }
+        self.world = {k: tuple(put(a) for a in v) if isinstance(v, tuple)
+                      else put(v) for k, v in arrays.items()}
         self._buf = None
+        # the preflight admission verdict, where a runner made one
+        self.admission: Optional[dict] = None
 
     # ------------------------------------------------------------------
     def init_state(self, start_times: np.ndarray,

@@ -12,12 +12,20 @@ Four steps carry one phase of a conservative window:
   `pop_tor` for Tor (the relays' burst pops and onion routes, trains
   that carry the previous hop's survivors as their live mask);
 * K2 `judge_outbox` (csrc/judge_outbox.cu): `_judge_outbox` with the
-  dense table lookup and `packet_drop_mask`, one thread per host row;
+  table lookup and `packet_drop_mask`, one thread per host row;
 * K5 `route` (csrc/route.cu): `_flat_sorted`/`_host_windows`, the
   exchangeable rows grouped by destination in (src, column) order, by
   a count, a scan, a scatter and a per-segment sort of flat indices;
 * K3 `merge_heaps` (csrc/merge_heaps.cu): `_merge_rows` on the window
   path, one block per destination host, a bitonic sort in shared memory.
+
+The pops and the judge read the path tables through one of two views
+(csrc/topo.cuh), as the world holds them: dense [V,V] tables, or the
+factored leaves of `representation: hierarchical`, looked up in two
+levels (the reference's `gather_parts`); the kernels are templates over
+the view, and a launch on factored tables counts under the kernel's
+name with `_hier` appended (`judge_outbox_hier`, ...). The plain
+versions look up through `table_lookup`.
 
 Every wrapper takes the plain version for tensors on the CPU and, for
 CUDA tensors, launches its kernel on the current stream or raises:
@@ -49,6 +57,7 @@ from shadow_tpu_torch.device.apps import (
     popcount32,
 )
 from shadow_tpu_torch.device.netsem import packet_drop_mask
+from shadow_tpu_torch.topology.hierarchy import gather_parts_plain
 from shadow_tpu_torch.utils.checksum import (
     CHK_KIND,
     CHK_MUL,
@@ -63,14 +72,23 @@ DROP_T = INF - 1
 IMAX = (1 << 63) - 1
 U32 = 0xFFFFFFFF
 
+# the kernels that read the path tables, each launched on dense or on
+# factored tables; a factored launch counts as f"{name}{HIER}"
+TOPO_KERNELS = ("pop_phase", "pop_tgen", "pop_tor", "judge_outbox")
+HIER = "_hier"
 KERNEL_NAMES = ("pop_phase", "pop_tgen", "pop_tor", "judge_outbox",
-                "route", "merge_heaps")
+                "route", "merge_heaps",
+                *(n + HIER for n in TOPO_KERNELS))
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC.parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 OB_FIELDS = ("t", "k", "m", "s", "v")
 HEAP_FIELDS = ("ht", "hk", "hm", "hv", "hw")
+
+
+def _ptr(t: torch.Tensor) -> int:
+    return t.data_ptr()
 
 
 @dataclass(frozen=True)
@@ -115,6 +133,15 @@ def lo32(x):
     return (x & U32).to(torch.int32)
 
 
+def table_lookup(tab, sv: torch.Tensor, dv: torch.Tensor) -> torch.Tensor:
+    """One path table at (sv, dv), broadcast: a dense [V,V] gather, or
+    the two-level lookup of a factored (cluster, cl, access, self)
+    tuple (the reference engine's `_tbl`, single epoch)."""
+    if isinstance(tab, tuple):
+        return gather_parts_plain(tab, sv, dv)
+    return tab[sv, dv]
+
+
 # ----------------------------------------------------------------------
 # K1 / K4: one phase of pops (reference: engine._step, judge at flush)
 # ----------------------------------------------------------------------
@@ -139,7 +166,7 @@ def pop_plain(state: dict, ob: dict, pops: torch.Tensor, world: dict,
     H = state["head"].shape[0]
     gid = torch.arange(H, dtype=torch.int32, device=dev)
     hv = world["host_vertex"].long()
-    selflat = world["lat"][hv, hv].to(torch.int64)
+    selflat = table_lookup(world["lat"], hv, hv).to(torch.int64)
     for f in OB_FIELDS:
         ob[f].fill_(INF if f == "t" else 0)
     head = state["head"].clone()
@@ -290,8 +317,8 @@ def judge_outbox_plain(state: dict, ob: dict, world: dict, win_end: int,
     dst = hi32(fm)
     srcv = hv[:, None]
     dstv = hv[dst.long().clamp(0, H - 1)]
-    latv = world["lat"][srcv, dstv].to(torch.int64)
-    relv = world["rel"][srcv, dstv]
+    latv = table_lookup(world["lat"], srcv, dstv).to(torch.int64)
+    relv = table_lookup(world["rel"], srcv, dstv)
     # each row's first packet seq: packet_seq is the END of the phase,
     # rows sit in consumption order
     c64 = cnt.long()
@@ -472,35 +499,71 @@ def build_library(ptxas_verbose: bool = False) -> tuple[Path, str]:
     return lib, "".join(log)
 
 
+class TopoArgs(ctypes.Structure):
+    """csrc/topo.cuh `TopoArgs`: which view of the path tables a kernel
+    reads, and its tables (the other view's pointers null)."""
+    _fields_ = [("hier", ctypes.c_int), ("V", ctypes.c_int),
+                ("C", ctypes.c_int)] + [
+        (name, ctypes.c_void_p) for name in (
+            "lat", "rel", "core_lat", "core_rel", "cl", "acc_lat",
+            "acc_rel", "self_lat", "self_rel")]
+
+
+def topo_args(world: dict):
+    """(launch-name suffix, TopoArgs, [(tensor, dtype)] to check) for
+    the world's path tables; raises on tables of the wrong shape."""
+    lat, rel = world["lat"], world["rel"]
+    i32, f32 = torch.int32, torch.float32
+    if isinstance(lat, tuple):
+        cc, cl, acc, slf = lat
+        ccr, cl_r, accr, slfr = rel
+        V, C = cl.shape[0], cc.shape[0]
+        if (cl_r is not cl or cc.shape != (C, C) or ccr.shape != (C, C)
+                or any(t.shape != (V,) for t in (acc, slf, accr, slfr))):
+            raise ValueError("factored tables: need [C,C] cluster pairs, "
+                             "[V] cl/access/self vectors and one shared cl")
+        args = TopoArgs(1, V, C, None, None,
+                        *map(_ptr, (cc, ccr, cl, acc, accr, slf, slfr)))
+        return HIER, args, [(t, i32) for t in (cc, cl, acc, slf)] + \
+            [(t, f32) for t in (ccr, accr, slfr)]
+    V = lat.shape[0]
+    if lat.shape != (V, V) or rel.shape != (V, V):
+        raise ValueError("dense tables: need [V,V] latency and "
+                         "reliability")
+    args = TopoArgs(0, V, 0, _ptr(lat), _ptr(rel))
+    return "", args, [(lat, i32), (rel, f32)]
+
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _U = ctypes.c_uint
+_T = ctypes.POINTER(TopoArgs)
 
 _SIGNATURES = {
     # H, E, K, B, win_end, ht hk hm hv hw, head event_seq packet_seq
-    # app_seq app n_exec n_deliv chk, host_vertex lat V, seed k1 k2,
+    # app_seq app n_exec n_deliv chk, host_vertex topo, seed k1 k2,
     # n_total msgload size selfloop, ob t k m s v, pops, stream
     "shadow_pop_phase": [_I, _I, _I, _I, _L] + [_P] * 5 + [_P] * 8 +
-                        [_P, _P, _I, _U, _U, _I, _I, _I, _I] + [_P] * 5 +
+                        [_P, _T, _U, _U, _I, _I, _I, _I] + [_P] * 5 +
                         [_P, _P],
     # H, E, K, T, P, B, C, win_end, ht hk hm hv hw, head event_seq
-    # packet_seq app n_exec n_deliv chk, host_vertex lat V, count pause
+    # packet_seq app n_exec n_deliv chk, host_vertex topo, count pause
     # retry, npkts last_sz chunk mss, ob t k m s v, pops, stream
     "shadow_pop_tgen": [_I] * 7 + [_L] + [_P] * 5 + [_P] * 7 +
-                       [_P, _P, _I] + [_P] * 3 + [_I] * 4 + [_P] * 5 +
+                       [_P, _T] + [_P] * 3 + [_I] * 4 + [_P] * 5 +
                        [_P, _P],
     # H, E, K, T, P, B, C, win_end, ht hk hm hv hw, head event_seq
-    # packet_seq app n_exec n_deliv chk, host_vertex lat V, count pause
+    # packet_seq app n_exec n_deliv chk, host_vertex topo, count pause
     # retry, relay_gids R, route key k1 k2, cells, ob t k m s v, pops,
     # stream
     "shadow_pop_tor": [_I] * 7 + [_L] + [_P] * 5 + [_P] * 7 +
-                      [_P, _P, _I] + [_P] * 3 + [_P, _I, _U, _U, _I] +
+                      [_P, _T] + [_P] * 3 + [_P, _I, _U, _U, _I] +
                       [_P] * 5 + [_P, _P],
     # H, OB, C, win_end, boot_end, ob t m v, packet_seq n_sent n_drop,
-    # host_vertex lat rel V, seed k1 k2, stream
+    # host_vertex topo, seed k1 k2, stream
     "shadow_judge_outbox": [_I, _I, _I, _L, _L] + [_P] * 3 + [_P] * 3 +
-                           [_P, _P, _P, _I, _U, _U, _P],
+                           [_P, _T, _U, _U, _P],
     # H, OB, ob t m, perm starts counts, scratch cursor block_sums,
     # stream
     "shadow_route": [_I, _I] + [_P] * 2 + [_P] * 3 + [_P] * 3 + [_P],
@@ -509,10 +572,6 @@ _SIGNATURES = {
     "shadow_merge_heaps": [_I, _I, _I, _L] + [_P] * 6 + [_P] * 5 +
                           [_P] * 3 + [_P] * 3 + [_P],
 }
-
-
-def _ptr(t: torch.Tensor) -> int:
-    return t.data_ptr()
 
 
 class Kernels:
@@ -584,7 +643,7 @@ class Kernels:
     def pop(self, state: dict, ob: dict, pops: torch.Tensor, world: dict,
             win_end: int, p: PhaseParams) -> None:
         """The phase's pops: K1 for PHOLD, K4 for tgen, K6 for Tor (the
-        plain pop for each on the CPU)."""
+        plain pop for each on the CPU), on the world's tables."""
         if not state["head"].is_cuda:
             return pop_plain(state, ob, pops, world, win_end, p)
         if isinstance(p.app, TgenDevice):
@@ -604,15 +663,16 @@ class Kernels:
         small = [state[f] for f in ("head", "event_seq", "packet_seq",
                                     "app_seq", "app", "n_exec",
                                     "n_deliv", "chk")]
-        tabs = [world["host_vertex"], world["lat"]]
+        hv = world["host_vertex"]
+        suffix, topo, topo_checks = topo_args(world)
         obs = [ob[f] for f in OB_FIELDS]
         i32, i64 = torch.int32, torch.int64
         self._launch(
-            "pop_phase", "shadow_pop_phase",
+            "pop_phase" + suffix, "shadow_pop_phase",
             [(t, i64) for t in heap + obs] + [(t, i32) for t in small[:7]]
-            + [(small[7], i64), (pops, i32)] + [(t, i32) for t in tabs],
+            + [(small[7], i64), (pops, i32), (hv, i32)] + topo_checks,
             H, p.E, p.K, p.B, int(win_end), *map(_ptr, heap),
-            *map(_ptr, small), *map(_ptr, tabs), world["lat"].shape[0],
+            *map(_ptr, small), _ptr(hv), ctypes.byref(topo),
             p.seed[0], p.seed[1], a.n_hosts_total, a.msgload, a.size,
             a.selfloop, *map(_ptr, obs), _ptr(pops))
 
@@ -646,20 +706,21 @@ class Kernels:
         heap = [state[f] for f in HEAP_FIELDS]
         small = [state[f] for f in ("head", "event_seq", "packet_seq",
                                     "app", "n_exec", "n_deliv")]
-        tabs = [world["host_vertex"], world["lat"]]
+        hv = world["host_vertex"]
+        suffix, topo, topo_checks = topo_args(world)
         args = [world["client_count"], world["client_pause"],
                 world["client_retry"]]
         obs = [ob[f] for f in OB_FIELDS]
         i32, i64 = torch.int32, torch.int64
         self._launch(
-            name, f"shadow_{name}",
+            name + suffix, f"shadow_{name}",
             [(t, i64) for t in heap + obs] + [(t, i32) for t in small]
-            + [(state["chk"], i64), (pops, i32)]
-            + [(t, i32) for t in tabs] + [(args[0], i32)]
-            + [(t, i64) for t in args[1:]] + [(t, i32) for t in app_tensors],
+            + [(state["chk"], i64), (pops, i32), (hv, i32)] + topo_checks
+            + [(args[0], i32)] + [(t, i64) for t in args[1:]]
+            + [(t, i32) for t in app_tensors],
             H, p.E, p.K, p.T, p.P, p.B, p.C, int(win_end),
             *map(_ptr, heap), *map(_ptr, small), _ptr(state["chk"]),
-            *map(_ptr, tabs), world["lat"].shape[0], *map(_ptr, args),
+            _ptr(hv), ctypes.byref(topo), *map(_ptr, args),
             *map(_ptr, app_tensors), *app_scalars, *map(_ptr, obs),
             _ptr(pops))
 
@@ -670,14 +731,14 @@ class Kernels:
         H, OB = ob["t"].shape
         obs = [ob["t"], ob["m"], ob["v"]]
         cnt = [state["packet_seq"], state["n_sent"], state["n_drop"]]
-        tabs = [world["host_vertex"], world["lat"], world["rel"]]
+        hv = world["host_vertex"]
+        suffix, topo, topo_checks = topo_args(world)
         self._launch(
-            "judge_outbox", "shadow_judge_outbox",
+            "judge_outbox" + suffix, "shadow_judge_outbox",
             [(t, torch.int64) for t in obs]
-            + [(t, torch.int32) for t in cnt + tabs[:2]]
-            + [(tabs[2], torch.float32)],
+            + [(t, torch.int32) for t in cnt + [hv]] + topo_checks,
             H, OB, p.C, int(win_end), int(p.boot_end), *map(_ptr, obs),
-            *map(_ptr, cnt), *map(_ptr, tabs), world["lat"].shape[0],
+            *map(_ptr, cnt), _ptr(hv), ctypes.byref(topo),
             p.seed[0], p.seed[1])
 
     def route(self, ob: dict):

@@ -5,7 +5,10 @@ supervision, capacity planning or a compile cache).
 It builds the engine from a config with the reference's knobs (the
 burst width of `experimental.burst_pops`, the outbox floored at 8 pop
 iterations of lanes, 4 where bursts drain backlogs, the lookahead from
-the runahead or the minimum path latency), runs to the stop time and
+the runahead or the minimum path latency, the path tables in the
+topology's representation), admits it against the device's memory
+(`experimental.admission`, device/capacity.py) before anything is
+allocated on the device, runs to the stop time and
 returns the SimStats totals plus the per-host `events_executed` and
 `trace_checksum` arrays, and for tgen and Tor the downloads completed.
 """
@@ -19,13 +22,18 @@ from typing import Optional
 import numpy as np
 
 from shadow_tpu_torch.config.schema import ConfigOptions
-from shadow_tpu_torch.core.build import build
+from shadow_tpu_torch.core.build import BuiltSimulation, build
+from shadow_tpu_torch.device import capacity
 from shadow_tpu_torch.device.engine import (
     DeviceEngine,
     EngineConfig,
+    phase_params,
+    resolve_device,
     state_to_numpy,
+    world_arrays,
 )
 from shadow_tpu_torch.device.kernels import Kernels
+from shadow_tpu_torch.topology.hierarchy import world_tables
 
 STAT_KEYS = ("n_exec", "n_sent", "n_drop", "n_deliv", "chk", "overflow",
              "x_overflow", "app")
@@ -48,6 +56,8 @@ class SimStats:
     x_overflow: int = 0
     # tgen and Tor: downloads completed (the app's `downloads`)
     downloads_completed: Optional[int] = None
+    # the preflight admission verdict (capacity.admission_verdict)
+    admission: Optional[dict] = field(default=None, repr=False)
 
     def summary(self) -> str:
         downloads = ("" if self.downloads_completed is None else
@@ -59,10 +69,9 @@ class SimStats:
                 f"{self.rounds} rounds")
 
 
-def make_engine(cfg: ConfigOptions, device="cuda",
-                kernels: Optional[Kernels] = None):
-    """(engine, built simulation) for a config inside the slice."""
-    sim = build(cfg)
+def engine_config(cfg: ConfigOptions, sim: BuiltSimulation) -> EngineConfig:
+    """The engine's shape from the config and the built simulation;
+    sets the app's burst width."""
     xp = cfg.experimental
     if xp.burst_pops:
         if xp.burst_pops > 1 and sim.app.burst_pops <= 1:
@@ -74,22 +83,49 @@ def make_engine(cfg: ConfigOptions, device="cuda",
     burst = max(1, sim.app.burst_pops)
     per_iter = sim.app.max_sends * burst + sim.app.max_timers
     outbox = max(xp.outbox_capacity, (4 if burst > 1 else 8) * per_iter)
-    engine = DeviceEngine(
-        EngineConfig(
-            n_hosts=len(sim.host_vertex),
-            event_capacity=xp.event_capacity,
-            outbox_capacity=outbox,
-            lookahead=max(1, sim.lookahead),
-            stop_time=cfg.general.stop_time,
-            bootstrap_end=cfg.general.bootstrap_end_time,
-            seed=cfg.general.seed,
-            exchange_in_capacity=xp.exchange_in_capacity,
-        ),
-        sim.app, host_vertex=sim.host_vertex,
-        latency_ns=sim.topology.latency_ns,
-        reliability=sim.topology.reliability,
-        device=device, kernels=kernels)
-    return engine, sim
+    return EngineConfig(
+        n_hosts=len(sim.host_vertex),
+        event_capacity=xp.event_capacity,
+        outbox_capacity=outbox,
+        lookahead=max(1, sim.lookahead),
+        stop_time=cfg.general.stop_time,
+        bootstrap_end=cfg.general.bootstrap_end_time,
+        seed=cfg.general.seed,
+        exchange_in_capacity=xp.exchange_in_capacity)
+
+
+def admit(cfg: ConfigOptions, sim: BuiltSimulation, config: EngineConfig,
+          device) -> dict:
+    """The preflight admission verdict of a built run on `device`,
+    from shapes and host arrays alone (nothing is allocated on the
+    device); raises ValueError where `admission: strict` refuses."""
+    lat, rel = world_tables(sim.topology)
+    est = capacity.footprint(
+        config.n_hosts, phase_params(config, sim.app),
+        world_arrays(config.n_hosts, sim.app, sim.host_vertex, lat, rel))
+    return capacity.admission_verdict(est, resolve_device(device),
+                                      cfg.experimental)
+
+
+def make_engine(cfg: ConfigOptions, device="cuda",
+                kernels: Optional[Kernels] = None):
+    """(engine, built simulation) for a config inside the slice."""
+    sim = build(cfg)
+    return engine_from(cfg, sim, device, kernels), sim
+
+
+def engine_from(cfg: ConfigOptions, sim: BuiltSimulation, device="cuda",
+                kernels: Optional[Kernels] = None) -> DeviceEngine:
+    """The engine of a built simulation; its `admission` holds the
+    verdict, reached before the engine allocates anything."""
+    config = engine_config(cfg, sim)
+    verdict = admit(cfg, sim, config, device)
+    lat, rel = world_tables(sim.topology)
+    engine = DeviceEngine(config, sim.app, host_vertex=sim.host_vertex,
+                          latency_ns=lat, reliability=rel, device=device,
+                          kernels=kernels)
+    engine.admission = verdict
+    return engine
 
 
 def run(cfg: ConfigOptions, device="cuda",
@@ -111,5 +147,6 @@ def run(cfg: ConfigOptions, device="cuda",
         overflow=int(final["overflow"].sum()),
         x_overflow=int(final["x_overflow"].sum()))
     stats.downloads_completed = engine.app.downloads(final["app"])
+    stats.admission = engine.admission
     stats.ok = stats.overflow == 0 and stats.x_overflow == 0
     return stats

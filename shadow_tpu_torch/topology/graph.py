@@ -1,8 +1,11 @@
-"""Network topology as dense arrays (the port's copy of the reference
-package's topology/graph.py, cut to the dense representation).
+"""Network topology (the port's copy of the reference package's
+topology/graph.py, without fault epochs).
 
-All-pairs latency and reliability matrices are computed once at load
-time, so every per-packet lookup on the card is a [V,V] gather.
+All-pairs latency and reliability tables are computed once at load
+time, in one of two representations (`network.topology.representation`):
+dense [V,V] matrices, so every per-packet lookup on the card is one
+gather, or cluster-factored tables (topology/hierarchy.py) on
+hub-and-spoke graphs, looked up in two levels.
 
 Semantics kept from the reference:
 
@@ -18,19 +21,32 @@ Semantics kept from the reference:
 * reliability of a multi-edge path is the product of per-edge
   (1 - packet_loss).
 
-`representation: hierarchical` (factored tables) is a later item of
-the port and is refused by the config check (core/build.py).
+The factored form is built by `build_hier_tables` and chosen by
+`Topology._compute_paths`: `hierarchical` is a hard error on a graph
+that does not factor or (V <= HIER_VERIFY_MAX_V) whose factored tables
+differ from the dense ones by one bit; `auto` falls back to dense with
+a log line there, and where factoring would not shrink the tables.
 """
 
 from __future__ import annotations
 
+import logging
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 
 from shadow_tpu_torch import simtime
 from shadow_tpu_torch.config.units import parse_bandwidth_bits, parse_time_ns
 from shadow_tpu_torch.topology.gml import GmlError, GmlGraph, parse_gml
+from shadow_tpu_torch.topology.hierarchy import (
+    HIER_VERIFY_MAX_V,
+    HierTables,
+)
+
+log = logging.getLogger("shadow_tpu_torch.topology")
+
+REPRESENTATIONS = ("dense", "hierarchical", "auto")
 
 ONE_GBIT_SWITCH_GML = """graph [
   directed 0
@@ -73,6 +89,128 @@ def dense_adjacency(n_vertices: int, directed: bool,
         if not directed:
             _store(d, s, l, r)
     return lat, rel
+
+
+def sparse_min_adjacency(n_vertices: int, directed: bool,
+                         edge_src: np.ndarray, edge_dst: np.ndarray,
+                         edge_latency_ns: np.ndarray,
+                         edge_reliability: np.ndarray
+                         ) -> tuple[np.ndarray, np.ndarray,
+                                    np.ndarray, np.ndarray]:
+    """Sparse twin of dense_adjacency: (v, u, lat, rel) with one row per
+    ordered vertex pair that has an edge, under dense_adjacency's
+    parallel-edge rule (the first edge reaching the least latency, in
+    its store order, wins). O(E log E); never materializes [V,V]."""
+    esrc = np.asarray(edge_src, np.int64)
+    edst = np.asarray(edge_dst, np.int64)
+    elat = np.asarray(edge_latency_ns, np.int64)
+    erel = np.asarray(edge_reliability, np.float32)
+    order = np.arange(len(esrc), dtype=np.int64)
+    if directed:
+        v, u, l, r, o = esrc, edst, elat, erel, 2 * order
+    else:
+        # the store of (s, d) precedes that of (d, s) within an edge
+        v = np.concatenate([esrc, edst])
+        u = np.concatenate([edst, esrc])
+        l = np.concatenate([elat, elat])
+        r = np.concatenate([erel, erel])
+        o = np.concatenate([2 * order, 2 * order + 1])
+    key = v * np.int64(n_vertices) + u
+    idx = np.lexsort((o, l, key))
+    key_s = key[idx]
+    first = np.ones(len(key_s), dtype=bool)
+    first[1:] = key_s[1:] != key_s[:-1]
+    sel = idx[first]
+    return v[sel], u[sel], l[sel], r[sel]
+
+
+def build_hier_tables(top: "Topology") -> HierTables:
+    """Factor a topology into cluster tables.
+
+    Spokes are vertices with exactly one distinct non-self neighbour
+    whose own degree exceeds one; every other vertex is a hub and its
+    own cluster. Spokes are dead ends, so every shortest path is
+    access + hub path + access, and hub-to-hub shortest paths never
+    pass a spoke: the [C,C] tables are the dense pipeline on the hub
+    subgraph alone. Raises GmlError when the graph cannot take the
+    factored form (directed, or direct-edge-only routing)."""
+    if top.directed:
+        raise GmlError("hierarchical representation requires an "
+                       "undirected graph")
+    if not top.use_shortest_path:
+        raise GmlError("hierarchical representation requires "
+                       "use_shortest_path: true (direct-edge-only "
+                       "routing does not factor)")
+    V = top.n_vertices
+    av, au, alat, arel = sparse_min_adjacency(
+        V, False, top.edge_src, top.edge_dst,
+        top.edge_latency_ns, top.edge_reliability)
+
+    off = av != au
+    ov, ou = av[off], au[off]
+    olat, orel = alat[off], arel[off]
+    deg = np.bincount(ov, minlength=V)        # distinct neighbours
+    nbr_of = np.full(V, 0, dtype=np.int64)
+    nbr_of[ov] = ou                           # exact where deg == 1
+    spoke = (deg == 1) & (deg[nbr_of] > 1)
+
+    hub_vertex = np.nonzero(~spoke)[0].astype(np.int64)
+    C = len(hub_vertex)
+    hub_rank = np.full(V, -1, dtype=np.int64)
+    hub_rank[hub_vertex] = np.arange(C, dtype=np.int64)
+    cl = hub_rank.copy()
+    cl[spoke] = hub_rank[nbr_of[spoke]]
+
+    # access terms: the spoke's reduced edge to its hub
+    acc_lat = np.zeros(V, dtype=np.int64)
+    acc_rel = np.ones(V, dtype=np.float32)
+    m = spoke[ov]
+    acc_lat[ov[m]] = olat[m]
+    acc_rel[ov[m]] = orel[m]
+
+    # cluster tables: dense shortest paths over the hubs alone
+    if C == 1:
+        cc_lat = np.zeros((1, 1), dtype=np.int64)
+        cc_rel = np.ones((1, 1), dtype=np.float32)
+    else:
+        hub_edge = (~spoke)[top.edge_src] & (~spoke)[top.edge_dst]
+        hsrc = hub_rank[np.asarray(top.edge_src)[hub_edge]]
+        hdst = hub_rank[np.asarray(top.edge_dst)[hub_edge]]
+        rv, ru, rl, rr = sparse_min_adjacency(
+            C, False, hsrc, hdst,
+            np.asarray(top.edge_latency_ns)[hub_edge],
+            np.asarray(top.edge_reliability)[hub_edge])
+        dlat = np.zeros((C, C), dtype=np.int64)
+        drel = np.zeros((C, C), dtype=np.float32)
+        dlat[rv, ru] = rl
+        drel[rv, ru] = rr
+        # a disconnected hub subgraph would contradict the full graph's
+        # connectivity; _all_pairs_shortest raises if it ever happens
+        cc_lat, cc_rel = _all_pairs_shortest(dlat, drel)
+    np.fill_diagonal(cc_lat, 0)               # transit identity; true
+    np.fill_diagonal(cc_rel, 1.0)             # self paths below
+
+    # self vectors: the dense self-path rule (self-loop as-is, else the
+    # cheapest incident edge out and back), least (lat, rel) first
+    cand_v = av
+    cand_lat = np.where(av == au, alat, 2 * alat)
+    cand_rel = np.where(av == au, arel, (arel * arel).astype(np.float32))
+    order = np.lexsort((cand_rel.astype(np.float64), cand_lat, cand_v))
+    sv_, sl_, sr_ = cand_v[order], cand_lat[order], cand_rel[order]
+    firstv = np.ones(len(sv_), dtype=bool)
+    firstv[1:] = sv_[1:] != sv_[:-1]
+    # no incident edge at all: the dense zero-latency clamp value
+    self_lat = np.full(V, _MIN_PATH_LATENCY_NS, dtype=np.int64)
+    self_rel = np.ones(V, dtype=np.float32)
+    self_lat[sv_[firstv]] = sl_[firstv]
+    self_rel[sv_[firstv]] = sr_[firstv]
+
+    return HierTables(
+        cluster_lat=cc_lat.astype(np.int64),
+        cluster_rel=cc_rel.astype(np.float32),
+        cl=cl.astype(np.int32), hub_vertex=hub_vertex,
+        acc_lat=acc_lat, acc_rel=acc_rel,
+        self_lat=self_lat, self_rel=self_rel)
 
 
 def compute_path_matrices(direct_lat: np.ndarray, direct_rel: np.ndarray,
@@ -191,8 +329,12 @@ class Topology:
     edge_dst: np.ndarray
     edge_latency_ns: np.ndarray     # [E] int64
     edge_reliability: np.ndarray    # [E] float32 (1 - packet_loss)
-    latency_ns: np.ndarray          # [V,V] int64 path latency
-    reliability: np.ndarray         # [V,V] float32 path reliability
+    # dense: [V,V] int64 path latency and float32 path reliability;
+    # hierarchical: both None, the factored tables are in `hier`
+    latency_ns: Optional[np.ndarray]
+    reliability: Optional[np.ndarray]
+    representation: str = "dense"
+    hier: Optional[HierTables] = None
 
     @property
     def n_vertices(self) -> int:
@@ -201,7 +343,22 @@ class Topology:
     @property
     def min_latency_ns(self) -> int:
         """Minimum path latency: the conservative lookahead window."""
+        if self.hier is not None:
+            return self.hier.min_latency_ns()
         return int(self.latency_ns.min())
+
+    def path(self, src_vertex: int, dst_vertex: int) -> tuple[int, float]:
+        """(latency_ns, reliability) in either representation."""
+        if self.hier is not None:
+            return self.hier.lookup(src_vertex, dst_vertex)
+        return (int(self.latency_ns[src_vertex, dst_vertex]),
+                float(self.reliability[src_vertex, dst_vertex]))
+
+    def table_nbytes(self) -> int:
+        """Bytes of the path tables this representation holds."""
+        if self.hier is not None:
+            return self.hier.nbytes()
+        return int(self.latency_ns.nbytes + self.reliability.nbytes)
 
     def vertex_index_for_id(self, gml_id: int) -> int:
         idx = np.nonzero(self.vertex_ids == gml_id)[0]
@@ -210,17 +367,20 @@ class Topology:
         return int(idx[0])
 
     @classmethod
-    def from_gml(cls, text: str,
-                 use_shortest_path: bool = True) -> "Topology":
-        return cls.from_parsed(parse_gml(text), use_shortest_path)
+    def from_gml(cls, text: str, use_shortest_path: bool = True,
+                 representation: str = "dense") -> "Topology":
+        return cls.from_parsed(parse_gml(text), use_shortest_path,
+                               representation)
 
     @classmethod
-    def builtin_1_gbit_switch(cls) -> "Topology":
-        return cls.from_gml(ONE_GBIT_SWITCH_GML, use_shortest_path=True)
+    def builtin_1_gbit_switch(cls, representation: str = "dense"
+                              ) -> "Topology":
+        return cls.from_gml(ONE_GBIT_SWITCH_GML, use_shortest_path=True,
+                            representation=representation)
 
     @classmethod
-    def from_parsed(cls, g: GmlGraph,
-                    use_shortest_path: bool) -> "Topology":
+    def from_parsed(cls, g: GmlGraph, use_shortest_path: bool,
+                    representation: str = "dense") -> "Topology":
         V = len(g.nodes)
         if V == 0:
             raise GmlError("graph has no vertices")
@@ -277,9 +437,7 @@ class Topology:
             raise GmlError("use_shortest_path=false requires a complete "
                            "graph (every ordered vertex pair needs a "
                            "direct edge)")
-        direct_lat, direct_rel = top._adjacency()
-        top.latency_ns, top.reliability = compute_path_matrices(
-            direct_lat, direct_rel, use_shortest_path)
+        top._compute_paths(representation)
         return top
 
     def _adjacency(self) -> tuple[np.ndarray, np.ndarray]:
@@ -325,3 +483,72 @@ class Topology:
         lat, _ = self._adjacency()
         off_diag = ~np.eye(V, dtype=bool)
         return bool((lat[off_diag] > 0).all())
+
+    def _compute_dense(self) -> None:
+        direct_lat, direct_rel = self._adjacency()
+        self.latency_ns, self.reliability = compute_path_matrices(
+            direct_lat, direct_rel, self.use_shortest_path)
+        self.representation = "dense"
+        self.hier = None
+
+    def _compute_paths(self, representation: str = "dense") -> None:
+        """The path tables in the requested representation: `dense`
+        [V,V] matrices; `hierarchical` factored tables, a GmlError on a
+        graph that does not factor or (V <= HIER_VERIFY_MAX_V) whose
+        factored tables differ from the dense ones; `auto` factored
+        where that works and shrinks the tables, dense with a log line
+        otherwise."""
+        if representation not in REPRESENTATIONS:
+            raise GmlError(
+                f"network.topology.representation must be one of "
+                f"{REPRESENTATIONS}, got {representation!r}")
+        if representation == "dense":
+            self._compute_dense()
+            return
+        try:
+            ht = build_hier_tables(self)
+        except GmlError as why:
+            if representation == "hierarchical":
+                raise GmlError(
+                    "network.topology.representation: hierarchical, "
+                    f"but this graph does not factor: {why}") from why
+            log.info("topology representation auto: dense fallback "
+                     "(%s)", why)
+            self._compute_dense()
+            return
+        if representation == "auto" and ht.n_clusters >= self.n_vertices:
+            log.info("topology representation auto: dense (no spokes "
+                     "— factoring would not shrink the tables, "
+                     "C=%d == V=%d)", ht.n_clusters, self.n_vertices)
+            self._compute_dense()
+            return
+        if self.n_vertices <= HIER_VERIFY_MAX_V:
+            # bit-exact verification against the dense pipeline
+            direct_lat, direct_rel = self._adjacency()
+            dlat, drel = compute_path_matrices(
+                direct_lat, direct_rel, self.use_shortest_path)
+            hlat, hrel = ht.dense()
+            if not (np.array_equal(dlat, hlat)
+                    and np.array_equal(drel, hrel)):
+                if representation == "hierarchical":
+                    raise GmlError(
+                        "hierarchical tables do not reproduce the "
+                        "dense path matrices bit for bit (equal-cost "
+                        "multipath tie-break or a float32 "
+                        "reliability product that does not factor) — "
+                        "use representation: dense or auto")
+                log.info("topology representation auto: dense "
+                         "fallback (factored tables failed the "
+                         "bit-exact verification)")
+                self.latency_ns, self.reliability = dlat, drel
+                self.representation = "dense"
+                self.hier = None
+                return
+        self.hier = ht
+        self.representation = "hierarchical"
+        self.latency_ns = None
+        self.reliability = None
+        log.info("topology representation hierarchical: V=%d C=%d "
+                 "table bytes %d (dense would be %d)",
+                 self.n_vertices, ht.n_clusters, ht.nbytes(),
+                 12 * self.n_vertices ** 2)

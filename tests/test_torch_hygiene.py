@@ -84,8 +84,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     ("experimental.model_bandwidth=true", "queue (a) item 8"),
     ("experimental.exchange=two_phase", "queue (a) item 9"),
     ("experimental.scheduler_policy=serial", "queue (a) item 10"),
-    ("network.topology={representation: hierarchical}",
-     "queue (a) item 8"),
+    ("network.faults=[{kind: link_down, time: 100ms, source: 0, "
+     "target: 1}]", "queue (a) item 8"),
     ("experimental.checkpoint_save=run.npz", "queue (a) item 7"),
 ])
 def test_configs_outside_the_slice_are_refused_by_roadmap_item(
