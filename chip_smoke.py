@@ -7,8 +7,10 @@
 Phases, in order; any failure exits non-zero before the last line:
 
 1. build: print the card's name and power limit (nvidia-smi), the torch
-   and CUDA versions, then build the CUDA kernels (six, the pops and
-   the judge each instantiated on dense and on factored tables) from
+   and CUDA versions, then build the CUDA kernels (seven; the pops and
+   the judge each instantiated on dense and on factored tables, with
+   one epoch and with a fault schedule's epoch axis, the pops also with
+   and without the model NIC) from
    shadow_tpu_torch/csrc/ into shadow_tpu_torch/_build/ (one nvcc per
    source, all started together; timed as set-up; ptxas register and
    shared-memory use is printed).
@@ -45,7 +47,19 @@ Phases, in order; any failure exits non-zero before the last line:
      lossy (PHOLD_1M_HUB_LOSS) so that drops roll, K2's send rows
      retargeted to every kind of pair (same vertex, the sender itself,
      same cluster, another cluster), and K2 again on the tables as
-     shipped; K4 and K6 at their shapes on a factored 6-vertex star.
+     shipped; K4 and K6 at their shapes on a factored 6-vertex star;
+   - the model NIC (`_nic`): K1 at the PHOLD shapes with self-sends and
+     the path counters' DROP_T rows, K4 at tgen_10000's layout and K6 at
+     tor_large's (P = 1, the READY column), on random NIC leaves (idle
+     and standing queues, CoDel on both sides of its target, in and out
+     of its dropping state, its count past the law table) and heaps
+     whose packet rows are half RX stage, half READY;
+   - the epoch axis (`_ep`, six epochs, EPOCH_TIMES): K4 and K2 at
+     tgen_10000's layout on its dense tables stacked over the epochs,
+     K4 on a factored star stacked the same way, and K1 and K2 on
+     phold_1m_hier_faults' own six factored epochs at 1,000,000 hosts;
+   - K7 count_paths on 3,900,000 outbox rows over 256 vertices (V*V =
+     65,536), beside torch.bincount on the same pairs and weights.
 3. parity: on the card and on the CPU plain path, totals, rounds and
    per-host events_executed / trace_checksum (and downloads) must be
    identical: the PHOLD test shape at 2 x 1,000 hosts, loss 0.01, 1 s;
@@ -54,7 +68,11 @@ Phases, in order; any failure exits non-zero before the last line:
    with its stop_time cut to TOR_PARITY_STOP (past its 5 s bootstrap,
    so drops roll); and STAR_PARITY_YAML (a star_clusters tgen run cut
    from examples/tgen_1000000.yaml's shape) four ways: card and CPU,
-   hierarchical and dense tables.
+   hierarchical and dense tables; then the model NIC (PHOLD with the
+   path counters, tgen, Tor, each on constrained links), tests/
+   test_faults.py's link-fault config with the path counters, and
+   examples/tgen_faults_hier.yaml's link faults (card hierarchical ==
+   card dense == CPU), the path counters compared too.
 4. full: through the port's CLI entry function on the card, each run
    with the kernel launch counts set to 0 just before and read just
    after; fails on any overflow or on a kernel of the path that never
@@ -65,9 +83,12 @@ Phases, in order; any failure exits non-zero before the last line:
    examples/tor_small.yaml as shipped (250 hosts, 60 s) and
    examples/tor_large.yaml as shipped (56,000 hosts, 60 s); and
    PHOLD_1M_YAML (phold_1m_hier: PHOLD on 1,000,000 hosts on
-   examples/tgen_1000000.yaml's factored topology, 1 s), whose measured
-   peak device memory must lie within capacity.FOOTPRINT_TOLERANCE of
-   its admission estimate.
+   examples/tgen_1000000.yaml's factored topology, 1 s);
+   examples/tgen_10000.yaml under the model NIC and the path counters
+   (tgen_10000_nic); PHOLD_1M_YAML with PHOLD_1M_FAULTS
+   (phold_1m_hier_faults, six factored epochs). Every run must be
+   admitted and its measured peak device memory lie within
+   capacity.FOOTPRINT_TOLERANCE of its admission estimate.
 5. boot: examples/tgen_1000000.yaml as shipped built (timed), admitted
    and booted (engine and init_state) on the card; not run.
 6. the `kernels` JSON line, then the card line, then the result line.
@@ -238,6 +259,178 @@ hosts:
       start_time: 10ms
 """
 
+# phold_1m_hier's link-fault schedule (phold_1m_hier_faults): hubs 0-1
+# degrade x3 latency and +5% loss over 200-500 ms, the access link of
+# spoke 200 (hub 0's first) x2 latency over 300-500 ms, hubs 2-3 down
+# from 400 ms to 600 ms (rerouted through another hub): six epochs
+# starting at 0, 200, 300, 400, 500 and 600 ms; the lookahead stays the
+# 1 ms access latency
+PHOLD_1M_FAULTS = (
+    "network.faults=["
+    "{kind: degrade, time: 200ms, duration: 300ms, source: 0, target: 1,"
+    " latency_multiplier: 3, extra_packet_loss: 0.05},"
+    "{kind: degrade, time: 300ms, duration: 200ms, source: 0,"
+    " target: 200, latency_multiplier: 2},"
+    "{kind: link_down, time: 400ms, source: 2, target: 3},"
+    "{kind: link_up, time: 600ms, source: 2, target: 3}]")
+# examples/tgen_10000.yaml under the model NIC and the path counters
+# (tgen_10000_nic); bursts are off there (P = 1), and the shipped
+# capacities hold
+TGEN_NIC = ("experimental.model_bandwidth=true",
+            "experimental.count_paths=true")
+
+# tests/test_model_nic.py's config at 2 Mbit and loss 0.05 (CoDel drops
+# and drop rolls both), with the path counters
+NIC_PHOLD_YAML = """
+general: {stop_time: 3s, seed: 3}
+network:
+  graph:
+    type: gml
+    inline: |
+      graph [
+        directed 0
+        node [ id 0 bandwidth_down "2 Mbit" bandwidth_up "2 Mbit" ]
+        node [ id 1 bandwidth_down "2 Mbit" bandwidth_up "2 Mbit" ]
+        edge [ source 0 target 0 latency "10 ms" packet_loss 0.05 ]
+        edge [ source 0 target 1 latency "10 ms" packet_loss 0.05 ]
+        edge [ source 1 target 1 latency "10 ms" packet_loss 0.05 ]
+      ]
+experimental:
+  scheduler_policy: tpu
+  model_bandwidth: true
+  count_paths: true
+  event_capacity: 96
+  outbox_capacity: 48
+hosts:
+  left:
+    quantity: 8
+    network_node_id: 0
+    processes: [{path: model:phold, args: msgload=3 size=4096,
+                 start_time: 10ms}]
+  right:
+    quantity: 8
+    network_node_id: 1
+    processes: [{path: model:phold, args: msgload=3 size=4096,
+                 start_time: 10ms}]
+"""
+# a tgen server and 20 clients whose downlink (2 Mbit) is slower than
+# the server's uplink (20 Mbit): chunks queue at the clients, retries
+# pile on, lossy paths; 3 s (tests/test_torch_nic.py's config with 20
+# clients, not 4)
+NIC_TGEN_YAML = """
+general: {stop_time: 3s, seed: 4}
+network:
+  graph:
+    type: gml
+    inline: |
+      graph [ directed 0
+        node [ id 0 bandwidth_down "1 Gbit" bandwidth_up "1 Gbit" ]
+        node [ id 1 bandwidth_down "1 Gbit" bandwidth_up "1 Gbit" ]
+        edge [ source 0 target 0 latency "10 ms" packet_loss 0.1 ]
+        edge [ source 0 target 1 latency "20 ms" packet_loss 0.1 ]
+        edge [ source 1 target 1 latency "10 ms" packet_loss 0.1 ] ]
+experimental: {scheduler_policy: tpu, model_bandwidth: true,
+               event_capacity: 128, outbox_capacity: 64}
+hosts:
+  server:
+    network_node_id: 0
+    bandwidth_up: 20 Mbit
+    processes: [{path: model:tgen_server, start_time: 10ms}]
+  client:
+    quantity: 20
+    network_node_id: 1
+    bandwidth_down: 2 Mbit
+    processes:
+    - {path: model:tgen_client, start_time: 100ms,
+       args: server=server size=100KiB count=2 pause=200ms retry=300ms}
+"""
+# tests/test_torch_nic.py's Tor config (16 relays, 32 clients whose
+# vertex has a 1 Mbit downlink, loss 0.05, retries), 8 s
+NIC_TOR_YAML = """
+general: {stop_time: 8s, seed: 1}
+network:
+  graph:
+    type: gml
+    inline: |
+      graph [
+        directed 0
+        node [ id 0 bandwidth_down "1 Gbit" bandwidth_up "1 Gbit" ]
+        node [ id 1 bandwidth_down "1 Mbit" bandwidth_up "1 Gbit" ]
+        edge [ source 0 target 0 latency "20 ms" packet_loss 0.05 ]
+        edge [ source 0 target 1 latency "40 ms" packet_loss 0.05 ]
+        edge [ source 1 target 1 latency "20 ms" packet_loss 0.05 ]
+      ]
+experimental:
+  scheduler_policy: tpu
+  model_bandwidth: true
+  event_capacity: 96
+  outbox_capacity: 48
+hosts:
+  relay:
+    quantity: 16
+    network_node_id: 0
+    processes: [{path: model:tor_relay, start_time: 100ms}]
+  client:
+    quantity: 32
+    network_node_id: 1
+    processes:
+    - {path: model:tor_client, start_time: 1s,
+       args: cells=48 count=2 pause=500ms retry=2s}
+"""
+# tests/test_faults.py's FAULT_YAML with its LINK_FAULTS, on the tpu
+# policy, with the path counters
+FAULT_YAML = """
+general: {stop_time: 8s, seed: 3}
+network:
+  graph:
+    type: gml
+    inline: |
+      graph [ directed 0
+        node [ id 0 bandwidth_down "1 Gbit" bandwidth_up "1 Gbit" ]
+        node [ id 1 bandwidth_down "1 Gbit" bandwidth_up "1 Gbit" ]
+        edge [ source 0 target 0 latency "10 ms" packet_loss 0.0 ]
+        edge [ source 0 target 1 latency "20 ms" packet_loss 0.0 ]
+        edge [ source 1 target 1 latency "10 ms" packet_loss 0.0 ]
+      ]
+  faults:
+    - {kind: degrade, time: 2500ms, duration: 1s, source: 0,
+       target: 1, latency_multiplier: 3, extra_packet_loss: 0.2}
+    - {kind: link_down, time: 4s, source: 0, target: 1}
+    - {kind: link_up, time: 5s, source: 0, target: 1}
+experimental:
+  scheduler_policy: tpu
+  count_paths: true
+  event_capacity: 256
+  outbox_capacity: 256
+hosts:
+  server:
+    network_node_id: 0
+    processes:
+    - path: model:tgen_server
+      start_time: 10ms
+  client:
+    quantity: 3
+    network_node_id: 1
+    processes:
+    - path: model:tgen_client
+      args: server=server size=200KiB count=40 pause=50ms retry=300ms
+      start_time: 100ms
+"""
+# examples/tgen_faults_hier.yaml on the tpu policy with its link faults
+# alone (its host crash and restart go to the hybrid policy, not
+# ported), cut to FAULTS_HIER_STOP
+FAULTS_HIER_STOP = "8s"
+FAULTS_HIER = [
+    "experimental.scheduler_policy=tpu",
+    f"general.stop_time={FAULTS_HIER_STOP}",
+    "network.faults=["
+    "{kind: degrade, time: 2s, duration: 1s, source: 0, target: 1,"
+    " latency_multiplier: 3, extra_packet_loss: 0.05},"
+    "{kind: degrade, time: 4s, duration: 1s, source: 0, target: 2,"
+    " latency_multiplier: 2},"
+    "{kind: link_down, time: 6s, source: 0, target: 1},"
+    "{kind: link_up, time: 7s, source: 0, target: 1}]"]
+
 REPLACES = {
     "pop_phase": "shadow_tpu/device/engine.py:737",
     "pop_tgen": "shadow_tpu/device/engine.py:742",
@@ -249,6 +442,18 @@ REPLACES = {
     # (engine.py:1428-1430) and the pop's self latency (engine.py:1186)
     "judge_outbox_hier": "shadow_tpu/topology/hierarchy.py:192",
     "pop_phase_hier": "shadow_tpu/device/engine.py:1186",
+    # the model_bandwidth branch of _step, fused into each pop
+    "pop_phase_nic": "shadow_tpu/device/engine.py:1008",
+    "pop_tgen_nic": "shadow_tpu/device/engine.py:1008",
+    "pop_tor_nic": "shadow_tpu/device/engine.py:1008",
+    # _tbl/_ep_of with the epoch axis: the judge's lookup and the pop's
+    # self latency, dense and factored (gather_parts with e)
+    "judge_outbox_ep": "shadow_tpu/device/engine.py:638",
+    "pop_tgen_ep": "shadow_tpu/device/engine.py:1186",
+    "judge_outbox_ep_hier": "shadow_tpu/topology/hierarchy.py:192",
+    "pop_tgen_ep_hier": "shadow_tpu/device/engine.py:1186",
+    "pop_phase_ep_hier": "shadow_tpu/device/engine.py:1186",
+    "count_paths": "shadow_tpu/device/engine.py:1327",
 }
 SOURCES = {
     "pop_phase": "shadow_tpu_torch/csrc/pop_phase.cu",
@@ -259,7 +464,22 @@ SOURCES = {
     "merge_heaps": "shadow_tpu_torch/csrc/merge_heaps.cu",
     "judge_outbox_hier": "shadow_tpu_torch/csrc/judge_outbox.cu",
     "pop_phase_hier": "shadow_tpu_torch/csrc/pop_phase.cu",
+    "pop_phase_nic": "shadow_tpu_torch/csrc/pop_phase.cu",
+    "pop_tgen_nic": "shadow_tpu_torch/csrc/pop_phase.cu",
+    "pop_tor_nic": "shadow_tpu_torch/csrc/pop_phase.cu",
+    "judge_outbox_ep": "shadow_tpu_torch/csrc/judge_outbox.cu",
+    "pop_tgen_ep": "shadow_tpu_torch/csrc/pop_phase.cu",
+    "judge_outbox_ep_hier": "shadow_tpu_torch/csrc/judge_outbox.cu",
+    "pop_tgen_ep_hier": "shadow_tpu_torch/csrc/pop_phase.cu",
+    "pop_phase_ep_hier": "shadow_tpu_torch/csrc/pop_phase.cu",
+    "count_paths": "shadow_tpu_torch/csrc/count_paths.cu",
 }
+# the kernels line's rows, in order
+ROWS = ("pop_phase", "pop_tgen", "pop_tor", "judge_outbox", "route",
+        "merge_heaps", "pop_phase_hier", "judge_outbox_hier",
+        "pop_phase_nic", "pop_tgen_nic", "pop_tor_nic", "judge_outbox_ep",
+        "pop_tgen_ep", "judge_outbox_ep_hier", "pop_tgen_ep_hier",
+        "pop_phase_ep_hier", "count_paths")
 
 
 class SmokeFailure(Exception):
@@ -429,6 +649,7 @@ def phold_kernels(torch, K, scratch, rng, H, dev, world=None,
                                 dtype=torch.int32, device=dev),
             "rel": torch.tensor([[0.98, 0.9], [0.9, 0.98]],
                                 dtype=torch.float32, device=dev),
+            "epoch_times": torch.zeros(1, dtype=torch.int64, device=dev),
         }
     win_end = 10**9
     state0 = random_state(rng, H, E, dev)
@@ -499,11 +720,13 @@ def phold_kernels(torch, K, scratch, rng, H, dev, world=None,
         out["judge_outbox"] = judge_case(
             torch, K, scratch, state_k1, ob_k1, world, win_end, p, H, OB,
             pairs)
-        err, sk = judge_compare(torch, K, scratch, state_k1, ob_k1,
-                                lossless, win_end, p)
-        check(bool((sk["n_drop"] == state_k1["n_drop"]).all()),
-              "judge_outbox on lossless factored tables dropped a packet")
-        out["judge_outbox"]["err_on_shipped_tables"] = err
+        if lossless is not None:
+            err, sk = judge_compare(torch, K, scratch, state_k1, ob_k1,
+                                    lossless, win_end, p)
+            check(bool((sk["n_drop"] == state_k1["n_drop"]).all()),
+                  "judge_outbox on lossless factored tables dropped a "
+                  "packet")
+            out["judge_outbox"]["err_on_shipped_tables"] = err
         return out
     # K2 on K1's real outbox
     out["judge_outbox"] = judge_case(torch, K, scratch, state_k1, ob_k1,
@@ -581,7 +804,8 @@ def retarget(torch, K, ob, world, rng):
     H, OB = ob["t"].shape
     dev = hv.device
     host_cl = cl[hv]
-    C = int(world["lat"][0].shape[0])
+    C = int(world["lat"][0].shape[-1])
+    T = int(world["epoch_times"].shape[0])
     order = torch.argsort(host_cl, stable=True)
     counts = torch.bincount(host_cl, minlength=C)
     starts = torch.cumsum(counts, 0) - counts
@@ -619,7 +843,7 @@ def retarget(torch, K, ob, world, rng):
     touched = torch.unique(torch.cat([sv_[send], dv_[send]]))
     selfv = torch.unique(sv_[same_v])
     kinds["table_bytes"] = int(touched.numel() * 12 + selfv.numel() * 8
-                               + C * C * 8)
+                               + C * C * 8 * T)
     return kinds
 
 
@@ -876,6 +1100,7 @@ def tgen_inputs(torch, K, rng, H, E, dev):
         "lat": torch.from_numpy(lat.astype(np.int32)).to(dev),
         "rel": torch.from_numpy(rng.uniform(0.9, 0.999, (V, V)).astype(
             np.float32)).to(dev),
+        "epoch_times": torch.zeros(1, dtype=torch.int64, device=dev),
         **{k: torch.from_numpy(v.copy()).to(dev)
            for k, v in app.world_columns().items()}}
     p = K.PhaseParams(E=E, K=8, T=1, P=8, B=4, IN=E, C=32,
@@ -889,20 +1114,8 @@ def tgen_kernels(torch, K, scratch, rng, H, dev):
     state0, world, p, win_end = tgen_inputs(torch, K, rng, H, E, dev)
     c = pop_case(torch, K, scratch, "pop_tgen", state0, world, p, win_end,
                  dev)
-    OB, sk, obk, err = p.OB, c["state"], c["ob"], c["err"]
-    popped, rows = c["popped"], c["rows"]
-    out = {"pop_tgen": finish({
-        "err": err, "ms": c["ms"], "plain_ms": c["plain_ms"],
-        # t of every outbox column, the other four fields of send and
-        # timer rows; the popped heap rows (t, key, meta, d0|d1, d2);
-        # the head time that stopped each host; per-host counters read
-        # and written (head, event/packet seq, n_exec, n_deliv, chk,
-        # seven app words); client args, vertex and pop count
-        "bytes": (H * OB * 8 + rows * 4 * 8 + popped * 5 * 8 + H * 8
-                  + H * (5 * 4 + 8 + 7 * 4) * 2 + H * (4 + 8 + 8)
-                  + H * 4 * 2),
-        "ops": 0,
-        "shape": f"H={H} E={E} P={p.P} OB={OB} {c['counts']}"})}
+    OB, sk, obk = p.OB, c["state"], c["ob"]
+    out = {"pop_tgen": tgen_pop_row(c, p, H)}
     out["pop_tgen"]["on_factored_tables"] = factored_pop(
         torch, K, scratch, "pop_tgen", state0, world, p, win_end, dev)
     # K2 on K4's outbox, then K3, at tgen_10000's layout
@@ -1026,7 +1239,8 @@ def tor_inputs(torch, K, rng, dev):
             rng.integers(0, V, H).astype(np.int32)).to(dev),
         "lat": torch.from_numpy(lat.astype(np.int32)).to(dev),
         "rel": torch.from_numpy(rng.uniform(0.9, 0.999, (V, V)).astype(
-            np.float32)).to(dev)})
+            np.float32)).to(dev),
+        "epoch_times": torch.zeros(1, dtype=torch.int64, device=dev)})
     p = K.PhaseParams(E=E, K=8, T=1, P=8, B=4, IN=64, C=16,
                       boot_end=win_end // 2, seed=seed_key(1), app=app)
     return state, world, p, win_end
@@ -1118,6 +1332,354 @@ def tor_kernels(torch, K, scratch, rng, dev):
     return out
 
 
+def add_nic(torch, K, rng, state, world, win_end, dev):
+    """The model NIC's inputs on one phase's state and world: random
+    NIC leaves around the window (queues idle and standing, CoDel
+    above and below its target, in and out of its dropping state, its
+    count past the law table's end), bandwidths from 100 kbit/s to
+    1 Gbit/s, the law table; and half of the heaps' packet rows turned
+    into READY rows (the second stage), the rest left to the RX
+    stage."""
+    from shadow_tpu_torch.core.event import KIND_PACKET, KIND_PACKET_READY
+    from shadow_tpu_torch.host.model_nic import LAW
+
+    H = state["head"].shape[0]
+    near = rng.integers(win_end // 2, 3 * win_end // 2, (5, H))
+    nic = {
+        "tx_free": np.where(rng.random(H) < 0.5, 0, near[0]),
+        "rx_free": np.where(rng.random(H) < 0.3, 0, near[1]),
+        "cd_fa": np.where(rng.random(H) < 0.4, 0, near[2]),
+        "cd_next": near[3],
+        "cd_cnt": rng.choice(np.array([0, 1, 2, 5, 1023, 1024, 5000]), H),
+        "cd_last": rng.choice(np.array([0, 1, 3, 1000]), H),
+        "cd_drop": rng.integers(0, 2, H)}
+    state = dict(state)
+    for k, v in nic.items():
+        state[k] = torch.from_numpy(v.astype(np.int64)).to(dev)
+    kind = state["hm"] >> 32
+    ready = (kind == KIND_PACKET) & torch.from_numpy(
+        rng.random(tuple(kind.shape)) < 0.5).to(dev)
+    state["hm"] = torch.where(
+        ready, (state["hm"] & K.U32) | (KIND_PACKET_READY << 32),
+        state["hm"])
+    bw = np.array([10**5, 10**6, 10**7, 10**8, 10**9], np.int64)
+    world = {**world, "law": torch.from_numpy(LAW).to(dev),
+             "bw_up": torch.from_numpy(rng.choice(bw, H)).to(dev),
+             "bw_down": torch.from_numpy(rng.choice(bw, H)).to(dev)}
+    return state, world
+
+
+def nic_pop_case(torch, K, scratch, name, state0, world, p, win_end, dev):
+    """A pop under the model NIC (K1, K4 or K6 `_nic`) against the plain
+    pop on one phase's inputs: exact on every state leaf (the NIC's
+    too), outbox field and pop count; READY rows, CoDel drops, dropped
+    sends and a host stopped dirty must all occur. Returns the error,
+    the counts, both times and the bytes the function must move."""
+    from shadow_tpu_torch.device.engine import OPTIONAL_DTYPES, STATE_DTYPES
+
+    H, E, OB, M = state0["head"].shape[0], p.E, p.OB, p.M_out
+    keys = list(STATE_DTYPES) + [k for k in OPTIONAL_DTYPES if k in state0]
+
+    def args():
+        return (clone(state0), {f: torch.empty(
+            (H, OB), dtype=torch.int64, device=dev) for f in K.OB_FIELDS},
+            torch.empty(H, dtype=torch.int32, device=dev), world, win_end,
+            p)
+
+    ka, pa = args(), args()
+    scratch.pop(*ka)
+    K.pop_plain(*pa)
+    torch.cuda.synchronize()
+    (sk, obk, pk), (sp, obp, pp) = ka[:3], pa[:3]
+    err = max(max_abs_err(sk, sp, keys),
+              max_abs_err(obk, obp, list(K.OB_FIELDS)),
+              max_abs_err({"pops": pk}, {"pops": pp}, ["pops"]))
+    check(err == 0.0, f"{name} differs from its plain version (max abs "
+          f"err {err})")
+    check(scratch.launches[name] > 0, f"{name}: never launched")
+    slot = torch.arange(E, device=dev)[None, :]
+    popped_slot = (slot >= state0["head"][:, None]) & \
+        (slot < sk["head"][:, None])
+    kind = state0["hm"] >> 32
+    rx_pops = int((popped_slot & (kind == 2)).sum())
+    popped = int(popped_slot.sum())
+    col = torch.arange(OB, device=dev)[None, :] % M
+    live = obk["t"] < K.INF
+    ready_rows = int((live & (col == p.K + p.T)).sum())
+    send = live & (col < p.K)
+    dead = int((send & (obk["t"] == K.DROP_T)).sum())
+    rows = int(live.sum())
+    sent = int(((sk["n_sent"].long() - state0["n_sent"].long())
+                & 0xFFFFFFFF).sum())
+    dropped = int(((sk["n_drop"].long() - state0["n_drop"].long())
+                   & 0xFFFFFFFF).sum())
+    dirty = int(((pk < p.B) & (sk["head"] < E) & (
+        sk["ht"].gather(1, sk["head"].clamp(max=E - 1).long()[:, None])[
+            :, 0] < win_end)).sum())
+    codel = rx_pops - ready_rows
+    check(ready_rows > 0 and codel > 0, f"{name}: no READY row or no "
+          "CoDel drop")
+    check(dropped > codel and dirty > 0, f"{name}: no send dropped or no "
+          "host stopped dirty")
+    if p.CP:
+        check(dead > 0, f"{name}: no dead send kept as DROP_T")
+    packets = int(torch.where(send, (obk["m"] & K.U32) >> 8, 0).sum())
+    return {"err": err, "popped": popped, "rows": rows,
+            "counts": f"iterations={int(pk.sum())} events={popped} "
+                      f"rx_pops={rx_pops} ready_rows={ready_rows} "
+                      f"codel_drops={codel} sent={sent} "
+                      f"dropped={dropped} dead_rows={dead} "
+                      f"dirty={dirty}",
+            "packets": packets,
+            "ms": time_median(torch, scratch.pop, args, 7),
+            "plain_ms": time_median(torch, K.pop_plain, args, 3)}
+
+
+def nic_kernels(torch, K, scratch, rng, dev):
+    """K1, K4 and K6 under the model NIC (`_nic`): K1 at the PHOLD
+    full-width shapes (100,000 hosts, E=64, msgload 3, self-sends, with
+    the path counters' DROP_T rows), K4 at tgen_10000's layout at
+    100,000 hosts (B = 36 // 3) and K6 at tor_large's (B = 40 // 3),
+    each on its lossy dense world."""
+    import dataclasses
+
+    from shadow_tpu_torch.device.apps import PholdDevice
+    from shadow_tpu_torch.device.prng import seed_key
+
+    out = {}
+    H, E = 100_000, 64
+    win_end = 10**9
+    world = {
+        "host_vertex": torch.from_numpy(
+            rng.integers(0, 2, H).astype(np.int32)).to(dev),
+        "lat": torch.tensor([[3_000_000, 5_000_000],
+                             [5_000_000, 3_000_000]],
+                            dtype=torch.int32, device=dev),
+        "rel": torch.tensor([[0.98, 0.9], [0.9, 0.98]],
+                            dtype=torch.float32, device=dev),
+        "epoch_times": torch.zeros(1, dtype=torch.int64, device=dev)}
+    state0, world = add_nic(torch, K, rng, random_state(rng, H, E, dev),
+                            world, win_end, dev)
+    app = PholdDevice(n_hosts_total=H, msgload=3, size=512, selfloop=1)
+    p = K.PhaseParams(E=E, K=3, T=0, P=1, B=32 // 4, IN=E, C=1,
+                      boot_end=win_end // 2, seed=seed_key(7), app=app,
+                      MB=True, CP=True)
+    cases = {"pop_phase_nic": (state0, world, p, win_end)}
+    s, w, p, we = tgen_inputs(torch, K, rng, H, 48, dev)
+    s, w = add_nic(torch, K, rng, s, w, we, dev)
+    cases["pop_tgen_nic"] = (s, w, dataclasses.replace(
+        p, K=1, P=1, B=36 // 3, MB=True), we)
+    s, w, p, we = tor_inputs(torch, K, rng, dev)
+    s, w = add_nic(torch, K, rng, s, w, we, dev)
+    cases["pop_tor_nic"] = (s, w, dataclasses.replace(
+        p, K=1, P=1, B=40 // 3, MB=True, CP=True), we)
+    for name, (s, w, p, we) in cases.items():
+        c = nic_pop_case(torch, K, scratch, name, s, w, p, we, dev)
+        H, OB = s["head"].shape[0], p.OB
+        W = p.app.n_state_words
+        out[name] = finish({
+            "err": c["err"], "ms": c["ms"], "plain_ms": c["plain_ms"],
+            # t of every outbox column, the other four fields of the
+            # written rows; the popped heap rows (t, key, meta, d0|d1,
+            # d2); the head time that stopped each host; per-host
+            # counters read and written (head, event/packet/app seq,
+            # n_exec, n_deliv, n_sent, n_drop, chk, the app words, the
+            # seven NIC leaves); bandwidths, vertex and pop count; the
+            # law table
+            "bytes": (H * OB * 8 + c["rows"] * 4 * 8 + c["popped"] * 5 * 8
+                      + H * 8 + H * (7 * 4 + 8 + W * 4 + 7 * 8) * 2
+                      + H * (2 * 8 + 4 * 2) + 1024 * 8),
+            # two threefry blocks for the drop key, two a rolled packet
+            "ops": (2 * H + 2 * c["packets"]) * THREEFRY_OPS,
+            "shape": f"H={H} E={p.E} K={p.K} T={p.T} B={p.B} OB={OB} "
+                     f"C={p.C} cp={int(p.CP)} {c['counts']}"})
+    return out
+
+
+def stack_epochs(torch, world, epoch_times, dev):
+    """`world` with its tables stacked over len(epoch_times) epochs,
+    each epoch's latencies scaled by 1, 2 or 3 and its reliabilities
+    lowered by 1% an epoch (the self paths too, so that an in-window
+    self-send's test changes with the epoch); a factored world keeps
+    its one shared cl."""
+    T = len(epoch_times)
+    scale = torch.tensor([1 + e % 3 for e in range(T)], device=dev)
+    keep = torch.tensor([1.0 - 0.01 * e for e in range(T)],
+                        dtype=torch.float32, device=dev)
+
+    def lat(a):
+        return (a[None] * scale.view(-1, *[1] * a.dim())).to(torch.int32)
+
+    def rel(a):
+        return (a[None] * keep.view(-1, *[1] * a.dim())).to(torch.float32)
+
+    if isinstance(world["lat"], tuple):
+        cc, cl, acc, slf = world["lat"]
+        ccr, _, accr, slfr = world["rel"]
+        new_lat = (lat(cc), cl, lat(acc), lat(slf))
+        new_rel = (rel(ccr), cl, rel(accr), rel(slfr))
+    else:
+        new_lat, new_rel = lat(world["lat"]), rel(world["rel"])
+    return {**world, "lat": new_lat, "rel": new_rel,
+            "epoch_times": torch.tensor(epoch_times, dtype=torch.int64,
+                                        device=dev)}
+
+
+# the epoch starts of the kernels phase's fault tables: six epochs, five
+# of them inside the phase's pop times (the heaps hold times from
+# win_end / 2 to 3 win_end / 2, win_end = 1 s)
+EPOCH_TIMES = [0, 600_000_000, 700_000_000, 800_000_000, 900_000_000,
+               950_000_000]
+
+
+def tgen_pop_row(c, p, H):
+    """A K4 row from a `pop_case` at tgen_10000's layout."""
+    OB = p.OB
+    return finish({
+        "err": c["err"], "ms": c["ms"], "plain_ms": c["plain_ms"],
+        # t of every outbox column, the other four fields of send and
+        # timer rows; the popped heap rows (t, key, meta, d0|d1, d2);
+        # the head time that stopped each host; per-host counters read
+        # and written (head, event/packet seq, n_exec, n_deliv, chk,
+        # seven app words); client args, vertex and pop count
+        "bytes": (H * OB * 8 + c["rows"] * 4 * 8 + c["popped"] * 5 * 8
+                  + H * 8 + H * (5 * 4 + 8 + 7 * 4) * 2 + H * (4 + 8 + 8)
+                  + H * 4 * 2),
+        "ops": 0,
+        "shape": f"H={H} E={p.E} P={p.P} OB={OB} {c['counts']}"})
+
+
+def epoch_kernels(torch, K, scratch, rng, dev):
+    """The epoch axis (`_ep`, T = 6, EPOCH_TIMES) at tgen_10000's layout
+    and 100,000 hosts: K4 on its dense world stacked over the epochs,
+    K2 on K4's outbox on the same tables, and K4 on a factored 6-vertex
+    star stacked the same way (`_ep_hier`)."""
+    H, E = 100_000, 48
+    state0, world, p, win_end = tgen_inputs(torch, K, rng, H, E, dev)
+    dense = stack_epochs(torch, world, EPOCH_TIMES, dev)
+    c = pop_case(torch, K, scratch, "pop_tgen on epoch tables", state0,
+                 dense, p, win_end, dev)
+    check(scratch.launches["pop_tgen" + K.EP] > 0,
+          "pop_tgen: the epoch instantiation never launched")
+    out = {"pop_tgen_ep": tgen_pop_row(c, p, H)}
+    out["pop_tgen_ep"]["bytes"] += len(EPOCH_TIMES) * 8
+    out["judge_outbox_ep"] = judge_case(torch, K, scratch, c["state"],
+                                        c["ob"], dense, win_end, p, H, p.OB)
+    out["judge_outbox_ep"]["bytes"] += len(EPOCH_TIMES) * 8
+    check(scratch.launches["judge_outbox" + K.EP] > 0,
+          "judge_outbox: the epoch instantiation never launched")
+    fact = stack_epochs(torch, star_world(torch, world, dev), EPOCH_TIMES,
+                        dev)
+    c = pop_case(torch, K, scratch, "pop_tgen on factored epoch tables",
+                 state0, fact, p, win_end, dev)
+    check(scratch.launches["pop_tgen" + K.EP + K.HIER] > 0,
+          "pop_tgen: the factored epoch instantiation never launched")
+    out["pop_tgen_ep_hier"] = tgen_pop_row(c, p, H)
+    out["pop_tgen_ep_hier"]["bytes"] += len(EPOCH_TIMES) * 8
+    return out
+
+
+def million_fault_world(dev):
+    """phold_1m_hier_faults' tables (PHOLD_1M_YAML's network with
+    PHOLD_1M_FAULTS: six factored epochs) under examples/
+    tgen_1000000.yaml's 1,000,000 hosts, tiled as that file tiles them
+    (`million_world`: some hosts share a vertex): (hosts, the engine
+    world on the card)."""
+    from shadow_tpu_torch.config import load_config_str
+    from shadow_tpu_torch.core.build import build
+    from shadow_tpu_torch.device.apps import PholdDevice
+    from shadow_tpu_torch.device.engine import DeviceEngine, EngineConfig
+    from shadow_tpu_torch.topology.hierarchy import world_tables
+
+    _, placed, _ = million_world(dev)
+    H = len(placed.host_vertex)
+    sim = build(load_config_str(PHOLD_1M_YAML, [PHOLD_1M_FAULTS]))
+    lat, rel, ept = world_tables(sim.topology, sim.fault_table)
+    check(len(ept) == 6 and sim.lookahead == 10**6,
+          f"phold_1m_hier_faults: {len(ept)} epochs, lookahead "
+          f"{sim.lookahead} ns (want 6 and 1 ms)")
+    return H, DeviceEngine(EngineConfig(n_hosts=H),
+                           PholdDevice(n_hosts_total=H), placed.host_vertex,
+                           lat, rel, device=dev, epoch_times=ept).world
+
+
+def hier_fault_kernels(torch, K, scratch, rng, dev):
+    """K1 and K2 on phold_1m_hier_faults' factored tables with their
+    six epochs (`_ep_hier`), at full width (1,000,000 hosts tiled as
+    examples/tgen_1000000.yaml tiles them), K2's send rows retargeted
+    to every kind of pair."""
+    H, world = million_fault_world(dev)
+    out = phold_kernels(torch, K, scratch, rng, H, dev, world=world)
+    for n in ("pop_phase", "judge_outbox"):
+        check(scratch.launches[n + K.EP + K.HIER] > 0,
+              f"{n}: the factored epoch instantiation never launched")
+    return {"pop_phase_ep_hier": out["pop_phase"],
+            "judge_outbox_ep_hier": out["judge_outbox"]}
+
+
+def count_paths_case(torch, K, scratch, rng, dev):
+    """K7 on a judged outbox of 100,000 hosts x 39 columns (tgen_10000's
+    layout under the model NIC, x10) over 256 vertices (V*V = 65536,
+    the histogram's largest): a fifth of the rows live, among them
+    timers, READY rows and DROP_T sends, trains of 1 to 32 packets;
+    beside it torch.bincount over the same rows' pairs and weights."""
+    from shadow_tpu_torch.core.event import KIND_PACKET_READY
+
+    H, OB, V = 100_000, 39, 256
+    shape = (H, OB)
+    live = rng.random(shape) < 0.2
+    t = rng.integers(10**9, 2 * 10**9, shape)
+    t = np.where(rng.random(shape) < 0.05, K.DROP_T, t)
+    t = np.where(live, t, K.INF).astype(np.int64)
+    kind = rng.choice(np.array([2, 2, 2, 1, KIND_PACKET_READY]), shape)
+    cnt = rng.integers(1, 33, shape)
+    k = (np.arange(H, dtype=np.int64)[:, None] << 32) | \
+        rng.integers(0, 2**32, shape)
+    m = (rng.integers(0, H, shape) << 32) | (cnt << 8) | kind
+    ob = {f: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+          for f, a in (("t", t), ("k", k), ("m", m))}
+    world = {"host_vertex": torch.from_numpy(
+        rng.integers(0, V, H).astype(np.int32)).to(dev),
+        "lat": torch.zeros((V, V), dtype=torch.int32, device=dev)}
+
+    def fresh():
+        return ({"path_cnt": torch.zeros((1, V * V), dtype=torch.int64,
+                                         device=dev)}, ob, world)
+
+    sk, sp = fresh()[0], fresh()[0]
+    scratch.count_paths(sk, ob, world)
+    K.count_paths_plain(sp, ob, world)
+    torch.cuda.synchronize()
+    err = max_abs_err(sk, sp, ["path_cnt"])
+    check(err == 0.0, f"count_paths differs from its plain version (max "
+          f"abs err {err})")
+    pkt = (ob["t"] < K.INF) & ((ob["m"] & 0xFF) == 2)
+    rows = int(pkt.sum())
+    check(int((pkt & (ob["t"] == K.DROP_T)).sum()) > 0,
+          "count_paths: no DROP_T row counted")
+    check(int(sk["path_cnt"].sum()) == int(
+        torch.where(pkt, (ob["m"] & K.U32) >> 8, 0).sum()),
+          "count_paths: the histogram lost packets")
+    hv = world["host_vertex"].long()
+    pair = torch.where(pkt, hv[ob["k"] >> 32] * V + hv[ob["m"] >> 32],
+                       V * V).view(-1)
+    weight = torch.where(pkt, (ob["m"] & K.U32) >> 8, 0).view(-1).double()
+    touched = int((sk["path_cnt"] > 0).sum())
+    return finish({
+        "err": err,
+        "ms": time_median(torch, scratch.count_paths, fresh, 7),
+        "plain_ms": time_median(torch, K.count_paths_plain, fresh, 3),
+        "library_ms": time_median(
+            torch, lambda x, w: torch.bincount(x, w, V * V + 1),
+            lambda: (pair, weight), 7),
+        # t of every row, k and m of the packet rows with both ends'
+        # vertices, each touched histogram entry read and written
+        "bytes": H * OB * 8 + rows * (2 * 8 + 2 * 4) + touched * 16,
+        "ops": 0,
+        "shape": f"H={H} OB={OB} V={V} packet_rows={rows} "
+                 f"touched_pairs={touched}"})
+
+
 def route_case(torch, K, scratch, rng, H, OB, IN, dev):
     ob = random_outbox(rng, H, OB, torch, dev)
     pk, sk_, ck = scratch.route(ob)
@@ -1167,6 +1729,10 @@ def kernels_phase(torch, report, H=100_000, dev="cuda"):
              "tor": route_case(torch, K, scratch, rng, 56_000, 36, 64,
                                dev)}
     hier = hier_kernels(torch, K, scratch, rng, dev)
+    nic = nic_kernels(torch, K, scratch, rng, dev)
+    epochs = epoch_kernels(torch, K, scratch, rng, dev)
+    hier_faults = hier_fault_kernels(torch, K, scratch, rng, dev)
+    paths = count_paths_case(torch, K, scratch, rng, dev)
     for name, r in phold.items():
         report_line(f"{name} (PHOLD shapes)", r)
     for name, r in tgen.items():
@@ -1185,6 +1751,15 @@ def kernels_phase(torch, report, H=100_000, dev="cuda"):
               flush=True)
     for shape, r in route.items():
         report_line(f"route ({shape} shape)", r)
+    for name, r in nic.items():
+        report_line(f"{name} (model NIC)", r)
+    for name, r in epochs.items():
+        report_line(f"{name} (tgen shapes, {len(EPOCH_TIMES)} epochs)", r)
+    for name, r in hier_faults.items():
+        report_line(f"{name} (phold_1m_hier_faults' tables, "
+                    f"{len(EPOCH_TIMES)} epochs)", r)
+    report_line("count_paths", paths)
+    report.update({**nic, **epochs, **hier_faults, "count_paths": paths})
     report.update({
         "pop_phase": phold["pop_phase"], "pop_tgen": tgen["pop_tgen"],
         "pop_tor": tor["pop_tor"], **hier,
@@ -1201,7 +1776,7 @@ def kernels_phase(torch, report, H=100_000, dev="cuda"):
 def same_run(a, b, what, names=("card", "cpu")):
     for field in ("events_executed", "packets_sent", "packets_dropped",
                   "packets_delivered", "downloads_completed", "rounds",
-                  "ok"):
+                  "ok", "path_packets"):
         check(getattr(a, field) == getattr(b, field),
               f"parity ({what}): {field} {names[0]} {getattr(a, field)} "
               f"!= {names[1]} {getattr(b, field)}")
@@ -1212,7 +1787,63 @@ def same_run(a, b, what, names=("card", "cpu")):
     check(a.ok and a.events_executed > 0, f"parity run ({what}) failed")
 
 
-def parity_phase(torch):
+def nic_fault_parity(torch, report):
+    """The model NIC, link faults and path counters, card against the
+    CPU plain path (and factored against dense tables): every total,
+    rounds, per-host events and checksums, and the path counters. Each
+    card run's launches are kept for the kernels line."""
+    from shadow_tpu_torch.config import load_config, load_config_str
+    from shadow_tpu_torch.device import runner
+    from shadow_tpu_torch.device.kernels import Kernels
+
+    runs = {}
+    hier = os.path.join(REPO, "examples", "tgen_faults_hier.yaml")
+    for key, what, load, path in (
+            ("nic_phold", "PHOLD 16 hosts, model NIC 2 Mbit, loss 0.05, "
+             "count_paths, 3 s", lambda: load_config_str(NIC_PHOLD_YAML),
+             ("pop_phase_nic", "count_paths")),
+            ("nic_tgen", "tgen 1 server + 20 clients, loss 0.1, model "
+             "NIC, server uplink 20 Mbit, clients' downlink 2 Mbit, 3 s",
+             lambda: load_config_str(NIC_TGEN_YAML), ("pop_tgen_nic",)),
+            ("nic_tor", "Tor 16 relays + 32 clients, loss 0.05, model NIC, "
+             "clients' downlink 1 Mbit, 8 s",
+             lambda: load_config_str(NIC_TOR_YAML), ("pop_tor_nic",)),
+            ("faults_dense", "tgen 1 server + 3 clients, link faults "
+             "(degrade, link_down, link_up), count_paths, 8 s",
+             lambda: load_config_str(FAULT_YAML),
+             ("pop_tgen_ep", "judge_outbox_ep", "count_paths")),
+            ("faults_hier", "examples/tgen_faults_hier.yaml, its link "
+             f"faults alone, {FAULTS_HIER_STOP}", lambda: load_config(
+                 hier, FAULTS_HIER), ("pop_tgen_ep_hier",
+                                      "judge_outbox_ep_hier"))):
+        cfg = load()
+        kernels = Kernels()
+        gpu = runner.run(cfg, device="cuda", kernels=kernels)
+        cpu = runner.run(cfg, device="cpu")
+        same_run(gpu, cpu, what)
+        for k in path:
+            check(kernels.launches[k] > 0, f"parity ({what}): {k} never "
+                  "launched")
+        runs[f"parity_{key}"] = {"launches": dict(kernels.launches)}
+        extra = ""
+        if key == "faults_hier":
+            dense = runner.run(load_config(hier, FAULTS_HIER + [
+                "network.topology.representation=dense"]), device="cuda")
+            same_run(gpu, dense, what, ("card hierarchical", "card dense"))
+            extra = f", == card dense (wall {dense.wall_s:.3f} s)"
+        if gpu.path_packets is not None:
+            extra += (f"; {sum(gpu.path_packets.values())} packets on "
+                      f"{len(gpu.path_packets)} vertex pairs")
+        print(f"[parity] {what}: card == cpu plain path{extra}: "
+              f"{gpu.summary()}; card wall {gpu.wall_s:.3f} s, cpu wall "
+              f"{cpu.wall_s:.3f} s; launches "
+              + ", ".join(f"{k} {kernels.launches[k]}" for k in path),
+              flush=True)
+        check(gpu.packets_dropped > 0, f"parity ({what}): no drop")
+    report["_parity"] = runs
+
+
+def parity_phase(torch, report):
     from shadow_tpu_torch.config import load_config_str
     from shadow_tpu_torch.device import runner
 
@@ -1235,6 +1866,7 @@ def parity_phase(torch):
               f"{gpu.summary()}; card wall {gpu.wall_s:.3f} s, cpu wall "
               f"{cpu.wall_s:.3f} s", flush=True)
     star_parity(torch)
+    nic_fault_parity(torch, report)
 
 
 def star_parity(torch):
@@ -1295,6 +1927,11 @@ FULL_RUNS = (
     # PHOLD_1M_YAML, written here (no example file holds it)
     ("phold_1m_hier", None, (),
      ("pop_phase_hier", "judge_outbox_hier", "route", "merge_heaps")),
+    ("tgen_10000_nic", "tgen_10000.yaml", TGEN_NIC,
+     ("pop_tgen_nic", "count_paths", "route", "merge_heaps")),
+    ("phold_1m_hier_faults", None, (PHOLD_1M_FAULTS,),
+     ("pop_phase_ep_hier", "judge_outbox_ep_hier", "route",
+      "merge_heaps")),
 )
 
 
@@ -1328,14 +1965,12 @@ def full_phase(torch, card, report):
         print(f"[full:{name}] {capacity.verdict_line(stats.admission)}; "
               f"measured peak {peak} B ({peak / est:.3f} x the estimate)",
               flush=True)
-        if name == "phold_1m_hier":
-            check(stats.admission["action"] == "admit",
-                  f"full {name}: admission {stats.admission['action']}")
-            check(est / capacity.FOOTPRINT_TOLERANCE <= peak
-                  <= est * capacity.FOOTPRINT_TOLERANCE,
-                  f"full {name}: peak {peak} B is not within "
-                  f"{capacity.FOOTPRINT_TOLERANCE}x of the estimate "
-                  f"{est} B")
+        check(stats.admission["action"] == "admit",
+              f"full {name}: admission {stats.admission['action']}")
+        check(est / capacity.FOOTPRINT_TOLERANCE <= peak
+              <= est * capacity.FOOTPRINT_TOLERANCE,
+              f"full {name}: peak {peak} B is not within "
+              f"{capacity.FOOTPRINT_TOLERANCE}x of the estimate {est} B")
         check(stats.overflow == 0 and stats.x_overflow == 0,
               f"full {name}: overflow {stats.overflow}, x_overflow "
               f"{stats.x_overflow}")
@@ -1347,6 +1982,10 @@ def full_phase(torch, card, report):
                   "path")
         hosts = len(stats.host_events_executed)
         phases = launches[path[0]]
+        if stats.path_packets is not None:
+            print(f"[full:{name}] path counters: "
+                  f"{sum(stats.path_packets.values())} packets sent over "
+                  f"{len(stats.path_packets)} vertex pairs", flush=True)
         print(f"[full:{name}] {hosts} hosts: {stats.summary()}; "
               f"{phases} phases; wall {stats.wall_s:.3f} s (with a CUDA "
               f"event pair recorded around every kernel launch); "
@@ -1403,10 +2042,10 @@ def boot_phase(torch, card):
 
 
 def kernels_line(report):
-    runs = report.pop("_full")
+    full = report.pop("_full")
+    runs = {**full, **report.pop("_parity", {})}
     rows = []
-    for n in ("pop_phase", "pop_tgen", "pop_tor", "judge_outbox", "route",
-              "merge_heaps", "pop_phase_hier", "judge_outbox_hier"):
+    for n in ROWS:
         r = report[n]
         shapes = {k: r[k] for k in ("at_tgen_shape", "at_tor_shape",
                                     "on_factored_tables",
@@ -1424,11 +2063,11 @@ def kernels_line(report):
             "bytes": r["bytes"], "ops": r["ops"],
             "shape": r["shape"],
             **({"view": "shadow_tpu_torch/csrc/topo.cuh"}
-               if n.endswith("_hier") else {}),
+               if n.endswith(("_hier", "_ep")) else {}),
             "launches_by_run": {k: run["launches"][n]
                                 for k, run in runs.items()},
             "main_path_ms_by_run": {k: run["kernel_ms"][n]
-                                    for k, run in runs.items()},
+                                    for k, run in full.items()},
             **({"torch_sort_ms": r["torch_sort_ms"]}
                if "torch_sort_ms" in r else {}),
             **shapes,
@@ -1481,7 +2120,7 @@ def main(argv=None) -> int:
         if "kernels" in phases:
             kernels_phase(torch, report)
         if "parity" in phases:
-            parity_phase(torch)
+            parity_phase(torch, report)
         if "full" in phases:
             full_phase(torch, card, report)
         if "boot" in phases:

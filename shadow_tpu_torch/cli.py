@@ -55,6 +55,10 @@ def main(argv=None) -> int:
         return 1
     log.info("simulation finished at %s: %s",
              simtime.format_time(stats.end_time), stats.summary())
+    if stats.path_packets is not None:
+        log.info("path counters: %d packets sent over %d vertex pairs",
+                 sum(stats.path_packets.values()),
+                 len(stats.path_packets))
     log.info("%s", capacity.verdict_line(stats.admission))
     if not stats.ok:
         log.error("device engine overflow: %d events lost — raise "

@@ -5,9 +5,11 @@ YAML-compatible with the reference: sections `general`, `network`,
 `experimental` and `hosts.<name>` with nested `processes`. Every key
 the reference accepts is accepted here too, and a typo'd key fails as
 it does there. Keys whose behaviour the port does not have yet are
-kept raw in `ExperimentalOptions.later` (and `network.faults`,
-`ensemble` likewise), so that the slice check (core/build.py) refuses
-them by name instead of silently running without them.
+kept raw in `ExperimentalOptions.later` (and `ensemble` likewise), so
+that the slice check (core/build.py) refuses them by name instead of
+silently running without them; `network.faults` entries are validated
+as the reference validates them, and the slice check refuses the host
+faults among them.
 """
 
 from __future__ import annotations
@@ -50,9 +52,9 @@ LATER_EXPERIMENTAL = {
          "heartbeat_stale_after", "telemetry", "telemetry_path",
          "artifacts_dir"),
         "queue (a) item 7 (runner, supervise, checkpoint)"),
-    **dict.fromkeys(("model_bandwidth", "count_paths", "state_audit"),
-                    "queue (a) item 8 (engine features off the "
-                    "default path)"),
+    **dict.fromkeys(("state_audit",),
+                    "queue (a) item 8 (the state audit, the next "
+                    "slice)"),
     **dict.fromkeys(("exchange", "exchange_capacity",
                      "exchange_capacity2", "mesh_shards", "mesh_axis"),
                     "queue (a) item 9 (multi-GPU)"),
@@ -125,6 +127,9 @@ class HostOptions:
     network_node_id: Optional[int] = None  # pin to a topology vertex id
     # host i of the group attaches at vertex network_node_id + i*stride
     network_node_stride: int = 0
+    # bits/s; None = the topology vertex's bandwidth (model NIC)
+    bandwidth_down: Optional[int] = None
+    bandwidth_up: Optional[int] = None
     ip_address_hint: Optional[str] = None
     country_code_hint: Optional[str] = None
     city_code_hint: Optional[str] = None
@@ -139,12 +144,6 @@ class HostOptions:
             "city_code_hint", "log_level", "pcap_directory", "options",
             "processes",
         })
-        # host bandwidths matter only to the model-NIC (refused by the
-        # slice check as experimental.model_bandwidth): parsed to
-        # validate their units, not kept
-        for key in ("bandwidth_down", "bandwidth_up"):
-            if d.get(key) is not None:
-                parse_bandwidth_bits(d[key])
         stride = int(d.get("network_node_stride", 0))
         if stride < 0:
             raise ValueError(
@@ -160,6 +159,11 @@ class HostOptions:
                              if d.get("network_node_id") is not None
                              else None),
             network_node_stride=stride,
+            bandwidth_down=(parse_bandwidth_bits(d["bandwidth_down"])
+                            if d.get("bandwidth_down") is not None
+                            else None),
+            bandwidth_up=(parse_bandwidth_bits(d["bandwidth_up"])
+                          if d.get("bandwidth_up") is not None else None),
             ip_address_hint=d.get("ip_address_hint") or d.get("ip_addr"),
             country_code_hint=d.get("country_code_hint"),
             city_code_hint=d.get("city_code_hint"),
@@ -192,6 +196,70 @@ class GeneralOptions:
         )
 
 
+def _fault_from_dict(i: int, d: dict):
+    """One `network.faults` entry -> a validated FaultEvent, checked as
+    the reference checks it at load; what needs the graph (the edge
+    exists, down/up pairing) is checked when the schedule compiles
+    (faults.compile_link_faults). faults.py imports the topology,
+    which imports this package: hence the import here."""
+    from shadow_tpu_torch.faults import (
+        FAULT_KINDS,
+        HOST_KINDS,
+        LINK_KINDS,
+        FaultEvent,
+    )
+
+    section = f"network.faults[{i}]"
+    if not isinstance(d, dict):
+        raise ValueError(f"{section} must be a mapping")
+    _check_keys(section, d, {"kind", "time", "source", "target",
+                             "duration", "latency_multiplier",
+                             "extra_packet_loss", "host"})
+    kind = d.get("kind")
+    if kind not in FAULT_KINDS:
+        raise ValueError(
+            f"{section}.kind={kind!r} is not one of {list(FAULT_KINDS)}")
+    if "time" not in d:
+        raise ValueError(f"{section}: missing required key 'time'")
+    if kind in LINK_KINDS:
+        if d.get("source") is None or d.get("target") is None:
+            raise ValueError(
+                f"{section}: {kind} needs 'source' and 'target' "
+                "topology vertex ids")
+        if d.get("host") is not None:
+            raise ValueError(
+                f"{section}: 'host' is only valid for "
+                f"{list(HOST_KINDS)}")
+    else:
+        if not d.get("host"):
+            raise ValueError(
+                f"{section}: {kind} needs 'host' (a configured host "
+                "name, group-expanded like client0)")
+        for bad in ("source", "target", "duration",
+                    "latency_multiplier", "extra_packet_loss"):
+            if d.get(bad) is not None:
+                raise ValueError(
+                    f"{section}: {bad!r} is only valid for link "
+                    "faults")
+    if kind != "degrade":
+        for bad in ("duration", "latency_multiplier",
+                    "extra_packet_loss"):
+            if d.get(bad) is not None:
+                raise ValueError(
+                    f"{section}: {bad!r} is only valid for degrade")
+    return FaultEvent(
+        kind=kind,
+        time=parse_time_ns(d["time"]),
+        source=int(d["source"]) if d.get("source") is not None else -1,
+        target=int(d["target"]) if d.get("target") is not None else -1,
+        duration=(parse_time_ns(d["duration"])
+                  if d.get("duration") is not None else 0),
+        latency_multiplier=float(d.get("latency_multiplier", 1.0)),
+        extra_packet_loss=float(d.get("extra_packet_loss", 0.0)),
+        host=str(d.get("host", "")),
+    )
+
+
 @dataclass
 class NetworkOptions:
     graph_type: str = "1_gbit_switch"
@@ -201,7 +269,7 @@ class NetworkOptions:
     graph_params: dict = field(default_factory=dict)
     use_shortest_path: bool = True
     representation: str = "dense"
-    faults: list = field(default_factory=list)   # raw; refused by slice
+    faults: list = field(default_factory=list)   # [FaultEvent]
 
     @classmethod
     def from_dict(cls, d: dict) -> "NetworkOptions":
@@ -240,7 +308,8 @@ class NetworkOptions:
             graph_params=params,
             use_shortest_path=bool(d.get("use_shortest_path", True)),
             representation=rep,
-            faults=list(raw_faults),
+            faults=[_fault_from_dict(i, f)
+                    for i, f in enumerate(raw_faults)],
         )
 
 
@@ -262,6 +331,10 @@ class ExperimentalOptions:
     # per-device memory budget in bytes ("8 GiB" accepted), used where
     # the backend reports no limit; 0 = none
     device_memory_budget: int = 0
+    # bandwidth + CoDel for raw model sends (host/model_nic.py)
+    model_bandwidth: bool = False
+    # the [V,V] histogram of sent packets (V*V <= 65536)
+    count_paths: bool = False
     # reference keys set in the config that the port does not run yet
     later: dict = field(default_factory=dict)
 
@@ -270,7 +343,7 @@ class ExperimentalOptions:
         own = {"interpose_method", "scheduler_policy", "runahead",
                "event_capacity", "outbox_capacity",
                "exchange_in_capacity", "burst_pops", "admission",
-               "device_memory_budget"}
+               "device_memory_budget", "model_bandwidth", "count_paths"}
         _check_keys("experimental", d,
                     own | set(LAYOUT_VARIANTS) | set(LATER_EXPERIMENTAL))
         out = cls(later={k: v for k, v in d.items()
@@ -284,9 +357,22 @@ class ExperimentalOptions:
                 v = int(v)
             elif name == "device_memory_budget":
                 v = parse_size_bytes(v)
+            elif name in ("model_bandwidth", "count_paths"):
+                v = bool(v)
             setattr(out, name, v)
         if not 0 <= out.burst_pops <= 32:
             raise ValueError("experimental.burst_pops must be in 0..32")
+        if out.model_bandwidth and d.get("judge_placement") == "flush":
+            raise ValueError(
+                "experimental.judge_placement: flush cannot combine "
+                "with model_bandwidth (the fluid NIC's tx/rx state "
+                "is sequential per event; judgment stays in-step)")
+        if out.burst_pops > 1 and out.model_bandwidth:
+            raise ValueError(
+                "experimental.burst_pops > 1 cannot combine with "
+                "model_bandwidth (the fluid NIC's tx/rx state is "
+                "sequential per event — the engine would silently "
+                "degrade the requested width to 1)")
         _check_choice("experimental", "scheduler_policy",
                       out.scheduler_policy, SCHEDULER_POLICIES)
         _check_choice("experimental", "interpose_method",

@@ -14,7 +14,9 @@ columns here equal that object build.)
 
 The port runs these slices of the reference so far: PHOLD, tgen and Tor
 on the `tpu` policy, one GPU, GML, builtin or `star_clusters` graphs
-with dense or hierarchical tables, no faults, no ensemble.
+with dense or hierarchical tables, link faults (compiled here into the
+epoch tables of faults.py), the model NIC and the path counters; no
+host faults, no state audit, no ensemble.
 `check_slice` refuses any config outside them with an error naming the
 ROADMAP.md item that will port it; nothing outside runs silently.
 """
@@ -34,6 +36,7 @@ from shadow_tpu_torch.config.schema import (
 from shadow_tpu_torch.core.tgen_args import TgenClientArgs
 from shadow_tpu_torch.core.tor_args import TorClientArgs
 from shadow_tpu_torch.device.apps import PholdDevice, TgenDevice, TorDevice
+from shadow_tpu_torch.faults import compile_link_faults, split_events
 from shadow_tpu_torch.topology.generate import generate_star_clusters
 from shadow_tpu_torch.topology.graph import Topology
 
@@ -77,10 +80,13 @@ def check_slice(cfg: ConfigOptions) -> None:
         _refuse(f"experimental.{key}", LATER_EXPERIMENTAL[key])
     if cfg.ensemble:
         _refuse("ensemble", "queue (a) item 12 (ensemble campaigns)")
-    if cfg.network.faults:
-        # under either representation: fault epochs stack a [T] axis on
-        # every table, dense or factored
-        _refuse("network.faults", "queue (a) item 8 (fault epochs)")
+    _, host_faults = split_events(cfg.network.faults)
+    if host_faults:
+        # manager-side events: the reference's device runner sends such
+        # configs to its hybrid policy (device/runner.py DeviceRunner)
+        _refuse(f"network.faults: {host_faults[0].kind} (host faults are "
+                "manager-side events; the reference runs them on its "
+                "hybrid policy)", "queue (a) item 10 (the hybrid policy)")
     if not cfg.hosts:
         raise ValueError("config has no host groups")
     for g in cfg.hosts:
@@ -158,6 +164,11 @@ class BuiltSimulation:
     stop_times: np.ndarray      # [H] int64 stop time, -1 = none
     lookahead: int              # conservative window, ns
     app: Union[PholdDevice, TgenDevice, TorDevice]
+    bw_down_bits: np.ndarray    # [H] int64 model-NIC bandwidths, bits/s
+    bw_up_bits: np.ndarray
+    # the compiled link-fault schedule (faults.FaultTable or
+    # HierFaultTable), None without link faults
+    fault_table: object = None
 
 
 class HostNames:
@@ -287,8 +298,11 @@ def _tor_app(n_total: int, layout, arg_list, seed: int) -> TorDevice:
 def build(cfg: ConfigOptions) -> BuiltSimulation:
     check_slice(cfg)
     topology = load_topology(cfg)
+    link_events, _ = split_events(cfg.network.faults)
+    fault_table = compile_link_faults(topology, link_events)
     n_total = cfg.total_hosts()
     v_parts, t0_parts, t1_parts, arg_list, layout = [], [], [], [], []
+    d_parts, u_parts = [], []
     base = 0
     for g in cfg.hosts:
         q = g.quantity
@@ -310,6 +324,14 @@ def build(cfg: ConfigOptions) -> BuiltSimulation:
             _refuse(f"hosts.{g.name}: no network_node_id on a "
                     f"{topology.n_vertices}-vertex graph (random "
                     "attachment)", "queue (a) item 7 (the object build)")
+        # a group's bandwidth, else its vertices' (the reference's
+        # columnar build)
+        d_parts.append(np.full(q, g.bandwidth_down, dtype=np.int64)
+                       if g.bandwidth_down is not None
+                       else topology.bw_down_bits[v].astype(np.int64))
+        u_parts.append(np.full(q, g.bandwidth_up, dtype=np.int64)
+                       if g.bandwidth_up is not None
+                       else topology.bw_up_bits[v].astype(np.int64))
         proc = g.processes[0]
         v_parts.append(v)
         t0_parts.append(np.full(q, proc.start_time, dtype=np.int64))
@@ -332,10 +354,16 @@ def build(cfg: ConfigOptions) -> BuiltSimulation:
         h = int(bad[0])
         raise ValueError(f"host {h}: stop_time {int(t1[h])} precedes "
                          f"start_time {int(t0[h])}")
+    # the lookahead is a floor over every fault epoch, so that each
+    # backend runs the same window sequence
+    min_lat = topology.min_latency_ns
+    if fault_table is not None:
+        min_lat = min(min_lat, fault_table.min_latency_ns)
     lookahead = (cfg.experimental.runahead
-                 if cfg.experimental.runahead is not None
-                 else topology.min_latency_ns)
+                 if cfg.experimental.runahead is not None else min_lat)
     return BuiltSimulation(
         cfg=cfg, topology=topology,
         host_vertex=np.concatenate(v_parts).astype(np.int32),
-        start_times=t0, stop_times=t1, lookahead=int(lookahead), app=app)
+        start_times=t0, stop_times=t1, lookahead=int(lookahead), app=app,
+        bw_down_bits=np.concatenate(d_parts),
+        bw_up_bits=np.concatenate(u_parts), fault_table=fault_table)

@@ -1,17 +1,21 @@
 // K2 judge_outbox: the network judgment of one phase's outbox.
 //
 // Replaces shadow_tpu/device/engine.py `_judge_outbox` with its `_tbl`
-// lookup (T=1: the dense gather, or under the hierarchical
-// representation shadow_tpu/topology/hierarchy.py `gather_parts`, both
-// through the views of topo.cuh, of which the kernel is a template) and
-// shadow_tpu/device/netsem.py `packet_drop_mask`: per send row, the path
-// latency and reliability, one threefry drop roll per packet keyed by
-// (src host, per-source packet seq), the causality bump max(t, win_end)
-// for cross-host rows, the survivor bitmask, and the sent/dropped
-// counters. One thread owns one host row and walks its OB lanes in
-// order, so the per-row packet seq base is a running sum and n_sent /
-// n_drop need no atomics. The roll compares u >= rel in float32, as the
-// reference does.
+// lookup (the dense gather, or under the hierarchical representation
+// shadow_tpu/topology/hierarchy.py `gather_parts`, both through the
+// views of topo.cuh, of which the kernel is a template; under a fault
+// schedule in the epoch of the row's departure time ft,
+// engine.py:1428-1430) and shadow_tpu/device/netsem.py
+// `packet_drop_mask`: per send row, the path latency and reliability,
+// one threefry drop roll per packet keyed by (src host, per-source
+// packet seq), the causality bump max(t, win_end) for cross-host rows,
+// the survivor bitmask, and the sent/dropped counters. A row whose
+// packets all drop gets t = INF, or DROP_T under the path counters (cp),
+// so that K7 still counts it (engine.py:1490). One thread owns one host
+// row and walks its OB lanes in order, so the per-row packet seq base is
+// a running sum and n_sent / n_drop need no atomics. The roll compares
+// u >= rel in float32, as the reference does. The model NIC judges in
+// the pop instead (pop_phase.cu); this kernel does not run there.
 //
 // Bound on the H100: bytes (t of all H*OB rows; m and v read, and t/m/v
 // written, for send rows only); each rolled packet costs two threefry
@@ -32,7 +36,7 @@ __global__ void judge_outbox_kernel(
     int64_t* ob_t, int64_t* ob_m, int64_t* ob_v,
     const int32_t* __restrict__ packet_seq, int32_t* n_sent,
     int32_t* n_drop, const int32_t* __restrict__ host_vertex, Topo topo,
-    uint32_t seed1, uint32_t seed2) {
+    uint32_t seed1, uint32_t seed2, int cp) {
     const int h = blockIdx.x * blockDim.x + threadIdx.x;
     if (h >= H) return;
     const int64_t row = (int64_t)h * OB;
@@ -58,8 +62,9 @@ __global__ void judge_outbox_kernel(
         const int32_t dst = hi32(fm);
         const int dh = dst < 0 ? 0 : (dst > H - 1 ? H - 1 : dst);
         const int vd = host_vertex[dh];
-        const int64_t latv = topo.lat(vs, vd);
-        const float relv = topo.rel(vs, vd);
+        const int e = topo.epoch(ft);
+        const int64_t latv = topo.lat(e, vs, vd);
+        const float relv = topo.rel(e, vs, vd);
         const int64_t fv = ob_v[row + c];
         const uint32_t wbits =
             cnt >= 32 ? 0xFFFFFFFFu
@@ -80,7 +85,7 @@ __global__ void judge_outbox_kernel(
         lost += livecnt - __popc(surv);
         int64_t deliver_t = ft + latv;
         if (dst != h && deliver_t < win_end) deliver_t = win_end;
-        ob_t[row + c] = surv == 0 ? INF : deliver_t;
+        ob_t[row + c] = surv != 0 ? deliver_t : (cp ? DROP_T : INF);
         ob_m[row + c] =
             pack2((uint32_t)dst, (uint32_t)(KIND_PACKET | (livecnt << 8)));
         ob_v[row + c] = pack2(surv, (uint32_t)lo32(fv));
@@ -89,36 +94,24 @@ __global__ void judge_outbox_kernel(
     n_drop[h] += lost;
 }
 
-template <class Topo>
-void launch(int H, int OB, int C, int64_t win_end, int64_t boot_end,
-            int64_t* ob_t, int64_t* ob_m, int64_t* ob_v,
-            const int32_t* packet_seq, int32_t* n_sent, int32_t* n_drop,
-            const int32_t* host_vertex, Topo topo, uint32_t seed1,
-            uint32_t seed2, cudaStream_t stream) {
-    const int threads = 128;
-    judge_outbox_kernel<Topo><<<(H + threads - 1) / threads, threads, 0,
-                                stream>>>(
-        H, OB, C, win_end, boot_end, ob_t, ob_m, ob_v, packet_seq, n_sent,
-        n_drop, host_vertex, topo, seed1, seed2);
-}
-
 }  // namespace
 
 extern "C" int shadow_judge_outbox(
     int H, int OB, int C, long long win_end, long long boot_end,
     int64_t* ob_t, int64_t* ob_m, int64_t* ob_v, const int32_t* packet_seq,
     int32_t* n_sent, int32_t* n_drop, const int32_t* host_vertex,
-    const TopoArgs* topo, unsigned seed1, unsigned seed2, void* stream) {
+    const TopoArgs* topo, unsigned seed1, unsigned seed2, int cp,
+    void* stream) {
     if (!topo_ok(topo)) return (int)cudaErrorInvalidValue;
     if (H > 0) {
-        if (topo->hier)
-            launch(H, OB, C, (int64_t)win_end, (int64_t)boot_end, ob_t,
-                   ob_m, ob_v, packet_seq, n_sent, n_drop, host_vertex,
-                   hier_topo(*topo), seed1, seed2, (cudaStream_t)stream);
-        else
-            launch(H, OB, C, (int64_t)win_end, (int64_t)boot_end, ob_t,
-                   ob_m, ob_v, packet_seq, n_sent, n_drop, host_vertex,
-                   dense_topo(*topo), seed1, seed2, (cudaStream_t)stream);
+        const int threads = 128;
+        with_topo(*topo, [&](auto view) {
+            judge_outbox_kernel<<<(H + threads - 1) / threads, threads, 0,
+                                  (cudaStream_t)stream>>>(
+                H, OB, C, (int64_t)win_end, (int64_t)boot_end, ob_t, ob_m,
+                ob_v, packet_seq, n_sent, n_drop, host_vertex, view, seed1,
+                seed2, cp);
+        });
     }
     return (int)cudaGetLastError();
 }

@@ -41,29 +41,92 @@
 // The in-window self-send test (`dirty`) reads the host's self latency
 // through a view of the path tables (topo.cuh): DenseTopo's diagonal or,
 // under the hierarchical representation, HierTopo's self vector (the
-// reference's `gather_parts(lat, v, v)`). The kernel is a template over
-// the view; each entry point launches the instantiation its TopoArgs
-// selects.
+// reference's `gather_parts(lat, v, v)`): with one epoch read once per
+// host, under a fault schedule per self-send in the epoch of its
+// departure (engine.py:1185-1187), since a window may straddle an epoch
+// start. The kernel is a template over the view; each entry point
+// launches the instantiation its TopoArgs selects.
+//
+// The model NIC (experimental.model_bandwidth; shadow_tpu/device/
+// engine.py `_step` under MB, engine.py:815-822, 846-848, 879-889,
+// 1008-1020, 1048-1104, 1118-1160) is a template flag, so the non-NIC
+// instantiations are unchanged. Under it P = 1, the iteration's columns
+// are K sends, T timers and one READY column, and the pop judges its own
+// sends (the reference does not hoist the judge there): a send departs
+// from the TX bucket, tx = max(pt, tx_free), the sends of one pop
+// serialized in lane order with dropped ones included; latency,
+// reliability and the drop rolls are keyed on the pop time pt (the epoch
+// too, engine.py:954-958); delivery is depart + latency with the
+// causality bump; n_sent and n_drop count here; a dead send is written
+// only under the path counters (cp), as DROP_T. A popped KIND_PACKET is
+// the RX stage: the app sees nothing, the download bucket and CoDel
+// (every select in engine.py:1052-1104's order; the control law read
+// from the host-built LAW table) drop it or write a KIND_PACKET_READY row
+// at rx_deliver with the popped key, which the app sees as a KIND_PACKET
+// when it pops; deliveries count on READY pops; the checksum folds both
+// stages. Serialization is size * 8e9 / bw in int64 integer division
+// (sizes clamp to 1 GiB, so the product stays below 2^63). The dirty
+// mark then reads the written rows' own times: a delivered self-send, a
+// timer or a READY row below win_end.
 //
 // Bound on the H100: bytes. Per host it reads the popped heap rows and a
 // few counters and writes its outbox row: t of every column, which marks
 // the unused ones, and five fields per send or timer. It writes all five
 // fields of every column, zeros where unused, so it moves more than the
 // bound; PHOLD's threefry draws cost 73 integer ops a block, Tor's routes
-// four blocks a relay packet and two a client REQ. Design for
-// correctness first: one thread per host writes its row with a stride of
-// OB*8 bytes between neighbouring threads, so stores are not coalesced;
-// a warp-per-host or transposed outbox is later work.
+// four blocks a relay packet and two a client REQ; the model NIC adds
+// seven int64 leaves read and written per host and two threefry blocks a
+// packet for the in-step drop rolls. Design for correctness first: one
+// thread per host writes its row with a stride of OB*8 bytes between
+// neighbouring threads, so stores are not coalesced; a warp-per-host or
+// transposed outbox is later work.
+#include <type_traits>
+
 #include "common.cuh"
 #include "threefry.cuh"
 #include "topo.cuh"
+
+namespace shadow {
+
+// The model NIC's arguments: its [H] int64 leaves, the hosts'
+// bandwidths, the CoDel law table, the counters the in-step judge adds
+// to, the drop key's seed and the path-counter flag. mb = 0: no NIC,
+// every pointer null. Outside the unnamed namespace: the C entry points
+// take it, and a type of internal linkage in their signatures would
+// give them internal linkage too.
+struct NicArgs {
+    int mb, cp;
+    long long boot_end;
+    unsigned seed1, seed2;
+    int64_t *tx_free, *rx_free, *cd_fa, *cd_next, *cd_cnt, *cd_last,
+        *cd_drop;
+    const int64_t *bw_up, *bw_down, *law;
+    int32_t *n_sent, *n_drop;
+};
+
+inline bool nic_ok(const NicArgs* n) {
+    if (n == nullptr) return false;
+    if (!n->mb) return true;
+    return n->tx_free && n->rx_free && n->cd_fa && n->cd_next &&
+           n->cd_cnt && n->cd_last && n->cd_drop && n->bw_up &&
+           n->bw_down && n->law && n->n_sent && n->n_drop;
+}
+
+}  // namespace shadow
 
 using namespace shadow;
 
 namespace {
 
 constexpr int32_t KIND_TIMER = 1;
+constexpr int32_t KIND_PACKET_READY = 8;
 constexpr uint32_t ALL_LANES = 0xFFFFFFFFu;
+// the model NIC (shadow_tpu_torch/host/model_nic.py)
+constexpr int64_t CODEL_TARGET_NS = 10 * 1000000ll;
+constexpr int64_t CODEL_INTERVAL_NS = 100 * 1000000ll;
+constexpr int LAW_SIZE = 1024;
+constexpr int64_t MAX_SER_BYTES = int64_t(1) << 30;
+constexpr int64_t NS_X8 = 8ll * 1000000000ll;
 // tgen (shadow_tpu_torch/core/tgen_args.py)
 constexpr int32_t TAG_REQ = 1;
 constexpr int32_t TAG_DATA = 2;
@@ -93,19 +156,58 @@ struct Event {
     int32_t src, kind, size, d0, d1, d2;
 };
 
+// One host's model NIC, held in registers for the launch.
+struct Nic {
+    int64_t tx_free, rx_free, cd_fa, cd_next, cd_cnt, cd_last, cd_drop;
+    int64_t bw_up, bw_down;
+    int32_t sent, lost;
+};
+
+__device__ __forceinline__ int64_t serialize_ns(int32_t size, int64_t bw) {
+    const int64_t sz = size < 1 ? 1
+                       : ((int64_t)size > MAX_SER_BYTES ? MAX_SER_BYTES
+                                                        : (int64_t)size);
+    return sz * NS_X8 / bw;
+}
+
+// The model NIC's part of a host's outbox: its NIC and the in-step
+// judge's keys.
+struct NicLanes {
+    const int32_t* host_vertex;
+    int H;
+    bool cp;
+    int64_t boot_end;
+    Key drop_key;
+    const int64_t* law;
+    Nic nic;
+    int64_t pt;             // the pop's time
+    int64_t tx;             // the TX bucket's cursor within the pop
+};
+struct Absent {};
+
 // The outbox of one host: the current iteration's lane block, the
-// running event and packet seqs, and the dirty mark.
+// running event and packet seqs, and the dirty mark; the tables where
+// the epoch axis or the model NIC reads them (one epoch without the NIC
+// needs only the host's self latency, read once); under the model NIC
+// also its part. An instantiation carries only the members it reads:
+// with all of them the one-epoch pop ran 16% slower at 1,000,000 hosts
+// (PERF.md).
+template <class Topo, bool MB>
 struct Lanes {
     int64_t *t, *k, *m, *s, *v;
     int64_t block;          // first column of this iteration
-    int K, C;
+    int K, T, C;
     uint32_t h, es, ps;
-    int64_t selflat, win_end;
+    int64_t win_end;
     bool dirty;
     // the iteration's timer (T <= 1), written after every send
     bool timer_on;
     int64_t timer_t;
     int32_t timer_d0;
+    int vtx;
+    int64_t selflat;        // one epoch: the host's self latency
+    std::conditional_t<Topo::EPOCHS || MB, Topo, Absent> topo;
+    std::conditional_t<MB, NicLanes, Absent> x;
 
     // a send row: `count` packets (a train), the lanes set in `mask`
     // live (a forwarded train's survivors)
@@ -114,16 +216,116 @@ struct Lanes {
                          uint32_t mask) {
         const int32_t cnt = clampi(count, 1, C);
         const int64_t col = block + lane;
-        t[col] = lt;
-        k[col] = pack2(h, es);
-        m[col] = pack2(dst, (uint32_t)(KIND_PACKET | (cnt << 8)));
-        s[col] = pack2((uint32_t)size, (uint32_t)d0);
-        v[col] = pack2(mask, (uint32_t)d1);
+        if constexpr (MB) {
+            judged_send(col, dst, size, d0, d1, cnt, mask);
+        } else {
+            t[col] = lt;
+            k[col] = pack2(h, es);
+            m[col] = pack2(dst, (uint32_t)(KIND_PACKET | (cnt << 8)));
+            s[col] = pack2((uint32_t)size, (uint32_t)d0);
+            v[col] = pack2(mask, (uint32_t)d1);
+            // an in-window self-send must land before the next pop,
+            // judged on the self latency at its departure
+            if (dst == h) {
+                int64_t sl = selflat;
+                if constexpr (Topo::EPOCHS)
+                    sl = topo.self_lat(topo.epoch(lt), vtx);
+                if (lt + sl < win_end) dirty = true;
+            }
+        }
         ++es;
         ps += (uint32_t)cnt;
-        // an in-window self-send must land before the next pop
-        if (dst == h && lt + selflat < win_end) dirty = true;
     }
+
+    // the model NIC's send: TX departure, then the judgment at the pop
+    // time, the row's packet seqs from ps
+    __device__ void judged_send(int64_t col, uint32_t dst, int32_t size,
+                                int32_t d0, int32_t d1, int32_t cnt,
+                                uint32_t mask) {
+        const int64_t depart = x.tx;
+        x.tx += serialize_ns(size, x.nic.bw_up);
+        const int e = topo.epoch(x.pt);
+        const int dh = (int)dst < 0 ? 0
+                       : ((int)dst > x.H - 1 ? x.H - 1 : (int)dst);
+        const int vd = x.host_vertex[dh];
+        const int64_t latv = topo.lat(e, vtx, vd);
+        const float relv = topo.rel(e, vtx, vd);
+        const uint32_t wbits = cnt >= 32 ? 0xFFFFFFFFu : (1u << cnt) - 1u;
+        const uint32_t live = mask & wbits;
+        const bool lossy = relv < 1.0f && x.pt >= x.boot_end;
+        uint32_t surv = 0;
+        for (int j = 0; j < C; ++j) {
+            if (!((live >> j) & 1u)) continue;
+            bool drop = false;
+            if (lossy)
+                drop = uniform01(fold_in(x.drop_key, ps + (uint32_t)j)) >=
+                       relv;
+            if (!drop) surv |= 1u << j;
+        }
+        const int livecnt = __popc(live);
+        x.nic.sent += livecnt;
+        x.nic.lost += livecnt - __popc(surv);
+        int64_t deliver = depart + latv;
+        if (dst != h && deliver < win_end) deliver = win_end;
+        if (surv != 0 || x.cp) {
+            t[col] = surv != 0 ? deliver : DROP_T;
+            k[col] = pack2(h, es);
+            m[col] = pack2(dst, (uint32_t)(KIND_PACKET | (livecnt << 8)));
+            s[col] = pack2((uint32_t)size, (uint32_t)d0);
+            v[col] = pack2(surv, (uint32_t)d1);
+        }
+        if (surv != 0 && dst == h && deliver < win_end) dirty = true;
+    }
+
+    // the model NIC's RX stage of a popped KIND_PACKET: the download
+    // bucket and CoDel; a kept packet becomes the READY row
+    __device__ void receive(const Event& e, int64_t pk2) {
+        const int64_t dq = x.pt > x.nic.rx_free ? x.pt : x.nic.rx_free;
+        const bool below = dq - x.pt < CODEL_TARGET_NS;
+        const bool fa0 = x.nic.cd_fa == 0;
+        const bool above = !below && !fa0 && dq >= x.nic.cd_fa;
+        const bool in_drop = x.nic.cd_drop != 0;
+        const bool drop_now = above && in_drop && dq >= x.nic.cd_next;
+        const bool drop_first = above && !in_drop;
+        const int64_t delta = x.nic.cd_cnt - x.nic.cd_last;
+        const int64_t first_cnt =
+            (dq - x.nic.cd_next < CODEL_INTERVAL_NS && delta > 1) ? delta
+                                                                  : 1;
+        const int64_t new_cnt = drop_now ? x.nic.cd_cnt + 1
+                                : (drop_first ? first_cnt : x.nic.cd_cnt);
+        const int64_t li = new_cnt < 0 ? 0
+                           : (new_cnt > LAW_SIZE - 1 ? LAW_SIZE - 1
+                                                     : new_cnt);
+        const int64_t lw = __ldg(&x.law[li]);
+        const int64_t new_next = drop_now ? x.nic.cd_next + lw
+                                 : (drop_first ? dq + lw : x.nic.cd_next);
+        const int64_t new_last = drop_first ? first_cnt : x.nic.cd_last;
+        const int64_t new_fa =
+            below ? 0 : (fa0 ? dq + CODEL_INTERVAL_NS : x.nic.cd_fa);
+        const int64_t new_drop =
+            below ? 0
+                  : (fa0 ? x.nic.cd_drop
+                         : (above ? (in_drop ? x.nic.cd_drop : 1) : 0));
+        x.nic.cd_cnt = new_cnt;
+        x.nic.cd_next = new_next;
+        x.nic.cd_last = new_last;
+        x.nic.cd_fa = new_fa;
+        x.nic.cd_drop = new_drop;
+        if (drop_now || drop_first) {
+            x.nic.lost += 1;
+            return;
+        }
+        const int64_t deliver = dq + serialize_ns(e.size, x.nic.bw_down);
+        x.nic.rx_free = deliver;
+        const int64_t col = block + K + T;
+        t[col] = deliver;
+        k[col] = pk2;
+        m[col] = pack2(h, (uint32_t)KIND_PACKET_READY);
+        s[col] = pack2((uint32_t)e.size, (uint32_t)e.d0);
+        v[col] = pack2((uint32_t)e.d2, (uint32_t)e.d1);
+        if (deliver < win_end) dirty = true;
+    }
+
     __device__ void timer(int64_t tt, int32_t d0) {
         timer_on = true;
         timer_t = tt;
@@ -165,8 +367,9 @@ struct PholdApp {
         app_seq[h] = (int32_t)st.as;
     }
     __device__ bool burst(const Host&) const { return false; }
+    template <class Out>
     __device__ void event(int, int h, const Event& e, Host& st,
-                          Lanes& out) const {
+                          Out& out) const {
         const int nsend = e.kind == KIND_BOOT ? msgload
                           : e.kind == KIND_PACKET ? 1 : 0;
         if (e.kind == KIND_PACKET) ++st.received;
@@ -278,7 +481,8 @@ struct TgenApp {
     // the stateless answer to a REQ for chunk start d1: the chunk
     // [d1, d1+cnt) as one train of MSS packets, the last one short where
     // the chunk ends the file
-    __device__ void serve(int lane, const Event& e, Lanes& out) const {
+    template <class Out>
+    __device__ void serve(int lane, const Event& e, Out& out) const {
         if (!(e.kind == KIND_PACKET && e.d0 == TAG_REQ)) return;
         const int32_t cnt = clampi(wsub(npkts, e.d1), 0, chunk);
         if (cnt <= 0) return;
@@ -289,8 +493,9 @@ struct TgenApp {
                  ALL_LANES);
     }
 
+    template <class Out>
     __device__ void event(int j, int h, const Event& e, Host& st,
-                          Lanes& out) const {
+                          Out& out) const {
         const int32_t role = st.w[0];
         if (role == 0) {          // server: every column answers a REQ
             serve(j, e, out);
@@ -373,8 +578,9 @@ struct TorApp {
     // is partial); the middle and the guard forward a train's survivors
     // as its live mask (middle -> guard -> client), and a train with no
     // survivor is not sent
+    template <class Out>
     __device__ void relay(int lane, int h, const Event& e,
-                          Lanes& out) const {
+                          Out& out) const {
         if (e.kind != KIND_PACKET) return;
         const bool req = e.d0 == TAG_TOR_REQ;
         if (!req && !(e.d0 == TAG_TOR_DATA && e.d2 != 0)) return;
@@ -405,8 +611,9 @@ struct TorApp {
                      CHUNK_CELLS, (uint32_t)e.d2);
     }
 
+    template <class Out>
     __device__ void event(int j, int h, const Event& e, Host& st,
-                          Lanes& out) const {
+                          Out& out) const {
         const int32_t role = st.w[0];
         if (role == 0) {          // relay: every column is a relay lane
             relay(j, h, e, out);
@@ -443,11 +650,11 @@ struct PopArgs {
     int32_t* pops;
 };
 
-template <class App, class Topo>
-__global__ void pop_kernel(PopArgs a, App app, Topo topo) {
+template <class App, class Topo, bool MB>
+__global__ void pop_kernel(PopArgs a, App app, Topo topo, NicArgs na) {
     const int h = blockIdx.x * blockDim.x + threadIdx.x;
     if (h >= a.H) return;
-    const int M = a.K + a.T;
+    const int M = a.K + a.T + (MB ? 1 : 0);
     const int OB = a.B * M;
     const int64_t row = (int64_t)h * OB;
     for (int c = 0; c < OB; ++c) {
@@ -458,24 +665,50 @@ __global__ void pop_kernel(PopArgs a, App app, Topo topo) {
         a.ob_v[row + c] = 0;
     }
     const int64_t hrow = (int64_t)h * a.E;
-    const int vtx = a.host_vertex[h];
-    Lanes out{a.ob_t, a.ob_k, a.ob_m, a.ob_s, a.ob_v, row, a.K, a.C,
-              (uint32_t)h, (uint32_t)a.event_seq[h],
-              (uint32_t)a.packet_seq[h], topo.self_lat(vtx),
-              a.win_end, false, false, 0, 0};
+    Lanes<Topo, MB> out{};
+    out.t = a.ob_t;
+    out.k = a.ob_k;
+    out.m = a.ob_m;
+    out.s = a.ob_s;
+    out.v = a.ob_v;
+    out.block = row;
+    out.K = a.K;
+    out.T = a.T;
+    out.C = a.C;
+    out.h = (uint32_t)h;
+    out.es = (uint32_t)a.event_seq[h];
+    out.ps = (uint32_t)a.packet_seq[h];
+    out.win_end = a.win_end;
+    out.vtx = a.host_vertex[h];
+    if constexpr (Topo::EPOCHS || MB) out.topo = topo;
+    if constexpr (!Topo::EPOCHS) out.selflat = topo.self_lat(0, out.vtx);
+    if constexpr (MB) {
+        out.x.host_vertex = a.host_vertex;
+        out.x.H = a.H;
+        out.x.cp = na.cp != 0;
+        out.x.boot_end = (int64_t)na.boot_end;
+        out.x.drop_key = purpose_id_key(Key{na.seed1, na.seed2},
+                                        PURPOSE_PACKET_DROP, (uint32_t)h);
+        out.x.law = na.law;
+        out.x.nic = Nic{na.tx_free[h], na.rx_free[h], na.cd_fa[h],
+                        na.cd_next[h], na.cd_cnt[h], na.cd_last[h],
+                        na.cd_drop[h], na.bw_up[h], na.bw_down[h], 0, 0};
+    }
     typename App::Host st = app.load(h);
     int hd = a.head[h];
     uint32_t ne = (uint32_t)a.n_exec[h];
     uint32_t nd = (uint32_t)a.n_deliv[h];
     uint64_t c = (uint64_t)a.chk[h];
+    // deliveries count on the pops the app sees as packets
+    const int32_t deliv_kind = MB ? KIND_PACKET_READY : KIND_PACKET;
     int blk = 0;
     for (; blk < a.B; ++blk) {
         const int64_t pt = hd < a.E ? a.ht[hrow + hd] : INF;
         if (!(pt < a.win_end) || out.dirty) break;
         // the run a burst host pops: consecutive in-window packets from
-        // its head, up to P; one event otherwise
+        // its head, up to P; one event otherwise (always under MB)
         int n = 1;
-        if (a.P > 1 && app.burst(st)) {
+        if (!MB && a.P > 1 && app.burst(st)) {
             int run = 0;
             while (run < a.P) {
                 const int i = hd + run;
@@ -496,13 +729,27 @@ __global__ void pop_kernel(PopArgs a, App app, Topo topo) {
                     hi32(pv), lo32(pv), lo32(a.hw[slot])};
             const int32_t pseq = lo32(pk2);
             ++ne;
-            if (e.kind == KIND_PACKET) nd += __popc((uint32_t)e.d2);
+            if (e.kind == deliv_kind) nd += __popc((uint32_t)e.d2);
             const uint64_t mix =
                 ((uint64_t)e.t ^ ((uint64_t)(int64_t)e.src * CHK_SRC) ^
                  ((uint64_t)(int64_t)e.kind * CHK_KIND) ^
                  ((uint64_t)(int64_t)pseq * CHK_SEQ)) & MASK63;
             c = (c * CHK_MUL + mix) & MASK63;
-            app.event(j, h, e, st, out);
+            if constexpr (MB) {
+                // the TX bucket starts at max(pt, tx_free) on every pop
+                out.x.pt = e.t;
+                out.x.tx = e.t > out.x.nic.tx_free ? e.t
+                                                   : out.x.nic.tx_free;
+                if (e.kind == KIND_PACKET) {
+                    out.receive(e, pk2);
+                } else {
+                    if (e.kind == KIND_PACKET_READY) e.kind = KIND_PACKET;
+                    app.event(j, h, e, st, out);
+                }
+                out.x.nic.tx_free = out.x.tx;
+            } else {
+                app.event(j, h, e, st, out);
+            }
         }
         out.end_iteration();
         hd += n;
@@ -515,25 +762,40 @@ __global__ void pop_kernel(PopArgs a, App app, Topo topo) {
     a.n_deliv[h] = (int32_t)nd;
     a.chk[h] = (int64_t)c;
     a.pops[h] = blk;
+    if constexpr (MB) {
+        const Nic& n = out.x.nic;
+        na.tx_free[h] = n.tx_free;
+        na.rx_free[h] = n.rx_free;
+        na.cd_fa[h] = n.cd_fa;
+        na.cd_next[h] = n.cd_next;
+        na.cd_cnt[h] = n.cd_cnt;
+        na.cd_last[h] = n.cd_last;
+        na.cd_drop[h] = n.cd_drop;
+        na.n_sent[h] += n.sent;
+        na.n_drop[h] += n.lost;
+    }
 }
 
-template <class App, class Topo>
-void launch_on(const PopArgs& a, const App& app, Topo topo,
-               cudaStream_t stream) {
-    const int threads = 128;
-    pop_kernel<App, Topo><<<(a.H + threads - 1) / threads, threads, 0,
-                            stream>>>(a, app, topo);
-}
-
+// Launch the instantiation the tables and the NIC flag select.
 template <class App>
 int launch(const PopArgs& a, const App& app, const TopoArgs* topo,
-           void* stream) {
-    if (!topo_ok(topo)) return (int)cudaErrorInvalidValue;
+           const NicArgs* nic, void* stream) {
+    if (!topo_ok(topo) || !nic_ok(nic) || (nic->mb && a.P != 1))
+        return (int)cudaErrorInvalidValue;
     if (a.H > 0) {
-        if (topo->hier)
-            launch_on(a, app, hier_topo(*topo), (cudaStream_t)stream);
-        else
-            launch_on(a, app, dense_topo(*topo), (cudaStream_t)stream);
+        const int threads = 128;
+        const int blocks = (a.H + threads - 1) / threads;
+        with_topo(*topo, [&](auto view) {
+            using Topo = decltype(view);
+            if (nic->mb)
+                pop_kernel<App, Topo, true>
+                    <<<blocks, threads, 0, (cudaStream_t)stream>>>(
+                        a, app, view, *nic);
+            else
+                pop_kernel<App, Topo, false>
+                    <<<blocks, threads, 0, (cudaStream_t)stream>>>(
+                        a, app, view, *nic);
+        });
     }
     return (int)cudaGetLastError();
 }
@@ -547,7 +809,8 @@ extern "C" int shadow_pop_phase(
     int32_t* head, int32_t* event_seq, int32_t* packet_seq,
     int32_t* app_seq, int32_t* app, int32_t* n_exec, int32_t* n_deliv,
     int64_t* chk, const int32_t* host_vertex, const TopoArgs* topo,
-    unsigned seed1, unsigned seed2, int n_total, int msgload, int size,
+    const NicArgs* nic, unsigned seed1, unsigned seed2, int n_total,
+    int msgload, int size,
     int selfloop, int64_t* ob_t, int64_t* ob_k, int64_t* ob_m,
     int64_t* ob_s, int64_t* ob_v, int32_t* pops, void* stream) {
     const PopArgs a{H, E, K, 0, 1, B, 1, (int64_t)win_end,
@@ -556,7 +819,7 @@ extern "C" int shadow_pop_phase(
                     ob_t, ob_k, ob_m, ob_s, ob_v, pops};
     const PholdApp p{app, app_seq, (uint32_t)n_total, msgload, size,
                      selfloop, Key{seed1, seed2}};
-    return launch(a, p, topo, stream);
+    return launch(a, p, topo, nic, stream);
 }
 
 extern "C" int shadow_pop_tgen(
@@ -565,7 +828,7 @@ extern "C" int shadow_pop_tgen(
     const int64_t* hv, const int64_t* hw,
     int32_t* head, int32_t* event_seq, int32_t* packet_seq, int32_t* app,
     int32_t* n_exec, int32_t* n_deliv, int64_t* chk,
-    const int32_t* host_vertex, const TopoArgs* topo,
+    const int32_t* host_vertex, const TopoArgs* topo, const NicArgs* nic,
     const int32_t* count, const int64_t* pause, const int64_t* retry,
     int npkts, int last_sz, int chunk, int mss, int64_t* ob_t,
     int64_t* ob_k,
@@ -577,7 +840,7 @@ extern "C" int shadow_pop_tgen(
                     n_exec, n_deliv, chk, host_vertex,
                     ob_t, ob_k, ob_m, ob_s, ob_v, pops};
     const TgenApp g{app, count, pause, retry, npkts, last_sz, chunk, mss};
-    return launch(a, g, topo, stream);
+    return launch(a, g, topo, nic, stream);
 }
 
 extern "C" int shadow_pop_tor(
@@ -586,7 +849,7 @@ extern "C" int shadow_pop_tor(
     const int64_t* hv, const int64_t* hw,
     int32_t* head, int32_t* event_seq, int32_t* packet_seq, int32_t* app,
     int32_t* n_exec, int32_t* n_deliv, int64_t* chk,
-    const int32_t* host_vertex, const TopoArgs* topo,
+    const int32_t* host_vertex, const TopoArgs* topo, const NicArgs* nic,
     const int32_t* count, const int64_t* pause, const int64_t* retry,
     const int32_t* relay_gids, int R, unsigned route_k1,
     unsigned route_k2, int cells, int64_t* ob_t, int64_t* ob_k,
@@ -599,5 +862,5 @@ extern "C" int shadow_pop_tor(
                     ob_t, ob_k, ob_m, ob_s, ob_v, pops};
     const TorApp t{app, count, pause, retry, relay_gids, (uint32_t)R,
                    Key{route_k1, route_k2}, cells};
-    return launch(a, t, topo, stream);
+    return launch(a, t, topo, nic, stream);
 }

@@ -9,13 +9,19 @@ engine allocates anything on the device. The byte model prices the
 tensors the port's engine really holds:
 
 * the state dict, one copy (the engine updates it in place; there is
-  no segment pipeline and no rewind snapshot);
-* the per-phase scratch: the five [H,OB] int64 outbox fields and the
-  [H] pop counts, and the route's outputs and scratch (K5: perm and
-  scattered rows [H*OB] int64, starts, counts, cursors and block sums
-  [H] int64); the judge and the merge work in place;
+  no segment pipeline and no rewind snapshot), with the seven [H]
+  int64 model-NIC leaves under `model_bandwidth` and the [1,V*V] int64
+  path counters under `count_paths`;
+* the per-phase scratch: the five [H,OB] int64 outbox fields (OB
+  counts the READY column under the model NIC) and the [H] pop counts,
+  and the route's outputs and scratch (K5: perm and scattered rows
+  [H*OB] int64, starts, counts, cursors and block sums [H] int64); the
+  judge, the path counters and the merge work in place;
 * the world: the host vertices, the path tables (dense [V,V], or the
-  factored leaves with one shared cl vector) and the app's columns.
+  factored leaves with one shared cl vector; under a fault schedule
+  each with its [T] epoch axis, cl still uploaded once), the epoch
+  start times, under the model NIC the [H] bandwidths and the CoDel
+  law table, and the app's columns.
 
 Transient allocations of the Python window loop (a few [H] vectors a
 phase) are not modelled: the estimate is a floor on the live bytes,
@@ -31,17 +37,22 @@ import numpy as np
 import torch
 
 from shadow_tpu_torch.device.engine import STATE_DTYPES
-from shadow_tpu_torch.device.kernels import PhaseParams
+from shadow_tpu_torch.device.kernels import (
+    NIC_KEYS,
+    PhaseParams,
+    n_vertices,
+)
 
 log = logging.getLogger("shadow_tpu_torch.admission")
 
 FOOTPRINT_TOLERANCE = 4.0
 
 
-def state_nbytes(n_hosts: int, params: PhaseParams) -> int:
+def state_nbytes(n_hosts: int, params: PhaseParams, V: int = 0) -> int:
     """Bytes of one state dict (device/engine.py STATE_DTYPES): the
     [H,E] heap fields and chk int64, app [H,W] and the [H] counters
-    int32, the three occupancy scalars."""
+    int32, the three occupancy scalars; the NIC leaves [H] int64 under
+    params.MB, the path counters [1,V*V] int64 under params.CP."""
     H, E = n_hosts, params.E
     n = 0
     for k, dt in STATE_DTYPES.items():
@@ -54,6 +65,10 @@ def state_nbytes(n_hosts: int, params: PhaseParams) -> int:
             n += size
         else:
             n += H * size
+    if params.MB:
+        n += len(NIC_KEYS) * H * 8
+    if params.CP:
+        n += V * V * 8
     return n
 
 
@@ -61,7 +76,7 @@ def footprint(n_hosts: int, params: PhaseParams, world: dict) -> dict:
     """The byte model of a run on one device. `world` holds the
     arrays the engine uploads (device/engine.py `world_arrays`)."""
     H, OB = n_hosts, params.OB
-    state = state_nbytes(H, params)
+    state = state_nbytes(H, params, n_vertices(world))
     outbox = 5 * H * OB * 8 + H * 4
     route = 2 * H * OB * 8 + 4 * H * 8
     seen, world_bytes = set(), 0

@@ -2,11 +2,19 @@
 device/engine.py, one GPU, PHOLD, tgen and Tor).
 
 The reference runs the whole simulation as one jitted program. Here the
-window loop is Python on the host, and each phase of a window is four
-CUDA kernels (device/kernels.py):
+window loop is Python on the host, and each phase of a window is a
+chain of CUDA kernels (device/kernels.py), in the order of the
+reference's `_exchange`:
 
   pop (K1 pop_phase for PHOLD, K4 pop_tgen for tgen, K6 pop_tor for
-    Tor) -> K2 judge_outbox -> K5 route -> K3 merge_heaps
+    Tor) -> K2 judge_outbox -> [K7 count_paths] -> K5 route
+    -> K3 merge_heaps
+
+Under the model NIC (`model_bandwidth`) the pop judges its own sends,
+as the reference's in-step path does, and K2 does not run; K7 runs
+under `count_paths`. Under a link-fault schedule every table carries a
+leading [T] epoch axis and `epoch_times` [T]; each lookup takes the
+epoch of its time.
 
 A window [nxt, win_end) with win_end = min(nxt + lookahead, stop_time)
 runs phases while some host's head event lies below win_end; the
@@ -29,6 +37,10 @@ state moves between the two engines as numpy arrays
                                Tor 6)
   chk [H] int64                trace checksum
   occ_x [1,1], occ_trips [1], occ_phases [1] int32
+  tx_free rx_free cd_fa cd_next cd_cnt cd_last cd_drop [H] int64
+                               the model NIC (model_bandwidth only)
+  path_cnt [1,V*V] int64       sent packets per vertex pair
+                               (count_paths only)
 
 Entry points run on the card unless the caller passes device="cpu";
 without a CUDA device they raise rather than fall back.
@@ -50,10 +62,13 @@ from shadow_tpu_torch.device.kernels import (
     DROP_T,
     IMAX,
     INF,
+    NIC_KEYS,
     OB_FIELDS,
     Kernels,
     PhaseParams,
+    n_vertices,
 )
+from shadow_tpu_torch.host.model_nic import LAW
 from shadow_tpu_torch.topology import hierarchy
 
 STATE_DTYPES = {
@@ -65,6 +80,8 @@ STATE_DTYPES = {
          "occ_heap", "occ_ob", "occ_in", "occ_x", "occ_trips",
          "occ_phases"), np.int32),
 }
+# leaves of the optional features, present when the feature is on
+OPTIONAL_DTYPES = dict.fromkeys((*NIC_KEYS, "path_cnt"), np.int64)
 
 
 class NoCudaDevice(RuntimeError):
@@ -98,16 +115,26 @@ class EngineConfig:
     # arrivals accepted per host per flush; 0 = event_capacity.
     # Overflow is counted and fails the run.
     exchange_in_capacity: int = 0
+    # bandwidth + CoDel for raw sends (host/model_nic.py): TX
+    # serialization at send, RX serialization and CoDel at delivery
+    # through a KIND_PACKET -> KIND_PACKET_READY two-stage pop
+    model_bandwidth: bool = False
+    # the [V,V] histogram of sent packets, drop-rolled ones included;
+    # needs V*V <= 65536
+    count_paths: bool = False
 
 
 def state_from_numpy(arrays: dict, device) -> dict:
     """A state dict of numpy arrays (e.g. the reference engine's
     init_state output) -> tensors on `device`, with the port's
-    dtypes."""
+    dtypes: every leaf of STATE_DTYPES, and the NIC leaves and
+    path_cnt where `arrays` has them."""
     dev = torch.device(device)
+    dtypes = {**STATE_DTYPES, **{k: v for k, v in OPTIONAL_DTYPES.items()
+                                 if k in arrays}}
     return {k: torch.from_numpy(np.ascontiguousarray(
-                np.asarray(arrays[k]).astype(STATE_DTYPES[k]))).to(dev)
-            for k in STATE_DTYPES}
+                np.asarray(arrays[k]).astype(dt))).to(dev)
+            for k, dt in dtypes.items()}
 
 
 def state_to_numpy(state: dict, keys=None) -> dict:
@@ -118,72 +145,133 @@ def phase_params(config: EngineConfig,
                  app: Union[PholdDevice, TgenDevice, TorDevice]
                  ) -> PhaseParams:
     """The static shape of a phase: the outbox layout gives an
-    iteration M_out = K_eff + T columns, a burst host answering event j
-    on lane j."""
+    iteration M_out = K_eff + T columns (+ 1 READY column under the
+    model NIC), a burst host answering event j on lane j. The model
+    NIC pops one event at a time (its buckets are sequential per
+    event): P = 1 there, whatever the app's burst width."""
     if config.event_capacity < 2:
         raise ValueError("event_capacity must be >= 2 (boot+stop)")
-    P = max(1, app.burst_pops)
+    MB = bool(config.model_bandwidth)
+    P = 1 if MB else max(1, app.burst_pops)
     if P > 1 and app.max_sends != 1:
         raise ValueError("burst_pops requires max_sends == 1")
     K = P if P > 1 else app.max_sends
     T = app.max_timers
     return PhaseParams(
         E=config.event_capacity, K=K, T=T, P=P,
-        B=max(1, config.outbox_capacity // (K + T)),
+        B=max(1, config.outbox_capacity // (K + T + (1 if MB else 0))),
         IN=config.exchange_in_capacity or config.event_capacity,
         C=max(1, app.max_train), boot_end=int(config.bootstrap_end),
-        seed=prng.seed_key(config.seed), app=app)
+        seed=prng.seed_key(config.seed), app=app, MB=MB,
+        CP=bool(config.count_paths))
 
 
 def world_arrays(n_hosts: int,
                  app: Union[PholdDevice, TgenDevice, TorDevice],
-                 host_vertex: np.ndarray, latency_ns, reliability) -> dict:
-    """The world's arrays as the card holds them: the [H] host
-    vertices, the path tables (dense [V,V], or the factored
-    (cluster, cl, access, self) leaves of hierarchy.world_tables, with
-    one shared cl vector) and the app's columns. Latency leaves and cl
-    are int32, reliability leaves float32, as the reference casts
-    them; every composed latency must fit int32."""
+                 host_vertex: np.ndarray, latency_ns, reliability,
+                 epoch_times=None, bw_up_bits=None, bw_down_bits=None,
+                 model_bandwidth: bool = False,
+                 count_paths: bool = False) -> dict:
+    """The world's arrays as the card holds them:
+
+    * the [H] host vertices;
+    * the path tables: dense [V,V], or the factored (cluster, cl,
+      access, self) leaves of hierarchy.world_tables; under a fault
+      schedule [T,V,V], or every leaf but cl with a leading [T] axis
+      (every epoch has the same cl, which is uploaded once, [V], and
+      shared by both tables);
+    * `epoch_times` [T] int64 (one epoch: [0]);
+    * under the model NIC the [H] int64 bandwidths (at least 1 bit/s;
+      1 Gbit/s where not given) and the CoDel law table [1024] int64;
+    * the app's columns.
+
+    Latency leaves and cl are int32, reliability leaves float32, as the
+    reference casts them; every composed latency must fit int32."""
+    H = n_hosts
     hier = isinstance(latency_ns, tuple)
-    over = (hierarchy.max_composed_latency(latency_ns) if hier
-            else int(np.asarray(latency_ns).max()))
+    if hier:
+        lat = tuple(np.asarray(a) for a in latency_ns)
+        rel = tuple(np.asarray(a) for a in reliability)
+        T = lat[0].shape[0] if lat[0].ndim == 3 else 1
+    else:
+        lat = np.asarray(latency_ns)
+        rel = np.asarray(reliability)
+        T = lat.shape[0] if lat.ndim == 3 else 1
+    ept = (np.zeros(T, np.int64) if epoch_times is None
+           else np.asarray(epoch_times, np.int64))
+    if ept.shape != (T,):
+        raise ValueError(f"epoch_times has {ept.size} entries but the "
+                         f"latency table has {T} epochs")
+    stacked = (lat[0].ndim == 3) if hier else (lat.ndim == 3)
+    if stacked and T == 1:
+        # one epoch: the tables without their epoch axis
+        lat = tuple(a[0] for a in lat) if hier else lat[0]
+        rel = tuple(a[0] for a in rel) if hier else rel[0]
+    epochs = T > 1
+    if hier:
+        per_epoch = ([tuple(a[e] for a in lat) for e in range(T)]
+                     if epochs else [lat])
+        over = max(hierarchy.max_composed_latency(parts)
+                   for parts in per_epoch)
+    else:
+        over = int(lat.max())
     if over > np.iinfo(np.int32).max:
         raise ValueError("path latencies above ~2.1 s don't fit the "
                          "i32 device latency matrix")
     if hier:
-        lat = tuple(np.asarray(a).astype(np.int32) for a in latency_ns)
         cl = lat[1]
+        if epochs:
+            if not ((cl == cl[0]).all() and (rel[1] == cl[0]).all()):
+                raise ValueError("factored epochs must share one cl "
+                                 "vector")
+            cl = cl[0]
+        cl = np.ascontiguousarray(cl, np.int32)
+        lat = tuple(cl if i == 1 else np.asarray(a).astype(np.int32)
+                    for i, a in enumerate(lat))
         rel = tuple(cl if i == 1 else np.asarray(a).astype(np.float32)
-                    for i, a in enumerate(reliability))
+                    for i, a in enumerate(rel))
+        V = cl.shape[0]
     else:
-        lat = np.asarray(latency_ns)
-        if lat.ndim != 2:
-            raise ValueError("the port takes one [V,V] latency table "
-                             "(fault epochs are a later item)")
         lat = lat.astype(np.int32)
-        rel = np.asarray(reliability).astype(np.float32)
-    return {"host_vertex": np.asarray(host_vertex)[:n_hosts].astype(
-                np.int32),
-            "lat": lat, "rel": rel,
-            # the app's columns: [H] client args, Tor's [R] relay ids
-            **app.world_columns()}
+        rel = rel.astype(np.float32)
+        V = lat.shape[-1]
+    if count_paths and V * V > 65536:
+        raise ValueError(
+            "count_paths needs V*V <= 65536 (histogram boundaries "
+            f"scale with V^2; this graph has V={V})")
+    out = {"host_vertex": np.asarray(host_vertex)[:H].astype(np.int32),
+           "lat": lat, "rel": rel, "epoch_times": ept}
+    if model_bandwidth:
+        for key, bw in (("bw_up", bw_up_bits), ("bw_down", bw_down_bits)):
+            out[key] = (np.full(H, 10**9, np.int64) if bw is None else
+                        np.maximum(1, np.asarray(bw, np.int64)[:H]))
+        out["law"] = LAW
+    # the app's columns: [H] client args, Tor's [R] relay ids
+    out.update(app.world_columns())
+    return out
 
 
 class DeviceEngine:
-    """`latency_ns`/`reliability` are dense [V,V] arrays or the
-    factored part tuples of hierarchy.world_tables."""
+    """`latency_ns`/`reliability`/`epoch_times` are what
+    hierarchy.world_tables gives: dense arrays or the factored part
+    tuples, with a leading [T] epoch axis under a fault schedule;
+    `bw_up_bits`/`bw_down_bits` are the hosts' model-NIC bandwidths."""
 
     def __init__(self, config: EngineConfig,
                  app: Union[PholdDevice, TgenDevice, TorDevice],
                  host_vertex: np.ndarray, latency_ns, reliability,
-                 device="cuda", kernels: Optional[Kernels] = None):
+                 device="cuda", kernels: Optional[Kernels] = None,
+                 epoch_times=None, bw_up_bits=None, bw_down_bits=None):
         self.config = config
         self.app = app
         self.device = resolve_device(device)
         self.kernels = kernels if kernels is not None else Kernels()
         self.params = phase_params(config, app)
         arrays = world_arrays(config.n_hosts, app, host_vertex,
-                              latency_ns, reliability)
+                              latency_ns, reliability, epoch_times,
+                              bw_up_bits, bw_down_bits,
+                              config.model_bandwidth, config.count_paths)
+        self.n_vertices = n_vertices(arrays)
         dev = self.device
         uploaded = {}
 
@@ -239,6 +327,12 @@ class DeviceEngine:
         }
         for k in STATE_DTYPES:
             arrays.setdefault(k, zeros)
+        if self.config.model_bandwidth:
+            for k in NIC_KEYS:
+                arrays[k] = np.zeros(H, np.int64)
+        if self.config.count_paths:
+            arrays["path_cnt"] = np.zeros((1, self.n_vertices ** 2),
+                                          np.int64)
         return state_from_numpy(arrays, self.device)
 
     # ------------------------------------------------------------------
@@ -255,17 +349,22 @@ class DeviceEngine:
         return self._buf
 
     def phase(self, state: dict, win_end: int) -> None:
-        """One phase: pops (K1, K4 or K6), then the flush: judge (K2),
-        route (K5), merge (K3). Updates `state` in place. The caller
-        runs a phase only when some host's head time lies below
-        win_end, so every phase pops and flushes (the reference skips the flush of a phase
-        that popped nothing, which cannot happen here)."""
+        """One phase: pops (K1, K4 or K6), then the flush: judge (K2,
+        not under the model NIC, whose pops judge), path counters (K7,
+        under count_paths), route (K5), merge (K3). Updates `state` in
+        place. The caller runs a phase only when some host's head time
+        lies below win_end, so every phase pops and flushes (the
+        reference skips the flush of a phase that popped nothing, which
+        cannot happen here)."""
         p, k = self.params, self.kernels
         ob, pops = self._outbox()
         k.pop(state, ob, pops, self.world, win_end, p)
         state["occ_trips"].copy_(torch.maximum(state["occ_trips"],
                                                pops.max().view(1)))
-        k.judge_outbox(state, ob, self.world, win_end, p)
+        if not p.MB:
+            k.judge_outbox(state, ob, self.world, win_end, p)
+        if p.CP:
+            k.count_paths(state, ob, self.world)
         state["occ_ob"].copy_(torch.maximum(
             state["occ_ob"], (ob["t"] < DROP_T).sum(-1).to(torch.int32)))
         state["occ_phases"] += 1

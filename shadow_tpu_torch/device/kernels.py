@@ -47,7 +47,11 @@ from typing import Union
 
 import torch
 
-from shadow_tpu_torch.core.event import KIND_PACKET, KIND_TIMER
+from shadow_tpu_torch.core.event import (
+    KIND_PACKET,
+    KIND_PACKET_READY,
+    KIND_TIMER,
+)
 from shadow_tpu_torch.core.tgen_args import MSS
 from shadow_tpu_torch.device import prng
 from shadow_tpu_torch.device.apps import (
@@ -57,6 +61,12 @@ from shadow_tpu_torch.device.apps import (
     popcount32,
 )
 from shadow_tpu_torch.device.netsem import packet_drop_mask
+from shadow_tpu_torch.host.model_nic import (
+    CODEL_INTERVAL_NS,
+    CODEL_TARGET_NS,
+    LAW_SIZE,
+    MAX_SER_BYTES,
+)
 from shadow_tpu_torch.topology.hierarchy import gather_parts_plain
 from shadow_tpu_torch.utils.checksum import (
     CHK_KIND,
@@ -71,14 +81,33 @@ INF = 1 << 62
 DROP_T = INF - 1
 IMAX = (1 << 63) - 1
 U32 = 0xFFFFFFFF
+NS_X8 = 8 * 1_000_000_000      # bits per byte x ns per second
 
 # the kernels that read the path tables, each launched on dense or on
-# factored tables; a factored launch counts as f"{name}{HIER}"
-TOPO_KERNELS = ("pop_phase", "pop_tgen", "pop_tor", "judge_outbox")
+# factored tables, with one epoch or a fault schedule's T > 1; a pop
+# also with or without the model NIC. Each combination is its own
+# instantiation and counts under its own name: f"{name}{NIC}{EP}{HIER}"
+# with the parts that apply (`launch_name`)
+POP_KERNELS = ("pop_phase", "pop_tgen", "pop_tor")
+TOPO_KERNELS = (*POP_KERNELS, "judge_outbox")
+NIC = "_nic"
+EP = "_ep"
 HIER = "_hier"
-KERNEL_NAMES = ("pop_phase", "pop_tgen", "pop_tor", "judge_outbox",
-                "route", "merge_heaps",
-                *(n + HIER for n in TOPO_KERNELS))
+NIC_KEYS = ("tx_free", "rx_free", "cd_fa", "cd_next", "cd_cnt",
+            "cd_last", "cd_drop")
+
+
+def launch_name(name: str, nic: bool = False, epochs: bool = False,
+                hier: bool = False) -> str:
+    return name + (NIC if nic else "") + (EP if epochs else "") + \
+        (HIER if hier else "")
+
+
+KERNEL_NAMES = tuple(
+    launch_name(n, nic, ep, hr) for n in TOPO_KERNELS
+    for nic in ((False, True) if n in POP_KERNELS else (False,))
+    for ep in (False, True) for hr in (False, True)) + \
+    ("route", "merge_heaps", "count_paths")
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC.parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -95,9 +124,11 @@ def _ptr(t: torch.Tensor) -> int:
 class PhaseParams:
     """The static shape of one phase (EngineConfig plus the app).
 
-    An iteration of the pop loop owns M_out = K + T outbox columns:
-    K send lanes, then T timer lanes. A burst host pops up to P
-    events in one iteration and answers event j on lane j (K = P)."""
+    An iteration of the pop loop owns M_out = K + T (+ 1 under the
+    model NIC) outbox columns: K send lanes, then T timer lanes, then
+    the NIC's READY column. A burst host pops up to P events in one
+    iteration and answers event j on lane j (K = P); under the model
+    NIC P is 1."""
     E: int                  # heap slots per host
     K: int                  # send lanes per iteration
     T: int                  # timer lanes per iteration
@@ -108,10 +139,12 @@ class PhaseParams:
     boot_end: int           # no drops before this time
     seed: tuple             # (k1, k2) u32 seed key
     app: Union[PholdDevice, TgenDevice, TorDevice]
+    MB: bool = False        # model NIC: judge in the pop, READY column
+    CP: bool = False        # path counters: dead rows kept as DROP_T
 
     @property
     def M_out(self) -> int:
-        return self.K + self.T
+        return self.K + self.T + (1 if self.MB else 0)
 
     @property
     def OB(self) -> int:
@@ -133,13 +166,29 @@ def lo32(x):
     return (x & U32).to(torch.int32)
 
 
-def table_lookup(tab, sv: torch.Tensor, dv: torch.Tensor) -> torch.Tensor:
-    """One path table at (sv, dv), broadcast: a dense [V,V] gather, or
+def epoch_of(t: torch.Tensor, epoch_times: torch.Tensor):
+    """The epoch of each time in `t`: the count of epoch starts <= t,
+    minus 1 (the reference engine's `_ep_of`); None for a single
+    epoch, whose tables have no epoch axis."""
+    if epoch_times.shape[0] == 1:
+        return None
+    return (t[..., None] >= epoch_times).sum(-1) - 1
+
+
+def table_lookup(tab, sv: torch.Tensor, dv: torch.Tensor,
+                 e=None) -> torch.Tensor:
+    """One path table at (sv, dv), broadcast, in epoch `e` (None: the
+    tables have no epoch axis): a dense [V,V] or [T,V,V] gather, or
     the two-level lookup of a factored (cluster, cl, access, self)
-    tuple (the reference engine's `_tbl`, single epoch)."""
+    tuple (the reference engine's `_tbl`)."""
     if isinstance(tab, tuple):
-        return gather_parts_plain(tab, sv, dv)
-    return tab[sv, dv]
+        return gather_parts_plain(tab, sv, dv, e)
+    return tab[sv, dv] if e is None else tab[e, sv, dv]
+
+
+def _wbits(cnt: torch.Tensor) -> torch.Tensor:
+    """The low `cnt` bits of a u32 (all 32 from 32 up)."""
+    return torch.where(cnt >= 32, U32, (1 << cnt.clamp(0, 31).long()) - 1)
 
 
 # ----------------------------------------------------------------------
@@ -149,43 +198,54 @@ def pop_plain(state: dict, ob: dict, pops: torch.Tensor, world: dict,
               win_end: int, p: PhaseParams) -> None:
     """Pop events below `win_end`, in lockstep over hosts, exactly as
     the reference's pop loop: a host stops at the window end, at
-    `dirty` (an in-window self-send or timer it must not pass) or
-    after B iterations, and stays stopped for the rest of the phase.
-    Each iteration pops one event per runnable host; with P > 1 a
-    burst host (`app.burst_mask`) whose head is an in-window packet
-    pops the run of consecutive in-window packets from its head, up
-    to P. Iteration j of a host writes outbox columns
-    [j*M_out, (j+1)*M_out): sends on lanes 0..K-1 (each departing at
-    its own event's time), then timers; unused columns hold t = INF
-    and zeros. A send row's v hi word is its live-lane mask (the app's
+    `dirty` (an in-window self-send, timer or READY row it must not
+    pass) or after B iterations, and stays stopped for the rest of the
+    phase. Each iteration pops one event per runnable host; with P > 1
+    a burst host (`app.burst_mask`) whose head is an in-window packet
+    pops the run of consecutive in-window packets from its head, up to
+    P. Iteration j of a host writes outbox columns [j*M_out,
+    (j+1)*M_out): sends on lanes 0..K-1 (each departing at its own
+    event's time), then timers; unused columns hold t = INF and zeros.
+    A send row's v hi word is its live-lane mask (the app's
     `send_mask`, all ones when it gives none). `pops[h]` receives the
-    host's iteration count."""
+    host's iteration count.
+
+    Under the model NIC (p.MB, P = 1) the pop also judges its sends
+    (the reference's in-step path): TX serialization from `tx_free`,
+    latency and drop rolls keyed on the pop time, the causality bump;
+    n_sent/n_drop count here, and a dead send is written only under
+    p.CP, as DROP_T. A popped KIND_PACKET is the RX stage: the app
+    does not see it; the download bucket and CoDel drop it or write a
+    KIND_PACKET_READY row in the READY column, which the app sees as a
+    packet when it pops."""
     E, K, T, P, B, C, app = p.E, p.K, p.T, p.P, p.B, p.C, p.app
-    M = p.M_out
+    M, MB = p.M_out, p.MB
     dev = state["head"].device
     H = state["head"].shape[0]
     gid = torch.arange(H, dtype=torch.int32, device=dev)
     hv = world["host_vertex"].long()
-    selflat = table_lookup(world["lat"], hv, hv).to(torch.int64)
+    ept = world["epoch_times"]
+    # one epoch: the self latency read once
+    selflat1 = (table_lookup(world["lat"], hv, hv).long()[:, None]
+                if ept.shape[0] == 1 else None)
     for f in OB_FIELDS:
         ob[f].fill_(INF if f == "t" else 0)
-    head = state["head"].clone()
-    chk = state["chk"].clone()
-    n_exec = state["n_exec"].clone()
-    n_deliv = state["n_deliv"].clone()
-    event_seq = state["event_seq"].clone()
-    packet_seq = state["packet_seq"].clone()
-    app_seq = state["app_seq"].clone()
-    app_state = state["app"].clone()
+    names = ["head", "chk", "n_exec", "n_deliv", "event_seq", "packet_seq",
+             "app_seq", "app"] + (["n_sent", "n_drop", *NIC_KEYS]
+                                  if MB else [])
+    st = {k: state[k].clone() for k in names}
     dirty = torch.zeros(H, dtype=torch.bool, device=dev)
     npop = torch.zeros(H, dtype=torch.int32, device=dev)
     offs = torch.arange(P, dtype=torch.int32, device=dev)
     draw_off = torch.arange(app.max_draws, dtype=torch.int64, device=dev)
     app_key = prng.purpose_id_key(p.seed, PURPOSE_APP, gid)
+    drop_key = (prng.purpose_id_key(p.seed, PURPOSE_PACKET_DROP, gid)
+                if MB else None)
     zero = torch.zeros((), dtype=torch.int64, device=dev)
+    deliv_kind = KIND_PACKET_READY if MB else KIND_PACKET
 
     def take(arr, fill):
-        idx = head[:, None] + offs
+        idx = st["head"][:, None] + offs
         v = arr.gather(1, idx.clamp(max=E - 1).long())
         return torch.where(idx < E, v, fill)
 
@@ -203,72 +263,101 @@ def pop_plain(state: dict, ob: dict, pops: torch.Tensor, world: dict,
         if P > 1:
             elig = ((ptP < win_end) & (kindP == KIND_PACKET)).to(torch.int32)
             run = elig.cumprod(1).sum(-1, dtype=torch.int32)
-            burst = app.burst_mask(app_state) & (elig[:, 0] == 1)
+            burst = app.burst_mask(st["app"]) & (elig[:, 0] == 1)
             popcnt = torch.where(runnable, torch.where(burst, run, 1), 0)
         else:
             popcnt = runnable.to(torch.int32)
         active = offs[None, :] < popcnt[:, None]              # [H,P]
-        head = head + popcnt
-        n_exec = n_exec + popcnt
+        st["head"] = st["head"] + popcnt
+        st["n_exec"] = st["n_exec"] + popcnt
         npop = npop + runnable.to(torch.int32)
-        n_deliv = n_deliv + torch.where(
-            active & (kindP == KIND_PACKET),
+        st["n_deliv"] = st["n_deliv"] + torch.where(
+            active & (kindP == deliv_kind),
             popcount32(pwP).to(torch.int32), 0).sum(-1, dtype=torch.int32)
         # fold each popped event in order (the 63-bit truncation
         # between steps makes a closed form wrong)
+        chk = st["chk"]
         for j in range(P):
             mix = (ptP[:, j] ^ (srcP[:, j].long() * CHK_SRC)
                    ^ (kindP[:, j].long() * CHK_KIND)
                    ^ (seqP[:, j].long() * CHK_SEQ)) & MASK63
             chk = torch.where(active[:, j], (chk * CHK_MUL + mix) & MASK63,
                               chk)
+        st["chk"] = chk
 
-        seqs = (app_seq.long()[:, None] + draw_off) & U32
+        seqs = (st["app_seq"].long()[:, None] + draw_off) & U32
         draws = prng.random_bits32(prng.fold_seq(
             (app_key[0][:, None], app_key[1][:, None]), seqs))
         kind_app = torch.where(active, kindP, -1)
+        if MB:
+            # the RX stage is the engine's; READY pops reach the app as
+            # packets
+            is_rx = runnable & (kindP[:, 0] == KIND_PACKET)
+            kind_app = torch.where(kindP == KIND_PACKET_READY,
+                                   KIND_PACKET, kind_app)
+            kind_app = torch.where(is_rx[:, None], -1, kind_app)
+            app_on = runnable & ~is_rx
+        else:
+            app_on = runnable
         if P > 1:
             out = app.handle_burst(gid, ptP, kind_app, srcP, sizeP, d0P,
-                                   d1P, d2P, app_state, draws, world)
+                                   d1P, d2P, st["app"], draws, world)
             lane_t = ptP
         else:
             out = app.handle(gid, pt, kind_app[:, 0], srcP[:, 0],
                              sizeP[:, 0], d0P[:, 0], d1P[:, 0], d2P[:, 0],
-                             app_state, draws, world)
+                             st["app"], draws, world)
             lane_t = pt[:, None].expand(H, K)
-        app_state = torch.where(runnable[:, None], out.app_state,
-                                app_state)
-        app_seq = app_seq + torch.where(runnable, out.n_draws, 0)
+        st["app"] = torch.where(app_on[:, None], out.app_state, st["app"])
+        st["app_seq"] = st["app_seq"] + torch.where(app_on, out.n_draws, 0)
 
-        valid = out.send_valid & runnable[:, None]             # [H,K]
+        valid = out.send_valid & app_on[:, None]               # [H,K]
         v32 = valid.to(torch.int32)
         counts = (torch.ones_like(v32) if out.send_count is None
                   else out.send_count.clamp(1, C))
         smask = (torch.full_like(v32, -1) if out.send_mask is None
                  else out.send_mask)
-        packet_seq = packet_seq + (counts * v32).sum(-1, dtype=torch.int32)
+        vcnt = (counts * v32).long()
+        pkt_base = st["packet_seq"].long()[:, None] + vcnt.cumsum(-1) - vcnt
+        st["packet_seq"] = st["packet_seq"] + vcnt.sum(-1).to(torch.int32)
         vrank = v32.cumsum(-1, dtype=torch.int32) - v32
         nvalid = v32.sum(-1, dtype=torch.int32)
-        ev_seq = event_seq[:, None] + vrank
-        tvalid = out.timer_valid & runnable[:, None]           # [H,T]
+        ev_seq = st["event_seq"][:, None] + vrank
+        tvalid = out.timer_valid & app_on[:, None]             # [H,T]
         t32 = tvalid.to(torch.int32)
-        tseq = event_seq[:, None] + nvalid[:, None] + \
+        tseq = st["event_seq"][:, None] + nvalid[:, None] + \
             t32.cumsum(-1, dtype=torch.int32) - t32
-        event_seq = event_seq + nvalid + t32.sum(-1, dtype=torch.int32)
+        st["event_seq"] = st["event_seq"] + nvalid + \
+            t32.sum(-1, dtype=torch.int32)
         timer_t = pt[:, None] + out.timer_delay
 
         dst = out.send_dst
         g2 = gid[:, None].expand(H, K)
         gT = gid[:, None].expand(H, T)
-        c0 = blk * M
-        sends = {
-            "t": torch.where(valid, lane_t, INF),
-            "k": torch.where(valid, pack2(g2, ev_seq), zero),
-            "m": torch.where(valid, pack2(dst, KIND_PACKET | (counts << 8)),
-                             zero),
-            "s": torch.where(valid, pack2(out.send_size, out.send_d0),
-                             zero),
-            "v": torch.where(valid, pack2(smask, out.send_d1), zero)}
+        hv2 = hv[:, None].expand(H, K)
+        e = epoch_of(lane_t, ept)
+        if MB:
+            sends, dirty_now, ready = _nic_step(
+                st, world, p, win_end, runnable, is_rx, valid, pt, e, gid,
+                dst, counts, smask, pkt_base, ev_seq, out, drop_key,
+                (sizeP[:, 0], pk2P[:, 0], d0P[:, 0], d1P[:, 0],
+                 d2P[:, 0]), zero)
+        else:
+            sends = {
+                "t": torch.where(valid, lane_t, INF),
+                "k": torch.where(valid, pack2(g2, ev_seq), zero),
+                "m": torch.where(valid, pack2(
+                    dst, KIND_PACKET | (counts << 8)), zero),
+                "s": torch.where(valid, pack2(out.send_size, out.send_d0),
+                                 zero),
+                "v": torch.where(valid, pack2(smask, out.send_d1), zero)}
+            # an in-window self-send must land before the host pops
+            # again, judged on the self-latency at its departure (self
+            # rows never take the causality bump)
+            selflat = (selflat1 if e is None else
+                       table_lookup(world["lat"], hv2, hv2, e).long())
+            dirty_now = (valid & (dst == g2)
+                         & (lane_t + selflat < win_end)).any(-1)
         timers = {
             "t": torch.where(tvalid, timer_t, INF),
             "k": torch.where(tvalid, pack2(gT, tseq), zero),
@@ -277,23 +366,123 @@ def pop_plain(state: dict, ob: dict, pops: torch.Tensor, world: dict,
             "s": torch.where(tvalid, pack2(torch.zeros_like(gT),
                                            out.timer_d0), zero),
             "v": torch.zeros((H, T), dtype=torch.int64, device=dev)}
+        c0 = blk * M
         for f in OB_FIELDS:
             ob[f][:, c0:c0 + K] = sends[f]
-            ob[f][:, c0 + K:c0 + M] = timers[f]
-        # an in-window self-send or timer must land before the host
-        # pops again (judged on the self-latency: self rows never take
-        # the causality bump)
-        self_in = valid & (dst == gid[:, None]) & \
-            (lane_t + selflat[:, None] < win_end)
-        tim_in = tvalid & (timer_t < win_end)
-        dirty = dirty | (runnable & (self_in.any(-1) | tim_in.any(-1)))
+            ob[f][:, c0 + K:c0 + K + T] = timers[f]
+            if MB:
+                ob[f][:, c0 + K + T] = ready[f]
+        tim_in = (tvalid & (timer_t < win_end)).any(-1)
+        dirty = dirty | (runnable & (dirty_now | tim_in))
 
-    for name, val in (("head", head), ("chk", chk), ("n_exec", n_exec),
-                      ("n_deliv", n_deliv), ("event_seq", event_seq),
-                      ("packet_seq", packet_seq), ("app_seq", app_seq),
-                      ("app", app_state)):
-        state[name].copy_(val)
+    for name in names:
+        state[name].copy_(st[name])
     pops.copy_(npop)
+
+
+def _nic_step(st, world, p, win_end, runnable, is_rx, valid, pt, e, gid,
+              dst, counts, smask, pkt_base, ev_seq, out, drop_key,
+              popped, zero):
+    """One pop iteration's model-NIC work (P = 1), the reference's
+    in-step path (engine.py `_step` under model_bandwidth): judge the
+    sends at the pop time behind the TX bucket, then pass a popped
+    KIND_PACKET through the RX bucket and CoDel. Updates the NIC leaves
+    and n_sent/n_drop in `st`. Returns the send rows, each host's
+    in-window self mark (a delivered self-send or READY row inside the
+    window) and the READY row."""
+    H, K = valid.shape
+    dev = valid.device
+    hv = world["host_vertex"].long()
+    g2 = gid[:, None].expand(H, K)
+    srcv = hv[:, None].expand(H, K)
+    dstv = hv[dst.long().clamp(0, H - 1)]
+    latv = table_lookup(world["lat"], srcv, dstv, e).long()
+    relv = table_lookup(world["rel"], srcv, dstv, e)
+    # one roll per live lane, keyed (src, packet seq), at the pop time
+    livemask = torch.where(valid, (smask.long() & U32) & _wbits(counts), 0)
+    js = torch.arange(p.C, dtype=torch.int64, device=dev)
+    h, c, j = ((livemask[..., None] >> js) & 1).nonzero(as_tuple=True)
+    drop = packet_drop_mask(
+        p.seed, p.boot_end, pt[h], None, pkt_base[h, c] + j, relv[h, c],
+        src_key=(drop_key[0][h], drop_key[1][h]))
+    surv = torch.zeros_like(livemask).index_put_(
+        (h, c), torch.where(drop, 0, 1 << j), accumulate=True)
+    livecnt = popcount32(livemask)
+    st["n_sent"] = st["n_sent"] + livecnt.sum(-1).to(torch.int32)
+    st["n_drop"] = st["n_drop"] + (livecnt - popcount32(surv)).sum(
+        -1).to(torch.int32)
+    # TX bucket: the sends serialize in lane order from max(pt,
+    # tx_free), dropped ones included
+    ser_up = torch.where(valid, (out.send_size.clamp(1, MAX_SER_BYTES)
+                                 .long() * NS_X8)
+                         // world["bw_up"][:, None], 0)
+    tx_base = torch.maximum(pt, st["tx_free"])
+    cum = ser_up.cumsum(-1)
+    depart = tx_base[:, None] + cum - ser_up
+    st["tx_free"] = torch.where(runnable, tx_base + cum[:, -1],
+                                st["tx_free"])
+    deliver_t = depart + latv
+    deliver_t = torch.where(dst != g2, deliver_t.clamp(min=win_end),
+                            deliver_t)
+    delivered = valid & (surv != 0)
+    written = valid if p.CP else delivered
+    sends = {
+        "t": torch.where(written, torch.where(delivered, deliver_t,
+                                              DROP_T), INF),
+        "k": torch.where(written, pack2(g2, ev_seq), zero),
+        "m": torch.where(written, pack2(dst, KIND_PACKET | (livecnt << 8)),
+                         zero),
+        "s": torch.where(written, pack2(out.send_size, out.send_d0), zero),
+        "v": torch.where(written, pack2(surv, out.send_d1), zero)}
+    self_in = (delivered & (dst == g2) & (deliver_t < win_end)).any(-1)
+
+    # RX stage: download bucket and event-driven CoDel, every `where`
+    # in the reference's order
+    psize, pk2, pd0, pd1, pd2 = popped
+    rxf = st["rx_free"]
+    dq = torch.maximum(pt, rxf)
+    below = dq - pt < CODEL_TARGET_NS
+    fa = st["cd_fa"]
+    fa0 = fa == 0
+    above = ~below & ~fa0 & (dq >= fa)
+    in_drop = st["cd_drop"] != 0
+    drop_now = above & in_drop & (dq >= st["cd_next"])
+    drop_first = above & ~in_drop
+    rx_drop = is_rx & (drop_now | drop_first)
+    rx_keep = is_rx & ~(drop_now | drop_first)
+    cnt, nxt, last = st["cd_cnt"], st["cd_next"], st["cd_last"]
+    delta = cnt - last
+    first_cnt = torch.where((dq - nxt < CODEL_INTERVAL_NS) & (delta > 1),
+                            delta, 1)
+    new_cnt = torch.where(drop_now, cnt + 1,
+                          torch.where(drop_first, first_cnt, cnt))
+    law = world["law"][new_cnt.clamp(0, LAW_SIZE - 1)]
+    new = {
+        "cd_cnt": new_cnt,
+        "cd_next": torch.where(drop_now, nxt + law,
+                               torch.where(drop_first, dq + law, nxt)),
+        "cd_last": torch.where(drop_first, first_cnt, last),
+        "cd_fa": torch.where(below, 0, torch.where(
+            fa0, dq + CODEL_INTERVAL_NS, fa)),
+        "cd_drop": torch.where(below, 0, torch.where(
+            fa0, st["cd_drop"], torch.where(above, torch.where(
+                in_drop, st["cd_drop"], 1), 0)))}
+    ser_down = (psize.clamp(1, MAX_SER_BYTES).long() * NS_X8) \
+        // world["bw_down"]
+    rx_deliver = dq + ser_down
+    for k, v in new.items():
+        st[k] = torch.where(is_rx, v, st[k])
+    st["rx_free"] = torch.where(rx_keep, rx_deliver, rxf)
+    st["n_drop"] = st["n_drop"] + rx_drop.to(torch.int32)
+    ready = {
+        "t": torch.where(rx_keep, rx_deliver, INF),
+        "k": torch.where(rx_keep, pk2, zero),
+        "m": torch.where(rx_keep, pack2(gid, torch.full_like(
+            gid, KIND_PACKET_READY)), zero),
+        "s": torch.where(rx_keep, pack2(psize, pd0), zero),
+        "v": torch.where(rx_keep, pack2(pd2, pd1), zero)}
+    ready_in = rx_keep & (rx_deliver < win_end)
+    return sends, self_in | ready_in, ready
 
 
 # ----------------------------------------------------------------------
@@ -302,10 +491,11 @@ def pop_plain(state: dict, ob: dict, pops: torch.Tensor, world: dict,
 def judge_outbox_plain(state: dict, ob: dict, world: dict, win_end: int,
                        p: PhaseParams) -> None:
     """Judge every send row of the outbox: path latency and
-    reliability, one drop roll per packet keyed by (src, packet seq),
-    the causality bump to `win_end` for cross-host rows, and the
-    sent/dropped counters. A row whose packets all drop gets t = INF.
-    Rewrites ob t/m/v in place."""
+    reliability in the epoch of the row's departure, one drop roll per
+    packet keyed by (src, packet seq), the causality bump to `win_end`
+    for cross-host rows, and the sent/dropped counters. A row whose
+    packets all drop gets t = INF, or DROP_T under the path counters
+    (p.CP), which count it. Rewrites ob t/m/v in place."""
     ft, fm, fv = ob["t"], ob["m"], ob["v"]
     H, OB = ft.shape
     dev = ft.device
@@ -317,16 +507,16 @@ def judge_outbox_plain(state: dict, ob: dict, world: dict, win_end: int,
     dst = hi32(fm)
     srcv = hv[:, None]
     dstv = hv[dst.long().clamp(0, H - 1)]
-    latv = table_lookup(world["lat"], srcv, dstv).to(torch.int64)
-    relv = table_lookup(world["rel"], srcv, dstv)
+    # an empty row (t = INF) reads the last epoch, harmlessly
+    e = epoch_of(ft, world["epoch_times"])
+    latv = table_lookup(world["lat"], srcv, dstv, e).to(torch.int64)
+    relv = table_lookup(world["rel"], srcv, dstv, e)
     # each row's first packet seq: packet_seq is the END of the phase,
     # rows sit in consumption order
     c64 = cnt.long()
     base = (state["packet_seq"].long() - c64.sum(-1))[:, None] + \
         (c64.cumsum(-1) - c64)
-    wbits = torch.where(cnt >= 32, U32,
-                        (1 << cnt.clamp(0, 31).long()) - 1)
-    livemask = (fv >> 32) & U32 & wbits
+    livemask = (fv >> 32) & U32 & _wbits(cnt)
     livecnt = popcount32(livemask)
     # roll the live lanes only: (host, column, lane) of each packet
     js = torch.arange(p.C, dtype=torch.int64, device=dev)
@@ -344,13 +534,41 @@ def judge_outbox_plain(state: dict, ob: dict, world: dict, win_end: int,
     deliver_t = torch.where(dst != gid[:, None],
                             deliver_t.clamp(min=win_end), deliver_t)
     dead = is_send & (surv == 0)
-    new_t = torch.where(is_send, torch.where(dead, INF, deliver_t), ft)
+    new_t = torch.where(is_send, torch.where(dead, DROP_T if p.CP else INF,
+                                             deliver_t), ft)
     new_m = torch.where(is_send, pack2(dst, KIND_PACKET | (livecnt << 8)),
                         fm)
     new_v = torch.where(is_send, pack2(surv, lo32(fv)), fv)
     ft.copy_(new_t)
     fm.copy_(new_m)
     fv.copy_(new_v)
+
+
+# ----------------------------------------------------------------------
+# K7: the path counters (reference: engine._count_paths)
+# ----------------------------------------------------------------------
+def count_paths_plain(state: dict, ob: dict, world: dict) -> None:
+    """Add every judged packet row of the outbox (t < INF, DROP_T
+    included, kind KIND_PACKET) to the [V*V] histogram of sent packets
+    at (vertex of src) * V + (vertex of dst), weighted by its live
+    count (kind >> 8). In place on state["path_cnt"] [1, V*V]."""
+    ft, fk, fm = ob["t"], ob["k"], ob["m"]
+    H = ft.shape[0]
+    hv = world["host_vertex"].long()
+    V = n_vertices(world)
+    kind = lo32(fm)
+    is_pkt = (ft < INF) & ((kind & 0xFF) == KIND_PACKET)
+    sv = hv[hi32(fk).long().clamp(0, H - 1)]
+    dv = hv[hi32(fm).long().clamp(0, H - 1)]
+    state["path_cnt"][0].index_add_(0, (sv * V + dv)[is_pkt],
+                                    (kind >> 8).long()[is_pkt])
+
+
+def n_vertices(world: dict) -> int:
+    """The vertex count of the world's path tables."""
+    lat = world["lat"]
+    return int(lat[1].shape[-1] if isinstance(lat, tuple)
+               else lat.shape[-1])
 
 
 # ----------------------------------------------------------------------
@@ -501,37 +719,75 @@ def build_library(ptxas_verbose: bool = False) -> tuple[Path, str]:
 
 class TopoArgs(ctypes.Structure):
     """csrc/topo.cuh `TopoArgs`: which view of the path tables a kernel
-    reads, and its tables (the other view's pointers null)."""
+    reads, its epoch count and start times, and its tables (the other
+    view's pointers null)."""
     _fields_ = [("hier", ctypes.c_int), ("V", ctypes.c_int),
-                ("C", ctypes.c_int)] + [
+                ("C", ctypes.c_int), ("T", ctypes.c_int)] + [
         (name, ctypes.c_void_p) for name in (
-            "lat", "rel", "core_lat", "core_rel", "cl", "acc_lat",
-            "acc_rel", "self_lat", "self_rel")]
+            "epoch_times", "lat", "rel", "core_lat", "core_rel", "cl",
+            "acc_lat", "acc_rel", "self_lat", "self_rel")]
 
 
 def topo_args(world: dict):
-    """(launch-name suffix, TopoArgs, [(tensor, dtype)] to check) for
-    the world's path tables; raises on tables of the wrong shape."""
-    lat, rel = world["lat"], world["rel"]
+    """(hier, epochs, TopoArgs, [(tensor, dtype)] to check) for the
+    world's path tables; raises on tables of the wrong shape."""
+    lat, rel, ept = world["lat"], world["rel"], world["epoch_times"]
     i32, f32 = torch.int32, torch.float32
+    T = ept.shape[0]
+    lead = (T,) if T > 1 else ()
+    checks = [(ept, torch.int64)]
     if isinstance(lat, tuple):
         cc, cl, acc, slf = lat
         ccr, cl_r, accr, slfr = rel
-        V, C = cl.shape[0], cc.shape[0]
-        if (cl_r is not cl or cc.shape != (C, C) or ccr.shape != (C, C)
-                or any(t.shape != (V,) for t in (acc, slf, accr, slfr))):
+        V, C = cl.shape[0], cc.shape[-1]
+        if (cl_r is not cl or cl.shape != (V,)
+                or cc.shape != (*lead, C, C) or ccr.shape != cc.shape
+                or any(t.shape != (*lead, V)
+                       for t in (acc, slf, accr, slfr))):
             raise ValueError("factored tables: need [C,C] cluster pairs, "
-                             "[V] cl/access/self vectors and one shared cl")
-        args = TopoArgs(1, V, C, None, None,
+                             "[V] access/self vectors (each with the "
+                             "[T] epoch axis under faults) and one "
+                             "shared [V] cl")
+        args = TopoArgs(1, V, C, T, _ptr(ept), None, None,
                         *map(_ptr, (cc, ccr, cl, acc, accr, slf, slfr)))
-        return HIER, args, [(t, i32) for t in (cc, cl, acc, slf)] + \
+        return True, T > 1, args, checks + \
+            [(t, i32) for t in (cc, cl, acc, slf)] + \
             [(t, f32) for t in (ccr, accr, slfr)]
-    V = lat.shape[0]
-    if lat.shape != (V, V) or rel.shape != (V, V):
+    V = lat.shape[-1]
+    if lat.shape != (*lead, V, V) or rel.shape != lat.shape:
         raise ValueError("dense tables: need [V,V] latency and "
-                         "reliability")
-    args = TopoArgs(0, V, 0, _ptr(lat), _ptr(rel))
-    return "", args, [(lat, i32), (rel, f32)]
+                         "reliability ([T,V,V] under faults)")
+    args = TopoArgs(0, V, 0, T, _ptr(ept), _ptr(lat), _ptr(rel))
+    return False, T > 1, args, checks + [(lat, i32), (rel, f32)]
+
+
+class NicArgs(ctypes.Structure):
+    """csrc/pop_phase.cu `NicArgs`: the model NIC's leaves, bandwidths
+    and law table, the counters the in-step judge adds to, its drop
+    key and the path-counter flag; all null with mb = 0."""
+    _fields_ = [("mb", ctypes.c_int), ("cp", ctypes.c_int),
+                ("boot_end", ctypes.c_longlong),
+                ("seed1", ctypes.c_uint), ("seed2", ctypes.c_uint)] + [
+        (name, ctypes.c_void_p) for name in (
+            *NIC_KEYS, "bw_up", "bw_down", "law", "n_sent", "n_drop")]
+
+
+def nic_args(state: dict, world: dict, p: PhaseParams):
+    """(NicArgs, [(tensor, dtype)] to check) of a pop launch."""
+    if not p.MB:
+        return NicArgs(0), []
+    leaves = [state[k] for k in NIC_KEYS]
+    tables = [world["bw_up"], world["bw_down"], world["law"]]
+    counts = [state["n_sent"], state["n_drop"]]
+    H = state["head"].shape[0]
+    if any(t.shape != (H,) for t in leaves + tables[:2] + counts) or \
+            tables[2].shape != (LAW_SIZE,):
+        raise ValueError("model NIC: need [H] leaves, bandwidths and "
+                         "counters and the [1024] law table")
+    args = NicArgs(1, int(p.CP), int(p.boot_end), p.seed[0], p.seed[1],
+                   *map(_ptr, leaves + tables + counts))
+    return args, [(t, torch.int64) for t in leaves + tables] + \
+        [(t, torch.int32) for t in counts]
 
 
 _P = ctypes.c_void_p
@@ -539,31 +795,34 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _U = ctypes.c_uint
 _T = ctypes.POINTER(TopoArgs)
+_N = ctypes.POINTER(NicArgs)
 
 _SIGNATURES = {
     # H, E, K, B, win_end, ht hk hm hv hw, head event_seq packet_seq
-    # app_seq app n_exec n_deliv chk, host_vertex topo, seed k1 k2,
+    # app_seq app n_exec n_deliv chk, host_vertex topo nic, seed k1 k2,
     # n_total msgload size selfloop, ob t k m s v, pops, stream
     "shadow_pop_phase": [_I, _I, _I, _I, _L] + [_P] * 5 + [_P] * 8 +
-                        [_P, _T, _U, _U, _I, _I, _I, _I] + [_P] * 5 +
-                        [_P, _P],
+                        [_P, _T, _N, _U, _U, _I, _I, _I, _I] +
+                        [_P] * 5 + [_P, _P],
     # H, E, K, T, P, B, C, win_end, ht hk hm hv hw, head event_seq
-    # packet_seq app n_exec n_deliv chk, host_vertex topo, count pause
-    # retry, npkts last_sz chunk mss, ob t k m s v, pops, stream
+    # packet_seq app n_exec n_deliv chk, host_vertex topo nic, count
+    # pause retry, npkts last_sz chunk mss, ob t k m s v, pops, stream
     "shadow_pop_tgen": [_I] * 7 + [_L] + [_P] * 5 + [_P] * 7 +
-                       [_P, _T] + [_P] * 3 + [_I] * 4 + [_P] * 5 +
+                       [_P, _T, _N] + [_P] * 3 + [_I] * 4 + [_P] * 5 +
                        [_P, _P],
     # H, E, K, T, P, B, C, win_end, ht hk hm hv hw, head event_seq
-    # packet_seq app n_exec n_deliv chk, host_vertex topo, count pause
-    # retry, relay_gids R, route key k1 k2, cells, ob t k m s v, pops,
-    # stream
+    # packet_seq app n_exec n_deliv chk, host_vertex topo nic, count
+    # pause retry, relay_gids R, route key k1 k2, cells, ob t k m s v,
+    # pops, stream
     "shadow_pop_tor": [_I] * 7 + [_L] + [_P] * 5 + [_P] * 7 +
-                      [_P, _T] + [_P] * 3 + [_P, _I, _U, _U, _I] +
+                      [_P, _T, _N] + [_P] * 3 + [_P, _I, _U, _U, _I] +
                       [_P] * 5 + [_P, _P],
     # H, OB, C, win_end, boot_end, ob t m v, packet_seq n_sent n_drop,
-    # host_vertex topo, seed k1 k2, stream
+    # host_vertex topo, seed k1 k2, cp, stream
     "shadow_judge_outbox": [_I, _I, _I, _L, _L] + [_P] * 3 + [_P] * 3 +
-                           [_P, _T, _U, _U, _P],
+                           [_P, _T, _U, _U, _I, _P],
+    # H, OB, V, ob t k m, host_vertex, path_cnt, stream
+    "shadow_count_paths": [_I, _I, _I] + [_P] * 3 + [_P, _P, _P],
     # H, OB, ob t m, perm starts counts, scratch cursor block_sums,
     # stream
     "shadow_route": [_I, _I] + [_P] * 2 + [_P] * 3 + [_P] * 3 + [_P],
@@ -664,17 +923,20 @@ class Kernels:
                                     "app_seq", "app", "n_exec",
                                     "n_deliv", "chk")]
         hv = world["host_vertex"]
-        suffix, topo, topo_checks = topo_args(world)
+        hier, epochs, topo, topo_checks = topo_args(world)
+        nic, nic_checks = nic_args(state, world, p)
         obs = [ob[f] for f in OB_FIELDS]
         i32, i64 = torch.int32, torch.int64
         self._launch(
-            "pop_phase" + suffix, "shadow_pop_phase",
+            launch_name("pop_phase", p.MB, epochs, hier),
+            "shadow_pop_phase",
             [(t, i64) for t in heap + obs] + [(t, i32) for t in small[:7]]
-            + [(small[7], i64), (pops, i32), (hv, i32)] + topo_checks,
+            + [(small[7], i64), (pops, i32), (hv, i32)] + topo_checks
+            + nic_checks,
             H, p.E, p.K, p.B, int(win_end), *map(_ptr, heap),
             *map(_ptr, small), _ptr(hv), ctypes.byref(topo),
-            p.seed[0], p.seed[1], a.n_hosts_total, a.msgload, a.size,
-            a.selfloop, *map(_ptr, obs), _ptr(pops))
+            ctypes.byref(nic), p.seed[0], p.seed[1], a.n_hosts_total,
+            a.msgload, a.size, a.selfloop, *map(_ptr, obs), _ptr(pops))
 
     def _pop_tgen(self, state: dict, ob: dict, pops: torch.Tensor,
                   world: dict, win_end: int, p: PhaseParams) -> None:
@@ -707,20 +969,23 @@ class Kernels:
         small = [state[f] for f in ("head", "event_seq", "packet_seq",
                                     "app", "n_exec", "n_deliv")]
         hv = world["host_vertex"]
-        suffix, topo, topo_checks = topo_args(world)
+        hier, epochs, topo, topo_checks = topo_args(world)
+        nic, nic_checks = nic_args(state, world, p)
         args = [world["client_count"], world["client_pause"],
                 world["client_retry"]]
         obs = [ob[f] for f in OB_FIELDS]
         i32, i64 = torch.int32, torch.int64
         self._launch(
-            name + suffix, f"shadow_{name}",
+            launch_name(name, p.MB, epochs, hier), f"shadow_{name}",
             [(t, i64) for t in heap + obs] + [(t, i32) for t in small]
             + [(state["chk"], i64), (pops, i32), (hv, i32)] + topo_checks
+            + nic_checks
             + [(args[0], i32)] + [(t, i64) for t in args[1:]]
             + [(t, i32) for t in app_tensors],
             H, p.E, p.K, p.T, p.P, p.B, p.C, int(win_end),
             *map(_ptr, heap), *map(_ptr, small), _ptr(state["chk"]),
-            _ptr(hv), ctypes.byref(topo), *map(_ptr, args),
+            _ptr(hv), ctypes.byref(topo), ctypes.byref(nic),
+            *map(_ptr, args),
             *map(_ptr, app_tensors), *app_scalars, *map(_ptr, obs),
             _ptr(pops))
 
@@ -732,14 +997,32 @@ class Kernels:
         obs = [ob["t"], ob["m"], ob["v"]]
         cnt = [state["packet_seq"], state["n_sent"], state["n_drop"]]
         hv = world["host_vertex"]
-        suffix, topo, topo_checks = topo_args(world)
+        hier, epochs, topo, topo_checks = topo_args(world)
         self._launch(
-            "judge_outbox" + suffix, "shadow_judge_outbox",
+            launch_name("judge_outbox", False, epochs, hier),
+            "shadow_judge_outbox",
             [(t, torch.int64) for t in obs]
             + [(t, torch.int32) for t in cnt + [hv]] + topo_checks,
             H, OB, p.C, int(win_end), int(p.boot_end), *map(_ptr, obs),
             *map(_ptr, cnt), _ptr(hv), ctypes.byref(topo),
-            p.seed[0], p.seed[1])
+            p.seed[0], p.seed[1], int(p.CP))
+
+    def count_paths(self, state: dict, ob: dict, world: dict) -> None:
+        """K7: add the judged outbox's packet rows to
+        state["path_cnt"] (count_paths_plain on the CPU)."""
+        if not ob["t"].is_cuda:
+            return count_paths_plain(state, ob, world)
+        H, OB = ob["t"].shape
+        V = n_vertices(world)
+        cnt = state["path_cnt"]
+        if cnt.shape != (1, V * V):
+            raise ValueError(f"count_paths: path_cnt must be [1, {V * V}]")
+        obs = [ob["t"], ob["k"], ob["m"]]
+        hv = world["host_vertex"]
+        self._launch(
+            "count_paths", "shadow_count_paths",
+            [(t, torch.int64) for t in obs + [cnt]] + [(hv, torch.int32)],
+            H, OB, V, *map(_ptr, obs), _ptr(hv), _ptr(cnt))
 
     def route(self, ob: dict):
         """K5: (perm, starts, counts) as `route_plain` gives them, for

@@ -5,12 +5,14 @@ supervision, capacity planning or a compile cache).
 It builds the engine from a config with the reference's knobs (the
 burst width of `experimental.burst_pops`, the outbox floored at 8 pop
 iterations of lanes, 4 where bursts drain backlogs, the lookahead from
-the runahead or the minimum path latency, the path tables in the
-topology's representation), admits it against the device's memory
-(`experimental.admission`, device/capacity.py) before anything is
-allocated on the device, runs to the stop time and
+the runahead or the minimum path latency over every fault epoch, the
+path tables in the topology's representation with the link-fault
+epochs, the hosts' model-NIC bandwidths), admits it against the
+device's memory (`experimental.admission`, device/capacity.py) before
+anything is allocated on the device, runs to the stop time and
 returns the SimStats totals plus the per-host `events_executed` and
-`trace_checksum` arrays, and for tgen and Tor the downloads completed.
+`trace_checksum` arrays, for tgen and Tor the downloads completed,
+and under `count_paths` the sent packets per vertex pair.
 """
 
 from __future__ import annotations
@@ -58,6 +60,9 @@ class SimStats:
     downloads_completed: Optional[int] = None
     # the preflight admission verdict (capacity.admission_verdict)
     admission: Optional[dict] = field(default=None, repr=False)
+    # count_paths: sent packets per (src vertex, dst vertex), the
+    # nonzero entries (the reference's NetworkModel.path_packets)
+    path_packets: Optional[dict] = field(default=None, repr=False)
 
     def summary(self) -> str:
         downloads = ("" if self.downloads_completed is None else
@@ -91,7 +96,8 @@ def engine_config(cfg: ConfigOptions, sim: BuiltSimulation) -> EngineConfig:
         stop_time=cfg.general.stop_time,
         bootstrap_end=cfg.general.bootstrap_end_time,
         seed=cfg.general.seed,
-        exchange_in_capacity=xp.exchange_in_capacity)
+        exchange_in_capacity=xp.exchange_in_capacity,
+        model_bandwidth=xp.model_bandwidth, count_paths=xp.count_paths)
 
 
 def admit(cfg: ConfigOptions, sim: BuiltSimulation, config: EngineConfig,
@@ -99,10 +105,12 @@ def admit(cfg: ConfigOptions, sim: BuiltSimulation, config: EngineConfig,
     """The preflight admission verdict of a built run on `device`,
     from shapes and host arrays alone (nothing is allocated on the
     device); raises ValueError where `admission: strict` refuses."""
-    lat, rel = world_tables(sim.topology)
     est = capacity.footprint(
         config.n_hosts, phase_params(config, sim.app),
-        world_arrays(config.n_hosts, sim.app, sim.host_vertex, lat, rel))
+        world_arrays(config.n_hosts, sim.app, sim.host_vertex,
+                     *world_tables(sim.topology, sim.fault_table),
+                     sim.bw_up_bits, sim.bw_down_bits,
+                     config.model_bandwidth, config.count_paths))
     return capacity.admission_verdict(est, resolve_device(device),
                                       cfg.experimental)
 
@@ -120,10 +128,12 @@ def engine_from(cfg: ConfigOptions, sim: BuiltSimulation, device="cuda",
     verdict, reached before the engine allocates anything."""
     config = engine_config(cfg, sim)
     verdict = admit(cfg, sim, config, device)
-    lat, rel = world_tables(sim.topology)
+    lat, rel, epoch_times = world_tables(sim.topology, sim.fault_table)
     engine = DeviceEngine(config, sim.app, host_vertex=sim.host_vertex,
                           latency_ns=lat, reliability=rel, device=device,
-                          kernels=kernels)
+                          kernels=kernels, epoch_times=epoch_times,
+                          bw_up_bits=sim.bw_up_bits,
+                          bw_down_bits=sim.bw_down_bits)
     engine.admission = verdict
     return engine
 
@@ -134,7 +144,8 @@ def run(cfg: ConfigOptions, device="cuda",
     state = engine.init_state(sim.start_times, sim.stop_times)
     t0 = time.perf_counter()
     state, rounds = engine.run(state)
-    final = state_to_numpy(state, STAT_KEYS)   # synchronises
+    final = state_to_numpy(state, STAT_KEYS + (
+        ("path_cnt",) if "path_cnt" in state else ()))   # synchronises
     wall = time.perf_counter() - t0
     stats = SimStats(
         end_time=cfg.general.stop_time, rounds=rounds, wall_s=wall,
@@ -148,5 +159,10 @@ def run(cfg: ConfigOptions, device="cuda",
         x_overflow=int(final["x_overflow"].sum()))
     stats.downloads_completed = engine.app.downloads(final["app"])
     stats.admission = engine.admission
+    if "path_cnt" in final:
+        V = engine.n_vertices
+        cnt = final["path_cnt"].sum(0).reshape(V, V)
+        stats.path_packets = {(int(i), int(j)): int(cnt[i, j])
+                              for i, j in zip(*np.nonzero(cnt))}
     stats.ok = stats.overflow == 0 and stats.x_overflow == 0
     return stats

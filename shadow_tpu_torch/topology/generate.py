@@ -49,10 +49,8 @@ def generate_star_clusters(params: dict, use_shortest_path: bool = True,
         if not (0.0 <= loss <= 1.0):
             raise GmlError(f"star_clusters: {name} {loss} not in "
                            "[0,1]")
-    # vertex bandwidths matter only to the model-NIC (not ported):
-    # parsed to validate their units, not kept
-    parse_bandwidth_bits(params.get("bandwidth_down", "1 Gbit"))
-    parse_bandwidth_bits(params.get("bandwidth_up", "1 Gbit"))
+    bw_down = parse_bandwidth_bits(params.get("bandwidth_down", "1 Gbit"))
+    bw_up = parse_bandwidth_bits(params.get("bandwidth_up", "1 Gbit"))
 
     V = C + C * S
     # the complete hub graph: one undirected edge per hub pair
@@ -79,6 +77,8 @@ def generate_star_clusters(params: dict, use_shortest_path: bool = True,
         vertex_ids=np.arange(V, dtype=np.int64),
         edge_src=esrc, edge_dst=edst,
         edge_latency_ns=elat, edge_reliability=erel,
+        bw_down_bits=np.full(V, bw_down, dtype=np.int64),
+        bw_up_bits=np.full(V, bw_up, dtype=np.int64),
         latency_ns=None, reliability=None,
     )
     if not use_shortest_path and not top.complete:

@@ -1,5 +1,5 @@
 """Network topology (the port's copy of the reference package's
-topology/graph.py, without fault epochs).
+topology/graph.py).
 
 All-pairs latency and reliability tables are computed once at load
 time, in one of two representations (`network.topology.representation`):
@@ -70,10 +70,14 @@ _MIN_PATH_LATENCY_NS = simtime.SIMTIME_ONE_MILLISECOND  # 0-latency clamp
 def dense_adjacency(n_vertices: int, directed: bool,
                     edge_src: np.ndarray, edge_dst: np.ndarray,
                     edge_latency_ns: np.ndarray,
-                    edge_reliability: np.ndarray
+                    edge_reliability: np.ndarray,
+                    edge_alive: Optional[np.ndarray] = None
                     ) -> tuple[np.ndarray, np.ndarray]:
     """Dense [V,V] direct-edge latency (ns; 0 = no edge) and
-    reliability matrices, keeping the cheapest parallel edge."""
+    reliability matrices, keeping the cheapest parallel edge.
+    `edge_alive` (bool [E], default all alive) masks edges out: the
+    fault compiler (faults.py) builds an epoch's adjacency through this
+    same code with its downed links masked."""
     V = n_vertices
     lat = np.zeros((V, V), dtype=np.int64)
     rel = np.zeros((V, V), dtype=np.float32)
@@ -83,8 +87,11 @@ def dense_adjacency(n_vertices: int, directed: bool,
             lat[s, d] = l
             rel[s, d] = r
 
-    for s, d, l, r in zip(edge_src, edge_dst, edge_latency_ns,
-                          edge_reliability):
+    for k, (s, d, l, r) in enumerate(zip(edge_src, edge_dst,
+                                         edge_latency_ns,
+                                         edge_reliability)):
+        if edge_alive is not None and not edge_alive[k]:
+            continue
         _store(s, d, l, r)
         if not directed:
             _store(d, s, l, r)
@@ -94,18 +101,27 @@ def dense_adjacency(n_vertices: int, directed: bool,
 def sparse_min_adjacency(n_vertices: int, directed: bool,
                          edge_src: np.ndarray, edge_dst: np.ndarray,
                          edge_latency_ns: np.ndarray,
-                         edge_reliability: np.ndarray
+                         edge_reliability: np.ndarray,
+                         edge_alive: Optional[np.ndarray] = None
                          ) -> tuple[np.ndarray, np.ndarray,
                                     np.ndarray, np.ndarray]:
     """Sparse twin of dense_adjacency: (v, u, lat, rel) with one row per
-    ordered vertex pair that has an edge, under dense_adjacency's
-    parallel-edge rule (the first edge reaching the least latency, in
-    its store order, wins). O(E log E); never materializes [V,V]."""
+    ordered vertex pair that has an (alive) edge, under
+    dense_adjacency's parallel-edge rule (the first edge reaching the
+    least latency, in its store order, wins). O(E log E); never
+    materializes [V,V]."""
     esrc = np.asarray(edge_src, np.int64)
     edst = np.asarray(edge_dst, np.int64)
     elat = np.asarray(edge_latency_ns, np.int64)
     erel = np.asarray(edge_reliability, np.float32)
-    order = np.arange(len(esrc), dtype=np.int64)
+    if edge_alive is not None:
+        keep = np.asarray(edge_alive, bool)
+        # the original edge index keeps the tie rule under a mask
+        order = np.nonzero(keep)[0].astype(np.int64)
+        esrc, edst = esrc[keep], edst[keep]
+        elat, erel = elat[keep], erel[keep]
+    else:
+        order = np.arange(len(esrc), dtype=np.int64)
     if directed:
         v, u, l, r, o = esrc, edst, elat, erel, 2 * order
     else:
@@ -214,16 +230,32 @@ def build_hier_tables(top: "Topology") -> HierTables:
 
 
 def compute_path_matrices(direct_lat: np.ndarray, direct_rel: np.ndarray,
-                          use_shortest_path: bool
+                          use_shortest_path: bool,
+                          unreachable_lat: Optional[np.ndarray] = None
                           ) -> tuple[np.ndarray, np.ndarray]:
     """All-pairs (latency, reliability) path matrices from a dense
-    direct-edge adjacency."""
+    direct-edge adjacency.
+
+    `unreachable_lat`: None = a disconnected pair raises GmlError (the
+    base topology's contract); otherwise a [V,V] latency matrix whose
+    entries stand in for unreachable pairs, with reliability 0 (the
+    fault compiler passes the healthy base matrix: the pair drops every
+    packet, its latency stays finite)."""
     V = direct_lat.shape[0]
-    if use_shortest_path:
-        path_lat, path_rel = _all_pairs_shortest(direct_lat, direct_rel)
-    else:
+    if not use_shortest_path:
         path_lat = direct_lat.copy()
         path_rel = direct_rel.copy()
+        # fault epochs only: a zero off-diagonal entry of a complete
+        # graph is a downed link, unreachable rather than clamped to a
+        # 1 ms lossless path below
+        if unreachable_lat is not None:
+            miss = (path_lat <= 0) & ~np.eye(V, dtype=bool)
+            if miss.any():
+                path_rel = np.where(miss, 0.0, path_rel)
+                path_lat = np.where(miss, unreachable_lat, path_lat)
+    else:
+        path_lat, path_rel = _all_pairs_shortest(direct_lat, direct_rel,
+                                                 unreachable_lat)
 
     # self paths: self-loop edge as-is, otherwise cheapest incident
     # edge doubled
@@ -248,7 +280,8 @@ def compute_path_matrices(direct_lat: np.ndarray, direct_rel: np.ndarray,
     return path_lat.astype(np.int64), path_rel.astype(np.float32)
 
 
-def _all_pairs_shortest(direct_lat: np.ndarray, direct_rel: np.ndarray
+def _all_pairs_shortest(direct_lat: np.ndarray, direct_rel: np.ndarray,
+                        unreachable_lat: Optional[np.ndarray] = None
                         ) -> tuple[np.ndarray, np.ndarray]:
     """All-pairs Dijkstra by latency; reliability accumulates along the
     chosen (latency-)shortest path via the predecessor tree."""
@@ -257,14 +290,16 @@ def _all_pairs_shortest(direct_lat: np.ndarray, direct_rel: np.ndarray
         from scipy.sparse import csr_matrix
         from scipy.sparse.csgraph import dijkstra
     except ImportError:
-        return _all_pairs_minplus(direct_lat, direct_rel)
+        return _all_pairs_minplus(direct_lat, direct_rel,
+                                  unreachable_lat)
 
     # self-loops are not transit edges; self paths are computed apart
     w = direct_lat.astype(np.float64)
     np.fill_diagonal(w, 0.0)
     dist, pred = dijkstra(csr_matrix(w), directed=True,
                           return_predecessors=True)
-    if np.isinf(dist).any():
+    unreachable = np.isinf(dist)
+    if unreachable.any() and unreachable_lat is None:
         raise GmlError("graph is not connected (no path between some "
                        "vertex pair)")
 
@@ -289,10 +324,15 @@ def _all_pairs_shortest(direct_lat: np.ndarray, direct_rel: np.ndarray
         s_idx, d_idx = np.nonzero(hops == h)
         pr = pred[s_idx, d_idx]
         rel[s_idx, d_idx] = rel[s_idx, pr] * direct_rel[pr, d_idx]
-    return np.rint(dist).astype(np.int64), rel.astype(np.float32)
+    lat = np.rint(np.where(unreachable, 0.0, dist)).astype(np.int64)
+    if unreachable.any():
+        lat = np.where(unreachable, unreachable_lat, lat)
+        rel = np.where(unreachable, 0.0, rel)
+    return lat, rel.astype(np.float32)
 
 
-def _all_pairs_minplus(direct_lat: np.ndarray, direct_rel: np.ndarray
+def _all_pairs_minplus(direct_lat: np.ndarray, direct_rel: np.ndarray,
+                       unreachable_lat: Optional[np.ndarray] = None
                        ) -> tuple[np.ndarray, np.ndarray]:
     """Dense Floyd-Warshall carrying reliability, scipy-free."""
     V = direct_lat.shape[0]
@@ -305,9 +345,14 @@ def _all_pairs_minplus(direct_lat: np.ndarray, direct_rel: np.ndarray
         better = via < lat
         lat = np.where(better, via, lat)
         rel = np.where(better, rel[:, k, None] * rel[None, k, :], rel)
-    if np.isinf(lat).any():
-        raise GmlError("graph is not connected (no path between "
-                       "some vertex pair)")
+    unreachable = np.isinf(lat)
+    if unreachable.any():
+        if unreachable_lat is None:
+            raise GmlError("graph is not connected (no path between "
+                           "some vertex pair)")
+        lat = np.where(unreachable, unreachable_lat.astype(np.float64),
+                       lat)
+        rel = np.where(unreachable, 0.0, rel)
     return np.rint(lat).astype(np.int64), rel.astype(np.float32)
 
 
@@ -329,6 +374,8 @@ class Topology:
     edge_dst: np.ndarray
     edge_latency_ns: np.ndarray     # [E] int64
     edge_reliability: np.ndarray    # [E] float32 (1 - packet_loss)
+    bw_down_bits: np.ndarray        # [V] int64 bits/s
+    bw_up_bits: np.ndarray          # [V] int64 bits/s
     # dense: [V,V] int64 path latency and float32 path reliability;
     # hierarchical: both None, the factored tables are in `hier`
     latency_ns: Optional[np.ndarray]
@@ -388,12 +435,18 @@ class Topology:
         if len(set(ids.tolist())) != V:
             raise GmlError("duplicate vertex ids")
         id_to_idx = {int(i): k for k, i in enumerate(ids)}
-        for node in g.nodes:
-            for key in ("bandwidth_down", "bandwidth_up"):
-                if node.get(key) is None:
-                    raise GmlError(f"vertex {node.get('id')} missing "
-                                   f"required attribute {key!r}")
-                parse_bandwidth_bits(node.get(key))
+
+        def _bw(node, key):
+            v = node.get(key)
+            if v is None:
+                raise GmlError(f"vertex {node.get('id')} missing "
+                               f"required attribute {key!r}")
+            return parse_bandwidth_bits(v)
+
+        bw_down = np.array([_bw(n, "bandwidth_down") for n in g.nodes],
+                           dtype=np.int64)
+        bw_up = np.array([_bw(n, "bandwidth_up") for n in g.nodes],
+                         dtype=np.int64)
 
         E = len(g.edges)
         esrc = np.empty(E, dtype=np.int64)
@@ -427,7 +480,7 @@ class Topology:
             directed=g.directed, complete=False,
             use_shortest_path=use_shortest_path, vertex_ids=ids,
             edge_src=esrc, edge_dst=edst, edge_latency_ns=elat,
-            edge_reliability=erel,
+            edge_reliability=erel, bw_down_bits=bw_down, bw_up_bits=bw_up,
             latency_ns=np.zeros((V, V), dtype=np.int64),
             reliability=np.zeros((V, V), dtype=np.float32),
         )

@@ -1,5 +1,5 @@
 """Cluster-factored topology tables (the port's copy of the reference
-package's topology/hierarchy.py, single epoch).
+package's topology/hierarchy.py).
 
 On a hub-and-spoke graph every shortest path factors exactly:
 
@@ -149,28 +149,47 @@ def max_composed_latency(lat_parts) -> int:
     return max(hi, int(np.asarray(slf, np.int64).max(initial=0)))
 
 
-def world_tables(topology):
-    """(latency, reliability) in the topology's representation: dense
-    [V,V] arrays, or the factored part tuples."""
-    hier = topology.hier
-    if hier is not None:
-        return hier.lat_parts(), hier.rel_parts()
-    return (np.asarray(topology.latency_ns, np.int64),
-            np.asarray(topology.reliability, np.float32))
+def world_tables(topology, fault_table=None):
+    """(latency, reliability, epoch_times) in the topology's
+    representation: dense [V,V] arrays, or the factored part tuples;
+    under a link-fault schedule (faults.py) the [T,V,V] stacks, or the
+    part tuples with a leading [T] axis on every leaf, and the [T]
+    epoch start times (None without faults)."""
+    if fault_table is None:
+        hier = topology.hier
+        if hier is not None:
+            return hier.lat_parts(), hier.rel_parts(), None
+        return (np.asarray(topology.latency_ns, np.int64),
+                np.asarray(topology.reliability, np.float32), None)
+    times = np.asarray(fault_table.times, np.int64)
+    if fault_table.is_hierarchical:
+        return (fault_table.lat_parts_stacked(),
+                fault_table.rel_parts_stacked(), times)
+    return (np.asarray(fault_table.latency_ns, np.int64),
+            np.asarray(fault_table.reliability, np.float32), times)
 
 
-def gather_parts_plain(parts, sv: torch.Tensor, dv: torch.Tensor
-                       ) -> torch.Tensor:
-    """The two-level lookup of the reference's `gather_parts` (single
-    epoch), in PyTorch: `parts` = (cc, cl, acc, slf) tensors; a
-    floating cc composes reliability (two float32 multiplies), an
-    integer cc latency (in cc's dtype, int32 on the device path); a
-    pair with sv == dv takes the self vector."""
+def gather_parts_plain(parts, sv: torch.Tensor, dv: torch.Tensor,
+                       e=None) -> torch.Tensor:
+    """The two-level lookup of the reference's `gather_parts`, in
+    PyTorch: `parts` = (cc, cl, acc, slf) tensors; a floating cc
+    composes reliability (two float32 multiplies), an integer cc
+    latency (in cc's dtype, int32 on the device path); a pair with
+    sv == dv takes the self vector. `e` (broadcast like sv/dv) indexes
+    a leading epoch axis of cc, acc and slf; cl may carry that axis
+    too, or be the one [V] vector every epoch shares."""
     cc, cl, acc, slf = parts
     sv, dv = sv.long(), dv.long()
-    cs, cd = cl[sv].long(), cl[dv].long()
-    a_s, a_d = acc[sv], acc[dv]
-    core = cc[cs, cd]
+    if e is None:
+        cs, cd = cl[sv].long(), cl[dv].long()
+        a_s, a_d, sf = acc[sv], acc[dv], slf[sv]
+        core = cc[cs, cd]
+    else:
+        e = e.long()
+        ce = (e,) if cl.dim() == 2 else ()
+        cs, cd = cl[(*ce, sv)].long(), cl[(*ce, dv)].long()
+        a_s, a_d, sf = acc[e, sv], acc[e, dv], slf[e, sv]
+        core = cc[e, cs, cd]
     comp = (compose_rel(a_s, core, a_d) if cc.is_floating_point()
             else compose_lat(a_s, core, a_d))
-    return torch.where(sv == dv, slf[sv], comp)
+    return torch.where(sv == dv, sf, comp)

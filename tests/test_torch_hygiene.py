@@ -81,11 +81,11 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
 
 @pytest.mark.parametrize("override,item", [
     ("experimental.outbox_compact=8", "queue (b) item 7"),
-    ("experimental.model_bandwidth=true", "queue (a) item 8"),
+    ("experimental.state_audit=true", "queue (a) item 8"),
     ("experimental.exchange=two_phase", "queue (a) item 9"),
     ("experimental.scheduler_policy=serial", "queue (a) item 10"),
-    ("network.faults=[{kind: link_down, time: 100ms, source: 0, "
-     "target: 1}]", "queue (a) item 8"),
+    ("network.faults=[{kind: host_crash, time: 100ms, host: a0}]",
+     "queue (a) item 10"),
     ("experimental.checkpoint_save=run.npz", "queue (a) item 7"),
 ])
 def test_configs_outside_the_slice_are_refused_by_roadmap_item(
