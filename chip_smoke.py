@@ -7,10 +7,12 @@
 Phases, in order; any failure exits non-zero before the last line:
 
 1. build: print the card's name and power limit (nvidia-smi), the torch
-   and CUDA versions, then build the CUDA kernels (seven; the pops and
-   the judge each instantiated on dense and on factored tables, with
-   one epoch and with a fault schedule's epoch axis, the pops also with
-   and without the model NIC) from
+   and CUDA versions and the CUDA toolkit's (`nvcc --version`), then
+   build the CUDA kernels (ten; the pops and the judge each
+   instantiated on dense and on factored tables, with one epoch and
+   with a fault schedule's epoch axis, the pops also with and without
+   the model NIC, and with and without the state audit's clock lane, in
+   two sources) from
    shadow_tpu_torch/csrc/ into shadow_tpu_torch/_build/ (one nvcc per
    source, all started together; timed as set-up; ptxas register and
    shared-memory use is printed).
@@ -59,10 +61,23 @@ Phases, in order; any failure exits non-zero before the last line:
      K4 on a factored star stacked the same way, and K1 and K2 on
      phold_1m_hier_faults' own six factored epochs at 1,000,000 hosts;
    - K7 count_paths on 3,900,000 outbox rows over 256 vertices (V*V =
-     65,536), beside torch.bincount on the same pairs and weights.
-3. parity: on the card and on the CPU plain path, totals, rounds and
-   per-host events_executed / trace_checksum (and downloads) must be
-   identical: the PHOLD test shape at 2 x 1,000 hosts, loss 0.01, 1 s;
+     65,536), beside torch.bincount on the same pairs and weights;
+   - the audited pops (`_aud`, the state audit's clock lane) on the
+     same phases' inputs with random audit leaves (aud_t above a tenth
+     of the hosts' next events): K1, K4 and K6 at their shapes, K1_hier
+     at 1,000,000 hosts and K4_nic;
+   - K8 audit_round at 100,000 and 1,000,000 hosts, E=64 (heaps with
+     swapped rows, tied times, heads past E and below 0, negative
+     counters; the row ledger balanced and off by one); K9 loop_control
+     at 1,000,000 hosts in each of its branches, beside torch.gather +
+     amin; phase_tally at the PHOLD shapes, with and without the
+     audit's ledger.
+3. parity: the window loop captured into a CUDA graph on the card (the
+   main path), the Python loop on the card and the CPU plain path must
+   give identical totals, rounds, per-host events_executed /
+   trace_checksum (and downloads) and every state leaf, and the
+   audited graph run the same with a zero health word: the PHOLD test
+   shape at 2 x 1,000 hosts, loss 0.01, 1 s;
    the tgen test config (tests/test_tgen_device.py) at loss 0.25,
    retry=120ms with TGEN_PARITY_CLIENTS clients; examples/tor_small.yaml
    with its stop_time cut to TOR_PARITY_STOP (past its 5 s bootstrap,
@@ -72,11 +87,23 @@ Phases, in order; any failure exits non-zero before the last line:
    path counters, tgen, Tor, each on constrained links), tests/
    test_faults.py's link-fault config with the path counters, and
    examples/tgen_faults_hier.yaml's link faults (card hierarchical ==
-   card dense == CPU), the path counters compared too.
-4. full: through the port's CLI entry function on the card, each run
-   with the kernel launch counts set to 0 just before and read just
-   after; fails on any overflow or on a kernel of the path that never
-   launched: examples/phold.yaml at 2 x 50,000 hosts;
+   card dense == CPU), the path counters compared too; then the
+   state audit: five seeded corruptions (BUSY_YAML paused at 300 ms:
+   a negative counter, two heap rows swapped, a head past E, aud_t
+   above a host's next event, a live row deleted) run on to 1 s on the
+   card and on the CPU plain path, every leaf and the words equal and
+   each word tripping its invariant, and a run paused at 300 ms and
+   resumed equal to an unpaused one.
+4. full: through the port's CLI entry function on the card (the
+   captured window loop), each run with the kernel launch counts set to
+   0 just before and read just after; fails on any overflow or on a
+   kernel of the path that never launched; its wall, rounds, phases and
+   host syncs printed; then the same graph run under torch.profiler for
+   its kernels' device time, the same config in timing mode (the Python
+   loop, a CUDA event pair around each launch) for that loop's per-kernel
+   breakdown, and, for phold, tgen_10000, tgen_10000_nic and tor_small,
+   the Python loop untimed, for walls of both loops in one call (counts
+   equal): examples/phold.yaml at 2 x 50,000 hosts;
    examples/tgen_10000.yaml as shipped (10,000 hosts, 30 s); and the
    same file with every group's quantity x10 (tgen_100000.yaml's host
    set, 100,000 hosts, without its multi-chip runner keys);
@@ -86,8 +113,10 @@ Phases, in order; any failure exits non-zero before the last line:
    examples/tgen_1000000.yaml's factored topology, 1 s);
    examples/tgen_10000.yaml under the model NIC and the path counters
    (tgen_10000_nic); PHOLD_1M_YAML with PHOLD_1M_FAULTS
-   (phold_1m_hier_faults, six factored epochs). Every run must be
-   admitted and its measured peak device memory lie within
+   (phold_1m_hier_faults, six factored epochs); phold_1m_hier again
+   with `state_audit` (the audit's share of its wall, and K8's device
+   time from its profiled graph run). Every run must
+   be admitted and its measured peak device memory lie within
    capacity.FOOTPRINT_TOLERANCE of its admission estimate.
 5. boot: examples/tgen_1000000.yaml as shipped built (timed), admitted
    and booted (engine and init_state) on the card; not run.
@@ -179,8 +208,8 @@ hosts:
        args: server=server size=200KiB count=2 pause=200ms retry=120ms}}
 """
 # examples/tor_small.yaml's stop_time cut for the card == CPU parity
-# run (the plain path on the CPU takes about a minute there)
-TOR_PARITY_STOP = "30s"
+# run (the plain path on the CPU takes about a minute there at 60 s)
+TOR_PARITY_STOP = "15s"
 # examples/tgen_10000.yaml's groups and quantities
 TGEN_QUANTITY = {"server_nyc": 100, "server_lon": 100, "server_sin": 100,
                  "client_nyc": 1600, "client_lon": 1600,
@@ -232,6 +261,8 @@ hosts:
 # condition), and examples/phold.yaml's PHOLD (msgload=3 size=512, seed
 # 7, start 10 ms) on one host per spoke, for tgen_1000000.yaml's 1 s
 PHOLD_1M_HUB_LOSS = 0.02
+# its windows (the rounds every run of it has counted)
+PHOLD_1M_ROUNDS = 449
 PHOLD_1M_YAML = f"""
 general: {{stop_time: 1s, seed: 7}}
 network:
@@ -454,6 +485,17 @@ REPLACES = {
     "pop_tgen_ep_hier": "shadow_tpu/device/engine.py:1186",
     "pop_phase_ep_hier": "shadow_tpu/device/engine.py:1186",
     "count_paths": "shadow_tpu/device/engine.py:1327",
+    # the state audit: the clock lane of _step, fused into each pop,
+    # _audit_round, and the tallies between the judge and the route
+    "pop_phase_aud": "shadow_tpu/device/engine.py:800",
+    "pop_tgen_aud": "shadow_tpu/device/engine.py:800",
+    "pop_tor_aud": "shadow_tpu/device/engine.py:800",
+    "pop_phase_hier_aud": "shadow_tpu/device/engine.py:800",
+    "pop_tgen_nic_aud": "shadow_tpu/device/engine.py:800",
+    "audit_round": "shadow_tpu/device/engine.py:2072",
+    "phase_tally": "shadow_tpu/device/engine.py:1941",
+    # the window loop: _round/_phase/_run_shard/_axis_min
+    "loop_control": "shadow_tpu/device/engine.py:2116",
 }
 SOURCES = {
     "pop_phase": "shadow_tpu_torch/csrc/pop_phase.cu",
@@ -473,13 +515,58 @@ SOURCES = {
     "pop_tgen_ep_hier": "shadow_tpu_torch/csrc/pop_phase.cu",
     "pop_phase_ep_hier": "shadow_tpu_torch/csrc/pop_phase.cu",
     "count_paths": "shadow_tpu_torch/csrc/count_paths.cu",
+    **dict.fromkeys(("pop_phase_aud", "pop_tgen_aud", "pop_tor_aud",
+                     "pop_phase_hier_aud", "pop_tgen_nic_aud"),
+                    "shadow_tpu_torch/csrc/pop_phase_aud.cu"),
+    "audit_round": "shadow_tpu_torch/csrc/audit_round.cu",
+    "phase_tally": "shadow_tpu_torch/csrc/phase_tally.cu",
+    "loop_control": "shadow_tpu_torch/csrc/loop_control.cu",
 }
 # the kernels line's rows, in order
 ROWS = ("pop_phase", "pop_tgen", "pop_tor", "judge_outbox", "route",
         "merge_heaps", "pop_phase_hier", "judge_outbox_hier",
         "pop_phase_nic", "pop_tgen_nic", "pop_tor_nic", "judge_outbox_ep",
         "pop_tgen_ep", "judge_outbox_ep_hier", "pop_tgen_ep_hier",
-        "pop_phase_ep_hier", "count_paths")
+        "pop_phase_ep_hier", "count_paths", "pop_phase_aud",
+        "pop_tgen_aud", "pop_tor_aud", "pop_phase_hier_aud",
+        "pop_tgen_nic_aud", "audit_round", "loop_control", "phase_tally")
+AUDIT = "experimental.state_audit=true"
+# tests/test_torch_audit.py's BUSY: PHOLD without loss at msgload 4,
+# with self-sends and a 50 ms runahead, so that every host keeps several
+# events at several times within a window; the seeded corruptions of
+# its state paused at CORRUPT_PAUSE, run on to CORRUPT_RESUME
+BUSY_YAML = """
+general: {stop_time: 2s, seed: 5}
+network:
+  graph:
+    type: gml
+    inline: |
+      graph [ directed 0
+        node [ id 0 bandwidth_down "100 Mbit" bandwidth_up "100 Mbit" ]
+        node [ id 1 bandwidth_down "100 Mbit" bandwidth_up "100 Mbit" ]
+        edge [ source 0 target 0 latency "30 ms" packet_loss 0.0 ]
+        edge [ source 0 target 1 latency "10 ms" packet_loss 0.0 ]
+        edge [ source 1 target 1 latency "30 ms" packet_loss 0.0 ] ]
+experimental: {scheduler_policy: tpu, event_capacity: 64,
+               outbox_capacity: 16, runahead: 50 ms}
+hosts:
+  left:
+    quantity: 8
+    network_node_id: 0
+    processes: [{path: model:phold, args: msgload=4 selfloop=1,
+                 start_time: 100ms}]
+  right:
+    quantity: 8
+    network_node_id: 1
+    processes: [{path: model:phold, args: msgload=4 selfloop=1,
+                 start_time: 150ms}]
+"""
+CORRUPT_PAUSE, CORRUPT_RESUME, CORRUPT_STOP = 300_000_000, 10**9, 2 * 10**9
+CORRUPTIONS = {"counter": "counter-negativity",
+               "heap_swap": "clock-monotonicity",
+               "head": "packet-conservation",
+               "clock": "clock-monotonicity",
+               "lost_row": "packet-conservation"}
 
 
 class SmokeFailure(Exception):
@@ -587,6 +674,13 @@ def max_abs_err(a: dict, b: dict, keys) -> float:
     return err
 
 
+def window_block(K, win_end, dev):
+    """A control block with `run` set and the window end `win_end`: what
+    the window loop hands the pop and the judge (made outside the timed
+    calls, which would otherwise copy one to the card first)."""
+    return K.control_block(dev, run=1, win_end=win_end)
+
+
 def time_median(torch, run, make, reps):
     """Median device ms of run(inputs) over `reps` fresh input
     copies, by CUDA events around the call alone."""
@@ -689,10 +783,12 @@ def phold_kernels(torch, K, scratch, rng, H, dev, world=None,
             pops0, ob_k1, state_k1 = pk, obk, sk
     p = params(0)
 
+    win = window_block(K, win_end, dev)
+
     def k1_args():
         return (clone(state0), empty_ob(),
                 torch.empty(H, dtype=torch.int32, device=dev), world,
-                win_end, p)
+                win, p)
 
     out["pop_phase"]["ms"] = time_median(torch, scratch.pop,
                                          k1_args, 7)
@@ -712,6 +808,9 @@ def phold_kernels(torch, K, scratch, rng, H, dev, world=None,
     out["pop_phase"]["ops"] = (2 * H + 2 * sends) * THREEFRY_OPS
     out["pop_phase"]["shape"] = f"H={H} E={E} OB={OB} pops={total_pops}"
     finish(out["pop_phase"])
+    out["pop_phase_aud"] = aud_pop_case(
+        torch, K, scratch, rng, "pop_phase" + (K.HIER if hier else ""),
+        state0, world, p, win_end, dev, out["pop_phase"])
 
     if hier:
         # K2 on K1's outbox, its destinations retargeted to every kind
@@ -772,8 +871,10 @@ def judge_case(torch, K, scratch, state, ob, world, win_end, p, H, OB,
         check(int(((ob["m"] & K.U32) >> 8)[is_send].max()) == p.C,
               "judge_outbox: no full train in the outbox")
 
+    win = window_block(K, win_end, state["head"].device)
+
     def k2_args():
-        return (clone(state), clone(ob), world, win_end, p)
+        return (clone(state), clone(ob), world, win, p)
 
     return finish({
         "err": err,
@@ -908,7 +1009,8 @@ def hier_kernels(torch, K, scratch, rng, dev):
                         world=world(PHOLD_1M_HUB_LOSS),
                         lossless=world(0.0))
     return {"pop_phase_hier": out["pop_phase"],
-            "judge_outbox_hier": out["judge_outbox"]}
+            "judge_outbox_hier": out["judge_outbox"],
+            "pop_phase_hier_aud": out["pop_phase_aud"]}
 
 
 def merge_case(torch, K, scratch, rng, state0, p, H, OB, dev):
@@ -963,12 +1065,12 @@ def pop_case(torch, K, scratch, name, state0, world, p, win_end, dev):
     from shadow_tpu_torch.device.engine import STATE_DTYPES
 
     H, E, OB = state0["head"].shape[0], p.E, p.OB
+    win = window_block(K, win_end, dev)
 
     def args():
         return (clone(state0), {f: torch.empty(
             (H, OB), dtype=torch.int64, device=dev) for f in K.OB_FIELDS},
-            torch.empty(H, dtype=torch.int32, device=dev), world, win_end,
-            p)
+            torch.empty(H, dtype=torch.int32, device=dev), world, win, p)
 
     ka, pa = args(), args()
     scratch.pop(*ka)
@@ -1118,6 +1220,9 @@ def tgen_kernels(torch, K, scratch, rng, H, dev):
     out = {"pop_tgen": tgen_pop_row(c, p, H)}
     out["pop_tgen"]["on_factored_tables"] = factored_pop(
         torch, K, scratch, "pop_tgen", state0, world, p, win_end, dev)
+    out["pop_tgen_aud"] = aud_pop_case(torch, K, scratch, rng, "pop_tgen",
+                                       state0, world, p, win_end, dev,
+                                       out["pop_tgen"])
     # K2 on K4's outbox, then K3, at tgen_10000's layout
     out["judge_outbox"] = judge_case(torch, K, scratch, sk, obk, world,
                                      win_end, p, H, OB)
@@ -1324,6 +1429,9 @@ def tor_kernels(torch, K, scratch, rng, dev):
                  + " ".join(f"{k}={v}" for k, v in branches.items())})}
     out["pop_tor"]["on_factored_tables"] = factored_pop(
         torch, K, scratch, "pop_tor", state0, world, p, win_end, dev)
+    out["pop_tor_aud"] = aud_pop_case(torch, K, scratch, rng, "pop_tor",
+                                      state0, world, p, win_end, dev,
+                                      out["pop_tor"])
     # K2 on K6's outbox (holed masks), then K3 at E=96, IN=64
     out["judge_outbox"] = judge_case(torch, K, scratch, sk, obk, world,
                                      win_end, p, H, OB)
@@ -1379,12 +1487,12 @@ def nic_pop_case(torch, K, scratch, name, state0, world, p, win_end, dev):
 
     H, E, OB, M = state0["head"].shape[0], p.E, p.OB, p.M_out
     keys = list(STATE_DTYPES) + [k for k in OPTIONAL_DTYPES if k in state0]
+    win = window_block(K, win_end, dev)
 
     def args():
         return (clone(state0), {f: torch.empty(
             (H, OB), dtype=torch.int64, device=dev) for f in K.OB_FIELDS},
-            torch.empty(H, dtype=torch.int32, device=dev), world, win_end,
-            p)
+            torch.empty(H, dtype=torch.int32, device=dev), world, win, p)
 
     ka, pa = args(), args()
     scratch.pop(*ka)
@@ -1493,6 +1601,10 @@ def nic_kernels(torch, K, scratch, rng, dev):
             "ops": (2 * H + 2 * c["packets"]) * THREEFRY_OPS,
             "shape": f"H={H} E={p.E} K={p.K} T={p.T} B={p.B} OB={OB} "
                      f"C={p.C} cp={int(p.CP)} {c['counts']}"})
+    s, w, p, we = cases["pop_tgen_nic"]
+    out["pop_tgen_nic_aud"] = aud_pop_case(
+        torch, K, scratch, rng, "pop_tgen_nic", s, w, p, we, dev,
+        out["pop_tgen_nic"])
     return out
 
 
@@ -1714,6 +1826,254 @@ def route_case(torch, K, scratch, rng, H, OB, IN, dev):
                  f"longest={int(cp.max())} past_IN={int((cp > IN).sum())}"})
 
 
+def add_audit(torch, K, rng, state, p):
+    """The audit's leaves on one phase's state, and its params with the
+    clock lane on: words with random bits; aud_t one above the head
+    event's time at a tenth of the hosts (their first pop trips the
+    clock lane), equal to it at three tenths, below it elsewhere."""
+    import dataclasses
+
+    H, E = state["ht"].shape
+    head = state["head"].long()
+    t = state["ht"].gather(1, head.clamp(0, E - 1)[:, None])[:, 0]
+    t = torch.where(head < E, t, 0)
+    u = torch.from_numpy(rng.random(H)).to(t.device)
+    below = (t.double() * u).long()
+    state = dict(state)
+    state["aud_t"] = torch.where(u < 0.1, t + 1,
+                                 torch.where(u < 0.4, t, below))
+    state["aud"] = torch.from_numpy(rng.choice(
+        np.array([0, 0, 0, 0, 1, 4, 8], np.int32), H)).to(t.device)
+    return state, dataclasses.replace(p, AUD=True)
+
+
+def aud_pop_case(torch, K, scratch, rng, name, state0, world, p, win_end,
+                 dev, base):
+    """The audited instantiation of a pop (`name` + `_aud`) against the
+    plain pop with the clock lane, on one phase's inputs with the
+    audit's leaves (`add_audit`): exact on every state leaf, outbox
+    field and pop count; the clock lane must trip. The row's bound is
+    the unaudited row's (`base`) plus the two leaves read and
+    written."""
+    from shadow_tpu_torch.device.engine import OPTIONAL_DTYPES, STATE_DTYPES
+
+    state, pa = add_audit(torch, K, rng, state0, p)
+    H, OB = state["head"].shape[0], pa.OB
+    keys = list(STATE_DTYPES) + [k for k in OPTIONAL_DTYPES if k in state]
+    win = window_block(K, win_end, dev)
+
+    def args():
+        return (clone(state), {f: torch.empty(
+            (H, OB), dtype=torch.int64, device=dev) for f in K.OB_FIELDS},
+            torch.empty(H, dtype=torch.int32, device=dev), world, win, pa)
+
+    ka, kp = args(), args()
+    scratch.pop(*ka)
+    K.pop_plain(*kp)
+    torch.cuda.synchronize()
+    err = max(max_abs_err(ka[0], kp[0], keys),
+              max_abs_err(ka[1], kp[1], list(K.OB_FIELDS)),
+              max_abs_err({"pops": ka[2]}, {"pops": kp[2]}, ["pops"]))
+    check(err == 0.0, f"{name}{K.AUD} differs from its plain version "
+          f"(max abs err {err})")
+    check(scratch.launches[name + K.AUD] > 0, f"{name}{K.AUD}: never "
+          "launched")
+    trips = int((((ka[0]["aud"] & ~state["aud"]) & K.AUD_CLOCK) != 0).sum())
+    check(trips > 0, f"{name}{K.AUD}: the clock lane never tripped")
+    return finish({
+        "err": err,
+        "ms": time_median(torch, scratch.pop, args, 7),
+        "plain_ms": time_median(torch, K.pop_plain, args, 3),
+        "bytes": base["bytes"] + H * (4 + 8) * 2, "ops": base["ops"],
+        "shape": f"{base['shape']} clock_trips={trips}"})
+
+
+def audit_inputs(torch, K, rng, H, E, dev):
+    """The leaves K8 reads, seeded: sorted heaps with INF tails, a
+    twentieth of them with their first two times tied (keys either
+    way), a hundredth with two live rows swapped; heads past E at a
+    hundredth of the hosts and below 0 at a two-hundredth; counters
+    negative at a thousandth; aud_tx balancing the row ledger."""
+    slot = np.arange(E)[None, :]
+    n_live = rng.integers(0, E + 1, H)
+    ht = np.sort(rng.integers(0, 2 * 10**9, (H, E)), axis=1)
+    tie = rng.random(H) < 0.05
+    ht[tie, 1] = ht[tie, 0]
+    swap = np.flatnonzero((rng.random(H) < 0.01) & (n_live >= 2))
+    ht[swap, 0], ht[swap, 1] = ht[swap, 1], ht[swap, 0]
+    live = slot < n_live[:, None]
+    ht = np.where(live, ht, K.INF)
+    hk = np.where(live, rng.integers(0, 2**62, (H, E)), K.IMAX)
+    head = np.minimum(rng.integers(0, 4, H), n_live)
+    head[rng.random(H) < 0.01] = E + 1
+    head[rng.random(H) < 0.005] = -1
+    leaves = {k: rng.integers(0, 2**20, H) for k in
+              K.AUD_COUNTERS + ("overflow", "x_overflow")}
+    for k in K.AUD_COUNTERS:
+        leaves[k][rng.random(H) < 0.001] = -1
+    after = ((slot >= head[:, None]) & (ht < K.INF)).sum(-1)
+    aud_tx = (leaves["n_exec"] + after + leaves["overflow"]
+              + leaves["x_overflow"]).astype(np.int64)
+    arrays = {"ht": ht, "hk": hk, "head": head, "aud_tx": aud_tx,
+              "aud": rng.choice(np.array([0, 0, 0, 2], np.int32), H),
+              **leaves}
+    return {k: torch.from_numpy(np.ascontiguousarray(
+        v.astype(np.int64 if k in ("ht", "hk", "aud_tx") else np.int32)))
+        .to(dev) for k, v in arrays.items()}
+
+
+def audit_case(torch, K, scratch, rng, H, E, dev):
+    """K8 against its plain version on `audit_inputs`, with the row
+    ledger balanced (no AUD_CONSERVE) and off by one (AUD_CONSERVE on
+    every host); timed on the balanced one."""
+    state = audit_inputs(torch, K, rng, H, E, dev)
+    off = dict(state, aud_tx=state["aud_tx"].clone())
+    off["aud_tx"][0] += 1
+    err = 0.0
+    for case, st in (("balanced", state), ("off by one", off)):
+        sk, sp = clone(st), clone(st)
+        scratch.audit_round(sk)
+        K.audit_round_plain(sp)
+        torch.cuda.synchronize()
+        e = max_abs_err(sk, sp, list(st))
+        check(e == 0.0, f"audit_round ({case} ledger, H={H}) differs from "
+              f"its plain version (max abs err {e})")
+        err = max(err, e)
+        conserve = bool(((sk["aud"] & K.AUD_CONSERVE) != 0).all())
+        check(conserve == (case != "balanced"),
+              f"audit_round ({case} ledger): AUD_CONSERVE wrong")
+        if case == "balanced":
+            bits = {b: int(((sk["aud"] & ~st["aud"]) & b != 0).sum())
+                    for b in (K.AUD_HEAP, K.AUD_COUNTER)}
+            check(all(bits.values()), f"audit_round: a bit never set "
+                  f"({bits})")
+    # the keys the kernel reads: those of slots in a run of tied times,
+    # each once (a run of L tied slots reads L keys)
+    tie = state["ht"][:, :-1] == state["ht"][:, 1:]
+    no = torch.zeros_like(tie[:, :1])
+    tied = int((torch.cat([tie, no], 1) | torch.cat([no, tie], 1)).sum())
+    # the hosts whose word it writes (read and written): those with a
+    # heap or counter bit, whatever their word held before
+    fresh = dict(clone(state), aud=torch.zeros_like(state["aud"]))
+    scratch.audit_round(fresh)
+    written = int((fresh["aud"] != 0).sum())
+    return finish({
+        "err": err,
+        "ms": time_median(torch, scratch.audit_round,
+                          lambda: (clone(state),), 7),
+        "plain_ms": time_median(torch, K.audit_round_plain,
+                                lambda: (clone(state),), 3),
+        "library_ms": None,
+        # t of every slot, the keys of tied slots, head, the nine int32
+        # counters and aud_tx of every host, the word of each host
+        # written
+        "bytes": H * E * 8 + tied * 8 + H * (4 + 9 * 4 + 8)
+                 + written * 8,
+        "ops": 0,
+        "shape": f"H={H} E={E} tied_slots={tied} words_written={written} "
+                 f"heap_bits={bits[K.AUD_HEAP]} "
+                 f"counter_bits={bits[K.AUD_COUNTER]}"})
+
+
+def loop_control_case(torch, K, scratch, state, dev):
+    """K9 against its plain version on a state's heads in each of its
+    branches: the start step, the window going on, the round ending
+    into a new window (clamped or not to final_stop), the stop reached,
+    max_rounds reached, the loop already done; timed on a round's
+    end. The library call is torch.gather + amin of the head times."""
+    H, E = state["ht"].shape
+    m = int(K.head_min_plain(state))
+    big = {"stop": K.INF, "final_stop": K.INF, "lookahead": 10**6,
+           "max_rounds": 1 << 40, "rounds": 5, "phases": 9, "run": 1}
+    cases = {
+        "start": ({**big, "run": 0}, True),
+        "continue": ({**big, "win_end": m + 1}, False),
+        "round_end": ({**big, "win_end": m}, False),
+        "clamped": ({**big, "win_end": m, "final_stop": m + 10}, False),
+        "stop": ({**big, "win_end": m, "stop": m}, False),
+        "max_rounds": ({**big, "win_end": m, "max_rounds": 6}, False),
+        "done": ({**big, "done": 1, "round_end": 1}, False)}
+    for case, (words, start) in cases.items():
+        ck = K.control_block(dev, **words)
+        cp = ck.clone()
+        scratch.loop_control(state, ck, start)
+        K.loop_control_plain(state, cp, start)
+        torch.cuda.synchronize()
+        check(torch.equal(ck, cp), f"loop_control ({case}) differs from "
+              f"its plain version: {ck.tolist()} != {cp.tolist()}")
+    head = state["head"].long().clamp(0, E - 1)[:, None]
+
+    def make():
+        return (state, K.control_block(dev, **cases["round_end"][0]))
+
+    return finish({
+        "err": 0.0,
+        "ms": time_median(torch, scratch.loop_control, make, 7),
+        "plain_ms": time_median(torch, K.loop_control_plain, make, 3),
+        "library_ms": time_median(
+            torch, lambda ht, hd: ht.gather(1, hd).amin(),
+            lambda: (state["ht"], head), 7),
+        # head and one heap time of every host
+        "bytes": H * (4 + 8), "ops": 0,
+        "shape": f"H={H} E={E} branches={','.join(cases)}"})
+
+
+def tally_case(torch, K, scratch, rng, H, OB, dev):
+    """phase_tally against its plain version at the PHOLD shapes on a
+    judged outbox (DROP_T rows among the live ones), with and without
+    the audit's ledger; timed without it (every run's case)."""
+    ob = random_outbox(rng, H, OB, torch, dev)
+    pops = torch.from_numpy(rng.integers(0, 9, H).astype(np.int32)).to(dev)
+    state = {"occ_ob": torch.from_numpy(rng.integers(0, 20, H).astype(
+                 np.int32)).to(dev),
+             "occ_trips": torch.tensor([3], dtype=torch.int32, device=dev),
+             "occ_phases": torch.tensor([7], dtype=torch.int32,
+                                        device=dev),
+             "aud_tx": torch.from_numpy(rng.integers(0, 2**40, H)).to(dev)}
+    params = {aud: K.PhaseParams(E=64, K=3, T=0, P=1, B=OB // 3, IN=64,
+                                 C=1, boot_end=0, seed=(0, 0), app=None,
+                                 AUD=aud) for aud in (False, True)}
+    err = 0.0
+    for aud, p in params.items():
+        sk, sp = clone(state), clone(state)
+        scratch.phase_tally(sk, ob, pops, p)
+        K.phase_tally_plain(sp, ob, pops, p)
+        torch.cuda.synchronize()
+        err = max(err, max_abs_err(sk, sp, list(state)))
+        check(err == 0.0, f"phase_tally (audit {aud}) differs from its "
+              "plain version")
+        check(bool((sk["aud_tx"] != state["aud_tx"]).any()) == aud,
+              "phase_tally: aud_tx moved where the audit is off, or not "
+              "where it is on")
+
+    def make():
+        return (clone(state), ob, pops, params[False])
+
+    exch = int((ob["t"] < K.DROP_T).sum())
+    return finish({
+        "err": err,
+        "ms": time_median(torch, scratch.phase_tally, make, 7),
+        "plain_ms": time_median(torch, K.phase_tally_plain, make, 3),
+        "library_ms": None,
+        # t of every outbox row, the pop counts, occ_ob read and written
+        "bytes": H * OB * 8 + H * 4 + H * 4 * 2, "ops": 0,
+        "shape": f"H={H} OB={OB} exchangeable={exch}"})
+
+
+def loop_kernels(torch, K, scratch, rng, dev):
+    """K8 at 100,000 and 1,000,000 hosts, K9 at 1,000,000 (on K8's
+    heaps), phase_tally at the PHOLD shapes."""
+    out = {"audit_round": audit_case(torch, K, scratch, rng, 100_000, 64,
+                                     dev)}
+    big = audit_case(torch, K, scratch, rng, 1_000_000, 64, dev)
+    out["audit_round"]["at_1m_hosts"] = big
+    state = audit_inputs(torch, K, rng, 1_000_000, 64, dev)
+    out["loop_control"] = loop_control_case(torch, K, scratch, state, dev)
+    out["phase_tally"] = tally_case(torch, K, scratch, rng, 100_000, 30,
+                                    dev)
+    return out
+
+
 def kernels_phase(torch, report, H=100_000, dev="cuda"):
     from shadow_tpu_torch.device import kernels as K
 
@@ -1733,6 +2093,7 @@ def kernels_phase(torch, report, H=100_000, dev="cuda"):
     epochs = epoch_kernels(torch, K, scratch, rng, dev)
     hier_faults = hier_fault_kernels(torch, K, scratch, rng, dev)
     paths = count_paths_case(torch, K, scratch, rng, dev)
+    loop = loop_kernels(torch, K, scratch, rng, dev)
     for name, r in phold.items():
         report_line(f"{name} (PHOLD shapes)", r)
     for name, r in tgen.items():
@@ -1759,10 +2120,17 @@ def kernels_phase(torch, report, H=100_000, dev="cuda"):
         report_line(f"{name} (phold_1m_hier_faults' tables, "
                     f"{len(EPOCH_TIMES)} epochs)", r)
     report_line("count_paths", paths)
-    report.update({**nic, **epochs, **hier_faults, "count_paths": paths})
+    for name, r in loop.items():
+        report_line(name, r)
+    report_line("audit_round", loop["audit_round"]["at_1m_hosts"])
+    report.update({**nic, **epochs, **hier_faults, **loop,
+                   "count_paths": paths})
     report.update({
         "pop_phase": phold["pop_phase"], "pop_tgen": tgen["pop_tgen"],
         "pop_tor": tor["pop_tor"], **hier,
+        "pop_phase_aud": phold["pop_phase_aud"],
+        "pop_tgen_aud": tgen["pop_tgen_aud"],
+        "pop_tor_aud": tor["pop_tor_aud"],
         "judge_outbox": {**phold["judge_outbox"],
                          "at_tgen_shape": tgen["judge_outbox"],
                          "at_tor_shape": tor["judge_outbox"]},
@@ -1787,106 +2155,251 @@ def same_run(a, b, what, names=("card", "cpu")):
     check(a.ok and a.events_executed > 0, f"parity run ({what}) failed")
 
 
-def nic_fault_parity(torch, report):
-    """The model NIC, link faults and path counters, card against the
-    CPU plain path (and factored against dense tables): every total,
-    rounds, per-host events and checksums, and the path counters. Each
-    card run's launches are kept for the kernels line."""
-    from shadow_tpu_torch.config import load_config, load_config_str
+def same_leaves(a, b, what, names):
+    """Every leaf of run `a`'s final state (a dict of numpy arrays)
+    equal in run `b`'s (which may hold more: the audit's)."""
+    for k, v in a.items():
+        check(np.array_equal(v, b[k]),
+              f"parity ({what}): state leaf {k} {names[0]} != {names[1]}")
+
+
+def engine_run(cfg, device, loop="run", kernels=None):
+    """(stats, final leaves as numpy arrays) of a config run by the
+    engine's `loop` method: "run" (its own loop: the captured graph on
+    the card) or "run_python" (the Python loop)."""
     from shadow_tpu_torch.device import runner
+    from shadow_tpu_torch.device.engine import state_to_numpy
+
+    engine, sim = runner.make_engine(cfg, device, kernels=kernels)
+    state = engine.init_state(sim.start_times, sim.stop_times)
+    t0 = time.perf_counter()
+    state, rounds = getattr(engine, loop)(state)
+    return (runner.summarize(cfg, engine, state, rounds, t0),
+            state_to_numpy(state))
+
+
+def loop_parity(torch, report, key, what, load, path=()):
+    """One parity config: the window loop captured on the card (the
+    engine's own loop) against the Python loop on the card and the CPU
+    plain path, on every statistic and every state leaf; then the
+    audited graph run: the same, with a zero word. Records both graph
+    runs' launches; checks the graph run launched `path`. Returns the
+    four runs' stats and the graph run's Kernels."""
     from shadow_tpu_torch.device.kernels import Kernels
 
-    runs = {}
+    kernels, aud_kernels = Kernels(), Kernels()
+    gpu, gpu_leaves = engine_run(load(), "cuda", kernels=kernels)
+    py, py_leaves = engine_run(load(), "cuda", "run_python")
+    cpu, cpu_leaves = engine_run(load(), "cpu")
+    aud, aud_leaves = engine_run(load([AUDIT]), "cuda", kernels=aud_kernels)
+    check((gpu.loop, py.loop, aud.loop) == ("graph", "python", "graph"),
+          f"parity ({what}): loops {gpu.loop}, {py.loop}, {aud.loop}")
+    for other, leaves, names in (
+            (cpu, cpu_leaves, ("card graph", "cpu")),
+            (py, py_leaves, ("card graph", "card python")),
+            (aud, aud_leaves, ("card graph", "card graph audited"))):
+        same_run(gpu, other, what, names)
+        same_leaves(gpu_leaves, leaves, what, names)
+    check(not aud_leaves["aud"].any(), f"parity ({what}): the "
+          "audited run's word is not zero")
+    for k in path + ("loop_control", "phase_tally"):
+        check(kernels.launches[k] > 0, f"parity ({what}): {k} never "
+              "launched")
+    check(aud_kernels.launches["audit_round"] > 0, f"parity ({what}): "
+          "audit_round never launched")
+    runs = report.setdefault("_parity", {})
+    runs[f"parity_{key}"] = {"launches": dict(kernels.launches)}
+    runs[f"parity_{key}_audit"] = {"launches": dict(aud_kernels.launches)}
+    print(f"[parity] {what}: card graph == card python == cpu plain "
+          f"path == card graph audited (zero word): {gpu.summary()}; "
+          f"card graph wall {gpu.wall_s:.3f} s ({gpu.phases} phases, "
+          f"{gpu.host_syncs} host syncs), card python wall "
+          f"{py.wall_s:.3f} s ({py.host_syncs} host syncs), audited "
+          f"{aud.wall_s:.3f} s, cpu wall {cpu.wall_s:.3f} s", flush=True)
+    return gpu, py, cpu, aud, kernels
+
+
+def nic_fault_parity(torch, report):
+    """The model NIC, link faults and path counters, three ways and
+    audited (`loop_parity`), and factored against dense tables."""
+    from shadow_tpu_torch.config import load_config, load_config_str
+    from shadow_tpu_torch.device import runner
+
     hier = os.path.join(REPO, "examples", "tgen_faults_hier.yaml")
     for key, what, load, path in (
             ("nic_phold", "PHOLD 16 hosts, model NIC 2 Mbit, loss 0.05, "
-             "count_paths, 3 s", lambda: load_config_str(NIC_PHOLD_YAML),
+             "count_paths, 3 s",
+             lambda x=(): load_config_str(NIC_PHOLD_YAML, list(x)),
              ("pop_phase_nic", "count_paths")),
             ("nic_tgen", "tgen 1 server + 20 clients, loss 0.1, model "
              "NIC, server uplink 20 Mbit, clients' downlink 2 Mbit, 3 s",
-             lambda: load_config_str(NIC_TGEN_YAML), ("pop_tgen_nic",)),
+             lambda x=(): load_config_str(NIC_TGEN_YAML, list(x)),
+             ("pop_tgen_nic",)),
             ("nic_tor", "Tor 16 relays + 32 clients, loss 0.05, model NIC, "
              "clients' downlink 1 Mbit, 8 s",
-             lambda: load_config_str(NIC_TOR_YAML), ("pop_tor_nic",)),
+             lambda x=(): load_config_str(NIC_TOR_YAML, list(x)),
+             ("pop_tor_nic",)),
             ("faults_dense", "tgen 1 server + 3 clients, link faults "
              "(degrade, link_down, link_up), count_paths, 8 s",
-             lambda: load_config_str(FAULT_YAML),
+             lambda x=(): load_config_str(FAULT_YAML, list(x)),
              ("pop_tgen_ep", "judge_outbox_ep", "count_paths")),
             ("faults_hier", "examples/tgen_faults_hier.yaml, its link "
-             f"faults alone, {FAULTS_HIER_STOP}", lambda: load_config(
-                 hier, FAULTS_HIER), ("pop_tgen_ep_hier",
-                                      "judge_outbox_ep_hier"))):
-        cfg = load()
-        kernels = Kernels()
-        gpu = runner.run(cfg, device="cuda", kernels=kernels)
-        cpu = runner.run(cfg, device="cpu")
-        same_run(gpu, cpu, what)
-        for k in path:
-            check(kernels.launches[k] > 0, f"parity ({what}): {k} never "
-                  "launched")
-        runs[f"parity_{key}"] = {"launches": dict(kernels.launches)}
-        extra = ""
+             f"faults alone, {FAULTS_HIER_STOP}",
+             lambda x=(): load_config(hier, FAULTS_HIER + list(x)),
+             ("pop_tgen_ep_hier", "judge_outbox_ep_hier"))):
+        gpu, _, _, _, kernels = loop_parity(torch, report, key, what, load,
+                                            path)
         if key == "faults_hier":
             dense = runner.run(load_config(hier, FAULTS_HIER + [
                 "network.topology.representation=dense"]), device="cuda")
             same_run(gpu, dense, what, ("card hierarchical", "card dense"))
-            extra = f", == card dense (wall {dense.wall_s:.3f} s)"
+            print(f"[parity] {what}: card hierarchical == card dense "
+                  f"(wall {dense.wall_s:.3f} s)", flush=True)
         if gpu.path_packets is not None:
-            extra += (f"; {sum(gpu.path_packets.values())} packets on "
-                      f"{len(gpu.path_packets)} vertex pairs")
-        print(f"[parity] {what}: card == cpu plain path{extra}: "
-              f"{gpu.summary()}; card wall {gpu.wall_s:.3f} s, cpu wall "
-              f"{cpu.wall_s:.3f} s; launches "
+            print(f"[parity] {what}: {sum(gpu.path_packets.values())} "
+                  f"packets on {len(gpu.path_packets)} vertex pairs",
+                  flush=True)
+        print(f"[parity] {what}: launches "
               + ", ".join(f"{k} {kernels.launches[k]}" for k in path),
               flush=True)
         check(gpu.packets_dropped > 0, f"parity ({what}): no drop")
-    report["_parity"] = runs
+
+
+def corrupt(name, arrays):
+    """tests/test_torch_audit.py's `corrupt`: a copy of a paused
+    state's leaves with one seeded corruption."""
+    a = {k: np.array(v, copy=True) for k, v in arrays.items()}
+    ht = a["ht"]
+    E = ht.shape[1]
+    inf = 1 << 62
+    live = (ht < inf).sum(-1)
+    busiest = int(np.argmax(live))
+    if name == "counter":
+        a["n_sent"][0] = -7
+    elif name == "heap_swap":
+        later = np.where((ht > ht[:, :1]) & (ht < inf), ht, inf)
+        h, j = np.unravel_index(int(np.argmin(later)), ht.shape)
+        for f in ("ht", "hk", "hm", "hv", "hw"):
+            a[f][h, [0, j]] = a[f][h, [j, 0]]
+    elif name == "head":
+        a["head"][busiest] = E + 3
+    elif name == "clock":
+        a["aud_t"][busiest] = ht[busiest, 0] + 1
+    elif name == "lost_row":
+        j = int(live[busiest]) - 1
+        a["ht"][busiest, j], a["hk"][busiest, j] = inf, (1 << 63) - 1
+        for f in ("hm", "hv", "hw"):
+            a[f][busiest, j] = 0
+    return a
+
+
+def audit_parity(torch, report):
+    """The state audit on the card: BUSY_YAML paused at CORRUPT_PAUSE
+    (windows clamped to its stop time) on the card and on the CPU, the
+    paused states equal; each seeded corruption of it run on to
+    CORRUPT_RESUME by the graph loop on the card and the Python loop on
+    the CPU, every leaf and the words equal and each word tripping its
+    invariant; and the card's paused run resumed to the stop time equal
+    to an unpaused one."""
+    from shadow_tpu_torch.config import load_config_str
+    from shadow_tpu_torch.device import runner
+    from shadow_tpu_torch.device.engine import (
+        state_from_numpy,
+        state_to_numpy,
+    )
+    from shadow_tpu_torch.device.kernels import Kernels
+    from shadow_tpu_torch.device.supervise import decode_audit
+
+    cfg = load_config_str(BUSY_YAML, [AUDIT])
+    kernels = Kernels()
+    card, sim = runner.make_engine(cfg, "cuda", kernels=kernels)
+    cpu, _ = runner.make_engine(cfg, "cpu")
+
+    def fresh(engine):
+        return engine.init_state(sim.start_times, sim.stop_times)
+
+    paused, r1 = card.run(fresh(card), CORRUPT_PAUSE, CORRUPT_STOP)
+    mid = state_to_numpy(paused)
+    cpu_mid, cpu_r1 = cpu.run(fresh(cpu), CORRUPT_PAUSE, CORRUPT_STOP)
+    check(r1 == cpu_r1 and all(np.array_equal(v, cpu_mid[k].numpy())
+                               for k, v in mid.items()),
+          "audit parity: the paused states differ")
+    words = {}
+    for name, trips in CORRUPTIONS.items():
+        arrays = corrupt(name, mid)
+        g, rg = card.run(state_from_numpy(arrays, "cuda"), CORRUPT_RESUME,
+                         CORRUPT_STOP)
+        c, rc = cpu.run(state_from_numpy(arrays, "cpu"), CORRUPT_RESUME,
+                        CORRUPT_STOP)
+        check(card.loop_stats["loop"] == "graph", "audit parity: not the "
+              "graph loop")
+        g = state_to_numpy(g)
+        for k, v in g.items():
+            check(rg == rc and np.array_equal(v, c[k].numpy()),
+                  f"audit parity ({name}): leaf {k} card != cpu")
+        word = int(np.bitwise_or.reduce(g["aud"]))
+        check(trips in decode_audit(word), f"audit parity ({name}): word "
+              f"{word} does not name {trips}")
+        words[name] = (int((g["aud"] != 0).sum()), decode_audit(word))
+    resumed, r2 = card.run(paused, CORRUPT_STOP, CORRUPT_STOP)
+    whole, rw = card.run(fresh(card), CORRUPT_STOP, CORRUPT_STOP)
+    resumed, whole = state_to_numpy(resumed), state_to_numpy(whole)
+    check(r1 + r2 == rw and all(np.array_equal(v, whole[k])
+                                for k, v in resumed.items()),
+          "audit parity: paused and resumed != unpaused")
+    check(not whole["aud"].any(), "audit parity: unpaused word not zero")
+    report.setdefault("_parity", {})["parity_corruptions"] = {
+        "launches": dict(kernels.launches)}
+    print(f"[parity] state audit, BUSY_YAML (16 hosts) paused at "
+          f"{CORRUPT_PAUSE} ns: card == cpu; corruptions run on to "
+          f"{CORRUPT_RESUME} ns, card graph == cpu plain path, words "
+          + "; ".join(f"{k}: {n} host(s) {v}" for k, (n, v) in
+                      words.items())
+          + f"; paused at {CORRUPT_PAUSE} ns and resumed == unpaused "
+          f"({rw} rounds, zero word)", flush=True)
 
 
 def parity_phase(torch, report):
-    from shadow_tpu_torch.config import load_config_str
-    from shadow_tpu_torch.device import runner
-
-    from shadow_tpu_torch.config import load_config
+    from shadow_tpu_torch.config import load_config, load_config_str
 
     tor_small = os.path.join(REPO, "examples", "tor_small.yaml")
-    for what, load in (
-            ("PHOLD 2x1000 hosts, 1 s", lambda: load_config_str(
-                PARITY_YAML)),
-            (f"tgen 1 server + {TGEN_PARITY_CLIENTS} clients, loss 0.25, "
-             "retry=120ms, 6 s", lambda: load_config_str(TGEN_PARITY_YAML)),
-            (f"examples/tor_small.yaml (250 hosts), stop_time cut from 60 s "
-             f"to {TOR_PARITY_STOP}", lambda: load_config(
-                 tor_small, [f"general.stop_time={TOR_PARITY_STOP}"]))):
-        cfg = load()
-        gpu = runner.run(cfg, device="cuda")
-        cpu = runner.run(cfg, device="cpu")
-        same_run(gpu, cpu, what)
-        print(f"[parity] {what}: card == cpu plain path: "
-              f"{gpu.summary()}; card wall {gpu.wall_s:.3f} s, cpu wall "
-              f"{cpu.wall_s:.3f} s", flush=True)
-    star_parity(torch)
+    for key, what, load, path in (
+            ("phold", "PHOLD 2x1000 hosts, 1 s",
+             lambda x=(): load_config_str(PARITY_YAML, list(x)),
+             ("pop_phase", "judge_outbox")),
+            ("tgen", f"tgen 1 server + {TGEN_PARITY_CLIENTS} clients, "
+             "loss 0.25, retry=120ms, 6 s",
+             lambda x=(): load_config_str(TGEN_PARITY_YAML, list(x)),
+             ("pop_tgen", "judge_outbox")),
+            ("tor", f"examples/tor_small.yaml (250 hosts), stop_time cut "
+             f"from 60 s to {TOR_PARITY_STOP}", lambda x=(): load_config(
+                 tor_small, [f"general.stop_time={TOR_PARITY_STOP}",
+                             *x]), ("pop_tor", "judge_outbox"))):
+        loop_parity(torch, report, key, what, load, path)
+    star_parity(torch, report)
     nic_fault_parity(torch, report)
+    audit_parity(torch, report)
 
 
-def star_parity(torch):
+def star_parity(torch, report):
     """The star_clusters tgen run four ways: card and CPU, hierarchical
-    and dense tables; the card's hierarchical run goes through the
-    `_hier` kernels and its dense run through the others."""
+    and dense tables (each three ways and audited, `loop_parity`); the
+    card's hierarchical run goes through the `_hier` kernels and its
+    dense run through the others."""
     from shadow_tpu_torch.config import load_config_str
-    from shadow_tpu_torch.device import runner
-    from shadow_tpu_torch.device.kernels import HIER, TOPO_KERNELS, Kernels
+    from shadow_tpu_torch.device.kernels import HIER, TOPO_KERNELS
 
     what = ("star_clusters tgen, 8 clusters x 120 spokes, 8 servers + 952 "
             "clients, hub loss 0.02, 2 s")
     runs = {}
     for rep in ("hierarchical", "dense"):
-        cfg = load_config_str(STAR_PARITY_YAML, [
-            f"network.topology.representation={rep}"])
-        kernels = Kernels()
-        runs[("card", rep)] = runner.run(cfg, device="cuda",
-                                         kernels=kernels)
-        runs[("cpu", rep)] = runner.run(cfg, device="cpu")
+        def load(x=(), rep=rep):
+            return load_config_str(STAR_PARITY_YAML, [
+                f"network.topology.representation={rep}", *x])
+
+        gpu, _, cpu, _, kernels = loop_parity(
+            torch, report, f"star_{rep}", f"{what}, {rep}", load)
+        runs[("card", rep)], runs[("cpu", rep)] = gpu, cpu
         for n in TOPO_KERNELS:
             on, off = ((n + HIER, n) if rep == "hierarchical"
                        else (n, n + HIER))
@@ -1901,11 +2414,7 @@ def star_parity(torch):
     check(base.packets_dropped > 0 and base.downloads_completed > 0,
           f"parity ({what}): no drop or no download")
     print(f"[parity] {what}: card hierarchical == card dense == cpu "
-          f"hierarchical == cpu dense: {base.summary()}; card walls "
-          f"{base.wall_s:.3f} s hierarchical, "
-          f"{runs[('card', 'dense')].wall_s:.3f} s dense; cpu walls "
-          f"{runs[('cpu', 'hierarchical')].wall_s:.3f} s, "
-          f"{runs[('cpu', 'dense')].wall_s:.3f} s", flush=True)
+          f"hierarchical == cpu dense: {base.summary()}", flush=True)
 
 
 FULL_RUNS = (
@@ -1935,72 +2444,254 @@ FULL_RUNS = (
 )
 
 
-def full_phase(torch, card, report):
+# the full runs whose Python loop also runs untimed, for walls of both
+# loops from one call
+BOTH_LOOPS = ("phold", "tgen_10000", "tgen_10000_nic", "tor_small")
+# the full run repeated with the state audit
+AUDITED = "phold_1m_hier"
+
+
+def full_config(example, overrides):
+    from shadow_tpu_torch.config import load_config, load_config_str
+
+    if example is None:
+        return load_config_str(PHOLD_1M_YAML, list(overrides))
+    return load_config(os.path.join(REPO, "examples", example),
+                       list(overrides))
+
+
+def main_path_run(torch, name, example, overrides, path):
+    """One full run on the main path: the CLI's entry function on the
+    card (the captured window loop), launch counts set to 0 just before
+    and read just after; admission, peak memory, overflow and the
+    kernels of `path` checked. Returns (stats, launches, peak)."""
     from shadow_tpu_torch import cli
-    from shadow_tpu_torch.config import load_config_str
     from shadow_tpu_torch.device import capacity, runner
     from shadow_tpu_torch.device.kernels import KERNEL_NAMES, Kernels
 
-    runs = {}
+    kernels = Kernels()
+    kernels.library()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counts()
+    if example is None:
+        stats = runner.run(full_config(None, overrides), device="cuda",
+                           kernels=kernels)
+    else:
+        stats = cli.simulate(os.path.join(REPO, "examples", example),
+                             overrides, device="cuda", kernels=kernels)
+    launches = dict(kernels.launches)
+    peak = torch.cuda.max_memory_allocated()
+    est = stats.admission["estimate"]["per_device"]
+    print(f"[full:{name}] {capacity.verdict_line(stats.admission)}; "
+          f"measured peak {peak} B ({peak / est:.3f} x the estimate)",
+          flush=True)
+    check(stats.admission["action"] == "admit",
+          f"full {name}: admission {stats.admission['action']}")
+    check(est / capacity.FOOTPRINT_TOLERANCE <= peak
+          <= est * capacity.FOOTPRINT_TOLERANCE,
+          f"full {name}: peak {peak} B is not within "
+          f"{capacity.FOOTPRINT_TOLERANCE}x of the estimate {est} B")
+    check(stats.overflow == 0 and stats.x_overflow == 0,
+          f"full {name}: overflow {stats.overflow}, x_overflow "
+          f"{stats.x_overflow}")
+    check(stats.ok and stats.loop == "graph",
+          f"full {name}: run not ok, or not the graph loop ({stats.loop})")
+    for k in path:
+        check(launches[k] > 0, f"full {name}: {k} never launched")
+    for k in set(KERNEL_NAMES) - set(path):
+        check(launches[k] == 0, f"full {name}: {k} launched off its path")
+    return stats, launches, peak
+
+
+def python_loop_runs(torch, card, name, example, overrides, path, stats,
+                     launches) -> dict:
+    """A full run's config again through the Python loop: untimed (for
+    BOTH_LOOPS) and in timing mode, for a per-kernel breakdown of that
+    loop; the counts equal the graph run's (`stats`). Their kernels are
+    freed on return, before the next run's peak is measured."""
+    from shadow_tpu_torch.device import runner
+    from shadow_tpu_torch.device.kernels import Kernels
+
+    entry = {}
+    if name in BOTH_LOOPS:
+        py, _ = engine_run(full_config(example, overrides), "cuda",
+                           "run_python")
+        same_run(stats, py, f"full {name}", ("graph loop", "python loop"))
+        entry["python_wall_s"] = py.wall_s
+        print(f"[full:{name}] python loop, untimed: wall "
+              f"{py.wall_s:.3f} s, {py.host_syncs} host syncs; graph "
+              f"loop {stats.wall_s:.3f} s ({stats.wall_s / py.wall_s:.3f}"
+              f" x); card {card}", flush=True)
+    timed_k = Kernels(timing=True)
+    timed = runner.run(full_config(example, overrides), "cuda",
+                       kernels=timed_k)
+    check(timed.loop == "python", f"full {name}: timing mode ran the "
+          f"{timed.loop} loop")
+    same_run(stats, timed, f"full {name}", ("graph loop",
+                                            "timed python loop"))
+    kernel_ms = timed_k.kernel_ms()
+    for k in path:
+        print(f"[full:{name}] {k}: {launches[k]} launches in the graph "
+              f"run; timed python loop {timed_k.launches[k]} launches, "
+              f"{kernel_ms[k]:.3f} ms in total; card {card}", flush=True)
+    print(f"[full:{name}] timed python loop: wall {timed.wall_s:.3f} s, "
+          f"outside the kernels (the host loop, a remainder) "
+          f"{1e3 * timed.wall_s - sum(kernel_ms.values()):.3f} ms; card "
+          f"{card}", flush=True)
+    entry.update(timed_ms={k: v if timed_k.launches[k] else None
+                           for k, v in kernel_ms.items()},
+                 timed_wall_s=timed.wall_s)
+    return entry
+
+
+# profiled graph runs made at most, until one sees every launch
+PROFILE_ATTEMPTS = 2
+# the CUDA functions of csrc/*.cu, by the kind of launch they belong
+# to; a run's path holds one kernel row of each kind
+FUNCTION_KIND = {
+    "pop_kernel": "pop_", "judge_outbox_kernel": "judge_outbox",
+    "count_paths_kernel": "count_paths",
+    "phase_tally_kernel": "phase_tally",
+    **dict.fromkeys(("count_kernel", "scan_blocks_kernel",
+                     "scan_sums_kernel", "add_back_kernel", "scatter_kernel",
+                     "sort_short_kernel", "sort_long_kernel"), "route"),
+    "merge_heaps_kernel": "merge_heaps",
+    "head_min_kernel": "loop_control", "control_kernel": "loop_control",
+    "audit_hosts_kernel": "audit_round",
+    "audit_conserve_kernel": "audit_round"}
+
+
+def profiled_graph_run(torch, card, name, cfg, path, stats, launches):
+    """The main path's graph run once more under torch.profiler (CUPTI
+    traces each kernel of a replayed graph). Returns ({row: summed
+    device ms}, {row: kernels the profiler saw}) for the kernel rows of
+    `path`, and under "other" every other device op (the state's upload,
+    torch's fills and copies, the memsets of the route and the audit).
+    Each wrapper launch starts each of its CUDA functions once, so a
+    row's functions are seen at most its launches and each row at least
+    once. CUPTI may drop records of a run of many short kernels (one
+    H100 run saw 2,425 of 2,625 head_min_kernel): the run is profiled
+    again, at most PROFILE_ATTEMPTS times, until every launch is seen,
+    and the attempt that saw the most is kept; its ms are the sums over
+    the kernels it saw. The counts equal the unprofiled run's
+    (`stats`)."""
+    best = None
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        ms, seen, wall = _profile_once(torch, name, cfg, path, stats,
+                                       launches)
+        missing = sum(launches[k] - seen.get(k, 0) for k in path)
+        if best is None or missing < best[0]:
+            best = (missing, ms, seen, wall, attempt)
+        if not missing:
+            break
+        print(f"[full:{name}] profiled graph run, attempt {attempt}: "
+              f"the profiler dropped {missing} kernel records ("
+              + ", ".join(f"{k} {seen.get(k, 0)}/{launches[k]}"
+                          for k in path if seen.get(k, 0) < launches[k])
+              + ")", flush=True)
+    missing, ms, seen, wall, attempt = best
+    for row in path:
+        check(seen.get(row, 0) > 0, f"full {name}: the profiler saw no "
+              f"kernel of {row} in {PROFILE_ATTEMPTS} profiled runs")
+    print(f"[full:{name}] profiled graph run (attempt {attempt}; device "
+          f"ms per kernel, torch.profiler): " + ", ".join(
+              f"{k} {v:.3f}" for k, v in sorted(ms.items(),
+                                                key=lambda x: -x[1]))
+          + "; kernels seen of launched: " + ", ".join(
+              f"{k} {n}/{launches[k]}" for k, n in seen.items())
+          + f"; wall {wall:.3f} s; card {card}", flush=True)
+    return ms, seen
+
+
+def _profile_once(torch, name, cfg, path, stats, launches):
+    """One profiled graph run: ({row: device ms}, {row: kernels seen},
+    wall s), with the checks of `profiled_graph_run`."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from shadow_tpu_torch.device import runner
+    from shadow_tpu_torch.device.kernels import Kernels
+
+    kernels = Kernels()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        prof_stats = runner.run(cfg, "cuda", kernels=kernels)
+        torch.cuda.synchronize()
+    same_run(stats, prof_stats, f"full {name}", ("graph loop",
+                                                 "profiled graph loop"))
+    check(kernels.launches == launches, f"full {name}: the profiled run "
+          "launched other counts")
+    ms, seen = {}, {}
+    for e in prof.key_averages():
+        m = re.search(r"(\w+_kernel)\b", e.key)
+        kind = FUNCTION_KIND.get(m.group(1)) if m else None
+        row = next((k for k in path if kind and k.startswith(kind)),
+                   "other")
+        ms[row] = ms.get(row, 0.0) + e.self_device_time_total / 1e3
+        if row != "other":
+            check(e.count <= launches[row], f"full {name}: the profiler "
+                  f"saw {e.count} {m.group(1)} of {launches[row]} {row}")
+            seen[row] = min(seen.get(row, e.count), e.count)
+    return ms, seen, prof_stats.wall_s
+
+
+def full_phase(torch, card, report):
+    from shadow_tpu_torch.device.kernels import AUD
+
+    runs, graph = {}, {}
     for name, example, overrides, path in FULL_RUNS:
         print(f"[full:{name}] "
               + (f"examples/{example}" if example else
                  "PHOLD_1M_YAML (chip_smoke.py)")
               + f" with {list(overrides)}", flush=True)
-        kernels = Kernels(timing=True)
-        kernels.library()
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        kernels.reset_counts()
-        if example is None:
-            stats = runner.run(load_config_str(PHOLD_1M_YAML, overrides),
-                               device="cuda", kernels=kernels)
-        else:
-            stats = cli.simulate(os.path.join(REPO, "examples", example),
-                                 overrides, device="cuda", kernels=kernels)
-        launches = dict(kernels.launches)
-        kernel_ms = kernels.kernel_ms()
-        peak = torch.cuda.max_memory_allocated()
-        est = stats.admission["estimate"]["per_device"]
-        print(f"[full:{name}] {capacity.verdict_line(stats.admission)}; "
-              f"measured peak {peak} B ({peak / est:.3f} x the estimate)",
-              flush=True)
-        check(stats.admission["action"] == "admit",
-              f"full {name}: admission {stats.admission['action']}")
-        check(est / capacity.FOOTPRINT_TOLERANCE <= peak
-              <= est * capacity.FOOTPRINT_TOLERANCE,
-              f"full {name}: peak {peak} B is not within "
-              f"{capacity.FOOTPRINT_TOLERANCE}x of the estimate {est} B")
-        check(stats.overflow == 0 and stats.x_overflow == 0,
-              f"full {name}: overflow {stats.overflow}, x_overflow "
-              f"{stats.x_overflow}")
-        check(stats.ok, f"full {name}: run not ok")
-        for k in path:
-            check(launches[k] > 0, f"full {name}: {k} never launched")
-        for k in set(KERNEL_NAMES) - set(path):
-            check(launches[k] == 0, f"full {name}: {k} launched off its "
-                  "path")
+        path = path + ("phase_tally", "loop_control")
+        stats, launches, peak = main_path_run(torch, name, example,
+                                              overrides, path)
         hosts = len(stats.host_events_executed)
-        phases = launches[path[0]]
         if stats.path_packets is not None:
             print(f"[full:{name}] path counters: "
                   f"{sum(stats.path_packets.values())} packets sent over "
                   f"{len(stats.path_packets)} vertex pairs", flush=True)
-        print(f"[full:{name}] {hosts} hosts: {stats.summary()}; "
-              f"{phases} phases; wall {stats.wall_s:.3f} s (with a CUDA "
-              f"event pair recorded around every kernel launch); "
+        print(f"[full:{name}] {hosts} hosts: {stats.summary()}; graph "
+              f"loop: {stats.phases} phases, {stats.host_syncs} host "
+              f"syncs, wall {stats.wall_s:.3f} s; "
               f"{stats.events_executed / stats.wall_s:.0f} events/s; "
               f"{stats.packets_sent / stats.wall_s:.0f} packets/s; peak "
               f"device memory {peak} B; card {card}", flush=True)
-        for k in path:
-            print(f"[full:{name}] {k}: {launches[k]} launches, "
-                  f"{kernel_ms[k]:.3f} ms in total; card {card}",
-                  flush=True)
-        print(f"[full:{name}] outside the kernels (the host loop, a "
-              f"remainder): {1e3 * stats.wall_s - sum(kernel_ms.values()):.3f}"
-              f" ms of the wall; card {card}", flush=True)
-        runs[name] = {"launches": launches, "kernel_ms": kernel_ms,
-                      "wall_s": stats.wall_s, "peak": peak}
+        graph[name] = stats
+        entry = {"launches": launches, "wall_s": stats.wall_s,
+                 "peak": peak, "phases": stats.phases,
+                 "host_syncs": stats.host_syncs}
+        entry["device_ms"], entry["profiled"] = profiled_graph_run(
+            torch, card, name, full_config(example, overrides), path,
+            stats, launches)
+        entry.update(python_loop_runs(torch, card, name, example,
+                                      overrides, path, stats, launches))
+        runs[name] = entry
+    # the audit's share of a million-host run's wall
+    name, example, overrides, path = next(r for r in FULL_RUNS
+                                          if r[0] == AUDITED)
+    path = tuple(k + AUD if k.startswith("pop_") else k for k in path) + \
+        ("phase_tally", "loop_control", "audit_round")
+    stats, launches, peak = main_path_run(torch, f"{name}_audit", example,
+                                          overrides + (AUDIT,), path)
+    plain = runs[name]["wall_s"]
+    same_run(graph[name], stats, f"full {name}", ("unaudited",
+                                                  "audited"))
+    device_ms, profiled = profiled_graph_run(
+        torch, card, f"{name}_audit",
+        full_config(example, overrides + (AUDIT,)), path, stats, launches)
+    print(f"[full:{name}_audit] {stats.summary()}; graph loop: "
+          f"{stats.phases} phases, {stats.host_syncs} host syncs, wall "
+          f"{stats.wall_s:.3f} s against {plain:.3f} s unaudited: the "
+          f"audit's share {(stats.wall_s - plain) / stats.wall_s:.4f} of "
+          f"the wall; audit_round {launches['audit_round']} launches, "
+          f"{device_ms['audit_round']:.3f} device ms; peak {peak} B; "
+          f"card {card}", flush=True)
+    runs[f"{name}_audit"] = {"launches": launches, "wall_s": stats.wall_s,
+                             "peak": peak, "device_ms": device_ms,
+                             "profiled": profiled}
     report["_full"] = runs
 
 
@@ -2049,7 +2740,8 @@ def kernels_line(report):
         r = report[n]
         shapes = {k: r[k] for k in ("at_tgen_shape", "at_tor_shape",
                                     "on_factored_tables",
-                                    "err_on_shipped_tables") if k in r}
+                                    "err_on_shipped_tables",
+                                    "at_1m_hosts") if k in r}
         rows.append({
             "name": n, "route": "cuda", "source": SOURCES[n],
             "replaces": REPLACES[n],
@@ -2063,16 +2755,110 @@ def kernels_line(report):
             "bytes": r["bytes"], "ops": r["ops"],
             "shape": r["shape"],
             **({"view": "shadow_tpu_torch/csrc/topo.cuh"}
-               if n.endswith(("_hier", "_ep")) else {}),
+               if "_hier" in n or "_ep" in n else {}),
             "launches_by_run": {k: run["launches"][n]
                                 for k, run in runs.items()},
-            "main_path_ms_by_run": {k: run["kernel_ms"][n]
-                                    for k, run in full.items()},
+            # device ms of the main path's kernels: the profiled graph
+            # run of each full run (over the kernels the profiler saw);
+            # and of the timed Python loop, which launches no K9 or K8
+            # (null where a run did not launch the kernel)
+            "graph_run_device_ms_by_run": {
+                k: run["device_ms"].get(n) if run["launches"][n] else None
+                for k, run in full.items()},
+            "graph_run_profiled_launches_by_run": {
+                k: run["profiled"].get(n) if run["launches"][n] else None
+                for k, run in full.items()},
+            "timed_python_loop_ms_by_run": {
+                k: run["timed_ms"][n] for k, run in full.items()
+                if "timed_ms" in run},
             **({"torch_sort_ms": r["torch_sort_ms"]}
                if "torch_sort_ms" in r else {}),
             **shapes,
         })
     return json.dumps({"kernels": rows})
+
+
+def pop_times(torch) -> dict:
+    """Median device ms of 15 launches of the unaudited K1 at the PHOLD
+    shapes (100,000 hosts on a 2-vertex dense world) and of K1_hier at
+    examples/tgen_1000000.yaml's 1,000,000 hosts (hub loss
+    PHOLD_1M_HUB_LOSS), on seeded inputs; then K1_hier's device ms per
+    launch on the main path's own data, phold_1m_hier in timing mode;
+    through the API every port slice has, so that `--ab` can time
+    another commit's package."""
+    from shadow_tpu_torch.device import kernels as K
+    from shadow_tpu_torch.device.apps import PholdDevice
+    from shadow_tpu_torch.device.prng import seed_key
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(20261017)
+    scratch = K.Kernels()
+    scratch.library()
+    _, sim, million = million_world(dev)
+    worlds = {"pop_phase": (100_000, {
+        "host_vertex": torch.from_numpy(
+            rng.integers(0, 2, 100_000).astype(np.int32)).to(dev),
+        "lat": torch.tensor([[30_000_000, 50_000_000],
+                             [50_000_000, 30_000_000]],
+                            dtype=torch.int32, device=dev),
+        "rel": torch.tensor([[0.98, 0.9], [0.9, 0.98]],
+                            dtype=torch.float32, device=dev),
+        "epoch_times": torch.zeros(1, dtype=torch.int64, device=dev)}),
+        "pop_phase_hier": (len(sim.host_vertex),
+                           million(PHOLD_1M_HUB_LOSS))}
+    # the window end as each commit's pop takes it: from a control block
+    # where there is one, by value before
+    win = (window_block(K, 10**9, dev) if hasattr(K, "control_block")
+           else 10**9)
+    out = {}
+    for name, (H, world) in worlds.items():
+        E, KS = 64, 3
+        B = 32 // KS
+        state0 = random_state(rng, H, E, dev)
+        p = K.PhaseParams(E=E, K=KS, T=0, P=1, B=B, IN=64, C=1,
+                          boot_end=5 * 10**8, seed=seed_key(7),
+                          app=PholdDevice(n_hosts_total=H, msgload=KS,
+                                          size=512))
+
+        def args():
+            return (clone(state0), {f: torch.empty(
+                (H, B * KS), dtype=torch.int64, device=dev)
+                for f in K.OB_FIELDS},
+                torch.empty(H, dtype=torch.int32, device=dev), world,
+                win, p)
+
+        out[name] = time_median(torch, scratch.pop, args, 15)
+        check(scratch.launches[name] > 0, f"{name} never launched")
+    # the main path's own data: phold_1m_hier in timing mode (the
+    # Python loop in every commit), K1_hier's device ms per launch
+    from shadow_tpu_torch.device import runner
+
+    timed = K.Kernels(timing=True)
+    stats = runner.run(full_config(None, ()), "cuda", kernels=timed)
+    check(stats.ok and stats.rounds == PHOLD_1M_ROUNDS,
+          f"phold_1m_hier: {stats.rounds} rounds")
+    n = timed.launches["pop_phase_hier"]
+    out["pop_phase_hier on phold_1m_hier, per launch"] = (
+        timed.kernel_ms()["pop_phase_hier"] / n)
+    out["pop_phase_hier on phold_1m_hier, launches"] = n
+    return out
+
+
+def ab_pops(other: str, card: str) -> None:
+    """`pop_times` of the package in `other` (a checkout of another
+    commit) and of this one, each in its own process, in turns: other,
+    this, this, other."""
+    for tree in (other, REPO, REPO, other):
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--pop-times",
+             "--package", tree], capture_output=True, text=True,
+            timeout=600)
+        check(proc.returncode == 0, f"--pop-times in {tree} failed:\n"
+              f"{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+        times = json.loads(proc.stdout.strip().splitlines()[-1])
+        print(f"[ab] {tree}: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in times.items())
+            + f"; card {card}", flush=True)
 
 
 def result_line(kind: str) -> str:
@@ -2087,6 +2873,14 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma list of " + ",".join(PHASES))
+    ap.add_argument("--ab", metavar="DIR",
+                    help="only time the unaudited K1 and K1_hier of the "
+                         "package in DIR (a checkout of another commit) "
+                         "and of this one, in turns, on seeded inputs and "
+                         "K1_hier on phold_1m_hier (`pop_times`)")
+    ap.add_argument("--pop-times", action="store_true",
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--package", default=REPO, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     try:
@@ -2097,9 +2891,15 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    sys.path.insert(0, REPO)
+    sys.path.insert(0, args.package)
+    if args.pop_times:
+        print(json.dumps(pop_times(torch)), flush=True)
+        return 0
     try:
-        from shadow_tpu_torch.device.kernels import build_library
+        from shadow_tpu_torch.device.kernels import (
+            build_library,
+            toolkit_version,
+        )
     except ImportError as e:
         print(f"chip_smoke: the shadow_tpu_torch package is missing "
               f"beside this script ({e})", file=sys.stderr)
@@ -2107,8 +2907,12 @@ def main(argv=None) -> int:
     try:
         card = card_line()
         print(f"card: {card}", flush=True)
+        if args.ab:
+            ab_pops(os.path.abspath(args.ab), card)
+            return 0
         print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
               f"python {sys.version.split()[0]}", flush=True)
+        print(f"[build] {toolkit_version()}", flush=True)
         t0 = time.perf_counter()
         lib, log = build_library(ptxas_verbose=True)
         print(f"[build] {lib.name} in {time.perf_counter() - t0:.1f} s",
@@ -2117,14 +2921,15 @@ def main(argv=None) -> int:
             if "registers" in line or "Compiling entry" in line:
                 print(f"[build] {line.strip()}", flush=True)
         report: dict = {}
-        if "kernels" in phases:
-            kernels_phase(torch, report)
-        if "parity" in phases:
-            parity_phase(torch, report)
-        if "full" in phases:
-            full_phase(torch, card, report)
-        if "boot" in phases:
-            boot_phase(torch, card)
+        for phase, run in (("kernels", lambda: kernels_phase(torch, report)),
+                           ("parity", lambda: parity_phase(torch, report)),
+                           ("full", lambda: full_phase(torch, card, report)),
+                           ("boot", lambda: boot_phase(torch, card))):
+            if phase in phases:
+                t1 = time.perf_counter()
+                run()
+                print(f"[{phase}] phase took "
+                      f"{time.perf_counter() - t1:.1f} s", flush=True)
         if "kernels" in phases and "full" in phases:
             print(kernels_line(report), flush=True)
         print(f"card: {card}", flush=True)

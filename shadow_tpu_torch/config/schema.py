@@ -52,9 +52,6 @@ LATER_EXPERIMENTAL = {
          "heartbeat_stale_after", "telemetry", "telemetry_path",
          "artifacts_dir"),
         "queue (a) item 7 (runner, supervise, checkpoint)"),
-    **dict.fromkeys(("state_audit",),
-                    "queue (a) item 8 (the state audit, the next "
-                    "slice)"),
     **dict.fromkeys(("exchange", "exchange_capacity",
                      "exchange_capacity2", "mesh_shards", "mesh_axis"),
                     "queue (a) item 9 (multi-GPU)"),
@@ -335,6 +332,8 @@ class ExperimentalOptions:
     model_bandwidth: bool = False
     # the [V,V] histogram of sent packets (V*V <= 65536)
     count_paths: bool = False
+    # the per-host health word, checked at the run's end
+    state_audit: bool = False
     # reference keys set in the config that the port does not run yet
     later: dict = field(default_factory=dict)
 
@@ -343,7 +342,8 @@ class ExperimentalOptions:
         own = {"interpose_method", "scheduler_policy", "runahead",
                "event_capacity", "outbox_capacity",
                "exchange_in_capacity", "burst_pops", "admission",
-               "device_memory_budget", "model_bandwidth", "count_paths"}
+               "device_memory_budget", "model_bandwidth", "count_paths",
+               "state_audit"}
         _check_keys("experimental", d,
                     own | set(LAYOUT_VARIANTS) | set(LATER_EXPERIMENTAL))
         out = cls(later={k: v for k, v in d.items()
@@ -357,7 +357,8 @@ class ExperimentalOptions:
                 v = int(v)
             elif name == "device_memory_budget":
                 v = parse_size_bytes(v)
-            elif name in ("model_bandwidth", "count_paths"):
+            elif name in ("model_bandwidth", "count_paths",
+                          "state_audit"):
                 v = bool(v)
             setattr(out, name, v)
         if not 0 <= out.burst_pops <= 32:

@@ -27,6 +27,32 @@ constexpr uint64_t CHK_SRC = 2654435761ull;
 constexpr uint64_t CHK_KIND = 1315423911ull;
 constexpr uint64_t CHK_SEQ = 2246822519ull;
 
+// The window loop's control block (device/kernels.py CTL_FIELDS, in
+// this order): one int64 word each. The loop's kernels read the window
+// end from it; RUN says whether the slot's phase runs (every kernel of
+// a phase returns at once where it is 0, so a slot after DONE changes no
+// byte of state) and ROUND_END whether the round-end audit runs.
+enum Ctl : int {
+    CTL_WIN_END = 0,
+    CTL_STOP,
+    CTL_FINAL_STOP,
+    CTL_LOOKAHEAD,
+    CTL_MAX_ROUNDS,
+    CTL_NXT,
+    CTL_ROUNDS,
+    CTL_PHASES,
+    CTL_DONE,
+    CTL_RUN,
+    CTL_ROUND_END,
+    CTL_N
+};
+
+// A launch given no control block always runs; one given a block runs
+// only while its RUN word is set.
+__device__ __forceinline__ bool phase_off(const int64_t* ctl) {
+    return ctl != nullptr && ctl[CTL_RUN] == 0;
+}
+
 __device__ __forceinline__ int64_t pack2(uint32_t hi, uint32_t lo) {
     return (int64_t)(((uint64_t)hi << 32) | (uint64_t)lo);
 }

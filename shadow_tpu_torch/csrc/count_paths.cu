@@ -12,6 +12,9 @@
 // a 64-bit atomicAdd. Integer sums are exact in any order, so the
 // histogram equals the reference's whatever order the atomics land in.
 //
+// Under the window loop the launch returns at once where the control
+// block's RUN word is 0 (common.cuh `Ctl`).
+//
 // Bound on the H100: bytes: t of every row (H*OB*8), k and m of the
 // packet rows, and the histogram's touched entries; the atomics on a
 // few hot pairs (V*V <= 65536, so the histogram sits in L2) serialize
@@ -27,9 +30,10 @@ __global__ void count_paths_kernel(int64_t rows, int OB, int H, int V,
                                    const int64_t* __restrict__ ob_k,
                                    const int64_t* __restrict__ ob_m,
                                    const int32_t* __restrict__ host_vertex,
-                                   unsigned long long* path_cnt) {
+                                   unsigned long long* path_cnt,
+                                   const int64_t* ctl) {
     const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= rows) return;
+    if (i >= rows || phase_off(ctl)) return;
     if (!(ob_t[i] < INF)) return;
     const int64_t fm = ob_m[i];
     const int32_t kind = lo32(fm);
@@ -49,7 +53,8 @@ extern "C" int shadow_count_paths(int H, int OB, int V,
                                   const int64_t* ob_t, const int64_t* ob_k,
                                   const int64_t* ob_m,
                                   const int32_t* host_vertex,
-                                  int64_t* path_cnt, void* stream) {
+                                  int64_t* path_cnt, const int64_t* ctl,
+                                  void* stream) {
     if (V <= 0 || (int64_t)V * V > 65536) return (int)cudaErrorInvalidValue;
     const int64_t rows = (int64_t)H * OB;
     if (rows > 0) {
@@ -58,7 +63,7 @@ extern "C" int shadow_count_paths(int H, int OB, int V,
         count_paths_kernel<<<(unsigned)blocks, threads, 0,
                              (cudaStream_t)stream>>>(
             rows, OB, H, V, ob_t, ob_k, ob_m, host_vertex,
-            reinterpret_cast<unsigned long long*>(path_cnt));
+            reinterpret_cast<unsigned long long*>(path_cnt), ctl);
     }
     return (int)cudaGetLastError();
 }

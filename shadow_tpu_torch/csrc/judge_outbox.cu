@@ -17,6 +17,9 @@
 // u >= rel in float32, as the reference does. The model NIC judges in
 // the pop instead (pop_phase.cu); this kernel does not run there.
 //
+// The launch reads the window end from the window loop's control block
+// and returns at once where its RUN word is 0 (common.cuh `Ctl`).
+//
 // Bound on the H100: bytes (t of all H*OB rows; m and v read, and t/m/v
 // written, for send rows only); each rolled packet costs two threefry
 // blocks (~250 integer ops), far below the card's integer rate. Rows
@@ -32,13 +35,14 @@ namespace {
 
 template <class Topo>
 __global__ void judge_outbox_kernel(
-    int H, int OB, int C, int64_t win_end, int64_t boot_end,
+    int H, int OB, int C, int64_t boot_end,
     int64_t* ob_t, int64_t* ob_m, int64_t* ob_v,
     const int32_t* __restrict__ packet_seq, int32_t* n_sent,
     int32_t* n_drop, const int32_t* __restrict__ host_vertex, Topo topo,
-    uint32_t seed1, uint32_t seed2, int cp) {
+    uint32_t seed1, uint32_t seed2, int cp, const int64_t* ctl) {
     const int h = blockIdx.x * blockDim.x + threadIdx.x;
-    if (h >= H) return;
+    if (h >= H || ctl[CTL_RUN] == 0) return;
+    const int64_t win_end = ctl[CTL_WIN_END];
     const int64_t row = (int64_t)h * OB;
     // packet_seq is the end of the phase: the first row's base is it
     // minus every packet the row block consumed
@@ -97,20 +101,20 @@ __global__ void judge_outbox_kernel(
 }  // namespace
 
 extern "C" int shadow_judge_outbox(
-    int H, int OB, int C, long long win_end, long long boot_end,
+    int H, int OB, int C, long long boot_end,
     int64_t* ob_t, int64_t* ob_m, int64_t* ob_v, const int32_t* packet_seq,
     int32_t* n_sent, int32_t* n_drop, const int32_t* host_vertex,
     const TopoArgs* topo, unsigned seed1, unsigned seed2, int cp,
-    void* stream) {
-    if (!topo_ok(topo)) return (int)cudaErrorInvalidValue;
+    const int64_t* ctl, void* stream) {
+    if (!topo_ok(topo) || ctl == nullptr) return (int)cudaErrorInvalidValue;
     if (H > 0) {
         const int threads = 128;
         with_topo(*topo, [&](auto view) {
             judge_outbox_kernel<<<(H + threads - 1) / threads, threads, 0,
                                   (cudaStream_t)stream>>>(
-                H, OB, C, (int64_t)win_end, (int64_t)boot_end, ob_t, ob_m,
+                H, OB, C, (int64_t)boot_end, ob_t, ob_m,
                 ob_v, packet_seq, n_sent, n_drop, host_vertex, view, seed1,
-                seed2, cp);
+                seed2, cp, ctl);
         });
     }
     return (int)cudaGetLastError();

@@ -15,6 +15,9 @@
 // t < INF, and arrivals past IN, count into `overflow`; `occ_in` and
 // `occ_heap` take their high-water marks; head resets to 0.
 //
+// Under the window loop the launch returns at once where the control
+// block's RUN word is 0 (common.cuh `Ctl`).
+//
 // Bound on the H100: bytes (t of every heap slot and the other fields of
 // live slots read, all H*E*5 int64 written, plus the accepted arrival
 // rows); the bitonic network is log2(W)^2/2 shared-memory passes, cheap
@@ -39,7 +42,9 @@ __global__ void merge_heaps_kernel(
     const int64_t* __restrict__ ob_m, const int64_t* __restrict__ ob_s,
     const int64_t* __restrict__ ob_v, const int64_t* __restrict__ perm,
     const int64_t* __restrict__ starts, const int64_t* __restrict__ counts,
-    int32_t* overflow, int32_t* occ_in, int32_t* occ_heap) {
+    int32_t* overflow, int32_t* occ_in, int32_t* occ_heap,
+    const int64_t* ctl) {
+    if (phase_off(ctl)) return;
     extern __shared__ int64_t smem[];
     int64_t* st = smem;                 // [W2] time
     int64_t* sk = st + W2;              // [W2] key
@@ -158,7 +163,7 @@ extern "C" int shadow_merge_heaps(
     const int64_t* ob_t, const int64_t* ob_k, const int64_t* ob_m,
     const int64_t* ob_s, const int64_t* ob_v, const int64_t* perm,
     const int64_t* starts, const int64_t* counts, int32_t* overflow,
-    int32_t* occ_in, int32_t* occ_heap, void* stream) {
+    int32_t* occ_in, int32_t* occ_heap, const int64_t* ctl, void* stream) {
     int W2 = 1;
     while (W2 < E + IN) W2 <<= 1;
     const size_t smem = sizeof(int64_t) * (2 * (size_t)W2 + 3 * (size_t)E) +
@@ -174,7 +179,7 @@ extern "C" int shadow_merge_heaps(
         merge_heaps_kernel<<<H, threads, smem, (cudaStream_t)stream>>>(
             E, IN, W2, (int64_t)F, ht, hk, hm, hv, hw, head, ob_t, ob_k,
             ob_m, ob_s, ob_v, perm, starts, counts, overflow, occ_in,
-            occ_heap);
+            occ_heap, ctl);
     }
     return (int)cudaGetLastError();
 }

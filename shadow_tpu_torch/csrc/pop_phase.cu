@@ -69,6 +69,22 @@
 // mark then reads the written rows' own times: a delivered self-send, a
 // timer or a READY row below win_end.
 //
+// The state audit's clock lane (experimental.state_audit; engine.py:
+// 800-813) is a template flag too, and its leaves (the health word `aud`
+// and the last popped time `aud_t`) are arguments of the audited
+// instantiations alone. Each iteration ORs AUD_CLOCK into the word where
+// its first popped time lies below aud_t, then sets aud_t to the largest
+// time it popped: under bursts the reference checks only the run's
+// first event (`pt = ptP[:, 0]`) and takes the maximum over the active
+// columns, and so does this. The 24 audited instantiations build in
+// their own translation unit (pop_phase_aud.cu includes this file with
+// SHADOW_POP_AUDIT set, so its entry points carry the suffix `_aud`),
+// in parallel with the 24 unaudited ones.
+//
+// A launch reads the window end from the window loop's control block
+// (common.cuh `Ctl`; a captured CUDA graph cannot take it by value) and
+// returns at once where its RUN word is 0.
+//
 // Bound on the H100: bytes. Per host it reads the popped heap rows and a
 // few counters and writes its outbox row: t of every column, which marks
 // the unused ones, and five fields per send or timer. It writes all five
@@ -114,10 +130,21 @@ inline bool nic_ok(const NicArgs* n) {
 
 }  // namespace shadow
 
+#ifndef SHADOW_POP_AUDIT
+#define SHADOW_POP_AUDIT 0
+#endif
+#if SHADOW_POP_AUDIT
+#define POP_ENTRY(name) name##_aud
+#else
+#define POP_ENTRY(name) name
+#endif
+
 using namespace shadow;
 
 namespace {
 
+constexpr bool AUDIT = SHADOW_POP_AUDIT != 0;
+constexpr int32_t AUD_CLOCK = 2;
 constexpr int32_t KIND_TIMER = 1;
 constexpr int32_t KIND_PACKET_READY = 8;
 constexpr uint32_t ALL_LANES = 0xFFFFFFFFu;
@@ -641,7 +668,7 @@ struct TorApp {
 
 struct PopArgs {
     int H, E, K, T, P, B, C;
-    int64_t win_end;
+    const int64_t* ctl;     // the loop's control block
     const int64_t *ht, *hk, *hm, *hv, *hw;
     int32_t *head, *event_seq, *packet_seq, *n_exec, *n_deliv;
     int64_t* chk;
@@ -650,10 +677,27 @@ struct PopArgs {
     int32_t* pops;
 };
 
-template <class App, class Topo, bool MB>
-__global__ void pop_kernel(PopArgs a, App app, Topo topo, NicArgs na) {
+// The audit's leaves, in the audited instantiations alone.
+struct AudLeaves {
+    int32_t* aud;
+    int64_t* aud_t;
+};
+template <bool AUD>
+using AudArg = std::conditional_t<AUD, AudLeaves, Absent>;
+template <bool AUD>
+AudArg<AUD> aud_arg(int32_t* aud, int64_t* aud_t) {
+    if constexpr (AUD)
+        return AudLeaves{aud, aud_t};
+    else
+        return Absent{};
+}
+
+template <class App, class Topo, bool MB, bool AUD>
+__global__ void pop_kernel(PopArgs a, App app, Topo topo, NicArgs na,
+                           AudArg<AUD> au) {
     const int h = blockIdx.x * blockDim.x + threadIdx.x;
-    if (h >= a.H) return;
+    if (h >= a.H || a.ctl[CTL_RUN] == 0) return;
+    const int64_t win_end = a.ctl[CTL_WIN_END];
     const int M = a.K + a.T + (MB ? 1 : 0);
     const int OB = a.B * M;
     const int64_t row = (int64_t)h * OB;
@@ -678,7 +722,7 @@ __global__ void pop_kernel(PopArgs a, App app, Topo topo, NicArgs na) {
     out.h = (uint32_t)h;
     out.es = (uint32_t)a.event_seq[h];
     out.ps = (uint32_t)a.packet_seq[h];
-    out.win_end = a.win_end;
+    out.win_end = win_end;
     out.vtx = a.host_vertex[h];
     if constexpr (Topo::EPOCHS || MB) out.topo = topo;
     if constexpr (!Topo::EPOCHS) out.selflat = topo.self_lat(0, out.vtx);
@@ -699,12 +743,18 @@ __global__ void pop_kernel(PopArgs a, App app, Topo topo, NicArgs na) {
     uint32_t ne = (uint32_t)a.n_exec[h];
     uint32_t nd = (uint32_t)a.n_deliv[h];
     uint64_t c = (uint64_t)a.chk[h];
+    int32_t aud = 0;
+    int64_t aud_t = 0;
+    if constexpr (AUD) {
+        aud = au.aud[h];
+        aud_t = au.aud_t[h];
+    }
     // deliveries count on the pops the app sees as packets
     const int32_t deliv_kind = MB ? KIND_PACKET_READY : KIND_PACKET;
     int blk = 0;
     for (; blk < a.B; ++blk) {
         const int64_t pt = hd < a.E ? a.ht[hrow + hd] : INF;
-        if (!(pt < a.win_end) || out.dirty) break;
+        if (!(pt < win_end) || out.dirty) break;
         // the run a burst host pops: consecutive in-window packets from
         // its head, up to P; one event otherwise (always under MB)
         int n = 1;
@@ -712,7 +762,7 @@ __global__ void pop_kernel(PopArgs a, App app, Topo topo, NicArgs na) {
             int run = 0;
             while (run < a.P) {
                 const int i = hd + run;
-                if (i >= a.E || !(a.ht[hrow + i] < a.win_end) ||
+                if (i >= a.E || !(a.ht[hrow + i] < win_end) ||
                     hi32(a.hm[hrow + i]) != KIND_PACKET)
                     break;
                 ++run;
@@ -720,6 +770,11 @@ __global__ void pop_kernel(PopArgs a, App app, Topo topo, NicArgs na) {
             if (run > 0) n = run;
         }
         out.block = row + (int64_t)blk * M;
+        if constexpr (AUD) {
+            // the clock lane: the run's first time against the last
+            // popped one
+            if (pt < aud_t) aud |= AUD_CLOCK;
+        }
         for (int j = 0; j < n; ++j) {
             const int64_t slot = hrow + hd + j;
             const int64_t pk2 = a.hk[slot];
@@ -728,6 +783,9 @@ __global__ void pop_kernel(PopArgs a, App app, Topo topo, NicArgs na) {
             Event e{j == 0 ? pt : a.ht[slot], hi32(pk2), hi32(pm), lo32(pm),
                     hi32(pv), lo32(pv), lo32(a.hw[slot])};
             const int32_t pseq = lo32(pk2);
+            if constexpr (AUD) {
+                if (e.t > aud_t) aud_t = e.t;
+            }
             ++ne;
             if (e.kind == deliv_kind) nd += __popc((uint32_t)e.d2);
             const uint64_t mix =
@@ -762,6 +820,10 @@ __global__ void pop_kernel(PopArgs a, App app, Topo topo, NicArgs na) {
     a.n_deliv[h] = (int32_t)nd;
     a.chk[h] = (int64_t)c;
     a.pops[h] = blk;
+    if constexpr (AUD) {
+        au.aud[h] = aud;
+        au.aud_t[h] = aud_t;
+    }
     if constexpr (MB) {
         const Nic& n = out.x.nic;
         na.tx_free[h] = n.tx_free;
@@ -776,25 +838,29 @@ __global__ void pop_kernel(PopArgs a, App app, Topo topo, NicArgs na) {
     }
 }
 
-// Launch the instantiation the tables and the NIC flag select.
+// Launch the instantiation the tables and the NIC flag select (audited
+// in this unit where SHADOW_POP_AUDIT is set, which needs both leaves).
 template <class App>
 int launch(const PopArgs& a, const App& app, const TopoArgs* topo,
-           const NicArgs* nic, void* stream) {
-    if (!topo_ok(topo) || !nic_ok(nic) || (nic->mb && a.P != 1))
+           const NicArgs* nic, int32_t* aud, int64_t* aud_t,
+           void* stream) {
+    if (!topo_ok(topo) || !nic_ok(nic) || (nic->mb && a.P != 1) ||
+        a.ctl == nullptr || (AUDIT != (aud != nullptr && aud_t != nullptr)))
         return (int)cudaErrorInvalidValue;
+    const AudArg<AUDIT> au = aud_arg<AUDIT>(aud, aud_t);
     if (a.H > 0) {
         const int threads = 128;
         const int blocks = (a.H + threads - 1) / threads;
         with_topo(*topo, [&](auto view) {
             using Topo = decltype(view);
             if (nic->mb)
-                pop_kernel<App, Topo, true>
+                pop_kernel<App, Topo, true, AUDIT>
                     <<<blocks, threads, 0, (cudaStream_t)stream>>>(
-                        a, app, view, *nic);
+                        a, app, view, *nic, au);
             else
-                pop_kernel<App, Topo, false>
+                pop_kernel<App, Topo, false, AUDIT>
                     <<<blocks, threads, 0, (cudaStream_t)stream>>>(
-                        a, app, view, *nic);
+                        a, app, view, *nic, au);
         });
     }
     return (int)cudaGetLastError();
@@ -802,8 +868,8 @@ int launch(const PopArgs& a, const App& app, const TopoArgs* topo,
 
 }  // namespace
 
-extern "C" int shadow_pop_phase(
-    int H, int E, int K, int B, long long win_end,
+extern "C" int POP_ENTRY(shadow_pop_phase)(
+    int H, int E, int K, int B,
     const int64_t* ht, const int64_t* hk, const int64_t* hm,
     const int64_t* hv, const int64_t* hw,
     int32_t* head, int32_t* event_seq, int32_t* packet_seq,
@@ -812,18 +878,19 @@ extern "C" int shadow_pop_phase(
     const NicArgs* nic, unsigned seed1, unsigned seed2, int n_total,
     int msgload, int size,
     int selfloop, int64_t* ob_t, int64_t* ob_k, int64_t* ob_m,
-    int64_t* ob_s, int64_t* ob_v, int32_t* pops, void* stream) {
-    const PopArgs a{H, E, K, 0, 1, B, 1, (int64_t)win_end,
+    int64_t* ob_s, int64_t* ob_v, int32_t* pops, int32_t* aud,
+    int64_t* aud_t, const int64_t* ctl, void* stream) {
+    const PopArgs a{H, E, K, 0, 1, B, 1, ctl,
                     ht, hk, hm, hv, hw, head, event_seq, packet_seq,
                     n_exec, n_deliv, chk, host_vertex,
                     ob_t, ob_k, ob_m, ob_s, ob_v, pops};
     const PholdApp p{app, app_seq, (uint32_t)n_total, msgload, size,
                      selfloop, Key{seed1, seed2}};
-    return launch(a, p, topo, nic, stream);
+    return launch(a, p, topo, nic, aud, aud_t, stream);
 }
 
-extern "C" int shadow_pop_tgen(
-    int H, int E, int K, int T, int P, int B, int C, long long win_end,
+extern "C" int POP_ENTRY(shadow_pop_tgen)(
+    int H, int E, int K, int T, int P, int B, int C,
     const int64_t* ht, const int64_t* hk, const int64_t* hm,
     const int64_t* hv, const int64_t* hw,
     int32_t* head, int32_t* event_seq, int32_t* packet_seq, int32_t* app,
@@ -833,18 +900,18 @@ extern "C" int shadow_pop_tgen(
     int npkts, int last_sz, int chunk, int mss, int64_t* ob_t,
     int64_t* ob_k,
     int64_t* ob_m, int64_t* ob_s, int64_t* ob_v, int32_t* pops,
-    void* stream) {
+    int32_t* aud, int64_t* aud_t, const int64_t* ctl, void* stream) {
     if (T > 1 || C > 32) return (int)cudaErrorInvalidValue;
-    const PopArgs a{H, E, K, T, P, B, C, (int64_t)win_end,
+    const PopArgs a{H, E, K, T, P, B, C, ctl,
                     ht, hk, hm, hv, hw, head, event_seq, packet_seq,
                     n_exec, n_deliv, chk, host_vertex,
                     ob_t, ob_k, ob_m, ob_s, ob_v, pops};
     const TgenApp g{app, count, pause, retry, npkts, last_sz, chunk, mss};
-    return launch(a, g, topo, nic, stream);
+    return launch(a, g, topo, nic, aud, aud_t, stream);
 }
 
-extern "C" int shadow_pop_tor(
-    int H, int E, int K, int T, int P, int B, int C, long long win_end,
+extern "C" int POP_ENTRY(shadow_pop_tor)(
+    int H, int E, int K, int T, int P, int B, int C,
     const int64_t* ht, const int64_t* hk, const int64_t* hm,
     const int64_t* hv, const int64_t* hw,
     int32_t* head, int32_t* event_seq, int32_t* packet_seq, int32_t* app,
@@ -854,13 +921,13 @@ extern "C" int shadow_pop_tor(
     const int32_t* relay_gids, int R, unsigned route_k1,
     unsigned route_k2, int cells, int64_t* ob_t, int64_t* ob_k,
     int64_t* ob_m, int64_t* ob_s, int64_t* ob_v, int32_t* pops,
-    void* stream) {
+    int32_t* aud, int64_t* aud_t, const int64_t* ctl, void* stream) {
     if (T > 1 || C > 32 || R < 3) return (int)cudaErrorInvalidValue;
-    const PopArgs a{H, E, K, T, P, B, C, (int64_t)win_end,
+    const PopArgs a{H, E, K, T, P, B, C, ctl,
                     ht, hk, hm, hv, hw, head, event_seq, packet_seq,
                     n_exec, n_deliv, chk, host_vertex,
                     ob_t, ob_k, ob_m, ob_s, ob_v, pops};
     const TorApp t{app, count, pause, retry, relay_gids, (uint32_t)R,
                    Key{route_k1, route_k2}, cells};
-    return launch(a, t, topo, nic, stream);
+    return launch(a, t, topo, nic, aud, aud_t, stream);
 }

@@ -22,6 +22,11 @@
 // longer than IN arises only in a run that overflows, and still comes
 // out in order). Flat indices are unique, so ranks are too.
 //
+// Under the window loop each of its kernels returns at once where the
+// control block's RUN word is 0 (common.cuh `Ctl`); the memset of the
+// counts still runs, which is harmless: only the guarded merge reads
+// them.
+//
 // Bound on the H100: bytes (t of every row, m of live rows, perm of live
 // rows written, starts and counts written); the scratch traffic (the
 // scattered indices read back by the segment sort) is above it.
@@ -48,7 +53,9 @@ __device__ __forceinline__ bool live_dst(const int64_t* ob_t,
 __global__ void count_kernel(int H, int64_t F,
                              const int64_t* __restrict__ ob_t,
                              const int64_t* __restrict__ ob_m,
-                             unsigned long long* counts) {
+                             unsigned long long* counts,
+                             const int64_t* ctl) {
+    if (phase_off(ctl)) return;
     const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
     int d;
     if (i < F && live_dst(ob_t, ob_m, i, H, &d)) atomicAdd(&counts[d], 1ull);
@@ -56,7 +63,9 @@ __global__ void count_kernel(int H, int64_t F,
 
 // exclusive scan of SCAN_BLOCK counts per block; block totals out
 __global__ void scan_blocks_kernel(int H, const int64_t* __restrict__ counts,
-                                   int64_t* starts, int64_t* block_sums) {
+                                   int64_t* starts, int64_t* block_sums,
+                                   const int64_t* ctl) {
+    if (phase_off(ctl)) return;
     __shared__ int64_t sm[SCAN_THREADS];
     const int tid = threadIdx.x;
     const int64_t base = (int64_t)blockIdx.x * SCAN_BLOCK + tid * 4;
@@ -83,7 +92,9 @@ __global__ void scan_blocks_kernel(int H, const int64_t* __restrict__ counts,
 }
 
 // exclusive scan of the block totals in place, one block, chunk by chunk
-__global__ void scan_sums_kernel(int nb, int64_t* block_sums) {
+__global__ void scan_sums_kernel(int nb, int64_t* block_sums,
+                                 const int64_t* ctl) {
+    if (phase_off(ctl)) return;
     __shared__ int64_t sm[SCAN_THREADS];
     __shared__ int64_t carry;
     const int tid = threadIdx.x;
@@ -108,7 +119,9 @@ __global__ void scan_sums_kernel(int nb, int64_t* block_sums) {
 }
 
 __global__ void add_back_kernel(int H, const int64_t* __restrict__ block_sums,
-                                int64_t* starts, int64_t* cursor) {
+                                int64_t* starts, int64_t* cursor,
+                                const int64_t* ctl) {
+    if (phase_off(ctl)) return;
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= H) return;
     const int64_t s = starts[i] + block_sums[i / SCAN_BLOCK];
@@ -120,7 +133,9 @@ __global__ void scatter_kernel(int H, int64_t F,
                                const int64_t* __restrict__ ob_t,
                                const int64_t* __restrict__ ob_m,
                                unsigned long long* cursor,
-                               int64_t* scattered) {
+                               int64_t* scattered,
+                               const int64_t* ctl) {
+    if (phase_off(ctl)) return;
     const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
     int d;
     if (i < F && live_dst(ob_t, ob_m, i, H, &d))
@@ -131,7 +146,9 @@ __global__ void scatter_kernel(int H, int64_t F,
 __global__ void sort_short_kernel(int H, const int64_t* __restrict__ starts,
                                   const int64_t* __restrict__ counts,
                                   const int64_t* __restrict__ scattered,
-                                  int64_t* perm) {
+                                  int64_t* perm,
+                                  const int64_t* ctl) {
+    if (phase_off(ctl)) return;
     const int d = blockIdx.x * blockDim.x + threadIdx.x;
     if (d >= H) return;
     const int64_t n = counts[d];
@@ -161,7 +178,9 @@ __global__ void sort_short_kernel(int H, const int64_t* __restrict__ starts,
 __global__ void sort_long_kernel(int H, const int64_t* __restrict__ starts,
                                  const int64_t* __restrict__ counts,
                                  const int64_t* __restrict__ scattered,
-                                 int64_t* perm) {
+                                 int64_t* perm,
+                                 const int64_t* ctl) {
+    if (phase_off(ctl)) return;
     __shared__ int64_t tile[TILE];
     for (int d = blockIdx.x; d < H; d += gridDim.x) {
         const int64_t n = counts[d];
@@ -190,7 +209,8 @@ extern "C" int shadow_route(int H, int OB, const int64_t* ob_t,
                             const int64_t* ob_m, int64_t* perm,
                             int64_t* starts, int64_t* counts,
                             int64_t* scattered, int64_t* cursor,
-                            int64_t* block_sums, void* stream) {
+                            int64_t* block_sums, const int64_t* ctl,
+                            void* stream) {
     // scattered holds H*OB entries, cursor H, block_sums at least
     // ceil(H / SCAN_BLOCK)
     if (H <= 0) return (int)cudaGetLastError();
@@ -203,18 +223,18 @@ extern "C" int shadow_route(int H, int OB, const int64_t* ob_t,
     cudaError_t err = cudaMemsetAsync(counts, 0, sizeof(int64_t) * H, st);
     if (err != cudaSuccess) return (int)err;
     count_kernel<<<rows_grid, threads, 0, st>>>(
-        H, F, ob_t, ob_m, (unsigned long long*)counts);
+        H, F, ob_t, ob_m, (unsigned long long*)counts, ctl);
     scan_blocks_kernel<<<nb, SCAN_THREADS, 0, st>>>(H, counts, starts,
-                                                     block_sums);
-    scan_sums_kernel<<<1, SCAN_THREADS, 0, st>>>(nb, block_sums);
+                                                     block_sums, ctl);
+    scan_sums_kernel<<<1, SCAN_THREADS, 0, st>>>(nb, block_sums, ctl);
     add_back_kernel<<<host_grid, threads, 0, st>>>(H, block_sums, starts,
-                                                   cursor);
+                                                   cursor, ctl);
     scatter_kernel<<<rows_grid, threads, 0, st>>>(
-        H, F, ob_t, ob_m, (unsigned long long*)cursor, scattered);
+        H, F, ob_t, ob_m, (unsigned long long*)cursor, scattered, ctl);
     sort_short_kernel<<<host_grid, threads, 0, st>>>(H, starts, counts,
-                                                     scattered, perm);
+                                                     scattered, perm, ctl);
     const int long_grid = H < 1024 ? H : 1024;
     sort_long_kernel<<<long_grid, 256, 0, st>>>(H, starts, counts,
-                                                scattered, perm);
+                                                scattered, perm, ctl);
     return (int)cudaGetLastError();
 }

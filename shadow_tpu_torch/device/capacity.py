@@ -10,21 +10,27 @@ tensors the port's engine really holds:
 
 * the state dict, one copy (the engine updates it in place; there is
   no segment pipeline and no rewind snapshot), with the seven [H]
-  int64 model-NIC leaves under `model_bandwidth` and the [1,V*V] int64
-  path counters under `count_paths`;
-* the per-phase scratch: the five [H,OB] int64 outbox fields (OB
-  counts the READY column under the model NIC) and the [H] pop counts,
-  and the route's outputs and scratch (K5: perm and scattered rows
-  [H*OB] int64, starts, counts, cursors and block sums [H] int64); the
-  judge, the path counters and the merge work in place;
+  int64 model-NIC leaves under `model_bandwidth`, the [1,V*V] int64
+  path counters under `count_paths` and the audit's [H] leaves (aud
+  int32, aud_t and aud_tx int64) under `state_audit`;
+* the per-phase scratch, allocated once per engine: the five [H,OB]
+  int64 outbox fields (OB counts the READY column under the model
+  NIC) and the [H] pop counts, and the route's outputs and scratch
+  (K5: perm and scattered rows [H*OB] int64, starts, counts, cursors
+  and block sums [H] int64); the judge, the path counters and the
+  merge work in place;
+* the window loop's control block (kernels.CTL_FIELDS), K9's block
+  minima (at most 1,024) and K8's sum, a few KiB;
 * the world: the host vertices, the path tables (dense [V,V], or the
   factored leaves with one shared cl vector; under a fault schedule
   each with its [T] epoch axis, cl still uploaded once), the epoch
   start times, under the model NIC the [H] bandwidths and the CoDel
   law table, and the app's columns.
 
-Transient allocations of the Python window loop (a few [H] vectors a
-phase) are not modelled: the estimate is a floor on the live bytes,
+A captured window loop allocates nothing on the device (its graph's
+own memory lies outside PyTorch's allocator). Transient allocations of
+the Python window loop (a few [H] vectors a phase) are not modelled:
+the estimate is a floor on the live bytes,
 and chip_smoke.py holds the measured peak within FOOTPRINT_TOLERANCE of
 it, as the reference's tests hold its own.
 """
@@ -38,6 +44,7 @@ import torch
 
 from shadow_tpu_torch.device.engine import STATE_DTYPES
 from shadow_tpu_torch.device.kernels import (
+    CTL_FIELDS,
     NIC_KEYS,
     PhaseParams,
     n_vertices,
@@ -52,7 +59,9 @@ def state_nbytes(n_hosts: int, params: PhaseParams, V: int = 0) -> int:
     """Bytes of one state dict (device/engine.py STATE_DTYPES): the
     [H,E] heap fields and chk int64, app [H,W] and the [H] counters
     int32, the three occupancy scalars; the NIC leaves [H] int64 under
-    params.MB, the path counters [1,V*V] int64 under params.CP."""
+    params.MB, the path counters [1,V*V] int64 under params.CP, the
+    audit's aud [H] int32 and aud_t, aud_tx [H] int64 under
+    params.AUD."""
     H, E = n_hosts, params.E
     n = 0
     for k, dt in STATE_DTYPES.items():
@@ -69,6 +78,8 @@ def state_nbytes(n_hosts: int, params: PhaseParams, V: int = 0) -> int:
         n += len(NIC_KEYS) * H * 8
     if params.CP:
         n += V * V * 8
+    if params.AUD:
+        n += H * (4 + 8 + 8)
     return n
 
 
@@ -79,6 +90,8 @@ def footprint(n_hosts: int, params: PhaseParams, world: dict) -> dict:
     state = state_nbytes(H, params, n_vertices(world))
     outbox = 5 * H * OB * 8 + H * 4
     route = 2 * H * OB * 8 + 4 * H * 8
+    # the control block, K9's block minima and K8's sum
+    loop = (len(CTL_FIELDS) + 1024 + 1) * 8
     seen, world_bytes = set(), 0
     for v in world.values():
         for a in (v if isinstance(v, tuple) else (v,)):
@@ -86,12 +99,13 @@ def footprint(n_hosts: int, params: PhaseParams, world: dict) -> dict:
                 seen.add(id(a))
                 world_bytes += int(np.asarray(a).nbytes)
     hier = isinstance(world["lat"], tuple)
-    per_device = state + outbox + route + world_bytes
+    per_device = state + outbox + route + loop + world_bytes
     return {
         "representation": "hierarchical" if hier else "dense",
         "per_device": int(per_device),
         "state_bytes": int(state),
         "scratch_bytes": int(outbox + route),
+        "loop_bytes": int(loop),
         "world_bytes": int(world_bytes),
         "copies": 1,
         "replicas": 1,

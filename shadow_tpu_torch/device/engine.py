@@ -1,14 +1,13 @@
 """The device simulation engine (the port of the reference package's
 device/engine.py, one GPU, PHOLD, tgen and Tor).
 
-The reference runs the whole simulation as one jitted program. Here the
-window loop is Python on the host, and each phase of a window is a
-chain of CUDA kernels (device/kernels.py), in the order of the
-reference's `_exchange`:
+The reference runs the whole simulation as one jitted program. Here
+each phase of a window is a chain of CUDA kernels (device/kernels.py),
+in the order of the reference's `_exchange`:
 
   pop (K1 pop_phase for PHOLD, K4 pop_tgen for tgen, K6 pop_tor for
-    Tor) -> K2 judge_outbox -> [K7 count_paths] -> K5 route
-    -> K3 merge_heaps
+    Tor) -> K2 judge_outbox -> [K7 count_paths] -> phase_tally
+    -> K5 route -> K3 merge_heaps
 
 Under the model NIC (`model_bandwidth`) the pop judges its own sends,
 as the reference's in-step path does, and K2 does not run; K7 runs
@@ -16,13 +15,32 @@ under `count_paths`. Under a link-fault schedule every table carries a
 leading [T] epoch axis and `epoch_times` [T]; each lookup takes the
 epoch of its time.
 
-A window [nxt, win_end) with win_end = min(nxt + lookahead, stop_time)
+A window [nxt, win_end) with win_end = min(nxt + lookahead, final_stop)
 runs phases while some host's head event lies below win_end; the
-window's next start is the minimum head time across hosts. The host
-reads that minimum once per phase: it both decides whether another
-phase runs and gives the next window's start (after a merge every
-host's head is slot 0, so the two reads of the reference, `more()` on
-ht[:,0] and `next_time` on the head element, are one value).
+window's next start is the minimum head time across hosts (after a
+merge every host's head is slot 0, so the two reads of the reference,
+`more()` on ht[:,0] and `next_time` on the head element, are one
+value). The run pauses once that minimum reaches `stop` (final_stop
+defaults to it; a run paused at stop with final_stop past it has the
+windows of an unpaused one), or after max_rounds windows. Under the
+state audit (`audit`) K8 audit_round ORs each host's health word at
+every window's end.
+
+Two loops drive the phases, with the same windows and rounds:
+
+* the Python loop (`run_python`), the plain path: the host reads the
+  minimum once per phase and writes each window's end into a control
+  block with a stream-ordered fill. It runs on the CPU, and on the card
+  in timing mode (`Kernels(timing=True)`), where each launch is timed;
+* the slot schedule (`run_slots`): a slot is a phase, then K9
+  loop_control (the minimum and the window decisions, on the device,
+  on the control block of kernels.CTL_FIELDS), then K8 under the audit.
+  On the card LOOP_SLOTS slots are captured once into a CUDA graph and
+  replayed until the block says done, one host read per replay; every
+  kernel of a slot after done returns at once. On the CPU the same
+  slots run eagerly on the plain versions. It is the card's loop
+  (`run`), and it never falls back to the Python loop: a failed
+  capture or replay raises.
 
 State is a dict of tensors under the reference's leaf names, so a
 state moves between the two engines as numpy arrays
@@ -41,6 +59,11 @@ state moves between the two engines as numpy arrays
                                the model NIC (model_bandwidth only)
   path_cnt [1,V*V] int64       sent packets per vertex pair
                                (count_paths only)
+  aud [H] int32, aud_t aud_tx [H] int64
+                               the health word, the last popped time
+                               and the rows each host produced (audit
+                               only; aud_tx seeded with the boot and
+                               stop rows)
 
 Entry points run on the card unless the caller passes device="cpu";
 without a CUDA device they raise rather than fall back.
@@ -59,13 +82,15 @@ from shadow_tpu_torch.core.event import KIND_BOOT, KIND_STOP
 from shadow_tpu_torch.device import prng
 from shadow_tpu_torch.device.apps import PholdDevice, TgenDevice, TorDevice
 from shadow_tpu_torch.device.kernels import (
-    DROP_T,
+    CTL,
     IMAX,
     INF,
     NIC_KEYS,
     OB_FIELDS,
     Kernels,
     PhaseParams,
+    control_block,
+    head_min_plain,
     n_vertices,
 )
 from shadow_tpu_torch.host.model_nic import LAW
@@ -81,7 +106,10 @@ STATE_DTYPES = {
          "occ_phases"), np.int32),
 }
 # leaves of the optional features, present when the feature is on
-OPTIONAL_DTYPES = dict.fromkeys((*NIC_KEYS, "path_cnt"), np.int64)
+OPTIONAL_DTYPES = {**dict.fromkeys((*NIC_KEYS, "path_cnt", "aud_t",
+                                    "aud_tx"), np.int64), "aud": np.int32}
+# phase slots a captured window loop replays at once
+LOOP_SLOTS = 32
 
 
 class NoCudaDevice(RuntimeError):
@@ -122,13 +150,17 @@ class EngineConfig:
     # the [V,V] histogram of sent packets, drop-rolled ones included;
     # needs V*V <= 65536
     count_paths: bool = False
+    # the state audit's health word (kernels.AUD_*): the pops' clock
+    # lane, the aud_tx ledger, K8 at every window's end
+    audit: bool = False
+    max_rounds: int = 1 << 62    # safety valve
 
 
 def state_from_numpy(arrays: dict, device) -> dict:
     """A state dict of numpy arrays (e.g. the reference engine's
     init_state output) -> tensors on `device`, with the port's
-    dtypes: every leaf of STATE_DTYPES, and the NIC leaves and
-    path_cnt where `arrays` has them."""
+    dtypes: every leaf of STATE_DTYPES, and the NIC, path_cnt and
+    audit leaves where `arrays` has them."""
     dev = torch.device(device)
     dtypes = {**STATE_DTYPES, **{k: v for k, v in OPTIONAL_DTYPES.items()
                                  if k in arrays}}
@@ -163,7 +195,7 @@ def phase_params(config: EngineConfig,
         IN=config.exchange_in_capacity or config.event_capacity,
         C=max(1, app.max_train), boot_end=int(config.bootstrap_end),
         seed=prng.seed_key(config.seed), app=app, MB=MB,
-        CP=bool(config.count_paths))
+        CP=bool(config.count_paths), AUD=bool(config.audit))
 
 
 def world_arrays(n_hosts: int,
@@ -286,6 +318,10 @@ class DeviceEngine:
         self._buf = None
         # the preflight admission verdict, where a runner made one
         self.admission: Optional[dict] = None
+        # the last run's loop: which, its phases, rounds, host syncs
+        self.loop_stats: dict = {}
+        self._phases = 0            # phases `window` ran
+        self._window_ctl: Optional[torch.Tensor] = None
 
     # ------------------------------------------------------------------
     def init_state(self, start_times: np.ndarray,
@@ -333,71 +369,179 @@ class DeviceEngine:
         if self.config.count_paths:
             arrays["path_cnt"] = np.zeros((1, self.n_vertices ** 2),
                                           np.int64)
+        if self.config.audit:
+            # the ledger starts with the rows init wrote: a boot per
+            # host, a stop where stop_times >= 0 (the reference's
+            # t0s != INF and t1s != INF)
+            arrays["aud"] = zeros
+            arrays["aud_t"] = np.zeros(H, np.int64)
+            arrays["aud_tx"] = ((t0 < INF).astype(np.int64)
+                                + has_stop.astype(np.int64))
         return state_from_numpy(arrays, self.device)
 
     # ------------------------------------------------------------------
     def _outbox(self) -> tuple[dict, torch.Tensor]:
         """The phase's outbox [H,OB] x 5 and pop counts [H]: allocated
-        once per engine, since the pop rewrites all of it every
-        phase."""
+        once per engine, since the pop rewrites all of it every phase
+        (and a captured window loop holds their addresses)."""
+        return self._buffers()[:2]
+
+    def _buffers(self) -> tuple[dict, torch.Tensor, tuple]:
+        """The outbox, the pop counts and the route's outputs (perm
+        [H*OB], starts [H], counts [H]), allocated once per engine."""
         if self._buf is None:
             H, OB = self.config.n_hosts, self.params.OB
-            ob = {f: torch.empty((H, OB), dtype=torch.int64,
-                                 device=self.device) for f in OB_FIELDS}
-            pops = torch.empty(H, dtype=torch.int32, device=self.device)
-            self._buf = (ob, pops)
+            dev = self.device
+            ob = {f: torch.empty((H, OB), dtype=torch.int64, device=dev)
+                  for f in OB_FIELDS}
+            pops = torch.empty(H, dtype=torch.int32, device=dev)
+            route = tuple(torch.empty(n, dtype=torch.int64, device=dev)
+                          for n in (H * OB, H, H))
+            self._buf = (ob, pops, route)
         return self._buf
 
-    def phase(self, state: dict, win_end: int) -> None:
+    def phase(self, state: dict, win_end) -> None:
         """One phase: pops (K1, K4 or K6), then the flush: judge (K2,
         not under the model NIC, whose pops judge), path counters (K7,
-        under count_paths), route (K5), merge (K3). Updates `state` in
-        place. The caller runs a phase only when some host's head time
-        lies below win_end, so every phase pops and flushes (the
-        reference skips the flush of a phase that popped nothing, which
-        cannot happen here)."""
+        under count_paths), the tallies, route (K5), merge (K3). Updates
+        `state` in place. `win_end` is an int, or the loop's control
+        block, whose window end every kernel reads and whose `run` word
+        makes the phase a no-op where it is 0. The loops run a phase
+        only when some host's head time lies below the window end, so
+        every phase pops and flushes (the reference skips the flush of
+        a phase that popped nothing, which cannot happen here)."""
         p, k = self.params, self.kernels
-        ob, pops = self._outbox()
+        ctl = win_end if isinstance(win_end, torch.Tensor) else None
+        ob, pops, route = self._buffers()
         k.pop(state, ob, pops, self.world, win_end, p)
-        state["occ_trips"].copy_(torch.maximum(state["occ_trips"],
-                                               pops.max().view(1)))
         if not p.MB:
             k.judge_outbox(state, ob, self.world, win_end, p)
         if p.CP:
-            k.count_paths(state, ob, self.world)
-        state["occ_ob"].copy_(torch.maximum(
-            state["occ_ob"], (ob["t"] < DROP_T).sum(-1).to(torch.int32)))
-        state["occ_phases"] += 1
-        perm, starts, counts = k.route(ob)
-        k.merge_heaps(state, ob, perm, starts, counts, p)
+            k.count_paths(state, ob, self.world, ctl)
+        k.phase_tally(state, ob, pops, p, ctl)
+        perm, starts, counts = k.route(ob, route, ctl)
+        k.merge_heaps(state, ob, perm, starts, counts, p, ctl)
 
     def next_time(self, state: dict) -> int:
         """Minimum head-event time across hosts (one host sync)."""
-        head = state["head"].long()
-        E = self.params.E
-        nt = state["ht"].gather(1, head.clamp(max=E - 1)[:, None])[:, 0]
-        nt = torch.where(head < E, nt, INF)
-        return int(nt.min()) if nt.numel() else INF
+        return int(head_min_plain(state))
 
     def window(self, state: dict, win_end: int, nxt: Optional[int] = None
                ) -> int:
         """Run one conservative window to `win_end` from head time `nxt`
         (computed when not given); returns the next window's start."""
         nt = self.next_time(state) if nxt is None else nxt
+        if nt < win_end:
+            if self._window_ctl is None:
+                self._window_ctl = control_block(self.device, run=1)
+            # a stream-ordered fill: no host sync
+            self._window_ctl[CTL["win_end"]].fill_(win_end)
         while nt < win_end:
-            self.phase(state, win_end)
+            self.phase(state, self._window_ctl)
+            self._phases += 1
             nt = self.next_time(state)
         return nt
 
-    def run(self, state: dict) -> tuple[dict, int]:
-        """Advance to config.stop_time, window ends clamped to it.
-        Returns (state, rounds)."""
-        stop = self.config.stop_time
+    def _stops(self, stop, final_stop) -> tuple[int, int]:
+        stop = self.config.stop_time if stop is None else int(stop)
+        final = stop if final_stop is None else int(final_stop)
+        if final < stop:
+            raise ValueError(f"final_stop {final} precedes stop {stop}")
+        return stop, final
+
+    def run(self, state: dict, stop: Optional[int] = None,
+            final_stop: Optional[int] = None) -> tuple[dict, int]:
+        """Advance to `stop` (default config.stop_time), every window
+        end clamped to `final_stop` (default `stop`): pass the
+        simulation's end there when pausing earlier, so that the window
+        sequence, and the trace, equal an unpaused run's. Returns
+        (state, rounds) and sets `loop_stats`. On the card the captured
+        slot schedule runs, or the Python loop in timing mode; on the
+        CPU the Python loop."""
+        if self.device.type == "cuda" and not self.kernels.timing:
+            return self.run_slots(state, stop, final_stop)
+        return self.run_python(state, stop, final_stop)
+
+    def run_python(self, state: dict, stop: Optional[int] = None,
+                   final_stop: Optional[int] = None) -> tuple[dict, int]:
+        """The window loop in Python (the plain path): one host read of
+        the minimum head time per phase."""
+        stop, final = self._stops(stop, final_stop)
         lookahead = max(1, int(self.config.lookahead))
-        rounds = 0
+        rounds, self._phases = 0, 0
         nxt = self.next_time(state)
-        while nxt < stop:
-            win_end = min(nxt + lookahead, stop)
+        while nxt < stop and rounds < self.config.max_rounds:
+            win_end = min(nxt + lookahead, final)
             nxt = self.window(state, win_end, nxt)
             rounds += 1
+            if self.config.audit:
+                self.kernels.audit_round(state)
+        self.loop_stats = {"loop": "python", "rounds": rounds,
+                           "phases": self._phases,
+                           "host_syncs": 1 + self._phases}
         return state, rounds
+
+    def _slots(self, state: dict, ctl: torch.Tensor, n: int) -> None:
+        """`n` slots: each a phase under `ctl`, K9 and, under the audit,
+        K8 (which runs where K9 ended a round)."""
+        k = self.kernels
+        for _ in range(n):
+            self.phase(state, ctl)
+            k.loop_control(state, ctl)
+            if self.config.audit:
+                k.audit_round(state, ctl)
+
+    def run_slots(self, state: dict, stop: Optional[int] = None,
+                  final_stop: Optional[int] = None,
+                  slots: int = LOOP_SLOTS) -> tuple[dict, int]:
+        """The window loop as slots of `slots` phases (see the module
+        notes): the first batch runs eagerly (on the card it also loads
+        every kernel before the capture), then on the card the batch is
+        captured into a CUDA graph and replayed, on the CPU run again,
+        until the control block says done; the host reads the block
+        once per batch. Raises in timing mode: event pairs mean nothing
+        inside a graph (the Python loop times)."""
+        stop, final = self._stops(stop, final_stop)
+        if slots < 1:
+            raise ValueError("slots must be >= 1")
+        k, cuda = self.kernels, self.device.type == "cuda"
+        if cuda and k.timing:
+            raise RuntimeError(
+                "the captured window loop cannot run in timing mode: "
+                "run_python times each launch")
+        ctl = control_block(
+            self.device, stop=stop, final_stop=final,
+            lookahead=max(1, int(self.config.lookahead)),
+            max_rounds=min(int(self.config.max_rounds), (1 << 63) - 1))
+        k.loop_control(state, ctl, start=True)
+        self._slots(state, ctl, slots)
+        words = ctl.cpu()
+        syncs, graph = 1, None
+        while not int(words[CTL["done"]]):
+            if not cuda:
+                self._slots(state, ctl, slots)
+            else:
+                if graph is None:
+                    graph, captured = self._capture(state, ctl, slots)
+                graph.replay()
+                k.replayed(captured)
+            words = ctl.cpu()
+            syncs += 1
+        rounds = int(words[CTL["rounds"]])
+        self.loop_stats = {
+            "loop": "graph" if cuda else "slots", "rounds": rounds,
+            "phases": int(words[CTL["phases"]]), "host_syncs": syncs}
+        return state, rounds
+
+    def _capture(self, state: dict, ctl: torch.Tensor, slots: int):
+        """(graph, launches it records) of `slots` slots captured on the
+        card; raises where the capture fails."""
+        k = self.kernels
+        graph = torch.cuda.CUDAGraph()
+        k.begin_capture()
+        try:
+            with torch.cuda.graph(graph):
+                self._slots(state, ctl, slots)
+        finally:
+            captured = k.end_capture()
+        return graph, captured

@@ -19,6 +19,24 @@ Four steps carry one phase of a conservative window:
 * K3 `merge_heaps` (csrc/merge_heaps.cu): `_merge_rows` on the window
   path, one block per destination host, a bitonic sort in shared memory.
 
+Between the judge and the route `phase_tally` (csrc/phase_tally.cu)
+takes the phase's occupancy marks and, under the state audit, the
+conservation ledger `aud_tx`. The window loop on the card adds two: K9
+`loop_control` (csrc/loop_control.cu), the control step after each
+phase (the minimum head time, the window and round decisions), and K8
+`audit_round` (csrc/audit_round.cu), the audit's health word at each
+round's end. The pops carry the audit's clock lane as a template flag:
+an audited launch counts under the pop's name with `_aud` appended.
+
+The window loop drives a phase through its control block (`CTL_FIELDS`,
+a [len(CTL_FIELDS)] int64 tensor on the state's device), which a
+captured CUDA graph reads at every replay: the pop and the judge take
+their window end from it, and every kernel of a phase returns at once
+where its `run` word is 0, so the slots after the loop is done change
+no byte of state. The pop's and the judge's `win_end` argument is the
+block itself, or an int, for which the wrapper makes a block; the other
+kernels of a phase take the block as an optional guard.
+
 The pops and the judge read the path tables through one of two views
 (csrc/topo.cuh), as the world holds them: dense [V,V] tables, or the
 factored leaves of `representation: hierarchical`, looked up in two
@@ -30,8 +48,10 @@ versions look up through `table_lookup`.
 Every wrapper takes the plain version for tensors on the CPU and, for
 CUDA tensors, launches its kernel on the current stream or raises:
 there is no fallback. A wrapper adds one to `Kernels.launches[name]`
-where it launches its kernel, and nowhere else. The pop, judge and
-merge update their state tensors in place, like the kernels.
+where it launches its kernel, and nowhere else; a launch recorded into a
+CUDA graph counts once for each replay of the graph (`Kernels.replayed`).
+The pop, judge and merge update their state tensors in place, like the
+kernels.
 """
 
 from __future__ import annotations
@@ -43,7 +63,7 @@ import shutil
 import subprocess
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Union
+from typing import Optional, Union
 
 import torch
 
@@ -85,29 +105,48 @@ NS_X8 = 8 * 1_000_000_000      # bits per byte x ns per second
 
 # the kernels that read the path tables, each launched on dense or on
 # factored tables, with one epoch or a fault schedule's T > 1; a pop
-# also with or without the model NIC. Each combination is its own
-# instantiation and counts under its own name: f"{name}{NIC}{EP}{HIER}"
-# with the parts that apply (`launch_name`)
+# also with or without the model NIC and the audit's clock lane. Each
+# combination is its own instantiation and counts under its own name:
+# f"{name}{NIC}{EP}{HIER}{AUD}" with the parts that apply
+# (`launch_name`)
 POP_KERNELS = ("pop_phase", "pop_tgen", "pop_tor")
 TOPO_KERNELS = (*POP_KERNELS, "judge_outbox")
 NIC = "_nic"
 EP = "_ep"
 HIER = "_hier"
+AUD = "_aud"
 NIC_KEYS = ("tx_free", "rx_free", "cd_fa", "cd_next", "cd_cnt",
             "cd_last", "cd_drop")
+# the state audit (experimental.state_audit): the bits of the per-host
+# health word `aud`, its leaves, and the counters that must not go
+# negative (the reference engine's AUD_*)
+AUD_HEAP = 1        # heap rows out of (t, key) order, or head outside [0, E]
+AUD_CLOCK = 2       # a host popped an event earlier than one it executed
+AUD_COUNTER = 4     # a cumulative counter went negative
+AUD_CONSERVE = 8    # rows produced != rows executed + live + counted lost
+AUD_KEYS = ("aud", "aud_t", "aud_tx")
+AUD_COUNTERS = ("n_exec", "n_sent", "n_drop", "n_deliv", "event_seq",
+                "packet_seq", "app_seq")
+# the window loop's control block, one int64 word each, in the order of
+# csrc/common.cuh `Ctl`
+CTL_FIELDS = ("win_end", "stop", "final_stop", "lookahead", "max_rounds",
+              "nxt", "rounds", "phases", "done", "run", "round_end")
+CTL = {name: i for i, name in enumerate(CTL_FIELDS)}
 
 
 def launch_name(name: str, nic: bool = False, epochs: bool = False,
-                hier: bool = False) -> str:
+                hier: bool = False, aud: bool = False) -> str:
     return name + (NIC if nic else "") + (EP if epochs else "") + \
-        (HIER if hier else "")
+        (HIER if hier else "") + (AUD if aud else "")
 
 
 KERNEL_NAMES = tuple(
-    launch_name(n, nic, ep, hr) for n in TOPO_KERNELS
+    launch_name(n, nic, ep, hr, au) for n in TOPO_KERNELS
+    for au in ((False, True) if n in POP_KERNELS else (False,))
     for nic in ((False, True) if n in POP_KERNELS else (False,))
     for ep in (False, True) for hr in (False, True)) + \
-    ("route", "merge_heaps", "count_paths")
+    ("route", "merge_heaps", "count_paths", "phase_tally", "audit_round",
+     "loop_control")
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC.parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -141,6 +180,7 @@ class PhaseParams:
     app: Union[PholdDevice, TgenDevice, TorDevice]
     MB: bool = False        # model NIC: judge in the pop, READY column
     CP: bool = False        # path counters: dead rows kept as DROP_T
+    AUD: bool = False       # state audit: the pops' clock lane, aud_tx
 
     @property
     def M_out(self) -> int:
@@ -186,6 +226,42 @@ def table_lookup(tab, sv: torch.Tensor, dv: torch.Tensor,
     return tab[sv, dv] if e is None else tab[e, sv, dv]
 
 
+def control_block(device, **words) -> torch.Tensor:
+    """A window-loop control block on `device`: the named words of
+    CTL_FIELDS set, the others 0."""
+    unknown = set(words) - set(CTL)
+    if unknown:
+        raise ValueError(f"no control word(s) {sorted(unknown)}")
+    return torch.tensor([int(words.get(n, 0)) for n in CTL_FIELDS],
+                        dtype=torch.int64, device=device)
+
+
+def phase_window(win_end) -> Optional[int]:
+    """The window end a phase's plain version works to: `win_end`
+    itself, or the `win_end` word of a control block; None where the
+    block's `run` word is 0 (the phase does not run)."""
+    if isinstance(win_end, torch.Tensor):
+        if not int(win_end[CTL["run"]]):
+            return None
+        return int(win_end[CTL["win_end"]])
+    return int(win_end)
+
+
+def _phase_off(ctl: Optional[torch.Tensor]) -> bool:
+    return ctl is not None and not int(ctl[CTL["run"]])
+
+
+def head_min_plain(state: dict) -> torch.Tensor:
+    """The minimum over hosts of each host's head event time (INF where
+    head >= E), as a 0-dim int64 tensor (the reference's `next_time`:
+    `_take_head` then `_axis_min`)."""
+    head = state["head"].long()
+    E = state["ht"].shape[1]
+    nt = state["ht"].gather(1, head.clamp(0, E - 1)[:, None])[:, 0]
+    nt = torch.where(head < E, nt, INF)
+    return nt.min() if nt.numel() else torch.tensor(INF)
+
+
 def _wbits(cnt: torch.Tensor) -> torch.Tensor:
     """The low `cnt` bits of a u32 (all 32 from 32 up)."""
     return torch.where(cnt >= 32, U32, (1 << cnt.clamp(0, 31).long()) - 1)
@@ -195,7 +271,7 @@ def _wbits(cnt: torch.Tensor) -> torch.Tensor:
 # K1 / K4: one phase of pops (reference: engine._step, judge at flush)
 # ----------------------------------------------------------------------
 def pop_plain(state: dict, ob: dict, pops: torch.Tensor, world: dict,
-              win_end: int, p: PhaseParams) -> None:
+              win_end, p: PhaseParams) -> None:
     """Pop events below `win_end`, in lockstep over hosts, exactly as
     the reference's pop loop: a host stops at the window end, at
     `dirty` (an in-window self-send, timer or READY row it must not
@@ -217,7 +293,15 @@ def pop_plain(state: dict, ob: dict, pops: torch.Tensor, world: dict,
     p.CP, as DROP_T. A popped KIND_PACKET is the RX stage: the app
     does not see it; the download bucket and CoDel drop it or write a
     KIND_PACKET_READY row in the READY column, which the app sees as a
-    packet when it pops."""
+    packet when it pops.
+
+    Under the state audit (p.AUD) each iteration ORs AUD_CLOCK into
+    `aud` where a host's first popped time lies below `aud_t`, then
+    sets `aud_t` to the largest time it popped (engine.py:800-813).
+    `win_end` is an int or a control block (`phase_window`)."""
+    win_end = phase_window(win_end)
+    if win_end is None:
+        return
     E, K, T, P, B, C, app = p.E, p.K, p.T, p.P, p.B, p.C, p.app
     M, MB = p.M_out, p.MB
     dev = state["head"].device
@@ -232,7 +316,8 @@ def pop_plain(state: dict, ob: dict, pops: torch.Tensor, world: dict,
         ob[f].fill_(INF if f == "t" else 0)
     names = ["head", "chk", "n_exec", "n_deliv", "event_seq", "packet_seq",
              "app_seq", "app"] + (["n_sent", "n_drop", *NIC_KEYS]
-                                  if MB else [])
+                                  if MB else []) + (["aud", "aud_t"]
+                                                    if p.AUD else [])
     st = {k: state[k].clone() for k in names}
     dirty = torch.zeros(H, dtype=torch.bool, device=dev)
     npop = torch.zeros(H, dtype=torch.int32, device=dev)
@@ -268,6 +353,14 @@ def pop_plain(state: dict, ob: dict, pops: torch.Tensor, world: dict,
         else:
             popcnt = runnable.to(torch.int32)
         active = offs[None, :] < popcnt[:, None]              # [H,P]
+        if p.AUD:
+            prev = st["aud_t"]
+            st["aud"] = st["aud"] | torch.where(
+                runnable & (pt < prev), AUD_CLOCK, 0).to(torch.int32)
+            last = (torch.where(active, ptP, 0).amax(-1) if P > 1
+                    else pt)
+            st["aud_t"] = torch.where(runnable, torch.maximum(prev, last),
+                                      prev)
         st["head"] = st["head"] + popcnt
         st["n_exec"] = st["n_exec"] + popcnt
         npop = npop + runnable.to(torch.int32)
@@ -488,14 +581,18 @@ def _nic_step(st, world, p, win_end, runnable, is_rx, valid, pt, e, gid,
 # ----------------------------------------------------------------------
 # K2: per-phase network judgment (reference: engine._judge_outbox)
 # ----------------------------------------------------------------------
-def judge_outbox_plain(state: dict, ob: dict, world: dict, win_end: int,
+def judge_outbox_plain(state: dict, ob: dict, world: dict, win_end,
                        p: PhaseParams) -> None:
     """Judge every send row of the outbox: path latency and
     reliability in the epoch of the row's departure, one drop roll per
     packet keyed by (src, packet seq), the causality bump to `win_end`
     for cross-host rows, and the sent/dropped counters. A row whose
     packets all drop gets t = INF, or DROP_T under the path counters
-    (p.CP), which count it. Rewrites ob t/m/v in place."""
+    (p.CP), which count it. Rewrites ob t/m/v in place. `win_end` is
+    an int or a control block (`phase_window`)."""
+    win_end = phase_window(win_end)
+    if win_end is None:
+        return
     ft, fm, fv = ob["t"], ob["m"], ob["v"]
     H, OB = ft.shape
     dev = ft.device
@@ -547,11 +644,15 @@ def judge_outbox_plain(state: dict, ob: dict, world: dict, win_end: int,
 # ----------------------------------------------------------------------
 # K7: the path counters (reference: engine._count_paths)
 # ----------------------------------------------------------------------
-def count_paths_plain(state: dict, ob: dict, world: dict) -> None:
+def count_paths_plain(state: dict, ob: dict, world: dict,
+                      ctl: Optional[torch.Tensor] = None) -> None:
     """Add every judged packet row of the outbox (t < INF, DROP_T
     included, kind KIND_PACKET) to the [V*V] histogram of sent packets
     at (vertex of src) * V + (vertex of dst), weighted by its live
-    count (kind >> 8). In place on state["path_cnt"] [1, V*V]."""
+    count (kind >> 8). In place on state["path_cnt"] [1, V*V]; nothing
+    where the control block `ctl` says the phase does not run."""
+    if _phase_off(ctl):
+        return
     ft, fk, fm = ob["t"], ob["k"], ob["m"]
     H = ft.shape[0]
     hv = world["host_vertex"].long()
@@ -598,13 +699,17 @@ def route_plain(ob: dict):
 # ----------------------------------------------------------------------
 def merge_heaps_plain(state: dict, ob: dict, perm: torch.Tensor,
                       starts: torch.Tensor, counts: torch.Tensor,
-                      p: PhaseParams) -> None:
+                      p: PhaseParams,
+                      ctl: Optional[torch.Tensor] = None) -> None:
     """Per host: the live heap rows (slots >= head) and the first IN
     arrivals of its segment, sorted by (time, key, column) — column
     breaks ties, so the order is the stable lexicographic one — and
     the first E rows kept. Rows past E with t < INF, and arrivals past
     IN, count into `overflow`; `occ_in`/`occ_heap` take their
-    high-water marks; head resets to 0."""
+    high-water marks; head resets to 0. Nothing where the control block
+    `ctl` says the phase does not run."""
+    if _phase_off(ctl):
+        return
     E, IN = p.E, p.IN
     H = state["head"].shape[0]
     dev = perm.device
@@ -651,6 +756,96 @@ def merge_heaps_plain(state: dict, ob: dict, perm: torch.Tensor,
 
 
 # ----------------------------------------------------------------------
+# the phase's tallies (reference: engine.py:1941-1951, 2135-2136)
+# ----------------------------------------------------------------------
+def phase_tally_plain(state: dict, ob: dict, pops: torch.Tensor,
+                      p: PhaseParams,
+                      ctl: Optional[torch.Tensor] = None) -> None:
+    """After the judge: `occ_trips` takes the largest pop count,
+    `occ_ob` each host's count of exchangeable rows (t < DROP_T),
+    `occ_phases` one more phase and, under the audit, `aud_tx` those
+    rows. Nothing where the control block says the phase does not
+    run."""
+    if _phase_off(ctl):
+        return
+    n = (ob["t"] < DROP_T).sum(-1).to(torch.int32)
+    state["occ_trips"].copy_(torch.maximum(state["occ_trips"],
+                                           pops.max().view(1)))
+    state["occ_ob"].copy_(torch.maximum(state["occ_ob"], n))
+    state["occ_phases"] += 1
+    if p.AUD:
+        state["aud_tx"] += n.long()
+
+
+# ----------------------------------------------------------------------
+# K8: the audit's health word (reference: engine._audit_round)
+# ----------------------------------------------------------------------
+def audit_round_plain(state: dict,
+                      ctl: Optional[torch.Tensor] = None) -> None:
+    """OR into each host's `aud`: AUD_HEAP where its heap rows are out
+    of (t, key) order or head lies outside [0, E], AUD_COUNTER where one
+    of AUD_COUNTERS is negative, and on every host AUD_CONSERVE where
+    the int64 balance sum(aud_tx) - (sum(n_exec) + live rows +
+    sum(overflow) + sum(x_overflow)) is not 0. Under the window loop
+    only where the control block's `round_end` word is set."""
+    if ctl is not None and not int(ctl[CTL["round_end"]]):
+        return
+    head, ht, hk = state["head"], state["ht"], state["hk"]
+    E = ht.shape[1]
+    ok = ((ht[:, :-1] < ht[:, 1:])
+          | ((ht[:, :-1] == ht[:, 1:]) & (hk[:, :-1] <= hk[:, 1:]))).all(-1)
+    ok = ok & (head >= 0) & (head <= E)
+    neg = torch.zeros_like(ok)
+    for key in AUD_COUNTERS:
+        neg = neg | (state[key] < 0)
+    slot = torch.arange(E, device=ht.device)[None, :]
+    live = ((slot >= head[:, None]) & (ht < INF)).sum()
+    diff = state["aud_tx"].sum() - (
+        state["n_exec"].long().sum() + live
+        + state["overflow"].long().sum() + state["x_overflow"].long().sum())
+    aud = state["aud"] | torch.where(ok, 0, AUD_HEAP).to(torch.int32)
+    aud = aud | torch.where(neg, AUD_COUNTER, 0).to(torch.int32)
+    if int(diff) != 0:
+        aud = aud | AUD_CONSERVE
+    state["aud"].copy_(aud)
+
+
+# ----------------------------------------------------------------------
+# K9: the window loop's control step (reference: _run_shard, _round)
+# ----------------------------------------------------------------------
+def loop_control_plain(state: dict, ctl: torch.Tensor,
+                       start: bool = False) -> None:
+    """One control step on the block `ctl` after a phase (or, with
+    `start`, before the first): with nxt the minimum head time, the
+    window goes on where nxt < win_end; else the round ends (rounds +1,
+    round_end set), and the loop is done where nxt >= stop or rounds
+    reached max_rounds, else the next window ends at min(nxt +
+    lookahead, final_stop). `run` says whether the next phase runs;
+    once done the step only clears `run` and `round_end`."""
+    c = {n: int(ctl[i]) for n, i in CTL.items()}
+    if c["done"]:
+        ctl[CTL["run"]] = 0
+        ctl[CTL["round_end"]] = 0
+        return
+    nxt = int(head_min_plain(state))
+    c.update(nxt=nxt, round_end=0)
+    if not start:
+        c["phases"] += 1
+        if nxt < c["win_end"]:
+            c["run"] = 1
+            nxt = None
+        else:
+            c.update(rounds=c["rounds"] + 1, round_end=1)
+    if nxt is not None:
+        if nxt >= c["stop"] or c["rounds"] >= c["max_rounds"]:
+            c.update(done=1, run=0)
+        else:
+            c.update(win_end=min(nxt + c["lookahead"], c["final_stop"]),
+                     run=1)
+    ctl.copy_(torch.tensor([c[n] for n in CTL_FIELDS], dtype=torch.int64))
+
+
+# ----------------------------------------------------------------------
 # build and binding
 # ----------------------------------------------------------------------
 def _sources() -> list[Path]:
@@ -667,6 +862,14 @@ def _nvcc() -> str:
                            "/usr/local/cuda/bin): the CUDA kernels build "
                            "only where the CUDA toolkit is installed")
     return str(path)
+
+
+def toolkit_version() -> str:
+    """The CUDA toolkit's release line, as `nvcc --version` gives it."""
+    out = subprocess.run([_nvcc(), "--version"], capture_output=True,
+                         text=True, check=True).stdout
+    return next((line.strip() for line in out.splitlines()
+                 if "release" in line), out.strip())
 
 
 def build_library(ptxas_verbose: bool = False) -> tuple[Path, str]:
@@ -797,40 +1000,73 @@ _U = ctypes.c_uint
 _T = ctypes.POINTER(TopoArgs)
 _N = ctypes.POINTER(NicArgs)
 
+_POP_TAIL = [_P] * 5 + [_P] * 4 + [_P]     # ob t k m s v, pops aud
+#                                          aud_t ctl, stream
 _SIGNATURES = {
-    # H, E, K, B, win_end, ht hk hm hv hw, head event_seq packet_seq
-    # app_seq app n_exec n_deliv chk, host_vertex topo nic, seed k1 k2,
-    # n_total msgload size selfloop, ob t k m s v, pops, stream
-    "shadow_pop_phase": [_I, _I, _I, _I, _L] + [_P] * 5 + [_P] * 8 +
-                        [_P, _T, _N, _U, _U, _I, _I, _I, _I] +
-                        [_P] * 5 + [_P, _P],
-    # H, E, K, T, P, B, C, win_end, ht hk hm hv hw, head event_seq
-    # packet_seq app n_exec n_deliv chk, host_vertex topo nic, count
-    # pause retry, npkts last_sz chunk mss, ob t k m s v, pops, stream
-    "shadow_pop_tgen": [_I] * 7 + [_L] + [_P] * 5 + [_P] * 7 +
-                       [_P, _T, _N] + [_P] * 3 + [_I] * 4 + [_P] * 5 +
-                       [_P, _P],
-    # H, E, K, T, P, B, C, win_end, ht hk hm hv hw, head event_seq
-    # packet_seq app n_exec n_deliv chk, host_vertex topo nic, count
-    # pause retry, relay_gids R, route key k1 k2, cells, ob t k m s v,
-    # pops, stream
-    "shadow_pop_tor": [_I] * 7 + [_L] + [_P] * 5 + [_P] * 7 +
-                      [_P, _T, _N] + [_P] * 3 + [_P, _I, _U, _U, _I] +
-                      [_P] * 5 + [_P, _P],
-    # H, OB, C, win_end, boot_end, ob t m v, packet_seq n_sent n_drop,
-    # host_vertex topo, seed k1 k2, cp, stream
-    "shadow_judge_outbox": [_I, _I, _I, _L, _L] + [_P] * 3 + [_P] * 3 +
-                           [_P, _T, _U, _U, _I, _P],
-    # H, OB, V, ob t k m, host_vertex, path_cnt, stream
-    "shadow_count_paths": [_I, _I, _I] + [_P] * 3 + [_P, _P, _P],
-    # H, OB, ob t m, perm starts counts, scratch cursor block_sums,
+    # H, E, K, B, ht hk hm hv hw, head event_seq packet_seq app_seq app
+    # n_exec n_deliv chk, host_vertex topo nic, seed k1 k2, n_total
+    # msgload size selfloop, ob t k m s v, pops, aud aud_t, ctl, stream
+    "shadow_pop_phase": [_I, _I, _I, _I] + [_P] * 5 + [_P] * 8 +
+                        [_P, _T, _N, _U, _U, _I, _I, _I, _I] + _POP_TAIL,
+    # H, E, K, T, P, B, C, ht hk hm hv hw, head event_seq packet_seq
+    # app n_exec n_deliv chk, host_vertex topo nic, count pause retry,
+    # npkts last_sz chunk mss, ob t k m s v, pops, aud aud_t, ctl,
     # stream
-    "shadow_route": [_I, _I] + [_P] * 2 + [_P] * 3 + [_P] * 3 + [_P],
+    "shadow_pop_tgen": [_I] * 7 + [_P] * 5 + [_P] * 7 +
+                       [_P, _T, _N] + [_P] * 3 + [_I] * 4 + _POP_TAIL,
+    # H, E, K, T, P, B, C, ht hk hm hv hw, head event_seq packet_seq
+    # app n_exec n_deliv chk, host_vertex topo nic, count pause retry,
+    # relay_gids R, route key k1 k2, cells, ob t k m s v, pops, aud
+    # aud_t, ctl, stream
+    "shadow_pop_tor": [_I] * 7 + [_P] * 5 + [_P] * 7 +
+                      [_P, _T, _N] + [_P] * 3 + [_P, _I, _U, _U, _I] +
+                      _POP_TAIL,
+    # H, OB, C, boot_end, ob t m v, packet_seq n_sent n_drop,
+    # host_vertex topo, seed k1 k2, cp, ctl, stream
+    "shadow_judge_outbox": [_I, _I, _I, _L] + [_P] * 3 + [_P] * 3 +
+                           [_P, _T, _U, _U, _I, _P, _P],
+    # H, OB, V, ob t k m, host_vertex, path_cnt, ctl, stream
+    "shadow_count_paths": [_I, _I, _I] + [_P] * 3 + [_P] * 4,
+    # H, OB, ob t m, perm starts counts, scratch cursor block_sums,
+    # ctl, stream
+    "shadow_route": [_I, _I] + [_P] * 2 + [_P] * 3 + [_P] * 3 + [_P] * 2,
     # H, E, IN, F, ht hk hm hv hw head, ob t k m s v, perm starts
-    # counts, overflow occ_in occ_heap, stream
+    # counts, overflow occ_in occ_heap, ctl, stream
     "shadow_merge_heaps": [_I, _I, _I, _L] + [_P] * 6 + [_P] * 5 +
-                          [_P] * 3 + [_P] * 3 + [_P],
+                          [_P] * 3 + [_P] * 3 + [_P] * 2,
+    # H, OB, ob t, pops, occ_ob occ_trips occ_phases, aud_tx, ctl, stream
+    "shadow_phase_tally": [_I, _I] + [_P] * 8,
+    # H, E, ht hk head, n_exec n_sent n_drop n_deliv event_seq
+    # packet_seq app_seq overflow x_overflow, aud_tx aud, sum, ctl,
+    # stream
+    "shadow_audit_round": [_I, _I] + [_P] * 3 + [_P] * 9 + [_P] * 5,
+    # H, E, ht head, partial ctl, start, stream
+    "shadow_loop_control": [_I, _I, _P, _P, _P, _P, _I, _P],
+    "shadow_loop_control_blocks": [_I],
 }
+for _name in POP_KERNELS:
+    _SIGNATURES[f"shadow_{_name}{AUD}"] = _SIGNATURES[f"shadow_{_name}"]
+
+
+def _ctl_args(ctl: Optional[torch.Tensor]):
+    """(pointer, tensors to check) of a launch's control block, or
+    (None, []) without one."""
+    if ctl is None:
+        return None, []
+    if ctl.shape != (len(CTL_FIELDS),):
+        raise ValueError(f"a control block has {len(CTL_FIELDS)} words, "
+                         f"not shape {tuple(ctl.shape)}")
+    return _ptr(ctl), [(ctl, torch.int64)]
+
+
+def _window_args(win_end, device):
+    """(pointer, tensors to check, the block) of a pop or judge launch's
+    control block: `win_end` itself, or for an int a new block on
+    `device` with `run` set (the block lives until the call returns;
+    the launch is ordered before any reuse of its memory)."""
+    if not isinstance(win_end, torch.Tensor):
+        win_end = control_block(device, run=1, win_end=win_end)
+    return (*_ctl_args(win_end), win_end)
 
 
 class Kernels:
@@ -839,13 +1075,16 @@ class Kernels:
 
     `timing=True` records a CUDA event pair around every launch, so
     `kernel_ms()` can sum the device time each kernel took on the main
-    path; it adds no synchronisation."""
+    path; it adds no synchronisation. Event pairs mean nothing inside a
+    CUDA graph: a launch recorded into one in timing mode raises, and
+    the engine keeps its Python window loop there."""
 
     def __init__(self, timing: bool = False):
         self.timing = timing
         self.reset_counts()
         self._lib = None
-        self._route_scratch = {}
+        self._scratch = {}
+        self._captured = None
 
     def reset_counts(self) -> None:
         self.launches = dict.fromkeys(KERNEL_NAMES, 0)
@@ -858,6 +1097,21 @@ class Kernels:
         return {n: sum(a.elapsed_time(b) for a, b in ev)
                 for n, ev in self._events.items()}
 
+    def begin_capture(self) -> None:
+        """Launches from here to `end_capture` are being recorded into
+        a CUDA graph: they count at its replays, not now."""
+        self._captured = dict.fromkeys(KERNEL_NAMES, 0)
+
+    def end_capture(self) -> dict:
+        """The launches the graph recorded, per kernel."""
+        captured, self._captured = self._captured, None
+        return captured
+
+    def replayed(self, captured: dict) -> None:
+        """Count one replay of a graph that recorded `captured`."""
+        for name, n in captured.items():
+            self.launches[name] += n
+
     def library(self):
         if self._lib is None:
             path, _ = build_library()
@@ -868,6 +1122,14 @@ class Kernels:
                 fn.restype = ctypes.c_int
             self._lib = lib
         return self._lib
+
+    def _scratch_of(self, key: str, n: int, dev) -> torch.Tensor:
+        """An int64 scratch vector of `n` words on `dev`, allocated once
+        (a captured graph holds its address)."""
+        k = (key, n, dev)
+        if k not in self._scratch:
+            self._scratch[k] = torch.empty(n, dtype=torch.int64, device=dev)
+        return self._scratch[k]
 
     def _launch(self, name: str, c_name: str, tensors, *args) -> None:
         """Check every (tensor, dtype) the kernel reads or writes, launch
@@ -883,6 +1145,12 @@ class Kernels:
                                  f"{t.dtype} (shape {tuple(t.shape)})")
             if not t.is_contiguous():
                 raise ValueError(f"{name}: tensors must be contiguous")
+        capturing = torch.cuda.is_current_stream_capturing()
+        if capturing and (self.timing or self._captured is None):
+            raise RuntimeError(
+                f"{name}: a launch recorded into a CUDA graph must come "
+                "between begin_capture and end_capture, and not in "
+                "timing mode (event pairs mean nothing in a graph)")
         fn = getattr(self.library(), c_name)
         stream = torch.cuda.current_stream().cuda_stream
         ev = None
@@ -897,12 +1165,13 @@ class Kernels:
         if ev is not None:
             ev[1].record()
             self._events[name].append(ev)
-        self.launches[name] += 1
+        (self._captured if capturing else self.launches)[name] += 1
 
     def pop(self, state: dict, ob: dict, pops: torch.Tensor, world: dict,
-            win_end: int, p: PhaseParams) -> None:
+            win_end, p: PhaseParams) -> None:
         """The phase's pops: K1 for PHOLD, K4 for tgen, K6 for Tor (the
-        plain pop for each on the CPU), on the world's tables."""
+        plain pop for each on the CPU), on the world's tables; `win_end`
+        is an int or the loop's control block."""
         if not state["head"].is_cuda:
             return pop_plain(state, ob, pops, world, win_end, p)
         if isinstance(p.app, TgenDevice):
@@ -911,8 +1180,19 @@ class Kernels:
             return self._pop_tor(state, ob, pops, world, win_end, p)
         return self._pop_phase(state, ob, pops, world, win_end, p)
 
+    @staticmethod
+    def _pop_tail(state: dict, win_end, p: PhaseParams):
+        """(the C entry's suffix, the trailing aud aud_t ctl pointers,
+        their checks, the control block) of a pop launch."""
+        ctl, checks, block = _window_args(win_end, state["head"].device)
+        if p.AUD:
+            aud, aud_t = state["aud"], state["aud_t"]
+            checks = checks + [(aud, torch.int32), (aud_t, torch.int64)]
+            return AUD, (_ptr(aud), _ptr(aud_t), ctl), checks, block
+        return "", (None, None, ctl), checks, block
+
     def _pop_phase(self, state: dict, ob: dict, pops: torch.Tensor,
-                   world: dict, win_end: int, p: PhaseParams) -> None:
+                   world: dict, win_end, p: PhaseParams) -> None:
         a = p.app
         if not isinstance(a, PholdDevice) or p.T or p.P != 1:
             raise ValueError("pop_phase runs PHOLD (no timers, no "
@@ -925,21 +1205,24 @@ class Kernels:
         hv = world["host_vertex"]
         hier, epochs, topo, topo_checks = topo_args(world)
         nic, nic_checks = nic_args(state, world, p)
+        suffix, tail, tail_checks, block = self._pop_tail(state, win_end,
+                                                          p)
         obs = [ob[f] for f in OB_FIELDS]
         i32, i64 = torch.int32, torch.int64
         self._launch(
-            launch_name("pop_phase", p.MB, epochs, hier),
-            "shadow_pop_phase",
+            launch_name("pop_phase", p.MB, epochs, hier, p.AUD),
+            "shadow_pop_phase" + suffix,
             [(t, i64) for t in heap + obs] + [(t, i32) for t in small[:7]]
             + [(small[7], i64), (pops, i32), (hv, i32)] + topo_checks
-            + nic_checks,
-            H, p.E, p.K, p.B, int(win_end), *map(_ptr, heap),
+            + nic_checks + tail_checks,
+            H, p.E, p.K, p.B, *map(_ptr, heap),
             *map(_ptr, small), _ptr(hv), ctypes.byref(topo),
             ctypes.byref(nic), p.seed[0], p.seed[1], a.n_hosts_total,
-            a.msgload, a.size, a.selfloop, *map(_ptr, obs), _ptr(pops))
+            a.msgload, a.size, a.selfloop, *map(_ptr, obs), _ptr(pops),
+            *tail)
 
     def _pop_tgen(self, state: dict, ob: dict, pops: torch.Tensor,
-                  world: dict, win_end: int, p: PhaseParams) -> None:
+                  world: dict, win_end, p: PhaseParams) -> None:
         a = p.app
         if not isinstance(a, TgenDevice):
             raise ValueError("pop_tgen runs tgen")
@@ -947,7 +1230,7 @@ class Kernels:
                          [], (a.npkts, a.last_sz, a.chunk, MSS))
 
     def _pop_tor(self, state: dict, ob: dict, pops: torch.Tensor,
-                 world: dict, win_end: int, p: PhaseParams) -> None:
+                 world: dict, win_end, p: PhaseParams) -> None:
         a = p.app
         if not isinstance(a, TorDevice):
             raise ValueError("pop_tor runs Tor")
@@ -956,7 +1239,7 @@ class Kernels:
                          [relays], (relays.shape[0], *a.route_key, a.cells))
 
     def _pop_trains(self, name: str, state: dict, ob: dict,
-                    pops: torch.Tensor, world: dict, win_end: int,
+                    pops: torch.Tensor, world: dict, win_end,
                     p: PhaseParams, app_tensors: list, app_scalars) -> None:
         """K4 or K6: the pops of an app with trains, one timer lane and
         per-host client args; `app_tensors` (int32) and `app_scalars`
@@ -971,26 +1254,28 @@ class Kernels:
         hv = world["host_vertex"]
         hier, epochs, topo, topo_checks = topo_args(world)
         nic, nic_checks = nic_args(state, world, p)
+        suffix, tail, tail_checks, block = self._pop_tail(state, win_end,
+                                                          p)
         args = [world["client_count"], world["client_pause"],
                 world["client_retry"]]
         obs = [ob[f] for f in OB_FIELDS]
         i32, i64 = torch.int32, torch.int64
         self._launch(
-            launch_name(name, p.MB, epochs, hier), f"shadow_{name}",
+            launch_name(name, p.MB, epochs, hier, p.AUD),
+            f"shadow_{name}{suffix}",
             [(t, i64) for t in heap + obs] + [(t, i32) for t in small]
             + [(state["chk"], i64), (pops, i32), (hv, i32)] + topo_checks
             + nic_checks
             + [(args[0], i32)] + [(t, i64) for t in args[1:]]
-            + [(t, i32) for t in app_tensors],
-            H, p.E, p.K, p.T, p.P, p.B, p.C, int(win_end),
-            *map(_ptr, heap), *map(_ptr, small), _ptr(state["chk"]),
+            + [(t, i32) for t in app_tensors] + tail_checks,
+            H, p.E, p.K, p.T, p.P, p.B, p.C, *map(_ptr, heap), *map(_ptr, small), _ptr(state["chk"]),
             _ptr(hv), ctypes.byref(topo), ctypes.byref(nic),
             *map(_ptr, args),
             *map(_ptr, app_tensors), *app_scalars, *map(_ptr, obs),
-            _ptr(pops))
+            _ptr(pops), *tail)
 
     def judge_outbox(self, state: dict, ob: dict, world: dict,
-                     win_end: int, p: PhaseParams) -> None:
+                     win_end, p: PhaseParams) -> None:
         if not ob["t"].is_cuda:
             return judge_outbox_plain(state, ob, world, win_end, p)
         H, OB = ob["t"].shape
@@ -998,20 +1283,23 @@ class Kernels:
         cnt = [state["packet_seq"], state["n_sent"], state["n_drop"]]
         hv = world["host_vertex"]
         hier, epochs, topo, topo_checks = topo_args(world)
+        ctl, ctl_checks, block = _window_args(win_end, ob["t"].device)
         self._launch(
             launch_name("judge_outbox", False, epochs, hier),
             "shadow_judge_outbox",
             [(t, torch.int64) for t in obs]
-            + [(t, torch.int32) for t in cnt + [hv]] + topo_checks,
-            H, OB, p.C, int(win_end), int(p.boot_end), *map(_ptr, obs),
+            + [(t, torch.int32) for t in cnt + [hv]] + topo_checks
+            + ctl_checks,
+            H, OB, p.C, int(p.boot_end), *map(_ptr, obs),
             *map(_ptr, cnt), _ptr(hv), ctypes.byref(topo),
-            p.seed[0], p.seed[1], int(p.CP))
+            p.seed[0], p.seed[1], int(p.CP), ctl)
 
-    def count_paths(self, state: dict, ob: dict, world: dict) -> None:
+    def count_paths(self, state: dict, ob: dict, world: dict,
+                    ctl: Optional[torch.Tensor] = None) -> None:
         """K7: add the judged outbox's packet rows to
         state["path_cnt"] (count_paths_plain on the CPU)."""
         if not ob["t"].is_cuda:
-            return count_paths_plain(state, ob, world)
+            return count_paths_plain(state, ob, world, ctl)
         H, OB = ob["t"].shape
         V = n_vertices(world)
         cnt = state["path_cnt"]
@@ -1019,52 +1307,125 @@ class Kernels:
             raise ValueError(f"count_paths: path_cnt must be [1, {V * V}]")
         obs = [ob["t"], ob["k"], ob["m"]]
         hv = world["host_vertex"]
+        c, ctl_checks = _ctl_args(ctl)
         self._launch(
             "count_paths", "shadow_count_paths",
-            [(t, torch.int64) for t in obs + [cnt]] + [(hv, torch.int32)],
-            H, OB, V, *map(_ptr, obs), _ptr(hv), _ptr(cnt))
+            [(t, torch.int64) for t in obs + [cnt]] + [(hv, torch.int32)]
+            + ctl_checks,
+            H, OB, V, *map(_ptr, obs), _ptr(hv), _ptr(cnt), c)
 
-    def route(self, ob: dict):
+    def route(self, ob: dict, out=None, ctl: Optional[torch.Tensor] = None):
         """K5: (perm, starts, counts) as `route_plain` gives them, for
-        destinations in [0, H). Only perm's first counts.sum() entries
-        are written; the rest are unspecified."""
+        destinations in [0, H), written into `out` where given (perm
+        [H*OB], starts and counts [H], int64), else into new tensors.
+        Only perm's first counts.sum() entries are written; the rest are
+        unspecified."""
         if not ob["t"].is_cuda:
-            return route_plain(ob)
+            if _phase_off(ctl):
+                return out
+            res = route_plain(ob)
+            if out is None:
+                return res
+            for o, r in zip(out, res):
+                o.copy_(r)
+            return out
         H, OB = ob["t"].shape
         dev = ob["t"].device
-        key = (H, OB, dev)
-        if key not in self._route_scratch:
-            # scattered rows, cursors, and the scan's block totals (it
-            # needs fewer than H)
-            self._route_scratch = {key: tuple(
-                torch.empty(n, dtype=torch.int64, device=dev)
-                for n in (H * OB, H, H))}
-        scratch = self._route_scratch[key]
-        perm = torch.empty(H * OB, dtype=torch.int64, device=dev)
-        starts = torch.empty(H, dtype=torch.int64, device=dev)
-        counts = torch.empty(H, dtype=torch.int64, device=dev)
-        out = [perm, starts, counts]
+        # scattered rows, cursors, and the scan's block totals (it
+        # needs fewer than H)
+        scratch = [self._scratch_of(k, n, dev) for k, n in (
+            ("route_rows", H * OB), ("route_cursor", H),
+            ("route_block_sums", H))]
+        if out is None:
+            out = (torch.empty(H * OB, dtype=torch.int64, device=dev),
+                   torch.empty(H, dtype=torch.int64, device=dev),
+                   torch.empty(H, dtype=torch.int64, device=dev))
+        if [o.shape for o in out] != [(H * OB,), (H,), (H,)]:
+            raise ValueError("route: out must be perm [H*OB], starts [H] "
+                             "and counts [H]")
+        c, ctl_checks = _ctl_args(ctl)
         self._launch(
             "route", "shadow_route",
             [(ob["t"], torch.int64), (ob["m"], torch.int64)]
-            + [(t, torch.int64) for t in out + list(scratch)],
+            + [(t, torch.int64) for t in list(out) + scratch] + ctl_checks,
             H, OB, _ptr(ob["t"]), _ptr(ob["m"]), *map(_ptr, out),
-            *map(_ptr, scratch))
-        return perm, starts, counts
+            *map(_ptr, scratch), c)
+        return tuple(out)
 
     def merge_heaps(self, state: dict, ob: dict, perm: torch.Tensor,
                     starts: torch.Tensor, counts: torch.Tensor,
-                    p: PhaseParams) -> None:
+                    p: PhaseParams,
+                    ctl: Optional[torch.Tensor] = None) -> None:
         if not perm.is_cuda:
-            return merge_heaps_plain(state, ob, perm, starts, counts, p)
+            return merge_heaps_plain(state, ob, perm, starts, counts, p,
+                                     ctl)
         H = state["head"].shape[0]
         heap = [state[f] for f in HEAP_FIELDS] + [state["head"]]
         obs = [ob[f] for f in OB_FIELDS]
         seg = [perm, starts, counts]
         occ = [state["overflow"], state["occ_in"], state["occ_heap"]]
+        c, ctl_checks = _ctl_args(ctl)
         self._launch(
             "merge_heaps", "shadow_merge_heaps",
             [(t, torch.int64) for t in heap[:5] + obs + seg]
-            + [(t, torch.int32) for t in heap[5:] + occ],
+            + [(t, torch.int32) for t in heap[5:] + occ] + ctl_checks,
             H, p.E, p.IN, perm.shape[0], *map(_ptr, heap),
-            *map(_ptr, obs), *map(_ptr, seg), *map(_ptr, occ))
+            *map(_ptr, obs), *map(_ptr, seg), *map(_ptr, occ), c)
+
+    def phase_tally(self, state: dict, ob: dict, pops: torch.Tensor,
+                    p: PhaseParams,
+                    ctl: Optional[torch.Tensor] = None) -> None:
+        """The phase's occupancy marks and, under the audit, `aud_tx`
+        (phase_tally_plain on the CPU)."""
+        if not pops.is_cuda:
+            return phase_tally_plain(state, ob, pops, p, ctl)
+        H, OB = ob["t"].shape
+        occ = [state["occ_ob"], state["occ_trips"], state["occ_phases"]]
+        aud_tx = state["aud_tx"] if p.AUD else None
+        c, ctl_checks = _ctl_args(ctl)
+        self._launch(
+            "phase_tally", "shadow_phase_tally",
+            [(ob["t"], torch.int64)]
+            + [(t, torch.int32) for t in [pops] + occ]
+            + ([(aud_tx, torch.int64)] if p.AUD else []) + ctl_checks,
+            H, OB, _ptr(ob["t"]), _ptr(pops), *map(_ptr, occ),
+            None if aud_tx is None else _ptr(aud_tx), c)
+
+    def audit_round(self, state: dict,
+                    ctl: Optional[torch.Tensor] = None) -> None:
+        """K8: the audit's health word (audit_round_plain on the CPU);
+        given the control block, only where its `round_end` word is
+        set."""
+        if not state["head"].is_cuda:
+            return audit_round_plain(state, ctl)
+        H, E = state["ht"].shape
+        heap = [state["ht"], state["hk"]]
+        small = [state["head"]] + [state[k] for k in AUD_COUNTERS] + \
+            [state["overflow"], state["x_overflow"]]
+        total = self._scratch_of("audit_sum", 1, state["ht"].device)
+        c, ctl_checks = _ctl_args(ctl)
+        self._launch(
+            "audit_round", "shadow_audit_round",
+            [(t, torch.int64) for t in heap + [state["aud_tx"], total]]
+            + [(t, torch.int32) for t in small + [state["aud"]]]
+            + ctl_checks,
+            H, E, *map(_ptr, heap), *map(_ptr, small),
+            _ptr(state["aud_tx"]), _ptr(state["aud"]), _ptr(total), c)
+
+    def loop_control(self, state: dict, ctl: torch.Tensor,
+                     start: bool = False) -> None:
+        """K9: one control step of the window loop on the block `ctl`
+        (loop_control_plain on the CPU)."""
+        if not ctl.is_cuda:
+            return loop_control_plain(state, ctl, start)
+        H, E = state["ht"].shape
+        lib = self.library()
+        partial = self._scratch_of(
+            "loop_partial", lib.shadow_loop_control_blocks(H), ctl.device)
+        c, ctl_checks = _ctl_args(ctl)
+        self._launch(
+            "loop_control", "shadow_loop_control",
+            [(state["ht"], torch.int64), (state["head"], torch.int32),
+             (partial, torch.int64)] + ctl_checks,
+            H, E, _ptr(state["ht"]), _ptr(state["head"]), _ptr(partial), c,
+            int(start))

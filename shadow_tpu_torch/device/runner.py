@@ -9,10 +9,14 @@ the runahead or the minimum path latency over every fault epoch, the
 path tables in the topology's representation with the link-fault
 epochs, the hosts' model-NIC bandwidths), admits it against the
 device's memory (`experimental.admission`, device/capacity.py) before
-anything is allocated on the device, runs to the stop time and
-returns the SimStats totals plus the per-host `events_executed` and
-`trace_checksum` arrays, for tgen and Tor the downloads completed,
-and under `count_paths` the sent packets per vertex pair.
+anything is allocated on the device, runs to the stop time (on the
+card through the captured window loop, in timing mode through the
+Python loop; device/engine.py) and returns the SimStats totals plus the
+per-host `events_executed` and `trace_checksum` arrays, for tgen and
+Tor the downloads completed, under `count_paths` the sent packets per
+vertex pair, and the loop's phases and host syncs. Under
+`experimental.state_audit` it checks the health word at the run's end
+and raises `AuditFailure` (device/supervise.py) where it is not zero.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ from shadow_tpu_torch.device.engine import (
     world_arrays,
 )
 from shadow_tpu_torch.device.kernels import Kernels
+from shadow_tpu_torch.device.supervise import check_audit
 from shadow_tpu_torch.topology.hierarchy import world_tables
 
 STAT_KEYS = ("n_exec", "n_sent", "n_drop", "n_deliv", "chk", "overflow",
@@ -63,6 +68,11 @@ class SimStats:
     # count_paths: sent packets per (src vertex, dst vertex), the
     # nonzero entries (the reference's NetworkModel.path_packets)
     path_packets: Optional[dict] = field(default=None, repr=False)
+    # the window loop that ran ("graph", "python") and its phases and
+    # host syncs (DeviceEngine.loop_stats)
+    loop: str = ""
+    phases: int = 0
+    host_syncs: int = 0
 
     def summary(self) -> str:
         downloads = ("" if self.downloads_completed is None else
@@ -97,7 +107,8 @@ def engine_config(cfg: ConfigOptions, sim: BuiltSimulation) -> EngineConfig:
         bootstrap_end=cfg.general.bootstrap_end_time,
         seed=cfg.general.seed,
         exchange_in_capacity=xp.exchange_in_capacity,
-        model_bandwidth=xp.model_bandwidth, count_paths=xp.count_paths)
+        model_bandwidth=xp.model_bandwidth, count_paths=xp.count_paths,
+        audit=xp.state_audit)
 
 
 def admit(cfg: ConfigOptions, sim: BuiltSimulation, config: EngineConfig,
@@ -140,15 +151,32 @@ def engine_from(cfg: ConfigOptions, sim: BuiltSimulation, device="cuda",
 
 def run(cfg: ConfigOptions, device="cuda",
         kernels: Optional[Kernels] = None) -> SimStats:
+    """Build, admit and run a config through the engine's own window
+    loop (DeviceEngine.run); under the state audit, raise AuditFailure
+    where the health word is not zero at the end."""
     engine, sim = make_engine(cfg, device=device, kernels=kernels)
     state = engine.init_state(sim.start_times, sim.stop_times)
     t0 = time.perf_counter()
     state, rounds = engine.run(state)
+    stats = summarize(cfg, engine, state, rounds, t0)
+    # until segments are ported the word is checked once, at the end
+    check_audit(state, where=f"t={cfg.general.stop_time} ns")
+    return stats
+
+
+def summarize(cfg: ConfigOptions, engine: DeviceEngine, state: dict,
+              rounds: int, t0: float) -> SimStats:
+    """The SimStats of a run of `engine` that started at
+    `time.perf_counter()` `t0` and ended in `state` after `rounds`
+    windows; the wall ends once the totals are read back (a sync)."""
     final = state_to_numpy(state, STAT_KEYS + (
         ("path_cnt",) if "path_cnt" in state else ()))   # synchronises
     wall = time.perf_counter() - t0
+    loop = engine.loop_stats
     stats = SimStats(
         end_time=cfg.general.stop_time, rounds=rounds, wall_s=wall,
+        loop=loop["loop"], phases=loop["phases"],
+        host_syncs=loop["host_syncs"],
         events_executed=int(final["n_exec"].sum()),
         packets_sent=int(final["n_sent"].sum()),
         packets_dropped=int(final["n_drop"].sum()),

@@ -81,7 +81,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
 
 @pytest.mark.parametrize("override,item", [
     ("experimental.outbox_compact=8", "queue (b) item 7"),
-    ("experimental.state_audit=true", "queue (a) item 8"),
+    ("experimental.dispatch_segment=200ms", "queue (a) item 7"),
     ("experimental.exchange=two_phase", "queue (a) item 9"),
     ("experimental.scheduler_policy=serial", "queue (a) item 10"),
     ("network.faults=[{kind: host_crash, time: 100ms, host: a0}]",
@@ -96,6 +96,21 @@ def test_configs_outside_the_slice_are_refused_by_roadmap_item(
     with pytest.raises(OutsideSlice, match="ROADMAP.md " +
                        item.replace("(", r"\(").replace(")", r"\)")):
         build(cfg)
+
+
+def test_state_audit_is_admitted_and_runs_on_the_cpu():
+    """`experimental.state_audit` is inside the slice: an audited PHOLD
+    config builds, runs with a clean word and the unaudited trace."""
+    from shadow_tpu_torch.config.loader import load_config_str as load
+
+    plain = runner.run(load_config_str(PHOLD), device="cpu")
+    cfg = load(PHOLD, ["experimental.state_audit=true"])
+    build(cfg)
+    audited = runner.run(cfg, device="cpu")
+    assert audited.ok and audited.loop == "python"
+    assert audited.summary() == plain.summary()
+    np.testing.assert_array_equal(audited.host_trace_checksum,
+                                  plain.host_trace_checksum)
 
 
 def test_wrappers_take_the_plain_path_on_cpu_and_count_nothing():

@@ -422,9 +422,9 @@ def test_host_bandwidths_follow_group_overrides_and_vertices():
     ("network.faults=[{kind: host_crash, time: 1s, host: left0}]",
      r"host_crash .* \(ROADMAP.md queue \(a\) item 10 \(the hybrid "
      r"policy\)"),
-    ("experimental.state_audit=true",
-     r"state_audit .* \(ROADMAP.md queue \(a\) item 8 \(the state "
-     r"audit, the next slice\)"),
+    ("experimental.exchange_capacity=64",
+     r"exchange_capacity .* \(ROADMAP.md queue \(a\) item 9 "
+     r"\(multi-GPU\)\)"),
 ])
 def test_outside_the_slice_is_refused_by_name(override, match):
     from shadow_tpu_torch.config import load_config_str
