@@ -71,7 +71,16 @@ Phases, in order; any failure exits non-zero before the last line:
      counters; the row ledger balanced and off by one); K9 loop_control
      at 1,000,000 hosts in each of its branches, beside torch.gather +
      amin; phase_tally at the PHOLD shapes, with and without the
-     audit's ledger.
+     audit's ledger;
+   - the replica axis of an ensemble campaign (`replica_kernels`): K1
+     (dense and `_nic`) at the PHOLD shapes, K4 (dense, `_hier`, `_ep`,
+     `_aud`) and K2 (dense, `_hier`, `_ep`) at tgen_10000's layout at
+     100,000 hosts, K7 on K2's outbox, K6 at tor_large's, K5, K3 and
+     phase_tally at the PHOLD shapes, K8 and K9 at 100,000 hosts, each
+     at R = REPLICAS (4) on four replicas' seeded states, tables, seed
+     keys and window ends, equal to four R = 1 launches and to its
+     plain version, and again with one replica's control block stopping
+     it, which must keep every byte; R = 1 and R = 4 times.
 3. parity: the window loop captured into a CUDA graph on the card (the
    main path), the Python loop on the card and the CPU plain path must
    give identical totals, rounds, per-host events_executed /
@@ -93,7 +102,13 @@ Phases, in order; any failure exits non-zero before the last line:
    above a host's next event, a live row deleted) run on to 1 s on the
    card and on the CPU plain path, every leaf and the words equal and
    each word tripping its invariant, and a run paused at 300 ms and
-   resumed equal to an unpaused one.
+   resumed equal to an unpaused one; then ensemble campaigns
+   (`campaign_parity`): examples/ensemble_seed_sweep.yaml as shipped
+   and STAR_PARITY_YAML with link faults over latency_scale [1.0, 2.0]
+   and fault_schedule [base, none], each through the graph loop and the
+   Python loop on the card and the CPU plain path, replica by replica,
+   each replica equal to its standalone graph run, and the sweep with
+   replica_batch 2 equal to the whole campaign.
 4. full: through the port's CLI entry function on the card (the
    captured window loop), each run with the kernel launch counts set to
    0 just before and read just after; fails on any overflow or on a
@@ -115,8 +130,14 @@ Phases, in order; any failure exits non-zero before the last line:
    (tgen_10000_nic); PHOLD_1M_YAML with PHOLD_1M_FAULTS
    (phold_1m_hier_faults, six factored epochs); phold_1m_hier again
    with `state_audit` (the audit's share of its wall, and K8's device
-   time from its profiled graph run). Every run must
-   be admitted and its measured peak device memory lie within
+   time from its profiled graph run); then the campaigns
+   (`campaign_full`, CAMPAIGN_RUNS): examples/tgen_10000.yaml as shipped
+   with 8 replicas over seeds 1-8 (80,000 hosts in one loop) and
+   examples/tor_small.yaml with 8 replicas over latency scales and loss
+   deltas, each through the CLI's entry function (the graph loop),
+   profiled, in timing mode, and each replica against its standalone
+   graph run, whose walls are summed beside the campaign's. Every run
+   must be admitted and its measured peak device memory lie within
    capacity.FOOTPRINT_TOLERANCE of its admission estimate.
 5. boot: examples/tgen_1000000.yaml as shipped built (timed), admitted
    and booted (engine and init_state) on the card; not run.
@@ -130,9 +151,11 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -2074,6 +2097,379 @@ def loop_kernels(torch, K, scratch, rng, dev):
     return out
 
 
+# ----------------------------------------------------------------------
+# the replica axis: each kernel on REPLICAS replicas against R = 1
+# ----------------------------------------------------------------------
+REPLICAS = 4
+
+
+def vary_world(torch, world, r, dev):
+    """Replica r's world made from a standalone one, as a campaign
+    varies it: latencies scaled by 1 + r % 3 (every factored leaf but
+    the shared cl), reliabilities lowered by 1.5% a replica, and its own
+    seed key (seed 101 + r)."""
+    from shadow_tpu_torch.device.prng import seed_key
+
+    s, keep = 1 + r % 3, 1.0 - 0.015 * r
+
+    def lat(a):
+        return (a.long() * s).to(torch.int32)
+
+    def rel(a):
+        return (a * keep).to(torch.float32)
+
+    if isinstance(world["lat"], tuple):
+        cc, cl, acc, slf = world["lat"]
+        ccr, _, accr, slfr = world["rel"]
+        tables = ((lat(cc), cl, lat(acc), lat(slf)),
+                  (rel(ccr), cl, rel(accr), rel(slfr)))
+    else:
+        tables = (lat(world["lat"]), rel(world["rel"]))
+    return {**world, "lat": tables[0], "rel": tables[1],
+            "seed_key": torch.tensor([list(seed_key(101 + r))],
+                                     dtype=torch.int64, device=dev)}
+
+
+def stack_worlds(torch, worlds):
+    """A campaign's world from its replicas' standalone worlds: tables
+    (all factored leaves but cl), epoch times and seed keys stacked on
+    a leading axis, the other leaves replica 0's (shared)."""
+    w0 = worlds[0]
+
+    def stack(key):
+        if isinstance(w0[key], tuple):
+            return tuple(w0[key][1] if i == 1 else
+                         torch.stack([w[key][i] for w in worlds])
+                         for i in range(4))
+        return torch.stack([w[key] for w in worlds])
+
+    return {**w0, "lat": stack("lat"), "rel": stack("rel"),
+            "epoch_times": torch.stack([w["epoch_times"] for w in worlds]),
+            "seed_key": torch.cat([w["seed_key"] for w in worlds])}
+
+
+def stack_arg(torch, vals):
+    """One argument of a batched launch from the replicas' own: worlds
+    by `stack_worlds`, state and outbox dicts, control blocks and other
+    tensors stacked on a leading axis, tuples of tensors element by
+    element; anything else (params, flags) replica 0's."""
+    v = vals[0]
+    if isinstance(v, dict):
+        if "epoch_times" in v:
+            return stack_worlds(torch, vals)
+        return {k: torch.stack([d[k] for d in vals]) for k in v}
+    if isinstance(v, torch.Tensor):
+        return torch.stack(vals)
+    if isinstance(v, tuple):
+        return tuple(torch.stack(x) for x in zip(*vals))
+    return v
+
+
+def replica_slice(x, r):
+    if isinstance(x, dict):
+        return {k: v[r] for k, v in x.items()}
+    if isinstance(x, tuple):
+        return tuple(v[r] for v in x)
+    return x[r]
+
+
+def arg_err(a, b) -> float:
+    """max_abs_err of two outputs: tensor dicts, tuples or tensors."""
+    if isinstance(a, dict):
+        return max_abs_err(a, b, list(a))
+    if isinstance(a, tuple):
+        return max(arg_err(x, y) for x, y in zip(a, b))
+    return max_abs_err({"x": a}, {"x": b}, ["x"])
+
+
+def clone_arg(x):
+    if isinstance(x, dict):
+        return clone(x)
+    if isinstance(x, tuple):
+        return tuple(v.clone() for v in x)
+    return x.clone()
+
+
+def replica_check(torch, K, scratch, name, method, plain, make, outs,
+                  ctl_at, freeze, canon=lambda x: x, frozen_canon=None):
+    """`name` (scratch.<method>) on REPLICAS replicas' inputs stacked
+    on a leading axis against REPLICAS launches on each replica's own
+    inputs (R = 1) and against its plain version `plain` on the stacked
+    inputs, exact on every output (`outs`: the indices of the arguments
+    the kernel writes; `canon` drops what a kernel leaves unspecified);
+    then again with replica 1's control block (argument `ctl_at`)
+    frozen by `freeze(block)`: replica 1's outputs (as `frozen_canon`
+    gives them, default `canon`) keep every byte and the others are
+    unchanged. `make(r)` gives fresh standalone
+    arguments of replica r. Times the R = 1 launch of replica 0 and the
+    R = REPLICAS launch (CUDA events, median of 7), and the plain
+    version at R = REPLICAS (median of 3)."""
+    R = REPLICAS
+    fn = getattr(scratch, method)
+    singles = []
+    for r in range(R):
+        a = make(r)
+        fn(*a)
+        singles.append([canon(a[i]) for i in outs])
+
+    def batched():
+        per = [make(r) for r in range(R)]
+        return [stack_arg(torch, [a[i] for a in per])
+                for i in range(len(per[0]))]
+
+    kb, pb = batched(), batched()
+    fn(*kb)
+    plain(*pb)
+    torch.cuda.synchronize()
+    err = 0.0
+    for j, i in enumerate(outs):
+        want = stack_arg(torch, [s[j] for s in singles])
+        err = max(err, arg_err(canon(kb[i]), want),
+                  arg_err(canon(kb[i]), canon(pb[i])))
+    check(err == 0.0, f"{name} at R={R} differs from {R} launches at "
+          f"R=1 or from its plain version (max abs err {err})")
+    kf = batched()
+    freeze(kf[ctl_at][1])
+    frozen_ctl = kf[ctl_at][1].clone()
+    before = [clone_arg(kf[i]) for i in outs]
+    fn(*kf)
+    torch.cuda.synchronize()
+    frozen_canon = frozen_canon or canon
+    for j, i in enumerate(outs):
+        check(arg_err(replica_slice(frozen_canon(kf[i]), 1), replica_slice(
+            frozen_canon(before[j]), 1)) == 0.0, f"{name}: a replica "
+              "whose control block stops it changed")
+        got = canon(kf[i])
+        for r in (0, 2, 3):
+            check(arg_err(replica_slice(got, r), singles[r][j]) == 0.0,
+                  f"{name}: replica {r} changed with replica 1 stopped")
+    if ctl_at not in outs:
+        check(torch.equal(kf[ctl_at][1], frozen_ctl), f"{name}: the "
+              "stopped replica's control block changed")
+    return {"R": R, "err": err, "stopped_replica_unchanged": True,
+            "ms_r1": time_median(torch, fn, lambda: make(0), 7),
+            "ms_r4": time_median(torch, fn, batched, 7),
+            "plain_ms_r4": time_median(torch, plain, batched, 3)}
+
+
+def replica_kernels(torch, K, scratch, rng, dev):
+    """Every kernel of a phase and of the loop, and the pop's and the
+    judge's table views, at R = REPLICAS on four replicas' seeded states,
+    worlds (`vary_world`: tables, seed keys) and window ends, against
+    four R = 1 launches and the plain versions (`replica_check`)."""
+    import dataclasses
+
+    from shadow_tpu_torch.device.apps import PholdDevice
+    from shadow_tpu_torch.device.prng import seed_key
+
+    R, out = REPLICAS, {}
+
+    def stop_run(block):
+        block[K.CTL["run"]] = 0
+
+    def empty(H, OB):
+        return ({f: torch.empty((H, OB), dtype=torch.int64, device=dev)
+                 for f in K.OB_FIELDS},
+                torch.empty(H, dtype=torch.int32, device=dev))
+
+    def pops_of(states, worlds, p, wins):
+        def make(r):
+            ob, pops = empty(states[r]["head"].shape[0], p.OB)
+            return (clone(states[r]), ob, pops, worlds[r],
+                    window_block(K, wins[r], dev), p)
+        return make
+
+    def pop_case_r(name, states, worlds, p, wins):
+        out[name] = replica_check(
+            torch, K, scratch, name, "pop", K.pop_plain,
+            pops_of(states, worlds, p, wins), (0, 1, 2), 4, stop_run)
+
+    def varied(state0, world, E):
+        """Replicas of one phase's inputs: odd replicas' heads one slot
+        on, each replica's tables and seed, window ends 10 ms apart."""
+        states = [state0 if r % 2 == 0 else dict(
+            state0, head=(state0["head"] + 1).clamp(max=E))
+            for r in range(R)]
+        worlds = [vary_world(torch, world, r, dev) for r in range(R)]
+        return states, worlds
+
+    # K1 at the PHOLD shapes, four random states
+    H, E = 100_000, 64
+    phold_world = {
+        "host_vertex": torch.from_numpy(
+            rng.integers(0, 2, H).astype(np.int32)).to(dev),
+        "lat": torch.tensor([[30_000_000, 50_000_000],
+                             [50_000_000, 30_000_000]],
+                            dtype=torch.int32, device=dev),
+        "rel": torch.tensor([[0.98, 0.9], [0.9, 0.98]],
+                            dtype=torch.float32, device=dev),
+        "epoch_times": torch.zeros(1, dtype=torch.int64, device=dev)}
+    p1 = K.PhaseParams(E=E, K=3, T=0, P=1, B=10, IN=E, C=1,
+                       boot_end=5 * 10**8, seed=seed_key(7),
+                       app=PholdDevice(n_hosts_total=H, msgload=3,
+                                       size=512, selfloop=1))
+    wins = [10**9 + 10**7 * r for r in range(R)]
+    states = [random_state(rng, H, E, dev) for _ in range(R)]
+    worlds = [vary_world(torch, phold_world, r, dev) for r in range(R)]
+    pop_case_r("pop_phase", states, worlds, p1, wins)
+    nic_states, nic_worlds = [], []
+    for r in range(R):
+        s, w = add_nic(torch, K, rng, states[r], worlds[r], wins[r], dev)
+        if nic_worlds:      # bandwidths and the law table are shared
+            w = {**w, **{k: nic_worlds[0][k]
+                         for k in ("bw_up", "bw_down", "law")}}
+        nic_states.append(s)
+        nic_worlds.append(w)
+    pop_case_r("pop_phase_nic", nic_states, nic_worlds,
+               dataclasses.replace(p1, B=8, MB=True, CP=True), wins)
+
+    # K4 at tgen_10000's layout: dense, factored, epochs, audited; then
+    # K2 (dense, factored, epochs) on each replica's K4 outbox, K7
+    E = 48
+    state0, world, pt, win_end = tgen_inputs(torch, K, rng, H, E, dev)
+    wins = [win_end + 10**7 * r for r in range(R)]
+    states, worlds = varied(state0, world, E)
+    views = {"": worlds,
+             K.HIER: [vary_world(torch, star_world(torch, world, dev), r,
+                                 dev) for r in range(R)],
+             K.EP: [vary_world(torch, stack_epochs(
+                 torch, world, EPOCH_TIMES, dev), r, dev)
+                 for r in range(R)]}
+    for suffix, ws in views.items():
+        pop_case_r("pop_tgen" + suffix, states, ws, pt, wins)
+    aud = [add_audit(torch, K, rng, s, pt) for s in states]
+    pop_case_r("pop_tgen_aud", [a[0] for a in aud], worlds, aud[0][1],
+               wins)
+    pj = dataclasses.replace(pt, CP=True)
+    for suffix, ws in views.items():
+        judged = []
+        for r in range(R):
+            a = pops_of(states, ws, pt, wins)(r)
+            scratch.pop(*a)
+            judged.append((a[0], a[1]))
+
+        def judge_make(r, judged=judged, ws=ws):
+            return (clone(judged[r][0]), clone(judged[r][1]), ws[r],
+                    window_block(K, wins[r], dev), pj)
+
+        out["judge_outbox" + suffix] = replica_check(
+            torch, K, scratch, "judge_outbox" + suffix, "judge_outbox",
+            K.judge_outbox_plain, judge_make, (0, 1), 3, stop_run)
+        if not suffix:
+            dense_judged = [judge_make(r) for r in range(R)]
+            for a in dense_judged:
+                scratch.judge_outbox(*a)
+    V = int(world["lat"].shape[-1])
+
+    def paths_make(r):
+        return ({"path_cnt": torch.zeros((1, V * V), dtype=torch.int64,
+                                         device=dev)},
+                clone(dense_judged[r][1]), worlds[r],
+                window_block(K, wins[r], dev))
+
+    out["count_paths"] = replica_check(
+        torch, K, scratch, "count_paths", "count_paths",
+        K.count_paths_plain, paths_make, (0,), 3, stop_run)
+
+    # K6 at tor_large's layout
+    state0, world, pr, win_end = tor_inputs(torch, K, rng, dev)
+    states, worlds = varied(state0, world, pr.E)
+    pop_case_r("pop_tor", states, worlds, pr,
+               [win_end + 10**7 * r for r in range(R)])
+
+    # K5 and K3 at the PHOLD shapes, K3 at E = IN = 64 on random
+    # outboxes with hot destinations; the tallies with the audit's
+    # ledger
+    H, E, OB = 100_000, 64, 30
+    obs = [random_outbox(rng, H, OB, torch, dev) for _ in range(R)]
+    routes = [K.route_plain(ob) for ob in obs]
+    run1 = window_block(K, 10**9, dev)
+
+    def route_make(r):
+        return (obs[r], tuple(torch.full_like(x, -7) for x in routes[r]),
+                run1.clone())
+
+    def route_canon(out_):
+        perm, starts, counts = out_
+        live = torch.arange(perm.shape[-1], device=dev) < \
+            counts.sum(-1, keepdim=True)
+        return (torch.where(live, perm, -1), starts, counts)
+
+    def route_plain_into(ob, out_, ctl):
+        for o, x in zip(out_, K.route_plain(ob)):
+            o.copy_(x)
+
+    # the route zeroes every replica's counts, which only the guarded
+    # merge reads: a stopped replica keeps its perm and starts
+    out["route"] = replica_check(
+        torch, K, scratch, "route", "route", route_plain_into, route_make,
+        (1,), 2, stop_run, canon=route_canon,
+        frozen_canon=lambda out_: out_[:2])
+    pm = dataclasses.replace(p1, IN=64)
+    states = [random_state(rng, H, E, dev) for _ in range(R)]
+
+    def merge_make(r):
+        return (clone(states[r]), obs[r], *routes[r], pm, run1.clone())
+
+    out["merge_heaps"] = replica_check(
+        torch, K, scratch, "merge_heaps", "merge_heaps",
+        K.merge_heaps_plain, merge_make, (0,), 6, stop_run)
+    pa = dataclasses.replace(p1, AUD=True)
+
+    tallies = [({"occ_ob": torch.from_numpy(rng.integers(
+                     0, 20, H).astype(np.int32)).to(dev),
+                 "occ_trips": torch.tensor([3 * r], dtype=torch.int32,
+                                           device=dev),
+                 "occ_phases": torch.tensor([7 + r], dtype=torch.int32,
+                                            device=dev),
+                 "aud_tx": torch.from_numpy(rng.integers(
+                     0, 2**40, H)).to(dev)},
+                torch.from_numpy(rng.integers(0, 9, H).astype(
+                    np.int32)).to(dev)) for r in range(R)]
+
+    def tally_make(r):
+        return (clone(tallies[r][0]), obs[r], tallies[r][1], pa,
+                run1.clone())
+
+    out["phase_tally"] = replica_check(
+        torch, K, scratch, "phase_tally", "phase_tally",
+        K.phase_tally_plain, tally_make, (0,), 4, stop_run)
+
+    # K8 and K9 on audit_inputs' heaps (100,000 hosts, E = 64)
+    aud_states = [audit_inputs(torch, K, rng, H, E, dev) for _ in range(R)]
+
+    def audit_make(r):
+        return (clone(aud_states[r]),
+                K.control_block(dev, round_end=1, run=r % 2))
+
+    def stop_round(block):
+        block[K.CTL["round_end"]] = 0
+
+    out["audit_round"] = replica_check(
+        torch, K, scratch, "audit_round", "audit_round",
+        K.audit_round_plain, audit_make, (0,), 1, stop_round)
+    mins = [int(K.head_min_plain(s)) for s in aud_states]
+    big = {"stop": K.INF, "final_stop": K.INF, "lookahead": 10**6,
+           "max_rounds": 1 << 40, "rounds": 5, "phases": 9, "run": 1}
+    words = [{**big, "win_end": mins[0] + 1},
+             {**big, "win_end": mins[1]},
+             {**big, "win_end": mins[2], "final_stop": mins[2] + 10},
+             {**big, "win_end": mins[3], "stop": mins[3]}]
+
+    def loop_make(r):
+        return (aud_states[r], K.control_block(dev, **words[r]))
+
+    def stop_loop(block):
+        block[K.CTL["done"]] = 1
+        block[K.CTL["run"]] = 0
+        block[K.CTL["round_end"]] = 0
+
+    out["loop_control"] = replica_check(
+        torch, K, scratch, "loop_control", "loop_control",
+        K.loop_control_plain, loop_make, (1,), 1, stop_loop)
+    return out
+
+
 def kernels_phase(torch, report, H=100_000, dev="cuda"):
     from shadow_tpu_torch.device import kernels as K
 
@@ -2094,6 +2490,7 @@ def kernels_phase(torch, report, H=100_000, dev="cuda"):
     hier_faults = hier_fault_kernels(torch, K, scratch, rng, dev)
     paths = count_paths_case(torch, K, scratch, rng, dev)
     loop = loop_kernels(torch, K, scratch, rng, dev)
+    replicas = replica_kernels(torch, K, scratch, rng, dev)
     for name, r in phold.items():
         report_line(f"{name} (PHOLD shapes)", r)
     for name, r in tgen.items():
@@ -2123,6 +2520,14 @@ def kernels_phase(torch, report, H=100_000, dev="cuda"):
     for name, r in loop.items():
         report_line(name, r)
     report_line("audit_round", loop["audit_round"]["at_1m_hosts"])
+    for name, r in replicas.items():
+        print(f"[kernels] {name} at R={r['R']}: equal to {r['R']} "
+              f"launches at R=1 and to its plain version (max abs err "
+              f"{r['err']}); a replica whose control block stops it "
+              f"keeps every byte; R=1 {r['ms_r1']:.4f} ms, R={r['R']} "
+              f"{r['ms_r4']:.4f} ms, plain at R={r['R']} "
+              f"{r['plain_ms_r4']:.4f} ms", flush=True)
+    report["_replicas"] = replicas
     report.update({**nic, **epochs, **hier_faults, **loop,
                    "count_paths": paths})
     report.update({
@@ -2379,6 +2784,7 @@ def parity_phase(torch, report):
     star_parity(torch, report)
     nic_fault_parity(torch, report)
     audit_parity(torch, report)
+    campaign_parity(torch, report)
 
 
 def star_parity(torch, report):
@@ -2415,6 +2821,214 @@ def star_parity(torch, report):
           f"parity ({what}): no drop or no download")
     print(f"[parity] {what}: card hierarchical == card dense == cpu "
           f"hierarchical == cpu dense: {base.summary()}", flush=True)
+
+
+# ----------------------------------------------------------------------
+# ensemble campaigns: parity
+# ----------------------------------------------------------------------
+# a link-fault schedule on STAR_PARITY_YAML's 8 x 120 star: hubs 0-1
+# degraded (x3 latency, +5% loss) over 300-800 ms, the access link of
+# spoke 8 (hub 0's first) x2 over 400-700 ms, hubs 2-3 down from 900 ms
+# to 1,200 ms (rerouted through another hub)
+STAR_FAULTS = (
+    "network.faults=["
+    "{kind: degrade, time: 300ms, duration: 500ms, source: 0, target: 1,"
+    " latency_multiplier: 3, extra_packet_loss: 0.05},"
+    "{kind: degrade, time: 400ms, duration: 300ms, source: 0, target: 8,"
+    " latency_multiplier: 2},"
+    "{kind: link_down, time: 900ms, source: 2, target: 3},"
+    "{kind: link_up, time: 1200ms, source: 2, target: 3}]")
+STAR_CAMPAIGN = ("ensemble={replicas: 2, vary: {latency_scale: [1.0, 2.0],"
+                 " fault_schedule: [base, none]}}")
+SWEEP = os.path.join(REPO, "examples", "ensemble_seed_sweep.yaml")
+
+
+def run_config(cfg, device, kernels=None):
+    """(stats, the campaign's runner or None) of a config: its ensemble
+    campaign where it has one, else the standalone run."""
+    from shadow_tpu_torch.device import runner
+    from shadow_tpu_torch.ensemble.campaign import EnsembleRunner
+
+    if cfg.ensemble is None:
+        return runner.run(cfg, device, kernels=kernels), None
+    er = EnsembleRunner(cfg, device, kernels)
+    return er.run(), er
+
+
+def same_replicas(a: dict, b: dict, what: str, names) -> None:
+    """Every leaf of two campaigns' final states (numpy, [R, ...])."""
+    check(set(a) == set(b), f"campaign parity ({what}): leaves differ")
+    for k, v in a.items():
+        check(np.array_equal(v, b[k]), f"campaign parity ({what}): leaf "
+              f"{k} {names[0]} != {names[1]}")
+
+
+def standalone_replicas(er, final, rounds, what, kernels=None) -> float:
+    """Each replica of a campaign (final leaves `final`, [R] `rounds`)
+    against its standalone run on the card (the graph loop, replica r's
+    tables, seed and the campaign's lookahead), leaf by leaf; returns
+    the standalone runs' summed walls."""
+    from shadow_tpu_torch.device import runner
+    from shadow_tpu_torch.device.engine import state_to_numpy
+
+    walls = 0.0
+    for r in range(er.worlds.R):
+        engine = er.replica_engine(r, kernels)
+        state = engine.init_state(er.sim.start_times, er.sim.stop_times)
+        t0 = time.perf_counter()
+        state, rr = engine.run(state)
+        stats = runner.summarize(er.cfg, engine, state, rr, t0)
+        check(stats.loop == "graph", f"{what}: standalone replica {r} "
+              f"ran the {stats.loop} loop")
+        walls += stats.wall_s
+        leaves = state_to_numpy(state)
+        check(rr == int(rounds[r]), f"{what}: replica {r} ran "
+              f"{int(rounds[r])} rounds, its standalone run {rr}")
+        for k, v in final.items():
+            check(np.array_equal(v[r], leaves[k]), f"{what}: replica {r}"
+                  f" != its standalone run on leaf {k}")
+    return walls
+
+
+def campaign_parity(torch, report):
+    """Each campaign three ways, the captured graph loop on the card
+    (the main path), the Python loop on the card and the CPU plain
+    path, every replica's leaves and rounds equal, and each replica
+    equal to its standalone graph run; examples/ensemble_seed_sweep.yaml
+    as shipped and STAR_PARITY_YAML with STAR_FAULTS under
+    STAR_CAMPAIGN (factored tables with the epoch axis, a scale and a
+    padded fault-free replica); then the sweep with `replica_batch: 2`
+    equal to the whole campaign."""
+    from shadow_tpu_torch.config import load_config, load_config_str
+    from shadow_tpu_torch.device.engine import state_to_numpy
+    from shadow_tpu_torch.device.kernels import HEAP_FIELDS, Kernels
+
+    runs = report.setdefault("_parity", {})
+    for key, what, load, path in (
+            ("sweep", "examples/ensemble_seed_sweep.yaml as shipped (4 "
+             "replicas, seeds 1, 7, 13, 42; 7 hosts, 3 s)",
+             lambda x=(): load_config(SWEEP, list(x)),
+             ("pop_tgen", "judge_outbox")),
+            ("star", "STAR_PARITY_YAML (8 x 120 star, 960 hosts, 2 s) "
+             "with link faults, latency_scale [1.0, 2.0], "
+             "fault_schedule [base, none]",
+             lambda x=(): load_config_str(STAR_PARITY_YAML, [
+                 STAR_FAULTS, STAR_CAMPAIGN, *x]),
+             ("pop_tgen_ep_hier", "judge_outbox_ep_hier"))):
+        kernels = Kernels()
+        gpu, card = run_config(load(), "cuda", kernels)
+        check(gpu.loop == "graph" and gpu.ok, f"campaign parity ({what}):"
+              f" the card ran the {gpu.loop} loop, ok {gpu.ok}")
+        for k in path + ("route", "merge_heaps", "loop_control",
+                         "phase_tally"):
+            check(kernels.launches[k] > 0, f"campaign parity ({what}): "
+                  f"{k} never launched")
+        rounds = card.loop_stats[0]["rounds"]
+        cpu, plain = run_config(load(), "cpu")
+        same_replicas(card.final_state, plain.final_state, what,
+                      ("card graph", "cpu"))
+        check(plain.loop_stats[0]["rounds"] == rounds, f"campaign parity "
+              f"({what}): rounds differ")
+        engine = card.engine()
+        state = engine.init_ensemble_state(card.sim.start_times,
+                                           card.sim.stop_times)
+        t0 = time.perf_counter()
+        state, py_rounds = engine.run_python(state)
+        py_leaves = state_to_numpy(state)
+        py_wall = time.perf_counter() - t0
+        same_replicas(card.final_state, {k: v for k, v in py_leaves.items()
+                                         if k not in HEAP_FIELDS}, what,
+                      ("card graph", "card python"))
+        check(list(py_rounds) == rounds, f"campaign parity ({what}): the "
+              "python loop's rounds differ")
+        walls = standalone_replicas(card, card.final_state, rounds, what)
+        runs[f"campaign_{key}"] = {"launches": dict(kernels.launches)}
+        print(f"[parity] campaign {what}: card graph == card python == "
+              f"cpu plain path, replica by replica, and each replica == "
+              f"its standalone graph run: rounds {rounds}, "
+              f"{gpu.summary()}; card graph wall {gpu.wall_s:.3f} s "
+              f"({gpu.host_syncs} host syncs), card python {py_wall:.3f} "
+              f"s, cpu {cpu.wall_s:.3f} s, standalone graph runs "
+              f"{walls:.3f} s in all", flush=True)
+        if key == "sweep":
+            whole = card
+    batched, er = run_config(load_config(SWEEP, ["ensemble.replica_batch=2"]),
+                             "cuda")
+    same_replicas(whole.final_state, er.final_state, "replica_batch 2",
+                  ("whole", "batched"))
+    a, b = dict(whole.record), dict(er.record)
+    check(b.pop("replica_batch") == 2 and len(er.loop_stats) == 2,
+          "replica_batch 2: not two batches")
+    for rec in (a, b):
+        rec.pop("wall_s")
+    check(a == b, "replica_batch 2: the record differs from the whole "
+          "campaign's")
+    print(f"[parity] campaign examples/ensemble_seed_sweep.yaml with "
+          f"replica_batch 2: two batches == the whole campaign, record "
+          f"and leaves; wall {batched.wall_s:.3f} s", flush=True)
+
+
+# ----------------------------------------------------------------------
+# ensemble campaigns: full runs
+# ----------------------------------------------------------------------
+CAMPAIGN_RUNS = (
+    ("tgen_10000_x8", "tgen_10000.yaml",
+     ("ensemble={replicas: 8, vary: {seed: [1, 2, 3, 4, 5, 6, 7, 8]}}",),
+     ("pop_tgen", "judge_outbox", "route", "merge_heaps")),
+    ("tor_small_x8", "tor_small.yaml",
+     ("ensemble={replicas: 8, vary: {latency_scale: [1.0, 1.0, 1.25, "
+      "1.25, 1.5, 1.5, 2.0, 2.0], packet_loss_delta: [0.0, 0.01, 0.0, "
+      "0.01, 0.0, 0.01, 0.0, 0.01]}}",),
+     ("pop_tor", "judge_outbox", "route", "merge_heaps")),
+)
+
+
+def campaign_full(torch, card, report):
+    """Each CAMPAIGN_RUNS campaign on the main path (the CLI's entry
+    function, the captured graph loop; `main_path_run`), its graph run
+    under torch.profiler (device ms per kernel, the busy share), in
+    timing mode (the Python loop), and each replica against its
+    standalone graph run, whose walls are summed beside the
+    campaign's."""
+    runs = report["_full"]
+    for name, example, overrides, path in CAMPAIGN_RUNS:
+        print(f"[full:{name}] examples/{example} with {list(overrides)}",
+              flush=True)
+        path = path + ("phase_tally", "loop_control")
+        stats, launches, peak = main_path_run(torch, name, example,
+                                              overrides, path)
+        rec = stats.ensemble
+        R = rec["workload"]["replicas"]
+        cfg = full_config(example, overrides)
+        device_ms, profiled = profiled_graph_run(
+            torch, card, name, cfg, path, stats, launches)
+        busy = sum(v for k, v in device_ms.items() if k != "other") / \
+            (1e3 * stats.wall_s)
+        entry = {"launches": launches, "wall_s": stats.wall_s,
+                 "peak": peak, "phases": stats.phases,
+                 "host_syncs": stats.host_syncs, "device_ms": device_ms,
+                 "profiled": profiled, "replicas": R, "busy_share": busy}
+        timed = python_loop_runs(torch, card, name, example, overrides,
+                                 path, stats, launches)
+        er = timed.pop("runner")
+        entry.update(timed)
+        rounds = er.loop_stats[0]["rounds"]
+        walls = standalone_replicas(er, er.final_state, rounds,
+                                    f"full {name}")
+        check(er.record["replicas"] == rec["replicas"], f"full {name}: "
+              "the timed campaign's record differs from the graph run's")
+        entry["standalone_walls_s"] = walls
+        runs[name] = entry
+        print(f"[full:{name}] {R} replicas, {len(stats.host_events_executed)}"
+              f" hosts each: {stats.summary()}; rounds per replica "
+              f"{rounds}; graph loop: {stats.phases} phases (the longest "
+              f"replica), {stats.host_syncs} host syncs, wall "
+              f"{stats.wall_s:.3f} s, busy share {busy:.3f} (device ms "
+              f"{sum(v for k, v in device_ms.items() if k != 'other'):.1f}"
+              f"); the {R} standalone graph runs {walls:.3f} s in all "
+              f"({walls / stats.wall_s:.2f} x the campaign); every "
+              f"replica == its standalone run; peak {peak} B; card {card}",
+              flush=True)
 
 
 FULL_RUNS = (
@@ -2510,7 +3124,6 @@ def python_loop_runs(torch, card, name, example, overrides, path, stats,
     BOTH_LOOPS) and in timing mode, for a per-kernel breakdown of that
     loop; the counts equal the graph run's (`stats`). Their kernels are
     freed on return, before the next run's peak is measured."""
-    from shadow_tpu_torch.device import runner
     from shadow_tpu_torch.device.kernels import Kernels
 
     entry = {}
@@ -2524,8 +3137,10 @@ def python_loop_runs(torch, card, name, example, overrides, path, stats,
               f"loop {stats.wall_s:.3f} s ({stats.wall_s / py.wall_s:.3f}"
               f" x); card {card}", flush=True)
     timed_k = Kernels(timing=True)
-    timed = runner.run(full_config(example, overrides), "cuda",
-                       kernels=timed_k)
+    timed, er = run_config(full_config(example, overrides), "cuda",
+                           timed_k)
+    if er is not None:
+        entry["runner"] = er
     check(timed.loop == "python", f"full {name}: timing mode ran the "
           f"{timed.loop} loop")
     same_run(stats, timed, f"full {name}", ("graph loop",
@@ -2553,7 +3168,7 @@ FUNCTION_KIND = {
     "pop_kernel": "pop_", "judge_outbox_kernel": "judge_outbox",
     "count_paths_kernel": "count_paths",
     "phase_tally_kernel": "phase_tally",
-    **dict.fromkeys(("count_kernel", "scan_blocks_kernel",
+    **dict.fromkeys(("zero_kernel", "count_kernel", "scan_blocks_kernel",
                      "scan_sums_kernel", "add_back_kernel", "scatter_kernel",
                      "sort_short_kernel", "sort_long_kernel"), "route"),
     "merge_heaps_kernel": "merge_heaps",
@@ -2611,12 +3226,11 @@ def _profile_once(torch, name, cfg, path, stats, launches):
 
     from torch.profiler import ProfilerActivity, profile
 
-    from shadow_tpu_torch.device import runner
     from shadow_tpu_torch.device.kernels import Kernels
 
     kernels = Kernels()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        prof_stats = runner.run(cfg, "cuda", kernels=kernels)
+        prof_stats, _ = run_config(cfg, "cuda", kernels)
         torch.cuda.synchronize()
     same_run(stats, prof_stats, f"full {name}", ("graph loop",
                                                  "profiled graph loop"))
@@ -2693,6 +3307,7 @@ def full_phase(torch, card, report):
                              "peak": peak, "device_ms": device_ms,
                              "profiled": profiled}
     report["_full"] = runs
+    campaign_full(torch, card, report)
 
 
 def boot_phase(torch, card):
@@ -2735,6 +3350,7 @@ def boot_phase(torch, card):
 def kernels_line(report):
     full = report.pop("_full")
     runs = {**full, **report.pop("_parity", {})}
+    replicas = report.pop("_replicas", {})
     rows = []
     for n in ROWS:
         r = report[n]
@@ -2774,18 +3390,29 @@ def kernels_line(report):
             **({"torch_sort_ms": r["torch_sort_ms"]}
                if "torch_sort_ms" in r else {}),
             **shapes,
+            # the kernel at R = REPLICAS replicas against R = 1
+            # (`replica_kernels`)
+            **({"at_r4": replicas[n]} if n in replicas else {}),
+            **({"at_r4_on_factored_tables": replicas[n + "_hier"]}
+               if n + "_hier" in replicas and "_hier" not in n else {}),
         })
     return json.dumps({"kernels": rows})
 
 
 def pop_times(torch) -> dict:
-    """Median device ms of 15 launches of the unaudited K1 at the PHOLD
-    shapes (100,000 hosts on a 2-vertex dense world) and of K1_hier at
-    examples/tgen_1000000.yaml's 1,000,000 hosts (hub loss
-    PHOLD_1M_HUB_LOSS), on seeded inputs; then K1_hier's device ms per
-    launch on the main path's own data, phold_1m_hier in timing mode;
-    through the API every port slice has, so that `--ab` can time
-    another commit's package."""
+    """Median device ms of 15 launches of each kernel of a standalone
+    run (R = 1), on seeded inputs: the unaudited K1 at the PHOLD shapes
+    (100,000 hosts on a 2-vertex dense world) and K2 on its outbox,
+    K1_hier at examples/tgen_1000000.yaml's 1,000,000 hosts (hub loss
+    PHOLD_1M_HUB_LOSS), K4 at tgen_10000's layout at 100,000 hosts
+    (`tgen_inputs`), K6 at tor_large's (`tor_inputs`), K3, K5 and
+    phase_tally at the PHOLD shapes (a random outbox), K8 at 100,000
+    and 1,000,000 hosts and K9 at 1,000,000 (`audit_inputs`); then the
+    device ms per launch of K1_hier, K2_hier, K5, K3 and phase_tally on
+    the main path's own data, phold_1m_hier in timing mode, and of the
+    pop, K2, K5, K3 and phase_tally on tgen_10000 and tor_small as
+    shipped; through the API every port slice since PR 6 has, so that
+    `--ab` can time another commit's package."""
     from shadow_tpu_torch.device import kernels as K
     from shadow_tpu_torch.device.apps import PholdDevice
     from shadow_tpu_torch.device.prng import seed_key
@@ -2829,6 +3456,67 @@ def pop_times(torch) -> dict:
 
         out[name] = time_median(torch, scratch.pop, args, 15)
         check(scratch.launches[name] > 0, f"{name} never launched")
+        if name == "pop_phase":
+            # K2 on K1's outbox
+            judged = args()
+            scratch.pop(*judged)
+            out["judge_outbox"] = time_median(
+                torch, scratch.judge_outbox, lambda: (
+                    clone(judged[0]), clone(judged[1]), world, win, p), 15)
+    # K4, K6, K3, K5, the tallies, K8 and K9 (at R = 1, a standalone
+    # run's launches)
+    H = 100_000
+    state0, world, pt, win_end = tgen_inputs(torch, K, rng, H, 48, dev)
+    win_t = (window_block(K, win_end, dev) if hasattr(K, "control_block")
+             else win_end)
+
+    def tgen_args():
+        return (clone(state0), {f: torch.empty(
+            (H, pt.OB), dtype=torch.int64, device=dev)
+            for f in K.OB_FIELDS},
+            torch.empty(H, dtype=torch.int32, device=dev), world, win_t,
+            pt)
+
+    out["pop_tgen"] = time_median(torch, scratch.pop, tgen_args, 15)
+    tor0, tor_world, pr, tor_end = tor_inputs(torch, K, rng, dev)
+    win_r = (window_block(K, tor_end, dev) if hasattr(K, "control_block")
+             else tor_end)
+    Ht = tor0["head"].shape[0]
+    out["pop_tor"] = time_median(torch, scratch.pop, lambda: (
+        clone(tor0), {f: torch.empty((Ht, pr.OB), dtype=torch.int64,
+                                     device=dev) for f in K.OB_FIELDS},
+        torch.empty(Ht, dtype=torch.int32, device=dev), tor_world, win_r,
+        pr), 15)
+    state0 = random_state(rng, H, 64, dev)
+    ob3 = random_outbox(rng, H, 30, torch, dev)
+    seg = K.route_plain(ob3)
+    p3 = K.PhaseParams(E=64, K=3, T=0, P=1, B=10, IN=64, C=1, boot_end=0,
+                       seed=seed_key(7), app=PholdDevice(
+                           n_hosts_total=H, msgload=3, size=512))
+    out["merge_heaps"] = time_median(
+        torch, scratch.merge_heaps,
+        lambda: (clone(state0), ob3, *seg, p3), 15)
+    out["route"] = time_median(torch, scratch.route, lambda: (ob3,), 15)
+    pops = torch.from_numpy(rng.integers(0, 9, H).astype(np.int32)).to(dev)
+    occ = {"occ_ob": torch.zeros(H, dtype=torch.int32, device=dev),
+           "occ_trips": torch.zeros(1, dtype=torch.int32, device=dev),
+           "occ_phases": torch.zeros(1, dtype=torch.int32, device=dev)}
+    out["phase_tally"] = time_median(
+        torch, scratch.phase_tally, lambda: (clone(occ), ob3, pops, p3),
+        15)
+    for hosts in (100_000, 1_000_000):
+        aud = audit_inputs(torch, K, rng, hosts, 64, dev)
+        out[f"audit_round {hosts} hosts"] = time_median(
+            torch, scratch.audit_round, lambda: (clone(aud),), 15)
+    m = int(K.head_min_plain(aud))
+    words = {"stop": K.INF, "final_stop": K.INF, "lookahead": 10**6,
+             "max_rounds": 1 << 40, "rounds": 5, "phases": 9, "run": 1,
+             "win_end": m}
+    out["loop_control 1000000 hosts"] = time_median(
+        torch, scratch.loop_control,
+        lambda: (aud, K.control_block(dev, **words)), 15)
+    check(scratch.launches["pop_tgen"] > 0 and
+          scratch.launches["merge_heaps"] > 0, "K4 or K3 never launched")
     # the main path's own data: phold_1m_hier in timing mode (the
     # Python loop in every commit), K1_hier's device ms per launch
     from shadow_tpu_torch.device import runner
@@ -2837,10 +3525,23 @@ def pop_times(torch) -> dict:
     stats = runner.run(full_config(None, ()), "cuda", kernels=timed)
     check(stats.ok and stats.rounds == PHOLD_1M_ROUNDS,
           f"phold_1m_hier: {stats.rounds} rounds")
-    n = timed.launches["pop_phase_hier"]
-    out["pop_phase_hier on phold_1m_hier, per launch"] = (
-        timed.kernel_ms()["pop_phase_hier"] / n)
-    out["pop_phase_hier on phold_1m_hier, launches"] = n
+    ms = timed.kernel_ms()
+    for k in ("pop_phase_hier", "judge_outbox_hier", "route",
+              "merge_heaps", "phase_tally"):
+        out[f"{k} on phold_1m_hier, per launch"] = ms[k] / \
+            timed.launches[k]
+    out["pop_phase_hier on phold_1m_hier, launches"] = \
+        timed.launches["pop_phase_hier"]
+    # tgen_10000 and tor_small as shipped, in timing mode
+    for example, pop in (("tgen_10000.yaml", "pop_tgen"),
+                         ("tor_small.yaml", "pop_tor")):
+        timed = K.Kernels(timing=True)
+        runner.run(full_config(example, ()), "cuda", kernels=timed)
+        ms = timed.kernel_ms()
+        for k in (pop, "judge_outbox", "route", "merge_heaps",
+                  "phase_tally"):
+            out[f"{k} on {example[:-5]}, per launch"] = ms[k] / \
+                timed.launches[k]
     return out
 
 
@@ -2874,10 +3575,10 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma list of " + ",".join(PHASES))
     ap.add_argument("--ab", metavar="DIR",
-                    help="only time the unaudited K1 and K1_hier of the "
-                         "package in DIR (a checkout of another commit) "
-                         "and of this one, in turns, on seeded inputs and "
-                         "K1_hier on phold_1m_hier (`pop_times`)")
+                    help="only time every kernel of a standalone run (R = "
+                         "1) of the package in DIR (a checkout of another "
+                         "commit) and of this one, in turns, on seeded "
+                         "inputs and on phold_1m_hier (`pop_times`)")
     ap.add_argument("--pop-times", action="store_true",
                     help=argparse.SUPPRESS)
     ap.add_argument("--package", default=REPO, help=argparse.SUPPRESS)
@@ -2904,6 +3605,9 @@ def main(argv=None) -> int:
         print(f"chip_smoke: the shadow_tpu_torch package is missing "
               f"beside this script ({e})", file=sys.stderr)
         return 1
+    # the campaigns' ENSEMBLE records land in a temporary directory
+    records = tempfile.mkdtemp(prefix="chip_smoke_records_")
+    os.environ["SHADOW_TPU_OCC_DIR"] = records
     try:
         card = card_line()
         print(f"card: {card}", flush=True)
@@ -2918,7 +3622,8 @@ def main(argv=None) -> int:
         print(f"[build] {lib.name} in {time.perf_counter() - t0:.1f} s",
               flush=True)
         for line in log.splitlines():
-            if "registers" in line or "Compiling entry" in line:
+            if ("registers" in line or "Compiling entry" in line
+                    or "spill" in line):
                 print(f"[build] {line.strip()}", flush=True)
         report: dict = {}
         for phase, run in (("kernels", lambda: kernels_phase(torch, report)),
@@ -2936,6 +3641,8 @@ def main(argv=None) -> int:
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    finally:
+        shutil.rmtree(records, ignore_errors=True)
     print(result_line(torch.cuda.get_device_name(0)), flush=True)
     return 0
 

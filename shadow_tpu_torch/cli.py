@@ -5,7 +5,9 @@
 
 Loads the config (with the reference's dotted overrides), runs it on
 the card (or, with --device cpu, on the plain PyTorch path) and prints
-the reference CLI's "simulation finished" summary line.
+the reference CLI's "simulation finished" summary line; a config with
+an `ensemble:` block runs its campaign (ensemble/campaign.py) and logs
+the reference's campaign line too.
 """
 
 from __future__ import annotations
@@ -24,12 +26,16 @@ log = logging.getLogger("shadow_tpu_torch")
 
 def simulate(config_path: str, overrides=(), device="cuda",
              kernels=None) -> runner.SimStats:
-    """Load a config file with dotted overrides and run it: what
-    `main` does, for callers that want the stats (and may pass their
-    own Kernels to read launch counts)."""
+    """Load a config file with dotted overrides and run it, or its
+    ensemble campaign: what `main` does, for callers that want the
+    stats (and may pass their own Kernels to read launch counts)."""
     cfg = load_config(config_path, overrides=overrides)
     if cfg.general.stop_time <= 0:
         raise ValueError("general.stop_time must be > 0")
+    if cfg.ensemble is not None:
+        from shadow_tpu_torch.ensemble.campaign import EnsembleRunner
+
+        return EnsembleRunner(cfg, device=device, kernels=kernels).run()
     return runner.run(cfg, device=device, kernels=kernels)
 
 
@@ -59,6 +65,15 @@ def main(argv=None) -> int:
         log.info("path counters: %d packets sent over %d vertex pairs",
                  sum(stats.path_packets.values()),
                  len(stats.path_packets))
+    if stats.ensemble is not None:
+        # the per-replica breakdown and the aggregates live in the
+        # ENSEMBLE record
+        rec = stats.ensemble
+        log.info("ensemble campaign %s: %d replicas, aggregate "
+                 "packets %d; per-replica checksums + "
+                 "mean/p5/p95/min/max in the ENSEMBLE record",
+                 rec["campaign"], rec["workload"]["replicas"],
+                 stats.packets_sent)
     log.info("%s", capacity.verdict_line(stats.admission))
     if not stats.ok:
         log.error("device engine overflow: %d events lost — raise "

@@ -5,11 +5,12 @@ YAML-compatible with the reference: sections `general`, `network`,
 `experimental` and `hosts.<name>` with nested `processes`. Every key
 the reference accepts is accepted here too, and a typo'd key fails as
 it does there. Keys whose behaviour the port does not have yet are
-kept raw in `ExperimentalOptions.later` (and `ensemble` likewise), so
-that the slice check (core/build.py) refuses them by name instead of
-silently running without them; `network.faults` entries are validated
-as the reference validates them, and the slice check refuses the host
-faults among them.
+kept raw in `ExperimentalOptions.later`, so that the slice check
+(core/build.py) refuses them by name instead of silently running
+without them; `network.faults` entries are validated as the reference
+validates them, and the slice check refuses the host faults among
+them. The `ensemble` section is validated as the reference validates it
+(`EnsembleOptions`).
 """
 
 from __future__ import annotations
@@ -47,11 +48,16 @@ LATER_EXPERIMENTAL = {
     **dict.fromkeys(
         ("capacity_plan", "capacity_warmup", "capacity_headroom",
          "strategy_plan", "dispatch_segment", "pipeline_depth",
-         "checkpoint_save", "checkpoint_save_time", "checkpoint_load",
-         "checkpoint_every", "checkpoint_keep", "device_batch_rounds",
-         "heartbeat_stale_after", "telemetry", "telemetry_path",
-         "artifacts_dir"),
-        "queue (a) item 7 (runner, supervise, checkpoint)"),
+         "device_batch_rounds", "heartbeat_stale_after"),
+        "queue (a) item 7a (the segmented advance and the capacity "
+        "planner)"),
+    **dict.fromkeys(
+        ("checkpoint_save", "checkpoint_save_time", "checkpoint_load",
+         "checkpoint_every", "checkpoint_keep"),
+        "queue (a) item 7b (checkpoints)"),
+    **dict.fromkeys(("telemetry", "telemetry_path", "artifacts_dir"),
+                    "queue (a) item 7c (the object build, telemetry and "
+                    "artifacts keys)"),
     **dict.fromkeys(("exchange", "exchange_capacity",
                      "exchange_capacity2", "mesh_shards", "mesh_axis"),
                     "queue (a) item 9 (multi-GPU)"),
@@ -174,6 +180,9 @@ class GeneralOptions:
     stop_time: int = 0                      # sim ns
     seed: int = 1
     bootstrap_end_time: int = 0             # no drops until here
+    # the runner's heartbeat cadence (sim ns; 0 = none): a standalone
+    # run has no segments and ignores it, a campaign refuses it
+    heartbeat_interval: int = 0
 
     @classmethod
     def from_dict(cls, d: dict) -> "GeneralOptions":
@@ -190,6 +199,8 @@ class GeneralOptions:
             stop_time=parse_time_ns(d.get("stop_time", 0)),
             seed=int(d.get("seed", 1)),
             bootstrap_end_time=parse_time_ns(d.get("bootstrap_end_time", 0)),
+            heartbeat_interval=parse_time_ns(
+                d.get("heartbeat_interval", 0) or 0),
         )
 
 
@@ -400,6 +411,132 @@ class ExperimentalOptions:
         return out
 
 
+# ensemble vary axes: per-replica values that change array VALUES on
+# device (seeds, topology tables, epoch times) — never shapes. Axes
+# that would change shapes (host counts, capacities, stop_time) are
+# deliberately not offered.
+ENSEMBLE_VARY_AXES = ("seed", "latency_scale", "packet_loss_delta",
+                      "fault_schedule")
+ENSEMBLE_AGGREGATES = ("mean", "p5", "p95", "min", "max")
+
+
+@dataclass
+class EnsembleOptions:
+    """`ensemble` section: R independent replicas of the device-twin
+    workload in one program (shadow_tpu_torch/ensemble/), varying only
+    array values per replica. Replica i is bit-identical to a
+    standalone run with replica i's parameters (ensemble/spec.py)."""
+
+    replicas: int = 1
+    vary: dict = field(default_factory=dict)
+    # named alternative link-fault schedules for vary.fault_schedule
+    # (each a list of validated FaultEvents; "base" = the config's
+    # network.faults schedule, "none" = fault-free)
+    fault_schedules: dict = field(default_factory=dict)
+    aggregate: tuple = ENSEMBLE_AGGREGATES
+    record_path: str = ""        # "" = artifacts/ENSEMBLE_*.json
+    # 0 = all R replicas in one program; k = ceil(R/k) sequential
+    # batches of <= k replicas, merged (bit-identical to the full
+    # campaign)
+    replica_batch: int = 0
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "EnsembleOptions":
+        from shadow_tpu_torch.faults import LINK_KINDS
+
+        _check_keys("ensemble", d, {"replicas", "vary",
+                                    "fault_schedules", "aggregate",
+                                    "record_path", "replica_batch"})
+        if "replicas" not in d:
+            raise ValueError("ensemble: missing required key "
+                             "'replicas'")
+        replicas = int(d["replicas"])
+        if replicas < 1:
+            raise ValueError("ensemble.replicas must be >= 1")
+        raw_vary = d.get("vary") or {}
+        if not isinstance(raw_vary, dict):
+            raise ValueError("ensemble.vary must be a mapping of "
+                             "axis -> per-replica value list")
+        _check_keys("ensemble.vary", raw_vary, set(ENSEMBLE_VARY_AXES))
+        if replicas > 1 and not raw_vary:
+            raise ValueError(
+                "ensemble: replicas > 1 with an empty vary block "
+                "would run identical replicas — declare at least one "
+                f"vary axis ({list(ENSEMBLE_VARY_AXES)})")
+        vary: dict = {}
+        for axis, vals in raw_vary.items():
+            if not isinstance(vals, list) or len(vals) != replicas:
+                raise ValueError(
+                    f"ensemble.vary.{axis} must list exactly one "
+                    f"value per replica ({replicas})")
+            if axis == "seed":
+                vary[axis] = [int(v) for v in vals]
+            elif axis == "latency_scale":
+                vary[axis] = [float(v) for v in vals]
+                if any(v <= 0 for v in vary[axis]):
+                    raise ValueError(
+                        "ensemble.vary.latency_scale values must be "
+                        "> 0")
+            elif axis == "packet_loss_delta":
+                vary[axis] = [float(v) for v in vals]
+                if any(not (0.0 <= v <= 1.0) for v in vary[axis]):
+                    raise ValueError(
+                        "ensemble.vary.packet_loss_delta values must "
+                        "be in [0, 1]")
+            else:                        # fault_schedule
+                vary[axis] = [str(v) for v in vals]
+        raw_scheds = d.get("fault_schedules") or {}
+        if not isinstance(raw_scheds, dict):
+            raise ValueError("ensemble.fault_schedules must be a "
+                             "mapping of name -> fault event list")
+        schedules: dict = {}
+        for name, evs in raw_scheds.items():
+            if name in ("base", "none"):
+                raise ValueError(
+                    f"ensemble.fault_schedules: {name!r} is reserved "
+                    "('base' = network.faults, 'none' = fault-free)")
+            if not isinstance(evs, list):
+                raise ValueError(
+                    f"ensemble.fault_schedules.{name} must be a list "
+                    "of fault events")
+            events = [_fault_from_dict(i, e) for i, e in enumerate(evs)]
+            bad = [e.kind for e in events if e.kind not in LINK_KINDS]
+            if bad:
+                raise ValueError(
+                    f"ensemble.fault_schedules.{name}: {bad} are "
+                    "manager-side host faults — ensemble campaigns "
+                    "run on the device engine and only vary link "
+                    f"faults ({list(LINK_KINDS)})")
+            schedules[name] = events
+        for name in vary.get("fault_schedule", ()):
+            if name not in ("base", "none") and name not in schedules:
+                raise ValueError(
+                    f"ensemble.vary.fault_schedule names unknown "
+                    f"schedule {name!r} (declare it under "
+                    "ensemble.fault_schedules, or use 'base'/'none')")
+        agg = d.get("aggregate")
+        if agg is None:
+            aggregate = ENSEMBLE_AGGREGATES
+        else:
+            if not isinstance(agg, list) or not agg:
+                raise ValueError("ensemble.aggregate must be a "
+                                 "non-empty list")
+            for a in agg:
+                _check_choice("ensemble", "aggregate", a,
+                              ENSEMBLE_AGGREGATES)
+            aggregate = tuple(agg)
+        replica_batch = int(d.get("replica_batch", 0) or 0)
+        if replica_batch < 0 or replica_batch > replicas:
+            raise ValueError(
+                f"ensemble.replica_batch must be in [0, replicas="
+                f"{replicas}] (0 = full vmap; k = sequential batches "
+                "of <= k replicas)")
+        return cls(replicas=replicas, vary=vary,
+                   fault_schedules=schedules, aggregate=aggregate,
+                   record_path=str(d.get("record_path", "") or ""),
+                   replica_batch=replica_batch)
+
+
 @dataclass
 class ConfigOptions:
     general: GeneralOptions = field(default_factory=GeneralOptions)
@@ -407,7 +544,7 @@ class ConfigOptions:
     experimental: ExperimentalOptions = field(
         default_factory=ExperimentalOptions)
     hosts: list[HostOptions] = field(default_factory=list)
-    ensemble: Optional[dict] = None          # raw; refused by slice
+    ensemble: Optional[EnsembleOptions] = None
 
     @classmethod
     def from_dict(cls, d: dict) -> "ConfigOptions":
@@ -416,14 +553,55 @@ class ConfigOptions:
                                   "host_defaults", "ensemble"})
         hosts = [HostOptions.from_dict(name, hd or {})
                  for name, hd in (d.get("hosts", {}) or {}).items()]
-        return cls(
+        ensemble = (EnsembleOptions.from_dict(d["ensemble"])
+                    if d.get("ensemble") else None)
+        out = cls(
             general=GeneralOptions.from_dict(d.get("general", {}) or {}),
             network=NetworkOptions.from_dict(d.get("network", {}) or {}),
             experimental=ExperimentalOptions.from_dict(
                 d.get("experimental", {}) or {}),
             hosts=hosts,
-            ensemble=d.get("ensemble") or None,
+            ensemble=ensemble,
         )
+        # the reference's campaign rules; the keys of the runner's
+        # later items sit raw in `experimental.later`
+        later = out.experimental.later
+        if ensemble is not None and \
+                out.experimental.scheduler_policy != "tpu":
+            raise ValueError(
+                "ensemble: multi-replica campaigns run as one vmapped "
+                "device program and require "
+                "experimental.scheduler_policy: tpu (run replicas as "
+                "separate processes on CPU policies)")
+        if ensemble is not None and later.get("failover") == "hybrid":
+            raise ValueError(
+                "ensemble: experimental.failover: hybrid is not "
+                "available for campaigns (CPU host emulation cannot "
+                "vmap replicas) — use failover: shrink (campaigns "
+                "survive device loss on-device; the replica axis "
+                "vmaps outside the mesh axis), or let exhausted "
+                "retries fail loudly with the last validated "
+                "checkpoint on disk")
+        if ensemble is not None and ensemble.replica_batch and \
+                later.get("checkpoint_save_time"):
+            raise ValueError(
+                "ensemble.replica_batch cannot combine with "
+                "checkpoint_save_time: every sequential batch replays "
+                "the full time range, so there is no single campaign "
+                "pause point to save at — use checkpoint_every for "
+                "supervised/preemptible batched campaigns")
+        if ensemble is not None and ensemble.replica_batch and \
+                later.get("checkpoint_save") and \
+                not later.get("checkpoint_every"):
+            raise ValueError(
+                "ensemble.replica_batch with checkpoint_save needs "
+                "checkpoint_every: a batched campaign never "
+                "materializes the full-R stacked state, so the only "
+                "checkpoints it can write are the per-batch rotation "
+                "entries (<save>.b<k>.t<ns>) the supervised drain "
+                "produces — without checkpoint_every the end-of-run "
+                "save would be silently skipped")
+        return out
 
     def total_hosts(self) -> int:
         return sum(h.quantity for h in self.hosts)

@@ -15,8 +15,8 @@ columns here equal that object build.)
 The port runs these slices of the reference so far: PHOLD, tgen and Tor
 on the `tpu` policy, one GPU, GML, builtin or `star_clusters` graphs
 with dense or hierarchical tables, link faults (compiled here into the
-epoch tables of faults.py), the model NIC and the path counters; no
-host faults, no state audit, no ensemble.
+epoch tables of faults.py), the model NIC, the path counters, the state
+audit and ensemble campaigns (ensemble/); no host faults.
 `check_slice` refuses any config outside them with an error naming the
 ROADMAP.md item that will port it; nothing outside runs silently.
 """
@@ -76,11 +76,13 @@ def check_slice(cfg: ConfigOptions) -> None:
     if xp.interpose_method != "model":
         _refuse(f"experimental.interpose_method: {xp.interpose_method}",
                 "queue (a) item 10 (real processes)")
-    for key in xp.later:
-        _refuse(f"experimental.{key}", LATER_EXPERIMENTAL[key])
-    if cfg.ensemble:
-        _refuse("ensemble", "queue (a) item 12 (ensemble campaigns)")
+    for key, value in xp.later.items():
+        # static capacities are what the port runs
+        if not (key == "capacity_plan" and value == "static"):
+            _refuse(f"experimental.{key}", LATER_EXPERIMENTAL[key])
     _, host_faults = split_events(cfg.network.faults)
+    if cfg.ensemble is not None:
+        check_campaign(cfg, host_faults)
     if host_faults:
         # manager-side events: the reference's device runner sends such
         # configs to its hybrid policy (device/runner.py DeviceRunner)
@@ -117,6 +119,30 @@ def check_slice(cfg: ConfigOptions) -> None:
         raise OutsideSlice(
             f"no device twin registered for {names}; available: phold, "
             f"tgen (server+client), tor (relay+client) — {HYBRID}")
+
+
+def check_campaign(cfg: ConfigOptions, host_faults: list) -> None:
+    """What an `ensemble:` campaign cannot run: host faults and a Tor
+    seed sweep (each with the reference's own message), and the
+    per-replica heartbeats of the reference's segmented advance."""
+    if host_faults:
+        raise ValueError(
+            "ensemble: host_crash/host_restart faults are manager-side "
+            "events — the campaign engine cannot run them (vary link "
+            "faults via ensemble.fault_schedules instead)")
+    if cfg.general.heartbeat_interval:
+        _refuse("general.heartbeat_interval in an ensemble campaign "
+                "(per-replica heartbeats at segment boundaries)",
+                "queue (a) item 7a (the segmented advance)")
+    seeds = set(cfg.ensemble.vary.get("seed", ()))
+    if len(seeds) > 1 and any(MODELS.get(g.processes[0].path) == "tor"
+                              for g in cfg.hosts if g.processes):
+        # the Tor twin derives its route key from the seed at build
+        # time: a seed sweep would give every replica the same routes
+        raise ValueError(
+            "ensemble: vary.seed is not supported for TorDevice (it "
+            "derives app-internal RNG from the seed at build time); "
+            "sweep latency/loss/faults instead")
 
 
 def load_topology(cfg: ConfigOptions) -> Topology:

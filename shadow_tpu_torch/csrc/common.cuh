@@ -53,6 +53,17 @@ __device__ __forceinline__ bool phase_off(const int64_t* ctl) {
     return ctl != nullptr && ctl[CTL_RUN] == 0;
 }
 
+// Ensemble campaigns: R replicas of the state, [R, H, ...], and one
+// control block each, [R, CTL_N]. Every kernel takes the replica as a
+// grid dimension (blockIdx.y, or blockIdx.z where y is taken), offsets
+// each pointer once by the replica's stride, and returns where that
+// replica's RUN word is 0: a finished replica changes no byte while the
+// others run on. A standalone run is R = 1.
+__device__ __forceinline__ const int64_t* replica_ctl(const int64_t* ctl,
+                                                     int64_t r) {
+    return ctl == nullptr ? nullptr : ctl + r * CTL_N;
+}
+
 __device__ __forceinline__ int64_t pack2(uint32_t hi, uint32_t lo) {
     return (int64_t)(((uint64_t)hi << 32) | (uint64_t)lo);
 }

@@ -13,7 +13,9 @@
 // histogram equals the reference's whatever order the atomics land in.
 //
 // Under the window loop the launch returns at once where the control
-// block's RUN word is 0 (common.cuh `Ctl`).
+// block's RUN word is 0 (common.cuh `Ctl`). The replica axis of an
+// ensemble campaign is blockIdx.y: replica r's rows add to its own
+// histogram, path_cnt [R, 1, V*V].
 //
 // Bound on the H100: bytes: t of every row (H*OB*8), k and m of the
 // packet rows, and the histogram's touched entries; the atomics on a
@@ -33,34 +35,37 @@ __global__ void count_paths_kernel(int64_t rows, int OB, int H, int V,
                                    unsigned long long* path_cnt,
                                    const int64_t* ctl) {
     const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= rows || phase_off(ctl)) return;
-    if (!(ob_t[i] < INF)) return;
-    const int64_t fm = ob_m[i];
+    const int64_t r = blockIdx.y;
+    if (i >= rows || phase_off(replica_ctl(ctl, r))) return;
+    const int64_t row = r * rows + i;
+    if (!(ob_t[row] < INF)) return;
+    const int64_t fm = ob_m[row];
     const int32_t kind = lo32(fm);
     if ((kind & 0xFF) != KIND_PACKET) return;
-    const int32_t src = hi32(ob_k[i]);
+    const int32_t src = hi32(ob_k[row]);
     const int32_t dst = hi32(fm);
     const int sh = src < 0 ? 0 : (src > H - 1 ? H - 1 : src);
     const int dh = dst < 0 ? 0 : (dst > H - 1 ? H - 1 : dst);
-    const int64_t pair =
+    const int64_t pair = r * (int64_t)V * V +
         (int64_t)host_vertex[sh] * V + (int64_t)host_vertex[dh];
     atomicAdd(&path_cnt[pair], (unsigned long long)(int64_t)(kind >> 8));
 }
 
 }  // namespace
 
-extern "C" int shadow_count_paths(int H, int OB, int V,
+extern "C" int shadow_count_paths(int R, int H, int OB, int V,
                                   const int64_t* ob_t, const int64_t* ob_k,
                                   const int64_t* ob_m,
                                   const int32_t* host_vertex,
                                   int64_t* path_cnt, const int64_t* ctl,
                                   void* stream) {
-    if (V <= 0 || (int64_t)V * V > 65536) return (int)cudaErrorInvalidValue;
+    if (R < 1 || R > 65535 || V <= 0 || (int64_t)V * V > 65536)
+        return (int)cudaErrorInvalidValue;
     const int64_t rows = (int64_t)H * OB;
     if (rows > 0) {
         const int threads = 256;
         const int64_t blocks = (rows + threads - 1) / threads;
-        count_paths_kernel<<<(unsigned)blocks, threads, 0,
+        count_paths_kernel<<<dim3((unsigned)blocks, R), threads, 0,
                              (cudaStream_t)stream>>>(
             rows, OB, H, V, ob_t, ob_k, ob_m, host_vertex,
             reinterpret_cast<unsigned long long*>(path_cnt), ctl);

@@ -18,13 +18,19 @@
 // the pop instead (pop_phase.cu); this kernel does not run there.
 //
 // The launch reads the window end from the window loop's control block
-// and returns at once where its RUN word is 0 (common.cuh `Ctl`).
+// and returns at once where its RUN word is 0 (common.cuh `Ctl`). The
+// replica axis of an ensemble campaign is blockIdx.y: replica r's
+// thread for host h takes row g = r * H + h of the outbox and the
+// counters, control block r, and the replica's seed key and tables
+// (topo.cuh `at_replica`); the pointers stay kernel parameters.
 //
 // Bound on the H100: bytes (t of all H*OB rows; m and v read, and t/m/v
 // written, for send rows only); each rolled packet costs two threefry
 // blocks (~250 integer ops), far below the card's integer rate. Rows
 // are read with a stride of OB*8 bytes between neighbouring threads, so
 // loads are not coalesced; that is later work.
+#include <type_traits>
+
 #include "common.cuh"
 #include "threefry.cuh"
 #include "topo.cuh"
@@ -33,17 +39,33 @@ using namespace shadow;
 
 namespace {
 
+// Blocks of 128 an SM must hold: the replica's seed and tables raised
+// the judge's registers (38 -> 46 on dense tables) and cost it resident
+// warps at R = 1 (PERF.md); the cap keeps the standalone occupancy: 12
+// blocks (42 registers) on dense tables, 10 (48) on factored ones.
 template <class Topo>
-__global__ void judge_outbox_kernel(
+constexpr int judge_min_blocks() {
+    return std::is_same_v<Topo, DenseTopo<Topo::EPOCHS>> ? 12 : 10;
+}
+
+template <class Topo>
+__global__ void __launch_bounds__(128, judge_min_blocks<Topo>())
+judge_outbox_kernel(
     int H, int OB, int C, int64_t boot_end,
     int64_t* ob_t, int64_t* ob_m, int64_t* ob_v,
     const int32_t* __restrict__ packet_seq, int32_t* n_sent,
-    int32_t* n_drop, const int32_t* __restrict__ host_vertex, Topo topo,
-    uint32_t seed1, uint32_t seed2, int cp, const int64_t* ctl) {
+    int32_t* n_drop, const int32_t* __restrict__ host_vertex, Topo topo0,
+    TopoStrides rs, const int64_t* __restrict__ seed_key, int cp,
+    const int64_t* ctl) {
     const int h = blockIdx.x * blockDim.x + threadIdx.x;
-    if (h >= H || ctl[CTL_RUN] == 0) return;
-    const int64_t win_end = ctl[CTL_WIN_END];
-    const int64_t row = (int64_t)h * OB;
+    const int64_t r = blockIdx.y;
+    if (h >= H || ctl[r * CTL_N + CTL_RUN] == 0) return;
+    const int64_t win_end = ctl[r * CTL_N + CTL_WIN_END];
+    // replica r: host h's row, its seed and tables
+    const int64_t g = r * H + h;
+    const Topo topo = topo0.at_replica(r, rs);
+    const Key seed = replica_seed(seed_key, r);
+    const int64_t row = g * OB;
     // packet_seq is the end of the phase: the first row's base is it
     // minus every packet the row block consumed
     uint32_t tot = 0;
@@ -52,9 +74,9 @@ __global__ void judge_outbox_kernel(
         if (ob_t[row + c] < INF && (kindrow & 0xFF) == KIND_PACKET)
             tot += (uint32_t)(kindrow >> 8);
     }
-    uint32_t base = (uint32_t)packet_seq[h] - tot;
+    uint32_t base = (uint32_t)packet_seq[g] - tot;
     const int vs = host_vertex[h];
-    const Key hkey = purpose_id_key(Key{seed1, seed2}, PURPOSE_PACKET_DROP,
+    const Key hkey = purpose_id_key(seed, PURPOSE_PACKET_DROP,
                                     (uint32_t)h);
     int32_t sent = 0, lost = 0;
     for (int c = 0; c < OB; ++c) {
@@ -94,27 +116,30 @@ __global__ void judge_outbox_kernel(
             pack2((uint32_t)dst, (uint32_t)(KIND_PACKET | (livecnt << 8)));
         ob_v[row + c] = pack2(surv, (uint32_t)lo32(fv));
     }
-    n_sent[h] += sent;
-    n_drop[h] += lost;
+    n_sent[g] += sent;
+    n_drop[g] += lost;
 }
 
 }  // namespace
 
 extern "C" int shadow_judge_outbox(
-    int H, int OB, int C, long long boot_end,
+    int R, int H, int OB, int C, long long boot_end,
     int64_t* ob_t, int64_t* ob_m, int64_t* ob_v, const int32_t* packet_seq,
     int32_t* n_sent, int32_t* n_drop, const int32_t* host_vertex,
-    const TopoArgs* topo, unsigned seed1, unsigned seed2, int cp,
+    const TopoArgs* topo, const int64_t* seed_key, int cp,
     const int64_t* ctl, void* stream) {
-    if (!topo_ok(topo) || ctl == nullptr) return (int)cudaErrorInvalidValue;
+    if (R < 1 || R > 65535 || !topo_ok(topo) || ctl == nullptr ||
+        seed_key == nullptr)
+        return (int)cudaErrorInvalidValue;
     if (H > 0) {
         const int threads = 128;
+        const dim3 grid((H + threads - 1) / threads, R);
+        const TopoStrides rs = topo_strides(*topo);
         with_topo(*topo, [&](auto view) {
-            judge_outbox_kernel<<<(H + threads - 1) / threads, threads, 0,
-                                  (cudaStream_t)stream>>>(
+            judge_outbox_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
                 H, OB, C, (int64_t)boot_end, ob_t, ob_m,
-                ob_v, packet_seq, n_sent, n_drop, host_vertex, view, seed1,
-                seed2, cp, ctl);
+                ob_v, packet_seq, n_sent, n_drop, host_vertex, view, rs,
+                seed_key, cp, ctl);
         });
     }
     return (int)cudaGetLastError();

@@ -21,10 +21,17 @@
 //
 // Design: a grid-strided minimum over hosts, one partial a block (at
 // most 1,024 blocks, no atomics), then one block that reduces the
-// partials and takes the decisions in thread 0. Bound on the H100:
-// bytes: head [H] int32 and one heap time per host (H*12 bytes); the
-// heap time is one 8-byte load per host row, so the rows' stride of
-// E*8 bytes makes every load its own 32-byte sector.
+// partials and takes the decisions in thread 0. An ensemble campaign
+// (shadow_tpu/device/engine.py `_run_ens_shard`, which vmaps `_run_shard`
+// over the replicas) has one control block per replica, [R, CTL_N]: the
+// replica is blockIdx.y of the minimum's grid (partials [R, nblocks]) and
+// blockIdx.x of the decisions' grid, one block per replica on its own
+// control block, so a finished replica stays DONE while the others run
+// on, as the vmapped while_loop freezes a finished replica's carry.
+// Bound on the H100: bytes: head [H] int32 and one heap time per host
+// (H*12 bytes a replica); the heap time is one 8-byte load per host
+// row, so the rows' stride of E*8 bytes makes every load its own
+// 32-byte sector.
 #include "common.cuh"
 
 using namespace shadow;
@@ -59,22 +66,26 @@ __global__ void head_min_kernel(int H, int E,
                                 const int64_t* __restrict__ ht,
                                 const int32_t* __restrict__ head,
                                 int64_t* partial, const int64_t* ctl) {
-    if (ctl[CTL_DONE]) return;
+    const int64_t r = blockIdx.y;
+    if (ctl[r * CTL_N + CTL_DONE]) return;
+    const int64_t rh = r * H;
     int64_t m = INF;
     for (int64_t h = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; h < H;
          h += (int64_t)gridDim.x * blockDim.x) {
-        const int hd = head[h];
+        const int hd = head[rh + h];
         if (hd < E) {
-            const int64_t t = ht[h * E + (hd < 0 ? 0 : hd)];
+            const int64_t t = ht[(rh + h) * E + (hd < 0 ? 0 : hd)];
             if (t < m) m = t;
         }
     }
     m = block_min(m);
-    if (threadIdx.x == 0) partial[blockIdx.x] = m;
+    if (threadIdx.x == 0) partial[r * gridDim.x + blockIdx.x] = m;
 }
 
 __global__ void control_kernel(int nb, const int64_t* __restrict__ partial,
                                int64_t* ctl, int start) {
+    ctl += (int64_t)blockIdx.x * CTL_N;
+    partial += (int64_t)blockIdx.x * nb;
     if (ctl[CTL_DONE]) {
         if (threadIdx.x == 0) {
             ctl[CTL_RUN] = 0;
@@ -111,18 +122,20 @@ __global__ void control_kernel(int nb, const int64_t* __restrict__ partial,
 
 }  // namespace
 
-// `partial` holds at least loop_control_blocks(H) int64.
+// `partial` holds at least loop_control_blocks(H) int64 a replica.
 extern "C" int shadow_loop_control_blocks(int H) {
     const int want = (H + THREADS - 1) / THREADS;
     return want < 1 ? 1 : (want < MAX_BLOCKS ? want : MAX_BLOCKS);
 }
 
-extern "C" int shadow_loop_control(int H, int E, const int64_t* ht,
+extern "C" int shadow_loop_control(int R, int H, int E, const int64_t* ht,
                                    const int32_t* head, int64_t* partial,
                                    int64_t* ctl, int start, void* stream) {
+    if (R < 1 || R > 65535) return (int)cudaErrorInvalidValue;
     cudaStream_t st = (cudaStream_t)stream;
     const int nb = shadow_loop_control_blocks(H);
-    head_min_kernel<<<nb, THREADS, 0, st>>>(H, E, ht, head, partial, ctl);
-    control_kernel<<<1, MAX_BLOCKS, 0, st>>>(nb, partial, ctl, start);
+    head_min_kernel<<<dim3(nb, R), THREADS, 0, st>>>(H, E, ht, head,
+                                                     partial, ctl);
+    control_kernel<<<R, MAX_BLOCKS, 0, st>>>(nb, partial, ctl, start);
     return (int)cudaGetLastError();
 }

@@ -16,7 +16,9 @@
 // `occ_heap` take their high-water marks; head resets to 0.
 //
 // Under the window loop the launch returns at once where the control
-// block's RUN word is 0 (common.cuh `Ctl`).
+// block's RUN word is 0 (common.cuh `Ctl`). The replica axis of an
+// ensemble campaign is blockIdx.y: block (h, r) merges host h of replica
+// r, from that replica's outbox and route.
 //
 // Bound on the H100: bytes (t of every heap slot and the other fields of
 // live slots read, all H*E*5 int64 written, plus the accepted arrival
@@ -44,7 +46,27 @@ __global__ void merge_heaps_kernel(
     const int64_t* __restrict__ starts, const int64_t* __restrict__ counts,
     int32_t* overflow, int32_t* occ_in, int32_t* occ_heap,
     const int64_t* ctl) {
-    if (phase_off(ctl)) return;
+    const int64_t r = blockIdx.y;
+    if (phase_off(replica_ctl(ctl, r))) return;
+    // replica r: H = gridDim.x hosts, F outbox rows
+    const int64_t rh = r * gridDim.x;
+    ht += rh * E;
+    hk += rh * E;
+    hm += rh * E;
+    hv += rh * E;
+    hw += rh * E;
+    head += rh;
+    ob_t += r * F;
+    ob_k += r * F;
+    ob_m += r * F;
+    ob_s += r * F;
+    ob_v += r * F;
+    perm += r * F;
+    starts += rh;
+    counts += rh;
+    overflow += rh;
+    occ_in += rh;
+    occ_heap += rh;
     extern __shared__ int64_t smem[];
     int64_t* st = smem;                 // [W2] time
     int64_t* sk = st + W2;              // [W2] key
@@ -158,12 +180,13 @@ __global__ void merge_heaps_kernel(
 }  // namespace
 
 extern "C" int shadow_merge_heaps(
-    int H, int E, int IN, long long F, int64_t* ht, int64_t* hk,
+    int R, int H, int E, int IN, long long F, int64_t* ht, int64_t* hk,
     int64_t* hm, int64_t* hv, int64_t* hw, int32_t* head,
     const int64_t* ob_t, const int64_t* ob_k, const int64_t* ob_m,
     const int64_t* ob_s, const int64_t* ob_v, const int64_t* perm,
     const int64_t* starts, const int64_t* counts, int32_t* overflow,
     int32_t* occ_in, int32_t* occ_heap, const int64_t* ctl, void* stream) {
+    if (R < 1 || R > 65535) return (int)cudaErrorInvalidValue;
     int W2 = 1;
     while (W2 < E + IN) W2 <<= 1;
     const size_t smem = sizeof(int64_t) * (2 * (size_t)W2 + 3 * (size_t)E) +
@@ -176,7 +199,8 @@ extern "C" int shadow_merge_heaps(
     }
     if (H > 0) {
         const int threads = W2 < 256 ? W2 : 256;
-        merge_heaps_kernel<<<H, threads, smem, (cudaStream_t)stream>>>(
+        merge_heaps_kernel<<<dim3(H, R), threads, smem,
+                             (cudaStream_t)stream>>>(
             E, IN, W2, (int64_t)F, ht, hk, hm, hv, hw, head, ob_t, ob_k,
             ob_m, ob_s, ob_v, perm, starts, counts, overflow, occ_in,
             occ_heap, ctl);

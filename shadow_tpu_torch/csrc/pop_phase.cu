@@ -85,6 +85,18 @@
 // (common.cuh `Ctl`; a captured CUDA graph cannot take it by value) and
 // returns at once where its RUN word is 0.
 //
+// The replica axis of an ensemble campaign (shadow_tpu/device/engine.py
+// `_run_ens_shard`, a vmap of the whole window loop over [R, ...] state
+// and worlds) is blockIdx.y: replica r's thread for host h reads and
+// writes state row g = r * H + h (heaps, counters, app words, NIC and
+// audit leaves, outbox), reads control block r and takes the seed key
+// and the path tables of replica r (topo.cuh `at_replica`), once, before
+// the pop loop; the app's columns, the bandwidths, the law table and
+// Tor's route key are shared, and h stays the host's id. The pointers
+// stay kernel parameters (offsetting them cost the standalone pops up
+// to 13%, PERF.md). The body is the standalone pop: a replica's result
+// does not depend on R or on the other replicas.
+//
 // Bound on the H100: bytes. Per host it reads the popped heap rows and a
 // few counters and writes its outbox row: t of every column, which marks
 // the unused ones, and five fields per send or timer. It writes all five
@@ -104,16 +116,15 @@
 
 namespace shadow {
 
-// The model NIC's arguments: its [H] int64 leaves, the hosts'
-// bandwidths, the CoDel law table, the counters the in-step judge adds
-// to, the drop key's seed and the path-counter flag. mb = 0: no NIC,
-// every pointer null. Outside the unnamed namespace: the C entry points
-// take it, and a type of internal linkage in their signatures would
-// give them internal linkage too.
+// The model NIC's arguments: its [R,H] int64 leaves, the hosts'
+// bandwidths, the CoDel law table, the [R,H] counters the in-step judge
+// adds to and the path-counter flag (the drop key's seed is the
+// replica's). mb = 0: no NIC, every pointer null. Outside the unnamed
+// namespace: the C entry points take it, and a type of internal linkage
+// in their signatures would give them internal linkage too.
 struct NicArgs {
     int mb, cp;
     long long boot_end;
-    unsigned seed1, seed2;
     int64_t *tx_free, *rx_free, *cd_fa, *cd_next, *cd_cnt, *cd_last,
         *cd_drop;
     const int64_t *bw_up, *bw_down, *law;
@@ -375,23 +386,23 @@ struct Lanes {
 // PHOLD: boot sends msgload messages, a packet one; each send draws one
 // u32 for its peer, (self + 1 + bits % (n-1)) % n.
 struct PholdApp {
-    int32_t* app;           // [H,1] received count
-    int32_t* app_seq;       // [H] draws consumed
+    int32_t* app;           // [R,H,1] received count
+    int32_t* app_seq;       // [R,H] draws consumed
     uint32_t n;
     int msgload, size, selfloop;
-    Key seed;
 
     struct Host {
         uint32_t received, as;
         Key key;
     };
-    __device__ Host load(int h) const {
-        return Host{(uint32_t)app[h], (uint32_t)app_seq[h],
+    // host h's state at row g, its draws keyed by the replica's seed
+    __device__ Host load(int64_t g, int h, Key seed) const {
+        return Host{(uint32_t)app[g], (uint32_t)app_seq[g],
                     purpose_id_key(seed, PURPOSE_APP, (uint32_t)h)};
     }
-    __device__ void store(int h, const Host& st) const {
-        app[h] = (int32_t)st.received;
-        app_seq[h] = (int32_t)st.as;
+    __device__ void store(int64_t g, const Host& st) const {
+        app[g] = (int32_t)st.received;
+        app_seq[g] = (int32_t)st.as;
     }
     __device__ bool burst(const Host&) const { return false; }
     template <class Out>
@@ -494,13 +505,13 @@ struct TgenApp {
     struct Host {
         int32_t w[7];
     };
-    __device__ Host load(int h) const {
+    __device__ Host load(int64_t g, int, Key) const {
         Host st;
-        for (int i = 0; i < 7; ++i) st.w[i] = app[(int64_t)h * 7 + i];
+        for (int i = 0; i < 7; ++i) st.w[i] = app[g * 7 + i];
         return st;
     }
-    __device__ void store(int h, const Host& st) const {
-        for (int i = 0; i < 7; ++i) app[(int64_t)h * 7 + i] = st.w[i];
+    __device__ void store(int64_t g, const Host& st) const {
+        for (int i = 0; i < 7; ++i) app[g * 7 + i] = st.w[i];
     }
     // servers are stateless responders
     __device__ bool burst(const Host& st) const { return st.w[0] == 0; }
@@ -567,13 +578,14 @@ struct TorApp {
     struct Host {
         int32_t w[6];
     };
-    __device__ Host load(int h) const {
+    // the route key is shared: a Tor campaign does not sweep seeds
+    __device__ Host load(int64_t g, int, Key) const {
         Host st;
-        for (int i = 0; i < 6; ++i) st.w[i] = app[(int64_t)h * 6 + i];
+        for (int i = 0; i < 6; ++i) st.w[i] = app[g * 6 + i];
         return st;
     }
-    __device__ void store(int h, const Host& st) const {
-        for (int i = 0; i < 6; ++i) app[(int64_t)h * 6 + i] = st.w[i];
+    __device__ void store(int64_t g, const Host& st) const {
+        for (int i = 0; i < 6; ++i) app[g * 6 + i] = st.w[i];
     }
     // relays are stateless responders
     __device__ bool burst(const Host& st) const { return st.w[0] == 0; }
@@ -668,7 +680,8 @@ struct TorApp {
 
 struct PopArgs {
     int H, E, K, T, P, B, C;
-    const int64_t* ctl;     // the loop's control block
+    const int64_t* ctl;     // the loop's control blocks [R, CTL_N]
+    const int64_t* seed_key;    // [R, 2]
     const int64_t *ht, *hk, *hm, *hv, *hw;
     int32_t *head, *event_seq, *packet_seq, *n_exec, *n_deliv;
     int64_t* chk;
@@ -692,15 +705,37 @@ AudArg<AUD> aud_arg(int32_t* aud, int64_t* aud_t) {
         return Absent{};
 }
 
+// Blocks of POP_THREADS an SM must hold: the register cap each
+// instantiation compiles to. The replica's seed, tables and row index
+// raised the pops' registers (tgen's 64 -> 80) and cost them resident
+// warps and time at R = 1 (PERF.md); the cap restores the standalone
+// occupancy: 10 blocks (48 registers) for PHOLD, 8 (64) for tgen and
+// Tor; the model NIC's and the epoch views' instantiations, which need
+// more, keep their own.
+constexpr int POP_THREADS = 128;
+template <class App, class Topo, bool MB>
+constexpr int pop_min_blocks() {
+    if (MB || Topo::EPOCHS) return 4;
+    return std::is_same_v<App, PholdApp> ? 10 : 8;
+}
+
 template <class App, class Topo, bool MB, bool AUD>
-__global__ void pop_kernel(PopArgs a, App app, Topo topo, NicArgs na,
-                           AudArg<AUD> au) {
+__global__ void __launch_bounds__(POP_THREADS,
+                                  pop_min_blocks<App, Topo, MB>())
+pop_kernel(PopArgs a, App app, Topo topo0, TopoStrides rs, NicArgs na,
+           AudArg<AUD> au) {
     const int h = blockIdx.x * blockDim.x + threadIdx.x;
-    if (h >= a.H || a.ctl[CTL_RUN] == 0) return;
-    const int64_t win_end = a.ctl[CTL_WIN_END];
+    const int64_t r = blockIdx.y;
+    const int64_t* ctl = a.ctl + r * CTL_N;
+    if (h >= a.H || ctl[CTL_RUN] == 0) return;
+    const int64_t win_end = ctl[CTL_WIN_END];
     const int M = a.K + a.T + (MB ? 1 : 0);
     const int OB = a.B * M;
-    const int64_t row = (int64_t)h * OB;
+    // replica r: host h's state row, its seed and tables
+    const int64_t g = r * a.H + h;
+    const Key seed = replica_seed(a.seed_key, r);
+    const Topo topo = topo0.at_replica(r, rs);
+    const int64_t row = g * OB;
     for (int c = 0; c < OB; ++c) {
         a.ob_t[row + c] = INF;
         a.ob_k[row + c] = 0;
@@ -708,7 +743,7 @@ __global__ void pop_kernel(PopArgs a, App app, Topo topo, NicArgs na,
         a.ob_s[row + c] = 0;
         a.ob_v[row + c] = 0;
     }
-    const int64_t hrow = (int64_t)h * a.E;
+    const int64_t hrow = g * a.E;
     Lanes<Topo, MB> out{};
     out.t = a.ob_t;
     out.k = a.ob_k;
@@ -720,8 +755,8 @@ __global__ void pop_kernel(PopArgs a, App app, Topo topo, NicArgs na,
     out.T = a.T;
     out.C = a.C;
     out.h = (uint32_t)h;
-    out.es = (uint32_t)a.event_seq[h];
-    out.ps = (uint32_t)a.packet_seq[h];
+    out.es = (uint32_t)a.event_seq[g];
+    out.ps = (uint32_t)a.packet_seq[g];
     out.win_end = win_end;
     out.vtx = a.host_vertex[h];
     if constexpr (Topo::EPOCHS || MB) out.topo = topo;
@@ -731,23 +766,23 @@ __global__ void pop_kernel(PopArgs a, App app, Topo topo, NicArgs na,
         out.x.H = a.H;
         out.x.cp = na.cp != 0;
         out.x.boot_end = (int64_t)na.boot_end;
-        out.x.drop_key = purpose_id_key(Key{na.seed1, na.seed2},
-                                        PURPOSE_PACKET_DROP, (uint32_t)h);
+        out.x.drop_key = purpose_id_key(seed, PURPOSE_PACKET_DROP,
+                                        (uint32_t)h);
         out.x.law = na.law;
-        out.x.nic = Nic{na.tx_free[h], na.rx_free[h], na.cd_fa[h],
-                        na.cd_next[h], na.cd_cnt[h], na.cd_last[h],
-                        na.cd_drop[h], na.bw_up[h], na.bw_down[h], 0, 0};
+        out.x.nic = Nic{na.tx_free[g], na.rx_free[g], na.cd_fa[g],
+                        na.cd_next[g], na.cd_cnt[g], na.cd_last[g],
+                        na.cd_drop[g], na.bw_up[h], na.bw_down[h], 0, 0};
     }
-    typename App::Host st = app.load(h);
-    int hd = a.head[h];
-    uint32_t ne = (uint32_t)a.n_exec[h];
-    uint32_t nd = (uint32_t)a.n_deliv[h];
-    uint64_t c = (uint64_t)a.chk[h];
+    typename App::Host st = app.load(g, h, seed);
+    int hd = a.head[g];
+    uint32_t ne = (uint32_t)a.n_exec[g];
+    uint32_t nd = (uint32_t)a.n_deliv[g];
+    uint64_t c = (uint64_t)a.chk[g];
     int32_t aud = 0;
     int64_t aud_t = 0;
     if constexpr (AUD) {
-        aud = au.aud[h];
-        aud_t = au.aud_t[h];
+        aud = au.aud[g];
+        aud_t = au.aud_t[g];
     }
     // deliveries count on the pops the app sees as packets
     const int32_t deliv_kind = MB ? KIND_PACKET_READY : KIND_PACKET;
@@ -812,55 +847,58 @@ __global__ void pop_kernel(PopArgs a, App app, Topo topo, NicArgs na,
         out.end_iteration();
         hd += n;
     }
-    app.store(h, st);
-    a.head[h] = hd;
-    a.event_seq[h] = (int32_t)out.es;
-    a.packet_seq[h] = (int32_t)out.ps;
-    a.n_exec[h] = (int32_t)ne;
-    a.n_deliv[h] = (int32_t)nd;
-    a.chk[h] = (int64_t)c;
-    a.pops[h] = blk;
+    app.store(g, st);
+    a.head[g] = hd;
+    a.event_seq[g] = (int32_t)out.es;
+    a.packet_seq[g] = (int32_t)out.ps;
+    a.n_exec[g] = (int32_t)ne;
+    a.n_deliv[g] = (int32_t)nd;
+    a.chk[g] = (int64_t)c;
+    a.pops[g] = blk;
     if constexpr (AUD) {
-        au.aud[h] = aud;
-        au.aud_t[h] = aud_t;
+        au.aud[g] = aud;
+        au.aud_t[g] = aud_t;
     }
     if constexpr (MB) {
         const Nic& n = out.x.nic;
-        na.tx_free[h] = n.tx_free;
-        na.rx_free[h] = n.rx_free;
-        na.cd_fa[h] = n.cd_fa;
-        na.cd_next[h] = n.cd_next;
-        na.cd_cnt[h] = n.cd_cnt;
-        na.cd_last[h] = n.cd_last;
-        na.cd_drop[h] = n.cd_drop;
-        na.n_sent[h] += n.sent;
-        na.n_drop[h] += n.lost;
+        na.tx_free[g] = n.tx_free;
+        na.rx_free[g] = n.rx_free;
+        na.cd_fa[g] = n.cd_fa;
+        na.cd_next[g] = n.cd_next;
+        na.cd_cnt[g] = n.cd_cnt;
+        na.cd_last[g] = n.cd_last;
+        na.cd_drop[g] = n.cd_drop;
+        na.n_sent[g] += n.sent;
+        na.n_drop[g] += n.lost;
     }
 }
 
 // Launch the instantiation the tables and the NIC flag select (audited
-// in this unit where SHADOW_POP_AUDIT is set, which needs both leaves).
+// in this unit where SHADOW_POP_AUDIT is set, which needs both leaves),
+// one grid row of blocks per replica.
 template <class App>
-int launch(const PopArgs& a, const App& app, const TopoArgs* topo,
+int launch(int R, const PopArgs& a, const App& app, const TopoArgs* topo,
            const NicArgs* nic, int32_t* aud, int64_t* aud_t,
            void* stream) {
-    if (!topo_ok(topo) || !nic_ok(nic) || (nic->mb && a.P != 1) ||
-        a.ctl == nullptr || (AUDIT != (aud != nullptr && aud_t != nullptr)))
+    if (R < 1 || R > 65535 || !topo_ok(topo) || !nic_ok(nic) ||
+        (nic->mb && a.P != 1) || a.ctl == nullptr || a.seed_key == nullptr ||
+        (AUDIT != (aud != nullptr && aud_t != nullptr)))
         return (int)cudaErrorInvalidValue;
     const AudArg<AUDIT> au = aud_arg<AUDIT>(aud, aud_t);
+    const TopoStrides rs = topo_strides(*topo);
     if (a.H > 0) {
-        const int threads = 128;
-        const int blocks = (a.H + threads - 1) / threads;
+        const int threads = POP_THREADS;
+        const dim3 grid((a.H + threads - 1) / threads, R);
         with_topo(*topo, [&](auto view) {
             using Topo = decltype(view);
             if (nic->mb)
                 pop_kernel<App, Topo, true, AUDIT>
-                    <<<blocks, threads, 0, (cudaStream_t)stream>>>(
-                        a, app, view, *nic, au);
+                    <<<grid, threads, 0, (cudaStream_t)stream>>>(
+                        a, app, view, rs, *nic, au);
             else
                 pop_kernel<App, Topo, false, AUDIT>
-                    <<<blocks, threads, 0, (cudaStream_t)stream>>>(
-                        a, app, view, *nic, au);
+                    <<<grid, threads, 0, (cudaStream_t)stream>>>(
+                        a, app, view, rs, *nic, au);
         });
     }
     return (int)cudaGetLastError();
@@ -869,65 +907,67 @@ int launch(const PopArgs& a, const App& app, const TopoArgs* topo,
 }  // namespace
 
 extern "C" int POP_ENTRY(shadow_pop_phase)(
-    int H, int E, int K, int B,
+    int R, int H, int E, int K, int B,
     const int64_t* ht, const int64_t* hk, const int64_t* hm,
     const int64_t* hv, const int64_t* hw,
     int32_t* head, int32_t* event_seq, int32_t* packet_seq,
     int32_t* app_seq, int32_t* app, int32_t* n_exec, int32_t* n_deliv,
     int64_t* chk, const int32_t* host_vertex, const TopoArgs* topo,
-    const NicArgs* nic, unsigned seed1, unsigned seed2, int n_total,
+    const NicArgs* nic, const int64_t* seed_key, int n_total,
     int msgload, int size,
     int selfloop, int64_t* ob_t, int64_t* ob_k, int64_t* ob_m,
     int64_t* ob_s, int64_t* ob_v, int32_t* pops, int32_t* aud,
     int64_t* aud_t, const int64_t* ctl, void* stream) {
-    const PopArgs a{H, E, K, 0, 1, B, 1, ctl,
+    const PopArgs a{H, E, K, 0, 1, B, 1, ctl, seed_key,
                     ht, hk, hm, hv, hw, head, event_seq, packet_seq,
                     n_exec, n_deliv, chk, host_vertex,
                     ob_t, ob_k, ob_m, ob_s, ob_v, pops};
     const PholdApp p{app, app_seq, (uint32_t)n_total, msgload, size,
-                     selfloop, Key{seed1, seed2}};
-    return launch(a, p, topo, nic, aud, aud_t, stream);
+                     selfloop};
+    return launch(R, a, p, topo, nic, aud, aud_t, stream);
 }
 
 extern "C" int POP_ENTRY(shadow_pop_tgen)(
-    int H, int E, int K, int T, int P, int B, int C,
+    int R, int H, int E, int K, int T, int P, int B, int C,
     const int64_t* ht, const int64_t* hk, const int64_t* hm,
     const int64_t* hv, const int64_t* hw,
     int32_t* head, int32_t* event_seq, int32_t* packet_seq, int32_t* app,
     int32_t* n_exec, int32_t* n_deliv, int64_t* chk,
     const int32_t* host_vertex, const TopoArgs* topo, const NicArgs* nic,
+    const int64_t* seed_key,
     const int32_t* count, const int64_t* pause, const int64_t* retry,
     int npkts, int last_sz, int chunk, int mss, int64_t* ob_t,
     int64_t* ob_k,
     int64_t* ob_m, int64_t* ob_s, int64_t* ob_v, int32_t* pops,
     int32_t* aud, int64_t* aud_t, const int64_t* ctl, void* stream) {
     if (T > 1 || C > 32) return (int)cudaErrorInvalidValue;
-    const PopArgs a{H, E, K, T, P, B, C, ctl,
+    const PopArgs a{H, E, K, T, P, B, C, ctl, seed_key,
                     ht, hk, hm, hv, hw, head, event_seq, packet_seq,
                     n_exec, n_deliv, chk, host_vertex,
                     ob_t, ob_k, ob_m, ob_s, ob_v, pops};
     const TgenApp g{app, count, pause, retry, npkts, last_sz, chunk, mss};
-    return launch(a, g, topo, nic, aud, aud_t, stream);
+    return launch(R, a, g, topo, nic, aud, aud_t, stream);
 }
 
 extern "C" int POP_ENTRY(shadow_pop_tor)(
-    int H, int E, int K, int T, int P, int B, int C,
+    int R, int H, int E, int K, int T, int P, int B, int C,
     const int64_t* ht, const int64_t* hk, const int64_t* hm,
     const int64_t* hv, const int64_t* hw,
     int32_t* head, int32_t* event_seq, int32_t* packet_seq, int32_t* app,
     int32_t* n_exec, int32_t* n_deliv, int64_t* chk,
     const int32_t* host_vertex, const TopoArgs* topo, const NicArgs* nic,
+    const int64_t* seed_key,
     const int32_t* count, const int64_t* pause, const int64_t* retry,
-    const int32_t* relay_gids, int R, unsigned route_k1,
+    const int32_t* relay_gids, int n_relays, unsigned route_k1,
     unsigned route_k2, int cells, int64_t* ob_t, int64_t* ob_k,
     int64_t* ob_m, int64_t* ob_s, int64_t* ob_v, int32_t* pops,
     int32_t* aud, int64_t* aud_t, const int64_t* ctl, void* stream) {
-    if (T > 1 || C > 32 || R < 3) return (int)cudaErrorInvalidValue;
-    const PopArgs a{H, E, K, T, P, B, C, ctl,
+    if (T > 1 || C > 32 || n_relays < 3) return (int)cudaErrorInvalidValue;
+    const PopArgs a{H, E, K, T, P, B, C, ctl, seed_key,
                     ht, hk, hm, hv, hw, head, event_seq, packet_seq,
                     n_exec, n_deliv, chk, host_vertex,
                     ob_t, ob_k, ob_m, ob_s, ob_v, pops};
-    const TorApp t{app, count, pause, retry, relay_gids, (uint32_t)R,
-                   Key{route_k1, route_k2}, cells};
-    return launch(a, t, topo, nic, aud, aud_t, stream);
+    const TorApp t{app, count, pause, retry, relay_gids,
+                   (uint32_t)n_relays, Key{route_k1, route_k2}, cells};
+    return launch(R, a, t, topo, nic, aud, aud_t, stream);
 }

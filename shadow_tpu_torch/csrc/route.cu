@@ -27,6 +27,13 @@
 // counts still runs, which is harmless: only the guarded merge reads
 // them.
 //
+// The replica axis of an ensemble campaign is blockIdx.y of every
+// kernel: a scan per replica, over its own outbox [H,OB], counts,
+// starts, perm, scattered rows, cursors and block sums (each [R, ...]);
+// perm holds flat indices within the replica's outbox. Replica r's rows
+// are indexed from r * H (per host) and r * F (per row); the pointers
+// stay kernel parameters.
+//
 // Bound on the H100: bytes (t of every row, m of live rows, perm of live
 // rows written, starts and counts written); the scratch traffic (the
 // scattered indices read back by the segment sort) is above it.
@@ -55,23 +62,28 @@ __global__ void count_kernel(int H, int64_t F,
                              const int64_t* __restrict__ ob_m,
                              unsigned long long* counts,
                              const int64_t* ctl) {
-    if (phase_off(ctl)) return;
+    const int64_t r = blockIdx.y;
+    if (phase_off(replica_ctl(ctl, r))) return;
     const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
     int d;
-    if (i < F && live_dst(ob_t, ob_m, i, H, &d)) atomicAdd(&counts[d], 1ull);
+    if (i < F && live_dst(ob_t, ob_m, r * F + i, H, &d))
+        atomicAdd(&counts[r * H + d], 1ull);
 }
 
 // exclusive scan of SCAN_BLOCK counts per block; block totals out
-__global__ void scan_blocks_kernel(int H, const int64_t* __restrict__ counts,
+__global__ void scan_blocks_kernel(int H, int nb,
+                                   const int64_t* __restrict__ counts,
                                    int64_t* starts, int64_t* block_sums,
                                    const int64_t* ctl) {
-    if (phase_off(ctl)) return;
+    const int64_t r = blockIdx.y;
+    if (phase_off(replica_ctl(ctl, r))) return;
+    const int64_t rh = r * H;
     __shared__ int64_t sm[SCAN_THREADS];
     const int tid = threadIdx.x;
     const int64_t base = (int64_t)blockIdx.x * SCAN_BLOCK + tid * 4;
     int64_t v[4], sum = 0;
     for (int j = 0; j < 4; ++j) {
-        v[j] = base + j < H ? counts[base + j] : 0;
+        v[j] = base + j < H ? counts[rh + base + j] : 0;
         sum += v[j];
     }
     sm[tid] = sum;
@@ -85,16 +97,18 @@ __global__ void scan_blocks_kernel(int H, const int64_t* __restrict__ counts,
     }
     int64_t run = sm[tid] - sum;
     for (int j = 0; j < 4; ++j) {
-        if (base + j < H) starts[base + j] = run;
+        if (base + j < H) starts[rh + base + j] = run;
         run += v[j];
     }
-    if (tid == SCAN_THREADS - 1) block_sums[blockIdx.x] = sm[tid];
+    if (tid == SCAN_THREADS - 1) block_sums[r * nb + blockIdx.x] = sm[tid];
 }
 
 // exclusive scan of the block totals in place, one block, chunk by chunk
 __global__ void scan_sums_kernel(int nb, int64_t* block_sums,
                                  const int64_t* ctl) {
-    if (phase_off(ctl)) return;
+    const int64_t r = blockIdx.y;
+    if (phase_off(replica_ctl(ctl, r))) return;
+    const int64_t rb = r * nb;
     __shared__ int64_t sm[SCAN_THREADS];
     __shared__ int64_t carry;
     const int tid = threadIdx.x;
@@ -102,7 +116,7 @@ __global__ void scan_sums_kernel(int nb, int64_t* block_sums,
     __syncthreads();
     for (int base = 0; base < nb; base += SCAN_THREADS) {
         const int i = base + tid;
-        const int64_t x0 = i < nb ? block_sums[i] : 0;
+        const int64_t x0 = i < nb ? block_sums[rb + i] : 0;
         sm[tid] = x0;
         __syncthreads();
         for (int off = 1; off < SCAN_THREADS; off <<= 1) {
@@ -111,22 +125,25 @@ __global__ void scan_sums_kernel(int nb, int64_t* block_sums,
             sm[tid] += x;
             __syncthreads();
         }
-        if (i < nb) block_sums[i] = carry + sm[tid] - x0;
+        if (i < nb) block_sums[rb + i] = carry + sm[tid] - x0;
         __syncthreads();
         if (tid == SCAN_THREADS - 1) carry += sm[tid];
         __syncthreads();
     }
 }
 
-__global__ void add_back_kernel(int H, const int64_t* __restrict__ block_sums,
+__global__ void add_back_kernel(int H, int nb,
+                                const int64_t* __restrict__ block_sums,
                                 int64_t* starts, int64_t* cursor,
                                 const int64_t* ctl) {
-    if (phase_off(ctl)) return;
+    const int64_t r = blockIdx.y;
+    if (phase_off(replica_ctl(ctl, r))) return;
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= H) return;
-    const int64_t s = starts[i] + block_sums[i / SCAN_BLOCK];
-    starts[i] = s;
-    cursor[i] = s;
+    const int64_t g = r * H + i;
+    const int64_t s = starts[g] + block_sums[r * nb + i / SCAN_BLOCK];
+    starts[g] = s;
+    cursor[g] = s;
 }
 
 __global__ void scatter_kernel(int H, int64_t F,
@@ -135,25 +152,29 @@ __global__ void scatter_kernel(int H, int64_t F,
                                unsigned long long* cursor,
                                int64_t* scattered,
                                const int64_t* ctl) {
-    if (phase_off(ctl)) return;
+    const int64_t r = blockIdx.y;
+    if (phase_off(replica_ctl(ctl, r))) return;
     const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
     int d;
-    if (i < F && live_dst(ob_t, ob_m, i, H, &d))
-        scattered[atomicAdd(&cursor[d], 1ull)] = i;
+    if (i < F && live_dst(ob_t, ob_m, r * F + i, H, &d))
+        scattered[r * F + (int64_t)atomicAdd(&cursor[r * H + d], 1ull)] = i;
 }
 
 // segments of at most SHORT rows: one thread, an insertion sort
-__global__ void sort_short_kernel(int H, const int64_t* __restrict__ starts,
+__global__ void sort_short_kernel(int H, int64_t F,
+                                  const int64_t* __restrict__ starts,
                                   const int64_t* __restrict__ counts,
                                   const int64_t* __restrict__ scattered,
                                   int64_t* perm,
                                   const int64_t* ctl) {
-    if (phase_off(ctl)) return;
+    const int64_t r = blockIdx.y;
+    if (phase_off(replica_ctl(ctl, r))) return;
     const int d = blockIdx.x * blockDim.x + threadIdx.x;
     if (d >= H) return;
-    const int64_t n = counts[d];
+    const int64_t n = counts[r * H + d];
     if (n == 0 || n > SHORT) return;
-    const int64_t s = starts[d];
+    // the segment's first row, replica r's rows from r * F
+    const int64_t s = r * F + starts[r * H + d];
     int64_t x[SHORT];
 #pragma unroll
     for (int i = 0; i < SHORT; ++i) x[i] = i < n ? scattered[s + i] : IMAX;
@@ -172,69 +193,99 @@ __global__ void sort_short_kernel(int H, const int64_t* __restrict__ starts,
         if (i < n) perm[s + i] = x[i];
 }
 
-// longer segments: one block each (grid-strided over destinations), a
-// rank sort: row i goes to its segment's start plus the number of the
-// segment's flat indices below its own
-__global__ void sort_long_kernel(int H, const int64_t* __restrict__ starts,
+// longer segments: a block owns every gridDim.x-th destination (so that
+// neighbouring hot destinations go to different blocks), reads the counts
+// of LONG_THREADS of them at once, lists the long ones in shared memory
+// and rank-sorts each in turn: row i goes to its segment's start plus the
+// number of the segment's flat indices below its own. (Stepping one
+// destination at a time, a block waited on each count's load in turn.)
+constexpr int LONG_THREADS = 256;
+
+__global__ void sort_long_kernel(int H, int64_t F,
+                                 const int64_t* __restrict__ starts,
                                  const int64_t* __restrict__ counts,
                                  const int64_t* __restrict__ scattered,
                                  int64_t* perm,
                                  const int64_t* ctl) {
-    if (phase_off(ctl)) return;
+    const int64_t r = blockIdx.y;
+    if (phase_off(replica_ctl(ctl, r))) return;
+    const int64_t rh = r * H;
     __shared__ int64_t tile[TILE];
-    for (int d = blockIdx.x; d < H; d += gridDim.x) {
-        const int64_t n = counts[d];
-        if (n <= SHORT) continue;
-        const int64_t s = starts[d];
-        for (int64_t i0 = 0; i0 < n; i0 += blockDim.x) {
-            const int64_t i = i0 + threadIdx.x;
-            const int64_t x = i < n ? scattered[s + i] : IMAX;
-            int64_t rank = 0;
-            for (int64_t b = 0; b < n; b += TILE) {
-                const int64_t w = n - b < TILE ? n - b : TILE;
-                for (int k = threadIdx.x; k < w; k += blockDim.x)
-                    tile[k] = scattered[s + b + k];
-                __syncthreads();
-                for (int k = 0; k < w; ++k) rank += tile[k] < x;
-                __syncthreads();
+    __shared__ int found[LONG_THREADS];
+    __shared__ int n_found;
+    for (int64_t k0 = 0; blockIdx.x + k0 * gridDim.x < H;
+         k0 += LONG_THREADS) {
+        if (threadIdx.x == 0) n_found = 0;
+        __syncthreads();
+        const int64_t d = blockIdx.x + (k0 + threadIdx.x) * gridDim.x;
+        if (d < H && counts[rh + d] > SHORT)
+            found[atomicAdd(&n_found, 1)] = (int)d;
+        __syncthreads();
+        const int nf = n_found;
+        for (int f = 0; f < nf; ++f) {
+            const int dd = found[f];
+            const int64_t n = counts[rh + dd];
+            // the segment's first row, replica r's rows from r * F
+            const int64_t s = r * F + starts[rh + dd];
+            for (int64_t i0 = 0; i0 < n; i0 += LONG_THREADS) {
+                const int64_t i = i0 + threadIdx.x;
+                const int64_t x = i < n ? scattered[s + i] : IMAX;
+                int64_t rank = 0;
+                for (int64_t b = 0; b < n; b += TILE) {
+                    const int64_t w = n - b < TILE ? n - b : TILE;
+                    for (int k = threadIdx.x; k < w; k += LONG_THREADS)
+                        tile[k] = scattered[s + b + k];
+                    __syncthreads();
+                    for (int k = 0; k < w; ++k) rank += tile[k] < x;
+                    __syncthreads();
+                }
+                if (i < n) perm[s + rank] = x;
             }
-            if (i < n) perm[s + rank] = x;
         }
+        __syncthreads();
     }
 }
 
 }  // namespace
 
-extern "C" int shadow_route(int H, int OB, const int64_t* ob_t,
+// The block sums hold at least route_scan_blocks(H) int64 a replica.
+extern "C" int shadow_route_scan_blocks(int H) {
+    return (H + SCAN_BLOCK - 1) / SCAN_BLOCK;
+}
+
+extern "C" int shadow_route(int R, int H, int OB, const int64_t* ob_t,
                             const int64_t* ob_m, int64_t* perm,
                             int64_t* starts, int64_t* counts,
                             int64_t* scattered, int64_t* cursor,
                             int64_t* block_sums, const int64_t* ctl,
                             void* stream) {
-    // scattered holds H*OB entries, cursor H, block_sums at least
-    // ceil(H / SCAN_BLOCK)
+    // a replica's scattered rows are H*OB entries, its cursor H, its
+    // block sums shadow_route_scan_blocks(H)
+    if (R < 1 || R > 65535) return (int)cudaErrorInvalidValue;
     if (H <= 0) return (int)cudaGetLastError();
     cudaStream_t st = (cudaStream_t)stream;
     const int64_t F = (int64_t)H * OB;
     const int threads = 256;
-    const unsigned rows_grid = (unsigned)((F + threads - 1) / threads);
-    const unsigned host_grid = (unsigned)((H + threads - 1) / threads);
-    const int nb = (H + SCAN_BLOCK - 1) / SCAN_BLOCK;
-    cudaError_t err = cudaMemsetAsync(counts, 0, sizeof(int64_t) * H, st);
+    const dim3 rows_grid((unsigned)((F + threads - 1) / threads), R);
+    const dim3 host_grid((unsigned)((H + threads - 1) / threads), R);
+    const int nb = shadow_route_scan_blocks(H);
+    cudaError_t err =
+        cudaMemsetAsync(counts, 0, sizeof(int64_t) * H * (size_t)R, st);
     if (err != cudaSuccess) return (int)err;
     count_kernel<<<rows_grid, threads, 0, st>>>(
         H, F, ob_t, ob_m, (unsigned long long*)counts, ctl);
-    scan_blocks_kernel<<<nb, SCAN_THREADS, 0, st>>>(H, counts, starts,
-                                                     block_sums, ctl);
-    scan_sums_kernel<<<1, SCAN_THREADS, 0, st>>>(nb, block_sums, ctl);
-    add_back_kernel<<<host_grid, threads, 0, st>>>(H, block_sums, starts,
-                                                   cursor, ctl);
+    scan_blocks_kernel<<<dim3(nb, R), SCAN_THREADS, 0, st>>>(
+        H, nb, counts, starts, block_sums, ctl);
+    scan_sums_kernel<<<dim3(1, R), SCAN_THREADS, 0, st>>>(nb, block_sums,
+                                                          ctl);
+    add_back_kernel<<<host_grid, threads, 0, st>>>(H, nb, block_sums,
+                                                   starts, cursor, ctl);
     scatter_kernel<<<rows_grid, threads, 0, st>>>(
         H, F, ob_t, ob_m, (unsigned long long*)cursor, scattered, ctl);
-    sort_short_kernel<<<host_grid, threads, 0, st>>>(H, starts, counts,
+    sort_short_kernel<<<host_grid, threads, 0, st>>>(H, F, starts, counts,
                                                      scattered, perm, ctl);
     const int long_grid = H < 1024 ? H : 1024;
-    sort_long_kernel<<<long_grid, 256, 0, st>>>(H, starts, counts,
-                                                scattered, perm, ctl);
+    sort_long_kernel<<<dim3(long_grid, R), LONG_THREADS, 0, st>>>(
+        H, F, starts, counts, scattered, perm, ctl);
     return (int)cudaGetLastError();
 }

@@ -58,4 +58,10 @@ __device__ __forceinline__ Key purpose_id_key(Key seed, uint32_t purpose,
     return fold_in(fold_in(seed, purpose), id);
 }
 
+// A replica's seed key, from the campaign's [R, 2] int64 key words
+// (ensemble/spec.py `seed_key_np`; [1, 2] for a standalone run).
+__device__ __forceinline__ Key replica_seed(const int64_t* key, int64_t r) {
+    return Key{(uint32_t)key[2 * r], (uint32_t)key[2 * r + 1]};
+}
+
 }  // namespace shadow

@@ -34,6 +34,15 @@
 // the single-epoch code with no epoch arithmetic at all, epoch() a
 // constant 0.
 //
+// Ensemble campaigns (shadow_tpu_torch/ensemble/) stack R replicas' tables
+// on a leading axis: each leaf but cl carries it ([R,(T,)V,V] dense;
+// [R,(T,)C,C] and [R,(T,)V] factored; epoch_times [R,T]), and
+// `TopoStrides` holds the elements between one replica's leaf and the
+// next's, 0 for a leaf every replica shares (cl always; every leaf of a
+// standalone run). A kernel takes the view of its replica with
+// `at_replica(r, strides)` once, before any lookup, so the lookups
+// themselves are the standalone code.
+//
 // Bound on the H100: at V = 1,000,200, C = 200 the factored tables are
 // 28.5 MB (the [V] vectors 24 MB, the core pair 320 KB), 6 epochs of the
 // changed leaves add at most 6x that, so they sit mostly in the 50 MB L2
@@ -54,17 +63,29 @@ namespace shadow {
 struct TopoArgs {
     int hier;
     int V, C, T;
-    const int64_t* epoch_times;  // [T]
-    const int32_t* lat;          // dense [(T,)V,V]
+    const int64_t* epoch_times;  // [(R,)T]
+    const int32_t* lat;          // dense [(R,)(T,)V,V]
     const float* rel;
-    const int32_t* core_lat;     // factored [(T,)C,C]
+    const int32_t* core_lat;     // factored [(R,)(T,)C,C]
     const float* core_rel;
     const int32_t* cl;           // factored [V], shared by every epoch
-    const int32_t* acc_lat;      // factored [(T,)V]
+                                 // and every replica
+    const int32_t* acc_lat;      // factored [(R,)(T,)V]
     const float* acc_rel;
     const int32_t* self_lat;
     const float* self_rel;
+    // replica strides in elements (0: shared): epoch_times, the dense
+    // pair, the core pair, the access pair, the self pair
+    long long rs_ept, rs_tab, rs_core, rs_acc, rs_self;
 };
+
+struct TopoStrides {
+    long long ept, tab, core, acc, slf;
+};
+
+inline TopoStrides topo_strides(const TopoArgs& t) {
+    return TopoStrides{t.rs_ept, t.rs_tab, t.rs_core, t.rs_acc, t.rs_self};
+}
 
 // e = (number of epoch starts <= t) - 1
 __device__ __forceinline__ int epoch_index(const int64_t* __restrict__ ept,
@@ -97,6 +118,14 @@ struct DenseTopo {
     }
     __device__ __forceinline__ int32_t self_lat(int e, int v) const {
         return lat(e, v, v);
+    }
+    __device__ __forceinline__ DenseTopo at_replica(
+        int64_t r, const TopoStrides& s) const {
+        DenseTopo v = *this;
+        v.tab_lat += r * s.tab;
+        v.tab_rel += r * s.tab;
+        v.ept += r * s.ept;
+        return v;
     }
 };
 
@@ -139,6 +168,18 @@ struct HierTopo {
     __device__ __forceinline__ int32_t self_lat(int e, int v) const {
         return __ldg(&slf_lat[vec(e, v)]);
     }
+    __device__ __forceinline__ HierTopo at_replica(
+        int64_t r, const TopoStrides& s) const {
+        HierTopo v = *this;
+        v.core_lat += r * s.core;
+        v.core_rel += r * s.core;
+        v.acc_lat += r * s.acc;
+        v.acc_rel += r * s.acc;
+        v.slf_lat += r * s.slf;
+        v.slf_rel += r * s.slf;
+        v.ept += r * s.ept;
+        return v;
+    }
 };
 
 template <bool EP>
@@ -155,7 +196,9 @@ inline HierTopo<EP> hier_topo(const TopoArgs& t) {
 
 // Whether the view `t` selects has all its tables and its epoch starts.
 inline bool topo_ok(const TopoArgs* t) {
-    if (t == nullptr || t->V <= 0 || t->T <= 0 || !t->epoch_times)
+    if (t == nullptr || t->V <= 0 || t->T <= 0 || !t->epoch_times ||
+        t->rs_ept < 0 || t->rs_tab < 0 || t->rs_core < 0 || t->rs_acc < 0 ||
+        t->rs_self < 0)
         return false;
     if (t->hier)
         return t->C > 0 && t->core_lat && t->core_rel && t->cl &&

@@ -2,7 +2,7 @@
 card's memory budget (the port's copy of the reference package's
 device/capacity.py `footprint`, `fmt_bytes`, `device_budget`,
 `admission_diagnostic` and `admission_verdict`, cut to one GPU with
-no pipeline, ensemble or degradation ladder).
+no pipeline or runtime degradation ladder).
 
 The runner calls `admission_verdict` after the build and before the
 engine allocates anything on the device. The byte model prices the
@@ -24,8 +24,14 @@ tensors the port's engine really holds:
 * the world: the host vertices, the path tables (dense [V,V], or the
   factored leaves with one shared cl vector; under a fault schedule
   each with its [T] epoch axis, cl still uploaded once), the epoch
-  start times, under the model NIC the [H] bandwidths and the CoDel
-  law table, and the app's columns.
+  start times, the seed keys, under the model NIC the [H] bandwidths
+  and the CoDel law table, and the app's columns.
+
+An ensemble campaign of R replicas (ensemble/) holds R of the state,
+the scratch and the loop's blocks, and its world stacks R of the
+tables, epoch times and seed keys; `footprint(..., replicas=k)` prices
+a batch of k of its replicas, which `admission_verdict` offers as
+`replica_batch` where the whole campaign does not fit.
 
 A captured window loop allocates nothing on the device (its graph's
 own memory lies outside PyTorch's allocator). Transient allocations of
@@ -83,32 +89,50 @@ def state_nbytes(n_hosts: int, params: PhaseParams, V: int = 0) -> int:
     return n
 
 
-def footprint(n_hosts: int, params: PhaseParams, world: dict) -> dict:
+# the world leaves an ensemble campaign stacks per replica
+REPLICA_LEAVES = ("lat", "rel", "epoch_times", "seed_key")
+
+
+def footprint(n_hosts: int, params: PhaseParams, world: dict,
+              replicas=None) -> dict:
     """The byte model of a run on one device. `world` holds the
-    arrays the engine uploads (device/engine.py `world_arrays`)."""
+    arrays the engine uploads (device/engine.py `world_arrays`, or
+    `campaign_world_arrays` for a campaign, whose R the model counts);
+    `replicas` prices a batch of that many of a campaign's replicas."""
+    ept = np.asarray(world["epoch_times"])
+    R_world = ept.shape[0] if ept.ndim == 2 else 1
+    R = R_world if replicas is None else int(replicas)
     H, OB = n_hosts, params.OB
     state = state_nbytes(H, params, n_vertices(world))
     outbox = 5 * H * OB * 8 + H * 4
     route = 2 * H * OB * 8 + 4 * H * 8
     # the control block, K9's block minima and K8's sum
     loop = (len(CTL_FIELDS) + 1024 + 1) * 8
-    seen, world_bytes = set(), 0
-    for v in world.values():
+    seen, shared, stacked = set(), 0, 0
+    for k, v in world.items():
         for a in (v if isinstance(v, tuple) else (v,)):
             if id(a) not in seen:
                 seen.add(id(a))
-                world_bytes += int(np.asarray(a).nbytes)
+                n = int(np.asarray(a).nbytes)
+                # cl, the one factored leaf a campaign shares, is the
+                # same object in both tables and counted once
+                if k in REPLICA_LEAVES and R_world > 1 and \
+                        np.asarray(a).ndim > 1:
+                    stacked += n
+                else:
+                    shared += n
+    world_bytes = shared + stacked * R // R_world
     hier = isinstance(world["lat"], tuple)
-    per_device = state + outbox + route + loop + world_bytes
+    per_device = R * (state + outbox + route + loop) + world_bytes
     return {
         "representation": "hierarchical" if hier else "dense",
         "per_device": int(per_device),
         "state_bytes": int(state),
-        "scratch_bytes": int(outbox + route),
-        "loop_bytes": int(loop),
+        "scratch_bytes": int(R * (outbox + route)),
+        "loop_bytes": int(R * loop),
         "world_bytes": int(world_bytes),
         "copies": 1,
-        "replicas": 1,
+        "replicas": int(R),
         "n_devices": 1,
     }
 
@@ -152,14 +176,17 @@ def admission_diagnostic(est: dict, budget: int, source: str) -> str:
         "capacities")
 
 
-def admission_verdict(est: dict, device: torch.device, xp) -> dict:
+def admission_verdict(est: dict, device: torch.device, xp,
+                      rescale=None) -> dict:
     """The preflight gate on a footprint estimate:
 
     * `strict` refuses an over-budget estimate (ValueError with the
       diagnostic), and a run with no budget at all;
-    * `auto` admits; over budget it admits loudly (the port has no
-      pipeline depth or replica batch to shed, so no rung to degrade
-      to);
+    * `auto` admits; over budget, for a campaign that can run in
+      sequential replica batches (`rescale(k)` estimates a batch of k
+      replicas), it halves the batch until one fits and offers it as
+      `overrides["replica_batch"]` (action "degrade"); otherwise, or
+      where no batch fits, it admits loudly (action "over");
     * `off` skips the check.
 
     Returns the verdict dict SimStats.admission carries."""
@@ -186,10 +213,22 @@ def admission_verdict(est: dict, device: torch.device, xp) -> dict:
     diag = admission_diagnostic(est, budget, source)
     if mode == "strict":
         raise ValueError(diag)
-    out["fits"] = False
-    out["action"] = "over"
-    log.warning("%s — admitting anyway (admission: auto); no rung to "
-                "degrade to", diag)
+    batch = est["replicas"]
+    while est["per_device"] > budget and rescale is not None and \
+            batch > 1:
+        batch = (batch + 1) // 2
+        out["overrides"]["replica_batch"] = batch
+        est = rescale(batch)
+    out["estimate"] = est
+    out["fits"] = est["per_device"] <= budget
+    if out["fits"]:
+        out["action"] = "degrade"
+        log.warning("%s — degraded preflight to %s (now %s per device)",
+                    diag, out["overrides"], fmt_bytes(est["per_device"]))
+    else:
+        out["action"] = "over"
+        log.warning("%s — admitting anyway (admission: auto); no rung "
+                    "left to degrade to", diag)
     return out
 
 

@@ -29,9 +29,10 @@ every window's end.
 Two loops drive the phases, with the same windows and rounds:
 
 * the Python loop (`run_python`), the plain path: the host reads the
-  minimum once per phase and writes each window's end into a control
-  block with a stream-ordered fill. It runs on the CPU, and on the card
-  in timing mode (`Kernels(timing=True)`), where each launch is timed;
+  minimum once per phase, takes K9's decisions itself
+  (kernels.control_step) and writes them into the control block with a
+  stream-ordered copy. It runs on the CPU, and on the card in timing
+  mode (`Kernels(timing=True)`), where each launch is timed;
 * the slot schedule (`run_slots`): a slot is a phase, then K9
   loop_control (the minimum and the window decisions, on the device,
   on the control block of kernels.CTL_FIELDS), then K8 under the audit.
@@ -41,6 +42,17 @@ Two loops drive the phases, with the same windows and rounds:
   slots run eagerly on the plain versions. It is the card's loop
   (`run`), and it never falls back to the Python loop: a failed
   capture or replay raises.
+
+An ensemble campaign (`ensemble=`, ensemble/spec.py `EnsembleWorlds`;
+the reference's `_run_ens_shard`, `init_ensemble_state`,
+`ensemble_worlds_device` and `run_ensemble`) runs R replicas in lockstep
+through the same loops: the state is the standalone state broadcast over
+a leading [R] axis, the world stacks the replicas' tables, epoch times
+and seed keys, each replica has its own control block, and every kernel
+takes the replica as a grid dimension. A replica whose loop is done
+changes no byte while the others run on, as the reference's vmapped
+while_loop freezes a finished replica's carry; the loop ends when every
+replica is done, and `run` returns the rounds of each.
 
 State is a dict of tensors under the reference's leaf names, so a
 state moves between the two engines as numpy arrays
@@ -64,6 +76,8 @@ state moves between the two engines as numpy arrays
                                and the rows each host produced (audit
                                only; aud_tx seeded with the boot and
                                stop rows)
+
+(each with a leading [R] axis in a campaign).
 
 Entry points run on the card unless the caller passes device="cpu";
 without a CUDA device they raise rather than fall back.
@@ -90,6 +104,7 @@ from shadow_tpu_torch.device.kernels import (
     Kernels,
     PhaseParams,
     control_block,
+    control_step,
     head_min_plain,
     n_vertices,
 )
@@ -203,7 +218,7 @@ def world_arrays(n_hosts: int,
                  host_vertex: np.ndarray, latency_ns, reliability,
                  epoch_times=None, bw_up_bits=None, bw_down_bits=None,
                  model_bandwidth: bool = False,
-                 count_paths: bool = False) -> dict:
+                 count_paths: bool = False, seed_key=None) -> dict:
     """The world's arrays as the card holds them:
 
     * the [H] host vertices;
@@ -215,7 +230,8 @@ def world_arrays(n_hosts: int,
     * `epoch_times` [T] int64 (one epoch: [0]);
     * under the model NIC the [H] int64 bandwidths (at least 1 bit/s;
       1 Gbit/s where not given) and the CoDel law table [1024] int64;
-    * the app's columns.
+    * the app's columns;
+    * where given, the run's seed key pair as [1, 2] int64.
 
     Latency leaves and cl are int32, reliability leaves float32, as the
     reference casts them; every composed latency must fit int32."""
@@ -280,6 +296,46 @@ def world_arrays(n_hosts: int,
         out["law"] = LAW
     # the app's columns: [H] client args, Tor's [R] relay ids
     out.update(app.world_columns())
+    if seed_key is not None:
+        out["seed_key"] = np.asarray([seed_key], np.int64)
+    return out
+
+
+def campaign_world_arrays(n_hosts: int, app, host_vertex: np.ndarray,
+                          ensemble, bw_up_bits=None, bw_down_bits=None,
+                          model_bandwidth: bool = False,
+                          count_paths: bool = False) -> dict:
+    """The world of an ensemble campaign (ensemble/spec.py
+    `EnsembleWorlds`): each replica's world as `world_arrays` builds a
+    standalone run's, its tables and epoch times stacked on a leading
+    [R] axis (the factored tables' cl, the same in every replica, kept
+    once), with the replicas' [R, 2] seed keys; the other leaves are
+    the standalone ones, shared."""
+    ens = ensemble
+    per = []
+    for r in range(ens.R):
+        part = ((lambda t: tuple(a[r] for a in t))
+                if isinstance(ens.latency, tuple) else (lambda t: t[r]))
+        per.append(world_arrays(
+            n_hosts, app, host_vertex, part(ens.latency),
+            part(ens.reliability), ens.epoch_times[r], bw_up_bits,
+            bw_down_bits, model_bandwidth, count_paths,
+            (int(ens.seed_k1[r]), int(ens.seed_k2[r]))))
+    out = dict(per[0])
+    if isinstance(out["lat"], tuple):
+        cl = out["lat"][1]
+        if any(not np.array_equal(w["lat"][1], cl) for w in per):
+            raise ValueError("a campaign's factored tables must share "
+                             "one cl vector")
+        for key in ("lat", "rel"):
+            out[key] = tuple(cl if i == 1 else
+                             np.stack([w[key][i] for w in per])
+                             for i in range(4))
+    else:
+        for key in ("lat", "rel"):
+            out[key] = np.stack([w[key] for w in per])
+    out["epoch_times"] = np.stack([w["epoch_times"] for w in per])
+    out["seed_key"] = np.concatenate([w["seed_key"] for w in per])
     return out
 
 
@@ -287,22 +343,35 @@ class DeviceEngine:
     """`latency_ns`/`reliability`/`epoch_times` are what
     hierarchy.world_tables gives: dense arrays or the factored part
     tuples, with a leading [T] epoch axis under a fault schedule;
-    `bw_up_bits`/`bw_down_bits` are the hosts' model-NIC bandwidths."""
+    `bw_up_bits`/`bw_down_bits` are the hosts' model-NIC bandwidths.
+    With `ensemble` (ensemble/spec.py `EnsembleWorlds`) the engine runs
+    the campaign's R replicas, whose tables, epoch times and seeds it
+    takes from there (the three table arguments are then unused)."""
 
     def __init__(self, config: EngineConfig,
                  app: Union[PholdDevice, TgenDevice, TorDevice],
                  host_vertex: np.ndarray, latency_ns, reliability,
                  device="cuda", kernels: Optional[Kernels] = None,
-                 epoch_times=None, bw_up_bits=None, bw_down_bits=None):
+                 epoch_times=None, bw_up_bits=None, bw_down_bits=None,
+                 ensemble=None):
         self.config = config
         self.app = app
         self.device = resolve_device(device)
         self.kernels = kernels if kernels is not None else Kernels()
         self.params = phase_params(config, app)
-        arrays = world_arrays(config.n_hosts, app, host_vertex,
-                              latency_ns, reliability, epoch_times,
-                              bw_up_bits, bw_down_bits,
-                              config.model_bandwidth, config.count_paths)
+        # R of a campaign; None for a standalone run
+        self.replicas: Optional[int] = (None if ensemble is None
+                                        else int(ensemble.R))
+        if ensemble is None:
+            arrays = world_arrays(config.n_hosts, app, host_vertex,
+                                  latency_ns, reliability, epoch_times,
+                                  bw_up_bits, bw_down_bits,
+                                  config.model_bandwidth,
+                                  config.count_paths, self.params.seed)
+        else:
+            arrays = campaign_world_arrays(
+                config.n_hosts, app, host_vertex, ensemble, bw_up_bits,
+                bw_down_bits, config.model_bandwidth, config.count_paths)
         self.n_vertices = n_vertices(arrays)
         dev = self.device
         uploaded = {}
@@ -318,17 +387,36 @@ class DeviceEngine:
         self._buf = None
         # the preflight admission verdict, where a runner made one
         self.admission: Optional[dict] = None
-        # the last run's loop: which, its phases, rounds, host syncs
+        # the last run's loop: which, its phases, rounds (each a list
+        # over the replicas in a campaign) and host syncs
         self.loop_stats: dict = {}
-        self._phases = 0            # phases `window` ran
         self._window_ctl: Optional[torch.Tensor] = None
+        self._staging: Optional[torch.Tensor] = None
 
     # ------------------------------------------------------------------
     def init_state(self, start_times: np.ndarray,
                    stop_times: np.ndarray) -> dict:
         """Per host: a boot event at start_times[h] and, where
         stop_times[h] >= 0, a stop event; heaps sorted by
-        construction (boot seq 0 precedes stop seq 1)."""
+        construction (boot seq 0 precedes stop seq 1). A standalone
+        state; a campaign starts from `init_ensemble_state`."""
+        return state_from_numpy(self._init_arrays(start_times,
+                                                  stop_times), self.device)
+
+    def init_ensemble_state(self, start_times: np.ndarray,
+                            stop_times: np.ndarray) -> dict:
+        """The [R, ...] state of a campaign: every replica starts from
+        the standalone state (the vary axes change values, never the
+        start layout)."""
+        if self.replicas is None:
+            raise ValueError("engine was built without ensemble worlds")
+        R = self.replicas
+        arrays = self._init_arrays(start_times, stop_times)
+        return state_from_numpy({k: np.broadcast_to(v, (R, *v.shape))
+                                 for k, v in arrays.items()}, self.device)
+
+    def _init_arrays(self, start_times, stop_times) -> dict:
+        """`init_state`'s leaves as numpy arrays."""
         H, E = self.config.n_hosts, self.params.E
         t0 = np.asarray(start_times, dtype=np.int64)
         t1 = np.asarray(stop_times, dtype=np.int64)
@@ -377,7 +465,7 @@ class DeviceEngine:
             arrays["aud_t"] = np.zeros(H, np.int64)
             arrays["aud_tx"] = ((t0 < INF).astype(np.int64)
                                 + has_stop.astype(np.int64))
-        return state_from_numpy(arrays, self.device)
+        return arrays
 
     # ------------------------------------------------------------------
     def _outbox(self) -> tuple[dict, torch.Tensor]:
@@ -388,15 +476,17 @@ class DeviceEngine:
 
     def _buffers(self) -> tuple[dict, torch.Tensor, tuple]:
         """The outbox, the pop counts and the route's outputs (perm
-        [H*OB], starts [H], counts [H]), allocated once per engine."""
+        [H*OB], starts [H], counts [H]; each with the leading [R] axis
+        in a campaign), allocated once per engine."""
         if self._buf is None:
             H, OB = self.config.n_hosts, self.params.OB
+            lead = () if self.replicas is None else (self.replicas,)
             dev = self.device
-            ob = {f: torch.empty((H, OB), dtype=torch.int64, device=dev)
-                  for f in OB_FIELDS}
-            pops = torch.empty(H, dtype=torch.int32, device=dev)
-            route = tuple(torch.empty(n, dtype=torch.int64, device=dev)
-                          for n in (H * OB, H, H))
+            ob = {f: torch.empty((*lead, H, OB), dtype=torch.int64,
+                                 device=dev) for f in OB_FIELDS}
+            pops = torch.empty((*lead, H), dtype=torch.int32, device=dev)
+            route = tuple(torch.empty((*lead, n), dtype=torch.int64,
+                                      device=dev) for n in (H * OB, H, H))
             self._buf = (ob, pops, route)
         return self._buf
 
@@ -428,8 +518,9 @@ class DeviceEngine:
 
     def window(self, state: dict, win_end: int, nxt: Optional[int] = None
                ) -> int:
-        """Run one conservative window to `win_end` from head time `nxt`
-        (computed when not given); returns the next window's start."""
+        """Run one conservative window of a standalone state to
+        `win_end` from head time `nxt` (computed when not given);
+        returns the next window's start."""
         nt = self.next_time(state) if nxt is None else nxt
         if nt < win_end:
             if self._window_ctl is None:
@@ -438,7 +529,6 @@ class DeviceEngine:
             self._window_ctl[CTL["win_end"]].fill_(win_end)
         while nt < win_end:
             self.phase(state, self._window_ctl)
-            self._phases += 1
             nt = self.next_time(state)
         return nt
 
@@ -449,37 +539,80 @@ class DeviceEngine:
             raise ValueError(f"final_stop {final} precedes stop {stop}")
         return stop, final
 
+    def _loop_block(self, stop: int, final: int) -> torch.Tensor:
+        """The window loop's control block(s) for a run to `stop` with
+        windows clamped to `final`: [CTL_N], or [R, CTL_N] in a
+        campaign."""
+        return control_block(
+            self.device, self.replicas, stop=stop, final_stop=final,
+            lookahead=max(1, int(self.config.lookahead)),
+            max_rounds=min(int(self.config.max_rounds), (1 << 63) - 1))
+
+    def _loop_result(self, words, loop: str, syncs: int):
+        """(rounds, and `loop_stats` set) from the final control words
+        [(R,) CTL_N]: ints for a standalone run, the replicas' for a
+        campaign (rounds as an [R] int64 array)."""
+        words = np.asarray(words, np.int64)
+        rounds, phases = words[..., CTL["rounds"]], words[..., CTL["phases"]]
+        self.loop_stats = {"loop": loop, "rounds": rounds.tolist(),
+                           "phases": phases.tolist(), "host_syncs": syncs}
+        return rounds if self.replicas is not None else int(rounds)
+
     def run(self, state: dict, stop: Optional[int] = None,
-            final_stop: Optional[int] = None) -> tuple[dict, int]:
+            final_stop: Optional[int] = None):
         """Advance to `stop` (default config.stop_time), every window
         end clamped to `final_stop` (default `stop`): pass the
         simulation's end there when pausing earlier, so that the window
         sequence, and the trace, equal an unpaused run's. Returns
-        (state, rounds) and sets `loop_stats`. On the card the captured
-        slot schedule runs, or the Python loop in timing mode; on the
-        CPU the Python loop."""
+        (state, rounds), rounds an [R] array in a campaign, and sets
+        `loop_stats`. On the card the captured slot schedule runs, or
+        the Python loop in timing mode; on the CPU the Python loop."""
         if self.device.type == "cuda" and not self.kernels.timing:
             return self.run_slots(state, stop, final_stop)
         return self.run_python(state, stop, final_stop)
 
     def run_python(self, state: dict, stop: Optional[int] = None,
-                   final_stop: Optional[int] = None) -> tuple[dict, int]:
+                   final_stop: Optional[int] = None):
         """The window loop in Python (the plain path): one host read of
-        the minimum head time per phase."""
+        the minimum head time (of every replica) per phase; the host
+        takes K9's decisions (kernels.control_step) and writes the
+        control block before each phase and each round-end audit."""
         stop, final = self._stops(stop, final_stop)
-        lookahead = max(1, int(self.config.lookahead))
-        rounds, self._phases = 0, 0
-        nxt = self.next_time(state)
-        while nxt < stop and rounds < self.config.max_rounds:
-            win_end = min(nxt + lookahead, final)
-            nxt = self.window(state, win_end, nxt)
-            rounds += 1
-            if self.config.audit:
-                self.kernels.audit_round(state)
-        self.loop_stats = {"loop": "python", "rounds": rounds,
-                           "phases": self._phases,
-                           "host_syncs": 1 + self._phases}
+        ctl = self._loop_block(stop, final)
+        words = ctl.cpu().view(-1, len(CTL)).tolist()
+
+        def step(start):
+            mins = head_min_plain(state).view(-1).tolist()  # a host sync
+            return [control_step(w, None if w[CTL["done"]] else m, start)
+                    for w, m in zip(words, mins)]
+
+        words, syncs = step(True), 1
+        while True:
+            self._write_block(ctl, words)
+            if self.config.audit and any(w[CTL["round_end"]]
+                                         for w in words):
+                self.kernels.audit_round(state, ctl)
+            if all(w[CTL["done"]] for w in words):
+                break
+            self.phase(state, ctl)
+            words, syncs = step(False), syncs + 1
+        rounds = self._loop_result(words if self.replicas else words[0],
+                                   "python", syncs)
         return state, rounds
+
+    def _write_block(self, ctl: torch.Tensor, words: list) -> None:
+        """Copy the host's control words into `ctl`, ordered on the
+        stream (on the card from a pinned buffer, which the next write
+        reuses only after the host has read the phase's minimum)."""
+        host = torch.tensor(words, dtype=torch.int64).view(ctl.shape)
+        if ctl.is_cuda:
+            if self._staging is None:
+                self._staging = torch.empty(ctl.shape, dtype=torch.int64,
+                                            pin_memory=True)
+            self._staging.copy_(host)
+            ctl.copy_(self._staging, non_blocking=True)
+        else:
+            ctl.copy_(host)
 
     def _slots(self, state: dict, ctl: torch.Tensor, n: int) -> None:
         """`n` slots: each a phase under `ctl`, K9 and, under the audit,
@@ -493,14 +626,14 @@ class DeviceEngine:
 
     def run_slots(self, state: dict, stop: Optional[int] = None,
                   final_stop: Optional[int] = None,
-                  slots: int = LOOP_SLOTS) -> tuple[dict, int]:
+                  slots: int = LOOP_SLOTS):
         """The window loop as slots of `slots` phases (see the module
         notes): the first batch runs eagerly (on the card it also loads
         every kernel before the capture), then on the card the batch is
         captured into a CUDA graph and replayed, on the CPU run again,
-        until the control block says done; the host reads the block
-        once per batch. Raises in timing mode: event pairs mean nothing
-        inside a graph (the Python loop times)."""
+        until the control block (every replica's) says done; the host
+        reads the block once per batch. Raises in timing mode: event
+        pairs mean nothing inside a graph (the Python loop times)."""
         stop, final = self._stops(stop, final_stop)
         if slots < 1:
             raise ValueError("slots must be >= 1")
@@ -509,15 +642,13 @@ class DeviceEngine:
             raise RuntimeError(
                 "the captured window loop cannot run in timing mode: "
                 "run_python times each launch")
-        ctl = control_block(
-            self.device, stop=stop, final_stop=final,
-            lookahead=max(1, int(self.config.lookahead)),
-            max_rounds=min(int(self.config.max_rounds), (1 << 63) - 1))
+        ctl = self._loop_block(stop, final)
         k.loop_control(state, ctl, start=True)
         self._slots(state, ctl, slots)
         words = ctl.cpu()
         syncs, graph = 1, None
-        while not int(words[CTL["done"]]):
+        # on until every replica is done
+        while not bool(words[..., CTL["done"]].all()):
             if not cuda:
                 self._slots(state, ctl, slots)
             else:
@@ -527,10 +658,8 @@ class DeviceEngine:
                 k.replayed(captured)
             words = ctl.cpu()
             syncs += 1
-        rounds = int(words[CTL["rounds"]])
-        self.loop_stats = {
-            "loop": "graph" if cuda else "slots", "rounds": rounds,
-            "phases": int(words[CTL["phases"]]), "host_syncs": syncs}
+        rounds = self._loop_result(words.numpy(),
+                                   "graph" if cuda else "slots", syncs)
         return state, rounds
 
     def _capture(self, state: dict, ctl: torch.Tensor, slots: int):

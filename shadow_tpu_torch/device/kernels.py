@@ -45,6 +45,16 @@ the view, and a launch on factored tables counts under the kernel's
 name with `_hier` appended (`judge_outbox_hier`, ...). The plain
 versions look up through `table_lookup`.
 
+An ensemble campaign (ensemble/) runs R replicas in one loop: the state
+is [R, H, ...], the outbox [R, H, OB], the control block [R, CTL_N],
+and the world stacks the replicas' path tables and epoch times on a
+leading axis (`world_replicas`) beside their [R, 2] seed keys
+(`seed_key`). Every kernel takes the replica as a grid dimension and R
+as an argument; a standalone run is R = 1, its state [H, ...], its
+block [CTL_N]. The plain version of each kernel runs a campaign as the
+standalone plain function on each replica's slice in turn, which is
+exact, and is the tests' yardstick.
+
 Every wrapper takes the plain version for tensors on the CPU and, for
 CUDA tensors, launches its kernel on the current stream or raises:
 there is no fallback. A wrapper adds one to `Kernels.launches[name]`
@@ -57,6 +67,7 @@ kernels.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import hashlib
 import os
 import shutil
@@ -226,14 +237,87 @@ def table_lookup(tab, sv: torch.Tensor, dv: torch.Tensor,
     return tab[sv, dv] if e is None else tab[e, sv, dv]
 
 
-def control_block(device, **words) -> torch.Tensor:
+def control_block(device, replicas: Optional[int] = None,
+                  **words) -> torch.Tensor:
     """A window-loop control block on `device`: the named words of
-    CTL_FIELDS set, the others 0."""
+    CTL_FIELDS set, the others 0; with `replicas` one such block per
+    replica, [R, CTL_N], else [CTL_N]."""
     unknown = set(words) - set(CTL)
     if unknown:
         raise ValueError(f"no control word(s) {sorted(unknown)}")
-    return torch.tensor([int(words.get(n, 0)) for n in CTL_FIELDS],
+    row = [int(words.get(n, 0)) for n in CTL_FIELDS]
+    return torch.tensor(row if replicas is None else [row] * replicas,
                         dtype=torch.int64, device=device)
+
+
+# ----------------------------------------------------------------------
+# the replica axis of an ensemble campaign
+# ----------------------------------------------------------------------
+def n_replicas(state: dict) -> Optional[int]:
+    """R for a campaign's state [R, H, ...], None for a standalone
+    state [H, ...]."""
+    head = state["head"]
+    return int(head.shape[0]) if head.dim() == 2 else None
+
+
+def world_replicas(world: dict) -> Optional[int]:
+    """R for a campaign's world, whose epoch times are [R, T] and whose
+    path tables carry the same leading axis (every leaf but the
+    factored tables' shared cl); None for a standalone world."""
+    ept = world["epoch_times"]
+    return int(ept.shape[0]) if ept.dim() == 2 else None
+
+
+def ob_replicas(ob: dict) -> Optional[int]:
+    """R for a campaign's outbox [R, H, OB], None for a standalone
+    one."""
+    t = ob["t"]
+    return int(t.shape[0]) if t.dim() == 3 else None
+
+
+def at_replica(d: dict, r: int) -> dict:
+    """Replica r's views of a campaign's state or outbox leaves: the
+    standalone layout, written through in place."""
+    return {k: v[r] for k, v in d.items()}
+
+
+def replica_world(world: dict, r: int) -> dict:
+    """Replica r's world in the standalone layout: its tables, epoch
+    times and [1, 2] seed key; the other leaves are shared."""
+    def part(v):
+        if isinstance(v, tuple):        # factored: cl is shared
+            return tuple(a if i == 1 else a[r] for i, a in enumerate(v))
+        return v[r]
+
+    return {**world, "lat": part(world["lat"]), "rel": part(world["rel"]),
+            "epoch_times": world["epoch_times"][r],
+            "seed_key": world["seed_key"][r:r + 1]}
+
+
+def replica_params(world: dict, p: PhaseParams) -> PhaseParams:
+    """`p` with the seed key of a world of one replica, where the world
+    names one: a world's key wins over `p.seed`, in the plain versions
+    as in the kernels (`Kernels._seed_args`)."""
+    key = world.get("seed_key")
+    if key is None:
+        return p
+    return dataclasses.replace(p, seed=(int(key[0, 0]), int(key[0, 1])))
+
+
+def _each_replica(R: int, world: dict, p: PhaseParams):
+    """(r, replica r's world, its params) for each of a campaign's R
+    replicas; the world must be a campaign world of as many."""
+    if world_replicas(world) != R:
+        raise ValueError(f"a state of {R} replicas needs a world of as "
+                         "many")
+    for r in range(R):
+        w = replica_world(world, r)
+        yield r, w, replica_params(w, p)
+
+
+def _ctl_at(ctl, r: int):
+    """Replica r's control block (an int window end passes through)."""
+    return ctl[r] if isinstance(ctl, torch.Tensor) else ctl
 
 
 def phase_window(win_end) -> Optional[int]:
@@ -254,12 +338,14 @@ def _phase_off(ctl: Optional[torch.Tensor]) -> bool:
 def head_min_plain(state: dict) -> torch.Tensor:
     """The minimum over hosts of each host's head event time (INF where
     head >= E), as a 0-dim int64 tensor (the reference's `next_time`:
-    `_take_head` then `_axis_min`)."""
+    `_take_head` then `_axis_min`); [R] for a campaign's state."""
     head = state["head"].long()
-    E = state["ht"].shape[1]
-    nt = state["ht"].gather(1, head.clamp(0, E - 1)[:, None])[:, 0]
+    E = state["ht"].shape[-1]
+    nt = state["ht"].gather(-1, head.clamp(0, E - 1)[..., None])[..., 0]
     nt = torch.where(head < E, nt, INF)
-    return nt.min() if nt.numel() else torch.tensor(INF)
+    if not nt.shape[-1]:
+        return torch.full(nt.shape[:-1], INF, dtype=torch.int64)
+    return nt.amin(-1)
 
 
 def _wbits(cnt: torch.Tensor) -> torch.Tensor:
@@ -298,7 +384,14 @@ def pop_plain(state: dict, ob: dict, pops: torch.Tensor, world: dict,
     Under the state audit (p.AUD) each iteration ORs AUD_CLOCK into
     `aud` where a host's first popped time lies below `aud_t`, then
     sets `aud_t` to the largest time it popped (engine.py:800-813).
-    `win_end` is an int or a control block (`phase_window`)."""
+    `win_end` is an int or a control block (`phase_window`); a
+    campaign's state runs each replica in turn."""
+    if n_replicas(state) is not None:
+        for r, w, q in _each_replica(n_replicas(state), world, p):
+            pop_plain(at_replica(state, r), at_replica(ob, r), pops[r], w,
+                      _ctl_at(win_end, r), q)
+        return
+    p = replica_params(world, p)
     win_end = phase_window(win_end)
     if win_end is None:
         return
@@ -589,7 +682,14 @@ def judge_outbox_plain(state: dict, ob: dict, world: dict, win_end,
     for cross-host rows, and the sent/dropped counters. A row whose
     packets all drop gets t = INF, or DROP_T under the path counters
     (p.CP), which count it. Rewrites ob t/m/v in place. `win_end` is
-    an int or a control block (`phase_window`)."""
+    an int or a control block (`phase_window`); a campaign's state runs
+    each replica in turn."""
+    if ob_replicas(ob) is not None:
+        for r, w, q in _each_replica(ob_replicas(ob), world, p):
+            judge_outbox_plain(at_replica(state, r), at_replica(ob, r), w,
+                               _ctl_at(win_end, r), q)
+        return
+    p = replica_params(world, p)
     win_end = phase_window(win_end)
     if win_end is None:
         return
@@ -649,8 +749,14 @@ def count_paths_plain(state: dict, ob: dict, world: dict,
     """Add every judged packet row of the outbox (t < INF, DROP_T
     included, kind KIND_PACKET) to the [V*V] histogram of sent packets
     at (vertex of src) * V + (vertex of dst), weighted by its live
-    count (kind >> 8). In place on state["path_cnt"] [1, V*V]; nothing
-    where the control block `ctl` says the phase does not run."""
+    count (kind >> 8). In place on state["path_cnt"] [1, V*V] ([R, 1,
+    V*V] for a campaign); nothing where the control block `ctl` says the
+    phase does not run."""
+    if ob_replicas(ob) is not None:
+        for r in range(ob_replicas(ob)):
+            count_paths_plain(at_replica(state, r), at_replica(ob, r),
+                              world, _ctl_at(ctl, r))
+        return
     if _phase_off(ctl):
         return
     ft, fk, fm = ob["t"], ob["k"], ob["m"]
@@ -681,7 +787,11 @@ def route_plain(ob: dict):
     then per-destination segment bounds by searchsorted. Returns
     (perm [H*OB], starts [H], counts [H]), int64; perm's first
     counts.sum() entries are the live rows' flat indices in that
-    order."""
+    order. A campaign's outbox [R, H, OB] gives each replica's, stacked
+    ([R, H*OB], [R, H], [R, H])."""
+    if ob_replicas(ob) is not None:
+        return tuple(torch.stack(x) for x in zip(*(
+            route_plain(at_replica(ob, r)) for r in range(ob_replicas(ob)))))
     ft, fm = ob["t"], ob["m"]
     H, OB = ft.shape
     dev = ft.device
@@ -707,7 +817,14 @@ def merge_heaps_plain(state: dict, ob: dict, perm: torch.Tensor,
     the first E rows kept. Rows past E with t < INF, and arrivals past
     IN, count into `overflow`; `occ_in`/`occ_heap` take their
     high-water marks; head resets to 0. Nothing where the control block
-    `ctl` says the phase does not run."""
+    `ctl` says the phase does not run. A campaign's state merges each
+    replica in turn, from its row of the route's outputs."""
+    if n_replicas(state) is not None:
+        for r in range(n_replicas(state)):
+            merge_heaps_plain(at_replica(state, r), at_replica(ob, r),
+                              perm[r], starts[r], counts[r], p,
+                              _ctl_at(ctl, r))
+        return
     if _phase_off(ctl):
         return
     E, IN = p.E, p.IN
@@ -765,7 +882,12 @@ def phase_tally_plain(state: dict, ob: dict, pops: torch.Tensor,
     `occ_ob` each host's count of exchangeable rows (t < DROP_T),
     `occ_phases` one more phase and, under the audit, `aud_tx` those
     rows. Nothing where the control block says the phase does not
-    run."""
+    run. A campaign's state tallies each replica in turn."""
+    if pops.dim() == 2:
+        for r in range(pops.shape[0]):
+            phase_tally_plain(at_replica(state, r), at_replica(ob, r),
+                              pops[r], p, _ctl_at(ctl, r))
+        return
     if _phase_off(ctl):
         return
     n = (ob["t"] < DROP_T).sum(-1).to(torch.int32)
@@ -787,7 +909,12 @@ def audit_round_plain(state: dict,
     of AUD_COUNTERS is negative, and on every host AUD_CONSERVE where
     the int64 balance sum(aud_tx) - (sum(n_exec) + live rows +
     sum(overflow) + sum(x_overflow)) is not 0. Under the window loop
-    only where the control block's `round_end` word is set."""
+    only where the control block's `round_end` word is set. A campaign's
+    state audits each replica in turn, its balance its own."""
+    if n_replicas(state) is not None:
+        for r in range(n_replicas(state)):
+            audit_round_plain(at_replica(state, r), _ctl_at(ctl, r))
+        return
     if ctl is not None and not int(ctl[CTL["round_end"]]):
         return
     head, ht, hk = state["head"], state["ht"], state["hk"]
@@ -821,13 +948,28 @@ def loop_control_plain(state: dict, ctl: torch.Tensor,
     round_end set), and the loop is done where nxt >= stop or rounds
     reached max_rounds, else the next window ends at min(nxt +
     lookahead, final_stop). `run` says whether the next phase runs;
-    once done the step only clears `run` and `round_end`."""
-    c = {n: int(ctl[i]) for n, i in CTL.items()}
-    if c["done"]:
-        ctl[CTL["run"]] = 0
-        ctl[CTL["round_end"]] = 0
+    once done the step only clears `run` and `round_end`. A campaign's
+    blocks [R, CTL_N] step each replica on its own block."""
+    if ctl.dim() == 2:
+        for r in range(ctl.shape[0]):
+            loop_control_plain(at_replica(state, r), ctl[r], start)
         return
-    nxt = int(head_min_plain(state))
+    words = [int(w) for w in ctl.tolist()]
+    nxt = None if words[CTL["done"]] else int(head_min_plain(state))
+    ctl.copy_(torch.tensor(control_step(words, nxt, start),
+                           dtype=torch.int64))
+
+
+def control_step(words: list, nxt: Optional[int],
+                 start: bool = False) -> list:
+    """K9's decisions on one control block's words (a list in
+    CTL_FIELDS order) given the minimum head time `nxt` (None once the
+    block is done, which only clears `run` and `round_end`); returns
+    the new words. The Python window loop takes them on the host."""
+    c = dict(zip(CTL_FIELDS, words))
+    if c["done"]:
+        c.update(run=0, round_end=0)
+        return [c[n] for n in CTL_FIELDS]
     c.update(nxt=nxt, round_end=0)
     if not start:
         c["phases"] += 1
@@ -842,7 +984,7 @@ def loop_control_plain(state: dict, ctl: torch.Tensor,
         else:
             c.update(win_end=min(nxt + c["lookahead"], c["final_stop"]),
                      run=1)
-    ctl.copy_(torch.tensor([c[n] for n in CTL_FIELDS], dtype=torch.int64))
+    return [c[n] for n in CTL_FIELDS]
 
 
 # ----------------------------------------------------------------------
@@ -922,23 +1064,38 @@ def build_library(ptxas_verbose: bool = False) -> tuple[Path, str]:
 
 class TopoArgs(ctypes.Structure):
     """csrc/topo.cuh `TopoArgs`: which view of the path tables a kernel
-    reads, its epoch count and start times, and its tables (the other
-    view's pointers null)."""
+    reads, its epoch count and start times, its tables (the other
+    view's pointers null) and each table's replica stride in elements
+    (0 for a leaf every replica shares)."""
     _fields_ = [("hier", ctypes.c_int), ("V", ctypes.c_int),
                 ("C", ctypes.c_int), ("T", ctypes.c_int)] + [
         (name, ctypes.c_void_p) for name in (
             "epoch_times", "lat", "rel", "core_lat", "core_rel", "cl",
-            "acc_lat", "acc_rel", "self_lat", "self_rel")]
+            "acc_lat", "acc_rel", "self_lat", "self_rel")] + [
+        (name, ctypes.c_longlong) for name in (
+            "rs_ept", "rs_tab", "rs_core", "rs_acc", "rs_self")]
 
 
-def topo_args(world: dict):
+def topo_args(world: dict, R: int = 1):
     """(hier, epochs, TopoArgs, [(tensor, dtype)] to check) for the
-    world's path tables; raises on tables of the wrong shape."""
+    world's path tables, read by a launch over R replicas: a standalone
+    world's tables serve one replica, a campaign world's stack R (one
+    cl per campaign); raises on tables of the wrong shape."""
     lat, rel, ept = world["lat"], world["rel"], world["epoch_times"]
     i32, f32 = torch.int32, torch.float32
-    T = ept.shape[0]
-    lead = (T,) if T > 1 else ()
+    Rw = world_replicas(world)
+    if (Rw or 1) != R:
+        raise ValueError(f"a launch over {R} replica(s) needs a world of "
+                         f"as many, not {Rw or 1}")
+    rlead = (R,) if Rw else ()
+    T = ept.shape[-1]
+    lead = (*rlead, T) if T > 1 else rlead
     checks = [(ept, torch.int64)]
+
+    def stride(t):
+        # elements of one replica's leaf; 0 where all share it
+        return t.numel() // R if Rw else 0
+
     if isinstance(lat, tuple):
         cc, cl, acc, slf = lat
         ccr, cl_r, accr, slfr = rel
@@ -949,28 +1106,33 @@ def topo_args(world: dict):
                        for t in (acc, slf, accr, slfr))):
             raise ValueError("factored tables: need [C,C] cluster pairs, "
                              "[V] access/self vectors (each with the "
-                             "[T] epoch axis under faults) and one "
+                             "[T] epoch axis under faults, and the [R] "
+                             "replica axis in a campaign) and one "
                              "shared [V] cl")
         args = TopoArgs(1, V, C, T, _ptr(ept), None, None,
-                        *map(_ptr, (cc, ccr, cl, acc, accr, slf, slfr)))
+                        *map(_ptr, (cc, ccr, cl, acc, accr, slf, slfr)),
+                        stride(ept), 0, stride(cc), stride(acc),
+                        stride(slf))
         return True, T > 1, args, checks + \
             [(t, i32) for t in (cc, cl, acc, slf)] + \
             [(t, f32) for t in (ccr, accr, slfr)]
     V = lat.shape[-1]
     if lat.shape != (*lead, V, V) or rel.shape != lat.shape:
         raise ValueError("dense tables: need [V,V] latency and "
-                         "reliability ([T,V,V] under faults)")
-    args = TopoArgs(0, V, 0, T, _ptr(ept), _ptr(lat), _ptr(rel))
+                         "reliability ([T,V,V] under faults, with the "
+                         "[R] replica axis in a campaign)")
+    args = TopoArgs(0, V, 0, T, _ptr(ept), _ptr(lat), _ptr(rel),
+                    None, None, None, None, None, None, None,
+                    stride(ept), stride(lat), 0, 0, 0)
     return False, T > 1, args, checks + [(lat, i32), (rel, f32)]
 
 
 class NicArgs(ctypes.Structure):
     """csrc/pop_phase.cu `NicArgs`: the model NIC's leaves, bandwidths
-    and law table, the counters the in-step judge adds to, its drop
-    key and the path-counter flag; all null with mb = 0."""
+    and law table, the counters the in-step judge adds to and the
+    path-counter flag; all null with mb = 0."""
     _fields_ = [("mb", ctypes.c_int), ("cp", ctypes.c_int),
-                ("boot_end", ctypes.c_longlong),
-                ("seed1", ctypes.c_uint), ("seed2", ctypes.c_uint)] + [
+                ("boot_end", ctypes.c_longlong)] + [
         (name, ctypes.c_void_p) for name in (
             *NIC_KEYS, "bw_up", "bw_down", "law", "n_sent", "n_drop")]
 
@@ -982,12 +1144,14 @@ def nic_args(state: dict, world: dict, p: PhaseParams):
     leaves = [state[k] for k in NIC_KEYS]
     tables = [world["bw_up"], world["bw_down"], world["law"]]
     counts = [state["n_sent"], state["n_drop"]]
-    H = state["head"].shape[0]
-    if any(t.shape != (H,) for t in leaves + tables[:2] + counts) or \
+    rows = tuple(state["head"].shape)
+    H = rows[-1]
+    if any(t.shape != rows for t in leaves + counts) or \
+            any(t.shape != (H,) for t in tables[:2]) or \
             tables[2].shape != (LAW_SIZE,):
-        raise ValueError("model NIC: need [H] leaves, bandwidths and "
-                         "counters and the [1024] law table")
-    args = NicArgs(1, int(p.CP), int(p.boot_end), p.seed[0], p.seed[1],
+        raise ValueError("model NIC: need [(R,)H] leaves and counters, "
+                         "[H] bandwidths and the [1024] law table")
+    args = NicArgs(1, int(p.CP), int(p.boot_end),
                    *map(_ptr, leaves + tables + counts))
     return args, [(t, torch.int64) for t in leaves + tables] + \
         [(t, torch.int32) for t in counts]
@@ -1002,71 +1166,77 @@ _N = ctypes.POINTER(NicArgs)
 
 _POP_TAIL = [_P] * 5 + [_P] * 4 + [_P]     # ob t k m s v, pops aud
 #                                          aud_t ctl, stream
+# Every kernel's first argument is R, the replica count (1 standalone).
 _SIGNATURES = {
-    # H, E, K, B, ht hk hm hv hw, head event_seq packet_seq app_seq app
-    # n_exec n_deliv chk, host_vertex topo nic, seed k1 k2, n_total
+    # R, H, E, K, B, ht hk hm hv hw, head event_seq packet_seq app_seq
+    # app n_exec n_deliv chk, host_vertex topo nic, seed keys, n_total
     # msgload size selfloop, ob t k m s v, pops, aud aud_t, ctl, stream
-    "shadow_pop_phase": [_I, _I, _I, _I] + [_P] * 5 + [_P] * 8 +
-                        [_P, _T, _N, _U, _U, _I, _I, _I, _I] + _POP_TAIL,
-    # H, E, K, T, P, B, C, ht hk hm hv hw, head event_seq packet_seq
-    # app n_exec n_deliv chk, host_vertex topo nic, count pause retry,
-    # npkts last_sz chunk mss, ob t k m s v, pops, aud aud_t, ctl,
-    # stream
-    "shadow_pop_tgen": [_I] * 7 + [_P] * 5 + [_P] * 7 +
-                       [_P, _T, _N] + [_P] * 3 + [_I] * 4 + _POP_TAIL,
-    # H, E, K, T, P, B, C, ht hk hm hv hw, head event_seq packet_seq
-    # app n_exec n_deliv chk, host_vertex topo nic, count pause retry,
-    # relay_gids R, route key k1 k2, cells, ob t k m s v, pops, aud
+    "shadow_pop_phase": [_I] * 5 + [_P] * 5 + [_P] * 8 +
+                        [_P, _T, _N, _P, _I, _I, _I, _I] + _POP_TAIL,
+    # R, H, E, K, T, P, B, C, ht hk hm hv hw, head event_seq packet_seq
+    # app n_exec n_deliv chk, host_vertex topo nic, seed keys, count
+    # pause retry, npkts last_sz chunk mss, ob t k m s v, pops, aud
     # aud_t, ctl, stream
-    "shadow_pop_tor": [_I] * 7 + [_P] * 5 + [_P] * 7 +
-                      [_P, _T, _N] + [_P] * 3 + [_P, _I, _U, _U, _I] +
-                      _POP_TAIL,
-    # H, OB, C, boot_end, ob t m v, packet_seq n_sent n_drop,
-    # host_vertex topo, seed k1 k2, cp, ctl, stream
-    "shadow_judge_outbox": [_I, _I, _I, _L] + [_P] * 3 + [_P] * 3 +
-                           [_P, _T, _U, _U, _I, _P, _P],
-    # H, OB, V, ob t k m, host_vertex, path_cnt, ctl, stream
-    "shadow_count_paths": [_I, _I, _I] + [_P] * 3 + [_P] * 4,
-    # H, OB, ob t m, perm starts counts, scratch cursor block_sums,
+    "shadow_pop_tgen": [_I] * 8 + [_P] * 5 + [_P] * 7 +
+                       [_P, _T, _N, _P] + [_P] * 3 + [_I] * 4 + _POP_TAIL,
+    # R, H, E, K, T, P, B, C, ht hk hm hv hw, head event_seq packet_seq
+    # app n_exec n_deliv chk, host_vertex topo nic, seed keys, count
+    # pause retry, relay_gids n_relays, route key k1 k2, cells, ob t k
+    # m s v, pops, aud aud_t, ctl, stream
+    "shadow_pop_tor": [_I] * 8 + [_P] * 5 + [_P] * 7 +
+                      [_P, _T, _N, _P] + [_P] * 3 +
+                      [_P, _I, _U, _U, _I] + _POP_TAIL,
+    # R, H, OB, C, boot_end, ob t m v, packet_seq n_sent n_drop,
+    # host_vertex topo, seed keys, cp, ctl, stream
+    "shadow_judge_outbox": [_I, _I, _I, _I, _L] + [_P] * 3 + [_P] * 3 +
+                           [_P, _T, _P, _I, _P, _P],
+    # R, H, OB, V, ob t k m, host_vertex, path_cnt, ctl, stream
+    "shadow_count_paths": [_I] * 4 + [_P] * 3 + [_P] * 4,
+    # R, H, OB, ob t m, perm starts counts, scratch cursor block_sums,
     # ctl, stream
-    "shadow_route": [_I, _I] + [_P] * 2 + [_P] * 3 + [_P] * 3 + [_P] * 2,
-    # H, E, IN, F, ht hk hm hv hw head, ob t k m s v, perm starts
+    "shadow_route": [_I] * 3 + [_P] * 2 + [_P] * 3 + [_P] * 3 + [_P] * 2,
+    "shadow_route_scan_blocks": [_I],
+    # R, H, E, IN, F, ht hk hm hv hw head, ob t k m s v, perm starts
     # counts, overflow occ_in occ_heap, ctl, stream
-    "shadow_merge_heaps": [_I, _I, _I, _L] + [_P] * 6 + [_P] * 5 +
+    "shadow_merge_heaps": [_I] * 4 + [_L] + [_P] * 6 + [_P] * 5 +
                           [_P] * 3 + [_P] * 3 + [_P] * 2,
-    # H, OB, ob t, pops, occ_ob occ_trips occ_phases, aud_tx, ctl, stream
-    "shadow_phase_tally": [_I, _I] + [_P] * 8,
-    # H, E, ht hk head, n_exec n_sent n_drop n_deliv event_seq
+    # R, H, OB, ob t, pops, occ_ob occ_trips occ_phases, aud_tx, ctl,
+    # stream
+    "shadow_phase_tally": [_I] * 3 + [_P] * 8,
+    # R, H, E, ht hk head, n_exec n_sent n_drop n_deliv event_seq
     # packet_seq app_seq overflow x_overflow, aud_tx aud, sum, ctl,
     # stream
-    "shadow_audit_round": [_I, _I] + [_P] * 3 + [_P] * 9 + [_P] * 5,
-    # H, E, ht head, partial ctl, start, stream
-    "shadow_loop_control": [_I, _I, _P, _P, _P, _P, _I, _P],
+    "shadow_audit_round": [_I] * 3 + [_P] * 3 + [_P] * 9 + [_P] * 5,
+    # R, H, E, ht head, partial ctl, start, stream
+    "shadow_loop_control": [_I] * 3 + [_P] * 4 + [_I, _P],
     "shadow_loop_control_blocks": [_I],
 }
 for _name in POP_KERNELS:
     _SIGNATURES[f"shadow_{_name}{AUD}"] = _SIGNATURES[f"shadow_{_name}"]
 
 
-def _ctl_args(ctl: Optional[torch.Tensor]):
+def _ctl_args(ctl: Optional[torch.Tensor], R: Optional[int] = None):
     """(pointer, tensors to check) of a launch's control block, or
-    (None, []) without one."""
+    (None, []) without one: [R, CTL_N] for a campaign's R replicas,
+    [CTL_N] for a standalone state (R None)."""
     if ctl is None:
         return None, []
-    if ctl.shape != (len(CTL_FIELDS),):
-        raise ValueError(f"a control block has {len(CTL_FIELDS)} words, "
-                         f"not shape {tuple(ctl.shape)}")
+    want = (len(CTL_FIELDS),) if R is None else (R, len(CTL_FIELDS))
+    if ctl.shape != want:
+        raise ValueError(f"a control block for {R or 1} replica(s) has "
+                         f"shape {want}, not {tuple(ctl.shape)}")
     return _ptr(ctl), [(ctl, torch.int64)]
 
 
-def _window_args(win_end, device):
+def _window_args(win_end, device, R: Optional[int] = None):
     """(pointer, tensors to check, the block) of a pop or judge launch's
     control block: `win_end` itself, or for an int a new block on
-    `device` with `run` set (the block lives until the call returns;
-    the launch is ordered before any reuse of its memory)."""
+    `device` with `run` set (for each of a campaign's R replicas; the
+    block lives until the call returns; the launch is ordered before
+    any reuse of its memory)."""
     if not isinstance(win_end, torch.Tensor):
-        win_end = control_block(device, run=1, win_end=win_end)
-    return (*_ctl_args(win_end), win_end)
+        win_end = control_block(device, R, run=1, win_end=win_end)
+    return (*_ctl_args(win_end, R), win_end)
 
 
 class Kernels:
@@ -1122,6 +1292,24 @@ class Kernels:
                 fn.restype = ctypes.c_int
             self._lib = lib
         return self._lib
+
+    def _seed_args(self, world: dict, p: PhaseParams, R: int, dev):
+        """(pointer, [(tensor, dtype)] to check) of a launch's [R, 2]
+        int64 seed keys: the world's, or for a world that names none
+        (one replica) a tensor of `p.seed`, made once."""
+        key = world.get("seed_key")
+        if key is None:
+            if R != 1:
+                raise ValueError("a campaign's world carries its [R, 2] "
+                                 "seed keys")
+            if (p.seed, dev) not in self._scratch:
+                self._scratch[p.seed, dev] = torch.tensor(
+                    [list(p.seed)], dtype=torch.int64, device=dev)
+            key = self._scratch[p.seed, dev]
+        if key.shape != (R, 2):
+            raise ValueError(f"seed keys: need [{R}, 2], not "
+                             f"{tuple(key.shape)}")
+        return _ptr(key), [(key, torch.int64)]
 
     def _scratch_of(self, key: str, n: int, dev) -> torch.Tensor:
         """An int64 scratch vector of `n` words on `dev`, allocated once
@@ -1180,16 +1368,28 @@ class Kernels:
             return self._pop_tor(state, ob, pops, world, win_end, p)
         return self._pop_phase(state, ob, pops, world, win_end, p)
 
-    @staticmethod
-    def _pop_tail(state: dict, win_end, p: PhaseParams):
-        """(the C entry's suffix, the trailing aud aud_t ctl pointers,
-        their checks, the control block) of a pop launch."""
-        ctl, checks, block = _window_args(win_end, state["head"].device)
+    def _pop_common(self, state: dict, world: dict, win_end,
+                    p: PhaseParams):
+        """(R, H, the launch name's flags (nic, epochs, hier, aud), the
+        C entry's suffix, TopoArgs, NicArgs, the seed keys' pointer, the
+        trailing aud aud_t ctl pointers, the checks of all these, the
+        block to keep alive) of a pop launch."""
+        R = n_replicas(state)
+        H = state["head"].shape[-1]
+        dev = state["head"].device
+        hier, epochs, topo, topo_checks = topo_args(world, R or 1)
+        nic, nic_checks = nic_args(state, world, p)
+        key, key_checks = self._seed_args(world, p, R or 1, dev)
+        ctl, ctl_checks, block = _window_args(win_end, dev, R)
+        checks = topo_checks + nic_checks + key_checks + ctl_checks
         if p.AUD:
             aud, aud_t = state["aud"], state["aud_t"]
-            checks = checks + [(aud, torch.int32), (aud_t, torch.int64)]
-            return AUD, (_ptr(aud), _ptr(aud_t), ctl), checks, block
-        return "", (None, None, ctl), checks, block
+            checks += [(aud, torch.int32), (aud_t, torch.int64)]
+            tail = (_ptr(aud), _ptr(aud_t), ctl)
+        else:
+            tail = (None, None, ctl)
+        return (R or 1, H, (p.MB, epochs, hier, p.AUD),
+                AUD if p.AUD else "", topo, nic, key, tail, checks, block)
 
     def _pop_phase(self, state: dict, ob: dict, pops: torch.Tensor,
                    world: dict, win_end, p: PhaseParams) -> None:
@@ -1197,29 +1397,23 @@ class Kernels:
         if not isinstance(a, PholdDevice) or p.T or p.P != 1:
             raise ValueError("pop_phase runs PHOLD (no timers, no "
                              "bursts)")
-        H = state["head"].shape[0]
         heap = [state[f] for f in HEAP_FIELDS]
         small = [state[f] for f in ("head", "event_seq", "packet_seq",
                                     "app_seq", "app", "n_exec",
                                     "n_deliv", "chk")]
         hv = world["host_vertex"]
-        hier, epochs, topo, topo_checks = topo_args(world)
-        nic, nic_checks = nic_args(state, world, p)
-        suffix, tail, tail_checks, block = self._pop_tail(state, win_end,
-                                                          p)
+        R, H, flags, suffix, topo, nic, key, tail, checks, _keep = \
+            self._pop_common(state, world, win_end, p)
         obs = [ob[f] for f in OB_FIELDS]
         i32, i64 = torch.int32, torch.int64
         self._launch(
-            launch_name("pop_phase", p.MB, epochs, hier, p.AUD),
-            "shadow_pop_phase" + suffix,
+            launch_name("pop_phase", *flags), "shadow_pop_phase" + suffix,
             [(t, i64) for t in heap + obs] + [(t, i32) for t in small[:7]]
-            + [(small[7], i64), (pops, i32), (hv, i32)] + topo_checks
-            + nic_checks + tail_checks,
-            H, p.E, p.K, p.B, *map(_ptr, heap),
+            + [(small[7], i64), (pops, i32), (hv, i32)] + checks,
+            R, H, p.E, p.K, p.B, *map(_ptr, heap),
             *map(_ptr, small), _ptr(hv), ctypes.byref(topo),
-            ctypes.byref(nic), p.seed[0], p.seed[1], a.n_hosts_total,
-            a.msgload, a.size, a.selfloop, *map(_ptr, obs), _ptr(pops),
-            *tail)
+            ctypes.byref(nic), key, a.n_hosts_total, a.msgload, a.size,
+            a.selfloop, *map(_ptr, obs), _ptr(pops), *tail)
 
     def _pop_tgen(self, state: dict, ob: dict, pops: torch.Tensor,
                   world: dict, win_end, p: PhaseParams) -> None:
@@ -1247,30 +1441,25 @@ class Kernels:
         if p.T != 1 or p.K != max(1, p.P) or p.C > 32:
             raise ValueError(f"{name}: one timer lane, one send lane per "
                              "burst column, trains of at most 32")
-        H = state["head"].shape[0]
         heap = [state[f] for f in HEAP_FIELDS]
         small = [state[f] for f in ("head", "event_seq", "packet_seq",
                                     "app", "n_exec", "n_deliv")]
         hv = world["host_vertex"]
-        hier, epochs, topo, topo_checks = topo_args(world)
-        nic, nic_checks = nic_args(state, world, p)
-        suffix, tail, tail_checks, block = self._pop_tail(state, win_end,
-                                                          p)
+        R, H, flags, suffix, topo, nic, key, tail, checks, _keep = \
+            self._pop_common(state, world, win_end, p)
         args = [world["client_count"], world["client_pause"],
                 world["client_retry"]]
         obs = [ob[f] for f in OB_FIELDS]
         i32, i64 = torch.int32, torch.int64
         self._launch(
-            launch_name(name, p.MB, epochs, hier, p.AUD),
-            f"shadow_{name}{suffix}",
+            launch_name(name, *flags), f"shadow_{name}{suffix}",
             [(t, i64) for t in heap + obs] + [(t, i32) for t in small]
-            + [(state["chk"], i64), (pops, i32), (hv, i32)] + topo_checks
-            + nic_checks
+            + [(state["chk"], i64), (pops, i32), (hv, i32)] + checks
             + [(args[0], i32)] + [(t, i64) for t in args[1:]]
-            + [(t, i32) for t in app_tensors] + tail_checks,
-            H, p.E, p.K, p.T, p.P, p.B, p.C, *map(_ptr, heap), *map(_ptr, small), _ptr(state["chk"]),
-            _ptr(hv), ctypes.byref(topo), ctypes.byref(nic),
-            *map(_ptr, args),
+            + [(t, i32) for t in app_tensors],
+            R, H, p.E, p.K, p.T, p.P, p.B, p.C, *map(_ptr, heap),
+            *map(_ptr, small), _ptr(state["chk"]), _ptr(hv),
+            ctypes.byref(topo), ctypes.byref(nic), key, *map(_ptr, args),
             *map(_ptr, app_tensors), *app_scalars, *map(_ptr, obs),
             _ptr(pops), *tail)
 
@@ -1278,21 +1467,24 @@ class Kernels:
                      win_end, p: PhaseParams) -> None:
         if not ob["t"].is_cuda:
             return judge_outbox_plain(state, ob, world, win_end, p)
-        H, OB = ob["t"].shape
+        R = ob_replicas(ob)
+        H, OB = ob["t"].shape[-2:]
+        dev = ob["t"].device
         obs = [ob["t"], ob["m"], ob["v"]]
         cnt = [state["packet_seq"], state["n_sent"], state["n_drop"]]
         hv = world["host_vertex"]
-        hier, epochs, topo, topo_checks = topo_args(world)
-        ctl, ctl_checks, block = _window_args(win_end, ob["t"].device)
+        hier, epochs, topo, topo_checks = topo_args(world, R or 1)
+        key, key_checks = self._seed_args(world, p, R or 1, dev)
+        ctl, ctl_checks, _block = _window_args(win_end, dev, R)
         self._launch(
             launch_name("judge_outbox", False, epochs, hier),
             "shadow_judge_outbox",
             [(t, torch.int64) for t in obs]
             + [(t, torch.int32) for t in cnt + [hv]] + topo_checks
-            + ctl_checks,
-            H, OB, p.C, int(p.boot_end), *map(_ptr, obs),
-            *map(_ptr, cnt), _ptr(hv), ctypes.byref(topo),
-            p.seed[0], p.seed[1], int(p.CP), ctl)
+            + key_checks + ctl_checks,
+            R or 1, H, OB, p.C, int(p.boot_end), *map(_ptr, obs),
+            *map(_ptr, cnt), _ptr(hv), ctypes.byref(topo), key, int(p.CP),
+            ctl)
 
     def count_paths(self, state: dict, ob: dict, world: dict,
                     ctl: Optional[torch.Tensor] = None) -> None:
@@ -1300,27 +1492,36 @@ class Kernels:
         state["path_cnt"] (count_paths_plain on the CPU)."""
         if not ob["t"].is_cuda:
             return count_paths_plain(state, ob, world, ctl)
-        H, OB = ob["t"].shape
+        R = ob_replicas(ob)
+        H, OB = ob["t"].shape[-2:]
         V = n_vertices(world)
         cnt = state["path_cnt"]
-        if cnt.shape != (1, V * V):
-            raise ValueError(f"count_paths: path_cnt must be [1, {V * V}]")
+        want = (1, V * V) if R is None else (R, 1, V * V)
+        if cnt.shape != want:
+            raise ValueError(f"count_paths: path_cnt must be {list(want)}")
         obs = [ob["t"], ob["k"], ob["m"]]
         hv = world["host_vertex"]
-        c, ctl_checks = _ctl_args(ctl)
+        c, ctl_checks = _ctl_args(ctl, R)
         self._launch(
             "count_paths", "shadow_count_paths",
             [(t, torch.int64) for t in obs + [cnt]] + [(hv, torch.int32)]
             + ctl_checks,
-            H, OB, V, *map(_ptr, obs), _ptr(hv), _ptr(cnt), c)
+            R or 1, H, OB, V, *map(_ptr, obs), _ptr(hv), _ptr(cnt), c)
 
     def route(self, ob: dict, out=None, ctl: Optional[torch.Tensor] = None):
         """K5: (perm, starts, counts) as `route_plain` gives them, for
         destinations in [0, H), written into `out` where given (perm
-        [H*OB], starts and counts [H], int64), else into new tensors.
+        [H*OB], starts and counts [H], int64; each with the leading [R]
+        axis for a campaign's outbox [R, H, OB]), else into new tensors.
         Only perm's first counts.sum() entries are written; the rest are
         unspecified."""
         if not ob["t"].is_cuda:
+            if ctl is not None and ctl.dim() == 2:
+                # a campaign: each replica that runs, in turn
+                for r in range(ctl.shape[0]):
+                    self.route(at_replica(ob, r),
+                               tuple(o[r] for o in out), ctl[r])
+                return out
             if _phase_off(ctl):
                 return out
             res = route_plain(ob)
@@ -1329,26 +1530,30 @@ class Kernels:
             for o, r in zip(out, res):
                 o.copy_(r)
             return out
-        H, OB = ob["t"].shape
+        R = ob_replicas(ob)
+        H, OB = ob["t"].shape[-2:]
         dev = ob["t"].device
-        # scattered rows, cursors, and the scan's block totals (it
-        # needs fewer than H)
-        scratch = [self._scratch_of(k, n, dev) for k, n in (
-            ("route_rows", H * OB), ("route_cursor", H),
-            ("route_block_sums", H))]
+        lead = () if R is None else (R,)
+        lib = self.library()
+        # scattered rows, cursors, and the scan's block totals, per
+        # replica
+        n = R or 1
+        scratch = [self._scratch_of(k, m, dev) for k, m in (
+            ("route_rows", n * H * OB), ("route_cursor", n * H),
+            ("route_block_sums", n * lib.shadow_route_scan_blocks(H)))]
         if out is None:
-            out = (torch.empty(H * OB, dtype=torch.int64, device=dev),
-                   torch.empty(H, dtype=torch.int64, device=dev),
-                   torch.empty(H, dtype=torch.int64, device=dev))
-        if [o.shape for o in out] != [(H * OB,), (H,), (H,)]:
-            raise ValueError("route: out must be perm [H*OB], starts [H] "
-                             "and counts [H]")
-        c, ctl_checks = _ctl_args(ctl)
+            out = tuple(torch.empty((*lead, m), dtype=torch.int64,
+                                    device=dev) for m in (H * OB, H, H))
+        if [tuple(o.shape) for o in out] != [(*lead, H * OB), (*lead, H),
+                                             (*lead, H)]:
+            raise ValueError("route: out must be perm [(R,)H*OB], starts "
+                             "[(R,)H] and counts [(R,)H]")
+        c, ctl_checks = _ctl_args(ctl, R)
         self._launch(
             "route", "shadow_route",
             [(ob["t"], torch.int64), (ob["m"], torch.int64)]
             + [(t, torch.int64) for t in list(out) + scratch] + ctl_checks,
-            H, OB, _ptr(ob["t"]), _ptr(ob["m"]), *map(_ptr, out),
+            n, H, OB, _ptr(ob["t"]), _ptr(ob["m"]), *map(_ptr, out),
             *map(_ptr, scratch), c)
         return tuple(out)
 
@@ -1359,17 +1564,18 @@ class Kernels:
         if not perm.is_cuda:
             return merge_heaps_plain(state, ob, perm, starts, counts, p,
                                      ctl)
-        H = state["head"].shape[0]
+        R = n_replicas(state)
+        H = state["head"].shape[-1]
         heap = [state[f] for f in HEAP_FIELDS] + [state["head"]]
         obs = [ob[f] for f in OB_FIELDS]
         seg = [perm, starts, counts]
         occ = [state["overflow"], state["occ_in"], state["occ_heap"]]
-        c, ctl_checks = _ctl_args(ctl)
+        c, ctl_checks = _ctl_args(ctl, R)
         self._launch(
             "merge_heaps", "shadow_merge_heaps",
             [(t, torch.int64) for t in heap[:5] + obs + seg]
             + [(t, torch.int32) for t in heap[5:] + occ] + ctl_checks,
-            H, p.E, p.IN, perm.shape[0], *map(_ptr, heap),
+            R or 1, H, p.E, p.IN, perm.shape[-1], *map(_ptr, heap),
             *map(_ptr, obs), *map(_ptr, seg), *map(_ptr, occ), c)
 
     def phase_tally(self, state: dict, ob: dict, pops: torch.Tensor,
@@ -1379,16 +1585,17 @@ class Kernels:
         (phase_tally_plain on the CPU)."""
         if not pops.is_cuda:
             return phase_tally_plain(state, ob, pops, p, ctl)
-        H, OB = ob["t"].shape
+        R = ob_replicas(ob)
+        H, OB = ob["t"].shape[-2:]
         occ = [state["occ_ob"], state["occ_trips"], state["occ_phases"]]
         aud_tx = state["aud_tx"] if p.AUD else None
-        c, ctl_checks = _ctl_args(ctl)
+        c, ctl_checks = _ctl_args(ctl, R)
         self._launch(
             "phase_tally", "shadow_phase_tally",
             [(ob["t"], torch.int64)]
             + [(t, torch.int32) for t in [pops] + occ]
             + ([(aud_tx, torch.int64)] if p.AUD else []) + ctl_checks,
-            H, OB, _ptr(ob["t"]), _ptr(pops), *map(_ptr, occ),
+            R or 1, H, OB, _ptr(ob["t"]), _ptr(pops), *map(_ptr, occ),
             None if aud_tx is None else _ptr(aud_tx), c)
 
     def audit_round(self, state: dict,
@@ -1398,34 +1605,38 @@ class Kernels:
         set."""
         if not state["head"].is_cuda:
             return audit_round_plain(state, ctl)
-        H, E = state["ht"].shape
+        R = n_replicas(state)
+        H, E = state["ht"].shape[-2:]
         heap = [state["ht"], state["hk"]]
         small = [state["head"]] + [state[k] for k in AUD_COUNTERS] + \
             [state["overflow"], state["x_overflow"]]
-        total = self._scratch_of("audit_sum", 1, state["ht"].device)
-        c, ctl_checks = _ctl_args(ctl)
+        total = self._scratch_of("audit_sum", R or 1, state["ht"].device)
+        c, ctl_checks = _ctl_args(ctl, R)
         self._launch(
             "audit_round", "shadow_audit_round",
             [(t, torch.int64) for t in heap + [state["aud_tx"], total]]
             + [(t, torch.int32) for t in small + [state["aud"]]]
             + ctl_checks,
-            H, E, *map(_ptr, heap), *map(_ptr, small),
+            R or 1, H, E, *map(_ptr, heap), *map(_ptr, small),
             _ptr(state["aud_tx"]), _ptr(state["aud"]), _ptr(total), c)
 
     def loop_control(self, state: dict, ctl: torch.Tensor,
                      start: bool = False) -> None:
         """K9: one control step of the window loop on the block `ctl`
-        (loop_control_plain on the CPU)."""
+        (loop_control_plain on the CPU); a campaign's blocks [R, CTL_N]
+        each step their own replica."""
         if not ctl.is_cuda:
             return loop_control_plain(state, ctl, start)
-        H, E = state["ht"].shape
+        R = n_replicas(state)
+        H, E = state["ht"].shape[-2:]
         lib = self.library()
         partial = self._scratch_of(
-            "loop_partial", lib.shadow_loop_control_blocks(H), ctl.device)
-        c, ctl_checks = _ctl_args(ctl)
+            "loop_partial", (R or 1) * lib.shadow_loop_control_blocks(H),
+            ctl.device)
+        c, ctl_checks = _ctl_args(ctl, R)
         self._launch(
             "loop_control", "shadow_loop_control",
             [(state["ht"], torch.int64), (state["head"], torch.int32),
              (partial, torch.int64)] + ctl_checks,
-            H, E, _ptr(state["ht"]), _ptr(state["head"]), _ptr(partial), c,
-            int(start))
+            R or 1, H, E, _ptr(state["ht"]), _ptr(state["head"]),
+            _ptr(partial), c, int(start))

@@ -17,6 +17,8 @@ Tor the downloads completed, under `count_paths` the sent packets per
 vertex pair, and the loop's phases and host syncs. Under
 `experimental.state_audit` it checks the health word at the run's end
 and raises `AuditFailure` (device/supervise.py) where it is not zero.
+`engine_from` also builds an ensemble campaign's engine, whose R
+replicas ensemble/campaign.py runs.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from shadow_tpu_torch.device import capacity
 from shadow_tpu_torch.device.engine import (
     DeviceEngine,
     EngineConfig,
+    campaign_world_arrays,
     phase_params,
     resolve_device,
     state_to_numpy,
@@ -73,6 +76,10 @@ class SimStats:
     loop: str = ""
     phases: int = 0
     host_syncs: int = 0
+    # an ensemble campaign's record (ensemble/campaign.py); the totals
+    # above are then over every replica, the per-host arrays replica
+    # 0's, rounds and phases the most of any replica
+    ensemble: Optional[dict] = field(default=None, repr=False)
 
     def summary(self) -> str:
         downloads = ("" if self.downloads_completed is None else
@@ -84,9 +91,11 @@ class SimStats:
                 f"{self.rounds} rounds")
 
 
-def engine_config(cfg: ConfigOptions, sim: BuiltSimulation) -> EngineConfig:
-    """The engine's shape from the config and the built simulation;
-    sets the app's burst width."""
+def engine_config(cfg: ConfigOptions, sim: BuiltSimulation,
+                  lookahead: Optional[int] = None) -> EngineConfig:
+    """The engine's shape from the config and the built simulation
+    (`lookahead` overrides the simulation's: a campaign's is the
+    minimum over its replicas); sets the app's burst width."""
     xp = cfg.experimental
     if xp.burst_pops:
         if xp.burst_pops > 1 and sim.app.burst_pops <= 1:
@@ -102,7 +111,8 @@ def engine_config(cfg: ConfigOptions, sim: BuiltSimulation) -> EngineConfig:
         n_hosts=len(sim.host_vertex),
         event_capacity=xp.event_capacity,
         outbox_capacity=outbox,
-        lookahead=max(1, sim.lookahead),
+        lookahead=max(1, sim.lookahead if lookahead is None
+                      else lookahead),
         stop_time=cfg.general.stop_time,
         bootstrap_end=cfg.general.bootstrap_end_time,
         seed=cfg.general.seed,
@@ -112,18 +122,31 @@ def engine_config(cfg: ConfigOptions, sim: BuiltSimulation) -> EngineConfig:
 
 
 def admit(cfg: ConfigOptions, sim: BuiltSimulation, config: EngineConfig,
-          device) -> dict:
-    """The preflight admission verdict of a built run on `device`,
-    from shapes and host arrays alone (nothing is allocated on the
-    device); raises ValueError where `admission: strict` refuses."""
-    est = capacity.footprint(
-        config.n_hosts, phase_params(config, sim.app),
-        world_arrays(config.n_hosts, sim.app, sim.host_vertex,
-                     *world_tables(sim.topology, sim.fault_table),
-                     sim.bw_up_bits, sim.bw_down_bits,
-                     config.model_bandwidth, config.count_paths))
-    return capacity.admission_verdict(est, resolve_device(device),
-                                      cfg.experimental)
+          device, ensemble=None, batchable: bool = False) -> dict:
+    """The preflight admission verdict of a built run, or of the
+    campaign of `ensemble` worlds, on `device`, from shapes and host
+    arrays alone (nothing is allocated on the device); raises
+    ValueError where `admission: strict` refuses. Where a `batchable`
+    campaign does not fit, `auto` offers a replica batch that does."""
+    params = phase_params(config, sim.app)
+    if ensemble is None:
+        world = world_arrays(config.n_hosts, sim.app, sim.host_vertex,
+                             *world_tables(sim.topology, sim.fault_table),
+                             sim.bw_up_bits, sim.bw_down_bits,
+                             config.model_bandwidth, config.count_paths,
+                             params.seed)
+    else:
+        world = campaign_world_arrays(
+            config.n_hosts, sim.app, sim.host_vertex, ensemble,
+            sim.bw_up_bits, sim.bw_down_bits, config.model_bandwidth,
+            config.count_paths)
+
+    def estimate(replicas=None):
+        return capacity.footprint(config.n_hosts, params, world, replicas)
+
+    return capacity.admission_verdict(
+        estimate(), resolve_device(device), cfg.experimental,
+        rescale=estimate if batchable else None)
 
 
 def make_engine(cfg: ConfigOptions, device="cuda",
@@ -134,17 +157,24 @@ def make_engine(cfg: ConfigOptions, device="cuda",
 
 
 def engine_from(cfg: ConfigOptions, sim: BuiltSimulation, device="cuda",
-                kernels: Optional[Kernels] = None) -> DeviceEngine:
-    """The engine of a built simulation; its `admission` holds the
-    verdict, reached before the engine allocates anything."""
-    config = engine_config(cfg, sim)
-    verdict = admit(cfg, sim, config, device)
-    lat, rel, epoch_times = world_tables(sim.topology, sim.fault_table)
+                kernels: Optional[Kernels] = None, ensemble=None,
+                lookahead: Optional[int] = None) -> DeviceEngine:
+    """The engine of a built simulation, or with `ensemble` worlds
+    (ensemble/spec.py) the campaign engine of their replicas, at
+    `lookahead` where given; its `admission` holds the verdict, reached
+    before the engine allocates anything."""
+    config = engine_config(cfg, sim, lookahead)
+    if ensemble is not None:
+        config.seed = int(ensemble.seeds[0])
+    verdict = admit(cfg, sim, config, device, ensemble)
+    lat, rel, epoch_times = (world_tables(sim.topology, sim.fault_table)
+                             if ensemble is None else (None, None, None))
     engine = DeviceEngine(config, sim.app, host_vertex=sim.host_vertex,
                           latency_ns=lat, reliability=rel, device=device,
                           kernels=kernels, epoch_times=epoch_times,
                           bw_up_bits=sim.bw_up_bits,
-                          bw_down_bits=sim.bw_down_bits)
+                          bw_down_bits=sim.bw_down_bits,
+                          ensemble=ensemble)
     engine.admission = verdict
     return engine
 
@@ -153,7 +183,12 @@ def run(cfg: ConfigOptions, device="cuda",
         kernels: Optional[Kernels] = None) -> SimStats:
     """Build, admit and run a config through the engine's own window
     loop (DeviceEngine.run); under the state audit, raise AuditFailure
-    where the health word is not zero at the end."""
+    where the health word is not zero at the end. An `ensemble:`
+    config runs through ensemble/campaign.py."""
+    if cfg.ensemble is not None:
+        raise ValueError("an ensemble: config is a campaign: run it with "
+                         "shadow_tpu_torch.ensemble.campaign."
+                         "EnsembleRunner (the CLI does)")
     engine, sim = make_engine(cfg, device=device, kernels=kernels)
     state = engine.init_state(sim.start_times, sim.stop_times)
     t0 = time.perf_counter()

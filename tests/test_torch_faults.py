@@ -371,7 +371,8 @@ def test_star_schedule_has_six_epochs_and_keeps_the_lookahead():
 def test_world_uploads_one_cl_for_every_epoch():
     """The engine world takes the stacked factored leaves with cl once:
     [V], shared by the latency and the reliability tables; admission
-    counts it once."""
+    counts it once (beside the epoch times, the host vertices and the
+    run's [1, 2] seed key)."""
     from shadow_tpu_torch.config import load_config_str
     from shadow_tpu_torch.device import runner
 
@@ -388,7 +389,8 @@ def test_world_uploads_one_cl_for_every_epoch():
     leaves = [t for t in (*lat, *rel[:1], *rel[2:])]
     table_bytes = sum(t.numel() * t.element_size() for t in leaves)
     assert est["world_bytes"] == table_bytes + T * 8 + \
-        engine.world["host_vertex"].numel() * 4
+        engine.world["host_vertex"].numel() * 4 + \
+        engine.world["seed_key"].numel() * 8
 
 
 def test_compile_validation_matches_the_reference():

@@ -98,6 +98,41 @@ def test_configs_outside_the_slice_are_refused_by_roadmap_item(
         build(cfg)
 
 
+CAMPAIGN = "ensemble={replicas: 2, vary: {seed: [3, 4]}}"
+
+
+@pytest.mark.parametrize("override,item", [
+    ("experimental.checkpoint_save=run.npz", "queue (a) item 7b"),
+    ("experimental.checkpoint_every=100ms", "queue (a) item 7b"),
+    ("experimental.capacity_plan=auto", "queue (a) item 7a"),
+    ("experimental.dispatch_segment=200ms", "queue (a) item 7a"),
+    ("general.heartbeat_interval=100ms", "queue (a) item 7a"),
+    ("experimental.exchange=two_phase", "queue (a) item 9"),
+])
+def test_campaign_keys_still_refused_name_their_items(override, item):
+    from shadow_tpu_torch.config.loader import load_config_str as load
+
+    cfg = load(PHOLD, [CAMPAIGN, override])
+    with pytest.raises(OutsideSlice, match="ROADMAP.md " +
+                       item.replace("(", r"\(").replace(")", r"\)")):
+        build(cfg)
+
+
+def test_ensemble_is_admitted_and_runs_on_the_cpu(tmp_path):
+    """An `ensemble:` config builds (static capacities named or not) and
+    runs its campaign on the CPU; a standalone heartbeat is ignored."""
+    from shadow_tpu_torch.config.loader import load_config_str as load
+    from shadow_tpu_torch.ensemble.campaign import EnsembleRunner
+
+    build(load(PHOLD, [CAMPAIGN, "experimental.capacity_plan=static"]))
+    build(load(PHOLD, ["general.heartbeat_interval=100ms"]))
+    stats = EnsembleRunner(load(PHOLD, [
+        CAMPAIGN, f"ensemble.record_path={tmp_path / 'rec.json'}"]),
+        device="cpu").run()
+    assert stats.ok and stats.ensemble["workload"]["replicas"] == 2
+    assert (tmp_path / "rec.json").exists()
+
+
 def test_state_audit_is_admitted_and_runs_on_the_cpu():
     """`experimental.state_audit` is inside the slice: an audited PHOLD
     config builds, runs with a clean word and the unaudited trace."""
