@@ -8,7 +8,7 @@ Phases, in order; any failure exits non-zero before the last line:
 
 1. build: print the card's name and power limit (nvidia-smi), the torch
    and CUDA versions and the CUDA toolkit's (`nvcc --version`), then
-   build the CUDA kernels (ten; the pops and the judge each
+   build the CUDA kernels (twelve; the pops and the judges each
    instantiated on dense and on factored tables, with one epoch and
    with a fault schedule's epoch axis, the pops also with and without
    the model NIC, and with and without the state audit's clock lane, in
@@ -80,7 +80,19 @@ Phases, in order; any failure exits non-zero before the last line:
      at R = REPLICAS (4) on four replicas' seeded states, tables, seed
      keys and window ends, equal to four R = 1 launches and to its
      plain version, and again with one replica's control block stopping
-     it, which must keep every byte; R = 1 and R = 4 times.
+     it, which must keep every byte; R = 1 and R = 4 times;
+   - K10 judge_batch (the hybrid policy's batched judge) at JUDGE_N =
+     1,048,576 packets on each of its four views: phold.yaml's dense
+     tables (2% loss) at 100,000 hosts, examples/tgen_1000000.yaml's
+     factored tables (hubs lossy as PHOLD_1M_HUB_LOSS) at its 1,000,000
+     hosts, phold_1m_hier_faults' six factored epochs and the dense
+     tables stacked over EPOCH_TIMES; send times 1 ns either side of
+     every epoch start and of the bootstrap end, packet seqs at 0 and
+     2^31-1, every kind of pair;
+   - K11 compact_outbox at the PHOLD shapes (100,000 hosts, OB = 30)
+     with CX 4 and 16, by the window rule and the global rule, and each
+     rule at R = 4 against four R = 1 launches, a stopped replica
+     keeping every byte.
 3. parity: the window loop captured into a CUDA graph on the card (the
    main path), the Python loop on the card and the CPU plain path must
    give identical totals, rounds, per-host events_executed /
@@ -108,7 +120,18 @@ Phases, in order; any failure exits non-zero before the last line:
    and fault_schedule [base, none], each through the graph loop and the
    Python loop on the card and the CPU plain path, replica by replica,
    each replica equal to its standalone graph run, and the sweep with
-   replica_batch 2 equal to the whole campaign.
+   replica_batch 2 equal to the whole campaign; then the hybrid policy
+   (`hybrid_parity`, HYBRID_PARITY: tests/test_hybrid.py's lossy PHOLD
+   and its selfloop case, examples/tgen_faults.yaml and
+   tgen_faults_hier.yaml under tpu, the latter also with its host
+   faults alone, a PHOLD + tgen mix, a cut tor_small with a relay
+   crash), each on the card with K10 on every flush, on the CPU plain
+   path and on the port's serial policy: traces, per-host leaves,
+   totals and path counters equal; then the outbox compaction
+   (`compact_parity`): the PHOLD above and examples/tgen_10000.yaml cut
+   to COMPACT_STOP, at the uncompacted run's largest occ_ob (equal to
+   the uncompacted run) and at half of it (by each rule for the
+   PHOLD, by the global rule for tgen_10000), three ways.
 4. full: through the port's CLI entry function on the card (the
    captured window loop), each run with the kernel launch counts set to
    0 just before and read just after; fails on any overflow or on a
@@ -136,8 +159,17 @@ Phases, in order; any failure exits non-zero before the last line:
    examples/tor_small.yaml with 8 replicas over latency scales and loss
    deltas, each through the CLI's entry function (the graph loop),
    profiled, in timing mode, and each replica against its standalone
-   graph run, whose walls are summed beside the campaign's. Every run
-   must be admitted and its measured peak device memory lie within
+   graph run, whose walls are summed beside the campaign's; then
+   (`hybrid_full`) examples/tgen_faults.yaml and tgen_faults_hier.yaml
+   as shipped under tpu (the hybrid policy) and again with K10 on every
+   flush, and a hybrid PHOLD at 2 x HYB_FULL_HOSTS hosts with host and
+   link faults (HYB_FULL_OVERRIDES) against the port's serial run of
+   it, each with its wall, events/s, flushes on the card against the
+   CPU, the judge's share of the wall and the kernel and copy ms per
+   device flush; and (`compact_full`) PHOLD at 100,000 hosts and
+   examples/tgen_10000.yaml as shipped under outbox_compact at the
+   uncompacted run's largest occ_ob, beside the uncompacted wall. Every
+   device run must be admitted and its measured peak device memory lie within
    capacity.FOOTPRINT_TOLERANCE of its admission estimate.
 5. boot: examples/tgen_1000000.yaml as shipped built (timed), admitted
    and booted (engine and init_state) on the card; not run.
@@ -519,6 +551,14 @@ REPLACES = {
     "phase_tally": "shadow_tpu/device/engine.py:1941",
     # the window loop: _round/_phase/_run_shard/_axis_min
     "loop_control": "shadow_tpu/device/engine.py:2116",
+    # the hybrid policy's batched judge, on each view of the tables
+    **dict.fromkeys(("judge_batch", "judge_batch_hier", "judge_batch_ep",
+                     "judge_batch_ep_hier"),
+                    "shadow_tpu/device/judge.py:80"),
+    # the compaction: the window merge's CX < OB branch of _flat_sorted
+    # and the global merge's _compact_flat
+    "compact_outbox": "shadow_tpu/device/engine.py:1299",
+    "compact_outbox_global": "shadow_tpu/device/engine.py:1858",
 }
 SOURCES = {
     "pop_phase": "shadow_tpu_torch/csrc/pop_phase.cu",
@@ -544,6 +584,11 @@ SOURCES = {
     "audit_round": "shadow_tpu_torch/csrc/audit_round.cu",
     "phase_tally": "shadow_tpu_torch/csrc/phase_tally.cu",
     "loop_control": "shadow_tpu_torch/csrc/loop_control.cu",
+    **dict.fromkeys(("judge_batch", "judge_batch_hier", "judge_batch_ep",
+                     "judge_batch_ep_hier"),
+                    "shadow_tpu_torch/csrc/judge_batch.cu"),
+    **dict.fromkeys(("compact_outbox", "compact_outbox_global"),
+                    "shadow_tpu_torch/csrc/compact_outbox.cu"),
 }
 # the kernels line's rows, in order
 ROWS = ("pop_phase", "pop_tgen", "pop_tor", "judge_outbox", "route",
@@ -552,7 +597,9 @@ ROWS = ("pop_phase", "pop_tgen", "pop_tor", "judge_outbox", "route",
         "pop_tgen_ep", "judge_outbox_ep_hier", "pop_tgen_ep_hier",
         "pop_phase_ep_hier", "count_paths", "pop_phase_aud",
         "pop_tgen_aud", "pop_tor_aud", "pop_phase_hier_aud",
-        "pop_tgen_nic_aud", "audit_round", "loop_control", "phase_tally")
+        "pop_tgen_nic_aud", "audit_round", "loop_control", "phase_tally",
+        "judge_batch", "judge_batch_hier", "judge_batch_ep",
+        "judge_batch_ep_hier", "compact_outbox", "compact_outbox_global")
 AUDIT = "experimental.state_audit=true"
 # tests/test_torch_audit.py's BUSY: PHOLD without loss at msgload 4,
 # with self-sends and a 50 ms runahead, so that every host keeps several
@@ -2370,6 +2417,19 @@ def replica_kernels(torch, K, scratch, rng, dev):
     out["count_paths"] = replica_check(
         torch, K, scratch, "count_paths", "count_paths",
         K.count_paths_plain, paths_make, (0,), 3, stop_run)
+    # its bound at R = REPLICAS: count_paths_case's bytes, replica by
+    # replica (t of every row; src, dst and weight of each packet row
+    # with its two vertices; each histogram cell touched read and
+    # written)
+    k7 = 0
+    hv = world["host_vertex"].long()
+    for r in range(R):
+        ob = dense_judged[r][1]
+        pkt = (ob["t"] < K.INF) & ((ob["m"] & 0xFF) == 2)
+        cells = hv[(ob["k"] >> 32)[pkt]] * V + hv[(ob["m"] >> 32)[pkt]]
+        k7 += (ob["t"].numel() * 8 + int(pkt.sum()) * (2 * 8 + 2 * 4)
+               + torch.unique(cells).numel() * 16)
+    out["count_paths"]["bound_ms"] = 1e3 * k7 / HBM_BYTES_PER_S
 
     # K6 at tor_large's layout
     state0, world, pr, win_end = tor_inputs(torch, K, rng, dev)
@@ -2467,7 +2527,284 @@ def replica_kernels(torch, K, scratch, rng, dev):
     out["loop_control"] = replica_check(
         torch, K, scratch, "loop_control", "loop_control",
         K.loop_control_plain, loop_make, (1,), 1, stop_loop)
+    # loop_control_case's bytes (head and head time of every host) for
+    # each replica
+    out["loop_control"]["bound_ms"] = 1e3 * R * H * (4 + 8) / \
+        HBM_BYTES_PER_S
     return out
+
+
+# ----------------------------------------------------------------------
+# K10 judge_batch and K11 compact_outbox
+# ----------------------------------------------------------------------
+JUDGE_N = 1 << 20
+# the batches' bootstrap end: packets sent before it never drop
+JUDGE_BOOT_END = 500_000_000
+# bytes a packet brings in (now, src, dst, seq) and takes out
+# (deliver_time, delivered)
+K_JUDGE_IN, K_JUDGE_OUT = 20, 9
+
+
+def judge_batch_inputs(torch, rng, world, N, boundaries):
+    """N deferred packets for K10 on `world`'s hosts: senders uniform;
+    destinations a tenth the sender itself, a tenth another host on its
+    vertex (itself where it is alone), a tenth the next host id (the
+    same cluster, on tiled factored tables), the rest uniform; send
+    times a third at 1 ns before, at and after each of `boundaries`, the
+    rest uniform in [0, 2 s); packet seqs uniform int32 with 0, 2^31-1,
+    -1 (u32 0xFFFFFFFF) and -2^31 among them. (now, src, dst, seq) on
+    the world's device."""
+    hv = world["host_vertex"].cpu().numpy().astype(np.int64)
+    H = len(hv)
+    src = rng.integers(0, H, N)
+    order = np.argsort(hv, kind="stable")
+    pair = hv[order][1:] == hv[order][:-1]
+    partner = np.arange(H)
+    partner[order[:-1][pair]] = order[1:][pair]
+    partner[order[1:][pair]] = order[:-1][pair]
+    pick = rng.random(N)
+    dst = np.where(pick < 0.1, src, np.where(
+        pick < 0.2, partner[src], np.where(
+            pick < 0.3, np.minimum(src + 1, H - 1),
+            rng.integers(0, H, N))))
+    near = (np.repeat(np.asarray(boundaries, np.int64), 3)
+            + np.tile(np.array([-1, 0, 1], np.int64), len(boundaries)))
+    now = rng.integers(0, 2 * 10**9, N)
+    at = rng.random(N) < 1 / 3
+    now[at] = near[rng.integers(0, len(near), int(at.sum()))]
+    now = np.maximum(now, 0)
+    seq = rng.integers(-2**31, 2**31, N)
+    seq[:4] = [0, 2**31 - 1, -1, -2**31]
+    dev = world["host_vertex"].device
+    return (torch.from_numpy(now.astype(np.int64)).to(dev),
+            *(torch.from_numpy(a.astype(np.int32)).to(dev)
+              for a in (src, dst, seq)))
+
+
+def judge_batch_case(torch, K, scratch, rng, world, boundaries):
+    """K10 against judge_batch_plain on one batch of JUDGE_N packets,
+    exact, timed; the bound counts the batch's columns, the host
+    vertices it names and the table cells its lookups touch (each once),
+    and two threefry blocks per rolled packet plus one per sender that
+    rolls."""
+    N = JUDGE_N
+    now, src, dst, seq = judge_batch_inputs(torch, rng, world, N,
+                                            boundaries)
+    dev = now.device
+    out = (torch.empty(N, dtype=torch.int64, device=dev),
+           torch.empty(N, dtype=torch.uint8, device=dev))
+    dk, tk = scratch.judge_batch(world, JUDGE_BOOT_END, now, src, dst, seq,
+                                 out=out)
+    dp, tp = K.judge_batch_plain(world, JUDGE_BOOT_END, now, src, dst, seq)
+    torch.cuda.synchronize()
+    err = max_abs_err({"d": dk.bool(), "t": tk}, {"d": dp, "t": tp},
+                      ["d", "t"])
+    hier = isinstance(world["lat"], tuple)
+    ept = world["epoch_times"]
+    T = int(ept.shape[0])
+    name = K.launch_name("judge_batch", False, T > 1, hier)
+    check(err == 0.0, f"{name} differs from its plain version (max abs "
+          f"err {err})")
+    check(scratch.launches[name] > 0, f"{name} never launched")
+    hv = world["host_vertex"].long()
+    sv, dv = hv[src.long()], hv[dst.long()]
+    e = K.epoch_of(now, ept)
+    e = torch.zeros_like(now) if e is None else e.long()
+    rel = K.table_lookup(world["rel"], sv, dv, None if T == 1 else e)
+    rolled = (rel < 1.0) & (now >= JUDGE_BOOT_END)
+    dropped = int((~dp).sum())
+    check(dropped > 0 and int((rolled & dp).sum()) > 0,
+          f"{name}: the batch rolled nothing or dropped nothing")
+    check(bool(((now < JUDGE_BOOT_END) & (rel < 1.0)).any()),
+          f"{name}: no lossy packet before the bootstrap end")
+    hosts = torch.unique(torch.cat([src, dst])).numel()
+    if hier:
+        cl = world["lat"][1].long()
+        V = cl.shape[0]
+        C = int(world["lat"][0].shape[-1])
+        same = sv == dv
+        verts = torch.unique(torch.cat([sv, dv])).numel()
+        ev = torch.unique(torch.cat([e * V + sv, e * V + dv])[
+            torch.cat([~same, ~same])]).numel()
+        selfv = torch.unique((e * V + sv)[same]).numel()
+        core = torch.unique(((e * C + cl[sv]) * C + cl[dv])[~same]).numel()
+        # cl of every vertex named, the access pair of every (epoch,
+        # vertex) of a cross-vertex lookup, the self pair of every
+        # (epoch, vertex) of a same-vertex one, the core pair cells
+        table = verts * 4 + ev * 8 + selfv * 8 + core * 8
+        kinds = {"same_vertex": int(same.sum()),
+                 "same_cluster": int((~same & (cl[sv] == cl[dv])).sum()),
+                 "cross_cluster": int((cl[sv] != cl[dv]).sum())}
+    else:
+        V = int(world["lat"].shape[-1])
+        table = torch.unique((e * V + sv) * V + dv).numel() * 8
+        kinds = {"same_vertex": int((sv == dv).sum()),
+                 "cross_vertex": int((sv != dv).sum())}
+    for k, n in kinds.items():
+        check(n > 0, f"{name}: no {k} pair in the batch")
+    rolled_n = int(rolled.sum())
+    senders = torch.unique(src[rolled]).numel()
+
+    def args():
+        return (world, JUDGE_BOOT_END, now, src, dst, seq, out)
+
+    def plain_args():
+        return (world, JUDGE_BOOT_END, now, src, dst, seq)
+
+    return finish({
+        "err": err,
+        "ms": time_median(torch, scratch.judge_batch, args, 7),
+        "plain_ms": time_median(torch, K.judge_batch_plain, plain_args, 3),
+        "library_ms": None,
+        "bytes": N * (K_JUDGE_IN + K_JUDGE_OUT) + hosts * 4 + table
+        + T * 8,
+        "ops": (2 * rolled_n + senders) * THREEFRY_OPS,
+        "shape": f"N={N} H={hv.shape[0]} V={V} T={T} rolled={rolled_n} "
+                 f"dropped={dropped} hosts={hosts} "
+                 + " ".join(f"{k}={v}" for k, v in kinds.items())})
+
+
+def judge_batch_kernels(torch, K, scratch, rng, dev):
+    """K10 on its four views, each at JUDGE_N packets: phold.yaml's
+    dense tables (2% loss) at the PHOLD shapes' 100,000 hosts; the
+    factored tables of examples/tgen_1000000.yaml (hubs lossy as
+    PHOLD_1M_HUB_LOSS) at its 1,000,000 hosts; phold_1m_hier_faults'
+    six factored epochs; the dense tables stacked over EPOCH_TIMES
+    (`stack_epochs`). Send times straddle the bootstrap end and every
+    epoch start."""
+    from shadow_tpu_torch.device.prng import seed_key
+
+    key = torch.tensor([list(seed_key(7))], dtype=torch.int64, device=dev)
+    H = 100_000
+    dense = {
+        "host_vertex": torch.from_numpy(
+            rng.integers(0, 2, H).astype(np.int32)).to(dev),
+        "lat": torch.tensor([[30_000_000, 50_000_000],
+                             [50_000_000, 30_000_000]],
+                            dtype=torch.int32, device=dev),
+        "rel": torch.full((2, 2), 0.98, dtype=torch.float32, device=dev),
+        "epoch_times": torch.zeros(1, dtype=torch.int64, device=dev),
+        "seed_key": key}
+    _, _, million = million_world(dev)
+    _, faults = million_fault_world(dev)
+    cases = (("judge_batch", dense, [JUDGE_BOOT_END]),
+             ("judge_batch_hier", million(PHOLD_1M_HUB_LOSS),
+              [JUDGE_BOOT_END]),
+             ("judge_batch_ep_hier", faults,
+              [JUDGE_BOOT_END] + faults["epoch_times"].tolist()),
+             ("judge_batch_ep", stack_epochs(torch, dense, EPOCH_TIMES,
+                                             dev),
+              [JUDGE_BOOT_END] + EPOCH_TIMES))
+    out = {}
+    for name, world, bounds in cases:
+        world = {**world, "seed_key": key}
+        out[name] = judge_batch_case(torch, K, scratch, rng, world, bounds)
+    return out
+
+
+def compact_inputs(torch, rng, H, OB, dev):
+    """A judged outbox at [H, OB] for K11: each row 0 to OB live rows
+    (uniform), at random columns, times from 64 values (ties), every
+    twentieth live row a DROP_T marker, destinations from 64 hosts
+    (ties), the rest INF; random k/s/v words; and x_overflow
+    counters."""
+    from shadow_tpu_torch.device.kernels import DROP_T, INF
+
+    n_live = rng.integers(0, OB + 1, H)
+    live = np.argsort(rng.random((H, OB)), axis=1) < n_live[:, None]
+    t = rng.integers(10**9, 10**9 + 64, (H, OB))
+    t = np.where(rng.random((H, OB)) < 0.05, DROP_T, t)
+    t = np.where(live, t, INF).astype(np.int64)
+    m = (rng.integers(0, 64, (H, OB)).astype(np.int64) << 32) | \
+        (2 | (1 << 8))
+    ob = {f: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+          for f, a in (("t", t), ("m", m))}
+    for f in ("k", "s", "v"):
+        ob[f] = torch.from_numpy(rng.integers(
+            -2**63, 2**63 - 1, (H, OB), dtype=np.int64)).to(dev)
+    state = {"x_overflow": torch.from_numpy(rng.integers(
+        0, 1000, H).astype(np.int32)).to(dev)}
+    return state, ob
+
+
+def compact_kernels(torch, K, scratch, rng, dev):
+    """K11 at the PHOLD shapes (H = 100,000, OB = 30) with CX 4 and 16,
+    both rules, against compact_plain, exact on the outbox and
+    x_overflow; and each rule at R = REPLICAS against four R = 1
+    launches and the plain version, a replica whose control block
+    stops it keeping every byte (`replica_check`). Returns (the rows,
+    at CX = 4 with the CX = 16 case beside it; the R = REPLICAS
+    checks)."""
+    H, OB = 100_000, 30
+    state0, ob0 = compact_inputs(torch, rng, H, OB, dev)
+    live = (ob0["t"] < K.DROP_T).sum(-1)
+    out, at16, r4 = {}, {}, {}
+    for rule, name in ((False, "compact_outbox"),
+                       (True, "compact_outbox_global")):
+        for cx in (4, 16):
+            p = K.PhaseParams(E=64, K=3, T=0, P=1, B=OB // 3, IN=64, C=1,
+                              boot_end=0, seed=(0, 0), app=None, CX=cx,
+                              CXG=rule)
+            sk, obk = clone(state0), clone(ob0)
+            sp, obp = clone(state0), clone(ob0)
+            scratch.compact_outbox(sk, obk, p)
+            K.compact_plain(sp, obp, cx, rule)
+            torch.cuda.synchronize()
+            err = max(max_abs_err(sk, sp, ["x_overflow"]),
+                      max_abs_err(obk, obp, list(K.OB_FIELDS)))
+            check(err == 0.0, f"{name} (CX={cx}) differs from its plain "
+                  f"version (max abs err {err})")
+            over = int((live - cx).clamp(min=0).sum())
+            check(over > 0 and int((sk["x_overflow"].long()
+                                    - state0["x_overflow"].long()).sum())
+                  == over, f"{name} (CX={cx}): x_overflow is not the "
+                  "live rows past CX")
+            rows = int((live > cx).sum())
+            lives = int(live[live > cx].sum())
+
+            def args(p=p):
+                return (clone(state0), clone(ob0), p)
+
+            r = finish({
+                "err": err,
+                "ms": time_median(torch, scratch.compact_outbox, args, 7),
+                "plain_ms": time_median(
+                    torch, lambda s, o, q: K.compact_plain(s, o, q.CX,
+                                                           q.CXG),
+                    args, 3),
+                "library_ms": None,
+                # t of every row read; the window rule reads m of the
+                # live columns of overflowing rows; t written for the
+                # dropped rows; x_overflow read and written where a row
+                # overflows
+                "bytes": H * OB * 8 + (0 if rule else lives * 8)
+                + over * 8 + rows * 4 * 2,
+                "ops": 0,
+                "shape": f"H={H} OB={OB} CX={cx} overflowing_rows={rows} "
+                         f"dropped={over}"})
+            if cx == 4:
+                out[name] = r
+            else:
+                at16[name] = r
+        run1 = K.control_block(dev, run=1)
+        p4 = K.PhaseParams(E=64, K=3, T=0, P=1, B=OB // 3, IN=64, C=1,
+                           boot_end=0, seed=(0, 0), app=None, CX=4,
+                           CXG=rule)
+        reps = [compact_inputs(torch, rng, H, OB, dev) for _ in
+                range(REPLICAS)]
+
+        def make(r, p4=p4):
+            return (clone(reps[r][0]), clone(reps[r][1]), p4, run1.clone())
+
+        def stop_run(block):
+            block[K.CTL["run"]] = 0
+
+        out[name]["at_cx16"] = at16[name]
+        r4[name] = replica_check(
+            torch, K, scratch, name, "compact_outbox",
+            lambda s, o, q, c: K.compact_plain(s, o, q.CX, q.CXG, c),
+            make, (0, 1), 3, stop_run)
+    return out, r4
 
 
 def kernels_phase(torch, report, H=100_000, dev="cuda"):
@@ -2491,6 +2828,9 @@ def kernels_phase(torch, report, H=100_000, dev="cuda"):
     paths = count_paths_case(torch, K, scratch, rng, dev)
     loop = loop_kernels(torch, K, scratch, rng, dev)
     replicas = replica_kernels(torch, K, scratch, rng, dev)
+    judge = judge_batch_kernels(torch, K, scratch, rng, dev)
+    compact, compact_r4 = compact_kernels(torch, K, scratch, rng, dev)
+    replicas.update(compact_r4)
     for name, r in phold.items():
         report_line(f"{name} (PHOLD shapes)", r)
     for name, r in tgen.items():
@@ -2520,16 +2860,23 @@ def kernels_phase(torch, report, H=100_000, dev="cuda"):
     for name, r in loop.items():
         report_line(name, r)
     report_line("audit_round", loop["audit_round"]["at_1m_hosts"])
+    for name, r in judge.items():
+        report_line(f"{name} (a hybrid flush)", r)
+    for name, r in compact.items():
+        report_line(f"{name} (PHOLD shapes)", r)
+        report_line(f"{name} (PHOLD shapes)", r["at_cx16"])
     for name, r in replicas.items():
         print(f"[kernels] {name} at R={r['R']}: equal to {r['R']} "
               f"launches at R=1 and to its plain version (max abs err "
               f"{r['err']}); a replica whose control block stops it "
               f"keeps every byte; R=1 {r['ms_r1']:.4f} ms, R={r['R']} "
               f"{r['ms_r4']:.4f} ms, plain at R={r['R']} "
-              f"{r['plain_ms_r4']:.4f} ms", flush=True)
+              f"{r['plain_ms_r4']:.4f} ms"
+              + (f", bound at R={r['R']} {r['bound_ms']:.4f} ms (bytes)"
+                 if "bound_ms" in r else ""), flush=True)
     report["_replicas"] = replicas
-    report.update({**nic, **epochs, **hier_faults, **loop,
-                   "count_paths": paths})
+    report.update({**nic, **epochs, **hier_faults, **loop, **judge,
+                   **compact, "count_paths": paths})
     report.update({
         "pop_phase": phold["pop_phase"], "pop_tgen": tgen["pop_tgen"],
         "pop_tor": tor["pop_tor"], **hier,
@@ -2764,6 +3111,389 @@ def audit_parity(torch, report):
           f"({rw} rounds, zero word)", flush=True)
 
 
+# ----------------------------------------------------------------------
+# the hybrid policy (K10) and the outbox compaction (K11) on the main
+# path
+# ----------------------------------------------------------------------
+# tests/test_hybrid.py's lossy PHOLD: 8 + 8 hosts on a 2-vertex graph,
+# loss 0.02, msgload 3, 2 s
+HYB_PHOLD_YAML = """
+general: {stop_time: 2s, seed: 7}
+network:
+  graph:
+    type: gml
+    inline: |
+      graph [ directed 0
+        node [ id 0 bandwidth_down "100 Mbit" bandwidth_up "100 Mbit" ]
+        node [ id 1 bandwidth_down "100 Mbit" bandwidth_up "100 Mbit" ]
+        edge [ source 0 target 0 latency "10 ms" packet_loss 0.02 ]
+        edge [ source 0 target 1 latency "25 ms" packet_loss 0.02 ]
+        edge [ source 1 target 1 latency "10 ms" packet_loss 0.02 ] ]
+experimental: {scheduler_policy: hybrid}
+hosts:
+  left:
+    quantity: 8
+    network_node_id: 0
+    processes: [{path: model:phold, args: msgload=3 size=64,
+                 start_time: 10ms}]
+  right:
+    quantity: 8
+    network_node_id: 1
+    processes: [{path: model:phold, args: msgload=3 size=64,
+                 start_time: 10ms}]
+"""
+# a PHOLD + tgen mix (no single device twin), lossy, 3 s
+HYB_MIX_YAML = """
+general: {stop_time: 3s, seed: 5}
+network:
+  graph:
+    type: gml
+    inline: |
+      graph [ directed 0
+        node [ id 0 bandwidth_down "1 Gbit" bandwidth_up "1 Gbit" ]
+        node [ id 1 bandwidth_down "1 Gbit" bandwidth_up "1 Gbit" ]
+        edge [ source 0 target 0 latency "10 ms" packet_loss 0.05 ]
+        edge [ source 0 target 1 latency "20 ms" packet_loss 0.05 ]
+        edge [ source 1 target 1 latency "10 ms" packet_loss 0.05 ] ]
+experimental: {scheduler_policy: tpu}
+hosts:
+  peer:
+    quantity: 12
+    network_node_id: 0
+    processes: [{path: model:phold, args: msgload=2, start_time: 10ms}]
+  server:
+    network_node_id: 0
+    processes: [{path: model:tgen_server, start_time: 10ms}]
+  client:
+    quantity: 4
+    network_node_id: 1
+    processes:
+    - {path: model:tgen_client, start_time: 100ms,
+       args: server=server size=100KiB count=3 pause=50ms retry=300ms}
+"""
+# examples/tor_small.yaml cut to 10 s, relay_us3 down from 6 s to 8 s
+HYB_TOR_OVERRIDES = (
+    "general.stop_time=10s",
+    "network.faults=[{kind: host_crash, time: 6s, host: relay_us3}, "
+    "{kind: host_restart, time: 8s, host: relay_us3}]")
+# (key, what, source: YAML text or an examples/ file, overrides); each
+# runs on the card with K10 on every flush, on the CPU plain path, and
+# on the port's serial policy
+HYBRID_PARITY = (
+    ("phold", "tests/test_hybrid.py's lossy PHOLD (16 hosts, 2 s)",
+     HYB_PHOLD_YAML, ()),
+    ("selfloop", "the same with selfloop=1 and a 100 ms runahead",
+     HYB_PHOLD_YAML.replace("msgload=3 size=64", "msgload=3 size=64 "
+                            "selfloop=1"), ("experimental.runahead=100ms",)),
+    ("tgen_faults", "examples/tgen_faults.yaml under tpu (host faults: "
+     "hybrid)", "tgen_faults.yaml", ("experimental.scheduler_policy=tpu",)),
+    ("tgen_faults_hier", "examples/tgen_faults_hier.yaml under tpu",
+     "tgen_faults_hier.yaml", ("experimental.scheduler_policy=tpu",)),
+    ("tgen_hier_crash", "examples/tgen_faults_hier.yaml with its host "
+     "faults alone (factored tables, one epoch)", "tgen_faults_hier.yaml",
+     ("experimental.scheduler_policy=tpu",
+      "network.faults=[{kind: host_crash, time: 3500ms, host: client0}, "
+      "{kind: host_restart, time: 7500ms, host: client0}]")),
+    ("mix", "PHOLD + tgen (no single twin: hybrid), 17 hosts, 3 s",
+     HYB_MIX_YAML, ()),
+    ("tor_crash", "examples/tor_small.yaml cut to 10 s, relay_us3 down "
+     "6-8 s, under tpu", "tor_small.yaml", HYB_TOR_OVERRIDES),
+)
+# the full hybrid run: phold.yaml's network and args at 2 x 5,000
+# hosts, 1 s, eight host crashes at 300 ms restarting at 700 ms, and
+# the 0-1 link down from 400 ms to 500 ms
+HYB_FULL_HOSTS = 5_000
+HYB_FULL_OVERRIDES = (
+    f"hosts.west.quantity={HYB_FULL_HOSTS}",
+    f"hosts.east.quantity={HYB_FULL_HOSTS}",
+    "general.stop_time=1s", "experimental.scheduler_policy=hybrid",
+    "network.faults=["
+    + ", ".join(f"{{kind: host_crash, time: 300ms, host: {g}{i}}}"
+                for g in ("west", "east") for i in range(4)) + ", "
+    + ", ".join(f"{{kind: host_restart, time: 700ms, host: {g}{i}}}"
+                for g in ("west", "east") for i in range(4))
+    + ", {kind: link_down, time: 400ms, source: 0, target: 1}, "
+    "{kind: link_up, time: 500ms, source: 0, target: 1}]")
+MIN_BATCH_0 = "experimental.hybrid_judge_min_batch=0"
+SERIAL = "experimental.scheduler_policy=serial"
+JUDGE_KERNELS = ("judge_batch", "judge_batch_hier", "judge_batch_ep",
+                 "judge_batch_ep_hier")
+
+
+def hybrid_config(source, overrides):
+    from shadow_tpu_torch.config import load_config, load_config_str
+
+    if source.endswith(".yaml"):
+        return load_config(os.path.join(REPO, "examples", source),
+                           list(overrides))
+    return load_config_str(source, list(overrides))
+
+
+def controller_run(cfg, device, kernels=None, trace=None):
+    from shadow_tpu_torch.core.controller import Controller
+
+    c = Controller(cfg, trace=trace, device=device, kernels=kernels)
+    return c.run(), c
+
+
+HOST_LEAVES = ("host_events_executed", "host_trace_checksum",
+               "host_packets_sent", "host_packets_dropped",
+               "host_packets_delivered", "host_events_quarantined")
+
+
+def same_cpu_run(a, b, what, names, paths=True):
+    """Two runs of the CPU engine equal: totals, rounds, every per-host
+    leaf and (with `paths`) the path counters."""
+    for field in ("events_executed", "packets_sent", "packets_dropped",
+                  "packets_delivered", "rounds") + (
+                      ("path_packets",) if paths else ()):
+        check(getattr(a, field) == getattr(b, field),
+              f"hybrid ({what}): {field} {names[0]} {getattr(a, field)} "
+              f"!= {names[1]} {getattr(b, field)}")
+    for leaf in HOST_LEAVES:
+        check(np.array_equal(getattr(a, leaf), getattr(b, leaf)),
+              f"hybrid ({what}): per-host {leaf} {names[0]} != "
+              f"{names[1]}")
+    check(a.events_executed > 0, f"hybrid ({what}): nothing ran")
+
+
+def hybrid_line(stats):
+    """The wall, events/s, device flushes against CPU rounds, the
+    judge's share of the wall and per device flush the kernel ms against
+    the copy ms, of one hybrid run."""
+    j = stats.judge
+    per = (f"per device flush kernel {j['kernel_ms'] / j['batches']:.4f} "
+           f"ms, copies {j['copy_ms'] / j['batches']:.4f} ms"
+           if j["batches"] else "no device flush")
+    return (f"wall {stats.wall_s:.3f} s, "
+            f"{stats.events_executed / stats.wall_s:.0f} events/s; "
+            f"flushes on the card {j['batches']} ({j['packets']} packets) "
+            f"against the CPU {j['cpu_batches']} ({j['cpu_packets']} "
+            f"packets, min_batch {j['min_batch']}); the judge's share of "
+            f"the wall {j['flush_s'] / stats.wall_s:.4f}; {per}")
+
+
+def hybrid_parity(torch, report):
+    """Each HYBRID_PARITY config three ways: on the card with K10 on
+    every flush (hybrid_judge_min_batch 0), on the CPU plain path, and
+    on the port's serial policy: the (time, dst, src, kind) trace, every
+    per-host leaf, the totals and the path counters equal; K10 launched
+    on the card."""
+    from shadow_tpu_torch.device.kernels import Kernels
+
+    runs = report.setdefault("_extra", {})
+    for key, what, source, overrides in HYBRID_PARITY:
+        kernels = Kernels()
+        traces = ([], [], [])
+        card, c = controller_run(hybrid_config(
+            source, overrides + (MIN_BATCH_0,)), "cuda", kernels,
+            traces[0])
+        cpu, _ = controller_run(hybrid_config(
+            source, overrides + (MIN_BATCH_0,)), "cpu", trace=traces[1])
+        serial, _ = controller_run(hybrid_config(
+            source, overrides + (SERIAL,)), "cuda", trace=traces[2])
+        check((card.policy, cpu.policy, serial.policy)
+              == ("hybrid", "hybrid", "serial"),
+              f"hybrid ({what}): policies {card.policy}, {cpu.policy}, "
+              f"{serial.policy}")
+        check(traces[0] == traces[1] == traces[2] and traces[0],
+              f"hybrid ({what}): the event traces differ")
+        same_cpu_run(card, cpu, what, ("card", "cpu"))
+        same_cpu_run(card, serial, what, ("card", "serial"))
+        check(card.judge["batches"] > 0 and card.judge["cpu_batches"] == 0
+              and sum(kernels.launches[k] for k in JUDGE_KERNELS)
+              == card.judge["batches"],
+              f"hybrid ({what}): K10 did not judge every flush")
+        runs[f"hybrid_{key}"] = {"launches": dict(kernels.launches)}
+        quarantined = int(card.host_events_quarantined.sum())
+        print(f"[parity] hybrid {what}: card (K10 on every flush) == cpu "
+              f"plain path == serial, trace of {len(traces[0])} events "
+              f"and every per-host leaf: {card.summary()}, {quarantined} "
+              f"events quarantined; card {hybrid_line(card)}; serial "
+              f"wall {serial.wall_s:.3f} s", flush=True)
+
+
+def compact_parity(torch, report):
+    """The outbox compaction through the window loop: the parity PHOLD
+    (2 x 1,000 hosts) and examples/tgen_10000.yaml cut to COMPACT_STOP,
+    each at CX = the uncompacted run's largest occ_ob (nothing
+    overflows: equal to the uncompacted run) and at half of it (rows
+    overflow) by the global rule, the PHOLD also by the window rule (the
+    CPU runs of tgen_10000 take about 14 s each), each three ways: graph loop on the card, Python loop on the card, CPU plain
+    path, every statistic and state leaf equal."""
+    from shadow_tpu_torch.config import load_config, load_config_str
+    from shadow_tpu_torch.device.kernels import Kernels
+
+    runs = report.setdefault("_extra", {})
+    for key, what, load in (
+            ("phold", "PHOLD 2x1000 hosts, 1 s",
+             lambda x=(): load_config_str(PARITY_YAML, list(x))),
+            ("tgen_10000", f"examples/tgen_10000.yaml cut to "
+             f"{COMPACT_STOP}", lambda x=(): load_config(
+                 os.path.join(REPO, "examples", "tgen_10000.yaml"),
+                 [f"general.stop_time={COMPACT_STOP}", *x]))):
+        base, base_leaves = engine_run(load(), "cuda")
+        occ = int(base_leaves["occ_ob"].max())
+        check(occ > 1, f"parity ({what}): the uncompacted run's largest "
+              f"occ_ob is {occ}, nothing to compact")
+        for cx, rule in ((occ, "window"), (occ // 2, "global")) + (
+                ((occ // 2, "window"),) if key == "phold" else ()):
+            x = (f"experimental.outbox_compact={cx}",
+                 f"experimental.merge_strategy={rule}")
+            kernels = Kernels()
+            gpu, gl = engine_run(load(x), "cuda", kernels=kernels)
+            py, pl = engine_run(load(x), "cuda", "run_python")
+            cpu, cl = engine_run(load(x), "cpu")
+            name = "compact_outbox" + ("_global" if rule == "global"
+                                       else "")
+            label = f"{what}, outbox_compact {cx} ({rule} rule)"
+            for other, leaves, names in ((cpu, cl, ("card graph", "cpu")),
+                                         (py, pl, ("card graph",
+                                                   "card python"))):
+                for field in ("events_executed", "packets_sent",
+                              "packets_dropped", "packets_delivered",
+                              "rounds", "overflow", "x_overflow"):
+                    check(getattr(gpu, field) == getattr(other, field),
+                          f"parity ({label}): {field} differs, {names}")
+                same_leaves(gl, leaves, label, names)
+            check(kernels.launches[name] > 0,
+                  f"parity ({label}): {name} never launched")
+            if cx == occ:
+                check(gpu.x_overflow == 0, f"parity ({label}): rows "
+                      "overflowed at the largest occ_ob")
+                same_run(base, gpu, label, ("uncompacted", "compacted"))
+            else:
+                check(gpu.x_overflow > 0 and gpu.overflow == 0,
+                      f"parity ({label}): expected x_overflow only")
+            runs[f"parity_compact_{key}_{cx}_{rule}"] = {
+                "launches": dict(kernels.launches)}
+            print(f"[parity] {label}: card graph == card python == cpu "
+                  f"plain path, every leaf; x_overflow {gpu.x_overflow}; "
+                  f"{gpu.summary()}; card graph wall {gpu.wall_s:.3f} s, "
+                  f"cpu wall {cpu.wall_s:.3f} s", flush=True)
+
+
+# examples/tgen_10000.yaml's stop_time cut for the compaction's card ==
+# CPU parity (the plain path on the CPU): its clients start at 2 s
+COMPACT_STOP = "2500ms"
+
+
+def hybrid_full(torch, card, report):
+    """examples/tgen_faults.yaml and tgen_faults_hier.yaml as shipped
+    under tpu (hybrid, the configured min_batch) through the CLI's entry
+    function, and again with K10 on every flush; then the hybrid PHOLD
+    at 2 x HYB_FULL_HOSTS hosts with host and link faults on the card,
+    its per-host leaves against the port's serial run of the same
+    config."""
+    from shadow_tpu_torch import cli
+    from shadow_tpu_torch.device.kernels import Kernels
+
+    runs = report.setdefault("_extra", {})
+    for example in ("tgen_faults.yaml", "tgen_faults_hier.yaml"):
+        shipped = None
+        for extra in ((), (MIN_BATCH_0,)):
+            kernels = Kernels()
+            kernels.library()
+            kernels.reset_counts()
+            stats = cli.simulate(
+                os.path.join(REPO, "examples", example),
+                ("experimental.scheduler_policy=tpu",) + extra,
+                device="cuda", kernels=kernels)
+            check(stats.policy == "hybrid", f"full {example}: ran "
+                  f"{stats.policy}, not hybrid")
+            if shipped is None:
+                shipped = stats
+            else:
+                same_cpu_run(shipped, stats, f"full {example}",
+                             ("min_batch 192", "min_batch 0"), paths=False)
+                check(stats.judge["batches"] > 0,
+                      f"full {example}: no device flush")
+            key = example[:-5] + ("_min_batch_0" if extra else "")
+            runs[f"full_{key}"] = {"launches": dict(kernels.launches)}
+            print(f"[full:{key}] {stats.summary()}; "
+                  f"{int(stats.host_events_quarantined.sum())} events "
+                  f"quarantined; {hybrid_line(stats)}; card {card}",
+                  flush=True)
+    kernels = Kernels()
+    kernels.library()
+    kernels.reset_counts()
+    stats = cli.simulate(os.path.join(REPO, "examples", "phold.yaml"),
+                         HYB_FULL_OVERRIDES, device="cuda",
+                         kernels=kernels)
+    launches = dict(kernels.launches)
+    check(stats.policy == "hybrid" and stats.judge["batches"] > 0,
+          "full hybrid_phold: no device flush")
+    check(sum(launches[k] for k in JUDGE_KERNELS)
+          == stats.judge["batches"] == launches["judge_batch_ep"],
+          "full hybrid_phold: K10's launches are not its flushes")
+    serial = cli.simulate(os.path.join(REPO, "examples", "phold.yaml"),
+                          HYB_FULL_OVERRIDES + (SERIAL,), device="cuda")
+    # CPU-rolled rounds count into the path counters twice, as in the
+    # reference, so those are not compared here (the parity runs, with
+    # every flush on the card, compare them)
+    same_cpu_run(stats, serial, "full hybrid_phold", ("hybrid", "serial"),
+                 paths=False)
+    check(int(stats.host_events_quarantined.sum()) > 0,
+          "full hybrid_phold: no event was quarantined")
+    runs["full_hybrid_phold"] = {"launches": launches}
+    report["_hybrid_full"] = {"wall_s": stats.wall_s,
+                              "serial_wall_s": serial.wall_s,
+                              "judge": stats.judge}
+    print(f"[full:hybrid_phold] {2 * HYB_FULL_HOSTS} hosts, 1 s, 8 host "
+          f"crashes 300-700 ms, link 0-1 down 400-500 ms: "
+          f"{stats.summary()}; {int(stats.host_events_quarantined.sum())} "
+          f"events quarantined; hybrid == serial on every per-host leaf; "
+          f"{hybrid_line(stats)}; serial wall {serial.wall_s:.3f} s "
+          f"({serial.events_executed / serial.wall_s:.0f} events/s); card "
+          f"{card}", flush=True)
+
+
+# the compaction's full runs: (name, example, overrides, path)
+COMPACT_FULL = (
+    ("phold", "phold.yaml",
+     (f"hosts.west.quantity={FULL_HOSTS_PER_GROUP}",
+      f"hosts.east.quantity={FULL_HOSTS_PER_GROUP}",
+      f"general.stop_time={FULL_STOP}"),
+     ("pop_phase", "judge_outbox", "route", "merge_heaps")),
+    ("tgen_10000", "tgen_10000.yaml", (),
+     ("pop_tgen", "judge_outbox", "route", "merge_heaps")),
+)
+
+
+def compact_full(torch, card, report):
+    """PHOLD at 100,000 hosts and examples/tgen_10000.yaml as shipped,
+    each uncompacted (the engine's graph loop, its largest occ_ob read
+    back) and then on the main path (the CLI's entry function) under
+    outbox_compact at that occ_ob, the smallest CX that does not
+    overflow: equal statistics and per-host leaves, both walls."""
+    from shadow_tpu_torch.device.kernels import Kernels
+
+    runs = report.setdefault("_extra", {})
+    out = {}
+    for name, example, overrides, path in COMPACT_FULL:
+        cfg = full_config(example, overrides)
+        kernels = Kernels()
+        kernels.library()
+        base, leaves = engine_run(cfg, "cuda", kernels=kernels)
+        cx = int(leaves["occ_ob"].max())
+        stats, launches, peak = main_path_run(
+            torch, f"{name}_compact", example,
+            overrides + (f"experimental.outbox_compact={cx}",),
+            path + ("phase_tally", "loop_control", "compact_outbox"))
+        same_run(base, stats, f"full {name} compacted",
+                 ("uncompacted", "compacted"))
+        runs[f"full_{name}_compact"] = {"launches": launches}
+        out[name] = {"cx": cx, "wall_s": stats.wall_s,
+                     "uncompacted_wall_s": base.wall_s}
+        print(f"[full:{name}_compact] outbox_compact {cx} (the "
+              f"uncompacted run's largest occ_ob): {stats.summary()}; "
+              f"graph loop wall {stats.wall_s:.3f} s against "
+              f"{base.wall_s:.3f} s uncompacted; compact_outbox "
+              f"{launches['compact_outbox']} launches; peak {peak} B; "
+              f"card {card}", flush=True)
+    report["_compact_full"] = out
+
+
 def parity_phase(torch, report):
     from shadow_tpu_torch.config import load_config, load_config_str
 
@@ -2785,6 +3515,8 @@ def parity_phase(torch, report):
     nic_fault_parity(torch, report)
     audit_parity(torch, report)
     campaign_parity(torch, report)
+    hybrid_parity(torch, report)
+    compact_parity(torch, report)
 
 
 def star_parity(torch, report):
@@ -3308,6 +4040,8 @@ def full_phase(torch, card, report):
                              "profiled": profiled}
     report["_full"] = runs
     campaign_full(torch, card, report)
+    hybrid_full(torch, card, report)
+    compact_full(torch, card, report)
 
 
 def boot_phase(torch, card):
@@ -3349,7 +4083,8 @@ def boot_phase(torch, card):
 
 def kernels_line(report):
     full = report.pop("_full")
-    runs = {**full, **report.pop("_parity", {})}
+    runs = {**full, **report.pop("_parity", {}),
+            **report.pop("_extra", {})}
     replicas = report.pop("_replicas", {})
     rows = []
     for n in ROWS:
@@ -3357,7 +4092,7 @@ def kernels_line(report):
         shapes = {k: r[k] for k in ("at_tgen_shape", "at_tor_shape",
                                     "on_factored_tables",
                                     "err_on_shipped_tables",
-                                    "at_1m_hosts") if k in r}
+                                    "at_1m_hosts", "at_cx16") if k in r}
         rows.append({
             "name": n, "route": "cuda", "source": SOURCES[n],
             "replaces": REPLACES[n],

@@ -7,6 +7,8 @@ torch, numpy and pyyaml, never jax and never the shadow_tpu package:
 where it needs a jax-free module of that package it keeps its own copy
 under the same relative path.
 
-Its scope so far: PHOLD and the tgen ladder on one GPU, dense topology
-tables. Configs outside it are refused by name (core/build.py).
+Its scope so far: PHOLD, tgen and Tor model hosts on one GPU (the
+device engine, `tpu`) and on the CPU engine with the batched judge on
+the card (`hybrid`) or alone (`serial`), with the features
+core/build.py lists. Configs outside it are refused by name there.
 """

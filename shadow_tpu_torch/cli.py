@@ -4,10 +4,14 @@
                                             [--device cpu]
 
 Loads the config (with the reference's dotted overrides), runs it on
-the card (or, with --device cpu, on the plain PyTorch path) and prints
-the reference CLI's "simulation finished" summary line; a config with
-an `ensemble:` block runs its campaign (ensemble/campaign.py) and logs
-the reference's campaign line too.
+its policy (core/controller.py): the device engine on the card for
+`tpu` (or, with --device cpu, its plain PyTorch path), the CPU engine
+with the judge on the card (or on the CPU with --device cpu) for
+`hybrid` and for a `tpu` config the device engine cannot run (host
+faults, mixed model families), the CPU engine alone for `serial`, which
+touches no device; and prints the reference CLI's "simulation finished"
+summary line. A config with an `ensemble:` block runs its campaign
+(ensemble/campaign.py) and logs the reference's campaign line too.
 """
 
 from __future__ import annotations
@@ -74,7 +78,8 @@ def main(argv=None) -> int:
                  "mean/p5/p95/min/max in the ENSEMBLE record",
                  rec["campaign"], rec["workload"]["replicas"],
                  stats.packets_sent)
-    log.info("%s", capacity.verdict_line(stats.admission))
+    if stats.admission is not None:
+        log.info("%s", capacity.verdict_line(stats.admission))
     if not stats.ok:
         log.error("device engine overflow: %d events lost — raise "
                   "experimental.event_capacity/outbox_capacity/"

@@ -8,9 +8,8 @@ it does there. Keys whose behaviour the port does not have yet are
 kept raw in `ExperimentalOptions.later`, so that the slice check
 (core/build.py) refuses them by name instead of silently running
 without them; `network.faults` entries are validated as the reference
-validates them, and the slice check refuses the host faults among
-them. The `ensemble` section is validated as the reference validates it
-(`EnsembleOptions`).
+validates them. The `ensemble` section is validated as the reference
+validates it (`EnsembleOptions`).
 """
 
 from __future__ import annotations
@@ -42,9 +41,9 @@ LATER_EXPERIMENTAL = {
          "interface_qdisc", "interface_buffer", "socket_recv_buffer",
          "socket_send_buffer", "socket_recv_autotune",
          "socket_send_autotune", "tcp_congestion", "router_queue",
-         "router_static_capacity", "hybrid_cpu_policy",
-         "hybrid_judge_min_batch"),
-        "queue (a) item 10 (the hybrid policy; CPU-engine options)"),
+         "router_static_capacity"),
+        "queue (a) item 10 (the socket stack and the threaded CPU "
+        "policies)"),
     **dict.fromkeys(
         ("capacity_plan", "capacity_warmup", "capacity_headroom",
          "strategy_plan", "dispatch_segment", "pipeline_depth",
@@ -61,8 +60,6 @@ LATER_EXPERIMENTAL = {
     **dict.fromkeys(("exchange", "exchange_capacity",
                      "exchange_capacity2", "mesh_shards", "mesh_axis"),
                     "queue (a) item 9 (multi-GPU)"),
-    **dict.fromkeys(("outbox_compact",),
-                    "queue (b) item 7 (the outbox compaction)"),
     **dict.fromkeys(
         ("dispatch_retries", "dispatch_retry_backoff", "failover",
          "chaos", "round_watchdog", "round_watchdog_dump"),
@@ -74,7 +71,12 @@ LATER_EXPERIMENTAL = {
 # the reference's layout variants (in-step vs flush judge, window vs
 # global merge, gather vs one-hot reads) and their choices: every
 # variant gives the same trace and the port has one kernel per phase,
-# so the keys are validated and then ignored
+# so the keys are validated and then ignored, but for one case:
+# `merge_strategy` picks the rule of the outbox compaction
+# (`outbox_compact`), whose two rules keep different rows where a row
+# overflows: `global` the reference's global merge's (the earliest
+# times), `auto` and `window` its window merge's (the smallest
+# destinations), as the reference resolves `auto` off the TPU
 LAYOUT_VARIANTS = {
     "judge_placement": ("auto", "flush", "step"),
     "merge_strategy": ("auto", "global", "window"),
@@ -136,6 +138,9 @@ class HostOptions:
     ip_address_hint: Optional[str] = None
     country_code_hint: Optional[str] = None
     city_code_hint: Optional[str] = None
+    # packet captures: the CPU policies refuse it (core/build.py), the
+    # device engine keeps no packets to capture
+    pcap_directory: Optional[str] = None
     processes: list[ProcessOptions] = field(default_factory=list)
 
     @classmethod
@@ -170,6 +175,7 @@ class HostOptions:
             ip_address_hint=d.get("ip_address_hint") or d.get("ip_addr"),
             country_code_hint=d.get("country_code_hint"),
             city_code_hint=d.get("city_code_hint"),
+            pcap_directory=d.get("pcap_directory"),
             processes=[ProcessOptions.from_dict(p)
                        for p in d.get("processes", [])],
         )
@@ -345,6 +351,16 @@ class ExperimentalOptions:
     count_paths: bool = False
     # the per-host health word, checked at the run's end
     state_audit: bool = False
+    # live rows a host's outbox row keeps for the flush (0 = all): the
+    # rest count into x_overflow against the sender; which rows stay
+    # follows merge_strategy (K11 compact_outbox)
+    outbox_compact: int = 0
+    merge_strategy: str = "auto"
+    # the hybrid policy: the CPU policy of the host emulation, and the
+    # smallest round judged on the card (smaller ones roll on the CPU,
+    # with the same verdicts; 0 = every round on the card)
+    hybrid_cpu_policy: str = "serial"
+    hybrid_judge_min_batch: int = 192
     # reference keys set in the config that the port does not run yet
     later: dict = field(default_factory=dict)
 
@@ -354,7 +370,8 @@ class ExperimentalOptions:
                "event_capacity", "outbox_capacity",
                "exchange_in_capacity", "burst_pops", "admission",
                "device_memory_budget", "model_bandwidth", "count_paths",
-               "state_audit"}
+               "state_audit", "outbox_compact", "hybrid_cpu_policy",
+               "hybrid_judge_min_batch"}
         _check_keys("experimental", d,
                     own | set(LAYOUT_VARIANTS) | set(LATER_EXPERIMENTAL))
         out = cls(later={k: v for k, v in d.items()
@@ -364,7 +381,8 @@ class ExperimentalOptions:
             if name == "runahead":
                 v = parse_time_ns(v) if v is not None else None
             elif name in ("event_capacity", "outbox_capacity",
-                          "exchange_in_capacity", "burst_pops"):
+                          "exchange_in_capacity", "burst_pops",
+                          "outbox_compact", "hybrid_judge_min_batch"):
                 v = int(v)
             elif name == "device_memory_budget":
                 v = parse_size_bytes(v)
@@ -392,6 +410,14 @@ class ExperimentalOptions:
         for name in LAYOUT_VARIANTS.keys() & d.keys():
             _check_choice("experimental", name, d[name],
                           LAYOUT_VARIANTS[name])
+        out.merge_strategy = d.get("merge_strategy", "auto")
+        for name in ("outbox_compact", "hybrid_judge_min_batch"):
+            if getattr(out, name) < 0:
+                raise ValueError(f"experimental.{name} must be >= 0")
+        _check_choice("experimental", "hybrid_cpu_policy",
+                      out.hybrid_cpu_policy,
+                      [p for p in SCHEDULER_POLICIES
+                       if p not in ("tpu", "hybrid")])
         if isinstance(out.admission, bool):
             # YAML 1.1 reads bare `off`/`on` as booleans; `on` is the
             # default mode, auto

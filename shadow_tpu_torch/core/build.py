@@ -1,31 +1,36 @@
-"""Instantiate a config for the port's device engine.
+"""Instantiate a config for the port's engines.
 
 The port of the reference package's columnar build
 (core/controller.py `build`/`_build_columnar`, `_lookahead`), of its
 host naming (host/plane.py `name_of`, `PlaneNameMap`) and of
-device/runner.py `_plane_twin`: every per-host quantity is an array
-fill over host groups, and the app is one device twin for the whole
-config: a PholdDevice whose args match across groups, a TgenDevice that
-gives each host its role, its server and its client args, or a
-TorDevice that gives each host its role and client args and holds the
-relays' ids. (The reference builds the Tor twin from host objects, not
-from its columnar plane; both number hosts in group order, so the
-columns here equal that object build.)
+device/runner.py `_plane_twin`/`device_twin`: every per-host quantity is
+an array fill over host groups. For the device engine (the `tpu`
+policy) the app is one device twin for the whole config: a PholdDevice
+whose args match across groups, a TgenDevice that gives each host its
+role, its server and its client args, or a TorDevice that gives each
+host its role and client args and holds the relays' ids. (The
+reference builds the Tor twin from host objects, not from its columnar
+plane; both number hosts in group order, so the columns here equal
+that object build.) Where a `tpu` config has host faults or no single
+twin (a mix of model families), `no_twin` says why, in the reference's
+words, and core/controller.py runs it on the hybrid policy, as the
+reference does; the CPU engine (the `serial` and `hybrid` policies)
+builds its host objects from these columns.
 
 The port runs these slices of the reference so far: PHOLD, tgen and Tor
-on the `tpu` policy, one GPU, GML, builtin or `star_clusters` graphs
-with dense or hierarchical tables, link faults (compiled here into the
-epoch tables of faults.py), the model NIC, the path counters, the state
-audit and ensemble campaigns (ensemble/); no host faults.
-`check_slice` refuses any config outside them with an error naming the
-ROADMAP.md item that will port it; nothing outside runs silently.
+model hosts on the `tpu`, `hybrid` and `serial` policies, one GPU, GML,
+builtin or `star_clusters` graphs with dense or hierarchical tables,
+link faults (compiled here into the epoch tables of faults.py) and host
+faults, the model NIC, the path counters, the state audit, the outbox
+compaction and ensemble campaigns (ensemble/). `check_slice` refuses
+any config outside them with an error naming the ROADMAP.md item that
+will port it; nothing outside runs silently.
 """
 
 from __future__ import annotations
 
-import shlex
 from dataclasses import dataclass
-from typing import Union
+from typing import Optional, Union
 
 import numpy as np
 
@@ -33,10 +38,16 @@ from shadow_tpu_torch.config.schema import (
     LATER_EXPERIMENTAL,
     ConfigOptions,
 )
+from shadow_tpu_torch.core.scheduler import THREADED_POLICIES
 from shadow_tpu_torch.core.tgen_args import TgenClientArgs
 from shadow_tpu_torch.core.tor_args import TorClientArgs
 from shadow_tpu_torch.device.apps import PholdDevice, TgenDevice, TorDevice
-from shadow_tpu_torch.faults import compile_link_faults, split_events
+from shadow_tpu_torch.faults import (
+    compile_link_faults,
+    resolve_host_faults,
+    split_events,
+)
+from shadow_tpu_torch.models.base import parse_kv_args
 from shadow_tpu_torch.topology.generate import generate_star_clusters
 from shadow_tpu_torch.topology.graph import Topology
 
@@ -44,6 +55,12 @@ from shadow_tpu_torch.topology.graph import Topology
 class OutsideSlice(ValueError):
     """The config needs a part of the reference the port has not
     ported yet."""
+
+
+class NoDeviceTwin(Exception):
+    """The device engine cannot run the config as one vectorized
+    program (host faults, or no single device twin of its apps); the
+    `tpu` policy then runs it on the hybrid policy."""
 
 
 def _refuse(what: str, item: str) -> None:
@@ -55,27 +72,31 @@ def _refuse(what: str, item: str) -> None:
 MODELS = {"model:phold": "phold", "model:tgen_server": "tgen",
           "model:tgen_client": "tgen", "model:tor_relay": "tor",
           "model:tor_client": "tor"}
-# model process path -> the reference's CPU app class (its refusals
+# model process path -> the reference's CPU app class (its messages
 # name those)
 APP_CLASSES = {"model:phold": "PholdApp",
                "model:tgen_server": "TgenServerApp",
                "model:tgen_client": "TgenClientApp",
                "model:tor_relay": "TorRelayApp",
                "model:tor_client": "TorClientApp"}
-HYBRID = ("the reference runs such a mix on its hybrid policy, which is "
-          "not ported to shadow_tpu_torch yet (ROADMAP.md queue (a) item "
-          "10)")
+HYBRID = "running hybrid (CPU hosts + device net model)"
+HOST_FAULTS_HYBRID = ("host_crash/host_restart faults are manager-side "
+                      "events; running hybrid")
+ITEM_10 = "queue (a) item 10"
 
 
 def check_slice(cfg: ConfigOptions) -> None:
     xp = cfg.experimental
-    if xp.scheduler_policy != "tpu":
-        _refuse(f"experimental.scheduler_policy: {xp.scheduler_policy} "
-                "(the port runs the device engine, policy tpu)",
-                "queue (a) item 10 (CPU and hybrid policies)")
+    if xp.scheduler_policy in THREADED_POLICIES:
+        _refuse(f"experimental.scheduler_policy: {xp.scheduler_policy}",
+                f"{ITEM_10} (the threaded CPU policies)")
+    if xp.scheduler_policy in ("tpu", "hybrid") and \
+            xp.hybrid_cpu_policy != "serial":
+        _refuse(f"experimental.hybrid_cpu_policy: {xp.hybrid_cpu_policy}",
+                f"{ITEM_10} (the threaded CPU policies)")
     if xp.interpose_method != "model":
         _refuse(f"experimental.interpose_method: {xp.interpose_method}",
-                "queue (a) item 10 (real processes)")
+                f"{ITEM_10} (real processes)")
     for key, value in xp.later.items():
         # static capacities are what the port runs
         if not (key == "capacity_plan" and value == "static"):
@@ -83,42 +104,52 @@ def check_slice(cfg: ConfigOptions) -> None:
     _, host_faults = split_events(cfg.network.faults)
     if cfg.ensemble is not None:
         check_campaign(cfg, host_faults)
-    if host_faults:
-        # manager-side events: the reference's device runner sends such
-        # configs to its hybrid policy (device/runner.py DeviceRunner)
-        _refuse(f"network.faults: {host_faults[0].kind} (host faults are "
-                "manager-side events; the reference runs them on its "
-                "hybrid policy)", "queue (a) item 10 (the hybrid policy)")
     if not cfg.hosts:
         raise ValueError("config has no host groups")
     for g in cfg.hosts:
         procs = g.processes
         if len(procs) != 1 or procs[0].quantity != 1:
             _refuse(f"hosts.{g.name}: {sum(p.quantity for p in procs)} "
-                    "processes per host", "queue (a) item 10 (hybrid "
-                    "policy for multi-process hosts)")
+                    "processes per host", f"{ITEM_10} (multi-process "
+                    "hosts)")
         path = procs[0].path
         if path not in MODELS:
             _refuse(f"hosts.{g.name}: process {path!r} (the port runs "
-                    f"{', '.join(sorted(MODELS))})", "queue (a) item 10 "
-                    "(real processes and the hybrid policy)")
+                    f"{', '.join(sorted(MODELS))}; `model:tgen_tcp_*` "
+                    "needs the socket stack)", f"{ITEM_10} (real "
+                    "processes, the socket stack)")
         if g.ip_address_hint or g.city_code_hint or g.country_code_hint:
             _refuse(f"hosts.{g.name}: attachment hints",
                     "queue (a) item 7 (the object build)")
-    twins = {MODELS[g.processes[0].path] for g in cfg.hosts}
-    if len(twins) > 1:
-        paths = {g.processes[0].path for g in cfg.hosts}
-        if "tor" not in twins:
-            # phold + tgen: the reference's columnar plane names models
-            models = sorted(p[len("model:"):] for p in paths)
-            raise OutsideSlice(
-                f"no device twin registered for {models}; available: "
-                f"phold, tgen (server+client) — {HYBRID}")
-        # with Tor, the reference's object build names app classes
-        names = sorted(APP_CLASSES[p] for p in paths)
-        raise OutsideSlice(
-            f"no device twin registered for {names}; available: phold, "
-            f"tgen (server+client), tor (relay+client) — {HYBRID}")
+
+
+def check_cpu_engine(cfg: ConfigOptions) -> None:
+    """What the CPU engine (the serial and hybrid policies) refuses:
+    the tracker's heartbeats and packet captures."""
+    if cfg.general.heartbeat_interval:
+        _refuse("general.heartbeat_interval on the serial and hybrid "
+                "policies (the tracker's heartbeat)",
+                f"{ITEM_10} (the tracker)")
+    for g in cfg.hosts:
+        if g.pcap_directory:
+            _refuse(f"hosts.{g.name}: pcap_directory", f"{ITEM_10} "
+                    "(packet captures)")
+
+
+def _no_twin(paths: set) -> NoDeviceTwin:
+    """The reference's message for a mix of model families: its
+    columnar plane names models (phold, tgen), its object build, which
+    Tor takes, app classes."""
+    twins = {MODELS[p] for p in paths}
+    if "tor" not in twins:
+        models = sorted(p[len("model:"):] for p in paths)
+        return NoDeviceTwin(
+            f"no device twin registered for {models}; available: "
+            f"phold, tgen (server+client) — {HYBRID}")
+    names = sorted(APP_CLASSES[p] for p in paths)
+    return NoDeviceTwin(
+        f"no device twin registered for {names}; available: phold, "
+        f"tgen (server+client), tor (relay+client) — {HYBRID}")
 
 
 def check_campaign(cfg: ConfigOptions, host_faults: list) -> None:
@@ -167,20 +198,6 @@ def load_topology(cfg: ConfigOptions) -> Topology:
     raise ValueError(f"unknown graph type {net.graph_type!r}")
 
 
-def _parse_kv_args(args) -> dict[str, str]:
-    """Process args as "k=v k=v" strings, lists or mappings."""
-    if isinstance(args, dict):
-        return {str(k): str(v) for k, v in args.items()}
-    parts = ([str(p) for p in args] if isinstance(args, (list, tuple))
-             else shlex.split(str(args or "")))
-    out = {}
-    for p in parts:
-        k, eq, v = p.partition("=")
-        if eq:
-            out[k.strip("-")] = v
-    return out
-
-
 @dataclass
 class BuiltSimulation:
     cfg: ConfigOptions
@@ -189,12 +206,20 @@ class BuiltSimulation:
     start_times: np.ndarray     # [H] int64 boot time
     stop_times: np.ndarray      # [H] int64 stop time, -1 = none
     lookahead: int              # conservative window, ns
-    app: Union[PholdDevice, TgenDevice, TorDevice]
+    # the device twin (the `tpu` policy and campaigns), else None
+    app: Optional[Union[PholdDevice, TgenDevice, TorDevice]]
     bw_down_bits: np.ndarray    # [H] int64 model-NIC bandwidths, bits/s
     bw_up_bits: np.ndarray
     # the compiled link-fault schedule (faults.FaultTable or
     # HierFaultTable), None without link faults
     fault_table: object = None
+    # host names <-> ids, and the groups as (name, first id, size)
+    names: "HostNames" = None
+    # the host faults, [(time, host id, kind)] in time order
+    host_faults: list = None
+    # why the device engine cannot run a `tpu` config (host faults, no
+    # single twin): the reference's words; None where it can
+    no_twin: Optional[str] = None
 
 
 class HostNames:
@@ -233,6 +258,10 @@ class HostNames:
     def members(self, name: str):
         """A group's (first id, size), or None."""
         return self.groups.get(name)
+
+    def groups_in_order(self) -> list[tuple[str, int, int]]:
+        """(name, first id, size) of each group, in config order."""
+        return [(n, b, q) for n, (b, q) in self.groups.items()]
 
 
 def _phold_app(n_total: int, arg_list) -> PholdDevice:
@@ -324,7 +353,7 @@ def _tor_app(n_total: int, layout, arg_list, seed: int) -> TorDevice:
 def build(cfg: ConfigOptions) -> BuiltSimulation:
     check_slice(cfg)
     topology = load_topology(cfg)
-    link_events, _ = split_events(cfg.network.faults)
+    link_events, host_events = split_events(cfg.network.faults)
     fault_table = compile_link_faults(topology, link_events)
     n_total = cfg.total_hosts()
     v_parts, t0_parts, t1_parts, arg_list, layout = [], [], [], [], []
@@ -363,16 +392,28 @@ def build(cfg: ConfigOptions) -> BuiltSimulation:
         t0_parts.append(np.full(q, proc.start_time, dtype=np.int64))
         t1_parts.append(np.full(q, -1 if proc.stop_time is None
                                 else proc.stop_time, dtype=np.int64))
-        arg_list.append((g, _parse_kv_args(proc.args)))
+        arg_list.append((g, parse_kv_args(proc.args)))
         layout.append((g.name, base, q))
         base += q
-    twin = MODELS[cfg.hosts[0].processes[0].path]
-    if twin == "phold":
-        app = _phold_app(n_total, arg_list)
-    elif twin == "tgen":
-        app = _tgen_app(n_total, HostNames(layout), arg_list)
-    else:
-        app = _tor_app(n_total, layout, arg_list, cfg.general.seed)
+    names = HostNames(layout)
+    host_faults = resolve_host_faults(host_events, names)
+    app, no_twin = None, None
+    if cfg.ensemble is not None or \
+            cfg.experimental.scheduler_policy == "tpu":
+        try:
+            if host_faults:
+                # manager-side events: the reference's device runner
+                # sends such configs to its hybrid policy
+                raise NoDeviceTwin(HOST_FAULTS_HYBRID)
+            app = _twin(cfg, n_total, names, arg_list, layout)
+        except NoDeviceTwin as e:
+            if cfg.ensemble is not None:
+                raise ValueError(
+                    "ensemble: the config's apps have no fully-"
+                    f"vectorized device twin ({e}) — campaigns cannot "
+                    "fall back to hybrid CPU emulation; run the "
+                    "replicas as separate processes instead") from e
+            no_twin = str(e)
     t0 = np.concatenate(t0_parts)
     t1 = np.concatenate(t1_parts)
     bad = np.flatnonzero((t1 >= 0) & (t1 < t0))
@@ -392,4 +433,20 @@ def build(cfg: ConfigOptions) -> BuiltSimulation:
         host_vertex=np.concatenate(v_parts).astype(np.int32),
         start_times=t0, stop_times=t1, lookahead=int(lookahead), app=app,
         bw_down_bits=np.concatenate(d_parts),
-        bw_up_bits=np.concatenate(u_parts), fault_table=fault_table)
+        bw_up_bits=np.concatenate(u_parts), fault_table=fault_table,
+        names=names, host_faults=host_faults, no_twin=no_twin)
+
+
+def _twin(cfg: ConfigOptions, n_total: int, names: "HostNames",
+          arg_list, layout):
+    """The config's device twin; NoDeviceTwin for a mix of families."""
+    paths = {g.processes[0].path for g in cfg.hosts}
+    twins = {MODELS[p] for p in paths}
+    if len(twins) > 1:
+        raise _no_twin(paths)
+    twin = twins.pop()
+    if twin == "phold":
+        return _phold_app(n_total, arg_list)
+    if twin == "tgen":
+        return _tgen_app(n_total, names, arg_list)
+    return _tor_app(n_total, layout, arg_list, cfg.general.seed)

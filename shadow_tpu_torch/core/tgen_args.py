@@ -1,6 +1,6 @@
 """The tgen models' constants and client arguments (the port's copy of
-the reference package's models/tgen.py, cut to what the device twin
-needs: the CPU model itself is not ported).
+the reference package's models/tgen.py), which the device twin
+(device/apps.py) and the CPU model (models/tgen.py) share.
 
 A client pulls `size` bytes from its server in chunks of at most
 CHUNK_PKTS MSS-sized packets, `count` times, pausing `pause` between

@@ -1,6 +1,6 @@
 """The Tor model's constants, route rule and client arguments (the
-port's copy of the reference package's models/tor.py, cut to what the
-device twin needs: the CPU model itself is not ported).
+port's copy of the reference package's models/tor.py), which the
+device twin (device/apps.py) and the CPU model (models/tor.py) share.
 
 Clients pull `cells` cells through 3-hop onion circuits (guard ->
 middle -> exit) in chunks of CHUNK_CELLS, `count` times, pausing

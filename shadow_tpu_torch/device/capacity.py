@@ -17,8 +17,10 @@ tensors the port's engine really holds:
   int64 outbox fields (OB counts the READY column under the model
   NIC) and the [H] pop counts, and the route's outputs and scratch
   (K5: perm and scattered rows [H*OB] int64, starts, counts, cursors
-  and block sums [H] int64); the judge, the path counters and the
-  merge work in place;
+  and block sums [H] int64); the judge, the path counters, the
+  compaction (K11, under `outbox_compact`: it rewrites the outbox's
+  times and x_overflow and needs no scratch) and the merge work in
+  place;
 * the window loop's control block (kernels.CTL_FIELDS), K9's block
   minima (at most 1,024) and K8's sum, a few KiB;
 * the world: the host vertices, the path tables (dense [V,V], or the

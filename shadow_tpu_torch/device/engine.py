@@ -7,13 +7,15 @@ in the order of the reference's `_exchange`:
 
   pop (K1 pop_phase for PHOLD, K4 pop_tgen for tgen, K6 pop_tor for
     Tor) -> K2 judge_outbox -> [K7 count_paths] -> phase_tally
-    -> K5 route -> K3 merge_heaps
+    -> [K11 compact_outbox] -> K5 route -> K3 merge_heaps
 
 Under the model NIC (`model_bandwidth`) the pop judges its own sends,
 as the reference's in-step path does, and K2 does not run; K7 runs
 under `count_paths`. Under a link-fault schedule every table carries a
 leading [T] epoch axis and `epoch_times` [T]; each lookup takes the
-epoch of its time.
+epoch of its time. Under `outbox_compact` (0 < CX < OB) K11 keeps at
+most CX exchangeable rows of each sender's row before the route, by the
+rule `merge_global` picks, and counts the rest into x_overflow.
 
 A window [nxt, win_end) with win_end = min(nxt + lookahead, final_stop)
 runs phases while some host's head event lies below win_end; the
@@ -168,6 +170,11 @@ class EngineConfig:
     # the state audit's health word (kernels.AUD_*): the pops' clock
     # lane, the aud_tx ledger, K8 at every window's end
     audit: bool = False
+    # exchangeable rows a sender's outbox row keeps (0 = all; K11), and
+    # which: the earliest times (the reference's global merge) or the
+    # smallest destinations (its window merge)
+    outbox_compact: int = 0
+    merge_global: bool = False
     max_rounds: int = 1 << 62    # safety valve
 
 
@@ -204,9 +211,12 @@ def phase_params(config: EngineConfig,
         raise ValueError("burst_pops requires max_sends == 1")
     K = P if P > 1 else app.max_sends
     T = app.max_timers
+    B = max(1, config.outbox_capacity // (K + T + (1 if MB else 0)))
+    OB = B * (K + T + (1 if MB else 0))
     return PhaseParams(
-        E=config.event_capacity, K=K, T=T, P=P,
-        B=max(1, config.outbox_capacity // (K + T + (1 if MB else 0))),
+        E=config.event_capacity, K=K, T=T, P=P, B=B,
+        CX=min(config.outbox_compact or OB, OB),
+        CXG=bool(config.merge_global),
         IN=config.exchange_in_capacity or config.event_capacity,
         C=max(1, app.max_train), boot_end=int(config.bootstrap_end),
         seed=prng.seed_key(config.seed), app=app, MB=MB,
@@ -214,7 +224,7 @@ def phase_params(config: EngineConfig,
 
 
 def world_arrays(n_hosts: int,
-                 app: Union[PholdDevice, TgenDevice, TorDevice],
+                 app: Union[PholdDevice, TgenDevice, TorDevice, None],
                  host_vertex: np.ndarray, latency_ns, reliability,
                  epoch_times=None, bw_up_bits=None, bw_down_bits=None,
                  model_bandwidth: bool = False,
@@ -230,7 +240,7 @@ def world_arrays(n_hosts: int,
     * `epoch_times` [T] int64 (one epoch: [0]);
     * under the model NIC the [H] int64 bandwidths (at least 1 bit/s;
       1 Gbit/s where not given) and the CoDel law table [1024] int64;
-    * the app's columns;
+    * the app's columns (none for app None: the hybrid policy's judge);
     * where given, the run's seed key pair as [1, 2] int64.
 
     Latency leaves and cl are int32, reliability leaves float32, as the
@@ -295,7 +305,8 @@ def world_arrays(n_hosts: int,
                         np.maximum(1, np.asarray(bw, np.int64)[:H]))
         out["law"] = LAW
     # the app's columns: [H] client args, Tor's [R] relay ids
-    out.update(app.world_columns())
+    if app is not None:
+        out.update(app.world_columns())
     if seed_key is not None:
         out["seed_key"] = np.asarray([seed_key], np.int64)
     return out
@@ -339,6 +350,20 @@ def campaign_world_arrays(n_hosts: int, app, host_vertex: np.ndarray,
     return out
 
 
+def upload_world(arrays: dict, device) -> dict:
+    """`world_arrays`' leaves as tensors on `device`; a leaf shared by
+    both tables (cl) is uploaded once."""
+    uploaded = {}
+
+    def put(a):
+        if id(a) not in uploaded:
+            uploaded[id(a)] = torch.tensor(a, device=device)
+        return uploaded[id(a)]
+
+    return {k: tuple(put(a) for a in v) if isinstance(v, tuple)
+            else put(v) for k, v in arrays.items()}
+
+
 class DeviceEngine:
     """`latency_ns`/`reliability`/`epoch_times` are what
     hierarchy.world_tables gives: dense arrays or the factored part
@@ -373,17 +398,7 @@ class DeviceEngine:
                 config.n_hosts, app, host_vertex, ensemble, bw_up_bits,
                 bw_down_bits, config.model_bandwidth, config.count_paths)
         self.n_vertices = n_vertices(arrays)
-        dev = self.device
-        uploaded = {}
-
-        def put(a):
-            # a leaf shared by both tables (cl) is uploaded once
-            if id(a) not in uploaded:
-                uploaded[id(a)] = torch.tensor(a, device=dev)
-            return uploaded[id(a)]
-
-        self.world = {k: tuple(put(a) for a in v) if isinstance(v, tuple)
-                      else put(v) for k, v in arrays.items()}
+        self.world = upload_world(arrays, self.device)
         self._buf = None
         # the preflight admission verdict, where a runner made one
         self.admission: Optional[dict] = None
@@ -493,7 +508,8 @@ class DeviceEngine:
     def phase(self, state: dict, win_end) -> None:
         """One phase: pops (K1, K4 or K6), then the flush: judge (K2,
         not under the model NIC, whose pops judge), path counters (K7,
-        under count_paths), the tallies, route (K5), merge (K3). Updates
+        under count_paths), the tallies, the compaction (K11, under
+        outbox_compact), route (K5), merge (K3). Updates
         `state` in place. `win_end` is an int, or the loop's control
         block, whose window end every kernel reads and whose `run` word
         makes the phase a no-op where it is 0. The loops run a phase
@@ -509,6 +525,8 @@ class DeviceEngine:
         if p.CP:
             k.count_paths(state, ob, self.world, ctl)
         k.phase_tally(state, ob, pops, p, ctl)
+        if p.compacts:
+            k.compact_outbox(state, ob, p, ctl)
         perm, starts, counts = k.route(ob, route, ctl)
         k.merge_heaps(state, ob, perm, starts, counts, p, ctl)
 

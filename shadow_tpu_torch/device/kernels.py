@@ -21,12 +21,19 @@ Four steps carry one phase of a conservative window:
 
 Between the judge and the route `phase_tally` (csrc/phase_tally.cu)
 takes the phase's occupancy marks and, under the state audit, the
-conservation ledger `aud_tx`. The window loop on the card adds two: K9
-`loop_control` (csrc/loop_control.cu), the control step after each
-phase (the minimum head time, the window and round decisions), and K8
-`audit_round` (csrc/audit_round.cu), the audit's health word at each
-round's end. The pops carry the audit's clock lane as a template flag:
-an audited launch counts under the pop's name with `_aud` appended.
+conservation ledger `aud_tx`; under `outbox_compact` K11
+`compact_outbox` (csrc/compact_outbox.cu) then keeps at most CX
+exchangeable rows of each sender's row, by the window rule or, under
+`merge_strategy: global`, the global rule (`compact_outbox_global`).
+The window loop on the card adds two: K9 `loop_control`
+(csrc/loop_control.cu), the control step after each phase (the minimum
+head time, the window and round decisions), and K8 `audit_round`
+(csrc/audit_round.cu), the audit's health word at each round's end.
+The pops carry the audit's clock lane as a template flag: an audited
+launch counts under the pop's name with `_aud` appended. Outside the
+window loop, the hybrid policy's batched judgment of deferred packets
+is K10 `judge_batch` (csrc/judge_batch.cu), on the views of the path
+tables the judge uses (device/judge.py).
 
 The window loop drives a phase through its control block (`CTL_FIELDS`,
 a [len(CTL_FIELDS)] int64 tensor on the state's device), which a
@@ -157,7 +164,10 @@ KERNEL_NAMES = tuple(
     for nic in ((False, True) if n in POP_KERNELS else (False,))
     for ep in (False, True) for hr in (False, True)) + \
     ("route", "merge_heaps", "count_paths", "phase_tally", "audit_round",
-     "loop_control")
+     "loop_control") + \
+    tuple(launch_name("judge_batch", False, ep, hr)
+          for ep in (False, True) for hr in (False, True)) + \
+    ("compact_outbox", "compact_outbox_global")
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC.parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -192,6 +202,10 @@ class PhaseParams:
     MB: bool = False        # model NIC: judge in the pop, READY column
     CP: bool = False        # path counters: dead rows kept as DROP_T
     AUD: bool = False       # state audit: the pops' clock lane, aud_tx
+    CX: int = 0             # exchangeable rows a sender keeps (K11);
+                            # 0 or >= OB: all, K11 does not run
+    CXG: bool = False       # K11's rule: global (earliest t), else
+                            # window (smallest destination)
 
     @property
     def M_out(self) -> int:
@@ -200,6 +214,11 @@ class PhaseParams:
     @property
     def OB(self) -> int:
         return self.B * self.M_out
+
+    @property
+    def compacts(self) -> bool:
+        """Whether K11 runs: 0 < CX < OB."""
+        return 0 < self.CX < self.OB
 
 
 # ----------------------------------------------------------------------
@@ -742,6 +761,64 @@ def judge_outbox_plain(state: dict, ob: dict, world: dict, win_end,
 
 
 # ----------------------------------------------------------------------
+# K11: the outbox compaction (reference: engine._flat_sorted CX < OB,
+# engine._compact_flat)
+# ----------------------------------------------------------------------
+def compact_plain(state: dict, ob: dict, cx: int, global_rule: bool,
+                  ctl: Optional[torch.Tensor] = None) -> None:
+    """Keep at most `cx` exchangeable rows (t < DROP_T) of each sender's
+    outbox row: those of smallest (dst, column), the window rule, or
+    with `global_rule` of smallest (t, column); write t = INF into the
+    others and add their count, max(0, live - cx), to the sender's
+    x_overflow. In place; nothing where the control block `ctl` says the
+    phase does not run. A campaign's outbox compacts each replica in
+    turn."""
+    if ob_replicas(ob) is not None:
+        for r in range(ob_replicas(ob)):
+            compact_plain(at_replica(state, r), at_replica(ob, r), cx,
+                          global_rule, _ctl_at(ctl, r))
+        return
+    if _phase_off(ctl):
+        return
+    ft = ob["t"]
+    H, OB = ft.shape
+    valid = ft < DROP_T
+    key = ft if global_rule else hi32(ob["m"]).long()
+    key = torch.where(valid, key, IMAX)
+    # a column's rank in its row by (key, column): a stable sort
+    order = torch.sort(key, dim=1, stable=True).indices
+    col = torch.arange(OB, device=ft.device).expand(H, OB)
+    rank = torch.empty_like(order).scatter_(1, order, col)
+    ft.masked_fill_(valid & (rank >= cx), INF)
+    state["x_overflow"] += (valid.sum(-1) - cx).clamp(min=0).to(
+        torch.int32)
+
+
+# ----------------------------------------------------------------------
+# K10: the hybrid policy's batched judge (reference: DeviceJudge._judge)
+# ----------------------------------------------------------------------
+def judge_batch_plain(world: dict, boot_end: int, now: torch.Tensor,
+                      src: torch.Tensor, dst: torch.Tensor,
+                      pkt_seq: torch.Tensor):
+    """(delivered bool [N], deliver_time int64 [N]) of N deferred
+    packets: now int64, src/dst/pkt_seq int32 (the seq read as u32);
+    the path between the hosts' vertices in the epoch of `now`, the
+    drop roll of packet_drop_mask keyed (src, pkt_seq) under the
+    world's [1, 2] seed key, and now + latency."""
+    key = world["seed_key"]
+    seed = (int(key[0, 0]), int(key[0, 1]))
+    hv = world["host_vertex"].long()
+    H = hv.shape[0]
+    sv = hv[src.long().clamp(0, H - 1)]
+    dv = hv[dst.long().clamp(0, H - 1)]
+    e = epoch_of(now, world["epoch_times"])
+    latv = table_lookup(world["lat"], sv, dv, e).to(torch.int64)
+    relv = table_lookup(world["rel"], sv, dv, e)
+    dropped = packet_drop_mask(seed, boot_end, now, src, pkt_seq, relv)
+    return ~dropped, now + latv
+
+
+# ----------------------------------------------------------------------
 # K7: the path counters (reference: engine._count_paths)
 # ----------------------------------------------------------------------
 def count_paths_plain(state: dict, ob: dict, world: dict,
@@ -1209,6 +1286,12 @@ _SIGNATURES = {
     "shadow_audit_round": [_I] * 3 + [_P] * 3 + [_P] * 9 + [_P] * 5,
     # R, H, E, ht head, partial ctl, start, stream
     "shadow_loop_control": [_I] * 3 + [_P] * 4 + [_I, _P],
+    # N, H, boot_end, now src dst seq, host_vertex topo, seed keys,
+    # deliver_time delivered, stream
+    "shadow_judge_batch": [_L, _I, _L] + [_P] * 4 + [_P, _T, _P] +
+                          [_P] * 2 + [_P],
+    # R, H, OB, CX, global, ob t m, x_overflow, ctl, stream
+    "shadow_compact_outbox": [_I] * 5 + [_P] * 2 + [_P] * 3,
     "shadow_loop_control_blocks": [_I],
 }
 for _name in POP_KERNELS:
@@ -1640,3 +1723,58 @@ class Kernels:
              (partial, torch.int64)] + ctl_checks,
             R or 1, H, E, _ptr(state["ht"]), _ptr(state["head"]),
             _ptr(partial), c, int(start))
+
+    def compact_outbox(self, state: dict, ob: dict, p: PhaseParams,
+                       ctl: Optional[torch.Tensor] = None) -> None:
+        """K11: keep at most p.CX exchangeable rows per sender by the
+        rule p.CXG selects (compact_plain on the CPU)."""
+        if not ob["t"].is_cuda:
+            return compact_plain(state, ob, p.CX, p.CXG, ctl)
+        R = ob_replicas(ob)
+        H, OB = ob["t"].shape[-2:]
+        if not 0 < p.CX <= OB or OB > 2048:
+            raise ValueError("compact_outbox: need 0 < CX <= OB <= 2048")
+        c, ctl_checks = _ctl_args(ctl, R)
+        self._launch(
+            "compact_outbox_global" if p.CXG else "compact_outbox",
+            "shadow_compact_outbox",
+            [(ob["t"], torch.int64), (ob["m"], torch.int64),
+             (state["x_overflow"], torch.int32)] + ctl_checks,
+            R or 1, H, OB, p.CX, int(p.CXG), _ptr(ob["t"]), _ptr(ob["m"]),
+            _ptr(state["x_overflow"]), c)
+
+    def judge_batch(self, world: dict, boot_end: int, now: torch.Tensor,
+                    src: torch.Tensor, dst: torch.Tensor,
+                    pkt_seq: torch.Tensor, out=None):
+        """K10: (delivered, deliver_time) of a batch of N deferred
+        packets, as judge_batch_plain gives them (which it is on the
+        CPU). On the card `delivered` is uint8 (0/1); both are written
+        into `out` = (deliver_time int64 [N], delivered uint8 [N]) where
+        given (views into the judge's one output buffer)."""
+        if not now.is_cuda:
+            return judge_batch_plain(world, boot_end, now, src, dst,
+                                     pkt_seq)
+        N = now.shape[0]
+        if any(t.shape != (N,) for t in (src, dst, pkt_seq)):
+            raise ValueError("judge_batch: now, src, dst and pkt_seq "
+                             "must be [N]")
+        if out is None:
+            out = (torch.empty(N, dtype=torch.int64, device=now.device),
+                   torch.empty(N, dtype=torch.uint8, device=now.device))
+        t_out, d_out = out
+        if t_out.shape != (N,) or d_out.shape != (N,):
+            raise ValueError("judge_batch: out must be two [N] tensors")
+        hv = world["host_vertex"]
+        hier, epochs, topo, topo_checks = topo_args(world, 1)
+        key, key_checks = self._seed_args(world, None, 1, now.device)
+        self._launch(
+            launch_name("judge_batch", False, epochs, hier),
+            "shadow_judge_batch",
+            [(now, torch.int64)] + [(t, torch.int32) for t in
+                                    (src, dst, pkt_seq, hv)]
+            + topo_checks + key_checks
+            + [(t_out, torch.int64), (d_out, torch.uint8)],
+            N, hv.shape[0], int(boot_end), *map(_ptr, (now, src, dst,
+                                                      pkt_seq, hv)),
+            ctypes.byref(topo), key, _ptr(t_out), _ptr(d_out))
+        return d_out, t_out

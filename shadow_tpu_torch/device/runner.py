@@ -18,19 +18,22 @@ vertex pair, and the loop's phases and host syncs. Under
 `experimental.state_audit` it checks the health word at the run's end
 and raises `AuditFailure` (device/supervise.py) where it is not zero.
 `engine_from` also builds an ensemble campaign's engine, whose R
-replicas ensemble/campaign.py runs.
+replicas ensemble/campaign.py runs. `run` takes any config through the
+policy dispatch of core/controller.py, which hands a `tpu` config with
+a device twin to `run_device` and runs the others (host faults, mixed
+model families, the `hybrid` and `serial` policies) on the CPU engine.
 """
 
 from __future__ import annotations
 
 import time
-from dataclasses import dataclass, field
 from typing import Optional
 
 import numpy as np
 
 from shadow_tpu_torch.config.schema import ConfigOptions
-from shadow_tpu_torch.core.build import BuiltSimulation, build
+from shadow_tpu_torch.core.build import BuiltSimulation, NoDeviceTwin, build
+from shadow_tpu_torch.core.stats import SimStats
 from shadow_tpu_torch.device import capacity
 from shadow_tpu_torch.device.engine import (
     DeviceEngine,
@@ -47,48 +50,6 @@ from shadow_tpu_torch.topology.hierarchy import world_tables
 
 STAT_KEYS = ("n_exec", "n_sent", "n_drop", "n_deliv", "chk", "overflow",
              "x_overflow", "app")
-
-
-@dataclass
-class SimStats:
-    ok: bool = True
-    end_time: int = 0
-    events_executed: int = 0
-    packets_sent: int = 0
-    packets_delivered: int = 0
-    packets_dropped: int = 0
-    rounds: int = 0
-    wall_s: float = 0.0
-    # per host, [H]
-    host_events_executed: np.ndarray = field(default=None, repr=False)
-    host_trace_checksum: np.ndarray = field(default=None, repr=False)
-    overflow: int = 0
-    x_overflow: int = 0
-    # tgen and Tor: downloads completed (the app's `downloads`)
-    downloads_completed: Optional[int] = None
-    # the preflight admission verdict (capacity.admission_verdict)
-    admission: Optional[dict] = field(default=None, repr=False)
-    # count_paths: sent packets per (src vertex, dst vertex), the
-    # nonzero entries (the reference's NetworkModel.path_packets)
-    path_packets: Optional[dict] = field(default=None, repr=False)
-    # the window loop that ran ("graph", "python") and its phases and
-    # host syncs (DeviceEngine.loop_stats)
-    loop: str = ""
-    phases: int = 0
-    host_syncs: int = 0
-    # an ensemble campaign's record (ensemble/campaign.py); the totals
-    # above are then over every replica, the per-host arrays replica
-    # 0's, rounds and phases the most of any replica
-    ensemble: Optional[dict] = field(default=None, repr=False)
-
-    def summary(self) -> str:
-        downloads = ("" if self.downloads_completed is None else
-                     f"{self.downloads_completed} downloads completed, ")
-        return (f"{self.events_executed} events, "
-                f"{self.packets_sent} packets sent "
-                f"({self.packets_delivered} delivered, "
-                f"{self.packets_dropped} dropped), {downloads}"
-                f"{self.rounds} rounds")
 
 
 def engine_config(cfg: ConfigOptions, sim: BuiltSimulation,
@@ -118,7 +79,8 @@ def engine_config(cfg: ConfigOptions, sim: BuiltSimulation,
         seed=cfg.general.seed,
         exchange_in_capacity=xp.exchange_in_capacity,
         model_bandwidth=xp.model_bandwidth, count_paths=xp.count_paths,
-        audit=xp.state_audit)
+        audit=xp.state_audit, outbox_compact=xp.outbox_compact,
+        merge_global=xp.merge_strategy == "global")
 
 
 def admit(cfg: ConfigOptions, sim: BuiltSimulation, config: EngineConfig,
@@ -162,7 +124,12 @@ def engine_from(cfg: ConfigOptions, sim: BuiltSimulation, device="cuda",
     """The engine of a built simulation, or with `ensemble` worlds
     (ensemble/spec.py) the campaign engine of their replicas, at
     `lookahead` where given; its `admission` holds the verdict, reached
-    before the engine allocates anything."""
+    before the engine allocates anything. Raises NoDeviceTwin where the
+    build found none (core/controller.py runs such a config on the
+    hybrid policy)."""
+    if sim.app is None:
+        raise NoDeviceTwin(sim.no_twin or "the config's policy is not "
+                           "tpu: the CPU engine runs it")
     config = engine_config(cfg, sim, lookahead)
     if ensemble is not None:
         config.seed = int(ensemble.seeds[0])
@@ -181,15 +148,26 @@ def engine_from(cfg: ConfigOptions, sim: BuiltSimulation, device="cuda",
 
 def run(cfg: ConfigOptions, device="cuda",
         kernels: Optional[Kernels] = None) -> SimStats:
-    """Build, admit and run a config through the engine's own window
-    loop (DeviceEngine.run); under the state audit, raise AuditFailure
-    where the health word is not zero at the end. An `ensemble:`
-    config runs through ensemble/campaign.py."""
+    """Run a config on its policy (core/controller.py): a `tpu` config
+    the device engine runs through `run_device`; one with host faults
+    or no single device twin, and the `hybrid` and `serial` policies,
+    through the CPU engine."""
+    from shadow_tpu_torch.core.controller import Controller
+
+    return Controller(cfg, device=device, kernels=kernels).run()
+
+
+def run_device(cfg: ConfigOptions, sim: BuiltSimulation, device="cuda",
+               kernels: Optional[Kernels] = None) -> SimStats:
+    """Admit and run a built `tpu` config through the engine's own
+    window loop (DeviceEngine.run); under the state audit, raise
+    AuditFailure where the health word is not zero at the end. An
+    `ensemble:` config runs through ensemble/campaign.py."""
     if cfg.ensemble is not None:
         raise ValueError("an ensemble: config is a campaign: run it with "
                          "shadow_tpu_torch.ensemble.campaign."
                          "EnsembleRunner (the CLI does)")
-    engine, sim = make_engine(cfg, device=device, kernels=kernels)
+    engine = engine_from(cfg, sim, device=device, kernels=kernels)
     state = engine.init_state(sim.start_times, sim.stop_times)
     t0 = time.perf_counter()
     state, rounds = engine.run(state)

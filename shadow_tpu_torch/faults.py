@@ -19,8 +19,9 @@ edge's latency and composes extra loss over [time, time+duration).
 
 Every lookup selects the epoch of the packet's send time: the largest
 i with times[i] <= t. The host faults (`host_crash`, `host_restart`)
-are parsed here too; the port refuses them (core/build.py), as the
-reference's device engine does.
+are parsed here too and resolved against the host names
+(`resolve_host_faults`); they are manager-side events, which the CPU
+engine runs (core/manager.py), as in the reference.
 """
 
 from __future__ import annotations
@@ -563,3 +564,35 @@ def _compile_hier(top: Topology, events: list, times: np.ndarray,
         epochs.append(eht)
 
     return HierFaultTable(times=times, epochs=epochs)
+
+
+def resolve_host_faults(events: list,
+                        name_to_id) -> list[tuple[int, int, str]]:
+    """Validate host_crash/host_restart events against the hosts:
+    names must resolve (group-expanded names like ``client0``; any
+    mapping-like with ``.get``, such as core/build.py `HostNames`), and
+    each host's schedule must alternate crash -> restart. Returns
+    [(time, host_id, kind)] sorted by time."""
+    out: list[tuple[int, int, str]] = []
+    state: dict[int, str] = {}
+    for ev in sorted(events, key=lambda e: e.time):
+        if ev.time < 0:
+            raise ValueError(
+                f"network.faults: {ev.kind} has negative time")
+        hid = name_to_id.get(ev.host)
+        if hid is None:
+            raise ValueError(
+                f"network.faults: {ev.kind} at {ev.time} ns names "
+                f"unknown host {ev.host!r}")
+        prev = state.get(hid, "up")
+        if ev.kind == "host_crash" and prev == "down":
+            raise ValueError(
+                f"network.faults: host_crash at {ev.time} ns, but "
+                f"{ev.host!r} is already crashed")
+        if ev.kind == "host_restart" and prev == "up":
+            raise ValueError(
+                f"network.faults: host_restart at {ev.time} ns "
+                f"without a preceding host_crash of {ev.host!r}")
+        state[hid] = "down" if ev.kind == "host_crash" else "up"
+        out.append((ev.time, hid, ev.kind))
+    return out

@@ -1,6 +1,6 @@
 """The model NIC's constants and arithmetic (the port's copy of the
-reference package's host/model_nic.py, cut to what the device engine
-reads).
+reference package's host/model_nic.py): what the device engine reads,
+and `ModelNic`, the per-host state of the CPU engine (core/).
 
 Under `experimental.model_bandwidth` raw model sends pass a fluid
 bandwidth model and an event-driven CoDel:
@@ -55,3 +55,62 @@ def serialize_ns(size_bytes: int, bw_bits: int) -> int:
     integer nanoseconds."""
     return (min(max(1, size_bytes), MAX_SER_BYTES) * 8 * _NS_PER_SEC) \
         // max(1, bw_bits)
+
+
+class ModelNic:
+    """One host's model-NIC state on the CPU engine: the CPU twin of the
+    device's seven leaves (tx_free, rx_free, cd_fa, cd_next, cd_cnt,
+    cd_last, cd_drop)."""
+
+    def __init__(self, bw_up_bits: int, bw_down_bits: int):
+        self.bw_up = bw_up_bits
+        self.bw_down = bw_down_bits
+        self.tx_free = 0
+        self.rx_free = 0
+        self.cd_fa = 0          # first_above_time
+        self.cd_next = 0        # drop_next
+        self.cd_cnt = 0
+        self.cd_last = 0        # lastcount
+        self.cd_drop = 0        # in dropping state
+
+    def tx_depart(self, now: int, size: int) -> int:
+        depart = max(now, self.tx_free)
+        self.tx_free = depart + serialize_ns(size, self.bw_up)
+        return depart
+
+    def rx_deliver(self, arr: int, size: int) -> int:
+        """The delivery time, or -1 where CoDel drops the packet: one
+        packet per call, the decision tree the device pops apply."""
+        dq = max(arr, self.rx_free)
+        sojourn = dq - arr
+        drop = False
+        if sojourn < CODEL_TARGET_NS:
+            self.cd_fa = 0
+            self.cd_drop = 0
+        elif self.cd_fa == 0:
+            self.cd_fa = dq + CODEL_INTERVAL_NS
+        elif dq >= self.cd_fa:
+            if self.cd_drop:
+                if dq >= self.cd_next:
+                    drop = True
+                    self.cd_cnt += 1
+                    self.cd_next = self.cd_next + int(
+                        LAW[min(self.cd_cnt, LAW_SIZE - 1)])
+            else:
+                drop = True
+                self.cd_drop = 1
+                delta = self.cd_cnt - self.cd_last
+                if dq - self.cd_next < CODEL_INTERVAL_NS and delta > 1:
+                    self.cd_cnt = delta
+                else:
+                    self.cd_cnt = 1
+                self.cd_last = self.cd_cnt
+                self.cd_next = dq + int(
+                    LAW[min(self.cd_cnt, LAW_SIZE - 1)])
+        else:
+            self.cd_drop = 0
+        if drop:
+            return -1
+        deliver = dq + serialize_ns(size, self.bw_down)
+        self.rx_free = deliver
+        return deliver

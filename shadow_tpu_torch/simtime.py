@@ -14,6 +14,9 @@ SIMTIME_ONE_MILLISECOND: int = 1_000_000
 SIMTIME_ONE_SECOND: int = 1_000_000_000
 SIMTIME_ONE_MINUTE: int = 60 * SIMTIME_ONE_SECOND
 SIMTIME_ONE_HOUR: int = 60 * SIMTIME_ONE_MINUTE
+# no time (an unset clock or barrier), and the latest time there is
+SIMTIME_INVALID: int = -1
+SIMTIME_MAX: int = (1 << 63) - 2
 
 # Network constants (the reference's definitions.h:173-195).
 CONFIG_MTU: int = 1500

@@ -10,3 +10,10 @@ CHK_MUL = 1000003
 CHK_SRC = 2654435761
 CHK_KIND = 1315423911
 CHK_SEQ = 2246822519
+
+
+def chk_mix(chk: int, time: int, src: int, kind: int, seq: int) -> int:
+    """Fold one executed event into a host's checksum."""
+    mix = (time ^ (src * CHK_SRC) ^ (kind * CHK_KIND)
+           ^ (seq * CHK_SEQ)) & MASK63
+    return (chk * CHK_MUL + mix) & MASK63

@@ -546,17 +546,24 @@ hosts:
 
 def test_host_faults_are_refused_naming_the_hybrid_policy():
     """examples/tgen_faults_hier.yaml as shipped crashes and restarts a
-    host: the reference sends it to its hybrid policy, the port refuses
-    it by name."""
+    host: the reference sends it to its hybrid policy, and so does the
+    port: the device engine refuses it, naming the hybrid policy in the
+    reference's words, and the run goes to the hybrid policy."""
     from shadow_tpu_torch.config import load_config
-    from shadow_tpu_torch.core.build import OutsideSlice, build
+    from shadow_tpu_torch.core.build import NoDeviceTwin, build
+    from shadow_tpu_torch.device import runner
 
     cfg = load_config(os.path.join(ROOT, "examples",
                                    "tgen_faults_hier.yaml"),
                       ["experimental.scheduler_policy=tpu"])
-    with pytest.raises(OutsideSlice, match=r"host_crash .*ROADMAP.md queue "
-                       r"\(a\) item 10 \(the hybrid policy\)"):
-        build(cfg)
+    sim = build(cfg)
+    assert sim.app is None and sim.no_twin == (
+        "host_crash/host_restart faults are manager-side events; "
+        "running hybrid")
+    assert [k for _, _, k in sim.host_faults] == ["host_crash",
+                                                  "host_restart"]
+    with pytest.raises(NoDeviceTwin, match="running hybrid"):
+        runner.engine_from(cfg, sim, device="cpu")
 
 
 def test_epoch_lookup_matches_jax_gather_parts(reference):

@@ -80,12 +80,12 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
 
 
 @pytest.mark.parametrize("override,item", [
-    ("experimental.outbox_compact=8", "queue (b) item 7"),
+    ("experimental.scheduler_policy=thread", "queue (a) item 10"),
     ("experimental.dispatch_segment=200ms", "queue (a) item 7"),
     ("experimental.exchange=two_phase", "queue (a) item 9"),
-    ("experimental.scheduler_policy=serial", "queue (a) item 10"),
-    ("network.faults=[{kind: host_crash, time: 100ms, host: a0}]",
+    ("hosts.a.processes=[{path: model:tgen_tcp_server, start_time: 10ms}]",
      "queue (a) item 10"),
+    ("experimental.failover=shrink", "queue (a) item 13"),
     ("experimental.checkpoint_save=run.npz", "queue (a) item 7"),
 ])
 def test_configs_outside_the_slice_are_refused_by_roadmap_item(
@@ -96,6 +96,45 @@ def test_configs_outside_the_slice_are_refused_by_roadmap_item(
     with pytest.raises(OutsideSlice, match="ROADMAP.md " +
                        item.replace("(", r"\(").replace(")", r"\)")):
         build(cfg)
+
+
+@pytest.mark.parametrize("overrides,policy", [
+    (["experimental.outbox_compact=8"], "tpu"),
+    (["experimental.outbox_compact=2", "experimental.merge_strategy=global"],
+     "tpu"),
+    (["experimental.scheduler_policy=serial"], "serial"),
+    (["experimental.scheduler_policy=hybrid",
+      "experimental.hybrid_judge_min_batch=0"], "hybrid"),
+    (["network.faults=[{kind: host_crash, time: 100ms, host: a0}, "
+      "{kind: host_restart, time: 200ms, host: a0}]"], "hybrid"),
+    (["hosts.b.processes=[{path: model:tgen_server, start_time: 10ms}]"],
+     "hybrid"),
+])
+def test_lifted_keys_are_admitted_and_run_on_the_cpu(overrides, policy):
+    """What this slice lifts runs: the compaction under either rule, the
+    serial and hybrid policies, host faults and a mix of model families
+    (the last two on the hybrid policy under `tpu`)."""
+    from shadow_tpu_torch.config.loader import load_config_str as load
+
+    stats = runner.run(load(PHOLD, overrides), device="cpu")
+    assert stats.policy == policy and stats.events_executed > 0
+
+
+def test_threaded_hybrid_cpu_policy_and_cpu_engine_keys_are_refused():
+    from shadow_tpu_torch.config.loader import load_config_str as load
+    from shadow_tpu_torch.core.controller import Controller
+
+    with pytest.raises(OutsideSlice, match="queue \\(a\\) item 10"):
+        build(load(PHOLD, ["experimental.scheduler_policy=hybrid",
+                           "experimental.hybrid_cpu_policy=thread"]))
+    for key in ("general.heartbeat_interval=100ms",
+                "hosts.a.pcap_directory=pcap"):
+        with pytest.raises(OutsideSlice, match="queue \\(a\\) item 10"):
+            Controller(load(PHOLD, ["experimental.scheduler_policy=serial",
+                                    key]))
+    with pytest.raises(ValueError, match="host_crash/host_restart"):
+        build(load(PHOLD, [CAMPAIGN, "network.faults=[{kind: host_crash, "
+                           "time: 100ms, host: a0}]"]))
 
 
 CAMPAIGN = "ensemble={replicas: 2, vary: {seed: [3, 4]}}"

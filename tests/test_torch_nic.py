@@ -419,9 +419,9 @@ def test_host_bandwidths_follow_group_overrides_and_vertices():
 
 
 @pytest.mark.parametrize("override,match", [
-    ("network.faults=[{kind: host_crash, time: 1s, host: left0}]",
-     r"host_crash .* \(ROADMAP.md queue \(a\) item 10 \(the hybrid "
-     r"policy\)"),
+    ("experimental.scheduler_policy=thread",
+     r"thread .* \(ROADMAP.md queue \(a\) item 10 \(the threaded CPU "
+     r"policies\)\)"),
     ("experimental.exchange_capacity=64",
      r"exchange_capacity .* \(ROADMAP.md queue \(a\) item 9 "
      r"\(multi-GPU\)\)"),
