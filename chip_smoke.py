@@ -8,7 +8,7 @@ Phases, in order; any failure exits non-zero before the last line:
 
 1. build: print the card's name and power limit (nvidia-smi), the torch
    and CUDA versions and the CUDA toolkit's (`nvcc --version`), then
-   build the CUDA kernels (twelve; the pops and the judges each
+   build the CUDA kernels (fourteen; the pops and the judges each
    instantiated on dense and on factored tables, with one epoch and
    with a fault schedule's epoch axis, the pops also with and without
    the model NIC, and with and without the state audit's clock lane, in
@@ -92,7 +92,19 @@ Phases, in order; any failure exits non-zero before the last line:
    - K11 compact_outbox at the PHOLD shapes (100,000 hosts, OB = 30)
      with CX 4 and 16, by the window rule and the global rule, and each
      rule at R = 4 against four R = 1 launches, a stopped replica
-     keeping every byte.
+     keeping every byte;
+   - the host mesh's kernels (`mesh_kernels`) on one rank's judged
+     outbox at the PHOLD shapes (H_loc = 50,000 at S = 2, 25,000 at
+     S = 4, OB = 30, a tenth of the rows at 16 hot hosts of another
+     shard), routed over the H_pad destinations: K12 pack_remote at S =
+     2 and 4 at dense_auto_cap and at CAP/64 (rows lost), beside
+     index_select of the same rows into [5, S*CAP]; K13 pack_two_phase
+     (phase 1) at S = 4 at its auto CAP and at CAP/64; K5's keyed route
+     of the phase-1 arrivals over H_pad and K13's phase 2 at its auto
+     CAP2 and at CAP2/64 (rows lost at the intermediate); K5's window
+     over a rank's received [S, 6, CAP] rows and K3 merging them with
+     the rank's self-shard rows (two arrival blocks, the window and
+     the global merge's occ_in), every output bit for bit.
 3. parity: the window loop captured into a CUDA graph on the card (the
    main path), the Python loop on the card and the CPU plain path must
    give identical totals, rounds, per-host events_executed /
@@ -171,9 +183,30 @@ Phases, in order; any failure exits non-zero before the last line:
    uncompacted run's largest occ_ob, beside the uncompacted wall. Every
    device run must be admitted and its measured peak device memory lie within
    capacity.FOOTPRINT_TOLERANCE of its admission estimate.
-5. boot: examples/tgen_1000000.yaml as shipped built (timed), admitted
+5. mesh: the host mesh, S ranks spawned on device 0 over gloo (the
+   check's machine shows one card; `torch.cuda.device_count()` is
+   printed): parity (`mesh_parity`): PHOLD 2 x 1,000 lossy, the tgen
+   config at loss 0.25, tor_small cut to TOR_PARITY_STOP and the star
+   with link faults, each under all_to_all, two_phase and all_gather,
+   window and global merges, at S = 4 (at S = 2 three of them), held
+   against the one-device card run (traces, totals, every per-host
+   leaf but occ_in, the phases), the kernels each rank launched
+   checked; a2a/window at S = 2 and two_phase/global at S = 4 also
+   against the same ranks on the CPU plain path (run beside the card's,
+   every leaf); one undersized capacity per schedule that has one
+   (the PHOLD at S = 4: the direct pack, two_phase's phase 1, its
+   phase 2), card against CPU, x_overflow equal per sender, the run not
+   ok. Full (`mesh_full`, MESH_FULL): phold.yaml at 2 x 50,000 hosts at
+   S = 2 and 4 and tgen_10000.yaml at S = 2, exchange_capacity set by
+   hand, untimed for the wall beside the one-device graph wall of this
+   call, then in timing mode for each rank's split of the flush (the
+   pops and K2, K5, the pack, the staging copies, the collective, the
+   second route, the merge) and the bytes it sent; counts equal to one
+   device's, x_overflow 0, every rank's peak within
+   FOOTPRINT_TOLERANCE of its admission estimate.
+6. boot: examples/tgen_1000000.yaml as shipped built (timed), admitted
    and booted (engine and init_state) on the card; not run.
-6. the `kernels` JSON line, then the card line, then the result line.
+7. the `kernels` JSON line, then the card line, then the result line.
 
 It imports nothing of jax or of the shadow_tpu package.
 """
@@ -193,7 +226,7 @@ import time
 import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("build", "kernels", "parity", "full", "boot")
+PHASES = ("build", "kernels", "parity", "full", "mesh", "boot")
 # H100 SXM (NVIDIA data sheet): HBM rate, and the integer ALU rate:
 # 64 INT32 lanes per SM x 132 SMs x 1.98 GHz boost. (The 67 TFLOP/s
 # float32 peak is 128 lanes with an FMA counted as two operations.)
@@ -559,6 +592,16 @@ REPLACES = {
     # and the global merge's _compact_flat
     "compact_outbox": "shadow_tpu/device/engine.py:1299",
     "compact_outbox_global": "shadow_tpu/device/engine.py:1858",
+    # the host mesh: _shard_edges ... _pack_remote; _pack_two_phase and
+    # _tp_mask (both halves); the windows of _host_windows at my_shard
+    # after the exchange (all_gather's `(kg, pg)` order too) and the
+    # two_phase arrivals' key re-sort; the window merge's second block
+    "pack_remote": "shadow_tpu/device/engine.py:1635",
+    "pack_two_phase": "shadow_tpu/device/engine.py:1742",
+    "pack_two_phase2": "shadow_tpu/device/engine.py:1808",
+    "route_window": "shadow_tpu/device/engine.py:2008",
+    "route_keyed": "shadow_tpu/device/engine.py:1989",
+    "merge_heaps2": "shadow_tpu/device/engine.py:2033",
 }
 SOURCES = {
     "pop_phase": "shadow_tpu_torch/csrc/pop_phase.cu",
@@ -589,6 +632,12 @@ SOURCES = {
                     "shadow_tpu_torch/csrc/judge_batch.cu"),
     **dict.fromkeys(("compact_outbox", "compact_outbox_global"),
                     "shadow_tpu_torch/csrc/compact_outbox.cu"),
+    "pack_remote": "shadow_tpu_torch/csrc/pack_remote.cu",
+    "pack_two_phase": "shadow_tpu_torch/csrc/pack_two_phase.cu",
+    "pack_two_phase2": "shadow_tpu_torch/csrc/pack_two_phase.cu",
+    "route_window": "shadow_tpu_torch/csrc/route.cu",
+    "route_keyed": "shadow_tpu_torch/csrc/route.cu",
+    "merge_heaps2": "shadow_tpu_torch/csrc/merge_heaps.cu",
 }
 # the kernels line's rows, in order
 ROWS = ("pop_phase", "pop_tgen", "pop_tor", "judge_outbox", "route",
@@ -599,7 +648,9 @@ ROWS = ("pop_phase", "pop_tgen", "pop_tor", "judge_outbox", "route",
         "pop_tgen_aud", "pop_tor_aud", "pop_phase_hier_aud",
         "pop_tgen_nic_aud", "audit_round", "loop_control", "phase_tally",
         "judge_batch", "judge_batch_hier", "judge_batch_ep",
-        "judge_batch_ep_hier", "compact_outbox", "compact_outbox_global")
+        "judge_batch_ep_hier", "compact_outbox", "compact_outbox_global",
+        "pack_remote", "pack_two_phase", "pack_two_phase2",
+        "route_window", "route_keyed", "merge_heaps2")
 AUDIT = "experimental.state_audit=true"
 # tests/test_torch_audit.py's BUSY: PHOLD without loss at msgload 4,
 # with self-sends and a 50 ms runahead, so that every host keeps several
@@ -2807,6 +2858,333 @@ def compact_kernels(torch, K, scratch, rng, dev):
     return out, r4
 
 
+# ----------------------------------------------------------------------
+# the host mesh's kernels: K12, K13, K5's new modes, K3's second block
+# ----------------------------------------------------------------------
+MESH_SHAPES = ((2, 50_000), (4, 25_000))    # (S, H_loc): phold.yaml's
+MESH_OB = 30
+
+
+def mesh_outbox(torch, rng, H_loc, S, shard, dev):
+    """One rank's judged outbox at the PHOLD shapes: random_outbox's rows
+    aimed over the mesh's S*H_loc hosts, a tenth at 16 hot hosts of
+    another shard."""
+    ob = random_outbox(rng, H_loc, MESH_OB, torch, dev)
+    shape = (H_loc, MESH_OB)
+    dst = rng.integers(0, S * H_loc, shape)
+    hot = ((shard + 1) % S) * H_loc + rng.integers(0, 16, shape)
+    dst = np.where(rng.random(shape) < 0.1, hot, dst)
+    ob["m"] = (torch.from_numpy(dst.astype(np.int64)).to(dev) << 32) | \
+        (ob["m"] & 0xFFFFFFFF)
+    return ob
+
+
+def _eq(a, b) -> float:
+    return max_abs_err({"x": a}, {"x": b}, ["x"])
+
+
+def mesh_state(torch, K, rng, H, S, dev):
+    """random_state with the mesh's [1, S] occ_x and no x_overflow."""
+    st = random_state(rng, H, 64, dev)
+    st["occ_x"] = torch.zeros((1, S), dtype=torch.int32, device=dev)
+    return st
+
+
+def pack_case(torch, K, scratch, rng, S, H_loc, cap, dev, two_phase):
+    """K12 (or K13's phase 1) on one rank's routed outbox at `cap`
+    against its plain version: the send buffer, x_overflow and occ_x
+    bit for bit."""
+    from shadow_tpu_torch.device.capacity import group_split
+
+    g, ng = group_split(S) if two_phase else (1, S)
+    mp = K.MeshParams(S, 0, H_loc, "two_phase" if two_phase
+                      else "all_to_all", cap, 0, g, ng)
+    ob = mesh_outbox(torch, rng, H_loc, S, 0, dev)
+    perm, starts, counts = K.route_rows_plain(K.Rows(ob), 0, S * H_loc)
+    name = "pack_two_phase" if two_phase else "pack_remote"
+    shape = (g, 6, cap) if two_phase else (S, 6, cap)
+    state0 = {"x_overflow": torch.zeros(H_loc, dtype=torch.int32,
+                                        device=dev),
+              "occ_x": torch.zeros((1, S), dtype=torch.int32, device=dev)}
+    outs = {}
+    for who, fn in (("kernel", getattr(scratch, name)),
+                    ("plain", getattr(K, name + "_plain"))):
+        st = clone(state0)
+        send = torch.empty(shape, dtype=torch.int64, device=dev)
+        fn(st, ob, perm, starts, counts, mp, send)
+        outs[who] = (send, st)
+    torch.cuda.synchronize()
+    err = max(_eq(outs["kernel"][0], outs["plain"][0]),
+              max_abs_err(outs["kernel"][1], outs["plain"][1],
+                          ["x_overflow", "occ_x"]))
+    check(err == 0.0, f"{name} (S={S}, CAP={cap}) differs from its plain "
+          f"version (max abs err {err})")
+    lost = int(outs["plain"][1]["x_overflow"].sum())
+
+    def args():
+        return (clone(state0), ob, perm, starts, counts, mp,
+                torch.empty(shape, dtype=torch.int64, device=dev))
+
+    seg = counts.view(S, H_loc).sum(1)
+    shipped = int(seg[1:].clamp(max=cap).sum())
+    # the same copy as one PyTorch call: index_select of the shipped
+    # rows' five fields (one [5, F] block) into [5, S*CAP]
+    block = torch.stack([ob[f].view(-1) for f in K.OB_FIELDS])
+    win = (starts.view(S, H_loc)[:, :1] + torch.arange(
+        cap, device=dev)).clamp(max=perm.shape[0] - 1)
+    idx = perm[win.view(-1)]
+    return finish({
+        "err": err, "lost": lost,
+        "ms": time_median(torch, getattr(scratch, name), args, 7),
+        "plain_ms": time_median(torch, getattr(K, name + "_plain"), args,
+                                3),
+        "library_ms": time_median(
+            torch, lambda b, i: torch.index_select(b, 1, i),
+            lambda: (block, idx), 7),
+        # the shipped rows' five fields and their perm entries read, the
+        # buffer written, the lost rows' perm entries read and their
+        # counters written
+        "bytes": shipped * 6 * 8 + int(np.prod(shape)) * 8
+        + lost * (8 + 4) + S * 16,
+        "ops": 0,
+        "shape": f"S={S} H_loc={H_loc} OB={MESH_OB} CAP={cap} "
+                 f"rows={int(counts.sum())} shipped={shipped} "
+                 f"lost={lost}"})
+
+
+def phase2_case(torch, K, scratch, rng, S, H_loc, cap, cap2, dev):
+    """K13's phase 2 and K5's keyed route, on the phase-1 arrivals of a
+    rank of a mesh of S = 4 (g = ng = 2): rank 0's own phase-1 buffers
+    stand for what its group sent it."""
+    from shadow_tpu_torch.device.capacity import group_split
+
+    g, ng = group_split(S)
+    mp = K.MeshParams(S, 0, H_loc, "two_phase", cap, cap2, g, ng)
+    ob = mesh_outbox(torch, rng, H_loc, S, 0, dev)
+    perm, starts, counts = K.route_rows_plain(K.Rows(ob), 0, S * H_loc)
+    st = {"x_overflow": torch.zeros(H_loc, dtype=torch.int32, device=dev),
+          "occ_x": torch.zeros((1, S), dtype=torch.int32, device=dev)}
+    recv1 = torch.empty((g, 6, cap), dtype=torch.int64, device=dev)
+    K.pack_two_phase_plain(st, ob, perm, starts, counts, mp, recv1)
+    rows1 = K.Rows(recv1)
+    # K5 keyed over the H_pad destinations
+    routed = {}
+    for who, fn in (("kernel", scratch.route_rows),
+                    ("plain", K.route_rows_plain)):
+        routed[who] = fn(rows1, 0, S * H_loc, True)
+    torch.cuda.synchronize()
+    L = int(routed["plain"][2].sum())
+    rerr = max(_eq(routed["kernel"][0][:L], routed["plain"][0][:L]),
+               _eq(routed["kernel"][1], routed["plain"][1]),
+               _eq(routed["kernel"][2], routed["plain"][2]))
+    check(rerr == 0.0, f"route_keyed (S={S}, {rows1.n} rows) differs "
+          f"from its plain version (max abs err {rerr})")
+    arr = routed["plain"]
+    outs = {}
+    for who, fn in (("kernel", scratch.pack_two_phase2),
+                    ("plain", None)):
+        send = torch.empty((ng - 1, 6, cap2), dtype=torch.int64, device=dev)
+        hist = torch.empty(S * H_loc, dtype=torch.int32, device=dev)
+        if fn is None:
+            hist.zero_()
+            K.pack_two_phase2_plain(rows1, *arr, mp, MESH_OB, send, hist)
+        else:
+            fn(rows1, *arr, mp, MESH_OB, send, hist)
+        outs[who] = (send, hist)
+    torch.cuda.synchronize()
+    err = max(_eq(outs["kernel"][0], outs["plain"][0]),
+              _eq(outs["kernel"][1], outs["plain"][1]))
+    check(err == 0.0, f"pack_two_phase2 (S={S}, CAP2={cap2}) differs "
+          f"from its plain version (max abs err {err})")
+    lost = int(outs["plain"][1].sum())
+
+    def p2_args():
+        return (rows1, *arr, mp, MESH_OB,
+                torch.empty((ng - 1, 6, cap2), dtype=torch.int64,
+                            device=dev),
+                torch.empty(S * H_loc, dtype=torch.int32, device=dev))
+
+    def p2_plain(*a):
+        a[-1].zero_()
+        K.pack_two_phase2_plain(*a)
+
+    kf = rows1.fields(("key",))["key"]
+    tm = rows1.fields(("t",))["t"]
+    live = int((tm < K.DROP_T).sum())
+    # phase 2 forwards to shard (1, 0) = g
+    shipped = int(min(cap2, int(arr[2].view(S, H_loc)[g].sum())))
+    key_span = torch.arange(S * H_loc + 1, device=dev) * (
+        S * H_loc * MESH_OB)
+    p2 = finish({
+        "err": err, "lost": lost,
+        "ms": time_median(torch, scratch.pack_two_phase2, p2_args, 7),
+        "plain_ms": time_median(torch, p2_plain, p2_args, 3),
+        "library_ms": None,
+        "bytes": shipped * 7 * 8 + (ng - 1) * 6 * cap2 * 8 + lost * 20
+        + S * H_loc * 4,
+        "ops": 0,
+        "shape": f"S={S} g={g} ng={ng} CAP={cap} CAP2={cap2} "
+                 f"arrivals={live} lost={lost}"})
+    rk = finish({
+        "err": rerr,
+        "ms": time_median(torch, scratch.route_rows,
+                          lambda: (rows1, 0, S * H_loc, True), 7),
+        "plain_ms": time_median(torch, K.route_rows_plain,
+                                lambda: (rows1, 0, S * H_loc, True), 3),
+        "library_ms": time_median(
+            torch, lambda k: torch.searchsorted(torch.sort(k)[0],
+                                                key_span),
+            lambda: (torch.where(tm < K.DROP_T, kf, K.IMAX),), 7),
+        # t, m and key of every row, perm of live rows written, starts
+        # and counts written
+        "bytes": rows1.n * 3 * 8 + live * 8 + S * H_loc * 16,
+        "ops": 0,
+        "shape": f"S={S} rows={rows1.n} live={live} dst={S * H_loc}"})
+    return p2, rk
+
+
+def merge2_case(torch, K, scratch, rng, S, H_loc, cap, dev):
+    """K5's window over one rank's received rows (the [S, 6, CAP]
+    buffers of its peers' K12) and K3 merging them with its own
+    self-shard rows, against the plain versions."""
+    from shadow_tpu_torch.device.engine import STATE_DTYPES
+
+    mp = K.MeshParams(S, 1, H_loc, "all_to_all", cap, 0, 1, S)
+    recv = torch.empty((S, 6, cap), dtype=torch.int64, device=dev)
+    for src in range(S):
+        other = K.MeshParams(S, src, H_loc, "all_to_all", cap, 0, 1, S)
+        # hot rows aim at shard 1, this rank
+        ob = mesh_outbox(torch, rng, H_loc, S, 0, dev)
+        pr, sr, cr = K.route_rows_plain(K.Rows(ob), 0, S * H_loc)
+        send = torch.empty((S, 6, cap), dtype=torch.int64, device=dev)
+        K.pack_remote_plain({"x_overflow": torch.zeros(
+            H_loc, dtype=torch.int32, device=dev), "occ_x": torch.zeros(
+            (1, S), dtype=torch.int32, device=dev)}, ob, pr, sr, cr, other,
+            send)
+        recv[src] = send[1]
+    rows = K.Rows(recv)
+    own = mesh_outbox(torch, rng, H_loc, S, 1, dev)
+    po, so, co = K.route_rows_plain(K.Rows(own), 0, S * H_loc)
+    lo = mp.g0
+    second = (own, po, so[lo:lo + H_loc], co[lo:lo + H_loc])
+    routed = {}
+    for who, fn in (("kernel", scratch.route_rows),
+                    ("plain", K.route_rows_plain)):
+        routed[who] = fn(rows, lo, H_loc, False)
+    torch.cuda.synchronize()
+    L = int(routed["plain"][2].sum())
+    rerr = max(_eq(routed["kernel"][0][:L], routed["plain"][0][:L]),
+               _eq(routed["kernel"][1], routed["plain"][1]),
+               _eq(routed["kernel"][2], routed["plain"][2]))
+    check(rerr == 0.0, f"route_window (S={S}, {rows.n} rows) differs from "
+          f"its plain version (max abs err {rerr})")
+    arr = routed["plain"]
+    from shadow_tpu_torch.device.apps import PholdDevice
+    from shadow_tpu_torch.device.engine import EngineConfig, phase_params
+
+    p = phase_params(EngineConfig(n_hosts=S * H_loc, event_capacity=64,
+                                  outbox_capacity=MESH_OB),
+                     PholdDevice(n_hosts_total=S * H_loc))
+    state0 = mesh_state(torch, K, rng, H_loc, S, dev)
+    res = {}
+    for occ_sum in (False, True):
+        sk, sp = clone(state0), clone(state0)
+        scratch.merge_heaps(sk, rows, *arr, p, second=second,
+                            occ_sum=occ_sum)
+        K.merge_heaps_plain(sp, rows.fields(K.OB_FIELDS), *arr, p, None,
+                            (own, *second[1:]), occ_sum)
+        torch.cuda.synchronize()
+        res[occ_sum] = max_abs_err(sk, sp, list(STATE_DTYPES))
+        check(res[occ_sum] == 0.0, f"merge_heaps2 (occ_sum={occ_sum}) "
+              f"differs from its plain version (max abs err "
+              f"{res[occ_sum]})")
+    over = int((sk["overflow"].long() - state0["overflow"].long()).sum())
+    check(over > 0, "merge_heaps2 overflowed nothing")
+
+    def k3_args():
+        return (clone(state0), rows, *arr, p, None, second)
+
+    def k3_plain(st, r, *a):
+        K.merge_heaps_plain(st, r.fields(K.OB_FIELDS), *a[:5],
+                            (own, *second[1:]))
+
+    E, IN = p.E, p.IN
+    accepted = int(arr[2].clamp(max=IN).sum() + second[3].clamp(
+        max=IN).sum())
+    slot = torch.arange(E, device=dev)[None, :]
+    live_rows = int(((slot >= state0["head"][:, None].long())
+                     & (state0["ht"] < K.INF)).sum())
+    tm = rows.fields(("t",))["t"]
+    live = int((tm < K.DROP_T).sum())
+    ct = torch.cat([state0["ht"], torch.full((H_loc, 2 * IN), K.INF,
+                                              device=dev)], 1)
+    m2 = finish({
+        "err": max(res.values()),
+        "ms": time_median(torch, scratch.merge_heaps, k3_args, 7),
+        "plain_ms": time_median(torch, k3_plain, k3_args, 3),
+        "library_ms": None,
+        "torch_sort_ms": time_median(
+            torch, lambda x: torch.sort(x, dim=1, stable=True),
+            lambda: (ct,), 7),
+        "bytes": (H_loc * E * 8 + live_rows * 4 * 8 + H_loc * E * 5 * 8
+                  + accepted * 6 * 8
+                  + H_loc * 2 * (8 + 8) + H_loc * 3 * 4 * 2),
+        "ops": 0,
+        "shape": f"H_loc={H_loc} E={E} IN={IN} two blocks, accepted "
+                 f"{accepted}, overflow {over}"})
+    rw = finish({
+        "err": rerr,
+        "ms": time_median(torch, scratch.route_rows,
+                          lambda: (rows, lo, H_loc, False), 7),
+        "plain_ms": time_median(torch, K.route_rows_plain,
+                                lambda: (rows, lo, H_loc, False), 3),
+        "library_ms": None,
+        "bytes": rows.n * 8 + live * 8 * 2 + H_loc * 16,
+        "ops": 0,
+        "shape": f"S={S} rows={rows.n} live={live} to H_loc={H_loc}"})
+    return rw, m2
+
+
+def mesh_kernels(torch, K, scratch, rng, dev):
+    """K12 and K13 at the PHOLD shapes (H_loc 50,000 at S = 2, 25,000 at
+    S = 4, OB = 30), each at dense_auto_cap (its two_phase counterpart)
+    and at a CAP small enough to overflow; K5's window and keyed modes
+    and K3's second arrival block."""
+    from shadow_tpu_torch.device.capacity import exchange_caps
+
+    packs = []
+    for S, H_loc in MESH_SHAPES:
+        cap, _, _, _ = exchange_caps("all_to_all", S, H_loc, MESH_OB, 64)
+        r = pack_case(torch, K, scratch, rng, S, H_loc, cap, dev, False)
+        small = pack_case(torch, K, scratch, rng, S, H_loc,
+                          max(64, cap // 64), dev, False)
+        check(small["lost"] > 0 and r["lost"] == 0,
+              "pack_remote: the small CAP lost nothing, or the auto CAP "
+              "lost rows")
+        packs.append({**r, "overflowing": small})
+    out = {"pack_remote": {**packs[0], "at_S4": packs[1]}}
+    S, H_loc = MESH_SHAPES[1]
+    cap, cap2, _, _ = exchange_caps("two_phase", S, H_loc, MESH_OB, 64)
+    tp = pack_case(torch, K, scratch, rng, S, H_loc, cap, dev, True)
+    tp_small = pack_case(torch, K, scratch, rng, S, H_loc,
+                         max(64, cap // 64), dev, True)
+    check(tp_small["lost"] > 0, "pack_two_phase: the small CAP lost "
+          "nothing")
+    out["pack_two_phase"] = {**tp, "overflowing": tp_small}
+    p2, rk = phase2_case(torch, K, scratch, rng, S, H_loc, cap, cap2, dev)
+    p2_small, _ = phase2_case(torch, K, scratch, rng, S, H_loc, cap,
+                              max(64, cap2 // 64), dev)
+    check(p2_small["lost"] > 0, "pack_two_phase2: the small CAP2 lost "
+          "nothing")
+    out["pack_two_phase2"] = {**p2, "overflowing": p2_small}
+    out["route_keyed"] = rk
+    S, H_loc = MESH_SHAPES[0]
+    cap, _, _, _ = exchange_caps("all_to_all", S, H_loc, MESH_OB, 64)
+    out["route_window"], out["merge_heaps2"] = merge2_case(
+        torch, K, scratch, rng, S, H_loc, cap, dev)
+    return out
+
+
 def kernels_phase(torch, report, H=100_000, dev="cuda"):
     from shadow_tpu_torch.device import kernels as K
 
@@ -2831,6 +3209,7 @@ def kernels_phase(torch, report, H=100_000, dev="cuda"):
     judge = judge_batch_kernels(torch, K, scratch, rng, dev)
     compact, compact_r4 = compact_kernels(torch, K, scratch, rng, dev)
     replicas.update(compact_r4)
+    mesh = mesh_kernels(torch, K, scratch, rng, dev)
     for name, r in phold.items():
         report_line(f"{name} (PHOLD shapes)", r)
     for name, r in tgen.items():
@@ -2865,6 +3244,14 @@ def kernels_phase(torch, report, H=100_000, dev="cuda"):
     for name, r in compact.items():
         report_line(f"{name} (PHOLD shapes)", r)
         report_line(f"{name} (PHOLD shapes)", r["at_cx16"])
+    for name, r in mesh.items():
+        report_line(f"{name} (a mesh rank, PHOLD shapes)", r)
+        for k, sub in r.items():
+            if isinstance(sub, dict) and "err" in sub:
+                report_line(f"{name} ({k})", sub)
+                if isinstance(sub.get("overflowing"), dict):
+                    report_line(f"{name} ({k}, overflowing)",
+                                sub["overflowing"])
     for name, r in replicas.items():
         print(f"[kernels] {name} at R={r['R']}: equal to {r['R']} "
               f"launches at R=1 and to its plain version (max abs err "
@@ -2876,7 +3263,7 @@ def kernels_phase(torch, report, H=100_000, dev="cuda"):
                  if "bound_ms" in r else ""), flush=True)
     report["_replicas"] = replicas
     report.update({**nic, **epochs, **hier_faults, **loop, **judge,
-                   **compact, "count_paths": paths})
+                   **compact, **mesh, "count_paths": paths})
     report.update({
         "pop_phase": phold["pop_phase"], "pop_tgen": tgen["pop_tgen"],
         "pop_tor": tor["pop_tor"], **hier,
@@ -4008,7 +4395,7 @@ def full_phase(torch, card, report):
         graph[name] = stats
         entry = {"launches": launches, "wall_s": stats.wall_s,
                  "peak": peak, "phases": stats.phases,
-                 "host_syncs": stats.host_syncs}
+                 "host_syncs": stats.host_syncs, "stats": stats}
         entry["device_ms"], entry["profiled"] = profiled_graph_run(
             torch, card, name, full_config(example, overrides), path,
             stats, launches)
@@ -4042,6 +4429,265 @@ def full_phase(torch, card, report):
     campaign_full(torch, card, report)
     hybrid_full(torch, card, report)
     compact_full(torch, card, report)
+
+
+# ----------------------------------------------------------------------
+# the host mesh: S ranks on device 0 over gloo
+# ----------------------------------------------------------------------
+MESH_VARIANTS = tuple((x, m) for x in ("all_to_all", "two_phase",
+                                       "all_gather")
+                      for m in ("window", "global"))
+# the kernels each schedule launches on a rank, besides the pops and K2
+MESH_PATH = {"all_to_all": ("route", "pack_remote", "route_window",
+                            "merge_heaps2"),
+             "two_phase": ("route", "pack_two_phase", "route_keyed",
+                           "pack_two_phase2", "merge_heaps2"),
+             "all_gather": ("route_window", "merge_heaps")}
+# per-host leaves a mesh run shares with the one-device run: all but
+# occ_in, which the window merge takes per arrival block (the larger of
+# the received and the self-shard block) where one device has one
+MESH_SHARED = ("ht", "hk", "hm", "hv", "hw", "head", "event_seq",
+               "packet_seq", "app_seq", "app", "n_exec", "n_sent",
+               "n_drop", "n_deliv", "overflow", "x_overflow", "chk",
+               "occ_heap", "occ_ob")
+# the mesh's full runs: (name, example, overrides, S, the one-device
+# full run it stands beside, the pops); exchange_capacity set by hand,
+# as users do (docs/exchange.md:99-101): the auto CAP (all of a rank's
+# H_loc*OB rows a pair) would move about 144 MB a rank a phase. The
+# boot phase, where every PHOLD host sends its msgload rows at once,
+# sets the size: 32,768 a pair lost rows there at S = 2
+MESH_FULL = (
+    ("phold_s2", "phold.yaml", FULL_RUNS[0][2] + (
+        "experimental.exchange_capacity=98304",), 2, "phold", "pop_phase"),
+    ("phold_s4", "phold.yaml", FULL_RUNS[0][2] + (
+        "experimental.exchange_capacity=32768",), 4, "phold", "pop_phase"),
+    ("tgen_10000_s2", "tgen_10000.yaml", (
+        "experimental.exchange_capacity=16384",), 2, "tgen_10000",
+     "pop_tgen"),
+)
+
+
+def mesh_parity_configs():
+    """(key, what, loader(overrides), (pop, judge) kernels) of the mesh's
+    parity configs: the parity phase's PHOLD, tgen and cut tor_small,
+    and the star with link faults."""
+    from shadow_tpu_torch.config import load_config, load_config_str
+
+    tor_small = os.path.join(REPO, "examples", "tor_small.yaml")
+    return (
+        ("phold", "PHOLD 2x1000 hosts, loss 0.01, 1 s",
+         lambda x: load_config_str(PARITY_YAML, list(x)),
+         ("pop_phase", "judge_outbox")),
+        ("tgen", f"tgen 1 server + {TGEN_PARITY_CLIENTS} clients, loss "
+         "0.25, 6 s", lambda x: load_config_str(TGEN_PARITY_YAML, list(x)),
+         ("pop_tgen", "judge_outbox")),
+        ("tor", f"examples/tor_small.yaml cut to {TOR_PARITY_STOP}",
+         lambda x: load_config(tor_small, [
+             f"general.stop_time={TOR_PARITY_STOP}", *x]),
+         ("pop_tor", "judge_outbox")),
+        ("star_faults", "the 8 x 120 star with link faults (factored, "
+         "four epochs)", lambda x: load_config_str(
+             STAR_PARITY_YAML, [STAR_FAULTS, *x]),
+         ("pop_tgen_ep_hier", "judge_outbox_ep_hier")))
+
+
+def mesh_overrides(S, exchange, merge, extra=()):
+    return (f"experimental.mesh_shards={S}",
+            f"experimental.exchange={exchange}",
+            f"experimental.merge_strategy={merge}", *extra)
+
+
+def mesh_launch_check(stats, what, app, exchange):
+    """Every rank's launches (summed): the pop and the judge `app`
+    names, the tallies and the schedule's kernels, each at least once,
+    and nothing else."""
+    got = stats.mesh["launches"]
+    path = (*app, "phase_tally", *MESH_PATH[exchange])
+    for k in path:
+        check(got.get(k, 0) > 0, f"mesh ({what}): {k} never launched")
+    stray = set(got) - set(path)
+    check(not stray, f"mesh ({what}): {sorted(stray)} launched off the "
+          "path")
+
+
+def mesh_parity(torch, report):
+    """S = 2 and 4 ranks spawned on device 0 over gloo (mesh_runs on
+    ["cuda:0"] * S): the PHOLD and tgen configs under every schedule and
+    merge at S = 4, the Tor and star configs under each schedule once,
+    every config under all_to_all at S = 2, each held against the
+    one-device card run (traces, totals, every per-host leaf but occ_in,
+    the phases) and, for a2a/window at S = 2 and two_phase/global at
+    S = 4, against the same ranks on the CPU plain path (every leaf);
+    then an
+    undersized capacity per schedule that has one (the PHOLD, S = 4:
+    the direct pack, two_phase's phase 1 and its phase 2), card against
+    CPU, x_overflow equal per sender and the run not ok."""
+    import concurrent.futures as cf
+
+    from shadow_tpu_torch.device import runner
+
+    cards = {}
+    cpu = {}
+    one = {}
+    for key, what, load, pop in mesh_parity_configs():
+        # every schedule and merge at S = 4 for the PHOLD and tgen; each
+        # schedule once for the longer Tor and star runs (time)
+        for S, variants in ((4, MESH_VARIANTS if key in ("phold", "tgen")
+                             else (("all_to_all", "window"),
+                                   ("two_phase", "global"),
+                                   ("all_gather", "window"))),
+                            (2, (("all_to_all", "window"),))):
+            for x, m in variants:
+                k = f"{key}/{x}/{m}/{S}"
+                cards[k] = (load(mesh_overrides(S, x, m)), what, pop, x)
+        for S, x, m in ((2, "all_to_all", "window"),
+                        (4, "two_phase", "global")):
+            cpu[f"{key}/{x}/{m}/{S}"] = load(mesh_overrides(S, x, m))
+        one[key] = load(())
+    phold = mesh_parity_configs()[0][2]
+    over = {
+        "over/all_to_all": phold(mesh_overrides(4, "all_to_all", "window", (
+            "experimental.exchange_capacity=4",))),
+        "over/two_phase_phase1": phold(mesh_overrides(
+            4, "two_phase", "window", ("experimental.exchange_capacity=4",))),
+        "over/two_phase_phase2": phold(mesh_overrides(
+            4, "two_phase", "global", (
+                "experimental.exchange_capacity2=4",)))}
+    cpu.update(over)
+    t0 = time.perf_counter()
+    with cf.ThreadPoolExecutor(1) as pool:
+        # the CPU ranks run beside the card's
+        cpu_runs = {S: pool.submit(
+            runner.mesh_runs, ["cpu"] * S,
+            [c for k, c in cpu.items() if k.endswith(f"/{S}")
+             or (S == 4 and k.startswith("over/"))], True)
+            for S in (2, 4)}
+        card = {}
+        for S in (2, 4):
+            keys = [k for k in cards if k.endswith(f"/{S}")]
+            res = runner.mesh_runs(["cuda:0"] * S,
+                                   [cards[k][0] for k in keys], True)
+            card.update(zip(keys, res))
+        over_keys = list(over)
+        res = runner.mesh_runs(["cuda:0"] * 4, list(over.values()), True)
+        card.update(zip(over_keys, res))
+        cpu_res = {}
+        for S in (2, 4):
+            keys = [k for k in cpu if k.endswith(f"/{S}")
+                    or (S == 4 and k.startswith("over/"))]
+            cpu_res.update(zip(keys, cpu_runs[S].result()))
+    card_s = time.perf_counter() - t0
+    singles = {key: engine_run(cfg, "cuda") for key, cfg in one.items()}
+    for k, (cfg, what, pop, x) in cards.items():
+        stats, leaves = card[k]
+        key, _, m, S = k.split("/")
+        base, bleaves = singles[key]
+        label = f"{what}, S={S} {x}/{m}"
+        check(stats.mesh["backend"] == "gloo" and stats.mesh["shards"]
+              == int(S), f"mesh ({label}): backend {stats.mesh}")
+        same_run(stats, base, label, ("mesh", "one device"))
+        H = len(bleaves["n_exec"])
+        for leaf in MESH_SHARED + (("occ_in",) if m == "global" else ()):
+            check(np.array_equal(leaves[leaf][:H], bleaves[leaf]),
+                  f"mesh ({label}): leaf {leaf} differs from one device")
+        check(int(leaves["occ_phases"].min()) == int(
+            leaves["occ_phases"].max()) == int(bleaves["occ_phases"][0]),
+              f"mesh ({label}): phases differ")
+        mesh_launch_check(stats, label, pop, x)
+        if k in cpu_res:
+            same_leaves(leaves, cpu_res[k][1], label, ("card", "cpu"))
+            same_run(stats, cpu_res[k][0], label)
+    for k in over:
+        (cs_, cl), (ps_, pl) = card[k], cpu_res[k]
+        check(not cs_.ok and not ps_.ok and cs_.x_overflow > 0,
+              f"mesh ({k}): the undersized capacity did not fail loudly")
+        check(np.array_equal(cl["x_overflow"], pl["x_overflow"]),
+              f"mesh ({k}): x_overflow per sender card != cpu")
+        same_leaves(cl, pl, k, ("card", "cpu"))
+    print(f"[mesh] parity: {len(cards)} card runs at S = 2 and 4 (gloo on "
+          f"device 0) equal the one-device card runs; {len(cpu_res)} "
+          f"equal the same ranks on the CPU plain path, every leaf; "
+          f"undersized capacities " + ", ".join(
+              f"{k[5:]} x_overflow {card[k][0].x_overflow} (senders "
+              f"{np.flatnonzero(card[k][1]['x_overflow']).tolist()[:6]})"
+              for k in over) + f"; {card_s:.1f} s", flush=True)
+    report["_mesh_parity"] = {k: {"launches": v[0].mesh["launches"]}
+                              for k, v in card.items()}
+
+
+def mesh_full(torch, card, report):
+    """The mesh's full runs (MESH_FULL) on device 0 over gloo, each
+    untimed for its wall beside the one-device graph wall of the same
+    call, then in timing mode for the flush's split per rank: the pops
+    and K2, the pack (K12 or K13), the staging copies, the collective,
+    the second route (K5's window) and the merge (K3, two blocks).
+    Counts equal the one-device run's, x_overflow 0, each rank's peak
+    within FOOTPRINT_TOLERANCE of its admission estimate."""
+    from shadow_tpu_torch.device import capacity, runner
+
+    full = report.get("_full", {})
+    runs = {}
+    for name, example, overrides, S, single, pop in MESH_FULL:
+        if single in full:
+            base_wall, base = full[single]["wall_s"], full[single]["stats"]
+        else:
+            base = runner.run(full_config(example, overrides[:-1]),
+                              device="cuda")
+            base_wall = base.wall_s
+        cfg = full_config(example, overrides + (
+            f"experimental.mesh_shards={S}",))
+        (stats, _), = runner.mesh_runs(["cuda:0"] * S, [cfg])
+        (timed, _), = runner.mesh_runs(["cuda:0"] * S, [cfg], timing=True)
+        what = f"{name} ({S} ranks, gloo on device 0)"
+        check(stats.ok and stats.x_overflow == 0 and stats.overflow == 0,
+              f"mesh full {what}: overflow {stats.overflow}, x_overflow "
+              f"{stats.x_overflow}")
+        same_run(stats, base, what, ("mesh", "one device"))
+        same_run(timed, base, what + ", timed", ("mesh", "one device"))
+        mesh_launch_check(stats, what, (pop, "judge_outbox"), "all_to_all")
+        for r in stats.mesh["ranks"]:
+            peak, est = r["peak_bytes"], r["estimate_bytes"]
+            check(est / capacity.FOOTPRINT_TOLERANCE <= peak
+                  <= est * capacity.FOOTPRINT_TOLERANCE,
+                  f"mesh full {what}: rank {r['rank']} peak {peak} B not "
+                  f"within {capacity.FOOTPRINT_TOLERANCE}x of {est} B")
+        split = []
+        for r in timed.mesh["ranks"]:
+            ms = r["kernel_ms"]
+            split.append({
+                "rank": r["rank"],
+                "pops_judge_ms": sum(v for k, v in ms.items()
+                                     if k.startswith(("pop_", "judge_"))),
+                "route_ms": ms.get("route", 0.0),
+                "pack_ms": ms.get("pack_remote", 0.0),
+                "stage_ms": 1e3 * r["stage_s"],
+                "collective_ms": 1e3 * r["collective_s"],
+                "second_route_ms": ms.get("route_window", 0.0),
+                "merge_ms": ms.get("merge_heaps2", 0.0),
+                "moved_bytes": r["moved_bytes"]})
+        peaks = [(r["peak_bytes"], r["estimate_bytes"])
+                 for r in stats.mesh["ranks"]]
+        print(f"[mesh:{name}] wall {stats.wall_s:.3f} s against one "
+              f"device {base_wall:.3f} s (graph loop, same call); timed "
+              f"{timed.wall_s:.3f} s; {stats.events_executed} events, "
+              f"{stats.rounds} rounds, {stats.phases} phases (as one "
+              f"device); CAP {stats.mesh['cap']}; peak/estimate per rank "
+              + ", ".join(f"{p / e:.3f}" for p, e in peaks)
+              + "; per rank " + json.dumps(split), flush=True)
+        runs[name] = {"launches": stats.mesh["launches"],
+                      "wall_s": stats.wall_s, "one_device_wall_s": base_wall,
+                      "split": split, "peaks": peaks}
+    report["_mesh_full"] = runs
+
+
+def mesh_phase(torch, card, report):
+    from shadow_tpu_torch.device.mesh import mesh_backend
+
+    print(f"[mesh] torch.cuda.device_count() = {torch.cuda.device_count()}; "
+          f"S ranks on device 0 take the {mesh_backend(['cuda:0'] * 2)} "
+          "backend", flush=True)
+    mesh_parity(torch, report)
+    mesh_full(torch, card, report)
 
 
 def boot_phase(torch, card):
@@ -4084,7 +4730,10 @@ def boot_phase(torch, card):
 def kernels_line(report):
     full = report.pop("_full")
     runs = {**full, **report.pop("_parity", {}),
-            **report.pop("_extra", {})}
+            **report.pop("_extra", {}),
+            **{f"mesh:{k}": v for k, v in {
+                **report.pop("_mesh_parity", {}),
+                **report.pop("_mesh_full", {})}.items()}}
     replicas = report.pop("_replicas", {})
     rows = []
     for n in ROWS:
@@ -4092,11 +4741,13 @@ def kernels_line(report):
         shapes = {k: r[k] for k in ("at_tgen_shape", "at_tor_shape",
                                     "on_factored_tables",
                                     "err_on_shipped_tables",
-                                    "at_1m_hosts", "at_cx16") if k in r}
+                                    "at_1m_hosts", "at_cx16", "at_S4",
+                                    "overflowing") if k in r}
         rows.append({
             "name": n, "route": "cuda", "source": SOURCES[n],
             "replaces": REPLACES[n],
-            "launches": sum(run["launches"][n] for run in runs.values()),
+            "launches": sum(run["launches"].get(n, 0)
+                            for run in runs.values()),
             "max_abs_err": max([r["err"]] + [
                 x["err"] if isinstance(x, dict) else x
                 for x in shapes.values()]),
@@ -4107,7 +4758,7 @@ def kernels_line(report):
             "shape": r["shape"],
             **({"view": "shadow_tpu_torch/csrc/topo.cuh"}
                if "_hier" in n or "_ep" in n else {}),
-            "launches_by_run": {k: run["launches"][n]
+            "launches_by_run": {k: run["launches"].get(n, 0)
                                 for k, run in runs.items()},
             # device ms of the main path's kernels: the profiled graph
             # run of each full run (over the kernels the profiler saw);
@@ -4364,6 +5015,7 @@ def main(argv=None) -> int:
         for phase, run in (("kernels", lambda: kernels_phase(torch, report)),
                            ("parity", lambda: parity_phase(torch, report)),
                            ("full", lambda: full_phase(torch, card, report)),
+                           ("mesh", lambda: mesh_phase(torch, card, report)),
                            ("boot", lambda: boot_phase(torch, card))):
             if phase in phases:
                 t1 = time.perf_counter()

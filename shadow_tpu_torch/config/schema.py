@@ -57,9 +57,6 @@ LATER_EXPERIMENTAL = {
     **dict.fromkeys(("telemetry", "telemetry_path", "artifacts_dir"),
                     "queue (a) item 7c (the object build, telemetry and "
                     "artifacts keys)"),
-    **dict.fromkeys(("exchange", "exchange_capacity",
-                     "exchange_capacity2", "mesh_shards", "mesh_axis"),
-                    "queue (a) item 9 (multi-GPU)"),
     **dict.fromkeys(
         ("dispatch_retries", "dispatch_retry_backoff", "failover",
          "chaos", "round_watchdog", "round_watchdog_dump"),
@@ -361,6 +358,15 @@ class ExperimentalOptions:
     # with the same verdicts; 0 = every round on the card)
     hybrid_cpu_policy: str = "serial"
     hybrid_judge_min_batch: int = 192
+    # the host mesh (device/mesh.py): S ranks, one process each, every
+    # rank H_loc = ceil(H/S) hosts; the cross-shard exchange schedule
+    # and its per-pair capacities (0 = the reference's auto sizes,
+    # device/capacity.py); mesh_axis is only a name
+    mesh_shards: int = 0
+    mesh_axis: str = "hosts"
+    exchange: str = "all_to_all"
+    exchange_capacity: int = 0
+    exchange_capacity2: int = 0
     # reference keys set in the config that the port does not run yet
     later: dict = field(default_factory=dict)
 
@@ -371,7 +377,8 @@ class ExperimentalOptions:
                "exchange_in_capacity", "burst_pops", "admission",
                "device_memory_budget", "model_bandwidth", "count_paths",
                "state_audit", "outbox_compact", "hybrid_cpu_policy",
-               "hybrid_judge_min_batch"}
+               "hybrid_judge_min_batch", "mesh_shards", "mesh_axis",
+               "exchange", "exchange_capacity", "exchange_capacity2"}
         _check_keys("experimental", d,
                     own | set(LAYOUT_VARIANTS) | set(LATER_EXPERIMENTAL))
         out = cls(later={k: v for k, v in d.items()
@@ -382,7 +389,9 @@ class ExperimentalOptions:
                 v = parse_time_ns(v) if v is not None else None
             elif name in ("event_capacity", "outbox_capacity",
                           "exchange_in_capacity", "burst_pops",
-                          "outbox_compact", "hybrid_judge_min_batch"):
+                          "outbox_compact", "hybrid_judge_min_batch",
+                          "mesh_shards", "exchange_capacity",
+                          "exchange_capacity2"):
                 v = int(v)
             elif name == "device_memory_budget":
                 v = parse_size_bytes(v)
@@ -411,7 +420,17 @@ class ExperimentalOptions:
             _check_choice("experimental", name, d[name],
                           LAYOUT_VARIANTS[name])
         out.merge_strategy = d.get("merge_strategy", "auto")
-        for name in ("outbox_compact", "hybrid_judge_min_batch"):
+        _check_choice("experimental", "exchange",
+                      out.exchange, ("all_gather", "all_to_all",
+                                     "two_phase", "auto"))
+        if out.mesh_shards and out.scheduler_policy != "tpu":
+            raise ValueError(
+                "experimental.mesh_shards pins the DEVICE mesh and "
+                "requires scheduler_policy: tpu (CPU policies have "
+                "no mesh to pin)")
+        for name in ("outbox_compact", "hybrid_judge_min_batch",
+                     "mesh_shards", "exchange_capacity",
+                     "exchange_capacity2"):
             if getattr(out, name) < 0:
                 raise ValueError(f"experimental.{name} must be >= 0")
         _check_choice("experimental", "hybrid_cpu_policy",

@@ -83,6 +83,8 @@ HYBRID = "running hybrid (CPU hosts + device net model)"
 HOST_FAULTS_HYBRID = ("host_crash/host_restart faults are manager-side "
                       "events; running hybrid")
 ITEM_10 = "queue (a) item 10"
+ITEM_9 = ("queue (a) item 9 (multi-GPU: the audit, the model NIC, the "
+          "path counters, campaigns and the hybrid policy over the mesh)")
 
 
 def check_slice(cfg: ConfigOptions) -> None:
@@ -102,6 +104,8 @@ def check_slice(cfg: ConfigOptions) -> None:
         if not (key == "capacity_plan" and value == "static"):
             _refuse(f"experimental.{key}", LATER_EXPERIMENTAL[key])
     _, host_faults = split_events(cfg.network.faults)
+    if xp.mesh_shards > 1:
+        check_mesh(cfg, host_faults)
     if cfg.ensemble is not None:
         check_campaign(cfg, host_faults)
     if not cfg.hosts:
@@ -121,6 +125,22 @@ def check_slice(cfg: ConfigOptions) -> None:
         if g.ip_address_hint or g.city_code_hint or g.country_code_hint:
             _refuse(f"hosts.{g.name}: attachment hints",
                     "queue (a) item 7 (the object build)")
+
+
+def check_mesh(cfg: ConfigOptions, host_faults) -> None:
+    """What a mesh of more than one rank does not run yet: the state
+    audit (its global balance is a collective sum, engine.py:2068-2071),
+    the model NIC, the path counters, campaigns, and the hybrid policy a
+    `tpu` config with host faults falls back to."""
+    xp = cfg.experimental
+    where = f"on a mesh (experimental.mesh_shards: {xp.mesh_shards})"
+    for key in ("state_audit", "model_bandwidth", "count_paths"):
+        if getattr(xp, key):
+            _refuse(f"experimental.{key} {where}", ITEM_9)
+    if cfg.ensemble is not None:
+        _refuse(f"an ensemble campaign {where}", ITEM_9)
+    if host_faults:
+        _refuse(f"host faults (the hybrid fall-back) {where}", ITEM_9)
 
 
 def check_cpu_engine(cfg: ConfigOptions) -> None:
@@ -414,6 +434,10 @@ def build(cfg: ConfigOptions) -> BuiltSimulation:
                     "fall back to hybrid CPU emulation; run the "
                     "replicas as separate processes instead") from e
             no_twin = str(e)
+            if cfg.experimental.mesh_shards > 1:
+                _refuse(f"{no_twin} (the hybrid fall-back) on a mesh "
+                        "(experimental.mesh_shards: "
+                        f"{cfg.experimental.mesh_shards})", ITEM_9)
     t0 = np.concatenate(t0_parts)
     t1 = np.concatenate(t1_parts)
     bad = np.flatnonzero((t1 >= 0) & (t1 < t0))
@@ -435,6 +459,30 @@ def build(cfg: ConfigOptions) -> BuiltSimulation:
         bw_down_bits=np.concatenate(d_parts),
         bw_up_bits=np.concatenate(u_parts), fault_table=fault_table,
         names=names, host_faults=host_faults, no_twin=no_twin)
+
+
+def mesh_layout(n_hosts: int, n_shards: int) -> tuple[int, int]:
+    """(H_pad, H_loc) of a mesh of n_shards ranks (the reference
+    engine's engine.py:255-257): H_loc = ceil(H / S) hosts a rank."""
+    h_loc = -(-n_hosts // n_shards)
+    return h_loc * n_shards, h_loc
+
+
+def pad_hosts(n_pad: int, host_vertex: np.ndarray, bw_up_bits=None,
+              bw_down_bits=None):
+    """The host columns padded to a mesh's n_pad hosts, as the reference
+    engine pads them (engine.py:309-334): a padded host sits at vertex
+    0 with 1 Gbit/s up and down (it holds no events); None stays
+    None."""
+    def pad(a, fill, dtype):
+        a = np.asarray(a, dtype)
+        return np.concatenate([a, np.full(n_pad - a.shape[0], fill, dtype)])
+
+    return (pad(host_vertex, 0, np.int32),
+            None if bw_up_bits is None else pad(bw_up_bits, 10**9,
+                                                np.int64),
+            None if bw_down_bits is None else pad(bw_down_bits, 10**9,
+                                                  np.int64))
 
 
 def _twin(cfg: ConfigOptions, n_total: int, names: "HostNames",

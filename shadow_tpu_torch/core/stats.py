@@ -60,6 +60,10 @@ class SimStats:
     # the CPU below min_batch, the flushes' wall and, on the card, the
     # kernel and copy ms
     judge: Optional[dict] = field(default=None, repr=False)
+    # a mesh run's exchange (device/engine.py mesh_stats, rank 0's):
+    # shards, backend, the schedule after `auto`, CAP and CAP2, the
+    # bytes rank 0 sent, its staging and collective seconds
+    mesh: Optional[dict] = field(default=None, repr=False)
 
     def summary(self) -> str:
         downloads = ("" if self.downloads_completed is None else

@@ -64,6 +64,61 @@ __device__ __forceinline__ const int64_t* replica_ctl(const int64_t* ctl,
     return ctl == nullptr ? nullptr : ctl + r * CTL_N;
 }
 
+// The rows a route, a pack or the merge reads (device/kernels.py `Rows`):
+// one or two regions, each a base per channel (t, k, m, s, v, key; null
+// where the region lacks one), its block width and the stride between
+// its blocks; a region of one block (an outbox, its rows the flat index
+// h*OB + column) has stride 0. Row i < n_a lies in the first region,
+// row n_a + i in the second. The first region's channels of replica r
+// start rs * r elements on (an ensemble campaign's outbox).
+enum Chan : int { CH_T = 0, CH_K, CH_M, CH_S, CH_V, CH_KEY, CH_N };
+
+struct Rows {
+    const int64_t* a[CH_N];
+    long long n_a, bw_a, bs_a;
+    const int64_t* b[CH_N];
+    long long bw_b, bs_b;
+    long long rs;
+
+    // rows are read-only while a kernel reads them: through the
+    // read-only data cache (__ldg), as the __restrict__ pointers of the
+    // kernels before these views were
+    __device__ __forceinline__ int64_t at(int c, int64_t r,
+                                          int64_t i) const {
+        if (i < n_a) {
+            const int64_t* p = a[c] + r * rs;
+            if (bs_a == 0) return __ldg(p + i);
+            const int64_t blk = i / bw_a;
+            return __ldg(p + blk * bs_a + (i - blk * bw_a));
+        }
+        i -= n_a;
+        const int64_t blk = i / bw_b;
+        return __ldg(b[c] + blk * bs_b + (i - blk * bw_b));
+    }
+};
+
+// A `Rows` view of one outbox region (stride 0, no second region): its
+// channels as plain pointers, replica r's rows rs elements on. Kernels
+// that read an outbox take it in place of `Rows`, as the one-device path
+// did before the mesh: the same loads, no branch on the region.
+struct OutboxRows {
+    const int64_t* a[CH_N];
+    long long rs;
+
+    __host__ __device__ explicit OutboxRows(const Rows& r) : rs(r.rs) {
+        for (int c = 0; c < CH_N; ++c) a[c] = r.a[c];
+    }
+    __device__ __forceinline__ int64_t at(int c, int64_t r,
+                                          int64_t i) const {
+        return __ldg(a[c] + r * rs + i);
+    }
+};
+
+// whether a Rows view is one outbox region of F rows a replica
+inline bool is_outbox(const Rows& r, long long F) {
+    return r.bs_a == 0 && r.n_a == F;
+}
+
 __device__ __forceinline__ int64_t pack2(uint32_t hi, uint32_t lo) {
     return (int64_t)(((uint64_t)hi << 32) | (uint64_t)lo);
 }

@@ -55,8 +55,8 @@ judge_outbox_kernel(
     int64_t* ob_t, int64_t* ob_m, int64_t* ob_v,
     const int32_t* __restrict__ packet_seq, int32_t* n_sent,
     int32_t* n_drop, const int32_t* __restrict__ host_vertex, Topo topo0,
-    TopoStrides rs, const int64_t* __restrict__ seed_key, int cp,
-    const int64_t* ctl) {
+    TopoStrides rs, const int64_t* __restrict__ seed_key, int cp, int g0,
+    int Hg, const int64_t* ctl) {
     const int h = blockIdx.x * blockDim.x + threadIdx.x;
     const int64_t r = blockIdx.y;
     if (h >= H || ctl[r * CTL_N + CTL_RUN] == 0) return;
@@ -75,9 +75,12 @@ judge_outbox_kernel(
             tot += (uint32_t)(kindrow >> 8);
     }
     uint32_t base = (uint32_t)packet_seq[g] - tot;
-    const int vs = host_vertex[h];
+    // the host's global id (a mesh rank's hosts start at g0): its
+    // vertex, its drop key and the self test; destinations are global
+    const int gh = g0 + h;
+    const int vs = host_vertex[gh];
     const Key hkey = purpose_id_key(seed, PURPOSE_PACKET_DROP,
-                                    (uint32_t)h);
+                                    (uint32_t)gh);
     int32_t sent = 0, lost = 0;
     for (int c = 0; c < OB; ++c) {
         const int64_t ft = ob_t[row + c];
@@ -86,7 +89,7 @@ judge_outbox_kernel(
         if (!(ft < INF && (kindrow & 0xFF) == KIND_PACKET)) continue;
         const int32_t cnt = kindrow >> 8;
         const int32_t dst = hi32(fm);
-        const int dh = dst < 0 ? 0 : (dst > H - 1 ? H - 1 : dst);
+        const int dh = dst < 0 ? 0 : (dst > Hg - 1 ? Hg - 1 : dst);
         const int vd = host_vertex[dh];
         const int e = topo.epoch(ft);
         const int64_t latv = topo.lat(e, vs, vd);
@@ -110,7 +113,7 @@ judge_outbox_kernel(
         sent += livecnt;
         lost += livecnt - __popc(surv);
         int64_t deliver_t = ft + latv;
-        if (dst != h && deliver_t < win_end) deliver_t = win_end;
+        if (dst != gh && deliver_t < win_end) deliver_t = win_end;
         ob_t[row + c] = surv != 0 ? deliver_t : (cp ? DROP_T : INF);
         ob_m[row + c] =
             pack2((uint32_t)dst, (uint32_t)(KIND_PACKET | (livecnt << 8)));
@@ -126,10 +129,10 @@ extern "C" int shadow_judge_outbox(
     int R, int H, int OB, int C, long long boot_end,
     int64_t* ob_t, int64_t* ob_m, int64_t* ob_v, const int32_t* packet_seq,
     int32_t* n_sent, int32_t* n_drop, const int32_t* host_vertex,
-    const TopoArgs* topo, const int64_t* seed_key, int cp,
+    const TopoArgs* topo, const int64_t* seed_key, int cp, int g0, int Hg,
     const int64_t* ctl, void* stream) {
     if (R < 1 || R > 65535 || !topo_ok(topo) || ctl == nullptr ||
-        seed_key == nullptr)
+        seed_key == nullptr || g0 < 0 || g0 + H > Hg)
         return (int)cudaErrorInvalidValue;
     if (H > 0) {
         const int threads = 128;
@@ -139,7 +142,7 @@ extern "C" int shadow_judge_outbox(
             judge_outbox_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
                 H, OB, C, (int64_t)boot_end, ob_t, ob_m,
                 ob_v, packet_seq, n_sent, n_drop, host_vertex, view, rs,
-                seed_key, cp, ctl);
+                seed_key, cp, g0, Hg, ctl);
         });
     }
     return (int)cudaGetLastError();

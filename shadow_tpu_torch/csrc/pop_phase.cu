@@ -678,7 +678,11 @@ struct TorApp {
     }
 };
 
+// H hosts from global id g0 on (a mesh rank's; 0 and every host on one
+// device), of the Hg hosts whose vertices and per-host columns (client
+// args, bandwidths) the world holds, each indexed by global id
 struct PopArgs {
+    int g0, Hg;
     int H, E, K, T, P, B, C;
     const int64_t* ctl;     // the loop's control blocks [R, CTL_N]
     const int64_t* seed_key;    // [R, 2]
@@ -728,6 +732,8 @@ pop_kernel(PopArgs a, App app, Topo topo0, TopoStrides rs, NicArgs na,
     const int64_t r = blockIdx.y;
     const int64_t* ctl = a.ctl + r * CTL_N;
     if (h >= a.H || ctl[CTL_RUN] == 0) return;
+    // the host's global id: its keys, draws, vertex and columns
+    const int gh = a.g0 + h;
     const int64_t win_end = ctl[CTL_WIN_END];
     const int M = a.K + a.T + (MB ? 1 : 0);
     const int OB = a.B * M;
@@ -754,26 +760,27 @@ pop_kernel(PopArgs a, App app, Topo topo0, TopoStrides rs, NicArgs na,
     out.K = a.K;
     out.T = a.T;
     out.C = a.C;
-    out.h = (uint32_t)h;
+    out.h = (uint32_t)gh;
     out.es = (uint32_t)a.event_seq[g];
     out.ps = (uint32_t)a.packet_seq[g];
     out.win_end = win_end;
-    out.vtx = a.host_vertex[h];
+    out.vtx = a.host_vertex[gh];
     if constexpr (Topo::EPOCHS || MB) out.topo = topo;
     if constexpr (!Topo::EPOCHS) out.selflat = topo.self_lat(0, out.vtx);
     if constexpr (MB) {
         out.x.host_vertex = a.host_vertex;
-        out.x.H = a.H;
+        out.x.H = a.Hg;
         out.x.cp = na.cp != 0;
         out.x.boot_end = (int64_t)na.boot_end;
         out.x.drop_key = purpose_id_key(seed, PURPOSE_PACKET_DROP,
-                                        (uint32_t)h);
+                                        (uint32_t)gh);
         out.x.law = na.law;
         out.x.nic = Nic{na.tx_free[g], na.rx_free[g], na.cd_fa[g],
                         na.cd_next[g], na.cd_cnt[g], na.cd_last[g],
-                        na.cd_drop[g], na.bw_up[h], na.bw_down[h], 0, 0};
+                        na.cd_drop[g], na.bw_up[gh], na.bw_down[gh], 0,
+                        0};
     }
-    typename App::Host st = app.load(g, h, seed);
+    typename App::Host st = app.load(g, gh, seed);
     int hd = a.head[g];
     uint32_t ne = (uint32_t)a.n_exec[g];
     uint32_t nd = (uint32_t)a.n_deliv[g];
@@ -837,11 +844,11 @@ pop_kernel(PopArgs a, App app, Topo topo0, TopoStrides rs, NicArgs na,
                     out.receive(e, pk2);
                 } else {
                     if (e.kind == KIND_PACKET_READY) e.kind = KIND_PACKET;
-                    app.event(j, h, e, st, out);
+                    app.event(j, gh, e, st, out);
                 }
                 out.x.nic.tx_free = out.x.tx;
             } else {
-                app.event(j, h, e, st, out);
+                app.event(j, gh, e, st, out);
             }
         }
         out.end_iteration();
@@ -881,6 +888,7 @@ int launch(int R, const PopArgs& a, const App& app, const TopoArgs* topo,
            const NicArgs* nic, int32_t* aud, int64_t* aud_t,
            void* stream) {
     if (R < 1 || R > 65535 || !topo_ok(topo) || !nic_ok(nic) ||
+        a.g0 < 0 || a.g0 + a.H > a.Hg ||
         (nic->mb && a.P != 1) || a.ctl == nullptr || a.seed_key == nullptr ||
         (AUDIT != (aud != nullptr && aud_t != nullptr)))
         return (int)cudaErrorInvalidValue;
@@ -907,7 +915,7 @@ int launch(int R, const PopArgs& a, const App& app, const TopoArgs* topo,
 }  // namespace
 
 extern "C" int POP_ENTRY(shadow_pop_phase)(
-    int R, int H, int E, int K, int B,
+    int R, int g0, int Hg, int H, int E, int K, int B,
     const int64_t* ht, const int64_t* hk, const int64_t* hm,
     const int64_t* hv, const int64_t* hw,
     int32_t* head, int32_t* event_seq, int32_t* packet_seq,
@@ -918,7 +926,7 @@ extern "C" int POP_ENTRY(shadow_pop_phase)(
     int selfloop, int64_t* ob_t, int64_t* ob_k, int64_t* ob_m,
     int64_t* ob_s, int64_t* ob_v, int32_t* pops, int32_t* aud,
     int64_t* aud_t, const int64_t* ctl, void* stream) {
-    const PopArgs a{H, E, K, 0, 1, B, 1, ctl, seed_key,
+    const PopArgs a{g0, Hg, H, E, K, 0, 1, B, 1, ctl, seed_key,
                     ht, hk, hm, hv, hw, head, event_seq, packet_seq,
                     n_exec, n_deliv, chk, host_vertex,
                     ob_t, ob_k, ob_m, ob_s, ob_v, pops};
@@ -928,7 +936,7 @@ extern "C" int POP_ENTRY(shadow_pop_phase)(
 }
 
 extern "C" int POP_ENTRY(shadow_pop_tgen)(
-    int R, int H, int E, int K, int T, int P, int B, int C,
+    int R, int g0, int Hg, int H, int E, int K, int T, int P, int B, int C,
     const int64_t* ht, const int64_t* hk, const int64_t* hm,
     const int64_t* hv, const int64_t* hw,
     int32_t* head, int32_t* event_seq, int32_t* packet_seq, int32_t* app,
@@ -941,7 +949,7 @@ extern "C" int POP_ENTRY(shadow_pop_tgen)(
     int64_t* ob_m, int64_t* ob_s, int64_t* ob_v, int32_t* pops,
     int32_t* aud, int64_t* aud_t, const int64_t* ctl, void* stream) {
     if (T > 1 || C > 32) return (int)cudaErrorInvalidValue;
-    const PopArgs a{H, E, K, T, P, B, C, ctl, seed_key,
+    const PopArgs a{g0, Hg, H, E, K, T, P, B, C, ctl, seed_key,
                     ht, hk, hm, hv, hw, head, event_seq, packet_seq,
                     n_exec, n_deliv, chk, host_vertex,
                     ob_t, ob_k, ob_m, ob_s, ob_v, pops};
@@ -950,7 +958,7 @@ extern "C" int POP_ENTRY(shadow_pop_tgen)(
 }
 
 extern "C" int POP_ENTRY(shadow_pop_tor)(
-    int R, int H, int E, int K, int T, int P, int B, int C,
+    int R, int g0, int Hg, int H, int E, int K, int T, int P, int B, int C,
     const int64_t* ht, const int64_t* hk, const int64_t* hm,
     const int64_t* hv, const int64_t* hw,
     int32_t* head, int32_t* event_seq, int32_t* packet_seq, int32_t* app,
@@ -963,7 +971,7 @@ extern "C" int POP_ENTRY(shadow_pop_tor)(
     int64_t* ob_m, int64_t* ob_s, int64_t* ob_v, int32_t* pops,
     int32_t* aud, int64_t* aud_t, const int64_t* ctl, void* stream) {
     if (T > 1 || C > 32 || n_relays < 3) return (int)cudaErrorInvalidValue;
-    const PopArgs a{H, E, K, T, P, B, C, ctl, seed_key,
+    const PopArgs a{g0, Hg, H, E, K, T, P, B, C, ctl, seed_key,
                     ht, hk, hm, hv, hw, head, event_seq, packet_seq,
                     n_exec, n_deliv, chk, host_vertex,
                     ob_t, ob_k, ob_m, ob_s, ob_v, pops};

@@ -279,9 +279,12 @@ class TgenDevice:
             np.asarray(self.retry_ns, np.int64), shape)
 
     def init_state(self, n_hosts: int) -> np.ndarray:
+        # past len(roles): a mesh's padded hosts, inert servers that
+        # never receive a REQ (the reference's init_state)
         st = np.zeros((n_hosts, self.n_state_words), np.int32)
-        st[:, 0] = self.roles[:n_hosts]
-        st[:, 1] = self.server_gid[:n_hosts]
+        n = min(n_hosts, len(self.roles))
+        st[:n, 0] = self.roles[:n]
+        st[:n, 1] = self.server_gid[:n]
         return st
 
     def world_columns(self) -> dict:
@@ -424,7 +427,8 @@ class TorDevice:
 
     def init_state(self, n_hosts: int) -> np.ndarray:
         st = np.zeros((n_hosts, self.n_state_words), np.int32)
-        st[:, 0] = self.roles[:n_hosts]
+        n = min(n_hosts, len(self.roles))
+        st[:n, 0] = self.roles[:n]
         return st
 
     def world_columns(self) -> dict:

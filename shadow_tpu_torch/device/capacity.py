@@ -46,6 +46,8 @@ it, as the reference's tests hold its own.
 from __future__ import annotations
 
 import logging
+import math
+from typing import Optional
 
 import numpy as np
 import torch
@@ -54,6 +56,8 @@ from shadow_tpu_torch.device.engine import STATE_DTYPES
 from shadow_tpu_torch.device.kernels import (
     CTL_FIELDS,
     NIC_KEYS,
+    XCH_FIELDS,
+    MeshParams,
     PhaseParams,
     n_vertices,
 )
@@ -61,6 +65,72 @@ from shadow_tpu_torch.device.kernels import (
 log = logging.getLogger("shadow_tpu_torch.admission")
 
 FOOTPRINT_TOLERANCE = 4.0
+
+
+def dense_auto_cap(h_loc: int, outbox: int, event_capacity: int,
+                   n_shards: int) -> int:
+    """The reference's blind per-pair CAP when exchange_capacity is 0
+    (capacity.py:80): 4x the balanced share of a shard's whole
+    outbox."""
+    r = h_loc * outbox
+    return min(r, max(64, event_capacity,
+                      (4 * r + n_shards - 1) // n_shards))
+
+
+def group_split(n_shards: int) -> tuple[int, int]:
+    """The two-phase groups (capacity.py:96): n_shards = g * ng with g
+    the largest divisor not above sqrt(n_shards); a prime count gives
+    (1, n_shards)."""
+    g = 1
+    for d in range(2, int(math.isqrt(n_shards)) + 1):
+        if n_shards % d == 0:
+            g = d
+    return g, n_shards // g
+
+
+def exchange_caps(exchange: str, n_shards: int, h_loc: int, outbox: int,
+                  event_capacity: int, cap: int = 0,
+                  cap2: int = 0) -> tuple[int, int, int, int]:
+    """(CAP, CAP2, g, ng) of an exchange schedule, the reference
+    engine's sizes (engine.py:577-599): `cap`/`cap2` where given (the
+    config's exchange_capacity/exchange_capacity2), else the auto
+    formulas; all_gather has no CAP, and one shard no exchange."""
+    g, ng = group_split(n_shards) if exchange == "two_phase" else \
+        (1, n_shards)
+    if n_shards == 1 or exchange == "all_gather":
+        return 0, 0, g, ng
+    r = h_loc * outbox
+    if exchange == "all_to_all":
+        return (cap or dense_auto_cap(h_loc, outbox, event_capacity,
+                                      n_shards)), 0, g, ng
+    CAP = cap or min(r, max(64, event_capacity, (4 * r + g - 1) // g))
+    CAP2 = cap2 or min(g * CAP, max(64, event_capacity,
+                                    (4 * r * g + n_shards - 1)
+                                    // n_shards))
+    return CAP, CAP2, g, ng
+
+
+def mesh_nbytes(mesh: MeshParams, OB: int) -> int:
+    """Device bytes a rank adds for the exchange: the send and receive
+    buffers of its schedule ([S, C, CAP] int64 each; two_phase its
+    [g, 6, CAP] phase-1 and [ng-1, 6, CAP2] phase-2 pairs and the
+    [H_pad] int32 loss histogram; all_gather the gathered [S, 5,
+    H_loc*OB] outbox), the route over H_pad destinations (starts,
+    counts, cursors and block sums) and the route of the received rows
+    (perm and scattered rows over them)."""
+    S, C = mesh.S, mesh.channels
+    if S == 1:
+        return 0
+    if mesh.exchange == "all_gather":
+        rows = S * mesh.H_loc * OB
+        bufs = 5 * rows * 8
+    elif mesh.exchange == "two_phase":
+        rows = mesh.G * mesh.CAP + (mesh.NG - 1) * mesh.CAP2
+        bufs = 2 * len(XCH_FIELDS) * rows * 8 + mesh.H_pad * 4
+    else:
+        rows = S * mesh.CAP
+        bufs = 2 * C * rows * 8
+    return bufs + 4 * mesh.H_pad * 8 + 2 * rows * 8
 
 
 def state_nbytes(n_hosts: int, params: PhaseParams, V: int = 0) -> int:
@@ -96,11 +166,13 @@ REPLICA_LEAVES = ("lat", "rel", "epoch_times", "seed_key")
 
 
 def footprint(n_hosts: int, params: PhaseParams, world: dict,
-              replicas=None) -> dict:
+              replicas=None, mesh: Optional[MeshParams] = None) -> dict:
     """The byte model of a run on one device. `world` holds the
     arrays the engine uploads (device/engine.py `world_arrays`, or
     `campaign_world_arrays` for a campaign, whose R the model counts);
-    `replicas` prices a batch of that many of a campaign's replicas."""
+    `replicas` prices a batch of that many of a campaign's replicas.
+    On a mesh `n_hosts` is a rank's H_loc, the world holds the H_pad
+    host columns, and the exchange's buffers (`mesh_nbytes`) count."""
     ept = np.asarray(world["epoch_times"])
     R_world = ept.shape[0] if ept.ndim == 2 else 1
     R = R_world if replicas is None else int(replicas)
@@ -125,12 +197,15 @@ def footprint(n_hosts: int, params: PhaseParams, world: dict,
                     shared += n
     world_bytes = shared + stacked * R // R_world
     hier = isinstance(world["lat"], tuple)
-    per_device = R * (state + outbox + route + loop) + world_bytes
+    exchange = 0 if mesh is None else mesh_nbytes(mesh, OB)
+    per_device = R * (state + outbox + route + loop) + world_bytes + \
+        exchange
     return {
         "representation": "hierarchical" if hier else "dense",
         "per_device": int(per_device),
         "state_bytes": int(state),
         "scratch_bytes": int(R * (outbox + route)),
+        "exchange_bytes": int(exchange),
         "loop_bytes": int(R * loop),
         "world_bytes": int(world_bytes),
         "copies": 1,

@@ -81,12 +81,24 @@ state moves between the two engines as numpy arrays
 
 (each with a leading [R] axis in a campaign).
 
+On a mesh of S ranks (`mesh=`, device/mesh.py; the reference's
+`mesh=`/`mesh_shards`) an engine holds its rank's H_loc = ceil(H/S)
+hosts, global ids from g0 = rank*H_loc on (padded hosts past H hold no
+events), its occ_x is [1, S] and occ_trips and occ_phases its own; the
+world holds every host's vertex and columns. Each phase's flush
+exchanges rows with the other ranks (`_exchange`), every rank runs
+every phase (a rank with nothing to pop still joins the exchange, the
+reference's collective `go`), and the Python loop's minimum head time
+is the mesh's all_reduce MIN (`_axis_min`); `run` takes the Python
+loop and `run_slots` refuses.
+
 Entry points run on the card unless the caller passes device="cpu";
 without a CUDA device they raise rather than fall back.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Optional, Union
 
@@ -99,12 +111,16 @@ from shadow_tpu_torch.device import prng
 from shadow_tpu_torch.device.apps import PholdDevice, TgenDevice, TorDevice
 from shadow_tpu_torch.device.kernels import (
     CTL,
+    HOST_COLUMNS,
     IMAX,
     INF,
     NIC_KEYS,
     OB_FIELDS,
+    XCH_FIELDS,
     Kernels,
+    MeshParams,
     PhaseParams,
+    Rows,
     control_block,
     control_step,
     head_min_plain,
@@ -175,6 +191,12 @@ class EngineConfig:
     # smallest destinations (its window merge)
     outbox_compact: int = 0
     merge_global: bool = False
+    # the host mesh's exchange schedule (all_to_all, two_phase,
+    # all_gather; auto = all_to_all until the planner exists) and its
+    # per-pair capacities (0 = auto, device/capacity.py exchange_caps)
+    exchange: str = "all_to_all"
+    exchange_capacity: int = 0
+    exchange_capacity2: int = 0
     max_rounds: int = 1 << 62    # safety valve
 
 
@@ -304,9 +326,13 @@ def world_arrays(n_hosts: int,
             out[key] = (np.full(H, 10**9, np.int64) if bw is None else
                         np.maximum(1, np.asarray(bw, np.int64)[:H]))
         out["law"] = LAW
-    # the app's columns: [H] client args, Tor's [R] relay ids
+    # the app's columns: [H] client args (zeros for a mesh's padded
+    # hosts), Tor's [R] relay ids
     if app is not None:
-        out.update(app.world_columns())
+        for k, v in app.world_columns().items():
+            if k in HOST_COLUMNS and v.shape[0] < H:
+                v = np.concatenate([v, np.zeros(H - v.shape[0], v.dtype)])
+            out[k] = v
     if seed_key is not None:
         out["seed_key"] = np.asarray([seed_key], np.int64)
     return out
@@ -364,6 +390,25 @@ def upload_world(arrays: dict, device) -> dict:
             else put(v) for k, v in arrays.items()}
 
 
+def make_mesh_params(config: EngineConfig, params: PhaseParams, S: int,
+                     shard: int) -> MeshParams:
+    """Rank `shard`'s MeshParams on a mesh of S ranks: H_loc =
+    ceil(H/S), the schedule (`auto` is all_to_all until the planner,
+    ROADMAP.md queue (a) item 7a, as the reference's runner resolves it
+    without a record) and its capacities."""
+    from shadow_tpu_torch.core.build import mesh_layout
+    from shadow_tpu_torch.device.capacity import exchange_caps
+
+    _, h_loc = mesh_layout(config.n_hosts, S)
+    exchange = "all_to_all" if config.exchange == "auto" else \
+        config.exchange
+    cap, cap2, g, ng = exchange_caps(
+        exchange, S, h_loc, params.OB, params.E, config.exchange_capacity,
+        config.exchange_capacity2)
+    return MeshParams(S, shard, h_loc, exchange, cap, cap2, g, ng,
+                      bool(config.merge_global))
+
+
 class DeviceEngine:
     """`latency_ns`/`reliability`/`epoch_times` are what
     hierarchy.world_tables gives: dense arrays or the factored part
@@ -378,7 +423,7 @@ class DeviceEngine:
                  host_vertex: np.ndarray, latency_ns, reliability,
                  device="cuda", kernels: Optional[Kernels] = None,
                  epoch_times=None, bw_up_bits=None, bw_down_bits=None,
-                 ensemble=None):
+                 ensemble=None, mesh=None):
         self.config = config
         self.app = app
         self.device = resolve_device(device)
@@ -387,8 +432,29 @@ class DeviceEngine:
         # R of a campaign; None for a standalone run
         self.replicas: Optional[int] = (None if ensemble is None
                                         else int(ensemble.R))
+        # this rank's device/mesh.py Mesh and place on it (MeshParams);
+        # None on one device
+        self.mesh = mesh
+        self.mesh_params: Optional[MeshParams] = None
+        n_world = config.n_hosts
+        if mesh is not None:
+            if ensemble is not None:
+                raise ValueError("a campaign does not run on a mesh yet "
+                                 "(ROADMAP.md queue (a) item 9)")
+            from shadow_tpu_torch.core.build import pad_hosts
+
+            mp = make_mesh_params(config, self.params, mesh.size, mesh.rank)
+            self.mesh_params, n_world = mp, mp.H_pad
+            # the global merge compacts by its own rule where it merges
+            # one block of rows (one shard, all_gather), and by the
+            # window rule after the pack (engine.py:1880-1930)
+            self.params = dataclasses.replace(
+                self.params, g0=mp.g0, CXG=self.params.CXG and (
+                    mp.S == 1 or mp.exchange == "all_gather"))
+            host_vertex, bw_up_bits, bw_down_bits = pad_hosts(
+                n_world, host_vertex, bw_up_bits, bw_down_bits)
         if ensemble is None:
-            arrays = world_arrays(config.n_hosts, app, host_vertex,
+            arrays = world_arrays(n_world, app, host_vertex,
                                   latency_ns, reliability, epoch_times,
                                   bw_up_bits, bw_down_bits,
                                   config.model_bandwidth,
@@ -407,6 +473,13 @@ class DeviceEngine:
         self.loop_stats: dict = {}
         self._window_ctl: Optional[torch.Tensor] = None
         self._staging: Optional[torch.Tensor] = None
+        self._xbuf: Optional[dict] = None
+
+    @property
+    def n_local(self) -> int:
+        """The hosts this engine holds: all, or a mesh rank's H_loc."""
+        return (self.config.n_hosts if self.mesh_params is None
+                else self.mesh_params.H_loc)
 
     # ------------------------------------------------------------------
     def init_state(self, start_times: np.ndarray,
@@ -431,7 +504,8 @@ class DeviceEngine:
                                  for k, v in arrays.items()}, self.device)
 
     def _init_arrays(self, start_times, stop_times) -> dict:
-        """`init_state`'s leaves as numpy arrays."""
+        """`init_state`'s leaves as numpy arrays; on a mesh this rank's
+        rows of the H_pad hosts, whose padded hosts have no boot."""
         H, E = self.config.n_hosts, self.params.E
         t0 = np.asarray(start_times, dtype=np.int64)
         t1 = np.asarray(stop_times, dtype=np.int64)
@@ -442,25 +516,41 @@ class DeviceEngine:
             h = int(np.flatnonzero(has_stop & (t1 < t0))[0])
             raise ValueError(f"host {h}: stop_time {int(t1[h])} precedes "
                              f"start_time {int(t0[h])}")
-        hid = np.arange(H, dtype=np.int64)
+        mp = self.mesh_params
+        S = 1 if mp is None else mp.S
+        if mp is not None:
+            pad = mp.H_pad - H
+            t0 = np.concatenate([t0, np.full(pad, INF, np.int64)])
+            has_stop = np.concatenate([has_stop, np.zeros(pad, bool)])
+            t1 = np.concatenate([t1, np.full(pad, -1, np.int64)])
+        # the global ids of this engine's hosts
+        hid = np.arange(self.params.g0, self.params.g0 + self.n_local,
+                        dtype=np.int64)
+        rows = slice(int(hid[0]), int(hid[0]) + len(hid)) if len(hid) \
+            else slice(0, 0)
+        t0, t1, has_stop = t0[rows], t1[rows], has_stop[rows]
+        H = len(hid)
+        boots = t0 < INF
         ht = np.full((H, E), INF, dtype=np.int64)
         hk = np.full((H, E), IMAX, dtype=np.int64)
         hm = np.zeros((H, E), dtype=np.int64)
         ht[:, 0] = t0
-        hk[:, 0] = hid << 32
-        hm[:, 0] = np.int64(KIND_BOOT) << 32
+        hk[:, 0] = np.where(boots, hid << 32, IMAX)
+        hm[:, 0] = np.where(boots, np.int64(KIND_BOOT) << 32, 0)
         ht[:, 1] = np.where(has_stop, t1, INF)
         hk[:, 1] = np.where(has_stop, (hid << 32) | 1, IMAX)
         hm[:, 1] = np.where(has_stop, np.int64(KIND_STOP) << 32, 0)
         zeros = np.zeros(H, dtype=np.int32)
+        app = self.app.init_state(self.params.g0 + H)[self.params.g0:]
         arrays = {
             "ht": ht, "hk": hk, "hm": hm,
             "hv": np.zeros((H, E), np.int64),
             "hw": np.zeros((H, E), np.int64),
-            "event_seq": np.where(has_stop, 2, 1).astype(np.int32),
-            "app": self.app.init_state(H),
+            "event_seq": np.where(has_stop, 2, boots.astype(np.int32))
+            .astype(np.int32),
+            "app": np.ascontiguousarray(app),
             "chk": np.zeros(H, np.int64),
-            "occ_x": np.zeros((1, 1), np.int32),
+            "occ_x": np.zeros((1, S), np.int32),
             "occ_trips": np.zeros(1, np.int32),
             "occ_phases": np.zeros(1, np.int32),
         }
@@ -494,16 +584,21 @@ class DeviceEngine:
         [H*OB], starts [H], counts [H]; each with the leading [R] axis
         in a campaign), allocated once per engine."""
         if self._buf is None:
-            H, OB = self.config.n_hosts, self.params.OB
+            H, OB = self.n_local, self.params.OB
+            # the route's destinations: a mesh's H_pad hosts
+            D = H if self.mesh_params is None else self.mesh_params.H_pad
             lead = () if self.replicas is None else (self.replicas,)
             dev = self.device
-            ob = {f: torch.empty((*lead, H, OB), dtype=torch.int64,
-                                 device=dev) for f in OB_FIELDS}
+            # the five fields as views of one [5, (R,) H, OB] block,
+            # which all_gather ships whole
+            block = torch.empty((len(OB_FIELDS), *lead, H, OB),
+                                dtype=torch.int64, device=dev)
+            ob = dict(zip(OB_FIELDS, block.unbind(0)))
             pops = torch.empty((*lead, H), dtype=torch.int32, device=dev)
             route = tuple(torch.empty((*lead, n), dtype=torch.int64,
-                                      device=dev) for n in (H * OB, H, H))
-            self._buf = (ob, pops, route)
-        return self._buf
+                                      device=dev) for n in (H * OB, D, D))
+            self._buf = (ob, pops, route, block)
+        return self._buf[:3]
 
     def phase(self, state: dict, win_end) -> None:
         """One phase: pops (K1, K4 or K6), then the flush: judge (K2,
@@ -516,10 +611,17 @@ class DeviceEngine:
         only when some host's head time lies below the window end, so
         every phase pops and flushes (the reference skips the flush of
         a phase that popped nothing, which cannot happen here)."""
+        ob, pops, _ = self._buffers()
+        self.kernels.pop(state, ob, pops, self.world, win_end, self.params)
+        self.flush(state, win_end)
+
+    def flush(self, state: dict, win_end) -> None:
+        """The flush of the outbox the last pop wrote (the engine's own
+        buffers; `phase` without the pop, the reference's
+        `_flush_phase`)."""
         p, k = self.params, self.kernels
         ctl = win_end if isinstance(win_end, torch.Tensor) else None
         ob, pops, route = self._buffers()
-        k.pop(state, ob, pops, self.world, win_end, p)
         if not p.MB:
             k.judge_outbox(state, ob, self.world, win_end, p)
         if p.CP:
@@ -527,12 +629,100 @@ class DeviceEngine:
         k.phase_tally(state, ob, pops, p, ctl)
         if p.compacts:
             k.compact_outbox(state, ob, p, ctl)
-        perm, starts, counts = k.route(ob, route, ctl)
-        k.merge_heaps(state, ob, perm, starts, counts, p, ctl)
+        if self.mesh_params is None:
+            perm, starts, counts = k.route(ob, route, ctl)
+            k.merge_heaps(state, ob, perm, starts, counts, p, ctl)
+        else:
+            self._exchange(state, ob, route, ctl)
+
+    def _wire(self, name: str, shape: tuple,
+              dtype=torch.int64) -> torch.Tensor:
+        """An exchange buffer of this engine, allocated once."""
+        if self._xbuf is None:
+            self._xbuf = {}
+        if name not in self._xbuf:
+            self._xbuf[name] = torch.empty(shape, dtype=dtype,
+                                           device=self.device)
+        return self._xbuf[name]
+
+    def _exchange(self, state: dict, ob: dict, route: tuple,
+                  ctl) -> None:
+        """The flush of a mesh rank after the judge and the compaction
+        (the reference's `_exchange`/`_exchange_global` with S > 1,
+        engine.py:1880-2061): K5 routes the outbox over the H_pad
+        destinations; this rank's own segment of that route is the
+        self-shard arrival block, which never moves. all_to_all: K12
+        packs every other shard's first CAP rows into [S, C, CAP], one
+        all_to_all moves them. two_phase: K13 packs the phase-1 buffers
+        [g, 6, CAP] by destination rank, one exchange within the group,
+        a keyed K5 route of the arrivals over H_pad, K13 packs the
+        phase-2 buffers [ng-1, 6, CAP2] by destination group (and
+        histograms the rows lost there by global source, which the mesh
+        sums into each sender's x_overflow), one exchange across groups.
+        K5 then windows the received rows to this rank's hosts, by key
+        after two_phase (its arrivals come in peer order; after
+        all_to_all a row's buffer position already is the order of its
+        key), and K3 merges [heap | received | self]. all_gather: the
+        outbox of every rank, gathered, K5 windows it to this rank's
+        hosts in position order, which is the reference's (key, index)
+        order, and K3 merges one block."""
+        mp, k, p, mesh = self.mesh_params, self.kernels, self.params, \
+            self.mesh
+        H, OB, lo = mp.H_loc, p.OB, mp.g0
+        if mp.exchange == "all_gather":
+            block = self._buf[3]        # the outbox's [5, H, OB] block
+            got = self._wire("gathered", (mp.S, *block.shape))
+            mesh.all_gather(got, block)
+            rows = Rows(got.view(mp.S, len(OB_FIELDS), H * OB))
+            arr = k.route_rows(rows, lo, H, False, ctl=ctl)
+            k.merge_heaps(state, rows, *arr, p, ctl)
+            return
+        perm, starts, counts = k.route_rows(Rows(ob), 0, mp.H_pad, False,
+                                            out=route, ctl=ctl)
+        own = (ob, perm, starts[lo:lo + H], counts[lo:lo + H])
+        if mp.exchange == "all_to_all":
+            send = self._wire("send", (mp.S, mp.channels, mp.CAP))
+            recv = self._wire("recv", send.shape)
+            k.pack_remote(state, ob, perm, starts, counts, mp, send, ctl)
+            mesh.all_to_all(send, recv)
+            rows, keyed = Rows(recv), False
+        else:
+            g, ng = mp.G, mp.NG
+            my_g, my_b = divmod(mp.shard, g)
+            send1 = self._wire("send1", (g, len(XCH_FIELDS), mp.CAP))
+            recv1 = self._wire("recv1", send1.shape)
+            k.pack_two_phase(state, ob, perm, starts, counts, mp, send1,
+                             ctl)
+            group = [my_g * g + b for b in range(g)]
+            mesh.all_to_all(send1, recv1, group, group)
+            rows1 = Rows(recv1)
+            arr1 = k.route_rows(rows1, 0, mp.H_pad, True, ctl=ctl)
+            send2 = self._wire("send2", (ng - 1, len(XCH_FIELDS), mp.CAP2))
+            recv2 = self._wire("recv2", send2.shape)
+            hist = self._wire("lost2", (mp.H_pad,), torch.int32)
+            k.pack_two_phase2(rows1, *arr1, mp, OB, send2, hist, ctl)
+            # phase-2 loss lands on its sender's shard (engine.py:
+            # 1820-1838): the mesh's summed histogram, this rank's slice
+            if int(mesh.all_sum(hist.sum().view(1))[0]) > 0:
+                lost = mesh.all_sum(hist)[lo:lo + H]
+                state["x_overflow"] += lost.to(self.device,
+                                               torch.int32)
+            peers = [a * g + my_b for a in range(ng) if a != my_g]
+            mesh.all_to_all(send2, recv2, peers, peers)
+            rows, keyed = Rows(recv1, recv2), True
+        arr = k.route_rows(rows, lo, H, keyed, ctl=ctl)
+        k.merge_heaps(state, rows, *arr, p, ctl, second=own,
+                      occ_sum=mp.merge_global)
 
     def next_time(self, state: dict) -> int:
-        """Minimum head-event time across hosts (one host sync)."""
-        return int(head_min_plain(state))
+        """Minimum head-event time across hosts (one host sync), across
+        the mesh's ranks on a mesh."""
+        return int(self._head_min(state))
+
+    def _head_min(self, state: dict) -> torch.Tensor:
+        """head_min_plain, reduced over the mesh where there is one."""
+        nt = head_min_plain(state)
+        return nt if self.mesh is None else self.mesh.all_min(nt.view(1))
 
     def window(self, state: dict, win_end: int, nxt: Optional[int] = None
                ) -> int:
@@ -584,8 +774,11 @@ class DeviceEngine:
         sequence, and the trace, equal an unpaused run's. Returns
         (state, rounds), rounds an [R] array in a campaign, and sets
         `loop_stats`. On the card the captured slot schedule runs, or
-        the Python loop in timing mode; on the CPU the Python loop."""
-        if self.device.type == "cuda" and not self.kernels.timing:
+        the Python loop in timing mode; on the CPU, and on a mesh of
+        ranks (whose minimum is a collective between phases), the
+        Python loop."""
+        if self.device.type == "cuda" and not self.kernels.timing and \
+                self.mesh is None:
             return self.run_slots(state, stop, final_stop)
         return self.run_python(state, stop, final_stop)
 
@@ -598,9 +791,11 @@ class DeviceEngine:
         stop, final = self._stops(stop, final_stop)
         ctl = self._loop_block(stop, final)
         words = ctl.cpu().view(-1, len(CTL)).tolist()
+        if self.mesh is not None:
+            self.mesh.reset_counters()
 
         def step(start):
-            mins = head_min_plain(state).view(-1).tolist()  # a host sync
+            mins = self._head_min(state).view(-1).tolist()  # a host sync
             return [control_step(w, None if w[CTL["done"]] else m, start)
                     for w, m in zip(words, mins)]
 
@@ -616,6 +811,8 @@ class DeviceEngine:
             words, syncs = step(False), syncs + 1
         rounds = self._loop_result(words if self.replicas else words[0],
                                    "python", syncs)
+        if self.mesh is not None:
+            self.loop_stats["mesh"] = mesh_stats(self)
         return state, rounds
 
     def _write_block(self, ctl: torch.Tensor, words: list) -> None:
@@ -655,6 +852,12 @@ class DeviceEngine:
         stop, final = self._stops(stop, final_stop)
         if slots < 1:
             raise ValueError("slots must be >= 1")
+        if self.mesh is not None:
+            raise RuntimeError(
+                "the captured window loop runs on one device: a mesh's "
+                "minimum is a collective between phases (gloo cannot be "
+                "captured into a CUDA graph; NCCL's capture waits for "
+                "ROADMAP.md queue (a) item 9), so a mesh runs run_python")
         k, cuda = self.kernels, self.device.type == "cuda"
         if cuda and k.timing:
             raise RuntimeError(
@@ -692,3 +895,14 @@ class DeviceEngine:
         finally:
             captured = k.end_capture()
         return graph, captured
+
+
+def mesh_stats(engine: DeviceEngine) -> dict:
+    """A mesh rank's exchange: its place and schedule, the backend, the
+    bytes it sent, and the host seconds of its staging copies and
+    collectives."""
+    mp, mesh = engine.mesh_params, engine.mesh
+    return {"shards": mp.S, "rank": mp.shard, "backend": mesh.backend,
+            "exchange": mp.exchange, "cap": mp.CAP, "cap2": mp.CAP2,
+            "groups": [mp.G, mp.NG], "moved_bytes": mesh.moved_bytes,
+            "stage_s": mesh.stage_s, "collective_s": mesh.collective_s}

@@ -35,6 +35,20 @@ window loop, the hybrid policy's batched judgment of deferred packets
 is K10 `judge_batch` (csrc/judge_batch.cu), on the views of the path
 tables the judge uses (device/judge.py).
 
+On the host mesh (device/mesh.py) a rank's flush adds the exchange:
+K5 routes the rank's outbox over every host of the mesh (a rank's
+H_loc senders into H_pad destinations), K12 `pack_remote`
+(csrc/pack_remote.cu) packs each other shard's segment into the
+all_to_all's [S, C, CAP] buffer, K13 `pack_two_phase`
+(csrc/pack_two_phase.cu) the two_phase schedule's buffers of both hops
+(`pack_two_phase2` the second), K5 then windows the received rows to
+the rank's own hosts (`route_window`, or by each row's key after
+two_phase, `route_keyed`) and K3 merges them with the rank's own rows as
+a second arrival block (`merge_heaps2`). The kernels read rows through
+`Rows` views: an outbox, or the exchange's wire buffers; `MeshParams`
+holds a rank's place and schedule, `PhaseParams.g0` the global id of
+its first host, which the pops and the judge add to a host's row.
+
 The window loop drives a phase through its control block (`CTL_FIELDS`,
 a [len(CTL_FIELDS)] int64 tensor on the state's device), which a
 captured CUDA graph reads at every replay: the pop and the judge take
@@ -167,7 +181,9 @@ KERNEL_NAMES = tuple(
      "loop_control") + \
     tuple(launch_name("judge_batch", False, ep, hr)
           for ep in (False, True) for hr in (False, True)) + \
-    ("compact_outbox", "compact_outbox_global")
+    ("compact_outbox", "compact_outbox_global") + \
+    ("route_window", "route_keyed", "merge_heaps2", "pack_remote",
+     "pack_two_phase", "pack_two_phase2")
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC.parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -206,6 +222,8 @@ class PhaseParams:
                             # 0 or >= OB: all, K11 does not run
     CXG: bool = False       # K11's rule: global (earliest t), else
                             # window (smallest destination)
+    g0: int = 0             # the global id of the first host (a mesh
+                            # rank's shard * H_loc; 0 on one device)
 
     @property
     def M_out(self) -> int:
@@ -219,6 +237,49 @@ class PhaseParams:
     def compacts(self) -> bool:
         """Whether K11 runs: 0 < CX < OB."""
         return 0 < self.CX < self.OB
+
+
+# the channels of a row on the exchange's wire, in this order: the
+# outbox fields, then the row's 64-bit key dst*SPAN + src*OB + column
+# (SPAN = H_pad*OB), which two_phase routes by at its intermediate and
+# the window merge orders two_phase's arrivals by
+XCH_FIELDS = (*OB_FIELDS, "key")
+
+
+@dataclass(frozen=True)
+class MeshParams:
+    """One rank's place on the host mesh (device/mesh.py) and its
+    exchange schedule: S ranks of H_loc = H_pad/S hosts each, this
+    rank's hosts are the global ids [shard*H_loc, (shard+1)*H_loc).
+    `exchange` is all_to_all, two_phase or all_gather (`auto` resolved),
+    with the per-pair CAP, two_phase's phase-2 CAP2 and its g x ng
+    groups (device/capacity.py exchange_caps); `merge_global` the
+    reference's `merge_strategy: global`."""
+    S: int
+    shard: int
+    H_loc: int
+    exchange: str = "all_to_all"
+    CAP: int = 0
+    CAP2: int = 0
+    G: int = 1
+    NG: int = 1
+    merge_global: bool = False
+
+    @property
+    def H_pad(self) -> int:
+        return self.S * self.H_loc
+
+    @property
+    def g0(self) -> int:
+        return self.shard * self.H_loc
+
+    @property
+    def channels(self) -> int:
+        """Channels a packed row ships: the global merge's all_to_all
+        needs no key (the reference's ship_keys=False)."""
+        if self.exchange == "all_to_all" and self.merge_global:
+            return len(OB_FIELDS)
+        return len(XCH_FIELDS)
 
 
 # ----------------------------------------------------------------------
@@ -367,6 +428,21 @@ def head_min_plain(state: dict) -> torch.Tensor:
     return nt.amin(-1)
 
 
+# the world's per-host columns, [H] on one device and [H_pad] on a mesh
+# rank (every rank holds them all, as it holds host_vertex, which the
+# judge reads at any destination)
+HOST_COLUMNS = ("client_count", "client_pause", "client_retry", "bw_up",
+                "bw_down")
+
+
+def host_columns(world: dict, g0: int, H: int) -> dict:
+    """`world` with its per-host columns cut to the H hosts from global
+    id g0 on, as the plain versions index them (by local row); the
+    kernels index the whole columns by global id."""
+    return {**world, **{k: world[k][g0:g0 + H] for k in HOST_COLUMNS
+                        if k in world}}
+
+
 def _wbits(cnt: torch.Tensor) -> torch.Tensor:
     """The low `cnt` bits of a u32 (all 32 from 32 up)."""
     return torch.where(cnt >= 32, U32, (1 << cnt.clamp(0, 31).long()) - 1)
@@ -418,8 +494,9 @@ def pop_plain(state: dict, ob: dict, pops: torch.Tensor, world: dict,
     M, MB = p.M_out, p.MB
     dev = state["head"].device
     H = state["head"].shape[0]
-    gid = torch.arange(H, dtype=torch.int32, device=dev)
-    hv = world["host_vertex"].long()
+    gid = torch.arange(p.g0, p.g0 + H, dtype=torch.int32, device=dev)
+    hv = world["host_vertex"].long()[p.g0:p.g0 + H]
+    world = host_columns(world, p.g0, H)
     ept = world["epoch_times"]
     # one epoch: the self latency read once
     selflat1 = (table_lookup(world["lat"], hv, hv).long()[:, None]
@@ -599,8 +676,8 @@ def _nic_step(st, world, p, win_end, runnable, is_rx, valid, pt, e, gid,
     dev = valid.device
     hv = world["host_vertex"].long()
     g2 = gid[:, None].expand(H, K)
-    srcv = hv[:, None].expand(H, K)
-    dstv = hv[dst.long().clamp(0, H - 1)]
+    srcv = hv[gid.long()][:, None].expand(H, K)
+    dstv = hv[dst.long().clamp(0, hv.shape[0] - 1)]
     latv = table_lookup(world["lat"], srcv, dstv, e).long()
     relv = table_lookup(world["rel"], srcv, dstv, e)
     # one roll per live lane, keyed (src, packet seq), at the pop time
@@ -715,14 +792,14 @@ def judge_outbox_plain(state: dict, ob: dict, world: dict, win_end,
     ft, fm, fv = ob["t"], ob["m"], ob["v"]
     H, OB = ft.shape
     dev = ft.device
-    gid = torch.arange(H, dtype=torch.int32, device=dev)
+    gid = torch.arange(p.g0, p.g0 + H, dtype=torch.int32, device=dev)
     hv = world["host_vertex"].long()
     kindrow = lo32(fm)
     is_send = (ft < INF) & ((kindrow & 0xFF) == KIND_PACKET)
     cnt = torch.where(is_send, kindrow >> 8, 0)
     dst = hi32(fm)
-    srcv = hv[:, None]
-    dstv = hv[dst.long().clamp(0, H - 1)]
+    srcv = hv[gid.long()][:, None]
+    dstv = hv[dst.long().clamp(0, hv.shape[0] - 1)]
     # an empty row (t = INF) reads the last epoch, harmlessly
     e = epoch_of(ft, world["epoch_times"])
     latv = table_lookup(world["lat"], srcv, dstv, e).to(torch.int64)
@@ -887,7 +964,9 @@ def route_plain(ob: dict):
 def merge_heaps_plain(state: dict, ob: dict, perm: torch.Tensor,
                       starts: torch.Tensor, counts: torch.Tensor,
                       p: PhaseParams,
-                      ctl: Optional[torch.Tensor] = None) -> None:
+                      ctl: Optional[torch.Tensor] = None,
+                      second: Optional[tuple] = None,
+                      occ_sum: bool = False) -> None:
     """Per host: the live heap rows (slots >= head) and the first IN
     arrivals of its segment, sorted by (time, key, column) — column
     breaks ties, so the order is the stable lexicographic one — and
@@ -895,7 +974,14 @@ def merge_heaps_plain(state: dict, ob: dict, perm: torch.Tensor,
     IN, count into `overflow`; `occ_in`/`occ_heap` take their
     high-water marks; head resets to 0. Nothing where the control block
     `ctl` says the phase does not run. A campaign's state merges each
-    replica in turn, from its row of the route's outputs."""
+    replica in turn, from its row of the route's outputs.
+
+    `ob` is the outbox or any dict of field tensors the route's perm
+    indexes flat. `second` = (ob2, perm2, starts2, counts2) is a second
+    arrival block (a mesh rank's self-shard rows, engine.py:1955-2061),
+    windowed to IN on its own and sorted after the first: the sort is
+    [heap | first | second]; occ_in takes the larger of the two blocks'
+    counts, or with `occ_sum` their sum (the global merge's)."""
     if n_replicas(state) is not None:
         for r in range(n_replicas(state)):
             merge_heaps_plain(at_replica(state, r), at_replica(ob, r),
@@ -905,27 +991,31 @@ def merge_heaps_plain(state: dict, ob: dict, perm: torch.Tensor,
     if _phase_off(ctl):
         return
     E, IN = p.E, p.IN
-    H = state["head"].shape[0]
     dev = perm.device
-    F = perm.shape[0]
     live = torch.arange(E, device=dev)[None, :] >= state["head"][:, None]
-    mt = torch.where(live, state["ht"], INF)
-    mk = torch.where(live, state["hk"], IMAX)
-    # arrival windows: sorted rows starts[h] .. starts[h]+min(count, IN)
-    idx = starts[:, None] + torch.arange(IN, device=dev)
-    ok = torch.arange(IN, device=dev)[None, :] < counts.clamp(max=IN)[:, None]
-    pidx = perm[idx.clamp(0, F - 1)]
-    flat = {f: ob[f].reshape(-1)[pidx] for f in OB_FIELDS}
-    it = torch.where(ok, flat["t"], INF)
-    ik = torch.where(ok, flat["k"], IMAX)
+    cols = {"t": [torch.where(live, state["ht"], INF)],
+            "k": [torch.where(live, state["hk"], IMAX)],
+            "m": [state["hm"]], "v": [state["hv"]], "w": [state["hw"]]}
     zero = torch.zeros((), dtype=torch.int64, device=dev)
-    fm, fs, fv = (torch.where(ok, flat[f], zero) for f in ("m", "s", "v"))
-    im = pack2(lo32(fm) & 0xFF, hi32(fs))
-    iv = pack2(lo32(fs), lo32(fv))
-    iw = (fv >> 32) & U32
-
-    ct = torch.cat([mt, it], 1)
-    ck = torch.cat([mk, ik], 1)
+    over_in, cnts = 0, []
+    for rows, pm, st, cnt in [(ob, perm, starts, counts)] + \
+            ([second] if second is not None else []):
+        # arrival windows: sorted rows starts[h] .. starts[h]+min(count, IN)
+        F = pm.shape[0]
+        idx = st[:, None] + torch.arange(IN, device=dev)
+        ok = torch.arange(IN, device=dev)[None, :] < \
+            cnt.clamp(max=IN)[:, None]
+        pidx = pm[idx.clamp(0, F - 1)]
+        flat = {f: rows[f].reshape(-1)[pidx] for f in OB_FIELDS}
+        fm, fs, fv = (torch.where(ok, flat[f], zero) for f in ("m", "s", "v"))
+        cols["t"].append(torch.where(ok, flat["t"], INF))
+        cols["k"].append(torch.where(ok, flat["k"], IMAX))
+        cols["m"].append(pack2(lo32(fm) & 0xFF, hi32(fs)))
+        cols["v"].append(pack2(lo32(fs), lo32(fv)))
+        cols["w"].append((fv >> 32) & U32)
+        over_in = over_in + (cnt - IN).clamp(min=0)
+        cnts.append(cnt)
+    ct, ck = torch.cat(cols["t"], 1), torch.cat(cols["k"], 1)
     # lexicographic (t, k) with column order among ties: stable sort by
     # the secondary key, then stable sort by the primary
     _, o1 = torch.sort(ck, dim=1, stable=True)
@@ -933,20 +1023,231 @@ def merge_heaps_plain(state: dict, ob: dict, perm: torch.Tensor,
     order = o1.gather(1, o2)
     st = ct.gather(1, order)
     keep = order[:, :E]
-    over_in = (counts - IN).clamp(min=0)
     over_e = (st[:, E:] < INF).sum(-1)
     state["overflow"] += (over_in + over_e).to(torch.int32)
+    occ = cnts[0] if len(cnts) == 1 else (
+        cnts[0] + cnts[1] if occ_sum else torch.maximum(*cnts))
     state["occ_in"].copy_(torch.maximum(state["occ_in"],
-                                        counts.to(torch.int32)))
+                                        occ.to(torch.int32)))
     new = {"ht": st[:, :E], "hk": ck.gather(1, keep),
-           "hm": torch.cat([state["hm"], im], 1).gather(1, keep),
-           "hv": torch.cat([state["hv"], iv], 1).gather(1, keep),
-           "hw": torch.cat([state["hw"], iw], 1).gather(1, keep)}
+           "hm": torch.cat(cols["m"], 1).gather(1, keep),
+           "hv": torch.cat(cols["v"], 1).gather(1, keep),
+           "hw": torch.cat(cols["w"], 1).gather(1, keep)}
     for f in HEAP_FIELDS:
         state[f].copy_(new[f])
     state["head"].zero_()
     state["occ_heap"].copy_(torch.maximum(
         state["occ_heap"], (state["ht"] < INF).sum(-1).to(torch.int32)))
+
+
+# ----------------------------------------------------------------------
+# the cross-shard exchange (reference: engine.py:1635-1931)
+# ----------------------------------------------------------------------
+class Rows:
+    """The rows a route, a pack or the merge reads: one or two regions,
+    each either an outbox (a dict of [(R,)H,OB] field tensors, its rows
+    the flat index h*OB + column) or a wire buffer [nb, C, bw] int64 of
+    nb blocks of bw rows, channel c of block b at [b, c] (XCH_FIELDS
+    order, C = 5 without keys). Row i of the second region is row
+    n_a + i of the whole."""
+
+    def __init__(self, *regions):
+        if not 1 <= len(regions) <= 2:
+            raise ValueError("Rows: one or two regions")
+        self.regions = regions
+
+    @staticmethod
+    def _n(region) -> int:
+        if isinstance(region, dict):
+            return int(region["t"].shape[-2] * region["t"].shape[-1])
+        return int(region.shape[0] * region.shape[2])
+
+    @property
+    def n(self) -> int:
+        """Rows of one replica."""
+        return sum(self._n(r) for r in self.regions)
+
+    @property
+    def device(self) -> torch.device:
+        r = self.regions[0]
+        return (r["t"] if isinstance(r, dict) else r).device
+
+    def fields(self, names=XCH_FIELDS) -> dict:
+        """Flat [n] tensors of the named channels over both regions (a
+        copy where a region is a wire buffer); None for a channel a
+        region lacks."""
+        out = {}
+        for f in names:
+            parts = []
+            for r in self.regions:
+                if isinstance(r, dict):
+                    parts.append(r[f].reshape(-1) if f in r else None)
+                else:
+                    c = XCH_FIELDS.index(f)
+                    parts.append(r[:, c].reshape(-1) if c < r.shape[1]
+                                 else None)
+            out[f] = (None if any(x is None for x in parts)
+                      else parts[0] if len(parts) == 1
+                      else torch.cat(parts))
+        return out
+
+
+def route_rows_plain(rows: Rows, lo: int, nd: int, keyed: bool = False):
+    """Group the exchangeable rows (t < DROP_T) whose destination lies
+    in [lo, lo + nd) by destination, (perm [n], starts [nd], counts
+    [nd]) int64 as route_plain gives them: within a destination by row
+    position or, `keyed`, by the row's key channel. perm's first
+    counts.sum() entries are the grouped rows' indices; the rest are
+    0."""
+    f = rows.fields(("t", "m", "key") if keyed else ("t", "m"))
+    t, m = f["t"], f["m"]
+    dev = t.device
+    n = t.shape[0]
+    d = hi32(m).long() - lo
+    live = (t < DROP_T) & (d >= 0) & (d < nd)
+    idx = torch.nonzero(live).view(-1)
+    if keyed:
+        idx = idx[torch.sort(f["key"][idx], stable=True).indices]
+    idx = idx[torch.sort(d[idx], stable=True).indices]
+    perm = torch.zeros(n, dtype=torch.int64, device=dev)
+    perm[:idx.shape[0]] = idx
+    counts = torch.bincount(d[live], minlength=nd)[:nd]
+    return perm, counts.cumsum(0) - counts, counts
+
+
+def _segments(starts: torch.Tensor, counts: torch.Tensor, S: int):
+    """(start, count) of each destination shard's segment of a route
+    over S*H_loc destinations."""
+    st = starts.view(S, -1)[:, 0]
+    return st, counts.view(S, -1).sum(1)
+
+
+def _wire(rows: dict, pidx: torch.Tensor, ok: torch.Tensor,
+          C: int) -> torch.Tensor:
+    """[..., C, w] int64 of the rows at `pidx` where `ok`, the
+    reference's fills elsewhere (t INF, k and key IMAX, the rest 0)."""
+    chans = []
+    for f in XCH_FIELDS[:C]:
+        fill = INF if f == "t" else IMAX if f in ("k", "key") else 0
+        chans.append(torch.where(ok, rows[f][pidx], fill))
+    return torch.stack(chans, dim=-2)
+
+
+def _flat_keys(ob_rows: dict, mesh: "MeshParams", OB: int) -> dict:
+    """The outbox rows' channels with the key of each: dst*SPAN +
+    (g0*OB + flat index), SPAN = H_pad*OB (engine.py:573, 1292-1297)."""
+    n = ob_rows["t"].shape[0]
+    flat = torch.arange(n, dtype=torch.int64, device=ob_rows["t"].device)
+    key = hi32(ob_rows["m"]).long() * (mesh.H_pad * OB) + \
+        mesh.g0 * OB + flat
+    return {**ob_rows, "key": key}
+
+
+def pack_remote_plain(state: dict, ob: dict, perm: torch.Tensor,
+                      starts: torch.Tensor, counts: torch.Tensor,
+                      mesh: MeshParams, send: torch.Tensor) -> None:
+    """K12 (`_shard_segments`, `_within_shard_rank`, `_lost_to_local`,
+    `_seg_take`, `_pack_remote`): from the outbox's route over the H_pad
+    destinations, write shard s's first CAP rows into send[s] ([S, C,
+    CAP], XCH_FIELDS order), the fills past them; the self shard ships
+    nothing. Raise occ_x [1, S] to each remote segment's count and add
+    every remote row ranked CAP or later to its sender's x_overflow."""
+    S, C, CAP = send.shape
+    OB = ob["t"].shape[-1]
+    rows = _flat_keys({f: ob[f].reshape(-1) for f in OB_FIELDS}, mesh, OB)
+    st, cnt = _segments(starts, counts, S)
+    cnt = torch.where(torch.arange(S, device=cnt.device) == mesh.shard,
+                      0, cnt)
+    state["occ_x"].copy_(torch.maximum(state["occ_x"],
+                                       cnt.to(torch.int32)[None, :]))
+    j = torch.arange(CAP, device=st.device)
+    pidx = perm[(st[:, None] + j).clamp(0, perm.shape[0] - 1)]
+    send.copy_(_wire(rows, pidx, j < cnt.clamp(max=CAP)[:, None], C))
+    for d in range(S):
+        n = int(cnt[d])
+        if n > CAP:
+            lost = perm[int(st[d]) + CAP:int(st[d]) + n] // OB
+            state["x_overflow"].index_add_(
+                0, lost, torch.ones_like(lost, dtype=torch.int32))
+
+
+def _rank_lists(mesh: MeshParams, cnt: torch.Tensor):
+    """two_phase's phase-1 offsets: (off2 [ng, g], tot [g]): the
+    exclusive per-group offsets of each destination rank's rows in a
+    peer buffer, and each rank's total (engine.py:1758-1762)."""
+    c2 = cnt.view(mesh.NG, mesh.G)
+    ends = c2.cumsum(0)
+    return ends - c2, ends[-1]
+
+
+def pack_two_phase_plain(state: dict, ob: dict, perm: torch.Tensor,
+                         starts: torch.Tensor, counts: torch.Tensor,
+                         mesh: MeshParams, send: torch.Tensor) -> None:
+    """K13's first half (`_pack_two_phase` to the phase-1 ppermutes,
+    `_tp_mask`): send[b] ([g, 6, CAP]) holds the rows destined the
+    in-group peer of rank b, (a, b) for this rank's group a (the
+    reference's buffer of peer offset (b - my_b) % g): the rows of each
+    destination shard (a', b), a' = 0..ng-1 in turn, cut at CAP. Rows
+    whose place in their buffer is CAP or later count into their
+    sender's x_overflow; occ_x as K12's."""
+    g, ng = mesh.G, mesh.NG
+    OB = ob["t"].shape[-1]
+    S, CAP = mesh.S, send.shape[-1]
+    rows = _flat_keys({f: ob[f].reshape(-1) for f in OB_FIELDS}, mesh, OB)
+    st, cnt = _segments(starts, counts, S)
+    cnt = torch.where(torch.arange(S, device=cnt.device) == mesh.shard,
+                      0, cnt)
+    state["occ_x"].copy_(torch.maximum(state["occ_x"],
+                                       cnt.to(torch.int32)[None, :]))
+    off2, tot = _rank_lists(mesh, cnt)
+    my_b = mesh.shard % g
+    for d in range(S):
+        n = int(cnt[d])
+        first = max(0, CAP - int(off2[d // g, d % g]))
+        if n > first:
+            lost = perm[int(st[d]) + first:int(st[d]) + n] // OB
+            state["x_overflow"].index_add_(
+                0, lost, torch.ones_like(lost, dtype=torch.int32))
+    j = torch.arange(CAP, device=st.device)
+    for b in range(g):
+        ends = off2[:, b] + cnt.view(ng, g)[:, b]
+        a = (ends[None, :] <= j[:, None]).sum(-1).clamp(max=ng - 1)
+        src = st.view(ng, g)[a, b] + (j - off2[a, b])
+        pidx = perm[src.clamp(0, perm.shape[0] - 1)]
+        send[b].copy_(_wire(rows, pidx, j < tot[b], 6))
+
+
+def pack_two_phase2_plain(rows: Rows, perm: torch.Tensor,
+                          starts: torch.Tensor, counts: torch.Tensor,
+                          mesh: MeshParams, OB: int, send: torch.Tensor,
+                          hist: torch.Tensor) -> None:
+    """K13's second half (`_pack_two_phase` from the phase-1 arrivals'
+    key sort to the phase-2 ppermutes): from the keyed route of the
+    phase-1 arrivals over the H_pad destinations, send ([ng-1, 6, CAP2])
+    holds for each other group a', in ascending order, the first CAP2
+    rows destined shard (a', b), b this rank's rank (the reference's
+    buffer of group offset (a' - my_g) % ng); every row of another
+    shard ranked CAP2 or later adds 1 at its global source, (key %
+    SPAN) // OB, to hist [H_pad] int32 (the mesh sums it and each rank
+    adds its own hosts' counts to x_overflow)."""
+    g, ng, S = mesh.G, mesh.NG, mesh.S
+    CAP2 = send.shape[-1]
+    f = rows.fields()
+    st, cnt = _segments(starts, counts, S)
+    j = torch.arange(CAP2, device=st.device)
+    my_g, my_b = divmod(mesh.shard, g)
+    for i, a in enumerate(x for x in range(ng) if x != my_g):
+        dq = a * g + my_b
+        pidx = perm[(st[dq] + j).clamp(0, perm.shape[0] - 1)]
+        send[i].copy_(_wire(f, pidx, j < cnt[dq].clamp(max=CAP2), 6))
+    span = mesh.H_pad * OB
+    for d in range(S):
+        n = int(cnt[d])
+        if d != mesh.shard and n > CAP2:
+            lost = (f["key"][perm[int(st[d]) + CAP2:int(st[d]) + n]]
+                    % span) // OB
+            hist.index_add_(0, lost, torch.ones_like(lost,
+                                                     dtype=torch.int32))
 
 
 # ----------------------------------------------------------------------
@@ -1234,12 +1535,59 @@ def nic_args(state: dict, world: dict, p: PhaseParams):
         [(t, torch.int32) for t in counts]
 
 
+class RowsArgs(ctypes.Structure):
+    """csrc/common.cuh `Rows`: the channels of one or two regions of
+    rows, each a base per channel (XCH_FIELDS order; null where a region
+    lacks one), its block width and the stride between its blocks (0:
+    one block, an outbox), the first region's row count, and the
+    replica stride of the first region's channels."""
+    _fields_ = [("a", ctypes.c_void_p * 6), ("n_a", ctypes.c_longlong),
+                ("bw_a", ctypes.c_longlong), ("bs_a", ctypes.c_longlong),
+                ("b", ctypes.c_void_p * 6), ("bw_b", ctypes.c_longlong),
+                ("bs_b", ctypes.c_longlong), ("rs", ctypes.c_longlong)]
+
+
+def rows_args(rows: Rows, need=XCH_FIELDS[:5]):
+    """(RowsArgs, [(tensor, dtype)] to check) of a kernel launch over
+    `rows`; raises where a region lacks a channel in `need`."""
+    ptrs, dims, checks = [], [], []
+    for r in rows.regions:
+        if isinstance(r, dict):
+            t = r["t"]
+            base = [_ptr(r[f]) if f in r else None for f in XCH_FIELDS]
+            n = int(t.shape[-2] * t.shape[-1])
+            dims.append((n, n, 0))
+            checks += [(r[f], torch.int64) for f in XCH_FIELDS if f in r]
+        else:
+            nb, C, bw = r.shape
+            step = bw * r.element_size()
+            base = [r.data_ptr() + c * step if c < C else None
+                    for c in range(len(XCH_FIELDS))]
+            dims.append((nb * bw, bw, C * bw))
+            checks.append((r, torch.int64))
+        missing = [f for f, b in zip(XCH_FIELDS, base)
+                   if b is None and f in need]
+        if missing:
+            raise ValueError(f"rows lack channel(s) {missing}")
+        ptrs.append(base)
+    rs = 0
+    r0 = rows.regions[0]
+    if isinstance(r0, dict) and r0["t"].dim() == 3:
+        rs = dims[0][0]
+    vp = ctypes.c_void_p * 6
+    b = ptrs[1] if len(ptrs) > 1 else [None] * 6
+    bdim = dims[1] if len(dims) > 1 else (0, 1, 0)
+    return RowsArgs(vp(*ptrs[0]), dims[0][0], dims[0][1], dims[0][2],
+                    vp(*b), bdim[1], bdim[2], rs), checks
+
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _U = ctypes.c_uint
 _T = ctypes.POINTER(TopoArgs)
 _N = ctypes.POINTER(NicArgs)
+_RW = ctypes.POINTER(RowsArgs)
 
 _POP_TAIL = [_P] * 5 + [_P] * 4 + [_P]     # ob t k m s v, pops aud
 #                                          aud_t ctl, stream
@@ -1250,6 +1598,8 @@ _SIGNATURES = {
     # msgload size selfloop, ob t k m s v, pops, aud aud_t, ctl, stream
     "shadow_pop_phase": [_I] * 5 + [_P] * 5 + [_P] * 8 +
                         [_P, _T, _N, _P, _I, _I, _I, _I] + _POP_TAIL,
+    # the entries of POP_KERNELS take the gid offset g0 and the global
+    # host count (host_vertex's length) after R
     # R, H, E, K, T, P, B, C, ht hk hm hv hw, head event_seq packet_seq
     # app n_exec n_deliv chk, host_vertex topo nic, seed keys, count
     # pause retry, npkts last_sz chunk mss, ob t k m s v, pops, aud
@@ -1264,19 +1614,34 @@ _SIGNATURES = {
                       [_P, _T, _N, _P] + [_P] * 3 +
                       [_P, _I, _U, _U, _I] + _POP_TAIL,
     # R, H, OB, C, boot_end, ob t m v, packet_seq n_sent n_drop,
-    # host_vertex topo, seed keys, cp, ctl, stream
+    # host_vertex topo, seed keys, cp, g0, Hg, ctl, stream
     "shadow_judge_outbox": [_I, _I, _I, _I, _L] + [_P] * 3 + [_P] * 3 +
-                           [_P, _T, _P, _I, _P, _P],
+                           [_P, _T, _P, _I, _I, _I, _P, _P],
     # R, H, OB, V, ob t k m, host_vertex, path_cnt, ctl, stream
     "shadow_count_paths": [_I] * 4 + [_P] * 3 + [_P] * 4,
-    # R, H, OB, ob t m, perm starts counts, scratch cursor block_sums,
-    # ctl, stream
-    "shadow_route": [_I] * 3 + [_P] * 2 + [_P] * 3 + [_P] * 3 + [_P] * 2,
+    # R, F, ND, lo, keyed, rows, perm starts counts, scratch cursor
+    # block_sums, ctl, stream
+    "shadow_route": [_I, _L, _I, _I, _I, _RW] + [_P] * 3 + [_P] * 3 +
+                    [_P] * 2,
     "shadow_route_scan_blocks": [_I],
-    # R, H, E, IN, F, ht hk hm hv hw head, ob t k m s v, perm starts
-    # counts, overflow occ_in occ_heap, ctl, stream
-    "shadow_merge_heaps": [_I] * 4 + [_L] + [_P] * 6 + [_P] * 5 +
-                          [_P] * 3 + [_P] * 3 + [_P] * 2,
+    # R, H, E, IN, ht hk hm hv hw head, rows perm starts counts (F),
+    # second rows perm starts counts (F2; null rows: one block),
+    # occ_sum, overflow occ_in occ_heap, ctl, stream
+    "shadow_merge_heaps": [_I] * 4 + [_P] * 6 + [_RW] + [_P] * 3 + [_L] +
+                          [_RW] + [_P] * 3 + [_L] + [_I] + [_P] * 3 +
+                          [_P] * 2,
+    # F, S, shard, H_loc, OB, CAP, C, rows, perm starts counts, send,
+    # x_overflow occ_x, stream
+    "shadow_pack_remote": [_L] + [_I] * 6 + [_RW] + [_P] * 3 + [_P] * 3 +
+                          [_P],
+    # F, S, shard, H_loc, OB, G, NG, CAP, rows, perm starts counts, send,
+    # x_overflow occ_x, stream
+    "shadow_pack_two_phase": [_L] + [_I] * 7 + [_RW] + [_P] * 3 +
+                             [_P] * 3 + [_P],
+    # F, S, shard, H_loc, OB, G, NG, CAP2, rows, perm starts counts,
+    # send, hist, stream
+    "shadow_pack_two_phase2": [_L] + [_I] * 7 + [_RW] + [_P] * 3 +
+                              [_P] * 2 + [_P],
     # R, H, OB, ob t, pops, occ_ob occ_trips occ_phases, aud_tx, ctl,
     # stream
     "shadow_phase_tally": [_I] * 3 + [_P] * 8,
@@ -1295,6 +1660,7 @@ _SIGNATURES = {
     "shadow_loop_control_blocks": [_I],
 }
 for _name in POP_KERNELS:
+    _SIGNATURES[f"shadow_{_name}"][1:1] = [_I, _I]
     _SIGNATURES[f"shadow_{_name}{AUD}"] = _SIGNATURES[f"shadow_{_name}"]
 
 
@@ -1493,7 +1859,7 @@ class Kernels:
             launch_name("pop_phase", *flags), "shadow_pop_phase" + suffix,
             [(t, i64) for t in heap + obs] + [(t, i32) for t in small[:7]]
             + [(small[7], i64), (pops, i32), (hv, i32)] + checks,
-            R, H, p.E, p.K, p.B, *map(_ptr, heap),
+            R, p.g0, hv.shape[0], H, p.E, p.K, p.B, *map(_ptr, heap),
             *map(_ptr, small), _ptr(hv), ctypes.byref(topo),
             ctypes.byref(nic), key, a.n_hosts_total, a.msgload, a.size,
             a.selfloop, *map(_ptr, obs), _ptr(pops), *tail)
@@ -1540,7 +1906,8 @@ class Kernels:
             + [(state["chk"], i64), (pops, i32), (hv, i32)] + checks
             + [(args[0], i32)] + [(t, i64) for t in args[1:]]
             + [(t, i32) for t in app_tensors],
-            R, H, p.E, p.K, p.T, p.P, p.B, p.C, *map(_ptr, heap),
+            R, p.g0, hv.shape[0], H, p.E, p.K, p.T, p.P, p.B, p.C,
+            *map(_ptr, heap),
             *map(_ptr, small), _ptr(state["chk"]), _ptr(hv),
             ctypes.byref(topo), ctypes.byref(nic), key, *map(_ptr, args),
             *map(_ptr, app_tensors), *app_scalars, *map(_ptr, obs),
@@ -1567,7 +1934,7 @@ class Kernels:
             + key_checks + ctl_checks,
             R or 1, H, OB, p.C, int(p.boot_end), *map(_ptr, obs),
             *map(_ptr, cnt), _ptr(hv), ctypes.byref(topo), key, int(p.CP),
-            ctl)
+            p.g0, hv.shape[0], ctl)
 
     def count_paths(self, state: dict, ob: dict, world: dict,
                     ctl: Optional[torch.Tensor] = None) -> None:
@@ -1613,53 +1980,182 @@ class Kernels:
             for o, r in zip(out, res):
                 o.copy_(r)
             return out
-        R = ob_replicas(ob)
-        H, OB = ob["t"].shape[-2:]
-        dev = ob["t"].device
+        H = ob["t"].shape[-2]
+        return self._route_launch("route", Rows(ob), 0, H, False, out, ctl)
+
+    def route_rows(self, rows: Rows, lo: int, nd: int, keyed: bool = False,
+                   out=None, ctl: Optional[torch.Tensor] = None):
+        """K5 over any rows (route_rows_plain on the CPU): (perm [n],
+        starts [nd], counts [nd]) of the exchangeable rows destined [lo,
+        lo + nd), by position or, `keyed`, by key within a destination.
+        Counts as `route` over an outbox from destination 0 (a mesh
+        rank's H_loc senders into the H_pad destinations), else as
+        `route_window`, or `route_keyed` where keyed."""
+        name = ("route_keyed" if keyed else "route"
+                if isinstance(rows.regions[0], dict) and lo == 0
+                else "route_window")
+        if rows.device.type != "cuda":
+            if _phase_off(ctl):
+                return out
+            res = route_rows_plain(rows, lo, nd, keyed)
+            if out is None:
+                return res
+            for o, r in zip(out, res):
+                o.copy_(r)
+            return out
+        return self._route_launch(name, rows, lo, nd, keyed, out, ctl)
+
+    def _route_launch(self, name: str, rows: Rows, lo: int, nd: int,
+                      keyed: bool, out, ctl):
+        """One K5 launch over `rows` (a campaign's outbox: each
+        replica's)."""
+        r0 = rows.regions[0]
+        R = (ob_replicas(r0) if isinstance(r0, dict) else None)
+        dev = rows.device
         lead = () if R is None else (R,)
         lib = self.library()
+        F = rows.n
         # scattered rows, cursors, and the scan's block totals, per
         # replica
         n = R or 1
         scratch = [self._scratch_of(k, m, dev) for k, m in (
-            ("route_rows", n * H * OB), ("route_cursor", n * H),
-            ("route_block_sums", n * lib.shadow_route_scan_blocks(H)))]
+            ("route_rows", n * F), ("route_cursor", n * nd),
+            ("route_block_sums", n * lib.shadow_route_scan_blocks(nd)))]
         if out is None:
             out = tuple(torch.empty((*lead, m), dtype=torch.int64,
-                                    device=dev) for m in (H * OB, H, H))
-        if [tuple(o.shape) for o in out] != [(*lead, H * OB), (*lead, H),
-                                             (*lead, H)]:
-            raise ValueError("route: out must be perm [(R,)H*OB], starts "
-                             "[(R,)H] and counts [(R,)H]")
+                                    device=dev) for m in (F, nd, nd))
+        if [tuple(o.shape) for o in out] != [(*lead, F), (*lead, nd),
+                                             (*lead, nd)]:
+            raise ValueError(f"{name}: out must be perm [(R,){F}], starts "
+                             f"and counts [(R,){nd}]")
+        args, checks = rows_args(rows, ("t", "m", "key") if keyed
+                                 else ("t", "m"))
         c, ctl_checks = _ctl_args(ctl, R)
         self._launch(
-            "route", "shadow_route",
-            [(ob["t"], torch.int64), (ob["m"], torch.int64)]
-            + [(t, torch.int64) for t in list(out) + scratch] + ctl_checks,
-            n, H, OB, _ptr(ob["t"]), _ptr(ob["m"]), *map(_ptr, out),
+            name, "shadow_route",
+            checks + [(t, torch.int64) for t in list(out) + scratch]
+            + ctl_checks,
+            n, F, nd, lo, int(keyed), ctypes.byref(args), *map(_ptr, out),
             *map(_ptr, scratch), c)
         return tuple(out)
 
-    def merge_heaps(self, state: dict, ob: dict, perm: torch.Tensor,
+    def merge_heaps(self, state: dict, ob, perm: torch.Tensor,
                     starts: torch.Tensor, counts: torch.Tensor,
                     p: PhaseParams,
-                    ctl: Optional[torch.Tensor] = None) -> None:
+                    ctl: Optional[torch.Tensor] = None,
+                    second: Optional[tuple] = None,
+                    occ_sum: bool = False) -> None:
+        """K3 (merge_heaps_plain on the CPU): the arrivals of `ob` (an
+        outbox or a Rows) through the route's (perm, starts, counts);
+        with `second` = (rows, perm, starts, counts) a second block,
+        counted as `merge_heaps2`."""
+        def as_rows(x):
+            return x if isinstance(x, Rows) else Rows(x)
+
         if not perm.is_cuda:
-            return merge_heaps_plain(state, ob, perm, starts, counts, p,
-                                     ctl)
+            def fields(x):
+                return x.fields(OB_FIELDS) if isinstance(x, Rows) else x
+
+            return merge_heaps_plain(
+                state, fields(ob), perm, starts, counts, p, ctl,
+                None if second is None else (fields(second[0]),
+                                             *second[1:]), occ_sum)
         R = n_replicas(state)
         H = state["head"].shape[-1]
         heap = [state[f] for f in HEAP_FIELDS] + [state["head"]]
-        obs = [ob[f] for f in OB_FIELDS]
-        seg = [perm, starts, counts]
         occ = [state["overflow"], state["occ_in"], state["occ_heap"]]
+        blocks, args, checks = [], [], []
+        for blk in [(ob, perm, starts, counts)] + \
+                ([second] if second is not None else []):
+            a, chk = rows_args(as_rows(blk[0]))
+            args.append(a)
+            seg = list(blk[1:])
+            checks += chk + [(t, torch.int64) for t in seg]
+            blocks.append((ctypes.byref(a), *map(_ptr, seg),
+                           seg[0].shape[-1]))
+        if second is None:
+            blocks.append((None, None, None, None, 0))
         c, ctl_checks = _ctl_args(ctl, R)
         self._launch(
-            "merge_heaps", "shadow_merge_heaps",
-            [(t, torch.int64) for t in heap[:5] + obs + seg]
+            "merge_heaps2" if second is not None else "merge_heaps",
+            "shadow_merge_heaps",
+            [(t, torch.int64) for t in heap[:5]] + checks
             + [(t, torch.int32) for t in heap[5:] + occ] + ctl_checks,
-            R or 1, H, p.E, p.IN, perm.shape[-1], *map(_ptr, heap),
-            *map(_ptr, obs), *map(_ptr, seg), *map(_ptr, occ), c)
+            R or 1, H, p.E, p.IN, *map(_ptr, heap), *blocks[0],
+            *blocks[1], int(occ_sum), *map(_ptr, occ), c)
+
+    def pack_remote(self, state: dict, ob: dict, perm: torch.Tensor,
+                    starts: torch.Tensor, counts: torch.Tensor,
+                    mesh: MeshParams, send: torch.Tensor,
+                    ctl: Optional[torch.Tensor] = None) -> None:
+        """K12 (pack_remote_plain on the CPU): the [S, C, CAP] send
+        buffer of the all_to_all, x_overflow and occ_x."""
+        if not send.is_cuda:
+            if not _phase_off(ctl):
+                pack_remote_plain(state, ob, perm, starts, counts, mesh,
+                                  send)
+            return
+        S, C, CAP = send.shape
+        self._pack_launch("pack_remote", "shadow_pack_remote", state, ob,
+                          perm, starts, counts, mesh, send, (), CAP, C)
+
+    def pack_two_phase(self, state: dict, ob: dict, perm: torch.Tensor,
+                       starts: torch.Tensor, counts: torch.Tensor,
+                       mesh: MeshParams, send: torch.Tensor,
+                       ctl: Optional[torch.Tensor] = None) -> None:
+        """K13's phase 1 (pack_two_phase_plain on the CPU): the [g, 6,
+        CAP] buffers by destination rank, x_overflow and occ_x."""
+        if not send.is_cuda:
+            if not _phase_off(ctl):
+                pack_two_phase_plain(state, ob, perm, starts, counts, mesh,
+                                     send)
+            return
+        self._pack_launch("pack_two_phase", "shadow_pack_two_phase",
+                          state, ob, perm, starts, counts, mesh, send,
+                          (mesh.G, mesh.NG), send.shape[-1])
+
+    def _pack_launch(self, name, c_name, state, ob, perm, starts, counts,
+                     mesh, send, groups, cap, *tail) -> None:
+        """K12 or K13's phase 1 over this rank's outbox."""
+        rows = Rows(ob)
+        args, checks = rows_args(rows)
+        seg = [perm, starts, counts]
+        out = [state["x_overflow"], state["occ_x"]]
+        if starts.shape[-1] != mesh.H_pad or perm.shape[-1] != rows.n:
+            raise ValueError(f"{name}: need the route over the H_pad "
+                             "destinations")
+        self._launch(
+            name, c_name,
+            checks + [(t, torch.int64) for t in seg + [send]]
+            + [(t, torch.int32) for t in out],
+            rows.n, mesh.S, mesh.shard, mesh.H_loc, ob["t"].shape[-1],
+            *groups, cap, *tail, ctypes.byref(args), *map(_ptr, seg),
+            _ptr(send), *map(_ptr, out))
+
+    def pack_two_phase2(self, rows: Rows, perm: torch.Tensor,
+                        starts: torch.Tensor, counts: torch.Tensor,
+                        mesh: MeshParams, OB: int, send: torch.Tensor,
+                        hist: torch.Tensor,
+                        ctl: Optional[torch.Tensor] = None) -> None:
+        """K13's phase 2 (pack_two_phase2_plain on the CPU): the [ng-1,
+        6, CAP2] buffers by destination group from the keyed route of
+        the phase-1 arrivals, and `hist` [H_pad] int32, zeroed first,
+        of the rows lost there by global source."""
+        hist.zero_()
+        if not send.is_cuda:
+            if not _phase_off(ctl):
+                pack_two_phase2_plain(rows, perm, starts, counts, mesh, OB,
+                                      send, hist)
+            return
+        args, checks = rows_args(rows, XCH_FIELDS)
+        seg = [perm, starts, counts]
+        self._launch(
+            "pack_two_phase2", "shadow_pack_two_phase2",
+            checks + [(t, torch.int64) for t in seg + [send]]
+            + [(hist, torch.int32)],
+            rows.n, mesh.S, mesh.shard, mesh.H_loc, OB, mesh.G, mesh.NG,
+            send.shape[-1], ctypes.byref(args), *map(_ptr, seg),
+            _ptr(send), _ptr(hist))
 
     def phase_tally(self, state: dict, ob: dict, pops: torch.Tensor,
                     p: PhaseParams,

@@ -82,7 +82,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
 @pytest.mark.parametrize("override,item", [
     ("experimental.scheduler_policy=thread", "queue (a) item 10"),
     ("experimental.dispatch_segment=200ms", "queue (a) item 7"),
-    ("experimental.exchange=two_phase", "queue (a) item 9"),
+    ("experimental={scheduler_policy: tpu, mesh_shards: 2, "
+     "state_audit: true}", "queue (a) item 9"),
     ("hosts.a.processes=[{path: model:tgen_tcp_server, start_time: 10ms}]",
      "queue (a) item 10"),
     ("experimental.failover=shrink", "queue (a) item 13"),
@@ -146,7 +147,7 @@ CAMPAIGN = "ensemble={replicas: 2, vary: {seed: [3, 4]}}"
     ("experimental.capacity_plan=auto", "queue (a) item 7a"),
     ("experimental.dispatch_segment=200ms", "queue (a) item 7a"),
     ("general.heartbeat_interval=100ms", "queue (a) item 7a"),
-    ("experimental.exchange=two_phase", "queue (a) item 9"),
+    ("experimental.mesh_shards=2", "queue (a) item 9"),
 ])
 def test_campaign_keys_still_refused_name_their_items(override, item):
     from shadow_tpu_torch.config.loader import load_config_str as load

@@ -422,9 +422,9 @@ def test_host_bandwidths_follow_group_overrides_and_vertices():
     ("experimental.scheduler_policy=thread",
      r"thread .* \(ROADMAP.md queue \(a\) item 10 \(the threaded CPU "
      r"policies\)\)"),
-    ("experimental.exchange_capacity=64",
-     r"exchange_capacity .* \(ROADMAP.md queue \(a\) item 9 "
-     r"\(multi-GPU\)\)"),
+    ("experimental.mesh_shards=2",
+     r"model_bandwidth on a mesh .* \(ROADMAP.md queue \(a\) item 9 "
+     r"\(multi-GPU: "),
 ])
 def test_outside_the_slice_is_refused_by_name(override, match):
     from shadow_tpu_torch.config import load_config_str
