@@ -42,6 +42,20 @@ Phases, in order; any failure exits non-zero before the last line:
      (360,000 rows) and tor_large's (2,016,000 rows), each with
      destinations past IN, beside torch.sort + searchsorted on the
      same input;
+   - K3 (every row above and below) twice: checking every heap's
+     order (a state from outside the engine) and trusting it (the main
+     path after a run's first merge, on the same heaps in (t, key)
+     order), beside the library's merge (a stable sort by key, then by
+     time, over [H, E+IN], the five fields taken along it, cut to E),
+     with the shares of hosts left as they are, merged and sorted in
+     full;
+   - K5 and K3 where the data is hardest (`flush_adversarial`): every
+     live row of a 3,000,000-row outbox to one destination, an empty
+     outbox, 1,000,000 destinations, keyed rows in S = 4 peer runs
+     (K5's keyed mode), every output bit for bit;
+   - K5, then K3, on one real phase's inputs (`real_phase_rows`):
+     phold (100,000 hosts), tor_large and phold_1m_hier paused half
+     way by the graph loop, one more phase popped and judged;
    - the `_hier` instantiations, which look the path tables up in two
      levels (the reference's `gather_parts`): K1 and K2 on the factored
      tables of examples/tgen_1000000.yaml (V=1,000,200, C=200) at its
@@ -214,6 +228,7 @@ It imports nothing of jax or of the shadow_tpu package.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import shutil
@@ -802,15 +817,24 @@ def window_block(K, win_end, dev):
     return K.control_block(dev, run=1, win_end=win_end)
 
 
+# device cycles (about 1.2 ms) the card sleeps before each timed call,
+# while the host enqueues it
+SLEEP_CYCLES = 2_000_000
+
+
 def time_median(torch, run, make, reps):
     """Median device ms of run(inputs) over `reps` fresh input
-    copies, by CUDA events around the call alone."""
+    copies, by CUDA events around the call alone. The card sleeps
+    (SLEEP_CYCLES) before the first event, so the host's work of the
+    call (the wrapper's checks, the launch) is enqueued before the
+    event runs and the time is the device's."""
     times = []
     for _ in range(reps):
         args = make()
         torch.cuda.synchronize()
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
         a.record()
         run(*args)
         b.record()
@@ -1135,47 +1159,171 @@ def hier_kernels(torch, K, scratch, rng, dev):
 
 
 def merge_case(torch, K, scratch, rng, state0, p, H, OB, dev):
-    from shadow_tpu_torch.device.engine import STATE_DTYPES
-
+    """K3 on a synthetic judged outbox with hot destinations, against
+    its plain version: every host's heap checked (no fresh words, as a
+    state from outside the engine), and trusting the heaps' order on
+    the same heaps in (t, key) order (`lex_sorted`), as the main path
+    runs it; timed both ways, the latter as the row's ms."""
     E, IN = p.E, p.IN
     ob3 = random_outbox(rng, H, OB, torch, dev)
-    perm, starts, counts = K.route_plain(ob3)
-    sk, sp = clone(state0), clone(state0)
-    scratch.merge_heaps(sk, ob3, perm, starts, counts, p)
-    K.merge_heaps_plain(sp, ob3, perm, starts, counts, p)
-    torch.cuda.synchronize()
-    err = max_abs_err(sk, sp, list(STATE_DTYPES))
-    check(err == 0.0, f"merge_heaps (E={E}, IN={IN}) differs from its "
-          f"plain version (max abs err {err})")
-    over = int(((sk["overflow"].long() - state0["overflow"].long())
-                & 0xFFFFFFFF).sum())
+    route = K.route_plain(ob3)
+    err, over = merge_compare(torch, K, scratch, state0, ob3, route, p)
     check(over > 0, "merge_heaps overflowed nothing: the overflow "
           "path went untested")
+    return merge_row(torch, K, scratch, lex_sorted(torch, K, state0), ob3,
+                     route, p, err, f"H={H} E={E} IN={IN} overflow={over}")
 
-    def k3_args():
-        return (clone(state0), ob3, perm, starts, counts, p)
 
-    accepted = int(counts.clamp(max=IN).sum())
-    slot = torch.arange(E, device=dev)[None, :]
-    live_rows = int(((slot >= state0["head"][:, None].long())
-                     & (state0["ht"] < K.INF)).sum())
-    ct = torch.cat([state0["ht"], torch.full((H, IN), K.INF,
-                                              device=dev)], 1)
+def lex_sorted(torch, K, state):
+    """A copy of `state` as the engine's merges leave one: each host's
+    five heap fields in (t, key) order (stable; a random state's rows
+    are in time order, and a tie may hold its keys out of order) and
+    occ_heap at least its live rows (a random state's is random)."""
+    out = clone(state)
+    _, o1 = torch.sort(state["hk"], dim=1, stable=True)
+    _, o2 = torch.sort(state["ht"].gather(1, o1), dim=1, stable=True)
+    order = o1.gather(1, o2)
+    for f in K.HEAP_FIELDS:
+        out[f] = state[f].gather(1, order).contiguous()
+    live = (out["ht"] < K.INF).sum(1).to(torch.int32)
+    out["occ_heap"] = torch.maximum(out["occ_heap"], live)
+    return out
+
+
+def trusted(K, dev, R=1):
+    """K3's words of an engine whose heaps came from its own merges:
+    their order holds, no host is checked."""
+    flags = K.merge_flags(dev, R)
+    flags[0] = 0
+    return flags
+
+
+def tails_sorted(torch, state):
+    """[H] bool: each host's rows [head, E) in (t, key) order."""
+    ht, hk = state["ht"], state["hk"]
+    E = ht.shape[-1]
+    j = torch.arange(E - 1, device=ht.device)[None, :]
+    ok = (ht[:, :-1] < ht[:, 1:]) | ((ht[:, :-1] == ht[:, 1:])
+                                     & (hk[:, :-1] <= hk[:, 1:]))
+    return (ok | (j < state["head"].long()[:, None])).all(1)
+
+
+def flush_shares(torch, state, counts):
+    """Shares of the hosts a merge leaves as they are (head 0, no
+    arrivals), merges (tail in order) and sorts in full, and their
+    counts; from head and the counts, in Python."""
+    head = state["head"].long()
+    changed = (head != 0) | (counts.long() > 0)
+    ok = tails_sorted(torch, state)
+    H = head.shape[0]
+    n = {"unchanged": int((~changed).sum()),
+         "merged": int((changed & ok).sum()),
+         "full_sort": int((changed & ~ok).sum())}
+    return {**{k: v / H for k, v in n.items()}, "hosts": n}
+
+
+def merge_bytes(state, counts, E, IN, verify, second_counts=None):
+    """Bytes K3 must move at these inputs: head and the counts of every
+    host; of a changed host its starts, its five heap fields read and
+    written, its head written and its three counters read and written;
+    the accepted arrivals' five fields and perm entry; checking a fresh
+    state, t and key of every unchanged host's row and two of its
+    counters."""
+    head = state["head"].long()
+    cnt = [counts.long()] + ([] if second_counts is None
+                             else [second_counts.long()])
+    H = head.shape[0]
+    changed = int(((head != 0) | (sum(cnt) > 0)).sum())
+    accepted = sum(int(c.clamp(max=IN).sum()) for c in cnt)
+    b = H * (4 + 8 * len(cnt)) + changed * (
+        8 * len(cnt) + E * 5 * 8 * 2 + 4 + 3 * 4 * 2) + accepted * 6 * 8
+    if verify:
+        b += (H - changed) * (E * 16 + 2 * 4 * 2)
+    return b
+
+
+def merge_columns(torch, K, state, ob, perm, starts, counts, IN):
+    """The [H, E+IN] columns (t, key and the packed payloads) of the
+    heap and the arrival windows, as the plain merge builds them."""
+    E = state["ht"].shape[1]
+    dev = perm.device
+    live = torch.arange(E, device=dev)[None, :] >= \
+        state["head"].long()[:, None]
+    a = torch.arange(IN, device=dev)[None, :]
+    ok = a < counts.clamp(max=IN)[:, None]
+    pidx = perm[(starts[:, None] + a).clamp(0, perm.shape[0] - 1)]
+    flat = {f: ob[f].reshape(-1)[pidx] for f in K.OB_FIELDS}
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    fm, fs, fv = (torch.where(ok, flat[f], zero) for f in "msv")
+    return (torch.cat([torch.where(live, state["ht"], K.INF),
+                       torch.where(ok, flat["t"], K.INF)], 1),
+            torch.cat([torch.where(live, state["hk"], K.IMAX),
+                       torch.where(ok, flat["k"], K.IMAX)], 1),
+            torch.cat([state["hm"], K.pack2(K.lo32(fm) & 0xFF,
+                                            K.hi32(fs))], 1),
+            torch.cat([state["hv"], K.pack2(K.lo32(fs), K.lo32(fv))], 1),
+            torch.cat([state["hw"], (fv >> 32) & 0xFFFFFFFF], 1))
+
+
+def merge_library(torch, E):
+    """K3's function in PyTorch calls on the columns of
+    `merge_columns`: a stable sort by key, then by time, the five
+    fields taken along the order, cut to E."""
+    def run(ct, ck, cm, cv, cw):
+        _, o1 = torch.sort(ck, dim=1, stable=True)
+        _, o2 = torch.sort(ct.gather(1, o1), dim=1, stable=True)
+        order = o1.gather(1, o2)[:, :E]
+        return [x.take_along_dim(order, 1) for x in (ct, ck, cm, cv, cw)]
+    return run
+
+
+def merge_compare(torch, K, scratch, state0, ob, route, p, fresh=None):
+    """K3 against its plain version from `state0` (fresh words `fresh`,
+    or None: every heap checked); (err, rows it overflowed)."""
+    from shadow_tpu_torch.device.engine import STATE_DTYPES
+
+    sk, sp = clone(state0), clone(state0)
+    scratch.merge_heaps(sk, ob, *route, p, fresh=fresh)
+    K.merge_heaps_plain(sp, ob, *route, p)
+    torch.cuda.synchronize()
+    err = max_abs_err(sk, sp, list(STATE_DTYPES))
+    check(err == 0.0, f"merge_heaps (E={p.E}, IN={p.IN}, "
+          f"{'trusting the order' if fresh is not None else 'checked'}) "
+          f"differs from its plain version (max abs err {err})")
+    over = int(((sk["overflow"].long() - state0["overflow"].long())
+                & 0xFFFFFFFF).sum())
+    return err, over
+
+
+def merge_row(torch, K, scratch, state0, ob, route, p, err, shape):
+    """K3 on `state0` (heaps in order) against its plain version
+    trusting the order, then its row: ms trusting the order (the main
+    path's merge after the first), ms checking every heap, plain and
+    library ms, its bound, the hosts' shares."""
+    dev = route[0].device
+    E, IN = p.E, p.IN
+    fresh = trusted(K, dev)
+    err2, _ = merge_compare(torch, K, scratch, state0, ob, route, p, fresh)
+    cols = merge_columns(torch, K, state0, ob, *route, IN)
+
+    def args(f=None):
+        return lambda: (clone(state0), ob, *route, p, None, None, False, f)
+
+    shares = flush_shares(torch, state0, route[2])
     return finish({
-        "err": err,
-        "ms": time_median(torch, scratch.merge_heaps, k3_args, 7),
-        "plain_ms": time_median(torch, K.merge_heaps_plain, k3_args, 3),
-        "torch_sort_ms": time_median(
-            torch, lambda x: torch.sort(x, dim=1, stable=True),
-            lambda: (ct,), 7),
-        # t of every slot and the other four fields of live slots
-        # read, all five written; accepted arrivals (five fields and
-        # their perm entry); per-host segment bounds and counters
-        "bytes": (H * E * 8 + live_rows * 4 * 8 + H * E * 5 * 8
-                  + accepted * 6 * 8 + H * (8 + 8 + 4 * 2 + 3 * 4 * 2)),
-        "ops": 0,
-        "shape": f"H={H} E={E} IN={IN} arrivals={int(counts.sum())} "
-                 f"accepted={accepted} overflow={over}"})
+        "err": max(err, err2),
+        "ms": time_median(torch, scratch.merge_heaps, args(fresh), 7),
+        "checked_ms": time_median(torch, scratch.merge_heaps, args(), 7),
+        "plain_ms": time_median(torch, K.merge_heaps_plain, lambda: (
+            clone(state0), ob, *route, p), 3),
+        "library_ms": time_median(torch, merge_library(torch, E),
+                                  lambda: cols, 7),
+        "bytes": merge_bytes(state0, route[2], E, IN, False),
+        "checked_bytes": merge_bytes(state0, route[2], E, IN, True),
+        "ops": 0, "shares": shares,
+        "shape": f"{shape} arrivals={int(route[2].sum())} accepted="
+                 f"{int(route[2].clamp(max=IN).sum())} hosts unchanged/"
+                 f"merged/sorted {shares['hosts']}"})
 
 
 def pop_case(torch, K, scratch, name, state0, world, p, win_end, dev):
@@ -1915,6 +2063,17 @@ def count_paths_case(torch, K, scratch, rng, dev):
 
 def route_case(torch, K, scratch, rng, H, OB, IN, dev):
     ob = random_outbox(rng, H, OB, torch, dev)
+    row, (_, _, cp) = route_check(torch, K, scratch, ob, "random", IN)
+    check(int(cp.max()) > IN, "route: no destination past IN")
+    return row
+
+
+def route_check(torch, K, scratch, ob, what, IN=None):
+    """K5 on an outbox against route_plain, every live perm entry,
+    starts and counts; timed beside torch.sort + searchsorted of the
+    plain version's sort keys. Returns (row, the plain route)."""
+    H, OB = ob["t"].shape
+    dev = ob["t"].device
     pk, sk_, ck = scratch.route(ob)
     pp, sp, cp = K.route_plain(ob)
     torch.cuda.synchronize()
@@ -1922,9 +2081,8 @@ def route_case(torch, K, scratch, rng, H, OB, IN, dev):
     err = max_abs_err({"perm": pk[:L], "starts": sk_, "counts": ck},
                       {"perm": pp[:L], "starts": sp, "counts": cp},
                       ["perm", "starts", "counts"])
-    check(err == 0.0, f"route (H={H}, OB={OB}) differs from its plain "
-          f"version (max abs err {err})")
-    check(int(cp.max()) > IN, "route: no destination past IN")
+    check(err == 0.0, f"route ({what}, H={H}, OB={OB}) differs from its "
+          f"plain version (max abs err {err})")
     span = H * OB
     okey = torch.arange(span, dtype=torch.int64, device=dev).view(H, OB)
     skey = torch.where(ob["t"] < K.DROP_T,
@@ -1937,14 +2095,172 @@ def route_case(torch, K, scratch, rng, H, OB, IN, dev):
     return finish({
         "err": err,
         "ms": time_median(torch, scratch.route, lambda: (ob,), 7),
-        "plain_ms": time_median(torch, K.route_plain, lambda: (ob,), 7),
+        "plain_ms": time_median(torch, K.route_plain, lambda: (ob,), 3),
         "library_ms": time_median(torch, library, lambda: (skey,), 7),
         # t of every row, m of live rows, perm of live rows written,
         # starts and counts written
         "bytes": span * 8 + L * 8 * 2 + H * 8 * 2,
         "ops": 0,
-        "shape": f"H={H} OB={OB} rows={span} live={L} "
-                 f"longest={int(cp.max())} past_IN={int((cp > IN).sum())}"})
+        "shape": f"{what}: H={H} OB={OB} rows={span} live={L} "
+                 f"longest={int(cp.max()) if H else 0}"
+                 + (f" past_IN={int((cp > IN).sum())}" if IN else "")}), \
+        (pp, sp, cp)
+
+
+def keyed_runs(torch, K, rng, S, H_pad, OB, cap, dev):
+    """A two_phase rank's received rows as keyed routes see them: S
+    peer blocks [S, 6, cap], each a run of live rows in key order (a
+    peer's route packs them so) from that peer's senders (dst*SPAN +
+    src*OB + column, SPAN = H_pad*OB; a tenth at 16 hot hosts), then
+    INF padding."""
+    wire = np.zeros((S, 6, cap), np.int64)
+    per = H_pad // S
+    span = H_pad * OB
+    for b in range(S):
+        n = int(cap * 0.6)
+        flat = rng.choice(per * OB, n, replace=False) + b * per * OB
+        dst = rng.integers(0, H_pad, n)
+        hot = rng.random(n) < 0.1
+        dst = np.where(hot, rng.integers(0, 16, n), dst)
+        key = dst * span + flat
+        o = np.argsort(key, kind="stable")
+        key, dst = key[o], dst[o]
+        t = np.full(cap, (1 << 62), np.int64)
+        t[:n] = rng.integers(10**9, 3 * 10**9, n)
+        wire[b, 0] = t
+        wire[b, 1, :n] = rng.integers(0, 2**62, n)
+        wire[b, 2, :n] = (dst << 32) | 2
+        wire[b, 3, :n] = rng.integers(-2**62, 2**62, n)
+        wire[b, 4, :n] = rng.integers(0, 2**62, n)
+        wire[b, 5, :n] = key
+    return K.Rows(torch.from_numpy(wire).to(dev))
+
+
+# the adversarial cases' sizes: PHOLD's outbox (3,000,000 rows), the
+# million destinations, and a two_phase rank's S = 4 peer blocks
+ADV_HOSTS, ADV_OB, ADV_MILLION, ADV_PEERS, ADV_CAP = (100_000, 30,
+                                                     1_000_000, 4, 375_000)
+
+
+def flush_adversarial(torch, K, scratch, rng, dev):
+    """K5 and K3 where the data is hardest, each bit-equal to its
+    plain version: every live row of a 3,000,000-row outbox to one
+    destination, an empty outbox, 1,000,000 destinations (20 bits of
+    destination, three passes), and keyed rows in S = 4 peer runs over
+    100,000 destinations; the merges checking every heap and trusting
+    their order. (R = 4 replicas, one of them finished, are
+    `replica_kernels`'.)"""
+    from shadow_tpu_torch.device.apps import PholdDevice
+    from shadow_tpu_torch.device.engine import EngineConfig, phase_params
+
+    out = {}
+    H, OB = ADV_HOSTS, ADV_OB
+    p = phase_params(EngineConfig(n_hosts=H, event_capacity=64,
+                                  outbox_capacity=OB),
+                     PholdDevice(n_hosts_total=H))
+    for case in ("one_destination", "empty"):
+        ob = random_outbox(rng, H, OB, torch, dev)
+        if case == "empty":
+            ob["t"].fill_(K.INF)
+        else:
+            ob["m"] = (ob["m"] & 0xFFFFFFFF) | (7 << 32)
+        row, route = route_check(torch, K, scratch, ob, case, p.IN)
+        state0 = random_state(rng, H, p.E, dev)
+        err, _ = merge_compare(torch, K, scratch, state0, ob, route, p)
+        out[case] = {"route": row, "merge_heaps": merge_row(
+            torch, K, scratch, lex_sorted(torch, K, state0), ob, route, p,
+            err, f"{case}: H={H} E={p.E} IN={p.IN}")}
+    H1 = ADV_MILLION
+    ob = random_outbox(rng, H1, 3, torch, dev)
+    p1 = phase_params(EngineConfig(n_hosts=H1, event_capacity=64,
+                                   outbox_capacity=3),
+                      PholdDevice(n_hosts_total=H1))
+    row, route = route_check(torch, K, scratch, ob, f"{H1} "
+                             "destinations", p1.IN)
+    state0 = random_state(rng, H1, p1.E, dev)
+    err, _ = merge_compare(torch, K, scratch, state0, ob, route, p1)
+    out["million_destinations"] = {"route": row, "merge_heaps": merge_row(
+        torch, K, scratch, lex_sorted(torch, K, state0), ob, route, p1, err,
+        f"{H1} destinations: H={H1} E={p1.E} IN={p1.IN}")}
+    del state0
+    S, cap = ADV_PEERS, ADV_CAP
+    rows = keyed_runs(torch, K, rng, S, H, OB, cap, dev)
+    got = scratch.route_rows(rows, 0, H, True)
+    want = K.route_rows_plain(rows, 0, H, True)
+    torch.cuda.synchronize()
+    L = int(want[2].sum())
+    err = max(_eq(got[0][:L], want[0][:L]), _eq(got[1], want[1]),
+              _eq(got[2], want[2]))
+    check(err == 0.0, f"route_keyed (S={S} peer runs) differs from its "
+          f"plain version (max abs err {err})")
+    keys = rows.fields(("t", "m", "key"))
+    live = keys["t"] < K.DROP_T
+    # a live row's key orders it by destination first
+    order_key = torch.where(live, keys["key"], K.IMAX)
+    bounds = torch.arange(H + 1, dtype=torch.int64, device=dev) * (H * OB)
+
+    def library(x):
+        torch.searchsorted(torch.sort(x)[0], bounds)
+
+    out["keyed_runs"] = {"route_keyed": finish({
+        "err": err,
+        "ms": time_median(torch, scratch.route_rows,
+                          lambda: (rows, 0, H, True), 7),
+        "plain_ms": time_median(torch, K.route_rows_plain,
+                                lambda: (rows, 0, H, True), 3),
+        "library_ms": time_median(torch, library, lambda: (order_key,), 7),
+        # t, m and key of every row, perm of live rows written, starts
+        # and counts written
+        "bytes": rows.n * 8 * 3 + L * 8 + H * 16,
+        "ops": 0,
+        "shape": f"S={S} peer runs of {int(cap * 0.6)} live rows, "
+                 f"rows={rows.n} live={L} to H_pad={H}"})}
+    return out
+
+
+# the full runs whose real phase K5 and K3 run on: a state paused half
+# way, popped and judged once more
+REAL_PHASES = ("phold", "tor_large", "phold_1m_hier")
+
+
+def real_phase_rows(torch, K, scratch, dev):
+    """K5, then K3, on one real phase's inputs of each of REAL_PHASES:
+    the run paused at half its stop time by the graph loop, one more
+    phase's pops and judge (window end: the next head time plus the
+    lookahead), then the route and the merge of that judged outbox
+    against their plain versions, the merge trusting the heaps' order
+    (as the main path does after a run's first merge) and checking
+    every heap; the shares of hosts left as they are, merged and
+    sorted in full, from head and the counts."""
+    from shadow_tpu_torch.device import runner
+
+    out = {}
+    for name in REAL_PHASES:
+        _, example, overrides, _ = next(r for r in FULL_RUNS
+                                        if r[0] == name)
+        cfg = full_config(example, overrides)
+        engine, sim = runner.make_engine(cfg, device=dev.type)
+        state = engine.init_state(sim.start_times, sim.stop_times)
+        stop = int(engine.config.stop_time)
+        engine.run(state, stop=stop // 2, final_stop=stop)
+        nt = engine.next_time(state)
+        p = engine.params
+        ctl = K.control_block(dev, run=1, win_end=nt + max(
+            1, int(engine.config.lookahead)))
+        ob, pops, _ = engine._buffers()
+        engine.kernels.pop(state, ob, pops, engine.world, ctl, p)
+        engine.kernels.judge_outbox(state, ob, engine.world, ctl, p)
+        torch.cuda.synchronize()
+        row, route = route_check(torch, K, scratch, ob, f"{name}'s phase "
+                                 f"at {nt} ns", p.IN)
+        err, _ = merge_compare(torch, K, scratch, state, ob, route, p)
+        m = merge_row(torch, K, scratch, state, ob, route, p, err,
+                      f"{name}'s phase at {nt} ns: "
+                      f"H={state['head'].shape[0]} E={p.E} IN={p.IN}")
+        out[name] = {"route": row, "merge_heaps": m}
+        del engine, state, ob
+        torch.cuda.empty_cache()
+    return out
 
 
 def add_audit(torch, K, rng, state, p):
@@ -3086,23 +3402,31 @@ def merge2_case(torch, K, scratch, rng, S, H_loc, cap, dev):
                                   outbox_capacity=MESH_OB),
                      PholdDevice(n_hosts_total=S * H_loc))
     state0 = mesh_state(torch, K, rng, H_loc, S, dev)
+    ordered = lex_sorted(torch, K, state0)
     res = {}
-    for occ_sum in (False, True):
-        sk, sp = clone(state0), clone(state0)
+    # every heap checked, then trusting the order of heaps in order
+    for occ_sum, st0, fresh in ((False, state0, None),
+                                (True, state0, None),
+                                (False, ordered, trusted(K, dev)),
+                                (True, ordered, trusted(K, dev))):
+        sk, sp = clone(st0), clone(st0)
         scratch.merge_heaps(sk, rows, *arr, p, second=second,
-                            occ_sum=occ_sum)
+                            occ_sum=occ_sum, fresh=fresh)
         K.merge_heaps_plain(sp, rows.fields(K.OB_FIELDS), *arr, p, None,
                             (own, *second[1:]), occ_sum)
         torch.cuda.synchronize()
-        res[occ_sum] = max_abs_err(sk, sp, list(STATE_DTYPES))
-        check(res[occ_sum] == 0.0, f"merge_heaps2 (occ_sum={occ_sum}) "
-              f"differs from its plain version (max abs err "
-              f"{res[occ_sum]})")
+        e = max_abs_err(sk, sp, list(STATE_DTYPES))
+        check(e == 0.0, f"merge_heaps2 (occ_sum={occ_sum}, "
+              f"{'checked' if fresh is None else 'trusting the order'}) "
+              f"differs from its plain version (max abs err {e})")
+        res[occ_sum] = max(res.get(occ_sum, 0.0), e)
     over = int((sk["overflow"].long() - state0["overflow"].long()).sum())
     check(over > 0, "merge_heaps2 overflowed nothing")
 
+    fresh = trusted(K, dev)
+
     def k3_args():
-        return (clone(state0), rows, *arr, p, None, second)
+        return (clone(ordered), rows, *arr, p, None, second, False, fresh)
 
     def k3_plain(st, r, *a):
         K.merge_heaps_plain(st, r.fields(K.OB_FIELDS), *a[:5],
@@ -3111,34 +3435,41 @@ def merge2_case(torch, K, scratch, rng, S, H_loc, cap, dev):
     E, IN = p.E, p.IN
     accepted = int(arr[2].clamp(max=IN).sum() + second[3].clamp(
         max=IN).sum())
-    slot = torch.arange(E, device=dev)[None, :]
-    live_rows = int(((slot >= state0["head"][:, None].long())
-                     & (state0["ht"] < K.INF)).sum())
-    tm = rows.fields(("t",))["t"]
+    fm = rows.fields(("t", "m"))
+    tm = fm["t"]
     live = int((tm < K.DROP_T).sum())
-    ct = torch.cat([state0["ht"], torch.full((H_loc, 2 * IN), K.INF,
-                                              device=dev)], 1)
+    c1 = merge_columns(torch, K, ordered, rows.fields(K.OB_FIELDS), *arr,
+                       IN)
+    c2 = merge_columns(torch, K, {**ordered, "head": torch.full_like(
+        ordered["head"], E)}, own, *second[1:], IN)
+    cols = tuple(torch.cat([a, b[:, E:]], 1) for a, b in zip(c1, c2))
     m2 = finish({
         "err": max(res.values()),
         "ms": time_median(torch, scratch.merge_heaps, k3_args, 7),
         "plain_ms": time_median(torch, k3_plain, k3_args, 3),
-        "library_ms": None,
-        "torch_sort_ms": time_median(
-            torch, lambda x: torch.sort(x, dim=1, stable=True),
-            lambda: (ct,), 7),
-        "bytes": (H_loc * E * 8 + live_rows * 4 * 8 + H_loc * E * 5 * 8
-                  + accepted * 6 * 8
-                  + H_loc * 2 * (8 + 8) + H_loc * 3 * 4 * 2),
+        "library_ms": time_median(torch, merge_library(torch, E),
+                                  lambda: cols, 7),
+        "bytes": merge_bytes(ordered, arr[2], E, IN, False, second[3]),
         "ops": 0,
         "shape": f"H_loc={H_loc} E={E} IN={IN} two blocks, accepted "
                  f"{accepted}, overflow {over}"})
+    # the window's library: a sort of (destination, position) keys of
+    # the live rows in the window, then searchsorted
+    n = rows.n
+    d = (fm["m"] >> 32) - lo
+    pos = torch.arange(n, dtype=torch.int64, device=dev)
+    wkey = torch.where((tm < K.DROP_T) & (d >= 0) & (d < H_loc),
+                       d * n + pos, K.IMAX)
+    wb = torch.arange(H_loc + 1, dtype=torch.int64, device=dev) * n
     rw = finish({
         "err": rerr,
         "ms": time_median(torch, scratch.route_rows,
                           lambda: (rows, lo, H_loc, False), 7),
         "plain_ms": time_median(torch, K.route_rows_plain,
                                 lambda: (rows, lo, H_loc, False), 3),
-        "library_ms": None,
+        "library_ms": time_median(
+            torch, lambda x: torch.searchsorted(torch.sort(x)[0], wb),
+            lambda: (wkey,), 7),
         "bytes": rows.n * 8 + live * 8 * 2 + H_loc * 16,
         "ops": 0,
         "shape": f"S={S} rows={rows.n} live={live} to H_loc={H_loc}"})
@@ -3210,6 +3541,27 @@ def kernels_phase(torch, report, H=100_000, dev="cuda"):
     compact, compact_r4 = compact_kernels(torch, K, scratch, rng, dev)
     replicas.update(compact_r4)
     mesh = mesh_kernels(torch, K, scratch, rng, dev)
+    adversarial = flush_adversarial(torch, K, scratch, rng, dev)
+    real = real_phase_rows(torch, K, scratch, dev)
+    flush = {}
+    for where, cases in (("adversarial", adversarial),
+                         ("on_real_phases", real)):
+        for case, rows in cases.items():
+            for kname, r in rows.items():
+                report_line(f"{kname} ({where.replace('_', ' ')}: {case})",
+                            r)
+                if "shares" in r:
+                    print(f"[kernels] {kname} ({case}): hosts left as "
+                          f"they are {r['shares']['unchanged']:.4f}, "
+                          f"merged {r['shares']['merged']:.4f}, sorted "
+                          f"in full {r['shares']['full_sort']:.4f}; "
+                          f"checking every heap {r['checked_ms']:.4f} ms "
+                          f"(bound {1e3 * r['checked_bytes'] / HBM_BYTES_PER_S:.4f} ms)",
+                          flush=True)
+                sub = flush.setdefault(kname, {}).setdefault(
+                    where, {"err": 0.0, "rows": {}})
+                sub["rows"][case] = r
+                sub["err"] = max(sub["err"], r["err"])
     for name, r in phold.items():
         report_line(f"{name} (PHOLD shapes)", r)
     for name, r in tgen.items():
@@ -3275,9 +3627,12 @@ def kernels_phase(torch, report, H=100_000, dev="cuda"):
                          "at_tor_shape": tor["judge_outbox"]},
         "merge_heaps": {**phold["merge_heaps"],
                         "at_tgen_shape": tgen["merge_heaps"],
-                        "at_tor_shape": tor["merge_heaps"]},
+                        "at_tor_shape": tor["merge_heaps"],
+                        **flush["merge_heaps"]},
         "route": {**route["phold"], "at_tgen_shape": route["tgen"],
-                  "at_tor_shape": route["tor"]}})
+                  "at_tor_shape": route["tor"], **flush["route"]}})
+    report["route_keyed"]["adversarial"] = flush["route_keyed"][
+        "adversarial"]
 
 
 def same_run(a, b, what, names=("card", "cpu")):
@@ -4137,6 +4492,9 @@ def campaign_full(torch, card, report):
         check(er.record["replicas"] == rec["replicas"], f"full {name}: "
               "the timed campaign's record differs from the graph run's")
         entry["standalone_walls_s"] = walls
+        # the timed campaign's state and scratch go before the next
+        # campaign's peak is measured
+        del er, timed
         runs[name] = entry
         print(f"[full:{name}] {R} replicas, {len(stats.host_events_executed)}"
               f" hosts each: {stats.summary()}; rounds per replica "
@@ -4204,6 +4562,8 @@ def main_path_run(torch, name, example, overrides, path):
 
     kernels = Kernels()
     kernels.library()
+    # an earlier run's tensors freed, so that the peak is this run's
+    gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_counts()
@@ -4282,15 +4642,15 @@ def python_loop_runs(torch, card, name, example, overrides, path, stats,
 # profiled graph runs made at most, until one sees every launch
 PROFILE_ATTEMPTS = 2
 # the CUDA functions of csrc/*.cu, by the kind of launch they belong
-# to; a run's path holds one kernel row of each kind
+# to; a run's path holds one kernel row of each kind. A wrapper launch
+# starts each of its functions once, K5's pass kernel once a pass.
 FUNCTION_KIND = {
     "pop_kernel": "pop_", "judge_outbox_kernel": "judge_outbox",
     "count_paths_kernel": "count_paths",
     "phase_tally_kernel": "phase_tally",
-    **dict.fromkeys(("zero_kernel", "count_kernel", "scan_blocks_kernel",
-                     "scan_sums_kernel", "add_back_kernel", "scatter_kernel",
-                     "sort_short_kernel", "sort_long_kernel"), "route"),
-    "merge_heaps_kernel": "merge_heaps",
+    **dict.fromkeys(("route_compact_kernel", "route_pass_kernel",
+                     "route_bounds_kernel"), "route"),
+    "merge_scan_kernel": "merge_heaps", "merge_heaps_kernel": "merge_heaps",
     "head_min_kernel": "loop_control", "control_kernel": "loop_control",
     "audit_hosts_kernel": "audit_round",
     "audit_conserve_kernel": "audit_round"}
@@ -4301,10 +4661,10 @@ def profiled_graph_run(torch, card, name, cfg, path, stats, launches):
     traces each kernel of a replayed graph). Returns ({row: summed
     device ms}, {row: kernels the profiler saw}) for the kernel rows of
     `path`, and under "other" every other device op (the state's upload,
-    torch's fills and copies, the memsets of the route and the audit).
-    Each wrapper launch starts each of its CUDA functions once, so a
-    row's functions are seen at most its launches and each row at least
-    once. CUPTI may drop records of a run of many short kernels (one
+    torch's fills and copies, the audit's memset, the engine's fresh
+    word). Each wrapper launch starts each of its CUDA functions once
+    (K5's pass kernel once a radix pass), so a row's functions are seen
+    at most its launches and each row at least once. CUPTI may drop records of a run of many short kernels (one
     H100 run saw 2,425 of 2,625 head_min_kernel): the run is profiled
     again, at most PROFILE_ATTEMPTS times, until every launch is seen,
     and the attempt that saw the most is kept; its ms are the sums over
@@ -4363,9 +4723,14 @@ def _profile_once(torch, name, cfg, path, stats, launches):
                    "other")
         ms[row] = ms.get(row, 0.0) + e.self_device_time_total / 1e3
         if row != "other":
-            check(e.count <= launches[row], f"full {name}: the profiler "
+            # K5 starts its pass kernel once a radix pass, the same
+            # number each launch of a run
+            n = e.count
+            if m.group(1) == "route_pass_kernel" and launches[row]:
+                n = e.count // max(1, round(e.count / launches[row]))
+            check(n <= launches[row], f"full {name}: the profiler "
                   f"saw {e.count} {m.group(1)} of {launches[row]} {row}")
-            seen[row] = min(seen.get(row, e.count), e.count)
+            seen[row] = min(seen.get(row, n), n)
     return ms, seen, prof_stats.wall_s
 
 
@@ -4742,7 +5107,8 @@ def kernels_line(report):
                                     "on_factored_tables",
                                     "err_on_shipped_tables",
                                     "at_1m_hosts", "at_cx16", "at_S4",
-                                    "overflowing") if k in r}
+                                    "overflowing", "adversarial",
+                                    "on_real_phases") if k in r}
         rows.append({
             "name": n, "route": "cuda", "source": SOURCES[n],
             "replaces": REPLACES[n],
@@ -4796,9 +5162,9 @@ def pop_times(torch) -> dict:
     and 1,000,000 hosts and K9 at 1,000,000 (`audit_inputs`); then the
     device ms per launch of K1_hier, K2_hier, K5, K3 and phase_tally on
     the main path's own data, phold_1m_hier in timing mode, and of the
-    pop, K2, K5, K3 and phase_tally on tgen_10000 and tor_small as
-    shipped; through the API every port slice since PR 6 has, so that
-    `--ab` can time another commit's package."""
+    pop, K2, K5, K3 and phase_tally on tgen_10000, tor_small and
+    tor_large as shipped; through the API the window loop's control
+    block brought, so that `--ab` can time another commit's package."""
     from shadow_tpu_torch.device import kernels as K
     from shadow_tpu_torch.device.apps import PholdDevice
     from shadow_tpu_torch.device.prng import seed_key
@@ -4918,9 +5284,10 @@ def pop_times(torch) -> dict:
             timed.launches[k]
     out["pop_phase_hier on phold_1m_hier, launches"] = \
         timed.launches["pop_phase_hier"]
-    # tgen_10000 and tor_small as shipped, in timing mode
+    # tgen_10000, tor_small and tor_large as shipped, in timing mode
     for example, pop in (("tgen_10000.yaml", "pop_tgen"),
-                         ("tor_small.yaml", "pop_tor")):
+                         ("tor_small.yaml", "pop_tor"),
+                         ("tor_large.yaml", "pop_tor")):
         timed = K.Kernels(timing=True)
         runner.run(full_config(example, ()), "cuda", kernels=timed)
         ms = timed.kernel_ms()

@@ -16,8 +16,9 @@ tensors the port's engine really holds:
 * the per-phase scratch, allocated once per engine: the five [H,OB]
   int64 outbox fields (OB counts the READY column under the model
   NIC) and the [H] pop counts, and the route's outputs and scratch
-  (K5: perm and scattered rows [H*OB] int64, starts, counts, cursors
-  and block sums [H] int64); the judge, the path counters, the
+  (K5: perm [H*OB] int64, starts and counts [H] int64, and its radix
+  sort's work, kernels.route_work_words; K3's [2 + H] int32 list of
+  the hosts it merges); the judge, the path counters, the
   compaction (K11, under `outbox_compact`: it rewrites the outbox's
   times and x_overflow and needs no scratch) and the merge work in
   place;
@@ -60,6 +61,7 @@ from shadow_tpu_torch.device.kernels import (
     MeshParams,
     PhaseParams,
     n_vertices,
+    route_work_words,
 )
 
 log = logging.getLogger("shadow_tpu_torch.admission")
@@ -115,22 +117,27 @@ def mesh_nbytes(mesh: MeshParams, OB: int) -> int:
     buffers of its schedule ([S, C, CAP] int64 each; two_phase its
     [g, 6, CAP] phase-1 and [ng-1, 6, CAP2] phase-2 pairs and the
     [H_pad] int32 loss histogram; all_gather the gathered [S, 5,
-    H_loc*OB] outbox), the route over H_pad destinations (starts,
-    counts, cursors and block sums) and the route of the received rows
-    (perm and scattered rows over them)."""
+    H_loc*OB] outbox), the route over H_pad destinations (its starts
+    and counts) and the route of the received rows (perm and the radix
+    sort's work over them, keyed after two_phase, whose phase-1
+    arrivals take a keyed route of their own)."""
     S, C = mesh.S, mesh.channels
     if S == 1:
         return 0
+    keyed = mesh.exchange == "two_phase"
     if mesh.exchange == "all_gather":
         rows = S * mesh.H_loc * OB
         bufs = 5 * rows * 8
-    elif mesh.exchange == "two_phase":
-        rows = mesh.G * mesh.CAP + (mesh.NG - 1) * mesh.CAP2
-        bufs = 2 * len(XCH_FIELDS) * rows * 8 + mesh.H_pad * 4
+    elif keyed:
+        rows1 = mesh.G * mesh.CAP
+        rows = rows1 + (mesh.NG - 1) * mesh.CAP2
+        bufs = 2 * len(XCH_FIELDS) * rows * 8 + mesh.H_pad * 4 + \
+            (rows1 + route_work_words(rows1, True)) * 8
     else:
         rows = S * mesh.CAP
         bufs = 2 * C * rows * 8
-    return bufs + 4 * mesh.H_pad * 8 + 2 * rows * 8
+    return bufs + 2 * mesh.H_pad * 8 + \
+        (rows + route_work_words(rows, keyed)) * 8
 
 
 def state_nbytes(n_hosts: int, params: PhaseParams, V: int = 0) -> int:
@@ -179,7 +186,9 @@ def footprint(n_hosts: int, params: PhaseParams, world: dict,
     H, OB = n_hosts, params.OB
     state = state_nbytes(H, params, n_vertices(world))
     outbox = 5 * H * OB * 8 + H * 4
-    route = 2 * H * OB * 8 + 4 * H * 8
+    # K5's outputs and work; K3's list of the hosts it merges
+    route = (H * OB + 2 * H + route_work_words(H * OB, False)) * 8 + \
+        (2 + H) * 4
     # the control block, K9's block minima and K8's sum
     loop = (len(CTL_FIELDS) + 1024 + 1) * 8
     seen, shared, stacked = set(), 0, 0

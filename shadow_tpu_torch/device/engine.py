@@ -124,6 +124,7 @@ from shadow_tpu_torch.device.kernels import (
     control_block,
     control_step,
     head_min_plain,
+    merge_flags,
     n_vertices,
 )
 from shadow_tpu_torch.host.model_nic import LAW
@@ -474,6 +475,8 @@ class DeviceEngine:
         self._window_ctl: Optional[torch.Tensor] = None
         self._staging: Optional[torch.Tensor] = None
         self._xbuf: Optional[dict] = None
+        # K3's fresh words (kernels.merge_flags), on the card
+        self._fresh: Optional[torch.Tensor] = None
 
     @property
     def n_local(self) -> int:
@@ -600,7 +603,24 @@ class DeviceEngine:
             self._buf = (ob, pops, route, block)
         return self._buf[:3]
 
+    def _arm(self) -> None:
+        """A state enters the engine from outside (a run, a resume, an
+        edited state): the next merge on the card checks every heap's
+        order before it trusts the merges' own (csrc/merge_heaps.cu).
+        A stream-ordered fill: no host sync."""
+        if self.device.type != "cuda":
+            return
+        if self._fresh is None:
+            self._fresh = merge_flags(self.device, self.replicas or 1)
+        self._fresh[0].fill_(1)
+
     def phase(self, state: dict, win_end) -> None:
+        """One phase of a state from outside the engine: `_arm`, then
+        `_phase`."""
+        self._arm()
+        self._phase(state, win_end)
+
+    def _phase(self, state: dict, win_end) -> None:
         """One phase: pops (K1, K4 or K6), then the flush: judge (K2,
         not under the model NIC, whose pops judge), path counters (K7,
         under count_paths), the tallies, the compaction (K11, under
@@ -613,12 +633,16 @@ class DeviceEngine:
         a phase that popped nothing, which cannot happen here)."""
         ob, pops, _ = self._buffers()
         self.kernels.pop(state, ob, pops, self.world, win_end, self.params)
-        self.flush(state, win_end)
+        self._flush(state, win_end)
 
     def flush(self, state: dict, win_end) -> None:
         """The flush of the outbox the last pop wrote (the engine's own
         buffers; `phase` without the pop, the reference's
-        `_flush_phase`)."""
+        `_flush_phase`), of a state from outside the engine."""
+        self._arm()
+        self._flush(state, win_end)
+
+    def _flush(self, state: dict, win_end) -> None:
         p, k = self.params, self.kernels
         ctl = win_end if isinstance(win_end, torch.Tensor) else None
         ob, pops, route = self._buffers()
@@ -631,7 +655,8 @@ class DeviceEngine:
             k.compact_outbox(state, ob, p, ctl)
         if self.mesh_params is None:
             perm, starts, counts = k.route(ob, route, ctl)
-            k.merge_heaps(state, ob, perm, starts, counts, p, ctl)
+            k.merge_heaps(state, ob, perm, starts, counts, p, ctl,
+                          fresh=self._fresh)
         else:
             self._exchange(state, ob, route, ctl)
 
@@ -675,7 +700,7 @@ class DeviceEngine:
             mesh.all_gather(got, block)
             rows = Rows(got.view(mp.S, len(OB_FIELDS), H * OB))
             arr = k.route_rows(rows, lo, H, False, ctl=ctl)
-            k.merge_heaps(state, rows, *arr, p, ctl)
+            k.merge_heaps(state, rows, *arr, p, ctl, fresh=self._fresh)
             return
         perm, starts, counts = k.route_rows(Rows(ob), 0, mp.H_pad, False,
                                             out=route, ctl=ctl)
@@ -712,7 +737,7 @@ class DeviceEngine:
             rows, keyed = Rows(recv1, recv2), True
         arr = k.route_rows(rows, lo, H, keyed, ctl=ctl)
         k.merge_heaps(state, rows, *arr, p, ctl, second=own,
-                      occ_sum=mp.merge_global)
+                      occ_sum=mp.merge_global, fresh=self._fresh)
 
     def next_time(self, state: dict) -> int:
         """Minimum head-event time across hosts (one host sync), across
@@ -730,13 +755,14 @@ class DeviceEngine:
         `win_end` from head time `nxt` (computed when not given);
         returns the next window's start."""
         nt = self.next_time(state) if nxt is None else nxt
+        self._arm()
         if nt < win_end:
             if self._window_ctl is None:
                 self._window_ctl = control_block(self.device, run=1)
             # a stream-ordered fill: no host sync
             self._window_ctl[CTL["win_end"]].fill_(win_end)
         while nt < win_end:
-            self.phase(state, self._window_ctl)
+            self._phase(state, self._window_ctl)
             nt = self.next_time(state)
         return nt
 
@@ -791,6 +817,7 @@ class DeviceEngine:
         stop, final = self._stops(stop, final_stop)
         ctl = self._loop_block(stop, final)
         words = ctl.cpu().view(-1, len(CTL)).tolist()
+        self._arm()
         if self.mesh is not None:
             self.mesh.reset_counters()
 
@@ -807,7 +834,7 @@ class DeviceEngine:
                 self.kernels.audit_round(state, ctl)
             if all(w[CTL["done"]] for w in words):
                 break
-            self.phase(state, ctl)
+            self._phase(state, ctl)
             words, syncs = step(False), syncs + 1
         rounds = self._loop_result(words if self.replicas else words[0],
                                    "python", syncs)
@@ -834,7 +861,7 @@ class DeviceEngine:
         K8 (which runs where K9 ended a round)."""
         k = self.kernels
         for _ in range(n):
-            self.phase(state, ctl)
+            self._phase(state, ctl)
             k.loop_control(state, ctl)
             if self.config.audit:
                 k.audit_round(state, ctl)
@@ -864,6 +891,7 @@ class DeviceEngine:
                 "the captured window loop cannot run in timing mode: "
                 "run_python times each launch")
         ctl = self._loop_block(stop, final)
+        self._arm()
         k.loop_control(state, ctl, start=True)
         self._slots(state, ctl, slots)
         words = ctl.cpu()

@@ -330,6 +330,16 @@ def control_block(device, replicas: Optional[int] = None,
                         dtype=torch.int64, device=device)
 
 
+def merge_flags(device, replicas: int = 1) -> torch.Tensor:
+    """K3's words of an engine, [2, R] int32: a replica's fresh word (a
+    state entered from outside: the next merge checks every heap's
+    order and clears it), and a word the merge keeps zero between
+    launches (a heap past INF seen)."""
+    flags = torch.zeros((2, replicas), dtype=torch.int32, device=device)
+    flags[0] = 1
+    return flags
+
+
 # ----------------------------------------------------------------------
 # the replica axis of an ensemble campaign
 # ----------------------------------------------------------------------
@@ -956,6 +966,24 @@ def route_plain(ob: dict):
     edges = torch.searchsorted(
         skey_s, torch.arange(H + 1, dtype=torch.int64, device=dev) * span)
     return perm, edges[:-1].contiguous(), (edges[1:] - edges[:-1])
+
+
+# the radix sort's tile and passes (csrc/route.cu TILE, BINS,
+# MAX_PASSES, CTR_N)
+ROUTE_TILE, ROUTE_BINS, ROUTE_MAX_PASSES, ROUTE_CTRS = 2048, 256, 8, 19
+
+
+def route_work_words(F: int, keyed: bool) -> int:
+    """int64 words of K5's scratch a replica at F rows (csrc/route.cu
+    `work_words`, which checks it): two buffers of the rows in flight
+    (destination and index int32, keyed their int64 key too), look-back
+    status (int32 a compaction tile of 4 * ROUTE_TILE rows, and two
+    arrays of BINS a pass tile), the passes' histograms and the
+    counters."""
+    nt = -(-F // ROUTE_TILE)
+    u32 = 4 * F + -(-F // (4 * ROUTE_TILE)) + 2 * nt * ROUTE_BINS + \
+        ROUTE_MAX_PASSES * ROUTE_BINS + ROUTE_CTRS
+    return (2 * F if keyed else 0) + (u32 + 1) // 2
 
 
 # ----------------------------------------------------------------------
@@ -1619,17 +1647,16 @@ _SIGNATURES = {
                            [_P, _T, _P, _I, _I, _I, _P, _P],
     # R, H, OB, V, ob t k m, host_vertex, path_cnt, ctl, stream
     "shadow_count_paths": [_I] * 4 + [_P] * 3 + [_P] * 4,
-    # R, F, ND, lo, keyed, rows, perm starts counts, scratch cursor
-    # block_sums, ctl, stream
-    "shadow_route": [_I, _L, _I, _I, _I, _RW] + [_P] * 3 + [_P] * 3 +
+    # R, F, ND, lo, keyed, rows, perm starts counts, work, words, ctl,
+    # stream
+    "shadow_route": [_I, _L, _I, _I, _I, _RW] + [_P] * 3 + [_P, _L] +
                     [_P] * 2,
-    "shadow_route_scan_blocks": [_I],
     # R, H, E, IN, ht hk hm hv hw head, rows perm starts counts (F),
     # second rows perm starts counts (F2; null rows: one block),
-    # occ_sum, overflow occ_in occ_heap, ctl, stream
+    # occ_sum, overflow occ_in occ_heap, ctl, flags, work, stream
     "shadow_merge_heaps": [_I] * 4 + [_P] * 6 + [_RW] + [_P] * 3 + [_L] +
                           [_RW] + [_P] * 3 + [_L] + [_I] + [_P] * 3 +
-                          [_P] * 2,
+                          [_P] * 4,
     # F, S, shard, H_loc, OB, CAP, C, rows, perm starts counts, send,
     # x_overflow occ_x, stream
     "shadow_pack_remote": [_L] + [_I] * 6 + [_RW] + [_P] * 3 + [_P] * 3 +
@@ -1760,12 +1787,15 @@ class Kernels:
                              f"{tuple(key.shape)}")
         return _ptr(key), [(key, torch.int64)]
 
-    def _scratch_of(self, key: str, n: int, dev) -> torch.Tensor:
-        """An int64 scratch vector of `n` words on `dev`, allocated once
-        (a captured graph holds its address)."""
+    def _scratch_of(self, key: str, n: int, dev, zero: bool = False,
+                    dtype=torch.int64) -> torch.Tensor:
+        """A scratch vector of `n` words on `dev`, allocated once (a
+        captured graph holds its address); `zero`: zeroed when
+        allocated."""
         k = (key, n, dev)
         if k not in self._scratch:
-            self._scratch[k] = torch.empty(n, dtype=torch.int64, device=dev)
+            self._scratch[k] = (torch.zeros if zero else torch.empty)(
+                n, dtype=dtype, device=dev)
         return self._scratch[k]
 
     def _launch(self, name: str, c_name: str, tensors, *args) -> None:
@@ -2013,14 +2043,17 @@ class Kernels:
         R = (ob_replicas(r0) if isinstance(r0, dict) else None)
         dev = rows.device
         lead = () if R is None else (R,)
-        lib = self.library()
         F = rows.n
-        # scattered rows, cursors, and the scan's block totals, per
-        # replica
+        if F >= 1 << 30:
+            raise ValueError(f"{name}: {F} rows; the route takes fewer "
+                             "than 2^30")
+        # the radix sort's buffers, look-back status, histograms and
+        # counters, per replica (every call leaves all but the buffers
+        # zero)
         n = R or 1
-        scratch = [self._scratch_of(k, m, dev) for k, m in (
-            ("route_rows", n * F), ("route_cursor", n * nd),
-            ("route_block_sums", n * lib.shadow_route_scan_blocks(nd)))]
+        words = route_work_words(F, keyed)
+        work = self._scratch_of("route_work_keyed" if keyed else
+                                "route_work", n * words, dev, zero=True)
         if out is None:
             out = tuple(torch.empty((*lead, m), dtype=torch.int64,
                                     device=dev) for m in (F, nd, nd))
@@ -2033,10 +2066,10 @@ class Kernels:
         c, ctl_checks = _ctl_args(ctl, R)
         self._launch(
             name, "shadow_route",
-            checks + [(t, torch.int64) for t in list(out) + scratch]
+            checks + [(t, torch.int64) for t in list(out) + [work]]
             + ctl_checks,
             n, F, nd, lo, int(keyed), ctypes.byref(args), *map(_ptr, out),
-            *map(_ptr, scratch), c)
+            _ptr(work), words, c)
         return tuple(out)
 
     def merge_heaps(self, state: dict, ob, perm: torch.Tensor,
@@ -2044,11 +2077,15 @@ class Kernels:
                     p: PhaseParams,
                     ctl: Optional[torch.Tensor] = None,
                     second: Optional[tuple] = None,
-                    occ_sum: bool = False) -> None:
+                    occ_sum: bool = False,
+                    fresh: Optional[torch.Tensor] = None) -> None:
         """K3 (merge_heaps_plain on the CPU): the arrivals of `ob` (an
         outbox or a Rows) through the route's (perm, starts, counts);
         with `second` = (rows, perm, starts, counts) a second block,
-        counted as `merge_heaps2`."""
+        counted as `merge_heaps2`. `fresh`: the engine's [2, R] int32
+        words (`merge_flags`), whose first row says whether the heaps
+        may have been edited since the last merge; without them every
+        host's heap is checked for order."""
         def as_rows(x):
             return x if isinstance(x, Rows) else Rows(x)
 
@@ -2076,13 +2113,24 @@ class Kernels:
         if second is None:
             blocks.append((None, None, None, None, 0))
         c, ctl_checks = _ctl_args(ctl, R)
+        if fresh is not None and fresh.shape != (2, R or 1):
+            raise ValueError(f"merge_heaps: fresh words [2, {R or 1}], "
+                             f"not {tuple(fresh.shape)}")
+        # the listed hosts' count, the blocks done and the list, per
+        # replica (zero between launches but the list)
+        work = self._scratch_of("merge_list", (R or 1) * (2 + H),
+                                heap[0].device, zero=True,
+                                dtype=torch.int32)
         self._launch(
             "merge_heaps2" if second is not None else "merge_heaps",
             "shadow_merge_heaps",
             [(t, torch.int64) for t in heap[:5]] + checks
-            + [(t, torch.int32) for t in heap[5:] + occ] + ctl_checks,
+            + [(t, torch.int32) for t in heap[5:] + occ + [work]]
+            + ctl_checks + ([] if fresh is None
+                            else [(fresh, torch.int32)]),
             R or 1, H, p.E, p.IN, *map(_ptr, heap), *blocks[0],
-            *blocks[1], int(occ_sum), *map(_ptr, occ), c)
+            *blocks[1], int(occ_sum), *map(_ptr, occ), c,
+            None if fresh is None else _ptr(fresh), _ptr(work))
 
     def pack_remote(self, state: dict, ob: dict, perm: torch.Tensor,
                     starts: torch.Tensor, counts: torch.Tensor,

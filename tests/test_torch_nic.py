@@ -487,6 +487,7 @@ def test_footprint_prices_the_nic_leaves_ready_column_and_counters(name):
     the engine allocates: the seven NIC leaves, path_cnt, and the
     outbox with its READY column."""
     from shadow_tpu_torch.config import load_config_str
+    from shadow_tpu_torch.device import kernels as K
     from shadow_tpu_torch.device import runner
 
     text, overrides = RUNS[name]
@@ -501,8 +502,8 @@ def test_footprint_prices_the_nic_leaves_ready_column_and_counters(name):
     H, OB = pops.shape[0], engine.params.OB
     assert OB == engine.params.B * (engine.params.K + engine.params.T + 1)
     assert sum(t.numel() * t.element_size() for t in ob.values()) + \
-        pops.numel() * 4 + 2 * H * OB * 8 + 4 * H * 8 == \
-        est["scratch_bytes"]
+        pops.numel() * 4 + (H * OB + 2 * H + K.route_work_words(
+            H * OB, False)) * 8 + (2 + H) * 4 == est["scratch_bytes"]
     world = sum(t.numel() * t.element_size() for k, v in
                 engine.world.items()
                 for t in (v if isinstance(v, tuple) else (v,)))
