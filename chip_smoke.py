@@ -53,9 +53,19 @@ Phases, in order; any failure exits non-zero before the last line:
      live row of a 3,000,000-row outbox to one destination, an empty
      outbox, 1,000,000 destinations, keyed rows in S = 4 peer runs
      (K5's keyed mode), every output bit for bit;
-   - K5, then K3, on one real phase's inputs (`real_phase_rows`):
-     phold (100,000 hosts), tor_large and phold_1m_hier paused half
-     way by the graph loop, one more phase popped and judged;
+   - the pop and K2, then K5 and K3, on one real phase's inputs
+     (`real_phase_rows`): phold (100,000 hosts), tgen_10000, tor_large
+     and phold_1m_hier paused half way by the graph loop; the pop and K2
+     on the engine's own buffers as its last phase left them (outbox,
+     pop counts, outbox word), with the shares of hosts that pop, rows
+     cleared and rows left, the pop clearing every row and K2 judging
+     every host beside them, K2 as a warp a host; then that
+     phase popped and judged, routed and merged;
+   - the pop and K2 where the outbox is hardest (`outbox_adversarial`,
+     on phold's paused state): every cell and pop count random under a
+     set outbox word; every host popped last phase and none now; K2 on
+     rows copied in from outside with pop counts 0 (a mesh rank's
+     `flush_phases`), which must judge every host;
    - the `_hier` instantiations, which look the path tables up in two
      levels (the reference's `gather_parts`): K1 and K2 on the factored
      tables of examples/tgen_1000000.yaml (V=1,000,200, C=200) at its
@@ -199,7 +209,9 @@ Phases, in order; any failure exits non-zero before the last line:
    capacity.FOOTPRINT_TOLERANCE of its admission estimate.
 5. mesh: the host mesh, S ranks spawned on device 0 over gloo (the
    check's machine shows one card; `torch.cuda.device_count()` is
-   printed): parity (`mesh_parity`): PHOLD 2 x 1,000 lossy, the tgen
+   printed): `runner.flush_phases` (`mesh_flush`: rows of a one-card
+   pop copied into each rank's outbox, pop counts 0) on 2 card ranks
+   against 2 CPU ranks, every leaf; parity (`mesh_parity`): PHOLD 2 x 1,000 lossy, the tgen
    config at loss 0.25, tor_small cut to TOR_PARITY_STOP and the star
    with link faults, each under all_to_all, two_phase and all_gather,
    window and global merges, at S = 4 (at S = 2 three of them), held
@@ -2218,15 +2230,227 @@ def flush_adversarial(torch, K, scratch, rng, dev):
     return out
 
 
-# the full runs whose real phase K5 and K3 run on: a state paused half
-# way, popped and judged once more
-REAL_PHASES = ("phold", "tor_large", "phold_1m_hier")
+# the full runs whose real phase the pop, K2, K5 and K3 run on: a state
+# paused half way, its engine's buffers as its last phase left them
+REAL_PHASES = ("phold", "tgen_10000", "tor_large", "phold_1m_hier")
+
+
+def same_bytes(torch, a: dict, b: dict) -> float:
+    """max_abs_err over every common key of two dicts of tensors."""
+    return max_abs_err(a, b, [k for k in a if k in b])
+
+
+def outbox_kernel_names(K, engine) -> tuple:
+    """The launch names of an engine's pop and K2."""
+    from shadow_tpu_torch.device.apps import TgenDevice, TorDevice
+
+    p, world = engine.params, engine.world
+    flags = (world["epoch_times"].shape[-1] > 1,
+             isinstance(world["lat"], tuple))
+    app = ("pop_tgen" if isinstance(p.app, TgenDevice) else "pop_tor"
+           if isinstance(p.app, TorDevice) else "pop_phase")
+    return (K.launch_name(app, p.MB, *flags, p.AUD),
+            K.launch_name("judge_outbox", False, *flags))
+
+
+def pop_judge_case(torch, K, engine, state, ob, pops, word, ctl, what):
+    """The pop and K2 of one phase on (state, outbox, pop counts, outbox
+    word): each against its plain version, bit for bit (every state
+    leaf, outbox field, pop count and the word); returns (the pop's and
+    K2's launch names, the kernels' state, outbox, pops and word after
+    the pop, the Kernels that ran them)."""
+    p, world = engine.params, engine.world
+    kk = K.Kernels()
+    got = [clone(state), clone(ob), pops.clone(), word.clone()]
+    want = [clone(state), clone(ob), pops.clone(), word.clone()]
+    kk.pop(got[0], got[1], got[2], world, ctl, p, got[3])
+    K.pop_plain(want[0], want[1], want[2], world, ctl, p, want[3])
+    torch.cuda.synchronize()
+    err = max(same_bytes(torch, got[0], want[0]),
+              same_bytes(torch, got[1], want[1]),
+              same_bytes(torch, {"pops": got[2], "word": got[3]},
+                         {"pops": want[2], "word": want[3]}))
+    pop_name, judge_name = outbox_kernel_names(K, engine)
+    check(err == 0.0, f"{pop_name} ({what}) differs from its plain "
+          f"version (max abs err {err})")
+    js, jo = clone(got[0]), clone(got[1])
+    ps, po = clone(want[0]), clone(want[1])
+    kk.judge_outbox(js, jo, world, ctl, p, got[2], got[3].clone())
+    K.judge_outbox_plain(ps, po, world, ctl, p)
+    torch.cuda.synchronize()
+    jerr = max(same_bytes(torch, js, ps), same_bytes(torch, jo, po))
+    check(not js["head"].is_cuda or (kk.launches[pop_name] > 0 and
+                                     kk.launches[judge_name] > 0),
+          f"{what}: {pop_name} or {judge_name} never launched")
+    check(jerr == 0.0, f"{judge_name} ({what}) differs from its plain "
+          f"version (max abs err {jerr})")
+    return pop_name, judge_name, err, jerr, got, kk
+
+
+def outbox_rows(torch, K, engine, state, ctl, what):
+    """The pop and K2 on the engine's own buffers after its last phase
+    (outbox, pop counts and outbox word as the graph loop left them),
+    each against its plain version and timed; beside them the pop
+    clearing every row (no word: what an unknown buffer costs) and K2
+    judging every host, and K2 as a grid of a warp a host that exits
+    where its host popped nothing, in place of its list.
+    Shares: hosts that pop, rows the rule clears, rows it leaves. The
+    bounds count what any pop that keeps the outbox between phases must
+    move: each host's head time and pop count, the popped hosts' heap
+    rows and counters, and the outbox words that change."""
+    p, world = engine.params, engine.world
+    ob, pops, _ = engine._buffers()
+    word = engine._outside
+    check(word is not None and not bool(word.any()),
+          f"{what}: the outbox word is set after a run")
+    s0, ob0, pops0, word0 = clone(state), clone(ob), pops.clone(), \
+        word.clone()
+    pop_name, judge_name, err, jerr, got, kk = pop_judge_case(
+        torch, K, engine, s0, ob0, pops0, word0, ctl, what)
+    sk, obk, pk, wk = got
+    H, OB = ob0["t"].shape
+
+    def pop_args(with_word=True):
+        return (clone(s0), clone(ob0), pops0.clone(), world, ctl, p,
+                word0.clone() if with_word else None)
+
+    def judge_args(skip=True):
+        return (clone(sk), clone(obk), world, ctl, p,
+                *((pk, wk.clone()) if skip else ()))
+
+    popped_hosts = int((pk != 0).sum())
+    cleared = int((pops0 != 0).sum())
+    changed = sum(int((ob0[f] != obk[f]).sum()) for f in K.OB_FIELDS)
+    events = int(((sk["n_exec"].long() - s0["n_exec"].long())
+                  & 0xFFFFFFFF).sum())
+    draws = (int(((sk["app_seq"].long() - s0["app_seq"].long())
+                  & 0xFFFFFFFF).sum()) if "app_seq" in s0 else 0)
+    shares = {"popped": popped_hosts / H, "cleared": cleared / H,
+              "left": 1 - cleared / H}
+    shape = (f"{what}: H={H} OB={OB} hosts popped {popped_hosts}, rows "
+             f"cleared {cleared}, left {H - cleared}, events {events}, "
+             f"outbox words changed {changed}")
+    pop_row = finish({
+        "err": err, "shape": shape, "outbox_shares": shares,
+        "ms": time_median(torch, kk.pop, pop_args, 7),
+        "plain_ms": time_median(torch, K.pop_plain, pop_args, 3),
+        "clear_all_ms": time_median(torch, kk.pop,
+                                    lambda: pop_args(False), 7),
+        # head and pop count read, the head time; the popped hosts'
+        # counters read and written, their popped heap rows (t, key,
+        # meta, d2), the pop counts and outbox words that change
+        "bytes": (H * 16 + popped_hosts * (7 * 4 + 8) * 2 + events * 32
+                  + int((pk != pops0).sum()) * 4 + changed * 8),
+        "ops": 2 * draws * THREEFRY_OPS})
+    is_send = (obk["t"] < K.INF) & ((obk["m"] & 0xFF) == 2)
+    sends = int(is_send.sum())
+    packets = int(torch.where(is_send, (obk["m"] & K.U32) >> 8, 0).sum())
+    judge_row = {
+        "err": jerr, "shape": f"{shape}; sends {sends} packets "
+                              f"{packets}",
+        "outbox_shares": shares,
+        "ms": time_median(torch, kk.judge_outbox, judge_args, 7),
+        "plain_ms": time_median(torch, K.judge_outbox_plain,
+                                lambda: judge_args(False), 3),
+        "every_host_ms": time_median(torch, kk.judge_outbox,
+                                     lambda: judge_args(False), 7),
+        # pop counts read; t of the popped hosts' rows; m and v of each
+        # send row read, t/m/v written; packet_seq, n_sent and n_drop of
+        # the popped hosts
+        "bytes": (H * 4 + popped_hosts * OB * 8 + sends * 5 * 8
+                  + popped_hosts * 12 * 2),
+        "ops": 2 * packets * THREEFRY_OPS}
+    kk.judge_listed = False
+    judge_row["a_warp_a_host_ms"] = time_median(torch, kk.judge_outbox,
+                                                judge_args, 7)
+    return {pop_name: pop_row, judge_name: finish(judge_row)}
+
+
+def outbox_adversarial(torch, K, engine, state, ctl, rng):
+    """The pop and K2 where the outbox is hardest, on a real phase's
+    state (the engine paused half way), each bit-equal to its plain
+    version: every cell and pop count random under a set outbox word
+    (every row cleared, the word cleared, K2 then skipping by the new
+    counts); every host popped last phase (rows random) and none pops
+    now (window end 0: every row cleared, K2 skips every host); and K2
+    on rows copied in from outside with pop counts 0 under the word
+    (a mesh rank's `flush_phases`), which must judge every host."""
+    dev = state["head"].device
+    ob, pops, _ = engine._buffers()
+    H, OB = ob["t"].shape
+
+    def garbage():
+        return {f: torch.from_numpy(rng.integers(
+            -2**63, 2**63 - 1, (H, OB), dtype=np.int64)).to(dev)
+            for f in K.OB_FIELDS}
+
+    rows = {}
+    zero = K.control_block(dev, run=1, win_end=0)
+    for case, (obx, popsx, set_word, c) in {
+        "garbage under the outbox word": (
+            garbage(), torch.from_numpy(rng.integers(
+                -2**31, 2**31 - 1, H).astype(np.int32)).to(dev), 1, ctl),
+        "every host popped last phase, none now": (
+            garbage(), torch.ones(H, dtype=torch.int32, device=dev), 0,
+            zero)}.items():
+        word = K.outbox_word(dev)
+        word[0] = set_word
+        pop_name, judge_name, err, jerr, got, kk = pop_judge_case(
+            torch, K, engine, state, obx, popsx, word, c, case)
+        check(not bool(got[3].any()), f"{case}: the word stays set")
+        if c is zero:
+            check(bool((got[1]["t"] == K.INF).all()) and not bool(
+                got[2].any()), f"{case}: a row or a pop count is left")
+
+        def pop_args():
+            return (clone(state), clone(obx), popsx.clone(), engine.world,
+                    c, engine.params, word.clone())
+
+        rows[case] = {pop_name: finish({
+            "err": err, "shape": f"{case}: H={H} OB={OB}",
+            "ms": time_median(torch, kk.pop, pop_args, 7),
+            "plain_ms": time_median(torch, K.pop_plain, pop_args, 3),
+            "bytes": H * OB * 5 * 8 + H * 16, "ops": 0})}
+    # rows from outside: the real phase's popped outbox, pop counts 0
+    word = K.outbox_word(dev)
+    _, _, _, _, got, _ = pop_judge_case(torch, K, engine, state, ob,
+                                        pops, word, ctl, "rows to copy")
+    sk, obk = got[0], got[1]
+    is_send = (obk["t"] < K.INF) & ((obk["m"] & 0xFF) == 2)
+    check(bool(is_send.any()), "flush_phases case: no send row")
+    zeros = torch.zeros(H, dtype=torch.int32, device=dev)
+    kk = K.Kernels()
+    ks, ko = clone(sk), clone(obk)
+    kk.judge_outbox(ks, ko, engine.world, ctl, engine.params, zeros,
+                    K.outbox_word(dev))
+    ps, po = clone(sk), clone(obk)
+    K.judge_outbox_plain(ps, po, engine.world, ctl, engine.params)
+    torch.cuda.synchronize()
+    jerr = max(same_bytes(torch, ks, ps), same_bytes(torch, ko, po))
+    judge_name = outbox_kernel_names(K, engine)[1]
+    check(jerr == 0.0, f"{judge_name} on rows from outside differs from "
+          f"its plain version (max abs err {jerr})")
+    rows["rows from outside, pop counts 0 (flush_phases)"] = {
+        judge_name: finish({
+            "err": jerr, "shape": f"H={H} OB={OB} hosts with send rows "
+                                  f"{int(is_send.any(1).sum())}",
+            "ms": time_median(torch, kk.judge_outbox, lambda: (
+                clone(sk), clone(obk), engine.world, ctl, engine.params,
+                zeros, K.outbox_word(dev)), 7),
+            "plain_ms": time_median(torch, K.judge_outbox_plain, lambda: (
+                clone(sk), clone(obk), engine.world, ctl, engine.params),
+                3),
+            "bytes": H * OB * 8 + int(is_send.sum()) * 5 * 8 + H * 16,
+            "ops": 0})}
+    return rows
 
 
 def real_phase_rows(torch, K, scratch, dev):
-    """K5, then K3, on one real phase's inputs of each of REAL_PHASES:
-    the run paused at half its stop time by the graph loop, one more
-    phase's pops and judge (window end: the next head time plus the
+    """On one real phase's inputs of each of REAL_PHASES: the run paused
+    at half its stop time by the graph loop, then the pop and K2 on the
+    engine's own buffers as its last phase left them (`outbox_rows`;
+    for phold also `outbox_adversarial`), then that phase's pops and
+    judge on the engine (window end: the next head time plus the
     lookahead), then the route and the merge of that judged outbox
     against their plain versions, the merge trusting the heaps' order
     (as the main path does after a run's first merge) and checking
@@ -2234,7 +2458,8 @@ def real_phase_rows(torch, K, scratch, dev):
     sorted in full, from head and the counts."""
     from shadow_tpu_torch.device import runner
 
-    out = {}
+    out, adversarial = {}, {}
+    rng = np.random.default_rng(11)
     for name in REAL_PHASES:
         _, example, overrides, _ = next(r for r in FULL_RUNS
                                         if r[0] == name)
@@ -2244,12 +2469,20 @@ def real_phase_rows(torch, K, scratch, dev):
         stop = int(engine.config.stop_time)
         engine.run(state, stop=stop // 2, final_stop=stop)
         nt = engine.next_time(state)
+        check(nt < K.INF, f"{name}: no event left half way")
         p = engine.params
         ctl = K.control_block(dev, run=1, win_end=nt + max(
             1, int(engine.config.lookahead)))
+        rows = outbox_rows(torch, K, engine, state, ctl,
+                           f"{name}'s phase at {nt} ns")
+        if name == "phold":
+            adversarial = outbox_adversarial(torch, K, engine, state, ctl,
+                                             rng)
         ob, pops, _ = engine._buffers()
-        engine.kernels.pop(state, ob, pops, engine.world, ctl, p)
-        engine.kernels.judge_outbox(state, ob, engine.world, ctl, p)
+        engine.kernels.pop(state, ob, pops, engine.world, ctl, p,
+                           engine._outside)
+        engine.kernels.judge_outbox(state, ob, engine.world, ctl, p, pops,
+                                    engine._outside)
         torch.cuda.synchronize()
         row, route = route_check(torch, K, scratch, ob, f"{name}'s phase "
                                  f"at {nt} ns", p.IN)
@@ -2257,10 +2490,10 @@ def real_phase_rows(torch, K, scratch, dev):
         m = merge_row(torch, K, scratch, state, ob, route, p, err,
                       f"{name}'s phase at {nt} ns: "
                       f"H={state['head'].shape[0]} E={p.E} IN={p.IN}")
-        out[name] = {"route": row, "merge_heaps": m}
+        out[name] = {**rows, "route": row, "merge_heaps": m}
         del engine, state, ob
         torch.cuda.empty_cache()
-    return out
+    return out, adversarial
 
 
 def add_audit(torch, K, rng, state, p):
@@ -3542,7 +3775,8 @@ def kernels_phase(torch, report, H=100_000, dev="cuda"):
     replicas.update(compact_r4)
     mesh = mesh_kernels(torch, K, scratch, rng, dev)
     adversarial = flush_adversarial(torch, K, scratch, rng, dev)
-    real = real_phase_rows(torch, K, scratch, dev)
+    real, outbox_adv = real_phase_rows(torch, K, scratch, dev)
+    adversarial.update(outbox_adv)
     flush = {}
     for where, cases in (("adversarial", adversarial),
                          ("on_real_phases", real)):
@@ -3558,6 +3792,16 @@ def kernels_phase(torch, report, H=100_000, dev="cuda"):
                           f"checking every heap {r['checked_ms']:.4f} ms "
                           f"(bound {1e3 * r['checked_bytes'] / HBM_BYTES_PER_S:.4f} ms)",
                           flush=True)
+                if "outbox_shares" in r:
+                    sh = r["outbox_shares"]
+                    extra = ", ".join(
+                        f"{k.replace('_', ' ')} {v:.4f} ms"
+                        for k, v in r.items() if k.endswith("_ms")
+                        and k not in ("ms", "plain_ms", "bound_ms"))
+                    print(f"[kernels] {kname} ({case}): hosts popped "
+                          f"{sh['popped']:.4f}, rows cleared "
+                          f"{sh['cleared']:.4f}, left {sh['left']:.4f}; "
+                          f"{extra}", flush=True)
                 sub = flush.setdefault(kname, {}).setdefault(
                     where, {"err": 0.0, "rows": {}})
                 sub["rows"][case] = r
@@ -3631,6 +3875,10 @@ def kernels_phase(torch, report, H=100_000, dev="cuda"):
                         **flush["merge_heaps"]},
         "route": {**route["phold"], "at_tgen_shape": route["tgen"],
                   "at_tor_shape": route["tor"], **flush["route"]}})
+    # the pops' and K2's real-phase and adversarial rows
+    for kname, sub in flush.items():
+        if kname.startswith(("pop_", "judge_outbox")):
+            report[kname].update(sub)
     report["route_keyed"]["adversarial"] = flush["route_keyed"][
         "adversarial"]
 
@@ -4646,6 +4894,7 @@ PROFILE_ATTEMPTS = 2
 # starts each of its functions once, K5's pass kernel once a pass.
 FUNCTION_KIND = {
     "pop_kernel": "pop_", "judge_outbox_kernel": "judge_outbox",
+    "judge_scan_kernel": "judge_outbox",
     "count_paths_kernel": "count_paths",
     "phase_tally_kernel": "phase_tally",
     **dict.fromkeys(("route_compact_kernel", "route_pass_kernel",
@@ -5045,12 +5294,61 @@ def mesh_full(torch, card, report):
     report["_mesh_full"] = runs
 
 
+def mesh_flush(torch, report):
+    """`runner.flush_phases` (one flush of rows copied into each rank's
+    outbox, pop counts 0, the outbox word set by the flush) on 2 ranks on
+    device 0 against the same 2 ranks on the CPU plain path: every leaf
+    equal, so K2 judged every host. The job: the mesh's PHOLD config
+    paused at half its stop time on one card, popped once."""
+    from shadow_tpu_torch.device import kernels as K
+    from shadow_tpu_torch.device import mesh, runner
+    from shadow_tpu_torch.device.engine import state_to_numpy
+
+    key, what, load, _ = mesh_parity_configs()[0]
+    S = 2
+    K.build_library()
+    cfg = load(mesh_overrides(S, "all_to_all", "window"))
+    engine, sim = runner.make_engine(load(()), device="cuda")
+    state = engine.init_state(sim.start_times, sim.stop_times)
+    stop = int(engine.config.stop_time)
+    engine.run(state, stop=stop // 2, final_stop=stop)
+    win_end = engine.next_time(state) + max(1, int(engine.config.lookahead))
+    ob, pops, _ = engine._buffers()
+    engine.kernels.pop(state, ob, pops, engine.world,
+                       K.control_block(engine.device, run=1,
+                                       win_end=win_end), engine.params)
+    leaves = state_to_numpy(state)
+    for k in ("occ_x", "occ_trips", "occ_phases"):
+        v = leaves[k]
+        leaves[k] = np.zeros((S, S) if v.ndim == 2 else (S,), v.dtype)
+    rows = {f: v.cpu().numpy() for f, v in ob.items()}
+    sends = int(((rows["t"] < K.INF) & ((rows["m"] & 0xFF) == 2)).sum())
+    check(sends > 0, "mesh flush: no send row to judge")
+    job = [(cfg, leaves, rows, win_end)]
+    got = {dev: mesh.spawn([dev] * S, runner.flush_phases, (job,),
+                           timeout=300)[0] for dev in ("cuda:0", "cpu")}
+    err = max_abs_err({k: torch.from_numpy(v) for k, v in
+                       got["cuda:0"].items()},
+                      {k: torch.from_numpy(v) for k, v in
+                       got["cpu"].items()}, list(got["cpu"]))
+    check(err == 0.0, f"mesh flush ({what}, S={S}): card and CPU ranks "
+          f"differ (max abs err {err})")
+    print(f"[mesh] flush_phases ({what}, S={S}, {sends} send rows copied "
+          f"in, pop counts 0): card ranks equal to CPU ranks in every "
+          f"leaf", flush=True)
+    if "judge_outbox" in report:
+        report["judge_outbox"].setdefault("adversarial", {
+            "err": 0.0, "rows": {}})["rows"]["mesh flush_phases"] = {
+                "err": err, "sends": sends}
+
+
 def mesh_phase(torch, card, report):
     from shadow_tpu_torch.device.mesh import mesh_backend
 
     print(f"[mesh] torch.cuda.device_count() = {torch.cuda.device_count()}; "
           f"S ranks on device 0 take the {mesh_backend(['cuda:0'] * 2)} "
           "backend", flush=True)
+    mesh_flush(torch, report)
     mesh_parity(torch, report)
     mesh_full(torch, card, report)
 
@@ -5159,12 +5457,15 @@ def pop_times(torch) -> dict:
     PHOLD_1M_HUB_LOSS), K4 at tgen_10000's layout at 100,000 hosts
     (`tgen_inputs`), K6 at tor_large's (`tor_inputs`), K3, K5 and
     phase_tally at the PHOLD shapes (a random outbox), K8 at 100,000
-    and 1,000,000 hosts and K9 at 1,000,000 (`audit_inputs`); then the
-    device ms per launch of K1_hier, K2_hier, K5, K3 and phase_tally on
-    the main path's own data, phold_1m_hier in timing mode, and of the
-    pop, K2, K5, K3 and phase_tally on tgen_10000, tor_small and
-    tor_large as shipped; through the API the window loop's control
-    block brought, so that `--ab` can time another commit's package."""
+    and 1,000,000 hosts and K9 at 1,000,000 (`audit_inputs`); where the
+    package has outbox words, K1 and K1_hier again over rows already
+    clear (the pop's own stores, without the clear); then the device ms
+    per launch of K1_hier, K2_hier, K5, K3 and phase_tally on the main
+    path's own data, phold_1m_hier in timing mode, and of the pop, K2,
+    K5, K3 and phase_tally on phold (2 x 50,000 hosts), tgen_10000,
+    tor_small and tor_large as shipped; through the API the window
+    loop's control block brought, so that `--ab` can time another
+    commit's package."""
     from shadow_tpu_torch.device import kernels as K
     from shadow_tpu_torch.device.apps import PholdDevice
     from shadow_tpu_torch.device.prng import seed_key
@@ -5208,6 +5509,18 @@ def pop_times(torch) -> dict:
 
         out[name] = time_median(torch, scratch.pop, args, 15)
         check(scratch.launches[name] > 0, f"{name} never launched")
+        if hasattr(K, "outbox_word"):
+            # the same pops over rows already clear, no host popped
+            # last phase: the pop's own stores alone, without the clear
+            def unclear():
+                a = args()
+                for f in K.OB_FIELDS:
+                    a[1][f].fill_(K.INF if f == "t" else 0)
+                a[2].zero_()
+                return (*a, K.outbox_word(dev).zero_())
+
+            out[f"{name}, rows already clear"] = time_median(
+                torch, scratch.pop, unclear, 15)
         if name == "pop_phase":
             # K2 on K1's outbox
             judged = args()
@@ -5284,12 +5597,15 @@ def pop_times(torch) -> dict:
             timed.launches[k]
     out["pop_phase_hier on phold_1m_hier, launches"] = \
         timed.launches["pop_phase_hier"]
-    # tgen_10000, tor_small and tor_large as shipped, in timing mode
-    for example, pop in (("tgen_10000.yaml", "pop_tgen"),
-                         ("tor_small.yaml", "pop_tor"),
-                         ("tor_large.yaml", "pop_tor")):
+    # phold (2 x 50,000 hosts), tgen_10000, tor_small and tor_large as
+    # shipped, in timing mode
+    phold_ovr = next(r[2] for r in FULL_RUNS if r[0] == "phold")
+    for example, pop, ovr in (("phold.yaml", "pop_phase", phold_ovr),
+                              ("tgen_10000.yaml", "pop_tgen", ()),
+                              ("tor_small.yaml", "pop_tor", ()),
+                              ("tor_large.yaml", "pop_tor", ())):
         timed = K.Kernels(timing=True)
-        runner.run(full_config(example, ()), "cuda", kernels=timed)
+        runner.run(full_config(example, ovr), "cuda", kernels=timed)
         ms = timed.kernel_ms()
         for k in (pop, "judge_outbox", "route", "merge_heaps",
                   "phase_tally"):

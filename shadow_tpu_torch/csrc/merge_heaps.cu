@@ -14,10 +14,11 @@
 // count into `overflow`; `occ_in` and `occ_heap` take their high-water
 // marks; head resets to 0.
 //
-// The work follows the hosts that change. A warp owns 32 hosts (a block
-// WARPS of them): each lane reads its host's head and arrival counts,
-// and the warp walks the hosts that changed (head != 0 or arrivals) one
-// at a time, with the row in its own slice of shared memory:
+// The work follows the hosts that change. A scan kernel lists the hosts
+// that changed (head != 0 or arrivals; every host of a fresh state), a
+// warp's by one atomic, and the merge kernel spreads the listed hosts
+// over every warp of its grid, a warp a host, with the row in the warp's
+// own slice of shared memory:
 // - a host with head == 0 and no arrivals keeps its heap: no heap byte
 //   moves;
 // - a changed host merges. Its live tail [head, E) is already sorted by

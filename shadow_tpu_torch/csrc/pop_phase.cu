@@ -97,17 +97,38 @@
 // to 13%, PERF.md). The body is the standalone pop: a replica's result
 // does not depend on R or on the other replicas.
 //
-// Bound on the H100: bytes. Per host it reads the popped heap rows and a
-// few counters and writes its outbox row: t of every column, which marks
-// the unused ones, and five fields per send or timer. It writes all five
-// fields of every column, zeros where unused, so it moves more than the
-// bound; PHOLD's threefry draws cost 73 integer ops a block, Tor's routes
-// four blocks a relay packet and two a client REQ; the model NIC adds
-// seven int64 leaves read and written per host and two threefry blocks a
-// packet for the in-step drop rolls. Design for correctness first: one
-// thread per host writes its row with a stride of OB*8 bytes between
-// neighbouring threads, so stores are not coalesced; a warp-per-host or
-// transposed outbox is later work.
+// The outbox is an engine buffer that outlives a phase, and a row
+// changes only where its host pops: a host that popped nothing in this
+// phase and nothing in the previous one holds (INF, 0, 0, 0, 0) in every
+// column, since the pop cleared its row the last time it popped and the
+// buffer's other writers touch only the live rows of a host that popped
+// (K2 judges its send rows, K11 writes INF into rows it drops, K7 reads).
+// So a host clears its row only where it popped in the previous phase
+// (`pops` read before it is overwritten), or where the rows came from
+// outside the pop: the engine's per-replica outbox word (`ob_word`, [2,
+// R] int32: the word, then a count of the blocks that read it), set by
+// `DeviceEngine._arm` at every entry from outside and by a flush of rows
+// copied into the buffer (device/runner.py `flush_phases`), says so; a
+// launch given no word clears every row. The last block of a replica to
+// read a set word clears it. A host that pops now but not before writes
+// its send and timer columns over a row that is already clear. The
+// clear is a warp's: the lanes write the contiguous slab of the warp's
+// 32 rows, five fields, 32 consecutive words a store, skipping the rows
+// that need none. A host whose head lies at or past the window end then
+// reads nothing more (no app state, no key) and writes only a nonzero
+// pop count back to 0.
+//
+// Bound on the H100: bytes. Per host it reads its head time and pop
+// count; per popping host the popped heap rows and its counters, and it
+// writes the outbox cells that change: a cleared row's live cells, the
+// popped iterations' send and timer rows. PHOLD's threefry draws cost 73
+// integer ops a block, Tor's routes four blocks a relay packet and two a
+// client REQ; the model NIC adds seven int64 leaves read and written per
+// popping host and two threefry blocks a packet for the in-step drop
+// rolls. The clear writes every word of a row it clears (the bound counts
+// only the cells that were not clear); a popping host's own loop stays
+// sequential (the per-host pop order is the semantics), so its send rows
+// are stored by one thread, OB*8 bytes from its neighbours' rows.
 #include <type_traits>
 
 #include "common.cuh"
@@ -691,7 +712,8 @@ struct PopArgs {
     int64_t* chk;
     const int32_t* host_vertex;
     int64_t *ob_t, *ob_k, *ob_m, *ob_s, *ob_v;
-    int32_t* pops;
+    int32_t* pops;          // [R,H]: last phase's iterations, then this one's
+    int32_t* ob_word;       // [2,R] the outbox word, or null: clear all
 };
 
 // The audit's leaves, in the audited instantiations alone.
@@ -723,6 +745,55 @@ constexpr int pop_min_blocks() {
     return std::is_same_v<App, PholdApp> ? 10 : 8;
 }
 
+// Whether replica r's rows came from outside the pop (a null word: the
+// caller does not say, so they may have). Thread 0 of each block reads
+// the word; where it is set, the block counts itself in, and the last
+// block of the replica clears the word and the count: every block has
+// read the word before the count reaches the grid's width.
+__device__ bool outbox_from_outside(int32_t* word, int64_t r) {
+    __shared__ int outside;
+    if (threadIdx.x == 0) {
+        const int w = word == nullptr ? 1 : word[r];
+        if (word != nullptr && w != 0) {
+            __threadfence();
+            unsigned* seen = (unsigned*)&word[gridDim.y + r];
+            if (atomicAdd(seen, 1u) == gridDim.x - 1) {
+                word[r] = 0;
+                *seen = 0;
+            }
+        }
+        outside = w != 0;
+    }
+    __syncthreads();
+    return outside != 0;
+}
+
+// Clear (INF, 0, 0, 0, 0) the rows of this warp's 32 hosts whose lane
+// says `need`: the lanes walk the warp's contiguous slab of 32 * OB words
+// of each field, 32 consecutive words a store, and store only into the
+// rows that need it. Every lane of the warp calls it.
+__device__ void clear_rows(const PopArgs& a, int64_t r, int OB,
+                           bool need) {
+    const unsigned rows = __ballot_sync(0xFFFFFFFFu, need);
+    if (rows == 0 || OB == 0) return;
+    const int lane = threadIdx.x & 31;
+    const int64_t h0 = (int64_t)blockIdx.x * blockDim.x +
+                       (threadIdx.x & ~31);
+    const int64_t base = (r * a.H + h0) * OB;
+    int hl = lane / OB, c = lane - hl * OB;   // word i's row and column
+    for (int i = lane; i < 32 * OB; i += 32) {
+        if ((rows >> hl) & 1u) {
+            a.ob_t[base + i] = INF;
+            a.ob_k[base + i] = 0;
+            a.ob_m[base + i] = 0;
+            a.ob_s[base + i] = 0;
+            a.ob_v[base + i] = 0;
+        }
+        for (c += 32; c >= OB; c -= OB) ++hl;
+    }
+    __syncwarp();
+}
+
 template <class App, class Topo, bool MB, bool AUD>
 __global__ void __launch_bounds__(POP_THREADS,
                                   pop_min_blocks<App, Topo, MB>())
@@ -731,25 +802,36 @@ pop_kernel(PopArgs a, App app, Topo topo0, TopoStrides rs, NicArgs na,
     const int h = blockIdx.x * blockDim.x + threadIdx.x;
     const int64_t r = blockIdx.y;
     const int64_t* ctl = a.ctl + r * CTL_N;
-    if (h >= a.H || ctl[CTL_RUN] == 0) return;
-    // the host's global id: its keys, draws, vertex and columns
-    const int gh = a.g0 + h;
-    const int64_t win_end = ctl[CTL_WIN_END];
+    if (ctl[CTL_RUN] == 0) return;
     const int M = a.K + a.T + (MB ? 1 : 0);
     const int OB = a.B * M;
-    // replica r: host h's state row, its seed and tables
+    // replica r: host h's state row; its pop count, head and head time
+    // load before the block reads the outbox word and the warp clears
     const int64_t g = r * a.H + h;
+    const int64_t hrow = g * a.E;
+    const int64_t win_end = ctl[CTL_WIN_END];
+    int32_t popped = 0;
+    int hd = 0;
+    int64_t head_t = INF;
+    if (h < a.H) {
+        popped = a.pops[g];
+        hd = a.head[g];
+    }
+    const bool outside = outbox_from_outside(a.ob_word, r);
+    if (h < a.H && hd < a.E) head_t = a.ht[hrow + hd];
+    clear_rows(a, r, OB, h < a.H && (outside || popped != 0));
+    if (h >= a.H) return;
+    if (!(head_t < win_end)) {
+        // nothing in the window: the state stays as it is
+        if (popped != 0) a.pops[g] = 0;
+        return;
+    }
+    // the host's global id: its keys, draws, vertex and columns
+    const int gh = a.g0 + h;
+    // replica r's seed and tables
     const Key seed = replica_seed(a.seed_key, r);
     const Topo topo = topo0.at_replica(r, rs);
     const int64_t row = g * OB;
-    for (int c = 0; c < OB; ++c) {
-        a.ob_t[row + c] = INF;
-        a.ob_k[row + c] = 0;
-        a.ob_m[row + c] = 0;
-        a.ob_s[row + c] = 0;
-        a.ob_v[row + c] = 0;
-    }
-    const int64_t hrow = g * a.E;
     Lanes<Topo, MB> out{};
     out.t = a.ob_t;
     out.k = a.ob_k;
@@ -781,7 +863,6 @@ pop_kernel(PopArgs a, App app, Topo topo0, TopoStrides rs, NicArgs na,
                         0};
     }
     typename App::Host st = app.load(g, gh, seed);
-    int hd = a.head[g];
     uint32_t ne = (uint32_t)a.n_exec[g];
     uint32_t nd = (uint32_t)a.n_deliv[g];
     uint64_t c = (uint64_t)a.chk[g];
@@ -924,12 +1005,12 @@ extern "C" int POP_ENTRY(shadow_pop_phase)(
     const NicArgs* nic, const int64_t* seed_key, int n_total,
     int msgload, int size,
     int selfloop, int64_t* ob_t, int64_t* ob_k, int64_t* ob_m,
-    int64_t* ob_s, int64_t* ob_v, int32_t* pops, int32_t* aud,
-    int64_t* aud_t, const int64_t* ctl, void* stream) {
+    int64_t* ob_s, int64_t* ob_v, int32_t* pops, int32_t* ob_word,
+    int32_t* aud, int64_t* aud_t, const int64_t* ctl, void* stream) {
     const PopArgs a{g0, Hg, H, E, K, 0, 1, B, 1, ctl, seed_key,
                     ht, hk, hm, hv, hw, head, event_seq, packet_seq,
                     n_exec, n_deliv, chk, host_vertex,
-                    ob_t, ob_k, ob_m, ob_s, ob_v, pops};
+                    ob_t, ob_k, ob_m, ob_s, ob_v, pops, ob_word};
     const PholdApp p{app, app_seq, (uint32_t)n_total, msgload, size,
                      selfloop};
     return launch(R, a, p, topo, nic, aud, aud_t, stream);
@@ -947,12 +1028,13 @@ extern "C" int POP_ENTRY(shadow_pop_tgen)(
     int npkts, int last_sz, int chunk, int mss, int64_t* ob_t,
     int64_t* ob_k,
     int64_t* ob_m, int64_t* ob_s, int64_t* ob_v, int32_t* pops,
-    int32_t* aud, int64_t* aud_t, const int64_t* ctl, void* stream) {
+    int32_t* ob_word, int32_t* aud, int64_t* aud_t, const int64_t* ctl,
+    void* stream) {
     if (T > 1 || C > 32) return (int)cudaErrorInvalidValue;
     const PopArgs a{g0, Hg, H, E, K, T, P, B, C, ctl, seed_key,
                     ht, hk, hm, hv, hw, head, event_seq, packet_seq,
                     n_exec, n_deliv, chk, host_vertex,
-                    ob_t, ob_k, ob_m, ob_s, ob_v, pops};
+                    ob_t, ob_k, ob_m, ob_s, ob_v, pops, ob_word};
     const TgenApp g{app, count, pause, retry, npkts, last_sz, chunk, mss};
     return launch(R, a, g, topo, nic, aud, aud_t, stream);
 }
@@ -969,12 +1051,13 @@ extern "C" int POP_ENTRY(shadow_pop_tor)(
     const int32_t* relay_gids, int n_relays, unsigned route_k1,
     unsigned route_k2, int cells, int64_t* ob_t, int64_t* ob_k,
     int64_t* ob_m, int64_t* ob_s, int64_t* ob_v, int32_t* pops,
-    int32_t* aud, int64_t* aud_t, const int64_t* ctl, void* stream) {
+    int32_t* ob_word, int32_t* aud, int64_t* aud_t, const int64_t* ctl,
+    void* stream) {
     if (T > 1 || C > 32 || n_relays < 3) return (int)cudaErrorInvalidValue;
     const PopArgs a{g0, Hg, H, E, K, T, P, B, C, ctl, seed_key,
                     ht, hk, hm, hv, hw, head, event_seq, packet_seq,
                     n_exec, n_deliv, chk, host_vertex,
-                    ob_t, ob_k, ob_m, ob_s, ob_v, pops};
+                    ob_t, ob_k, ob_m, ob_s, ob_v, pops, ob_word};
     const TorApp t{app, count, pause, retry, relay_gids,
                    (uint32_t)n_relays, Key{route_k1, route_k2}, cells};
     return launch(R, a, t, topo, nic, aud, aud_t, stream);

@@ -18,7 +18,8 @@ tensors the port's engine really holds:
   NIC) and the [H] pop counts, and the route's outputs and scratch
   (K5: perm [H*OB] int64, starts and counts [H] int64, and its radix
   sort's work, kernels.route_work_words; K3's [2 + H] int32 list of
-  the hosts it merges); the judge, the path counters, the
+  the hosts it merges, and K2's of the hosts it judges, which the
+  model NIC's pops replace); the judge, the path counters, the
   compaction (K11, under `outbox_compact`: it rewrites the outbox's
   times and x_overflow and needs no scratch) and the merge work in
   place;
@@ -186,9 +187,10 @@ def footprint(n_hosts: int, params: PhaseParams, world: dict,
     H, OB = n_hosts, params.OB
     state = state_nbytes(H, params, n_vertices(world))
     outbox = 5 * H * OB * 8 + H * 4
-    # K5's outputs and work; K3's list of the hosts it merges
+    # K5's outputs and work; K3's list of the hosts it merges and K2's
+    # of the hosts it judges (no K2 under the model NIC)
     route = (H * OB + 2 * H + route_work_words(H * OB, False)) * 8 + \
-        (2 + H) * 4
+        (2 + H) * 4 * (1 if params.MB else 2)
     # the control block, K9's block minima and K8's sum
     loop = (len(CTL_FIELDS) + 1024 + 1) * 8
     seen, shared, stacked = set(), 0, 0

@@ -126,6 +126,7 @@ from shadow_tpu_torch.device.kernels import (
     head_min_plain,
     merge_flags,
     n_vertices,
+    outbox_word,
 )
 from shadow_tpu_torch.host.model_nic import LAW
 from shadow_tpu_torch.topology import hierarchy
@@ -477,6 +478,12 @@ class DeviceEngine:
         self._xbuf: Optional[dict] = None
         # K3's fresh words (kernels.merge_flags), on the card
         self._fresh: Optional[torch.Tensor] = None
+        # the outbox words (kernels.outbox_word): set here and by `_arm`,
+        # cleared by the pop. The pop clears only the rows of hosts that
+        # popped in the last phase, which rests on the buffer's writers:
+        # the pop itself, K2 and K11 (live rows of hosts that popped),
+        # and rows copied in from outside, which `_arm` marks
+        self._outside = outbox_word(self.device, self.replicas or 1)
 
     @property
     def n_local(self) -> int:
@@ -578,8 +585,9 @@ class DeviceEngine:
     # ------------------------------------------------------------------
     def _outbox(self) -> tuple[dict, torch.Tensor]:
         """The phase's outbox [H,OB] x 5 and pop counts [H]: allocated
-        once per engine, since the pop rewrites all of it every phase
-        (and a captured window loop holds their addresses)."""
+        once per engine (a captured window loop holds their addresses);
+        the pop rewrites the rows that may hold something (its outbox
+        words, `_arm`)."""
         return self._buffers()[:2]
 
     def _buffers(self) -> tuple[dict, torch.Tensor, tuple]:
@@ -605,9 +613,13 @@ class DeviceEngine:
 
     def _arm(self) -> None:
         """A state enters the engine from outside (a run, a resume, an
-        edited state): the next merge on the card checks every heap's
-        order before it trusts the merges' own (csrc/merge_heaps.cu).
-        A stream-ordered fill: no host sync."""
+        edited state, a flush of rows copied into the outbox): the next
+        pop clears every outbox row and the judge before it judges every
+        host (the outbox words, kernels.outbox_word: the pop counts in
+        the buffer need not be this state's), and the next merge on the
+        card checks every heap's order before it trusts the merges' own
+        (csrc/merge_heaps.cu). Stream-ordered fills: no host sync."""
+        self._outside[0].fill_(1)
         if self.device.type != "cuda":
             return
         if self._fresh is None:
@@ -632,7 +644,8 @@ class DeviceEngine:
         every phase pops and flushes (the reference skips the flush of
         a phase that popped nothing, which cannot happen here)."""
         ob, pops, _ = self._buffers()
-        self.kernels.pop(state, ob, pops, self.world, win_end, self.params)
+        self.kernels.pop(state, ob, pops, self.world, win_end, self.params,
+                         self._outside)
         self._flush(state, win_end)
 
     def flush(self, state: dict, win_end) -> None:
@@ -647,7 +660,8 @@ class DeviceEngine:
         ctl = win_end if isinstance(win_end, torch.Tensor) else None
         ob, pops, route = self._buffers()
         if not p.MB:
-            k.judge_outbox(state, ob, self.world, win_end, p)
+            k.judge_outbox(state, ob, self.world, win_end, p, pops,
+                           self._outside)
         if p.CP:
             k.count_paths(state, ob, self.world, ctl)
         k.phase_tally(state, ob, pops, p, ctl)

@@ -10,14 +10,24 @@ Four steps carry one phase of a conservative window:
   K1 `pop_phase` for PHOLD (with its app draws), K4 `pop_tgen` for
   tgen (with the servers' burst pops, trains and timers) and K6
   `pop_tor` for Tor (the relays' burst pops and onion routes, trains
-  that carry the previous hop's survivors as their live mask);
+  that carry the previous hop's survivors as their live mask). The
+  outbox outlives a phase: a warp clears, coalesced, only the rows of
+  its hosts that popped in the last phase (every row where the
+  engine's outbox word, `outbox_word`, says they came from outside the
+  pop), and a host with nothing in the window reads its head time and
+  leaves;
 * K2 `judge_outbox` (csrc/judge_outbox.cu): `_judge_outbox` with the
-  table lookup and `packet_drop_mask`, one thread per host row;
+  table lookup and `packet_drop_mask`, a warp a host row (a warp
+  suffix sum gives each row its packet-seq base), only for the hosts
+  that popped unless the outbox word is set;
 * K5 `route` (csrc/route.cu): `_flat_sorted`/`_host_windows`, the
   exchangeable rows grouped by destination in (src, column) order, by
-  a count, a scan, a scatter and a per-segment sort of flat indices;
+  an order-keeping compaction and a stable LSD radix sort over the
+  destination's bytes, then the segment bounds;
 * K3 `merge_heaps` (csrc/merge_heaps.cu): `_merge_rows` on the window
-  path, one block per destination host, a bitonic sort in shared memory.
+  path, a scan listing the hosts that change (head != 0 or arrivals)
+  and a warp a listed host merging its sorted tail with its ranked
+  arrivals.
 
 Between the judge and the route `phase_tally` (csrc/phase_tally.cu)
 takes the phase's occupancy marks and, under the state audit, the
@@ -340,6 +350,25 @@ def merge_flags(device, replicas: int = 1) -> torch.Tensor:
     return flags
 
 
+def outbox_word(device, replicas: int = 1) -> torch.Tensor:
+    """The engine's outbox words, [2, R] int32: a replica's word says
+    that its outbox rows came from outside the pop (a state entering the
+    engine, rows copied into the buffer), so the next pop clears every
+    row and the judge judges every host until a pop has run; and a count
+    the pop keeps zero between launches (csrc/pop_phase.cu)."""
+    return merge_flags(device, replicas)
+
+
+def _pop_ran(outside: Optional[torch.Tensor], win_end, R: Optional[int]):
+    """Clear the outbox word of each replica whose phase ran, as the pop
+    kernel's last block of the replica does."""
+    if outside is None:
+        return
+    for r in range(R or 1):
+        if phase_window(_ctl_at(win_end, r) if R else win_end) is not None:
+            outside[0, r] = 0
+
+
 # ----------------------------------------------------------------------
 # the replica axis of an ensemble campaign
 # ----------------------------------------------------------------------
@@ -462,7 +491,8 @@ def _wbits(cnt: torch.Tensor) -> torch.Tensor:
 # K1 / K4: one phase of pops (reference: engine._step, judge at flush)
 # ----------------------------------------------------------------------
 def pop_plain(state: dict, ob: dict, pops: torch.Tensor, world: dict,
-              win_end, p: PhaseParams) -> None:
+              win_end, p: PhaseParams,
+              outside: Optional[torch.Tensor] = None) -> None:
     """Pop events below `win_end`, in lockstep over hosts, exactly as
     the reference's pop loop: a host stops at the window end, at
     `dirty` (an in-window self-send, timer or READY row it must not
@@ -490,9 +520,13 @@ def pop_plain(state: dict, ob: dict, pops: torch.Tensor, world: dict,
     `aud` where a host's first popped time lies below `aud_t`, then
     sets `aud_t` to the largest time it popped (engine.py:800-813).
     `win_end` is an int or a control block (`phase_window`); a
-    campaign's state runs each replica in turn."""
-    if n_replicas(state) is not None:
-        for r, w, q in _each_replica(n_replicas(state), world, p):
+    campaign's state runs each replica in turn. It rewrites every row of
+    the outbox, and clears the outbox word `outside` (`outbox_word`) of
+    each replica whose phase ran, as the kernel does."""
+    R = n_replicas(state)
+    _pop_ran(outside, win_end, R)
+    if R is not None:
+        for r, w, q in _each_replica(R, world, p):
             pop_plain(at_replica(state, r), at_replica(ob, r), pops[r], w,
                       _ctl_at(win_end, r), q)
         return
@@ -1617,34 +1651,37 @@ _T = ctypes.POINTER(TopoArgs)
 _N = ctypes.POINTER(NicArgs)
 _RW = ctypes.POINTER(RowsArgs)
 
-_POP_TAIL = [_P] * 5 + [_P] * 4 + [_P]     # ob t k m s v, pops aud
-#                                          aud_t ctl, stream
+_POP_TAIL = [_P] * 5 + [_P] * 5 + [_P]     # ob t k m s v, pops
+#                                          ob_word aud aud_t ctl, stream
 # Every kernel's first argument is R, the replica count (1 standalone).
 _SIGNATURES = {
     # R, H, E, K, B, ht hk hm hv hw, head event_seq packet_seq app_seq
     # app n_exec n_deliv chk, host_vertex topo nic, seed keys, n_total
-    # msgload size selfloop, ob t k m s v, pops, aud aud_t, ctl, stream
+    # msgload size selfloop, ob t k m s v, pops, ob_word, aud aud_t,
+    # ctl, stream
     "shadow_pop_phase": [_I] * 5 + [_P] * 5 + [_P] * 8 +
                         [_P, _T, _N, _P, _I, _I, _I, _I] + _POP_TAIL,
     # the entries of POP_KERNELS take the gid offset g0 and the global
     # host count (host_vertex's length) after R
     # R, H, E, K, T, P, B, C, ht hk hm hv hw, head event_seq packet_seq
     # app n_exec n_deliv chk, host_vertex topo nic, seed keys, count
-    # pause retry, npkts last_sz chunk mss, ob t k m s v, pops, aud
-    # aud_t, ctl, stream
+    # pause retry, npkts last_sz chunk mss, ob t k m s v, pops, ob_word,
+    # aud aud_t, ctl, stream
     "shadow_pop_tgen": [_I] * 8 + [_P] * 5 + [_P] * 7 +
                        [_P, _T, _N, _P] + [_P] * 3 + [_I] * 4 + _POP_TAIL,
     # R, H, E, K, T, P, B, C, ht hk hm hv hw, head event_seq packet_seq
     # app n_exec n_deliv chk, host_vertex topo nic, seed keys, count
     # pause retry, relay_gids n_relays, route key k1 k2, cells, ob t k
-    # m s v, pops, aud aud_t, ctl, stream
+    # m s v, pops, ob_word, aud aud_t, ctl, stream
     "shadow_pop_tor": [_I] * 8 + [_P] * 5 + [_P] * 7 +
                       [_P, _T, _N, _P] + [_P] * 3 +
                       [_P, _I, _U, _U, _I] + _POP_TAIL,
     # R, H, OB, C, boot_end, ob t m v, packet_seq n_sent n_drop,
-    # host_vertex topo, seed keys, cp, g0, Hg, ctl, stream
+    # host_vertex topo, seed keys, cp, g0, Hg, pops, ob_word, work,
+    # listed, ctl, stream
     "shadow_judge_outbox": [_I, _I, _I, _I, _L] + [_P] * 3 + [_P] * 3 +
-                           [_P, _T, _P, _I, _I, _I, _P, _P],
+                           [_P, _T, _P, _I, _I, _I, _P, _P, _P, _I, _P,
+                            _P],
     # R, H, OB, V, ob t k m, host_vertex, path_cnt, ctl, stream
     "shadow_count_paths": [_I] * 4 + [_P] * 3 + [_P] * 4,
     # R, F, ND, lo, keyed, rows, perm starts counts, work, words, ctl,
@@ -1691,6 +1728,14 @@ for _name in POP_KERNELS:
     _SIGNATURES[f"shadow_{_name}{AUD}"] = _SIGNATURES[f"shadow_{_name}"]
 
 
+def _word_ptr(outside: Optional[torch.Tensor]):
+    return None if outside is None else _ptr(outside)
+
+
+def _word_checks(outside: Optional[torch.Tensor]) -> list:
+    return [] if outside is None else [(outside, torch.int32)]
+
+
 def _ctl_args(ctl: Optional[torch.Tensor], R: Optional[int] = None):
     """(pointer, tensors to check) of a launch's control block, or
     (None, []) without one: [R, CTL_N] for a campaign's R replicas,
@@ -1727,6 +1772,10 @@ class Kernels:
 
     def __init__(self, timing: bool = False):
         self.timing = timing
+        # K2 above 32,768 hosts lists the hosts that popped and spreads
+        # them over its warps; False: a warp a host, exiting where it
+        # popped nothing (csrc/judge_outbox.cu; kept to measure the two)
+        self.judge_listed = True
         self.reset_counts()
         self._lib = None
         self._scratch = {}
@@ -1835,17 +1884,30 @@ class Kernels:
         (self._captured if capturing else self.launches)[name] += 1
 
     def pop(self, state: dict, ob: dict, pops: torch.Tensor, world: dict,
-            win_end, p: PhaseParams) -> None:
+            win_end, p: PhaseParams,
+            outside: Optional[torch.Tensor] = None) -> None:
         """The phase's pops: K1 for PHOLD, K4 for tgen, K6 for Tor (the
         plain pop for each on the CPU), on the world's tables; `win_end`
-        is an int or the loop's control block."""
+        is an int or the loop's control block. `pops` holds the last
+        phase's counts on entry and this phase's on return. `outside`:
+        the engine's outbox words (`outbox_word`); the kernel then
+        clears only the rows of hosts that popped in the last phase,
+        every row where the word is set, and clears the word. Without
+        it every row is cleared."""
+        if outside is not None and outside.shape != (2, n_replicas(state)
+                                                     or 1):
+            raise ValueError(f"pop: outbox words [2, "
+                             f"{n_replicas(state) or 1}], not "
+                             f"{tuple(outside.shape)}")
         if not state["head"].is_cuda:
-            return pop_plain(state, ob, pops, world, win_end, p)
+            return pop_plain(state, ob, pops, world, win_end, p, outside)
         if isinstance(p.app, TgenDevice):
-            return self._pop_tgen(state, ob, pops, world, win_end, p)
+            return self._pop_tgen(state, ob, pops, world, win_end, p,
+                                  outside)
         if isinstance(p.app, TorDevice):
-            return self._pop_tor(state, ob, pops, world, win_end, p)
-        return self._pop_phase(state, ob, pops, world, win_end, p)
+            return self._pop_tor(state, ob, pops, world, win_end, p,
+                                 outside)
+        return self._pop_phase(state, ob, pops, world, win_end, p, outside)
 
     def _pop_common(self, state: dict, world: dict, win_end,
                     p: PhaseParams):
@@ -1871,7 +1933,8 @@ class Kernels:
                 AUD if p.AUD else "", topo, nic, key, tail, checks, block)
 
     def _pop_phase(self, state: dict, ob: dict, pops: torch.Tensor,
-                   world: dict, win_end, p: PhaseParams) -> None:
+                   world: dict, win_end, p: PhaseParams,
+                   outside: Optional[torch.Tensor]) -> None:
         a = p.app
         if not isinstance(a, PholdDevice) or p.T or p.P != 1:
             raise ValueError("pop_phase runs PHOLD (no timers, no "
@@ -1888,32 +1951,38 @@ class Kernels:
         self._launch(
             launch_name("pop_phase", *flags), "shadow_pop_phase" + suffix,
             [(t, i64) for t in heap + obs] + [(t, i32) for t in small[:7]]
-            + [(small[7], i64), (pops, i32), (hv, i32)] + checks,
+            + [(small[7], i64), (pops, i32), (hv, i32)] + checks
+            + _word_checks(outside),
             R, p.g0, hv.shape[0], H, p.E, p.K, p.B, *map(_ptr, heap),
             *map(_ptr, small), _ptr(hv), ctypes.byref(topo),
             ctypes.byref(nic), key, a.n_hosts_total, a.msgload, a.size,
-            a.selfloop, *map(_ptr, obs), _ptr(pops), *tail)
+            a.selfloop, *map(_ptr, obs), _ptr(pops), _word_ptr(outside),
+            *tail)
 
     def _pop_tgen(self, state: dict, ob: dict, pops: torch.Tensor,
-                  world: dict, win_end, p: PhaseParams) -> None:
+                  world: dict, win_end, p: PhaseParams,
+                  outside: Optional[torch.Tensor]) -> None:
         a = p.app
         if not isinstance(a, TgenDevice):
             raise ValueError("pop_tgen runs tgen")
         self._pop_trains("pop_tgen", state, ob, pops, world, win_end, p,
-                         [], (a.npkts, a.last_sz, a.chunk, MSS))
+                         outside, [], (a.npkts, a.last_sz, a.chunk, MSS))
 
     def _pop_tor(self, state: dict, ob: dict, pops: torch.Tensor,
-                 world: dict, win_end, p: PhaseParams) -> None:
+                 world: dict, win_end, p: PhaseParams,
+                 outside: Optional[torch.Tensor]) -> None:
         a = p.app
         if not isinstance(a, TorDevice):
             raise ValueError("pop_tor runs Tor")
         relays = world["relay_gids"]
         self._pop_trains("pop_tor", state, ob, pops, world, win_end, p,
-                         [relays], (relays.shape[0], *a.route_key, a.cells))
+                         outside, [relays],
+                         (relays.shape[0], *a.route_key, a.cells))
 
     def _pop_trains(self, name: str, state: dict, ob: dict,
                     pops: torch.Tensor, world: dict, win_end,
-                    p: PhaseParams, app_tensors: list, app_scalars) -> None:
+                    p: PhaseParams, outside: Optional[torch.Tensor],
+                    app_tensors: list, app_scalars) -> None:
         """K4 or K6: the pops of an app with trains, one timer lane and
         per-host client args; `app_tensors` (int32) and `app_scalars`
         are the app's own arguments, after the client args."""
@@ -1935,16 +2004,27 @@ class Kernels:
             [(t, i64) for t in heap + obs] + [(t, i32) for t in small]
             + [(state["chk"], i64), (pops, i32), (hv, i32)] + checks
             + [(args[0], i32)] + [(t, i64) for t in args[1:]]
-            + [(t, i32) for t in app_tensors],
+            + [(t, i32) for t in app_tensors] + _word_checks(outside),
             R, p.g0, hv.shape[0], H, p.E, p.K, p.T, p.P, p.B, p.C,
             *map(_ptr, heap),
             *map(_ptr, small), _ptr(state["chk"]), _ptr(hv),
             ctypes.byref(topo), ctypes.byref(nic), key, *map(_ptr, args),
             *map(_ptr, app_tensors), *app_scalars, *map(_ptr, obs),
-            _ptr(pops), *tail)
+            _ptr(pops), _word_ptr(outside), *tail)
 
     def judge_outbox(self, state: dict, ob: dict, world: dict,
-                     win_end, p: PhaseParams) -> None:
+                     win_end, p: PhaseParams,
+                     pops: Optional[torch.Tensor] = None,
+                     outside: Optional[torch.Tensor] = None) -> None:
+        """K2 (the plain judge on the CPU). Given the phase's pop counts
+        and the engine's outbox words (`outbox_word`), both or neither,
+        the kernel skips the hosts that popped nothing, unless a word
+        says the rows came from outside the pop; without them it judges
+        every host. The plain judge judges every row: a skipped host's
+        row holds no send row, so both give the same bytes."""
+        if (pops is None) != (outside is None):
+            raise ValueError("judge_outbox: the pop counts and the outbox "
+                             "words come together")
         if not ob["t"].is_cuda:
             return judge_outbox_plain(state, ob, world, win_end, p)
         R = ob_replicas(ob)
@@ -1956,15 +2036,25 @@ class Kernels:
         hier, epochs, topo, topo_checks = topo_args(world, R or 1)
         key, key_checks = self._seed_args(world, p, R or 1, dev)
         ctl, ctl_checks, _block = _window_args(win_end, dev, R)
+        work = self._scratch_of("judge_list", (R or 1) * (2 + H), dev,
+                                zero=True, dtype=torch.int32)
+        skip = [(work, torch.int32)]
+        if pops is not None:
+            if pops.shape != ob["t"].shape[:-1] or \
+                    outside.shape != (2, R or 1):
+                raise ValueError("judge_outbox: pop counts [(R,) H] and "
+                                 "outbox words [2, R]")
+            skip += [(pops, torch.int32), (outside, torch.int32)]
         self._launch(
             launch_name("judge_outbox", False, epochs, hier),
             "shadow_judge_outbox",
             [(t, torch.int64) for t in obs]
             + [(t, torch.int32) for t in cnt + [hv]] + topo_checks
-            + key_checks + ctl_checks,
+            + key_checks + ctl_checks + skip,
             R or 1, H, OB, p.C, int(p.boot_end), *map(_ptr, obs),
             *map(_ptr, cnt), _ptr(hv), ctypes.byref(topo), key, int(p.CP),
-            p.g0, hv.shape[0], ctl)
+            p.g0, hv.shape[0], None if pops is None else _ptr(pops),
+            _word_ptr(outside), _ptr(work), int(self.judge_listed), ctl)
 
     def count_paths(self, state: dict, ob: dict, world: dict,
                     ctl: Optional[torch.Tensor] = None) -> None:

@@ -353,6 +353,8 @@ def flush_phases(mesh, jobs: list) -> Optional[list]:
         for f, v in shard_state(ob, mp).items():
             buf[f].copy_(torch.from_numpy(v))
         pops.zero_()
+        # `flush` arms the engine: its outbox words say these rows came
+        # from outside the pop, so K2 judges every host, pop counts 0
         engine.flush(mine, control_block(mesh.device, run=1,
                                          win_end=win_end))
         out.append(mesh.gather_leaves(state_to_numpy(mine)))

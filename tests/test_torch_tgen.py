@@ -510,8 +510,8 @@ def test_phold_and_tgen_send_rows_keep_an_all_ones_live_mask(text):
     his = []
 
     class Recording(K.Kernels):
-        def pop(self, state, ob, pops, world, win_end, p):
-            super().pop(state, ob, pops, world, win_end, p)
+        def pop(self, state, ob, pops, world, win_end, p, outside=None):
+            super().pop(state, ob, pops, world, win_end, p, outside)
             send = (ob["t"] < K.INF) & ((ob["m"] & 0xFF) == 2)
             his.append((ob["v"][send] >> 32) & K.U32)
 

@@ -371,8 +371,8 @@ def test_plain_pop_writes_the_send_mask_as_the_v_hi_word():
     masks = set()
 
     class Recording(K.Kernels):
-        def pop(self, state, ob, pops, world, win_end, p):
-            super().pop(state, ob, pops, world, win_end, p)
+        def pop(self, state, ob, pops, world, win_end, p, outside=None):
+            super().pop(state, ob, pops, world, win_end, p, outside)
             send = (ob["t"] < K.INF) & ((ob["m"] & 0xFF) == 2)
             cnt = (ob["m"] & K.U32) >> 8
             hi = (ob["v"] >> 32) & K.U32
