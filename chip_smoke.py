@@ -59,8 +59,12 @@ Phases, in order; any failure exits non-zero before the last line:
      on the engine's own buffers as its last phase left them (outbox,
      pop counts, outbox word), with the shares of hosts that pop, rows
      cleared and rows left, the pop clearing every row and K2 judging
-     every host beside them, K2 as a warp a host; then that
-     phase popped and judged, routed and merged;
+     every host beside them, K2 as a warp a host; K9 on the paused
+     state, beside its design before; then that phase popped and judged
+     (the skip rule checked: no host that popped nothing holds an
+     exchangeable row), phase_tally on it with the word as the pop left
+     it and set, and K9 with the tally folded in, each beside its design
+     before, then routed and merged;
    - the pop and K2 where the outbox is hardest (`outbox_adversarial`,
      on phold's paused state): every cell and pop count random under a
      set outbox word; every host popped last phase and none now; K2 on
@@ -94,13 +98,22 @@ Phases, in order; any failure exits non-zero before the last line:
      swapped rows, tied times, heads past E and below 0, negative
      counters; the row ledger balanced and off by one); K9 loop_control
      at 1,000,000 hosts in each of its branches, beside torch.gather +
-     amin; phase_tally at the PHOLD shapes, with and without the
-     audit's ledger;
+     amin and its design before (two launches, `Kernels.designs_before`);
+     phase_tally at the PHOLD shapes, with and without the audit's
+     ledger, given no outbox word, the word set (every row read) and the
+     word clear on an outbox as the skip rule leaves it (the rows of hosts
+     with pop count 0 clear), beside its design before (every row read,
+     `Kernels.designs_before`); K9 with the tally folded in
+     (`loop_control_tally`) at the PHOLD shapes in K9's branches, the
+     word clear and set, with and without the audit, beside the two
+     launched apart and the designs before;
    - the replica axis of an ensemble campaign (`replica_kernels`): K1
      (dense and `_nic`) at the PHOLD shapes, K4 (dense, `_hier`, `_ep`,
      `_aud`) and K2 (dense, `_hier`, `_ep`) at tgen_10000's layout at
      100,000 hosts, K7 on K2's outbox, K6 at tor_large's, K5, K3 and
-     phase_tally at the PHOLD shapes, K8 and K9 at 100,000 hosts, each
+     phase_tally at the PHOLD shapes (also with outbox words, two
+     replicas' clear on outboxes as the rule leaves them), K8, K9 and
+     K9 with the tally folded in at 100,000 hosts, each
      at R = REPLICAS (4) on four replicas' seeded states, tables, seed
      keys and window ends, equal to four R = 1 launches and to its
      plain version, and again with one replica's control block stopping
@@ -130,7 +143,8 @@ Phases, in order; any failure exits non-zero before the last line:
      the rank's self-shard rows (two arrival blocks, the window and
      the global merge's occ_in), every output bit for bit.
 3. parity: the window loop captured into a CUDA graph on the card (the
-   main path), the Python loop on the card and the CPU plain path must
+   main path, K9 with the phase's tallies folded in), the Python loop
+   on the card (the standalone tally) and the CPU plain path must
    give identical totals, rounds, per-host events_executed /
    trace_checksum (and downloads) and every state leaf, and the
    audited graph run the same with a zero health word: the PHOLD test
@@ -169,7 +183,9 @@ Phases, in order; any failure exits non-zero before the last line:
    the uncompacted run) and at half of it (by each rule for the
    PHOLD, by the global rule for tgen_10000), three ways.
 4. full: through the port's CLI entry function on the card (the
-   captured window loop), each run with the kernel launch counts set to
+   captured window loop, K9 with the tally folded in; under
+   outbox_compact K9 and the tally apart), each run with the kernel
+   launch counts set to
    0 just before and read just after; fails on any overflow or on a
    kernel of the path that never launched; its wall, rounds, phases and
    host syncs printed; then the same graph run under torch.profiler for
@@ -611,6 +627,8 @@ REPLACES = {
     "phase_tally": "shadow_tpu/device/engine.py:1941",
     # the window loop: _round/_phase/_run_shard/_axis_min
     "loop_control": "shadow_tpu/device/engine.py:2116",
+    # the same with the tallies between the judge and the route folded in
+    "loop_control_tally": "shadow_tpu/device/engine.py:2116",
     # the hybrid policy's batched judge, on each view of the tables
     **dict.fromkeys(("judge_batch", "judge_batch_hier", "judge_batch_ep",
                      "judge_batch_ep_hier"),
@@ -654,6 +672,7 @@ SOURCES = {
     "audit_round": "shadow_tpu_torch/csrc/audit_round.cu",
     "phase_tally": "shadow_tpu_torch/csrc/phase_tally.cu",
     "loop_control": "shadow_tpu_torch/csrc/loop_control.cu",
+    "loop_control_tally": "shadow_tpu_torch/csrc/loop_control.cu",
     **dict.fromkeys(("judge_batch", "judge_batch_hier", "judge_batch_ep",
                      "judge_batch_ep_hier"),
                     "shadow_tpu_torch/csrc/judge_batch.cu"),
@@ -674,8 +693,9 @@ ROWS = ("pop_phase", "pop_tgen", "pop_tor", "judge_outbox", "route",
         "pop_phase_ep_hier", "count_paths", "pop_phase_aud",
         "pop_tgen_aud", "pop_tor_aud", "pop_phase_hier_aud",
         "pop_tgen_nic_aud", "audit_round", "loop_control", "phase_tally",
-        "judge_batch", "judge_batch_hier", "judge_batch_ep",
-        "judge_batch_ep_hier", "compact_outbox", "compact_outbox_global",
+        "loop_control_tally", "judge_batch", "judge_batch_hier",
+        "judge_batch_ep", "judge_batch_ep_hier", "compact_outbox",
+        "compact_outbox_global",
         "pack_remote", "pack_two_phase", "pack_two_phase2",
         "route_window", "route_keyed", "merge_heaps2")
 AUDIT = "experimental.state_audit=true"
@@ -2445,6 +2465,95 @@ def outbox_adversarial(torch, K, engine, state, ctl, rng):
     return rows
 
 
+def tally_rows(torch, K, engine, state, ob, pops, ctl, what):
+    """phase_tally on one real phase's popped and judged outbox, the
+    engine's outbox word as the pop left it (clear: only the popped
+    hosts' rows read) and set (every row read), each in both designs and
+    bit-equal to its plain version; the share of hosts whose rows are
+    read."""
+    p = engine.params
+    word = engine._outside
+    check(not bool(word[0].any()), f"{what}: the pop left the outbox "
+          "word set")
+    H, OB = ob["t"].shape
+    t_live = ob["t"] < K.DROP_T
+    check(not bool(t_live[pops == 0].any()), f"{what}: a host that popped "
+          "nothing holds an exchangeable row at tally time")
+    occ = {k: state[k].clone() for k in ("occ_ob", "occ_trips",
+                                         "occ_phases")}
+    if p.AUD:
+        occ["aud_tx"] = state["aud_tx"].clone()
+    set_word = K.outbox_word(state["head"].device)
+    kk = K.Kernels()
+
+    def make(w):
+        return lambda: (clone(occ), ob, pops, p, ctl, w.clone())
+
+    ms, parent_ms = tally_designs(torch, K, kk, make(word), what)
+    every_ms, _ = tally_designs(torch, K, kk, make(set_word),
+                                f"{what}, the word set")
+    popped = int((pops != 0).sum())
+    return {"phase_tally": finish({
+        "err": 0.0, "ms": ms, "parent_ms": parent_ms,
+        "every_host_ms": every_ms,
+        "plain_ms": time_median(torch, K.phase_tally_plain,
+                                lambda: make(word)()[:5], 3),
+        "tally_shares": {"read": popped / H, "skipped": 1 - popped / H},
+        "bytes": tally_bytes(pops, ob, False, p.AUD), "ops": 0,
+        "shape": f"{what}: H={H} OB={OB} hosts popped (rows read) "
+                 f"{popped}, exchangeable rows {int(t_live.sum())}"})}
+
+
+def fold_rows(torch, K, engine, state, ob, pops, ctl, what):
+    """K9 with the tally folded in on one real phase's popped and judged
+    outbox and state (the outbox word as the pop left it), bit-equal to
+    the plain tally and step, timed beside the two launched apart and the
+    designs before."""
+    p = engine.params
+    word = engine._outside
+    fields = ["occ_ob", "occ_trips", "occ_phases", "head", "ht"] + (
+        ["aud_tx"] if p.AUD else [])
+
+    def make():
+        return ({k: state[k].clone() if k.startswith(("occ", "aud"))
+                 else state[k] for k in fields}, ctl.clone(), ob, pops, p,
+                word.clone())
+
+    ms, apart_ms, before_ms = fold_designs(torch, K, K.Kernels(), make,
+                                           what)
+    H, OB = ob["t"].shape
+    popped = int((pops != 0).sum())
+    return {"loop_control_tally": finish({
+        "err": 0.0, "ms": ms, "apart_ms": apart_ms, "parent_ms": before_ms,
+        "plain_ms": time_median(torch, folded_plain,
+                                lambda: make()[:5], 3),
+        "bytes": loop_bytes(K, state) + tally_bytes(pops, ob, False,
+                                                    p.AUD),
+        "ops": 0,
+        "shape": f"{what}: H={H} OB={OB} hosts popped {popped}; apart "
+                 f"{apart_ms:.4f} ms, the designs before "
+                 f"{before_ms:.4f} ms"})}
+
+
+def loop_rows(torch, K, state, ctl, what):
+    """K9 on a real state's heads (the block as the window loop hands it
+    after the phase: the window going on or not), in both designs,
+    bit-equal to its plain version."""
+    H, E = state["ht"].shape
+    kk = K.Kernels()
+
+    def make():
+        return (state, ctl.clone())
+
+    ms, split_ms = loop_designs(torch, K, kk, state, make, what)
+    return {"loop_control": finish({
+        "err": 0.0, "ms": ms, "parent_ms": split_ms,
+        "plain_ms": time_median(torch, K.loop_control_plain, make, 3),
+        "bytes": loop_bytes(K, state), "ops": 0,
+        "shape": f"{what}: H={H} E={E} heads within the heap "
+                 f"{int((state['head'] < E).sum())}"})}
+
+
 def real_phase_rows(torch, K, scratch, dev):
     """On one real phase's inputs of each of REAL_PHASES: the run paused
     at half its stop time by the graph loop, then the pop and K2 on the
@@ -2479,18 +2588,25 @@ def real_phase_rows(torch, K, scratch, dev):
             adversarial = outbox_adversarial(torch, K, engine, state, ctl,
                                              rng)
         ob, pops, _ = engine._buffers()
+        loop = loop_rows(torch, K, state, ctl, f"{name}'s state at {nt} "
+                         "ns")
         engine.kernels.pop(state, ob, pops, engine.world, ctl, p,
                            engine._outside)
         engine.kernels.judge_outbox(state, ob, engine.world, ctl, p, pops,
                                     engine._outside)
         torch.cuda.synchronize()
+        tally = tally_rows(torch, K, engine, state, ob, pops, ctl,
+                           f"{name}'s phase at {nt} ns")
+        tally.update(fold_rows(torch, K, engine, state, ob, pops, ctl,
+                               f"{name}'s phase at {nt} ns"))
         row, route = route_check(torch, K, scratch, ob, f"{name}'s phase "
                                  f"at {nt} ns", p.IN)
         err, _ = merge_compare(torch, K, scratch, state, ob, route, p)
         m = merge_row(torch, K, scratch, state, ob, route, p, err,
                       f"{name}'s phase at {nt} ns: "
                       f"H={state['head'].shape[0]} E={p.E} IN={p.IN}")
-        out[name] = {**rows, "route": row, "merge_heaps": m}
+        out[name] = {**rows, "route": row, "merge_heaps": m, **tally,
+                     **loop}
         del engine, state, ob
         torch.cuda.empty_cache()
     return out, adversarial
@@ -2645,12 +2761,41 @@ def audit_case(torch, K, scratch, rng, H, E, dev):
                  f"counter_bits={bits[K.AUD_COUNTER]}"})
 
 
+def loop_bytes(K, state) -> int:
+    """K9's bytes at a state: the head of every host, and one 32-byte
+    sector for the head time of each host whose head lies within its
+    heap (the rows' stride of E * 8 bytes puts each load in a sector
+    of its own)."""
+    E = state["ht"].shape[-1]
+    return state["head"].numel() * 4 + int((state["head"] < E).sum()) * 32
+
+
+def loop_designs(torch, K, kk, state, make, what):
+    """K9 (kk.loop_control) on `make()`'s state and block in both
+    designs, each bit-equal to its plain version; returns (ms, the
+    split design's ms: the parent's two launches)."""
+    times = {}
+    for split in (False, True):
+        kk.designs_before = split
+        a, b = make(), make()
+        kk.loop_control(*a)
+        K.loop_control_plain(*b)
+        torch.cuda.synchronize()
+        check(torch.equal(a[1], b[1]), f"loop_control ({what}, split "
+              f"{split}) differs from its plain version: "
+              f"{a[1].tolist()} != {b[1].tolist()}")
+        times[split] = time_median(torch, kk.loop_control, make, 7)
+    kk.designs_before = False
+    return times[False], times[True]
+
+
 def loop_control_case(torch, K, scratch, state, dev):
     """K9 against its plain version on a state's heads in each of its
     branches: the start step, the window going on, the round ending
     into a new window (clamped or not to final_stop), the stop reached,
-    max_rounds reached, the loop already done; timed on a round's
-    end. The library call is torch.gather + amin of the head times."""
+    max_rounds reached, the loop already done; both designs (one launch,
+    and the parent's two); timed on a round's end. The library call is
+    torch.gather + amin of the head times."""
     H, E = state["ht"].shape
     m = int(K.head_min_plain(state))
     big = {"stop": K.INF, "final_stop": K.INF, "lookahead": 10**6,
@@ -2664,36 +2809,88 @@ def loop_control_case(torch, K, scratch, state, dev):
         "max_rounds": ({**big, "win_end": m, "max_rounds": 6}, False),
         "done": ({**big, "done": 1, "round_end": 1}, False)}
     for case, (words, start) in cases.items():
-        ck = K.control_block(dev, **words)
-        cp = ck.clone()
-        scratch.loop_control(state, ck, start)
-        K.loop_control_plain(state, cp, start)
-        torch.cuda.synchronize()
-        check(torch.equal(ck, cp), f"loop_control ({case}) differs from "
-              f"its plain version: {ck.tolist()} != {cp.tolist()}")
+        for split in (False, True):
+            scratch.designs_before = split
+            ck = K.control_block(dev, **words)
+            cp = ck.clone()
+            scratch.loop_control(state, ck, start)
+            K.loop_control_plain(state, cp, start)
+            torch.cuda.synchronize()
+            check(torch.equal(ck, cp), f"loop_control ({case}, split "
+                  f"{split}) differs from its plain version: "
+                  f"{ck.tolist()} != {cp.tolist()}")
+    scratch.designs_before = False
     head = state["head"].long().clamp(0, E - 1)[:, None]
 
     def make():
         return (state, K.control_block(dev, **cases["round_end"][0]))
 
+    ms, split_ms = loop_designs(torch, K, scratch, state, make,
+                                "round_end")
     return finish({
-        "err": 0.0,
-        "ms": time_median(torch, scratch.loop_control, make, 7),
+        "err": 0.0, "ms": ms, "parent_ms": split_ms,
         "plain_ms": time_median(torch, K.loop_control_plain, make, 3),
         "library_ms": time_median(
             torch, lambda ht, hd: ht.gather(1, hd).amin(),
             lambda: (state["ht"], head), 7),
-        # head and one heap time of every host
-        "bytes": H * (4 + 8), "ops": 0,
-        "shape": f"H={H} E={E} branches={','.join(cases)}"})
+        "bytes": loop_bytes(K, state), "ops": 0,
+        "shape": f"H={H} E={E} branches={','.join(cases)}; "
+                 f"one launch (the parent's two: {split_ms:.4f} ms)"})
+
+
+def rule_outbox(torch, ob, pops):
+    """`ob` with the rows of every host whose pop count is 0 cleared
+    (t = INF): what the outbox holds at tally time with the engine's
+    outbox word clear."""
+    from shadow_tpu_torch.device.kernels import INF
+
+    t = torch.where((pops == 0)[:, None], INF, ob["t"])
+    return {**ob, "t": t.contiguous()}
+
+
+def tally_bytes(pops, ob, read_all: bool, aud: bool) -> int:
+    """The tally's bytes: every pop count; the rows' t, occ_ob read and
+    written (aud_tx too under the audit) of the hosts whose rows are
+    read (every host, or those with a nonzero pop count)."""
+    H, OB = ob["t"].shape[-2:]
+    n = pops.numel() if read_all else int((pops != 0).sum())
+    return pops.numel() * 4 + n * (OB * 8 + 8 + (16 if aud else 0))
+
+
+def tally_designs(torch, K, kk, make, what, word_set=False):
+    """phase_tally (kk) on `make()`'s inputs (state, outbox, pops,
+    params, ctl, word) bit-equal to its plain version in both designs
+    (the parent's reads every row whatever the word); returns (ms, the
+    parent design's ms)."""
+    times = {}
+    for parent in (False, True):
+        kk.designs_before = parent
+        a, b = make(), make()
+        kk.phase_tally(*a)
+        K.phase_tally_plain(*b[:5])
+        torch.cuda.synchronize()
+        err = max_abs_err(a[0], b[0], list(a[0]))
+        check(err == 0.0, f"phase_tally ({what}, the parent's design "
+              f"{parent}) differs from its plain version (max abs err "
+              f"{err})")
+        times[parent] = time_median(torch, kk.phase_tally, make, 7)
+    kk.designs_before = False
+    return times[False], times[True]
 
 
 def tally_case(torch, K, scratch, rng, H, OB, dev):
     """phase_tally against its plain version at the PHOLD shapes on a
     judged outbox (DROP_T rows among the live ones), with and without
-    the audit's ledger; timed without it (every run's case)."""
+    the audit's ledger: given no outbox word (every host's row read), the
+    word set (the same), and the word clear on the outbox as the rule
+    leaves it (the rows of hosts with pop count 0 clear: only the popped
+    hosts' rows read); each in both designs (the parent's reads every
+    row). Timed without the audit, the word clear (every run's case)."""
     ob = random_outbox(rng, H, OB, torch, dev)
-    pops = torch.from_numpy(rng.integers(0, 9, H).astype(np.int32)).to(dev)
+    pops = rng.integers(0, 9, H).astype(np.int32)
+    pops[rng.random(H) < 0.5] = 0
+    pops = torch.from_numpy(pops).to(dev)
+    kept = rule_outbox(torch, ob, pops)
     state = {"occ_ob": torch.from_numpy(rng.integers(0, 20, H).astype(
                  np.int32)).to(dev),
              "occ_trips": torch.tensor([3], dtype=torch.int32, device=dev),
@@ -2703,36 +2900,181 @@ def tally_case(torch, K, scratch, rng, H, OB, dev):
     params = {aud: K.PhaseParams(E=64, K=3, T=0, P=1, B=OB // 3, IN=64,
                                  C=1, boot_end=0, seed=(0, 0), app=None,
                                  AUD=aud) for aud in (False, True)}
-    err = 0.0
+    words = {}
+    for w in (0, 1):
+        words[w] = K.outbox_word(dev)
+        words[w][0] = w
+    cases = {"no word": (ob, None), "word set": (ob, words[1]),
+             "word clear": (kept, words[0])}
+    times = {}
     for aud, p in params.items():
-        sk, sp = clone(state), clone(state)
-        scratch.phase_tally(sk, ob, pops, p)
-        K.phase_tally_plain(sp, ob, pops, p)
-        torch.cuda.synchronize()
-        err = max(err, max_abs_err(sk, sp, list(state)))
-        check(err == 0.0, f"phase_tally (audit {aud}) differs from its "
-              "plain version")
-        check(bool((sk["aud_tx"] != state["aud_tx"]).any()) == aud,
-              "phase_tally: aud_tx moved where the audit is off, or not "
-              "where it is on")
+        for case, (o, word) in cases.items():
+            sk, sp = clone(state), clone(state)
+            scratch.phase_tally(sk, o, pops, p, None, word)
+            K.phase_tally_plain(sp, o, pops, p)
+            torch.cuda.synchronize()
+            err = max_abs_err(sk, sp, list(state))
+            check(err == 0.0, f"phase_tally (audit {aud}, {case}) differs "
+                  "from its plain version")
+            check(bool((sk["aud_tx"] != state["aud_tx"]).any()) == aud,
+                  "phase_tally: aud_tx moved where the audit is off, or "
+                  "not where it is on")
+            if not aud:
+                times[case] = tally_designs(
+                    torch, K, scratch,
+                    lambda o=o, word=word: (clone(state), o, pops,
+                                            params[False], None, word),
+                    case)
 
     def make():
-        return (clone(state), ob, pops, params[False])
+        return (clone(state), kept, pops, params[False], None, words[0])
 
-    exch = int((ob["t"] < K.DROP_T).sum())
+    exch = int((kept["t"] < K.DROP_T).sum())
+    popped = int((pops != 0).sum())
     return finish({
-        "err": err,
-        "ms": time_median(torch, scratch.phase_tally, make, 7),
-        "plain_ms": time_median(torch, K.phase_tally_plain, make, 3),
+        "err": 0.0, "ms": times["word clear"][0],
+        "parent_ms": times["word clear"][1],
+        "every_host_ms": times["word set"][0],
+        "plain_ms": time_median(torch, K.phase_tally_plain,
+                                lambda: make()[:5], 3),
         "library_ms": None,
-        # t of every outbox row, the pop counts, occ_ob read and written
-        "bytes": H * OB * 8 + H * 4 + H * 4 * 2, "ops": 0,
-        "shape": f"H={H} OB={OB} exchangeable={exch}"})
+        "bytes": tally_bytes(pops, kept, False, False), "ops": 0,
+        "shape": f"H={H} OB={OB} hosts popped {popped}, exchangeable "
+                 f"rows {exch}, the word clear; every host read (the word "
+                 f"set) {times['word set'][0]:.4f} ms, the parent's design "
+                 f"{times['word clear'][1]:.4f} ms"})
+
+
+class FoldedLoop:
+    """`loop_control` of a Kernels with the tally folded in, its inputs
+    as separate arguments for replica_check's stacking: (state, ctl,
+    outbox, pops, params, word), the word [2] for one replica (the
+    wrapper's [2, 1]) or [R, 2] stacked (the wrapper's [2, R])."""
+
+    def __init__(self, kernels):
+        self.kernels = kernels
+
+    def loop_control(self, state, ctl, ob, pops, p, word):
+        w = word.view(2, 1) if word.dim() == 1 else word.t().contiguous()
+        self.kernels.loop_control(state, ctl, False, (ob, pops, p, w))
+
+
+def folded_plain(state, ctl, ob, pops, p, word=None):
+    """The plain versions of K9 with the tally folded in: the tally where
+    the phase ran, then the step."""
+    from shadow_tpu_torch.device import kernels as K
+
+    K.phase_tally_plain(state, ob, pops, p, ctl)
+    K.loop_control_plain(state, ctl)
+
+
+def fold_designs(torch, K, kk, make, what):
+    """`loop_control_tally` (kk) on make()'s (state, ctl, outbox, pops,
+    params, word [2, R]) bit-equal to the plain tally and step; timed
+    beside the tally and K9 launched apart (this tree's designs) and
+    the designs before (the tally reading every row, K9 in two
+    launches). Returns (ms, apart ms, the designs before's ms)."""
+    def folded(state, ctl, ob, pops, p, word):
+        kk.loop_control(state, ctl, False, (ob, pops, p, word))
+
+    def apart(state, ctl, ob, pops, p, word):
+        kk.phase_tally(state, ob, pops, p, ctl, word)
+        kk.loop_control(state, ctl)
+
+    a, b = make(), make()
+    folded(*a)
+    folded_plain(*b[:5])
+    torch.cuda.synchronize()
+    err = max(max_abs_err(a[0], b[0], list(a[0])),
+              float((a[1] - b[1]).abs().max()))
+    check(err == 0.0, f"loop_control_tally ({what}) differs from its "
+          f"plain version (max abs err {err})")
+    ms = time_median(torch, folded, make, 7)
+    apart_ms = time_median(torch, apart, make, 7)
+    kk.designs_before = True
+    before_ms = time_median(torch, apart, make, 7)
+    kk.designs_before = False
+    return ms, apart_ms, before_ms
+
+
+def fold_case(torch, K, scratch, rng, H, OB, dev):
+    """K9 with the tally folded in at the PHOLD shapes: K8's heaps
+    (`audit_inputs`, its ledger as aud_tx) and a judged outbox as the
+    rule leaves it (the word clear, half the hosts popped) or garbage
+    under the word, with and without the audit, in K9's branches (the
+    phase ran and the window goes on, the round ends, the stop is
+    reached; the loop done: no tally); timed the word clear, beside
+    the two launched apart and the designs before."""
+    state0 = audit_inputs(torch, K, rng, H, 64, dev)
+    state0.update(occ_ob=torch.from_numpy(rng.integers(0, 20, H).astype(
+        np.int32)).to(dev),
+        occ_trips=torch.tensor([3], dtype=torch.int32, device=dev),
+        occ_phases=torch.tensor([7], dtype=torch.int32, device=dev))
+    ob = random_outbox(rng, H, OB, torch, dev)
+    pops = rng.integers(0, 9, H).astype(np.int32)
+    pops[rng.random(H) < 0.5] = 0
+    pops = torch.from_numpy(pops).to(dev)
+    kept = rule_outbox(torch, ob, pops)
+    m = int(K.head_min_plain(state0))
+    big = {"stop": K.INF, "final_stop": K.INF, "lookahead": 10**6,
+           "max_rounds": 1 << 40, "rounds": 5, "phases": 9, "run": 1}
+    branches = {"continue": {**big, "win_end": m + 1},
+                "round_end": {**big, "win_end": m},
+                "stop": {**big, "win_end": m, "stop": m},
+                "done": {**big, "done": 1, "run": 0}}
+    words = {}
+    for w in (0, 1):
+        words[w] = K.outbox_word(dev)
+        words[w][0] = w
+    leaves = ("occ_ob", "occ_trips", "occ_phases", "aud_tx", "head", "ht")
+    err = 0.0
+    for aud in (False, True):
+        p = K.PhaseParams(E=64, K=3, T=0, P=1, B=OB // 3, IN=64, C=1,
+                          boot_end=0, seed=(0, 0), app=None, AUD=aud)
+        for case, c in branches.items():
+            for o, w in ((kept, 0), (ob, 1)):
+                sk = {k: state0[k].clone() for k in leaves}
+                sp = {k: state0[k].clone() for k in leaves}
+                ck = K.control_block(dev, **c)
+                cp = ck.clone()
+                scratch.loop_control(sk, ck, False, (o, pops, p, words[w]))
+                folded_plain(sp, cp, o, pops, p)
+                torch.cuda.synchronize()
+                err = max(err, max_abs_err(sk, sp, list(leaves)))
+                check(err == 0.0 and torch.equal(ck, cp),
+                      f"loop_control_tally ({case}, audit {aud}, word {w}) "
+                      f"differs from its plain version")
+    p = K.PhaseParams(E=64, K=3, T=0, P=1, B=OB // 3, IN=64, C=1,
+                      boot_end=0, seed=(0, 0), app=None)
+    fields = ("occ_ob", "occ_trips", "occ_phases", "head", "ht")
+
+    def make():
+        return ({k: state0[k].clone() if k.startswith("occ") else state0[k]
+                 for k in fields},
+                K.control_block(dev, **branches["continue"]), kept, pops,
+                p, words[0])
+
+    ms, apart_ms, before_ms = fold_designs(torch, K, scratch, make,
+                                           "synthetic")
+    popped = int((pops != 0).sum())
+    return finish({
+        "err": err, "ms": ms, "apart_ms": apart_ms, "parent_ms": before_ms,
+        "plain_ms": time_median(torch, folded_plain,
+                                lambda: make()[:5], 3),
+        "library_ms": None,
+        "bytes": loop_bytes(K, state0) + tally_bytes(pops, kept, False,
+                                                     False),
+        "ops": 0,
+        "shape": f"H={H} E=64 OB={OB} hosts popped {popped}, branches="
+                 f"{','.join(branches)}, the word clear and set; the tally "
+                 f"and K9 launched apart {apart_ms:.4f} ms, the designs "
+                 f"before {before_ms:.4f} ms"})
 
 
 def loop_kernels(torch, K, scratch, rng, dev):
     """K8 at 100,000 and 1,000,000 hosts, K9 at 1,000,000 (on K8's
-    heaps), phase_tally at the PHOLD shapes."""
+    heaps), phase_tally and K9 with the tally folded in at the PHOLD
+    shapes."""
     out = {"audit_round": audit_case(torch, K, scratch, rng, 100_000, 64,
                                      dev)}
     big = audit_case(torch, K, scratch, rng, 1_000_000, 64, dev)
@@ -2741,6 +3083,8 @@ def loop_kernels(torch, K, scratch, rng, dev):
     out["loop_control"] = loop_control_case(torch, K, scratch, state, dev)
     out["phase_tally"] = tally_case(torch, K, scratch, rng, 100_000, 30,
                                     dev)
+    out["loop_control_tally"] = fold_case(torch, K, scratch, rng, 100_000,
+                                          30, dev)
     return out
 
 
@@ -3094,6 +3438,21 @@ def replica_kernels(torch, K, scratch, rng, dev):
     out["phase_tally"] = replica_check(
         torch, K, scratch, "phase_tally", "phase_tally",
         K.phase_tally_plain, tally_make, (0,), 4, stop_run)
+    # again with the engine's outbox words: replicas 0 and 2 with the
+    # word clear on outboxes as the rule leaves them (only the popped
+    # hosts' rows read), 1 and 3 with it set (every row read)
+    kept = [rule_outbox(torch, obs[r], tallies[r][1]) if r % 2 == 0
+            else obs[r] for r in range(R)]
+
+    def word_make(r):
+        return (clone(tallies[r][0]), kept[r], tallies[r][1], pa,
+                run1.clone(), torch.tensor([r % 2, 0], dtype=torch.int32,
+                                           device=dev))
+
+    out["phase_tally_word"] = replica_check(
+        torch, K, WordTally(scratch), "phase_tally with outbox words",
+        "phase_tally", lambda *a: K.phase_tally_plain(*a[:5]), word_make,
+        (0,), 4, stop_run)
 
     # K8 and K9 on audit_inputs' heaps (100,000 hosts, E = 64)
     aud_states = [audit_inputs(torch, K, rng, H, E, dev) for _ in range(R)]
@@ -3127,11 +3486,38 @@ def replica_kernels(torch, K, scratch, rng, dev):
     out["loop_control"] = replica_check(
         torch, K, scratch, "loop_control", "loop_control",
         K.loop_control_plain, loop_make, (1,), 1, stop_loop)
-    # loop_control_case's bytes (head and head time of every host) for
-    # each replica
-    out["loop_control"]["bound_ms"] = 1e3 * R * H * (4 + 8) / \
-        HBM_BYTES_PER_S
+    # K9 with the tally folded in: replica r's heads with tally r's
+    # leaves, outbox (the rule's for the word clear, replicas 0 and 2)
+    # and pop counts; a stopped replica (DONE) tallies nothing
+    def fold_make(r):
+        st = {"head": aud_states[r]["head"], "ht": aud_states[r]["ht"],
+              **clone(tallies[r][0])}
+        return (st, K.control_block(dev, **words[r]), kept[r],
+                tallies[r][1], pa, torch.tensor([r % 2, 0],
+                                                dtype=torch.int32,
+                                                device=dev))
+
+    out["loop_control_tally"] = replica_check(
+        torch, K, FoldedLoop(scratch), "loop_control_tally",
+        "loop_control", folded_plain, fold_make, (0, 1), 1, stop_loop)
+    # loop_control_case's bytes (every head, a sector for each head
+    # time read) over the replicas
+    out["loop_control"]["bound_ms"] = 1e3 * sum(
+        loop_bytes(K, s) for s in aud_states) / HBM_BYTES_PER_S
     return out
+
+
+class WordTally:
+    """`phase_tally` of a Kernels with the outbox word as its last
+    argument in replica_check's stacking: [2] for one replica (the
+    wrapper's [2, 1]), [R, 2] stacked (the wrapper's [2, R])."""
+
+    def __init__(self, kernels):
+        self.kernels = kernels
+
+    def phase_tally(self, state, ob, pops, p, ctl, word):
+        w = word.view(2, 1) if word.dim() == 1 else word.t().contiguous()
+        self.kernels.phase_tally(state, ob, pops, p, ctl, w)
 
 
 # ----------------------------------------------------------------------
@@ -3792,6 +4178,16 @@ def kernels_phase(torch, report, H=100_000, dev="cuda"):
                           f"checking every heap {r['checked_ms']:.4f} ms "
                           f"(bound {1e3 * r['checked_bytes'] / HBM_BYTES_PER_S:.4f} ms)",
                           flush=True)
+                if "tally_shares" in r or "parent_ms" in r:
+                    print(f"[kernels] {kname} ({case}): "
+                          + (f"hosts whose rows are read "
+                             f"{r['tally_shares']['read']:.4f}; "
+                             if "tally_shares" in r else "")
+                          + ", ".join(f"{k.replace('_', ' ')} "
+                                      f"{r[k]:.4f} ms" for k in (
+                                          "parent_ms", "every_host_ms",
+                                          "apart_ms")
+                                      if k in r), flush=True)
                 if "outbox_shares" in r:
                     sh = r["outbox_shares"]
                     extra = ", ".join(
@@ -3877,7 +4273,8 @@ def kernels_phase(torch, report, H=100_000, dev="cuda"):
                   "at_tor_shape": route["tor"], **flush["route"]}})
     # the pops' and K2's real-phase and adversarial rows
     for kname, sub in flush.items():
-        if kname.startswith(("pop_", "judge_outbox")):
+        if kname.startswith(("pop_", "judge_outbox", "phase_tally",
+                             "loop_control")):
             report[kname].update(sub)
     report["route_keyed"]["adversarial"] = flush["route_keyed"][
         "adversarial"]
@@ -3944,7 +4341,7 @@ def loop_parity(torch, report, key, what, load, path=()):
         same_leaves(gpu_leaves, leaves, what, names)
     check(not aud_leaves["aud"].any(), f"parity ({what}): the "
           "audited run's word is not zero")
-    for k in path + ("loop_control", "phase_tally"):
+    for k in path + ("loop_control_tally",):
         check(kernels.launches[k] > 0, f"parity ({what}): {k} never "
               "launched")
     check(aud_kernels.launches["audit_round"] > 0, f"parity ({what}): "
@@ -4641,8 +5038,7 @@ def campaign_parity(torch, report):
         gpu, card = run_config(load(), "cuda", kernels)
         check(gpu.loop == "graph" and gpu.ok, f"campaign parity ({what}):"
               f" the card ran the {gpu.loop} loop, ok {gpu.ok}")
-        for k in path + ("route", "merge_heaps", "loop_control",
-                         "phase_tally"):
+        for k in path + ("route", "merge_heaps", "loop_control_tally"):
             check(kernels.launches[k] > 0, f"campaign parity ({what}): "
                   f"{k} never launched")
         rounds = card.loop_stats[0]["rounds"]
@@ -4716,7 +5112,7 @@ def campaign_full(torch, card, report):
     for name, example, overrides, path in CAMPAIGN_RUNS:
         print(f"[full:{name}] examples/{example} with {list(overrides)}",
               flush=True)
-        path = path + ("phase_tally", "loop_control")
+        path = path + ("loop_control_tally",)
         stats, launches, peak = main_path_run(torch, name, example,
                                               overrides, path)
         rec = stats.ensemble
@@ -4731,7 +5127,7 @@ def campaign_full(torch, card, report):
                  "host_syncs": stats.host_syncs, "device_ms": device_ms,
                  "profiled": profiled, "replicas": R, "busy_share": busy}
         timed = python_loop_runs(torch, card, name, example, overrides,
-                                 path, stats, launches)
+                                 path + ("phase_tally",), stats, launches)
         er = timed.pop("runner")
         entry.update(timed)
         rounds = er.loop_stats[0]["rounds"]
@@ -4900,6 +5296,9 @@ FUNCTION_KIND = {
     **dict.fromkeys(("route_compact_kernel", "route_pass_kernel",
                      "route_bounds_kernel"), "route"),
     "merge_scan_kernel": "merge_heaps", "merge_heaps_kernel": "merge_heaps",
+    "loop_control_kernel": "loop_control",
+    "loop_control_tally_kernel": "loop_control_tally",
+    "phase_tally_rows_kernel": "phase_tally",
     "head_min_kernel": "loop_control", "control_kernel": "loop_control",
     "audit_hosts_kernel": "audit_round",
     "audit_conserve_kernel": "audit_round"}
@@ -4947,16 +5346,18 @@ def profiled_graph_run(torch, card, name, cfg, path, stats, launches):
     return ms, seen
 
 
-def _profile_once(torch, name, cfg, path, stats, launches):
-    """One profiled graph run: ({row: device ms}, {row: kernels seen},
-    wall s), with the checks of `profiled_graph_run`."""
+def _profile_once(torch, name, cfg, path, stats, launches, kernels=None):
+    """One profiled graph run (on `kernels`, default a new Kernels):
+    ({row: device ms}, {row: kernels seen}, wall s), with the checks of
+    `profiled_graph_run`."""
     import re
 
     from torch.profiler import ProfilerActivity, profile
 
     from shadow_tpu_torch.device.kernels import Kernels
 
-    kernels = Kernels()
+    kernels = Kernels() if kernels is None else kernels
+    kernels.reset_counts()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         prof_stats, _ = run_config(cfg, "cuda", kernels)
         torch.cuda.synchronize()
@@ -4992,7 +5393,7 @@ def full_phase(torch, card, report):
               + (f"examples/{example}" if example else
                  "PHOLD_1M_YAML (chip_smoke.py)")
               + f" with {list(overrides)}", flush=True)
-        path = path + ("phase_tally", "loop_control")
+        path = path + ("loop_control_tally",)
         stats, launches, peak = main_path_run(torch, name, example,
                                               overrides, path)
         hosts = len(stats.host_events_executed)
@@ -5013,14 +5414,16 @@ def full_phase(torch, card, report):
         entry["device_ms"], entry["profiled"] = profiled_graph_run(
             torch, card, name, full_config(example, overrides), path,
             stats, launches)
+        # the Python loop launches the standalone tally and no K9
         entry.update(python_loop_runs(torch, card, name, example,
-                                      overrides, path, stats, launches))
+                                      overrides, path + ("phase_tally",),
+                                      stats, launches))
         runs[name] = entry
     # the audit's share of a million-host run's wall
     name, example, overrides, path = next(r for r in FULL_RUNS
                                           if r[0] == AUDITED)
     path = tuple(k + AUD if k.startswith("pop_") else k for k in path) + \
-        ("phase_tally", "loop_control", "audit_round")
+        ("loop_control_tally", "audit_round")
     stats, launches, peak = main_path_run(torch, f"{name}_audit", example,
                                           overrides + (AUDIT,), path)
     plain = runs[name]["wall_s"]
@@ -5443,6 +5846,10 @@ def kernels_line(report):
             # the kernel at R = REPLICAS replicas against R = 1
             # (`replica_kernels`)
             **({"at_r4": replicas[n]} if n in replicas else {}),
+            **({"at_r4_with_outbox_words": replicas[n + "_word"]}
+               if n + "_word" in replicas else {}),
+            # the design before this one, on the same inputs
+            **({"parent_ms": r["parent_ms"]} if "parent_ms" in r else {}),
             **({"at_r4_on_factored_tables": replicas[n + "_hier"]}
                if n + "_hier" in replicas and "_hier" not in n else {}),
         })
@@ -5463,9 +5870,9 @@ def pop_times(torch) -> dict:
     per launch of K1_hier, K2_hier, K5, K3 and phase_tally on the main
     path's own data, phold_1m_hier in timing mode, and of the pop, K2,
     K5, K3 and phase_tally on phold (2 x 50,000 hosts), tgen_10000,
-    tor_small and tor_large as shipped; through the API the window
-    loop's control block brought, so that `--ab` can time another
-    commit's package."""
+    tor_small and tor_large as shipped; then `graph_times`; through the
+    API the window loop's control block brought, so that `--ab` can time
+    another commit's package."""
     from shadow_tpu_torch.device import kernels as K
     from shadow_tpu_torch.device.apps import PholdDevice
     from shadow_tpu_torch.device.prng import seed_key
@@ -5611,6 +6018,68 @@ def pop_times(torch) -> dict:
                   "phase_tally"):
             out[f"{k} on {example[:-5]}, per launch"] = ms[k] / \
                 timed.launches[k]
+    out.update(graph_times(torch, K))
+    return out
+
+
+# the full runs whose graph walls and K9 and tally device ms `--ab`
+# compares: where the two weigh most (PERF.md)
+AB_GRAPH_RUNS = ("tgen_10000_nic", "tor_large", "tgen_10000_x10")
+
+
+def graph_times(torch, K) -> dict:
+    """The main path of AB_GRAPH_RUNS through K's package: each run's
+    graph loop untimed (its wall) and once more under torch.profiler
+    (its K9 and tally device ms, summed); in a package whose K9 folds
+    the tally (Kernels.fold_tally), the same without the fold and with
+    the designs before it (Kernels.designs_before), the
+    untimed runs in turns (a, b, c, c, b, a; each wall the mean of its
+    two), for an A/B in one process. Counts equal between them."""
+    from shadow_tpu_torch.device import runner
+
+    out = {}
+    variants = {"": {}}
+    if hasattr(K.Kernels(), "fold_tally"):
+        variants[", not folded"] = {"fold_tally": False}
+        variants[", the designs before"] = {"designs_before": True}
+
+    def kernels_of(label):
+        kernels = K.Kernels()
+        for a, v in variants[label].items():
+            setattr(kernels, a, v)
+        return kernels
+
+    for name in AB_GRAPH_RUNS:
+        _, example, ovr, path = next(r for r in FULL_RUNS if r[0] == name)
+        cfg = full_config(example, ovr)
+        order = list(variants) + list(reversed(variants))
+        walls, first = {}, None
+        for label in order:
+            gc.collect()
+            stats = runner.run(cfg, "cuda", kernels=kernels_of(label))
+            check(stats.ok and stats.loop == "graph", f"{name}: not ok "
+                  f"or not the graph loop ({stats.loop})")
+            first = first or stats
+            same_run(first, stats, f"ab {name}", ("", label))
+            walls.setdefault(label, []).append(stats.wall_s)
+        for label in variants:
+            kernels = kernels_of(label)
+            rows = (("loop_control_tally",)
+                    if getattr(kernels, "fold_tally", False)
+                    and not kernels.designs_before
+                    else ("phase_tally", "loop_control"))
+            stats = runner.run(cfg, "cuda", kernels=kernels)
+            launches = dict(kernels.launches)
+            ms, _, _ = _profile_once(torch, name, cfg, path + rows, stats,
+                                     launches, kernels)
+            out[f"graph wall {name}{label}, s"] = statistics.mean(
+                walls[label])
+            for k in rows:
+                out[f"{k} on {name}{label}, device ms"] = ms[k]
+                out[f"{k} on {name}{label}, per launch"] = \
+                    ms[k] / launches[k]
+            out[f"K9 and the tally on {name}{label}, device ms"] = sum(
+                ms[k] for k in rows)
     return out
 
 
@@ -5647,7 +6116,9 @@ def main(argv=None) -> int:
                     help="only time every kernel of a standalone run (R = "
                          "1) of the package in DIR (a checkout of another "
                          "commit) and of this one, in turns, on seeded "
-                         "inputs and on phold_1m_hier (`pop_times`)")
+                         "inputs and on phold_1m_hier (`pop_times`), and "
+                         "the main path's graph walls and K9 and tally "
+                         "device ms of AB_GRAPH_RUNS (`graph_times`)")
     ap.add_argument("--pop-times", action="store_true",
                     help=argparse.SUPPRESS)
     ap.add_argument("--package", default=REPO, help=argparse.SUPPRESS)

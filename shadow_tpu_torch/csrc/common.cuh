@@ -64,6 +64,62 @@ __device__ __forceinline__ const int64_t* replica_ctl(const int64_t* ctl,
     return ctl == nullptr ? nullptr : ctl + r * CTL_N;
 }
 
+// A grid-wide reduction in one launch (K9, phase_tally): each block
+// writes its partial, then takes a ticket; the last block of a replica
+// to take one reduces the partials (read with __ldcg, from L2). A ticket
+// is one atomic add with release order at device scope (the block's
+// partial before it); the block that finds itself last then fences, so
+// that every block's partial is visible to it. The add does not order
+// the block's later loads, so the block goes on with other work while
+// it is in flight (`ticket_take`, then `ticket_last` on its result).
+// The tickets have two levels, so that no word takes more than
+// TICKET_GROUP atomics a launch: a block counts itself into its group's
+// word, the last block of a group into the replica's word (a grid of at
+// most TICKET_GROUP blocks takes one level). Each word is set back to 0
+// by the block that takes its last ticket, so the next launch (a graph
+// replay) needs no memset. A replica's tickets are ticket_words(nb)
+// unsigned words (a word a 32-byte sector), zero before the first
+// launch.
+constexpr int TICKET_GROUP = 128;
+constexpr int TICKET_STRIDE = 8;
+
+__host__ __device__ __forceinline__ int ticket_words(int nb) {
+    return TICKET_STRIDE * (1 + (nb + TICKET_GROUP - 1) / TICKET_GROUP);
+}
+
+__device__ __forceinline__ unsigned ticket_add(unsigned* word) {
+    unsigned old;
+    asm volatile("atom.release.gpu.add.u32 %0, [%1], 1;"
+                 : "=r"(old) : "l"(word) : "memory");
+    return old;
+}
+
+// Thread 0 of a block, after writing the block's partial: counts the
+// block into its group's word; returns the count before it.
+__device__ __forceinline__ unsigned ticket_take(unsigned* tk) {
+    return ticket_add(tk + TICKET_STRIDE * (1 + blockIdx.x / TICKET_GROUP));
+}
+
+// Thread 0, with ticket_take's count: whether its block is the
+// replica's last (which has then acquired every block's partial); the
+// caller shares that with the block (__syncthreads) before the block
+// reads the partials.
+__device__ __forceinline__ bool ticket_last(unsigned* tk, int nb,
+                                            unsigned taken) {
+    const int g = blockIdx.x / TICKET_GROUP;
+    const int ng = (nb + TICKET_GROUP - 1) / TICKET_GROUP;
+    const int in_g = min(TICKET_GROUP, nb - g * TICKET_GROUP);
+    if (taken != (unsigned)(in_g - 1)) return false;
+    tk[TICKET_STRIDE * (1 + g)] = 0;
+    if (ng > 1) {
+        __threadfence();    // the group's partials, before the next level
+        if (ticket_add(tk) != (unsigned)(ng - 1)) return false;
+        *tk = 0;
+    }
+    __threadfence();        // every partial, before the caller reads them
+    return true;
+}
+
 // The rows a route, a pack or the merge reads (device/kernels.py `Rows`):
 // one or two regions, each a base per channel (t, k, m, s, v, key; null
 // where the region lacks one), its block width and the stride between

@@ -37,7 +37,9 @@ Two loops drive the phases, with the same windows and rounds:
   mode (`Kernels(timing=True)`), where each launch is timed;
 * the slot schedule (`run_slots`): a slot is a phase, then K9
   loop_control (the minimum and the window decisions, on the device,
-  on the control block of kernels.CTL_FIELDS), then K8 under the audit.
+  on the control block of kernels.CTL_FIELDS; the phase's tallies
+  folded in, `loop_control_tally`, unless under `outbox_compact`), then
+  K8 under the audit.
   On the card LOOP_SLOTS slots are captured once into a CUDA graph and
   replayed until the block says done, one host read per replay; every
   kernel of a slot after done returns at once. On the CPU the same
@@ -632,7 +634,7 @@ class DeviceEngine:
         self._arm()
         self._phase(state, win_end)
 
-    def _phase(self, state: dict, win_end) -> None:
+    def _phase(self, state: dict, win_end, tally: bool = True) -> None:
         """One phase: pops (K1, K4 or K6), then the flush: judge (K2,
         not under the model NIC, whose pops judge), path counters (K7,
         under count_paths), the tallies, the compaction (K11, under
@@ -642,11 +644,13 @@ class DeviceEngine:
         makes the phase a no-op where it is 0. The loops run a phase
         only when some host's head time lies below the window end, so
         every phase pops and flushes (the reference skips the flush of
-        a phase that popped nothing, which cannot happen here)."""
+        a phase that popped nothing, which cannot happen here). Without
+        `tally` the flush leaves the tallies to the K9 step after it
+        (`_fold`)."""
         ob, pops, _ = self._buffers()
         self.kernels.pop(state, ob, pops, self.world, win_end, self.params,
                          self._outside)
-        self._flush(state, win_end)
+        self._flush(state, win_end, tally)
 
     def flush(self, state: dict, win_end) -> None:
         """The flush of the outbox the last pop wrote (the engine's own
@@ -655,7 +659,7 @@ class DeviceEngine:
         self._arm()
         self._flush(state, win_end)
 
-    def _flush(self, state: dict, win_end) -> None:
+    def _flush(self, state: dict, win_end, tally: bool = True) -> None:
         p, k = self.params, self.kernels
         ctl = win_end if isinstance(win_end, torch.Tensor) else None
         ob, pops, route = self._buffers()
@@ -664,7 +668,8 @@ class DeviceEngine:
                            self._outside)
         if p.CP:
             k.count_paths(state, ob, self.world, ctl)
-        k.phase_tally(state, ob, pops, p, ctl)
+        if tally:
+            k.phase_tally(state, ob, pops, p, ctl, self._outside)
         if p.compacts:
             k.compact_outbox(state, ob, p, ctl)
         if self.mesh_params is None:
@@ -870,13 +875,28 @@ class DeviceEngine:
         else:
             ctl.copy_(host)
 
-    def _slots(self, state: dict, ctl: torch.Tensor, n: int) -> None:
-        """`n` slots: each a phase under `ctl`, K9 and, under the audit,
-        K8 (which runs where K9 ended a round)."""
+    def _fold(self) -> Optional[tuple]:
+        """The tallies' inputs (outbox, pop counts, params, outbox words)
+        where the slots' K9 takes the phase's tallies
+        (`loop_control_tally`, csrc/loop_control.cu), else None: where
+        nothing rewrites the outbox between the judge and K9, so not
+        under `outbox_compact`, and where the kernels fold
+        (`fold_tally`, not `designs_before`). The run's start step takes
+        them too (and tallies nothing), so that a run launches one K9."""
         k = self.kernels
+        if not k.fold_tally or k.designs_before or self.params.compacts:
+            return None
+        ob, pops, _ = self._buffers()
+        return ob, pops, self.params, self._outside
+
+    def _slots(self, state: dict, ctl: torch.Tensor, n: int) -> None:
+        """`n` slots: each a phase under `ctl`, K9 (with the phase's
+        tallies where `_fold`) and, under the audit, K8 (which runs
+        where K9 ended a round)."""
+        k, tally = self.kernels, self._fold()
         for _ in range(n):
-            self._phase(state, ctl)
-            k.loop_control(state, ctl)
+            self._phase(state, ctl, tally=tally is None)
+            k.loop_control(state, ctl, tally=tally)
             if self.config.audit:
                 k.audit_round(state, ctl)
 
@@ -906,7 +926,7 @@ class DeviceEngine:
                 "run_python times each launch")
         ctl = self._loop_block(stop, final)
         self._arm()
-        k.loop_control(state, ctl, start=True)
+        k.loop_control(state, ctl, start=True, tally=self._fold())
         self._slots(state, ctl, slots)
         words = ctl.cpu()
         syncs, graph = 1, None

@@ -31,13 +31,17 @@ Four steps carry one phase of a conservative window:
 
 Between the judge and the route `phase_tally` (csrc/phase_tally.cu)
 takes the phase's occupancy marks and, under the state audit, the
-conservation ledger `aud_tx`; under `outbox_compact` K11
-`compact_outbox` (csrc/compact_outbox.cu) then keeps at most CX
-exchangeable rows of each sender's row, by the window rule or, under
-`merge_strategy: global`, the global rule (`compact_outbox_global`).
+conservation ledger `aud_tx`, reading the rows of the hosts that
+popped (every host's under the outbox word, as K2 does); under
+`outbox_compact` K11 `compact_outbox` (csrc/compact_outbox.cu) then
+keeps at most CX exchangeable rows of each sender's row, by the window
+rule or, under `merge_strategy: global`, the global rule
+(`compact_outbox_global`).
 The window loop on the card adds two: K9 `loop_control`
 (csrc/loop_control.cu), the control step after each phase (the minimum
-head time, the window and round decisions), and K8 `audit_round`
+head time, the window and round decisions, in one launch whose last
+block decides; `loop_control_tally` where it also takes the phase's
+tallies, which the phase then leaves to it), and K8 `audit_round`
 (csrc/audit_round.cu), the audit's health word at each round's end.
 The pops carry the audit's clock lane as a template flag: an audited
 launch counts under the pop's name with `_aud` appended. Outside the
@@ -188,7 +192,7 @@ KERNEL_NAMES = tuple(
     for nic in ((False, True) if n in POP_KERNELS else (False,))
     for ep in (False, True) for hr in (False, True)) + \
     ("route", "merge_heaps", "count_paths", "phase_tally", "audit_round",
-     "loop_control") + \
+     "loop_control", "loop_control_tally") + \
     tuple(launch_name("judge_batch", False, ep, hr)
           for ep in (False, True) for hr in (False, True)) + \
     ("compact_outbox", "compact_outbox_global") + \
@@ -1707,21 +1711,28 @@ _SIGNATURES = {
     "shadow_pack_two_phase2": [_L] + [_I] * 7 + [_RW] + [_P] * 3 +
                               [_P] * 2 + [_P],
     # R, H, OB, ob t, pops, occ_ob occ_trips occ_phases, aud_tx, ctl,
-    # stream
-    "shadow_phase_tally": [_I] * 3 + [_P] * 8,
+    # ob_word, partial tickets, every_row, stream
+    "shadow_phase_tally": [_I] * 3 + [_P] * 7 + [_P] * 3 + [_I, _P],
     # R, H, E, ht hk head, n_exec n_sent n_drop n_deliv event_seq
     # packet_seq app_seq overflow x_overflow, aud_tx aud, sum, ctl,
     # stream
     "shadow_audit_round": [_I] * 3 + [_P] * 3 + [_P] * 9 + [_P] * 5,
-    # R, H, E, ht head, partial ctl, start, stream
-    "shadow_loop_control": [_I] * 3 + [_P] * 4 + [_I, _P],
+    # R, H, E, ht head, partial tickets ctl, start, split, OB, ob t (or
+    # null: no tally folded in), pops, occ_ob occ_trips occ_phases,
+    # aud_tx, ob_word, tally partial, stream
+    "shadow_loop_control": [_I] * 3 + [_P] * 5 + [_I] * 3 + [_P] * 8 +
+                           [_P],
     # N, H, boot_end, now src dst seq, host_vertex topo, seed keys,
     # deliver_time delivered, stream
     "shadow_judge_batch": [_L, _I, _L] + [_P] * 4 + [_P, _T, _P] +
                           [_P] * 2 + [_P],
     # R, H, OB, CX, global, ob t m, x_overflow, ctl, stream
     "shadow_compact_outbox": [_I] * 5 + [_P] * 2 + [_P] * 3,
-    "shadow_loop_control_blocks": [_I],
+    # the scratch words of a launch at H hosts (K9: and split, folded)
+    "shadow_loop_control_blocks": [_I] * 3,
+    "shadow_loop_control_tickets": [_I] * 3,
+    "shadow_phase_tally_blocks": [_I],
+    "shadow_phase_tally_tickets": [_I],
 }
 for _name in POP_KERNELS:
     _SIGNATURES[f"shadow_{_name}"][1:1] = [_I, _I]
@@ -1776,6 +1787,18 @@ class Kernels:
         # them over its warps; False: a warp a host, exiting where it
         # popped nothing (csrc/judge_outbox.cu; kept to measure the two)
         self.judge_listed = True
+        # the designs before the one-launch K9 and the tally that reads
+        # only the popped hosts' rows (csrc/loop_control.cu,
+        # phase_tally.cu), kept to measure against them: K9 as two
+        # launches (the minimum, then a block a replica deciding), the
+        # tally reading every host's row with one atomicMax a block; K9
+        # then folds no tally
+        self.designs_before = False
+        # K9 takes the phase's tallies in the captured window loop
+        # (`loop_control_tally`; DeviceEngine folds where nothing
+        # rewrites the outbox after the judge); False: the phase launches
+        # phase_tally and K9 steps alone, to measure the two
+        self.fold_tally = True
         self.reset_counts()
         self._lib = None
         self._scratch = {}
@@ -2296,24 +2319,42 @@ class Kernels:
             _ptr(send), _ptr(hist))
 
     def phase_tally(self, state: dict, ob: dict, pops: torch.Tensor,
-                    p: PhaseParams,
-                    ctl: Optional[torch.Tensor] = None) -> None:
+                    p: PhaseParams, ctl: Optional[torch.Tensor] = None,
+                    outside: Optional[torch.Tensor] = None) -> None:
         """The phase's occupancy marks and, under the audit, `aud_tx`
-        (phase_tally_plain on the CPU)."""
+        (phase_tally_plain on the CPU). Given the engine's outbox words
+        (`outbox_word`) as the judge read them, the kernel reads only
+        the rows of hosts whose pop count is nonzero, unless a word
+        says the rows came from outside the pop; without them it reads
+        every host's row. The plain version reads every row: a skipped
+        host holds no exchangeable row, so both give the same bytes."""
         if not pops.is_cuda:
             return phase_tally_plain(state, ob, pops, p, ctl)
         R = ob_replicas(ob)
         H, OB = ob["t"].shape[-2:]
+        dev = ob["t"].device
         occ = [state["occ_ob"], state["occ_trips"], state["occ_phases"]]
         aud_tx = state["aud_tx"] if p.AUD else None
         c, ctl_checks = _ctl_args(ctl, R)
+        if outside is not None and outside.shape != (2, R or 1):
+            raise ValueError("phase_tally: outbox words [2, R]")
+        lib = self.library()
+        partial = self._scratch_of(
+            "tally_partial", (R or 1) * lib.shadow_phase_tally_blocks(H),
+            dev, dtype=torch.int32)
+        tickets = self._scratch_of(
+            "tally_tickets", (R or 1) * lib.shadow_phase_tally_tickets(H),
+            dev, zero=True, dtype=torch.int32)
         self._launch(
             "phase_tally", "shadow_phase_tally",
             [(ob["t"], torch.int64)]
-            + [(t, torch.int32) for t in [pops] + occ]
-            + ([(aud_tx, torch.int64)] if p.AUD else []) + ctl_checks,
+            + [(t, torch.int32) for t in [pops] + occ + [partial, tickets]]
+            + ([(aud_tx, torch.int64)] if p.AUD else []) + ctl_checks
+            + _word_checks(outside),
             R or 1, H, OB, _ptr(ob["t"]), _ptr(pops), *map(_ptr, occ),
-            None if aud_tx is None else _ptr(aud_tx), c)
+            None if aud_tx is None else _ptr(aud_tx), c,
+            _word_ptr(outside), _ptr(partial), _ptr(tickets),
+            int(self.designs_before))
 
     def audit_round(self, state: dict,
                     ctl: Optional[torch.Tensor] = None) -> None:
@@ -2338,25 +2379,64 @@ class Kernels:
             _ptr(state["aud_tx"]), _ptr(state["aud"]), _ptr(total), c)
 
     def loop_control(self, state: dict, ctl: torch.Tensor,
-                     start: bool = False) -> None:
+                     start: bool = False, tally=None) -> None:
         """K9: one control step of the window loop on the block `ctl`
         (loop_control_plain on the CPU); a campaign's blocks [R, CTL_N]
-        each step their own replica."""
+        each step their own replica. `tally` (outbox, pop counts,
+        params, outbox words) folds the phase's tallies into the step
+        (`loop_control_tally`: phase_tally's work where the phase ran,
+        before the decisions; on the CPU phase_tally_plain, then
+        loop_control_plain)."""
         if not ctl.is_cuda:
+            if tally is not None and not start:
+                ob, pops, p, _ = tally
+                phase_tally_plain(state, ob, pops, p, ctl)
             return loop_control_plain(state, ctl, start)
         R = n_replicas(state)
         H, E = state["ht"].shape[-2:]
         lib = self.library()
-        partial = self._scratch_of(
-            "loop_partial", (R or 1) * lib.shadow_loop_control_blocks(H),
-            ctl.device)
+        split = int(self.designs_before)
+        if split and tally is not None:
+            raise ValueError("loop_control: the split design folds no "
+                             "tally")
+        folded = int(tally is not None)
+        nb = lib.shadow_loop_control_blocks(H, split, folded)
+        partial = self._scratch_of("loop_partial", (R or 1) * nb,
+                                   ctl.device)
+        words = lib.shadow_loop_control_tickets(H, split, folded)
+        tickets = self._scratch_of("loop_tickets",
+                                   max(1, (R or 1) * words), ctl.device,
+                                   zero=True, dtype=torch.int32)
         c, ctl_checks = _ctl_args(ctl, R)
+        checks = [(state["ht"], torch.int64), (state["head"], torch.int32),
+                  (partial, torch.int64), (tickets, torch.int32)] + \
+            ctl_checks
+        name, OB, fold_args = "loop_control", 0, [None] * 8
+        if tally is not None:
+            ob, pops, p, outside = tally
+            OB = ob["t"].shape[-1]
+            if pops.shape != ob["t"].shape[:-1] or (
+                    outside is not None and outside.shape != (2, R or 1)):
+                raise ValueError("loop_control: pop counts [(R,) H] and "
+                                 "outbox words [2, R]")
+            occ = [state["occ_ob"], state["occ_trips"],
+                   state["occ_phases"]]
+            tp = self._scratch_of("loop_tally_partial", (R or 1) * nb,
+                                  ctl.device, dtype=torch.int32)
+            aud_tx = state["aud_tx"] if p.AUD else None
+            checks += ([(ob["t"], torch.int64)]
+                       + [(t, torch.int32) for t in [pops] + occ + [tp]]
+                       + ([(aud_tx, torch.int64)] if p.AUD else [])
+                       + _word_checks(outside))
+            name = "loop_control_tally"
+            fold_args = [_ptr(ob["t"]), _ptr(pops), *map(_ptr, occ),
+                         None if aud_tx is None else _ptr(aud_tx),
+                         _word_ptr(outside), _ptr(tp)]
         self._launch(
-            "loop_control", "shadow_loop_control",
-            [(state["ht"], torch.int64), (state["head"], torch.int32),
-             (partial, torch.int64)] + ctl_checks,
+            name, "shadow_loop_control", checks,
             R or 1, H, E, _ptr(state["ht"]), _ptr(state["head"]),
-            _ptr(partial), c, int(start))
+            _ptr(partial), _ptr(tickets), c, int(start), split, OB,
+            *fold_args)
 
     def compact_outbox(self, state: dict, ob: dict, p: PhaseParams,
                        ctl: Optional[torch.Tensor] = None) -> None:
