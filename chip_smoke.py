@@ -256,6 +256,7 @@ It imports nothing of jax or of the shadow_tpu package.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import json
 import os
@@ -2708,57 +2709,138 @@ def audit_inputs(torch, K, rng, H, E, dev):
         .to(dev) for k, v in arrays.items()}
 
 
-def audit_case(torch, K, scratch, rng, H, E, dev):
-    """K8 against its plain version on `audit_inputs`, with the row
-    ledger balanced (no AUD_CONSERVE) and off by one (AUD_CONSERVE on
-    every host); timed on the balanced one."""
-    state = audit_inputs(torch, K, rng, H, E, dev)
-    off = dict(state, aud_tx=state["aud_tx"].clone())
-    off["aud_tx"][0] += 1
-    err = 0.0
-    for case, st in (("balanced", state), ("off by one", off)):
-        sk, sp = clone(st), clone(st)
-        scratch.audit_round(sk)
-        K.audit_round_plain(sp)
-        torch.cuda.synchronize()
-        e = max_abs_err(sk, sp, list(st))
-        check(e == 0.0, f"audit_round ({case} ledger, H={H}) differs from "
-              f"its plain version (max abs err {e})")
-        err = max(err, e)
-        conserve = bool(((sk["aud"] & K.AUD_CONSERVE) != 0).all())
-        check(conserve == (case != "balanced"),
-              f"audit_round ({case} ledger): AUD_CONSERVE wrong")
-        if case == "balanced":
-            bits = {b: int(((sk["aud"] & ~st["aud"]) & b != 0).sum())
-                    for b in (K.AUD_HEAP, K.AUD_COUNTER)}
-            check(all(bits.values()), f"audit_round: a bit never set "
-                  f"({bits})")
-    # the keys the kernel reads: those of slots in a run of tied times,
-    # each once (a run of L tied slots reads L keys)
+def audit_bytes(torch, K, state) -> tuple:
+    """(bytes, tied slots, words written) of K8 on `state`: t of every
+    slot, the keys of the slots in a run of tied times (each once), head,
+    the nine int32 counters and aud_tx of every host, and the word of
+    each host whose heap or counter bit the audit sets (read and
+    written) whatever its word held before: what any audit of these
+    inputs must move."""
     tie = state["ht"][:, :-1] == state["ht"][:, 1:]
     no = torch.zeros_like(tie[:, :1])
     tied = int((torch.cat([tie, no], 1) | torch.cat([no, tie], 1)).sum())
-    # the hosts whose word it writes (read and written): those with a
-    # heap or counter bit, whatever their word held before
     fresh = dict(clone(state), aud=torch.zeros_like(state["aud"]))
-    scratch.audit_round(fresh)
-    written = int((fresh["aud"] != 0).sum())
+    K.audit_round_plain(fresh)
+    written = int(((fresh["aud"] & (K.AUD_HEAP | K.AUD_COUNTER))
+                   != 0).sum())
+    H, E = state["ht"].shape
+    return (H * E * 8 + tied * 8 + H * (4 + 9 * 4 + 8) + written * 8,
+            tied, written)
+
+
+def audit_designs(torch, K, kk, cases, what):
+    """K8 (kk) on each of `cases` ({case: state}) bit-equal to its plain
+    version in both designs (the tiled one and the design before), the
+    ledger's verdict AUD_CONSERVE on every host or none; returns (ms,
+    the design before's ms), timed on the first case."""
+    times = {}
+    first = next(iter(cases.values()))
+    for before in (False, True):
+        kk.designs_before = before
+        for case, st in cases.items():
+            sk, sp = clone(st), clone(st)
+            kk.audit_round(sk)
+            K.audit_round_plain(sp)
+            torch.cuda.synchronize()
+            e = max_abs_err(sk, sp, list(st))
+            check(e == 0.0, f"audit_round ({what}, {case}, the design "
+                  f"before {before}) differs from its plain version (max "
+                  f"abs err {e})")
+            conserve = (sk["aud"] & K.AUD_CONSERVE) != 0
+            check(bool(conserve.all()) or not bool(conserve.any()),
+                  f"audit_round ({what}, {case}): AUD_CONSERVE on some "
+                  "hosts only")
+        times[before] = time_median(torch, kk.audit_round,
+                                    lambda: (clone(first),), 7)
+    kk.designs_before = False
+    return times[False], times[True]
+
+
+def off_by_one(state):
+    """`state` with one host's aud_tx one row more: the ledger off."""
+    off = dict(state, aud_tx=state["aud_tx"].clone())
+    off["aud_tx"][0] += 1
+    return off
+
+
+def audit_case(torch, K, scratch, rng, H, E, dev):
+    """K8 against its plain version on `audit_inputs`, with the row
+    ledger balanced (no AUD_CONSERVE) and off by one (AUD_CONSERVE on
+    every host), in both designs; timed on the balanced one."""
+    state = audit_inputs(torch, K, rng, H, E, dev)
+    ms, parent_ms = audit_designs(
+        torch, K, K.Kernels(), {"balanced": state,
+                                "off by one": off_by_one(state)},
+        f"H={H}")
+    sk = clone(state)
+    scratch.audit_round(sk)
+    conserve = (sk["aud"] & K.AUD_CONSERVE) != 0
+    check(not bool(conserve.any()), "audit_round (balanced ledger): "
+          "AUD_CONSERVE set")
+    bits = {b: int(((sk["aud"] & ~state["aud"]) & b != 0).sum())
+            for b in (K.AUD_HEAP, K.AUD_COUNTER)}
+    check(all(bits.values()), f"audit_round: a bit never set ({bits})")
+    nbytes, tied, written = audit_bytes(torch, K, state)
     return finish({
-        "err": err,
-        "ms": time_median(torch, scratch.audit_round,
-                          lambda: (clone(state),), 7),
+        "err": 0.0, "ms": ms, "parent_ms": parent_ms,
         "plain_ms": time_median(torch, K.audit_round_plain,
                                 lambda: (clone(state),), 3),
-        "library_ms": None,
-        # t of every slot, the keys of tied slots, head, the nine int32
-        # counters and aud_tx of every host, the word of each host
-        # written
-        "bytes": H * E * 8 + tied * 8 + H * (4 + 9 * 4 + 8)
-                 + written * 8,
-        "ops": 0,
+        "library_ms": None, "bytes": nbytes, "ops": 0,
         "shape": f"H={H} E={E} tied_slots={tied} words_written={written} "
                  f"heap_bits={bits[K.AUD_HEAP]} "
-                 f"counter_bits={bits[K.AUD_COUNTER]}"})
+                 f"counter_bits={bits[K.AUD_COUNTER]}; the design before "
+                 f"{parent_ms:.4f} ms"})
+
+
+# the full runs whose own audited state K8 is checked and timed on, paused
+# half way (`audit_real_rows`)
+AUDIT_REAL = ("phold", "phold_1m_hier")
+
+
+def audit_real_rows(torch, K, dev):
+    """K8 on each AUDIT_REAL run's own state, audited and paused at half
+    its stop time by the graph loop (the leaves the audit reads as the
+    main path leaves them), with the ledger as the run keeps it (balanced:
+    no bit set) and off by one, in both designs, bit-equal to its plain
+    version and timed."""
+    from shadow_tpu_torch.device import runner
+
+    out = {}
+    for name in AUDIT_REAL:
+        _, example, overrides, _ = next(r for r in FULL_RUNS
+                                        if r[0] == name)
+        cfg = full_config(example, overrides + (AUDIT,))
+        engine, sim = runner.make_engine(cfg, device=dev.type)
+        state = engine.init_state(sim.start_times, sim.stop_times)
+        stop = int(engine.config.stop_time)
+        engine.run(state, stop=stop // 2, final_stop=stop)
+        check(not bool(state["aud"].any()), f"{name}: a health word set "
+              "half way")
+        leaves = {k: state[k] for k in ("ht", "hk", "head", "aud",
+                                        "aud_tx", "overflow",
+                                        "x_overflow") + K.AUD_COUNTERS}
+        what = f"{name}'s audited state half way"
+        ms, parent_ms = audit_designs(
+            torch, K, K.Kernels(), {"as the run keeps it": leaves,
+                                    "off by one": off_by_one(leaves)},
+            what)
+        sk = clone(leaves)
+        K.Kernels().audit_round(sk)
+        check(not bool(sk["aud"].any()), f"audit_round ({what}): a bit "
+              "set on a sound state")
+        nbytes, tied, _ = audit_bytes(torch, K, leaves)
+        H, E = leaves["ht"].shape
+        live = int((leaves["ht"] < K.INF).sum())
+        out[f"{name} audited"] = {"audit_round": finish({
+            "err": 0.0, "ms": ms, "parent_ms": parent_ms,
+            "plain_ms": time_median(torch, K.audit_round_plain,
+                                    lambda: (clone(leaves),), 3),
+            "bytes": nbytes, "ops": 0,
+            "shape": f"{what}: H={H} E={E} live rows {live} tied slots "
+                     f"{tied}"})}
+        del engine, state, leaves
+        torch.cuda.empty_cache()
+    return out
 
 
 def loop_bytes(K, state) -> int:
@@ -3072,13 +3154,18 @@ def fold_case(torch, K, scratch, rng, H, OB, dev):
 
 
 def loop_kernels(torch, K, scratch, rng, dev):
-    """K8 at 100,000 and 1,000,000 hosts, K9 at 1,000,000 (on K8's
-    heaps), phase_tally and K9 with the tally folded in at the PHOLD
-    shapes."""
+    """K8 at 100,000 and 1,000,000 hosts (E = 64, and an odd E), K9 at
+    1,000,000 (on K8's heaps), phase_tally and K9 with the tally folded
+    in at the PHOLD shapes."""
     out = {"audit_round": audit_case(torch, K, scratch, rng, 100_000, 64,
                                      dev)}
     big = audit_case(torch, K, scratch, rng, 1_000_000, 64, dev)
     out["audit_round"]["at_1m_hosts"] = big
+    # an odd E: one word a load, in one wave of blocks and in several
+    out["audit_round"]["odd_e"] = {
+        f"H={h}": audit_case(torch, K, scratch, rng, h, 33, dev)
+        for h in (100_000, 1_000_000)}
+    out["audit_round"]["odd_e"]["err"] = 0.0
     state = audit_inputs(torch, K, rng, 1_000_000, 64, dev)
     out["loop_control"] = loop_control_case(torch, K, scratch, state, dev)
     out["phase_tally"] = tally_case(torch, K, scratch, rng, 100_000, 30,
@@ -3713,69 +3800,109 @@ def compact_inputs(torch, rng, H, OB, dev):
     return state, ob
 
 
+def compact_params(K, OB, cx, rule):
+    return K.PhaseParams(E=64, K=3, T=0, P=1, B=max(1, OB // 3), IN=64,
+                         C=1, boot_end=0, seed=(0, 0), app=None, CX=cx,
+                         CXG=rule)
+
+
+def compact_designs(torch, K, kk, make, what):
+    """K11 (kk) on `make()`'s inputs (state, outbox, params, ctl, pop
+    counts, outbox words; the last three may be None) bit-equal to its
+    plain version in both designs (the design before reads every row
+    whatever the word); returns (ms, the design before's ms)."""
+    times = {}
+    for before in (False, True):
+        kk.designs_before = before
+        a, b = make(), make()
+        kk.compact_outbox(*a)
+        K.compact_plain(b[0], b[1], b[2].CX, b[2].CXG, b[3])
+        torch.cuda.synchronize()
+        err = max(max_abs_err(a[0], b[0], ["x_overflow"]),
+                  max_abs_err(a[1], b[1], list(K.OB_FIELDS)))
+        name = "compact_outbox" + ("_global" if a[2].CXG else "")
+        check(err == 0.0, f"{name} ({what}, the design before {before}) "
+              f"differs from its plain version (max abs err {err})")
+        times[before] = time_median(torch, kk.compact_outbox, make, 7)
+    kk.designs_before = False
+    return times[False], times[True]
+
+
+def compact_bytes(K, ob, pops, cx, rule, read_all: bool) -> tuple:
+    """(bytes, rows read, overflowing rows, dropped rows) of K11 on these
+    inputs: the pop counts of every host (where it skips by them), t of
+    the rows read (those of the hosts that popped, or every row), m of
+    the live columns of overflowing rows (window rule), t written for
+    the dropped rows, x_overflow read and written for the overflowing
+    senders: what any compaction of these inputs must move."""
+    H, OB = ob["t"].shape
+    live = (ob["t"] < K.DROP_T).sum(-1)
+    over = live > cx
+    rows = H if read_all else int((pops != 0).sum())
+    dropped = int((live - cx).clamp(min=0).sum())
+    lives = int(live[over].sum())
+    nbytes = ((0 if pops is None else H * 4) + rows * OB * 8
+              + (0 if rule else lives * 8) + dropped * 8
+              + int(over.sum()) * 4 * 2)
+    return nbytes, rows, int(over.sum()), dropped
+
+
 def compact_kernels(torch, K, scratch, rng, dev):
     """K11 at the PHOLD shapes (H = 100,000, OB = 30) with CX 4 and 16,
     both rules, against compact_plain, exact on the outbox and
-    x_overflow; and each rule at R = REPLICAS against four R = 1
-    launches and the plain version, a replica whose control block
-    stops it keeping every byte (`replica_check`). Returns (the rows,
-    at CX = 4 with the CX = 16 case beside it; the R = REPLICAS
-    checks)."""
+    x_overflow, in both designs (every row read: no pop counts), and on
+    rows wider than 256 columns (the wide kernel); and each rule at R =
+    REPLICAS against four R = 1 launches and the plain version, a
+    replica whose control block stops it keeping every byte
+    (`replica_check`), without and with pop counts and outbox words.
+    Returns (the rows, at CX = 4 with the CX = 16 and wide cases beside
+    it; the R = REPLICAS checks)."""
     H, OB = 100_000, 30
     state0, ob0 = compact_inputs(torch, rng, H, OB, dev)
     live = (ob0["t"] < K.DROP_T).sum(-1)
-    out, at16, r4 = {}, {}, {}
+    # wider rows: 4 and 8 columns a lane, and the wide kernel
+    wider = {ob: compact_inputs(torch, rng, 20_000, ob, dev)
+             for ob in (100, 256, 300)}
+    out, r4 = {}, {}
     for rule, name in ((False, "compact_outbox"),
                        (True, "compact_outbox_global")):
-        for cx in (4, 16):
-            p = K.PhaseParams(E=64, K=3, T=0, P=1, B=OB // 3, IN=64, C=1,
-                              boot_end=0, seed=(0, 0), app=None, CX=cx,
-                              CXG=rule)
-            sk, obk = clone(state0), clone(ob0)
-            sp, obp = clone(state0), clone(ob0)
+        rows = {}
+        for cx, (st0, o0) in ((4, (state0, ob0)), (16, (state0, ob0)),
+                              *((16, w) for w in wider.values())):
+            p = compact_params(K, o0["t"].shape[1], cx, rule)
+            sk, obk = clone(st0), clone(o0)
             scratch.compact_outbox(sk, obk, p)
-            K.compact_plain(sp, obp, cx, rule)
-            torch.cuda.synchronize()
-            err = max(max_abs_err(sk, sp, ["x_overflow"]),
-                      max_abs_err(obk, obp, list(K.OB_FIELDS)))
-            check(err == 0.0, f"{name} (CX={cx}) differs from its plain "
-                  f"version (max abs err {err})")
-            over = int((live - cx).clamp(min=0).sum())
+            lv = (o0["t"] < K.DROP_T).sum(-1)
+            over = int((lv - cx).clamp(min=0).sum())
             check(over > 0 and int((sk["x_overflow"].long()
-                                    - state0["x_overflow"].long()).sum())
+                                    - st0["x_overflow"].long()).sum())
                   == over, f"{name} (CX={cx}): x_overflow is not the "
                   "live rows past CX")
-            rows = int((live > cx).sum())
-            lives = int(live[live > cx].sum())
 
-            def args(p=p):
-                return (clone(state0), clone(ob0), p)
+            def args(p=p, st0=st0, o0=o0):
+                return (clone(st0), clone(o0), p, None, None, None)
 
-            r = finish({
-                "err": err,
-                "ms": time_median(torch, scratch.compact_outbox, args, 7),
+            Hx, OBx = o0["t"].shape
+            ms, parent_ms = compact_designs(torch, K, K.Kernels(), args,
+                                            f"H={Hx} OB={OBx} CX={cx}")
+            nbytes, _, n_over, dropped = compact_bytes(K, o0, None, cx,
+                                                       rule, True)
+            rows[cx, OBx] = finish({
+                "err": 0.0, "ms": ms, "parent_ms": parent_ms,
                 "plain_ms": time_median(
-                    torch, lambda s, o, q: K.compact_plain(s, o, q.CX,
-                                                           q.CXG),
-                    args, 3),
-                "library_ms": None,
-                # t of every row read; the window rule reads m of the
-                # live columns of overflowing rows; t written for the
-                # dropped rows; x_overflow read and written where a row
-                # overflows
-                "bytes": H * OB * 8 + (0 if rule else lives * 8)
-                + over * 8 + rows * 4 * 2,
-                "ops": 0,
-                "shape": f"H={H} OB={OB} CX={cx} overflowing_rows={rows} "
-                         f"dropped={over}"})
-            if cx == 4:
-                out[name] = r
-            else:
-                at16[name] = r
+                    torch, lambda s, o, q, *_: K.compact_plain(
+                        s, o, q.CX, q.CXG), args, 3),
+                "library_ms": None, "bytes": nbytes, "ops": 0,
+                "shape": f"H={Hx} OB={OBx} CX={cx} overflowing_rows="
+                         f"{n_over} dropped={dropped}; the design before "
+                         f"{parent_ms:.4f} ms"})
+        out[name] = rows[4, OB]
+        out[name]["at_cx16"] = rows[16, OB]
+        out[name]["wider_rows"] = {f"OB={ob}": rows[16, ob]
+                                   for ob in wider}
+        out[name]["wider_rows"]["err"] = 0.0
         run1 = K.control_block(dev, run=1)
-        p4 = K.PhaseParams(E=64, K=3, T=0, P=1, B=OB // 3, IN=64, C=1,
-                           boot_end=0, seed=(0, 0), app=None, CX=4,
-                           CXG=rule)
+        p4 = compact_params(K, OB, 4, rule)
         reps = [compact_inputs(torch, rng, H, OB, dev) for _ in
                 range(REPLICAS)]
 
@@ -3785,12 +3912,123 @@ def compact_kernels(torch, K, scratch, rng, dev):
         def stop_run(block):
             block[K.CTL["run"]] = 0
 
-        out[name]["at_cx16"] = at16[name]
         r4[name] = replica_check(
             torch, K, scratch, name, "compact_outbox",
             lambda s, o, q, c: K.compact_plain(s, o, q.CX, q.CXG, c),
             make, (0, 1), 3, stop_run)
+        # again with pop counts and outbox words: replicas 0 and 2 with
+        # the word clear on outboxes as the rule leaves them (only the
+        # popped hosts' rows read), 1 and 3 with it set (every row read)
+        pops = [torch.from_numpy(np.where(
+            rng.random(H) < 0.4, rng.integers(1, 9, H), 0).astype(
+                np.int32)).to(dev) for _ in range(REPLICAS)]
+        kept = [rule_outbox(torch, reps[r][1], pops[r]) if r % 2 == 0
+                else reps[r][1] for r in range(REPLICAS)]
+
+        def word_make(r, p4=p4):
+            return (clone(reps[r][0]), clone(kept[r]), p4, run1.clone(),
+                    pops[r], torch.tensor([r % 2, 0], dtype=torch.int32,
+                                          device=dev))
+
+        r4[name + "_word"] = replica_check(
+            torch, K, WordCompact(scratch), f"{name} with outbox words",
+            "compact_outbox",
+            lambda s, o, q, c, *_: K.compact_plain(s, o, q.CX, q.CXG, c),
+            word_make, (0, 1), 3, stop_run)
     return out, r4
+
+
+class WordCompact:
+    """`compact_outbox` of a Kernels with the outbox word as its last
+    argument in replica_check's stacking (as `WordTally`)."""
+
+    def __init__(self, kernels):
+        self.kernels = kernels
+
+    def compact_outbox(self, state, ob, p, ctl, pops, word):
+        w = word.view(2, 1) if word.dim() == 1 else word.t().contiguous()
+        self.kernels.compact_outbox(state, ob, p, ctl, pops, w)
+
+
+def compact_real_rows(torch, K, dev):
+    """K11 on one real phase of each COMPACT_FULL run: the run under
+    outbox_compact at the largest occ_ob of the same run uncompacted and
+    paused at half its stop time (both by the graph loop), then one
+    phase popped, judged and tallied on the engine's own buffers (pop
+    counts and outbox word as the engine leaves them); K11 on that
+    outbox at that CX with the word clear (only the popped hosts' rows
+    read) and set (every row), and at half the phase's fullest row (rows
+    overflow) under both rules, each in both designs, bit-equal to its
+    plain version and timed."""
+    from shadow_tpu_torch.device import runner
+
+    out = {}
+    for name, example, overrides, _ in COMPACT_FULL:
+        cfg = full_config(example, overrides)
+        engine, sim = runner.make_engine(cfg, device=dev.type)
+        state = engine.init_state(sim.start_times, sim.stop_times)
+        stop = int(engine.config.stop_time)
+        engine.run(state, stop=stop // 2, final_stop=stop)
+        cx = int(state["occ_ob"].max())
+        del engine, state
+        cfg = full_config(example, overrides + (
+            f"experimental.outbox_compact={cx}",))
+        engine, sim = runner.make_engine(cfg, device=dev.type)
+        state = engine.init_state(sim.start_times, sim.stop_times)
+        engine.run(state, stop=stop // 2, final_stop=stop)
+        nt = engine.next_time(state)
+        check(nt < K.INF, f"{name}: no event left half way")
+        p = engine.params
+        ctl = K.control_block(dev, run=1, win_end=nt + max(
+            1, int(engine.config.lookahead)))
+        ob, pops, _ = engine._buffers()
+        word = engine._outside
+        engine.kernels.pop(state, ob, pops, engine.world, ctl, p, word)
+        engine.kernels.judge_outbox(state, ob, engine.world, ctl, p, pops,
+                                    word)
+        engine.kernels.phase_tally(state, ob, pops, p, ctl, word)
+        torch.cuda.synchronize()
+        check(not bool(word[0].any()), f"{name}: the pop left the outbox "
+              "word set")
+        t_live = ob["t"] < K.DROP_T
+        check(not bool(t_live[pops == 0].any()), f"{name}: a host that "
+              "popped nothing holds an exchangeable row")
+        H, OB = ob["t"].shape
+        popped = int((pops != 0).sum())
+        st0 = {"x_overflow": state["x_overflow"]}
+        set_word = K.outbox_word(dev)
+        # a CX at which this phase's fullest rows overflow
+        half = max(1, int(t_live.sum(-1).max()) // 2)
+        for case, cxc, rule, w in (
+                ("the word clear", cx, p.CXG, word),
+                ("the word set", cx, p.CXG, set_word),
+                ("rows overflowing, window rule", half, False, word),
+                ("rows overflowing, global rule", half, True, word)):
+            q = dataclasses.replace(p, CX=cxc, CXG=rule)
+            kname = "compact_outbox_global" if rule else "compact_outbox"
+
+            def make(q=q, w=w):
+                return (clone(st0), clone(ob), q, ctl, pops, w.clone())
+
+            what = f"{name}'s compacted phase at {nt} ns, CX={cxc}, {case}"
+            ms, parent_ms = compact_designs(torch, K, K.Kernels(), make,
+                                            what)
+            read_all = w is set_word
+            nbytes, rows, n_over, dropped = compact_bytes(
+                K, ob, pops, cxc, rule, read_all)
+            out.setdefault(f"{name} compacted, {case}", {})[kname] = finish({
+                "err": 0.0, "ms": ms, "parent_ms": parent_ms,
+                "plain_ms": time_median(
+                    torch, lambda s, o, qq, c, *_: K.compact_plain(
+                        s, o, qq.CX, qq.CXG, c), make, 3),
+                "bytes": nbytes, "ops": 0,
+                "shape": f"{what}: H={H} OB={OB} hosts popped {popped}, "
+                         f"rows read {rows}, exchangeable rows "
+                         f"{int(t_live.sum())}, overflowing rows {n_over}, "
+                         f"dropped {dropped}"})
+        del engine, state, ob
+        torch.cuda.empty_cache()
+    return out
 
 
 # ----------------------------------------------------------------------
@@ -4162,6 +4400,8 @@ def kernels_phase(torch, report, H=100_000, dev="cuda"):
     mesh = mesh_kernels(torch, K, scratch, rng, dev)
     adversarial = flush_adversarial(torch, K, scratch, rng, dev)
     real, outbox_adv = real_phase_rows(torch, K, scratch, dev)
+    real.update(audit_real_rows(torch, K, dev))
+    real.update(compact_real_rows(torch, K, dev))
     adversarial.update(outbox_adv)
     flush = {}
     for where, cases in (("adversarial", adversarial),
@@ -4231,11 +4471,17 @@ def kernels_phase(torch, report, H=100_000, dev="cuda"):
     for name, r in loop.items():
         report_line(name, r)
     report_line("audit_round", loop["audit_round"]["at_1m_hosts"])
+    for h, r in loop["audit_round"]["odd_e"].items():
+        if h != "err":
+            report_line(f"audit_round (one word a load, {h})", r)
     for name, r in judge.items():
         report_line(f"{name} (a hybrid flush)", r)
     for name, r in compact.items():
         report_line(f"{name} (PHOLD shapes)", r)
         report_line(f"{name} (PHOLD shapes)", r["at_cx16"])
+        for ob, w in r["wider_rows"].items():
+            if ob != "err":
+                report_line(f"{name} (rows of {ob})", w)
     for name, r in mesh.items():
         report_line(f"{name} (a mesh rank, PHOLD shapes)", r)
         for k, sub in r.items():
@@ -4274,7 +4520,8 @@ def kernels_phase(torch, report, H=100_000, dev="cuda"):
     # the pops' and K2's real-phase and adversarial rows
     for kname, sub in flush.items():
         if kname.startswith(("pop_", "judge_outbox", "phase_tally",
-                             "loop_control")):
+                             "loop_control", "audit_round",
+                             "compact_outbox")):
             report[kname].update(sub)
     report["route_keyed"]["adversarial"] = flush["route_keyed"][
         "adversarial"]
@@ -4327,8 +4574,12 @@ def loop_parity(torch, report, key, what, load, path=()):
     from shadow_tpu_torch.device.kernels import Kernels
 
     kernels, aud_kernels = Kernels(), Kernels()
+    # the Python loop in timing mode: each kernel's device ms over its
+    # launches in this config
+    py_kernels = Kernels(timing=True)
     gpu, gpu_leaves = engine_run(load(), "cuda", kernels=kernels)
-    py, py_leaves = engine_run(load(), "cuda", "run_python")
+    py, py_leaves = engine_run(load(), "cuda", "run_python",
+                               kernels=py_kernels)
     cpu, cpu_leaves = engine_run(load(), "cpu")
     aud, aud_leaves = engine_run(load([AUDIT]), "cuda", kernels=aud_kernels)
     check((gpu.loop, py.loop, aud.loop) == ("graph", "python", "graph"),
@@ -4349,6 +4600,13 @@ def loop_parity(torch, report, key, what, load, path=()):
     runs = report.setdefault("_parity", {})
     runs[f"parity_{key}"] = {"launches": dict(kernels.launches)}
     runs[f"parity_{key}_audit"] = {"launches": dict(aud_kernels.launches)}
+    timed = {k: (n, v) for k, v in py_kernels.kernel_ms().items()
+             if (n := py_kernels.launches[k])}
+    runs[f"parity_{key}"]["python_loop_device_ms"] = {
+        k: v for k, (_, v) in timed.items()}
+    print(f"[parity] {what}: the Python loop's device ms (timing mode): "
+          + ", ".join(f"{k} {v:.3f} over {n}" for k, (n, v) in sorted(
+              timed.items(), key=lambda x: -x[1][1])), flush=True)
     print(f"[parity] {what}: card graph == card python == cpu plain "
           f"path == card graph audited (zero word): {gpu.summary()}; "
           f"card graph wall {gpu.wall_s:.3f} s ({gpu.phases} phases, "
@@ -4870,14 +5128,21 @@ def compact_full(torch, card, report):
         same_run(base, stats, f"full {name} compacted",
                  ("uncompacted", "compacted"))
         runs[f"full_{name}_compact"] = {"launches": launches}
+        # K11's device ms over its real launches: the graph run profiled
+        device_ms, _ = profiled_graph_run(
+            torch, card, f"{name}_compact", full_config(example, overrides + (
+                f"experimental.outbox_compact={cx}",)),
+            tuple(k for k, n in launches.items() if n), stats, launches)
         out[name] = {"cx": cx, "wall_s": stats.wall_s,
-                     "uncompacted_wall_s": base.wall_s}
+                     "uncompacted_wall_s": base.wall_s,
+                     "compact_outbox_device_ms": device_ms["compact_outbox"]}
         print(f"[full:{name}_compact] outbox_compact {cx} (the "
               f"uncompacted run's largest occ_ob): {stats.summary()}; "
               f"graph loop wall {stats.wall_s:.3f} s against "
               f"{base.wall_s:.3f} s uncompacted; compact_outbox "
-              f"{launches['compact_outbox']} launches; peak {peak} B; "
-              f"card {card}", flush=True)
+              f"{launches['compact_outbox']} launches, "
+              f"{device_ms['compact_outbox']:.3f} device ms; peak {peak} "
+              f"B; card {card}", flush=True)
     report["_compact_full"] = out
 
 
@@ -5300,8 +5565,11 @@ FUNCTION_KIND = {
     "loop_control_tally_kernel": "loop_control_tally",
     "phase_tally_rows_kernel": "phase_tally",
     "head_min_kernel": "loop_control", "control_kernel": "loop_control",
+    "audit_tiles_kernel": "audit_round",
     "audit_hosts_kernel": "audit_round",
-    "audit_conserve_kernel": "audit_round"}
+    "audit_conserve_kernel": "audit_round",
+    **dict.fromkeys(("compact_rows_kernel", "compact_wide_kernel",
+                     "compact_outbox_kernel"), "compact_outbox")}
 
 
 def profiled_graph_run(torch, card, name, cfg, path, stats, launches):
@@ -5630,6 +5898,23 @@ def mesh_parity(torch, report):
               for k in over) + f"; {card_s:.1f} s", flush=True)
     report["_mesh_parity"] = {k: {"launches": v[0].mesh["launches"]}
                               for k, v in card.items()}
+    # K13's device ms over real launches: the PHOLD's two_phase/global S
+    # = 4 run again in timing mode (every rank's launches summed)
+    (timed, _), = runner.mesh_runs(
+        ["cuda:0"] * 4, [phold(mesh_overrides(4, "two_phase", "global"))],
+        timing=True)
+    same_run(timed, card["phold/two_phase/global/4"][0],
+             "mesh two_phase/global S=4, timed", ("timed", "untimed"))
+    k13 = {k: (timed.mesh["launches"].get(k, 0),
+               sum(r["kernel_ms"].get(k, 0.0) for r in timed.mesh["ranks"]))
+           for k in ("pack_two_phase", "pack_two_phase2")}
+    check(all(n > 0 for n, _ in k13.values()), "mesh: K13 never launched "
+          "in the timed two_phase run")
+    report["_mesh_k13_ms"] = k13
+    print("[mesh] K13 on real launches (PHOLD 2x1000, two_phase/global, "
+          "S = 4, timing mode, every rank): " + ", ".join(
+              f"{k} {v:.3f} device ms over {n} launches"
+              for k, (n, v) in k13.items()), flush=True)
 
 
 def mesh_full(torch, card, report):
@@ -5807,7 +6092,8 @@ def kernels_line(report):
         shapes = {k: r[k] for k in ("at_tgen_shape", "at_tor_shape",
                                     "on_factored_tables",
                                     "err_on_shipped_tables",
-                                    "at_1m_hosts", "at_cx16", "at_S4",
+                                    "at_1m_hosts", "at_cx16",
+                                    "wider_rows", "odd_e", "at_S4",
                                     "overflowing", "adversarial",
                                     "on_real_phases") if k in r}
         rows.append({
@@ -6080,6 +6366,92 @@ def graph_times(torch, K) -> dict:
                     ms[k] / launches[k]
             out[f"K9 and the tally on {name}{label}, device ms"] = sum(
                 ms[k] for k in rows)
+    out.update(audit_compact_times(torch, K))
+    return out
+
+
+def audit_compact_times(torch, K) -> dict:
+    """The main path under the audit and the compaction through K's
+    package: phold_1m_hier (AUDITED) unaudited and audited, each graph
+    run untimed (walls in turns), the audited run once more under
+    torch.profiler (K8's device ms), and the audit's share of the wall;
+    the COMPACT_FULL runs under outbox_compact at the uncompacted run's
+    largest occ_ob (walls in turns; K11's device ms, profiled). In a
+    package whose Kernels.designs_before also covers K8 and K11 (its
+    compact_outbox takes pop counts), both again with the designs
+    before. Counts equal between them."""
+    import inspect
+
+    from shadow_tpu_torch.device import runner
+
+    out = {}
+    labels = [""]
+    if "pops" in inspect.signature(K.Kernels.compact_outbox).parameters:
+        labels.append(", the designs before")
+
+    def kernels_of(label):
+        kernels = K.Kernels()
+        kernels.designs_before = bool(label)
+        return kernels
+
+    def turns(name, cfgs, first=None):
+        """Each (label, cfg) run untimed in turns (a, b, ..., b, a), its
+        kernels' design by the label's part after "|": {label: mean
+        wall}, {label: (stats, launches) of its last run}."""
+        order = list(cfgs) + list(reversed(cfgs))
+        walls, last = {}, {}
+        for label in order:
+            gc.collect()
+            kernels = kernels_of(label.split("|")[-1])
+            stats = runner.run(cfgs[label], "cuda", kernels=kernels)
+            check(stats.ok and stats.loop == "graph", f"{name}: not ok "
+                  f"or not the graph loop ({stats.loop})")
+            first = first or stats
+            same_run(first, stats, f"ab {name}", ("", label))
+            walls.setdefault(label, []).append(stats.wall_s)
+            last[label] = (stats, dict(kernels.launches))
+        return {k: statistics.mean(v) for k, v in walls.items()}, last
+
+    def device_ms(name, cfg, label, stats, launches, row):
+        path = tuple(k for k, n in launches.items() if n)
+        ms, _, _ = _profile_once(torch, name, cfg, path, stats, launches,
+                                 kernels_of(label))
+        return ms[row], launches[row]
+
+    _, example, ovr, _ = next(r for r in FULL_RUNS if r[0] == AUDITED)
+    cfgs = {"unaudited|": full_config(example, ovr)}
+    for label in labels:
+        cfgs[f"audited|{label}"] = full_config(example, ovr + (AUDIT,))
+    walls, last = turns(AUDITED, cfgs)
+    for label in labels:
+        key = f"audited|{label}"
+        stats, launches = last[key]
+        ms, n = device_ms(AUDITED, cfgs[key], label, stats, launches,
+                          "audit_round")
+        wall = walls[key]
+        out[f"graph wall {AUDITED} audited{label}, s"] = wall
+        out[f"audit_round on {AUDITED}{label}, device ms"] = ms
+        out[f"audit_round on {AUDITED}{label}, per launch"] = ms / n
+        out[f"the audit's share of {AUDITED}'s wall{label}"] = \
+            (wall - walls["unaudited|"]) / wall
+    out[f"graph wall {AUDITED}, s"] = walls["unaudited|"]
+    for name, example, ovr, _ in COMPACT_FULL:
+        kernels = K.Kernels()
+        base, leaves = engine_run(full_config(example, ovr), "cuda",
+                                  kernels=kernels)
+        cx = int(leaves["occ_ob"].max())
+        cfg = full_config(example, ovr + (
+            f"experimental.outbox_compact={cx}",))
+        walls, last = turns(f"{name}_compact",
+                            {label: cfg for label in labels}, base)
+        for label in labels:
+            stats, launches = last[label]
+            ms, n = device_ms(f"{name}_compact", cfg, label, stats,
+                              launches, "compact_outbox")
+            out[f"graph wall {name} compacted (CX={cx}){label}, s"] = \
+                walls[label]
+            out[f"compact_outbox on {name}{label}, device ms"] = ms
+            out[f"compact_outbox on {name}{label}, per launch"] = ms / n
     return out
 
 
@@ -6091,7 +6463,7 @@ def ab_pops(other: str, card: str) -> None:
         proc = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--pop-times",
              "--package", tree], capture_output=True, text=True,
-            timeout=600)
+            timeout=900)
         check(proc.returncode == 0, f"--pop-times in {tree} failed:\n"
               f"{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
         times = json.loads(proc.stdout.strip().splitlines()[-1])

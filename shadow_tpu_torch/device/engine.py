@@ -671,7 +671,7 @@ class DeviceEngine:
         if tally:
             k.phase_tally(state, ob, pops, p, ctl, self._outside)
         if p.compacts:
-            k.compact_outbox(state, ob, p, ctl)
+            k.compact_outbox(state, ob, p, ctl, pops, self._outside)
         if self.mesh_params is None:
             perm, starts, counts = k.route(ob, route, ctl)
             k.merge_heaps(state, ob, perm, starts, counts, p, ctl,

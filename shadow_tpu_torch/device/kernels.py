@@ -36,13 +36,18 @@ popped (every host's under the outbox word, as K2 does); under
 `outbox_compact` K11 `compact_outbox` (csrc/compact_outbox.cu) then
 keeps at most CX exchangeable rows of each sender's row, by the window
 rule or, under `merge_strategy: global`, the global rule
-(`compact_outbox_global`).
+(`compact_outbox_global`), reading the rows of the hosts that popped
+(every row under the word) and ranking an overflowing row from its
+lanes' registers.
 The window loop on the card adds two: K9 `loop_control`
 (csrc/loop_control.cu), the control step after each phase (the minimum
 head time, the window and round decisions, in one launch whose last
 block decides; `loop_control_tally` where it also takes the phase's
 tallies, which the phase then leaves to it), and K8 `audit_round`
-(csrc/audit_round.cu), the audit's health word at each round's end.
+(csrc/audit_round.cu), the audit's health word at each round's end, in
+one launch: tiles of consecutive hosts, their counters a thread a host
+and their heap rows streamed as one span, every host read, the balance
+summed by the last block to take its ticket.
 The pops carry the audit's clock lane as a template flag: an audited
 launch counts under the pop's name with `_aud` appended. Outside the
 window loop, the hybrid policy's batched judgment of deferred packets
@@ -171,6 +176,9 @@ AUD_CLOCK = 2       # a host popped an event earlier than one it executed
 AUD_COUNTER = 4     # a cumulative counter went negative
 AUD_CONSERVE = 8    # rows produced != rows executed + live + counted lost
 AUD_KEYS = ("aud", "aud_t", "aud_tx")
+# the heap rows the tiled K8 takes (csrc/audit_round.cu MAX_E: a word's
+# row by a reciprocal, exact over a tile's span up to this E)
+AUDIT_MAX_E = 65535
 AUD_COUNTERS = ("n_exec", "n_sent", "n_drop", "n_deliv", "event_seq",
                 "packet_seq", "app_seq")
 # the window loop's control block, one int64 word each, in the order of
@@ -1714,9 +1722,10 @@ _SIGNATURES = {
     # ob_word, partial tickets, every_row, stream
     "shadow_phase_tally": [_I] * 3 + [_P] * 7 + [_P] * 3 + [_I, _P],
     # R, H, E, ht hk head, n_exec n_sent n_drop n_deliv event_seq
-    # packet_seq app_seq overflow x_overflow, aud_tx aud, sum, ctl,
-    # stream
-    "shadow_audit_round": [_I] * 3 + [_P] * 3 + [_P] * 9 + [_P] * 5,
+    # packet_seq app_seq overflow x_overflow, aud_tx aud, sum (the
+    # design before), partial tickets, ctl, warp_per_host, stream
+    "shadow_audit_round": [_I] * 3 + [_P] * 3 + [_P] * 9 + [_P] * 6 +
+                          [_I, _P],
     # R, H, E, ht head, partial tickets ctl, start, split, OB, ob t (or
     # null: no tally folded in), pops, occ_ob occ_trips occ_phases,
     # aud_tx, ob_word, tally partial, stream
@@ -1726,13 +1735,16 @@ _SIGNATURES = {
     # deliver_time delivered, stream
     "shadow_judge_batch": [_L, _I, _L] + [_P] * 4 + [_P, _T, _P] +
                           [_P] * 2 + [_P],
-    # R, H, OB, CX, global, ob t m, x_overflow, ctl, stream
-    "shadow_compact_outbox": [_I] * 5 + [_P] * 2 + [_P] * 3,
+    # R, H, OB, CX, global, ob t m, x_overflow, pops ob_word, ctl,
+    # every_row, stream
+    "shadow_compact_outbox": [_I] * 5 + [_P] * 2 + [_P] * 4 + [_I, _P],
     # the scratch words of a launch at H hosts (K9: and split, folded)
     "shadow_loop_control_blocks": [_I] * 3,
     "shadow_loop_control_tickets": [_I] * 3,
     "shadow_phase_tally_blocks": [_I],
     "shadow_phase_tally_tickets": [_I],
+    "shadow_audit_round_blocks": [_I],
+    "shadow_audit_round_tickets": [_I],
 }
 for _name in POP_KERNELS:
     _SIGNATURES[f"shadow_{_name}"][1:1] = [_I, _I]
@@ -1787,12 +1799,15 @@ class Kernels:
         # them over its warps; False: a warp a host, exiting where it
         # popped nothing (csrc/judge_outbox.cu; kept to measure the two)
         self.judge_listed = True
-        # the designs before the one-launch K9 and the tally that reads
+        # the designs before the one-launch K9, the tally that reads
         # only the popped hosts' rows (csrc/loop_control.cu,
-        # phase_tally.cu), kept to measure against them: K9 as two
-        # launches (the minimum, then a block a replica deciding), the
-        # tally reading every host's row with one atomicMax a block; K9
-        # then folds no tally
+        # phase_tally.cu), the tiled K8 (csrc/audit_round.cu) and the K11
+        # that reads only the popped hosts' rows
+        # (csrc/compact_outbox.cu), kept to measure against them: K9 as
+        # two launches (the minimum, then a block a replica deciding),
+        # the tally reading every host's row with one atomicMax a block,
+        # K8 a warp a host with a memset and a second launch, K11 a warp
+        # a row over every row, ranking from L1; K9 then folds no tally
         self.designs_before = False
         # K9 takes the phase's tallies in the captured window loop
         # (`loop_control_tally`; DeviceEngine folds where nothing
@@ -2368,15 +2383,32 @@ class Kernels:
         heap = [state["ht"], state["hk"]]
         small = [state["head"]] + [state[k] for k in AUD_COUNTERS] + \
             [state["overflow"], state["x_overflow"]]
-        total = self._scratch_of("audit_sum", R or 1, state["ht"].device)
+        dev = state["ht"].device
+        lib = self.library()
+        if self.designs_before:
+            total = self._scratch_of("audit_sum", R or 1, dev)
+            scratch, ptrs = [total], [_ptr(total), None, None]
+        else:
+            if E > AUDIT_MAX_E:
+                raise ValueError(f"audit_round: E = {E} past the tiled "
+                                 f"audit's {AUDIT_MAX_E}")
+            partial = self._scratch_of(
+                "audit_partial", (R or 1) * lib.shadow_audit_round_blocks(H),
+                dev)
+            tickets = self._scratch_of(
+                "audit_tickets", (R or 1) * lib.shadow_audit_round_tickets(H),
+                dev, zero=True, dtype=torch.int32)
+            scratch, ptrs = [partial, tickets], [None, _ptr(partial),
+                                                 _ptr(tickets)]
         c, ctl_checks = _ctl_args(ctl, R)
         self._launch(
             "audit_round", "shadow_audit_round",
-            [(t, torch.int64) for t in heap + [state["aud_tx"], total]]
+            [(t, torch.int64) for t in heap + [state["aud_tx"]]]
             + [(t, torch.int32) for t in small + [state["aud"]]]
-            + ctl_checks,
+            + [(t, t.dtype) for t in scratch] + ctl_checks,
             R or 1, H, E, *map(_ptr, heap), *map(_ptr, small),
-            _ptr(state["aud_tx"]), _ptr(state["aud"]), _ptr(total), c)
+            _ptr(state["aud_tx"]), _ptr(state["aud"]), *ptrs, c,
+            int(self.designs_before))
 
     def loop_control(self, state: dict, ctl: torch.Tensor,
                      start: bool = False, tally=None) -> None:
@@ -2439,9 +2471,20 @@ class Kernels:
             *fold_args)
 
     def compact_outbox(self, state: dict, ob: dict, p: PhaseParams,
-                       ctl: Optional[torch.Tensor] = None) -> None:
+                       ctl: Optional[torch.Tensor] = None,
+                       pops: Optional[torch.Tensor] = None,
+                       outside: Optional[torch.Tensor] = None) -> None:
         """K11: keep at most p.CX exchangeable rows per sender by the
-        rule p.CXG selects (compact_plain on the CPU)."""
+        rule p.CXG selects (compact_plain on the CPU). Given the phase's
+        pop counts and the engine's outbox words (`outbox_word`), both
+        or neither, the kernel reads only the rows of the hosts that
+        popped, unless a word says the rows came from outside the pop;
+        without them it reads every row. The plain version reads every
+        row: a skipped host's row holds no exchangeable row, so both give
+        the same bytes."""
+        if (pops is None) != (outside is None):
+            raise ValueError("compact_outbox: the pop counts and the "
+                             "outbox words come together")
         if not ob["t"].is_cuda:
             return compact_plain(state, ob, p.CX, p.CXG, ctl)
         R = ob_replicas(ob)
@@ -2449,13 +2492,22 @@ class Kernels:
         if not 0 < p.CX <= OB or OB > 2048:
             raise ValueError("compact_outbox: need 0 < CX <= OB <= 2048")
         c, ctl_checks = _ctl_args(ctl, R)
+        skip = []
+        if pops is not None:
+            if pops.shape != ob["t"].shape[:-1] or \
+                    outside.shape != (2, R or 1):
+                raise ValueError("compact_outbox: pop counts [(R,) H] and "
+                                 "outbox words [2, R]")
+            skip = [(pops, torch.int32), (outside, torch.int32)]
         self._launch(
             "compact_outbox_global" if p.CXG else "compact_outbox",
             "shadow_compact_outbox",
             [(ob["t"], torch.int64), (ob["m"], torch.int64),
-             (state["x_overflow"], torch.int32)] + ctl_checks,
+             (state["x_overflow"], torch.int32)] + skip + ctl_checks,
             R or 1, H, OB, p.CX, int(p.CXG), _ptr(ob["t"]), _ptr(ob["m"]),
-            _ptr(state["x_overflow"]), c)
+            _ptr(state["x_overflow"]),
+            None if pops is None else _ptr(pops), _word_ptr(outside), c,
+            int(self.designs_before))
 
     def judge_batch(self, world: dict, boot_end: int, now: torch.Tensor,
                     src: torch.Tensor, dst: torch.Tensor,
