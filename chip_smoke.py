@@ -89,7 +89,16 @@ Phases, in order; any failure exits non-zero before the last line:
      K4 on a factored star stacked the same way, and K1 and K2 on
      phold_1m_hier_faults' own six factored epochs at 1,000,000 hosts;
    - K7 count_paths on 3,900,000 outbox rows over 256 vertices (V*V =
-     65,536), beside torch.bincount on the same pairs and weights;
+     65,536) and over 6 (tgen_10000's: few pairs, on which the design
+     before's atomics queue), every row read, given pop counts with the
+     word clear on an outbox as the rule leaves it (30% and 0.6% of the
+     hosts popped), and with the word set, each beside its design before
+     (`Kernels.designs_before`: an atomic a packet row, every row) and
+     torch.bincount on the same pairs and weights; then
+     (`paths_real_rows`) on one real phase of tgen_10000_nic, the NIC
+     PHOLD and the link-fault tgen paused half way, the engine's own
+     buffers, pop counts and word (the rule checked: no host that popped
+     nothing holds a row below INF), the word clear and set;
    - the audited pops (`_aud`, the state audit's clock lane) on the
      same phases' inputs with random audit leaves (aud_t above a tenth
      of the hosts' next events): K1, K4 and K6 at their shapes, K1_hier
@@ -110,7 +119,8 @@ Phases, in order; any failure exits non-zero before the last line:
    - the replica axis of an ensemble campaign (`replica_kernels`): K1
      (dense and `_nic`) at the PHOLD shapes, K4 (dense, `_hier`, `_ep`,
      `_aud`) and K2 (dense, `_hier`, `_ep`) at tgen_10000's layout at
-     100,000 hosts, K7 on K2's outbox, K6 at tor_large's, K5, K3 and
+     100,000 hosts, K7 on K2's outbox (also with pop counts and outbox
+     words, as phase_tally), K6 at tor_large's, K5, K3 and
      phase_tally at the PHOLD shapes (also with outbox words, two
      replicas' clear on outboxes as the rule leaves them), K8, K9 and
      K9 with the tally folded in at 100,000 hosts, each
@@ -138,7 +148,14 @@ Phases, in order; any failure exits non-zero before the last line:
      index_select of the same rows into [5, S*CAP]; K13 pack_two_phase
      (phase 1) at S = 4 at its auto CAP and at CAP/64; K5's keyed route
      of the phase-1 arrivals over H_pad and K13's phase 2 at its auto
-     CAP2 and at CAP2/64 (rows lost at the intermediate); K5's window
+     CAP2 and at CAP2/64 (rows lost at the intermediate); K13 on send
+     buffers kept from pack to pack (`two_phase_real_rows`: rank 0's
+     rows of TP_PHASES successive phases of phold.yaml at S = 4, at the
+     auto capacities from half way, timed beside the design before, and
+     at TP_SMALL_CAPS from boot, rows overflowing both halves, an empty
+     outbox at step TP_EMPTY_AT of each; `two_phase_adversarial`: fills
+     of CAP, 0, CAP and a tenth), every buffer after every pack equal to
+     the plain version's fresh one; K5's window
      over a rank's received [S, 6, CAP] rows and K3 merging them with
      the rank's self-shard rows (two arrival blocks, the window and
      the global merge's occ_in), every output bit for bit.
@@ -2031,15 +2048,74 @@ def hier_fault_kernels(torch, K, scratch, rng, dev):
             "judge_outbox_ep_hier": out["judge_outbox"]}
 
 
-def count_paths_case(torch, K, scratch, rng, dev):
-    """K7 on a judged outbox of 100,000 hosts x 39 columns (tgen_10000's
-    layout under the model NIC, x10) over 256 vertices (V*V = 65536,
-    the histogram's largest): a fifth of the rows live, among them
-    timers, READY rows and DROP_T sends, trains of 1 to 32 packets;
-    beside it torch.bincount over the same rows' pairs and weights."""
+def paths_designs(torch, K, kk, make, what):
+    """K7 (kk) on `make()`'s inputs (state, outbox, world[, ctl, pop
+    counts, outbox words]) bit-equal to its plain version in both
+    designs (the design before reads every row whatever the pop
+    counts); returns (ms, the design before's ms)."""
+    times = {}
+    for before in (False, True):
+        kk.designs_before = before
+        a, b = make(), make()
+        kk.count_paths(*a)
+        K.count_paths_plain(*b[:4])
+        torch.cuda.synchronize()
+        err = max_abs_err(a[0], b[0], ["path_cnt"])
+        check(err == 0.0, f"count_paths ({what}, the design before "
+              f"{before}) differs from its plain version (max abs err "
+              f"{err})")
+        check(kk.launches["count_paths"] > 0, "count_paths never launched")
+        times[before] = time_median(torch, kk.count_paths, make, 7)
+    kk.designs_before = False
+    return times[False], times[True]
+
+
+def paths_bytes(K, ob, world, pops, read_all: bool) -> tuple:
+    """(bytes, packet rows, pairs touched, hosts whose rows are read, the
+    bytes as counted before) of K7 on these inputs: the pop counts of
+    every host (where it skips by them), t of the rows of the hosts read
+    (those that popped, or every host), k and m of the packet rows with
+    both ends' vertices, each histogram entry touched read and written:
+    what any count of these inputs must move. The count before read t of
+    every row."""
+    H, OB = ob["t"].shape[-2:]
+    V = K.n_vertices(world)
+    hv = world["host_vertex"].long()
+    pkt = (ob["t"] < K.INF) & ((ob["m"] & 0xFF) == 2)
+    rows = int(pkt.sum())
+    cells = hv[(ob["k"] >> 32).clamp(0, H - 1)[pkt]] * V + \
+        hv[(ob["m"] >> 32).clamp(0, H - 1)[pkt]]
+    touched = int(cells.unique().numel())
+    hosts = H if read_all or pops is None else int((pops != 0).sum())
+    rest = rows * (2 * 8 + 2 * 4) + touched * 16
+    nbytes = (0 if pops is None else H * 4) + hosts * OB * 8 + rest
+    return nbytes, rows, touched, hosts, H * OB * 8 + rest
+
+
+def paths_library_ms(torch, K, ob, world):
+    """torch.bincount over the packet rows' pairs and weights of `ob`:
+    the same histogram in one PyTorch call (the pairs and weights made
+    outside the timed call)."""
+    H = ob["t"].shape[-2]
+    V = K.n_vertices(world)
+    hv = world["host_vertex"].long()
+    pkt = (ob["t"] < K.INF) & ((ob["m"] & 0xFF) == 2)
+    pair = torch.where(pkt, hv[(ob["k"] >> 32).clamp(0, H - 1)] * V
+                       + hv[(ob["m"] >> 32).clamp(0, H - 1)],
+                       V * V).view(-1)
+    weight = torch.where(pkt, ((ob["m"] & K.U32) << 32 >> 40), 0)
+    return time_median(
+        torch, lambda x, w: torch.bincount(x, w, V * V + 1),
+        lambda: (pair, weight.view(-1).double()), 7)
+
+
+def paths_outbox(torch, K, rng, H, OB, V, dev):
+    """A judged outbox of H hosts x OB columns over V vertices for K7: a
+    fifth of the rows live, among them timers, READY rows and DROP_T
+    sends, trains of 1 to 32 packets; its world; and pop counts (0 at
+    seven tenths of the hosts)."""
     from shadow_tpu_torch.core.event import KIND_PACKET_READY
 
-    H, OB, V = 100_000, 39, 256
     shape = (H, OB)
     live = rng.random(shape) < 0.2
     t = rng.integers(10**9, 2 * 10**9, shape)
@@ -2055,43 +2131,161 @@ def count_paths_case(torch, K, scratch, rng, dev):
     world = {"host_vertex": torch.from_numpy(
         rng.integers(0, V, H).astype(np.int32)).to(dev),
         "lat": torch.zeros((V, V), dtype=torch.int32, device=dev)}
+    pops = torch.from_numpy(np.where(
+        rng.random(H) < 0.3, rng.integers(1, 9, H), 0).astype(
+            np.int32)).to(dev)
+    return ob, world, pops
 
-    def fresh():
-        return ({"path_cnt": torch.zeros((1, V * V), dtype=torch.int64,
-                                         device=dev)}, ob, world)
 
-    sk, sp = fresh()[0], fresh()[0]
-    scratch.count_paths(sk, ob, world)
-    K.count_paths_plain(sp, ob, world)
-    torch.cuda.synchronize()
-    err = max_abs_err(sk, sp, ["path_cnt"])
-    check(err == 0.0, f"count_paths differs from its plain version (max "
-          f"abs err {err})")
-    pkt = (ob["t"] < K.INF) & ((ob["m"] & 0xFF) == 2)
-    rows = int(pkt.sum())
-    check(int((pkt & (ob["t"] == K.DROP_T)).sum()) > 0,
-          "count_paths: no DROP_T row counted")
-    check(int(sk["path_cnt"].sum()) == int(
-        torch.where(pkt, (ob["m"] & K.U32) >> 8, 0).sum()),
-          "count_paths: the histogram lost packets")
-    hv = world["host_vertex"].long()
-    pair = torch.where(pkt, hv[ob["k"] >> 32] * V + hv[ob["m"] >> 32],
-                       V * V).view(-1)
-    weight = torch.where(pkt, (ob["m"] & K.U32) >> 8, 0).view(-1).double()
-    touched = int((sk["path_cnt"] > 0).sum())
+def paths_row(torch, K, kk, ob, world, pops, word, what):
+    """K7 on (ob, world) with the pop counts and outbox word given (or
+    neither): bit-equal to its plain version in both designs, timed
+    beside the design before, the plain version and torch.bincount; given
+    pop counts, also both readings at any size (by the pop counts, and a
+    thread a row over every row), each bit-equal too."""
+    V = K.n_vertices(world)
+    dev = ob["t"].device
+
+    def make():
+        st = {"path_cnt": torch.zeros((1, V * V), dtype=torch.int64,
+                                      device=dev)}
+        if pops is None:
+            return (st, ob, world)
+        return (st, ob, world, None, pops, word.clone())
+
+    ms, parent_ms = paths_designs(torch, K, kk, make, what)
+    extra = {}
+    if pops is not None:
+        # both readings at any size, bit-equal too: by the pop counts
+        # (the crossover at 0 rows) and a thread a row over every row (the
+        # crossover past any outbox)
+        for key, gate in (("by_pops_ms", 0), ("every_row_ms", 2**31 - 1)):
+            kk.paths_gated_rows = gate
+            a, b = make(), make()
+            kk.count_paths(*a)
+            K.count_paths_plain(*b[:3])
+            torch.cuda.synchronize()
+            err = max_abs_err(a[0], b[0], ["path_cnt"])
+            check(err == 0.0, f"count_paths ({what}, {key[:-3]}) differs "
+                  f"from its plain version (max abs err {err})")
+            extra[key] = time_median(torch, kk.count_paths, make, 7)
+        kk.paths_gated_rows = K.PATHS_GATED_ROWS
+    read_all = pops is None or bool(word[0].any())
+    nbytes, rows, touched, hosts, before = paths_bytes(K, ob, world, pops,
+                                                       read_all)
+    H, OB = ob["t"].shape[-2:]
     return finish({
-        "err": err,
-        "ms": time_median(torch, scratch.count_paths, fresh, 7),
-        "plain_ms": time_median(torch, K.count_paths_plain, fresh, 3),
-        "library_ms": time_median(
-            torch, lambda x, w: torch.bincount(x, w, V * V + 1),
-            lambda: (pair, weight), 7),
-        # t of every row, k and m of the packet rows with both ends'
-        # vertices, each touched histogram entry read and written
-        "bytes": H * OB * 8 + rows * (2 * 8 + 2 * 4) + touched * 16,
-        "ops": 0,
-        "shape": f"H={H} OB={OB} V={V} packet_rows={rows} "
-                 f"touched_pairs={touched}"})
+        "err": 0.0, "ms": ms, "parent_ms": parent_ms, **extra,
+        "plain_ms": time_median(torch, lambda *a: K.count_paths_plain(
+            *a[:3]), make, 3),
+        "library_ms": paths_library_ms(torch, K, ob, world),
+        "bytes": nbytes, "ops": 0,
+        "bound_ms_as_counted_before": 1e3 * before / HBM_BYTES_PER_S,
+        "shape": f"{what}: H={H} OB={OB} V={V} hosts read {hosts}, "
+                 f"packet_rows={rows} touched_pairs={touched}"})
+
+
+def count_paths_case(torch, K, scratch, rng, dev):
+    """K7 on a judged outbox of 100,000 hosts x 39 columns (tgen_10000's
+    layout under the model NIC, x10, `paths_outbox`) over 256 vertices
+    (V*V = 65536, the histogram's largest), every row read; then given
+    pop counts with the word clear on the outbox as the rule leaves it
+    (the popped hosts' rows read: 30% of the hosts, and 0.6%, a real
+    phase's share) and with the word set (every row read); and all
+    again over 6 vertices (tgen_10000's V: few pairs, which a block sums
+    in shared memory on an outbox this large). Each beside
+    its design before, its plain version and torch.bincount on the same
+    pairs and weights."""
+    H, OB = 100_000, 39
+    out, sub = None, {}
+    for V in (256, 6):
+        ob, world, pops = paths_outbox(torch, K, rng, H, OB, V, dev)
+        clear = K.outbox_word(dev)
+        clear[0] = 0
+        # a real phase's share of popped hosts (tgen_10000_nic: a median
+        # of 50 of 10,000) beside the synthetic 30%
+        sparse = torch.where(torch.from_numpy(rng.random(H) < 0.02).to(dev),
+                             pops, 0)
+        for case, o, p, w in (
+                ("every row", ob, None, None),
+                ("the popped hosts' rows, the word clear",
+                 rule_outbox(torch, ob, pops), pops, clear),
+                ("0.6% of the hosts popped, the word clear",
+                 rule_outbox(torch, ob, sparse), sparse, clear),
+                ("the word set", ob, pops, K.outbox_word(dev))):
+            r = paths_row(torch, K, scratch, o, world, p, w,
+                          f"synthetic, V={V}, {case}")
+            check(int((o["t"] == K.DROP_T).sum()) > 0,
+                  "count_paths: no DROP_T row")
+            if out is None:
+                out = r
+            else:
+                sub[f"V={V}, {case}"] = r
+    out["synthetic"] = {"err": 0.0, "rows": sub}
+    return out
+
+
+def paths_real_rows(torch, K, dev):
+    """K7 on one real phase of tgen_10000_nic (FULL_RUNS), the NIC PHOLD
+    (NIC_PHOLD_YAML), the link-fault tgen (FAULT_YAML) and PHOLD at
+    100,000 hosts with the path counters (FULL_RUNS' phold with
+    `count_paths`: 3,000,000 rows, read by the pop counts): each run
+    paused at half its stop time by the graph loop, then one phase
+    popped (and judged, where the NIC does not judge in the pop) on the
+    engine's own buffers; the rule checked (every row of a host that
+    popped nothing has t = INF); K7 with the engine's pop counts and
+    outbox word (clear) and with the word set, each bit-equal to its
+    plain version beside the design before, both readings (by the pop
+    counts and every row, whichever side of the crossover the outbox
+    lies) and torch.bincount."""
+    from shadow_tpu_torch.config import load_config_str
+    from shadow_tpu_torch.device import runner
+
+    _, example, ovr, _ = next(r for r in FULL_RUNS
+                              if r[0] == "tgen_10000_nic")
+    _, phold_example, phold_ovr, _ = next(r for r in FULL_RUNS
+                                          if r[0] == "phold")
+    out = {}
+    for name, load in (
+            ("tgen_10000_nic", lambda: full_config(example, ovr)),
+            ("nic_phold", lambda: load_config_str(NIC_PHOLD_YAML, [])),
+            ("faults_dense", lambda: load_config_str(FAULT_YAML, [])),
+            ("phold_paths", lambda: full_config(
+                phold_example,
+                phold_ovr + ("experimental.count_paths=true",)))):
+        engine, sim = runner.make_engine(load(), device=dev.type)
+        state = engine.init_state(sim.start_times, sim.stop_times)
+        stop = int(engine.config.stop_time)
+        engine.run(state, stop=stop // 2, final_stop=stop)
+        nt = engine.next_time(state)
+        check(nt < K.INF, f"{name}: no event left half way")
+        p, kk = engine.params, engine.kernels
+        ctl = K.control_block(dev, run=1, win_end=nt + max(
+            1, int(engine.config.lookahead)))
+        ob, pops, _ = engine._buffers()
+        word = engine._outside
+        kk.pop(state, ob, pops, engine.world, ctl, p, word)
+        if not p.MB:
+            kk.judge_outbox(state, ob, engine.world, ctl, p, pops, word)
+        torch.cuda.synchronize()
+        check(not bool(word[0].any()), f"{name}: the pop left the outbox "
+              "word set")
+        check(not bool((ob["t"] < K.INF)[pops == 0].any()), f"{name}: a "
+              "host that popped nothing holds a row below INF")
+        H, OB = ob["t"].shape
+        check((H * OB >= K.PATHS_GATED_ROWS) == (name == "phold_paths"),
+              f"{name}: {H * OB} outbox rows, on the wrong side of K7's "
+              "crossover")
+        view = {f: ob[f] for f in ("t", "k", "m")}
+        for case, w in (("the word clear", word),
+                        ("the word set", K.outbox_word(dev))):
+            what = f"{name}'s phase at {nt} ns, {case}"
+            out.setdefault(f"{name}, {case}", {})["count_paths"] = \
+                paths_row(torch, K, K.Kernels(), view, engine.world, pops,
+                          w, what)
+        del engine, state, ob
+        torch.cuda.empty_cache()
+    return out
 
 
 def route_case(torch, K, scratch, rng, H, OB, IN, dev):
@@ -3461,6 +3655,27 @@ def replica_kernels(torch, K, scratch, rng, dev):
         k7 += (ob["t"].numel() * 8 + int(pkt.sum()) * (2 * 8 + 2 * 4)
                + torch.unique(cells).numel() * 16)
     out["count_paths"]["bound_ms"] = 1e3 * k7 / HBM_BYTES_PER_S
+    # again with pop counts and the engine's outbox words: replicas 0
+    # and 2 with the word clear on outboxes as the rule leaves them
+    # (only the popped hosts' rows read), 1 and 3 with it set (every row)
+    Hj = dense_judged[0][1]["t"].shape[0]
+    path_pops = [torch.from_numpy(np.where(
+        rng.random(Hj) < 0.3, rng.integers(1, 9, Hj), 0).astype(
+            np.int32)).to(dev) for _ in range(R)]
+    path_obs = [rule_outbox(torch, dense_judged[r][1], path_pops[r])
+                if r % 2 == 0 else dense_judged[r][1] for r in range(R)]
+
+    def paths_word_make(r):
+        return ({"path_cnt": torch.zeros((1, V * V), dtype=torch.int64,
+                                         device=dev)},
+                clone(path_obs[r]), worlds[r],
+                window_block(K, wins[r], dev), path_pops[r],
+                torch.tensor([r % 2, 0], dtype=torch.int32, device=dev))
+
+    out["count_paths_word"] = replica_check(
+        torch, K, WordPaths(scratch), "count_paths with outbox words",
+        "count_paths", lambda *a: K.count_paths_plain(*a[:4]),
+        paths_word_make, (0,), 3, stop_run)
 
     # K6 at tor_large's layout
     state0, world, pr, win_end = tor_inputs(torch, K, rng, dev)
@@ -3605,6 +3820,18 @@ class WordTally:
     def phase_tally(self, state, ob, pops, p, ctl, word):
         w = word.view(2, 1) if word.dim() == 1 else word.t().contiguous()
         self.kernels.phase_tally(state, ob, pops, p, ctl, w)
+
+
+class WordPaths:
+    """`count_paths` of a Kernels with the pop counts and outbox word as
+    its last arguments in replica_check's stacking (as `WordTally`)."""
+
+    def __init__(self, kernels):
+        self.kernels = kernels
+
+    def count_paths(self, state, ob, world, ctl, pops, word):
+        w = word.view(2, 1) if word.dim() == 1 else word.t().contiguous()
+        self.kernels.count_paths(state, ob, world, ctl, pops, w)
 
 
 # ----------------------------------------------------------------------
@@ -4333,6 +4560,336 @@ def merge2_case(torch, K, scratch, rng, S, H_loc, cap, dev):
     return rw, m2
 
 
+# K13 in one process on a rank's real inputs (`two_phase_real_rows`):
+# phold.yaml at S = 4 (rank 0's rows of a one-device run), phases a
+# sequence, an empty outbox at step TP_EMPTY_AT
+TP_S = 4
+TP_PHASES = 16
+TP_EMPTY_AT = 8
+# the small capacities of the sequence from boot, at which rows overflow
+TP_SMALL_CAPS = (4096, 2048)
+
+
+def tp_raw(K, mp, counts, half):
+    """Rows each buffer of a K13 half holds before its capacity's cut:
+    phase 1 a rank's [g] (its own shard ships nothing), phase 2 [ng-1]
+    (shard (a', b) for the other groups a')."""
+    cnt = counts.view(mp.S, mp.H_loc).sum(1).tolist()
+    cnt[mp.shard] = 0
+    if half == 1:
+        return [sum(cnt[a * mp.G + b] for a in range(mp.NG))
+                for b in range(mp.G)]
+    my_g, my_b = divmod(mp.shard, mp.G)
+    return [cnt[a * mp.G + my_b] for a in range(mp.NG) if a != my_g]
+
+
+def tp_bytes(raw, prev, cap, half, S, H_pad) -> tuple:
+    """(bytes, the bytes as counted before) of a K13 half whose buffers
+    hold `raw` rows before the cut and whose last pack filled `prev`
+    slots: each shipped row's perm entry and channels read (five, phase
+    2 also the key), the slots written (six channels: the rows and the
+    fills of the slots the last pack filled and this one does not),
+    each lost row's perm entry (and key) read and its counter written,
+    the segment bounds; phase 2 also zeroes its [H_pad] histogram. The
+    count before wrote every slot."""
+    read = 6 if half == 1 else 7
+    lost_b = 12 if half == 1 else 20
+    shipped = sum(min(r, cap) for r in raw)
+    written = sum(min(max(r, p), cap) for r, p in zip(raw, prev))
+    lost = sum(max(0, r - cap) for r in raw)
+    fixed = S * 16 + (0 if half == 1 else H_pad * 4)
+    rest = shipped * read * 8 + lost * lost_b + fixed
+    return rest + written * 48, rest + len(raw) * cap * 48
+
+
+class KeptRank:
+    """A mesh rank's kept K13 send buffers and fill words (the engine's
+    `_wire` and `_fills`), packed by `kk`."""
+
+    def __init__(self, torch, K, mp, dev):
+        self.send1 = torch.empty((mp.G, 6, mp.CAP), dtype=torch.int64,
+                                 device=dev)
+        self.send2 = torch.empty((mp.NG - 1, 6, mp.CAP2),
+                                 dtype=torch.int64, device=dev)
+        self.f1, self.f2 = K.fill_words(self.send1), K.fill_words(self.send2)
+
+
+def tp_half(torch, K, kk, half, kept, args, what, timed):
+    """One K13 half on the kept buffers of `kept`: bit-equal, after the
+    pack, to the plain version's fresh buffer (and x_overflow and occ_x,
+    or hist); timed (`timed`) on the buffers and words as the last pack
+    left them, beside the design before on a fresh buffer, which must
+    write the same. `args(send, filled)` gives the launch's arguments
+    (the plain version's are its first ones)."""
+    send, words = (kept.send1, kept.f1) if half == 1 else \
+        (kept.send2, kept.f2)
+    prev = (send.clone(), words.clone())
+    name = "pack_two_phase" if half == 1 else "pack_two_phase2"
+    n_plain = 7 if half == 1 else 8
+
+    def outs(x):
+        # the send buffer and the counters the half writes
+        return x[6], (x[0] if half == 1 else {"hist": x[7]})
+
+    def err_of(x, y):
+        (s1, c1), (s2, c2) = outs(x), outs(y)
+        return max(_eq(s1, s2), max_abs_err(c1, c2, list(c1)))
+
+    def plain_of(x):
+        x = x[:n_plain]
+        if half == 2:
+            x[7].zero_()
+        return x
+
+    a = args(send, words)
+    getattr(kk, name)(*a)
+    b = plain_of(args(torch.empty_like(send), None))
+    getattr(K, name + "_plain")(*b)
+    torch.cuda.synchronize()
+    err = err_of(a, b)
+    check(err == 0.0, f"{name} ({what}) on kept buffers differs from its "
+          f"plain version's fresh buffer (max abs err {err})")
+    row = {"err": err, "prev": prev[1].tolist(), "filled": words.tolist()}
+    if not timed:
+        return row
+    before = K.Kernels()
+    before.designs_before = True
+    c = args(torch.empty_like(send), None)
+    getattr(before, name)(*c)
+    torch.cuda.synchronize()
+    check(err_of(c, b) == 0.0, f"{name} ({what}): the design before "
+          "differs from the plain version")
+    row["ms"] = time_median(torch, getattr(kk, name), lambda: args(
+        prev[0].clone(), prev[1].clone()), 5)
+    row["parent_ms"] = time_median(torch, getattr(before, name), lambda: (
+        args(torch.empty_like(send), None)), 5)
+    row["plain_ms"] = time_median(torch, getattr(K, name + "_plain"),
+                                  lambda: plain_of(args(
+                                      torch.empty_like(send), None)), 3)
+    if half == 1:
+        # the copy half as one PyTorch call: index_select of as many of
+        # the rank's rows (one [5, F] block) as the pack ships
+        ob, perm = a[1], a[2]
+        block = torch.stack([ob[f].reshape(-1) for f in K.OB_FIELDS])
+        shipped = int(sum(min(r, send.shape[-1]) for r in words.tolist()))
+        idx = perm[:shipped]
+        row["library_ms"] = time_median(
+            torch, lambda x, i: torch.index_select(x, 1, i),
+            lambda: (block, idx), 5)
+    return row
+
+
+def tp_sequence(torch, K, kk, mp, phases, what, timed):
+    """K13's two halves on rank 0 of the mesh `mp` over `phases` (each a
+    one-device outbox whose rows of rank r are hosts [r*H_loc,
+    (r+1)*H_loc)), the buffers kept from phase to phase: every rank of
+    rank 0's group routes its rows over H_pad and packs phase 1
+    into its kept buffers; rank 0's arrivals (buffer 0 of each) take the
+    keyed route and phase 2 into its kept buffers (the routes plain);
+    each pack checked
+    against the plain version's fresh buffer (`tp_half`). Returns the
+    phases' rows (rows before the cut, fills, and where `timed` ms
+    beside the design before, bounds new and as counted before)."""
+    dev = phases[0]["t"].device
+    H_loc, S, g = mp.H_loc, mp.S, mp.G
+    ranks = [dataclasses.replace(mp, shard=r) for r in range(g)]
+    kept = [KeptRank(torch, K, m, dev) for m in ranks]
+    rows = []
+    for i, ob in enumerate(phases):
+        step = {}
+        for r, m in enumerate(ranks):
+            ob_r = {f: ob[f][r * H_loc:(r + 1) * H_loc] for f in
+                    K.OB_FIELDS}
+            # the plain route: its perm past the live rows is defined,
+            # which the plain pack's gathers read (masked)
+            route = K.route_rows_plain(K.Rows(ob_r), 0, mp.H_pad)
+
+            def state():
+                return {"x_overflow": torch.zeros(H_loc, dtype=torch.int32,
+                                                  device=dev),
+                        "occ_x": torch.zeros((1, S), dtype=torch.int32,
+                                             device=dev)}
+
+            def args(send, words, ob_r=ob_r, route=route, m=m):
+                return (state(), ob_r, *route, m, send, None, words)
+
+            h1 = tp_half(torch, K, kk, 1, kept[r], args,
+                         f"{what}, phase {i}, rank {r}", timed and r == 0)
+            if r == 0:
+                raw = tp_raw(K, m, route[2], 1)
+                step["pack_two_phase"] = {**h1, "raw": raw}
+        recv1 = torch.stack([k.send1[0] for k in kept])
+        rows1 = K.Rows(recv1)
+        arr = K.route_rows_plain(rows1, 0, mp.H_pad, True)
+
+        def args2(send, words):
+            return (rows1, *arr, mp, ob["t"].shape[-1], send,
+                    torch.empty(mp.H_pad, dtype=torch.int32, device=dev),
+                    None, words)
+
+        h2 = tp_half(torch, K, kk, 2, kept[0], args2,
+                     f"{what}, phase {i}, rank 0", timed)
+        step["pack_two_phase2"] = {**h2, "raw": tp_raw(K, mp, arr[2], 2)}
+        for half, name in ((1, "pack_two_phase"), (2, "pack_two_phase2")):
+            r = step[name]
+            cap = mp.CAP if half == 1 else mp.CAP2
+            r["bytes"], r["bytes_before"] = tp_bytes(
+                r["raw"], r["prev"], cap, half, S, mp.H_pad)
+        rows.append(step)
+    return rows
+
+
+def tp_phases(torch, K, engine, state, n, empty_at):
+    """`n` successive phases of a one-device engine from `state` (each
+    window from the next head time, the engine's own pops and judge),
+    each judged outbox copied; an all-INF outbox at step `empty_at`."""
+    ob, _, _ = engine._buffers()
+    out = []
+    for i in range(n):
+        if i == empty_at:
+            out.append({f: (torch.full_like(ob[f], K.INF) if f == "t"
+                            else torch.zeros_like(ob[f]))
+                        for f in K.OB_FIELDS})
+            continue
+        nt = engine.next_time(state)
+        check(nt < K.INF, "tp_phases: no event left")
+        # the first step arms the engine (a state from outside)
+        step = engine.phase if i == 0 else engine._phase
+        step(state, K.control_block(
+            state["head"].device, run=1,
+            win_end=nt + max(1, int(engine.config.lookahead))))
+        out.append({f: ob[f].clone() for f in K.OB_FIELDS})
+    return out
+
+
+def tp_summary(rows, name, what, cap, S, H_pad):
+    """A kernel row of a timed K13 sequence: the median over its real
+    phases (the empty step left out) of ms, the design before's and the
+    bounds."""
+    real = [r[name] for i, r in enumerate(rows) if i != TP_EMPTY_AT]
+
+    def med(k):
+        return statistics.median(x[k] for x in real)
+
+    r = finish({"err": max(x[name]["err"] for x in rows),
+                "ms": med("ms"), "parent_ms": med("parent_ms"),
+                "plain_ms": med("plain_ms"),
+                "library_ms": (med("library_ms") if "library_ms" in real[0]
+                               else None),
+                "bytes": int(med("bytes")), "ops": 0,
+                "bound_ms_as_counted_before":
+                    1e3 * med("bytes_before") / HBM_BYTES_PER_S,
+                "shape": f"{what}: CAP={cap} S={S} H_pad={H_pad}, median "
+                         f"of {len(real)} phases (rows before the cut "
+                         f"{[x['raw'] for x in real]})",
+                "phases": [{k: x[name][k] for k in (
+                    "raw", "prev", "filled", "ms", "parent_ms", "bytes",
+                    "bytes_before") if k in x[name]} for x in rows]})
+    return r
+
+
+def two_phase_real_rows(torch, K, dev):
+    """K13 in one process on rank 0's real inputs at phold.yaml, S = 4
+    (H_loc 25,000; the rows of hosts [r*H_loc, (r+1)*H_loc) of a
+    one-device run are rank r's outbox, as the mesh's parity holds):
+    TP_PHASES successive phases from half way at the auto capacities
+    (timed, beside the design before), and TP_PHASES from boot at
+    TP_SMALL_CAPS, at which rows overflow; an empty outbox at step
+    TP_EMPTY_AT of each, so that the fills shrink to 0 and return. The
+    buffers are kept from phase to phase and each checked after every
+    pack against the plain version's fresh buffer."""
+    from shadow_tpu_torch.device import runner
+    from shadow_tpu_torch.device.capacity import exchange_caps, group_split
+
+    _, example, ovr, _ = FULL_RUNS[0]
+    out = {}
+    for case, caps, half_way in (
+            ("auto capacities, from half way", (0, 0), True),
+            (f"CAP {TP_SMALL_CAPS[0]}, CAP2 {TP_SMALL_CAPS[1]}, from "
+             "boot", TP_SMALL_CAPS, False)):
+        engine, sim = runner.make_engine(full_config(example, ovr),
+                                         device=dev.type)
+        state = engine.init_state(sim.start_times, sim.stop_times)
+        stop = int(engine.config.stop_time)
+        if half_way:
+            engine.run(state, stop=stop // 2, final_stop=stop)
+        H, OB = engine._buffers()[0]["t"].shape
+        H_loc = H // TP_S
+        g, ng = group_split(TP_S)
+        cap, cap2, _, _ = exchange_caps("two_phase", TP_S, H_loc, OB,
+                                        engine.params.E, *caps)
+        mp = K.MeshParams(TP_S, 0, H_loc, "two_phase", cap, cap2, g, ng)
+        phases = tp_phases(torch, K, engine, state, TP_PHASES, TP_EMPTY_AT)
+        del engine, state
+        rows = tp_sequence(torch, K, K.Kernels(), mp, phases,
+                           f"phold.yaml S={TP_S}, {case}", half_way)
+        seen = {n: [r[n]["raw"] for r in rows]
+                for n in ("pack_two_phase", "pack_two_phase2")}
+        if half_way:
+            key = f"phold.yaml S={TP_S}, rank 0, {case}"
+            out[key] = {n: tp_summary(rows, n, key, c, TP_S, mp.H_pad)
+                        for n, c in (("pack_two_phase", cap),
+                                     ("pack_two_phase2", cap2))}
+        else:
+            check(any(max(x) > cap for x in seen["pack_two_phase"]) and
+                  any(max(x) > cap2 for x in seen["pack_two_phase2"]),
+                  "two_phase_real_rows: no row overflowed at the small "
+                  "capacities")
+            out[f"phold.yaml S={TP_S}, rank 0, {case}"] = {
+                n: {"err": max(r[n]["err"] for r in rows),
+                    "phases": [{"raw": r[n]["raw"], "prev": r[n]["prev"]}
+                               for r in rows]}
+                for n in seen}
+        print(f"[kernels] K13 on kept buffers, phold.yaml S={TP_S} rank "
+              f"0, {case}: {len(rows)} packs a half equal to the plain "
+              f"version's fresh buffers; rows a buffer before the cut "
+              f"(phase 1, phase 2): "
+              + ", ".join(f"{a}/{b}" for a, b in zip(
+                  seen["pack_two_phase"], seen["pack_two_phase2"])),
+              flush=True)
+        del phases
+        torch.cuda.empty_cache()
+    return out
+
+
+def two_phase_adversarial(torch, K, rng, dev):
+    """K13's kept buffers where the fills swing most: a rank's outbox at
+    the PHOLD shapes (`mesh_outbox`, S = 4) at a small CAP and CAP2, so
+    that every buffer fills to its capacity, then an empty outbox (every
+    slot refilled), then full again, then a tenth of the rows, each pack
+    of both halves against the plain version's fresh buffers."""
+    from shadow_tpu_torch.device.capacity import exchange_caps, group_split
+
+    S, H_loc = MESH_SHAPES[1]
+    g, ng = group_split(S)
+    cap, cap2, _, _ = exchange_caps("two_phase", S, H_loc, MESH_OB, 64)
+    mp = K.MeshParams(S, 0, H_loc, "two_phase", max(64, cap // 64),
+                      max(64, cap2 // 64), g, ng)
+    phases = []
+    for case in ("full", "empty", "full", "a tenth"):
+        # the rows of rank 0's group, rank by rank
+        parts = [mesh_outbox(torch, rng, H_loc, S, r, dev)
+                 for r in range(g)]
+        ob = {f: torch.cat([x[f] for x in parts]) for f in K.OB_FIELDS}
+        if case == "empty":
+            ob["t"].fill_(K.INF)
+        elif case == "a tenth":
+            keep = torch.from_numpy(rng.random(tuple(ob["t"].shape))
+                                    < 0.1).to(dev)
+            ob["t"] = torch.where(keep, ob["t"], K.INF)
+        phases.append(ob)
+    rows = tp_sequence(torch, K, K.Kernels(), mp, phases,
+                       "fills CAP, 0, CAP, a tenth", False)
+    raw = [r["pack_two_phase"]["raw"] for r in rows]
+    check(max(raw[0]) > mp.CAP and max(raw[1]) == 0 and
+          max(raw[2]) > mp.CAP, f"two_phase_adversarial: fills {raw}")
+    return {"fills CAP, 0, CAP, a tenth": {
+        n: {"err": max(r[n]["err"] for r in rows),
+            "phases": [{"raw": r[n]["raw"], "prev": r[n]["prev"]}
+                       for r in rows]}
+        for n in ("pack_two_phase", "pack_two_phase2")}}
+
+
 def mesh_kernels(torch, K, scratch, rng, dev):
     """K12 and K13 at the PHOLD shapes (H_loc 50,000 at S = 2, 25,000 at
     S = 4, OB = 30), each at dense_auto_cap (its two_phase counterpart)
@@ -4402,14 +4959,30 @@ def kernels_phase(torch, report, H=100_000, dev="cuda"):
     real, outbox_adv = real_phase_rows(torch, K, scratch, dev)
     real.update(audit_real_rows(torch, K, dev))
     real.update(compact_real_rows(torch, K, dev))
+    real.update(paths_real_rows(torch, K, dev))
+    real.update(two_phase_real_rows(torch, K, dev))
     adversarial.update(outbox_adv)
+    adversarial.update(two_phase_adversarial(torch, K, rng, dev))
     flush = {}
     for where, cases in (("adversarial", adversarial),
                          ("on_real_phases", real)):
         for case, rows in cases.items():
             for kname, r in rows.items():
-                report_line(f"{kname} ({where.replace('_', ' ')}: {case})",
-                            r)
+                if "ms" not in r:
+                    # K13's untimed sequences: every pack checked
+                    print(f"[kernels] {kname} ({where.replace('_', ' ')}: "
+                          f"{case}): equal to plain on kept buffers (max "
+                          f"abs err {r['err']}); fills (rows before the "
+                          f"cut, the last pack's) "
+                          + ", ".join(f"{x['raw']}<-{x['prev']}"
+                                      for x in r["phases"]), flush=True)
+                else:
+                    report_line(f"{kname} ({where.replace('_', ' ')}: "
+                                f"{case})", r)
+                if "bound_ms_as_counted_before" in r:
+                    print(f"[kernels] {kname} ({case}): bound as counted "
+                          f"before {r['bound_ms_as_counted_before']:.4f} "
+                          "ms", flush=True)
                 if "shares" in r:
                     print(f"[kernels] {kname} ({case}): hosts left as "
                           f"they are {r['shares']['unchanged']:.4f}, "
@@ -4426,7 +4999,8 @@ def kernels_phase(torch, report, H=100_000, dev="cuda"):
                           + ", ".join(f"{k.replace('_', ' ')} "
                                       f"{r[k]:.4f} ms" for k in (
                                           "parent_ms", "every_host_ms",
-                                          "apart_ms")
+                                          "apart_ms", "by_pops_ms",
+                                          "every_row_ms")
                                       if k in r), flush=True)
                 if "outbox_shares" in r:
                     sh = r["outbox_shares"]
@@ -4468,6 +5042,16 @@ def kernels_phase(torch, report, H=100_000, dev="cuda"):
         report_line(f"{name} (phold_1m_hier_faults' tables, "
                     f"{len(EPOCH_TIMES)} epochs)", r)
     report_line("count_paths", paths)
+    print(f"[kernels] count_paths: the design before "
+          f"{paths['parent_ms']:.4f} ms", flush=True)
+    for case, r in paths["synthetic"]["rows"].items():
+        report_line(f"count_paths ({case})", r)
+        print(f"[kernels] count_paths ({case}): the design before "
+              f"{r['parent_ms']:.4f} ms, bound as counted before "
+              f"{r['bound_ms_as_counted_before']:.4f} ms"
+              + (f", by the pop counts {r['by_pops_ms']:.4f} ms, a "
+                 f"thread a row {r['every_row_ms']:.4f} ms"
+                 if "every_row_ms" in r else ""), flush=True)
     for name, r in loop.items():
         report_line(name, r)
     report_line("audit_round", loop["audit_round"]["at_1m_hosts"])
@@ -4521,7 +5105,8 @@ def kernels_phase(torch, report, H=100_000, dev="cuda"):
     for kname, sub in flush.items():
         if kname.startswith(("pop_", "judge_outbox", "phase_tally",
                              "loop_control", "audit_round",
-                             "compact_outbox")):
+                             "compact_outbox", "count_paths",
+                             "pack_two_phase")):
             report[kname].update(sub)
     report["route_keyed"]["adversarial"] = flush["route_keyed"][
         "adversarial"]
@@ -5557,6 +6142,8 @@ FUNCTION_KIND = {
     "pop_kernel": "pop_", "judge_outbox_kernel": "judge_outbox",
     "judge_scan_kernel": "judge_outbox",
     "count_paths_kernel": "count_paths",
+    "count_paths_rows_kernel": "count_paths",
+    "count_paths_popped_kernel": "count_paths",
     "phase_tally_kernel": "phase_tally",
     **dict.fromkeys(("route_compact_kernel", "route_pass_kernel",
                      "route_bounds_kernel"), "route"),
@@ -5899,7 +6486,9 @@ def mesh_parity(torch, report):
     report["_mesh_parity"] = {k: {"launches": v[0].mesh["launches"]}
                               for k, v in card.items()}
     # K13's device ms over real launches: the PHOLD's two_phase/global S
-    # = 4 run again in timing mode (every rank's launches summed)
+    # = 4 run again in timing mode (every rank's launches summed; the
+    # four rank processes share the card, which stretches each launch's
+    # events: two_phase_real_rows times K13 in one process)
     (timed, _), = runner.mesh_runs(
         ["cuda:0"] * 4, [phold(mesh_overrides(4, "two_phase", "global"))],
         timing=True)
@@ -5912,7 +6501,9 @@ def mesh_parity(torch, report):
           "in the timed two_phase run")
     report["_mesh_k13_ms"] = k13
     print("[mesh] K13 on real launches (PHOLD 2x1000, two_phase/global, "
-          "S = 4, timing mode, every rank): " + ", ".join(
+          "S = 4, timing mode, every rank; four rank processes sharing "
+          "one card, so that a launch's device time includes the others' "
+          "time slices): " + ", ".join(
               f"{k} {v:.3f} device ms over {n} launches"
               for k, (n, v) in k13.items()), flush=True)
 
@@ -6095,7 +6686,8 @@ def kernels_line(report):
                                     "at_1m_hosts", "at_cx16",
                                     "wider_rows", "odd_e", "at_S4",
                                     "overflowing", "adversarial",
-                                    "on_real_phases") if k in r}
+                                    "on_real_phases", "synthetic")
+                  if k in r}
         rows.append({
             "name": n, "route": "cuda", "source": SOURCES[n],
             "replaces": REPLACES[n],
@@ -6316,7 +6908,8 @@ AB_GRAPH_RUNS = ("tgen_10000_nic", "tor_large", "tgen_10000_x10")
 def graph_times(torch, K) -> dict:
     """The main path of AB_GRAPH_RUNS through K's package: each run's
     graph loop untimed (its wall) and once more under torch.profiler
-    (its K9 and tally device ms, summed); in a package whose K9 folds
+    (its K9 and tally device ms, summed, and K7's where the run counts
+    paths); in a package whose K9 folds
     the tally (Kernels.fold_tally), the same without the fold and with
     the designs before it (Kernels.designs_before), the
     untimed runs in turns (a, b, c, c, b, a; each wall the mean of its
@@ -6366,6 +6959,11 @@ def graph_times(torch, K) -> dict:
                     ms[k] / launches[k]
             out[f"K9 and the tally on {name}{label}, device ms"] = sum(
                 ms[k] for k in rows)
+            if "count_paths" in path:
+                out[f"count_paths on {name}{label}, device ms"] = \
+                    ms["count_paths"]
+                out[f"count_paths on {name}{label}, per launch"] = \
+                    ms["count_paths"] / launches["count_paths"]
     out.update(audit_compact_times(torch, K))
     return out
 
@@ -6489,8 +7087,8 @@ def main(argv=None) -> int:
                          "1) of the package in DIR (a checkout of another "
                          "commit) and of this one, in turns, on seeded "
                          "inputs and on phold_1m_hier (`pop_times`), and "
-                         "the main path's graph walls and K9 and tally "
-                         "device ms of AB_GRAPH_RUNS (`graph_times`)")
+                         "the main path's graph walls and K9, tally and "
+                         "K7 device ms of AB_GRAPH_RUNS (`graph_times`)")
     ap.add_argument("--pop-times", action="store_true",
                     help=argparse.SUPPRESS)
     ap.add_argument("--package", default=REPO, help=argparse.SUPPRESS)

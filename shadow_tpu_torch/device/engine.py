@@ -125,6 +125,7 @@ from shadow_tpu_torch.device.kernels import (
     Rows,
     control_block,
     control_step,
+    fill_words,
     head_min_plain,
     merge_flags,
     n_vertices,
@@ -667,7 +668,7 @@ class DeviceEngine:
             k.judge_outbox(state, ob, self.world, win_end, p, pops,
                            self._outside)
         if p.CP:
-            k.count_paths(state, ob, self.world, ctl)
+            k.count_paths(state, ob, self.world, ctl, pops, self._outside)
         if tally:
             k.phase_tally(state, ob, pops, p, ctl, self._outside)
         if p.compacts:
@@ -689,6 +690,14 @@ class DeviceEngine:
                                            device=self.device)
         return self._xbuf[name]
 
+    def _fills(self, name: str, send: torch.Tensor) -> torch.Tensor:
+        """The fill words of the kept send buffer `name` (K13 its only
+        writer), allocated with it (kernels.fill_words)."""
+        key = name + "_filled"
+        if key not in self._xbuf:
+            self._xbuf[key] = fill_words(send)
+        return self._xbuf[key]
+
     def _exchange(self, state: dict, ob: dict, route: tuple,
                   ctl) -> None:
         """The flush of a mesh rank after the judge and the compaction
@@ -702,11 +711,14 @@ class DeviceEngine:
         a keyed K5 route of the arrivals over H_pad, K13 packs the
         phase-2 buffers [ng-1, 6, CAP2] by destination group (and
         histograms the rows lost there by global source, which the mesh
-        sums into each sender's x_overflow), one exchange across groups.
-        K5 then windows the received rows to this rank's hosts, by key
-        after two_phase (its arrivals come in peer order; after
-        all_to_all a row's buffer position already is the order of its
-        key), and K3 merges [heap | received | self]. all_gather: the
+        sums into each sender's x_overflow), one exchange across groups;
+        K13's send buffers are kept from phase to phase with their fill
+        words (`_fills`: K13 is their only writer and rewrites only the
+        slots that change). K5 then windows the received rows to this
+        rank's hosts, by key after two_phase (its arrivals come in peer
+        order; after all_to_all a row's buffer position already is the
+        order of its key), and K3 merges [heap | received | self].
+        all_gather: the
         outbox of every rank, gathered, K5 windows it to this rank's
         hosts in position order, which is the reference's (key, index)
         order, and K3 merges one block."""
@@ -736,7 +748,7 @@ class DeviceEngine:
             send1 = self._wire("send1", (g, len(XCH_FIELDS), mp.CAP))
             recv1 = self._wire("recv1", send1.shape)
             k.pack_two_phase(state, ob, perm, starts, counts, mp, send1,
-                             ctl)
+                             ctl, self._fills("send1", send1))
             group = [my_g * g + b for b in range(g)]
             mesh.all_to_all(send1, recv1, group, group)
             rows1 = Rows(recv1)
@@ -744,7 +756,8 @@ class DeviceEngine:
             send2 = self._wire("send2", (ng - 1, len(XCH_FIELDS), mp.CAP2))
             recv2 = self._wire("recv2", send2.shape)
             hist = self._wire("lost2", (mp.H_pad,), torch.int32)
-            k.pack_two_phase2(rows1, *arr1, mp, OB, send2, hist, ctl)
+            k.pack_two_phase2(rows1, *arr1, mp, OB, send2, hist, ctl,
+                              self._fills("send2", send2))
             # phase-2 loss lands on its sender's shard (engine.py:
             # 1820-1838): the mesh's summed histogram, this rank's slice
             if int(mesh.all_sum(hist.sum().view(1))[0]) > 0:

@@ -29,6 +29,12 @@ Four steps carry one phase of a conservative window:
   and a warp a listed host merging its sorted tail with its ranked
   arrivals.
 
+Under `count_paths` K7 (csrc/count_paths.cu) adds the judged packet
+rows to the path counters, summed by pair a warp: on a large outbox
+only the rows of the hosts that popped (every row under the word), a
+warp's popped hosts' rows as flat items; on one that sits in L2, a
+thread a row.
+
 Between the judge and the route `phase_tally` (csrc/phase_tally.cu)
 takes the phase's occupancy marks and, under the state audit, the
 conservation ledger `aud_tx`, reading the rows of the hosts that
@@ -60,13 +66,17 @@ H_loc senders into H_pad destinations), K12 `pack_remote`
 (csrc/pack_remote.cu) packs each other shard's segment into the
 all_to_all's [S, C, CAP] buffer, K13 `pack_two_phase`
 (csrc/pack_two_phase.cu) the two_phase schedule's buffers of both hops
-(`pack_two_phase2` the second), K5 then windows the received rows to
-the rank's own hosts (`route_window`, or by each row's key after
-two_phase, `route_keyed`) and K3 merges them with the rank's own rows as
-a second arrival block (`merge_heaps2`). The kernels read rows through
-`Rows` views: an outbox, or the exchange's wire buffers; `MeshParams`
-holds a rank's place and schedule, `PhaseParams.g0` the global id of
-its first host, which the pops and the judge add to a host's row.
+(`pack_two_phase2` the second), in one launch a hop, into send buffers
+the engine keeps between phases: a buffer's fill word (`fill_words`)
+says which slots its last pack filled, so a pack writes its rows and
+the fills of the slots the last one filled alone; K5 then windows the
+received rows to the rank's own hosts (`route_window`, or by each row's
+key after two_phase, `route_keyed`) and K3 merges them with the rank's
+own rows as a second arrival block (`merge_heaps2`). The kernels read
+rows through `Rows` views: an outbox, or the exchange's wire buffers;
+`MeshParams` holds a rank's place and schedule, `PhaseParams.g0` the
+global id of its first host, which the pops and the judge add to a
+host's row.
 
 The window loop drives a phase through its control block (`CTL_FIELDS`,
 a [len(CTL_FIELDS)] int64 tensor on the state's device), which a
@@ -179,6 +189,10 @@ AUD_KEYS = ("aud", "aud_t", "aud_tx")
 # the heap rows the tiled K8 takes (csrc/audit_round.cu MAX_E: a word's
 # row by a reciprocal, exact over a tile's span up to this E)
 AUDIT_MAX_E = 65535
+# K7 reads by the pop counts on outboxes of this many rows or more
+# (Kernels.paths_gated_rows): below it the rows sit in L2 and a pop
+# count's load costs more than the rows it saves (PERF.md)
+PATHS_GATED_ROWS = 1 << 20
 AUD_COUNTERS = ("n_exec", "n_sent", "n_drop", "n_deliv", "event_seq",
                 "packet_seq", "app_seq")
 # the window loop's control block, one int64 word each, in the order of
@@ -369,6 +383,15 @@ def outbox_word(device, replicas: int = 1) -> torch.Tensor:
     row and the judge judges every host until a pop has run; and a count
     the pop keeps zero between launches (csrc/pop_phase.cu)."""
     return merge_flags(device, replicas)
+
+
+def fill_words(send: torch.Tensor) -> torch.Tensor:
+    """The fill words of K13's kept send buffers `send` [n, 6, cap]: [n]
+    int32, each the slots its buffer's last pack filled with rows; the
+    capacity when allocated (every slot unknown: the first pack writes
+    every slot)."""
+    return torch.full((send.shape[0],), send.shape[-1], dtype=torch.int32,
+                      device=send.device)
 
 
 def _pop_ran(outside: Optional[torch.Tensor], win_end, R: Optional[int]):
@@ -1694,8 +1717,9 @@ _SIGNATURES = {
     "shadow_judge_outbox": [_I, _I, _I, _I, _L] + [_P] * 3 + [_P] * 3 +
                            [_P, _T, _P, _I, _I, _I, _P, _P, _P, _I, _P,
                             _P],
-    # R, H, OB, V, ob t k m, host_vertex, path_cnt, ctl, stream
-    "shadow_count_paths": [_I] * 4 + [_P] * 3 + [_P] * 4,
+    # R, H, OB, V, ob t k m, host_vertex, path_cnt, ctl, pops, ob_word,
+    # every_row, stream
+    "shadow_count_paths": [_I] * 4 + [_P] * 3 + [_P] * 5 + [_I, _I, _P],
     # R, F, ND, lo, keyed, rows, perm starts counts, work, words, ctl,
     # stream
     "shadow_route": [_I, _L, _I, _I, _I, _RW] + [_P] * 3 + [_P, _L] +
@@ -1711,13 +1735,13 @@ _SIGNATURES = {
     "shadow_pack_remote": [_L] + [_I] * 6 + [_RW] + [_P] * 3 + [_P] * 3 +
                           [_P],
     # F, S, shard, H_loc, OB, G, NG, CAP, rows, perm starts counts, send,
-    # x_overflow occ_x, stream
+    # x_overflow occ_x, filled tickets, before, stream
     "shadow_pack_two_phase": [_L] + [_I] * 7 + [_RW] + [_P] * 3 +
-                             [_P] * 3 + [_P],
+                             [_P] * 3 + [_P] * 2 + [_I, _P],
     # F, S, shard, H_loc, OB, G, NG, CAP2, rows, perm starts counts,
-    # send, hist, stream
+    # send, hist, filled tickets, before, stream
     "shadow_pack_two_phase2": [_L] + [_I] * 7 + [_RW] + [_P] * 3 +
-                              [_P] * 2 + [_P],
+                              [_P] * 2 + [_P] * 2 + [_I, _P],
     # R, H, OB, ob t, pops, occ_ob occ_trips occ_phases, aud_tx, ctl,
     # ob_word, partial tickets, every_row, stream
     "shadow_phase_tally": [_I] * 3 + [_P] * 7 + [_P] * 3 + [_I, _P],
@@ -1745,6 +1769,7 @@ _SIGNATURES = {
     "shadow_phase_tally_tickets": [_I],
     "shadow_audit_round_blocks": [_I],
     "shadow_audit_round_tickets": [_I],
+    "shadow_pack_two_phase_tickets": [_I, _I],
 }
 for _name in POP_KERNELS:
     _SIGNATURES[f"shadow_{_name}"][1:1] = [_I, _I]
@@ -1799,15 +1824,22 @@ class Kernels:
         # them over its warps; False: a warp a host, exiting where it
         # popped nothing (csrc/judge_outbox.cu; kept to measure the two)
         self.judge_listed = True
+        # K7 reads by the pop counts on outboxes of this many rows or
+        # more, every row below (csrc/count_paths.cu); another value
+        # moves the crossover, to measure the two readings on one outbox
+        self.paths_gated_rows = PATHS_GATED_ROWS
         # the designs before the one-launch K9, the tally that reads
         # only the popped hosts' rows (csrc/loop_control.cu,
-        # phase_tally.cu), the tiled K8 (csrc/audit_round.cu) and the K11
-        # that reads only the popped hosts' rows
-        # (csrc/compact_outbox.cu), kept to measure against them: K9 as
-        # two launches (the minimum, then a block a replica deciding),
-        # the tally reading every host's row with one atomicMax a block,
-        # K8 a warp a host with a memset and a second launch, K11 a warp
-        # a row over every row, ranking from L1; K9 then folds no tally
+        # phase_tally.cu), the tiled K8 (csrc/audit_round.cu), the K11
+        # and the K7 that read only the popped hosts' rows
+        # (csrc/compact_outbox.cu, count_paths.cu) and the K13 that
+        # keeps its buffers (csrc/pack_two_phase.cu), kept to measure
+        # against them: K9 as two launches (the minimum, then a block a
+        # replica deciding), the tally reading every host's row with one
+        # atomicMax a block, K8 a warp a host with a memset and a second
+        # launch, K11 a warp a row over every row, ranking from L1, K7 an
+        # atomic a packet row over every row, K13 writing every slot in
+        # two launches a hop; K9 then folds no tally
         self.designs_before = False
         # K9 takes the phase's tallies in the captured window loop
         # (`loop_control_tally`; DeviceEngine folds where nothing
@@ -2095,9 +2127,23 @@ class Kernels:
             _word_ptr(outside), _ptr(work), int(self.judge_listed), ctl)
 
     def count_paths(self, state: dict, ob: dict, world: dict,
-                    ctl: Optional[torch.Tensor] = None) -> None:
+                    ctl: Optional[torch.Tensor] = None,
+                    pops: Optional[torch.Tensor] = None,
+                    outside: Optional[torch.Tensor] = None) -> None:
         """K7: add the judged outbox's packet rows to
-        state["path_cnt"] (count_paths_plain on the CPU)."""
+        state["path_cnt"] (count_paths_plain on the CPU). Given the
+        phase's pop counts and the engine's outbox words
+        (`outbox_word`), both or neither, the kernel reads, on an outbox
+        of `paths_gated_rows` rows or more, only the rows of the hosts
+        that popped, unless a word says the rows came from outside the
+        pop; a smaller outbox, or a launch without them, has every row
+        read (there the pop count's load costs more than the rows it
+        saves). The plain version reads every row: a skipped
+        host's row holds no row below INF, so both give the same
+        counts."""
+        if (pops is None) != (outside is None):
+            raise ValueError("count_paths: the pop counts and the outbox "
+                             "words come together")
         if not ob["t"].is_cuda:
             return count_paths_plain(state, ob, world, ctl)
         R = ob_replicas(ob)
@@ -2110,11 +2156,20 @@ class Kernels:
         obs = [ob["t"], ob["k"], ob["m"]]
         hv = world["host_vertex"]
         c, ctl_checks = _ctl_args(ctl, R)
+        skip = []
+        if pops is not None:
+            if pops.shape != ob["t"].shape[:-1] or \
+                    outside.shape != (2, R or 1):
+                raise ValueError("count_paths: pop counts [(R,) H] and "
+                                 "outbox words [2, R]")
+            skip = [(pops, torch.int32), (outside, torch.int32)]
         self._launch(
             "count_paths", "shadow_count_paths",
             [(t, torch.int64) for t in obs + [cnt]] + [(hv, torch.int32)]
-            + ctl_checks,
-            R or 1, H, OB, V, *map(_ptr, obs), _ptr(hv), _ptr(cnt), c)
+            + ctl_checks + skip,
+            R or 1, H, OB, V, *map(_ptr, obs), _ptr(hv), _ptr(cnt), c,
+            None if pops is None else _ptr(pops), _word_ptr(outside),
+            int(self.paths_gated_rows), int(self.designs_before))
 
     def route(self, ob: dict, out=None, ctl: Optional[torch.Tensor] = None):
         """K5: (perm, starts, counts) as `route_plain` gives them, for
@@ -2278,9 +2333,16 @@ class Kernels:
     def pack_two_phase(self, state: dict, ob: dict, perm: torch.Tensor,
                        starts: torch.Tensor, counts: torch.Tensor,
                        mesh: MeshParams, send: torch.Tensor,
-                       ctl: Optional[torch.Tensor] = None) -> None:
+                       ctl: Optional[torch.Tensor] = None,
+                       filled: Optional[torch.Tensor] = None) -> None:
         """K13's phase 1 (pack_two_phase_plain on the CPU): the [g, 6,
-        CAP] buffers by destination rank, x_overflow and occ_x."""
+        CAP] buffers by destination rank, x_overflow and occ_x. `filled`
+        ([g] int32, `fill_words`): the buffers are kept between phases
+        and each word holds the slots the buffer's last pack filled
+        with rows; the kernel writes this pack's rows and the fills of
+        the slots the last one filled and this one does not, and keeps
+        the words. Without it every slot is written. The plain version
+        writes every slot: both leave the same bytes."""
         if not send.is_cuda:
             if not _phase_off(ctl):
                 pack_two_phase_plain(state, ob, perm, starts, counts, mesh,
@@ -2288,11 +2350,35 @@ class Kernels:
             return
         self._pack_launch("pack_two_phase", "shadow_pack_two_phase",
                           state, ob, perm, starts, counts, mesh, send,
-                          (mesh.G, mesh.NG), send.shape[-1])
+                          (mesh.G, mesh.NG), send.shape[-1],
+                          post=self._fill_args(send, filled))
+
+    def _fill_args(self, send: torch.Tensor,
+                   filled: Optional[torch.Tensor]) -> tuple:
+        """(trailing arguments, tensors to check) of a K13 half's launch
+        over the kept buffers `send` [n, 6, cap] with their fill words
+        (or none). The design before writes every slot and leaves the
+        words at the capacity, which every later pack may trust."""
+        nbuf, cap = send.shape[0], send.shape[-1]
+        if filled is None:
+            return (None, None, int(self.designs_before)), []
+        if filled.shape != (nbuf,):
+            raise ValueError(f"pack_two_phase: fill words [{nbuf}], not "
+                             f"{tuple(filled.shape)}")
+        if self.designs_before:
+            filled.fill_(cap)
+            return (None, None, 1), []
+        tickets = self._scratch_of(
+            "pack_tickets",
+            self.library().shadow_pack_two_phase_tickets(nbuf, cap),
+            send.device, zero=True, dtype=torch.int32)
+        return ((_ptr(filled), _ptr(tickets), 0),
+                [(filled, torch.int32), (tickets, torch.int32)])
 
     def _pack_launch(self, name, c_name, state, ob, perm, starts, counts,
-                     mesh, send, groups, cap, *tail) -> None:
-        """K12 or K13's phase 1 over this rank's outbox."""
+                     mesh, send, groups, cap, *tail, post=((), [])) -> None:
+        """K12 or K13's phase 1 over this rank's outbox; `post`: the
+        trailing arguments and their tensors to check."""
         rows = Rows(ob)
         args, checks = rows_args(rows)
         seg = [perm, starts, counts]
@@ -2303,20 +2389,22 @@ class Kernels:
         self._launch(
             name, c_name,
             checks + [(t, torch.int64) for t in seg + [send]]
-            + [(t, torch.int32) for t in out],
+            + [(t, torch.int32) for t in out] + post[1],
             rows.n, mesh.S, mesh.shard, mesh.H_loc, ob["t"].shape[-1],
             *groups, cap, *tail, ctypes.byref(args), *map(_ptr, seg),
-            _ptr(send), *map(_ptr, out))
+            _ptr(send), *map(_ptr, out), *post[0])
 
     def pack_two_phase2(self, rows: Rows, perm: torch.Tensor,
                         starts: torch.Tensor, counts: torch.Tensor,
                         mesh: MeshParams, OB: int, send: torch.Tensor,
                         hist: torch.Tensor,
-                        ctl: Optional[torch.Tensor] = None) -> None:
+                        ctl: Optional[torch.Tensor] = None,
+                        filled: Optional[torch.Tensor] = None) -> None:
         """K13's phase 2 (pack_two_phase2_plain on the CPU): the [ng-1,
         6, CAP2] buffers by destination group from the keyed route of
         the phase-1 arrivals, and `hist` [H_pad] int32, zeroed first,
-        of the rows lost there by global source."""
+        of the rows lost there by global source. `filled` ([ng-1]
+        int32): the kept buffers' fill words, as `pack_two_phase`'s."""
         hist.zero_()
         if not send.is_cuda:
             if not _phase_off(ctl):
@@ -2325,13 +2413,14 @@ class Kernels:
             return
         args, checks = rows_args(rows, XCH_FIELDS)
         seg = [perm, starts, counts]
+        post, post_checks = self._fill_args(send, filled)
         self._launch(
             "pack_two_phase2", "shadow_pack_two_phase2",
             checks + [(t, torch.int64) for t in seg + [send]]
-            + [(hist, torch.int32)],
+            + [(hist, torch.int32)] + post_checks,
             rows.n, mesh.S, mesh.shard, mesh.H_loc, OB, mesh.G, mesh.NG,
             send.shape[-1], ctypes.byref(args), *map(_ptr, seg),
-            _ptr(send), _ptr(hist))
+            _ptr(send), _ptr(hist), *post)
 
     def phase_tally(self, state: dict, ob: dict, pops: torch.Tensor,
                     p: PhaseParams, ctl: Optional[torch.Tensor] = None,
