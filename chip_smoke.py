@@ -135,7 +135,10 @@ Phases, in order; any failure exits non-zero before the last line:
      hosts, phold_1m_hier_faults' six factored epochs and the dense
      tables stacked over EPOCH_TIMES; send times 1 ns either side of
      every epoch start and of the bootstrap end, packet seqs at 0 and
-     2^31-1, every kind of pair;
+     2^31-1, every kind of pair; beside the design before
+     (`Kernels.designs_before`) on the same inputs; both designs also
+     on JUDGE_OUTSIDE_N packets a quarter of whose senders and
+     destinations lie outside [0, H);
    - K11 compact_outbox at the PHOLD shapes (100,000 hosts, OB = 30)
      with CX 4 and 16, by the window rule and the global rule, and each
      rule at R = 4 against four R = 1 launches, a stopped replica
@@ -192,7 +195,8 @@ Phases, in order; any failure exits non-zero before the last line:
    and its selfloop case, examples/tgen_faults.yaml and
    tgen_faults_hier.yaml under tpu, the latter also with its host
    faults alone, a PHOLD + tgen mix, a cut tor_small with a relay
-   crash), each on the card with K10 on every flush, on the CPU plain
+   crash), each on the card with K10 on every flush (under
+   torch.profiler, K10's device ms a flush printed), on the CPU plain
    path and on the port's serial policy: traces, per-host leaves,
    totals and path counters equal; then the outbox compaction
    (`compact_parity`): the PHOLD above and examples/tgen_10000.yaml cut
@@ -233,9 +237,16 @@ Phases, in order; any failure exits non-zero before the last line:
    as shipped under tpu (the hybrid policy) and again with K10 on every
    flush, and a hybrid PHOLD at 2 x HYB_FULL_HOSTS hosts with host and
    link faults (HYB_FULL_OVERRIDES) against the port's serial run of
-   it, each with its wall, events/s, flushes on the card against the
-   CPU, the judge's share of the wall and the kernel and copy ms per
-   device flush; and (`compact_full`) PHOLD at 100,000 hosts and
+   it, each under torch.profiler, with its wall, events/s, flushes on
+   the card against the CPU, the flushes' share of the wall and, a
+   device flush, packets, K10's device ms (the profiler's), the kernel
+   and copy ms of the judge's event pairs and the judge's host wall;
+   the real flushes of tgen_faults_hier.yaml with K10 on every flush and
+   of the hybrid PHOLD recorded (`recorded_flushes`) and replayed
+   (`judge_real_rows`): both designs equal to the plain version on each,
+   K10 alone a flush by CUDA events, the judge's host wall a flush in
+   turns and its K10 device ms by the profiler, both designs; and
+   (`compact_full`) PHOLD at 100,000 hosts and
    examples/tgen_10000.yaml as shipped under outbox_compact at the
    uncompacted run's largest occ_ob, beside the uncompacted wall. Every
    device run must be admitted and its measured peak device memory lie within
@@ -273,6 +284,7 @@ It imports nothing of jax or of the shadow_tpu package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
@@ -3843,6 +3855,8 @@ JUDGE_BOOT_END = 500_000_000
 # bytes a packet brings in (now, src, dst, seq) and takes out
 # (deliver_time, delivered)
 K_JUDGE_IN, K_JUDGE_OUT = 20, 9
+# the batch whose senders and destinations lie partly outside [0, H)
+JUDGE_OUTSIDE_N = 1 << 16
 
 
 def judge_batch_inputs(torch, rng, world, N, boundaries):
@@ -3881,42 +3895,22 @@ def judge_batch_inputs(torch, rng, world, N, boundaries):
               for a in (src, dst, seq)))
 
 
-def judge_batch_case(torch, K, scratch, rng, world, boundaries):
-    """K10 against judge_batch_plain on one batch of JUDGE_N packets,
-    exact, timed; the bound counts the batch's columns, the host
-    vertices it names and the table cells its lookups touch (each once),
-    and two threefry blocks per rolled packet plus one per sender that
-    rolls."""
-    N = JUDGE_N
-    now, src, dst, seq = judge_batch_inputs(torch, rng, world, N,
-                                            boundaries)
-    dev = now.device
-    out = (torch.empty(N, dtype=torch.int64, device=dev),
-           torch.empty(N, dtype=torch.uint8, device=dev))
-    dk, tk = scratch.judge_batch(world, JUDGE_BOOT_END, now, src, dst, seq,
-                                 out=out)
-    dp, tp = K.judge_batch_plain(world, JUDGE_BOOT_END, now, src, dst, seq)
-    torch.cuda.synchronize()
-    err = max_abs_err({"d": dk.bool(), "t": tk}, {"d": dp, "t": tp},
-                      ["d", "t"])
+def judge_work(torch, K, world, now, src, dst, boot_end) -> dict:
+    """What K10 must move and compute on one batch, whatever implements
+    it: the batch's columns, the host vertices it names and the table
+    cells its lookups touch (each once), the epoch starts, and two
+    threefry blocks a rolled packet plus one a sender that rolls; with
+    the counts of each kind of pair. Senders and destinations in [0, H)."""
+    N = now.shape[0]
     hier = isinstance(world["lat"], tuple)
     ept = world["epoch_times"]
     T = int(ept.shape[0])
-    name = K.launch_name("judge_batch", False, T > 1, hier)
-    check(err == 0.0, f"{name} differs from its plain version (max abs "
-          f"err {err})")
-    check(scratch.launches[name] > 0, f"{name} never launched")
     hv = world["host_vertex"].long()
     sv, dv = hv[src.long()], hv[dst.long()]
     e = K.epoch_of(now, ept)
     e = torch.zeros_like(now) if e is None else e.long()
     rel = K.table_lookup(world["rel"], sv, dv, None if T == 1 else e)
-    rolled = (rel < 1.0) & (now >= JUDGE_BOOT_END)
-    dropped = int((~dp).sum())
-    check(dropped > 0 and int((rolled & dp).sum()) > 0,
-          f"{name}: the batch rolled nothing or dropped nothing")
-    check(bool(((now < JUDGE_BOOT_END) & (rel < 1.0)).any()),
-          f"{name}: no lossy packet before the bootstrap end")
+    rolled = (rel < 1.0) & (now >= boot_end)
     hosts = torch.unique(torch.cat([src, dst])).numel()
     if hier:
         cl = world["lat"][1].long()
@@ -3940,28 +3934,114 @@ def judge_batch_case(torch, K, scratch, rng, world, boundaries):
         table = torch.unique((e * V + sv) * V + dv).numel() * 8
         kinds = {"same_vertex": int((sv == dv).sum()),
                  "cross_vertex": int((sv != dv).sum())}
-    for k, n in kinds.items():
-        check(n > 0, f"{name}: no {k} pair in the batch")
     rolled_n = int(rolled.sum())
     senders = torch.unique(src[rolled]).numel()
+    return {"bytes": N * (K_JUDGE_IN + K_JUDGE_OUT) + hosts * 4 + table
+            + T * 8,
+            "ops": (2 * rolled_n + senders) * THREEFRY_OPS,
+            "rolled": rolled, "lossy": rel < 1.0, "rolled_n": rolled_n,
+            "hosts": hosts,
+            "kinds": kinds, "T": T, "V": V, "hier": hier}
+
+
+def judge_designs(torch, K, before, scratch, tables, boot_end, cols):
+    """Max abs err of K10 (`scratch`) and of its design before
+    (`before`) against judge_batch_plain on the columns `cols`, and
+    the plain verdicts."""
+    dp, tp = K.judge_batch_plain(tables.world, boot_end, *cols)
+    err = 0.0
+    for kk in (scratch, before):
+        dk, tk = kk.judge_batch(tables, boot_end, *cols)
+        torch.cuda.synchronize()
+        err = max(err, max_abs_err({"d": dk.bool(), "t": tk},
+                                   {"d": dp, "t": tp}, ["d", "t"]))
+    return err, dp, tp
+
+
+def judge_outside(torch, K, before, scratch, rng, tables, name):
+    """K10 and its design before against the plain version on a batch
+    of JUDGE_OUTSIDE_N packets, a quarter of whose senders and a
+    quarter of whose destinations lie outside [0, H) (both ends of
+    int32, -1, H and H + 1 among them): the lookup clamps them, the
+    roll keys the raw sender; drops among those senders."""
+    H = int(tables.world["host_vertex"].shape[0])
+    N = JUDGE_OUTSIDE_N
+    i32 = np.iinfo(np.int32)
+
+    def outside(n):
+        x = np.where(rng.random(n) < 0.5, rng.integers(i32.min, 0, n),
+                     rng.integers(H, i32.max, n, endpoint=True))
+        x[:6] = [i32.min, -1, H, H + 1, i32.max, -2]
+        return x
+
+    src, dst = rng.integers(0, H, N), rng.integers(0, H, N)
+    out_s, out_d = rng.random(N) < 0.25, rng.random(N) < 0.25
+    src[out_s] = outside(int(out_s.sum()))
+    dst[out_d] = outside(int(out_d.sum()))
+    now = rng.integers(JUDGE_BOOT_END, 2 * 10**9, N)
+    seq = rng.integers(i32.min, i32.max, N, endpoint=True)
+    dev = tables.world["host_vertex"].device
+    cols = (torch.from_numpy(now.astype(np.int64)).to(dev),
+            *(torch.from_numpy(a.astype(np.int32)).to(dev)
+              for a in (src, dst, seq)))
+    err, dp, _ = judge_designs(torch, K, before, scratch, tables,
+                               JUDGE_BOOT_END, cols)
+    check(err == 0.0, f"{name} (senders outside [0, H)) differs from its "
+          f"plain version (max abs err {err})")
+    dropped = int((~dp.cpu().numpy() & out_s).sum())
+    check(dropped > 0, f"{name}: no packet of a sender outside [0, H) "
+          "dropped")
+    return {"err": err, "packets": N, "senders_outside": int(out_s.sum()),
+            "dropped_of_those": dropped}
+
+
+def judge_batch_case(torch, K, scratch, before, rng, world, boundaries):
+    """K10 and its design before against judge_batch_plain on one batch
+    of JUDGE_N packets, exact, timed, and on a batch with senders
+    outside [0, H) (`judge_outside`); the bound is `judge_work`'s."""
+    N = JUDGE_N
+    now, src, dst, seq = judge_batch_inputs(torch, rng, world, N,
+                                            boundaries)
+    dev = now.device
+    tables = K.judge_tables(world)
+    out = (torch.empty(N, dtype=torch.int64, device=dev),
+           torch.empty(N, dtype=torch.uint8, device=dev))
+    err, dp, _ = judge_designs(torch, K, before, scratch, tables,
+                               JUDGE_BOOT_END, (now, src, dst, seq))
+    name = tables.name
+    check(err == 0.0, f"{name} differs from its plain version (max abs "
+          f"err {err})")
+    check(scratch.launches[name] > 0 and before.launches[name] > 0,
+          f"{name} never launched")
+    w = judge_work(torch, K, world, now, src, dst, JUDGE_BOOT_END)
+    rolled = w["rolled"]
+    dropped = int((~dp).sum())
+    check(dropped > 0 and int((rolled & dp).sum()) > 0,
+          f"{name}: the batch rolled nothing or dropped nothing")
+    check(bool(((now < JUDGE_BOOT_END) & w["lossy"]).any()),
+          f"{name}: no lossy packet before the bootstrap end")
+    for k, n in w["kinds"].items():
+        check(n > 0, f"{name}: no {k} pair in the batch")
 
     def args():
-        return (world, JUDGE_BOOT_END, now, src, dst, seq, out)
+        return (tables, JUDGE_BOOT_END, now, src, dst, seq, out)
 
     def plain_args():
-        return (world, JUDGE_BOOT_END, now, src, dst, seq)
+        return (tables.world, JUDGE_BOOT_END, now, src, dst, seq)
 
     return finish({
         "err": err,
         "ms": time_median(torch, scratch.judge_batch, args, 7),
+        "parent_ms": time_median(torch, before.judge_batch, args, 7),
         "plain_ms": time_median(torch, K.judge_batch_plain, plain_args, 3),
-        "library_ms": None,
-        "bytes": N * (K_JUDGE_IN + K_JUDGE_OUT) + hosts * 4 + table
-        + T * 8,
-        "ops": (2 * rolled_n + senders) * THREEFRY_OPS,
-        "shape": f"N={N} H={hv.shape[0]} V={V} T={T} rolled={rolled_n} "
-                 f"dropped={dropped} hosts={hosts} "
-                 + " ".join(f"{k}={v}" for k, v in kinds.items())})
+        "library_ms": None, "launch": name,
+        "bytes": w["bytes"], "ops": w["ops"],
+        "outside": judge_outside(torch, K, before, scratch, rng, tables,
+                                 name),
+        "shape": f"N={N} H={world['host_vertex'].shape[0]} V={w['V']} "
+                 f"T={w['T']} rolled={w['rolled_n']} dropped={dropped} "
+                 f"hosts={w['hosts']} "
+                 + " ".join(f"{k}={v}" for k, v in w["kinds"].items())})
 
 
 def judge_batch_kernels(torch, K, scratch, rng, dev):
@@ -3995,10 +4075,15 @@ def judge_batch_kernels(torch, K, scratch, rng, dev):
              ("judge_batch_ep", stack_epochs(torch, dense, EPOCH_TIMES,
                                              dev),
               [JUDGE_BOOT_END] + EPOCH_TIMES))
+    before = K.Kernels()       # the design before, on the same inputs
+    before.designs_before = True
     out = {}
     for name, world, bounds in cases:
         world = {**world, "seed_key": key}
-        out[name] = judge_batch_case(torch, K, scratch, rng, world, bounds)
+        out[name] = judge_batch_case(torch, K, scratch, before, rng, world,
+                                     bounds)
+        check(out[name]["launch"] == name,
+              f"{name}: the tables launch {out[name]['launch']}")
     return out
 
 
@@ -5059,7 +5144,13 @@ def kernels_phase(torch, report, H=100_000, dev="cuda"):
         if h != "err":
             report_line(f"audit_round (one word a load, {h})", r)
     for name, r in judge.items():
-        report_line(f"{name} (a hybrid flush)", r)
+        report_line(f"{name} (a batch of {JUDGE_N} packets)", r)
+        o = r["outside"]
+        print(f"[kernels] {name}: the design before {r['parent_ms']:.4f} "
+              f"ms; {o['packets']} packets, {o['senders_outside']} of "
+              f"their senders outside [0, H): both designs equal to plain "
+              f"(max abs err {o['err']}), {o['dropped_of_those']} of "
+              "those senders' packets dropped", flush=True)
     for name, r in compact.items():
         report_line(f"{name} (PHOLD shapes)", r)
         report_line(f"{name} (PHOLD shapes)", r["at_cx16"])
@@ -5487,20 +5578,183 @@ def same_cpu_run(a, b, what, names, paths=True):
     check(a.events_executed > 0, f"hybrid ({what}): nothing ran")
 
 
-def hybrid_line(stats):
+def hybrid_line(stats, prof=None):
     """The wall, events/s, device flushes against CPU rounds, the
-    judge's share of the wall and per device flush the kernel ms against
-    the copy ms, of one hybrid run."""
+    manager's flushes' share of the wall and, a device flush: packets,
+    K10's device ms from torch.profiler (`prof` = (ms, kernels seen),
+    where the run was profiled: over the kernels it saw, as CUPTI may
+    drop records), the ms of the event pair around the launch, the
+    copies' ms and the judge's host wall (judge_batch)."""
     j = stats.judge
-    per = (f"per device flush kernel {j['kernel_ms'] / j['batches']:.4f} "
-           f"ms, copies {j['copy_ms'] / j['batches']:.4f} ms"
-           if j["batches"] else "no device flush")
+    b = j["batches"]
+    per = "no device flush"
+    if b:
+        per = (f"a device flush: {j['packets'] / b:.1f} packets, kernel "
+               + (f"{prof[0] / max(prof[1], 1):.4f} device ms "
+                  f"(torch.profiler, over the {prof[1]} of {b} launches "
+                  "it saw), " if prof else "")
+               + f"{j['kernel_ms'] / b:.4f} ms by its event pair, copies "
+               f"{j['copy_ms'] / b:.4f} ms, judge wall "
+               f"{1e3 * j['judge_s'] / b:.4f} ms")
     return (f"wall {stats.wall_s:.3f} s, "
             f"{stats.events_executed / stats.wall_s:.0f} events/s; "
-            f"flushes on the card {j['batches']} ({j['packets']} packets) "
+            f"flushes on the card {b} ({j['packets']} packets) "
             f"against the CPU {j['cpu_batches']} ({j['cpu_packets']} "
-            f"packets, min_batch {j['min_batch']}); the judge's share of "
+            f"packets, min_batch {j['min_batch']}); the flushes' share of "
             f"the wall {j['flush_s'] / stats.wall_s:.4f}; {per}")
+
+
+# K10's CUDA functions: the design, the design before
+JUDGE_FUNCTIONS = ("judge_kernel", "judge_batch_before_kernel")
+
+
+def judge_profiled(torch, run):
+    """run() under torch.profiler (device activity only): (its result,
+    (the summed device ms of K10's kernels, either design, the number
+    of them the profiler saw))."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = run()
+        torch.cuda.synchronize()
+    ms, seen = 0.0, 0
+    for e in prof.key_averages():
+        m = re.search(r"(\w+_kernel)\b", e.key)
+        if m and m.group(1) in JUDGE_FUNCTIONS:
+            ms += e.self_device_time_total / 1e3
+            seen += e.count
+    return out, (ms, seen)
+
+
+@contextlib.contextmanager
+def recorded_flushes(flushes: list):
+    """Inside, every DeviceJudge.judge_batch call appends (the judge,
+    numpy copies of its four columns) to `flushes`."""
+    from shadow_tpu_torch.device.judge import DeviceJudge
+
+    judge_batch = DeviceJudge.judge_batch
+
+    def recording(self, now, src, dst, pkt_seq):
+        flushes.append((self, (np.array(now, np.int64),
+                               np.array(src, np.int32),
+                               np.array(dst, np.int32),
+                               np.array(pkt_seq, np.int32))))
+        return judge_batch(self, now, src, dst, pkt_seq)
+
+    DeviceJudge.judge_batch = recording
+    try:
+        yield flushes
+    finally:
+        DeviceJudge.judge_batch = judge_batch
+
+
+def judge_real_rows(torch, flushes, what, card):
+    """K10 on the recorded flushes of one hybrid run: the design and the
+    design before bit-equal to judge_batch_plain on every flush; K10
+    alone (time_median of each flush's columns on the card, summed over
+    the flushes), both designs; the judge's host wall a flush
+    (DeviceJudge.judge_batch on the recorded columns, every flush in
+    turn, in turns: the design before, the design, the design, the
+    design before) and its kernel_ms a flush (its event pair: around the
+    kernel node of the flush graph, around the Python wrapper before), both
+    designs' verdicts equal; each design's K10 device ms a kernel over
+    one such replay from torch.profiler (over the kernels it saw); the
+    bound
+    (`judge_work`, summed over the flushes)."""
+    from shadow_tpu_torch.device import kernels as K
+
+    judge = flushes[0][0]
+    check(all(f[0] is judge for f in flushes),
+          f"{what}: the flushes came from more than one judge")
+    tables, boot = judge.tables, judge.boot_end
+    dev = judge.device
+    cols = [tuple(torch.from_numpy(a).to(dev) for a in f[1])
+            for f in flushes]
+    n = len(cols)
+    new, before = K.Kernels(), K.Kernels()
+    before.designs_before = True
+    err, work = 0.0, {"bytes": 0, "ops": 0, "packets": 0, "rolled": 0}
+    for c in cols:
+        e, _, _ = judge_designs(torch, K, before, new, tables, boot, c)
+        err = max(err, e)
+        w = judge_work(torch, K, tables.world, c[0], c[1], c[2], boot)
+        work["bytes"] += w["bytes"]
+        work["ops"] += w["ops"]
+        work["packets"] += int(c[0].shape[0])
+        work["rolled"] += w["rolled_n"]
+    name = tables.name
+    check(err == 0.0, f"{what}: {name} differs from its plain version on "
+          f"a real flush (max abs err {err})")
+    check(new.launches[name] == n and before.launches[name] == n,
+          f"{what}: {name} did not launch once a flush")
+    outs = [(torch.empty(c[0].shape[0], dtype=torch.int64, device=dev),
+             torch.empty(c[0].shape[0], dtype=torch.uint8, device=dev))
+            for c in cols]
+
+    def alone(kk):
+        return sum(time_median(
+            torch, kk.judge_batch,
+            lambda c=c, o=o: (tables, boot, *c, o), 3)
+            for c, o in zip(cols, outs))
+
+    ms, parent_ms = alone(new), alone(before)
+    plain_ms = sum(time_median(torch, K.judge_batch_plain,
+                               lambda c=c: (tables.world, boot, *c), 1)
+                   for c in cols)
+
+    def replay():
+        return [judge.judge_batch(*f[1]) for f in flushes]
+
+    walls, events, verdicts = {True: [], False: []}, {True: [],
+                                                       False: []}, {}
+    for design in (True, False, False, True):
+        judge.kernels.designs_before = design
+        s0, k0 = judge.judge_s, judge.kernel_ms
+        verdicts.setdefault(design, replay())
+        walls[design].append(1e3 * (judge.judge_s - s0) / n)
+        events[design].append((judge.kernel_ms - k0) / n)
+    check(all(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+              for a, b in zip(verdicts[True], verdicts[False])),
+          f"{what}: the two designs' judges disagree on a real flush")
+    profiled = {}
+    for design in (False, True):
+        judge.kernels.designs_before = design
+        _, prof = judge_profiled(torch, replay)
+        check(0 < prof[1] <= n, f"{what}: the profiler saw {prof[1]} K10 "
+              f"kernels of {n} flushes")
+        profiled[design] = (prof[0] / prof[1], prof[1])
+    judge.kernels.designs_before = False
+    r = finish({"err": err, "flushes": n, "packets": work["packets"],
+                "rolled": work["rolled"], "ms": ms / n,
+                "parent_ms": parent_ms / n, "plain_ms": plain_ms / n,
+                "library_ms": None, "bytes": work["bytes"] / n,
+                "ops": work["ops"] / n,
+                "device_ms_profiled": profiled[False][0],
+                "parent_device_ms_profiled": profiled[True][0],
+                "judge_wall_ms": walls[False],
+                "parent_judge_wall_ms": walls[True],
+                "event_pair_ms": events[False],
+                "parent_event_pair_ms": events[True]})
+    print(f"[full:{what}] {name} on its {n} real flushes ("
+          f"{work['packets'] / n:.1f} packets, {work['rolled'] / n:.1f} "
+          f"rolled a flush): both designs equal to plain (max abs err "
+          f"{err}); a flush: K10 alone {r['ms']:.4f} ms, the design before "
+          f"{r['parent_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+          f"{r['bound_ms']:.4f} ms (by {r['bound_by']}); replayed through "
+          f"DeviceJudge: device ms (torch.profiler) "
+          f"{profiled[False][0]:.4f} ({profiled[False][1]} seen), the "
+          f"design before {profiled[True][0]:.4f} ({profiled[True][1]} "
+          f"seen); in turns before/new/new/before, the judge wall "
+          + "/".join(f"{x:.4f}" for x in (walls[True][0], walls[False][0],
+                                          walls[False][1], walls[True][1]))
+          + " ms and its kernel_ms (event pair) "
+          + "/".join(f"{x:.4f}" for x in (
+              events[True][0], events[False][0], events[False][1],
+              events[True][1]))
+          + f" ms; card {card}", flush=True)
+    return r
 
 
 def hybrid_parity(torch, report):
@@ -5515,9 +5769,9 @@ def hybrid_parity(torch, report):
     for key, what, source, overrides in HYBRID_PARITY:
         kernels = Kernels()
         traces = ([], [], [])
-        card, c = controller_run(hybrid_config(
-            source, overrides + (MIN_BATCH_0,)), "cuda", kernels,
-            traces[0])
+        (card, c), prof = judge_profiled(torch, lambda: controller_run(
+            hybrid_config(source, overrides + (MIN_BATCH_0,)), "cuda",
+            kernels, traces[0]))
         cpu, _ = controller_run(hybrid_config(
             source, overrides + (MIN_BATCH_0,)), "cpu", trace=traces[1])
         serial, _ = controller_run(hybrid_config(
@@ -5539,7 +5793,7 @@ def hybrid_parity(torch, report):
         print(f"[parity] hybrid {what}: card (K10 on every flush) == cpu "
               f"plain path == serial, trace of {len(traces[0])} events "
               f"and every per-host leaf: {card.summary()}, {quarantined} "
-              f"events quarantined; card {hybrid_line(card)}; serial "
+              f"events quarantined; card {hybrid_line(card, prof)}; serial "
               f"wall {serial.wall_s:.3f} s", flush=True)
 
 
@@ -5619,16 +5873,18 @@ def hybrid_full(torch, card, report):
     from shadow_tpu_torch.device.kernels import Kernels
 
     runs = report.setdefault("_extra", {})
+    real = report.setdefault("_judge_real", {})
     for example in ("tgen_faults.yaml", "tgen_faults_hier.yaml"):
         shipped = None
         for extra in ((), (MIN_BATCH_0,)):
             kernels = Kernels()
             kernels.library()
             kernels.reset_counts()
-            stats = cli.simulate(
-                os.path.join(REPO, "examples", example),
-                ("experimental.scheduler_policy=tpu",) + extra,
-                device="cuda", kernels=kernels)
+            with recorded_flushes([]) as flushes:
+                stats, prof = judge_profiled(torch, lambda: cli.simulate(
+                    os.path.join(REPO, "examples", example),
+                    ("experimental.scheduler_policy=tpu",) + extra,
+                    device="cuda", kernels=kernels))
             check(stats.policy == "hybrid", f"full {example}: ran "
                   f"{stats.policy}, not hybrid")
             if shipped is None:
@@ -5642,14 +5898,21 @@ def hybrid_full(torch, card, report):
             runs[f"full_{key}"] = {"launches": dict(kernels.launches)}
             print(f"[full:{key}] {stats.summary()}; "
                   f"{int(stats.host_events_quarantined.sum())} events "
-                  f"quarantined; {hybrid_line(stats)}; card {card}",
+                  f"quarantined; {hybrid_line(stats, prof)}; card {card}",
                   flush=True)
+            if example == "tgen_faults_hier.yaml" and extra:
+                check(len(flushes) == stats.judge["batches"],
+                      f"full {key}: {len(flushes)} flushes recorded of "
+                      f"{stats.judge['batches']}")
+                row = judge_real_rows(torch, flushes, key, card)
+                real[flushes[0][0].tables.name] = {**row, "run": key}
     kernels = Kernels()
     kernels.library()
     kernels.reset_counts()
-    stats = cli.simulate(os.path.join(REPO, "examples", "phold.yaml"),
-                         HYB_FULL_OVERRIDES, device="cuda",
-                         kernels=kernels)
+    with recorded_flushes([]) as flushes:
+        stats, prof = judge_profiled(torch, lambda: cli.simulate(
+            os.path.join(REPO, "examples", "phold.yaml"),
+            HYB_FULL_OVERRIDES, device="cuda", kernels=kernels))
     launches = dict(kernels.launches)
     check(stats.policy == "hybrid" and stats.judge["batches"] > 0,
           "full hybrid_phold: no device flush")
@@ -5673,9 +5936,14 @@ def hybrid_full(torch, card, report):
           f"crashes 300-700 ms, link 0-1 down 400-500 ms: "
           f"{stats.summary()}; {int(stats.host_events_quarantined.sum())} "
           f"events quarantined; hybrid == serial on every per-host leaf; "
-          f"{hybrid_line(stats)}; serial wall {serial.wall_s:.3f} s "
+          f"{hybrid_line(stats, prof)}; serial wall {serial.wall_s:.3f} s "
           f"({serial.events_executed / serial.wall_s:.0f} events/s); card "
           f"{card}", flush=True)
+    check(len(flushes) == stats.judge["batches"],
+          f"full hybrid_phold: {len(flushes)} flushes recorded of "
+          f"{stats.judge['batches']}")
+    row = judge_real_rows(torch, flushes, "hybrid_phold", card)
+    real[flushes[0][0].tables.name] = {**row, "run": "hybrid_phold"}
 
 
 # the compaction's full runs: (name, example, overrides, path)
@@ -6677,6 +6945,9 @@ def kernels_line(report):
                 **report.pop("_mesh_parity", {}),
                 **report.pop("_mesh_full", {})}.items()}}
     replicas = report.pop("_replicas", {})
+    # K10 on the real flushes of the full phase's hybrid runs
+    for name, row in report.pop("_judge_real", {}).items():
+        report[name]["on_real_flushes"] = row
     rows = []
     for n in ROWS:
         r = report[n]
@@ -6686,7 +6957,9 @@ def kernels_line(report):
                                     "at_1m_hosts", "at_cx16",
                                     "wider_rows", "odd_e", "at_S4",
                                     "overflowing", "adversarial",
-                                    "on_real_phases", "synthetic")
+                                    "on_real_phases", "synthetic",
+                                    "outside",
+                                    "on_real_flushes")
                   if k in r}
         rows.append({
             "name": n, "route": "cuda", "source": SOURCES[n],

@@ -126,6 +126,7 @@ from dataclasses import dataclass
 from pathlib import Path
 from typing import Optional, Union
 
+import numpy as np
 import torch
 
 from shadow_tpu_torch.core.event import (
@@ -149,6 +150,7 @@ from shadow_tpu_torch.host.model_nic import (
     MAX_SER_BYTES,
 )
 from shadow_tpu_torch.topology.hierarchy import gather_parts_plain
+from shadow_tpu_torch.utils import nprng
 from shadow_tpu_torch.utils.checksum import (
     CHK_KIND,
     CHK_MUL,
@@ -1602,6 +1604,95 @@ def topo_args(world: dict, R: int = 1):
     return False, T > 1, args, checks + [(lat, i32), (rel, f32)]
 
 
+class JudgeArgs(ctypes.Structure):
+    """csrc/judge_batch.cu `JudgeArgs`: K10's tables on the card, as
+    `judge_tables` builds them (the other view's pointers null)."""
+    _fields_ = [(name, ctypes.c_int) for name in (
+        "H", "hier", "V", "C", "T")] + [
+        (name, ctypes.c_void_p) for name in (
+            "epoch_times", "seed_key", "keys", "host_vertex", "lat",
+            "rel", "records", "access", "core", "self_lat", "self_rel")]
+
+
+@dataclass
+class JudgeTables:
+    """K10's tables for one standalone world, built once
+    (`judge_tables`): the world itself (the plain version and the
+    design before read it); the drop keys, [H, 2] int32 (`drop_keys`);
+    on factored tables the int32 host records, [H, 4] {vertex, cluster,
+    acc_lat, acc_rel bits} on one epoch, [H, 2] {vertex, cluster} under
+    epochs, with the access pair packed [T, V, 2] under epochs and the
+    core pair packed [(T,) C, C, 2] (float words as their int32 bits);
+    the launch name; on the card the `JudgeArgs` pointing at them,
+    checked once."""
+    world: dict
+    keys: torch.Tensor
+    records: Optional[torch.Tensor]
+    access: Optional[torch.Tensor]
+    core: Optional[torch.Tensor]
+    name: str
+    args: Optional[JudgeArgs]
+
+
+def drop_keys(seed_key: torch.Tensor, H: int) -> torch.Tensor:
+    """[H, 2] int32 (u32 words as their bits): purpose_id_key(seed,
+    PURPOSE_PACKET_DROP, h) of every host h < H under the [1, 2] seed
+    key, by the numpy chain of utils/nprng.py."""
+    k = [int(x) for x in seed_key.reshape(-1)[:2].tolist()]
+    key = nprng.fold_in(nprng.fold_in(
+        (np.uint32(k[0]), np.uint32(k[1])), PURPOSE_PACKET_DROP),
+        np.arange(H, dtype=np.uint32))
+    return torch.from_numpy(np.stack(key, 1).view(np.int32).copy())
+
+
+def judge_tables(world: dict) -> JudgeTables:
+    """K10's `JudgeTables` for a standalone world (host_vertex, the
+    path tables, epoch_times, the [1, 2] seed_key), on the world's
+    device; raises on tables of the wrong shape or type."""
+    hier, epochs, _, checks = topo_args(world, 1)
+    hv = world["host_vertex"]
+    dev = hv.device
+    H = hv.shape[0]
+    keys = drop_keys(world["seed_key"], H).to(dev)
+    records = access = core = None
+    lat, rel = world["lat"], world["rel"]
+    if hier:
+        cc, cl, acc, _ = lat
+        ccr, _, accr, _ = rel
+        v = hv.long()
+        if epochs:
+            records = torch.stack([hv, cl[v]], 1)
+            access = torch.stack([acc, accr.view(torch.int32)],
+                                 -1).contiguous()
+        else:
+            records = torch.stack(
+                [hv, cl[v], acc[v], accr.view(torch.int32)[v]], 1)
+        core = torch.stack([cc, ccr.view(torch.int32)], -1).contiguous()
+        V, C = cl.shape[0], cc.shape[-1]
+    else:
+        V, C = lat.shape[-1], 0
+    name = launch_name("judge_batch", False, epochs, hier)
+    args = None
+    if dev.type == "cuda":
+        seed = world["seed_key"]
+        if seed.shape != (1, 2):
+            raise ValueError("judge_tables: the seed key is [1, 2]")
+        built = [t for t in (keys, records, access, core)
+                 if t is not None]
+        _check_tensors(name, checks + [(hv, torch.int32),
+                                       (seed, torch.int64)]
+                       + [(t, torch.int32) for t in built])
+        ptr = (lambda t: None if t is None else _ptr(t))
+        args = JudgeArgs(
+            H, int(hier), V, C, int(world["epoch_times"].shape[0]),
+            _ptr(world["epoch_times"]), _ptr(seed), _ptr(keys), _ptr(hv),
+            None if hier else _ptr(lat), None if hier else _ptr(rel),
+            ptr(records), ptr(access), ptr(core),
+            _ptr(lat[3]) if hier else None,
+            _ptr(rel[3]) if hier else None)
+    return JudgeTables(world, keys, records, access, core, name, args)
+
+
 class NicArgs(ctypes.Structure):
     """csrc/pop_phase.cu `NicArgs`: the model NIC's leaves, bandwidths
     and law table, the counters the in-step judge adds to and the
@@ -1685,6 +1776,7 @@ _U = ctypes.c_uint
 _T = ctypes.POINTER(TopoArgs)
 _N = ctypes.POINTER(NicArgs)
 _RW = ctypes.POINTER(RowsArgs)
+_J = ctypes.POINTER(JudgeArgs)
 
 _POP_TAIL = [_P] * 5 + [_P] * 5 + [_P]     # ob t k m s v, pops
 #                                          ob_word aud aud_t ctl, stream
@@ -1755,10 +1847,20 @@ _SIGNATURES = {
     # aud_tx, ob_word, tally partial, stream
     "shadow_loop_control": [_I] * 3 + [_P] * 5 + [_I] * 3 + [_P] * 8 +
                            [_P],
-    # N, H, boot_end, now src dst seq, host_vertex topo, seed keys,
-    # deliver_time delivered, stream
+    # the design before: N, H, boot_end, now src dst seq, host_vertex
+    # topo, seed keys, deliver_time delivered, stream
     "shadow_judge_batch": [_L, _I, _L] + [_P] * 4 + [_P, _T, _P] +
                           [_P] * 2 + [_P],
+    # tables, N, boot_end, now src dst seq, deliver_time delivered,
+    # stream
+    "shadow_judge_launch": [_J, _L, _L] + [_P] * 4 + [_P] * 2 + [_P],
+    # tables, host_in dev_in dev_out host_out, events[4], the graph out
+    "shadow_judge_graph": [_J] + [_P] * 4 + [_P, _P],
+    # the graph (returns nothing)
+    "shadow_judge_graph_free": [_P],
+    # tables, graph, N, boot_end, host_in dev_in dev_out host_out,
+    # ms[2], stream
+    "shadow_judge_flush": [_J, _P, _L, _L] + [_P] * 4 + [_P, _P],
     # R, H, OB, CX, global, ob t m, x_overflow, pops ob_word, ctl,
     # every_row, stream
     "shadow_compact_outbox": [_I] * 5 + [_P] * 2 + [_P] * 4 + [_I, _P],
@@ -1808,6 +1910,21 @@ def _window_args(win_end, device, R: Optional[int] = None):
     return (*_ctl_args(win_end, R), win_end)
 
 
+def _check_tensors(name: str, tensors) -> None:
+    """Raise unless every (tensor, dtype) is of its dtype, contiguous
+    and on one CUDA device."""
+    dev = tensors[0][0].device
+    for t, dtype in tensors:
+        if t.device != dev or not t.is_cuda:
+            raise ValueError(f"{name}: all tensors must be on one CUDA "
+                             "device")
+        if t.dtype != dtype:
+            raise ValueError(f"{name}: expected {dtype}, got {t.dtype} "
+                             f"(shape {tuple(t.shape)})")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensors must be contiguous")
+
+
 class Kernels:
     """The kernels of one engine: the loaded library (built on first
     CUDA use), the wrappers and their launch counters.
@@ -1848,6 +1965,7 @@ class Kernels:
         self.fold_tally = True
         self.reset_counts()
         self._lib = None
+        self._judge_flush = None
         self._scratch = {}
         self._captured = None
 
@@ -1921,16 +2039,7 @@ class Kernels:
         """Check every (tensor, dtype) the kernel reads or writes, launch
         it on the current stream, and count the launch (with an event
         pair around it in timing mode)."""
-        dev = tensors[0][0].device
-        for t, dtype in tensors:
-            if t.device != dev or not t.is_cuda:
-                raise ValueError(f"{name}: all tensors must be on one "
-                                 "CUDA device")
-            if t.dtype != dtype:
-                raise ValueError(f"{name}: expected {dtype}, got "
-                                 f"{t.dtype} (shape {tuple(t.shape)})")
-            if not t.is_contiguous():
-                raise ValueError(f"{name}: tensors must be contiguous")
+        _check_tensors(name, tensors)
         capturing = torch.cuda.is_current_stream_capturing()
         if capturing and (self.timing or self._captured is None):
             raise RuntimeError(
@@ -2598,16 +2707,17 @@ class Kernels:
             None if pops is None else _ptr(pops), _word_ptr(outside), c,
             int(self.designs_before))
 
-    def judge_batch(self, world: dict, boot_end: int, now: torch.Tensor,
-                    src: torch.Tensor, dst: torch.Tensor,
+    def judge_batch(self, tables: JudgeTables, boot_end: int,
+                    now: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
                     pkt_seq: torch.Tensor, out=None):
         """K10: (delivered, deliver_time) of a batch of N deferred
-        packets, as judge_batch_plain gives them (which it is on the
-        CPU). On the card `delivered` is uint8 (0/1); both are written
-        into `out` = (deliver_time int64 [N], delivered uint8 [N]) where
-        given (views into the judge's one output buffer)."""
+        packets on `tables` (`judge_tables`), as judge_batch_plain gives
+        them (which it is on the CPU). On the card `delivered` is uint8
+        (0/1); both are written into `out` = (deliver_time int64 [N],
+        delivered uint8 [N]) where given. `designs_before`: the design
+        before, over the world's tables through topo_args."""
         if not now.is_cuda:
-            return judge_batch_plain(world, boot_end, now, src, dst,
+            return judge_batch_plain(tables.world, boot_end, now, src, dst,
                                      pkt_seq)
         N = now.shape[0]
         if any(t.shape != (N,) for t in (src, dst, pkt_seq)):
@@ -2619,17 +2729,62 @@ class Kernels:
         t_out, d_out = out
         if t_out.shape != (N,) or d_out.shape != (N,):
             raise ValueError("judge_batch: out must be two [N] tensors")
-        hv = world["host_vertex"]
-        hier, epochs, topo, topo_checks = topo_args(world, 1)
-        key, key_checks = self._seed_args(world, None, 1, now.device)
-        self._launch(
-            launch_name("judge_batch", False, epochs, hier),
-            "shadow_judge_batch",
-            [(now, torch.int64)] + [(t, torch.int32) for t in
-                                    (src, dst, pkt_seq, hv)]
-            + topo_checks + key_checks
-            + [(t_out, torch.int64), (d_out, torch.uint8)],
-            N, hv.shape[0], int(boot_end), *map(_ptr, (now, src, dst,
-                                                      pkt_seq, hv)),
-            ctypes.byref(topo), key, _ptr(t_out), _ptr(d_out))
+        columns = [(now, torch.int64)] + [
+            (t, torch.int32) for t in (src, dst, pkt_seq)] + [
+            (t_out, torch.int64), (d_out, torch.uint8)]
+        ptrs = [_ptr(t) for t, _ in columns]
+        if self.designs_before:
+            world = tables.world
+            hv = world["host_vertex"]
+            hier, epochs, topo, topo_checks = topo_args(world, 1)
+            key, key_checks = self._seed_args(world, None, 1, now.device)
+            self._launch(
+                tables.name, "shadow_judge_batch",
+                columns + [(hv, torch.int32)] + topo_checks + key_checks,
+                N, hv.shape[0], int(boot_end), *ptrs[:4], _ptr(hv),
+                ctypes.byref(topo), key, *ptrs[4:])
+        else:
+            if tables.args is None:
+                raise ValueError("judge_batch: the tables are not on the "
+                                 "card")
+            self._launch(tables.name, "shadow_judge_launch",
+                         columns + [(tables.keys, torch.int32)],
+                         ctypes.byref(tables.args), N, int(boot_end),
+                         *ptrs)
         return d_out, t_out
+
+    def judge_graph(self, tables: JudgeTables, buffers, events):
+        """K10's flush graph for `tables` (on the card) over the four
+        buffers' addresses (host in, device in, device out, host out:
+        20 and 9 bytes a packet) and four CUDA event handles
+        (csrc/judge_batch.cu `shadow_judge_graph`): a handle for
+        judge_flush, freed by judge_graph_free."""
+        state = ctypes.c_void_p()
+        err = self.library().shadow_judge_graph(
+            tables.args, *buffers, events, ctypes.byref(state))
+        if err != 0:
+            raise RuntimeError(f"{tables.name}: building the flush graph "
+                               f"failed with error {err}")
+        return state
+
+    def judge_graph_free(self, state) -> None:
+        self.library().shadow_judge_graph_free(state)
+
+    def judge_flush(self, tables: JudgeTables, graph, n: int,
+                    boot_end: int, buffers, ms) -> None:
+        """K10 on one flush of n packets in one C call
+        (csrc/judge_batch.cu `shadow_judge_flush`): the flush graph
+        (`judge_graph`) set to n packets of `buffers` (the four
+        addresses, grown by the caller) and launched on the current
+        stream, then a wait for it; `ms` (two floats) takes the
+        kernel's and the copies' device ms. Nothing is checked here.
+        Counts one launch."""
+        fn = self._judge_flush
+        if fn is None:
+            fn = self._judge_flush = self.library().shadow_judge_flush
+        err = fn(tables.args, graph, n, boot_end, *buffers, ms,
+                 torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"{tables.name}: CUDA flush failed with "
+                               f"error {err}")
+        self.launches[tables.name] += 1
