@@ -202,7 +202,19 @@ Phases, in order; any failure exits non-zero before the last line:
    (`compact_parity`): the PHOLD above and examples/tgen_10000.yaml cut
    to COMPACT_STOP, at the uncompacted run's largest occ_ob (equal to
    the uncompacted run) and at half of it (by each rule for the
-   PHOLD, by the global rule for tgen_10000), three ways.
+   PHOLD, by the global rule for tgen_10000), three ways; then the
+   capacity planner and the segmented advance (`plan_parity`,
+   `campaign_plan_parity`): tests/test_capacity.py's PHOLD planned from
+   a 600 ms warm-up (no re-plan, its knobs unlike the static ones)
+   against the static card run and the CPU's planned run, a forced
+   overflow (a 50 ms warm-up: re-plans and replays, the static trace,
+   clean final marks) and the planned run's OCC record replayed through
+   `capacity_plan: <path>`; tests/test_device_heartbeats.py's config
+   with heartbeats every 500 ms, its 24 `[shadow-heartbeat] [node]` rows
+   equal to the CPU's, its trace and rounds the run's without
+   heartbeats; examples/ensemble_seed_sweep.yaml planned with heartbeats
+   every second, each replica equal to its standalone graph run, one
+   `[ensemble-heartbeat]` line per replica per boundary.
 4. full: through the port's CLI entry function on the card (the
    captured window loop, K9 with the tally folded in; under
    outbox_compact K9 and the tally apart), each run with the kernel
@@ -248,7 +260,15 @@ Phases, in order; any failure exits non-zero before the last line:
    turns and its K10 device ms by the profiler, both designs; and
    (`compact_full`) PHOLD at 100,000 hosts and
    examples/tgen_10000.yaml as shipped under outbox_compact at the
-   uncompacted run's largest occ_ob, beside the uncompacted wall. Every
+   uncompacted run's largest occ_ob, beside the uncompacted wall; then
+   (`plan_full`) examples/tgen_100000.yaml as shipped (100,000 hosts to
+   30 s, planned from a 3 s warm-up, 2.5 s segments) with heartbeats
+   every 5 s (its 500,000 node rows counted, not printed), and again
+   without them, each against its static unsegmented graph run: the
+   build and warm-up walls, both plans, segments, host syncs and graph
+   captures (none per segment), the walls and events/s, the peak
+   against the estimate; and tgen_10000.yaml in 2.5 s segments against
+   its unsegmented graph run, in turns: the price of a boundary. Every
    device run must be admitted and its measured peak device memory lie within
    capacity.FOOTPRINT_TOLERANCE of its admission estimate.
 5. mesh: the host mesh, S ranks spawned on device 0 over gloo (the
@@ -266,8 +286,12 @@ Phases, in order; any failure exits non-zero before the last line:
    every leaf); one undersized capacity per schedule that has one
    (the PHOLD at S = 4: the direct pack, two_phase's phase 1, its
    phase 2), card against CPU, x_overflow equal per sender, the run not
-   ok. Full (`mesh_full`, MESH_FULL): phold.yaml at 2 x 50,000 hosts at
-   S = 2 and 4 and tgen_10000.yaml at S = 2, exchange_capacity set by
+   ok; in the same spawns the tgen config planned (MESH_PLAN: a 3 s
+   warm-up in 1 s segments, `exchange: auto`) at S = 2 and 4, equal to
+   the one-device run, its chosen schedule and estimates printed. Full
+   (`mesh_full`, MESH_FULL): phold.yaml at 2 x 50,000 hosts at
+   S = 2 and 4 and tgen_10000.yaml cut to 10 s at S = 2,
+   exchange_capacity set by
    hand, untimed for the wall beside the one-device graph wall of this
    call, then in timing mode for each rank's split of the flush (the
    pops and K2, K5, the pack, the staging copies, the collective, the
@@ -277,6 +301,9 @@ Phases, in order; any failure exits non-zero before the last line:
 6. boot: examples/tgen_1000000.yaml as shipped built (timed), admitted
    and booted (engine and init_state) on the card; not run.
 7. the `kernels` JSON line, then the card line, then the result line.
+
+`--phases build,plan` makes the planner's and the segmented advance's
+checks alone (the mesh's planned runs in spawns of their own).
 
 It imports nothing of jax or of the shadow_tpu package.
 """
@@ -288,6 +315,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import logging
 import os
 import shutil
 import statistics
@@ -3962,16 +3990,20 @@ def judge_outside(torch, K, before, scratch, rng, tables, name):
     """K10 and its design before against the plain version on a batch
     of JUDGE_OUTSIDE_N packets, a quarter of whose senders and a
     quarter of whose destinations lie outside [0, H) (both ends of
-    int32, -1, H and H + 1 among them): the lookup clamps them, the
-    roll keys the raw sender; drops among those senders."""
+    int32, -H - 1, -H, -2, -1, H and H + 1 among them, a third of the
+    rest in [-H, -1]): an id in [-H, -1] reads host id + H, as the
+    reference's gather reads it, the others clamp; the roll keys the raw
+    sender; drops among those senders."""
     H = int(tables.world["host_vertex"].shape[0])
     N = JUDGE_OUTSIDE_N
     i32 = np.iinfo(np.int32)
 
     def outside(n):
-        x = np.where(rng.random(n) < 0.5, rng.integers(i32.min, 0, n),
-                     rng.integers(H, i32.max, n, endpoint=True))
-        x[:6] = [i32.min, -1, H, H + 1, i32.max, -2]
+        pick = rng.random(n)
+        x = np.where(pick < 1 / 3, rng.integers(i32.min, -H, n),
+                     np.where(pick < 2 / 3, rng.integers(-H, 0, n),
+                              rng.integers(H, i32.max, n, endpoint=True)))
+        x[:8] = [i32.min, -1, H, H + 1, i32.max, -2, -H, -H - 1]
         return x
 
     src, dst = rng.integers(0, H, N), rng.integers(0, H, N)
@@ -3991,7 +4023,10 @@ def judge_outside(torch, K, before, scratch, rng, tables, name):
     dropped = int((~dp.cpu().numpy() & out_s).sum())
     check(dropped > 0, f"{name}: no packet of a sender outside [0, H) "
           "dropped")
+    wrapped = int((out_s & (src >= -H) & (src < 0)).sum())
+    check(wrapped > 0, f"{name}: no sender in [-H, -1]")
     return {"err": err, "packets": N, "senders_outside": int(out_s.sum()),
+            "senders_in_minus_h_to_minus_1": wrapped,
             "dropped_of_those": dropped}
 
 
@@ -6022,6 +6057,8 @@ def parity_phase(torch, report):
     campaign_parity(torch, report)
     hybrid_parity(torch, report)
     compact_parity(torch, report)
+    plan_parity(torch, report)
+    campaign_plan_parity(torch, report)
 
 
 def star_parity(torch, report):
@@ -6317,7 +6354,9 @@ def main_path_run(torch, name, example, overrides, path):
     """One full run on the main path: the CLI's entry function on the
     card (the captured window loop), launch counts set to 0 just before
     and read just after; admission, peak memory, overflow and the
-    kernels of `path` checked. Returns (stats, launches, peak)."""
+    kernels of `path` checked (`path` may be a function of the run's
+    stats: a planned run's kernels follow its plan). Returns (stats,
+    launches, peak)."""
     from shadow_tpu_torch import cli
     from shadow_tpu_torch.device import capacity, runner
     from shadow_tpu_torch.device.kernels import KERNEL_NAMES, Kernels
@@ -6352,6 +6391,8 @@ def main_path_run(torch, name, example, overrides, path):
           f"{stats.x_overflow}")
     check(stats.ok and stats.loop == "graph",
           f"full {name}: run not ok, or not the graph loop ({stats.loop})")
+    if callable(path):
+        path = path(stats)
     for k in path:
         check(launches[k] > 0, f"full {name}: {k} never launched")
     for k in set(KERNEL_NAMES) - set(path):
@@ -6569,6 +6610,376 @@ def full_phase(torch, card, report):
     campaign_full(torch, card, report)
     hybrid_full(torch, card, report)
     compact_full(torch, card, report)
+    plan_full(torch, card, report)
+
+
+# ----------------------------------------------------------------------
+# the segmented advance and the capacity planner (device/supervise.py,
+# device/capacity.py, device/runner.py DeviceRunner)
+# ----------------------------------------------------------------------
+# tests/test_capacity.py's PHOLD, as its planned-run oracles run it
+PLAN_PHOLD_YAML = """
+general: {{stop_time: 1s, seed: 9}}
+network:
+  graph:
+    type: gml
+    inline: |
+      graph [
+        directed 0
+        node [ id 0 bandwidth_down "100 Mbit" bandwidth_up "100 Mbit" ]
+        node [ id 1 bandwidth_down "100 Mbit" bandwidth_up "100 Mbit" ]
+        edge [ source 0 target 0 latency "30 ms" packet_loss 0.0 ]
+        edge [ source 0 target 1 latency "10 ms" packet_loss 0.0 ]
+        edge [ source 1 target 1 latency "30 ms" packet_loss 0.0 ]
+      ]
+experimental:
+  scheduler_policy: tpu
+  event_capacity: 64
+  outbox_capacity: 16
+{extra}hosts:
+  left:
+    quantity: 3
+    network_node_id: 0
+    processes:
+    - {{path: model:phold, args: msgload=2, start_time: 100ms}}
+  right:
+    quantity: 3
+    network_node_id: 1
+    processes:
+    - {{path: model:phold, args: msgload=2, start_time: 150ms}}
+"""
+PLAN_WARM = "  capacity_plan: auto\n  capacity_warmup: 600ms\n"
+PLAN_FORCED = "  capacity_plan: auto\n  capacity_warmup: 50ms\n"
+# tests/test_device_heartbeats.py's config
+HB_YAML = """
+general: {{stop_time: 2s, seed: 5{hb}}}
+network:
+  graph:
+    type: gml
+    inline: |
+      graph [ directed 0
+        node [ id 0 bandwidth_down "1 Gbit" bandwidth_up "1 Gbit" ]
+        node [ id 1 bandwidth_down "1 Gbit" bandwidth_up "1 Gbit" ]
+        edge [ source 0 target 0 latency "10 ms" packet_loss 0.0 ]
+        edge [ source 0 target 1 latency "10 ms" packet_loss 0.01 ]
+        edge [ source 1 target 1 latency "10 ms" packet_loss 0.0 ] ]
+experimental: {{scheduler_policy: tpu}}
+hosts:
+  left:
+    quantity: 4
+    network_node_id: 0
+    processes: [{{path: model:phold, args: msgload=2, start_time: 10ms}}]
+  right:
+    quantity: 4
+    network_node_id: 1
+    processes: [{{path: model:phold, args: msgload=2, start_time: 10ms}}]
+"""
+NODE_ROW = "[shadow-heartbeat] [node] "
+# the gloo mesh's planned tgen: TGEN_PARITY_YAML planned from a 3 s
+# warm-up in 1 s segments, `exchange: auto`
+MESH_PLAN = ("experimental.exchange=auto", "experimental.capacity_plan=auto",
+             "experimental.capacity_warmup=3s",
+             "experimental.dispatch_segment=1s")
+# examples/tgen_100000.yaml as shipped (planned from a 3 s warm-up, in
+# 2.5 s segments), with heartbeats every 5 s, and its static
+# unsegmented run
+TGEN_100K = "tgen_100000.yaml"
+TGEN_100K_HB = ("general.heartbeat_interval=5s",)
+TGEN_100K_STATIC = ("experimental.capacity_plan=static",
+                    "experimental.capacity_warmup=0",
+                    "experimental.dispatch_segment=0")
+TGEN_PATH = ("pop_tgen", "judge_outbox", "route", "merge_heaps",
+             "loop_control_tally")
+SEGMENT_PRICE = ("experimental.dispatch_segment=2500ms",)
+
+
+class LineCount(logging.Handler):
+    """Counts the port's log records that hold each needle (keeping the
+    first `keep` of each), so that a run of 100,000 hosts' heartbeat rows
+    is counted, not printed."""
+
+    def __init__(self, needles, keep=0):
+        super().__init__(logging.INFO)
+        self.needles, self.keep = needles, keep
+        self.counts = dict.fromkeys(needles, 0)
+        self.kept = {n: [] for n in needles}
+
+    def emit(self, record):
+        # the needles lie in the format strings: a counted record is
+        # formatted only where it is kept
+        msg = str(record.msg)
+        for n in self.needles:
+            if n in msg:
+                self.counts[n] += 1
+                if len(self.kept[n]) < self.keep:
+                    self.kept[n].append(record.getMessage())
+
+
+@contextlib.contextmanager
+def counting(*needles, keep=0):
+    """The port's INFO records counted by `LineCount` while the block
+    runs, and not printed."""
+    lg = logging.getLogger("shadow_tpu_torch")
+    old = (lg.level, lg.propagate)
+    h = LineCount(needles, keep)
+    lg.addHandler(h)
+    lg.setLevel(logging.INFO)
+    lg.propagate = False
+    try:
+        yield h
+    finally:
+        lg.removeHandler(h)
+        lg.setLevel(old[0])
+        lg.propagate = old[1]
+
+
+def plan_line(stats) -> str:
+    p = stats.pipeline or {}
+    return (f"{p.get('segments')} segments ({p.get('replayed')} replayed), "
+            f"{p.get('host_syncs')} host syncs, {p.get('graph_captures')} "
+            f"graph captures over {p.get('engines')} engines, warm-up "
+            f"{p.get('warmup_wall_s', 0.0):.3f} s, run wall "
+            f"{stats.wall_s:.3f} s")
+
+
+def plan_parity(torch, report):
+    """tests/test_capacity.py's PHOLD on the card (exact): the static
+    run; planned from a 600 ms warm-up (no re-plan, knobs unlike the
+    static ones) against it and against the CPU plain path's planned
+    run (the same plan); the forced overflow (a 50 ms warm-up before the
+    first boot: at least one re-plan and replay, the static trace, the
+    final marks clean); the planned run's OCC record replayed through
+    `capacity_plan: <path>`. Then tests/test_device_heartbeats.py's
+    config: 24 `[shadow-heartbeat] [node]` rows, equal to the CPU's row
+    by row, the trace and rounds of the run without heartbeats."""
+    from shadow_tpu_torch.config import load_config_str
+    from shadow_tpu_torch.device import runner
+    from shadow_tpu_torch.device.kernels import Kernels
+
+    def cfg(extra=""):
+        return load_config_str(PLAN_PHOLD_YAML.format(extra=extra))
+
+    occ = os.environ["SHADOW_TPU_OCC_DIR"]
+    static = runner.run(cfg(), "cuda")
+    kernels = Kernels()
+    planned = runner.run(cfg(PLAN_WARM), "cuda", kernels=kernels)
+    cpu = runner.run(cfg(PLAN_WARM), "cpu")
+    what = "planned PHOLD (capacity_warmup 600ms)"
+    same_run(planned, static, what, ("planned card", "static card"))
+    same_run(planned, cpu, what, ("card", "cpu"))
+    rec = planned.occupancy
+    check(planned.replans == 0 and rec["planned"] != rec["static"]
+          and rec["planned"]["event_capacity"] < 64,
+          f"{what}: replans {planned.replans}, plan {rec['planned']}")
+    check(rec["planned"] == cpu.occupancy["planned"], f"{what}: the "
+          "card's plan differs from the CPU's")
+    path = [os.path.join(occ, f) for f in os.listdir(occ)
+            if f.startswith("OCC_PholdDevice_6_")]
+    check(len(path) == 1, f"{what}: no OCC record written ({path})")
+    replay_path = os.path.join(occ, "replay.json")
+    shutil.copy(path[0], replay_path)
+    forced = runner.run(cfg(PLAN_FORCED), "cuda")
+    same_run(forced, static, "forced overflow", ("forced card",
+                                                 "static card"))
+    fm = forced.occupancy["final_measured"]
+    check(forced.replans >= 1 and fm["overflow"] == 0
+          and fm["x_overflow"] == 0, f"forced overflow: replans "
+          f"{forced.replans}, final marks {fm}")
+    replay = runner.run(cfg(f"  capacity_plan: {replay_path}\n"), "cuda")
+    same_run(replay, static, "record replay", ("replay card",
+                                               "static card"))
+    print(f"[parity] {what}: equal to the static card run and the CPU's "
+          f"planned run; static {rec['static']} -> planned "
+          f"{rec['planned']}, 0 replans; {plan_line(planned)}; forced "
+          f"overflow (warm-up 50ms): {forced.replans} replans, applied "
+          f"{forced.occupancy['applied']}, {plan_line(forced)}; the OCC "
+          f"record replayed: equal, {plan_line(replay)}", flush=True)
+    report.setdefault("_parity", {})["parity_plan_phold"] = {
+        "launches": dict(kernels.launches)}
+
+    rows = {}
+    for dev in ("cuda", "cpu"):
+        with counting(NODE_ROW, "[supervise-heartbeat]", keep=10**6) as c:
+            rows[dev] = runner.run(load_config_str(HB_YAML.format(
+                hb=", heartbeat_interval: 500ms")), dev), c
+    hb, c = rows["cuda"]
+    plain = runner.run(load_config_str(HB_YAML.format(hb="")), "cuda")
+    same_run(hb, plain, "heartbeats", ("heartbeats", "without"))
+    check(c.counts[NODE_ROW] == 24 and c.counts["[supervise-heartbeat]"]
+          == 3, f"heartbeats: {c.counts}")
+    check(c.kept[NODE_ROW] == rows["cpu"][1].kept[NODE_ROW],
+          "heartbeats: the card's rows differ from the CPU's")
+    print(f"[parity] heartbeats (test_device_heartbeats' config, 500 ms): "
+          f"{c.counts[NODE_ROW]} [shadow-heartbeat] [node] rows equal to "
+          f"the CPU's row by row, e.g. {c.kept[NODE_ROW][0]!r}; "
+          f"{c.kept['[supervise-heartbeat]'][-1]!r}; checksums and "
+          f"{hb.rounds} rounds equal to the run without heartbeats; "
+          f"{plan_line(hb)}", flush=True)
+
+
+def campaign_plan_parity(torch, report):
+    """examples/ensemble_seed_sweep.yaml with `capacity_plan: auto` and
+    heartbeats every second on the card: each replica's trace leaves and
+    rounds equal to its standalone graph run (`standalone_replicas`, the
+    occupancy marks aside: they count phases, which capacities may
+    split), one `[ensemble-heartbeat]` line per replica per boundary."""
+    from shadow_tpu_torch.config import load_config
+    from shadow_tpu_torch.device.kernels import Kernels
+    from shadow_tpu_torch.ensemble.campaign import EnsembleRunner
+
+    kernels = Kernels()
+    er = EnsembleRunner(load_config(SWEEP, [
+        "experimental.capacity_plan=auto",
+        "general.heartbeat_interval=1s"]), "cuda", kernels)
+    with counting("[ensemble-heartbeat]", keep=100) as c:
+        stats = er.run()
+    what = "planned campaign (ensemble_seed_sweep.yaml, heartbeats 1s)"
+    check(stats.ok, f"{what}: not ok")
+    R = er.worlds.R
+    check(c.counts["[ensemble-heartbeat]"] == 2 * R,
+          f"{what}: {c.counts} heartbeat lines for {R} replicas")
+    final = {k: v for k, v in er.final_state.items()
+             if not k.startswith("occ_")}
+    walls = standalone_replicas(er, final, er.loop_stats[0]["rounds"], what)
+    rec = stats.occupancy
+    print(f"[parity] {what}: every replica equal to its standalone "
+          f"graph run ({walls:.3f} s summed); static {rec['static']} -> "
+          f"planned {rec['planned']}, {stats.replans} replans; "
+          f"{c.counts['[ensemble-heartbeat]']} [ensemble-heartbeat] "
+          f"lines, e.g. {c.kept['[ensemble-heartbeat]'][0]!r}; "
+          f"{plan_line(stats)}", flush=True)
+    report.setdefault("_parity", {})["campaign_plan"] = {
+        "launches": dict(kernels.launches)}
+
+
+def mesh_plan_check(stats, one, S, label):
+    """A planned mesh run (MESH_PLAN) against the one-device card run:
+    the trace, its record's `exchange: auto` choice, the schedule it
+    ran, and that schedule's kernels launched."""
+    same_run(stats, one, label, ("planned mesh", "one device"))
+    rec = stats.occupancy
+    info = rec["exchange_auto"]
+    check(stats.mesh["exchange"] == info["chosen"] and stats.replans == 0,
+          f"{label}: ran {stats.mesh['exchange']}, chose {info}")
+    for k in MESH_PATH[info["chosen"]]:
+        check(stats.mesh["launches"].get(k, 0) > 0,
+              f"{label}: {k} never launched")
+    print(f"[mesh] {label}: equal to one device; exchange auto -> "
+          f"{info['chosen']} (per-flush row estimates "
+          f"{info['estimates']}, groups {info['group_split']}), CAP "
+          f"{stats.mesh['cap']}, CAP2 {stats.mesh['cap2']}, plan "
+          f"{rec['planned']}; {plan_line(stats)}", flush=True)
+
+
+def planned_path(stats) -> tuple:
+    """The kernels a planned tgen run launches: the warm-up's (the
+    static engine: the graph loop folds the tallies into K9) and, where
+    the plan compacts the outbox, the planned engine's K11, the phase's
+    own tally and K9 alone (DeviceEngine._fold)."""
+    if not stats.occupancy["planned"]["outbox_compact"]:
+        return TGEN_PATH
+    return TGEN_PATH + ("compact_outbox", "phase_tally", "loop_control")
+
+
+def plan_full(torch, card, report):
+    """examples/tgen_100000.yaml as shipped (100,000 hosts to its 30 s
+    stop, planned from a 3 s warm-up, 2.5 s segments) with heartbeats
+    every 5 s, on the main path, against its static unsegmented graph
+    run: per-host checksums, totals and rounds equal; the build and
+    warm-up walls, both plans, segments, host syncs and graph captures
+    (one per engine, none per segment), both walls and peak memory
+    against the admission estimate (`main_path_run`, within
+    FOOTPRINT_TOLERANCE). Then tgen_10000.yaml in 2.5 s segments against
+    its unsegmented graph run, in turns: the price of a boundary."""
+    from shadow_tpu_torch.config import load_config
+    from shadow_tpu_torch.core.build import build
+
+    path = os.path.join(REPO, "examples", TGEN_100K)
+    t0 = time.perf_counter()
+    build(load_config(path, list(TGEN_100K_HB)))
+    build_wall = time.perf_counter() - t0
+    static, s_launches, s_peak = main_path_run(
+        torch, "tgen_100000_static", TGEN_100K, TGEN_100K_STATIC, TGEN_PATH)
+    with counting(NODE_ROW, "[supervise-heartbeat]", keep=3) as c:
+        planned, launches, peak = main_path_run(
+            torch, "tgen_100000", TGEN_100K, TGEN_100K_HB, planned_path)
+    bare, b_launches, _ = main_path_run(torch, "tgen_100000_as_shipped",
+                                        TGEN_100K, (), planned_path)
+    what = "tgen_100000 (as shipped, heartbeats 5s)"
+    same_run(planned, static, what, ("planned segmented",
+                                     "static unsegmented"))
+    same_run(bare, static, "tgen_100000 (as shipped)",
+             ("planned segmented", "static unsegmented"))
+    p, rec = planned.pipeline, planned.occupancy
+    H = len(planned.host_events_executed)
+    check(p["segments"] >= 12 and p["graph_captures"] <= p["engines"],
+          f"{what}: {p}")
+    check(c.counts[NODE_ROW] == 5 * H and
+          c.counts["[supervise-heartbeat]"] == 5,
+          f"{what}: heartbeat lines {c.counts}")
+    est = planned.admission["estimate"]["per_device"]
+    print(f"[full:tgen_100000] {H} hosts: build {build_wall:.3f} s; "
+          f"warm-up {p['warmup_wall_s']:.3f} s; static {rec['static']} "
+          f"-> planned {rec['planned']}, {planned.replans} replans; "
+          f"{plan_line(planned)}; static unsegmented graph wall "
+          f"{static.wall_s:.3f} s ({static.host_syncs} host syncs), "
+          f"planned segmented wall {planned.wall_s:.3f} s; events/s "
+          f"{planned.events_executed / planned.wall_s:.0f} planned, "
+          f"{static.events_executed / static.wall_s:.0f} static; peak "
+          f"{peak} B against the estimate {est} B ({peak / est:.3f} x), "
+          f"static peak {s_peak} B; {c.counts[NODE_ROW]} heartbeat rows, "
+          f"{c.kept['[supervise-heartbeat]'][-1]!r}; {planned.summary()}; "
+          f"card {card}", flush=True)
+    print(f"[full:tgen_100000_as_shipped] without heartbeats: "
+          f"{plan_line(bare)}; {bare.events_executed / bare.wall_s:.0f} "
+          f"events/s; the heartbeats' share of the run with them "
+          f"{(planned.wall_s - bare.wall_s) / planned.wall_s:.3f}; card "
+          f"{card}", flush=True)
+    runs = report.setdefault("_extra", {})
+    runs["full_tgen_100000"] = {"launches": launches}
+    runs["full_tgen_100000_as_shipped"] = {"launches": b_launches}
+    runs["full_tgen_100000_static"] = {"launches": s_launches}
+    walls = {"unsegmented": [], "segmented": []}
+    for turn in ("unsegmented", "segmented", "segmented", "unsegmented"):
+        st, ln, _ = main_path_run(
+            torch, f"tgen_10000_{turn}", "tgen_10000.yaml",
+            SEGMENT_PRICE if turn == "segmented" else (), TGEN_PATH)
+        walls[turn].append(st)
+        runs[f"full_tgen_10000_{turn}_{len(walls[turn])}"] = {
+            "launches": ln}
+    seg, uns = walls["segmented"], walls["unsegmented"]
+    same_run(seg[0], uns[0], "tgen_10000 in 2.5 s segments",
+             ("segmented", "unsegmented"))
+    n = seg[0].pipeline["segments"]
+    ws = [x.wall_s for x in seg]
+    wu = [x.wall_s for x in uns]
+    print(f"[full:tgen_10000_segments] {n} segments of 2.5 s against one: "
+          f"walls {', '.join(f'{w:.4f}' for w in ws)} s segmented, "
+          f"{', '.join(f'{w:.4f}' for w in wu)} s unsegmented (in turns); "
+          f"a boundary costs {(sum(ws) - sum(wu)) / 2 / (n - 1) * 1e3:.3f} "
+          f"ms ({seg[0].host_syncs} against {uns[0].host_syncs} host "
+          f"syncs, {seg[0].pipeline['graph_captures']} graph capture(s)); "
+          f"card {card}", flush=True)
+
+
+def plan_phase(torch, card, report):
+    """Every check of the planner and the segmented advance alone (a
+    short call after a change to them); the default run makes them in
+    the parity, mesh and full phases."""
+    from shadow_tpu_torch.config import load_config_str
+    from shadow_tpu_torch.device import runner
+
+    plan_parity(torch, report)
+    campaign_plan_parity(torch, report)
+    one = runner.run(load_config_str(TGEN_PARITY_YAML), "cuda")
+    for S in (2, 4):
+        cfg = load_config_str(TGEN_PARITY_YAML, [
+            f"experimental.mesh_shards={S}", *MESH_PLAN])
+        (stats, _), = runner.mesh_runs(["cuda:0"] * S, [cfg])
+        mesh_plan_check(stats, one, S, f"planned tgen, S={S}")
+    plan_full(torch, card, report)
+    report.pop("_extra", None)
+    report.pop("_parity", None)
 
 
 # ----------------------------------------------------------------------
@@ -6601,9 +7012,12 @@ MESH_FULL = (
         "experimental.exchange_capacity=98304",), 2, "phold", "pop_phase"),
     ("phold_s4", "phold.yaml", FULL_RUNS[0][2] + (
         "experimental.exchange_capacity=32768",), 4, "phold", "pop_phase"),
+    # cut from its 30 s stop to 10 s to make room for the planner's runs
+    # (its one-device run is then made here, not taken from the full
+    # phase)
     ("tgen_10000_s2", "tgen_10000.yaml", (
-        "experimental.exchange_capacity=16384",), 2, "tgen_10000",
-     "pop_tgen"),
+        "general.stop_time=10s", "experimental.exchange_capacity=16384"),
+     2, None, "pop_tgen"),
 )
 
 
@@ -6694,6 +7108,10 @@ def mesh_parity(torch, report):
             4, "two_phase", "global", (
                 "experimental.exchange_capacity2=4",)))}
     cpu.update(over)
+    # the planned tgen (MESH_PLAN) rides each S's card spawn
+    tgen_load = next(c[2] for c in mesh_parity_configs() if c[0] == "tgen")
+    planned = {f"tgen_plan/{S}": tgen_load((f"experimental.mesh_shards={S}",
+                                            *MESH_PLAN)) for S in (2, 4)}
     t0 = time.perf_counter()
     with cf.ThreadPoolExecutor(1) as pool:
         # the CPU ranks run beside the card's
@@ -6706,8 +7124,9 @@ def mesh_parity(torch, report):
         for S in (2, 4):
             keys = [k for k in cards if k.endswith(f"/{S}")]
             res = runner.mesh_runs(["cuda:0"] * S,
-                                   [cards[k][0] for k in keys], True)
-            card.update(zip(keys, res))
+                                   [cards[k][0] for k in keys]
+                                   + [planned[f"tgen_plan/{S}"]], True)
+            card.update(zip(keys + [f"tgen_plan/{S}"], res))
         over_keys = list(over)
         res = runner.mesh_runs(["cuda:0"] * 4, list(over.values()), True)
         card.update(zip(over_keys, res))
@@ -6737,6 +7156,10 @@ def mesh_parity(torch, report):
         if k in cpu_res:
             same_leaves(leaves, cpu_res[k][1], label, ("card", "cpu"))
             same_run(stats, cpu_res[k][0], label)
+    for S in (2, 4):
+        stats, _ = card[f"tgen_plan/{S}"]
+        mesh_plan_check(stats, singles["tgen"][0], S,
+                        f"planned tgen parity config, S={S}")
     for k in over:
         (cs_, cl), (ps_, pl) = card[k], cpu_res[k]
         check(not cs_.ok and not ps_.ok and cs_.x_overflow > 0,
@@ -7354,7 +7777,9 @@ def result_line(kind: str) -> str:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
-                    help="comma list of " + ",".join(PHASES))
+                    help="comma list of " + ",".join(PHASES) + " (or "
+                         "build,plan: the planner's and the segmented "
+                         "advance's checks alone)")
     ap.add_argument("--ab", metavar="DIR",
                     help="only time every kernel of a standalone run (R = "
                          "1) of the package in DIR (a checkout of another "
@@ -7409,7 +7834,8 @@ def main(argv=None) -> int:
                     or "spill" in line):
                 print(f"[build] {line.strip()}", flush=True)
         report: dict = {}
-        for phase, run in (("kernels", lambda: kernels_phase(torch, report)),
+        for phase, run in (("plan", lambda: plan_phase(torch, card, report)),
+                           ("kernels", lambda: kernels_phase(torch, report)),
                            ("parity", lambda: parity_phase(torch, report)),
                            ("full", lambda: full_phase(torch, card, report)),
                            ("mesh", lambda: mesh_phase(torch, card, report)),

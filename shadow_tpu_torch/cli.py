@@ -78,6 +78,16 @@ def main(argv=None) -> int:
                  "mean/p5/p95/min/max in the ENSEMBLE record",
                  rec["campaign"], rec["workload"]["replicas"],
                  stats.packets_sent)
+    if stats.stale_heartbeats:
+        # the run finished, but some heartbeat gaps passed the
+        # threshold (experimental.heartbeat_stale_after): it stalled
+        log.warning("%d stale heartbeat gap(s) during the run "
+                    "(gaps > %dx the expected cadence) — the run "
+                    "stalled between segment boundaries; see the "
+                    "STALE HEARTBEAT warnings above",
+                    stats.stale_heartbeats,
+                    load_config(args.config, args.option).experimental
+                    .heartbeat_stale_after)
     if stats.admission is not None:
         log.info("%s", capacity.verdict_line(stats.admission))
     if not stats.ok:

@@ -45,12 +45,6 @@ LATER_EXPERIMENTAL = {
         "queue (a) item 10 (the socket stack and the threaded CPU "
         "policies)"),
     **dict.fromkeys(
-        ("capacity_plan", "capacity_warmup", "capacity_headroom",
-         "strategy_plan", "dispatch_segment", "pipeline_depth",
-         "device_batch_rounds", "heartbeat_stale_after"),
-        "queue (a) item 7a (the segmented advance and the capacity "
-        "planner)"),
-    **dict.fromkeys(
         ("checkpoint_save", "checkpoint_save_time", "checkpoint_load",
          "checkpoint_every", "checkpoint_keep"),
         "queue (a) item 7b (checkpoints)"),
@@ -61,8 +55,12 @@ LATER_EXPERIMENTAL = {
         ("dispatch_retries", "dispatch_retry_backoff", "failover",
          "chaos", "round_watchdog", "round_watchdog_dump"),
         "queue (a) item 13 (the robustness layer)"),
+    "pipeline_depth": "queue (a) item 13 (the robustness layer: "
+                      "pipelined segment dispatch)",
     **dict.fromkeys(("compile_cache", "compile_cache_cap_mb"),
                     "queue (a) item 14 (compile cache, tune, serve)"),
+    "strategy_plan": "queue (a) item 14 (compile cache, tune, serve: "
+                     "strategy plans)",
 }
 
 # the reference's layout variants (in-step vs flush judge, window vs
@@ -80,6 +78,26 @@ LAYOUT_VARIANTS = {
     "pop_strategy": ("auto", "onehot", "gather"),
     "table_strategy": ("auto", "onehot", "gather"),
 }
+
+
+def _keyword_or_path(name: str, value, keywords: tuple,
+                     path_hint: str) -> str:
+    """The reference's keyword-or-record-path check (schema.py:62-98,
+    cut to `.json` record paths): a keyword passes, anything else must
+    be a string ending in `.json`, so that a typo'd keyword fails at
+    load and not deep inside the run."""
+    kws = " / ".join(repr(k) for k in keywords)
+    if not isinstance(value, str):
+        raise ValueError(
+            f"experimental.{name}: {value!r} is neither {kws} nor "
+            f"{path_hint}")
+    if value in keywords:
+        return value
+    if not value.endswith(".json"):
+        raise ValueError(
+            f"experimental.{name}: {value!r} is neither {kws} nor "
+            f"{path_hint}")
+    return value
 
 
 def _check_keys(section: str, d: dict, allowed: set[str]) -> None:
@@ -183,8 +201,9 @@ class GeneralOptions:
     stop_time: int = 0                      # sim ns
     seed: int = 1
     bootstrap_end_time: int = 0             # no drops until here
-    # the runner's heartbeat cadence (sim ns; 0 = none): a standalone
-    # run has no segments and ignores it, a campaign refuses it
+    # the runner's heartbeat cadence (sim ns; 0 = none): the device
+    # runner and a campaign cut a segment at every multiple of it and
+    # log the heartbeat lines there (device/supervise.py `advance`)
     heartbeat_interval: int = 0
 
     @classmethod
@@ -367,6 +386,25 @@ class ExperimentalOptions:
     exchange: str = "all_to_all"
     exchange_capacity: int = 0
     exchange_capacity2: int = 0
+    # occupancy-driven capacities (device/capacity.py): "static" runs
+    # the knobs above; "auto" sizes them from a warm-up slice of
+    # `capacity_warmup` (0 = stop_time / 8) on the static engine;
+    # any other value is the path of an OCC_*.json record. A planned
+    # run that overflows widens the dimension and replays from the last
+    # validated segment boundary; traces equal the static run's
+    capacity_plan: str = "static"
+    capacity_warmup: int = 0
+    # the planner's pad factor (0 = capacity.HEADROOM)
+    capacity_headroom: float = 0.0
+    # the most simulated time a device dispatch covers (0 = the run
+    # in one): segment boundaries never change the trace
+    dispatch_segment: int = 0
+    # warn when a heartbeat gap passes this many times the learned
+    # cadence (device/supervise.py HeartbeatMonitor; 0 = off)
+    heartbeat_stale_after: int = 0
+    # the reference's rounds per device while_loop; read by none of its
+    # runners, accepted without effect
+    device_batch_rounds: int = 64
     # reference keys set in the config that the port does not run yet
     later: dict = field(default_factory=dict)
 
@@ -378,7 +416,10 @@ class ExperimentalOptions:
                "device_memory_budget", "model_bandwidth", "count_paths",
                "state_audit", "outbox_compact", "hybrid_cpu_policy",
                "hybrid_judge_min_batch", "mesh_shards", "mesh_axis",
-               "exchange", "exchange_capacity", "exchange_capacity2"}
+               "exchange", "exchange_capacity", "exchange_capacity2",
+               "capacity_plan", "capacity_warmup", "capacity_headroom",
+               "dispatch_segment", "heartbeat_stale_after",
+               "device_batch_rounds"}
         _check_keys("experimental", d,
                     own | set(LAYOUT_VARIANTS) | set(LATER_EXPERIMENTAL))
         out = cls(later={k: v for k, v in d.items()
@@ -387,11 +428,16 @@ class ExperimentalOptions:
             v = d[name]
             if name == "runahead":
                 v = parse_time_ns(v) if v is not None else None
+            elif name in ("dispatch_segment", "capacity_warmup"):
+                v = parse_time_ns(v)
+            elif name == "capacity_headroom":
+                v = float(v)
             elif name in ("event_capacity", "outbox_capacity",
                           "exchange_in_capacity", "burst_pops",
                           "outbox_compact", "hybrid_judge_min_batch",
                           "mesh_shards", "exchange_capacity",
-                          "exchange_capacity2"):
+                          "exchange_capacity2", "heartbeat_stale_after",
+                          "device_batch_rounds"):
                 v = int(v)
             elif name == "device_memory_budget":
                 v = parse_size_bytes(v)
@@ -430,9 +476,47 @@ class ExperimentalOptions:
                 "no mesh to pin)")
         for name in ("outbox_compact", "hybrid_judge_min_batch",
                      "mesh_shards", "exchange_capacity",
-                     "exchange_capacity2"):
+                     "exchange_capacity2", "dispatch_segment"):
             if getattr(out, name) < 0:
                 raise ValueError(f"experimental.{name} must be >= 0")
+        if out.device_batch_rounds < 1:
+            raise ValueError("experimental.device_batch_rounds must be "
+                             ">= 1")
+        if out.heartbeat_stale_after < 0:
+            raise ValueError(
+                "experimental.heartbeat_stale_after must be >= 0 "
+                "(0 = staleness detection off; k = warn when a "
+                "heartbeat gap exceeds k x the expected cadence)")
+        if out.capacity_plan != "static" and \
+                out.scheduler_policy != "tpu":
+            raise ValueError(
+                "experimental.capacity_plan: occupancy-driven "
+                "capacity planning sizes the DEVICE engine's buffers "
+                "and requires scheduler_policy: tpu (CPU policies "
+                "have no static capacities to plan)")
+        if out.capacity_warmup < 0:
+            raise ValueError(
+                "experimental.capacity_warmup must be >= 0")
+        out.capacity_plan = _keyword_or_path(
+            "capacity_plan", out.capacity_plan, ("static", "auto"),
+            "a path to a saved OCC_*.json occupancy record")
+        if out.capacity_warmup and out.capacity_plan != "auto":
+            raise ValueError(
+                "experimental.capacity_warmup is set but "
+                f"capacity_plan is {out.capacity_plan!r} — the "
+                "warm-up slice only runs under capacity_plan: auto, "
+                "so the knob would be silently ignored")
+        if out.capacity_headroom and out.capacity_headroom < 1.0:
+            raise ValueError(
+                "experimental.capacity_headroom must be 0 (planner "
+                "default) or >= 1.0 — padding below the measured "
+                "high-water mark would guarantee overflow re-plans")
+        if out.capacity_headroom and out.capacity_plan == "static":
+            raise ValueError(
+                "experimental.capacity_headroom is set but "
+                "capacity_plan is 'static' — the headroom factor "
+                "only shapes planned capacities, so the knob would "
+                "be silently ignored")
         _check_choice("experimental", "hybrid_cpu_policy",
                       out.hybrid_cpu_policy,
                       [p for p in SCHEDULER_POLICIES
@@ -646,6 +730,14 @@ class ConfigOptions:
                 "entries (<save>.b<k>.t<ns>) the supervised drain "
                 "produces — without checkpoint_every the end-of-run "
                 "save would be silently skipped")
+        if out.experimental.heartbeat_stale_after and \
+                not out.general.heartbeat_interval:
+            raise ValueError(
+                "experimental.heartbeat_stale_after is set but "
+                "general.heartbeat_interval is 0 — staleness is "
+                "measured on the [supervise-heartbeat] boundaries, "
+                "so without a heartbeat cadence the knob would be "
+                "silently ignored")
         return out
 
     def total_hosts(self) -> int:

@@ -99,10 +99,8 @@ def check_slice(cfg: ConfigOptions) -> None:
     if xp.interpose_method != "model":
         _refuse(f"experimental.interpose_method: {xp.interpose_method}",
                 f"{ITEM_10} (real processes)")
-    for key, value in xp.later.items():
-        # static capacities are what the port runs
-        if not (key == "capacity_plan" and value == "static"):
-            _refuse(f"experimental.{key}", LATER_EXPERIMENTAL[key])
+    for key in xp.later:
+        _refuse(f"experimental.{key}", LATER_EXPERIMENTAL[key])
     _, host_faults = split_events(cfg.network.faults)
     if xp.mesh_shards > 1:
         check_mesh(cfg, host_faults)
@@ -124,7 +122,7 @@ def check_slice(cfg: ConfigOptions) -> None:
                     "processes, the socket stack)")
         if g.ip_address_hint or g.city_code_hint or g.country_code_hint:
             _refuse(f"hosts.{g.name}: attachment hints",
-                    "queue (a) item 7 (the object build)")
+                    "queue (a) item 7c (the object build)")
 
 
 def check_mesh(cfg: ConfigOptions, host_faults) -> None:
@@ -174,17 +172,12 @@ def _no_twin(paths: set) -> NoDeviceTwin:
 
 def check_campaign(cfg: ConfigOptions, host_faults: list) -> None:
     """What an `ensemble:` campaign cannot run: host faults and a Tor
-    seed sweep (each with the reference's own message), and the
-    per-replica heartbeats of the reference's segmented advance."""
+    seed sweep (each with the reference's own message)."""
     if host_faults:
         raise ValueError(
             "ensemble: host_crash/host_restart faults are manager-side "
             "events — the campaign engine cannot run them (vary link "
             "faults via ensemble.fault_schedules instead)")
-    if cfg.general.heartbeat_interval:
-        _refuse("general.heartbeat_interval in an ensemble campaign "
-                "(per-replica heartbeats at segment boundaries)",
-                "queue (a) item 7a (the segmented advance)")
     seeds = set(cfg.ensemble.vary.get("seed", ()))
     if len(seeds) > 1 and any(MODELS.get(g.processes[0].path) == "tor"
                               for g in cfg.hosts if g.processes):
@@ -256,7 +249,7 @@ class HostNames:
                 if a != b and b.startswith(a) and b[len(a):].isdigit():
                     _refuse(f"host groups {a!r} and {b!r}, whose "
                             "generated host names can collide",
-                            "queue (a) item 7 (the object build)")
+                            "queue (a) item 7c (the object build)")
 
     def name_of(self, host_id: int) -> str:
         for name, (base, q) in self.groups.items():
@@ -398,7 +391,7 @@ def build(cfg: ConfigOptions) -> BuiltSimulation:
         else:
             _refuse(f"hosts.{g.name}: no network_node_id on a "
                     f"{topology.n_vertices}-vertex graph (random "
-                    "attachment)", "queue (a) item 7 (the object build)")
+                    "attachment)", "queue (a) item 7c (the object build)")
         # a group's bandwidth, else its vertices' (the reference's
         # columnar build)
         d_parts.append(np.full(q, g.bandwidth_down, dtype=np.int64)

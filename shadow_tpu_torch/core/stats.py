@@ -64,6 +64,17 @@ class SimStats:
     # shards, backend, the schedule after `auto`, CAP and CAP2, the
     # bytes rank 0 sent, its staging and collective seconds
     mesh: Optional[dict] = field(default=None, repr=False)
+    # the occupancy record of a device run (device/capacity.py measure;
+    # a planned run's with its plan, final marks and re-plans), the
+    # re-plans an overflow forced, and the heartbeat gaps the
+    # staleness monitor flagged (experimental.heartbeat_stale_after)
+    occupancy: Optional[dict] = field(default=None, repr=False)
+    replans: int = 0
+    stale_heartbeats: int = 0
+    # the segmented advance's record (device/supervise.py `advance`):
+    # segments, replays, host syncs, graph captures, engines built, the
+    # warm-up's wall
+    pipeline: Optional[dict] = field(default=None, repr=False)
 
     def summary(self) -> str:
         downloads = ("" if self.downloads_completed is None else

@@ -25,9 +25,9 @@
 // * the drop keys, purpose_id_key(seed, DROP, h) of every host h, an
 //   [H, 2] table: a rolled packet costs two threefry blocks (the seq
 //   fold and the uniform), not four, and reads its key only when it
-//   rolls. A sender outside [0, H) (the lookup clamps it, the roll does
-//   not) takes the full chain from its raw id, as the reference does:
-//   the table is never read at a clamped index;
+//   rolls. A sender outside [0, H) (its lookup reads `host_row`, the
+//   roll its raw id) takes the full chain from its raw id, as the
+//   reference does: the table is never read at another index;
 // * dense: host_vertex and the [(T,) V, V] gathers, as before;
 // * factored, one epoch: a record a host {vertex, cluster, acc_lat,
 //   acc_rel bits} (16 bytes); under the [T] epoch axis {vertex,
@@ -67,6 +67,14 @@ using namespace shadow;
 
 namespace {
 
+// The host row a judged id reads, as the reference's numpy and jax
+// indexing read it: an id in [-H, -1] reads host id + H, every other id
+// outside [0, H) the nearest end. The drop roll keys on the raw id.
+__device__ __forceinline__ int host_row(int id, int H) {
+    const int i = id < 0 ? id + H : id;
+    return i < 0 ? 0 : (i > H - 1 ? H - 1 : i);
+}
+
 // ---------------------------------------------------------------------
 // the design before
 // ---------------------------------------------------------------------
@@ -85,8 +93,8 @@ judge_batch_before_kernel(int64_t N, int H, int64_t boot_end,
     if (i >= N) return;
     const int64_t t = now[i];
     int s = src[i], d = dst[i];
-    s = s < 0 ? 0 : (s > H - 1 ? H - 1 : s);
-    d = d < 0 ? 0 : (d > H - 1 ? H - 1 : d);
+    s = host_row(s, H);
+    d = host_row(d, H);
     const int vs = __ldg(&host_vertex[s]);
     const int vd = __ldg(&host_vertex[d]);
     const int e = topo.epoch(t);
@@ -219,8 +227,8 @@ judge_kernel(int64_t N, int H, int64_t boot_end, int T,
     if (i >= N) return;
     const int64_t t = now[i];
     const int s = src[i], d = dst[i];
-    const auto es = view.end(s < 0 ? 0 : (s > H - 1 ? H - 1 : s));
-    const auto ed = view.end(d < 0 ? 0 : (d > H - 1 ? H - 1 : d));
+    const auto es = view.end(host_row(s, H));
+    const auto ed = view.end(host_row(d, H));
     int e = 0;
     if (View::EPOCHS) {
         e = -1;

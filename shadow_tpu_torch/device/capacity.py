@@ -1,15 +1,37 @@
-"""Preflight admission: the device footprint of a run against the
-card's memory budget (the port's copy of the reference package's
-device/capacity.py `footprint`, `fmt_bytes`, `device_budget`,
-`admission_diagnostic` and `admission_verdict`, cut to one GPU with
-no pipeline or runtime degradation ladder).
+"""Occupancy-driven capacity planning and preflight admission (the
+port's copy of the reference package's device/capacity.py, cut to the
+port: no pipeline, no runtime degradation ladder, no re-shard).
 
-The runner calls `admission_verdict` after the build and before the
+The planner (capacity.py:42-441 and 550-632 of the reference, in
+numpy): the engine keeps per-host and per-shard high-water marks in its
+state (the `occ_*` leaves, written by the phase tally, K9's folded tally
+and K3; csrc/phase_tally.cu, loop_control.cu, merge_heaps.cu), and
+
+* `measure(engine, state)` turns a run's marks into an occupancy
+  record (a JSON-able dict, the reference's format and fields, so that
+  either package loads the other's: `app_fingerprint` is computed over
+  the reference's view of the app);
+* `plan(record, ...)` sizes the capacity knobs from it with headroom,
+  and on a mesh `choose_exchange` resolves `exchange: auto` from the
+  [S, S] pair matrix of the ranks' occ_x rows;
+* `widen(knobs, dims, effective)` doubles the dimensions an overflow
+  implicates (`overflow_dims`), for the runner's re-plan and replay;
+* `grow_heaps` and `transfer` carry a state, as host arrays, into a
+  rebuilt engine with a larger event_capacity.
+
+A plan that undershoots trips the engine's loud overflow counters; the
+segmented advance (device/supervise.py) widens, rebuilds and replays
+from the last validated boundary. Traces are the same at any capacity
+while nothing overflows, so planning moves only the time and memory a
+run takes.
+
+Admission: the runner calls `admission_verdict` after the build and before the
 engine allocates anything on the device. The byte model prices the
 tensors the port's engine really holds:
 
-* the state dict, one copy (the engine updates it in place; there is
-  no segment pipeline and no rewind snapshot), with the seven [H]
+* the state dict, one copy (the engine updates it in place), two where
+  the segmented advance keeps the last validated boundary's state on
+  the card to replay from (a planned run, device/supervise.py), with the seven [H]
   int64 model-NIC leaves under `model_bandwidth`, the [1,V*V] int64
   path counters under `count_paths` and the audit's [H] leaves (aud
   int32, aud_t and aud_tx int64) under `state_audit`;
@@ -47,14 +69,29 @@ it, as the reference's tests hold its own.
 
 from __future__ import annotations
 
+import hashlib
+import json
 import logging
 import math
+import os
 from typing import Optional
 
 import numpy as np
 import torch
 
-from shadow_tpu_torch.device.engine import STATE_DTYPES
+from shadow_tpu_torch.core.tgen_args import CHUNK_PKTS, MSS
+from shadow_tpu_torch.core.tor_args import (
+    CELL_BYTES,
+    CHUNK_CELLS,
+    SEQ_BITS,
+    SEQ_MASK,
+)
+from shadow_tpu_torch.device.apps import PholdDevice, TgenDevice, TorDevice
+from shadow_tpu_torch.device.engine import (
+    HEAP_FILLS,
+    STATE_DTYPES,
+    state_from_numpy,
+)
 from shadow_tpu_torch.device.kernels import (
     CTL_FIELDS,
     NIC_KEYS,
@@ -66,8 +103,37 @@ from shadow_tpu_torch.device.kernels import (
 )
 
 log = logging.getLogger("shadow_tpu_torch.admission")
+plan_log = logging.getLogger("shadow_tpu_torch.capacity")
 
 FOOTPRINT_TOLERANCE = 4.0
+
+# the record format both packages read and write
+FORMAT = 1
+# planned = ceil(measured * HEADROOM) + SLACK: the warm-up slice is a
+# lower bound on steady-state occupancy, and the replay makes an
+# undershoot cost one re-run, never the run
+HEADROOM = 1.5
+SLACK = 2
+# re-plans before a run may fail loudly (each doubles the offending
+# dimension, so 6 covers a 64x miss)
+MAX_REPLANS = 6
+# the engine's capacity knobs: planned, recorded as the static
+# baseline, widened
+CAPACITY_KNOBS = ("event_capacity", "outbox_capacity",
+                  "exchange_capacity", "exchange_capacity2",
+                  "exchange_in_capacity", "outbox_compact")
+# overflow counter -> the capacity dimensions it implicates: the merge's
+# `overflow` cannot tell a short heap from a short arrival window, so
+# both grow; `x_overflow` covers the shard-pair caps (both phases of
+# two_phase) and the compaction width
+OVERFLOW_DIMS = {
+    "overflow": ("event_capacity", "exchange_in_capacity"),
+    "x_overflow": ("exchange_capacity", "exchange_capacity2",
+                   "outbox_compact"),
+}
+# two_phase must beat the direct all_to_all's estimated rows by this
+# factor before `exchange: auto` picks it
+TWO_PHASE_MARGIN = 0.9
 
 
 def dense_auto_cap(h_loc: int, outbox: int, event_capacity: int,
@@ -113,6 +179,404 @@ def exchange_caps(exchange: str, n_shards: int, h_loc: int, outbox: int,
     return CAP, CAP2, g, ng
 
 
+# ----------------------------------------------------------------------
+# the planner
+# ----------------------------------------------------------------------
+def _reference_surface(app) -> tuple[dict, list]:
+    """(scalars, [(name, array)]) of an app as the reference package's
+    device app of the same class holds them in its instance dict
+    (`vars(app)`; shadow_tpu/device/apps.py): the scalars it sets, and
+    its per-host arrays with their dtypes (tgen and Tor keep the client
+    args twice there, as fields and as `_count`/`_pause`/`_retry`).
+    The fingerprint is computed over this view, so that the two
+    packages fingerprint one workload alike."""
+    if isinstance(app, PholdDevice):
+        return ({"max_draws": app.max_draws, "max_sends": app.max_sends,
+                 "max_timers": app.max_timers, "msgload": app.msgload,
+                 "n_hosts_total": app.n_hosts_total,
+                 "n_state_words": app.n_state_words,
+                 "selfloop": app.selfloop, "size": app.size}, [])
+    args = [("_count", app.count, np.int32), ("_pause", app.pause_ns,
+                                               np.int64),
+            ("_retry", app.retry_ns, np.int64), ("count", app.count,
+                                                  np.int32)]
+    if isinstance(app, TgenDevice):
+        scalars = {"MSS": MSS, "chunk": CHUNK_PKTS,
+                   "last_sz": app.last_sz, "max_draws": 1,
+                   "max_sends": app.max_sends,
+                   "max_timers": app.max_timers,
+                   "max_train": app.max_train,
+                   "n_state_words": app.n_state_words,
+                   "npkts": app.npkts, "size": app.size}
+        arrays = args + [("pause_ns", app.pause_ns, np.int64),
+                         ("retry_ns", app.retry_ns, np.int64),
+                         ("roles", app.roles, np.int32),
+                         ("server_gid", app.server_gid, np.int32)]
+    elif isinstance(app, TorDevice):
+        scalars = {"CELL": CELL_BYTES, "SEQ_BITS": SEQ_BITS,
+                   "SEQ_MASK": SEQ_MASK, "cells": app.cells,
+                   "chunk": CHUNK_CELLS, "max_draws": 1,
+                   "max_sends": app.max_sends,
+                   "max_timers": app.max_timers,
+                   "max_train": app.max_train,
+                   "n_state_words": app.n_state_words, "seed": app.seed}
+        arrays = args + [("pause_ns", app.pause_ns, np.int64),
+                         ("relay_gids", app.relay_gids, np.int64),
+                         ("retry_ns", app.retry_ns, np.int64),
+                         ("roles", app.roles, np.int32)]
+    else:
+        raise TypeError(f"no reference view of {type(app).__name__}")
+    return ({k: int(v) for k, v in scalars.items()},
+            [(k, np.ascontiguousarray(np.asarray(v).astype(dt)))
+             for k, v, dt in arrays])
+
+
+def app_scalars(app) -> dict:
+    """The app's scalar configuration surface, as the reference lists it
+    (capacity.py:109; burst_pops, a lane width that never changes the
+    trace, left out)."""
+    return dict(sorted(_reference_surface(app)[0].items()))
+
+
+def app_fingerprint(app) -> str:
+    """The workload fingerprint of a device app (capacity.py:124): its
+    scalars, then each per-host array's name, shape and bytes in name
+    order; two apps of one class and host count whose traffic differs
+    do not share an occupancy record."""
+    scalars, arrays = _reference_surface(app)
+    h = hashlib.sha256(json.dumps(app_scalars(app),
+                                  sort_keys=True).encode())
+    for k, v in sorted(arrays, key=lambda kv: kv[0]):
+        h.update(k.encode())
+        h.update(str(v.shape).encode())
+        h.update(v.tobytes())
+    return h.hexdigest()[:12]
+
+
+def host_array(x) -> np.ndarray:
+    """A tensor's values on the host (a numpy array passes through)."""
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else \
+        np.asarray(x)
+
+
+def measure(engine, state, source: str = "run") -> dict:
+    """The occupancy record of a run's state (capacity.py:142): the
+    measured maxima and the effective capacities that held them. `state`
+    holds tensors or numpy arrays (a campaign's worst-case view, a
+    mesh's gathered marks); only the occ_* leaves and the overflow
+    counters are read, never the heaps."""
+    H = engine.config.n_hosts
+    occ = {k: host_array(state[k]) for k in (
+        "occ_heap", "occ_ob", "occ_in", "occ_x", "occ_trips",
+        "occ_phases", "overflow", "x_overflow")}
+    pairs = np.asarray(occ["occ_x"], dtype=np.int64)
+    if pairs.ndim > 2:          # a campaign's stack: its worst case
+        pairs = pairs.max(axis=tuple(range(pairs.ndim - 2)))
+    measured = {
+        "heap_rows_max": int(occ["occ_heap"][:H].max(initial=0)),
+        "outbox_rows_max": int(occ["occ_ob"][:H].max(initial=0)),
+        "arrivals_per_flush_max": int(occ["occ_in"][:H].max(initial=0)),
+        "exchange_rows_max": int(occ["occ_x"].max(initial=0)),
+        "exchange_pairs": [[int(v) for v in row] for row in pairs],
+        "pop_trips_max": int(occ["occ_trips"].max(initial=0)),
+        "phases": int(occ["occ_phases"].max(initial=0)),
+        "overflow": int(occ["overflow"][:H].sum()),
+        "x_overflow": int(occ["x_overflow"][:H].sum()),
+    }
+    return {
+        "format": FORMAT,
+        "source": source,
+        "workload": {
+            "app": type(engine.app).__name__,
+            "app_fp": app_fingerprint(engine.app),
+            "n_hosts": H,
+            "seed": int(engine.config.seed),
+            "stop_time": int(engine.config.stop_time),
+        },
+        "measured": measured,
+        "effective": dict(engine.effective),
+    }
+
+
+def merged_measured(record: dict) -> dict:
+    """The record's `measured` maxima merged with its `final_measured`
+    (elementwise for the pair matrix): a replayed record sizes for the
+    whole run, not the warm-up alone (capacity.py:188)."""
+    m = dict(record["measured"])
+    for k, v in record.get("final_measured", {}).items():
+        if k not in m:
+            continue
+        if k == "exchange_pairs":
+            a = np.asarray(m[k], dtype=np.int64)
+            b = np.asarray(v, dtype=np.int64)
+            if a.shape == b.shape:
+                m[k] = np.maximum(a, b).tolist()
+        else:
+            m[k] = max(m[k], v)
+    return m
+
+
+def pair_matrix(m: dict, n_shards: int) -> np.ndarray:
+    """The [S, S] per-(source shard, destination shard) high-water
+    matrix of a merged `measured` dict; a record measured on another
+    shard count gives the scalar maximum off the diagonal, a bound that
+    never undershoots (capacity.py:206)."""
+    pairs = np.asarray(m.get("exchange_pairs", []), dtype=np.int64)
+    if pairs.shape != (n_shards, n_shards):
+        pairs = np.full((n_shards, n_shards),
+                        int(m.get("exchange_rows_max", 0)),
+                        dtype=np.int64)
+        np.fill_diagonal(pairs, 0)
+    return pairs
+
+
+def two_phase_caps(pairs: np.ndarray, headroom: float = HEADROOM
+                   ) -> tuple[int, int]:
+    """(CAP, CAP2) of the two_phase schedule from the pair matrix
+    (capacity.py:221): phase 1 ships one buffer per rank of the group
+    with every row bound for that rank in any group; phase 2 forwards a
+    group's rows bound for one rank of another group. Sums of high-water
+    marks bound the high-water mark of the sum, so the caps only
+    overshoot."""
+    S = pairs.shape[0]
+    g, ng = group_split(S)
+
+    def pad(x: int) -> int:
+        return int(math.ceil(int(x) * headroom)) + SLACK
+
+    by_dst = pairs.reshape(S, ng, g)
+    cap1 = int(by_dst.sum(axis=1).max(initial=0))
+    by_both = pairs.reshape(ng, g, ng, g)
+    fwd = by_both.sum(axis=1)            # [a, a', b]
+    eye = np.eye(ng, dtype=bool)[:, :, None]
+    cap2 = int(np.where(eye, 0, fwd).max(initial=0))
+    return max(8, pad(cap1)), max(8, pad(cap2))
+
+
+def plan(record: dict, per_iter: int, floor_iters: int = 4,
+         n_shards: int = 1, headroom: float = HEADROOM,
+         exchange: str = "all_to_all") -> dict:
+    """Measured occupancies -> the capacity knobs (capacity.py:256).
+    `per_iter` is an iteration's outbox columns (K_eff + T [+ READY]),
+    so that the engine's B = outbox // per_iter lands exactly;
+    `exchange` is the resolved schedule: all_to_all sizes one per-pair
+    CAP, two_phase its two caps (`two_phase_caps`), all_gather none."""
+    m = merged_measured(record)
+
+    def pad(x: int) -> int:
+        return int(math.ceil(x * headroom)) + SLACK
+
+    event_capacity = max(2, pad(m["heap_rows_max"]))
+    exchange_in = max(1, pad(m["arrivals_per_flush_max"]))
+    iters = max(floor_iters, pad(m["pop_trips_max"]))
+    outbox_capacity = iters * max(1, per_iter)
+    cx = pad(m["outbox_rows_max"])
+    outbox_compact = cx if cx < (3 * outbox_capacity) // 4 else 0
+    exchange_capacity = 0
+    exchange_capacity2 = 0
+    if n_shards > 1 and m["exchange_rows_max"] > 0:
+        if exchange == "two_phase":
+            exchange_capacity, exchange_capacity2 = two_phase_caps(
+                pair_matrix(m, n_shards), headroom)
+        elif exchange != "all_gather":
+            exchange_capacity = max(8, pad(m["exchange_rows_max"]))
+    return {
+        "event_capacity": event_capacity,
+        "outbox_capacity": outbox_capacity,
+        "exchange_capacity": exchange_capacity,
+        "exchange_capacity2": exchange_capacity2,
+        "exchange_in_capacity": exchange_in,
+        "outbox_compact": outbox_compact,
+    }
+
+
+def estimate_ici_rows(record: dict, n_shards: int, per_iter: int,
+                      floor_iters: int = 4,
+                      headroom: float = HEADROOM) -> dict:
+    """The rows a shard would send a flush under each schedule planned
+    from this record, buffers at capacity (capacity.py:310)."""
+    m = merged_measured(record)
+    S = n_shards
+    if S <= 1:
+        return {"all_to_all": 0, "two_phase": 0, "all_gather": 0}
+
+    def pad(x: int) -> int:
+        return int(math.ceil(x * headroom)) + SLACK
+
+    pairs = pair_matrix(m, S)
+    cap = max(8, pad(int(pairs.max(initial=0))))
+    g, ng = group_split(S)
+    cap1, cap2 = two_phase_caps(pairs, headroom)
+    p = plan(record, per_iter, floor_iters, n_shards=S,
+             headroom=headroom, exchange="all_gather")
+    w = p["outbox_compact"] or p["outbox_capacity"]
+    h_loc = -(-record["workload"]["n_hosts"] // S)
+    return {
+        "all_to_all": (S - 1) * cap,
+        "two_phase": (g - 1) * cap1 + (ng - 1) * cap2,
+        "all_gather": (S - 1) * h_loc * w,
+    }
+
+
+def choose_exchange(record: dict, n_shards: int, per_iter: int,
+                    floor_iters: int = 4,
+                    headroom: float = HEADROOM) -> tuple[str, dict]:
+    """`exchange: auto` from a record (capacity.py:341): the schedule of
+    the fewest estimated rows; two_phase only where it beats the direct
+    all_to_all by TWO_PHASE_MARGIN and its groups are not degenerate.
+    Returns (schedule, info)."""
+    est = estimate_ici_rows(record, n_shards, per_iter, floor_iters,
+                            headroom)
+    info = {"estimates": est, "n_shards": n_shards,
+            "group_split": list(group_split(n_shards))}
+    if n_shards <= 1:
+        return "all_to_all", info
+    choice = "all_to_all"
+    if est["all_gather"] < est["all_to_all"]:
+        choice = "all_gather"
+    g, _ = group_split(n_shards)
+    if g > 1 and est["two_phase"] < \
+            TWO_PHASE_MARGIN * est["all_to_all"] and \
+            est["two_phase"] < est[choice]:
+        choice = "two_phase"
+    info["chosen"] = choice
+    return choice, info
+
+
+def widen(knobs: dict, dims: tuple, effective: dict) -> dict:
+    """Double the capacity dimensions `dims` after a loud overflow
+    (capacity.py:370), from what ran (`effective`) where the knob is 0
+    (auto); a compaction width doubles, then turns off once it reaches
+    the outbox."""
+    out = dict(knobs)
+    for dim in dims:
+        if dim == "event_capacity":
+            out[dim] = 2 * max(out.get(dim) or 0, effective["E"])
+        elif dim == "exchange_in_capacity":
+            out[dim] = 2 * max(out.get(dim) or 0, effective["IN"])
+        elif dim == "exchange_capacity":
+            if effective["CAP"] > 0:
+                out[dim] = 2 * max(out.get(dim) or 0, effective["CAP"])
+        elif dim == "exchange_capacity2":
+            if effective.get("CAP2", 0) > 0:
+                out[dim] = 2 * max(out.get(dim) or 0,
+                                   effective["CAP2"])
+        elif dim == "outbox_compact":
+            cx, ob = effective["CX"], effective["OB"]
+            if cx < ob:
+                ncx = 2 * cx
+                out[dim] = ncx if ncx < ob else 0
+    return out
+
+
+def overflow_counts(state) -> dict:
+    """{counter: its sum} of the loud overflow counters of a state (two
+    host reads)."""
+    return {c: int(host_array(state[c]).sum()) for c in OVERFLOW_DIMS}
+
+
+def overflow_dims(state, counts: Optional[dict] = None) -> tuple:
+    """The capacity dimensions a state's loud counters implicate (an
+    empty tuple where clean; capacity.py:401); `counts` where the
+    caller has reduced them already (a mesh's sums over its ranks)."""
+    counts = overflow_counts(state) if counts is None else counts
+    dims = ()
+    for counter, d in OVERFLOW_DIMS.items():
+        if counts[counter]:
+            dims += d
+    return dims
+
+
+def grow_heaps(host_state: dict, new_e: int) -> dict:
+    """Pad the five [..., H, E] heap arrays of a host-side state to
+    `new_e` slots with the engine's empty-slot values
+    (engine.HEAP_FILLS, init_state's): rows are sorted and empty slots
+    sort last, so tail padding keeps every heap in order
+    (capacity.py:413). Standalone [H, E] and campaign [R, H, E] alike."""
+    out = dict(host_state)
+    *lead, e = np.asarray(host_state["ht"]).shape
+    if new_e < e:
+        raise ValueError(f"cannot shrink event_capacity {e} -> {new_e} "
+                         "on a live state")
+    if new_e == e:
+        return out
+    for k, fill in HEAP_FILLS.items():
+        pad = np.full(tuple(lead) + (new_e - e,), fill, dtype=np.int64)
+        out[k] = np.concatenate([np.asarray(host_state[k]), pad], -1)
+    return out
+
+
+def transfer(engine, host_state: dict, template: dict) -> dict:
+    """A host-side state placed onto a (rebuilt) engine: the heaps
+    padded to its event_capacity (`grow_heaps`), every leaf checked
+    against `template` (numpy leaves of the engine's own init state: its
+    keys, shapes and dtypes), uploaded, and the engine armed, as for
+    any state that enters from outside (DeviceEngine._arm: the next pop
+    clears every outbox row, the next merge checks every heap's
+    order)."""
+    host_state = grow_heaps(host_state, engine.params.E)
+    if set(template) != set(host_state):
+        raise ValueError(
+            "state keys changed across re-plan: "
+            f"{sorted(set(template) ^ set(host_state))}")
+    for k, tmpl in template.items():
+        arr = np.asarray(host_state[k])
+        if arr.shape != tmpl.shape or arr.dtype != tmpl.dtype:
+            raise ValueError(
+                f"state leaf {k} is {arr.shape}/{arr.dtype}, the "
+                f"re-planned engine expects {tmpl.shape}/{tmpl.dtype}")
+    state = state_from_numpy(host_state, engine.device)
+    engine._arm()
+    return state
+
+
+def record_path(engine, directory: str = "") -> str:
+    """The OCC record's path of a workload (capacity.py:577): app class,
+    host count and fingerprint, under `directory`, else
+    $SHADOW_TPU_OCC_DIR, else `artifacts`."""
+    directory = directory or os.environ.get("SHADOW_TPU_OCC_DIR",
+                                            "artifacts")
+    return os.path.join(
+        directory,
+        f"OCC_{type(engine.app).__name__}_{engine.config.n_hosts}"
+        f"_{app_fingerprint(engine.app)}.json")
+
+
+def save_record(record: dict, path: str) -> None:
+    """Write a record as JSON through a temporary file and an atomic
+    rename."""
+    directory = os.path.dirname(path)
+    if directory:
+        os.makedirs(directory, exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    try:
+        with open(tmp, "w") as f:
+            json.dump(record, f, indent=1, sort_keys=True)
+        os.replace(tmp, path)
+    except BaseException:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+        raise
+
+
+def load_record(path: str) -> dict:
+    """A saved record, its format and required keys checked
+    (capacity.py:602)."""
+    with open(path) as f:
+        record = json.load(f)
+    if record.get("format") != FORMAT:
+        raise ValueError(
+            f"occupancy record {path}: format {record.get('format')} "
+            f"(this build reads format {FORMAT})")
+    for key in ("measured", "workload"):
+        if key not in record:
+            raise ValueError(f"occupancy record {path}: missing {key!r}")
+    return record
+
+
+# ----------------------------------------------------------------------
+# preflight admission
+# ----------------------------------------------------------------------
 def mesh_nbytes(mesh: MeshParams, OB: int) -> int:
     """Device bytes a rank adds for the exchange: the send and receive
     buffers of its schedule ([S, C, CAP] int64 each; two_phase its
@@ -174,13 +638,16 @@ REPLICA_LEAVES = ("lat", "rel", "epoch_times", "seed_key")
 
 
 def footprint(n_hosts: int, params: PhaseParams, world: dict,
-              replicas=None, mesh: Optional[MeshParams] = None) -> dict:
+              replicas=None, mesh: Optional[MeshParams] = None,
+              copies: int = 1) -> dict:
     """The byte model of a run on one device. `world` holds the
     arrays the engine uploads (device/engine.py `world_arrays`, or
     `campaign_world_arrays` for a campaign, whose R the model counts);
     `replicas` prices a batch of that many of a campaign's replicas.
     On a mesh `n_hosts` is a rank's H_loc, the world holds the H_pad
-    host columns, and the exchange's buffers (`mesh_nbytes`) count."""
+    host columns, and the exchange's buffers (`mesh_nbytes`) count.
+    `copies` counts the state's copies (2 where a validated snapshot is
+    kept)."""
     ept = np.asarray(world["epoch_times"])
     R_world = ept.shape[0] if ept.ndim == 2 else 1
     R = R_world if replicas is None else int(replicas)
@@ -209,8 +676,8 @@ def footprint(n_hosts: int, params: PhaseParams, world: dict,
     world_bytes = shared + stacked * R // R_world
     hier = isinstance(world["lat"], tuple)
     exchange = 0 if mesh is None else mesh_nbytes(mesh, OB)
-    per_device = R * (state + outbox + route + loop) + world_bytes + \
-        exchange
+    per_device = R * (state * copies + outbox + route + loop) + \
+        world_bytes + exchange
     return {
         "representation": "hierarchical" if hier else "dense",
         "per_device": int(per_device),
@@ -219,7 +686,7 @@ def footprint(n_hosts: int, params: PhaseParams, world: dict,
         "exchange_bytes": int(exchange),
         "loop_bytes": int(R * loop),
         "world_bytes": int(world_bytes),
-        "copies": 1,
+        "copies": int(copies),
         "replicas": int(R),
         "n_devices": 1,
     }

@@ -148,6 +148,9 @@ OPTIONAL_DTYPES = {**dict.fromkeys((*NIC_KEYS, "path_cnt", "aud_t",
                                     "aud_tx"), np.int64), "aud": np.int32}
 # phase slots a captured window loop replays at once
 LOOP_SLOTS = 32
+# an empty heap slot's fields: the rows init_state leaves empty, and the
+# padding of a heap grown for a re-planned engine (capacity.grow_heaps)
+HEAP_FILLS = {"ht": INF, "hk": IMAX, "hm": 0, "hv": 0, "hw": 0}
 
 
 class NoCudaDevice(RuntimeError):
@@ -197,8 +200,10 @@ class EngineConfig:
     outbox_compact: int = 0
     merge_global: bool = False
     # the host mesh's exchange schedule (all_to_all, two_phase,
-    # all_gather; auto = all_to_all until the planner exists) and its
-    # per-pair capacities (0 = auto, device/capacity.py exchange_caps)
+    # all_gather; auto = all_to_all, as the reference builds an engine
+    # before a record resolves it: the runner's planner passes the
+    # schedule it chose) and its per-pair capacities (0 = auto,
+    # device/capacity.py exchange_caps)
     exchange: str = "all_to_all"
     exchange_capacity: int = 0
     exchange_capacity2: int = 0
@@ -398,9 +403,10 @@ def upload_world(arrays: dict, device) -> dict:
 def make_mesh_params(config: EngineConfig, params: PhaseParams, S: int,
                      shard: int) -> MeshParams:
     """Rank `shard`'s MeshParams on a mesh of S ranks: H_loc =
-    ceil(H/S), the schedule (`auto` is all_to_all until the planner,
-    ROADMAP.md queue (a) item 7a, as the reference's runner resolves it
-    without a record) and its capacities."""
+    ceil(H/S), the schedule (`auto` is all_to_all, as the reference's
+    runner builds it before a record exists: the warm-up slice, static
+    plans; device/runner.py resolves `auto` from a record through
+    capacity.choose_exchange) and its capacities."""
     from shadow_tpu_torch.core.build import mesh_layout
     from shadow_tpu_torch.device.capacity import exchange_caps
 
@@ -477,6 +483,11 @@ class DeviceEngine:
         # over the replicas in a campaign) and host syncs
         self.loop_stats: dict = {}
         self._window_ctl: Optional[torch.Tensor] = None
+        # the captured window loop, kept across runs (`run_slots`): its
+        # control block, graph, the launches it records and the state
+        # and slots it was captured on; `captures` counts the captures
+        self._loop: Optional[dict] = None
+        self.captures = 0
         self._staging: Optional[torch.Tensor] = None
         self._xbuf: Optional[dict] = None
         # K3's fresh words (kernels.merge_flags), on the card
@@ -487,6 +498,44 @@ class DeviceEngine:
         # the pop itself, K2 and K11 (live rows of hosts that popped),
         # and rows copied in from outside, which `_arm` marks
         self._outside = outbox_word(self.device, self.replicas or 1)
+
+    @property
+    def effective(self) -> dict:
+        """The capacities this engine runs, under the reference's keys
+        (engine.py:1236), for the occupancy record and the planner's
+        widening: E, B, OB, IN, CX, M_out; on a mesh CAP and CAP2, the
+        schedule, its groups and the rows and bytes a rank sends a
+        flush (buffers at capacity); one device sends none."""
+        p, mp = self.params, self.mesh_params
+        if mp is None or mp.S <= 1:
+            S, cap, cap2, rows, width = 1, 0, 0, 0, 0
+            exchange = ("all_to_all" if self.config.exchange == "auto"
+                        else self.config.exchange)
+            groups = [1, 1]
+        else:
+            S, cap, cap2, exchange = mp.S, mp.CAP, mp.CAP2, mp.exchange
+            groups = [mp.G, mp.NG]
+            if exchange == "all_to_all":
+                rows, width = (S - 1) * cap, mp.channels
+            elif exchange == "two_phase":
+                rows = (mp.G - 1) * cap + (mp.NG - 1) * cap2
+                width = len(XCH_FIELDS)
+            else:
+                rows, width = (S - 1) * mp.H_loc * p.OB, len(OB_FIELDS)
+        return {"E": p.E, "B": p.B, "OB": p.OB, "IN": p.IN,
+                "CAP": int(cap), "CAP2": int(cap2), "CX": p.CX,
+                "M_out": p.M_out, "n_shards": S, "exchange": exchange,
+                "tp_groups": groups, "ICI_rows_per_flush": int(rows),
+                "ICI_bytes_per_flush": int(rows) * width * 8}
+
+    def device_memory_stats(self) -> Optional[tuple[int, int]]:
+        """(bytes in use, bytes the card holds) on the card, from the
+        caching allocator and `torch.cuda.mem_get_info`; None on the CPU
+        (the heartbeat lines print `n/a` then)."""
+        if self.device.type != "cuda":
+            return None
+        _, total = torch.cuda.mem_get_info(self.device)
+        return int(torch.cuda.memory_allocated(self.device)), int(total)
 
     @property
     def n_local(self) -> int:
@@ -511,10 +560,20 @@ class DeviceEngine:
         start layout)."""
         if self.replicas is None:
             raise ValueError("engine was built without ensemble worlds")
-        R = self.replicas
+        return state_from_numpy(self.init_arrays(start_times, stop_times),
+                                self.device)
+
+    def init_arrays(self, start_times: np.ndarray,
+                    stop_times: np.ndarray) -> dict:
+        """The engine's initial state as numpy arrays (a campaign's with
+        its [R] axis): the leaves, shapes and dtypes a state placed
+        onto this engine must have (capacity.transfer)."""
         arrays = self._init_arrays(start_times, stop_times)
-        return state_from_numpy({k: np.broadcast_to(v, (R, *v.shape))
-                                 for k, v in arrays.items()}, self.device)
+        if self.replicas is None:
+            return arrays
+        R = self.replicas
+        return {k: np.broadcast_to(v, (R, *v.shape))
+                for k, v in arrays.items()}
 
     def _init_arrays(self, start_times, stop_times) -> dict:
         """`init_state`'s leaves as numpy arrays; on a mesh this rank's
@@ -544,9 +603,8 @@ class DeviceEngine:
         t0, t1, has_stop = t0[rows], t1[rows], has_stop[rows]
         H = len(hid)
         boots = t0 < INF
-        ht = np.full((H, E), INF, dtype=np.int64)
-        hk = np.full((H, E), IMAX, dtype=np.int64)
-        hm = np.zeros((H, E), dtype=np.int64)
+        ht, hk, hm, hv, hw = (np.full((H, E), HEAP_FILLS[k], np.int64)
+                              for k in ("ht", "hk", "hm", "hv", "hw"))
         ht[:, 0] = t0
         hk[:, 0] = np.where(boots, hid << 32, IMAX)
         hm[:, 0] = np.where(boots, np.int64(KIND_BOOT) << 32, 0)
@@ -556,9 +614,7 @@ class DeviceEngine:
         zeros = np.zeros(H, dtype=np.int32)
         app = self.app.init_state(self.params.g0 + H)[self.params.g0:]
         arrays = {
-            "ht": ht, "hk": hk, "hm": hm,
-            "hv": np.zeros((H, E), np.int64),
-            "hw": np.zeros((H, E), np.int64),
+            "ht": ht, "hk": hk, "hm": hm, "hv": hv, "hw": hw,
             "event_seq": np.where(has_stop, 2, boots.astype(np.int32))
             .astype(np.int32),
             "app": np.ascontiguousarray(app),
@@ -850,8 +906,6 @@ class DeviceEngine:
         ctl = self._loop_block(stop, final)
         words = ctl.cpu().view(-1, len(CTL)).tolist()
         self._arm()
-        if self.mesh is not None:
-            self.mesh.reset_counters()
 
         def step(start):
             mins = self._head_min(state).view(-1).tolist()  # a host sync
@@ -921,8 +975,12 @@ class DeviceEngine:
         every kernel before the capture), then on the card the batch is
         captured into a CUDA graph and replayed, on the CPU run again,
         until the control block (every replica's) says done; the host
-        reads the block once per batch. Raises in timing mode: event
-        pairs mean nothing inside a graph (the Python loop times)."""
+        reads the block once per batch. The engine keeps the graph and
+        its control block: a later run on the same state tensors (the
+        next segment of a segmented run) rewrites the block's words in
+        place, takes the start step and replays the graph from its first
+        batch, with no capture. Raises in timing mode: event pairs mean
+        nothing inside a graph (the Python loop times)."""
         stop, final = self._stops(stop, final_stop)
         if slots < 1:
             raise ValueError("slots must be >= 1")
@@ -937,21 +995,38 @@ class DeviceEngine:
             raise RuntimeError(
                 "the captured window loop cannot run in timing mode: "
                 "run_python times each launch")
-        ctl = self._loop_block(stop, final)
+        block = self._loop_block(stop, final)
+        key = (slots, tuple(t.data_ptr() for t in state.values()))
+        loop = self._loop if cuda else None
+        if loop is not None and loop["key"] == key:
+            # the graph of an earlier run on this state: its control
+            # block takes this run's words, stream-ordered
+            ctl = loop["ctl"]
+            ctl.copy_(block)
+        else:
+            ctl, loop = block, None
         self._arm()
         k.loop_control(state, ctl, start=True, tally=self._fold())
-        self._slots(state, ctl, slots)
-        words = ctl.cpu()
-        syncs, graph = 1, None
+        if loop is None:
+            # eagerly: on the card this also loads every kernel and
+            # allocates their scratch before a capture
+            self._slots(state, ctl, slots)
+            words = ctl.cpu()
+            syncs = 1
+        else:
+            words, syncs = torch.zeros(1), 0
         # on until every replica is done
-        while not bool(words[..., CTL["done"]].all()):
+        while syncs == 0 or not bool(words[..., CTL["done"]].all()):
             if not cuda:
                 self._slots(state, ctl, slots)
             else:
-                if graph is None:
+                if loop is None:
                     graph, captured = self._capture(state, ctl, slots)
-                graph.replay()
-                k.replayed(captured)
+                    loop = self._loop = {"key": key, "ctl": ctl,
+                                         "graph": graph,
+                                         "captured": captured}
+                loop["graph"].replay()
+                k.replayed(loop["captured"])
             words = ctl.cpu()
             syncs += 1
         rounds = self._loop_result(words.numpy(),
@@ -962,7 +1037,9 @@ class DeviceEngine:
         """(graph, launches it records) of `slots` slots captured on the
         card; raises where the capture fails."""
         k = self.kernels
+        self._loop = None       # the graph of another state, freed
         graph = torch.cuda.CUDAGraph()
+        self.captures += 1
         k.begin_capture()
         try:
             with torch.cuda.graph(graph):

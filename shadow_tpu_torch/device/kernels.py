@@ -955,6 +955,14 @@ def compact_plain(state: dict, ob: dict, cx: int, global_rule: bool,
 # ----------------------------------------------------------------------
 # K10: the hybrid policy's batched judge (reference: DeviceJudge._judge)
 # ----------------------------------------------------------------------
+def host_index(ids: torch.Tensor, H: int) -> torch.Tensor:
+    """The host row a judged id reads, as the reference's numpy and jax
+    indexing read it: an id in [-H, -1] reads host id + H, every other
+    id outside [0, H) the nearest end."""
+    i = ids.long()
+    return torch.where(i < 0, i + H, i).clamp(0, H - 1)
+
+
 def judge_batch_plain(world: dict, boot_end: int, now: torch.Tensor,
                       src: torch.Tensor, dst: torch.Tensor,
                       pkt_seq: torch.Tensor):
@@ -962,13 +970,14 @@ def judge_batch_plain(world: dict, boot_end: int, now: torch.Tensor,
     packets: now int64, src/dst/pkt_seq int32 (the seq read as u32);
     the path between the hosts' vertices in the epoch of `now`, the
     drop roll of packet_drop_mask keyed (src, pkt_seq) under the
-    world's [1, 2] seed key, and now + latency."""
+    world's [1, 2] seed key, and now + latency. The hosts' rows are
+    read through `host_index`; the roll keys on the raw id."""
     key = world["seed_key"]
     seed = (int(key[0, 0]), int(key[0, 1]))
     hv = world["host_vertex"].long()
     H = hv.shape[0]
-    sv = hv[src.long().clamp(0, H - 1)]
-    dv = hv[dst.long().clamp(0, H - 1)]
+    sv = hv[host_index(src, H)]
+    dv = hv[host_index(dst, H)]
     e = epoch_of(now, world["epoch_times"])
     latv = table_lookup(world["lat"], sv, dv, e).to(torch.int64)
     relv = table_lookup(world["rel"], sv, dv, e)

@@ -173,6 +173,10 @@ class Mesh:
         """The elementwise sum over the ranks (`lax.psum`)."""
         return self._reduce(x.clone(), dist.ReduceOp.SUM)
 
+    def all_max(self, x: torch.Tensor) -> torch.Tensor:
+        """The elementwise maximum over the ranks."""
+        return self._reduce(x.clone(), dist.ReduceOp.MAX)
+
     def gather(self, obj) -> Optional[list]:
         """Rank 0: every rank's picklable `obj`, in rank order; None on
         the other ranks."""

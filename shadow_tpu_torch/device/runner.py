@@ -1,6 +1,6 @@
-"""A lean runner for the port's device engine (the counterpart of the
-reference package's device/runner.py `DeviceRunner`, without segments,
-supervision, capacity planning or a compile cache).
+"""The device runner (the port of the reference package's
+device/runner.py `DeviceRunner`, without checkpoints, the robustness
+layer or a compile cache).
 
 It builds the engine from a config with the reference's knobs (the
 burst width of `experimental.burst_pops`, the outbox floored at 8 pop
@@ -9,14 +9,30 @@ the runahead or the minimum path latency over every fault epoch, the
 path tables in the topology's representation with the link-fault
 epochs, the hosts' model-NIC bandwidths), admits it against the
 device's memory (`experimental.admission`, device/capacity.py) before
-anything is allocated on the device, runs to the stop time (on the
-card through the captured window loop, in timing mode through the
-Python loop; device/engine.py) and returns the SimStats totals plus the
-per-host `events_executed` and `trace_checksum` arrays, for tgen and
-Tor the downloads completed, under `count_paths` the sent packets per
-vertex pair, and the loop's phases and host syncs. Under
-`experimental.state_audit` it checks the health word at the run's end
-and raises `AuditFailure` (device/supervise.py) where it is not zero.
+anything is allocated on the device, and runs to the stop time through
+`DeviceRunner`:
+
+* under `capacity_plan: auto` a warm-up slice on the static engine (in
+  `dispatch_segment` pieces, up to MAX_REPLANS doublings where it
+  overflows), or under a record path the record, sizes the capacities
+  (device/capacity.py `plan`; on a mesh `exchange: auto` resolved by
+  `choose_exchange` from the ranks' [S, S] pair matrix), and the
+  planned engine is built in the static one's place;
+* the run goes through the segmented advance (device/supervise.py
+  `advance`): segments at heartbeat multiples and `dispatch_segment`,
+  each through the engine's own window loop (on the card the captured
+  graph, kept across segments; in timing mode and on a mesh the Python
+  loop), overflow widened and replayed under a plan, the health word
+  checked at every boundary under `experimental.state_audit`
+  (`AuditFailure`), `[shadow-heartbeat]` rows (host/tracker.py) and a
+  `[supervise-heartbeat]` line at every `general.heartbeat_interval`;
+* it logs the reference's `device perf:` line, writes the OCC record of
+  a planned run (`capacity.record_path`) and returns the SimStats totals
+  plus the per-host `events_executed` and `trace_checksum` arrays, for
+  tgen and Tor the downloads completed, under `count_paths` the sent
+  packets per vertex pair, the loop's phases and host syncs, the
+  occupancy record and the re-plans.
+
 `engine_from` also builds an ensemble campaign's engine, whose R
 replicas ensemble/campaign.py runs. `run` takes any config through the
 policy dispatch of core/controller.py, which hands a `tpu` config with
@@ -33,6 +49,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from shadow_tpu_torch import simtime
 from shadow_tpu_torch.config.schema import ConfigOptions
 from shadow_tpu_torch.core.build import (
     BuiltSimulation,
@@ -47,6 +64,7 @@ from shadow_tpu_torch.device.engine import (
     EngineConfig,
     campaign_world_arrays,
     make_mesh_params,
+    mesh_stats,
     phase_params,
     resolve_device,
     state_from_numpy,
@@ -56,7 +74,9 @@ from shadow_tpu_torch.device.engine import (
 from shadow_tpu_torch.device.kernels import Kernels, build_library, \
     control_block
 from shadow_tpu_torch.device.mesh import DEFAULT_TIMEOUT, spawn
-from shadow_tpu_torch.device.supervise import check_audit
+from shadow_tpu_torch.device.supervise import HeartbeatMonitor, \
+    advance, heartbeat_rates
+from shadow_tpu_torch.host.tracker import Tracker
 from shadow_tpu_torch.topology.hierarchy import world_tables
 
 log = logging.getLogger("shadow_tpu_torch")
@@ -66,10 +86,14 @@ STAT_KEYS = ("n_exec", "n_sent", "n_drop", "n_deliv", "chk", "overflow",
 
 
 def engine_config(cfg: ConfigOptions, sim: BuiltSimulation,
-                  lookahead: Optional[int] = None) -> EngineConfig:
+                  lookahead: Optional[int] = None,
+                  overrides: Optional[dict] = None,
+                  exchange: str = "") -> EngineConfig:
     """The engine's shape from the config and the built simulation
     (`lookahead` overrides the simulation's: a campaign's is the
-    minimum over its replicas); sets the app's burst width."""
+    minimum over its replicas; `overrides` the planner's or a re-plan's
+    capacity knobs, capacity.CAPACITY_KNOBS; `exchange` the schedule
+    `exchange: auto` resolved to); sets the app's burst width."""
     xp = cfg.experimental
     if xp.burst_pops:
         if xp.burst_pops > 1 and sim.app.burst_pops <= 1:
@@ -81,32 +105,40 @@ def engine_config(cfg: ConfigOptions, sim: BuiltSimulation,
     burst = max(1, sim.app.burst_pops)
     per_iter = sim.app.max_sends * burst + sim.app.max_timers
     outbox = max(xp.outbox_capacity, (4 if burst > 1 else 8) * per_iter)
+    knobs = {"event_capacity": xp.event_capacity, "outbox_capacity": outbox,
+             "exchange_in_capacity": xp.exchange_in_capacity,
+             "outbox_compact": xp.outbox_compact,
+             "exchange_capacity": xp.exchange_capacity,
+             "exchange_capacity2": xp.exchange_capacity2,
+             **(overrides or {})}
     return EngineConfig(
         n_hosts=len(sim.host_vertex),
-        event_capacity=xp.event_capacity,
-        outbox_capacity=outbox,
+        event_capacity=knobs["event_capacity"],
+        outbox_capacity=knobs["outbox_capacity"],
         lookahead=max(1, sim.lookahead if lookahead is None
                       else lookahead),
         stop_time=cfg.general.stop_time,
         bootstrap_end=cfg.general.bootstrap_end_time,
         seed=cfg.general.seed,
-        exchange_in_capacity=xp.exchange_in_capacity,
+        exchange_in_capacity=knobs["exchange_in_capacity"],
         model_bandwidth=xp.model_bandwidth, count_paths=xp.count_paths,
-        audit=xp.state_audit, outbox_compact=xp.outbox_compact,
-        merge_global=xp.merge_strategy == "global", exchange=xp.exchange,
-        exchange_capacity=xp.exchange_capacity,
-        exchange_capacity2=xp.exchange_capacity2)
+        audit=xp.state_audit, outbox_compact=knobs["outbox_compact"],
+        merge_global=xp.merge_strategy == "global",
+        exchange=exchange or xp.exchange,
+        exchange_capacity=knobs["exchange_capacity"],
+        exchange_capacity2=knobs["exchange_capacity2"])
 
 
 def admit(cfg: ConfigOptions, sim: BuiltSimulation, config: EngineConfig,
           device, ensemble=None, batchable: bool = False,
-          mesh=None) -> dict:
+          mesh=None, copies: int = 1) -> dict:
     """The preflight admission verdict of a built run, or of the
     campaign of `ensemble` worlds, or of one rank of `mesh`
     (device/mesh.py), on `device`, from shapes and host arrays alone
     (nothing is allocated on the device); raises ValueError where
     `admission: strict` refuses. Where a `batchable` campaign does not
-    fit, `auto` offers a replica batch that does."""
+    fit, `auto` offers a replica batch that does. `copies`: the state's
+    copies (2 where the segmented advance keeps a validated one)."""
     params = phase_params(config, sim.app)
     mp, n_hosts = None, config.n_hosts
     hv, up, down = sim.host_vertex, sim.bw_up_bits, sim.bw_down_bits
@@ -126,7 +158,8 @@ def admit(cfg: ConfigOptions, sim: BuiltSimulation, config: EngineConfig,
             config.count_paths)
 
     def estimate(replicas=None):
-        return capacity.footprint(n_hosts, params, world, replicas, mp)
+        return capacity.footprint(n_hosts, params, world, replicas, mp,
+                                  copies)
 
     return capacity.admission_verdict(
         estimate(), resolve_device(device), cfg.experimental,
@@ -143,21 +176,25 @@ def make_engine(cfg: ConfigOptions, device="cuda",
 def engine_from(cfg: ConfigOptions, sim: BuiltSimulation, device="cuda",
                 kernels: Optional[Kernels] = None, ensemble=None,
                 lookahead: Optional[int] = None,
-                mesh=None) -> DeviceEngine:
+                mesh=None, overrides: Optional[dict] = None,
+                exchange: str = "", copies: int = 1) -> DeviceEngine:
     """The engine of a built simulation, or with `ensemble` worlds
     (ensemble/spec.py) the campaign engine of their replicas, or with
     `mesh` (device/mesh.py) the engine of one mesh rank, at `lookahead`
-    where given; its `admission` holds the verdict, reached before the
-    engine allocates anything. Raises NoDeviceTwin where the build
+    where given, with the capacity `overrides` and the resolved
+    `exchange` of a plan; its `admission` holds the verdict (the state
+    priced `copies` times), reached before the engine allocates
+    anything. Raises NoDeviceTwin where the build
     found none (core/controller.py runs such a config on the hybrid
     policy)."""
     if sim.app is None:
         raise NoDeviceTwin(sim.no_twin or "the config's policy is not "
                            "tpu: the CPU engine runs it")
-    config = engine_config(cfg, sim, lookahead)
+    config = engine_config(cfg, sim, lookahead, overrides, exchange)
     if ensemble is not None:
         config.seed = int(ensemble.seeds[0])
-    verdict = admit(cfg, sim, config, device, ensemble, mesh=mesh)
+    verdict = admit(cfg, sim, config, device, ensemble, mesh=mesh,
+                    copies=copies)
     lat, rel, epoch_times = (world_tables(sim.topology, sim.fault_table)
                              if ensemble is None else (None, None, None))
     engine = DeviceEngine(config, sim.app, host_vertex=sim.host_vertex,
@@ -183,10 +220,9 @@ def run(cfg: ConfigOptions, device="cuda",
 
 def run_device(cfg: ConfigOptions, sim: BuiltSimulation, device="cuda",
                kernels: Optional[Kernels] = None) -> SimStats:
-    """Admit and run a built `tpu` config through the engine's own
-    window loop (DeviceEngine.run); under the state audit, raise
-    AuditFailure where the health word is not zero at the end. An
-    `ensemble:` config runs through ensemble/campaign.py."""
+    """Admit, plan and run a built `tpu` config (`DeviceRunner`); a mesh
+    config on its ranks (`run_mesh`). An `ensemble:` config runs
+    through ensemble/campaign.py."""
     if cfg.ensemble is not None:
         raise ValueError("an ensemble: config is a campaign: run it with "
                          "shadow_tpu_torch.ensemble.campaign."
@@ -194,14 +230,349 @@ def run_device(cfg: ConfigOptions, sim: BuiltSimulation, device="cuda",
     if cfg.experimental.mesh_shards > 1:
         return run_mesh(cfg, mesh_devices(cfg.experimental.mesh_shards,
                                           device))
-    engine = engine_from(cfg, sim, device=device, kernels=kernels)
-    state = engine.init_state(sim.start_times, sim.stop_times)
-    t0 = time.perf_counter()
-    state, rounds = engine.run(state)
-    stats = summarize(cfg, engine, state, rounds, t0)
-    # until segments are ported the word is checked once, at the end
-    check_audit(state, where=f"t={cfg.general.stop_time} ns")
-    return stats
+    return DeviceRunner(cfg, sim, device, kernels).run()
+
+
+def host_names(sim: BuiltSimulation) -> list[str]:
+    """Every host's name in id order: a group of one host is named after
+    the group, a larger group's hosts name0..name{n-1}."""
+    names = []
+    for name, _, q in sim.names.groups_in_order():
+        names += [name] if q == 1 else [f"{name}{i}" for i in range(q)]
+    return names
+
+
+class DeviceRunner:
+    """One device run of a built `tpu` config (the reference's
+    DeviceRunner, runner.py:468-583, 770-1112, cut to this port): the
+    capacity plan, the segmented advance, heartbeats, the OCC record and
+    the SimStats. On a mesh (`mesh`, device/mesh.py) every rank runs one,
+    and every decision that ends or rebuilds a run (overflow, the plan,
+    the exchange) is taken from values reduced over the ranks, so that
+    all ranks take it at the same boundary."""
+
+    def __init__(self, cfg: ConfigOptions, sim: BuiltSimulation,
+                 device="cuda", kernels: Optional[Kernels] = None,
+                 mesh=None):
+        self.cfg, self.sim, self.mesh = cfg, sim, mesh
+        self.device = device
+        self.kernels = kernels if kernels is not None else Kernels()
+        # the planner's capacity knobs, widened by a re-plan
+        self._capacity_overrides: dict = {}
+        # `exchange: auto` once a record resolved it ("" before)
+        self._exchange_choice = ""
+        self.replans = 0
+        self.occ_record: Optional[dict] = None
+        self.hb_monitor: Optional[HeartbeatMonitor] = None
+        self._hb_mark = None
+        self._trackers: Optional[list] = None
+        # the engines built (the static or warm-up one, the planned
+        # one, each re-planned one) and the captures of all of them
+        self.engines_built = 0
+        self._captures_before = 0
+        self.warmup_wall_s = 0.0
+        self.final_state: Optional[dict] = None
+        self.engine: Optional[DeviceEngine] = None
+        self.engine = self._build_engine()
+        self.admission = self.engine.admission
+
+    @property
+    def _planned(self) -> bool:
+        return self.cfg.experimental.capacity_plan != "static"
+
+    def _build_engine(self) -> DeviceEngine:
+        """The engine of the config's knobs with the plan's overrides
+        and exchange; the engine before it is freed first, so that the
+        rebuilt one allocates into its memory. Admitted before it
+        allocates, the state priced twice where the advance keeps a
+        validated snapshot (a planned run)."""
+        if self.engine is not None:
+            self._captures_before += self.engine.captures
+        self.engine = None
+        if torch.device(self.device).type == "cuda":
+            torch.cuda.empty_cache()
+        exchange = self._exchange_choice or (
+            "all_to_all" if self.cfg.experimental.exchange == "auto"
+            else "")
+        engine = engine_from(self.cfg, self.sim, self.device,
+                             self.kernels, mesh=self.mesh,
+                             overrides=self._capacity_overrides,
+                             exchange=exchange,
+                             copies=2 if self._planned else 1)
+        self.engines_built += 1
+        return engine
+
+    @property
+    def captures(self) -> int:
+        """CUDA graph captures of every engine this runner built."""
+        return self._captures_before + (self.engine.captures
+                                        if self.engine else 0)
+
+    def _init_state(self) -> dict:
+        return self.engine.init_state(self.sim.start_times,
+                                      self.sim.stop_times)
+
+    # ---- what the advance asks of its runner --------------------------
+    def overflow_counts(self, state: dict) -> dict:
+        """The loud overflow counters' sums, over the mesh's ranks on a
+        mesh (every rank then sees the same values)."""
+        counts = capacity.overflow_counts(state)
+        if self.mesh is None:
+            return counts
+        keys = sorted(counts)
+        got = self.mesh.all_sum(torch.tensor([counts[k] for k in keys],
+                                             dtype=torch.int64))
+        return dict(zip(keys, (int(v) for v in got.tolist())))
+
+    def replan(self, host_state: dict) -> dict:
+        """The state of a re-plan's rebuilt engine: `host_state` (the
+        last validated boundary's, numpy) with its heaps grown to the
+        new event_capacity, placed and armed (capacity.transfer)."""
+        self.engine = self._build_engine()
+        return capacity.transfer(
+            self.engine, host_state,
+            self.engine.init_arrays(self.sim.start_times,
+                                    self.sim.stop_times))
+
+    def _emit_heartbeats(self, now: int, state: dict) -> None:
+        """The `[shadow-heartbeat] [node]` rows of every host at a
+        segment boundary (host/tracker.py; the counters read back from
+        the card, a mesh's gathered to rank 0), and one
+        `[supervise-heartbeat]` line with the pkts/s since the last one,
+        the re-plans and the device memory (runner.py:795-844).
+        Interval attribution is window-granular: a segment pauses when
+        the next event passes `now`, so the events of the last window
+        count in this interval."""
+        H = len(self.sim.host_vertex)
+        cols = {k: state[k].cpu().numpy() for k in ("n_exec", "n_sent",
+                                                    "n_drop")}
+        if self.mesh is not None:
+            cols = self.mesh.gather_leaves(cols)
+            if self.mesh.rank != 0:
+                return
+        if self.hb_monitor is not None:
+            self.hb_monitor.beat()
+        if self._trackers is None:
+            interval = self.cfg.general.heartbeat_interval
+            self._trackers = [Tracker(n, interval)
+                              for n in host_names(self.sim)]
+        n_exec, n_sent, n_drop = (cols[k][:H].tolist() for k in (
+            "n_exec", "n_sent", "n_drop"))
+        for i, tr in enumerate(self._trackers):
+            tr.heartbeat(now, n_exec[i], n_sent[i], n_drop[i])
+        sent_total = int(sum(n_sent))
+        self._hb_mark, (rate,) = heartbeat_rates(self._hb_mark,
+                                                 [sent_total])
+        mem = self.engine.device_memory_stats()
+        mem_s = (f"{capacity.fmt_bytes(mem[0])}/"
+                 f"{capacity.fmt_bytes(mem[1])}"
+                 if mem is not None else "n/a")
+        log.info("[supervise-heartbeat] t=%s events=%d sent=%d "
+                 "pkts/s=%s retries=%d replans=%d reshards=%d mem=%s",
+                 simtime.format_time(now), int(sum(n_exec)), sent_total,
+                 rate, 0, self.replans, 0, mem_s)
+
+    # ---- the plan -----------------------------------------------------
+    def _headroom(self) -> float:
+        return self.cfg.experimental.capacity_headroom or capacity.HEADROOM
+
+    def _floor_iters(self) -> int:
+        return 4 if max(1, self.sim.app.burst_pops) > 1 else 8
+
+    def measured_view(self, state: dict) -> dict:
+        """The leaves `capacity.measure` reads: the state's own on one
+        device; on a mesh the ranks' maxima and sums, and their occ_x
+        rows stacked into the [S, S] pair matrix, the same on every
+        rank."""
+        if self.mesh is None:
+            return state
+        marks = ("occ_heap", "occ_ob", "occ_in", "occ_trips",
+                 "occ_phases")
+        mx = self.mesh.all_max(torch.stack(
+            [state[k].max().cpu().long() for k in marks]))
+        sums = self.mesh.all_sum(torch.stack(
+            [state[k].sum().cpu().long() for k in ("overflow",
+                                                   "x_overflow")]))
+        S = self.mesh.size
+        pairs = torch.zeros((S, S), dtype=torch.int64)
+        pairs[self.mesh.rank] = state["occ_x"].cpu().long().view(S)
+        view = {k: np.array([int(v)]) for k, v in zip(marks, mx.tolist())}
+        view["occ_x"] = self.mesh.all_sum(pairs).numpy()
+        view["overflow"], view["x_overflow"] = (
+            np.array([int(v)]) for v in sums.tolist())
+        return view
+
+    def _resolve_exchange(self, record: dict) -> str:
+        """The schedule the planned engine runs: the config's, or under
+        `exchange: auto` capacity.choose_exchange over the record's pair
+        matrix, stamped into the record (runner.py:770)."""
+        xp = self.cfg.experimental
+        if xp.exchange != "auto":
+            return xp.exchange
+        n_shards = self.engine.effective["n_shards"]
+        choice, info = capacity.choose_exchange(
+            record, n_shards, per_iter=self.engine.effective["M_out"],
+            floor_iters=self._floor_iters(), headroom=self._headroom())
+        record["exchange_auto"] = info
+        self._exchange_choice = choice
+        if n_shards > 1:
+            log.info("exchange: auto -> %s (per-flush row estimates %s)",
+                     choice, info["estimates"])
+        return choice
+
+    def _plan_capacities(self, stop: int) -> None:
+        """capacity_plan: auto | <record> (runner.py:468-583): `auto`
+        runs a warm-up slice of `capacity_warmup` (default stop / 8) on
+        the static engine, its windows clamped to the global stop, in
+        `dispatch_segment` pieces, overflow checked at each piece's end
+        and the slice rerun widened up to MAX_REPLANS times; a path
+        loads the record, which must be of this workload. Then the plan,
+        and the planned engine in the static one's place."""
+        xp = self.cfg.experimental
+        mode = xp.capacity_plan
+        t0 = time.perf_counter()
+        static_knobs = {k: getattr(self.engine.config, k)
+                        for k in capacity.CAPACITY_KNOBS}
+        if mode == "auto":
+            warm = min(xp.capacity_warmup or max(1, stop // 8), stop)
+            seg = xp.dispatch_segment
+            state = self._init_state()
+            for attempt in range(capacity.MAX_REPLANS + 1):
+                t, dims = 0, ()
+                while t < warm:
+                    nxt = min(warm, t + seg) if seg else warm
+                    state, _ = self.engine.run(state, stop=nxt,
+                                               final_stop=stop)
+                    t = nxt
+                    dims = capacity.overflow_dims(
+                        state, self.overflow_counts(state))
+                    if dims:
+                        break
+                if not dims:
+                    break
+                if attempt == capacity.MAX_REPLANS:
+                    raise RuntimeError(
+                        f"capacity warm-up still overflows after "
+                        f"{capacity.MAX_REPLANS} doublings on {dims}")
+                self._capacity_overrides = capacity.widen(
+                    self._capacity_overrides, dims, self.engine.effective)
+                log.warning("capacity warm-up overflowed on %s; retrying "
+                            "with %s", dims, self._capacity_overrides)
+                del state
+                self.engine = self._build_engine()
+                state = self._init_state()
+            record = capacity.measure(self.engine,
+                                      self.measured_view(state),
+                                      source=f"warmup:{warm}ns")
+            del state
+        else:
+            record = capacity.load_record(mode)
+            want = {"app": type(self.sim.app).__name__,
+                    "app_fp": capacity.app_fingerprint(self.sim.app),
+                    "n_hosts": len(self.sim.host_vertex)}
+            got = {k: record["workload"].get(k) for k in want}
+            if got != want:
+                raise ValueError(
+                    f"occupancy record {mode} was measured on {got}; "
+                    f"this simulation is {want} — re-measure with "
+                    "capacity_plan: auto")
+        exchange = self._resolve_exchange(record)
+        planned = capacity.plan(
+            record, per_iter=self.engine.effective["M_out"],
+            floor_iters=self._floor_iters(),
+            n_shards=self.engine.effective["n_shards"],
+            headroom=self._headroom(), exchange=exchange)
+        record["planned"] = planned
+        record["static"] = static_knobs
+        self.occ_record = record
+        self._capacity_overrides = dict(planned)
+        self.engine = self._build_engine()
+        self.admission = self.engine.admission
+        self.warmup_wall_s = time.perf_counter() - t0
+        log.info("capacity plan (%s, exchange %s, headroom %g): %s  "
+                 "[measured %s]", mode, exchange, self._headroom(),
+                 planned, record["measured"])
+
+    # ---- the run ------------------------------------------------------
+    def run(self) -> Optional[SimStats]:
+        """Plan, advance to the stop time and summarise: the SimStats
+        (on a mesh rank 0's, of every host; None on the other ranks),
+        the final state in `final_state` (this rank's tensors)."""
+        cfg, xp = self.cfg, self.cfg.experimental
+        stop = cfg.general.stop_time
+        self.replans = 0
+        self._hb_mark = None
+        if self._planned:
+            self._plan_capacities(stop)
+        self.hb_monitor = (HeartbeatMonitor(xp.heartbeat_stale_after)
+                           if xp.heartbeat_stale_after else None)
+        state = self._init_state()
+        if self.mesh is not None:
+            self.mesh.barrier()
+            self.mesh.reset_counters()
+        t0 = time.perf_counter()
+        state, adv = advance(self, state, 0, stop, stop)
+        engine = self.engine
+        final = state_to_numpy(state, STAT_KEYS + (
+            ("path_cnt",) if "path_cnt" in state else ()))
+        view = self.measured_view(state)
+        self.final_state = state
+        if self.mesh is not None:
+            final = self.mesh.gather_leaves(final)
+        wall = time.perf_counter() - t0
+        rounds = int(np.max(adv.rounds))
+        occ = capacity.measure(engine, view, source="run")
+        if self.occ_record is not None:
+            self.occ_record["final_measured"] = occ["measured"]
+            self.occ_record["effective"] = occ["effective"]
+            self.occ_record["replans"] = self.replans
+            self.occ_record["applied"] = dict(self._capacity_overrides)
+            if self.mesh is None or self.mesh.rank == 0:
+                path = capacity.record_path(engine)
+                try:
+                    capacity.save_record(self.occ_record, path)
+                    log.info("occupancy record -> %s", path)
+                except OSError as e:
+                    log.warning("could not write occupancy record %s: %s",
+                                path, e)
+        else:
+            self.occ_record = occ
+        if self.mesh is not None and self.mesh.rank != 0:
+            return None
+        H = len(self.sim.host_vertex)
+        loop = {**engine.loop_stats, "phases": adv.pipeline["phases"],
+                "host_syncs": adv.pipeline["host_syncs"]}
+        if self.mesh is not None:
+            loop["mesh"] = mesh_stats(engine)
+        stats = stats_of(cfg, engine, {k: v[:H] for k, v in final.items()},
+                         rounds, wall, loop)
+        n_exec = stats.events_executed
+        log.info("device perf: %d rounds in %.2fs wall (%.0f rounds/s, "
+                 "%.0f events/s)", rounds, wall,
+                 rounds / wall if wall > 0 else 0.0,
+                 n_exec / wall if wall > 0 else 0.0)
+        stats.admission = self.admission
+        stats.occupancy = self.occ_record
+        stats.replans = self.replans
+        if self.hb_monitor is not None:
+            stats.stale_heartbeats = self.hb_monitor.stale_events
+        stats.pipeline = {**adv.pipeline, "engines": self.engines_built,
+                          "graph_captures": self.captures,
+                          "warmup_wall_s": self.warmup_wall_s}
+        if adv.budget_hit:
+            stats.ok = False
+        if stats.overflow:
+            log.error("device engine overflow: %d events lost — raise "
+                      "experimental.event_capacity/outbox_capacity, or "
+                      "set capacity_plan: auto to size and retry "
+                      "automatically", stats.overflow)
+        if stats.x_overflow:
+            log.error("exchange overflow: %d rows exceeded the per-"
+                      "shard-pair capacity — raise experimental."
+                      "exchange_capacity (or use exchange: all_gather "
+                      "for hub-concentrated traffic, or capacity_plan: "
+                      "auto)", stats.x_overflow)
+        return stats
 
 
 def summarize(cfg: ConfigOptions, engine: DeviceEngine, state: dict,
@@ -215,11 +586,13 @@ def summarize(cfg: ConfigOptions, engine: DeviceEngine, state: dict,
 
 
 def stats_of(cfg: ConfigOptions, engine: DeviceEngine, final: dict,
-             rounds: int, wall: float) -> SimStats:
+             rounds: int, wall: float, loop: Optional[dict] = None
+             ) -> SimStats:
     """The SimStats of a run's final leaves `final` (numpy, the hosts
     of the config in id order: a mesh's gathered leaves without its
-    padded hosts)."""
-    loop = engine.loop_stats
+    padded hosts); `loop` the loop's record where not the engine's last
+    run's (a segmented run's sums)."""
+    loop = engine.loop_stats if loop is None else loop
     stats = SimStats(
         end_time=cfg.general.stop_time, rounds=rounds, wall_s=wall,
         loop=loop["loop"], phases=loop["phases"],
@@ -305,14 +678,11 @@ def _mesh_runs_rank(mesh, cfgs: list, keep_state: bool,
         if cuda:
             torch.cuda.reset_peak_memory_stats(mesh.device)
         kernels = Kernels(timing=timing)
-        engine = engine_from(cfg, sim, device=mesh.device, kernels=kernels,
-                             mesh=mesh)
-        state = engine.init_state(sim.start_times, sim.stop_times)
-        mesh.barrier()
-        t0 = time.perf_counter()
-        state, rounds = engine.run(state)
-        leaves = mesh.gather_leaves(state_to_numpy(state))
-        wall = time.perf_counter() - t0
+        dr = DeviceRunner(cfg, sim, mesh.device, kernels, mesh)
+        stats = dr.run()
+        engine = dr.engine
+        leaves = mesh.gather_leaves(state_to_numpy(dr.final_state)) \
+            if keep_state else None
         ranks = mesh.gather({
             **engine.loop_stats["mesh"],
             "launches": {k: n for k, n in kernels.launches.items() if n},
@@ -322,11 +692,6 @@ def _mesh_runs_rank(mesh, cfgs: list, keep_state: bool,
             "kernel_ms": ({k: v for k, v in kernels.kernel_ms().items()
                            if v} if timing else None)})
         if mesh.rank == 0:
-            H = len(sim.host_vertex)
-            stats = stats_of(cfg, engine, {k: leaves[k][:H]
-                                           for k in STAT_KEYS}, rounds,
-                             wall)
-            stats.admission = engine.admission
             launches = {}
             for r in ranks:
                 for k, n in r["launches"].items():

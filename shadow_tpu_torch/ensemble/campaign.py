@@ -1,7 +1,17 @@
 """EnsembleRunner: R-replica simulation campaigns in one window loop (the
 port's copy of the reference package's ensemble/campaign.py, cut to one
-GPU without segments, checkpoints, a capacity planner, heartbeats,
-chaos or an out-of-memory ladder: ROADMAP.md queue (a) items 7 and 13).
+GPU without checkpoints, chaos or an out-of-memory ladder: ROADMAP.md
+queue (a) items 7b and 13).
+
+A campaign runs through the segmented advance (device/supervise.py
+`advance`, `ensemble=True`): segments at heartbeat multiples and
+`dispatch_segment`, one `[ensemble-heartbeat]` line per replica at each
+heartbeat. Under `capacity_plan` the warm-up slice runs the campaign
+engine and the plan sizes every capacity from the worst-case replica
+(`_worst_case_view`: high-water marks the maximum over the replicas,
+overflow counters their sum), so that no replica overflows another's
+tight plan; an overflow widens and replays every replica from the last
+validated boundary.
 
 It builds the config once, stacks the replicas' worlds (spec.py), runs
 one campaign engine whose every kernel takes the replica as a grid
@@ -31,12 +41,16 @@ from typing import Optional
 
 import numpy as np
 
+import torch
+
+from shadow_tpu_torch import simtime
 from shadow_tpu_torch.config.schema import ConfigOptions
 from shadow_tpu_torch.core.build import build
-from shadow_tpu_torch.device import runner
+from shadow_tpu_torch.device import capacity, runner
 from shadow_tpu_torch.device.engine import DeviceEngine, state_to_numpy
 from shadow_tpu_torch.device.kernels import HEAP_FIELDS, Kernels
-from shadow_tpu_torch.device.supervise import check_audit
+from shadow_tpu_torch.device.supervise import HeartbeatMonitor, \
+    advance, heartbeat_rates
 from shadow_tpu_torch.ensemble.spec import (
     EnsembleWorlds,
     build_worlds,
@@ -102,8 +116,22 @@ class EnsembleRunner:
         self.admission: Optional[dict] = None
         self.record: Optional[dict] = None
         self.final_state: Optional[dict] = None
-        # the last campaign engine's loop_stats (one per batch)
+        # each batch's loop record, summed over its segments: the loop,
+        # the replicas' rounds and phases, the host syncs
         self.loop_stats: list = []
+        # the planner's capacity knobs and re-plans (as DeviceRunner's)
+        self._capacity_overrides: dict = {}
+        self.replans = 0
+        self.occ_record: Optional[dict] = None
+        self.hb_monitor: Optional[HeartbeatMonitor] = None
+        self._hb_mark = None
+        # the segment record of each batch, and the graph captures and
+        # engines of the whole campaign
+        self.segments: list = []
+        self.captures = 0
+        self.engines_built = 0
+        self.warmup_wall_s = 0.0
+        self._last_engine: Optional[DeviceEngine] = None
 
     @property
     def lookahead(self) -> int:
@@ -118,11 +146,19 @@ class EnsembleRunner:
 
     def engine(self, worlds: Optional[EnsembleWorlds] = None):
         """The campaign engine of `worlds` (default: the whole
-        campaign), at the full campaign's lookahead."""
+        campaign), at the full campaign's lookahead, with the plan's
+        capacities; admitted (the state twice under a plan, whose
+        advance keeps a validated copy) before it allocates."""
+        self.engines_built += 1
         return runner.engine_from(
             self.cfg, self.sim, self.device, self.kernels,
             ensemble=self.worlds if worlds is None else worlds,
-            lookahead=self.lookahead)
+            lookahead=self.lookahead, overrides=self._capacity_overrides,
+            copies=2 if self._planned else 1)
+
+    @property
+    def _planned(self) -> bool:
+        return self.cfg.experimental.capacity_plan != "static"
 
     def replica_engine(self, r: int, kernels: Optional[Kernels] = None):
         """The standalone engine of replica r: its tables, epoch times
@@ -198,25 +234,158 @@ class EnsembleRunner:
                 name: aggregate(vals, eopts.aggregate)
                 for name, vals in metrics.items()},
             "wall_s": round(wall, 3),
-            "replans": 0,
+            "replans": self.replans,
             "ok": bool(ok),
         }
 
     # ------------------------------------------------------------------
-    def _run_once(self, worlds: EnsembleWorlds, stop: int):
-        """One campaign engine over `worlds`, run to `stop`: (its final
-        leaves without the heaps, as numpy arrays, [R] rounds). Under
-        the state audit, raises AuditFailure where a replica's word is
-        not zero."""
-        engine = self.engine(worlds)
-        state = engine.init_ensemble_state(self.sim.start_times,
-                                           self.sim.stop_times)
-        state, rounds = engine.run(state, stop)
-        self.loop_stats.append(engine.loop_stats)
-        check_audit(state, where=f"t={stop} ns")
+    def _worst_case_view(self, states) -> dict:
+        """The [R, ...] occupancy and overflow leaves reduced to the
+        standalone shapes capacity.measure reads (campaign.py:218): the
+        maximum over the replicas for the high-water marks (the
+        worst-case replica sizes the shared capacities), the sum for the
+        loud overflow counters."""
+        view = {}
+        for k in ("occ_heap", "occ_ob", "occ_in", "occ_x", "occ_trips",
+                  "occ_phases"):
+            view[k] = capacity.host_array(states[k]).max(0)
+        for k in ("overflow", "x_overflow"):
+            view[k] = capacity.host_array(states[k]).sum(0)
+        return view
+
+    def _plan_capacities(self, stop: int) -> None:
+        """capacity_plan on the campaign (campaign.py:238): the warm-up
+        slice runs the campaign engine, in `dispatch_segment` pieces,
+        widened up to MAX_REPLANS times where it overflows; the plan
+        sizes every capacity from the worst-case replica. A record path
+        must be of this workload."""
+        xp = self.cfg.experimental
+        mode = xp.capacity_plan
+        t0 = time.perf_counter()
+        engine = self.engine()
+        static_knobs = {k: getattr(engine.config, k)
+                        for k in capacity.CAPACITY_KNOBS}
+        per_iter = engine.effective["M_out"]
+        if mode == "auto":
+            warm = min(xp.capacity_warmup or max(1, stop // 8), stop)
+            seg = xp.dispatch_segment
+            states = engine.init_ensemble_state(self.sim.start_times,
+                                                self.sim.stop_times)
+            for attempt in range(capacity.MAX_REPLANS + 1):
+                t, dims = 0, ()
+                while t < warm:
+                    nxt = min(warm, t + seg) if seg else warm
+                    states, _ = engine.run(states, stop=nxt,
+                                           final_stop=stop)
+                    t = nxt
+                    dims = capacity.overflow_dims(states)
+                    if dims:
+                        break
+                if not dims:
+                    break
+                if attempt == capacity.MAX_REPLANS:
+                    raise RuntimeError(
+                        f"ensemble capacity warm-up still overflows "
+                        f"after {capacity.MAX_REPLANS} doublings on "
+                        f"{dims}")
+                self._capacity_overrides = capacity.widen(
+                    self._capacity_overrides, dims, engine.effective)
+                log.warning("ensemble capacity warm-up overflowed on %s; "
+                            "retrying with %s", dims,
+                            self._capacity_overrides)
+                self.captures += engine.captures
+                del states, engine
+                _free(self.device)
+                engine = self.engine()
+                states = engine.init_ensemble_state(self.sim.start_times,
+                                                    self.sim.stop_times)
+            record = capacity.measure(engine,
+                                      self._worst_case_view(states),
+                                      source=f"ensemble-warmup:{warm}ns")
+            self.captures += engine.captures
+            del states
+        else:
+            record = capacity.load_record(mode)
+            want = {"app": type(self.app).__name__,
+                    "app_fp": capacity.app_fingerprint(self.app),
+                    "n_hosts": len(self.sim.host_vertex)}
+            got = {k: record["workload"].get(k) for k in want}
+            if got != want:
+                raise ValueError(
+                    f"occupancy record {mode} was measured on {got}; "
+                    f"this campaign is {want} — re-measure with "
+                    "capacity_plan: auto")
+        del engine
+        _free(self.device)
+        planned = capacity.plan(
+            record, per_iter=per_iter,
+            floor_iters=4 if max(1, self.app.burst_pops) > 1 else 8,
+            n_shards=1,
+            headroom=xp.capacity_headroom or capacity.HEADROOM,
+            exchange="all_to_all")
+        record["planned"] = planned
+        record["static"] = static_knobs
+        self.occ_record = record
+        self._capacity_overrides = dict(planned)
+        self.warmup_wall_s = time.perf_counter() - t0
+        log.info("ensemble capacity plan (%s): %s  [measured %s]", mode,
+                 planned, record["measured"])
+
+    def _emit_heartbeats(self, now: int, states, offset: int = 0) -> None:
+        """One `[ensemble-heartbeat]` line per replica at a segment
+        boundary (campaign.py:331): its totals from the device counters
+        ([R, H] vectors, never the heaps), the pkts/s since the last
+        heartbeat (supervise.heartbeat_rates), the re-plans and the
+        device memory. `offset`: the first replica of a batch."""
+        if self.hb_monitor is not None:
+            self.hb_monitor.beat()
+        cols = {k: capacity.host_array(states[k]).astype(np.int64)
+                for k in ("n_exec", "n_sent", "n_drop", "n_deliv")}
+        self._hb_mark, rates = heartbeat_rates(self._hb_mark,
+                                               cols["n_sent"].sum(1))
+        mem = None
+        if torch.device(self.device).type == "cuda":
+            _, total = torch.cuda.mem_get_info()
+            mem = (torch.cuda.memory_allocated(), total)
+        mem_s = (f"{capacity.fmt_bytes(mem[0])}/"
+                 f"{capacity.fmt_bytes(mem[1])}"
+                 if mem is not None else "n/a")
+        for r in range(cols["n_exec"].shape[0]):
+            log.info("[ensemble-heartbeat] t=%s replica=%d events=%d "
+                     "sent=%d dropped=%d delivered=%d pkts/s=%s "
+                     "retries=%d replans=%d mem=%s",
+                     simtime.format_time(now), r + offset,
+                     int(cols["n_exec"][r].sum()),
+                     int(cols["n_sent"][r].sum()),
+                     int(cols["n_drop"][r].sum()),
+                     int(cols["n_deliv"][r].sum()), rates[r], 0,
+                     self.replans, mem_s)
+
+    def _run_once(self, worlds: EnsembleWorlds, stop: int,
+                  offset: int = 0):
+        """One campaign engine over `worlds`, advanced to `stop` in
+        segments (`_Segments`): (its final leaves without the heaps, as
+        numpy arrays, [R] rounds). Under the state audit, raises
+        AuditFailure at the first boundary where a replica's word is not
+        zero."""
+        segs = _Segments(self, worlds, offset)
+        state = segs.engine.init_ensemble_state(self.sim.start_times,
+                                                self.sim.stop_times)
+        state, adv = advance(segs, state, 0, stop, stop, ensemble=True)
+        engine = segs.engine
+        rounds = np.broadcast_to(np.asarray(adv.rounds, np.int64),
+                                 (worlds.R,))
+        self.loop_stats.append({
+            "loop": engine.loop_stats["loop"], "rounds": rounds.tolist(),
+            "phases": np.broadcast_to(np.asarray(adv.pipeline["phases"]),
+                                      (worlds.R,)).tolist(),
+            "host_syncs": adv.pipeline["host_syncs"]})
+        self.captures += adv.pipeline["captures"]
+        self.segments.append(adv.pipeline)
         final = state_to_numpy(state, [k for k in state
                                        if k not in HEAP_FIELDS])
-        return final, np.asarray(rounds, np.int64)
+        self._last_engine = engine
+        return final, rounds
 
     def _run_batched(self, stop: int, batch: int):
         """Sequential replica batches of <= `batch`, each a campaign
@@ -237,7 +406,7 @@ class EnsembleRunner:
         for b in range(n_batches):
             lo, hi = b * batch, min(R, (b + 1) * batch)
             final, r = self._run_once(slice_worlds(self.worlds, lo, hi),
-                                      stop)
+                                      stop, offset=lo)
             finals.append(final)
             rounds.append(r)
         merged = {k: np.concatenate([f[k] for f in finals], axis=0)
@@ -251,7 +420,14 @@ class EnsembleRunner:
         rounds and the record in `ensemble`."""
         stop = self.cfg.general.stop_time if stop is None else int(stop)
         w = self.worlds
+        xp = self.cfg.experimental
         self.loop_stats = []
+        self.segments = []
+        self.replans = 0
+        self.captures = 0
+        self._hb_mark = None
+        self.hb_monitor = (HeartbeatMonitor(xp.heartbeat_stale_after)
+                           if xp.heartbeat_stale_after else None)
         knob_batch = int(self.cfg.ensemble.replica_batch or 0)
         # preflight admission of the whole campaign, before anything is
         # allocated on the device; `auto` may split it into batches
@@ -262,6 +438,8 @@ class EnsembleRunner:
             batchable=w.R > 1 and not knob_batch)
         batch = knob_batch or int(
             self.admission["overrides"].get("replica_batch", 0))
+        if self._planned:
+            self._plan_capacities(stop)
         t0 = time.perf_counter()
         if batch:
             final, rounds_r = self._run_batched(stop, batch)
@@ -272,6 +450,18 @@ class EnsembleRunner:
         overflow = int(final["overflow"].sum())
         x_overflow = int(final["x_overflow"].sum())
         ok = overflow == 0 and x_overflow == 0
+        occ = capacity.measure(self._last_engine,
+                               self._worst_case_view(final),
+                               source="ensemble-run")
+        occ["workload"]["replicas"] = int(w.R)
+        self._last_engine = None
+        if self.occ_record is not None:
+            self.occ_record["final_measured"] = occ["measured"]
+            self.occ_record["effective"] = occ["effective"]
+            self.occ_record["replans"] = self.replans
+            self.occ_record["applied"] = dict(self._capacity_overrides)
+        else:
+            self.occ_record = occ
         self.record = self._build_record(final, rounds_r, wall, ok)
         self.record["admission"] = self.admission
         if batch:
@@ -297,7 +487,17 @@ class EnsembleRunner:
             host_events_executed=final["n_exec"][0].astype(np.int64),
             host_trace_checksum=final["chk"][0],
             overflow=overflow, x_overflow=x_overflow,
-            admission=self.admission, ensemble=self.record)
+            admission=self.admission, ensemble=self.record,
+            occupancy=self.occ_record, replans=self.replans,
+            pipeline={"segments": sum(p["segments"] for p in self.segments),
+                      "replayed": sum(p["replayed"] for p in self.segments),
+                      "host_syncs": sum(p["host_syncs"]
+                                        for p in self.segments),
+                      "graph_captures": self.captures,
+                      "engines": self.engines_built,
+                      "warmup_wall_s": self.warmup_wall_s})
+        if self.hb_monitor is not None:
+            stats.stale_heartbeats = self.hb_monitor.stale_events
         loops = self.loop_stats
         stats.loop = loops[0]["loop"]
         stats.phases = max(max(s["phases"]) for s in loops)
@@ -311,3 +511,54 @@ class EnsembleRunner:
                       "experimental.event_capacity/outbox_capacity",
                       overflow)
         return stats
+
+
+def _free(device) -> None:
+    """Return the freed engine's cached blocks to the card before the
+    next engine allocates."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+
+
+class _Segments:
+    """The campaign's side of the segmented advance (the runner
+    `supervise.advance` asks for): the campaign engine of one batch of
+    worlds, the campaign's re-plans and capacity knobs, and its
+    heartbeats with the batch's first replica."""
+
+    def __init__(self, er: EnsembleRunner, worlds: EnsembleWorlds,
+                 offset: int):
+        self.er, self.worlds, self.offset = er, worlds, offset
+        self.cfg = er.cfg
+        self.engine = er.engine(worlds)
+
+    @property
+    def replans(self) -> int:
+        return self.er.replans
+
+    @replans.setter
+    def replans(self, n: int) -> None:
+        self.er.replans = n
+
+    @property
+    def _capacity_overrides(self) -> dict:
+        return self.er._capacity_overrides
+
+    @_capacity_overrides.setter
+    def _capacity_overrides(self, knobs: dict) -> None:
+        self.er._capacity_overrides = knobs
+
+    def overflow_counts(self, state: dict) -> dict:
+        return capacity.overflow_counts(state)
+
+    def replan(self, host_state: dict) -> dict:
+        self.engine = None
+        _free(self.er.device)
+        self.engine = self.er.engine(self.worlds)
+        return capacity.transfer(
+            self.engine, host_state,
+            self.engine.init_arrays(self.er.sim.start_times,
+                                    self.er.sim.stop_times))
+
+    def _emit_heartbeats(self, now: int, state: dict) -> None:
+        self.er._emit_heartbeats(now, state, self.offset)

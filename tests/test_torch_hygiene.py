@@ -81,7 +81,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
 
 @pytest.mark.parametrize("override,item", [
     ("experimental.scheduler_policy=thread", "queue (a) item 10"),
-    ("experimental.dispatch_segment=200ms", "queue (a) item 7"),
+    ("experimental.pipeline_depth=2", "queue (a) item 13"),
     ("experimental={scheduler_policy: tpu, mesh_shards: 2, "
      "state_audit: true}", "queue (a) item 9"),
     ("hosts.a.processes=[{path: model:tgen_tcp_server, start_time: 10ms}]",
@@ -144,9 +144,9 @@ CAMPAIGN = "ensemble={replicas: 2, vary: {seed: [3, 4]}}"
 @pytest.mark.parametrize("override,item", [
     ("experimental.checkpoint_save=run.npz", "queue (a) item 7b"),
     ("experimental.checkpoint_every=100ms", "queue (a) item 7b"),
-    ("experimental.capacity_plan=auto", "queue (a) item 7a"),
-    ("experimental.dispatch_segment=200ms", "queue (a) item 7a"),
-    ("general.heartbeat_interval=100ms", "queue (a) item 7a"),
+    ("experimental.strategy_plan=auto", "queue (a) item 14"),
+    ("experimental.pipeline_depth=2", "queue (a) item 13"),
+    ("experimental.checkpoint_load=run.npz", "queue (a) item 7b"),
     ("experimental.mesh_shards=2", "queue (a) item 9"),
 ])
 def test_campaign_keys_still_refused_name_their_items(override, item):
@@ -259,3 +259,57 @@ def test_chip_smoke_reports_the_one_card_it_used():
     line = json.loads(smoke.result_line("NVIDIA H100 80GB HBM3"))
     assert line == {"ok": True, "device": {
         "platform": "gpu", "kind": "NVIDIA H100 80GB HBM3", "count": 1}}
+
+
+@pytest.mark.parametrize("overrides", [
+    ["experimental.capacity_plan=auto",
+     "experimental.capacity_warmup=100ms"],
+    ["experimental.capacity_plan=auto",
+     "experimental.capacity_headroom=2.0"],
+    ["experimental.dispatch_segment=70ms"],
+    ["general.heartbeat_interval=100ms",
+     "experimental.heartbeat_stale_after=3"],
+    ["experimental.device_batch_rounds=8"],
+    [CAMPAIGN, "experimental.capacity_plan=auto"],
+    [CAMPAIGN, "experimental.dispatch_segment=70ms"],
+    [CAMPAIGN, "general.heartbeat_interval=100ms"],
+])
+def test_planner_and_segment_keys_are_admitted(overrides, tmp_path,
+                                               monkeypatch):
+    """The keys of the segmented advance and the capacity planner, which
+    the slice check refused by name before, build and run on the CPU,
+    standalone and in a campaign, with the static run's totals."""
+    from shadow_tpu_torch.config.loader import load_config_str as load
+    from shadow_tpu_torch.ensemble.campaign import EnsembleRunner
+
+    monkeypatch.setenv("SHADOW_TPU_OCC_DIR", str(tmp_path))
+
+    campaign = CAMPAIGN in overrides
+    cfg = load(PHOLD, overrides)
+    build(cfg)
+    base = load(PHOLD, [CAMPAIGN] if campaign else [])
+    if campaign:
+        got = EnsembleRunner(cfg, device="cpu").run()
+        want = EnsembleRunner(base, device="cpu").run()
+    else:
+        got = runner.run(cfg, device="cpu")
+        want = runner.run(base, device="cpu")
+    assert got.ok and got.events_executed == want.events_executed > 0
+    assert np.array_equal(got.host_trace_checksum, want.host_trace_checksum)
+    assert got.rounds == want.rounds
+
+
+@pytest.mark.parametrize("override,message", [
+    ("experimental.capacity_warmup=50ms", "capacity_warmup"),
+    ("experimental.capacity_plan=atuo", "capacity_plan"),
+    ("experimental.capacity_headroom=2.0", "capacity_headroom"),
+    ("experimental.heartbeat_stale_after=3", "heartbeat_stale_after"),
+    ("experimental={scheduler_policy: serial, capacity_plan: auto}",
+     "capacity_plan"),
+])
+def test_planner_keys_are_validated_as_the_reference_validates_them(
+        override, message):
+    from shadow_tpu_torch.config.loader import load_config_str as load
+
+    with pytest.raises(ValueError, match=message):
+        load(PHOLD, [override])

@@ -19,11 +19,12 @@ mirror of how csrc/judge_batch.cu's `judge_kernel` reads it.
 * `DeviceJudge` on the CPU with its counters, `judge_s` among them.
 
 Tolerance everywhere is exact equality: the lookup is integer and the
-drop roll compares the same float32 values. The JAX reference's own
-gather maps an index in [-H, -1] to index + H (numpy's negative
-indexing) where the port, and K10, clamp it to 0; the batches held
-against JAX take their outside ids from below -H and from H upwards,
-where both clamp alike. The JAX side runs in one child process (this
+drop roll compares the same float32 values. An id in [-H, -1] reads
+host id + H (numpy's and jax's negative indexing, which the reference's
+gather uses), every other id outside [0, H) the nearest end, in the
+port's plain path and K10 alike (`kernels.host_index`); every batch,
+those held against JAX too, holds outside ids of all three kinds. The
+JAX side runs in one child process (this
 file's __main__ branch) under the jax batching patch the reference
 needs; the patch never runs in the pytest process.
 """
@@ -149,27 +150,28 @@ def port_judge(name, kernels=None) -> DeviceJudge:
                        kernels=kernels)
 
 
-def _outside(rng, n, H, jax_safe):
-    """n ids outside [0, H): both ends of int32, H and H + 1, others
-    above; below 0 only under -H where `jax_safe` (the reference's
-    gather wraps [-H, -1]), else -1 and -2 too."""
-    fixed = [I32.min, H, H + 1, I32.max, -H - 1] + ([] if jax_safe
-                                                     else [-1, -2])
-    low = rng.integers(I32.min, -H - 1 if jax_safe else 0, n)
+def _outside(rng, n, H):
+    """n ids outside [0, H): both ends of int32, H and H + 1, -H - 1,
+    -H, -2 and -1, others above H, below -H or in [-H, -1] (which read
+    host id + H)."""
+    fixed = [I32.min, H, H + 1, I32.max, -H - 1, -H, -2, -1]
+    low = np.where(rng.random(n) < 0.5, rng.integers(I32.min, -H, n),
+                   rng.integers(-H, 0, n))
     x = np.where(rng.random(n) < 0.5, low,
                  rng.integers(H, I32.max, n, endpoint=True))
     x[:len(fixed)] = fixed
     return x
 
 
-def batch_of(name, judge: DeviceJudge, jax_safe: bool):
+def batch_of(name, judge: DeviceJudge, for_jax: bool):
     """N seeded packets on `judge`'s hosts: send times at, 1 ns before
     and after the bootstrap end and every epoch start, the rest uniform
     in [0, 7 s); destinations a tenth the sender, a tenth a host on the
     sender's vertex, a tenth its next id, the rest uniform; a twentieth
     of senders and of destinations outside [0, H) (`_outside`); seqs
-    uniform int32 with 0, 2^31-1, -1 and -2^31 among them."""
-    rng = np.random.default_rng(sum(map(ord, name)) + 17 * jax_safe)
+    uniform int32 with 0, 2^31-1, -1 and -2^31 among them. `for_jax`
+    seeds the batches the JAX child judges apart from the others."""
+    rng = np.random.default_rng(sum(map(ord, name)) + 17 * for_jax)
     world = judge.world
     hv = world["host_vertex"].numpy().astype(np.int64)
     H = len(hv)
@@ -190,8 +192,8 @@ def batch_of(name, judge: DeviceJudge, jax_safe: bool):
             pick < 0.3, np.minimum(src + 1, H - 1),
             rng.integers(0, H, N))))
     out_s, out_d = rng.random(N) < 0.05, rng.random(N) < 0.05
-    src[out_s] = _outside(rng, int(out_s.sum()), H, jax_safe)
-    dst[out_d] = _outside(rng, int(out_d.sum()), H, jax_safe)
+    src[out_s] = _outside(rng, int(out_s.sum()), H)
+    dst[out_d] = _outside(rng, int(out_d.sum()), H)
     seq = rng.integers(I32.min, I32.max, N, endpoint=True)
     seq[-4:] = [0, I32.max, -1, I32.min]
     return (now.astype(np.int64), src.astype(np.int32),
@@ -242,15 +244,19 @@ def mirror_ends(tables, sv_host, dv_host, e):
 
 def mirror(tables, boot_end, now, src, dst, seq):
     """(delivered bool, deliver_time int64) as judge_kernel computes
-    them: ends clamped into [0, H), the epoch the count of starts <= now
+    them: ends read at `host_index` (id + H for an id in [-H, -1],
+    else clamped into [0, H)), the epoch the count of starts <= now
     less one, the sender's key from the table where it lies in [0, H)
     and from the full chain of its raw id otherwise."""
     world = tables.world
     H = world["host_vertex"].shape[0]
     starts = world["epoch_times"].numpy()
     e = np.maximum((now[:, None] >= starts[None, :]).sum(1) - 1, 0)
-    lat, rel = mirror_ends(tables, np.clip(src, 0, H - 1),
-                           np.clip(dst, 0, H - 1), e)
+    def row(ids):
+        i = ids.astype(np.int64)
+        return np.clip(np.where(i < 0, i + H, i), 0, H - 1)
+
+    lat, rel = mirror_ends(tables, row(src), row(dst), e)
     keys = tables.keys.numpy().view(np.uint32)
     inside = src.astype(np.int64).astype(np.uint64) < H
     k1 = keys[np.clip(src, 0, H - 1), 0]
@@ -350,7 +356,7 @@ def test_mirror_equals_judge_batch_plain(name):
     on a batch whose outside ids include -1 and -2; drops on both sides
     of the bootstrap end's rule, and among the outside senders."""
     judge = port_judge(name)
-    batch = batch_of(name, judge, jax_safe=False)
+    batch = batch_of(name, judge, for_jax=False)
     d, t = mirror(judge.tables, judge.boot_end, *batch)
     dp, tp = _plain(judge, batch)
     np.testing.assert_array_equal(d, dp)
@@ -368,7 +374,7 @@ def test_outside_sender_takes_the_full_chain():
     judge = port_judge("dense")
     t = judge.tables
     H = judge.world["host_vertex"].shape[0]
-    batch = batch_of("dense", judge, jax_safe=False)
+    batch = batch_of("dense", judge, for_jax=False)
     now, src, dst, seq = batch
     out = (src < 0) | (src >= H)
     keys = t.keys.numpy().view(np.uint32)[np.clip(src, 0, H - 1)]
@@ -396,7 +402,7 @@ def test_device_judge_on_the_cpu_counts_and_times(before):
     kernels = Kernels()
     kernels.designs_before = before
     judge = port_judge("factored_epochs", kernels)
-    batch = batch_of("factored_epochs", judge, jax_safe=False)
+    batch = batch_of("factored_epochs", judge, for_jax=False)
     d, t = judge.judge_batch(*(a[:1500] for a in batch))
     d2, t2 = judge.judge_batch(*(a[1500:] for a in batch))
     dp, tp = _plain(judge, batch)
@@ -432,7 +438,7 @@ def test_tables_name_the_launch_and_stay_off_the_card(name):
         assert t.records is None
     assert (t.core is None) == (not hier)
     assert (t.access is None) == (not (hier and epochs))
-    batch = batch_of(name, judge, jax_safe=True)
+    batch = batch_of(name, judge, for_jax=True)
     kernels = Kernels()
     d, tt = kernels.judge_batch(t, judge.boot_end,
                                 *(torch.from_numpy(a) for a in batch))
@@ -560,9 +566,10 @@ def test_records_compose_as_jax_gather_parts(name, reference):
 @pytest.mark.parametrize("name", list(CONFIGS))
 def test_mirror_equals_jax_device_judge(name, reference):
     """The mirror, and judge_batch_plain, equal the JAX DeviceJudge on a
-    batch whose outside ids lie below -H or from H upwards."""
+    batch whose outside ids lie below -H, in [-H, -1] and from H
+    upwards."""
     judge = port_judge(name)
-    batch = batch_of(name, judge, jax_safe=True)
+    batch = batch_of(name, judge, for_jax=True)
     d, t = mirror(judge.tables, judge.boot_end, *batch)
     np.testing.assert_array_equal(d, reference[f"{name}/delivered"])
     np.testing.assert_array_equal(t, reference[f"{name}/time"])
@@ -572,6 +579,8 @@ def test_mirror_equals_jax_device_judge(name, reference):
     H = judge.world["host_vertex"].shape[0]
     src = batch[1]
     assert ((src < -H) | (src >= H)).any()
+    assert ((src >= -H) & (src < 0)).any()
+    assert ((batch[2] >= -H) & (batch[2] < 0)).any()
     assert (~d).any()
 
 
