@@ -271,7 +271,30 @@ Phases, in order; any failure exits non-zero before the last line:
    its unsegmented graph run, in turns: the price of a boundary. Every
    device run must be admitted and its measured peak device memory lie within
    capacity.FOOTPRINT_TOLERANCE of its admission estimate.
-5. mesh: the host mesh, S ranks spawned on device 0 over gloo (the
+5. supervise (device/checkpoint.py, device/supervise.py,
+   device/chaos.py): examples/tgen_100000.yaml as shipped (planned, 2.5 s
+   segments) with rotating checkpoints every 10 s, keep 2, through the
+   CLI's entry function: two `.t` entries, equal to its uninterrupted
+   planned run, the graph captures, a save's wall and bytes, the rotated
+   wall beside the unrotated; the same config through
+   `python -m shadow_tpu_torch.cli` in a child process on the card,
+   SIGTERM once its first entry exists: exit 75, the signal-to-exit
+   wall, the resume from the base path (a load's wall and bytes) equal
+   to the uninterrupted run, the child's rounds and the resume's summing
+   to its; `checkpoint_save_time` half way on phold.yaml (2 x 50,000
+   hosts) and on tor_small cut to TOR_PARITY_STOP, resumed equal to the
+   card's uninterrupted run and (tor_small) the CPU plain path's;
+   tgen_10000 x 8 in replica batches of 4 with rotation, drained in its
+   second batch and resumed from the batch's entry, its replicas equal
+   to the uninterrupted campaign's; tgen_10000 in 2.5 s segments with a
+   chaos `dispatch_error` at segment 3 (one retry from the validated
+   copy, equal, the copy's and the replayed segment's walls) and its
+   third rotation entry truncated by `checkpoint_corrupt` (the base path
+   resolves to the second, resumed equal); the parity PHOLD under
+   `failover: hybrid` with one error and no retry (the hybrid rerun
+   equal to the device run, the failover checkpoint resumed on the card
+   equal).
+6. mesh: the host mesh, S ranks spawned on device 0 over gloo (the
    check's machine shows one card; `torch.cuda.device_count()` is
    printed): `runner.flush_phases` (`mesh_flush`: rows of a one-card
    pop copied into each rank's outbox, pop counts 0) on 2 card ranks
@@ -282,7 +305,7 @@ Phases, in order; any failure exits non-zero before the last line:
    against the one-device card run (traces, totals, every per-host
    leaf but occ_in, the phases), the kernels each rank launched
    checked; a2a/window at S = 2 and two_phase/global at S = 4 also
-   against the same ranks on the CPU plain path (run beside the card's,
+   against the same ranks on the CPU plain path (a CPU oracle, below;
    every leaf); one undersized capacity per schedule that has one
    (the PHOLD at S = 4: the direct pack, two_phase's phase 1, its
    phase 2), card against CPU, x_overflow equal per sender, the run not
@@ -297,13 +320,30 @@ Phases, in order; any failure exits non-zero before the last line:
    pops and K2, K5, the pack, the staging copies, the collective, the
    second route, the merge) and the bytes it sent; counts equal to one
    device's, x_overflow 0, every rank's peak within
-   FOOTPRINT_TOLERANCE of its admission estimate.
-6. boot: examples/tgen_1000000.yaml as shipped built (timed), admitted
+   FOOTPRINT_TOLERANCE of its admission estimate. Then
+   (`mesh_supervise`) phold.yaml at S = 2 saved half way and resumed at
+   S = 2, equal to one device, and its checkpoint refused at S = 4 with
+   the reference's geometry message. Every card run of the phase but
+   the flush's goes in one spawn at S = 2 and one at S = 4
+   (`mesh_card_runs`): a spawn's ranks take about 20 s to reach the
+   card.
+7. boot: examples/tgen_1000000.yaml as shipped built (timed), admitted
    and booted (engine and init_state) on the card; not run.
-7. the `kernels` JSON line, then the card line, then the result line.
+8. the `kernels` JSON line, then the card line, then the result line.
+
+The CPU oracles (the CPU plain path's runs of the parity phase, the
+hybrid runs' CPU and serial twins, the full hybrid PHOLD's serial run,
+the mesh's CPU ranks) start once the kernels phase has ended, in worker
+processes and threads at a lower priority (`start_oracles`), and run
+beside the card; the phases read their results, and the full phase
+starts once every one has ended, so that none runs beside the timed
+phases.
 
 `--phases build,plan` makes the planner's and the segmented advance's
-checks alone (the mesh's planned runs in spawns of their own).
+checks alone (the mesh's planned runs in spawns of their own);
+`--phases build,supervise` the supervise phase alone (it runs the
+uninterrupted runs it compares with itself where the parity and full
+phases did not).
 
 It imports nothing of jax or of the shadow_tpu package.
 """
@@ -313,6 +353,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import gc
 import json
 import logging
@@ -327,7 +368,8 @@ import time
 import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("build", "kernels", "parity", "full", "mesh", "boot")
+PHASES = ("build", "kernels", "parity", "full", "supervise", "mesh",
+          "boot")
 # H100 SXM (NVIDIA data sheet): HBM rate, and the integer ALU rate:
 # 64 INT32 lanes per SM x 132 SMs x 1.98 GHz boost. (The 67 TFLOP/s
 # float32 peak is 128 lanes with an FMA counted as two operations.)
@@ -5275,6 +5317,175 @@ def engine_run(cfg, device, loop="run", kernels=None):
             state_to_numpy(state))
 
 
+def cfg_from(source, pre=(), x=()):
+    """A config from YAML text or a file under examples/, with the
+    overrides `pre` then `x`; `functools.partial(cfg_from, source, pre)`
+    is a loader that pickles, for the CPU oracles' worker processes."""
+    from shadow_tpu_torch.config import load_config, load_config_str
+
+    if "\n" not in source:
+        return load_config(os.path.join(REPO, "examples", source),
+                           [*pre, *x])
+    return load_config_str(source, [*pre, *x])
+
+
+def loader(source, *pre):
+    return functools.partial(cfg_from, source, pre)
+
+
+# ----------------------------------------------------------------------
+# the CPU oracles: the CPU plain path's runs that the card's runs are
+# held to, started once the kernels phase has ended (whose host-bound
+# plain versions they would slow), in worker processes (the mesh's CPU
+# ranks from threads of their own), so that they run beside the card; a
+# phase run without them (`--phases`) computes its own
+# ----------------------------------------------------------------------
+ORACLE_WORKERS = 3
+ORACLES = None
+
+
+def cpu_job(spec):
+    """One CPU oracle: ("engine", loader) the engine's run (stats,
+    leaves); ("campaign", loader) the campaign's stats, final leaves
+    and loop records; ("controller", loader) a Controller run on the
+    CPU (stats, the event trace); ("simulate", example, overrides)
+    `cli.simulate` on the CPU; ("compact", key, loader) the
+    compaction's runs (`compact_cpu`); ("mesh", S, [config]) the
+    configs on S CPU ranks with their leaves."""
+    from shadow_tpu_torch import cli
+    from shadow_tpu_torch.device import runner
+
+    kind, *args = spec
+    if kind == "engine":
+        return engine_run(args[0](), "cpu")
+    if kind == "campaign":
+        stats, er = run_config(args[0](), "cpu")
+        return stats, {"final_state": er.final_state,
+                       "rounds": er.loop_stats[0]["rounds"]}
+    if kind == "controller":
+        trace = []
+        stats, _ = controller_run(args[0](), "cpu", trace=trace)
+        return stats, trace
+    if kind == "simulate":
+        return cli.simulate(os.path.join(REPO, "examples", args[0]),
+                            args[1], device="cpu")
+    if kind == "compact":
+        return compact_cpu(*args)
+    if kind == "mesh":
+        return runner.mesh_runs(["cpu"] * args[0], args[1], True)
+    raise ValueError(f"unknown CPU oracle {kind}")
+
+
+# the oracles' niceness: the card's process keeps its cores
+ORACLE_NICE = 10
+
+
+def _oracle_worker():
+    os.nice(ORACLE_NICE)
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    import torch
+
+    torch.set_num_threads(1)
+
+
+def _oracle_thread_job(spec):
+    # on Linux a thread's niceness is its own, and the rank processes
+    # it starts inherit it
+    os.nice(ORACLE_NICE)
+    return cpu_job(spec)
+
+
+class Oracles:
+    """CPU oracles running beside the card, at a lower priority: `start`
+    submits one under a key, `result` waits for it (the seconds waited
+    summed in `waited_s`), `finish` for all; `close` stops what still
+    runs."""
+
+    def __init__(self, workers=ORACLE_WORKERS):
+        import concurrent.futures as cf
+        import multiprocessing as mp
+
+        self.pool = cf.ProcessPoolExecutor(
+            workers, mp_context=mp.get_context("spawn"),
+            initializer=_oracle_worker)
+        self.thread = cf.ThreadPoolExecutor(2)
+        self.jobs = {}
+        self.waited_s = 0.0
+
+    def start(self, key, spec):
+        if spec[0] == "mesh":
+            self.jobs[key] = self.thread.submit(_oracle_thread_job, spec)
+        else:
+            self.jobs[key] = self.pool.submit(cpu_job, spec)
+
+    def finish(self) -> float:
+        """Waits until every started oracle has ended (so that nothing
+        runs beside the phases that time walls); the seconds waited."""
+        import concurrent.futures as cf
+
+        t0 = time.perf_counter()
+        cf.wait(list(self.jobs.values()))
+        return time.perf_counter() - t0
+
+    def result(self, key):
+        t0 = time.perf_counter()
+        out = self.jobs.pop(key).result()
+        self.waited_s += time.perf_counter() - t0
+        return out
+
+    def close(self):
+        for f in self.jobs.values():
+            f.cancel()
+        procs = list((getattr(self.pool, "_processes", None) or {})
+                     .values())
+        self.pool.shutdown(wait=False, cancel_futures=True)
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+        self.thread.shutdown(wait=False, cancel_futures=True)
+
+
+def oracle(key, spec):
+    """The CPU oracle `spec` (`cpu_job`): from the background where it
+    was started there, else run here."""
+    if ORACLES is not None and key in ORACLES.jobs:
+        return ORACLES.result(key)
+    return cpu_job(spec)
+
+
+def start_oracles(phases) -> None:
+    """Start the CPU oracles of the selected phases, the mesh's first
+    (in threads), then in the order the phases read them."""
+    global ORACLES
+    jobs = []
+    if "parity" in phases:
+        jobs += [(f"loop:{key}", ("engine", load))
+                 for key, _, load, _ in PARITY_LOOPS + STAR_LOOPS
+                 + NIC_FAULT_LOOPS]
+        jobs += [(f"campaign:{key}", ("campaign", load))
+                 for key, _, load, _ in CAMPAIGN_PARITY]
+        for key, _, source, overrides in HYBRID_PARITY:
+            jobs += [(f"hybrid:{key}", ("controller", loader(
+                         source, *overrides, MIN_BATCH_0))),
+                     # the serial policy touches no device
+                     (f"serial:{key}", ("controller", loader(
+                         source, *overrides, SERIAL)))]
+        jobs += [(f"compact:{key}", ("compact", key, load))
+                 for key, _, load in COMPACT_LOADS]
+    if "full" in phases:
+        jobs.append(("serial:full_hybrid_phold", (
+            "simulate", "phold.yaml", HYB_FULL_OVERRIDES + (SERIAL,))))
+    if "mesh" in phases:
+        jobs += [(f"mesh:{S}", ("mesh", S, list(cfgs.values())))
+                 for S, cfgs in mesh_cpu_configs().items()]
+    if not jobs:
+        return
+    ORACLES = Oracles()
+    for key, spec in sorted(jobs, key=lambda j: not j[0].startswith(
+            "mesh:")):
+        ORACLES.start(key, spec)
+
+
 def loop_parity(torch, report, key, what, load, path=()):
     """One parity config: the window loop captured on the card (the
     engine's own loop) against the Python loop on the card and the CPU
@@ -5291,7 +5502,7 @@ def loop_parity(torch, report, key, what, load, path=()):
     gpu, gpu_leaves = engine_run(load(), "cuda", kernels=kernels)
     py, py_leaves = engine_run(load(), "cuda", "run_python",
                                kernels=py_kernels)
-    cpu, cpu_leaves = engine_run(load(), "cpu")
+    cpu, cpu_leaves = oracle(f"loop:{key}", ("engine", load))
     aud, aud_leaves = engine_run(load([AUDIT]), "cuda", kernels=aud_kernels)
     check((gpu.loop, py.loop, aud.loop) == ("graph", "python", "graph"),
           f"parity ({what}): loops {gpu.loop}, {py.loop}, {aud.loop}")
@@ -5327,38 +5538,37 @@ def loop_parity(torch, report, key, what, load, path=()):
     return gpu, py, cpu, aud, kernels
 
 
+# the model NIC, link faults and path counters: (key, what, loader,
+# the kernels the card's run must launch)
+NIC_FAULT_LOOPS = (
+    ("nic_phold", "PHOLD 16 hosts, model NIC 2 Mbit, loss 0.05, "
+     "count_paths, 3 s", loader(NIC_PHOLD_YAML),
+     ("pop_phase_nic", "count_paths")),
+    ("nic_tgen", "tgen 1 server + 20 clients, loss 0.1, model NIC, server "
+     "uplink 20 Mbit, clients' downlink 2 Mbit, 3 s", loader(NIC_TGEN_YAML),
+     ("pop_tgen_nic",)),
+    ("nic_tor", "Tor 16 relays + 32 clients, loss 0.05, model NIC, "
+     "clients' downlink 1 Mbit, 8 s", loader(NIC_TOR_YAML),
+     ("pop_tor_nic",)),
+    ("faults_dense", "tgen 1 server + 3 clients, link faults (degrade, "
+     "link_down, link_up), count_paths, 8 s", loader(FAULT_YAML),
+     ("pop_tgen_ep", "judge_outbox_ep", "count_paths")),
+    ("faults_hier", "examples/tgen_faults_hier.yaml, its link faults "
+     f"alone, {FAULTS_HIER_STOP}",
+     loader("tgen_faults_hier.yaml", *FAULTS_HIER),
+     ("pop_tgen_ep_hier", "judge_outbox_ep_hier")))
+
+
 def nic_fault_parity(torch, report):
     """The model NIC, link faults and path counters, three ways and
     audited (`loop_parity`), and factored against dense tables."""
-    from shadow_tpu_torch.config import load_config, load_config_str
     from shadow_tpu_torch.device import runner
 
-    hier = os.path.join(REPO, "examples", "tgen_faults_hier.yaml")
-    for key, what, load, path in (
-            ("nic_phold", "PHOLD 16 hosts, model NIC 2 Mbit, loss 0.05, "
-             "count_paths, 3 s",
-             lambda x=(): load_config_str(NIC_PHOLD_YAML, list(x)),
-             ("pop_phase_nic", "count_paths")),
-            ("nic_tgen", "tgen 1 server + 20 clients, loss 0.1, model "
-             "NIC, server uplink 20 Mbit, clients' downlink 2 Mbit, 3 s",
-             lambda x=(): load_config_str(NIC_TGEN_YAML, list(x)),
-             ("pop_tgen_nic",)),
-            ("nic_tor", "Tor 16 relays + 32 clients, loss 0.05, model NIC, "
-             "clients' downlink 1 Mbit, 8 s",
-             lambda x=(): load_config_str(NIC_TOR_YAML, list(x)),
-             ("pop_tor_nic",)),
-            ("faults_dense", "tgen 1 server + 3 clients, link faults "
-             "(degrade, link_down, link_up), count_paths, 8 s",
-             lambda x=(): load_config_str(FAULT_YAML, list(x)),
-             ("pop_tgen_ep", "judge_outbox_ep", "count_paths")),
-            ("faults_hier", "examples/tgen_faults_hier.yaml, its link "
-             f"faults alone, {FAULTS_HIER_STOP}",
-             lambda x=(): load_config(hier, FAULTS_HIER + list(x)),
-             ("pop_tgen_ep_hier", "judge_outbox_ep_hier"))):
+    for key, what, load, path in NIC_FAULT_LOOPS:
         gpu, _, _, _, kernels = loop_parity(torch, report, key, what, load,
                                             path)
         if key == "faults_hier":
-            dense = runner.run(load_config(hier, FAULTS_HIER + [
+            dense = runner.run(load([
                 "network.topology.representation=dense"]), device="cuda")
             same_run(gpu, dense, what, ("card hierarchical", "card dense"))
             print(f"[parity] {what}: card hierarchical == card dense "
@@ -5574,15 +5784,6 @@ MIN_BATCH_0 = "experimental.hybrid_judge_min_batch=0"
 SERIAL = "experimental.scheduler_policy=serial"
 JUDGE_KERNELS = ("judge_batch", "judge_batch_hier", "judge_batch_ep",
                  "judge_batch_ep_hier")
-
-
-def hybrid_config(source, overrides):
-    from shadow_tpu_torch.config import load_config, load_config_str
-
-    if source.endswith(".yaml"):
-        return load_config(os.path.join(REPO, "examples", source),
-                           list(overrides))
-    return load_config_str(source, list(overrides))
 
 
 def controller_run(cfg, device, kernels=None, trace=None):
@@ -5803,14 +6004,15 @@ def hybrid_parity(torch, report):
     runs = report.setdefault("_extra", {})
     for key, what, source, overrides in HYBRID_PARITY:
         kernels = Kernels()
-        traces = ([], [], [])
+        traces = [[], None, None]
         (card, c), prof = judge_profiled(torch, lambda: controller_run(
-            hybrid_config(source, overrides + (MIN_BATCH_0,)), "cuda",
+            cfg_from(source, overrides + (MIN_BATCH_0,)), "cuda",
             kernels, traces[0]))
-        cpu, _ = controller_run(hybrid_config(
-            source, overrides + (MIN_BATCH_0,)), "cpu", trace=traces[1])
-        serial, _ = controller_run(hybrid_config(
-            source, overrides + (SERIAL,)), "cuda", trace=traces[2])
+        # the serial policy touches no device: its run is a CPU oracle
+        cpu, traces[1] = oracle(f"hybrid:{key}", ("controller", loader(
+            source, *overrides, MIN_BATCH_0)))
+        serial, traces[2] = oracle(f"serial:{key}", ("controller", loader(
+            source, *overrides, SERIAL)))
         check((card.policy, cpu.policy, serial.policy)
               == ("hybrid", "hybrid", "serial"),
               f"hybrid ({what}): policies {card.policy}, {cpu.policy}, "
@@ -5840,29 +6042,24 @@ def compact_parity(torch, report):
     overflow) by the global rule, the PHOLD also by the window rule (the
     CPU runs of tgen_10000 take about 14 s each), each three ways: graph loop on the card, Python loop on the card, CPU plain
     path, every statistic and state leaf equal."""
-    from shadow_tpu_torch.config import load_config, load_config_str
     from shadow_tpu_torch.device.kernels import Kernels
 
     runs = report.setdefault("_extra", {})
-    for key, what, load in (
-            ("phold", "PHOLD 2x1000 hosts, 1 s",
-             lambda x=(): load_config_str(PARITY_YAML, list(x))),
-            ("tgen_10000", f"examples/tgen_10000.yaml cut to "
-             f"{COMPACT_STOP}", lambda x=(): load_config(
-                 os.path.join(REPO, "examples", "tgen_10000.yaml"),
-                 [f"general.stop_time={COMPACT_STOP}", *x]))):
+    for key, what, load in COMPACT_LOADS:
         base, base_leaves = engine_run(load(), "cuda")
         occ = int(base_leaves["occ_ob"].max())
         check(occ > 1, f"parity ({what}): the uncompacted run's largest "
               f"occ_ob is {occ}, nothing to compact")
-        for cx, rule in ((occ, "window"), (occ // 2, "global")) + (
-                ((occ // 2, "window"),) if key == "phold" else ()):
+        plain = oracle(f"compact:{key}", ("compact", key, load))
+        check(plain["occ"] == occ, f"parity ({what}): the CPU's largest "
+              f"occ_ob {plain['occ']}, the card's {occ}")
+        for cx, rule in compact_variants(key, occ):
             x = (f"experimental.outbox_compact={cx}",
                  f"experimental.merge_strategy={rule}")
             kernels = Kernels()
             gpu, gl = engine_run(load(x), "cuda", kernels=kernels)
             py, pl = engine_run(load(x), "cuda", "run_python")
-            cpu, cl = engine_run(load(x), "cpu")
+            cpu, cl = plain[(cx, rule)]
             name = "compact_outbox" + ("_global" if rule == "global"
                                        else "")
             label = f"{what}, outbox_compact {cx} ({rule} rule)"
@@ -5895,6 +6092,31 @@ def compact_parity(torch, report):
 # examples/tgen_10000.yaml's stop_time cut for the compaction's card ==
 # CPU parity (the plain path on the CPU): its clients start at 2 s
 COMPACT_STOP = "2500ms"
+COMPACT_LOADS = (
+    ("phold", "PHOLD 2x1000 hosts, 1 s", loader(PARITY_YAML)),
+    ("tgen_10000", f"examples/tgen_10000.yaml cut to {COMPACT_STOP}",
+     loader("tgen_10000.yaml", f"general.stop_time={COMPACT_STOP}")))
+
+
+def compact_variants(key, occ):
+    """(CX, rule) of a compaction parity config whose uncompacted run's
+    largest occ_ob is `occ`: nothing overflows at CX = occ, rows do at
+    half of it."""
+    return ((occ, "window"), (occ // 2, "global")) + (
+        ((occ // 2, "window"),) if key == "phold" else ())
+
+
+def compact_cpu(key, load):
+    """The compaction's CPU runs: the uncompacted run's largest occ_ob
+    (under "occ") and the run of each variant at it."""
+    _, leaves = engine_run(load(), "cpu")
+    occ = int(leaves["occ_ob"].max())
+    out = {"occ": occ}
+    for cx, rule in compact_variants(key, occ):
+        out[(cx, rule)] = engine_run(load((
+            f"experimental.outbox_compact={cx}",
+            f"experimental.merge_strategy={rule}")), "cpu")
+    return out
 
 
 def hybrid_full(torch, card, report):
@@ -5954,8 +6176,8 @@ def hybrid_full(torch, card, report):
     check(sum(launches[k] for k in JUDGE_KERNELS)
           == stats.judge["batches"] == launches["judge_batch_ep"],
           "full hybrid_phold: K10's launches are not its flushes")
-    serial = cli.simulate(os.path.join(REPO, "examples", "phold.yaml"),
-                          HYB_FULL_OVERRIDES + (SERIAL,), device="cuda")
+    serial = oracle("serial:full_hybrid_phold", (
+        "simulate", "phold.yaml", HYB_FULL_OVERRIDES + (SERIAL,)))
     # CPU-rolled rounds count into the path counters twice, as in the
     # reference, so those are not compared here (the parity runs, with
     # every flush on the card, compare them)
@@ -6034,23 +6256,30 @@ def compact_full(torch, card, report):
     report["_compact_full"] = out
 
 
-def parity_phase(torch, report):
-    from shadow_tpu_torch.config import load_config, load_config_str
+# the parity phase's PHOLD, tgen and cut tor_small: (key, what,
+# loader, the kernels the card's run must launch)
+PARITY_LOOPS = (
+    ("phold", "PHOLD 2x1000 hosts, 1 s", loader(PARITY_YAML),
+     ("pop_phase", "judge_outbox")),
+    ("tgen", f"tgen 1 server + {TGEN_PARITY_CLIENTS} clients, loss 0.25, "
+     "retry=120ms, 6 s", loader(TGEN_PARITY_YAML),
+     ("pop_tgen", "judge_outbox")),
+    ("tor", "examples/tor_small.yaml (250 hosts), stop_time cut from 60 s "
+     f"to {TOR_PARITY_STOP}",
+     loader("tor_small.yaml", f"general.stop_time={TOR_PARITY_STOP}"),
+     ("pop_tor", "judge_outbox")))
+STAR_WHAT = ("star_clusters tgen, 8 clusters x 120 spokes, 8 servers + "
+             "952 clients, hub loss 0.02, 2 s")
+STAR_LOOPS = tuple(
+    (f"star_{rep}", f"{STAR_WHAT}, {rep}", loader(
+        STAR_PARITY_YAML, f"network.topology.representation={rep}"), ())
+    for rep in ("hierarchical", "dense"))
 
-    tor_small = os.path.join(REPO, "examples", "tor_small.yaml")
-    for key, what, load, path in (
-            ("phold", "PHOLD 2x1000 hosts, 1 s",
-             lambda x=(): load_config_str(PARITY_YAML, list(x)),
-             ("pop_phase", "judge_outbox")),
-            ("tgen", f"tgen 1 server + {TGEN_PARITY_CLIENTS} clients, "
-             "loss 0.25, retry=120ms, 6 s",
-             lambda x=(): load_config_str(TGEN_PARITY_YAML, list(x)),
-             ("pop_tgen", "judge_outbox")),
-            ("tor", f"examples/tor_small.yaml (250 hosts), stop_time cut "
-             f"from 60 s to {TOR_PARITY_STOP}", lambda x=(): load_config(
-                 tor_small, [f"general.stop_time={TOR_PARITY_STOP}",
-                             *x]), ("pop_tor", "judge_outbox"))):
-        loop_parity(torch, report, key, what, load, path)
+
+def parity_phase(torch, report):
+    for key, what, load, path in PARITY_LOOPS:
+        report.setdefault("_cpu_runs", {})[key] = loop_parity(
+            torch, report, key, what, load, path)[2]
     star_parity(torch, report)
     nic_fault_parity(torch, report)
     audit_parity(torch, report)
@@ -6066,19 +6295,14 @@ def star_parity(torch, report):
     and dense tables (each three ways and audited, `loop_parity`); the
     card's hierarchical run goes through the `_hier` kernels and its
     dense run through the others."""
-    from shadow_tpu_torch.config import load_config_str
     from shadow_tpu_torch.device.kernels import HIER, TOPO_KERNELS
 
-    what = ("star_clusters tgen, 8 clusters x 120 spokes, 8 servers + 952 "
-            "clients, hub loss 0.02, 2 s")
+    what = STAR_WHAT
     runs = {}
-    for rep in ("hierarchical", "dense"):
-        def load(x=(), rep=rep):
-            return load_config_str(STAR_PARITY_YAML, [
-                f"network.topology.representation={rep}", *x])
-
-        gpu, _, cpu, _, kernels = loop_parity(
-            torch, report, f"star_{rep}", f"{what}, {rep}", load)
+    for (key, label, load, _), rep in zip(STAR_LOOPS,
+                                          ("hierarchical", "dense")):
+        gpu, _, cpu, _, kernels = loop_parity(torch, report, key, label,
+                                              load)
         runs[("card", rep)], runs[("cpu", rep)] = gpu, cpu
         for n in TOPO_KERNELS:
             on, off = ((n + HIER, n) if rep == "hierarchical"
@@ -6115,6 +6339,16 @@ STAR_FAULTS = (
 STAR_CAMPAIGN = ("ensemble={replicas: 2, vary: {latency_scale: [1.0, 2.0],"
                  " fault_schedule: [base, none]}}")
 SWEEP = os.path.join(REPO, "examples", "ensemble_seed_sweep.yaml")
+# the campaigns held three ways: (key, what, loader, the kernels the
+# card's run must launch)
+CAMPAIGN_PARITY = (
+    ("sweep", "examples/ensemble_seed_sweep.yaml as shipped (4 replicas, "
+     "seeds 1, 7, 13, 42; 7 hosts, 3 s)", loader("ensemble_seed_sweep.yaml"),
+     ("pop_tgen", "judge_outbox")),
+    ("star", "STAR_PARITY_YAML (8 x 120 star, 960 hosts, 2 s) with link "
+     "faults, latency_scale [1.0, 2.0], fault_schedule [base, none]",
+     loader(STAR_PARITY_YAML, STAR_FAULTS, STAR_CAMPAIGN),
+     ("pop_tgen_ep_hier", "judge_outbox_ep_hier")))
 
 
 def run_config(cfg, device, kernels=None):
@@ -6173,22 +6407,12 @@ def campaign_parity(torch, report):
     STAR_CAMPAIGN (factored tables with the epoch axis, a scale and a
     padded fault-free replica); then the sweep with `replica_batch: 2`
     equal to the whole campaign."""
-    from shadow_tpu_torch.config import load_config, load_config_str
+    from shadow_tpu_torch.config import load_config
     from shadow_tpu_torch.device.engine import state_to_numpy
     from shadow_tpu_torch.device.kernels import HEAP_FIELDS, Kernels
 
     runs = report.setdefault("_parity", {})
-    for key, what, load, path in (
-            ("sweep", "examples/ensemble_seed_sweep.yaml as shipped (4 "
-             "replicas, seeds 1, 7, 13, 42; 7 hosts, 3 s)",
-             lambda x=(): load_config(SWEEP, list(x)),
-             ("pop_tgen", "judge_outbox")),
-            ("star", "STAR_PARITY_YAML (8 x 120 star, 960 hosts, 2 s) "
-             "with link faults, latency_scale [1.0, 2.0], "
-             "fault_schedule [base, none]",
-             lambda x=(): load_config_str(STAR_PARITY_YAML, [
-                 STAR_FAULTS, STAR_CAMPAIGN, *x]),
-             ("pop_tgen_ep_hier", "judge_outbox_ep_hier"))):
+    for key, what, load, path in CAMPAIGN_PARITY:
         kernels = Kernels()
         gpu, card = run_config(load(), "cuda", kernels)
         check(gpu.loop == "graph" and gpu.ok, f"campaign parity ({what}):"
@@ -6197,10 +6421,10 @@ def campaign_parity(torch, report):
             check(kernels.launches[k] > 0, f"campaign parity ({what}): "
                   f"{k} never launched")
         rounds = card.loop_stats[0]["rounds"]
-        cpu, plain = run_config(load(), "cpu")
-        same_replicas(card.final_state, plain.final_state, what,
+        cpu, plain = oracle(f"campaign:{key}", ("campaign", load))
+        same_replicas(card.final_state, plain["final_state"], what,
                       ("card graph", "cpu"))
-        check(plain.loop_stats[0]["rounds"] == rounds, f"campaign parity "
+        check(plain["rounds"] == rounds, f"campaign parity "
               f"({what}): rounds differ")
         engine = card.engine()
         state = engine.init_ensemble_state(card.sim.start_times,
@@ -6905,6 +7129,7 @@ def plan_full(torch, card, report):
             torch, "tgen_100000", TGEN_100K, TGEN_100K_HB, planned_path)
     bare, b_launches, _ = main_path_run(torch, "tgen_100000_as_shipped",
                                         TGEN_100K, (), planned_path)
+    report["_tgen_100000"] = bare
     what = "tgen_100000 (as shipped, heartbeats 5s)"
     same_run(planned, static, what, ("planned segmented",
                                      "static unsegmented"))
@@ -6980,6 +7205,401 @@ def plan_phase(torch, card, report):
     plan_full(torch, card, report)
     report.pop("_extra", None)
     report.pop("_parity", None)
+
+
+# ----------------------------------------------------------------------
+# supervision: checkpoints, the preemption drain, retry and failover
+# (device/checkpoint.py, device/supervise.py, device/chaos.py)
+# ----------------------------------------------------------------------
+# examples/tgen_100000.yaml as shipped with rotating checkpoints
+SUP_ROTATION = ("experimental.checkpoint_every=10s",
+                "experimental.checkpoint_keep=2")
+# the pause half way (phold.yaml's 10 s, the cut tor_small's 15 s)
+SUP_PHOLD_PAUSE = "5s"
+SUP_TOR_PAUSE = "7500ms"
+# tgen_10000 x 8 in batches of 4 with 10 s segments and rotation every
+# 10 s, drained after the fifth segment (the second batch's second: at
+# 20 s of its 30)
+SUP_CAMPAIGN = ("ensemble={replicas: 8, replica_batch: 4, vary: {seed: "
+                "[1, 2, 3, 4, 5, 6, 7, 8]}}",
+                "experimental.dispatch_segment=10s")
+SUP_CAMPAIGN_DRAIN_AT = 5
+# tgen_10000 in 2.5 s segments, a transient error at the fourth dispatch
+# (segment 3), rotation every 7.5 s with its third entry (22.5 s, the
+# newest) truncated: the resume lands on the second (15 s)
+SUP_RETRY = ("experimental.dispatch_segment=2500ms",
+             "experimental.dispatch_retries=2",
+             "experimental.dispatch_retry_backoff=0",
+             "experimental.checkpoint_every=7500ms",
+             "experimental.checkpoint_keep=3",
+             "experimental.chaos=[{kind: dispatch_error, segment: 3}, "
+             "{kind: checkpoint_corrupt, entry: 2}]")
+# the parity PHOLD failing over to hybrid at its third dispatch
+SUP_FAILOVER = ("experimental.dispatch_segment=250ms",
+                "experimental.dispatch_retries=0",
+                "experimental.failover=hybrid",
+                "experimental.chaos=[{kind: dispatch_error, segment: 2}]")
+
+
+def resumed(part, res, full, what):
+    """A paused (or drained) run `part` and its resume `res` against the
+    uninterrupted run `full`: the resume's per-host events and
+    checksums and totals equal, the pair's rounds summing to the
+    uninterrupted run's (`part` may be a rounds count)."""
+    rounds = part if isinstance(part, int) else part.rounds
+    check(rounds + res.rounds == full.rounds,
+          f"{what}: rounds {rounds} + {res.rounds} != {full.rounds}")
+    res = dataclasses.replace(res, rounds=full.rounds)
+    same_run(res, full, what, ("resumed", "uninterrupted"))
+
+
+def io_line(io: dict) -> str:
+    return f"{io['bytes']} B in {io['wall_s']:.3f} s"
+
+
+def run_path(stats) -> tuple:
+    """The kernels a tgen run's last engine launches: compacting (a
+    planned or adopted `outbox_compact`) K11 with the tally and K9
+    apart, else K9 with the tally folded in; a planned run also its
+    static warm-up engine's (`planned_path`)."""
+    eff = stats.occupancy["effective"]
+    path = TGEN_PATH[:4]
+    if 0 < eff["CX"] < eff["OB"]:
+        path += ("compact_outbox", "phase_tally", "loop_control")
+    else:
+        path += ("loop_control_tally",)
+    if "planned" in stats.occupancy:
+        path = tuple(sorted(set(path) | set(planned_path(stats))))
+    return path
+
+
+def drain_child(base: str, overrides) -> tuple:
+    """examples/tgen_100000.yaml through `python -m shadow_tpu_torch.cli`
+    in a child process on the card, SIGTERM sent once its first rotation
+    entry exists: (exit code, seconds from the signal to the exit, the
+    rounds it ran, its output)."""
+    import re
+    import signal
+
+    from shadow_tpu_torch.device import supervise
+
+    cmd = [sys.executable, "-m", "shadow_tpu_torch.cli",
+           os.path.join(REPO, "examples", TGEN_100K)]
+    for o in overrides:
+        cmd += ["-o", o]
+    proc = subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    try:
+        deadline = time.monotonic() + 300
+        while not supervise.rotation_entries(base):
+            check(proc.poll() is None and time.monotonic() < deadline,
+                  f"drain child: no rotation entry (rc {proc.poll()})")
+            time.sleep(0.005)
+        t0 = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        out, _ = proc.communicate(timeout=300)
+        wall = time.perf_counter() - t0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    m = re.search(r"simulation finished at \S+: .* (\d+) rounds", out)
+    check(m is not None, f"drain child: no summary line\n{out[-3000:]}")
+    return proc.returncode, wall, int(m.group(1)), out
+
+
+def supervise_full(torch, card, report, work):
+    """tgen_100000.yaml as shipped (planned, 2.5 s segments) with
+    rotating checkpoints every 10 s, keep 2: two `.t` entries, the final
+    state equal to its uninterrupted planned run, the captures, one
+    save's and one load's wall and bytes, both walls; then the same
+    config through the CLI in a child process on the card, SIGTERM once
+    the first entry exists: exit 75, the signal-to-exit wall, and the
+    resume from the base path equal to the uninterrupted run."""
+    from shadow_tpu_torch.device import supervise
+
+    runs = report.setdefault("_extra", {})
+    base = report.get("_tgen_100000")
+    if base is None:
+        base, ln, _ = main_path_run(torch, "tgen_100000_as_shipped",
+                                    TGEN_100K, (), planned_path)
+        runs["supervise_tgen_100000"] = {"launches": ln}
+    ck = os.path.join(work, "tgen_100000.npz")
+    rot, ln, peak = main_path_run(
+        torch, "tgen_100000_rotated", TGEN_100K,
+        SUP_ROTATION + (f"experimental.checkpoint_save={ck}",),
+        planned_path)
+    runs["supervise_tgen_100000_rotated"] = {"launches": ln}
+    what = "tgen_100000 rotated every 10 s, keep 2"
+    same_run(rot, base, what, ("rotated", "uninterrupted"))
+    entries = supervise.rotation_entries(ck)
+    check([t for t, _ in entries] == [10**10, 2 * 10**10],
+          f"{what}: rotation entries {entries}")
+    io = rot.pipeline["checkpoint_io"]
+    save = io["rotation"][0]
+    print(f"[supervise:tgen_100000] {what}: equal to the uninterrupted "
+          f"planned run; entries {[os.path.basename(p) for _, p in entries]}"
+          f"; a rotation save {io_line(save)}, the end-of-run save "
+          f"{io_line(io['save'])}; graph captures {rot.pipeline['graph_captures']}"
+          f" (uninterrupted {base.pipeline['graph_captures']}) over "
+          f"{rot.pipeline['engines']} engines; rotated wall "
+          f"{rot.wall_s:.3f} s against {base.wall_s:.3f} s unrotated "
+          f"(saves included); {rot.pipeline['segments']} segments; peak "
+          f"{peak} B; card {card}", flush=True)
+    dbase = os.path.join(work, "drain.npz")
+    rc, wall, rounds, out = drain_child(
+        dbase, SUP_ROTATION + (f"experimental.checkpoint_save={dbase}",))
+    check(rc == 75, f"drain child: exit {rc}\n{out[-3000:]}")
+    entries = supervise.rotation_entries(dbase)
+    res, ln, _ = main_path_run(
+        torch, "tgen_100000_resumed", TGEN_100K,
+        (f"experimental.checkpoint_load={dbase}",), run_path)
+    runs["supervise_tgen_100000_resumed"] = {"launches": ln}
+    resumed(rounds, res, base, "tgen_100000 drained and resumed")
+    load = res.pipeline["checkpoint_io"]["load"]
+    print(f"[supervise:tgen_100000_drain] the CLI child exited 75 "
+          f"{wall:.3f} s after SIGTERM, at "
+          f"{entries[-1][0] / 1e9:.1f} s of simulated time ({rounds} "
+          f"rounds); entries {[t / 1e9 for t, _ in entries]} s; the resume "
+          f"from the base path: a load {io_line(load)}, {res.rounds} "
+          f"rounds, wall {res.wall_s:.3f} s, graph captures "
+          f"{res.pipeline['graph_captures']}; equal to the uninterrupted "
+          f"run; card {card}", flush=True)
+
+
+def supervise_pauses(torch, card, report, work):
+    """`checkpoint_save_time` half way on phold.yaml (2 x 50,000 hosts)
+    and on tor_small cut to TOR_PARITY_STOP, each resumed on the card
+    and equal to its uninterrupted card run; the cut tor_small's pair
+    also equal to the CPU plain path's uninterrupted run (the parity
+    phase's, or one made here)."""
+    from shadow_tpu_torch.config import load_config
+    from shadow_tpu_torch.device import runner
+
+    full = report.get("_full", {})
+    runs = report.setdefault("_extra", {})
+    name, example, overrides, path = FULL_RUNS[0]
+    path = path + ("loop_control_tally",)
+    one = (full["phold"]["stats"] if "phold" in full else
+           main_path_run(torch, "phold", example, overrides, path)[0])
+    ck = os.path.join(work, "phold.npz")
+    part, ln, _ = main_path_run(
+        torch, "phold_paused", example, overrides + (
+            f"experimental.checkpoint_save={ck}",
+            f"experimental.checkpoint_save_time={SUP_PHOLD_PAUSE}"), path)
+    runs["supervise_phold_paused"] = {"launches": ln}
+    res, ln, _ = main_path_run(torch, "phold_resumed", example, overrides
+                               + (f"experimental.checkpoint_load={ck}",),
+                               path)
+    runs["supervise_phold_resumed"] = {"launches": ln}
+    resumed(part, res, one, "phold.yaml paused at 5 s")
+    io = part.pipeline["checkpoint_io"]["save"]
+    print(f"[supervise:phold] phold.yaml (100,000 hosts) paused at "
+          f"{SUP_PHOLD_PAUSE} ({part.rounds} rounds, {io_line(io)}) and "
+          f"resumed (a load {io_line(res.pipeline['checkpoint_io']['load'])}"
+          f", {res.rounds} rounds): equal to the uninterrupted run; card "
+          f"{card}", flush=True)
+    tor = os.path.join(REPO, "examples", "tor_small.yaml")
+    stop = [f"general.stop_time={TOR_PARITY_STOP}"]
+    tck = os.path.join(work, "tor.npz")
+
+    def tor_run(device, *extra):
+        return runner.run(load_config(tor, stop + list(extra)), device)
+
+    card_full = tor_run("cuda")
+    part = tor_run("cuda", f"experimental.checkpoint_save={tck}",
+                   f"experimental.checkpoint_save_time={SUP_TOR_PAUSE}")
+    res = tor_run("cuda", f"experimental.checkpoint_load={tck}")
+    cpu = report.get("_cpu_runs", {}).get("tor") or tor_run("cpu")
+    resumed(part, res, card_full, "cut tor_small paused")
+    resumed(part, res, cpu, "cut tor_small paused, against the cpu")
+    print(f"[supervise:tor_small] tor_small to {TOR_PARITY_STOP} paused at "
+          f"{SUP_TOR_PAUSE} ({part.rounds} rounds) and resumed on the card "
+          f"({res.rounds} rounds): equal to the card's and the CPU plain "
+          f"path's uninterrupted runs; card {card}", flush=True)
+
+
+def supervise_campaign(torch, card, report, work):
+    """tgen_10000 x 8 in replica batches of 4 with rotating checkpoints,
+    drained in its second batch (the guard's request after the sixth
+    segment) and resumed from that batch's entry: the record's replicas
+    (per-replica totals and checksums) equal to the uninterrupted
+    batched campaign's."""
+    from shadow_tpu_torch.config import load_config
+    from shadow_tpu_torch.device.engine import DeviceEngine
+    from shadow_tpu_torch.device.kernels import Kernels
+    from shadow_tpu_torch.ensemble.campaign import EnsembleRunner
+
+    path = os.path.join(REPO, "examples", "tgen_10000.yaml")
+    base = os.path.join(work, "campaign.npz")
+    rot = (f"experimental.checkpoint_save={base}",
+           "experimental.checkpoint_every=10s")
+    full = EnsembleRunner(load_config(path, list(SUP_CAMPAIGN)),
+                          "cuda").run()
+    er = EnsembleRunner(load_config(path, list(SUP_CAMPAIGN + rot)),
+                        "cuda")
+    orig, calls = DeviceEngine.run, [0]
+
+    def counted(self, state, stop=None, final_stop=None):
+        out = orig(self, state, stop=stop, final_stop=final_stop)
+        calls[0] += 1
+        if calls[0] == SUP_CAMPAIGN_DRAIN_AT:
+            er.guard.request()
+        return out
+
+    DeviceEngine.run = counted
+    try:
+        pre = er.run()
+    finally:
+        DeviceEngine.run = orig
+    check(pre.preempted and ".b1.t" in pre.resume_path,
+          f"campaign drain: preempted {pre.preempted}, {pre.resume_path}")
+    kernels = Kernels()
+    res = EnsembleRunner(load_config(path, list(SUP_CAMPAIGN + rot) + [
+        f"experimental.checkpoint_load={base}.b1"]), "cuda",
+        kernels).run()
+    check(res.ok and res.ensemble["replicas"] == full.ensemble["replicas"],
+          "campaign drained and resumed: the replicas differ from the "
+          "uninterrupted campaign's")
+    report.setdefault("_extra", {})["supervise_campaign_resumed"] = {
+        "launches": dict(kernels.launches)}
+    saves = pre.pipeline["checkpoint_io"]["rotation"]
+    print(f"[supervise:campaign] tgen_10000 x 8, replica_batch 4, drained "
+          f"at {pre.end_time / 1e9:.1f} s of batch 1 ({pre.resume_path}, "
+          f"{len(saves)} rotation saves, e.g. {io_line(saves[-1])}) and "
+          f"resumed (a load {io_line(res.pipeline['checkpoint_io']['load'])}"
+          f"): every replica equal to the uninterrupted campaign; walls "
+          f"{full.wall_s:.3f} s uninterrupted, {pre.wall_s:.3f} + "
+          f"{res.wall_s:.3f} s drained and resumed; card {card}", flush=True)
+
+
+def supervise_retry(torch, card, report, work):
+    """tgen_10000 in 2.5 s segments, a scripted transient error at
+    segment 3 retried once from the validated copy (equal to the
+    uninterrupted run, the replay's wall printed), its third rotation
+    entry truncated by the chaos schedule: the base path resolves to the
+    second, whose resume finishes equal. Then the parity PHOLD under
+    `failover: hybrid` with one error and no retry: the hybrid rerun has
+    the device run's traces, and its checkpoint resumes on the card to
+    the same result."""
+    from shadow_tpu_torch.config import load_config_str
+    from shadow_tpu_torch.device import runner, supervise
+
+    full = report.get("_full", {})
+    path = TGEN_PATH[:4] + ("loop_control_tally",)
+    one = (full["tgen_10000"]["stats"] if "tgen_10000" in full else
+           main_path_run(torch, "tgen_10000", "tgen_10000.yaml", (),
+                         path)[0])
+    base = os.path.join(work, "retry.npz")
+    st, ln, _ = main_path_run(torch, "tgen_10000_retry", "tgen_10000.yaml",
+                              SUP_RETRY + (f"experimental.checkpoint_save="
+                                           f"{base}",), path)
+    report.setdefault("_extra", {})["supervise_tgen_10000_retry"] = {
+        "launches": ln}
+    p = st.pipeline
+    check(st.retries == 1 and p["replayed"] == 1,
+          f"retry: retries {st.retries}, replayed {p['replayed']}")
+    same_run(st, one, "tgen_10000 retried", ("retried", "uninterrupted"))
+    entries = supervise.rotation_entries(base)
+    os.unlink(base)
+    got = supervise.resolve_checkpoint(base)
+    check([t for t, _ in entries] == [75 * 10**8, 15 * 10**9,
+                                      225 * 10**8] and got == entries[1][1],
+          f"corrupt entry: entries {entries}, resolved {got}")
+    res, ln, _ = main_path_run(torch, "tgen_10000_corrupt_resume",
+                               "tgen_10000.yaml",
+                               (f"experimental.checkpoint_load={base}",),
+                               path)
+    report["_extra"]["supervise_tgen_10000_corrupt_resume"] = {
+        "launches": ln}
+    # the rounds before 15 s are not recorded apart: the resume's
+    # totals and checksums against the uninterrupted run's
+    same_run(dataclasses.replace(res, rounds=one.rounds), one,
+             "tgen_10000 resumed past a corrupt entry",
+             ("resumed", "uninterrupted"))
+    print(f"[supervise:retry] tgen_10000 in 2.5 s segments, a scripted "
+          f"UNAVAILABLE at segment 3: {st.retries} retry, the copy put "
+          f"back in {p['recover_s'][0] * 1e3:.3f} ms, the replayed segment "
+          f"{p['replay_s'][0] * 1e3:.3f} ms, graph captures "
+          f"{p['graph_captures']}, wall {st.wall_s:.3f} s against "
+          f"{one.wall_s:.3f} s; equal to the uninterrupted run. Entry 2 "
+          f"truncated: {os.path.basename(got)} resolved and resumed equal "
+          f"({res.rounds} rounds); card {card}", flush=True)
+    fo_ck = os.path.join(work, "failover.npz")
+    plain = runner.run(load_config_str(PARITY_YAML), "cuda")
+    fo = runner.run(load_config_str(PARITY_YAML, list(SUP_FAILOVER) + [
+        f"experimental.checkpoint_save={fo_ck}"]), "cuda")
+    check(fo.policy == "hybrid" and fo.failover_checkpoint ==
+          fo_ck + ".failover", f"failover: policy {fo.policy}, "
+          f"checkpoint {fo.failover_checkpoint!r}")
+    for f in ("events_executed", "packets_sent", "packets_dropped",
+              "packets_delivered"):
+        check(getattr(fo, f) == getattr(plain, f),
+              f"failover: {f} {getattr(fo, f)} != {getattr(plain, f)}")
+    check(np.array_equal(fo.host_trace_checksum, plain.host_trace_checksum),
+          "failover: the hybrid rerun's checksums differ")
+    res = runner.run(load_config_str(PARITY_YAML, [
+        f"experimental.checkpoint_load={fo.failover_checkpoint}"]), "cuda")
+    check(res.loop == "graph", "failover resume: not the graph loop")
+    # the failed device run's rounds are not reported: totals and
+    # checksums against the uninterrupted device run's
+    same_run(dataclasses.replace(res, rounds=plain.rounds), plain,
+             "the failover checkpoint resumed", ("resumed", "device"))
+    print(f"[supervise:failover] the parity PHOLD, one scripted error, no "
+          f"retry: the hybrid rerun ({fo.wall_s:.3f} s) equal to the "
+          f"device run ({plain.wall_s:.3f} s); {fo.failover_checkpoint} "
+          f"resumed on the card ({res.rounds} rounds) equal; card {card}",
+          flush=True)
+
+
+def supervise_phase(torch, card, report):
+    """Checkpoints, the drain, retry and failover on the card; every
+    check bit-equal in per-host events and checksums, totals and
+    rounds (a resumed pair's rounds summed)."""
+    work = tempfile.mkdtemp(prefix="chip_smoke_ck_")
+    try:
+        supervise_full(torch, card, report, work)
+        supervise_pauses(torch, card, report, work)
+        supervise_campaign(torch, card, report, work)
+        supervise_retry(torch, card, report, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def mesh_supervise(torch, card, report, spawned):
+    """phold.yaml (2 x 50,000 hosts) on 2 ranks, saved half way and
+    resumed on 2 ranks (both in `mesh_card_runs`' S = 2 spawn), equal to
+    one device; its checkpoint refused on 4 ranks with the reference's
+    geometry message."""
+    from shadow_tpu_torch.device import runner
+
+    full = report.get("_full", {})
+    name, example, overrides, _, _, _ = MESH_FULL[0]
+    one = (full["phold"]["stats"] if "phold" in full else runner.run(
+        full_config(example, FULL_RUNS[0][2]), device="cuda"))
+    ck = os.path.join(spawned["work"], "phold_s2.npz")
+    part, res = (spawned["supervise"][k] for k in ("save", "resume"))
+    resumed(part, res, one, "phold.yaml S = 2 paused at 5 s")
+    try:
+        runner.mesh_runs(["cuda:0"] * 4, [full_config(
+            example, overrides + ("experimental.mesh_shards=4",
+                                  f"experimental.checkpoint_load={ck}"))])
+        refused = ""
+    except ValueError as e:
+        refused = str(e)
+    check("saved on 2 shard(s) (H_pad 100000), loading on 4" in refused,
+          f"mesh resume at S = 4: {refused!r}")
+    report.setdefault("_mesh_full", {})["phold_s2_resumed"] = {
+        "launches": res.mesh["launches"]}
+    whole = report.get("_mesh_full", {}).get(name, {}).get("wall_s")
+    print(f"[mesh:supervise] phold.yaml at S = 2 saved at "
+          f"{SUP_PHOLD_PAUSE} ({part.wall_s:.3f} s, the save "
+          f"{io_line(part.pipeline['checkpoint_io']['save'])}, the "
+          f"ranks' leaves gathered to rank 0) and resumed at S = 2 "
+          f"({res.wall_s:.3f} s; uninterrupted "
+          + (f"{whole:.3f} s" if whole else "not run in this call")
+          + f"): equal to one device; at S = 4 refused: "
+          f"{refused.split(' — ')[0]}; card {card}", flush=True)
 
 
 # ----------------------------------------------------------------------
@@ -7064,22 +7684,11 @@ def mesh_launch_check(stats, what, app, exchange):
           "path")
 
 
-def mesh_parity(torch, report):
-    """S = 2 and 4 ranks spawned on device 0 over gloo (mesh_runs on
-    ["cuda:0"] * S): the PHOLD and tgen configs under every schedule and
-    merge at S = 4, the Tor and star configs under each schedule once,
-    every config under all_to_all at S = 2, each held against the
-    one-device card run (traces, totals, every per-host leaf but occ_in,
-    the phases) and, for a2a/window at S = 2 and two_phase/global at
-    S = 4, against the same ranks on the CPU plain path (every leaf);
-    then an
-    undersized capacity per schedule that has one (the PHOLD, S = 4:
-    the direct pack, two_phase's phase 1 and its phase 2), card against
-    CPU, x_overflow equal per sender and the run not ok."""
-    import concurrent.futures as cf
-
-    from shadow_tpu_torch.device import runner
-
+def mesh_parity_jobs():
+    """mesh_parity's configs: the card's runs {key: (config, what, (pop,
+    judge), exchange)}, the CPU ranks' {key: config}, the undersized
+    capacities {key: config} (card and CPU), the planned tgen {key:
+    config} and the one-device runs {config key: config}."""
     cards = {}
     cpu = {}
     one = {}
@@ -7107,35 +7716,107 @@ def mesh_parity(torch, report):
         "over/two_phase_phase2": phold(mesh_overrides(
             4, "two_phase", "global", (
                 "experimental.exchange_capacity2=4",)))}
-    cpu.update(over)
     # the planned tgen (MESH_PLAN) rides each S's card spawn
     tgen_load = next(c[2] for c in mesh_parity_configs() if c[0] == "tgen")
     planned = {f"tgen_plan/{S}": tgen_load((f"experimental.mesh_shards={S}",
                                             *MESH_PLAN)) for S in (2, 4)}
+    return cards, cpu, over, planned, one
+
+
+def mesh_cpu_configs() -> dict:
+    """{S: {key: config}} of the CPU ranks mesh_parity holds the card's
+    ranks to (a CPU oracle: `start_oracles`)."""
+    _, cpu, over, _, _ = mesh_parity_jobs()
+    return {2: {k: c for k, c in cpu.items() if k.endswith("/2")},
+            4: {**{k: c for k, c in cpu.items() if k.endswith("/4")},
+                **over}}
+
+
+def mesh_card_runs(torch, report) -> dict:
+    """Every card run of the mesh phase in two spawns, one at S = 2 and
+    one at S = 4 (a spawn's rank processes take about 20 s to reach the
+    card): mesh_parity's runs (leaves kept), its K13 run in timing
+    mode, MESH_FULL's runs untimed and in timing mode, and
+    mesh_supervise's save half way and resume (S = 2, in this order, so
+    that the resume finds the checkpoint). Returns {"card": {key:
+    (stats, leaves)}, "k13": stats, "full": {name: (stats, timed)},
+    "supervise": (saved, resumed), "work": the checkpoints' directory,
+    "wall_s": the spawns' wall}."""
+    from shadow_tpu_torch.device import runner
+
+    cards, _, over, planned, _ = mesh_parity_jobs()
+    phold = mesh_parity_configs()[0][2]
+    name, example, overrides, _, _, _ = MESH_FULL[0]
+    work = tempfile.mkdtemp(prefix="chip_smoke_mesh_ck_")
+    ck = os.path.join(work, "phold_s2.npz")
+    sup = {"save": full_config(example, overrides + (
+               "experimental.mesh_shards=2",
+               f"experimental.checkpoint_save={ck}",
+               f"experimental.checkpoint_save_time={SUP_PHOLD_PAUSE}")),
+           "resume": full_config(example, overrides + (
+               "experimental.mesh_shards=2",
+               f"experimental.checkpoint_load={ck}"))}
+    out = {"card": {}, "full": {}, "work": work}
     t0 = time.perf_counter()
-    with cf.ThreadPoolExecutor(1) as pool:
-        # the CPU ranks run beside the card's
-        cpu_runs = {S: pool.submit(
-            runner.mesh_runs, ["cpu"] * S,
-            [c for k, c in cpu.items() if k.endswith(f"/{S}")
-             or (S == 4 and k.startswith("over/"))], True)
-            for S in (2, 4)}
-        card = {}
-        for S in (2, 4):
-            keys = [k for k in cards if k.endswith(f"/{S}")]
-            res = runner.mesh_runs(["cuda:0"] * S,
-                                   [cards[k][0] for k in keys]
-                                   + [planned[f"tgen_plan/{S}"]], True)
-            card.update(zip(keys + [f"tgen_plan/{S}"], res))
-        over_keys = list(over)
-        res = runner.mesh_runs(["cuda:0"] * 4, list(over.values()), True)
-        card.update(zip(over_keys, res))
-        cpu_res = {}
-        for S in (2, 4):
-            keys = [k for k in cpu if k.endswith(f"/{S}")
-                    or (S == 4 and k.startswith("over/"))]
-            cpu_res.update(zip(keys, cpu_runs[S].result()))
-    card_s = time.perf_counter() - t0
+    for S in (2, 4):
+        # (key, config, keep the leaves, timing mode)
+        jobs = [(k, cards[k][0], True, False) for k in cards
+                if k.endswith(f"/{S}")]
+        jobs.append((f"tgen_plan/{S}", planned[f"tgen_plan/{S}"], True,
+                     False))
+        if S == 4:
+            jobs += [(k, c, True, False) for k, c in over.items()]
+            # K13's device ms over real launches: the PHOLD's
+            # two_phase/global run again in timing mode
+            jobs.append(("k13", phold(mesh_overrides(4, "two_phase",
+                                                     "global")),
+                         False, True))
+        for fname, fexample, fover, fS, _, _ in MESH_FULL:
+            if fS == S:
+                cfg = full_config(fexample, fover + (
+                    f"experimental.mesh_shards={S}",))
+                jobs += [(("full", fname), cfg, False, False),
+                         (("timed", fname), cfg, False, True)]
+        if S == 2:
+            jobs += [(("supervise", k), c, False, False)
+                     for k, c in sup.items()]
+        res = runner.mesh_runs(["cuda:0"] * S, [j[1] for j in jobs],
+                               [j[2] for j in jobs], [j[3] for j in jobs])
+        for (key, *_), r in zip(jobs, res):
+            if key == "k13":
+                out["k13"] = r[0]
+            elif isinstance(key, tuple) and key[0] in ("full", "timed"):
+                out["full"].setdefault(key[1], {})[key[0]] = r[0]
+            elif isinstance(key, tuple):
+                out.setdefault("supervise", {})[key[1]] = r[0]
+            else:
+                out["card"][key] = r
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"[mesh] the card's runs: {sum(1 for _ in out['card'])} parity "
+          f"runs, the K13 timing run, {2 * len(out['full'])} full runs "
+          f"and the S = 2 save and resume in two spawns (S = 2, 4), "
+          f"{out['wall_s']:.1f} s", flush=True)
+    return out
+
+
+def mesh_parity(torch, report, runs):
+    """S = 2 and 4 ranks spawned on device 0 over gloo (`spawned`, from
+    `mesh_card_runs`): the PHOLD and tgen configs under every schedule and
+    merge at S = 4, the Tor and star configs under each schedule once,
+    every config under all_to_all at S = 2, each held against the
+    one-device card run (traces, totals, every per-host leaf but occ_in,
+    the phases) and, for a2a/window at S = 2 and two_phase/global at
+    S = 4, against the same ranks on the CPU plain path (every leaf);
+    then an
+    undersized capacity per schedule that has one (the PHOLD, S = 4:
+    the direct pack, two_phase's phase 1 and its phase 2), card against
+    CPU, x_overflow equal per sender and the run not ok."""
+    cards, cpu, over, planned, one = mesh_parity_jobs()
+    card = runs["card"]
+    cpu_res = {}
+    for S, cfgs in mesh_cpu_configs().items():
+        cpu_res.update(zip(cfgs, oracle(f"mesh:{S}", ("mesh", S, list(
+            cfgs.values())))))
     singles = {key: engine_run(cfg, "cuda") for key, cfg in one.items()}
     for k, (cfg, what, pop, x) in cards.items():
         stats, leaves = card[k]
@@ -7173,16 +7854,14 @@ def mesh_parity(torch, report):
           f"undersized capacities " + ", ".join(
               f"{k[5:]} x_overflow {card[k][0].x_overflow} (senders "
               f"{np.flatnonzero(card[k][1]['x_overflow']).tolist()[:6]})"
-              for k in over) + f"; {card_s:.1f} s", flush=True)
+              for k in over), flush=True)
     report["_mesh_parity"] = {k: {"launches": v[0].mesh["launches"]}
                               for k, v in card.items()}
     # K13's device ms over real launches: the PHOLD's two_phase/global S
     # = 4 run again in timing mode (every rank's launches summed; the
     # four rank processes share the card, which stretches each launch's
     # events: two_phase_real_rows times K13 in one process)
-    (timed, _), = runner.mesh_runs(
-        ["cuda:0"] * 4, [phold(mesh_overrides(4, "two_phase", "global"))],
-        timing=True)
+    timed = runs["k13"]
     same_run(timed, card["phold/two_phase/global/4"][0],
              "mesh two_phase/global S=4, timed", ("timed", "untimed"))
     k13 = {k: (timed.mesh["launches"].get(k, 0),
@@ -7199,7 +7878,7 @@ def mesh_parity(torch, report):
               for k, (n, v) in k13.items()), flush=True)
 
 
-def mesh_full(torch, card, report):
+def mesh_full(torch, card, report, spawned):
     """The mesh's full runs (MESH_FULL) on device 0 over gloo, each
     untimed for its wall beside the one-device graph wall of the same
     call, then in timing mode for the flush's split per rank: the pops
@@ -7218,10 +7897,8 @@ def mesh_full(torch, card, report):
             base = runner.run(full_config(example, overrides[:-1]),
                               device="cuda")
             base_wall = base.wall_s
-        cfg = full_config(example, overrides + (
-            f"experimental.mesh_shards={S}",))
-        (stats, _), = runner.mesh_runs(["cuda:0"] * S, [cfg])
-        (timed, _), = runner.mesh_runs(["cuda:0"] * S, [cfg], timing=True)
+        stats = spawned["full"][name]["full"]
+        timed = spawned["full"][name]["timed"]
         what = f"{name} ({S} ranks, gloo on device 0)"
         check(stats.ok and stats.x_overflow == 0 and stats.overflow == 0,
               f"mesh full {what}: overflow {stats.overflow}, x_overflow "
@@ -7270,6 +7947,8 @@ def mesh_flush(torch, report):
     device 0 against the same 2 ranks on the CPU plain path: every leaf
     equal, so K2 judged every host. The job: the mesh's PHOLD config
     paused at half its stop time on one card, popped once."""
+    import concurrent.futures as cf
+
     from shadow_tpu_torch.device import kernels as K
     from shadow_tpu_torch.device import mesh, runner
     from shadow_tpu_torch.device.engine import state_to_numpy
@@ -7295,8 +7974,12 @@ def mesh_flush(torch, report):
     sends = int(((rows["t"] < K.INF) & ((rows["m"] & 0xFF) == 2)).sum())
     check(sends > 0, "mesh flush: no send row to judge")
     job = [(cfg, leaves, rows, win_end)]
-    got = {dev: mesh.spawn([dev] * S, runner.flush_phases, (job,),
-                           timeout=300)[0] for dev in ("cuda:0", "cpu")}
+    # the card's ranks and the CPU's side by side
+    with cf.ThreadPoolExecutor(2) as pool:
+        got = {dev: pool.submit(mesh.spawn, [dev] * S, runner.flush_phases,
+                                (job,), timeout=300)
+               for dev in ("cuda:0", "cpu")}
+        got = {dev: f.result()[0] for dev, f in got.items()}
     err = max_abs_err({k: torch.from_numpy(v) for k, v in
                        got["cuda:0"].items()},
                       {k: torch.from_numpy(v) for k, v in
@@ -7319,8 +8002,13 @@ def mesh_phase(torch, card, report):
           f"S ranks on device 0 take the {mesh_backend(['cuda:0'] * 2)} "
           "backend", flush=True)
     mesh_flush(torch, report)
-    mesh_parity(torch, report)
-    mesh_full(torch, card, report)
+    spawned = mesh_card_runs(torch, report)
+    try:
+        mesh_parity(torch, report, spawned)
+        mesh_full(torch, card, report, spawned)
+        mesh_supervise(torch, card, report, spawned)
+    finally:
+        shutil.rmtree(spawned["work"], ignore_errors=True)
 
 
 def boot_phase(torch, card):
@@ -7838,13 +8526,28 @@ def main(argv=None) -> int:
                            ("kernels", lambda: kernels_phase(torch, report)),
                            ("parity", lambda: parity_phase(torch, report)),
                            ("full", lambda: full_phase(torch, card, report)),
+                           ("supervise",
+                            lambda: supervise_phase(torch, card, report)),
                            ("mesh", lambda: mesh_phase(torch, card, report)),
                            ("boot", lambda: boot_phase(torch, card))):
-            if phase in phases:
-                t1 = time.perf_counter()
-                run()
-                print(f"[{phase}] phase took "
-                      f"{time.perf_counter() - t1:.1f} s", flush=True)
+            if phase not in phases:
+                continue
+            if phase in ("parity", "full", "mesh") and ORACLES is None:
+                start_oracles(phases)
+            if phase == "full" and ORACLES is not None:
+                print(f"[oracles] waited {ORACLES.finish():.1f} s for the "
+                      "CPU oracles still running, so that none runs beside "
+                      "the timed phases", flush=True)
+            t1 = time.perf_counter()
+            run()
+            print(f"[{phase}] phase took "
+                  f"{time.perf_counter() - t1:.1f} s", flush=True)
+        if ORACLES is not None:
+            check(not ORACLES.jobs, f"CPU oracles never read: "
+                  f"{sorted(ORACLES.jobs)}")
+            print(f"[oracles] the CPU oracles, started after the kernels "
+                  f"phase, kept the phases that read them waiting "
+                  f"{ORACLES.waited_s:.1f} s", flush=True)
         if "kernels" in phases and "full" in phases:
             print(kernels_line(report), flush=True)
         print(f"card: {card}", flush=True)
@@ -7852,6 +8555,8 @@ def main(argv=None) -> int:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     finally:
+        if ORACLES is not None:
+            ORACLES.close()
         shutil.rmtree(records, ignore_errors=True)
     print(result_line(torch.cuda.get_device_name(0)), flush=True)
     return 0

@@ -11,7 +11,11 @@ with the judge on the card (or on the CPU with --device cpu) for
 faults, mixed model families), the CPU engine alone for `serial`, which
 touches no device; and prints the reference CLI's "simulation finished"
 summary line. A config with an `ensemble:` block runs its campaign
-(ensemble/campaign.py) and logs the reference's campaign line too.
+(ensemble/campaign.py) and logs the reference's campaign line too. A
+run the preemption drain stopped (SIGTERM or SIGINT under
+`checkpoint_save` with segment boundaries, device/supervise.py) exits
+75 after saving its resume checkpoint; rerun with
+`-o experimental.checkpoint_load=<path>` to finish it.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from shadow_tpu_torch import simtime
 from shadow_tpu_torch.config import load_config
 from shadow_tpu_torch.device import capacity, runner
 from shadow_tpu_torch.device.engine import NoCudaDevice
+from shadow_tpu_torch.device.supervise import EXIT_PREEMPTED
 
 log = logging.getLogger("shadow_tpu_torch")
 
@@ -90,6 +95,14 @@ def main(argv=None) -> int:
                     .heartbeat_stale_after)
     if stats.admission is not None:
         log.info("%s", capacity.verdict_line(stats.admission))
+    if stats.preempted:
+        # a graceful preemption (device/supervise.py): incomplete but
+        # resumable, a distinct rc (75, EX_TEMPFAIL)
+        log.warning("preempted at %s — resume with "
+                    "experimental.checkpoint_load: %s (rc %d)",
+                    simtime.format_time(stats.end_time),
+                    stats.resume_path, EXIT_PREEMPTED)
+        return EXIT_PREEMPTED
     if not stats.ok:
         log.error("device engine overflow: %d events lost — raise "
                   "experimental.event_capacity/outbox_capacity/"

@@ -44,17 +44,13 @@ LATER_EXPERIMENTAL = {
          "router_static_capacity"),
         "queue (a) item 10 (the socket stack and the threaded CPU "
         "policies)"),
-    **dict.fromkeys(
-        ("checkpoint_save", "checkpoint_save_time", "checkpoint_load",
-         "checkpoint_every", "checkpoint_keep"),
-        "queue (a) item 7b (checkpoints)"),
     **dict.fromkeys(("telemetry", "telemetry_path", "artifacts_dir"),
                     "queue (a) item 7c (the object build, telemetry and "
                     "artifacts keys)"),
     **dict.fromkeys(
-        ("dispatch_retries", "dispatch_retry_backoff", "failover",
-         "chaos", "round_watchdog", "round_watchdog_dump"),
-        "queue (a) item 13 (the robustness layer)"),
+        ("round_watchdog", "round_watchdog_dump"),
+        "queue (a) item 13 (the robustness layer: the round "
+        "watchdog)"),
     "pipeline_depth": "queue (a) item 13 (the robustness layer: "
                       "pipelined segment dispatch)",
     **dict.fromkeys(("compile_cache", "compile_cache_cap_mb"),
@@ -205,6 +201,9 @@ class GeneralOptions:
     # runner and a campaign cut a segment at every multiple of it and
     # log the heartbeat lines there (device/supervise.py `advance`)
     heartbeat_interval: int = 0
+    # where a hybrid failover without checkpoint_save leaves the last
+    # validated device state (device/supervise.py `_escalate`)
+    data_directory: str = "shadow.data"
 
     @classmethod
     def from_dict(cls, d: dict) -> "GeneralOptions":
@@ -223,6 +222,7 @@ class GeneralOptions:
             bootstrap_end_time=parse_time_ns(d.get("bootstrap_end_time", 0)),
             heartbeat_interval=parse_time_ns(
                 d.get("heartbeat_interval", 0) or 0),
+            data_directory=d.get("data_directory", "shadow.data"),
         )
 
 
@@ -405,6 +405,30 @@ class ExperimentalOptions:
     # the reference's rounds per device while_loop; read by none of its
     # runners, accepted without effect
     device_batch_rounds: int = 64
+    # device-state checkpoints (device/checkpoint.py): checkpoint_save
+    # writes the state at checkpoint_save_time (0 = at stop_time) and
+    # pauses the run there; checkpoint_load resumes one (a rotation
+    # base path resolves to its newest readable entry); every
+    # `checkpoint_every` sim ns a supervised run writes the rotation
+    # entry <checkpoint_save>.t<ns>, the last `checkpoint_keep` kept
+    # (device/supervise.py)
+    checkpoint_save: str = ""
+    checkpoint_save_time: int = 0
+    checkpoint_load: str = ""
+    checkpoint_every: int = 0
+    checkpoint_keep: int = 3
+    # transient dispatch errors retried from the last validated state,
+    # at most this many CONSECUTIVE times, after a backoff doubling from
+    # `dispatch_retry_backoff` seconds (30 s cap); then `failover`:
+    # "abort" fails the run, "hybrid" saves the validated state to
+    # <checkpoint_save>.failover and reruns on the hybrid policy
+    # ("shrink" is validated, and refused: ROADMAP.md item 13)
+    dispatch_retries: int = 0
+    dispatch_retry_backoff: float = 0.5
+    failover: str = "abort"
+    # deterministic fault injection (device/chaos.py): validated
+    # ChaosEvents
+    chaos: list = field(default_factory=list)
     # reference keys set in the config that the port does not run yet
     later: dict = field(default_factory=dict)
 
@@ -419,7 +443,11 @@ class ExperimentalOptions:
                "exchange", "exchange_capacity", "exchange_capacity2",
                "capacity_plan", "capacity_warmup", "capacity_headroom",
                "dispatch_segment", "heartbeat_stale_after",
-               "device_batch_rounds"}
+               "device_batch_rounds", "checkpoint_save",
+               "checkpoint_save_time", "checkpoint_load",
+               "checkpoint_every", "checkpoint_keep",
+               "dispatch_retries", "dispatch_retry_backoff",
+               "failover", "chaos"}
         _check_keys("experimental", d,
                     own | set(LAYOUT_VARIANTS) | set(LATER_EXPERIMENTAL))
         out = cls(later={k: v for k, v in d.items()
@@ -428,16 +456,18 @@ class ExperimentalOptions:
             v = d[name]
             if name == "runahead":
                 v = parse_time_ns(v) if v is not None else None
-            elif name in ("dispatch_segment", "capacity_warmup"):
+            elif name in ("dispatch_segment", "capacity_warmup",
+                          "checkpoint_save_time", "checkpoint_every"):
                 v = parse_time_ns(v)
-            elif name == "capacity_headroom":
+            elif name in ("capacity_headroom", "dispatch_retry_backoff"):
                 v = float(v)
             elif name in ("event_capacity", "outbox_capacity",
                           "exchange_in_capacity", "burst_pops",
                           "outbox_compact", "hybrid_judge_min_batch",
                           "mesh_shards", "exchange_capacity",
                           "exchange_capacity2", "heartbeat_stale_after",
-                          "device_batch_rounds"):
+                          "device_batch_rounds", "checkpoint_keep",
+                          "dispatch_retries"):
                 v = int(v)
             elif name == "device_memory_budget":
                 v = parse_size_bytes(v)
@@ -537,7 +567,70 @@ class ExperimentalOptions:
                 "experimental.device_memory_budget bounds the DEVICE "
                 "engine's footprint and requires scheduler_policy: "
                 "tpu")
+        _check_supervision(out)
         return out
+
+
+def _check_supervision(out: "ExperimentalOptions") -> None:
+    """The checkpoint, retry, failover and chaos keys, validated as the
+    reference validates them (schema.py:748-886), with its messages."""
+    if out.checkpoint_save_time and not out.checkpoint_save:
+        raise ValueError(
+            "experimental.checkpoint_save_time is set but "
+            "checkpoint_save (the output path) is not — the "
+            "pause time would be silently ignored")
+    if (out.checkpoint_save or out.checkpoint_load) and \
+            out.scheduler_policy != "tpu":
+        raise ValueError(
+            "experimental.checkpoint_save/load: device-state "
+            "checkpointing requires scheduler_policy: tpu (CPU "
+            "policies execute managed OS processes, whose state "
+            "is not checkpointable — the reference has the same "
+            "limitation, i.e. no checkpoint at all)")
+    _check_choice("experimental", "failover", out.failover,
+                  ("abort", "shrink", "hybrid"))
+    if out.chaos:
+        from shadow_tpu_torch.device.chaos import events_from_config
+
+        out.chaos = events_from_config(out.chaos)
+        if out.scheduler_policy != "tpu":
+            raise ValueError(
+                "experimental.chaos injects faults at the DEVICE "
+                "supervise/engine seams and requires "
+                "scheduler_policy: tpu")
+    if out.checkpoint_every:
+        if not out.checkpoint_save:
+            raise ValueError(
+                "experimental.checkpoint_every is set but "
+                "checkpoint_save (the rotation base path) is not "
+                "— periodic checkpoints would have nowhere to go")
+        if out.checkpoint_save_time:
+            raise ValueError(
+                "experimental.checkpoint_every cannot combine "
+                "with checkpoint_save_time: periodic supervision "
+                "runs to stop_time writing rotating checkpoints, "
+                "while checkpoint_save_time pauses the run at one "
+                "boundary — pick one")
+    if out.state_audit and out.scheduler_policy != "tpu":
+        raise ValueError(
+            "experimental.state_audit compiles the invariant "
+            "audit into the DEVICE round program and requires "
+            "scheduler_policy: tpu")
+    if (out.dispatch_retries or out.failover != "abort") and \
+            out.scheduler_policy != "tpu":
+        raise ValueError(
+            "experimental.dispatch_retries/failover supervise "
+            "DEVICE dispatches and require scheduler_policy: tpu")
+    if out.dispatch_retry_backoff < 0:
+        raise ValueError(
+            "experimental.dispatch_retry_backoff must be >= 0")
+    for name, minimum in (("checkpoint_save_time", 0),
+                          ("checkpoint_every", 0),
+                          ("checkpoint_keep", 1),
+                          ("dispatch_retries", 0)):
+        if getattr(out, name) < minimum:
+            raise ValueError(
+                f"experimental.{name} must be >= {minimum}")
 
 
 # ensemble vary axes: per-replica values that change array VALUES on
@@ -692,9 +785,8 @@ class ConfigOptions:
             hosts=hosts,
             ensemble=ensemble,
         )
-        # the reference's campaign rules; the keys of the runner's
-        # later items sit raw in `experimental.later`
-        later = out.experimental.later
+        # the reference's campaign rules
+        xp = out.experimental
         if ensemble is not None and \
                 out.experimental.scheduler_policy != "tpu":
             raise ValueError(
@@ -702,7 +794,7 @@ class ConfigOptions:
                 "device program and require "
                 "experimental.scheduler_policy: tpu (run replicas as "
                 "separate processes on CPU policies)")
-        if ensemble is not None and later.get("failover") == "hybrid":
+        if ensemble is not None and xp.failover == "hybrid":
             raise ValueError(
                 "ensemble: experimental.failover: hybrid is not "
                 "available for campaigns (CPU host emulation cannot "
@@ -712,7 +804,7 @@ class ConfigOptions:
                 "retries fail loudly with the last validated "
                 "checkpoint on disk")
         if ensemble is not None and ensemble.replica_batch and \
-                later.get("checkpoint_save_time"):
+                xp.checkpoint_save_time:
             raise ValueError(
                 "ensemble.replica_batch cannot combine with "
                 "checkpoint_save_time: every sequential batch replays "
@@ -720,8 +812,7 @@ class ConfigOptions:
                 "pause point to save at — use checkpoint_every for "
                 "supervised/preemptible batched campaigns")
         if ensemble is not None and ensemble.replica_batch and \
-                later.get("checkpoint_save") and \
-                not later.get("checkpoint_every"):
+                xp.checkpoint_save and not xp.checkpoint_every:
             raise ValueError(
                 "ensemble.replica_batch with checkpoint_save needs "
                 "checkpoint_every: a batched campaign never "

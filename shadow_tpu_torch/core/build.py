@@ -83,6 +83,8 @@ HYBRID = "running hybrid (CPU hosts + device net model)"
 HOST_FAULTS_HYBRID = ("host_crash/host_restart faults are manager-side "
                       "events; running hybrid")
 ITEM_10 = "queue (a) item 10"
+ITEM_13 = "queue (a) item 13"
+ITEM_14 = "queue (a) item 14"
 ITEM_9 = ("queue (a) item 9 (multi-GPU: the audit, the model NIC, the "
           "path counters, campaigns and the hybrid policy over the mesh)")
 
@@ -101,6 +103,7 @@ def check_slice(cfg: ConfigOptions) -> None:
                 f"{ITEM_10} (real processes)")
     for key in xp.later:
         _refuse(f"experimental.{key}", LATER_EXPERIMENTAL[key])
+    check_supervision(cfg)
     _, host_faults = split_events(cfg.network.faults)
     if xp.mesh_shards > 1:
         check_mesh(cfg, host_faults)
@@ -135,10 +138,39 @@ def check_mesh(cfg: ConfigOptions, host_faults) -> None:
     for key in ("state_audit", "model_bandwidth", "count_paths"):
         if getattr(xp, key):
             _refuse(f"experimental.{key} {where}", ITEM_9)
+    for key, off in (("dispatch_retries", 0), ("failover", "abort"),
+                     ("chaos", [])):
+        if getattr(xp, key) != off:
+            _refuse(f"experimental.{key} {where}",
+                    f"{ITEM_13} (dispatch retry, failover and chaos on "
+                    "a mesh, with its shrink)")
     if cfg.ensemble is not None:
         _refuse(f"an ensemble campaign {where}", ITEM_9)
     if host_faults:
         _refuse(f"host faults (the hybrid fall-back) {where}", ITEM_9)
+
+
+def check_supervision(cfg: ConfigOptions) -> None:
+    """What of the robustness layer the port does not run yet: the
+    mesh shrink (`failover: shrink`) and the chaos kinds of its other
+    seams (a device loss and a scripted out-of-memory error: item 13;
+    the compile cache's store and the campaign server: item 14)."""
+    xp = cfg.experimental
+    if xp.failover == "shrink":
+        _refuse("experimental.failover: shrink (the mesh shrink, "
+                "capacity.reshard_state)", f"{ITEM_13} (the mesh "
+                "shrink)")
+    for ev in xp.chaos:
+        if ev.kind in ("device_loss", "oom"):
+            _refuse(f"experimental.chaos kind {ev.kind}",
+                    f"{ITEM_13} (the mesh shrink and the out-of-memory "
+                    "ladder)")
+        if ev.kind == "cache_store_fail":
+            _refuse(f"experimental.chaos kind {ev.kind}",
+                    f"{ITEM_14} (the compile cache)")
+        if ev.kind == "server_crash":
+            _refuse(f"experimental.chaos kind {ev.kind}",
+                    f"{ITEM_14} (the campaign server, serve/)")
 
 
 def check_cpu_engine(cfg: ConfigOptions) -> None:

@@ -6,7 +6,9 @@ A config runs on one of three policies:
 
 * `tpu`: the device engine (device/runner.py); where the build finds
   host faults or no single device twin (core/build.py `no_twin`), the
-  hybrid policy instead, with the reference's log line;
+  hybrid policy instead, with the reference's log line; where its
+  dispatch retries are spent under `failover: hybrid`
+  (device/supervise.py DeviceFailover), a hybrid rerun from t = 0;
 * `hybrid`: the CPU engine (core/manager.py on the serial policy) with
   the batched network judgment on the card (device/judge.py, K10);
 * `serial`: the CPU engine alone, which touches no device.
@@ -139,14 +141,75 @@ class Controller:
                     sim.names.groups_in_order()},
             net_judge=self.judge)
 
+    def _failover_run(self, exc) -> SimStats:
+        """The failover ladder's hybrid rung (controller.py:581-640): the
+        device run's retries are spent, so the config reruns on the
+        hybrid policy (the CPU engine, the judge on `device`) from t = 0
+        with the device-only keys cleared: CPU hosts cannot be built
+        from device arrays, and determinism makes the replay equal to
+        what the device run would have produced. The validated device
+        checkpoint stays on disk for a device-side resume
+        (`failover_checkpoint`)."""
+        import copy
+
+        if exc.checkpoint_path is None:
+            log.error(
+                "DEVICE FAILOVER: %s — no device checkpoint could be "
+                "persisted (%s); re-running on the hybrid backend "
+                "from t=0 with NO device-side resume point.", exc,
+                exc.persist_error or "unknown persist error")
+        else:
+            log.error(
+                "DEVICE FAILOVER: %s — re-running on the hybrid "
+                "backend from t=0 (device state is not importable "
+                "into CPU hosts; the prefix up to t=%d ns is "
+                "replayed). The validated device checkpoint %s "
+                "remains for a device-side resume.", exc,
+                exc.sim_time, exc.checkpoint_path or "<none>")
+        cfg2 = copy.deepcopy(self.cfg)
+        xp = cfg2.experimental
+        xp.scheduler_policy = "hybrid"
+        xp.checkpoint_save = ""
+        xp.checkpoint_save_time = 0
+        xp.checkpoint_load = ""
+        xp.checkpoint_every = 0
+        xp.capacity_plan = "static"
+        xp.capacity_warmup = 0
+        xp.state_audit = False
+        xp.dispatch_retries = 0
+        xp.failover = "abort"
+        xp.chaos = []
+        xp.mesh_shards = 0
+        inner = Controller(cfg2, device=self.device, kernels=self.kernels)
+        stats = inner.run()
+        stats.failover_checkpoint = exc.checkpoint_path or ""
+        return stats
+
     def run(self) -> SimStats:
-        """Run to the stop time; the SimStats of the policy that ran."""
+        """Run to the stop time; the SimStats of the policy that ran (a
+        `tpu` run whose retries are spent under `failover: hybrid`:
+        the hybrid rerun's)."""
         cfg = self.cfg
         if self.manager is None:
             from shadow_tpu_torch.device import runner
+            from shadow_tpu_torch.device.supervise import DeviceFailover
 
-            return runner.run_device(cfg, self.sim, device=self.device,
-                                     kernels=self.kernels)
+            try:
+                stats = runner.run_device(cfg, self.sim, device=self.device,
+                                          kernels=self.kernels)
+            except DeviceFailover as e:
+                return self._failover_run(e)
+            if stats.preempted:
+                log.warning(
+                    "run preempted at %s: resume checkpoint %s "
+                    "(set experimental.checkpoint_load to continue)",
+                    simtime.format_time(stats.end_time),
+                    stats.resume_path)
+            if stats.retries:
+                log.warning("run absorbed %d transient device "
+                            "dispatch retr%s", stats.retries,
+                            "y" if stats.retries == 1 else "ies")
+            return stats
         stop = cfg.general.stop_time
         m = self.manager
         t0 = time.perf_counter()

@@ -75,6 +75,14 @@ class SimStats:
     # segments, replays, host syncs, graph captures, engines built, the
     # warm-up's wall
     pipeline: Optional[dict] = field(default=None, repr=False)
+    # supervision (device/supervise.py): a run the preemption drain
+    # stopped early and the checkpoint it resumes from, the transient
+    # dispatch errors retried, and after a hybrid failover the device
+    # checkpoint it left ("" where none could be persisted)
+    preempted: bool = False
+    resume_path: str = ""
+    retries: int = 0
+    failover_checkpoint: str = ""
 
     def summary(self) -> str:
         downloads = ("" if self.downloads_completed is None else

@@ -101,6 +101,7 @@ from shadow_tpu_torch.device.kernels import (
     n_vertices,
     route_work_words,
 )
+from shadow_tpu_torch.utils.artifacts import atomic_write_json
 
 log = logging.getLogger("shadow_tpu_torch.admission")
 plan_log = logging.getLogger("shadow_tpu_torch.capacity")
@@ -544,19 +545,8 @@ def record_path(engine, directory: str = "") -> str:
 
 def save_record(record: dict, path: str) -> None:
     """Write a record as JSON through a temporary file and an atomic
-    rename."""
-    directory = os.path.dirname(path)
-    if directory:
-        os.makedirs(directory, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    try:
-        with open(tmp, "w") as f:
-            json.dump(record, f, indent=1, sort_keys=True)
-        os.replace(tmp, path)
-    except BaseException:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-        raise
+    rename (utils/artifacts.py)."""
+    atomic_write_json(record, path)
 
 
 def load_record(path: str) -> dict:

@@ -447,6 +447,20 @@ class DeviceEngine:
         # None on one device
         self.mesh = mesh
         self.mesh_params: Optional[MeshParams] = None
+        # the world as the reference engine is given it, which a
+        # checkpoint's fingerprint hashes (device/checkpoint.py): the
+        # hosts' vertices and bandwidths before a mesh pads them, the
+        # tables as given (a campaign's replica 0)
+        if ensemble is None:
+            tables = (latency_ns, reliability, epoch_times)
+        else:
+            def first(t):
+                return (tuple(np.asarray(p[0]) for p in t)
+                        if isinstance(t, tuple) else np.asarray(t[0]))
+            tables = (first(ensemble.latency), first(ensemble.reliability),
+                      np.asarray(ensemble.epoch_times[0]))
+        self.reference_world = (host_vertex, *tables, bw_up_bits,
+                                bw_down_bits)
         n_world = config.n_hosts
         if mesh is not None:
             if ensemble is not None:
@@ -536,6 +550,22 @@ class DeviceEngine:
             return None
         _, total = torch.cuda.mem_get_info(self.device)
         return int(torch.cuda.memory_allocated(self.device)), int(total)
+
+    @property
+    def n_shards(self) -> int:
+        """The mesh's ranks (1 on one device)."""
+        return 1 if self.mesh_params is None else self.mesh_params.S
+
+    @property
+    def H_pad(self) -> int:
+        """The hosts padded to a multiple of the ranks."""
+        return (self.config.n_hosts if self.mesh_params is None
+                else self.mesh_params.H_pad)
+
+    @property
+    def H_loc(self) -> int:
+        """The hosts a rank holds."""
+        return self.n_local
 
     @property
     def n_local(self) -> int:

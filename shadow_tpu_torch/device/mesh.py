@@ -203,8 +203,13 @@ class Mesh:
 def _rank_main(rank: int, devices: list, backend: str, fn: Callable,
                args: tuple, workdir: str, timeout: float) -> None:
     """One rank: join the group, run fn(mesh, *args), rank 0 pickles the
-    result; any failure writes its traceback and exits 1."""
+    result; any failure writes its traceback and exits 1. The rank leaves
+    its parent's process group, so that a signal to the group (a
+    terminal's ^C) reaches the parent alone, which forwards it once
+    (`_forward_signals`); it exits when its parent dies."""
     try:
+        os.setpgrp()
+        _exit_with_parent(os.getppid())
         dev = torch.device(devices[rank])
         if dev.type == "cuda":
             torch.cuda.set_device(dev)
@@ -227,6 +232,49 @@ def _rank_main(rank: int, devices: list, backend: str, fn: Callable,
         with open(os.path.join(workdir, f"error{rank}.txt"), "w") as f:
             f.write(traceback.format_exc())
         raise SystemExit(1)
+
+
+def _exit_with_parent(parent: int) -> None:
+    """Ends this process once `parent` is no longer its parent (a killed
+    parent's ranks, outside its process group, would otherwise wait out
+    the process group's timeout)."""
+    import threading
+
+    def watch():
+        while os.getppid() == parent:
+            time.sleep(1.0)
+        os._exit(1)
+
+    threading.Thread(target=watch, daemon=True).start()
+
+
+def _forward_signals(procs) -> Callable:
+    """While the ranks run, SIGTERM and SIGINT to this process are sent
+    on to each live rank (whose preemption guard drains it,
+    device/supervise.py); returns the function that restores the
+    handlers. Outside the main thread nothing is installed."""
+    import signal
+
+    def forward(signum, frame):
+        for p in procs:
+            if p.is_alive():
+                try:
+                    os.kill(p.pid, signum)
+                except OSError:
+                    pass
+
+    orig = {}
+    try:
+        for s in (signal.SIGTERM, signal.SIGINT):
+            orig[s] = signal.signal(s, forward)
+    except ValueError:
+        pass
+
+    def restore():
+        for s, h in orig.items():
+            signal.signal(s, h)
+
+    return restore
 
 
 class MeshFailure(RuntimeError):
@@ -255,10 +303,12 @@ def spawn(devices: Sequence, fn: Callable, args: tuple = (),
         for p in procs:
             p.start()
         deadline = time.monotonic() + timeout + 120
+        restore = _forward_signals(procs)
         try:
             for p in procs:
                 p.join(max(0.0, deadline - time.monotonic()))
         finally:
+            restore()
             hung = [p for p in procs if p.is_alive()]
             for p in hung:
                 p.kill()

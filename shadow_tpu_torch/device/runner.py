@@ -1,6 +1,6 @@
 """The device runner (the port of the reference package's
-device/runner.py `DeviceRunner`, without checkpoints, the robustness
-layer or a compile cache).
+device/runner.py `DeviceRunner`, without the mesh shrink, the
+out-of-memory ladder or a compile cache).
 
 It builds the engine from a config with the reference's knobs (the
 burst width of `experimental.burst_pops`, the outbox floored at 8 pop
@@ -26,8 +26,18 @@ anything is allocated on the device, and runs to the stop time through
   checked at every boundary under `experimental.state_audit`
   (`AuditFailure`), `[shadow-heartbeat]` rows (host/tracker.py) and a
   `[supervise-heartbeat]` line at every `general.heartbeat_interval`;
+* checkpoints (device/checkpoint.py, runner.py:864-941 of the
+  reference): `checkpoint_load` resolved to its newest readable rotation
+  entry and checked from its meta before anything runs (the stop, a
+  save time, the shard geometry), its capacities adopted under a plan,
+  the state loaded and armed; `checkpoint_save` probed for writing
+  first, the run paused at `checkpoint_save_time` (0 = the stop) and
+  its state written there; `checkpoint_every` rotating entries and a
+  preemption guard (device/supervise.py); on a mesh the saves gather to
+  rank 0 and every rank loads its own rows of the global leaves;
 * it logs the reference's `device perf:` line, writes the OCC record of
-  a planned run (`capacity.record_path`) and returns the SimStats totals
+  a planned run (`capacity.record_path`; not of a preempted one) and
+  returns the SimStats totals
   plus the per-host `events_executed` and `trace_checksum` arrays, for
   tgen and Tor the downloads completed, under `count_paths` the sent
   packets per vertex pair, the loop's phases and host syncs, the
@@ -42,8 +52,12 @@ model families, the `hybrid` and `serial` policies) on the CPU engine.
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import logging
+import os
 import time
+from types import SimpleNamespace
 from typing import Optional
 
 import numpy as np
@@ -73,6 +87,8 @@ from shadow_tpu_torch.device.engine import (
 )
 from shadow_tpu_torch.device.kernels import Kernels, build_library, \
     control_block
+from shadow_tpu_torch.device import chaos as chaosmod
+from shadow_tpu_torch.device import checkpoint, supervise
 from shadow_tpu_torch.device.mesh import DEFAULT_TIMEOUT, spawn
 from shadow_tpu_torch.device.supervise import HeartbeatMonitor, \
     advance, heartbeat_rates
@@ -272,6 +288,18 @@ class DeviceRunner:
         self._captures_before = 0
         self.warmup_wall_s = 0.0
         self.final_state: Optional[dict] = None
+        # supervision (device/supervise.py), set per run: the rotating
+        # checkpoint writer, the drain guard, the retries absorbed, the
+        # checkpoints' saves and load ({"bytes", "wall_s"} each)
+        self.retries = 0
+        self.checkpointer: Optional[supervise.Checkpointer] = None
+        self.guard: Optional[supervise.PreemptionGuard] = None
+        self._ck_extra_meta: Optional[dict] = None
+        self.ck_io: dict = {}
+        # the deterministic chaos injector of this runner's runs (None
+        # without a schedule, so that none leaks from an earlier run)
+        self.chaos = chaosmod.from_config(cfg.experimental)
+        chaosmod.set_current(self.chaos)
         self.engine: Optional[DeviceEngine] = None
         self.engine = self._build_engine()
         self.admission = self.engine.admission
@@ -285,7 +313,8 @@ class DeviceRunner:
         and exchange; the engine before it is freed first, so that the
         rebuilt one allocates into its memory. Admitted before it
         allocates, the state priced twice where the advance keeps a
-        validated snapshot (a planned run)."""
+        validated copy (a planned or a supervised run,
+        supervise.keeps_copy)."""
         if self.engine is not None:
             self._captures_before += self.engine.captures
         self.engine = None
@@ -298,7 +327,8 @@ class DeviceRunner:
                              self.kernels, mesh=self.mesh,
                              overrides=self._capacity_overrides,
                              exchange=exchange,
-                             copies=2 if self._planned else 1)
+                             copies=2 if supervise.keeps_copy(self.cfg)
+                             else 1)
         self.engines_built += 1
         return engine
 
@@ -333,6 +363,20 @@ class DeviceRunner:
             self.engine, host_state,
             self.engine.init_arrays(self.sim.start_times,
                                     self.sim.stop_times))
+
+    def template(self) -> dict:
+        """This engine's initial leaves (numpy): what a state placed onto
+        it must look like."""
+        return self.engine.init_arrays(self.sim.start_times,
+                                       self.sim.stop_times)
+
+    def reload(self, path: str, stop: int) -> dict:
+        """A retry's fallback: the engine rebuilt, the checkpoint at
+        `path` loaded onto it."""
+        self.engine = self._build_engine()
+        state, _, _ = checkpoint.load_state(self.engine, self.template(),
+                                            path, final_stop=stop)
+        return state
 
     def _emit_heartbeats(self, now: int, state: dict) -> None:
         """The `[shadow-heartbeat] [node]` rows of every host at a
@@ -370,7 +414,7 @@ class DeviceRunner:
         log.info("[supervise-heartbeat] t=%s events=%d sent=%d "
                  "pkts/s=%s retries=%d replans=%d reshards=%d mem=%s",
                  simtime.format_time(now), int(sum(n_exec)), sent_total,
-                 rate, 0, self.replans, 0, mem_s)
+                 rate, self.retries, self.replans, 0, mem_s)
 
     # ---- the plan -----------------------------------------------------
     def _headroom(self) -> float:
@@ -420,7 +464,7 @@ class DeviceRunner:
                      choice, info["estimates"])
         return choice
 
-    def _plan_capacities(self, stop: int) -> None:
+    def _plan_capacities(self, stop: int, load_path: str = "") -> None:
         """capacity_plan: auto | <record> (runner.py:468-583): `auto`
         runs a warm-up slice of `capacity_warmup` (default stop / 8) on
         the static engine, its windows clamped to the global stop, in
@@ -431,6 +475,20 @@ class DeviceRunner:
         xp = self.cfg.experimental
         mode = xp.capacity_plan
         t0 = time.perf_counter()
+        if load_path:
+            # the checkpoint pins the saved engine's capacities: adopt
+            # them, and under `exchange: auto` its schedule; an overflow
+            # past the resume point re-plans as usual
+            self._capacity_overrides, exchange = checkpoint_caps(load_path)
+            if xp.exchange == "auto":
+                self._exchange_choice = exchange
+            self.engine = self._build_engine()
+            self.admission = self.engine.admission
+            self.warmup_wall_s = time.perf_counter() - t0
+            log.warning("capacity_plan: %s skipped — checkpoint_load "
+                        "resumes with the saved engine's capacities "
+                        "%s", mode, self._capacity_overrides)
+            return
         static_knobs = {k: getattr(self.engine.config, k)
                         for k in capacity.CAPACITY_KNOBS}
         if mode == "auto":
@@ -501,18 +559,67 @@ class DeviceRunner:
         cfg, xp = self.cfg, self.cfg.experimental
         stop = cfg.general.stop_time
         self.replans = 0
+        self.retries = 0
         self._hb_mark = None
+        self.ck_io = {}
+        lead = self.mesh is None or self.mesh.rank == 0
+        if xp.checkpoint_save and lead:
+            checkpoint.probe_writable(xp.checkpoint_save)
+        load_path = ""
+        if xp.checkpoint_load:
+            # the newest readable rotation entry of a base path; the
+            # resume's parameters checked from the meta alone, before
+            # a warm-up spends anything
+            load_path = supervise.resolve_checkpoint(xp.checkpoint_load)
+            checkpoint.prevalidate_resume(
+                load_path, stop, save_path=xp.checkpoint_save,
+                save_time=xp.checkpoint_save_time)
+            # another shard count is refused with the reference's message
+            # (runner.py:618-650 adopts it instead: a shrunken geometry
+            # waits for ROADMAP.md queue (a) item 13)
+            checkpoint.validate_geometry(
+                load_path, checkpoint.peek_meta(load_path), self.engine)
         if self._planned:
-            self._plan_capacities(stop)
+            self._plan_capacities(stop, load_path)
         self.hb_monitor = (HeartbeatMonitor(xp.heartbeat_stale_after)
                            if xp.heartbeat_stale_after else None)
-        state = self._init_state()
+        if load_path:
+            state, t_start, self.ck_io["load"] = checkpoint.load_state(
+                self.engine, self.template(), load_path, final_stop=stop)
+            log.info("resumed checkpoint %s at t=%d ns", load_path,
+                     t_start)
+        else:
+            state, t_start = self._init_state(), 0
+        # with checkpoint_save the run pauses at checkpoint_save_time
+        # (0 = the stop) and writes its state there; windows stay
+        # clamped on the stop, so that the pair equals one run
+        pause = stop
+        if xp.checkpoint_save:
+            if xp.checkpoint_save_time:
+                pause = min(stop, xp.checkpoint_save_time)
+            if pause <= t_start:
+                raise ValueError(
+                    f"checkpoint_save_time {pause} ns is not after "
+                    f"the run's start time {t_start} ns")
+        self.checkpointer = None
+        if xp.checkpoint_every:
+            self.checkpointer = supervise.Checkpointer(
+                xp.checkpoint_save, xp.checkpoint_every,
+                xp.checkpoint_keep, final_stop=stop,
+                extra_meta=self._ck_extra_meta,
+                audit_enabled=xp.state_audit)
+        self.guard = supervise.make_guard(cfg)
         if self.mesh is not None:
             self.mesh.barrier()
             self.mesh.reset_counters()
         t0 = time.perf_counter()
-        state, adv = advance(self, state, 0, stop, stop)
+        with (self.guard if self.guard is not None
+              else contextlib.nullcontext()):
+            state, adv = advance(self, state, t_start, pause, stop)
+        self.retries = adv.retries
         engine = self.engine
+        if xp.checkpoint_save:
+            self._final_save(state, adv, stop)
         final = state_to_numpy(state, STAT_KEYS + (
             ("path_cnt",) if "path_cnt" in state else ()))
         view = self.measured_view(state)
@@ -527,7 +634,10 @@ class DeviceRunner:
             self.occ_record["effective"] = occ["effective"]
             self.occ_record["replans"] = self.replans
             self.occ_record["applied"] = dict(self._capacity_overrides)
-            if self.mesh is None or self.mesh.rank == 0:
+            if adv.preempted:
+                # its marks cover only the executed prefix
+                log.info("occupancy record not written (run preempted)")
+            elif self.mesh is None or self.mesh.rank == 0:
                 path = capacity.record_path(engine)
                 try:
                     capacity.save_record(self.occ_record, path)
@@ -546,6 +656,9 @@ class DeviceRunner:
             loop["mesh"] = mesh_stats(engine)
         stats = stats_of(cfg, engine, {k: v[:H] for k, v in final.items()},
                          rounds, wall, loop)
+        stats.end_time = adv.t_end
+        stats.preempted, stats.resume_path = adv.preempted, adv.resume_path
+        stats.retries = adv.retries
         n_exec = stats.events_executed
         log.info("device perf: %d rounds in %.2fs wall (%.0f rounds/s, "
                  "%.0f events/s)", rounds, wall,
@@ -556,9 +669,12 @@ class DeviceRunner:
         stats.replans = self.replans
         if self.hb_monitor is not None:
             stats.stale_heartbeats = self.hb_monitor.stale_events
+        if self.checkpointer is not None:
+            self.ck_io["rotation"] = self.checkpointer.io
         stats.pipeline = {**adv.pipeline, "engines": self.engines_built,
                           "graph_captures": self.captures,
-                          "warmup_wall_s": self.warmup_wall_s}
+                          "warmup_wall_s": self.warmup_wall_s,
+                          "checkpoint_io": self.ck_io}
         if adv.budget_hit:
             stats.ok = False
         if stats.overflow:
@@ -573,6 +689,47 @@ class DeviceRunner:
                       "for hub-concentrated traffic, or capacity_plan: "
                       "auto)", stats.x_overflow)
         return stats
+
+
+    def _final_save(self, state: dict, adv, stop: int) -> None:
+        """checkpoint_save at the end of the advance (its pause): not
+        after an exhausted budget (the pause time would be a lie) or an
+        overflow (events already lost), and not after a drain, whose
+        resume checkpoint is already written."""
+        xp = self.cfg.experimental
+        if adv.budget_hit or adv.overflowed:
+            log.error("%s before the checkpoint boundary — NOT "
+                      "saving %s", "max_rounds exhausted" if adv.budget_hit
+                      else "capacity overflow (events lost)",
+                      xp.checkpoint_save)
+            return
+        if adv.preempted:
+            return
+        io = checkpoint.save_state(
+            self.engine, state, xp.checkpoint_save, adv.t_end,
+            final_stop=stop,
+            audit_meta=({"enabled": True, "violations": 0}
+                        if xp.state_audit else None))
+        if io is not None:
+            self.ck_io["save"] = io
+            log.info("checkpoint saved at t=%d ns -> %s (run %s)",
+                     adv.t_end, xp.checkpoint_save,
+                     "complete" if adv.t_end >= stop else
+                     "paused early; resume with checkpoint_load")
+
+
+def checkpoint_caps(load_path: str) -> tuple[dict, str]:
+    """(the capacity knobs, the exchange schedule) of the engine that
+    saved a checkpoint, which a planned resume adopts: the fingerprint
+    pins them, so a fresh plan would only be refused (runner.py:595-616;
+    one adopt path for the runner and the campaign)."""
+    meta = checkpoint.peek_meta(load_path)
+    caps = meta.get("capacities")
+    if caps is None:
+        caps = {k: meta["fingerprint"][k]
+                for k in ("event_capacity", "outbox_capacity")}
+    return ({k: int(v) for k, v in caps.items()},
+            meta.get("exchange", "all_to_all"))
 
 
 def summarize(cfg: ConfigOptions, engine: DeviceEngine, state: dict,
@@ -651,8 +808,7 @@ def run_mesh(cfg: ConfigOptions, devices, timeout: float = DEFAULT_TIMEOUT
     return stats
 
 
-def mesh_runs(devices, cfgs: list, keep_state: bool = False,
-              timing: bool = False,
+def mesh_runs(devices, cfgs: list, keep_state=False, timing=False,
               timeout: float = DEFAULT_TIMEOUT) -> list:
     """Each config run in turn on one spawned mesh: [(SimStats, the
     final leaves gathered into the H_pad layout where `keep_state`,
@@ -660,22 +816,57 @@ def mesh_runs(devices, cfgs: list, keep_state: bool = False,
     its exchange (mesh_stats), kernel launches, peak device memory (on
     a card) and, with `timing` (Kernels(timing=True): an event pair
     around each launch), its device ms per kernel;
-    `stats.mesh["launches"]` sums the launches over the ranks. The CUDA
-    kernels are built here, before the ranks start, so that the ranks
-    only load them."""
+    `stats.mesh["launches"]` sums the launches over the ranks.
+    `keep_state` and `timing` are each one flag for every config or a
+    list of one flag per config. The CUDA kernels are built here, before
+    the ranks start, so that the ranks only load them. A config that
+    loads a checkpoint has its geometry checked here where the file
+    exists, and otherwise by its rank (an earlier config of the same
+    call may write it)."""
+    keep_state, timing = (_per_config(f, len(cfgs))
+                          for f in (keep_state, timing))
+    for cfg in cfgs:
+        check_mesh_resume(cfg, len(devices))
     if any(torch.device(d).type == "cuda" for d in devices):
         build_library()
     return spawn(devices, _mesh_runs_rank, (cfgs, keep_state, timing),
                  timeout)
 
 
-def _mesh_runs_rank(mesh, cfgs: list, keep_state: bool,
-                    timing: bool) -> list:
+def _per_config(flag, n: int) -> list:
+    if isinstance(flag, bool):
+        return [flag] * n
+    if len(flag) != n:
+        raise ValueError(f"{len(flag)} flags for {n} configs")
+    return [bool(f) for f in flag]
+
+
+def check_mesh_resume(cfg: ConfigOptions, n_shards: int) -> None:
+    """A mesh resume's geometry, refused before any rank starts where
+    the checkpoint was saved on another number of shards (the
+    reference's message, checkpoint.validate_geometry); a checkpoint
+    not written yet is left to the ranks."""
+    load = cfg.experimental.checkpoint_load
+    if not load or not (os.path.exists(load)
+                        or supervise.rotation_entries(load)):
+        return
+    path = supervise.resolve_checkpoint(load)
+    H = cfg.total_hosts()
+    here = SimpleNamespace(n_shards=n_shards,
+                           H_pad=-(-H // n_shards) * n_shards)
+    checkpoint.validate_geometry(path, checkpoint.peek_meta(path), here)
+
+
+def _mesh_runs_rank(mesh, cfgs: list, keep_states: list,
+                    timings: list) -> list:
     out = []
     cuda = mesh.device.type == "cuda"
-    for cfg in cfgs:
+    for cfg, keep_state, timing in zip(cfgs, keep_states, timings):
         sim = build(cfg)
         if cuda:
+            # the previous config's engine and state are gone (a run's
+            # peak is its own)
+            gc.collect()
             torch.cuda.reset_peak_memory_stats(mesh.device)
         kernels = Kernels(timing=timing)
         dr = DeviceRunner(cfg, sim, mesh.device, kernels, mesh)
@@ -699,6 +890,7 @@ def _mesh_runs_rank(mesh, cfgs: list, keep_state: bool,
             stats.mesh = {**stats.mesh, "ranks": ranks,
                           "launches": launches}
             out.append((stats, leaves if keep_state else None))
+        dr = engine = None
     return out
 
 

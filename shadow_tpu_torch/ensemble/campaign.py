@@ -1,7 +1,17 @@
 """EnsembleRunner: R-replica simulation campaigns in one window loop (the
 port's copy of the reference package's ensemble/campaign.py, cut to one
-GPU without checkpoints, chaos or an out-of-memory ladder: ROADMAP.md
-queue (a) items 7b and 13).
+GPU without the mesh shrink or the out-of-memory ladder: ROADMAP.md
+queue (a) item 13).
+
+Checkpoints (device/checkpoint.py) carry the campaign's stamp
+(`ensemble`: its `campaign_fp` and R), so that a standalone run refuses
+them and a campaign refuses a standalone checkpoint or another
+campaign's. Under `replica_batch` each batch rotates its own series
+`<checkpoint_save>.b<k>.t<ns>` (every batch restarts at t = 0), stamped
+with its replica window; a drain saves the running batch's entry and
+stops, and a resume runs the batches before it afresh (pure functions
+of their worlds), loads the stamped batch and runs the rest, so that
+the resumed campaign's record equals the uninterrupted one's.
 
 A campaign runs through the segmented advance (device/supervise.py
 `advance`, `ensemble=True`): segments at heartbeat multiples and
@@ -32,8 +42,8 @@ together.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
-import json
 import logging
 import os
 import time
@@ -46,16 +56,18 @@ import torch
 from shadow_tpu_torch import simtime
 from shadow_tpu_torch.config.schema import ConfigOptions
 from shadow_tpu_torch.core.build import build
-from shadow_tpu_torch.device import capacity, runner
+from shadow_tpu_torch.device import capacity, checkpoint, runner, supervise
+from shadow_tpu_torch.device import chaos as chaosmod
 from shadow_tpu_torch.device.engine import DeviceEngine, state_to_numpy
 from shadow_tpu_torch.device.kernels import HEAP_FIELDS, Kernels
-from shadow_tpu_torch.device.supervise import HeartbeatMonitor, \
-    advance, heartbeat_rates
+from shadow_tpu_torch.device.supervise import AdvanceResult, \
+    HeartbeatMonitor, advance, heartbeat_rates
 from shadow_tpu_torch.ensemble.spec import (
     EnsembleWorlds,
     build_worlds,
     slice_worlds,
 )
+from shadow_tpu_torch.utils.artifacts import atomic_write_json
 
 log = logging.getLogger("shadow_tpu_torch.ensemble")
 
@@ -71,24 +83,6 @@ _AGG_OPS = {
     "p5": lambda v: np.percentile(v, 5),
     "p95": lambda v: np.percentile(v, 95),
 }
-
-
-def write_json(obj, path: str) -> None:
-    """Write `obj` as JSON to `path` through a temporary file and an
-    atomic rename (the reference's atomic_write_json layout)."""
-    text = json.dumps(obj, indent=1, sort_keys=True)
-    directory = os.path.dirname(path)
-    if directory:
-        os.makedirs(directory, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    try:
-        with open(tmp, "w") as f:
-            f.write(text)
-        os.replace(tmp, path)
-    except BaseException:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-        raise
 
 
 def aggregate(values, which) -> dict:
@@ -132,6 +126,15 @@ class EnsembleRunner:
         self.engines_built = 0
         self.warmup_wall_s = 0.0
         self._last_engine: Optional[DeviceEngine] = None
+        # supervision (device/supervise.py), set per run; campaign
+        # checkpoints carry the campaign's stamp
+        self.retries = 0
+        self.guard: Optional[supervise.PreemptionGuard] = None
+        self._ck_extra_meta = {"campaign": self.worlds.campaign_fp,
+                               "replicas": int(self.worlds.R)}
+        self.ck_io: dict = {}
+        self.chaos = chaosmod.from_config(cfg.experimental)
+        chaosmod.set_current(self.chaos)
 
     @property
     def lookahead(self) -> int:
@@ -147,14 +150,14 @@ class EnsembleRunner:
     def engine(self, worlds: Optional[EnsembleWorlds] = None):
         """The campaign engine of `worlds` (default: the whole
         campaign), at the full campaign's lookahead, with the plan's
-        capacities; admitted (the state twice under a plan, whose
-        advance keeps a validated copy) before it allocates."""
+        capacities; admitted (the state twice where the advance keeps a
+        validated copy: planned or supervised) before it allocates."""
         self.engines_built += 1
         return runner.engine_from(
             self.cfg, self.sim, self.device, self.kernels,
             ensemble=self.worlds if worlds is None else worlds,
             lookahead=self.lookahead, overrides=self._capacity_overrides,
-            copies=2 if self._planned else 1)
+            copies=2 if supervise.keeps_copy(self.cfg) else 1)
 
     @property
     def _planned(self) -> bool:
@@ -253,15 +256,23 @@ class EnsembleRunner:
             view[k] = capacity.host_array(states[k]).sum(0)
         return view
 
-    def _plan_capacities(self, stop: int) -> None:
+    def _plan_capacities(self, stop: int, load_path: str = "") -> None:
         """capacity_plan on the campaign (campaign.py:238): the warm-up
         slice runs the campaign engine, in `dispatch_segment` pieces,
         widened up to MAX_REPLANS times where it overflows; the plan
         sizes every capacity from the worst-case replica. A record path
-        must be of this workload."""
+        must be of this workload. A resume adopts the checkpoint's
+        capacities instead (runner.checkpoint_caps)."""
         xp = self.cfg.experimental
         mode = xp.capacity_plan
         t0 = time.perf_counter()
+        if load_path:
+            self._capacity_overrides, _ = runner.checkpoint_caps(load_path)
+            self.warmup_wall_s = time.perf_counter() - t0
+            log.warning("capacity_plan: %s skipped — checkpoint_load "
+                        "resumes with the saved engine's capacities "
+                        "%s", mode, self._capacity_overrides)
+            return
         engine = self.engine()
         static_knobs = {k: getattr(engine.config, k)
                         for k in capacity.CAPACITY_KNOBS}
@@ -358,42 +369,83 @@ class EnsembleRunner:
                      int(cols["n_exec"][r].sum()),
                      int(cols["n_sent"][r].sum()),
                      int(cols["n_drop"][r].sum()),
-                     int(cols["n_deliv"][r].sum()), rates[r], 0,
-                     self.replans, mem_s)
+                     int(cols["n_deliv"][r].sum()), rates[r],
+                     self.retries, self.replans, mem_s)
 
-    def _run_once(self, worlds: EnsembleWorlds, stop: int,
-                  offset: int = 0):
-        """One campaign engine over `worlds`, advanced to `stop` in
-        segments (`_Segments`): (its final leaves without the heaps, as
-        numpy arrays, [R] rounds). Under the state audit, raises
-        AuditFailure at the first boundary where a replica's word is not
-        zero."""
-        segs = _Segments(self, worlds, offset)
-        state = segs.engine.init_ensemble_state(self.sim.start_times,
-                                                self.sim.stop_times)
-        state, adv = advance(segs, state, 0, stop, stop, ensemble=True)
+    def _run_once(self, worlds: EnsembleWorlds, stop: int, offset: int = 0,
+                  t_start: int = 0, pause: Optional[int] = None,
+                  load: str = "", ck=None, final_save: bool = False):
+        """One campaign engine over `worlds`, advanced from `t_start` (or
+        the checkpoint `load`, whose time it takes) to `pause` (default
+        `stop`) in segments (`_Segments`), rotating through `ck` where
+        given; `final_save` writes checkpoint_save at its end (an
+        unbatched campaign's). Returns (its final leaves without the
+        heaps, as numpy arrays, [R] rounds, the AdvanceResult). Under
+        the state audit, raises AuditFailure at the first boundary where
+        a replica's word is not zero."""
+        pause = stop if pause is None else pause
+        segs = _Segments(self, worlds, offset, ck)
+        if load:
+            state, t_start, self.ck_io["load"] = checkpoint.load_state(
+                segs.engine, segs.template(), load, final_stop=stop)
+            log.info("resumed campaign checkpoint %s at t=%d ns", load,
+                     t_start)
+        else:
+            state = segs.engine.init_ensemble_state(self.sim.start_times,
+                                                    self.sim.stop_times)
+        if pause <= t_start:
+            raise ValueError(
+                f"checkpoint_save_time {pause} ns is not after "
+                f"the campaign's start time {t_start} ns")
+        state, adv = advance(segs, state, t_start, pause, stop,
+                             ensemble=True)
         engine = segs.engine
         rounds = np.broadcast_to(np.asarray(adv.rounds, np.int64),
                                  (worlds.R,))
         self.loop_stats.append({
-            "loop": engine.loop_stats["loop"], "rounds": rounds.tolist(),
+            "loop": engine.loop_stats.get("loop", ""),
+            "rounds": rounds.tolist(),
             "phases": np.broadcast_to(np.asarray(adv.pipeline["phases"]),
                                       (worlds.R,)).tolist(),
             "host_syncs": adv.pipeline["host_syncs"]})
         self.captures += adv.pipeline["captures"]
         self.segments.append(adv.pipeline)
+        if ck is not None:
+            self.ck_io.setdefault("rotation", []).extend(ck.io)
+        xp = self.cfg.experimental
+        if final_save and not adv.preempted:
+            if adv.budget_hit or adv.overflowed:
+                log.error("%s before the checkpoint boundary — NOT "
+                          "saving %s", "max_rounds exhausted"
+                          if adv.budget_hit else
+                          "capacity overflow (events lost)",
+                          xp.checkpoint_save)
+            else:
+                self.ck_io["save"] = checkpoint.save_state(
+                    engine, state, xp.checkpoint_save, adv.t_end,
+                    final_stop=stop, extra_meta=self._ck_extra_meta,
+                    audit_meta=({"enabled": True, "violations": 0}
+                                if xp.state_audit else None))
+                log.info("campaign checkpoint saved at t=%d ns -> %s",
+                         adv.t_end, xp.checkpoint_save)
         final = state_to_numpy(state, [k for k in state
                                        if k not in HEAP_FIELDS])
         self._last_engine = engine
-        return final, rounds
+        return final, rounds, adv
 
-    def _run_batched(self, stop: int, batch: int):
+    def _run_batched(self, stop: int, batch: int, resume=None):
         """Sequential replica batches of <= `batch`, each a campaign
         engine over its slice of the worlds at the full campaign's
         lookahead, so batch boundaries cannot move round boundaries;
         the finals merged over the replica axis. Bit-identical to the
         full campaign: each replica's trace is a pure function of its
-        own world (spec.py's contract)."""
+        own world (spec.py's contract). With `checkpoint_every` each
+        batch rotates its own series `<save>.b<k>.t<ns>`, stamped with
+        its replica window; a drain stops the loop after saving the
+        running batch's entry (merged final None). `resume` = (path,
+        replica_lo) loads the stamped batch, the others run afresh.
+        Returns (merged final, [R] rounds, the combined AdvanceResult)."""
+        xp = self.cfg.experimental
         R = int(self.worlds.R)
         batch = max(1, min(int(batch), R))
         n_batches = -(-R // batch)
@@ -402,54 +454,168 @@ class EnsembleRunner:
             "batch(es) of <= %d (one campaign engine per batch, finals "
             "merged — bit-identical to the full campaign)", R,
             n_batches, batch)
+        b_resume = int(resume[1]) // batch if resume is not None else -1
         finals, rounds = [], []
+        combined = AdvanceResult()
         for b in range(n_batches):
             lo, hi = b * batch, min(R, (b + 1) * batch)
-            final, r = self._run_once(slice_worlds(self.worlds, lo, hi),
-                                      stop, offset=lo)
+            # per-replica rate vectors change length across batches
+            self._hb_mark = None
+            ck = None
+            if xp.checkpoint_every:
+                ck = supervise.Checkpointer(
+                    f"{xp.checkpoint_save}.b{b}", xp.checkpoint_every,
+                    xp.checkpoint_keep, final_stop=stop,
+                    extra_meta={**self._ck_extra_meta, "replica_lo": lo,
+                                "replica_hi": hi, "replica_batch": batch},
+                    audit_enabled=xp.state_audit)
+            final, r, adv = self._run_once(
+                slice_worlds(self.worlds, lo, hi), stop, offset=lo,
+                load=resume[0] if b == b_resume else "", ck=ck)
+            combined.t_end = adv.t_end
+            combined.retries += adv.retries
+            combined.budget_hit |= adv.budget_hit
+            combined.overflowed |= adv.overflowed
+            if adv.preempted:
+                # the drain saved this batch's entry; later batches
+                # never started, the earlier ones replay on resume
+                combined.preempted = True
+                combined.resume_path = adv.resume_path
+                return None, np.concatenate(rounds) if rounds else \
+                    np.zeros(0, np.int64), combined
             finals.append(final)
             rounds.append(r)
         merged = {k: np.concatenate([f[k] for f in finals], axis=0)
                   for k in finals[0]}
-        return merged, np.concatenate(rounds)
+        return merged, np.concatenate(rounds), combined
+
+    def _resume_checks(self, stop: int, knob_batch: int):
+        """checkpoint_load of a campaign (campaign.py:574-650): the
+        resolved path and, for a replica-batch entry, (path, its first
+        replica). Refuses a standalone checkpoint, another campaign's,
+        and a batch entry under another `replica_batch` (or the full-R
+        state under one)."""
+        xp = self.cfg.experimental
+        w = self.worlds
+        load_path = supervise.resolve_checkpoint(xp.checkpoint_load)
+        meta = checkpoint.peek_meta(load_path)
+        ens_meta = meta.get("ensemble") or {}
+        camp = ens_meta.get("campaign")
+        if camp is None:
+            raise ValueError(
+                f"checkpoint {load_path} was saved by a "
+                "standalone run — an ensemble campaign cannot "
+                "resume it")
+        if camp != w.campaign_fp:
+            raise ValueError(
+                f"checkpoint {load_path} belongs to "
+                f"campaign {camp}; this config builds "
+                f"{w.campaign_fp} — the vary block or schedules "
+                "changed, so the saved replicas would diverge")
+        resume_batch = None
+        saved_lo = ens_meta.get("replica_lo")
+        if saved_lo is not None:
+            saved_batch = int(ens_meta.get("replica_batch") or 0)
+            if knob_batch != saved_batch:
+                have = (f"uses replica_batch: {knob_batch}"
+                        if knob_batch else
+                        "expects the full-R stacked state")
+                raise ValueError(
+                    f"checkpoint {load_path} was saved by "
+                    f"replica batch [{saved_lo}, "
+                    f"{ens_meta.get('replica_hi')}) of a "
+                    f"replica_batch={saved_batch} campaign — "
+                    f"set ensemble.replica_batch: {saved_batch} "
+                    f"to resume it (this config {have})")
+            resume_batch = (load_path, int(saved_lo))
+        elif knob_batch:
+            raise ValueError(
+                f"checkpoint {load_path} stamps the full-R "
+                "stacked state — a replica_batch campaign "
+                "cannot resume it (drop ensemble.replica_batch "
+                "or resume without the checkpoint)")
+        checkpoint.prevalidate_resume(
+            load_path, stop, save_path=xp.checkpoint_save,
+            save_time=xp.checkpoint_save_time)
+        return load_path, resume_batch
 
     def run(self, stop: Optional[int] = None) -> runner.SimStats:
         """Admit, run and record the campaign to `stop` (default the
         config's stop time); returns SimStats with the totals over every
         replica, replica 0's per-host events and checksums, the maximum
-        rounds and the record in `ensemble`."""
+        rounds and the record in `ensemble`; a preempted campaign's
+        marked preempted, with its resume checkpoint and no record."""
         stop = self.cfg.general.stop_time if stop is None else int(stop)
         w = self.worlds
         xp = self.cfg.experimental
         self.loop_stats = []
         self.segments = []
         self.replans = 0
+        self.retries = 0
         self.captures = 0
+        self.ck_io = {}
         self._hb_mark = None
         self.hb_monitor = (HeartbeatMonitor(xp.heartbeat_stale_after)
                            if xp.heartbeat_stale_after else None)
+        if xp.checkpoint_save:
+            checkpoint.probe_writable(xp.checkpoint_save)
         knob_batch = int(self.cfg.ensemble.replica_batch or 0)
+        load_path, resume_batch = "", None
+        if xp.checkpoint_load:
+            load_path, resume_batch = self._resume_checks(stop, knob_batch)
+        ck_on = bool(xp.checkpoint_save or xp.checkpoint_load
+                     or xp.checkpoint_every)
         # preflight admission of the whole campaign, before anything is
-        # allocated on the device; `auto` may split it into batches
+        # allocated on the device; `auto` may split it into batches (not
+        # a checkpointed one: its checkpoints stamp the full-R state)
         self.admission = runner.admit(
             self.cfg, self.sim, runner.engine_config(
                 self.cfg, self.sim, lookahead=self.lookahead),
             self.device, ensemble=w,
-            batchable=w.R > 1 and not knob_batch)
+            batchable=w.R > 1 and not knob_batch and not ck_on)
         batch = knob_batch or int(
             self.admission["overrides"].get("replica_batch", 0))
         if self._planned:
-            self._plan_capacities(stop)
+            self._plan_capacities(stop, load_path)
+        pause = stop
+        if xp.checkpoint_save and xp.checkpoint_save_time:
+            pause = min(stop, xp.checkpoint_save_time)
+        self.guard = supervise.make_guard(self.cfg)
         t0 = time.perf_counter()
-        if batch:
-            final, rounds_r = self._run_batched(stop, batch)
-        else:
-            final, rounds_r = self._run_once(w, stop)
+        with (self.guard if self.guard is not None
+              else contextlib.nullcontext()):
+            if batch:
+                final, rounds_r, adv = self._run_batched(
+                    stop, batch, resume=resume_batch)
+            else:
+                ck = None
+                if xp.checkpoint_every:
+                    ck = supervise.Checkpointer(
+                        xp.checkpoint_save, xp.checkpoint_every,
+                        xp.checkpoint_keep, final_stop=stop,
+                        extra_meta=self._ck_extra_meta,
+                        audit_enabled=xp.state_audit)
+                final, rounds_r, adv = self._run_once(
+                    w, stop, pause=pause, load=load_path, ck=ck,
+                    final_save=bool(xp.checkpoint_save))
+        self.retries = adv.retries
         wall = time.perf_counter() - t0
+        if adv.preempted:
+            # a preempted campaign's counters cover only its prefix: the
+            # resumed run writes the record
+            log.info("ensemble record not written (campaign preempted; "
+                     "resume from %s)", adv.resume_path)
+            self._last_engine = None
+            return runner.SimStats(
+                end_time=adv.t_end, rounds=int(np.max(adv.rounds)),
+                wall_s=wall, preempted=True,
+                resume_path=adv.resume_path, retries=adv.retries,
+                admission=self.admission, replans=self.replans,
+                pipeline={"checkpoint_io": self.ck_io})
         self.final_state = final
         overflow = int(final["overflow"].sum())
         x_overflow = int(final["x_overflow"].sum())
-        ok = overflow == 0 and x_overflow == 0
+        ok = overflow == 0 and x_overflow == 0 and not adv.budget_hit
         occ = capacity.measure(self._last_engine,
                                self._worst_case_view(final),
                                source="ensemble-run")
@@ -468,7 +634,7 @@ class EnsembleRunner:
             self.record["replica_batch"] = int(batch)
         path = self.record_path()
         try:
-            write_json(self.record, path)
+            atomic_write_json(self.record, path)
             log.info("ensemble record -> %s", path)
         except OSError as e:
             log.warning("could not write ensemble record %s: %s", path, e)
@@ -477,7 +643,7 @@ class EnsembleRunner:
                  "(%.0f events/s aggregate)", w.R, int(rounds_r.max()),
                  wall, n_exec_total / wall if wall > 0 else 0.0)
         stats = runner.SimStats(
-            end_time=stop, rounds=int(rounds_r.max()), wall_s=wall,
+            end_time=adv.t_end, rounds=int(rounds_r.max()), wall_s=wall,
             events_executed=n_exec_total,
             packets_sent=int(final["n_sent"].sum()),
             packets_dropped=int(final["n_drop"].sum()),
@@ -495,7 +661,9 @@ class EnsembleRunner:
                                         for p in self.segments),
                       "graph_captures": self.captures,
                       "engines": self.engines_built,
-                      "warmup_wall_s": self.warmup_wall_s})
+                      "warmup_wall_s": self.warmup_wall_s,
+                      "checkpoint_io": self.ck_io},
+            retries=adv.retries)
         if self.hb_monitor is not None:
             stats.stale_heartbeats = self.hb_monitor.stale_events
         loops = self.loop_stats
@@ -523,13 +691,20 @@ def _free(device) -> None:
 class _Segments:
     """The campaign's side of the segmented advance (the runner
     `supervise.advance` asks for): the campaign engine of one batch of
-    worlds, the campaign's re-plans and capacity knobs, and its
-    heartbeats with the batch's first replica."""
+    worlds, its rotating checkpointer, the campaign's guard, chaos,
+    stamp, retries, re-plans and capacity knobs, and its heartbeats
+    with the batch's first replica."""
+
+    mesh = None
 
     def __init__(self, er: EnsembleRunner, worlds: EnsembleWorlds,
-                 offset: int):
+                 offset: int, checkpointer=None):
         self.er, self.worlds, self.offset = er, worlds, offset
         self.cfg = er.cfg
+        self.checkpointer = checkpointer
+        self.guard, self.chaos = er.guard, er.chaos
+        stamp = None if checkpointer is None else checkpointer.extra_meta
+        self._ck_extra_meta = stamp or er._ck_extra_meta
         self.engine = er.engine(worlds)
 
     @property
@@ -539,6 +714,14 @@ class _Segments:
     @replans.setter
     def replans(self, n: int) -> None:
         self.er.replans = n
+
+    @property
+    def retries(self) -> int:
+        return self.er.retries
+
+    @retries.setter
+    def retries(self, n: int) -> None:
+        self.er.retries = n
 
     @property
     def _capacity_overrides(self) -> dict:
@@ -551,14 +734,24 @@ class _Segments:
     def overflow_counts(self, state: dict) -> dict:
         return capacity.overflow_counts(state)
 
-    def replan(self, host_state: dict) -> dict:
+    def template(self) -> dict:
+        return self.engine.init_arrays(self.er.sim.start_times,
+                                       self.er.sim.stop_times)
+
+    def _rebuild(self) -> None:
         self.engine = None
         _free(self.er.device)
         self.engine = self.er.engine(self.worlds)
-        return capacity.transfer(
-            self.engine, host_state,
-            self.engine.init_arrays(self.er.sim.start_times,
-                                    self.er.sim.stop_times))
+
+    def replan(self, host_state: dict) -> dict:
+        self._rebuild()
+        return capacity.transfer(self.engine, host_state, self.template())
+
+    def reload(self, path: str, stop: int) -> dict:
+        self._rebuild()
+        state, _, _ = checkpoint.load_state(self.engine, self.template(),
+                                            path, final_stop=stop)
+        return state
 
     def _emit_heartbeats(self, now: int, state: dict) -> None:
         self.er._emit_heartbeats(now, state, self.offset)

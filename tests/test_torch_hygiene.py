@@ -87,7 +87,13 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     ("hosts.a.processes=[{path: model:tgen_tcp_server, start_time: 10ms}]",
      "queue (a) item 10"),
     ("experimental.failover=shrink", "queue (a) item 13"),
-    ("experimental.checkpoint_save=run.npz", "queue (a) item 7"),
+    ("experimental.chaos=[{kind: device_loss, segment: 1, shard: 0}]",
+     "queue (a) item 13"),
+    ("experimental.round_watchdog=5", "queue (a) item 13"),
+    ("experimental.chaos=[{kind: cache_store_fail, store: 0}]",
+     "queue (a) item 14"),
+    ("experimental={scheduler_policy: tpu, mesh_shards: 2, "
+     "dispatch_retries: 1}", "queue (a) item 13"),
 ])
 def test_configs_outside_the_slice_are_refused_by_roadmap_item(
         override, item):
@@ -121,6 +127,36 @@ def test_lifted_keys_are_admitted_and_run_on_the_cpu(overrides, policy):
     assert stats.policy == policy and stats.events_executed > 0
 
 
+@pytest.mark.parametrize("case", ["save_time", "every", "load"])
+def test_checkpoint_keys_are_admitted_and_run_on_the_cpu(tmp_path, case):
+    """The checkpoint keys are inside the slice: a paused save, a
+    rotated run and a resume of the pause build and run, the resume
+    equal to the uninterrupted run."""
+    from shadow_tpu_torch.config.loader import load_config_str as load
+
+    ck = str(tmp_path / "run.npz")
+    pause = [f"experimental.checkpoint_save={ck}",
+             "experimental.checkpoint_save_time=150ms"]
+    if case == "save_time":
+        stats = runner.run(load(PHOLD, pause), device="cpu")
+        assert stats.ok and stats.end_time == 150_000_000
+    elif case == "every":
+        stats = runner.run(load(PHOLD, [
+            f"experimental.checkpoint_save={ck}",
+            "experimental.checkpoint_every=100ms"]), device="cpu")
+        assert stats.ok and len(stats.pipeline["checkpoint_io"]
+                                ["rotation"]) == 2
+    else:
+        runner.run(load(PHOLD, pause), device="cpu")
+        stats = runner.run(load(PHOLD, [f"experimental.checkpoint_load="
+                                        f"{ck}"]), device="cpu")
+        plain = runner.run(load_config_str(PHOLD), device="cpu")
+        assert stats.ok and stats.events_executed == \
+            plain.events_executed
+        np.testing.assert_array_equal(stats.host_trace_checksum,
+                                      plain.host_trace_checksum)
+
+
 def test_threaded_hybrid_cpu_policy_and_cpu_engine_keys_are_refused():
     from shadow_tpu_torch.config.loader import load_config_str as load
     from shadow_tpu_torch.core.controller import Controller
@@ -142,11 +178,11 @@ CAMPAIGN = "ensemble={replicas: 2, vary: {seed: [3, 4]}}"
 
 
 @pytest.mark.parametrize("override,item", [
-    ("experimental.checkpoint_save=run.npz", "queue (a) item 7b"),
-    ("experimental.checkpoint_every=100ms", "queue (a) item 7b"),
+    ("experimental.failover=shrink", "queue (a) item 13"),
+    ("experimental.chaos=[{kind: oom, segment: 1}]", "queue (a) item 13"),
     ("experimental.strategy_plan=auto", "queue (a) item 14"),
     ("experimental.pipeline_depth=2", "queue (a) item 13"),
-    ("experimental.checkpoint_load=run.npz", "queue (a) item 7b"),
+    ("experimental.round_watchdog=5", "queue (a) item 13"),
     ("experimental.mesh_shards=2", "queue (a) item 9"),
 ])
 def test_campaign_keys_still_refused_name_their_items(override, item):
@@ -156,6 +192,42 @@ def test_campaign_keys_still_refused_name_their_items(override, item):
     with pytest.raises(OutsideSlice, match="ROADMAP.md " +
                        item.replace("(", r"\(").replace(")", r"\)")):
         build(cfg)
+
+
+@pytest.mark.parametrize("case", ["save", "every", "load"])
+def test_campaign_checkpoint_keys_are_admitted_and_run_on_the_cpu(
+        tmp_path, case):
+    """A campaign's checkpoint keys run: the end-of-run save and the
+    rotation carry the campaign's stamp, and a resume of a paused
+    campaign equals the uninterrupted one, replica by replica."""
+    from shadow_tpu_torch.config.loader import load_config_str as load
+    from shadow_tpu_torch.device import checkpoint
+    from shadow_tpu_torch.ensemble.campaign import EnsembleRunner
+
+    ck = str(tmp_path / "run.npz")
+    rec = f"ensemble.record_path={tmp_path / 'rec.json'}"
+
+    def run(*extra):
+        return EnsembleRunner(load(PHOLD, [CAMPAIGN, rec, *extra]),
+                              device="cpu").run()
+
+    if case == "save":
+        stats = run(f"experimental.checkpoint_save={ck}")
+        assert stats.ok and checkpoint.peek_meta(ck)["ensemble"][
+            "replicas"] == 2
+    elif case == "every":
+        stats = run(f"experimental.checkpoint_save={ck}",
+                    "experimental.checkpoint_every=100ms")
+        assert stats.ok and len(stats.pipeline["checkpoint_io"]
+                                ["rotation"]) == 2
+    else:
+        plain = run()
+        run(f"experimental.checkpoint_save={ck}",
+            "experimental.checkpoint_save_time=150ms")
+        stats = run(f"experimental.checkpoint_load={ck}")
+        assert stats.ok
+        assert [r["host_checksums"] for r in stats.ensemble["replicas"]] \
+            == [r["host_checksums"] for r in plain.ensemble["replicas"]]
 
 
 def test_ensemble_is_admitted_and_runs_on_the_cpu(tmp_path):
