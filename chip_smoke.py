@@ -161,7 +161,19 @@ Phases, in order; any failure exits non-zero before the last line:
      the plain version's fresh one; K5's window
      over a rank's received [S, 6, CAP] rows and K3 merging them with
      the rank's self-shard rows (two arrival blocks, the window and
-     the global merge's occ_in), every output bit for bit.
+     the global merge's occ_in), every output bit for bit;
+   - the audit, the model NIC and the path counters as a mesh rank runs
+     them (`mesh_state_kernels`, rank 1 of 2 at H_loc 50,000): K8's
+     rank mode (`audit_round_rank`: the rank's balance written, nothing
+     decided) on two ranks' seeded states and the conserve pass
+     (`audit_conserve`) on their summed word, with the ledgers balanced,
+     moved between the ranks (balances non-zero, summing to 0: no
+     AUD_CONSERVE, where the one-launch K8 on one rank would set it) and
+     broken (AUD_CONSERVE on every host of both ranks); K1_nic on the
+     rank's hosts at their global ids, reading its slice of the [H_pad]
+     bandwidth columns; K7 on the rank's outbox (global sources, the
+     destinations over H_pad and a few outside) into its row; each
+     bit-equal to its plain version.
 3. parity: the window loop captured into a CUDA graph on the card (the
    main path, K9 with the phase's tallies folded in), the Python loop
    on the card (the standalone tally) and the CPU plain path must
@@ -194,8 +206,10 @@ Phases, in order; any failure exits non-zero before the last line:
    (`hybrid_parity`, HYBRID_PARITY: tests/test_hybrid.py's lossy PHOLD
    and its selfloop case, examples/tgen_faults.yaml and
    tgen_faults_hier.yaml under tpu, the latter also with its host
-   faults alone, a PHOLD + tgen mix, a cut tor_small with a relay
-   crash), each on the card with K10 on every flush (under
+   faults alone, and again with mesh_shards 2, whose fall-back logs the
+   reference's warning and equals the run without the mesh, a PHOLD +
+   tgen mix, a cut tor_small with a relay crash), each on the card with
+   K10 on every flush (under
    torch.profiler, K10's device ms a flush printed), on the CPU plain
    path and on the port's serial policy: traces, per-host leaves,
    totals and path counters equal; then the outbox compaction
@@ -301,7 +315,10 @@ Phases, in order; any failure exits non-zero before the last line:
    against 2 CPU ranks, every leaf; parity (`mesh_parity`): PHOLD 2 x 1,000 lossy, the tgen
    config at loss 0.25, tor_small cut to TOR_PARITY_STOP and the star
    with link faults, each under all_to_all, two_phase and all_gather,
-   window and global merges, at S = 4 (at S = 2 three of them), held
+   window and global merges, at S = 4 (at S = 2 three of them), and the
+   NIC PHOLD with the path counters and BUSY_YAML's PHOLD audited under
+   all_to_all and two_phase at S = 4 and all_to_all at S = 2 (their NIC
+   and audit leaves too, path_cnt's rows summed, health words zero), held
    against the one-device card run (traces, totals, every per-host
    leaf but occ_in, the phases), the kernels each rank launched
    checked; a2a/window at S = 2 and two_phase/global at S = 4 also
@@ -321,23 +338,32 @@ Phases, in order; any failure exits non-zero before the last line:
    second route, the merge) and the bytes it sent; counts equal to one
    device's, x_overflow 0, every rank's peak within
    FOOTPRINT_TOLERANCE of its admission estimate. Then
+   (`mesh_state_full`, MESH_STATE_FULL) phold.yaml at 2 x 50,000 hosts
+   audited at S = 2 (health word zero, every per-host leaf equal to its
+   one-device graph run, the balance's all_sum a round, the audit's
+   cost a rank: the all_sum's seconds and K8's device ms over the mesh
+   wall)
+   and tgen_10000.yaml under the model NIC and the path counters cut to
+   5 s at S = 2 (the summed path_cnt equal), each beside its one-device
+   graph run, peaks within FOOTPRINT_TOLERANCE of the estimates. Then
    (`mesh_supervise`) phold.yaml at S = 2 saved half way and resumed at
    S = 2, equal to one device, and its checkpoint refused at S = 4 with
    the reference's geometry message. Every card run of the phase but
    the flush's goes in one spawn at S = 2 and one at S = 4
    (`mesh_card_runs`): a spawn's ranks take about 20 s to reach the
-   card.
+   card; the flush's check runs beside the first spawn.
 7. boot: examples/tgen_1000000.yaml as shipped built (timed), admitted
    and booted (engine and init_state) on the card; not run.
 8. the `kernels` JSON line, then the card line, then the result line.
 
 The CPU oracles (the CPU plain path's runs of the parity phase, the
 hybrid runs' CPU and serial twins, the full hybrid PHOLD's serial run,
-the mesh's CPU ranks) start once the kernels phase has ended, in worker
-processes and threads at a lower priority (`start_oracles`), and run
-beside the card; the phases read their results, and the full phase
-starts once every one has ended, so that none runs beside the timed
-phases.
+the mesh's CPU ranks) start before the build, in worker processes and
+threads at a lower priority (`start_oracles`), and run beside the
+build, the kernels phase and the parity phase; the phases read their
+results, and the full phase starts once every one has ended, so that
+none runs beside the timed phases. The end of the output has a line an
+oracle: when it ran and how long its reader waited.
 
 `--phases build,plan` makes the planner's and the segmented advance's
 checks alone (the mesh's planned runs in spawns of their own);
@@ -724,6 +750,10 @@ REPLACES = {
     "pop_phase_hier_aud": "shadow_tpu/device/engine.py:800",
     "pop_tgen_nic_aud": "shadow_tpu/device/engine.py:800",
     "audit_round": "shadow_tpu/device/engine.py:2072",
+    # _audit_round on a mesh: the shard's int64 difference before
+    # `_axis_sum64`, and the conserve bit from the mesh's sum
+    "audit_round_rank": "shadow_tpu/device/engine.py:2072",
+    "audit_conserve": "shadow_tpu/device/engine.py:2099",
     "phase_tally": "shadow_tpu/device/engine.py:1941",
     # the window loop: _round/_phase/_run_shard/_axis_min
     "loop_control": "shadow_tpu/device/engine.py:2116",
@@ -770,6 +800,8 @@ SOURCES = {
                      "pop_phase_hier_aud", "pop_tgen_nic_aud"),
                     "shadow_tpu_torch/csrc/pop_phase_aud.cu"),
     "audit_round": "shadow_tpu_torch/csrc/audit_round.cu",
+    "audit_round_rank": "shadow_tpu_torch/csrc/audit_round.cu",
+    "audit_conserve": "shadow_tpu_torch/csrc/audit_round.cu",
     "phase_tally": "shadow_tpu_torch/csrc/phase_tally.cu",
     "loop_control": "shadow_tpu_torch/csrc/loop_control.cu",
     "loop_control_tally": "shadow_tpu_torch/csrc/loop_control.cu",
@@ -797,7 +829,8 @@ ROWS = ("pop_phase", "pop_tgen", "pop_tor", "judge_outbox", "route",
         "judge_batch_ep", "judge_batch_ep_hier", "compact_outbox",
         "compact_outbox_global",
         "pack_remote", "pack_two_phase", "pack_two_phase2",
-        "route_window", "route_keyed", "merge_heaps2")
+        "route_window", "route_keyed", "merge_heaps2",
+        "audit_round_rank", "audit_conserve")
 AUDIT = "experimental.state_audit=true"
 # tests/test_torch_audit.py's BUSY: PHOLD without loss at msgload 4,
 # with self-sends and a 50 ms runahead, so that every host keeps several
@@ -1944,6 +1977,27 @@ def nic_pop_case(torch, K, scratch, name, state0, world, p, win_end, dev):
             "plain_ms": time_median(torch, K.pop_plain, args, 3)}
 
 
+def nic_row(c, H, p, what=""):
+    """A `_nic` pop's row from `nic_pop_case`'s result at H hosts."""
+    OB, W = p.OB, p.app.n_state_words
+    return finish({
+        "err": c["err"], "ms": c["ms"], "plain_ms": c["plain_ms"],
+        # t of every outbox column, the other four fields of the
+        # written rows; the popped heap rows (t, key, meta, d0|d1,
+        # d2); the head time that stopped each host; per-host
+        # counters read and written (head, event/packet/app seq,
+        # n_exec, n_deliv, n_sent, n_drop, chk, the app words, the
+        # seven NIC leaves); bandwidths, vertex and pop count; the
+        # law table
+        "bytes": (H * OB * 8 + c["rows"] * 4 * 8 + c["popped"] * 5 * 8
+                  + H * 8 + H * (7 * 4 + 8 + W * 4 + 7 * 8) * 2
+                  + H * (2 * 8 + 4 * 2) + 1024 * 8),
+        # two threefry blocks for the drop key, two a rolled packet
+        "ops": (2 * H + 2 * c["packets"]) * THREEFRY_OPS,
+        "shape": f"{what}H={H} E={p.E} K={p.K} T={p.T} B={p.B} OB={OB} "
+                 f"C={p.C} cp={int(p.CP)} {c['counts']}"})
+
+
 def nic_kernels(torch, K, scratch, rng, dev):
     """K1, K4 and K6 under the model NIC (`_nic`): K1 at the PHOLD
     full-width shapes (100,000 hosts, E=64, msgload 3, self-sends, with
@@ -1984,24 +2038,7 @@ def nic_kernels(torch, K, scratch, rng, dev):
         p, K=1, P=1, B=40 // 3, MB=True, CP=True), we)
     for name, (s, w, p, we) in cases.items():
         c = nic_pop_case(torch, K, scratch, name, s, w, p, we, dev)
-        H, OB = s["head"].shape[0], p.OB
-        W = p.app.n_state_words
-        out[name] = finish({
-            "err": c["err"], "ms": c["ms"], "plain_ms": c["plain_ms"],
-            # t of every outbox column, the other four fields of the
-            # written rows; the popped heap rows (t, key, meta, d0|d1,
-            # d2); the head time that stopped each host; per-host
-            # counters read and written (head, event/packet/app seq,
-            # n_exec, n_deliv, n_sent, n_drop, chk, the app words, the
-            # seven NIC leaves); bandwidths, vertex and pop count; the
-            # law table
-            "bytes": (H * OB * 8 + c["rows"] * 4 * 8 + c["popped"] * 5 * 8
-                      + H * 8 + H * (7 * 4 + 8 + W * 4 + 7 * 8) * 2
-                      + H * (2 * 8 + 4 * 2) + 1024 * 8),
-            # two threefry blocks for the drop key, two a rolled packet
-            "ops": (2 * H + 2 * c["packets"]) * THREEFRY_OPS,
-            "shape": f"H={H} E={p.E} K={p.K} T={p.T} B={p.B} OB={OB} "
-                     f"C={p.C} cp={int(p.CP)} {c['counts']}"})
+        out[name] = nic_row(c, s["head"].shape[0], p)
     s, w, p, we = cases["pop_tgen_nic"]
     out["pop_tgen_nic_aud"] = aud_pop_case(
         torch, K, scratch, rng, "pop_tgen_nic", s, w, p, we, dev,
@@ -2163,10 +2200,11 @@ def paths_bytes(K, ob, world, pops, read_all: bool) -> tuple:
     H, OB = ob["t"].shape[-2:]
     V = K.n_vertices(world)
     hv = world["host_vertex"].long()
+    Hv = hv.shape[0]        # a mesh rank's world holds H_pad hosts
     pkt = (ob["t"] < K.INF) & ((ob["m"] & 0xFF) == 2)
     rows = int(pkt.sum())
-    cells = hv[(ob["k"] >> 32).clamp(0, H - 1)[pkt]] * V + \
-        hv[(ob["m"] >> 32).clamp(0, H - 1)[pkt]]
+    cells = hv[(ob["k"] >> 32).clamp(0, Hv - 1)[pkt]] * V + \
+        hv[(ob["m"] >> 32).clamp(0, Hv - 1)[pkt]]
     touched = int(cells.unique().numel())
     hosts = H if read_all or pops is None else int((pops != 0).sum())
     rest = rows * (2 * 8 + 2 * 4) + touched * 16
@@ -2178,12 +2216,12 @@ def paths_library_ms(torch, K, ob, world):
     """torch.bincount over the packet rows' pairs and weights of `ob`:
     the same histogram in one PyTorch call (the pairs and weights made
     outside the timed call)."""
-    H = ob["t"].shape[-2]
     V = K.n_vertices(world)
     hv = world["host_vertex"].long()
+    Hv = hv.shape[0]
     pkt = (ob["t"] < K.INF) & ((ob["m"] & 0xFF) == 2)
-    pair = torch.where(pkt, hv[(ob["k"] >> 32).clamp(0, H - 1)] * V
-                       + hv[(ob["m"] >> 32).clamp(0, H - 1)],
+    pair = torch.where(pkt, hv[(ob["k"] >> 32).clamp(0, Hv - 1)] * V
+                       + hv[(ob["m"] >> 32).clamp(0, Hv - 1)],
                        V * V).view(-1)
     weight = torch.where(pkt, ((ob["m"] & K.U32) << 32 >> 40), 0)
     return time_median(
@@ -5092,6 +5130,194 @@ def mesh_kernels(torch, K, scratch, rng, dev):
     return out
 
 
+# a mesh rank's place for the kernels of the audit, the model NIC and the
+# path counters on the mesh (`mesh_state_kernels`): rank 1 of phold.yaml
+# at S = 2, its H_loc hosts from g0 = H_loc on, of H_pad = S * H_loc
+MESH_RANK = (2, 1, 50_000)
+
+
+def audit_rank_case(torch, K, scratch, rng, dev):
+    """K8 in a mesh rank's mode: two ranks' seeded states (`audit_inputs`
+    at H_loc, E = 64), each audited by the streamed launch that writes
+    its balance and decides nothing (`audit_round_rank`), the two words
+    summed (the mesh's all_sum), then the conserve pass on the sum
+    (`audit_conserve`), bit-equal to the plain versions (words and
+    balances), with the ranks' ledgers balanced, moved between the ranks
+    (non-zero balances summing to 0: no AUD_CONSERVE, where the
+    one-launch K8 on either rank alone would set it) and broken (the sum
+    off by one: AUD_CONSERVE on every host of both ranks). Returns the
+    two rows, timed on the balanced state (the main path's), the conserve
+    pass also on the broken one."""
+    S, _, H = MESH_RANK
+    E = 64
+    ranks = [audit_inputs(torch, K, rng, H, E, dev) for _ in range(S)]
+
+    def moved(deltas):
+        out = []
+        for st, d in zip(ranks, deltas):
+            st = dict(st, aud_tx=st["aud_tx"].clone())
+            st["aud_tx"][0] += d
+            out.append(st)
+        return out
+
+    cases = {"balanced": moved((0, 0)), "zero sum": moved((5, -5)),
+             "broken": moved((5, -4))}
+    err = 0.0
+    for case, sts in cases.items():
+        words = []
+        # the kernels, then the plain versions
+        for audit, conserve in (
+                (scratch.audit_round, scratch.audit_conserve),
+                (K.audit_round_plain, K.audit_conserve_plain)):
+            got = [clone(st) for st in sts]
+            bal = [torch.zeros(1, dtype=torch.int64, device=dev)
+                   for _ in sts]
+            for st, b in zip(got, bal):
+                audit(st, balance=b)
+            total = sum(bal)
+            for st in got:
+                conserve(st, total)
+            words.append((got, torch.cat(bal)))
+        torch.cuda.synchronize()
+        (gk, bk), (gp, bp) = words
+        e = max([max_abs_err(a, b, list(a)) for a, b in zip(gk, gp)]
+                + [max_abs_err({"b": bk}, {"b": bp}, ["b"])])
+        check(e == 0.0, f"audit_round_rank/audit_conserve ({case}) differ "
+              f"from their plain versions (max abs err {e})")
+        err = max(err, e)
+        marked = [((st["aud"] & K.AUD_CONSERVE) != 0) for st in gk]
+        want = case == "broken"
+        check(all(bool(c.all()) == want and bool(c.any()) == want
+                  for c in marked), f"audit_conserve ({case}): "
+              f"AUD_CONSERVE {'not ' if want else ''}on every host")
+        if case == "zero sum":
+            check(bool((bk != 0).all()) and int(bk.sum()) == 0,
+                  f"audit_round_rank (zero sum): balances {bk.tolist()}")
+            alone = clone(sts[0])
+            scratch.audit_round(alone)
+            check(bool(((alone["aud"] & K.AUD_CONSERVE) != 0).all()),
+                  "audit_round on one rank alone: no AUD_CONSERVE where "
+                  "its own balance is not 0")
+    check(scratch.launches["audit_round_rank"] > 0 and
+          scratch.launches["audit_conserve"] > 0,
+          "audit_round_rank or audit_conserve never launched")
+    first = cases["balanced"][0]
+
+    def rank_args():
+        return (clone(first), None,
+                torch.zeros(1, dtype=torch.int64, device=dev))
+
+    def conserve_args(case):
+        def make():
+            st = clone(cases[case][0])
+            total = torch.tensor([0 if case == "balanced" else 1],
+                                 dtype=torch.int64, device=dev)
+            return (st, total)
+        return make
+
+    nbytes, tied, written = audit_bytes(torch, K, first)
+    rank = finish({
+        "err": err,
+        "ms": time_median(torch, scratch.audit_round, rank_args, 7),
+        "plain_ms": time_median(torch, K.audit_round_plain, rank_args, 3),
+        "library_ms": None, "bytes": nbytes + 8, "ops": 0,
+        "shape": f"a mesh rank's state: H_loc={H} E={E} tied_slots={tied} "
+                 f"words_written={written}; the rank's balance written, "
+                 "nothing decided; balanced, zero-sum and broken ledgers "
+                 f"over {S} ranks"})
+    broken_ms = time_median(torch, scratch.audit_conserve,
+                            conserve_args("broken"), 7)
+    cons = finish({
+        "err": err,
+        "ms": time_median(torch, scratch.audit_conserve,
+                          conserve_args("balanced"), 7),
+        "plain_ms": time_median(torch, K.audit_conserve_plain,
+                                conserve_args("balanced"), 3),
+        # the summed word; on a broken ledger every word read and
+        # written
+        "library_ms": None, "bytes": 8, "ops": 0,
+        "broken": finish({
+            "err": err, "ms": broken_ms,
+            "plain_ms": time_median(torch, K.audit_conserve_plain,
+                                    conserve_args("broken"), 3),
+            "bytes": 8 + H * 4 * 2, "ops": 0,
+            "shape": f"H_loc={H}, the sum not 0: every word ORed"}),
+        "shape": f"H_loc={H}, the sum over {S} ranks 0 (the main path's); "
+                 f"a broken sum {broken_ms:.4f} ms"})
+    return rank, cons
+
+
+def mesh_state_kernels(torch, K, scratch, rng, dev):
+    """The kernels of the audit, the model NIC and the path counters as a
+    mesh rank runs them (MESH_RANK: rank 1 of 2, H_loc 50,000 of H_pad
+    100,000): K8's mode that writes the rank's balance and the conserve
+    pass on the summed word (`audit_rank_case`); K1_nic on the rank's
+    hosts at their global ids, the bandwidth columns [H_pad] whose
+    first H_loc hosts sit at 1 Gbit/s and the rank's slice at random
+    rates, so that a pop reading the wrong slice differs; K7 on the
+    rank's outbox, its sources the rank's global ids, its destinations
+    over [0, H_pad) and a few outside (clipped to H_pad as the
+    reference clips them), into the rank's row. Each bit-equal to its
+    plain version."""
+    from shadow_tpu_torch.device.apps import PholdDevice
+    from shadow_tpu_torch.device.prng import seed_key
+
+    S, shard, H = MESH_RANK
+    H_pad, g0 = S * H, shard * H
+    out = {}
+    out["audit_round_rank"], out["audit_conserve"] = audit_rank_case(
+        torch, K, scratch, rng, dev)
+    # K1_nic on the rank's hosts
+    E, win_end = 64, 10**9
+    world = {
+        "host_vertex": torch.from_numpy(
+            rng.integers(0, 2, H_pad).astype(np.int32)).to(dev),
+        "lat": torch.tensor([[3_000_000, 5_000_000],
+                             [5_000_000, 3_000_000]],
+                            dtype=torch.int32, device=dev),
+        "rel": torch.tensor([[0.98, 0.9], [0.9, 0.98]],
+                            dtype=torch.float32, device=dev),
+        "epoch_times": torch.zeros(1, dtype=torch.int64, device=dev)}
+    state0, world = add_nic(torch, K, rng, random_state(rng, H, E, dev),
+                            world, win_end, dev)
+    for k in ("bw_up", "bw_down"):
+        world[k] = torch.cat([torch.full((g0,), 10**9, dtype=torch.int64,
+                                         device=dev), world[k]])
+    app = PholdDevice(n_hosts_total=H_pad, msgload=3, size=512, selfloop=1)
+    p = K.PhaseParams(E=E, K=3, T=0, P=1, B=32 // 4, IN=E, C=1,
+                      boot_end=win_end // 2, seed=seed_key(7), app=app,
+                      MB=True, CP=True, g0=g0)
+    c = nic_pop_case(torch, K, scratch, "pop_phase_nic", state0, world, p,
+                     win_end, dev)
+    out["pop_phase_nic"] = nic_row(c, H, p, f"rank {shard} of {S}, g0={g0}"
+                                   f", H_pad={H_pad}: ")
+    # K7 on the rank's row
+    OB, V = 39, 6
+    ob, _, pops = paths_outbox(torch, K, rng, H, OB, V, dev)
+    gid = torch.arange(g0, g0 + H, dtype=torch.int64, device=dev)
+    ob["k"] = (gid[:, None] << 32) | (ob["k"] & K.U32)
+    dst = torch.from_numpy(rng.integers(-4, H_pad + 4, (H, OB))).to(dev)
+    ob["m"] = (dst << 32) | (ob["m"] & K.U32)
+    world7 = {"host_vertex": torch.from_numpy(
+        rng.integers(0, V, H_pad).astype(np.int32)).to(dev),
+        "lat": torch.zeros((V, V), dtype=torch.int32, device=dev)}
+    clear = K.outbox_word(dev)
+    clear[0] = 0
+    rows = {}
+    for case, o, pc, w in (
+            ("every row", ob, None, None),
+            ("the popped hosts' rows, the word clear",
+             rule_outbox(torch, ob, pops), pops, clear)):
+        rows[case] = paths_row(
+            torch, K, scratch, o, world7, pc, w,
+            f"rank {shard} of {S} (g0={g0}, H_pad={H_pad}), {case}")
+    r = rows.pop("every row")
+    out["count_paths"] = {**r, "rows": rows,
+                          "err": max([r["err"]] + [x["err"] for x in
+                                                   rows.values()])}
+    return out
+
+
 def kernels_phase(torch, report, H=100_000, dev="cuda"):
     from shadow_tpu_torch.device import kernels as K
 
@@ -5117,6 +5343,7 @@ def kernels_phase(torch, report, H=100_000, dev="cuda"):
     compact, compact_r4 = compact_kernels(torch, K, scratch, rng, dev)
     replicas.update(compact_r4)
     mesh = mesh_kernels(torch, K, scratch, rng, dev)
+    mesh_state = mesh_state_kernels(torch, K, scratch, rng, dev)
     adversarial = flush_adversarial(torch, K, scratch, rng, dev)
     real, outbox_adv = real_phase_rows(torch, K, scratch, dev)
     real.update(audit_real_rows(torch, K, dev))
@@ -5242,6 +5469,13 @@ def kernels_phase(torch, report, H=100_000, dev="cuda"):
                 if isinstance(sub.get("overflowing"), dict):
                     report_line(f"{name} ({k}, overflowing)",
                                 sub["overflowing"])
+    for name, r in mesh_state.items():
+        report_line(f"{name} (a mesh rank: the audit, the model NIC and "
+                    f"the path counters)", r)
+        for case, sub in (r.get("rows") or {}).items():
+            report_line(f"{name} (a mesh rank, {case})", sub)
+        if "broken" in r:
+            report_line(f"{name} (a mesh rank, the sum not 0)", r["broken"])
     for name, r in replicas.items():
         print(f"[kernels] {name} at R={r['R']}: equal to {r['R']} "
               f"launches at R=1 and to its plain version (max abs err "
@@ -5278,6 +5512,11 @@ def kernels_phase(torch, report, H=100_000, dev="cuda"):
             report[kname].update(sub)
     report["route_keyed"]["adversarial"] = flush["route_keyed"][
         "adversarial"]
+    # the audit, the model NIC and the path counters on a mesh rank
+    report["audit_round_rank"] = mesh_state["audit_round_rank"]
+    report["audit_conserve"] = mesh_state["audit_conserve"]
+    for name in ("pop_phase_nic", "count_paths"):
+        report[name]["on_a_mesh_rank"] = mesh_state[name]
 
 
 def same_run(a, b, what, names=("card", "cpu")):
@@ -5335,12 +5574,14 @@ def loader(source, *pre):
 
 # ----------------------------------------------------------------------
 # the CPU oracles: the CPU plain path's runs that the card's runs are
-# held to, started once the kernels phase has ended (whose host-bound
-# plain versions they would slow), in worker processes (the mesh's CPU
-# ranks from threads of their own), so that they run beside the card; a
-# phase run without them (`--phases`) computes its own
+# held to, started before the build, in worker processes (the mesh's CPU
+# ranks from threads of their own) at a lower priority, so that they run
+# beside the build, the kernels phase and the parity phase (the kernels
+# phase times its kernels behind a sleeping card, so the host's load does
+# not reach a kernel's ms; its plain versions' host-bound ms may grow);
+# a phase run without them (`--phases`) computes its own
 # ----------------------------------------------------------------------
-ORACLE_WORKERS = 3
+ORACLE_WORKERS = 4
 ORACLES = None
 
 
@@ -5376,8 +5617,9 @@ def cpu_job(spec):
     raise ValueError(f"unknown CPU oracle {kind}")
 
 
-# the oracles' niceness: the card's process keeps its cores
-ORACLE_NICE = 10
+# the oracles' niceness (the lowest priority): the card's process keeps
+# its cores
+ORACLE_NICE = 19
 
 
 def _oracle_worker():
@@ -5388,18 +5630,26 @@ def _oracle_worker():
     torch.set_num_threads(1)
 
 
+def timed_cpu_job(spec):
+    """cpu_job(spec) with its start and end on the wall clock (seconds
+    since the epoch, comparable across processes)."""
+    t0 = time.time()
+    out = cpu_job(spec)
+    return t0, time.time(), out
+
+
 def _oracle_thread_job(spec):
     # on Linux a thread's niceness is its own, and the rank processes
     # it starts inherit it
     os.nice(ORACLE_NICE)
-    return cpu_job(spec)
+    return timed_cpu_job(spec)
 
 
 class Oracles:
     """CPU oracles running beside the card, at a lower priority: `start`
     submits one under a key, `result` waits for it (the seconds waited
-    summed in `waited_s`), `finish` for all; `close` stops what still
-    runs."""
+    summed in `waited_s`; each read's times kept in `times`), `finish`
+    for all; `close` stops what still runs."""
 
     def __init__(self, workers=ORACLE_WORKERS):
         import concurrent.futures as cf
@@ -5411,12 +5661,16 @@ class Oracles:
         self.thread = cf.ThreadPoolExecutor(2)
         self.jobs = {}
         self.waited_s = 0.0
+        # key -> (start, end, read, waited): seconds since the oracles
+        # started, the seconds the reader waited
+        self.times = {}
+        self.t0 = time.time()
 
     def start(self, key, spec):
         if spec[0] == "mesh":
             self.jobs[key] = self.thread.submit(_oracle_thread_job, spec)
         else:
-            self.jobs[key] = self.pool.submit(cpu_job, spec)
+            self.jobs[key] = self.pool.submit(timed_cpu_job, spec)
 
     def finish(self) -> float:
         """Waits until every started oracle has ended (so that nothing
@@ -5429,9 +5683,20 @@ class Oracles:
 
     def result(self, key):
         t0 = time.perf_counter()
-        out = self.jobs.pop(key).result()
-        self.waited_s += time.perf_counter() - t0
+        start, end, out = self.jobs.pop(key).result()
+        waited = time.perf_counter() - t0
+        self.waited_s += waited
+        self.times[key] = (start - self.t0, end - self.t0,
+                           time.time() - self.t0, waited)
         return out
+
+    def report(self) -> None:
+        """One line an oracle, in the order they were read: when it ran
+        and how long the phase that read it waited for it."""
+        for key, (start, end, read, waited) in self.times.items():
+            print(f"[oracles] {key}: ran {end - start:.1f} s (+{start:.1f} "
+                  f"to +{end:.1f} s), read at +{read:.1f} s, waited "
+                  f"{waited:.1f} s", flush=True)
 
     def close(self):
         for f in self.jobs.values():
@@ -5455,7 +5720,12 @@ def oracle(key, spec):
 
 def start_oracles(phases) -> None:
     """Start the CPU oracles of the selected phases, the mesh's first
-    (in threads), then in the order the phases read them."""
+    (in threads), then the compactions' (the longest: 106 and 175 s on
+    an H100 80GB HBM3 host at 700 W beside the kernels phase, PERF.md),
+    then in the order the phases read them. Every process started from
+    here on takes one intra-op thread (OMP_NUM_THREADS): the oracles'
+    tensors are small, and more threads only crowd the card's
+    process."""
     global ORACLES
     jobs = []
     if "parity" in phases:
@@ -5469,7 +5739,7 @@ def start_oracles(phases) -> None:
                          source, *overrides, MIN_BATCH_0))),
                      # the serial policy touches no device
                      (f"serial:{key}", ("controller", loader(
-                         source, *overrides, SERIAL)))]
+                         source, *overrides, *SERIAL_TWIN)))]
         jobs += [(f"compact:{key}", ("compact", key, load))
                  for key, _, load in COMPACT_LOADS]
     if "full" in phases:
@@ -5480,9 +5750,10 @@ def start_oracles(phases) -> None:
                  for S, cfgs in mesh_cpu_configs().items()]
     if not jobs:
         return
+    os.environ["OMP_NUM_THREADS"] = "1"
     ORACLES = Oracles()
-    for key, spec in sorted(jobs, key=lambda j: not j[0].startswith(
-            "mesh:")):
+    for key, spec in sorted(jobs, key=lambda j: (
+            not j[0].startswith("mesh:"), not j[0].startswith("compact:"))):
         ORACLES.start(key, spec)
 
 
@@ -5755,6 +6026,12 @@ HYBRID_PARITY = (
      "hybrid)", "tgen_faults.yaml", ("experimental.scheduler_policy=tpu",)),
     ("tgen_faults_hier", "examples/tgen_faults_hier.yaml under tpu",
      "tgen_faults_hier.yaml", ("experimental.scheduler_policy=tpu",)),
+    # a mesh config's fall-back ignores the mesh (the reference's
+    # warning), and runs as tgen_faults does
+    ("tgen_faults_mesh", "examples/tgen_faults.yaml under tpu with "
+     "mesh_shards 2 (host faults: hybrid, the mesh ignored)",
+     "tgen_faults.yaml", ("experimental.scheduler_policy=tpu",
+                          "experimental.mesh_shards=2")),
     ("tgen_hier_crash", "examples/tgen_faults_hier.yaml with its host "
      "faults alone (factored tables, one epoch)", "tgen_faults_hier.yaml",
      ("experimental.scheduler_policy=tpu",
@@ -5782,6 +6059,12 @@ HYB_FULL_OVERRIDES = (
     "{kind: link_up, time: 500ms, source: 0, target: 1}]")
 MIN_BATCH_0 = "experimental.hybrid_judge_min_batch=0"
 SERIAL = "experimental.scheduler_policy=serial"
+# a hybrid parity config's serial twin: the serial policy pins no device
+# mesh (mesh_shards needs tpu)
+SERIAL_TWIN = (SERIAL, "experimental.mesh_shards=0")
+# the reference's warning where a mesh config falls back to hybrid
+MESH_IGNORED = ("ignored — the hybrid fallback's CPU host emulation has "
+                "no device mesh to pin")
 JUDGE_KERNELS = ("judge_batch", "judge_batch_hier", "judge_batch_ep",
                  "judge_batch_ep_hier")
 
@@ -5998,21 +6281,30 @@ def hybrid_parity(torch, report):
     every flush (hybrid_judge_min_batch 0), on the CPU plain path, and
     on the port's serial policy: the (time, dst, src, kind) trace, every
     per-host leaf, the totals and the path counters equal; K10 launched
-    on the card."""
+    on the card. A mesh config (mesh_shards) logs the reference's
+    warning once and equals the same config's run without the mesh."""
     from shadow_tpu_torch.device.kernels import Kernels
 
     runs = report.setdefault("_extra", {})
+    cards = {}
     for key, what, source, overrides in HYBRID_PARITY:
         kernels = Kernels()
         traces = [[], None, None]
-        (card, c), prof = judge_profiled(torch, lambda: controller_run(
-            cfg_from(source, overrides + (MIN_BATCH_0,)), "cuda",
-            kernels, traces[0]))
+        with counting(MESH_IGNORED) as warned:
+            (card, c), prof = judge_profiled(torch, lambda: controller_run(
+                cfg_from(source, overrides + (MIN_BATCH_0,)), "cuda",
+                kernels, traces[0]))
+        mesh = any(o.startswith("experimental.mesh_shards=")
+                   for o in overrides)
+        check(warned.counts[MESH_IGNORED] == int(mesh),
+              f"hybrid ({what}): the mesh's warning logged "
+              f"{warned.counts[MESH_IGNORED]} times")
+        cards[key] = card
         # the serial policy touches no device: its run is a CPU oracle
         cpu, traces[1] = oracle(f"hybrid:{key}", ("controller", loader(
             source, *overrides, MIN_BATCH_0)))
         serial, traces[2] = oracle(f"serial:{key}", ("controller", loader(
-            source, *overrides, SERIAL)))
+            source, *overrides, *SERIAL_TWIN)))
         check((card.policy, cpu.policy, serial.policy)
               == ("hybrid", "hybrid", "serial"),
               f"hybrid ({what}): policies {card.policy}, {cpu.policy}, "
@@ -6032,6 +6324,13 @@ def hybrid_parity(torch, report):
               f"and every per-host leaf: {card.summary()}, {quarantined} "
               f"events quarantined; card {hybrid_line(card, prof)}; serial "
               f"wall {serial.wall_s:.3f} s", flush=True)
+    same_cpu_run(cards["tgen_faults_mesh"], cards["tgen_faults"],
+                 "tgen_faults.yaml, mesh_shards 2 against none",
+                 ("mesh_shards 2", "no mesh"))
+    print("[parity] hybrid examples/tgen_faults.yaml with mesh_shards 2: "
+          f"the reference's warning (\"experimental.mesh_shards=2 "
+          f"{MESH_IGNORED}\") logged once, every per-host leaf equal to "
+          "the run without the mesh", flush=True)
 
 
 def compact_parity(torch, report):
@@ -7621,6 +7920,10 @@ MESH_SHARED = ("ht", "hk", "hm", "hv", "hw", "head", "event_seq",
                "packet_seq", "app_seq", "app", "n_exec", "n_sent",
                "n_drop", "n_deliv", "overflow", "x_overflow", "chk",
                "occ_heap", "occ_ob")
+# the per-host leaves of the model NIC and the audit, which a mesh run
+# shares with the one-device run where it holds them
+STATE_LEAVES = ("tx_free", "rx_free", "cd_fa", "cd_next", "cd_cnt",
+                "cd_last", "cd_drop", "aud", "aud_t", "aud_tx")
 # the mesh's full runs: (name, example, overrides, S, the one-device
 # full run it stands beside, the pops); exchange_capacity set by hand,
 # as users do (docs/exchange.md:99-101): the auto CAP (all of a rank's
@@ -7638,6 +7941,23 @@ MESH_FULL = (
     ("tgen_10000_s2", "tgen_10000.yaml", (
         "general.stop_time=10s", "experimental.exchange_capacity=16384"),
      2, None, "pop_tgen"),
+)
+
+
+# the audit, the model NIC and the path counters at full width on the
+# mesh: (name, example, overrides, S, the kernels besides phase_tally and
+# the schedule's); phold.yaml at 2 x 50,000 hosts audited, as phold_s2;
+# examples/tgen_10000.yaml under the model NIC and the path counters cut
+# from its 30 s stop to 5 s (its one-device graph run has 17,635 phases
+# to 30 s, and a gloo phase of two ranks on one H100 80GB HBM3 at 700 W
+# costs about 4 ms: PERF.md), exchange_capacity as tgen_10000_s2's
+MESH_STATE_FULL = (
+    ("phold_s2_audited", "phold.yaml", MESH_FULL[0][2] + (AUDIT,), 2,
+     ("pop_phase_aud", "judge_outbox", "audit_round_rank",
+      "audit_conserve")),
+    ("tgen_10000_nic_s2", "tgen_10000.yaml", TGEN_NIC + (
+        "general.stop_time=5s", "experimental.exchange_capacity=16384"), 2,
+     ("pop_tgen_nic", "count_paths")),
 )
 
 
@@ -7662,7 +7982,24 @@ def mesh_parity_configs():
         ("star_faults", "the 8 x 120 star with link faults (factored, "
          "four epochs)", lambda x: load_config_str(
              STAR_PARITY_YAML, [STAR_FAULTS, *x]),
-         ("pop_tgen_ep_hier", "judge_outbox_ep_hier")))
+         ("pop_tgen_ep_hier", "judge_outbox_ep_hier")),
+        # the pops judge their own sends under the model NIC: no K2
+        ("nic_phold", "the NIC PHOLD with the path counters (2 Mbit, loss "
+         "0.05, 16 hosts, 3 s)",
+         lambda x: load_config_str(NIC_PHOLD_YAML, list(x)),
+         ("pop_phase_nic", "count_paths")),
+        # the corruptions' PHOLD (16 hosts, several events a host
+        # within a window), whose CPU ranks cost the oracles little
+        ("audited_phold", "BUSY_YAML's PHOLD (16 hosts, msgload 4, self-"
+         "sends, 2 s), audited",
+         lambda x: load_config_str(BUSY_YAML, [AUDIT, *x]),
+         ("pop_phase_aud", "judge_outbox", "audit_round_rank",
+          "audit_conserve")))
+
+
+# the mesh parity configs of the audit, the model NIC and the path
+# counters: all_to_all at S = 2, all_to_all and two_phase at S = 4
+MESH_STATE_PARITY = ("nic_phold", "audited_phold")
 
 
 def mesh_overrides(S, exchange, merge, extra=()):
@@ -7694,12 +8031,14 @@ def mesh_parity_jobs():
     one = {}
     for key, what, load, pop in mesh_parity_configs():
         # every schedule and merge at S = 4 for the PHOLD and tgen; each
-        # schedule once for the longer Tor and star runs (time)
-        for S, variants in ((4, MESH_VARIANTS if key in ("phold", "tgen")
-                             else (("all_to_all", "window"),
-                                   ("two_phase", "global"),
-                                   ("all_gather", "window"))),
-                            (2, (("all_to_all", "window"),))):
+        # schedule once for the longer Tor and star runs (time); the
+        # audit's and the NIC's configs under all_to_all and two_phase
+        four = (MESH_VARIANTS if key in ("phold", "tgen") else
+                (("all_to_all", "window"), ("two_phase", "global"))
+                if key in MESH_STATE_PARITY else
+                (("all_to_all", "window"), ("two_phase", "global"),
+                 ("all_gather", "window")))
+        for S, variants in ((4, four), (2, (("all_to_all", "window"),))):
             for x, m in variants:
                 k = f"{key}/{x}/{m}/{S}"
                 cards[k] = (load(mesh_overrides(S, x, m)), what, pop, x)
@@ -7777,6 +8116,12 @@ def mesh_card_runs(torch, report) -> dict:
                     f"experimental.mesh_shards={S}",))
                 jobs += [(("full", fname), cfg, False, False),
                          (("timed", fname), cfg, False, True)]
+        for fname, fexample, fover, fS, _ in MESH_STATE_FULL:
+            if fS == S:
+                cfg = full_config(fexample, fover + (
+                    f"experimental.mesh_shards={S}",))
+                # the audited run's leaves, to hold every one
+                jobs.append((("state", fname), cfg, "aud" in fname, False))
         if S == 2:
             jobs += [(("supervise", k), c, False, False)
                      for k, c in sup.items()]
@@ -7787,15 +8132,18 @@ def mesh_card_runs(torch, report) -> dict:
                 out["k13"] = r[0]
             elif isinstance(key, tuple) and key[0] in ("full", "timed"):
                 out["full"].setdefault(key[1], {})[key[0]] = r[0]
+            elif isinstance(key, tuple) and key[0] == "state":
+                out.setdefault("state", {})[key[1]] = r
             elif isinstance(key, tuple):
                 out.setdefault("supervise", {})[key[1]] = r[0]
             else:
                 out["card"][key] = r
     out["wall_s"] = time.perf_counter() - t0
     print(f"[mesh] the card's runs: {sum(1 for _ in out['card'])} parity "
-          f"runs, the K13 timing run, {2 * len(out['full'])} full runs "
-          f"and the S = 2 save and resume in two spawns (S = 2, 4), "
-          f"{out['wall_s']:.1f} s", flush=True)
+          f"runs, the K13 timing run, {2 * len(out['full'])} full runs, "
+          f"{len(out.get('state', {}))} full runs "
+          f"of the audit and the model NIC and the S = 2 save and resume "
+          f"in two spawns (S = 2, 4), {out['wall_s']:.1f} s", flush=True)
     return out
 
 
@@ -7827,9 +8175,18 @@ def mesh_parity(torch, report, runs):
               == int(S), f"mesh ({label}): backend {stats.mesh}")
         same_run(stats, base, label, ("mesh", "one device"))
         H = len(bleaves["n_exec"])
-        for leaf in MESH_SHARED + (("occ_in",) if m == "global" else ()):
+        for leaf in MESH_SHARED + (("occ_in",) if m == "global" else ()) \
+                + tuple(k for k in STATE_LEAVES if k in bleaves):
             check(np.array_equal(leaves[leaf][:H], bleaves[leaf]),
                   f"mesh ({label}): leaf {leaf} differs from one device")
+        if "path_cnt" in bleaves:
+            check(leaves["path_cnt"].shape[0] == int(S) and np.array_equal(
+                leaves["path_cnt"].sum(0), bleaves["path_cnt"][0]),
+                  f"mesh ({label}): the ranks' path_cnt rows do not sum "
+                  "to one device's")
+        if "aud" in bleaves:
+            check(not leaves["aud"].any(), f"mesh ({label}): a health "
+                  "word set")
         check(int(leaves["occ_phases"].min()) == int(
             leaves["occ_phases"].max()) == int(bleaves["occ_phases"][0]),
               f"mesh ({label}): phases differ")
@@ -7849,7 +8206,9 @@ def mesh_parity(torch, report, runs):
               f"mesh ({k}): x_overflow per sender card != cpu")
         same_leaves(cl, pl, k, ("card", "cpu"))
     print(f"[mesh] parity: {len(cards)} card runs at S = 2 and 4 (gloo on "
-          f"device 0) equal the one-device card runs; {len(cpu_res)} "
+          f"device 0) equal the one-device card runs (the NIC PHOLD's and "
+          f"the audited PHOLD's NIC and audit leaves too, their path_cnt "
+          f"rows summed, their health words zero); {len(cpu_res)} "
           f"equal the same ranks on the CPU plain path, every leaf; "
           f"undersized capacities " + ", ".join(
               f"{k[5:]} x_overflow {card[k][0].x_overflow} (senders "
@@ -7941,6 +8300,103 @@ def mesh_full(torch, card, report, spawned):
     report["_mesh_full"] = runs
 
 
+def mesh_state_full(torch, card, report, spawned):
+    """MESH_STATE_FULL's runs on device 0 over gloo (in `mesh_card_runs`'
+    spawns) beside their one-device graph runs in this call: the audited
+    phold.yaml at S = 2, its health word zero and every per-host leaf
+    equal (the NIC's and the audit's included; occ_in is the mesh's
+    own), its K8 launches, the all_sum's host ms a round and the audit's
+    cost a rank (the all_sum's seconds and K8's device ms over the mesh
+    wall), the unaudited phold_s2's wall beside it;
+    tgen_10000 under the model NIC and the path counters at S = 2, its
+    traces, totals and summed path_cnt equal. Launches checked, every
+    rank's peak within FOOTPRINT_TOLERANCE of its admission estimate."""
+    from shadow_tpu_torch.device import capacity
+
+    full = report.setdefault("_mesh_full", {})
+    for name, example, overrides, S, app in MESH_STATE_FULL:
+        stats, leaves = spawned["state"][name]
+        one, bleaves = engine_run(full_config(example, overrides), "cuda")
+        what = f"{name} ({S} ranks, gloo on device 0)"
+        check(stats.ok and stats.x_overflow == 0 and stats.overflow == 0,
+              f"mesh full {what}: overflow {stats.overflow}, x_overflow "
+              f"{stats.x_overflow}")
+        same_run(stats, one, what, ("mesh", "one device"))
+        mesh_launch_check(stats, what, app, "all_to_all")
+        if leaves is not None:
+            H = len(bleaves["n_exec"])
+            check(not leaves["aud"].any() and not bleaves["aud"].any(),
+                  f"mesh full {what}: a health word set")
+            for leaf in MESH_SHARED + tuple(k for k in STATE_LEAVES
+                                            if k in bleaves):
+                check(np.array_equal(leaves[leaf][:H], bleaves[leaf]),
+                      f"mesh full {what}: leaf {leaf} differs from one "
+                      "device")
+        if "path_cnt" in bleaves:
+            check(sum(stats.path_packets.values()) > 0,
+                  f"mesh full {what}: no path counted")
+        for r in stats.mesh["ranks"]:
+            peak, est = r["peak_bytes"], r["estimate_bytes"]
+            check(est / capacity.FOOTPRINT_TOLERANCE <= peak
+                  <= est * capacity.FOOTPRINT_TOLERANCE,
+                  f"mesh full {what}: rank {r['rank']} peak {peak} B not "
+                  f"within {capacity.FOOTPRINT_TOLERANCE}x of {est} B")
+        peaks = [(r["peak_bytes"], r["estimate_bytes"])
+                 for r in stats.mesh["ranks"]]
+        row = {"launches": stats.mesh["launches"], "wall_s": stats.wall_s,
+               "one_device_wall_s": one.wall_s, "peaks": peaks}
+        line = (f"[mesh:{name}] wall {stats.wall_s:.3f} s against one "
+                f"device {one.wall_s:.3f} s (graph loop, same call); "
+                f"{stats.events_executed} events, {stats.rounds} rounds, "
+                f"{stats.phases} phases (as one device); CAP "
+                f"{stats.mesh['cap']}; peak/estimate per rank "
+                + ", ".join(f"{p / e:.3f}" for p, e in peaks))
+        if "path_cnt" in bleaves:
+            line += (f"; path_cnt summed over the ranks equal to one "
+                     f"device's ({sum(stats.path_packets.values())} "
+                     f"packets on {len(stats.path_packets)} pairs)")
+        if "aud" in bleaves:
+            base = spawned["full"].get("phold_s2", {}).get("full")
+            sums = [(r["audit_sums"], r["audit_sum_s"])
+                    for r in stats.mesh["ranks"]]
+            check(all(n > 0 for n, _ in sums), f"mesh full {what}: the "
+                  "balance was never summed")
+            # the audit's cost a rank, from what was measured: the
+            # slowest rank's all_sum seconds (its collective's host
+            # clock) and K8's device ms (a rank's launches times the
+            # kernels phase's ms at the same H_loc), over the mesh wall
+            k8 = {k: report.get(k, {}).get("ms")
+                  for k in ("audit_round_rank", "audit_conserve")}
+            k8_ms = (None if None in k8.values() else sum(
+                stats.mesh["launches"][k] / S * v for k, v in k8.items()))
+            sum_ms = 1e3 * max(t for _, t in sums)
+            cost = (None if k8_ms is None else
+                    (sum_ms + k8_ms) / (1e3 * stats.wall_s))
+            row.update({"unaudited_wall_s": None if base is None
+                        else base.wall_s, "all_sums": sums,
+                        "k8_device_ms": k8_ms, "audit_cost_share": cost})
+            line += ("; K8 "
+                     + ", ".join(f"{k} {stats.mesh['launches'][k]}"
+                                 for k in ("audit_round_rank",
+                                           "audit_conserve"))
+                     + " launches; the balance's all_sum per rank "
+                     + ", ".join(f"{n} sums in {1e3 * t:.1f} ms "
+                                 f"({1e3 * t / max(n, 1):.4f} ms each)"
+                                 for n, t in sums)
+                     + "; the audit's cost a rank "
+                     + (f"{sum_ms:.1f} ms of all_sum + {k8_ms:.1f} K8 "
+                        f"device ms = {cost:.4f} of the mesh wall"
+                        if cost is not None else "not measured (no "
+                        "kernels phase)")
+                     + "; unaudited phold_s2 wall "
+                     + (f"{base.wall_s:.3f} s (another run: the "
+                        "difference of the two walls is noise, not the "
+                        "audit's cost)" if base is not None
+                        else "not run"))
+        print(line + f"; card {card}", flush=True)
+        full[name] = row
+
+
 def mesh_flush(torch, report):
     """`runner.flush_phases` (one flush of rows copied into each rank's
     outbox, pop counts 0, the outbox word set by the flush) on 2 ranks on
@@ -7996,16 +8452,23 @@ def mesh_flush(torch, report):
 
 
 def mesh_phase(torch, card, report):
+    import concurrent.futures as cf
+
     from shadow_tpu_torch.device.mesh import mesh_backend
 
     print(f"[mesh] torch.cuda.device_count() = {torch.cuda.device_count()}; "
           f"S ranks on device 0 take the {mesh_backend(['cuda:0'] * 2)} "
           "backend", flush=True)
-    mesh_flush(torch, report)
-    spawned = mesh_card_runs(torch, report)
+    # the flush's check beside the first spawn's start-up and untimed
+    # parity runs (a spawn's ranks take about 20 s to reach the card)
+    with cf.ThreadPoolExecutor(1) as pool:
+        flush = pool.submit(mesh_flush, torch, report)
+        spawned = mesh_card_runs(torch, report)
+        flush.result()
     try:
         mesh_parity(torch, report, spawned)
         mesh_full(torch, card, report, spawned)
+        mesh_state_full(torch, card, report, spawned)
         mesh_supervise(torch, card, report, spawned)
     finally:
         shutil.rmtree(spawned["work"], ignore_errors=True)
@@ -8070,7 +8533,8 @@ def kernels_line(report):
                                     "overflowing", "adversarial",
                                     "on_real_phases", "synthetic",
                                     "outside",
-                                    "on_real_flushes")
+                                    "on_real_flushes", "on_a_mesh_rank",
+                                    "broken")
                   if k in r}
         rows.append({
             "name": n, "route": "cuda", "source": SOURCES[n],
@@ -8513,6 +8977,8 @@ def main(argv=None) -> int:
         print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
               f"python {sys.version.split()[0]}", flush=True)
         print(f"[build] {toolkit_version()}", flush=True)
+        # the oracles run beside the build (nvcc keeps its priority)
+        start_oracles(phases)
         t0 = time.perf_counter()
         lib, log = build_library(ptxas_verbose=True)
         print(f"[build] {lib.name} in {time.perf_counter() - t0:.1f} s",
@@ -8532,8 +8998,6 @@ def main(argv=None) -> int:
                            ("boot", lambda: boot_phase(torch, card))):
             if phase not in phases:
                 continue
-            if phase in ("parity", "full", "mesh") and ORACLES is None:
-                start_oracles(phases)
             if phase == "full" and ORACLES is not None:
                 print(f"[oracles] waited {ORACLES.finish():.1f} s for the "
                       "CPU oracles still running, so that none runs beside "
@@ -8545,8 +9009,9 @@ def main(argv=None) -> int:
         if ORACLES is not None:
             check(not ORACLES.jobs, f"CPU oracles never read: "
                   f"{sorted(ORACLES.jobs)}")
-            print(f"[oracles] the CPU oracles, started after the kernels "
-                  f"phase, kept the phases that read them waiting "
+            ORACLES.report()
+            print(f"[oracles] the CPU oracles, started before the build, "
+                  f"kept the phases that read them waiting "
                   f"{ORACLES.waited_s:.1f} s", flush=True)
         if "kernels" in phases and "full" in phases:
             print(kernels_line(report), flush=True)

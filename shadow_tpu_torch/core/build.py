@@ -85,8 +85,7 @@ HOST_FAULTS_HYBRID = ("host_crash/host_restart faults are manager-side "
 ITEM_10 = "queue (a) item 10"
 ITEM_13 = "queue (a) item 13"
 ITEM_14 = "queue (a) item 14"
-ITEM_9 = ("queue (a) item 9 (multi-GPU: the audit, the model NIC, the "
-          "path counters, campaigns and the hybrid policy over the mesh)")
+ITEM_9C = "queue (a) item 9c (campaigns on the mesh)"
 
 
 def check_slice(cfg: ConfigOptions) -> None:
@@ -106,7 +105,7 @@ def check_slice(cfg: ConfigOptions) -> None:
     check_supervision(cfg)
     _, host_faults = split_events(cfg.network.faults)
     if xp.mesh_shards > 1:
-        check_mesh(cfg, host_faults)
+        check_mesh(cfg)
     if cfg.ensemble is not None:
         check_campaign(cfg, host_faults)
     if not cfg.hosts:
@@ -128,16 +127,14 @@ def check_slice(cfg: ConfigOptions) -> None:
                     "queue (a) item 7c (the object build)")
 
 
-def check_mesh(cfg: ConfigOptions, host_faults) -> None:
-    """What a mesh of more than one rank does not run yet: the state
-    audit (its global balance is a collective sum, engine.py:2068-2071),
-    the model NIC, the path counters, campaigns, and the hybrid policy a
-    `tpu` config with host faults falls back to."""
+def check_mesh(cfg: ConfigOptions) -> None:
+    """What a mesh of more than one rank does not run yet: campaigns
+    (the replica axis of the mesh's kernels) and the retry, failover and
+    chaos half of the robustness layer. The state audit, the model NIC,
+    the path counters and the hybrid fall-back of a config with host
+    faults or no device twin run there."""
     xp = cfg.experimental
     where = f"on a mesh (experimental.mesh_shards: {xp.mesh_shards})"
-    for key in ("state_audit", "model_bandwidth", "count_paths"):
-        if getattr(xp, key):
-            _refuse(f"experimental.{key} {where}", ITEM_9)
     for key, off in (("dispatch_retries", 0), ("failover", "abort"),
                      ("chaos", [])):
         if getattr(xp, key) != off:
@@ -145,9 +142,7 @@ def check_mesh(cfg: ConfigOptions, host_faults) -> None:
                     f"{ITEM_13} (dispatch retry, failover and chaos on "
                     "a mesh, with its shrink)")
     if cfg.ensemble is not None:
-        _refuse(f"an ensemble campaign {where}", ITEM_9)
-    if host_faults:
-        _refuse(f"host faults (the hybrid fall-back) {where}", ITEM_9)
+        _refuse(f"an ensemble campaign {where}", ITEM_9C)
 
 
 def check_supervision(cfg: ConfigOptions) -> None:
@@ -459,10 +454,6 @@ def build(cfg: ConfigOptions) -> BuiltSimulation:
                     "fall back to hybrid CPU emulation; run the "
                     "replicas as separate processes instead") from e
             no_twin = str(e)
-            if cfg.experimental.mesh_shards > 1:
-                _refuse(f"{no_twin} (the hybrid fall-back) on a mesh "
-                        "(experimental.mesh_shards: "
-                        f"{cfg.experimental.mesh_shards})", ITEM_9)
     t0 = np.concatenate(t0_parts)
     t1 = np.concatenate(t1_parts)
     bad = np.flatnonzero((t1 >= 0) & (t1 < t0))

@@ -6,7 +6,9 @@ A config runs on one of three policies:
 
 * `tpu`: the device engine (device/runner.py); where the build finds
   host faults or no single device twin (core/build.py `no_twin`), the
-  hybrid policy instead, with the reference's log line; where its
+  hybrid policy instead, with the reference's log line (and, on a
+  mesh config, its warning that `mesh_shards` is ignored: the CPU
+  engine runs the hosts, the judge runs on `device`); where its
   dispatch retries are spent under `failover: hybrid`
   (device/supervise.py DeviceFailover), a hybrid rerun from t = 0;
 * `hybrid`: the CPU engine (core/manager.py on the serial policy) with
@@ -114,6 +116,11 @@ class Controller:
                 self.policy = "tpu"
                 return
             log.info("tpu policy -> hybrid: %s", self.sim.no_twin)
+            if cfg.experimental.mesh_shards:
+                log.warning(
+                    "experimental.mesh_shards=%d ignored — the hybrid "
+                    "fallback's CPU host emulation has no device mesh "
+                    "to pin", cfg.experimental.mesh_shards)
             policy = "hybrid"
         check_cpu_engine(cfg)
         self.policy = policy

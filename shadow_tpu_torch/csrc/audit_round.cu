@@ -1,7 +1,8 @@
 // K8 audit_round: the state audit's round-end health word.
 //
 // Replaces shadow_tpu/device/engine.py `_audit_round` (engine.py:
-// 2072-2108) with `_axis_sum64` on one device (a plain sum). Per host:
+// 2066-2108): on one device `_axis_sum64` is a plain sum, on a mesh rank
+// it is the mesh's (below, "On a mesh"). Per host:
 // AUD_HEAP where the heap rows are out of (t, key) order or head lies
 // outside [0, E]; AUD_COUNTER where n_exec, n_sent, n_drop, n_deliv,
 // event_seq, packet_seq or app_seq is negative. Globally, event-row
@@ -46,6 +47,16 @@
 // into every word of its replica (atomicOr: a tile's ORs may land in
 // any order around it). That path runs only on a corrupt state, which
 // ends the run, and may be slow.
+//
+// On a mesh (a rank's hosts; the reference's `_axis_sum64` over the
+// device axis) the balance is global: a row leaves one rank and lands on
+// another, so a rank's own balance may be non-zero where the sum over
+// the ranks is 0. There the launch is given `balance` ([R] int64): the
+// last block writes the rank's balance there and decides nothing; the
+// engine sums the word over the ranks (device/mesh.py `all_sum`) and
+// `shadow_audit_conserve` (audit_conserve_kernel) ORs AUD_CONSERVE into
+// every host of the rank where the summed word is not 0. The heap and
+// counter bits are decided in the streamed launch as on one device.
 //
 // Under the window loop the launch returns at once unless the control
 // block's ROUND_END word is set (common.cuh `Ctl`): the audit runs once
@@ -111,6 +122,8 @@ struct AuditArgs {
     int32_t* aud;
     long long* partial;     // [R, nb]
     unsigned* tickets;      // [R, ticket_words(nb)], zero between launches
+    long long* balance;     // [R] on a mesh rank (the sum is the mesh's),
+                            // else null (the last block decides)
     const int64_t* ctl;
     unsigned long long recip;   // ceil(2^RECIP_SHIFT / E)
 };
@@ -298,6 +311,10 @@ audit_tiles_kernel(AuditArgs a) {
     __syncthreads();
     s = 0;
     for (int i = 0; i < TILE / 32; ++i) s += part[i];
+    if (a.balance != nullptr) {
+        if (threadIdx.x == 0) a.balance[r] = s;
+        return;
+    }
     if (s == 0) return;
     for (int64_t h = threadIdx.x; h < a.H; h += TILE)
         atomicOr(a.aud + r * a.H + h, AUD_CONSERVE);
@@ -362,6 +379,9 @@ audit_hosts_kernel(int H, int E, const int64_t* __restrict__ ht,
     }
 }
 
+// every host of replica r where its balance sum[r] is not 0: the design
+// before's second launch, and a mesh rank's conserve pass on the word
+// summed over the ranks
 __global__ void audit_conserve_kernel(int H, int32_t* aud,
                                       const unsigned long long* sum,
                                       const int64_t* ctl) {
@@ -370,6 +390,11 @@ __global__ void audit_conserve_kernel(int H, int32_t* aud,
     for (int64_t h = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; h < H;
          h += (int64_t)gridDim.x * blockDim.x)
         aud[r * H + h] |= AUD_CONSERVE;
+}
+
+int conserve_blocks(int H) {
+    const int64_t want = ((int64_t)H + 255) / 256;
+    return want < 1 ? 1 : (want < MAX_BLOCKS ? (int)want : MAX_BLOCKS);
 }
 
 int tile_blocks(int H) {
@@ -389,7 +414,9 @@ extern "C" int shadow_audit_round_tickets(int H) {
 
 // sum: R int64 (the design before); partial, tickets: the tiled
 // design's scratch (shadow_audit_round_blocks/_tickets words a
-// replica)
+// replica); balance: R int64 on a mesh rank (the tiled design only),
+// where the launch writes the rank's balance and ORs no AUD_CONSERVE
+// (shadow_audit_conserve does, on the mesh's sum), else null
 extern "C" int shadow_audit_round(
     int R, int H, int E, const int64_t* ht, const int64_t* hk,
     const int32_t* head,
@@ -399,9 +426,10 @@ extern "C" int shadow_audit_round(
     const int32_t* overflow, const int32_t* x_overflow,
     const int64_t* aud_tx, int32_t* aud, int64_t* sum, int64_t* partial,
     unsigned* tickets, const int64_t* ctl, int warp_per_host,
-    void* stream) {
+    int64_t* balance, void* stream) {
+    // a mesh rank's mode is the tiled design's alone
     if (R < 1 || R > 65535 ||
-        (warp_per_host ? sum == nullptr
+        (warp_per_host ? sum == nullptr || balance != nullptr
                        : (partial == nullptr || tickets == nullptr)))
         return (int)cudaErrorInvalidValue;
     if (H <= 0 || E <= 0) return (int)cudaGetLastError();
@@ -411,7 +439,8 @@ extern "C" int shadow_audit_round(
     if (!warp_per_host) {
         if (E > MAX_E) return (int)cudaErrorInvalidValue;
         const AuditArgs a{H, E, ht, hk, head, c, aud_tx, aud,
-                          (long long*)partial, tickets, ctl,
+                          (long long*)partial, tickets,
+                          (long long*)balance, ctl,
                           ((1ull << RECIP_SHIFT) + E - 1) / E};
         // two words a load where every row starts 16-byte aligned
         const bool wide = E % 2 == 0 &&
@@ -438,10 +467,22 @@ extern "C" int shadow_audit_round(
     const int blocks = want < MAX_BLOCKS ? (int)want : MAX_BLOCKS;
     audit_hosts_kernel<<<dim3(blocks, R), 32 * WARPS, 0, st>>>(
         H, E, ht, hk, head, c, aud_tx, aud, (unsigned long long*)sum, ctl);
-    const int64_t want2 = ((int64_t)H + 255) / 256;
-    audit_conserve_kernel<<<dim3(want2 < MAX_BLOCKS ? (int)want2
-                                                    : MAX_BLOCKS, R),
-                            256, 0, st>>>(
+    audit_conserve_kernel<<<dim3(conserve_blocks(H), R), 256, 0, st>>>(
         H, aud, (const unsigned long long*)sum, ctl);
+    return (int)cudaGetLastError();
+}
+
+// A mesh rank's conserve pass: AUD_CONSERVE into every host of replica r
+// where total[r], its balance summed over the ranks, is not 0 (under the
+// window loop only where the control block's ROUND_END word is set).
+extern "C" int shadow_audit_conserve(int R, int H, int32_t* aud,
+                                     const int64_t* total,
+                                     const int64_t* ctl, void* stream) {
+    if (R < 1 || R > 65535 || total == nullptr)
+        return (int)cudaErrorInvalidValue;
+    if (H <= 0) return (int)cudaGetLastError();
+    audit_conserve_kernel<<<dim3(conserve_blocks(H), R), 256, 0,
+                            (cudaStream_t)stream>>>(
+        H, aud, (const unsigned long long*)total, ctl);
     return (int)cudaGetLastError();
 }

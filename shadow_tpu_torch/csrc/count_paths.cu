@@ -58,6 +58,13 @@
 // pop counts, shared histogram and all, loses to the rows kernel:
 // PERF.md.)
 //
+// On a mesh rank (H_loc hosts of H_pad, the global ids of the rank's
+// first host on from g0) the rows' sources and destinations are global
+// ids, which the vertex lookup clips to the Hv = H_pad hosts of the
+// world's host_vertex (engine.py:1327-1352 clips to H_pad); on one device
+// Hv = H. The rank counts its own outbox into its own [1, V*V] row (the
+// reference's [S, V*V], a row a shard), and the run sums the rows.
+//
 // Under the window loop the launch returns at once where the control
 // block's RUN word is 0 (common.cuh `Ctl`). The replica axis of an
 // ensemble campaign is blockIdx.y: replica r's rows, pop counts and
@@ -92,7 +99,7 @@ __device__ __forceinline__ int clamp_host(int32_t x, int H) {
 
 // every row: a thread a row, the packet rows of a warp summed by pair
 __global__ void __launch_bounds__(THREADS)
-count_paths_rows_kernel(int64_t rows, int OB, int H, int V,
+count_paths_rows_kernel(int64_t rows, int OB, int Hv, int V,
                         const int64_t* __restrict__ ob_t,
                         const int64_t* __restrict__ ob_k,
                         const int64_t* __restrict__ ob_m,
@@ -107,8 +114,8 @@ count_paths_rows_kernel(int64_t rows, int OB, int H, int V,
     const int32_t kind = lo32(fm);
     if ((kind & 0xFF) != KIND_PACKET) return;
     const int pair =
-        __ldg(host_vertex + clamp_host(hi32(__ldg(ob_k + row)), H)) * V +
-        __ldg(host_vertex + clamp_host(hi32(fm), H));
+        __ldg(host_vertex + clamp_host(hi32(__ldg(ob_k + row)), Hv)) * V +
+        __ldg(host_vertex + clamp_host(hi32(fm), Hv));
     // every other lane has returned (an exited lane named in the mask
     // takes no part): the lowest lane of each pair adds the pair's sum
     const unsigned peers = __match_any_sync(FULL, pair);
@@ -136,7 +143,7 @@ __device__ __forceinline__ void add_pairs(unsigned long long* cnt,
 // listed rows as flat items; SHARED: into the block's own histogram
 template <bool SHARED>
 __global__ void __launch_bounds__(THREADS)
-count_paths_popped_kernel(int H, int OB, int V,
+count_paths_popped_kernel(int H, int Hv, int OB, int V,
                           const int64_t* __restrict__ ob_t,
                           const int64_t* __restrict__ ob_k,
                           const int64_t* __restrict__ ob_m,
@@ -206,8 +213,8 @@ count_paths_popped_kernel(int H, int OB, int V,
             for (int u = 0; u < UNROLL; ++u) {
                 pkt[u] = pkt[u] && (lo32(m[u]) & 0xFF) == KIND_PACKET;
                 pair[u] =
-                    __ldg(host_vertex + clamp_host(hi32(k[u]), H)) * V +
-                    __ldg(host_vertex + clamp_host(hi32(m[u]), H));
+                    __ldg(host_vertex + clamp_host(hi32(k[u]), Hv)) * V +
+                    __ldg(host_vertex + clamp_host(hi32(m[u]), Hv));
             }
 #pragma unroll
             for (int u = 0; u < UNROLL; ++u)
@@ -226,7 +233,7 @@ count_paths_popped_kernel(int H, int OB, int V,
 
 // the design before: a thread a row over every row, a global atomic a
 // packet row
-__global__ void count_paths_kernel(int64_t rows, int OB, int H, int V,
+__global__ void count_paths_kernel(int64_t rows, int OB, int Hv, int V,
                                    const int64_t* __restrict__ ob_t,
                                    const int64_t* __restrict__ ob_k,
                                    const int64_t* __restrict__ ob_m,
@@ -241,8 +248,8 @@ __global__ void count_paths_kernel(int64_t rows, int OB, int H, int V,
     const int64_t fm = ob_m[row];
     const int32_t kind = lo32(fm);
     if ((kind & 0xFF) != KIND_PACKET) return;
-    const int sh = clamp_host(hi32(ob_k[row]), H);
-    const int dh = clamp_host(hi32(fm), H);
+    const int sh = clamp_host(hi32(ob_k[row]), Hv);
+    const int dh = clamp_host(hi32(fm), Hv);
     const int64_t pair = r * (int64_t)V * V +
         (int64_t)host_vertex[sh] * V + (int64_t)host_vertex[dh];
     atomicAdd(&path_cnt[pair], (unsigned long long)(int64_t)(kind >> 8));
@@ -250,7 +257,8 @@ __global__ void count_paths_kernel(int64_t rows, int OB, int H, int V,
 
 }  // namespace
 
-extern "C" int shadow_count_paths(int R, int H, int OB, int V,
+// Hv: the hosts of host_vertex (H on one device, H_pad on a mesh rank)
+extern "C" int shadow_count_paths(int R, int H, int Hv, int OB, int V,
                                   const int64_t* ob_t, const int64_t* ob_k,
                                   const int64_t* ob_m,
                                   const int32_t* host_vertex,
@@ -259,7 +267,7 @@ extern "C" int shadow_count_paths(int R, int H, int OB, int V,
                                   const int32_t* ob_word, int gated_rows,
                                   int every_row, void* stream) {
     if (R < 1 || R > 65535 || V <= 0 || (int64_t)V * V > 65536 ||
-        gated_rows < 0 || (pops == nullptr) != (ob_word == nullptr))
+        gated_rows < 0 || Hv < H || (pops == nullptr) != (ob_word == nullptr))
         return (int)cudaErrorInvalidValue;
     const int64_t rows = (int64_t)H * OB;
     if (rows <= 0) return (int)cudaGetLastError();
@@ -268,11 +276,11 @@ extern "C" int shadow_count_paths(int R, int H, int OB, int V,
     const int64_t blocks = (rows + THREADS - 1) / THREADS;
     if (every_row) {
         count_paths_kernel<<<dim3((unsigned)blocks, R), THREADS, 0, st>>>(
-            rows, OB, H, V, ob_t, ob_k, ob_m, host_vertex, cnt, ctl);
+            rows, OB, Hv, V, ob_t, ob_k, ob_m, host_vertex, cnt, ctl);
     } else if (rows < gated_rows ||
                (pops == nullptr && (int64_t)V * V > SHARED_BINS)) {
         count_paths_rows_kernel<<<dim3((unsigned)blocks, R), THREADS, 0,
-                                  st>>>(rows, OB, H, V, ob_t, ob_k, ob_m,
+                                  st>>>(rows, OB, Hv, V, ob_t, ob_k, ob_m,
                                         host_vertex, cnt, ctl);
     } else {
         const int64_t per = (int64_t)(THREADS / 32) * WARP_HOSTS;
@@ -280,13 +288,13 @@ extern "C" int shadow_count_paths(int R, int H, int OB, int V,
         const int nb = want < MAX_BLOCKS ? (int)want : MAX_BLOCKS;
         if (V * V <= SHARED_BINS)
             count_paths_popped_kernel<true><<<dim3(nb, R), THREADS, 0, st>>>(
-                H, OB, V, ob_t, ob_k, ob_m, host_vertex, cnt, pops, ob_word,
-                ctl);
+                H, Hv, OB, V, ob_t, ob_k, ob_m, host_vertex, cnt, pops,
+                ob_word, ctl);
         else
             count_paths_popped_kernel<false>
-                <<<dim3(nb, R), THREADS, 0, st>>>(H, OB, V, ob_t, ob_k, ob_m,
-                                                  host_vertex, cnt, pops,
-                                                  ob_word, ctl);
+                <<<dim3(nb, R), THREADS, 0, st>>>(H, Hv, OB, V, ob_t, ob_k,
+                                                  ob_m, host_vertex, cnt,
+                                                  pops, ob_word, ctl);
     }
     return (int)cudaGetLastError();
 }

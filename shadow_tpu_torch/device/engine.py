@@ -26,7 +26,8 @@ value). The run pauses once that minimum reaches `stop` (final_stop
 defaults to it; a run paused at stop with final_stop past it has the
 windows of an unpaused one), or after max_rounds windows. Under the
 state audit (`audit`) K8 audit_round ORs each host's health word at
-every window's end.
+every window's end (on a mesh its balance summed over the ranks,
+`_audit`).
 
 Two loops drive the phases, with the same windows and rounds:
 
@@ -465,7 +466,8 @@ class DeviceEngine:
         if mesh is not None:
             if ensemble is not None:
                 raise ValueError("a campaign does not run on a mesh yet "
-                                 "(ROADMAP.md queue (a) item 9)")
+                                 "(ROADMAP.md queue (a) item 9c, "
+                                 "campaigns on the mesh)")
             from shadow_tpu_torch.core.build import pad_hosts
 
             mp = make_mesh_params(config, self.params, mesh.size, mesh.rank)
@@ -504,6 +506,10 @@ class DeviceEngine:
         self.captures = 0
         self._staging: Optional[torch.Tensor] = None
         self._xbuf: Optional[dict] = None
+        # a mesh audit's sums of the ranks' balances (`_audit`): how
+        # many, and their share of the mesh's `collective_s`
+        self.audit_sums = 0
+        self.audit_sum_s = 0.0
         # K3's fresh words (kernels.merge_flags), on the card
         self._fresh: Optional[torch.Tensor] = None
         # the outbox words (kernels.outbox_word): set here and by `_arm`,
@@ -947,7 +953,7 @@ class DeviceEngine:
             self._write_block(ctl, words)
             if self.config.audit and any(w[CTL["round_end"]]
                                          for w in words):
-                self.kernels.audit_round(state, ctl)
+                self._audit(state, ctl)
             if all(w[CTL["done"]] for w in words):
                 break
             self._phase(state, ctl)
@@ -957,6 +963,25 @@ class DeviceEngine:
         if self.mesh is not None:
             self.loop_stats["mesh"] = mesh_stats(self)
         return state, rounds
+
+    def _audit(self, state: dict, ctl: torch.Tensor) -> None:
+        """K8 at a round's end. On one device one launch; on a mesh the
+        balance is global (the reference's `_axis_sum64`): the launch
+        writes the rank's balance to a word, the mesh sums the word
+        (every rank reaches each round end together) and the conserve
+        pass ORs AUD_CONSERVE into every host of the rank where the sum
+        is not 0."""
+        k = self.kernels
+        if self.mesh is None:
+            k.audit_round(state, ctl)
+            return
+        balance = self._wire("aud_balance", (self.replicas or 1,))
+        k.audit_round(state, ctl, balance=balance)
+        c0 = self.mesh.collective_s
+        total = self.mesh.all_sum(balance).to(self.device)
+        self.audit_sum_s += self.mesh.collective_s - c0
+        self.audit_sums += 1
+        k.audit_conserve(state, total, ctl)
 
     def _write_block(self, ctl: torch.Tensor, words: list) -> None:
         """Copy the host's control words into `ctl`, ordered on the
@@ -1019,7 +1044,7 @@ class DeviceEngine:
                 "the captured window loop runs on one device: a mesh's "
                 "minimum is a collective between phases (gloo cannot be "
                 "captured into a CUDA graph; NCCL's capture waits for "
-                "ROADMAP.md queue (a) item 9), so a mesh runs run_python")
+                "ROADMAP.md queue (a) item 9b), so a mesh runs run_python")
         k, cuda = self.kernels, self.device.type == "cuda"
         if cuda and k.timing:
             raise RuntimeError(
@@ -1081,10 +1106,13 @@ class DeviceEngine:
 
 def mesh_stats(engine: DeviceEngine) -> dict:
     """A mesh rank's exchange: its place and schedule, the backend, the
-    bytes it sent, and the host seconds of its staging copies and
-    collectives."""
+    bytes it sent, the host seconds of its staging copies and
+    collectives, and under the audit its sums of the ranks' balances
+    and their seconds (a part of `collective_s`)."""
     mp, mesh = engine.mesh_params, engine.mesh
     return {"shards": mp.S, "rank": mp.shard, "backend": mesh.backend,
             "exchange": mp.exchange, "cap": mp.CAP, "cap2": mp.CAP2,
             "groups": [mp.G, mp.NG], "moved_bytes": mesh.moved_bytes,
-            "stage_s": mesh.stage_s, "collective_s": mesh.collective_s}
+            "stage_s": mesh.stage_s, "collective_s": mesh.collective_s,
+            "audit_sums": engine.audit_sums,
+            "audit_sum_s": engine.audit_sum_s}

@@ -216,7 +216,8 @@ KERNEL_NAMES = tuple(
     for nic in ((False, True) if n in POP_KERNELS else (False,))
     for ep in (False, True) for hr in (False, True)) + \
     ("route", "merge_heaps", "count_paths", "phase_tally", "audit_round",
-     "loop_control", "loop_control_tally") + \
+     "audit_round_rank", "audit_conserve", "loop_control",
+     "loop_control_tally") + \
     tuple(launch_name("judge_batch", False, ep, hr)
           for ep in (False, True) for hr in (False, True)) + \
     ("compact_outbox", "compact_outbox_global") + \
@@ -995,7 +996,9 @@ def count_paths_plain(state: dict, ob: dict, world: dict,
     at (vertex of src) * V + (vertex of dst), weighted by its live
     count (kind >> 8). In place on state["path_cnt"] [1, V*V] ([R, 1,
     V*V] for a campaign); nothing where the control block `ctl` says the
-    phase does not run."""
+    phase does not run. On a mesh rank the outbox holds the rank's
+    hosts and the sources and destinations are global ids: the rank
+    counts into its own row, and the run sums the ranks' rows."""
     if ob_replicas(ob) is not None:
         for r in range(ob_replicas(ob)):
             count_paths_plain(at_replica(state, r), at_replica(ob, r),
@@ -1004,13 +1007,14 @@ def count_paths_plain(state: dict, ob: dict, world: dict,
     if _phase_off(ctl):
         return
     ft, fk, fm = ob["t"], ob["k"], ob["m"]
-    H = ft.shape[0]
+    # ids are global: clipped to the world's hosts (a mesh's H_pad)
     hv = world["host_vertex"].long()
+    Hv = hv.shape[0]
     V = n_vertices(world)
     kind = lo32(fm)
     is_pkt = (ft < INF) & ((kind & 0xFF) == KIND_PACKET)
-    sv = hv[hi32(fk).long().clamp(0, H - 1)]
-    dv = hv[hi32(fm).long().clamp(0, H - 1)]
+    sv = hv[hi32(fk).long().clamp(0, Hv - 1)]
+    dv = hv[hi32(fm).long().clamp(0, Hv - 1)]
     state["path_cnt"][0].index_add_(0, (sv * V + dv)[is_pkt],
                                     (kind >> 8).long()[is_pkt])
 
@@ -1389,17 +1393,24 @@ def phase_tally_plain(state: dict, ob: dict, pops: torch.Tensor,
 # K8: the audit's health word (reference: engine._audit_round)
 # ----------------------------------------------------------------------
 def audit_round_plain(state: dict,
-                      ctl: Optional[torch.Tensor] = None) -> None:
+                      ctl: Optional[torch.Tensor] = None,
+                      balance: Optional[torch.Tensor] = None) -> None:
     """OR into each host's `aud`: AUD_HEAP where its heap rows are out
     of (t, key) order or head lies outside [0, E], AUD_COUNTER where one
     of AUD_COUNTERS is negative, and on every host AUD_CONSERVE where
     the int64 balance sum(aud_tx) - (sum(n_exec) + live rows +
     sum(overflow) + sum(x_overflow)) is not 0. Under the window loop
     only where the control block's `round_end` word is set. A campaign's
-    state audits each replica in turn, its balance its own."""
+    state audits each replica in turn, its balance its own.
+
+    On a mesh rank (`balance`, an [R or 1] int64 tensor) the balance is
+    the mesh's: the rank's own is written into `balance` and decides
+    nothing; the mesh sums the word and `audit_conserve_plain` takes
+    the decision on the sum."""
     if n_replicas(state) is not None:
         for r in range(n_replicas(state)):
-            audit_round_plain(at_replica(state, r), _ctl_at(ctl, r))
+            audit_round_plain(at_replica(state, r), _ctl_at(ctl, r),
+                              None if balance is None else balance[r:r + 1])
         return
     if ctl is not None and not int(ctl[CTL["round_end"]]):
         return
@@ -1418,9 +1429,27 @@ def audit_round_plain(state: dict,
         + state["overflow"].long().sum() + state["x_overflow"].long().sum())
     aud = state["aud"] | torch.where(ok, 0, AUD_HEAP).to(torch.int32)
     aud = aud | torch.where(neg, AUD_COUNTER, 0).to(torch.int32)
-    if int(diff) != 0:
+    if balance is not None:
+        balance.fill_(diff)
+    elif int(diff) != 0:
         aud = aud | AUD_CONSERVE
     state["aud"].copy_(aud)
+
+
+def audit_conserve_plain(state: dict, total: torch.Tensor,
+                         ctl: Optional[torch.Tensor] = None) -> None:
+    """A mesh rank's conserve pass: AUD_CONSERVE into every host of a
+    replica whose balance summed over the ranks, `total` [R or 1], is
+    not 0 (under the window loop only where `round_end` is set)."""
+    if n_replicas(state) is not None:
+        for r in range(n_replicas(state)):
+            audit_conserve_plain(at_replica(state, r), total[r:r + 1],
+                                 _ctl_at(ctl, r))
+        return
+    if ctl is not None and not int(ctl[CTL["round_end"]]):
+        return
+    if int(total.view(-1)[0]) != 0:
+        state["aud"] |= AUD_CONSERVE
 
 
 # ----------------------------------------------------------------------
@@ -1713,19 +1742,23 @@ class NicArgs(ctypes.Structure):
 
 
 def nic_args(state: dict, world: dict, p: PhaseParams):
-    """(NicArgs, [(tensor, dtype)] to check) of a pop launch."""
+    """(NicArgs, [(tensor, dtype)] to check) of a pop launch. The
+    bandwidth columns are the world's, one entry a host of host_vertex
+    (on a mesh rank the H_pad hosts: the kernel reads a host's at its
+    global id)."""
     if not p.MB:
         return NicArgs(0), []
     leaves = [state[k] for k in NIC_KEYS]
     tables = [world["bw_up"], world["bw_down"], world["law"]]
     counts = [state["n_sent"], state["n_drop"]]
     rows = tuple(state["head"].shape)
-    H = rows[-1]
+    Hg = world["host_vertex"].shape[-1]
     if any(t.shape != rows for t in leaves + counts) or \
-            any(t.shape != (H,) for t in tables[:2]) or \
-            tables[2].shape != (LAW_SIZE,):
+            any(t.shape != (Hg,) for t in tables[:2]) or \
+            tables[2].shape != (LAW_SIZE,) or p.g0 + rows[-1] > Hg:
         raise ValueError("model NIC: need [(R,)H] leaves and counters, "
-                         "[H] bandwidths and the [1024] law table")
+                         "the world's [H] (a mesh's [H_pad]) bandwidths "
+                         "and the [1024] law table")
     args = NicArgs(1, int(p.CP), int(p.boot_end),
                    *map(_ptr, leaves + tables + counts))
     return args, [(t, torch.int64) for t in leaves + tables] + \
@@ -1818,9 +1851,9 @@ _SIGNATURES = {
     "shadow_judge_outbox": [_I, _I, _I, _I, _L] + [_P] * 3 + [_P] * 3 +
                            [_P, _T, _P, _I, _I, _I, _P, _P, _P, _I, _P,
                             _P],
-    # R, H, OB, V, ob t k m, host_vertex, path_cnt, ctl, pops, ob_word,
-    # every_row, stream
-    "shadow_count_paths": [_I] * 4 + [_P] * 3 + [_P] * 5 + [_I, _I, _P],
+    # R, H, Hv (host_vertex's hosts), OB, V, ob t k m, host_vertex,
+    # path_cnt, ctl, pops, ob_word, gated_rows, every_row, stream
+    "shadow_count_paths": [_I] * 5 + [_P] * 3 + [_P] * 5 + [_I, _I, _P],
     # R, F, ND, lo, keyed, rows, perm starts counts, work, words, ctl,
     # stream
     "shadow_route": [_I, _L, _I, _I, _I, _RW] + [_P] * 3 + [_P, _L] +
@@ -1848,9 +1881,12 @@ _SIGNATURES = {
     "shadow_phase_tally": [_I] * 3 + [_P] * 7 + [_P] * 3 + [_I, _P],
     # R, H, E, ht hk head, n_exec n_sent n_drop n_deliv event_seq
     # packet_seq app_seq overflow x_overflow, aud_tx aud, sum (the
-    # design before), partial tickets, ctl, warp_per_host, stream
+    # design before), partial tickets, ctl, warp_per_host, balance (a
+    # mesh rank's, else null), stream
     "shadow_audit_round": [_I] * 3 + [_P] * 3 + [_P] * 9 + [_P] * 6 +
-                          [_I, _P],
+                          [_I, _P, _P],
+    # R, H, aud, total (the balance summed over the mesh), ctl, stream
+    "shadow_audit_conserve": [_I, _I] + [_P] * 3 + [_P],
     # R, H, E, ht head, partial tickets ctl, start, split, OB, ob t (or
     # null: no tally folded in), pops, occ_ob occ_trips occ_phases,
     # aud_tx, ob_word, tally partial, stream
@@ -2285,7 +2321,8 @@ class Kernels:
             "count_paths", "shadow_count_paths",
             [(t, torch.int64) for t in obs + [cnt]] + [(hv, torch.int32)]
             + ctl_checks + skip,
-            R or 1, H, OB, V, *map(_ptr, obs), _ptr(hv), _ptr(cnt), c,
+            R or 1, H, hv.shape[0], OB, V, *map(_ptr, obs), _ptr(hv),
+            _ptr(cnt), c,
             None if pops is None else _ptr(pops), _word_ptr(outside),
             int(self.paths_gated_rows), int(self.designs_before))
 
@@ -2579,12 +2616,16 @@ class Kernels:
             int(self.designs_before))
 
     def audit_round(self, state: dict,
-                    ctl: Optional[torch.Tensor] = None) -> None:
+                    ctl: Optional[torch.Tensor] = None,
+                    balance: Optional[torch.Tensor] = None) -> None:
         """K8: the audit's health word (audit_round_plain on the CPU);
         given the control block, only where its `round_end` word is
-        set."""
+        set. With `balance` ([R or 1] int64, a mesh rank's) the launch
+        writes the rank's balance there and decides no AUD_CONSERVE
+        (counted as `audit_round_rank`): `audit_conserve` does, on the
+        balance summed over the mesh."""
         if not state["head"].is_cuda:
-            return audit_round_plain(state, ctl)
+            return audit_round_plain(state, ctl, balance)
         R = n_replicas(state)
         H, E = state["ht"].shape[-2:]
         heap = [state["ht"], state["hk"]]
@@ -2593,6 +2634,9 @@ class Kernels:
         dev = state["ht"].device
         lib = self.library()
         if self.designs_before:
+            if balance is not None:
+                raise ValueError("audit_round: a mesh rank's balance is "
+                                 "the tiled design's alone")
             total = self._scratch_of("audit_sum", R or 1, dev)
             scratch, ptrs = [total], [_ptr(total), None, None]
         else:
@@ -2607,15 +2651,39 @@ class Kernels:
                 dev, zero=True, dtype=torch.int32)
             scratch, ptrs = [partial, tickets], [None, _ptr(partial),
                                                  _ptr(tickets)]
+        if balance is not None:
+            if balance.shape != (R or 1,):
+                raise ValueError(f"audit_round: balance must be "
+                                 f"[{R or 1}]")
+            scratch = scratch + [balance]
         c, ctl_checks = _ctl_args(ctl, R)
         self._launch(
-            "audit_round", "shadow_audit_round",
+            "audit_round" if balance is None else "audit_round_rank",
+            "shadow_audit_round",
             [(t, torch.int64) for t in heap + [state["aud_tx"]]]
             + [(t, torch.int32) for t in small + [state["aud"]]]
             + [(t, t.dtype) for t in scratch] + ctl_checks,
             R or 1, H, E, *map(_ptr, heap), *map(_ptr, small),
             _ptr(state["aud_tx"]), _ptr(state["aud"]), *ptrs, c,
-            int(self.designs_before))
+            int(self.designs_before),
+            None if balance is None else _ptr(balance))
+
+    def audit_conserve(self, state: dict, total: torch.Tensor,
+                       ctl: Optional[torch.Tensor] = None) -> None:
+        """K8's conserve pass on a mesh rank (audit_conserve_plain on
+        the CPU): AUD_CONSERVE into every host where `total` ([R or 1]
+        int64, the rank balances summed over the mesh) is not 0."""
+        if not state["head"].is_cuda:
+            return audit_conserve_plain(state, total, ctl)
+        R = n_replicas(state)
+        H = state["aud"].shape[-1]
+        if total.shape != (R or 1,):
+            raise ValueError(f"audit_conserve: total must be [{R or 1}]")
+        c, ctl_checks = _ctl_args(ctl, R)
+        self._launch(
+            "audit_conserve", "shadow_audit_conserve",
+            [(state["aud"], torch.int32), (total, torch.int64)]
+            + ctl_checks, R or 1, H, _ptr(state["aud"]), _ptr(total), c)
 
     def loop_control(self, state: dict, ctl: torch.Tensor,
                      start: bool = False, tally=None) -> None:

@@ -214,7 +214,10 @@ def _rank_main(rank: int, devices: list, backend: str, fn: Callable,
         if dev.type == "cuda":
             torch.cuda.set_device(dev)
         else:
-            torch.set_num_threads(max(1, min(4, (os.cpu_count() or 1)
+            # at most the threads the process takes by default
+            # (OMP_NUM_THREADS where it is set)
+            torch.set_num_threads(max(1, min(4, torch.get_num_threads(),
+                                             (os.cpu_count() or 1)
                                              // len(devices))))
         dist.init_process_group(
             backend, init_method=f"file://{workdir}/store", rank=rank,

@@ -142,23 +142,34 @@ def decode_audit(word: int) -> list[str]:
             if word & bit]
 
 
-def check_audit(state, where: str = "", last_good: str = "") -> None:
+def check_audit(state, where: str = "", last_good: str = "",
+                mesh=None) -> None:
     """Validate the health word of a state (its [H] `aud` tensor). No-op
     when the engine was built without the audit. Raises
     :class:`AuditFailure` naming the violated invariants, and the last
-    validated checkpoint, if any, on a nonzero word."""
+    validated checkpoint, if any, on a nonzero word. On a mesh
+    (device/mesh.py) every rank calls: the words' bits and the host
+    slots they mark are summed over the ranks, so that every rank
+    raises the same failure, of every host, at the same boundary."""
     if "aud" not in state:
         return
     aud = state["aud"].cpu().numpy()
-    if not aud.any():
+    bits = [int((aud & bit).any()) for bit in sorted(AUDIT_BIT_NAMES)]
+    n_bad = int((aud != 0).sum())
+    if mesh is not None:
+        got = mesh.all_sum(torch.tensor(bits + [n_bad],
+                                        dtype=torch.int64)).tolist()
+        bits, n_bad = got[:-1], int(got[-1])
+    if not n_bad:
         return
-    names = decode_audit(int(np.bitwise_or.reduce(aud, axis=None)))
+    names = decode_audit(sum(bit for bit, on in zip(
+        sorted(AUDIT_BIT_NAMES), bits) if on))
     hint = (f"; last validated checkpoint: {last_good}" if last_good
             else "; no validated checkpoint exists yet")
     raise AuditFailure(
         f"state audit failed{f' at {where}' if where else ''}: "
         f"violated invariant(s) {names} on "
-        f"{int((aud != 0).sum())} host slot(s) — the state is "
+        f"{n_bad} host slot(s) — the state is "
         f"corrupted and will not be checkpointed or run further"
         f"{hint}")
 
@@ -682,7 +693,8 @@ def advance(runner, state, t_start: int, pause: int, stop: int,
             # validated before it becomes the copy a replay or a
             # checkpoint starts from
             check_audit(state, where=f"t={t} ns",
-                        last_good=ck.last_path if ck is not None else "")
+                        last_good=ck.last_path if ck is not None else "",
+                        mesh=getattr(runner, "mesh", None))
         if next_hb is not None and t >= next_hb and t < stop:
             runner._emit_heartbeats(t, state)
             next_hb += hb

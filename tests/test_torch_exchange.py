@@ -539,6 +539,20 @@ def test_exchange_capacities_are_the_reference_formulas():
     assert exchange_caps("two_phase", 4, 8, 16, 64, 5, 7) == (5, 7, 2, 2)
 
 
+# what a mesh runs since ROADMAP (a) item 9a: the state audit, the model
+# NIC, the path counters, and the hybrid fall-back of host faults and of
+# a config with no device twin (tests/test_torch_mesh_state.py runs them)
+MESH_ADMITTED = {
+    "experimental.state_audit=true": None,
+    "experimental.model_bandwidth=true": None,
+    "experimental.count_paths=true": None,
+    "network.faults=[{kind: host_crash, time: 1s, host: left0}]":
+        "host_crash/host_restart faults",
+    "hosts.right.processes=[{path: model:tgen_server, start_time: 10ms}]":
+        "no device twin registered for ['phold', 'tgen_server']",
+}
+
+
 @pytest.mark.parametrize("override", [
     "experimental.state_audit=true",
     "experimental.model_bandwidth=true",
@@ -548,15 +562,29 @@ def test_exchange_capacities_are_the_reference_formulas():
     "hosts.right.processes=[{path: model:tgen_server, start_time: 10ms}]",
 ])
 def test_what_a_mesh_does_not_run_yet_is_refused(override):
+    """A campaign on a mesh is refused naming ROADMAP (a) item 9c; the
+    audit, the model NIC, the path counters and the hybrid fall-back are
+    admitted (the last two build with the reference's reason to run
+    hybrid in `no_twin`)."""
     from shadow_tpu_torch.core.build import OutsideSlice, build
 
     from shadow_tpu_torch.config import load_config_str
 
     # the model NIC judges in the pop: no judge_placement: flush
     text = PHOLD.replace("  judge_placement: flush\n", "")
-    with pytest.raises(OutsideSlice, match=r"on a mesh .*ROADMAP.md queue "
-                       r"\(a\) item 9 \(multi-GPU: "):
-        build(load_config_str(text, ovr(2) + [override]))
+    cfg = load_config_str(text, ovr(2) + [override])
+    if override not in MESH_ADMITTED:
+        with pytest.raises(OutsideSlice, match=r"an ensemble campaign on a "
+                           r"mesh .*ROADMAP.md queue \(a\) item 9c "
+                           r"\(campaigns on the mesh\)"):
+            build(cfg)
+        return
+    sim = build(cfg)
+    reason = MESH_ADMITTED[override]
+    if reason is None:
+        assert sim.app is not None and sim.no_twin is None
+    else:
+        assert sim.app is None and reason in sim.no_twin
 
 
 def test_mesh_shards_needs_the_tpu_policy_and_a_known_exchange():
