@@ -162,6 +162,15 @@ Phases, in order; any failure exits non-zero before the last line:
      over a rank's received [S, 6, CAP] rows and K3 merging them with
      the rank's self-shard rows (two arrival blocks, the window and
      the global merge's occ_in), every output bit for bit;
+   - the exchange's kernels with a campaign's replica axis
+     (`mesh_replica_kernels`, R = 4, each replica its own outbox): K12,
+     K5's window and K3's second block at S = 2 (H_loc 50,000, the auto
+     CAP), both K13 halves and K5's keyed mode over two_phase's two
+     received regions at S = 4, each against four R = 1 launches and its
+     batched plain version, a stopped replica keeping every byte, timed
+     at R = 1 and R = 4 beside the library call on the four replicas at
+     once; and a rank's K1, K2, K7 and K8's rank mode at R = 4 with g0 >
+     0 (`rank_replica_kernels`);
    - the audit, the model NIC and the path counters as a mesh rank runs
      them (`mesh_state_kernels`, rank 1 of 2 at H_loc 50,000): K8's
      rank mode (`audit_round_rank`: the rank's balance written, nothing
@@ -328,9 +337,19 @@ Phases, in order; any failure exits non-zero before the last line:
    phase 2), card against CPU, x_overflow equal per sender, the run not
    ok; in the same spawns the tgen config planned (MESH_PLAN: a 3 s
    warm-up in 1 s segments, `exchange: auto`) at S = 2 and 4, equal to
-   the one-device run, its chosen schedule and estimates printed. Full
-   (`mesh_full`, MESH_FULL): phold.yaml at 2 x 50,000 hosts at
-   S = 2 and 4 and tgen_10000.yaml cut to 10 s at S = 2,
+   the one-device run, its chosen schedule and estimates printed.
+   Ensemble campaigns (`mesh_campaign_parity`, MESH_CAMPAIGNS, in the
+   same spawns): examples/ensemble_seed_sweep.yaml at S = 2 and 4 under
+   every schedule and merge, the star campaign of the parity phase at
+   S = 2 and a PHOLD latency sweep with an undersized capacity, every
+   replica held against the one-device campaign on the card (every
+   per-host leaf but occ_in, the record, the totals; not where rows are
+   lost) and every run against the same ranks on the CPU (a CPU oracle,
+   every leaf; the lossy sweep's x_overflow per replica and sender); the
+   exchange's collectives a flush equal to a standalone run's; the sweep
+   saved half way at S = 2 and resumed, its checkpoint refused at S = 4.
+   Full (`mesh_full`, MESH_FULL): phold.yaml at 2 x 50,000 hosts cut to
+   MESH_PHOLD_STOP at S = 2 and 4 and tgen_10000.yaml cut to 5 s at S = 2,
    exchange_capacity set by
    hand, untimed for the wall beside the one-device graph wall of this
    call, then in timing mode for each rank's split of the flush (the
@@ -344,8 +363,13 @@ Phases, in order; any failure exits non-zero before the last line:
    cost a rank: the all_sum's seconds and K8's device ms over the mesh
    wall)
    and tgen_10000.yaml under the model NIC and the path counters cut to
-   5 s at S = 2 (the summed path_cnt equal), each beside its one-device
-   graph run, peaks within FOOTPRINT_TOLERANCE of the estimates. Then
+   3 s at S = 2 (the summed path_cnt equal), each beside its one-device
+   graph run, peaks within FOOTPRINT_TOLERANCE of the estimates; the
+   campaign at full width (`mesh_campaign_full`, MESH_CAMPAIGN_FULL):
+   tgen_10000.yaml x 8 seeds cut to 5 s at S = 2, every replica equal
+   to the one-device campaign of this call, the exchange's collectives
+   a flush equal to tgen_10000_s2's, each rank's peak, estimate, bytes
+   a flush and collective and staging seconds. Then
    (`mesh_supervise`) phold.yaml at S = 2 saved half way and resumed at
    S = 2, equal to one device, and its checkpoint refused at S = 4 with
    the reference's geometry message. Every card run of the phase but
@@ -3557,14 +3581,6 @@ def stack_arg(torch, vals):
     return v
 
 
-def replica_slice(x, r):
-    if isinstance(x, dict):
-        return {k: v[r] for k, v in x.items()}
-    if isinstance(x, tuple):
-        return tuple(v[r] for v in x)
-    return x[r]
-
-
 def arg_err(a, b) -> float:
     """max_abs_err of two outputs: tensor dicts, tuples or tensors."""
     if isinstance(a, dict):
@@ -3583,9 +3599,13 @@ def clone_arg(x):
 
 
 def replica_check(torch, K, scratch, name, method, plain, make, outs,
-                  ctl_at, freeze, canon=lambda x: x, frozen_canon=None):
-    """`name` (scratch.<method>) on REPLICAS replicas' inputs stacked
-    on a leading axis against REPLICAS launches on each replica's own
+                  ctl_at, freeze, canon=lambda x: x, frozen_canon=None,
+                  axes=None):
+    """`name` (scratch.<method>, or `method` itself where it is a
+    function) on REPLICAS replicas' inputs stacked on a leading axis
+    (`axes`: each argument's replica axis, `stack_at`; a campaign rank's
+    wire buffers hold the replica inside their peer blocks) against
+    REPLICAS launches on each replica's own
     inputs (R = 1) and against its plain version `plain` on the stacked
     inputs, exact on every output (`outs`: the indices of the arguments
     the kernel writes; `canon` drops what a kernel leaves unspecified);
@@ -3597,16 +3617,19 @@ def replica_check(torch, K, scratch, name, method, plain, make, outs,
     R = REPLICAS launch (CUDA events, median of 7), and the plain
     version at R = REPLICAS (median of 3)."""
     R = REPLICAS
-    fn = getattr(scratch, method)
+    fn = getattr(scratch, method) if isinstance(method, str) else method
     singles = []
     for r in range(R):
         a = make(r)
         fn(*a)
         singles.append([canon(a[i]) for i in outs])
 
+    def axis(i):
+        return 0 if axes is None else axes[i]
+
     def batched():
         per = [make(r) for r in range(R)]
-        return [stack_arg(torch, [a[i] for a in per])
+        return [stack_at(torch, [a[i] for a in per], axis(i))
                 for i in range(len(per[0]))]
 
     kb, pb = batched(), batched()
@@ -3615,7 +3638,7 @@ def replica_check(torch, K, scratch, name, method, plain, make, outs,
     torch.cuda.synchronize()
     err = 0.0
     for j, i in enumerate(outs):
-        want = stack_arg(torch, [s[j] for s in singles])
+        want = stack_at(torch, [s[j] for s in singles], axis(i))
         err = max(err, arg_err(canon(kb[i]), want),
                   arg_err(canon(kb[i]), canon(pb[i])))
     check(err == 0.0, f"{name} at R={R} differs from {R} launches at "
@@ -3628,12 +3651,12 @@ def replica_check(torch, K, scratch, name, method, plain, make, outs,
     torch.cuda.synchronize()
     frozen_canon = frozen_canon or canon
     for j, i in enumerate(outs):
-        check(arg_err(replica_slice(frozen_canon(kf[i]), 1), replica_slice(
-            frozen_canon(before[j]), 1)) == 0.0, f"{name}: a replica "
-              "whose control block stops it changed")
+        check(arg_err(slice_at(frozen_canon(kf[i]), 1, axis(i)), slice_at(
+            frozen_canon(before[j]), 1, axis(i))) == 0.0, f"{name}: a "
+              "replica whose control block stops it changed")
         got = canon(kf[i])
         for r in (0, 2, 3):
-            check(arg_err(replica_slice(got, r), singles[r][j]) == 0.0,
+            check(arg_err(slice_at(got, r, axis(i)), singles[r][j]) == 0.0,
                   f"{name}: replica {r} changed with replica 1 stopped")
     if ctl_at not in outs:
         check(torch.equal(kf[ctl_at][1], frozen_ctl), f"{name}: the "
@@ -5318,6 +5341,445 @@ def mesh_state_kernels(torch, K, scratch, rng, dev):
     return out
 
 
+# ----------------------------------------------------------------------
+# the exchange's kernels with a replica axis: a campaign on the mesh
+# ----------------------------------------------------------------------
+def stack_at(torch, vals, axis=0):
+    """One argument of a batched launch from the replicas' own, stacked
+    on `axis` (None: replica 0's, shared): `stack_arg` on the leading
+    axis; a campaign rank's wire buffers hold the replica inside their
+    peer blocks (axis 1), and a Rows' wire regions stack on 1, its
+    outbox regions on 0."""
+    v = vals[0]
+    if axis is None:
+        return v
+    if hasattr(v, "regions"):
+        return type(v)(*(stack_at(
+            torch, [x.regions[i] for x in vals],
+            0 if isinstance(v.regions[i], dict) else 1)
+            for i in range(len(v.regions))))
+    if axis == 0:
+        return stack_arg(torch, vals)
+    if isinstance(v, dict):
+        return {k: torch.stack([d[k] for d in vals], axis) for k in v}
+    if isinstance(v, tuple):
+        return tuple(torch.stack(x, axis) for x in zip(*vals))
+    return torch.stack(vals, axis)
+
+
+def slice_at(x, r, axis=0):
+    """Replica r's view of an output stacked on `axis`."""
+    if isinstance(x, dict):
+        return {k: v.select(axis, r) for k, v in x.items()}
+    if isinstance(x, tuple):
+        return tuple(v.select(axis, r) for v in x)
+    return x.select(axis, r)
+
+
+def mesh_replica_kernels(torch, K, scratch, rng, dev):
+    """K12, both K13 halves, K5's window and keyed modes and K3's second
+    block at R = REPLICAS on a campaign rank (`replica_check` with each
+    argument's replica axis: the wire buffers' inside their peer blocks), at
+    the shapes of mesh_kernels: K12, the window and K3 at S = 2 (H_loc
+    50,000, OB 30, the auto CAP), K13 and the keyed route at S = 4 (H_loc
+    25,000); each replica's outbox its own, the keyed route over both of
+    two_phase's received regions (`recv1 | recv2`), K3 with each
+    replica's own segment of its outbox's route over H_pad (a strided
+    view); the library call of each on the four replicas at once; the
+    bound over the four replicas' inputs."""
+    from shadow_tpu_torch.device.apps import PholdDevice
+    from shadow_tpu_torch.device.capacity import exchange_caps, group_split
+    from shadow_tpu_torch.device.engine import (STATE_DTYPES, EngineConfig,
+                                                phase_params)
+
+    R, out = REPLICAS, {}
+
+    def ctl1():
+        return K.control_block(dev, run=1, win_end=K.INF)
+
+    def stop_run(block):
+        block[K.CTL["run"]] = 0
+
+    def route_canon(o):
+        perm, starts, counts = o
+        live = torch.arange(perm.shape[-1], device=dev) < \
+            counts.sum(-1, keepdim=True)
+        return (torch.where(live, perm, -1), starts, counts)
+
+    def check_r4(name, fn, plain, make, axes, outs, ctl_at, **kw):
+        return replica_check(torch, K, scratch, name, fn, plain, make,
+                             outs, ctl_at, stop_run, axes=axes, **kw)
+
+    # K12 at S = 2
+    S, H_loc = MESH_SHAPES[0]
+    cap, _, _, _ = exchange_caps("all_to_all", S, H_loc, MESH_OB, 64)
+    mp = K.MeshParams(S, 0, H_loc, "all_to_all", cap, 0, 1, S)
+    obs = [mesh_outbox(torch, rng, H_loc, S, 0, dev) for _ in range(R)]
+    routes = [K.route_rows_plain(K.Rows(ob), 0, S * H_loc) for ob in obs]
+
+    def pack_make(r):
+        return ({"x_overflow": torch.zeros(H_loc, dtype=torch.int32,
+                                           device=dev),
+                 "occ_x": torch.zeros((1, S), dtype=torch.int32,
+                                      device=dev)},
+                obs[r], *routes[r], mp,
+                torch.full((S, 6, cap), -1, dtype=torch.int64, device=dev),
+                ctl1())
+
+    row = check_r4(
+        "pack_remote", scratch.pack_remote, K.pack_remote_plain,
+        pack_make, (0, 0, 0, 0, 0, None, 1, 0), (0, 6), 7)
+    shipped = sum(int(c.view(S, H_loc).sum(1)[1:].clamp(max=cap).sum())
+                  for _, _, c in routes)
+    block = torch.cat([torch.stack([ob[f].view(-1) for f in K.OB_FIELDS])
+                       for ob in obs], 1)
+    F = H_loc * MESH_OB
+    idx = torch.cat([perm[(st.view(S, H_loc)[:, :1] + torch.arange(
+        cap, device=dev)).clamp(max=F - 1).view(-1)] + r * F
+        for r, (perm, st, _) in enumerate(routes)])
+    out["pack_remote"] = finish({
+        **row, "ms": row["ms_r4"], "plain_ms": row["plain_ms_r4"],
+        "library_ms": time_median(
+            torch, lambda b, i: torch.index_select(b, 1, i),
+            lambda: (block, idx), 7),
+        "bytes": shipped * 6 * 8 + R * S * 6 * cap * 8 + R * S * 16,
+        "ops": 0,
+        "shape": f"R={R} S={S} H_loc={H_loc} OB={MESH_OB} CAP={cap}, the "
+                 f"send buffer [S, R, 6, CAP], shipped {shipped}"})
+    # K5's window over each replica's received rows, and K3 with its own
+    # rows as the second block (rank 1 of 2)
+    lo = H_loc
+    recvs, owns = [], []
+    for r in range(R):
+        recv = torch.empty((S, 6, cap), dtype=torch.int64, device=dev)
+        for src in range(S):
+            ob = mesh_outbox(torch, rng, H_loc, S, 0, dev)
+            pr, sr, cr = K.route_rows_plain(K.Rows(ob), 0, S * H_loc)
+            send = torch.empty((S, 6, cap), dtype=torch.int64, device=dev)
+            K.pack_remote_plain(
+                {"x_overflow": torch.zeros(H_loc, dtype=torch.int32,
+                                           device=dev),
+                 "occ_x": torch.zeros((1, S), dtype=torch.int32,
+                                      device=dev)}, ob, pr, sr, cr,
+                K.MeshParams(S, src, H_loc, "all_to_all", cap, 0, 1, S),
+                send)
+            recv[src] = send[1]
+        recvs.append(recv)
+        own = mesh_outbox(torch, rng, H_loc, S, 1, dev)
+        owns.append((own, *K.route_rows_plain(K.Rows(own), 0, S * H_loc)))
+
+    def window_make(r):
+        return (K.Rows(recvs[r]), lo, H_loc, False,
+                tuple(torch.full((n,), -7, dtype=torch.int64, device=dev)
+                      for n in (S * cap, H_loc, H_loc)), ctl1())
+
+    row = check_r4(
+        "route_window", scratch.route_rows,
+        lambda *a: _plain_route(K, *a), window_make,
+        (0, None, None, None, 0, 0), (4,), 5, canon=route_canon,
+        frozen_canon=lambda o: o[:2])
+    live = 0
+    wkeys = []
+    n = S * cap
+    for recv in recvs:
+        f = K.Rows(recv).fields(("t", "m"))
+        d = (f["m"] >> 32) - lo
+        ok = (f["t"] < K.DROP_T) & (d >= 0) & (d < H_loc)
+        live += int(ok.sum())
+        wkeys.append(torch.where(ok, d * n + torch.arange(
+            n, dtype=torch.int64, device=dev), K.IMAX))
+    wkey = torch.cat(wkeys)
+    wb = torch.arange(H_loc + 1, dtype=torch.int64, device=dev) * n
+    out["route_window"] = finish({
+        **row, "ms": row["ms_r4"], "plain_ms": row["plain_ms_r4"],
+        "library_ms": time_median(
+            torch, lambda x: torch.searchsorted(
+                torch.sort(x, dim=-1)[0], wb.expand(R, -1).contiguous()),
+            lambda: (wkey.view(R, n),), 7),
+        "bytes": R * n * 8 + live * 8 * 2 + R * H_loc * 16, "ops": 0,
+        "shape": f"R={R} S={S} rows={n} a replica, [S, R, 6, CAP] "
+                 f"received, live {live}, to H_loc={H_loc}"})
+    # K3, two blocks
+    p = phase_params(EngineConfig(n_hosts=S * H_loc, event_capacity=64,
+                                  outbox_capacity=MESH_OB),
+                     PholdDevice(n_hosts_total=S * H_loc))
+    states = [lex_sorted(torch, K, mesh_state(torch, K, rng, H_loc, S, dev))
+              for _ in range(R)]
+    windows = [K.route_rows_plain(K.Rows(recvs[r]), lo, H_loc)
+               for r in range(R)]
+
+    def merge_make(r):
+        own, po, so, co = owns[r]
+        return (clone(states[r]), K.Rows(recvs[r]), *windows[r], p,
+                ctl1(), own, po, so, co)
+
+    def merge2(st, rows, perm, starts, counts, p_, ctl, own, po, so, co):
+        scratch.merge_heaps(st, rows, perm, starts, counts, p_, ctl,
+                            second=(own, po, so[..., lo:lo + H_loc],
+                                    co[..., lo:lo + H_loc]))
+
+    def merge2_plain(st, rows, perm, starts, counts, p_, ctl, own, po, so,
+                     co):
+        K.merge_heaps_plain(st, rows, perm, starts, counts, p_, ctl,
+                            (own, po, so[..., lo:lo + H_loc],
+                             co[..., lo:lo + H_loc]))
+
+    row = check_r4(
+        "merge_heaps2", merge2, merge2_plain, merge_make,
+        (0, 0, 0, 0, 0, None, 0, 0, 0, 0, 0), (0,), 6,
+        canon=lambda st: {k: st[k] for k in STATE_DTYPES if k in st})
+    E, IN = p.E, p.IN
+    nbytes, cols = 0, []
+    for r in range(R):
+        own, po, so, co = owns[r]
+        sc = (so[lo:lo + H_loc], co[lo:lo + H_loc])
+        nbytes += merge_bytes(states[r], windows[r][2], E, IN, False, sc[1])
+        c1 = merge_columns(torch, K, states[r],
+                           K.Rows(recvs[r]).fields(K.OB_FIELDS),
+                           *windows[r], IN)
+        c2 = merge_columns(torch, K, {**states[r], "head": torch.full_like(
+            states[r]["head"], E)}, own, po, *sc, IN)
+        cols.append(tuple(torch.cat([a, b[:, E:]], 1)
+                          for a, b in zip(c1, c2)))
+    cols = tuple(torch.cat(x) for x in zip(*cols))
+    out["merge_heaps2"] = finish({
+        **row, "ms": row["ms_r4"], "plain_ms": row["plain_ms_r4"],
+        "library_ms": time_median(torch, merge_library(torch, E),
+                                  lambda: cols, 7),
+        "bytes": nbytes, "ops": 0,
+        "shape": f"R={R} H_loc={H_loc} E={E} IN={IN}, two blocks: the "
+                 "received [S, R, 6, CAP] rows and each replica's own "
+                 "segment of its [R, H_pad] route"})
+    # K13 and the keyed route at S = 4
+    S, H_loc = MESH_SHAPES[1]
+    g, ng = group_split(S)
+    cap, cap2, _, _ = exchange_caps("two_phase", S, H_loc, MESH_OB, 64)
+    mp = K.MeshParams(S, 0, H_loc, "two_phase", cap, cap2, g, ng)
+    obs = [mesh_outbox(torch, rng, H_loc, S, 0, dev) for _ in range(R)]
+    routes = [K.route_rows_plain(K.Rows(ob), 0, S * H_loc) for ob in obs]
+
+    def tp_make(r):
+        send = torch.full((g, 6, cap), -1, dtype=torch.int64, device=dev)
+        return ({"x_overflow": torch.zeros(H_loc, dtype=torch.int32,
+                                           device=dev),
+                 "occ_x": torch.zeros((1, S), dtype=torch.int32,
+                                      device=dev)},
+                obs[r], *routes[r], mp, send, ctl1(), K.fill_words(send))
+
+    row = check_r4(
+        "pack_two_phase", scratch.pack_two_phase,
+        lambda *a: K.pack_two_phase_plain(*a[:8]), tp_make,
+        (0, 0, 0, 0, 0, None, 1, 0, 1), (0, 6), 7)
+    shipped = 0
+    recv1s = []
+    for r in range(R):
+        st = tp_make(r)
+        K.pack_two_phase_plain(*st[:8])
+        recv1s.append(st[6])
+        shipped += int((st[6][:, 0] < K.INF).sum())
+    block = torch.cat([torch.stack([ob[f].view(-1) for f in K.OB_FIELDS])
+                       for ob in obs], 1)
+    idx = torch.arange(shipped, device=dev) % (R * H_loc * MESH_OB)
+    out["pack_two_phase"] = finish({
+        **row, "ms": row["ms_r4"], "plain_ms": row["plain_ms_r4"],
+        "library_ms": time_median(
+            torch, lambda b, i: torch.index_select(b, 1, i),
+            lambda: (block, idx), 7),
+        "bytes": shipped * 6 * 8 + R * g * 6 * cap * 8 + R * S * 16,
+        "ops": 0,
+        "shape": f"R={R} S={S} g={g} ng={ng} H_loc={H_loc} CAP={cap}, "
+                 f"buffers [g, R, 6, CAP], shipped {shipped}"})
+    arr1s = [K.route_rows_plain(K.Rows(x), 0, S * H_loc, True)
+             for x in recv1s]
+
+    def p2_make(r):
+        send = torch.full((ng - 1, 6, cap2), -1, dtype=torch.int64,
+                          device=dev)
+        return (K.Rows(recv1s[r]), *arr1s[r], mp, MESH_OB, send,
+                torch.zeros(S * H_loc, dtype=torch.int32, device=dev),
+                ctl1(), K.fill_words(send))
+
+    row = check_r4(
+        "pack_two_phase2", scratch.pack_two_phase2,
+        lambda *a: _plain_p2(K, *a), p2_make,
+        (0, 0, 0, 0, None, None, 1, 0, 0, 1), (6, 7), 8)
+    fwd = sum(int(a[2].view(S, H_loc)[g].sum().clamp(max=cap2))
+              for a in arr1s)
+    out["pack_two_phase2"] = finish({
+        **row, "ms": row["ms_r4"], "plain_ms": row["plain_ms_r4"],
+        "library_ms": time_median(
+            torch, lambda b, i: torch.index_select(b, 1, i),
+            lambda: (block, torch.arange(fwd, device=dev)
+                     % (R * H_loc * MESH_OB)), 7),
+        "bytes": fwd * 7 * 8 + R * (ng - 1) * 6 * cap2 * 8
+        + R * S * H_loc * 4, "ops": 0,
+        "shape": f"R={R} S={S} CAP2={cap2}, buffers [ng-1, R, 6, CAP2], "
+                 f"hist [R, H_pad], forwarded {fwd}"})
+    # the keyed window over both received regions, recv1 | recv2, to
+    # shard (1, 0)'s hosts, which both regions hold rows for (the phase-1
+    # rows of buffer 0 and the rows phase 2 forwards)
+    lo = g * H_loc
+    recv2s = []
+    for r in range(R):
+        a = p2_make(r)
+        _plain_p2(K, *a)
+        recv2s.append(a[6])
+
+    def keyed_make(r):
+        rows = K.Rows(recv1s[r], recv2s[r])
+        return (rows, lo, H_loc, True,
+                tuple(torch.full((m,), -7, dtype=torch.int64, device=dev)
+                      for m in (rows.n, H_loc, H_loc)), ctl1())
+
+    row = check_r4(
+        "route_keyed", scratch.route_rows,
+        lambda *a: _plain_route(K, *a), keyed_make,
+        (0, None, None, None, 0, 0), (4,), 5, canon=route_canon,
+        frozen_canon=lambda o: o[:2])
+    n = keyed_make(0)[0].n
+    keys, live = [], 0
+    for r in range(R):
+        f = K.Rows(recv1s[r], recv2s[r]).fields(("t", "m", "key"))
+        d = (f["m"] >> 32) - lo
+        ok = (f["t"] < K.DROP_T) & (d >= 0) & (d < H_loc)
+        live += int(ok.sum())
+        keys.append(torch.where(ok, f["key"], K.IMAX))
+    kb = (lo + torch.arange(H_loc + 1, dtype=torch.int64, device=dev)) * (
+        S * H_loc * MESH_OB)
+    out["route_keyed"] = finish({
+        **row, "ms": row["ms_r4"], "plain_ms": row["plain_ms_r4"],
+        "library_ms": time_median(
+            torch, lambda x: torch.searchsorted(
+                torch.sort(x, dim=-1)[0], kb.expand(R, -1).contiguous()),
+            lambda: (torch.stack(keys),), 7),
+        "bytes": R * n * 3 * 8 + live * 8 + R * H_loc * 16, "ops": 0,
+        "shape": f"R={R} S={S} rows={n} a replica over two regions "
+                 f"(recv1 [g, R, 6, CAP] | recv2 [ng-1, R, 6, CAP2]), "
+                 f"live {live}, to shard {g}'s H_loc={H_loc}"})
+    return out
+
+
+class RankAudit:
+    """K8's rank mode in replica_check's stacking: a replica's [1]
+    balance word stacked [R, 1], the wrapper's [R]."""
+
+    def __init__(self, kernels):
+        self.kernels = kernels
+
+    def audit_round(self, state, ctl, balance):
+        self.kernels.audit_round(state, ctl, balance=balance.view(-1))
+
+
+def rank_replica_kernels(torch, K, scratch, rng, dev):
+    """The kernels a campaign already launches with the replica as a grid
+    dimension, on a mesh rank at g0 > 0 (MESH_RANK: rank 1 of 2, H_loc
+    50,000 of H_pad 100,000), at R = REPLICAS against four R = 1 launches
+    and the plain versions (`replica_check`): K1 on the rank's hosts at
+    their global ids over the world's [H_pad] vertices, K2 on each
+    replica's K1 outbox, K7 on it (ids clipped to H_pad), K8's rank mode
+    (the rank's [R] balance written, nothing decided); each replica its
+    own tables and seed (`vary_world`)."""
+    from shadow_tpu_torch.device.apps import PholdDevice
+    from shadow_tpu_torch.device.prng import seed_key
+
+    S, shard, H = MESH_RANK
+    H_pad, g0 = S * H, shard * H
+    R, E, out = REPLICAS, 64, {}
+
+    def stop_run(block):
+        block[K.CTL["run"]] = 0
+
+    world = {
+        "host_vertex": torch.from_numpy(
+            rng.integers(0, 2, H_pad).astype(np.int32)).to(dev),
+        "lat": torch.tensor([[30_000_000, 50_000_000],
+                             [50_000_000, 30_000_000]],
+                            dtype=torch.int32, device=dev),
+        "rel": torch.tensor([[0.98, 0.9], [0.9, 0.98]],
+                            dtype=torch.float32, device=dev),
+        "epoch_times": torch.zeros(1, dtype=torch.int64, device=dev)}
+    worlds = [vary_world(torch, world, r, dev) for r in range(R)]
+    p = K.PhaseParams(E=E, K=3, T=0, P=1, B=10, IN=E, C=1,
+                      boot_end=5 * 10**8, seed=seed_key(7),
+                      app=PholdDevice(n_hosts_total=H_pad, msgload=3,
+                                      size=512, selfloop=1), g0=g0)
+    wins = [10**9 + 10**7 * r for r in range(R)]
+    states = [random_state(rng, H, E, dev) for _ in range(R)]
+    OB = p.OB
+
+    def pop_make(r):
+        return (clone(states[r]),
+                {f: torch.empty((H, OB), dtype=torch.int64, device=dev)
+                 for f in K.OB_FIELDS},
+                torch.empty(H, dtype=torch.int32, device=dev), worlds[r],
+                window_block(K, wins[r], dev), p)
+
+    out["pop_phase"] = replica_check(
+        torch, K, scratch, "pop_phase (a rank, g0 > 0)", "pop",
+        K.pop_plain, pop_make, (0, 1, 2), 4, stop_run)
+    popped = []
+    for r in range(R):
+        a = pop_make(r)
+        scratch.pop(*a)
+        popped.append((a[0], a[1]))
+
+    def judge_make(r):
+        return (clone(popped[r][0]), clone(popped[r][1]), worlds[r],
+                window_block(K, wins[r], dev), p)
+
+    out["judge_outbox"] = replica_check(
+        torch, K, scratch, "judge_outbox (a rank, g0 > 0)", "judge_outbox",
+        K.judge_outbox_plain, judge_make, (0, 1), 3, stop_run)
+    judged = []
+    for r in range(R):
+        a = judge_make(r)
+        scratch.judge_outbox(*a)
+        judged.append(a[1])
+
+    def paths_make(r):
+        return ({"path_cnt": torch.zeros((1, 4), dtype=torch.int64,
+                                         device=dev)},
+                clone(judged[r]), worlds[r], window_block(K, wins[r], dev))
+
+    out["count_paths"] = replica_check(
+        torch, K, scratch, "count_paths (a rank, g0 > 0)", "count_paths",
+        K.count_paths_plain, paths_make, (0,), 3, stop_run)
+    aud = [audit_inputs(torch, K, rng, H, E, dev) for _ in range(R)]
+
+    def audit_make(r):
+        return (clone(aud[r]), K.control_block(dev, round_end=1, run=1),
+                torch.zeros(1, dtype=torch.int64, device=dev))
+
+    def stop_round(block):
+        block[K.CTL["round_end"]] = 0
+
+    out["audit_round_rank"] = replica_check(
+        torch, K, RankAudit(scratch), "audit_round_rank (a rank)",
+        "audit_round", lambda st, c, b: K.audit_round_plain(
+            st, c, b.view(-1)), audit_make, (0, 2), 1, stop_round)
+    return {f"{k} on a rank (g0={g0}, H_pad={H_pad})": v
+            for k, v in out.items()}
+
+
+def _plain_route(K, rows, lo, nd, keyed, out_, ctl):
+    """K5's plain version into `out_`, for each replica whose control
+    block runs (`Kernels.route_rows` on the CPU does the same)."""
+    R = rows.replicas
+    for r in range(R or 1):
+        if int((ctl[r] if R else ctl)[K.CTL["run"]]):
+            res = K.route_rows_plain(rows.at(r) if R else rows, lo, nd,
+                                     keyed)
+            for o, x in zip(out_, res):
+                (o[r] if R else o).copy_(x)
+
+
+def _plain_p2(K, rows, perm, starts, counts, mp, OB, send, hist, ctl,
+              filled=None):
+    hist.zero_()
+    K.pack_two_phase2_plain(rows, perm, starts, counts, mp, OB, send, hist,
+                            ctl)
+
+
 def kernels_phase(torch, report, H=100_000, dev="cuda"):
     from shadow_tpu_torch.device import kernels as K
 
@@ -5344,6 +5806,8 @@ def kernels_phase(torch, report, H=100_000, dev="cuda"):
     replicas.update(compact_r4)
     mesh = mesh_kernels(torch, K, scratch, rng, dev)
     mesh_state = mesh_state_kernels(torch, K, scratch, rng, dev)
+    replicas.update(mesh_replica_kernels(torch, K, scratch, rng, dev))
+    replicas.update(rank_replica_kernels(torch, K, scratch, rng, dev))
     adversarial = flush_adversarial(torch, K, scratch, rng, dev)
     real, outbox_adv = real_phase_rows(torch, K, scratch, dev)
     real.update(audit_real_rows(torch, K, dev))
@@ -5484,7 +5948,10 @@ def kernels_phase(torch, report, H=100_000, dev="cuda"):
               f"{r['ms_r4']:.4f} ms, plain at R={r['R']} "
               f"{r['plain_ms_r4']:.4f} ms"
               + (f", bound at R={r['R']} {r['bound_ms']:.4f} ms (bytes)"
-                 if "bound_ms" in r else ""), flush=True)
+                 if "bound_ms" in r else "")
+              + (f", library call at R={r['R']} {r['library_ms']:.4f} ms"
+                 if r.get("library_ms") is not None else "")
+              + (f"; {r['shape']}" if "shape" in r else ""), flush=True)
     report["_replicas"] = replicas
     report.update({**nic, **epochs, **hier_faults, **loop, **judge,
                    **compact, **mesh, "count_paths": paths})
@@ -7872,13 +8339,11 @@ def mesh_supervise(torch, card, report, spawned):
     geometry message."""
     from shadow_tpu_torch.device import runner
 
-    full = report.get("_full", {})
     name, example, overrides, _, _, _ = MESH_FULL[0]
-    one = (full["phold"]["stats"] if "phold" in full else runner.run(
-        full_config(example, FULL_RUNS[0][2]), device="cuda"))
+    one = runner.run(full_config(example, overrides[:-1]), device="cuda")
     ck = os.path.join(spawned["work"], "phold_s2.npz")
     part, res = (spawned["supervise"][k] for k in ("save", "resume"))
-    resumed(part, res, one, "phold.yaml S = 2 paused at 5 s")
+    resumed(part, res, one, f"phold.yaml S = 2 paused at {MESH_SUP_PAUSE}")
     try:
         runner.mesh_runs(["cuda:0"] * 4, [full_config(
             example, overrides + ("experimental.mesh_shards=4",
@@ -7892,7 +8357,7 @@ def mesh_supervise(torch, card, report, spawned):
         "launches": res.mesh["launches"]}
     whole = report.get("_mesh_full", {}).get(name, {}).get("wall_s")
     print(f"[mesh:supervise] phold.yaml at S = 2 saved at "
-          f"{SUP_PHOLD_PAUSE} ({part.wall_s:.3f} s, the save "
+          f"{MESH_SUP_PAUSE} ({part.wall_s:.3f} s, the save "
           f"{io_line(part.pipeline['checkpoint_io']['save'])}, the "
           f"ranks' leaves gathered to rank 0) and resumed at S = 2 "
           f"({res.wall_s:.3f} s; uninterrupted "
@@ -7929,17 +8394,23 @@ STATE_LEAVES = ("tx_free", "rx_free", "cd_fa", "cd_next", "cd_cnt",
 # as users do (docs/exchange.md:99-101): the auto CAP (all of a rank's
 # H_loc*OB rows a pair) would move about 144 MB a rank a phase. The
 # boot phase, where every PHOLD host sends its msgload rows at once,
-# sets the size: 32,768 a pair lost rows there at S = 2
+# sets the size: 32,768 a pair lost rows there at S = 2. phold.yaml's runs
+# are cut from its 10 s stop to MESH_PHOLD_STOP (and their one-device
+# runs made here) to make room for the campaigns' runs
+MESH_PHOLD_STOP = "5s"
+MESH_SUP_PAUSE = "2500ms"
 MESH_FULL = (
     ("phold_s2", "phold.yaml", FULL_RUNS[0][2] + (
-        "experimental.exchange_capacity=98304",), 2, "phold", "pop_phase"),
+        f"general.stop_time={MESH_PHOLD_STOP}",
+        "experimental.exchange_capacity=98304",), 2, None, "pop_phase"),
     ("phold_s4", "phold.yaml", FULL_RUNS[0][2] + (
-        "experimental.exchange_capacity=32768",), 4, "phold", "pop_phase"),
-    # cut from its 30 s stop to 10 s to make room for the planner's runs
-    # (its one-device run is then made here, not taken from the full
-    # phase)
+        f"general.stop_time={MESH_PHOLD_STOP}",
+        "experimental.exchange_capacity=32768",), 4, None, "pop_phase"),
+    # cut from its 30 s stop to 5 s to make room for the planner's runs
+    # and the campaigns' (its one-device run is then made here, not taken
+    # from the full phase)
     ("tgen_10000_s2", "tgen_10000.yaml", (
-        "general.stop_time=10s", "experimental.exchange_capacity=16384"),
+        "general.stop_time=5s", "experimental.exchange_capacity=16384"),
      2, None, "pop_tgen"),
 )
 
@@ -7948,15 +8419,16 @@ MESH_FULL = (
 # mesh: (name, example, overrides, S, the kernels besides phase_tally and
 # the schedule's); phold.yaml at 2 x 50,000 hosts audited, as phold_s2;
 # examples/tgen_10000.yaml under the model NIC and the path counters cut
-# from its 30 s stop to 5 s (its one-device graph run has 17,635 phases
+# from its 30 s stop to 3 s, past its clients' start at 2 s (its
+# one-device graph run has 17,635 phases
 # to 30 s, and a gloo phase of two ranks on one H100 80GB HBM3 at 700 W
-# costs about 4 ms: PERF.md), exchange_capacity as tgen_10000_s2's
+# costs 4-7.5 ms: PERF.md), exchange_capacity as tgen_10000_s2's
 MESH_STATE_FULL = (
     ("phold_s2_audited", "phold.yaml", MESH_FULL[0][2] + (AUDIT,), 2,
      ("pop_phase_aud", "judge_outbox", "audit_round_rank",
       "audit_conserve")),
     ("tgen_10000_nic_s2", "tgen_10000.yaml", TGEN_NIC + (
-        "general.stop_time=5s", "experimental.exchange_capacity=16384"), 2,
+        "general.stop_time=3s", "experimental.exchange_capacity=16384"), 2,
      ("pop_tgen_nic", "count_paths")),
 )
 
@@ -8000,6 +8472,42 @@ def mesh_parity_configs():
 # the mesh parity configs of the audit, the model NIC and the path
 # counters: all_to_all at S = 2, all_to_all and two_phase at S = 4
 MESH_STATE_PARITY = ("nic_phold", "audited_phold")
+
+
+# ensemble campaigns on the mesh (ROADMAP (a) item 9c): (key, what,
+# loader, the pop and judge kernels); the seed sweep at S = 2 and 4 under
+# every schedule and merge, the star's factored tables and fault
+# schedules at S = 2, and a PHOLD latency sweep whose undersized
+# exchange_capacity loses rows in each replica (card against the CPU
+# ranks: a loss changes the trace, so there is no one-device twin)
+MESH_LAT_SWEEP = ("ensemble={replicas: 3, vary: {latency_scale: "
+                  "[1.0, 1.5, 2.0]}}", "experimental.exchange_capacity=4")
+MESH_CAMPAIGNS = (
+    CAMPAIGN_PARITY[0], CAMPAIGN_PARITY[1],
+    ("phold_lat", "PARITY_YAML's PHOLD (2 x 1000 hosts, loss 0.01, 1 s) "
+     "over latency scales 1, 1.5 and 2 with exchange_capacity 4",
+     loader(PARITY_YAML, *MESH_LAT_SWEEP), ("pop_phase", "judge_outbox")))
+# the campaign at full width on the mesh: examples/tgen_10000.yaml x 8
+# seeds (CAMPAIGN_RUNS[0]) at S = 2, all_to_all, cut from its 30 s stop
+# to 5 s, exchange_capacity as tgen_10000_s2's
+MESH_CAMPAIGN_FULL = ("tgen_10000_x8_s2", "tgen_10000.yaml",
+                      CAMPAIGN_RUNS[0][2] + ("general.stop_time=5s",), 2,
+                      ("pop_tgen", "judge_outbox"))
+MESH_CAMPAIGN_PAUSE = "1500ms"
+
+
+def mesh_campaign_jobs():
+    """The mesh's campaign runs: {key: (config, what, pops, exchange)},
+    key campaign:<name>/<exchange>/<merge>/<S>."""
+    jobs = {}
+    for key, what, load, pops in MESH_CAMPAIGNS:
+        for S in (2, 4):
+            variants = (MESH_VARIANTS if key == "sweep" else
+                        (("all_to_all", "window"),) if S == 2 else ())
+            for x, m in variants:
+                jobs[f"campaign:{key}/{x}/{m}/{S}"] = (
+                    load(mesh_overrides(S, x, m)), what, pops, x)
+    return jobs
 
 
 def mesh_overrides(S, exchange, merge, extra=()):
@@ -8066,6 +8574,8 @@ def mesh_cpu_configs() -> dict:
     """{S: {key: config}} of the CPU ranks mesh_parity holds the card's
     ranks to (a CPU oracle: `start_oracles`)."""
     _, cpu, over, _, _ = mesh_parity_jobs()
+    # every campaign run, on the CPU ranks too
+    cpu = {**cpu, **{k: c[0] for k, c in mesh_campaign_jobs().items()}}
     return {2: {k: c for k, c in cpu.items() if k.endswith("/2")},
             4: {**{k: c for k, c in cpu.items() if k.endswith("/4")},
                 **over}}
@@ -8091,10 +8601,20 @@ def mesh_card_runs(torch, report) -> dict:
     sup = {"save": full_config(example, overrides + (
                "experimental.mesh_shards=2",
                f"experimental.checkpoint_save={ck}",
-               f"experimental.checkpoint_save_time={SUP_PHOLD_PAUSE}")),
+               f"experimental.checkpoint_save_time={MESH_SUP_PAUSE}")),
            "resume": full_config(example, overrides + (
                "experimental.mesh_shards=2",
                f"experimental.checkpoint_load={ck}"))}
+    camp_ck = os.path.join(work, "sweep_s2.npz")
+    camp_sup = {}
+    camp_sup["save"] = cfg_from("ensemble_seed_sweep.yaml", mesh_overrides(
+        2, "all_to_all", "window", (
+            f"experimental.checkpoint_save={camp_ck}",
+            "experimental.checkpoint_save_time=" + MESH_CAMPAIGN_PAUSE)))
+    camp_sup["resume"] = cfg_from("ensemble_seed_sweep.yaml",
+                                  mesh_overrides(2, "all_to_all", "window", (
+                                      "experimental.checkpoint_load="
+                                      + camp_ck,)))
     out = {"card": {}, "full": {}, "work": work}
     t0 = time.perf_counter()
     for S in (2, 4):
@@ -8125,6 +8645,18 @@ def mesh_card_runs(torch, report) -> dict:
         if S == 2:
             jobs += [(("supervise", k), c, False, False)
                      for k, c in sup.items()]
+        # the campaigns: parity (leaves kept), the sweep saved half way
+        # and resumed (S = 2), the full-width campaign (no heaps kept)
+        jobs += [(k, c[0], True, False) for k, c in
+                 mesh_campaign_jobs().items() if k.endswith(f"/{S}")]
+        if S == 2:
+            jobs += [(("campaign_supervise", k), c, True, False)
+                     for k, c in camp_sup.items()]
+            name, example, cover, _, _ = MESH_CAMPAIGN_FULL
+            jobs.append((("campaign_full", name), full_config(
+                example, cover + (f"experimental.mesh_shards={S}",
+                                  "experimental.exchange_capacity=16384")),
+                False, False))
         res = runner.mesh_runs(["cuda:0"] * S, [j[1] for j in jobs],
                                [j[2] for j in jobs], [j[3] for j in jobs])
         for (key, *_), r in zip(jobs, res):
@@ -8134,13 +8666,17 @@ def mesh_card_runs(torch, report) -> dict:
                 out["full"].setdefault(key[1], {})[key[0]] = r[0]
             elif isinstance(key, tuple) and key[0] == "state":
                 out.setdefault("state", {})[key[1]] = r
+            elif isinstance(key, tuple) and key[0].startswith("campaign_"):
+                out.setdefault(key[0], {})[key[1]] = r
             elif isinstance(key, tuple):
                 out.setdefault("supervise", {})[key[1]] = r[0]
             else:
                 out["card"][key] = r
     out["wall_s"] = time.perf_counter() - t0
     print(f"[mesh] the card's runs: {sum(1 for _ in out['card'])} parity "
-          f"runs, the K13 timing run, {2 * len(out['full'])} full runs, "
+          f"runs (campaigns among them), the K13 timing run, "
+          f"{2 * len(out['full'])} full runs, the full campaign, the "
+          "campaign's save and resume, "
           f"{len(out.get('state', {}))} full runs "
           f"of the audit and the model NIC and the S = 2 save and resume "
           f"in two spawns (S = 2, 4), {out['wall_s']:.1f} s", flush=True)
@@ -8165,6 +8701,8 @@ def mesh_parity(torch, report, runs):
     for S, cfgs in mesh_cpu_configs().items():
         cpu_res.update(zip(cfgs, oracle(f"mesh:{S}", ("mesh", S, list(
             cfgs.values())))))
+    # the campaigns' CPU ranks, for mesh_campaign_parity
+    runs["cpu"] = cpu_res
     singles = {key: engine_run(cfg, "cuda") for key, cfg in one.items()}
     for k, (cfg, what, pop, x) in cards.items():
         stats, leaves = card[k]
@@ -8235,6 +8773,211 @@ def mesh_parity(torch, report, runs):
           "time slices): " + ", ".join(
               f"{k} {v:.3f} device ms over {n} launches"
               for k, (n, v) in k13.items()), flush=True)
+
+
+def per_flush(ranks) -> list:
+    """Each rank's collectives a flush, by kind (mesh_stats' `calls`
+    over its `flushes`)."""
+    return [{k: n / max(1, r["flushes"]) for k, n in r["calls"].items()}
+            for r in ranks]
+
+
+def exchange_calls(ranks) -> set:
+    """The exchange's collectives a flush (all_to_all and all_gather),
+    over the ranks."""
+    return {round(c["all_to_all"] + c["all_gather"], 6)
+            for c in per_flush(ranks)}
+
+
+def campaign_record(rec: dict) -> dict:
+    """A campaign record without what differs between two runs of one
+    campaign (its wall, the admission's byte model, the batching)."""
+    rec = json.loads(json.dumps(rec, sort_keys=True, default=str))
+    for k in ("wall_s", "admission", "replica_batch"):
+        rec.pop(k, None)
+    return rec
+
+
+def one_device_campaign(load, x=()):
+    """(stats, runner) of a campaign on one card (the captured graph
+    loop), its final leaves with the heaps."""
+    from shadow_tpu_torch.ensemble.campaign import EnsembleRunner
+
+    er = EnsembleRunner(load(x) if callable(load) else load, "cuda")
+    er.keep_heaps = True
+    return er.run(), er
+
+
+def mesh_campaign_parity(torch, card, report, runs):
+    """The campaigns of `mesh_campaign_jobs` on 2 and 4 ranks of device 0
+    (in `mesh_card_runs`' spawns): every replica's per-host leaves (all
+    but occ_in), the record (each replica's checksums and the
+    aggregates), the totals and rounds equal to the one-device campaign
+    on the card; every run equal to the same ranks on the CPU in every
+    leaf (the latency sweep's undersized capacity: its
+    x_overflow per replica and sender, the campaign not ok); the
+    launches of the schedule's kernels; the exchange's collectives a
+    flush equal to the standalone parity runs' at the same S and
+    schedule (one collective carries every replica); the sweep saved
+    half way on 2 ranks and resumed equal to the uninterrupted one, its
+    checkpoint refused on 4 ranks."""
+    from shadow_tpu_torch.device import runner
+
+    card_runs, cpu = runs["card"], runs["cpu"]
+    ones = {key: one_device_campaign(load) for key, _, load, _ in
+            MESH_CAMPAIGNS if key != "phold_lat"}
+    # the exchange's collectives a flush of a schedule (two_phase: one a
+    # hop), as the standalone parity runs make them
+    want = {"all_to_all": 1, "two_phase": 2, "all_gather": 1}
+    standalone = {}
+    for k, (stats, _) in card_runs.items():
+        if not k.startswith(("campaign:", "over/", "tgen_plan/")):
+            _, x, _, S = k.split("/")
+            standalone.setdefault((x, S), set()).update(
+                exchange_calls(stats.mesh["ranks"]))
+    for (x, S), calls in standalone.items():
+        check(calls == {want[x]}, f"mesh: the standalone {x} runs at "
+              f"S={S} make {sorted(calls)} exchange collectives a flush")
+    n, losses = 0, {}
+    for k, (cfg, what, pops, x) in mesh_campaign_jobs().items():
+        stats, leaves = card_runs[k]
+        name, _, m, S = k[len("campaign:"):].split("/")
+        label = f"campaign {what}, S={S} {x}/{m}"
+        check(stats.mesh["backend"] == "gloo" and stats.mesh["shards"]
+              == int(S), f"mesh ({label}): backend {stats.mesh}")
+        mesh_launch_check(stats, label, pops, x)
+        calls = exchange_calls(stats.mesh["ranks"])
+        check(calls == {want[x]}, f"mesh ({label}): {sorted(calls)} "
+              f"exchange collectives a flush, a standalone run "
+              f"{want[x]}")
+        if name in ones:
+            one, er = ones[name]
+            H = len(er.sim.host_vertex)
+            for leaf in MESH_SHARED:
+                check(np.array_equal(leaves[leaf][:, :H],
+                                     er.final_state[leaf]),
+                      f"mesh ({label}): leaf {leaf} differs from the "
+                      "one-device campaign")
+            check(campaign_record(stats.ensemble) == campaign_record(
+                er.record), f"mesh ({label}): the record differs from "
+                  "the one-device campaign's")
+            same_run(stats, one, label, ("mesh", "one device"))
+        cstats, cleaves = cpu[k]
+        same_leaves(leaves, cleaves, label, ("card", "cpu"))
+        if name == "phold_lat":
+            check((stats.ok, stats.x_overflow, stats.events_executed)
+                  == (cstats.ok, cstats.x_overflow, cstats.events_executed),
+                  f"mesh ({label}): the totals differ card/cpu")
+        else:
+            same_run(stats, cstats, label)
+        if name == "phold_lat":
+            lost = leaves["x_overflow"].sum(1)
+            check(not stats.ok and (lost > 0).all(), f"mesh ({label}): "
+                  f"the undersized capacity lost {lost.tolist()} rows")
+            losses[label] = lost.tolist()
+        n += 1
+    # the sweep saved at MESH_CAMPAIGN_PAUSE and resumed, on 2 ranks
+    sup = runs["campaign_supervise"]
+    (saved, _), (res, rleaves) = sup["save"], sup["resume"]
+    whole = card_runs["campaign:sweep/all_to_all/window/2"][1]
+    for leaf in rleaves:
+        check(np.array_equal(rleaves[leaf], whole[leaf]), f"mesh campaign "
+              f"resume: leaf {leaf} differs from the uninterrupted one")
+    check(campaign_record(res.ensemble)["replicas"] == campaign_record(
+        card_runs["campaign:sweep/all_to_all/window/2"][0].ensemble)[
+        "replicas"], "mesh campaign resume: the replicas' checksums differ")
+    ck = os.path.join(runs["work"], "sweep_s2.npz")
+    try:
+        runner.mesh_runs(["cuda:0"] * 4, [cfg_from(
+            "ensemble_seed_sweep.yaml", mesh_overrides(4, "all_to_all",
+                                                      "window", (
+                f"experimental.checkpoint_load={ck}",)))])
+        refused = ""
+    except ValueError as e:
+        refused = str(e)
+    check("saved on 2 shard(s)" in refused and "loading on 4" in refused,
+          f"mesh campaign resume at S = 4: {refused!r}")
+    print(f"[mesh] campaigns: {n} card runs at S = 2 and 4 (gloo on device "
+          f"0), every replica equal to the one-device campaign on the "
+          f"card (leaves, records, totals, rounds); "
+          f"each equal to the same ranks on the CPU plain path, every "
+          f"leaf; exchange collectives a flush equal to "
+          f"the standalone runs' ("
+          + ", ".join(f"{x} S={S}: {sorted(v)}" for (x, S), v in
+                      sorted(standalone.items()))
+          + "); per-replica rows lost under the undersized capacity "
+          + json.dumps(losses) + f"; the sweep saved at "
+          f"{MESH_CAMPAIGN_PAUSE} on 2 ranks ({saved.wall_s:.3f} s) and "
+          f"resumed ({res.wall_s:.3f} s) equal to the uninterrupted one; "
+          f"at S = 4 refused: {refused.split(' — ')[0]}; card {card}",
+          flush=True)
+
+
+def mesh_campaign_full(torch, card, report, spawned):
+    """MESH_CAMPAIGN_FULL on 2 ranks of device 0 beside the same campaign
+    on one card (the captured graph loop, in this call): every replica's
+    per-host leaves but the heaps and occ_in equal, the record equal,
+    each rank's peak within FOOTPRINT_TOLERANCE of its admission
+    estimate, the exchange's collectives a flush equal to the standalone
+    tgen_10000_s2's (one all_to_all carries the 8 replicas); the wall,
+    phases, rounds, the collectives' and the staging's seconds and the
+    bytes a flush of each rank."""
+    from shadow_tpu_torch.device import capacity
+
+    name, example, overrides, S, pops = MESH_CAMPAIGN_FULL
+    stats, leaves = spawned["campaign_full"][name]
+    one, er = one_device_campaign(full_config(example, overrides))
+    what = f"{name} ({S} ranks, gloo on device 0)"
+    check(stats.ok and stats.x_overflow == 0 and stats.overflow == 0,
+          f"mesh full {what}: overflow {stats.overflow}, x_overflow "
+          f"{stats.x_overflow}")
+    H = len(er.sim.host_vertex)
+    for leaf in MESH_SHARED:
+        if leaf in leaves:
+            check(np.array_equal(leaves[leaf][:, :H], er.final_state[leaf]),
+                  f"mesh full {what}: leaf {leaf} differs from the "
+                  "one-device campaign")
+    check(campaign_record(stats.ensemble) == campaign_record(er.record),
+          f"mesh full {what}: the record differs from the one-device "
+          "campaign's")
+    same_run(stats, one, what, ("mesh", "one device"))
+    mesh_launch_check(stats, what, pops, "all_to_all")
+    ranks = stats.mesh["ranks"]
+    peaks = [(r["peak_bytes"], r["estimate_bytes"]) for r in ranks]
+    for r, (peak, est) in zip(ranks, peaks):
+        check(est / capacity.FOOTPRINT_TOLERANCE <= peak
+              <= est * capacity.FOOTPRINT_TOLERANCE,
+              f"mesh full {what}: rank {r['rank']} peak {peak} B not "
+              f"within {capacity.FOOTPRINT_TOLERANCE}x of {est} B")
+    alone = spawned["full"].get("tgen_10000_s2", {}).get("full")
+    calls = exchange_calls(ranks)
+    if alone is not None:
+        check(calls == exchange_calls(alone.mesh["ranks"]),
+              f"mesh full {what}: {sorted(calls)} exchange collectives a "
+              f"flush, tgen_10000_s2 "
+              f"{sorted(exchange_calls(alone.mesh['ranks']))}")
+    split = [{"rank": r["rank"], "flushes": r["flushes"],
+              "calls_per_flush": c, "collective_s": r["collective_s"],
+              "stage_s": r["stage_s"],
+              "bytes_per_flush": r["moved_bytes"] / max(1, r["flushes"])}
+             for r, c in zip(ranks, per_flush(ranks))]
+    report.setdefault("_mesh_full", {})[name] = {
+        "launches": stats.mesh["launches"], "wall_s": stats.wall_s,
+        "one_device_wall_s": one.wall_s, "split": split, "peaks": peaks}
+    print(f"[mesh:{name}] {stats.ensemble['workload']['replicas']} "
+          f"replicas x {H} hosts on {S} ranks: wall {stats.wall_s:.3f} s "
+          f"against the one-device campaign {one.wall_s:.3f} s (graph "
+          f"loop, same call); {stats.events_executed} events, rounds "
+          f"{stats.rounds} (the longest replica), {stats.phases} phases; "
+          f"every replica equal to one device (leaves but the heaps and "
+          f"occ_in, the record); CAP {stats.mesh['cap']}; exchange "
+          f"collectives a flush {sorted(calls)}, tgen_10000_s2 "
+          + (f"{sorted(exchange_calls(alone.mesh['ranks']))}"
+             if alone is not None else "not run")
+          + "; peak/estimate per rank "
+          + ", ".join(f"{p / e:.3f}" for p, e in peaks)
+          + "; per rank " + json.dumps(split) + f"; card {card}",
+          flush=True)
 
 
 def mesh_full(torch, card, report, spawned):
@@ -8467,7 +9210,9 @@ def mesh_phase(torch, card, report):
         flush.result()
     try:
         mesh_parity(torch, report, spawned)
+        mesh_campaign_parity(torch, card, report, spawned)
         mesh_full(torch, card, report, spawned)
+        mesh_campaign_full(torch, card, report, spawned)
         mesh_state_full(torch, card, report, spawned)
         mesh_supervise(torch, card, report, spawned)
     finally:

@@ -11,7 +11,9 @@ with the judge on the card (or on the CPU with --device cpu) for
 faults, mixed model families), the CPU engine alone for `serial`, which
 touches no device; and prints the reference CLI's "simulation finished"
 summary line. A config with an `ensemble:` block runs its campaign
-(ensemble/campaign.py) and logs the reference's campaign line too. A
+(ensemble/campaign.py; with `experimental.mesh_shards` on that many
+ranks, each running the campaign's EnsembleRunner on its hosts) and
+logs the reference's campaign line too, once. A
 run the preemption drain stopped (SIGTERM or SIGINT under
 `checkpoint_save` with segment boundaries, device/supervise.py) exits
 75 after saving its resume checkpoint; rerun with
@@ -42,8 +44,15 @@ def simulate(config_path: str, overrides=(), device="cuda",
     if cfg.general.stop_time <= 0:
         raise ValueError("general.stop_time must be > 0")
     if cfg.ensemble is not None:
+        from shadow_tpu_torch.core.build import check_slice
         from shadow_tpu_torch.ensemble.campaign import EnsembleRunner
 
+        if cfg.experimental.mesh_shards > 1:
+            # refused here as on the ranks (a host fault, item 13's
+            # knobs), before any rank starts
+            check_slice(cfg)
+            return runner.run_mesh(cfg, runner.mesh_devices(
+                cfg.experimental.mesh_shards, device))
         return EnsembleRunner(cfg, device=device, kernels=kernels).run()
     return runner.run(cfg, device=device, kernels=kernels)
 

@@ -85,7 +85,6 @@ HOST_FAULTS_HYBRID = ("host_crash/host_restart faults are manager-side "
 ITEM_10 = "queue (a) item 10"
 ITEM_13 = "queue (a) item 13"
 ITEM_14 = "queue (a) item 14"
-ITEM_9C = "queue (a) item 9c (campaigns on the mesh)"
 
 
 def check_slice(cfg: ConfigOptions) -> None:
@@ -128,11 +127,12 @@ def check_slice(cfg: ConfigOptions) -> None:
 
 
 def check_mesh(cfg: ConfigOptions) -> None:
-    """What a mesh of more than one rank does not run yet: campaigns
-    (the replica axis of the mesh's kernels) and the retry, failover and
-    chaos half of the robustness layer. The state audit, the model NIC,
-    the path counters and the hybrid fall-back of a config with host
-    faults or no device twin run there."""
+    """What a mesh of more than one rank does not run yet: the retry,
+    failover and chaos half of the robustness layer, a campaign's as a
+    standalone run's. Ensemble campaigns, the state audit, the model
+    NIC, the path counters and the hybrid fall-back of a config with
+    host faults or no device twin run there (a campaign's host faults
+    and Tor seed sweep are refused as on one device, `check_campaign`)."""
     xp = cfg.experimental
     where = f"on a mesh (experimental.mesh_shards: {xp.mesh_shards})"
     for key, off in (("dispatch_retries", 0), ("failover", "abort"),
@@ -141,8 +141,6 @@ def check_mesh(cfg: ConfigOptions) -> None:
             _refuse(f"experimental.{key} {where}",
                     f"{ITEM_13} (dispatch retry, failover and chaos on "
                     "a mesh, with its shrink)")
-    if cfg.ensemble is not None:
-        _refuse(f"an ensemble campaign {where}", ITEM_9C)
 
 
 def check_supervision(cfg: ConfigOptions) -> None:

@@ -125,8 +125,10 @@ __device__ __forceinline__ bool ticket_last(unsigned* tk, int nb,
 // where the region lacks one), its block width and the stride between
 // its blocks; a region of one block (an outbox, its rows the flat index
 // h*OB + column) has stride 0. Row i < n_a lies in the first region,
-// row n_a + i in the second. The first region's channels of replica r
-// start rs * r elements on (an ensemble campaign's outbox).
+// row n_a + i in the second. Replica r's channels of the first region
+// start rs * r elements on, of the second rs_b * r (an ensemble
+// campaign's outbox, or a mesh rank's wire buffers [nb, R, C, bw], whose
+// replica lies inside each peer's block).
 enum Chan : int { CH_T = 0, CH_K, CH_M, CH_S, CH_V, CH_KEY, CH_N };
 
 struct Rows {
@@ -134,7 +136,7 @@ struct Rows {
     long long n_a, bw_a, bs_a;
     const int64_t* b[CH_N];
     long long bw_b, bs_b;
-    long long rs;
+    long long rs, rs_b;
 
     // rows are read-only while a kernel reads them: through the
     // read-only data cache (__ldg), as the __restrict__ pointers of the
@@ -149,7 +151,7 @@ struct Rows {
         }
         i -= n_a;
         const int64_t blk = i / bw_b;
-        return __ldg(b[c] + blk * bs_b + (i - blk * bw_b));
+        return __ldg(b[c] + r * rs_b + blk * bs_b + (i - blk * bw_b));
     }
 };
 

@@ -54,7 +54,9 @@
 // Under the window loop the launch returns at once where the control
 // block's RUN word is 0 (common.cuh `Ctl`). The replica axis of an
 // ensemble campaign is blockIdx.y: replica r's hosts, arrivals and
-// flags, from that replica's outbox and route.
+// flags, from that replica's outbox and route; on a mesh rank both of its
+// blocks, the rows it received ([nb, R, C, bw] wire buffers) and its own
+// segment of its outbox's route over H_pad.
 //
 // Bound on the H100: bytes, at these inputs: head and the counts of
 // every host; of a changed host its five heap fields read and written
@@ -86,6 +88,7 @@ struct Block {
     const int64_t* starts;
     const int64_t* counts;
     int64_t F;      // perm entries a replica
+    int64_t SC;     // a replica's stride in starts and counts
 };
 
 // a warp's slice of shared memory: the row's W = E + nblk*IN columns
@@ -145,7 +148,7 @@ __device__ __forceinline__ bool fresh_state(const int32_t* flags,
 template <bool TWO>
 __global__ void __launch_bounds__(256)
 merge_scan_kernel(int H, const int32_t* head, const int64_t* counts_a,
-                  const int64_t* counts_b, int32_t* work,
+                  const int64_t* counts_b, int64_t sc_b, int32_t* work,
                   const int64_t* ctl, const int32_t* flags) {
     const int64_t r = blockIdx.y;
     if (phase_off(replica_ctl(ctl, r))) return;
@@ -155,7 +158,7 @@ merge_scan_kernel(int H, const int32_t* head, const int64_t* counts_a,
     if (h < H)
         todo = verify || head[r * H + h] != 0 ||
                __ldg(counts_a + r * H + h) > 0 ||
-               (TWO && __ldg(counts_b + h) > 0);
+               (TWO && __ldg(counts_b + r * sc_b + h) > 0);
     const unsigned bal = __ballot_sync(0xffffffffu, todo);
     if (!bal) return;
     const int lane = threadIdx.x & 31;
@@ -201,7 +204,7 @@ merge_heaps_kernel(int H, int E, int IN, int occ_sum, int64_t* ht,
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     const Slice s = carve(smem + warp * slice_bytes(E, W), E, W);
     const int64_t* __restrict__ perm_a = A.perm + r * A.F;
-    const int64_t* __restrict__ perm_b = B.perm;
+    const int64_t* __restrict__ perm_b = B.perm + r * B.F;
     bool abnormal = false;
     for (int i = blockIdx.x * WARPS + warp; i < listed;
          i += gridDim.x * WARPS) {
@@ -211,9 +214,9 @@ merge_heaps_kernel(int H, int E, int IN, int occ_sum, int64_t* ht,
         x.hd_raw = head[h];
         x.hd = x.hd_raw < 0 ? 0 : (x.hd_raw > E ? E : x.hd_raw);
         const int64_t ca = __ldg(A.counts + rh + h);
-        const int64_t cb = TWO ? __ldg(B.counts + h) : 0;
+        const int64_t cb = TWO ? __ldg(B.counts + r * B.SC + h) : 0;
         x.s0_a = __ldg(A.starts + rh + h);
-        x.s0_b = TWO ? __ldg(B.starts + h) : 0;
+        x.s0_b = TWO ? __ldg(B.starts + r * B.SC + h) : 0;
         x.nin_a = ca < IN ? (int)ca : IN;
         x.nin_b = cb < IN ? (int)cb : IN;
         const int n_r = x.nin_a + x.nin_b;
@@ -254,11 +257,11 @@ merge_heaps_kernel(int H, int E, int IN, int occ_sum, int64_t* ht,
                 fv = A.rows.at(CH_V, r, i);
             } else {
                 const int64_t i = __ldg(perm_b + x.s0_b + a - x.nin_a);
-                ft = B.rows.at(CH_T, 0, i);
-                fk = B.rows.at(CH_K, 0, i);
-                fm = B.rows.at(CH_M, 0, i);
-                fs = B.rows.at(CH_S, 0, i);
-                fv = B.rows.at(CH_V, 0, i);
+                ft = B.rows.at(CH_T, r, i);
+                fk = B.rows.at(CH_K, r, i);
+                fm = B.rows.at(CH_M, r, i);
+                fs = B.rows.at(CH_S, r, i);
+                fv = B.rows.at(CH_V, r, i);
             }
             s.t[col] = ft;
             s.k[col] = fk;
@@ -431,8 +434,9 @@ struct Launch {
 
 }  // namespace
 
-// rows_b null: one arrival block. A second block runs a standalone
-// state (R = 1). flags: null, or [2, R] int32 (fresh, and a heap past
+// rows_b null: one arrival block. The second block's starts and counts
+// of replica r lie sc_b words on (a mesh rank's own segment of its
+// outbox's route over H_pad: sc_b = H_pad). flags: null, or [2, R] int32 (fresh, and a heap past
 // INF seen, zero between launches). work: [R, 2 + H] int32, zero when
 // allocated (the list's length and the blocks done, zero between
 // launches, then the list).
@@ -442,27 +446,27 @@ extern "C" int shadow_merge_heaps(
     const int64_t* perm_a, const int64_t* starts_a,
     const int64_t* counts_a, long long F_a, const Rows* rows_b,
     const int64_t* perm_b, const int64_t* starts_b,
-    const int64_t* counts_b, long long F_b, int occ_sum,
+    const int64_t* counts_b, long long F_b, long long sc_b, int occ_sum,
     int32_t* overflow, int32_t* occ_in, int32_t* occ_heap,
     const int64_t* ctl, int32_t* flags, int32_t* work, void* stream) {
     const int nblk = rows_b == nullptr ? 1 : 2;
     if (R < 1 || R > 65535 || rows_a == nullptr || E < 1 || IN < 0 ||
-        (nblk == 2 && R != 1))
+        (nblk == 2 && R > 1 && (rows_b->rs == 0 || sc_b < H)))
         return (int)cudaErrorInvalidValue;
     const int W = E + nblk * IN;
     const size_t smem = WARPS * slice_bytes(E, W);
     if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
     const Block<Rows> B{nblk == 2 ? *rows_b : *rows_a, perm_b, starts_b,
-                        counts_b, (int64_t)F_b};
+                        counts_b, (int64_t)F_b, (int64_t)sc_b};
     cudaStream_t st = (cudaStream_t)stream;
     if (H <= 0) return (int)cudaGetLastError();
     const dim3 scan_grid((unsigned)((H + 255) / 256), R);
     if (nblk == 2)
         merge_scan_kernel<true><<<scan_grid, 256, 0, st>>>(
-            H, head, counts_a, counts_b, work, ctl, flags);
+            H, head, counts_a, counts_b, (int64_t)sc_b, work, ctl, flags);
     else
         merge_scan_kernel<false><<<scan_grid, 256, 0, st>>>(
-            H, head, counts_a, counts_b, work, ctl, flags);
+            H, head, counts_a, counts_b, (int64_t)sc_b, work, ctl, flags);
     // enough warps to spread the listed hosts, whatever their count
     const int blocks = (H + WARPS - 1) / WARPS;
     const unsigned grid = (unsigned)(blocks < MAX_GRID ? blocks : MAX_GRID);
@@ -486,7 +490,8 @@ extern "C" int shadow_merge_heaps(
     if (nblk == 1 && is_outbox(*rows_a, F_a))
         return launch(Launch<OutboxRows>{Block<OutboxRows>{
             OutboxRows(*rows_a), perm_a, starts_a, counts_a,
-            (int64_t)F_a}});
+            (int64_t)F_a, (int64_t)H}});
     return launch(Launch<Rows>{Block<Rows>{*rows_a, perm_a, starts_a,
-                                           counts_a, (int64_t)F_a}});
+                                           counts_a, (int64_t)F_a,
+                                           (int64_t)H}});
 }

@@ -38,7 +38,18 @@
 // writes. A buffer's word starts at its capacity (every slot unknown);
 // a launch given no words fills every slot and keeps none.
 //
-// Design: one launch a half, grid (blocks, buffers [+ 1]). Every block
+// An ensemble campaign on the mesh (the reference's vmapped
+// `_run_ens_shard`) packs every replica at once: the buffers are [g, R,
+// 6, CAP] and [ng-1, R, 6, CAP2] (each peer's block holds every
+// replica's rows, so that one collective a hop moves them all), a (buffer,
+// replica) pair q = b * R + r keeps its own fill word and tickets
+// (`filled` [g, R] / [ng-1, R]), and replica r (blockIdx.z) reads its own
+// outbox rows or arrivals, route, x_overflow [R, H_loc], occ_x [R, 1, S]
+// and `hist` [R, H_pad]. A replica whose control block's RUN word is 0
+// returns at once: its buffers and fill words stay as its last pack left
+// them, which is what its next pack reads. A standalone rank is R = 1.
+//
+// Design: one launch a half, grid (blocks, buffers [+ 1], replicas). Every block
 // of buffer b computes b's segments (a thread a group) and their offsets
 // (a warp's scan) into shared memory and walks the slots [0, max(n_raw,
 // n_prev)): a row's group by a binary search over the offsets, the
@@ -84,13 +95,13 @@ __device__ __forceinline__ void segment(const int64_t* starts,
 
 // the wire row of row x (t, k, m, s, v, key), or the fills
 __device__ __forceinline__ void put(int64_t* out, int64_t cap, int64_t j,
-                                    const Rows& rows, int64_t x, bool ok,
-                                    int64_t key) {
-    out[j] = ok ? rows.at(CH_T, 0, x) : INF;
-    out[cap + j] = ok ? rows.at(CH_K, 0, x) : IMAX;
-    out[2 * cap + j] = ok ? rows.at(CH_M, 0, x) : 0;
-    out[3 * cap + j] = ok ? rows.at(CH_S, 0, x) : 0;
-    out[4 * cap + j] = ok ? rows.at(CH_V, 0, x) : 0;
+                                    const Rows& rows, int64_t r, int64_t x,
+                                    bool ok, int64_t key) {
+    out[j] = ok ? rows.at(CH_T, r, x) : INF;
+    out[cap + j] = ok ? rows.at(CH_K, r, x) : IMAX;
+    out[2 * cap + j] = ok ? rows.at(CH_M, r, x) : 0;
+    out[3 * cap + j] = ok ? rows.at(CH_S, r, x) : 0;
+    out[4 * cap + j] = ok ? rows.at(CH_V, r, x) : 0;
     out[5 * cap + j] = ok ? key : IMAX;
 }
 
@@ -170,11 +181,20 @@ pack1_kernel(int S, int shard, int H_loc, int OB, int G, int NG, int CAP,
              const int64_t* __restrict__ starts,
              const int64_t* __restrict__ counts, int64_t* send,
              int32_t* x_overflow, int32_t* occ_x, int32_t* filled,
-             unsigned* tickets) {
+             unsigned* tickets, const int64_t* ctl) {
     const int b = blockIdx.y;
+    const int64_t r = blockIdx.z;
+    if (phase_off(replica_ctl(ctl, r))) return;
+    const int64_t q = (int64_t)b * gridDim.z + r;
+    const int64_t D = (int64_t)S * H_loc;
+    perm += r * H_loc * OB;
+    starts += r * D;
+    counts += r * D;
+    x_overflow += r * H_loc;
+    occ_x += r * S;
     __shared__ Groups gr;
     __shared__ int64_t prev;
-    FillWord fw(filled, tickets, b);
+    FillWord fw(filled, tickets, q);
     if (threadIdx.x < NG) {
         const int a = threadIdx.x;
         const int d = a * G + b;
@@ -193,7 +213,7 @@ pack1_kernel(int S, int shard, int H_loc, int OB, int G, int NG, int CAP,
     const int64_t hi = raw > prev ? raw : prev;
     const int64_t span = (int64_t)S * H_loc * OB;
     const int64_t base = (int64_t)shard * H_loc * OB;
-    int64_t* out = send + (int64_t)b * 6 * CAP;
+    int64_t* out = send + q * 6 * CAP;
     for (int64_t j = (int64_t)blockIdx.x * THREADS + threadIdx.x; j < hi;
          j += (int64_t)gridDim.x * THREADS) {
         const bool ok = j < raw;
@@ -207,20 +227,28 @@ pack1_kernel(int S, int shard, int H_loc, int OB, int G, int NG, int CAP,
             continue;
         }
         const int64_t key =
-            ok ? (int64_t)hi32(rows.at(CH_M, 0, x)) * span + base + x : IMAX;
-        put(out, CAP, j, rows, x, ok, key);
+            ok ? (int64_t)hi32(rows.at(CH_M, r, x)) * span + base + x : IMAX;
+        put(out, CAP, j, rows, r, x, ok, key);
     }
     if (threadIdx.x == 0) fw.close(raw < CAP ? raw : CAP);
 }
 
 // phase 2, buffer i = blockIdx.y < NG - 1; the row past them counts the
-// loss of the shards of no buffer
+// loss of the shards of no buffer. F: the arrivals' rows a replica.
 __global__ void __launch_bounds__(THREADS)
 pack2_kernel(int S, int shard, int H_loc, int OB, int G, int NG, int CAP2,
-             Rows rows, const int64_t* __restrict__ perm,
+             int64_t F, Rows rows, const int64_t* __restrict__ perm,
              const int64_t* __restrict__ starts,
              const int64_t* __restrict__ counts, int64_t* send,
-             int32_t* hist, int32_t* filled, unsigned* tickets) {
+             int32_t* hist, int32_t* filled, unsigned* tickets,
+             const int64_t* ctl) {
+    const int64_t r = blockIdx.z;
+    if (phase_off(replica_ctl(ctl, r))) return;
+    const int64_t D = (int64_t)S * H_loc;
+    perm += r * F;
+    starts += r * D;
+    counts += r * D;
+    hist += r * D;
     const int my_g = shard / G, my_b = shard % G;
     const int64_t span = (int64_t)S * H_loc * OB;
     const int64_t stride = (int64_t)gridDim.x * THREADS;
@@ -231,7 +259,7 @@ pack2_kernel(int S, int shard, int H_loc, int OB, int G, int NG, int CAP2,
             int64_t st, n;
             segment(starts, counts, S, H_loc, d, &st, &n);
             for (int64_t j = CAP2 + first; j < n; j += stride) {
-                const int64_t key = rows.at(CH_KEY, 0, perm[st + j]);
+                const int64_t key = rows.at(CH_KEY, r, perm[st + j]);
                 atomicAdd(&hist[(key % span) / OB], 1);
             }
         }
@@ -239,8 +267,9 @@ pack2_kernel(int S, int shard, int H_loc, int OB, int G, int NG, int CAP2,
     }
     const int i = blockIdx.y;
     const int a = i + (i >= my_g ? 1 : 0);
+    const int64_t q = (int64_t)i * gridDim.z + r;
     __shared__ int64_t seg[2], prev;
-    FillWord fw(filled, tickets, i);
+    FillWord fw(filled, tickets, q);
     if (threadIdx.x == 0) {
         segment(starts, counts, S, H_loc, a * G + my_b, &seg[0], &seg[1]);
         prev = fw.open(CAP2);
@@ -248,15 +277,15 @@ pack2_kernel(int S, int shard, int H_loc, int OB, int G, int NG, int CAP2,
     __syncthreads();
     const int64_t st = seg[0], raw = seg[1];
     const int64_t hi = raw > prev ? raw : prev;
-    int64_t* out = send + (int64_t)i * 6 * CAP2;
+    int64_t* out = send + q * 6 * CAP2;
     for (int64_t j = first; j < hi; j += stride) {
         const bool ok = j < raw;
         const int64_t x = ok ? perm[st + j] : 0;
-        const int64_t key = ok ? rows.at(CH_KEY, 0, x) : IMAX;
+        const int64_t key = ok ? rows.at(CH_KEY, r, x) : IMAX;
         if (j >= CAP2)
             atomicAdd(&hist[(key % span) / OB], 1);
         else
-            put(out, CAP2, j, rows, x, ok, key);
+            put(out, CAP2, j, rows, r, x, ok, key);
     }
     if (threadIdx.x == 0) fw.close(raw < CAP2 ? raw : CAP2);
 }
@@ -295,7 +324,7 @@ __global__ void phase1_kernel(int S, int shard, int H_loc, int OB, int G,
         const int64_t x = ok ? perm[seg_st[a] + (j - off[a])] : 0;
         const int64_t key =
             ok ? (int64_t)hi32(rows.at(CH_M, 0, x)) * span + base + x : IMAX;
-        put(out, CAP, j, rows, x, ok, key);
+        put(out, CAP, j, rows, 0, x, ok, key);
     }
 }
 
@@ -342,7 +371,7 @@ __global__ void phase2_kernel(int S, int shard, int H_loc, int G, int CAP2,
          j < CAP2; j += (int64_t)gridDim.x * blockDim.x) {
         const bool ok = j < n;
         const int64_t x = ok ? perm[st + j] : 0;
-        put(out, CAP2, j, rows, x, ok, ok ? rows.at(CH_KEY, 0, x) : IMAX);
+        put(out, CAP2, j, rows, 0, x, ok, ok ? rows.at(CH_KEY, 0, x) : IMAX);
     }
 }
 
@@ -395,12 +424,15 @@ int blocks(int nbuf, int cap) {
 }  // namespace
 
 // The unsigned tickets (zero when allocated) of a half's launch over
-// `nbuf` kept buffers of capacity `cap`.
+// `nbuf` kept buffers (a campaign's (buffer, replica) pairs) of capacity
+// `cap`.
 extern "C" int shadow_pack_two_phase_tickets(int nbuf, int cap) {
     return nbuf * ticket_words(blocks(nbuf, cap));
 }
 
-extern "C" int shadow_pack_two_phase(long long F, int S, int shard,
+// R replicas (1 standalone; the design before takes R = 1 only); ctl
+// null or [R, CTL_N].
+extern "C" int shadow_pack_two_phase(int R, long long F, int S, int shard,
                                      int H_loc, int OB, int G, int NG,
                                      int CAP, const Rows* rows,
                                      const int64_t* perm,
@@ -408,9 +440,11 @@ extern "C" int shadow_pack_two_phase(long long F, int S, int shard,
                                      const int64_t* counts, int64_t* send,
                                      int32_t* x_overflow, int32_t* occ_x,
                                      int32_t* filled, unsigned* tickets,
-                                     int before, void* stream) {
+                                     int before, const int64_t* ctl,
+                                     void* stream) {
     if (rows == nullptr || !groups_ok(S, shard, G, NG) || CAP < 1 ||
-        F != (long long)H_loc * OB ||
+        R < 1 || R > 65535 || (before && R != 1) ||
+        (R > 1 && rows->rs == 0) || F != (long long)H_loc * OB ||
         (filled != nullptr && tickets == nullptr))
         return (int)cudaErrorInvalidValue;
     cudaStream_t st = (cudaStream_t)stream;
@@ -424,22 +458,23 @@ extern "C" int shadow_pack_two_phase(long long F, int S, int shard,
             occ_x);
         return (int)cudaGetLastError();
     }
-    pack1_kernel<<<dim3(blocks(G, CAP), G), THREADS, 0, st>>>(
+    pack1_kernel<<<dim3(blocks(G * R, CAP), G, R), THREADS, 0, st>>>(
         S, shard, H_loc, OB, G, NG, CAP, *rows, perm, starts, counts, send,
-        x_overflow, occ_x, filled, tickets);
+        x_overflow, occ_x, filled, tickets, ctl);
     return (int)cudaGetLastError();
 }
 
-extern "C" int shadow_pack_two_phase2(long long F, int S, int shard,
-                                      int H_loc, int OB, int G, int NG,
-                                      int CAP2, const Rows* rows,
+extern "C" int shadow_pack_two_phase2(int R, long long F, int S,
+                                      int shard, int H_loc, int OB, int G,
+                                      int NG, int CAP2, const Rows* rows,
                                       const int64_t* perm,
                                       const int64_t* starts,
                                       const int64_t* counts, int64_t* send,
                                       int32_t* hist, int32_t* filled,
                                       unsigned* tickets, int before,
-                                      void* stream) {
+                                      const int64_t* ctl, void* stream) {
     if (rows == nullptr || !groups_ok(S, shard, G, NG) || CAP2 < 1 ||
+        R < 1 || R > 65535 || (before && R != 1) ||
         rows->a[CH_KEY] == nullptr || F < 0 ||
         (filled != nullptr && tickets == nullptr))
         return (int)cudaErrorInvalidValue;
@@ -454,8 +489,9 @@ extern "C" int shadow_pack_two_phase2(long long F, int S, int shard,
             S, shard, H_loc, OB, CAP2, *rows, perm, starts, counts, hist);
         return (int)cudaGetLastError();
     }
-    pack2_kernel<<<dim3(blocks(NG - 1, CAP2), NG), THREADS, 0, st>>>(
-        S, shard, H_loc, OB, G, NG, CAP2, *rows, perm, starts, counts, send,
-        hist, filled, tickets);
+    pack2_kernel<<<dim3(blocks((NG - 1) * R, CAP2), NG, R), THREADS, 0,
+                   st>>>(S, shard, H_loc, OB, G, NG, CAP2, (int64_t)F, *rows,
+                         perm, starts, counts, send, hist, filled, tickets,
+                         ctl);
     return (int)cudaGetLastError();
 }

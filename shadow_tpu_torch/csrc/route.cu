@@ -64,9 +64,11 @@
 // scratch as they were.
 //
 // The replica axis of an ensemble campaign is blockIdx.y of every
-// kernel: replica r's rows from r * F, its perm, starts and counts from
-// r * F and r * ND, its scratch `words` int64 on; perm holds flat
-// indices within the replica's outbox.
+// kernel: replica r's rows through the view's replica strides (an
+// outbox's r * F; on a mesh rank the wire buffers [nb, R, C, bw] of
+// every replica, both regions of two_phase's `recv1 | recv2`), its perm,
+// starts and counts from r * F and r * ND, its scratch `words` int64 on;
+// perm holds row indices within the replica's rows.
 //
 // Bound on the H100: bytes (t of every row, m of live rows, perm of
 // live rows written, starts and counts written); the passes' traffic
@@ -574,7 +576,7 @@ extern "C" int shadow_route(int R, long long F, int ND, int lo, int keyed,
                             const int64_t* ctl, void* stream) {
     if (R < 1 || R > 65535 || rows == nullptr || F < 0 ||
         F >= (1ll << 30) || words != work_words(F, keyed != 0) ||
-        (R > 1 && rows->n_a != F) ||
+        (R > 1 && (rows->rs == 0 || (rows->n_a != F && rows->rs_b == 0))) ||
         (keyed && rows->a[CH_KEY] == nullptr))
         return (int)cudaErrorInvalidValue;
     if (ND <= 0) return (int)cudaGetLastError();

@@ -635,7 +635,9 @@ def footprint(n_hosts: int, params: PhaseParams, world: dict,
     `campaign_world_arrays` for a campaign, whose R the model counts);
     `replicas` prices a batch of that many of a campaign's replicas.
     On a mesh `n_hosts` is a rank's H_loc, the world holds the H_pad
-    host columns, and the exchange's buffers (`mesh_nbytes`) count.
+    host columns, and the exchange's buffers (`mesh_nbytes`) count, a
+    campaign's R times (every replica's packs ride each buffer, and
+    each replica has its own routes).
     `copies` counts the state's copies (2 where a validated snapshot is
     kept)."""
     ept = np.asarray(world["epoch_times"])
@@ -665,7 +667,7 @@ def footprint(n_hosts: int, params: PhaseParams, world: dict,
                     shared += n
     world_bytes = shared + stacked * R // R_world
     hier = isinstance(world["lat"], tuple)
-    exchange = 0 if mesh is None else mesh_nbytes(mesh, OB)
+    exchange = 0 if mesh is None else R * mesh_nbytes(mesh, OB)
     per_device = R * (state * copies + outbox + route + loop) + \
         world_bytes + exchange
     return {

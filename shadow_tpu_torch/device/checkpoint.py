@@ -173,11 +173,13 @@ def host_state(engine, state) -> Optional[dict]:
     """A state's leaves as numpy arrays in the reference's global
     layout: on a mesh the ranks' rows gathered to rank 0 (every rank
     must call; None on the others), shard-major as the reference's
-    arrays are (runner.gather_state)."""
+    arrays are (runner.gather_state; a campaign's along its host axis,
+    [R, H_pad, ...])."""
     leaves = {k: (v.cpu().numpy() if hasattr(v, "cpu") else np.asarray(v))
               for k, v in state.items()}
     if engine.mesh is not None:
-        return engine.mesh.gather_leaves(leaves)
+        return engine.mesh.gather_leaves(
+            leaves, axis=0 if engine.replicas is None else 1)
     return leaves
 
 
@@ -356,7 +358,8 @@ def load_state(engine, template: dict, path: str, final_stop: int = 0):
     if mp is not None:
         from shadow_tpu_torch.device.runner import shard_state
 
-        leaves = shard_state(leaves, mp)
+        leaves = shard_state(leaves, mp,
+                             axis=0 if engine.replicas is None else 1)
     if "aud_tx" in template and "aud_tx" not in leaves:
         # the conservation ledger reseeded from the saved counters, so
         # that rows produced == rows popped + live + counted lost holds

@@ -92,8 +92,11 @@ world holds every host's vertex and columns. Each phase's flush
 exchanges rows with the other ranks (`_exchange`), every rank runs
 every phase (a rank with nothing to pop still joins the exchange, the
 reference's collective `go`), and the Python loop's minimum head time
-is the mesh's all_reduce MIN (`_axis_min`); `run` takes the Python
-loop and `run_slots` refuses.
+is the mesh's all_reduce MIN (`_axis_min`; a campaign's [R] minima in
+one collective); `run` takes the Python loop and `run_slots` refuses. A
+campaign runs on a mesh as on one device, each rank holding its H_loc
+hosts of every replica (the reference's `_run_ens_shard`), every flush's
+collectives carrying all R replicas (`_exchange`).
 
 Entry points run on the card unless the caller passes device="cpu";
 without a CUDA device they raise rather than fall back.
@@ -358,7 +361,9 @@ def campaign_world_arrays(n_hosts: int, app, host_vertex: np.ndarray,
     standalone run's, its tables and epoch times stacked on a leading
     [R] axis (the factored tables' cl, the same in every replica, kept
     once), with the replicas' [R, 2] seed keys; the other leaves are
-    the standalone ones, shared."""
+    the standalone ones, shared. On a mesh `n_hosts` is H_pad and the
+    host columns come padded (core/build.py `pad_hosts`), as a
+    standalone rank's."""
     ens = ensemble
     per = []
     for r in range(ens.R):
@@ -464,10 +469,6 @@ class DeviceEngine:
                                 bw_down_bits)
         n_world = config.n_hosts
         if mesh is not None:
-            if ensemble is not None:
-                raise ValueError("a campaign does not run on a mesh yet "
-                                 "(ROADMAP.md queue (a) item 9c, "
-                                 "campaigns on the mesh)")
             from shadow_tpu_torch.core.build import pad_hosts
 
             mp = make_mesh_params(config, self.params, mesh.size, mesh.rank)
@@ -488,7 +489,7 @@ class DeviceEngine:
                                   config.count_paths, self.params.seed)
         else:
             arrays = campaign_world_arrays(
-                config.n_hosts, app, host_vertex, ensemble, bw_up_bits,
+                n_world, app, host_vertex, ensemble, bw_up_bits,
                 bw_down_bits, config.model_bandwidth, config.count_paths)
         self.n_vertices = n_vertices(arrays)
         self.world = upload_world(arrays, self.device)
@@ -510,6 +511,9 @@ class DeviceEngine:
         # many, and their share of the mesh's `collective_s`
         self.audit_sums = 0
         self.audit_sum_s = 0.0
+        # the flushes this rank exchanged (`_exchange`), which the
+        # mesh's collectives a flush are counted against
+        self.mesh_flushes = 0
         # K3's fresh words (kernels.merge_flags), on the card
         self._fresh: Optional[torch.Tensor] = None
         # the outbox words (kernels.outbox_word): set here and by `_arm`,
@@ -813,23 +817,37 @@ class DeviceEngine:
         all_gather: the
         outbox of every rank, gathered, K5 windows it to this rank's
         hosts in position order, which is the reference's (key, index)
-        order, and K3 merges one block."""
+        order, and K3 merges one block.
+
+        A campaign (the reference's `_run_ens_shard`, which vmaps this
+        program over the replicas inside the shard_map) ships every
+        replica in the same collectives: the buffers carry the replica
+        inside each peer's block ([S, R, C, CAP], [g, R, 6, CAP], [ng-1,
+        R, 6, CAP2]; all_gather's [S, 5, R, H, OB] outboxes), so a flush
+        makes the collectives of a standalone rank whatever R; every
+        kernel reads replica r's rows through its strides, a replica
+        whose control block does not run the phase packs, routes and
+        merges nothing (its slots go along unread), and the phase-2
+        loss is summed per replica ([R, H_pad])."""
         mp, k, p, mesh = self.mesh_params, self.kernels, self.params, \
             self.mesh
         H, OB, lo = mp.H_loc, p.OB, mp.g0
+        self.mesh_flushes += 1
+        lead = () if self.replicas is None else (self.replicas,)
         if mp.exchange == "all_gather":
-            block = self._buf[3]        # the outbox's [5, H, OB] block
+            block = self._buf[3]    # the outbox's [5, (R,) H, OB] block
             got = self._wire("gathered", (mp.S, *block.shape))
             mesh.all_gather(got, block)
-            rows = Rows(got.view(mp.S, len(OB_FIELDS), H * OB))
+            flat = got.view(mp.S, len(OB_FIELDS), *lead, H * OB)
+            rows = Rows(flat.transpose(1, 2) if lead else flat)
             arr = k.route_rows(rows, lo, H, False, ctl=ctl)
             k.merge_heaps(state, rows, *arr, p, ctl, fresh=self._fresh)
             return
         perm, starts, counts = k.route_rows(Rows(ob), 0, mp.H_pad, False,
                                             out=route, ctl=ctl)
-        own = (ob, perm, starts[lo:lo + H], counts[lo:lo + H])
+        own = (ob, perm, starts[..., lo:lo + H], counts[..., lo:lo + H])
         if mp.exchange == "all_to_all":
-            send = self._wire("send", (mp.S, mp.channels, mp.CAP))
+            send = self._wire("send", (mp.S, *lead, mp.channels, mp.CAP))
             recv = self._wire("recv", send.shape)
             k.pack_remote(state, ob, perm, starts, counts, mp, send, ctl)
             mesh.all_to_all(send, recv)
@@ -837,7 +855,7 @@ class DeviceEngine:
         else:
             g, ng = mp.G, mp.NG
             my_g, my_b = divmod(mp.shard, g)
-            send1 = self._wire("send1", (g, len(XCH_FIELDS), mp.CAP))
+            send1 = self._wire("send1", (g, *lead, len(XCH_FIELDS), mp.CAP))
             recv1 = self._wire("recv1", send1.shape)
             k.pack_two_phase(state, ob, perm, starts, counts, mp, send1,
                              ctl, self._fills("send1", send1))
@@ -845,15 +863,17 @@ class DeviceEngine:
             mesh.all_to_all(send1, recv1, group, group)
             rows1 = Rows(recv1)
             arr1 = k.route_rows(rows1, 0, mp.H_pad, True, ctl=ctl)
-            send2 = self._wire("send2", (ng - 1, len(XCH_FIELDS), mp.CAP2))
+            send2 = self._wire("send2", (ng - 1, *lead, len(XCH_FIELDS),
+                                         mp.CAP2))
             recv2 = self._wire("recv2", send2.shape)
-            hist = self._wire("lost2", (mp.H_pad,), torch.int32)
+            hist = self._wire("lost2", (*lead, mp.H_pad), torch.int32)
             k.pack_two_phase2(rows1, *arr1, mp, OB, send2, hist, ctl,
                               self._fills("send2", send2))
             # phase-2 loss lands on its sender's shard (engine.py:
-            # 1820-1838): the mesh's summed histogram, this rank's slice
+            # 1820-1838), in its own replica: the mesh's summed
+            # histogram, this rank's slice
             if int(mesh.all_sum(hist.sum().view(1))[0]) > 0:
-                lost = mesh.all_sum(hist)[lo:lo + H]
+                lost = mesh.all_sum(hist)[..., lo:lo + H]
                 state["x_overflow"] += lost.to(self.device,
                                                torch.int32)
             peers = [a * g + my_b for a in range(ng) if a != my_g]
@@ -871,7 +891,7 @@ class DeviceEngine:
     def _head_min(self, state: dict) -> torch.Tensor:
         """head_min_plain, reduced over the mesh where there is one."""
         nt = head_min_plain(state)
-        return nt if self.mesh is None else self.mesh.all_min(nt.view(1))
+        return nt if self.mesh is None else self.mesh.all_min(nt.view(-1))
 
     def window(self, state: dict, win_end: int, nxt: Optional[int] = None
                ) -> int:
@@ -1107,12 +1127,15 @@ class DeviceEngine:
 def mesh_stats(engine: DeviceEngine) -> dict:
     """A mesh rank's exchange: its place and schedule, the backend, the
     bytes it sent, the host seconds of its staging copies and
-    collectives, and under the audit its sums of the ranks' balances
-    and their seconds (a part of `collective_s`)."""
+    collectives, its flushes and its collectives by kind (`calls`, since
+    the mesh's counters were last reset: a run's), and under the audit
+    its sums of the ranks' balances and their seconds (a part of
+    `collective_s`)."""
     mp, mesh = engine.mesh_params, engine.mesh
     return {"shards": mp.S, "rank": mp.shard, "backend": mesh.backend,
             "exchange": mp.exchange, "cap": mp.CAP, "cap2": mp.CAP2,
             "groups": [mp.G, mp.NG], "moved_bytes": mesh.moved_bytes,
             "stage_s": mesh.stage_s, "collective_s": mesh.collective_s,
+            "flushes": engine.mesh_flushes, "calls": dict(mesh.calls),
             "audit_sums": engine.audit_sums,
             "audit_sum_s": engine.audit_sum_s}

@@ -389,12 +389,12 @@ def outbox_word(device, replicas: int = 1) -> torch.Tensor:
 
 
 def fill_words(send: torch.Tensor) -> torch.Tensor:
-    """The fill words of K13's kept send buffers `send` [n, 6, cap]: [n]
-    int32, each the slots its buffer's last pack filled with rows; the
-    capacity when allocated (every slot unknown: the first pack writes
-    every slot)."""
-    return torch.full((send.shape[0],), send.shape[-1], dtype=torch.int32,
-                      device=send.device)
+    """The fill words of K13's kept send buffers `send` [n, 6, cap] (a
+    campaign's [n, R, 6, cap]): [n] (or [n, R]) int32, each the slots
+    its buffer's last pack filled with rows; the capacity when allocated
+    (every slot unknown: the first pack writes every slot)."""
+    return torch.full(tuple(send.shape[:-2]), send.shape[-1],
+                      dtype=torch.int32, device=send.device)
 
 
 def _pop_ran(outside: Optional[torch.Tensor], win_end, R: Optional[int]):
@@ -1093,15 +1093,28 @@ def merge_heaps_plain(state: dict, ob: dict, perm: torch.Tensor,
     arrival block (a mesh rank's self-shard rows, engine.py:1955-2061),
     windowed to IN on its own and sorted after the first: the sort is
     [heap | first | second]; occ_in takes the larger of the two blocks'
-    counts, or with `occ_sum` their sum (the global merge's)."""
+    counts, or with `occ_sum` their sum (the global merge's). Either
+    block's rows may be a `Rows` (wire buffers; a campaign's [nb, R, C,
+    bw]); a campaign's second block takes replica r's row of its
+    route's outputs, as the first."""
+    def replica(x, r):
+        return x.at(r) if isinstance(x, Rows) else at_replica(x, r)
+
     if n_replicas(state) is not None:
         for r in range(n_replicas(state)):
-            merge_heaps_plain(at_replica(state, r), at_replica(ob, r),
-                              perm[r], starts[r], counts[r], p,
-                              _ctl_at(ctl, r))
+            merge_heaps_plain(
+                at_replica(state, r), replica(ob, r), perm[r], starts[r],
+                counts[r], p, _ctl_at(ctl, r),
+                None if second is None else (
+                    replica(second[0], r), *(x[r] for x in second[1:])),
+                occ_sum)
         return
     if _phase_off(ctl):
         return
+    if isinstance(ob, Rows):
+        ob = ob.fields(OB_FIELDS)
+    if second is not None and isinstance(second[0], Rows):
+        second = (second[0].fields(OB_FIELDS), *second[1:])
     E, IN = p.E, p.IN
     dev = perm.device
     live = torch.arange(E, device=dev)[None, :] >= state["head"][:, None]
@@ -1160,8 +1173,10 @@ class Rows:
     each either an outbox (a dict of [(R,)H,OB] field tensors, its rows
     the flat index h*OB + column) or a wire buffer [nb, C, bw] int64 of
     nb blocks of bw rows, channel c of block b at [b, c] (XCH_FIELDS
-    order, C = 5 without keys). Row i of the second region is row
-    n_a + i of the whole."""
+    order, C = 5 without keys); a campaign's wire buffer is [nb, R, C,
+    bw], replica r's rows at [:, r] (any strides but a unit last one: the
+    gathered outboxes of all_gather are a permuted view). Row i of the
+    second region is row n_a + i of the whole."""
 
     def __init__(self, *regions):
         if not 1 <= len(regions) <= 2:
@@ -1172,7 +1187,26 @@ class Rows:
     def _n(region) -> int:
         if isinstance(region, dict):
             return int(region["t"].shape[-2] * region["t"].shape[-1])
-        return int(region.shape[0] * region.shape[2])
+        return int(region.shape[0] * region.shape[-1])
+
+    @staticmethod
+    def _replicas(region) -> Optional[int]:
+        if isinstance(region, dict):
+            return ob_replicas(region)
+        return int(region.shape[1]) if region.dim() == 4 else None
+
+    @property
+    def replicas(self) -> Optional[int]:
+        """R of a campaign's rows, None for a standalone run's."""
+        reps = {self._replicas(r) for r in self.regions}
+        if len(reps) != 1:
+            raise ValueError("Rows: regions of different replica counts")
+        return reps.pop()
+
+    def at(self, r: int) -> "Rows":
+        """Replica r's rows, in the standalone layout (views)."""
+        return Rows(*(at_replica(x, r) if isinstance(x, dict) else x[:, r]
+                      for x in self.regions))
 
     @property
     def n(self) -> int:
@@ -1210,7 +1244,12 @@ def route_rows_plain(rows: Rows, lo: int, nd: int, keyed: bool = False):
     [nd]) int64 as route_plain gives them: within a destination by row
     position or, `keyed`, by the row's key channel. perm's first
     counts.sum() entries are the grouped rows' indices; the rest are
-    0."""
+    0. A campaign's rows give each replica's, stacked ([R, n], [R, nd],
+    [R, nd])."""
+    if rows.replicas is not None:
+        return tuple(torch.stack(x) for x in zip(*(
+            route_rows_plain(rows.at(r), lo, nd, keyed)
+            for r in range(rows.replicas))))
     f = rows.fields(("t", "m", "key") if keyed else ("t", "m"))
     t, m = f["t"], f["m"]
     dev = t.device
@@ -1255,15 +1294,36 @@ def _flat_keys(ob_rows: dict, mesh: "MeshParams", OB: int) -> dict:
     return {**ob_rows, "key": key}
 
 
+def _replica_packs(state: dict, ob: dict, ctl, run) -> bool:
+    """A campaign's pack (its outbox [R, H, OB]), each replica that runs
+    in turn: run(r, replica r's state) where the control block `ctl`
+    ([R, CTL_N] or None) runs replica r; False for a standalone outbox
+    (the caller packs it)."""
+    R = ob_replicas(ob)
+    if R is None:
+        return False
+    for r in range(R):
+        if not _phase_off(_ctl_at(ctl, r)):
+            run(r, at_replica(state, r))
+    return True
+
+
 def pack_remote_plain(state: dict, ob: dict, perm: torch.Tensor,
                       starts: torch.Tensor, counts: torch.Tensor,
-                      mesh: MeshParams, send: torch.Tensor) -> None:
+                      mesh: MeshParams, send: torch.Tensor,
+                      ctl: Optional[torch.Tensor] = None) -> None:
     """K12 (`_shard_segments`, `_within_shard_rank`, `_lost_to_local`,
     `_seg_take`, `_pack_remote`): from the outbox's route over the H_pad
     destinations, write shard s's first CAP rows into send[s] ([S, C,
     CAP], XCH_FIELDS order), the fills past them; the self shard ships
     nothing. Raise occ_x [1, S] to each remote segment's count and add
-    every remote row ranked CAP or later to its sender's x_overflow."""
+    every remote row ranked CAP or later to its sender's x_overflow.
+    A campaign's replica r packs into send[:, r] of [S, R, C, CAP] from
+    its own outbox and route, where its control block runs."""
+    if _replica_packs(state, ob, ctl, lambda r, st: pack_remote_plain(
+            st, at_replica(ob, r), perm[r], starts[r], counts[r], mesh,
+            send[:, r])):
+        return
     S, C, CAP = send.shape
     OB = ob["t"].shape[-1]
     rows = _flat_keys({f: ob[f].reshape(-1) for f in OB_FIELDS}, mesh, OB)
@@ -1294,14 +1354,20 @@ def _rank_lists(mesh: MeshParams, cnt: torch.Tensor):
 
 def pack_two_phase_plain(state: dict, ob: dict, perm: torch.Tensor,
                          starts: torch.Tensor, counts: torch.Tensor,
-                         mesh: MeshParams, send: torch.Tensor) -> None:
+                         mesh: MeshParams, send: torch.Tensor,
+                         ctl: Optional[torch.Tensor] = None) -> None:
     """K13's first half (`_pack_two_phase` to the phase-1 ppermutes,
     `_tp_mask`): send[b] ([g, 6, CAP]) holds the rows destined the
     in-group peer of rank b, (a, b) for this rank's group a (the
     reference's buffer of peer offset (b - my_b) % g): the rows of each
     destination shard (a', b), a' = 0..ng-1 in turn, cut at CAP. Rows
     whose place in their buffer is CAP or later count into their
-    sender's x_overflow; occ_x as K12's."""
+    sender's x_overflow; occ_x as K12's. A campaign's replica r packs
+    into send[:, r] of [g, R, 6, CAP], as K12's."""
+    if _replica_packs(state, ob, ctl, lambda r, st: pack_two_phase_plain(
+            st, at_replica(ob, r), perm[r], starts[r], counts[r], mesh,
+            send[:, r])):
+        return
     g, ng = mesh.G, mesh.NG
     OB = ob["t"].shape[-1]
     S, CAP = mesh.S, send.shape[-1]
@@ -1332,7 +1398,8 @@ def pack_two_phase_plain(state: dict, ob: dict, perm: torch.Tensor,
 def pack_two_phase2_plain(rows: Rows, perm: torch.Tensor,
                           starts: torch.Tensor, counts: torch.Tensor,
                           mesh: MeshParams, OB: int, send: torch.Tensor,
-                          hist: torch.Tensor) -> None:
+                          hist: torch.Tensor,
+                          ctl: Optional[torch.Tensor] = None) -> None:
     """K13's second half (`_pack_two_phase` from the phase-1 arrivals'
     key sort to the phase-2 ppermutes): from the keyed route of the
     phase-1 arrivals over the H_pad destinations, send ([ng-1, 6, CAP2])
@@ -1341,7 +1408,16 @@ def pack_two_phase2_plain(rows: Rows, perm: torch.Tensor,
     buffer of group offset (a' - my_g) % ng); every row of another
     shard ranked CAP2 or later adds 1 at its global source, (key %
     SPAN) // OB, to hist [H_pad] int32 (the mesh sums it and each rank
-    adds its own hosts' counts to x_overflow)."""
+    adds its own hosts' counts to x_overflow). A campaign's replica r
+    packs its arrivals into send[:, r] of [ng-1, R, 6, CAP2] and counts
+    into hist[r] of [R, H_pad], where its control block runs."""
+    if rows.replicas is not None:
+        for r in range(rows.replicas):
+            if not _phase_off(_ctl_at(ctl, r)):
+                pack_two_phase2_plain(rows.at(r), perm[r], starts[r],
+                                      counts[r], mesh, OB, send[:, r],
+                                      hist[r])
+        return
     g, ng, S = mesh.G, mesh.NG, mesh.S
     CAP2 = send.shape[-1]
     f = rows.fields()
@@ -1769,46 +1845,53 @@ class RowsArgs(ctypes.Structure):
     """csrc/common.cuh `Rows`: the channels of one or two regions of
     rows, each a base per channel (XCH_FIELDS order; null where a region
     lacks one), its block width and the stride between its blocks (0:
-    one block, an outbox), the first region's row count, and the
-    replica stride of the first region's channels."""
+    one block, an outbox), the first region's row count, and each
+    region's replica stride (0: one replica)."""
     _fields_ = [("a", ctypes.c_void_p * 6), ("n_a", ctypes.c_longlong),
                 ("bw_a", ctypes.c_longlong), ("bs_a", ctypes.c_longlong),
                 ("b", ctypes.c_void_p * 6), ("bw_b", ctypes.c_longlong),
-                ("bs_b", ctypes.c_longlong), ("rs", ctypes.c_longlong)]
+                ("bs_b", ctypes.c_longlong), ("rs", ctypes.c_longlong),
+                ("rs_b", ctypes.c_longlong)]
 
 
 def rows_args(rows: Rows, need=XCH_FIELDS[:5]):
     """(RowsArgs, [(tensor, dtype)] to check) of a kernel launch over
-    `rows`; raises where a region lacks a channel in `need`."""
+    `rows`; raises where a region lacks a channel in `need`. A wire
+    region's strides are its tensor's own ([nb, (R,) C, bw], unit
+    stride along a block)."""
     ptrs, dims, checks = [], [], []
     for r in rows.regions:
         if isinstance(r, dict):
             t = r["t"]
             base = [_ptr(r[f]) if f in r else None for f in XCH_FIELDS]
             n = int(t.shape[-2] * t.shape[-1])
-            dims.append((n, n, 0))
+            dims.append((n, n, 0, n if t.dim() == 3 else 0))
             checks += [(r[f], torch.int64) for f in XCH_FIELDS if f in r]
         else:
-            nb, C, bw = r.shape
-            step = bw * r.element_size()
-            base = [r.data_ptr() + c * step if c < C else None
+            w = r if r.dim() == 4 else r.unsqueeze(1)
+            nb, R, C, bw = w.shape
+            if w.stride(-1) != 1:
+                raise ValueError("rows: a wire region needs a unit stride "
+                                 "along its blocks")
+            step = w.stride(2) * w.element_size()
+            base = [w.data_ptr() + c * step if c < C else None
                     for c in range(len(XCH_FIELDS))]
-            dims.append((nb * bw, bw, C * bw))
-            checks.append((r, torch.int64))
+            dims.append((nb * bw, bw, w.stride(0),
+                         w.stride(1) if r.dim() == 4 else 0))
+            # dtype and device of the buffer (a view of it may not be
+            # contiguous: all_gather's permuted outboxes)
+            checks.append((r if r.is_contiguous() else w[0, 0, 0],
+                           torch.int64))
         missing = [f for f, b in zip(XCH_FIELDS, base)
                    if b is None and f in need]
         if missing:
             raise ValueError(f"rows lack channel(s) {missing}")
         ptrs.append(base)
-    rs = 0
-    r0 = rows.regions[0]
-    if isinstance(r0, dict) and r0["t"].dim() == 3:
-        rs = dims[0][0]
     vp = ctypes.c_void_p * 6
     b = ptrs[1] if len(ptrs) > 1 else [None] * 6
-    bdim = dims[1] if len(dims) > 1 else (0, 1, 0)
+    bdim = dims[1] if len(dims) > 1 else (0, 1, 0, 0)
     return RowsArgs(vp(*ptrs[0]), dims[0][0], dims[0][1], dims[0][2],
-                    vp(*b), bdim[1], bdim[2], rs), checks
+                    vp(*b), bdim[1], bdim[2], dims[0][3], bdim[3]), checks
 
 
 _P = ctypes.c_void_p
@@ -1859,23 +1942,24 @@ _SIGNATURES = {
     "shadow_route": [_I, _L, _I, _I, _I, _RW] + [_P] * 3 + [_P, _L] +
                     [_P] * 2,
     # R, H, E, IN, ht hk hm hv hw head, rows perm starts counts (F),
-    # second rows perm starts counts (F2; null rows: one block),
-    # occ_sum, overflow occ_in occ_heap, ctl, flags, work, stream
+    # second rows perm starts counts (F2; null rows: one block) and
+    # their replica stride, occ_sum, overflow occ_in occ_heap, ctl,
+    # flags, work, stream
     "shadow_merge_heaps": [_I] * 4 + [_P] * 6 + [_RW] + [_P] * 3 + [_L] +
-                          [_RW] + [_P] * 3 + [_L] + [_I] + [_P] * 3 +
+                          [_RW] + [_P] * 3 + [_L, _L] + [_I] + [_P] * 3 +
                           [_P] * 4,
-    # F, S, shard, H_loc, OB, CAP, C, rows, perm starts counts, send,
-    # x_overflow occ_x, stream
-    "shadow_pack_remote": [_L] + [_I] * 6 + [_RW] + [_P] * 3 + [_P] * 3 +
-                          [_P],
-    # F, S, shard, H_loc, OB, G, NG, CAP, rows, perm starts counts, send,
-    # x_overflow occ_x, filled tickets, before, stream
-    "shadow_pack_two_phase": [_L] + [_I] * 7 + [_RW] + [_P] * 3 +
-                             [_P] * 3 + [_P] * 2 + [_I, _P],
-    # F, S, shard, H_loc, OB, G, NG, CAP2, rows, perm starts counts,
-    # send, hist, filled tickets, before, stream
-    "shadow_pack_two_phase2": [_L] + [_I] * 7 + [_RW] + [_P] * 3 +
-                              [_P] * 2 + [_P] * 2 + [_I, _P],
+    # R, F, S, shard, H_loc, OB, CAP, C, rows, perm starts counts, send,
+    # x_overflow occ_x, ctl, stream
+    "shadow_pack_remote": [_I, _L] + [_I] * 6 + [_RW] + [_P] * 3 +
+                          [_P] * 3 + [_P, _P],
+    # R, F, S, shard, H_loc, OB, G, NG, CAP, rows, perm starts counts,
+    # send, x_overflow occ_x, filled tickets, before, ctl, stream
+    "shadow_pack_two_phase": [_I, _L] + [_I] * 7 + [_RW] + [_P] * 3 +
+                             [_P] * 3 + [_P] * 2 + [_I, _P, _P],
+    # R, F, S, shard, H_loc, OB, G, NG, CAP2, rows, perm starts counts,
+    # send, hist, filled tickets, before, ctl, stream
+    "shadow_pack_two_phase2": [_I, _L] + [_I] * 7 + [_RW] + [_P] * 3 +
+                              [_P] * 2 + [_P] * 2 + [_I, _P, _P],
     # R, H, OB, ob t, pops, occ_ob occ_trips occ_phases, aud_tx, ctl,
     # ob_word, partial tickets, every_row, stream
     "shadow_phase_tally": [_I] * 3 + [_P] * 7 + [_P] * 3 + [_I, _P],
@@ -2363,6 +2447,18 @@ class Kernels:
                 if isinstance(rows.regions[0], dict) and lo == 0
                 else "route_window")
         if rows.device.type != "cuda":
+            R = rows.replicas
+            if R is not None:
+                # a campaign: each replica that runs, in turn
+                if out is None:
+                    out = tuple(torch.zeros((R, m), dtype=torch.int64,
+                                            device=rows.device)
+                                for m in (rows.n, nd, nd))
+                for r in range(R):
+                    self.route_rows(rows.at(r), lo, nd, keyed,
+                                    tuple(o[r] for o in out),
+                                    _ctl_at(ctl, r))
+                return out
             if _phase_off(ctl):
                 return out
             res = route_rows_plain(rows, lo, nd, keyed)
@@ -2375,10 +2471,9 @@ class Kernels:
 
     def _route_launch(self, name: str, rows: Rows, lo: int, nd: int,
                       keyed: bool, out, ctl):
-        """One K5 launch over `rows` (a campaign's outbox: each
+        """One K5 launch over `rows` (a campaign's rows: each
         replica's)."""
-        r0 = rows.regions[0]
-        R = (ob_replicas(r0) if isinstance(r0, dict) else None)
+        R = rows.replicas
         dev = rows.device
         lead = () if R is None else (R,)
         F = rows.n
@@ -2428,28 +2523,35 @@ class Kernels:
             return x if isinstance(x, Rows) else Rows(x)
 
         if not perm.is_cuda:
-            def fields(x):
-                return x.fields(OB_FIELDS) if isinstance(x, Rows) else x
-
-            return merge_heaps_plain(
-                state, fields(ob), perm, starts, counts, p, ctl,
-                None if second is None else (fields(second[0]),
-                                             *second[1:]), occ_sum)
+            return merge_heaps_plain(state, ob, perm, starts, counts, p,
+                                     ctl, second, occ_sum)
         R = n_replicas(state)
         H = state["head"].shape[-1]
         heap = [state[f] for f in HEAP_FIELDS] + [state["head"]]
         occ = [state["overflow"], state["occ_in"], state["occ_heap"]]
         blocks, args, checks = [], [], []
-        for blk in [(ob, perm, starts, counts)] + \
-                ([second] if second is not None else []):
-            a, chk = rows_args(as_rows(blk[0]))
-            args.append(a)
-            seg = list(blk[1:])
-            checks += chk + [(t, torch.int64) for t in seg]
-            blocks.append((ctypes.byref(a), *map(_ptr, seg),
-                           seg[0].shape[-1]))
+        a, chk = rows_args(as_rows(ob))
+        args.append(a)
+        checks += chk + [(t, torch.int64) for t in (perm, starts, counts)]
+        blocks.append((ctypes.byref(a), *map(_ptr, (perm, starts, counts)),
+                       perm.shape[-1]))
         if second is None:
-            blocks.append((None, None, None, None, 0))
+            blocks.append((None, None, None, None, 0, 0))
+        else:
+            # a mesh rank's own rows: a campaign's starts and counts are
+            # each replica's [H] slice of its outbox route's [R, H_pad]
+            # rows, a row's stride apart
+            a, chk = rows_args(as_rows(second[0]))
+            args.append(a)
+            seg = second[1:]
+            if any(t.stride(-1) != 1 for t in seg):
+                raise ValueError("merge_heaps: the second block's route "
+                                 "needs a unit stride along a row")
+            checks += chk + [(t[0] if t.dim() == 2 else t, torch.int64)
+                             for t in seg]
+            blocks.append((ctypes.byref(a), *map(_ptr, seg),
+                           seg[0].shape[-1], seg[1].stride(0)
+                           if seg[1].dim() == 2 else H))
         c, ctl_checks = _ctl_args(ctl, R)
         if fresh is not None and fresh.shape != (2, R or 1):
             raise ValueError(f"merge_heaps: fresh words [2, {R or 1}], "
@@ -2475,15 +2577,18 @@ class Kernels:
                     mesh: MeshParams, send: torch.Tensor,
                     ctl: Optional[torch.Tensor] = None) -> None:
         """K12 (pack_remote_plain on the CPU): the [S, C, CAP] send
-        buffer of the all_to_all, x_overflow and occ_x."""
+        buffer of the all_to_all (a campaign's [S, R, C, CAP]: each
+        peer's block holds every replica's packs), x_overflow and
+        occ_x."""
         if not send.is_cuda:
-            if not _phase_off(ctl):
+            if ob_replicas(ob) is not None or not _phase_off(ctl):
                 pack_remote_plain(state, ob, perm, starts, counts, mesh,
-                                  send)
+                                  send, ctl)
             return
-        S, C, CAP = send.shape
+        C, CAP = send.shape[-2:]
         self._pack_launch("pack_remote", "shadow_pack_remote", state, ob,
-                          perm, starts, counts, mesh, send, (), CAP, C)
+                          perm, starts, counts, mesh, send, (), CAP, C,
+                          ctl=ctl)
 
     def pack_two_phase(self, state: dict, ob: dict, perm: torch.Tensor,
                        starts: torch.Tensor, counts: torch.Tensor,
@@ -2491,38 +2596,47 @@ class Kernels:
                        ctl: Optional[torch.Tensor] = None,
                        filled: Optional[torch.Tensor] = None) -> None:
         """K13's phase 1 (pack_two_phase_plain on the CPU): the [g, 6,
-        CAP] buffers by destination rank, x_overflow and occ_x. `filled`
-        ([g] int32, `fill_words`): the buffers are kept between phases
-        and each word holds the slots the buffer's last pack filled
-        with rows; the kernel writes this pack's rows and the fills of
-        the slots the last one filled and this one does not, and keeps
-        the words. Without it every slot is written. The plain version
-        writes every slot: both leave the same bytes."""
+        CAP] buffers by destination rank (a campaign's [g, R, 6, CAP]),
+        x_overflow and occ_x. `filled` ([g] int32, a campaign's [g, R],
+        `fill_words`): the buffers are kept between phases and each word
+        holds the slots the buffer's last pack filled with rows; the
+        kernel writes this pack's rows and the fills of the slots the
+        last one filled and this one does not, and keeps the words.
+        Without it every slot is written. The plain version writes every
+        slot: both leave the same bytes."""
         if not send.is_cuda:
-            if not _phase_off(ctl):
+            if ob_replicas(ob) is not None or not _phase_off(ctl):
                 pack_two_phase_plain(state, ob, perm, starts, counts, mesh,
-                                     send)
+                                     send, ctl)
             return
         self._pack_launch("pack_two_phase", "shadow_pack_two_phase",
                           state, ob, perm, starts, counts, mesh, send,
-                          (mesh.G, mesh.NG), send.shape[-1],
-                          post=self._fill_args(send, filled))
+                          (mesh.G, mesh.NG), send.shape[-1], ctl=ctl,
+                          post=self._fill_args("pack_two_phase", send,
+                                               filled))
 
-    def _fill_args(self, send: torch.Tensor,
+    def _fill_args(self, name: str, send: torch.Tensor,
                    filled: Optional[torch.Tensor]) -> tuple:
         """(trailing arguments, tensors to check) of a K13 half's launch
-        over the kept buffers `send` [n, 6, cap] with their fill words
-        (or none). The design before writes every slot and leaves the
-        words at the capacity, which every later pack may trust."""
-        nbuf, cap = send.shape[0], send.shape[-1]
+        over the kept buffers `send` [n, (R,) 6, cap] with their fill
+        words (or none). The design before writes every slot and leaves
+        the words at the capacity, which every later pack may trust; it
+        packs one replica, and refuses a campaign's buffers."""
+        lead, cap = tuple(send.shape[:-2]), send.shape[-1]
+        if self.designs_before and len(lead) > 1:
+            raise ValueError(f"{name}: the design before "
+                             "(Kernels.designs_before) packs one replica; "
+                             f"a campaign's buffers {tuple(send.shape)} "
+                             "need the kept-buffer design")
         if filled is None:
             return (None, None, int(self.designs_before)), []
-        if filled.shape != (nbuf,):
-            raise ValueError(f"pack_two_phase: fill words [{nbuf}], not "
+        if tuple(filled.shape) != lead:
+            raise ValueError(f"{name}: fill words {list(lead)}, not "
                              f"{tuple(filled.shape)}")
         if self.designs_before:
             filled.fill_(cap)
             return (None, None, 1), []
+        nbuf = int(np.prod(lead))
         tickets = self._scratch_of(
             "pack_tickets",
             self.library().shadow_pack_two_phase_tickets(nbuf, cap),
@@ -2531,23 +2645,31 @@ class Kernels:
                 [(filled, torch.int32), (tickets, torch.int32)])
 
     def _pack_launch(self, name, c_name, state, ob, perm, starts, counts,
-                     mesh, send, groups, cap, *tail, post=((), [])) -> None:
-        """K12 or K13's phase 1 over this rank's outbox; `post`: the
-        trailing arguments and their tensors to check."""
+                     mesh, send, groups, cap, *tail, ctl=None,
+                     post=((), [])) -> None:
+        """K12 or K13's phase 1 over this rank's outbox (a campaign's
+        every replica); `post`: K13's trailing arguments and their
+        tensors to check (K12 takes none)."""
         rows = Rows(ob)
+        R = rows.replicas
         args, checks = rows_args(rows)
         seg = [perm, starts, counts]
         out = [state["x_overflow"], state["occ_x"]]
         if starts.shape[-1] != mesh.H_pad or perm.shape[-1] != rows.n:
             raise ValueError(f"{name}: need the route over the H_pad "
                              "destinations")
+        if (R is not None and send.shape[1] != R) or \
+                out[0].dim() != (1 if R is None else 2):
+            raise ValueError(f"{name}: outbox, state and send buffer of "
+                             f"{R or 1} replica(s)")
+        c, ctl_checks = _ctl_args(ctl, R)
         self._launch(
             name, c_name,
             checks + [(t, torch.int64) for t in seg + [send]]
-            + [(t, torch.int32) for t in out] + post[1],
-            rows.n, mesh.S, mesh.shard, mesh.H_loc, ob["t"].shape[-1],
-            *groups, cap, *tail, ctypes.byref(args), *map(_ptr, seg),
-            _ptr(send), *map(_ptr, out), *post[0])
+            + [(t, torch.int32) for t in out] + post[1] + ctl_checks,
+            R or 1, rows.n, mesh.S, mesh.shard, mesh.H_loc,
+            ob["t"].shape[-1], *groups, cap, *tail, ctypes.byref(args),
+            *map(_ptr, seg), _ptr(send), *map(_ptr, out), *post[0], c)
 
     def pack_two_phase2(self, rows: Rows, perm: torch.Tensor,
                         starts: torch.Tensor, counts: torch.Tensor,
@@ -2556,26 +2678,31 @@ class Kernels:
                         ctl: Optional[torch.Tensor] = None,
                         filled: Optional[torch.Tensor] = None) -> None:
         """K13's phase 2 (pack_two_phase2_plain on the CPU): the [ng-1,
-        6, CAP2] buffers by destination group from the keyed route of
-        the phase-1 arrivals, and `hist` [H_pad] int32, zeroed first,
-        of the rows lost there by global source. `filled` ([ng-1]
-        int32): the kept buffers' fill words, as `pack_two_phase`'s."""
+        6, CAP2] buffers by destination group (a campaign's [ng-1, R, 6,
+        CAP2]) from the keyed route of the phase-1 arrivals, and `hist`
+        [H_pad] int32 (a campaign's [R, H_pad]), zeroed first, of the
+        rows lost there by global source. `filled` ([ng-1] int32, a
+        campaign's [ng-1, R]): the kept buffers' fill words, as
+        `pack_two_phase`'s."""
         hist.zero_()
+        R = rows.replicas
         if not send.is_cuda:
-            if not _phase_off(ctl):
+            if R is not None or not _phase_off(ctl):
                 pack_two_phase2_plain(rows, perm, starts, counts, mesh, OB,
-                                      send, hist)
+                                      send, hist, ctl)
             return
         args, checks = rows_args(rows, XCH_FIELDS)
         seg = [perm, starts, counts]
-        post, post_checks = self._fill_args(send, filled)
+        post, post_checks = self._fill_args("pack_two_phase2", send,
+                                            filled)
+        c, ctl_checks = _ctl_args(ctl, R)
         self._launch(
             "pack_two_phase2", "shadow_pack_two_phase2",
             checks + [(t, torch.int64) for t in seg + [send]]
-            + [(hist, torch.int32)] + post_checks,
-            rows.n, mesh.S, mesh.shard, mesh.H_loc, OB, mesh.G, mesh.NG,
-            send.shape[-1], ctypes.byref(args), *map(_ptr, seg),
-            _ptr(send), _ptr(hist), *post)
+            + [(hist, torch.int32)] + post_checks + ctl_checks,
+            R or 1, rows.n, mesh.S, mesh.shard, mesh.H_loc, OB, mesh.G,
+            mesh.NG, send.shape[-1], ctypes.byref(args), *map(_ptr, seg),
+            _ptr(send), _ptr(hist), *post, c)
 
     def phase_tally(self, state: dict, ob: dict, pops: torch.Tensor,
                     p: PhaseParams, ctl: Optional[torch.Tensor] = None,

@@ -67,7 +67,9 @@ class Mesh:
     device and the backend, with the collectives the engine needs.
     `moved_bytes` counts the bytes this rank sent to other ranks;
     `stage_s` and `collective_s` the host-clock seconds of the staging
-    copies (to the host, stream synchronised) and of the collectives."""
+    copies (to the host, stream synchronised) and of the collectives;
+    `calls` the collectives by kind (all_to_all, all_gather,
+    all_reduce)."""
 
     def __init__(self, rank: int, size: int, device, backend: str):
         self.rank, self.size = int(rank), int(size)
@@ -76,6 +78,8 @@ class Mesh:
         self.moved_bytes = 0
         self.stage_s = 0.0
         self.collective_s = 0.0
+        self.calls = dict.fromkeys(("all_to_all", "all_gather",
+                                    "all_reduce"), 0)
         self._pinned = {}
 
     @property
@@ -134,6 +138,7 @@ class Mesh:
         t0 = time.perf_counter()
         dist.all_to_all_single(dst.view(-1), src.view(-1), outs, ins)
         self.collective_s += time.perf_counter() - t0
+        self.calls["all_to_all"] += 1
         if self.staged:
             self._from_host(recv, dst)
 
@@ -150,6 +155,7 @@ class Mesh:
             dist.all_gather_into_tensor
         gather(dst.view(-1), src.reshape(-1))
         self.collective_s += time.perf_counter() - t0
+        self.calls["all_gather"] += 1
         if self.staged:
             self._from_host(out, dst)
 
@@ -162,6 +168,7 @@ class Mesh:
         t0 = time.perf_counter()
         dist.all_reduce(x, op=op)
         self.collective_s += time.perf_counter() - t0
+        self.calls["all_reduce"] += 1
         return x
 
     def all_min(self, x: torch.Tensor) -> torch.Tensor:
@@ -184,17 +191,20 @@ class Mesh:
         dist.gather_object(obj, got, dst=0)
         return got
 
-    def gather_leaves(self, leaves: dict) -> Optional[dict]:
+    def gather_leaves(self, leaves: dict, axis: int = 0) -> Optional[dict]:
         """Rank 0: each numpy leaf of every rank, concatenated along
-        axis 0 in rank order; None on the other ranks."""
+        `axis` in rank order (1 for a campaign's [R, H_loc, ...] leaves,
+        which gather into [R, H_pad, ...]); None on the other ranks."""
         got = self.gather(leaves)
         if got is None:
             return None
-        return {k: np.concatenate([g[k] for g in got]) for k in leaves}
+        return {k: np.concatenate([g[k] for g in got], axis=axis)
+                for k in leaves}
 
     def reset_counters(self) -> None:
         self.moved_bytes = 0
         self.stage_s = self.collective_s = 0.0
+        self.calls = dict.fromkeys(self.calls, 0)
 
     def barrier(self) -> None:
         dist.barrier()

@@ -169,9 +169,8 @@ def admit(cfg: ConfigOptions, sim: BuiltSimulation, config: EngineConfig,
                              config.count_paths, params.seed)
     else:
         world = campaign_world_arrays(
-            config.n_hosts, sim.app, sim.host_vertex, ensemble,
-            sim.bw_up_bits, sim.bw_down_bits, config.model_bandwidth,
-            config.count_paths)
+            len(hv), sim.app, hv, ensemble, up, down,
+            config.model_bandwidth, config.count_paths)
 
     def estimate(replicas=None):
         return capacity.footprint(n_hosts, params, world, replicas, mp,
@@ -238,7 +237,8 @@ def run_device(cfg: ConfigOptions, sim: BuiltSimulation, device="cuda",
                kernels: Optional[Kernels] = None) -> SimStats:
     """Admit, plan and run a built `tpu` config (`DeviceRunner`); a mesh
     config on its ranks (`run_mesh`). An `ensemble:` config runs
-    through ensemble/campaign.py."""
+    through ensemble/campaign.py (on a mesh through `run_mesh`, whose
+    ranks each run its EnsembleRunner)."""
     if cfg.ensemble is not None:
         raise ValueError("an ensemble: config is a campaign: run it with "
                          "shadow_tpu_torch.ensemble.campaign."
@@ -344,15 +344,7 @@ class DeviceRunner:
 
     # ---- what the advance asks of its runner --------------------------
     def overflow_counts(self, state: dict) -> dict:
-        """The loud overflow counters' sums, over the mesh's ranks on a
-        mesh (every rank then sees the same values)."""
-        counts = capacity.overflow_counts(state)
-        if self.mesh is None:
-            return counts
-        keys = sorted(counts)
-        got = self.mesh.all_sum(torch.tensor([counts[k] for k in keys],
-                                             dtype=torch.int64))
-        return dict(zip(keys, (int(v) for v in got.tolist())))
+        return overflow_counts(state, self.mesh)
 
     def replan(self, host_state: dict) -> dict:
         """The state of a re-plan's rebuilt engine: `host_state` (the
@@ -430,21 +422,7 @@ class DeviceRunner:
         rank."""
         if self.mesh is None:
             return state
-        marks = ("occ_heap", "occ_ob", "occ_in", "occ_trips",
-                 "occ_phases")
-        mx = self.mesh.all_max(torch.stack(
-            [state[k].max().cpu().long() for k in marks]))
-        sums = self.mesh.all_sum(torch.stack(
-            [state[k].sum().cpu().long() for k in ("overflow",
-                                                   "x_overflow")]))
-        S = self.mesh.size
-        pairs = torch.zeros((S, S), dtype=torch.int64)
-        pairs[self.mesh.rank] = state["occ_x"].cpu().long().view(S)
-        view = {k: np.array([int(v)]) for k, v in zip(marks, mx.tolist())}
-        view["occ_x"] = self.mesh.all_sum(pairs).numpy()
-        view["overflow"], view["x_overflow"] = (
-            np.array([int(v)]) for v in sums.tolist())
-        return view
+        return mesh_view(self.mesh, state)
 
     def _resolve_exchange(self, record: dict) -> str:
         """The schedule the planned engine runs: the config's, or under
@@ -718,6 +696,43 @@ class DeviceRunner:
                      "paused early; resume with checkpoint_load")
 
 
+def overflow_counts(state: dict, mesh=None) -> dict:
+    """The loud overflow counters' sums (over a campaign's replicas too),
+    over the mesh's ranks on a mesh (every rank then sees the same
+    values)."""
+    counts = capacity.overflow_counts(state)
+    if mesh is None:
+        return counts
+    keys = sorted(counts)
+    got = mesh.all_sum(torch.tensor([counts[k] for k in keys],
+                                    dtype=torch.int64))
+    return dict(zip(keys, (int(v) for v in got.tolist())))
+
+
+def mesh_view(mesh, state: dict) -> dict:
+    """The occupancy leaves `capacity.measure` reads, reduced over the
+    ranks of `mesh` and the same on every rank: the high-water marks'
+    maxima, the overflow counters' sums, and the ranks' occ_x rows
+    stacked into the [S, S] pair matrix. `state` holds a rank's tensors
+    or numpy leaves (a campaign's worst case over its replicas, occ_x
+    [1, S])."""
+    def t(k):
+        return torch.as_tensor(capacity.host_array(state[k])).long()
+
+    marks = ("occ_heap", "occ_ob", "occ_in", "occ_trips", "occ_phases")
+    mx = mesh.all_max(torch.stack([t(k).max() for k in marks]))
+    sums = mesh.all_sum(torch.stack([t(k).sum() for k in ("overflow",
+                                                           "x_overflow")]))
+    S = mesh.size
+    pairs = torch.zeros((S, S), dtype=torch.int64)
+    pairs[mesh.rank] = t("occ_x").view(S)
+    view = {k: np.array([int(v)]) for k, v in zip(marks, mx.tolist())}
+    view["occ_x"] = mesh.all_sum(pairs).numpy()
+    view["overflow"], view["x_overflow"] = (
+        np.array([int(v)]) for v in sums.tolist())
+    return view
+
+
 def checkpoint_caps(load_path: str) -> tuple[dict, str]:
     """(the capacity knobs, the exchange schedule) of the engine that
     saved a checkpoint, which a planned resume adopts: the fingerprint
@@ -812,7 +827,10 @@ def mesh_runs(devices, cfgs: list, keep_state=False, timing=False,
               timeout: float = DEFAULT_TIMEOUT) -> list:
     """Each config run in turn on one spawned mesh: [(SimStats, the
     final leaves gathered into the H_pad layout where `keep_state`,
-    else None), ...]. `stats.mesh["ranks"]` holds each rank's record:
+    else None), ...]; a campaign config (`ensemble:`) runs its
+    EnsembleRunner on every rank and gives its [R, H_pad, ...] leaves
+    always, the heaps where `keep_state`. `stats.mesh["ranks"]` holds
+    each rank's record:
     its exchange (mesh_stats), kernel launches, peak device memory (on
     a card) and, with `timing` (Kernels(timing=True): an event pair
     around each launch), its device ms per kernel;
@@ -859,27 +877,41 @@ def check_mesh_resume(cfg: ConfigOptions, n_shards: int) -> None:
 
 def _mesh_runs_rank(mesh, cfgs: list, keep_states: list,
                     timings: list) -> list:
+    """mesh_runs on one rank: each config's DeviceRunner, or its
+    campaign's EnsembleRunner (ensemble/campaign.py), on this rank's
+    device; rank 0 returns [(stats, leaves), ...]."""
     out = []
     cuda = mesh.device.type == "cuda"
     for cfg, keep_state, timing in zip(cfgs, keep_states, timings):
-        sim = build(cfg)
         if cuda:
             # the previous config's engine and state are gone (a run's
             # peak is its own)
             gc.collect()
             torch.cuda.reset_peak_memory_stats(mesh.device)
         kernels = Kernels(timing=timing)
-        dr = DeviceRunner(cfg, sim, mesh.device, kernels, mesh)
-        stats = dr.run()
-        engine = dr.engine
-        leaves = mesh.gather_leaves(state_to_numpy(dr.final_state)) \
-            if keep_state else None
+        if cfg.ensemble is not None:
+            from shadow_tpu_torch.ensemble.campaign import EnsembleRunner
+
+            # a campaign: rank 0 gathers its [R, H_pad, ...] leaves, the
+            # heaps where `keep_state`
+            er = EnsembleRunner(cfg, mesh.device, kernels, mesh=mesh)
+            er.keep_heaps = keep_state
+            stats = er.run()
+            leaves = er.final_state
+            record, admission = er.mesh_record, er.admission
+        else:
+            dr = DeviceRunner(cfg, build(cfg), mesh.device, kernels, mesh)
+            stats = dr.run()
+            leaves = mesh.gather_leaves(state_to_numpy(dr.final_state)) \
+                if keep_state else None
+            record, admission = dr.engine.loop_stats["mesh"], \
+                dr.engine.admission
         ranks = mesh.gather({
-            **engine.loop_stats["mesh"],
+            **record,
             "launches": {k: n for k, n in kernels.launches.items() if n},
             "peak_bytes": (torch.cuda.max_memory_allocated(mesh.device)
                            if cuda else None),
-            "estimate_bytes": engine.admission["estimate"]["per_device"],
+            "estimate_bytes": admission["estimate"]["per_device"],
             "kernel_ms": ({k: v for k, v in kernels.kernel_ms().items()
                            if v} if timing else None)})
         if mesh.rank == 0:
@@ -889,8 +921,8 @@ def _mesh_runs_rank(mesh, cfgs: list, keep_states: list,
                     launches[k] = launches.get(k, 0) + n
             stats.mesh = {**stats.mesh, "ranks": ranks,
                           "launches": launches}
-            out.append((stats, leaves if keep_state else None))
-        dr = engine = None
+            out.append((stats, leaves))
+        dr = er = None
     return out
 
 
@@ -918,15 +950,17 @@ def flush_phases(mesh, jobs: list) -> Optional[list]:
     return out if mesh.rank == 0 else None
 
 
-def shard_state(leaves: dict, mp) -> dict:
+def shard_state(leaves: dict, mp, axis: int = 0) -> dict:
     """Rank mp.shard's rows of global leaves (numpy, shard-major as the
     reference's arrays are: per-host leaves [H_pad, ...], occ_x [S, S],
-    occ_trips and occ_phases [S])."""
+    occ_trips and occ_phases [S]; a campaign's with a leading [R] axis,
+    cut along `axis` 1)."""
     out = {}
     for k, v in leaves.items():
         v = np.asarray(v)
-        n = v.shape[0] // mp.S
-        out[k] = np.ascontiguousarray(v[mp.shard * n:(mp.shard + 1) * n])
+        n = v.shape[axis] // mp.S
+        out[k] = np.ascontiguousarray(np.take(
+            v, np.arange(mp.shard * n, (mp.shard + 1) * n), axis=axis))
     return out
 
 

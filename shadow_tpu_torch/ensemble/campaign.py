@@ -1,7 +1,18 @@
 """EnsembleRunner: R-replica simulation campaigns in one window loop (the
-port's copy of the reference package's ensemble/campaign.py, cut to one
-GPU without the mesh shrink or the out-of-memory ladder: ROADMAP.md
-queue (a) item 13).
+port's copy of the reference package's ensemble/campaign.py, on one GPU
+or on the host mesh, without the mesh shrink or the out-of-memory
+ladder: ROADMAP.md queue (a) item 13).
+
+On a mesh (`mesh=`, device/mesh.py; `experimental.mesh_shards`) every
+rank runs one EnsembleRunner whose engine holds its H_loc hosts of all R
+replicas (the reference's `_run_ens_shard`: the replica axis composes
+outside the mesh axis), and every flush moves every replica's packs in
+the collectives of a standalone mesh run (device/engine.py `_exchange`).
+Every decision that ends, widens or replays the campaign is taken from
+values reduced over the ranks; rank 0 gathers the final leaves along
+the host axis ([R, H_pad, ...]), prints the `[ensemble-heartbeat]`
+lines, writes the record and returns the stats (the other ranks return
+None).
 
 Checkpoints (device/checkpoint.py) carry the campaign's stamp
 (`ensemble`: its `campaign_fp` and R), so that a standalone run refuses
@@ -58,7 +69,8 @@ from shadow_tpu_torch.config.schema import ConfigOptions
 from shadow_tpu_torch.core.build import build
 from shadow_tpu_torch.device import capacity, checkpoint, runner, supervise
 from shadow_tpu_torch.device import chaos as chaosmod
-from shadow_tpu_torch.device.engine import DeviceEngine, state_to_numpy
+from shadow_tpu_torch.device.engine import DeviceEngine, mesh_stats, \
+    state_to_numpy
 from shadow_tpu_torch.device.kernels import HEAP_FIELDS, Kernels
 from shadow_tpu_torch.device.supervise import AdvanceResult, \
     HeartbeatMonitor, advance, heartbeat_rates
@@ -97,13 +109,21 @@ class EnsembleRunner:
     unless the caller asks for the CPU)."""
 
     def __init__(self, cfg: ConfigOptions, device="cuda",
-                 kernels: Optional[Kernels] = None):
+                 kernels: Optional[Kernels] = None, mesh=None):
         if cfg.ensemble is None:
             raise ValueError("EnsembleRunner needs an ensemble: "
                              "config block")
         self.cfg = cfg
         self.device = device
         self.kernels = kernels
+        # this rank's device/mesh.py Mesh, or None on one device
+        self.mesh = mesh
+        # the heaps too in `final_state` (a mesh run's kept leaves)
+        self.keep_heaps = False
+        # the schedule `exchange: auto` resolved to ("" before a plan)
+        self._exchange_choice = ""
+        # the last engine's exchange record on a mesh (mesh_stats)
+        self.mesh_record: Optional[dict] = None
         self.sim = build(cfg)
         self.app = self.sim.app
         self.worlds: EnsembleWorlds = build_worlds(self.sim, cfg.ensemble)
@@ -153,11 +173,29 @@ class EnsembleRunner:
         capacities; admitted (the state twice where the advance keeps a
         validated copy: planned or supervised) before it allocates."""
         self.engines_built += 1
+        exchange = self._exchange_choice or (
+            "all_to_all" if self.cfg.experimental.exchange == "auto"
+            else "")
         return runner.engine_from(
             self.cfg, self.sim, self.device, self.kernels,
             ensemble=self.worlds if worlds is None else worlds,
-            lookahead=self.lookahead, overrides=self._capacity_overrides,
+            lookahead=self.lookahead, mesh=self.mesh,
+            overrides=self._capacity_overrides, exchange=exchange,
             copies=2 if supervise.keeps_copy(self.cfg) else 1)
+
+    @property
+    def lead(self) -> bool:
+        """Whether this process writes, logs and returns (one device, or
+        a mesh's rank 0)."""
+        return self.mesh is None or self.mesh.rank == 0
+
+    def _gather(self, final: dict) -> Optional[dict]:
+        """A rank's final leaves [R, H_loc, ...] gathered along the host
+        axis on rank 0 ([R, H_pad, ...]; None on the other ranks); one
+        device's as they are."""
+        if self.mesh is None:
+            return final
+        return self.mesh.gather_leaves(final, axis=1)
 
     @property
     def _planned(self) -> bool:
@@ -196,6 +234,7 @@ class EnsembleRunner:
     def _build_record(self, final: dict, rounds_r, wall: float,
                       ok: bool) -> dict:
         H = len(self.sim.host_vertex)
+        final = {k: v[:, :H] for k, v in final.items()}
         w = self.worlds
         eopts = self.cfg.ensemble
         metrics = {
@@ -242,19 +281,20 @@ class EnsembleRunner:
         }
 
     # ------------------------------------------------------------------
-    def _worst_case_view(self, states) -> dict:
+    def _worst_case_view(self, states, mesh=None) -> dict:
         """The [R, ...] occupancy and overflow leaves reduced to the
         standalone shapes capacity.measure reads (campaign.py:218): the
         maximum over the replicas for the high-water marks (the
         worst-case replica sizes the shared capacities), the sum for the
-        loud overflow counters."""
+        loud overflow counters; with `mesh`, a rank's view then reduced
+        over the ranks (runner.mesh_view: the same on every rank)."""
         view = {}
         for k in ("occ_heap", "occ_ob", "occ_in", "occ_x", "occ_trips",
                   "occ_phases"):
             view[k] = capacity.host_array(states[k]).max(0)
         for k in ("overflow", "x_overflow"):
             view[k] = capacity.host_array(states[k]).sum(0)
-        return view
+        return view if mesh is None else runner.mesh_view(mesh, view)
 
     def _plan_capacities(self, stop: int, load_path: str = "") -> None:
         """capacity_plan on the campaign (campaign.py:238): the warm-up
@@ -267,7 +307,10 @@ class EnsembleRunner:
         mode = xp.capacity_plan
         t0 = time.perf_counter()
         if load_path:
-            self._capacity_overrides, _ = runner.checkpoint_caps(load_path)
+            self._capacity_overrides, exchange = runner.checkpoint_caps(
+                load_path)
+            if xp.exchange == "auto":
+                self._exchange_choice = exchange
             self.warmup_wall_s = time.perf_counter() - t0
             log.warning("capacity_plan: %s skipped — checkpoint_load "
                         "resumes with the saved engine's capacities "
@@ -289,7 +332,8 @@ class EnsembleRunner:
                     states, _ = engine.run(states, stop=nxt,
                                            final_stop=stop)
                     t = nxt
-                    dims = capacity.overflow_dims(states)
+                    dims = capacity.overflow_dims(
+                        states, runner.overflow_counts(states, self.mesh))
                     if dims:
                         break
                 if not dims:
@@ -310,9 +354,9 @@ class EnsembleRunner:
                 engine = self.engine()
                 states = engine.init_ensemble_state(self.sim.start_times,
                                                     self.sim.stop_times)
-            record = capacity.measure(engine,
-                                      self._worst_case_view(states),
-                                      source=f"ensemble-warmup:{warm}ns")
+            record = capacity.measure(
+                engine, self._worst_case_view(states, self.mesh),
+                source=f"ensemble-warmup:{warm}ns")
             self.captures += engine.captures
             del states
         else:
@@ -326,21 +370,36 @@ class EnsembleRunner:
                     f"occupancy record {mode} was measured on {got}; "
                     f"this campaign is {want} — re-measure with "
                     "capacity_plan: auto")
+        n_shards = engine.n_shards
         del engine
         _free(self.device)
+        floor = 4 if max(1, self.app.burst_pops) > 1 else 8
+        headroom = xp.capacity_headroom or capacity.HEADROOM
+        # the worst-case view reduced occ_x over the replicas (and the
+        # ranks): the auto choice and the per-phase caps cover every
+        # replica (campaign.py:320-330)
+        exchange = xp.exchange
+        if exchange == "auto":
+            exchange, info = capacity.choose_exchange(
+                record, n_shards, per_iter=per_iter, floor_iters=floor,
+                headroom=headroom)
+            record["exchange_auto"] = info
+            self._exchange_choice = exchange
+            if n_shards > 1 and self.lead:
+                log.info("exchange: auto -> %s (per-flush row estimates "
+                         "%s)", exchange, info["estimates"])
         planned = capacity.plan(
-            record, per_iter=per_iter,
-            floor_iters=4 if max(1, self.app.burst_pops) > 1 else 8,
-            n_shards=1,
-            headroom=xp.capacity_headroom or capacity.HEADROOM,
-            exchange="all_to_all")
+            record, per_iter=per_iter, floor_iters=floor,
+            n_shards=n_shards, headroom=headroom, exchange=exchange)
         record["planned"] = planned
         record["static"] = static_knobs
         self.occ_record = record
         self._capacity_overrides = dict(planned)
         self.warmup_wall_s = time.perf_counter() - t0
-        log.info("ensemble capacity plan (%s): %s  [measured %s]", mode,
-                 planned, record["measured"])
+        if self.lead:
+            log.info("ensemble capacity plan (%s, exchange %s): %s  "
+                     "[measured %s]", mode, exchange, planned,
+                     record["measured"])
 
     def _emit_heartbeats(self, now: int, states, offset: int = 0) -> None:
         """One `[ensemble-heartbeat]` line per replica at a segment
@@ -348,10 +407,13 @@ class EnsembleRunner:
         ([R, H] vectors, never the heaps), the pkts/s since the last
         heartbeat (supervise.heartbeat_rates), the re-plans and the
         device memory. `offset`: the first replica of a batch."""
-        if self.hb_monitor is not None:
-            self.hb_monitor.beat()
         cols = {k: capacity.host_array(states[k]).astype(np.int64)
                 for k in ("n_exec", "n_sent", "n_drop", "n_deliv")}
+        cols = self._gather(cols)
+        if cols is None:
+            return
+        if self.hb_monitor is not None:
+            self.hb_monitor.beat()
         self._hb_mark, rates = heartbeat_rates(self._hb_mark,
                                                cols["n_sent"].sum(1))
         mem = None
@@ -428,8 +490,11 @@ class EnsembleRunner:
                                 if xp.state_audit else None))
                 log.info("campaign checkpoint saved at t=%d ns -> %s",
                          adv.t_end, xp.checkpoint_save)
-        final = state_to_numpy(state, [k for k in state
-                                       if k not in HEAP_FIELDS])
+        final = self._gather(state_to_numpy(
+            state, [k for k in state
+                    if self.keep_heaps or k not in HEAP_FIELDS]))
+        if self.mesh is not None:
+            self.mesh_record = mesh_stats(engine)
         self._last_engine = engine
         return final, rounds, adv
 
@@ -485,8 +550,9 @@ class EnsembleRunner:
                     np.zeros(0, np.int64), combined
             finals.append(final)
             rounds.append(r)
-        merged = {k: np.concatenate([f[k] for f in finals], axis=0)
-                  for k in finals[0]}
+        merged = None if finals[0] is None else {
+            k: np.concatenate([f[k] for f in finals], axis=0)
+            for k in finals[0]}
         return merged, np.concatenate(rounds), combined
 
     def _resume_checks(self, stop: int, knob_batch: int):
@@ -557,7 +623,7 @@ class EnsembleRunner:
         self._hb_mark = None
         self.hb_monitor = (HeartbeatMonitor(xp.heartbeat_stale_after)
                            if xp.heartbeat_stale_after else None)
-        if xp.checkpoint_save:
+        if xp.checkpoint_save and self.lead:
             checkpoint.probe_writable(xp.checkpoint_save)
         knob_batch = int(self.cfg.ensemble.replica_batch or 0)
         load_path, resume_batch = "", None
@@ -572,7 +638,8 @@ class EnsembleRunner:
             self.cfg, self.sim, runner.engine_config(
                 self.cfg, self.sim, lookahead=self.lookahead),
             self.device, ensemble=w,
-            batchable=w.R > 1 and not knob_batch and not ck_on)
+            batchable=w.R > 1 and not knob_batch and not ck_on,
+            mesh=self.mesh)
         batch = knob_batch or int(
             self.admission["overrides"].get("replica_batch", 0))
         if self._planned:
@@ -581,6 +648,9 @@ class EnsembleRunner:
         if xp.checkpoint_save and xp.checkpoint_save_time:
             pause = min(stop, xp.checkpoint_save_time)
         self.guard = supervise.make_guard(self.cfg)
+        if self.mesh is not None:
+            self.mesh.barrier()
+            self.mesh.reset_counters()
         t0 = time.perf_counter()
         with (self.guard if self.guard is not None
               else contextlib.nullcontext()):
@@ -600,6 +670,9 @@ class EnsembleRunner:
                     final_save=bool(xp.checkpoint_save))
         self.retries = adv.retries
         wall = time.perf_counter() - t0
+        if not self.lead:
+            self._last_engine = None
+            return None
         if adv.preempted:
             # a preempted campaign's counters cover only its prefix: the
             # resumed run writes the record
@@ -613,6 +686,7 @@ class EnsembleRunner:
                 admission=self.admission, replans=self.replans,
                 pipeline={"checkpoint_io": self.ck_io})
         self.final_state = final
+        H = len(self.sim.host_vertex)
         overflow = int(final["overflow"].sum())
         x_overflow = int(final["x_overflow"].sum())
         ok = overflow == 0 and x_overflow == 0 and not adv.budget_hit
@@ -650,8 +724,8 @@ class EnsembleRunner:
             packets_delivered=int(final["n_deliv"].sum()),
             # replica 0's per-host results stand for the hosts, as the
             # reference surfaces them on its host objects
-            host_events_executed=final["n_exec"][0].astype(np.int64),
-            host_trace_checksum=final["chk"][0],
+            host_events_executed=final["n_exec"][0, :H].astype(np.int64),
+            host_trace_checksum=final["chk"][0, :H],
             overflow=overflow, x_overflow=x_overflow,
             admission=self.admission, ensemble=self.record,
             occupancy=self.occ_record, replans=self.replans,
@@ -666,11 +740,12 @@ class EnsembleRunner:
             retries=adv.retries)
         if self.hb_monitor is not None:
             stats.stale_heartbeats = self.hb_monitor.stale_events
+        stats.mesh = self.mesh_record
         loops = self.loop_stats
         stats.loop = loops[0]["loop"]
         stats.phases = max(max(s["phases"]) for s in loops)
         stats.host_syncs = sum(s["host_syncs"] for s in loops)
-        downloads = [self.app.downloads(a) for a in final["app"]]
+        downloads = [self.app.downloads(a[:H]) for a in final["app"]]
         if downloads[0] is not None:
             stats.downloads_completed = int(sum(downloads))
         stats.ok = ok
@@ -695,12 +770,11 @@ class _Segments:
     stamp, retries, re-plans and capacity knobs, and its heartbeats
     with the batch's first replica."""
 
-    mesh = None
-
     def __init__(self, er: EnsembleRunner, worlds: EnsembleWorlds,
                  offset: int, checkpointer=None):
         self.er, self.worlds, self.offset = er, worlds, offset
         self.cfg = er.cfg
+        self.mesh = er.mesh
         self.checkpointer = checkpointer
         self.guard, self.chaos = er.guard, er.chaos
         stamp = None if checkpointer is None else checkpointer.extra_meta
@@ -732,7 +806,7 @@ class _Segments:
         self.er._capacity_overrides = knobs
 
     def overflow_counts(self, state: dict) -> dict:
-        return capacity.overflow_counts(state)
+        return runner.overflow_counts(state, self.mesh)
 
     def template(self) -> dict:
         return self.engine.init_arrays(self.er.sim.start_times,

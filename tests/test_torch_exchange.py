@@ -541,9 +541,11 @@ def test_exchange_capacities_are_the_reference_formulas():
 
 # what a mesh runs since ROADMAP (a) item 9a: the state audit, the model
 # NIC, the path counters, and the hybrid fall-back of host faults and of
-# a config with no device twin (tests/test_torch_mesh_state.py runs them)
+# a config with no device twin (tests/test_torch_mesh_state.py runs them);
+# since item 9c ensemble campaigns (tests/test_torch_mesh_campaign.py)
 MESH_ADMITTED = {
     "experimental.state_audit=true": None,
+    "ensemble={replicas: 2, vary: {seed: [5, 6]}}": None,
     "experimental.model_bandwidth=true": None,
     "experimental.count_paths=true": None,
     "network.faults=[{kind: host_crash, time: 1s, host: left0}]":
@@ -562,10 +564,11 @@ MESH_ADMITTED = {
     "hosts.right.processes=[{path: model:tgen_server, start_time: 10ms}]",
 ])
 def test_what_a_mesh_does_not_run_yet_is_refused(override):
-    """A campaign on a mesh is refused naming ROADMAP (a) item 9c; the
-    audit, the model NIC, the path counters and the hybrid fall-back are
-    admitted (the last two build with the reference's reason to run
-    hybrid in `no_twin`)."""
+    """A campaign on a mesh, the audit, the model NIC, the path counters
+    and the hybrid fall-back are admitted (the last two build with the
+    reference's reason to run hybrid in `no_twin`); nothing of these is
+    refused any more (a campaign's item-13 knobs are,
+    `test_a_campaign_on_a_mesh_refuses_item_13`)."""
     from shadow_tpu_torch.core.build import OutsideSlice, build
 
     from shadow_tpu_torch.config import load_config_str
@@ -585,6 +588,31 @@ def test_what_a_mesh_does_not_run_yet_is_refused(override):
         assert sim.app is not None and sim.no_twin is None
     else:
         assert sim.app is None and reason in sim.no_twin
+
+
+ITEM_13_ON_A_MESH = (r"on a mesh .*ROADMAP.md queue \(a\) item 13 "
+                     r"\(dispatch retry, failover and chaos on a mesh")
+
+
+@pytest.mark.parametrize("override,match", [
+    ("experimental.dispatch_retries=2", ITEM_13_ON_A_MESH),
+    # a campaign's failover is the shrink (the schema refuses `hybrid`
+    # for campaigns with the reference's message), which is item 13's
+    ("experimental.failover=shrink", r"failover: shrink \(the mesh "
+     r"shrink.*ROADMAP.md queue \(a\) item 13 \(the mesh shrink\)"),
+    ("experimental.chaos=[{kind: dispatch_error, segment: 1}]",
+     ITEM_13_ON_A_MESH),
+])
+def test_a_campaign_on_a_mesh_refuses_item_13(override, match):
+    """A campaign on a mesh with dispatch retries, a failover or chaos is
+    refused naming ROADMAP (a) item 13, as a standalone mesh run is."""
+    from shadow_tpu_torch.config import load_config_str
+    from shadow_tpu_torch.core.build import OutsideSlice, build
+
+    cfg = load_config_str(PHOLD, ovr(2) + [
+        "ensemble={replicas: 2, vary: {seed: [5, 6]}}", override])
+    with pytest.raises(OutsideSlice, match=match):
+        build(cfg)
 
 
 def test_mesh_shards_needs_the_tpu_policy_and_a_known_exchange():
