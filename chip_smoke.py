@@ -347,7 +347,8 @@ Phases, in order; any failure exits non-zero before the last line:
    lost) and every run against the same ranks on the CPU (a CPU oracle,
    every leaf; the lossy sweep's x_overflow per replica and sender); the
    exchange's collectives a flush equal to a standalone run's; the sweep
-   saved half way at S = 2 and resumed, its checkpoint refused at S = 4.
+   saved half way at S = 2 and resumed, its checkpoint refused on a pool
+   of one rank.
    Full (`mesh_full`, MESH_FULL): phold.yaml at 2 x 50,000 hosts cut to
    MESH_PHOLD_STOP at S = 2 and 4 and tgen_10000.yaml cut to 5 s at S = 2,
    exchange_capacity set by
@@ -371,8 +372,20 @@ Phases, in order; any failure exits non-zero before the last line:
    a flush equal to tgen_10000_s2's, each rank's peak, estimate, bytes
    a flush and collective and staging seconds. Then
    (`mesh_supervise`) phold.yaml at S = 2 saved half way and resumed at
-   S = 2, equal to one device, and its checkpoint refused at S = 4 with
-   the reference's geometry message. Every card run of the phase but
+   S = 2, equal to one device, and its checkpoint refused on a pool of
+   one rank with the reference's message. Then the mesh shrink
+   (`mesh_shrink`, `shrink_jobs`, `failover: shrink`): tests/
+   test_chaos.py's SHRINK (6 PHOLD hosts, 800 ms, a device loss of shard
+   1 at dispatch 2) under two_phase, 4 ranks -> 3, equal to the
+   uninterrupted run on 3 of the 4 card ranks (every per-host leaf) and
+   to the same shrink on 4 CPU ranks (a CPU oracle, every leaf), its
+   rotation entries stamping 3 shards, the one at 600 ms resumed without
+   mesh_shards (adopted on 3 ranks) equal; the 2-seed campaign's shrink
+   equal replica by replica to the one-device card campaign; phold.yaml
+   at S = 4 cut to MESH_PHOLD_STOP, planned, a device loss at its second
+   1 s segment, equal host for host to its one-device card run; each
+   run's wall, reshards, exchange and the shrink's walls (probe, gather,
+   group, rebuild) printed. Every card run of the phase but
    the flush's goes in one spawn at S = 2 and one at S = 4
    (`mesh_card_runs`): a spawn's ranks take about 20 s to reach the
    card; the flush's check runs beside the first spawn.
@@ -5718,10 +5731,27 @@ def rank_replica_kernels(torch, K, scratch, rng, dev):
         torch, K, scratch, "pop_phase (a rank, g0 > 0)", "pop",
         K.pop_plain, pop_make, (0, 1, 2), 4, stop_run)
     popped = []
+    # the bounds at R = REPLICAS: each replica's bytes and operations by
+    # its R = 1 row's count (phold_kernels, judge_case, paths_bytes,
+    # audit_bytes), summed over the replicas
+    k1 = k2 = [0, 0]
     for r in range(R):
         a = pop_make(r)
         scratch.pop(*a)
         popped.append((a[0], a[1]))
+        ob = a[1]
+        sends = int((ob["t"] < K.INF).sum())
+        is_send = (ob["t"] < K.INF) & ((ob["m"] & 0xFF) == 2)
+        packets = int(torch.where(is_send, (ob["m"] & K.U32) >> 8,
+                                  0).sum())
+        k1 = [k1[0] + H * OB * 8 + sends * 4 * 8 + int(a[2].sum()) * 4 * 8
+              + H * 8 + H * (7 * 4 + 8) * 2 + H * 4 * 2,
+              k1[1] + (2 * H + 2 * sends) * THREEFRY_OPS]
+        k2 = [k2[0] + H * OB * 8 + int(is_send.sum()) * (2 * 8 + 3 * 8 + 4)
+              + H * 4 * 6, k2[1] + (2 * H + 2 * packets) * THREEFRY_OPS]
+    shape = f"R={R} H_loc={H} E={E} OB={OB} g0={g0}"
+    out["pop_phase"].update(bytes=k1[0], ops=k1[1], shape=shape)
+    finish(out["pop_phase"])
 
     def judge_make(r):
         return (clone(popped[r][0]), clone(popped[r][1]), worlds[r],
@@ -5730,6 +5760,8 @@ def rank_replica_kernels(torch, K, scratch, rng, dev):
     out["judge_outbox"] = replica_check(
         torch, K, scratch, "judge_outbox (a rank, g0 > 0)", "judge_outbox",
         K.judge_outbox_plain, judge_make, (0, 1), 3, stop_run)
+    out["judge_outbox"].update(bytes=k2[0], ops=k2[1], shape=shape)
+    finish(out["judge_outbox"])
     judged = []
     for r in range(R):
         a = judge_make(r)
@@ -5744,6 +5776,10 @@ def rank_replica_kernels(torch, K, scratch, rng, dev):
     out["count_paths"] = replica_check(
         torch, K, scratch, "count_paths (a rank, g0 > 0)", "count_paths",
         K.count_paths_plain, paths_make, (0,), 3, stop_run)
+    out["count_paths"].update(
+        bytes=sum(paths_bytes(K, judged[r], worlds[r], None, True)[0]
+                  for r in range(R)), ops=0, shape=shape)
+    finish(out["count_paths"])
     aud = [audit_inputs(torch, K, rng, H, E, dev) for _ in range(R)]
 
     def audit_make(r):
@@ -5757,6 +5793,10 @@ def rank_replica_kernels(torch, K, scratch, rng, dev):
         torch, K, RankAudit(scratch), "audit_round_rank (a rank)",
         "audit_round", lambda st, c, b: K.audit_round_plain(
             st, c, b.view(-1)), audit_make, (0, 2), 1, stop_round)
+    out["audit_round_rank"].update(
+        bytes=sum(audit_bytes(torch, K, aud[r])[0] for r in range(R)),
+        ops=0, shape=f"R={R} H_loc={H} E={E}")
+    finish(out["audit_round_rank"])
     return {f"{k} on a rank (g0={g0}, H_pad={H_pad})": v
             for k, v in out.items()}
 
@@ -5947,7 +5987,9 @@ def kernels_phase(torch, report, H=100_000, dev="cuda"):
               f"keeps every byte; R=1 {r['ms_r1']:.4f} ms, R={r['R']} "
               f"{r['ms_r4']:.4f} ms, plain at R={r['R']} "
               f"{r['plain_ms_r4']:.4f} ms"
-              + (f", bound at R={r['R']} {r['bound_ms']:.4f} ms (bytes)"
+              + (f", bound at R={r['R']} {r['bound_ms']:.4f} ms (by "
+                 f"{r.get('bound_by', 'bytes')}: {r.get('bytes')} B, "
+                 f"{r.get('ops', 0)} integer operations)"
                  if "bound_ms" in r else "")
               + (f", library call at R={r['R']} {r['library_ms']:.4f} ms"
                  if r.get("library_ms") is not None else "")
@@ -8335,8 +8377,10 @@ def supervise_phase(torch, card, report):
 def mesh_supervise(torch, card, report, spawned):
     """phold.yaml (2 x 50,000 hosts) on 2 ranks, saved half way and
     resumed on 2 ranks (both in `mesh_card_runs`' S = 2 spawn), equal to
-    one device; its checkpoint refused on 4 ranks with the reference's
-    geometry message."""
+    one device (its one-device run kept for `mesh_shrink`); its
+    checkpoint refused on a pool of one rank with the reference's
+    message (a pool of 4 adopts its 2 shards since ROADMAP (a) 13.1,
+    `mesh_shrink` checks that)."""
     from shadow_tpu_torch.device import runner
 
     name, example, overrides, _, _, _ = MESH_FULL[0]
@@ -8344,15 +8388,15 @@ def mesh_supervise(torch, card, report, spawned):
     ck = os.path.join(spawned["work"], "phold_s2.npz")
     part, res = (spawned["supervise"][k] for k in ("save", "resume"))
     resumed(part, res, one, f"phold.yaml S = 2 paused at {MESH_SUP_PAUSE}")
+    spawned["phold_one"] = one
     try:
-        runner.mesh_runs(["cuda:0"] * 4, [full_config(
-            example, overrides + ("experimental.mesh_shards=4",
-                                  f"experimental.checkpoint_load={ck}"))])
+        runner.mesh_runs(["cuda:0"], [full_config(
+            example, overrides + (f"experimental.checkpoint_load={ck}",))])
         refused = ""
     except ValueError as e:
         refused = str(e)
-    check("saved on 2 shard(s) (H_pad 100000), loading on 4" in refused,
-          f"mesh resume at S = 4: {refused!r}")
+    check("saved on 2 shard(s) but only 1 device(s) are available"
+          in refused, f"mesh resume on a pool of one: {refused!r}")
     report.setdefault("_mesh_full", {})["phold_s2_resumed"] = {
         "launches": res.mesh["launches"]}
     whole = report.get("_mesh_full", {}).get(name, {}).get("wall_s")
@@ -8362,7 +8406,7 @@ def mesh_supervise(torch, card, report, spawned):
           f"ranks' leaves gathered to rank 0) and resumed at S = 2 "
           f"({res.wall_s:.3f} s; uninterrupted "
           + (f"{whole:.3f} s" if whole else "not run in this call")
-          + f"): equal to one device; at S = 4 refused: "
+          + f"): equal to one device; on a pool of one rank refused: "
           f"{refused.split(' — ')[0]}; card {card}", flush=True)
 
 
@@ -8496,6 +8540,167 @@ MESH_CAMPAIGN_FULL = ("tgen_10000_x8_s2", "tgen_10000.yaml",
 MESH_CAMPAIGN_PAUSE = "1500ms"
 
 
+# the mesh shrink (`failover: shrink`, ROADMAP (a) 13.1): tests/
+# test_chaos.py's YAML (6 PHOLD hosts, 800 ms) and SHRINK (4 ranks, 200 ms
+# segments, audited, a device loss at dispatch 2 of shard 1, one retry),
+# here under two_phase (K13's halves and K5's keyed mode at S = 3), and
+# ENS (2 seeds); phold.yaml cut as MESH_FULL's at S = 4 with a device loss
+# at its second 1 s segment, planned from a 1 s warm-up so that the
+# survivors' exchange is re-planned from the record (the reference resets
+# hand-set exchange capacities at a shrink), held to its one-device run
+SHRINK_YAML = """
+general:
+  stop_time: 800ms
+  seed: 9
+network:
+  graph:
+    type: 1_gbit_switch
+experimental:
+  scheduler_policy: tpu
+  event_capacity: 48
+hosts:
+  left:
+    quantity: 3
+    processes:
+    - {path: model:phold, args: msgload=2, start_time: 10ms}
+  right:
+    quantity: 3
+    processes:
+    - {path: model:phold, args: msgload=2, start_time: 10ms}
+"""
+SHRINK_KNOBS = ("experimental.dispatch_segment=200ms",
+                "experimental.state_audit=true")
+SHRINK_LOSS = ("experimental.mesh_shards=4", "experimental.failover=shrink",
+               "experimental.dispatch_retries=1",
+               "experimental.dispatch_retry_backoff=0.0",
+               "experimental.chaos=[{kind: device_loss, segment: 2, "
+               "shard: 1}]")
+SHRINK_ENS = "ensemble={replicas: 2, vary: {seed: [9, 11]}}"
+SHRINK_POST = 600_000_000
+SHRINK_PHOLD = ("shrink_phold_s4", "phold.yaml", MESH_FULL[1][2][:-1] + (
+    "experimental.mesh_shards=4", "experimental.exchange=all_to_all",
+    "experimental.exchange_capacity=32768",
+    "experimental.capacity_plan=auto", "experimental.capacity_warmup=1s",
+    "experimental.dispatch_segment=1s", "experimental.failover=shrink",
+    "experimental.chaos=[{kind: device_loss, segment: 2, shard: 1}]"))
+
+
+def shrink_jobs(work: str) -> dict:
+    """The shrink's card runs, in the S = 4 spawn in this order: {name:
+    (config, keep the leaves)}: SHRINK rotating (its entries stamp the
+    shrunken geometry), the uninterrupted run on 3 of the 4 ranks (its
+    mesh_shards), the entry at SHRINK_POST resumed without mesh_shards
+    (adopted on 3 ranks), ENS shrinking, phold.yaml shrinking."""
+    ck = os.path.join(work, "shrink.npz")
+    two = ("experimental.exchange=two_phase",)
+    return {
+        "small": (cfg_from(SHRINK_YAML, SHRINK_KNOBS + SHRINK_LOSS + two + (
+            f"experimental.checkpoint_save={ck}",
+            "experimental.checkpoint_every=200ms",
+            "experimental.checkpoint_keep=8")), True),
+        "ref3": (cfg_from(SHRINK_YAML, SHRINK_KNOBS + two + (
+            "experimental.mesh_shards=3",)), True),
+        "resume": (cfg_from(SHRINK_YAML, (
+            f"experimental.checkpoint_load={ck}.t{SHRINK_POST:015d}",
+            "experimental.dispatch_segment=200ms")), True),
+        "campaign": (cfg_from(SHRINK_YAML, SHRINK_KNOBS + SHRINK_LOSS + (
+            SHRINK_ENS, "ensemble.record_path="
+            + os.path.join(work, "shrink_ens.json"))), True),
+        "phold": (full_config(SHRINK_PHOLD[1], SHRINK_PHOLD[2]), False),
+    }
+
+
+def shrink_walls(stats) -> str:
+    w = stats.pipeline["reshards"]
+    return ", ".join(f"{k} {1e3 * v:.1f} ms" for k, v in w[0].items()) \
+        if w else "none"
+
+
+def mesh_shrink(torch, card, report, spawned):
+    """The mesh shrink on device 0 (`shrink_jobs`, in the S = 4 spawn):
+    SHRINK's 4 -> 3 under two_phase equal to the uninterrupted run on 3
+    card ranks (every per-host leaf) and to the same shrink on 4 CPU
+    ranks (every leaf), one reshard, the health word zero, its entries
+    stamping 3 shards; the resume adopting them on 3 ranks equal; ENS's
+    shrink equal replica by replica to the one-device card campaign;
+    phold.yaml's shrink at full width equal host for host to its
+    one-device card run. Each run's wall, reshards and the shrink's
+    walls (probe, gather, group, rebuild) printed, its launches counted
+    into the kernel rows."""
+    from shadow_tpu_torch.device import checkpoint, supervise
+    from shadow_tpu_torch.ensemble.campaign import EnsembleRunner
+
+    runs = spawned["shrink"]
+    (small, sleaves), (ref3, rleaves) = runs["small"], runs["ref3"]
+    (res, _), (camp, cleaves) = runs["resume"], runs["campaign"]
+    phold = runs["phold"][0]
+    cpu, cpu_leaves = spawned["cpu"]["shrink:small/4"]
+    what = "SHRINK 4 -> 3 (two_phase, gloo on device 0)"
+    for stats, name, n in ((small, what, 1), (camp, "ENS " + what, 1),
+                           (phold, "phold.yaml 4 -> 3", 1), (cpu, what
+                                                              + " cpu", 1)):
+        check(stats.ok and stats.reshards == n and
+              stats.mesh["shards"] == 3, f"shrink ({name}): ok {stats.ok}, "
+              f"reshards {stats.reshards}, shards {stats.mesh['shards']}")
+        check([r.get("left", False) for r in stats.mesh["ranks"]] ==
+              [False, True, False, False], f"shrink ({name}): the ranks "
+              f"left {stats.mesh['ranks']}")
+    for stats, name in ((ref3, "3 of 4 ranks"), (res, "the resume")):
+        check(stats.mesh["shards"] == 3 and [
+            r.get("left", False) for r in stats.mesh["ranks"]] ==
+            [False, False, False, True], f"shrink ({name}): ranks "
+            f"{stats.mesh['ranks']}")
+    same_run(small, ref3, what, ("shrunk", "3 ranks"))
+    same_run(small, cpu, what, ("card", "cpu"))
+    for leaf in MESH_SHARED + ("aud", "aud_t", "aud_tx"):
+        check(np.array_equal(sleaves[leaf], rleaves[leaf]),
+              f"shrink ({what}): leaf {leaf} differs from 3 ranks")
+    same_leaves(sleaves, cpu_leaves, what, ("card", "cpu"))
+    check(not sleaves["aud"].any(), f"shrink ({what}): health word")
+    entries = supervise.rotation_entries(
+        os.path.join(spawned["work"], "shrink.npz"))
+    geoms = [checkpoint.peek_geometry(checkpoint.peek_meta(p))
+             for _, p in entries]
+    check(geoms[-1] == {"n_shards": 3, "h_pad": 6, "h_loc": 2} and
+          geoms[0]["n_shards"] == 4, f"shrink: entries stamp {geoms}")
+    same_run(dataclasses.replace(res, rounds=ref3.rounds), ref3,
+             "SHRINK's entry resumed on 3 of 4 ranks", ("resumed", "3 ranks"))
+    one = EnsembleRunner(cfg_from(SHRINK_YAML, SHRINK_KNOBS + (SHRINK_ENS,)),
+                         "cuda")
+    one.run()
+    for leaf in ("chk", "n_exec", "n_sent", "n_drop", "n_deliv", "app"):
+        check(np.array_equal(cleaves[leaf][:, :6],
+                             one.final_state[leaf][:, :6]),
+              f"shrink (ENS): leaf {leaf} differs from one device")
+    same_run(phold, spawned["phold_one"], "phold.yaml 4 -> 3",
+             ("shrunk", "one device"))
+    check(phold.x_overflow == 0, "shrink (phold.yaml): x_overflow")
+    mesh_launch_check(small, what, ("pop_phase_aud", "judge_outbox",
+                                    "audit_round_rank", "audit_conserve"),
+                      "two_phase")
+    for stats in (ref3, phold):
+        check(all(stats.mesh["launches"].get(k, 0) > 0 for k in
+                  MESH_PATH[stats.mesh["exchange"]]),
+              f"shrink: launches {stats.mesh['launches']}")
+    full = report.setdefault("_mesh_full", {})
+    for name, (stats, _) in runs.items():
+        full[f"shrink_{name}"] = {"launches": stats.mesh["launches"],
+                                  "wall_s": stats.wall_s}
+        print(f"[mesh:shrink] {name}: wall {stats.wall_s:.3f} s, "
+              f"{stats.mesh['shards']} shards at the end, reshards "
+              f"{stats.reshards}, retries {stats.retries}, exchange "
+              f"{stats.mesh['exchange']} (CAP {stats.mesh['cap']}, CAP2 "
+              f"{stats.mesh['cap2']}); the shrink's walls on the lead "
+              f"survivor: {shrink_walls(stats)}; launches "
+              f"{json.dumps(stats.mesh['launches'], sort_keys=True)}; "
+              f"card {card}", flush=True)
+    print(f"[mesh:shrink] SHRINK 4 -> 3 == 3 ranks == 4 -> 3 on CPU ranks "
+          f"(every leaf), entries stamp {geoms[-1]}, the resume adopted on "
+          f"3 ranks equal; ENS 4 -> 3 == one-device campaign; phold.yaml "
+          f"4 -> 3 ({phold.events_executed} events) == one device "
+          f"({spawned['phold_one'].wall_s:.3f} s); card {card}", flush=True)
+
+
 def mesh_campaign_jobs():
     """The mesh's campaign runs: {key: (config, what, pops, exchange)},
     key campaign:<name>/<exchange>/<merge>/<S>."""
@@ -8576,6 +8781,9 @@ def mesh_cpu_configs() -> dict:
     _, cpu, over, _, _ = mesh_parity_jobs()
     # every campaign run, on the CPU ranks too
     cpu = {**cpu, **{k: c[0] for k, c in mesh_campaign_jobs().items()}}
+    # the mesh shrink's SHRINK (no rotation: its entries are the card's)
+    cpu["shrink:small/4"] = cfg_from(SHRINK_YAML, SHRINK_KNOBS + SHRINK_LOSS
+                                     + ("experimental.exchange=two_phase",))
     return {2: {k: c for k, c in cpu.items() if k.endswith("/2")},
             4: {**{k: c for k, c in cpu.items() if k.endswith("/4")},
                 **over}}
@@ -8587,10 +8795,11 @@ def mesh_card_runs(torch, report) -> dict:
     card): mesh_parity's runs (leaves kept), its K13 run in timing
     mode, MESH_FULL's runs untimed and in timing mode, and
     mesh_supervise's save half way and resume (S = 2, in this order, so
-    that the resume finds the checkpoint). Returns {"card": {key:
-    (stats, leaves)}, "k13": stats, "full": {name: (stats, timed)},
-    "supervise": (saved, resumed), "work": the checkpoints' directory,
-    "wall_s": the spawns' wall}."""
+    that the resume finds the checkpoint), the mesh shrink's runs
+    (`shrink_jobs`, S = 4). Returns {"card": {key: (stats, leaves)},
+    "k13": stats, "full": {name: (stats, timed)}, "supervise": (saved,
+    resumed), "shrink": {name: (stats, leaves)}, "work": the
+    checkpoints' directory, "wall_s": the spawns' wall}."""
     from shadow_tpu_torch.device import runner
 
     cards, _, over, planned, _ = mesh_parity_jobs()
@@ -8649,6 +8858,9 @@ def mesh_card_runs(torch, report) -> dict:
         # and resumed (S = 2), the full-width campaign (no heaps kept)
         jobs += [(k, c[0], True, False) for k, c in
                  mesh_campaign_jobs().items() if k.endswith(f"/{S}")]
+        if S == 4:
+            jobs += [(("shrink", k), c, keep, False)
+                     for k, (c, keep) in shrink_jobs(work).items()]
         if S == 2:
             jobs += [(("campaign_supervise", k), c, True, False)
                      for k, c in camp_sup.items()]
@@ -8666,7 +8878,8 @@ def mesh_card_runs(torch, report) -> dict:
                 out["full"].setdefault(key[1], {})[key[0]] = r[0]
             elif isinstance(key, tuple) and key[0] == "state":
                 out.setdefault("state", {})[key[1]] = r
-            elif isinstance(key, tuple) and key[0].startswith("campaign_"):
+            elif isinstance(key, tuple) and (
+                    key[0].startswith("campaign_") or key[0] == "shrink"):
                 out.setdefault(key[0], {})[key[1]] = r
             elif isinstance(key, tuple):
                 out.setdefault("supervise", {})[key[1]] = r[0]
@@ -8678,7 +8891,8 @@ def mesh_card_runs(torch, report) -> dict:
           f"{2 * len(out['full'])} full runs, the full campaign, the "
           "campaign's save and resume, "
           f"{len(out.get('state', {}))} full runs "
-          f"of the audit and the model NIC and the S = 2 save and resume "
+          f"of the audit and the model NIC, the S = 2 save and resume "
+          f"and {len(out['shrink'])} shrink runs "
           f"in two spawns (S = 2, 4), {out['wall_s']:.1f} s", flush=True)
     return out
 
@@ -8820,7 +9034,7 @@ def mesh_campaign_parity(torch, card, report, runs):
     flush equal to the standalone parity runs' at the same S and
     schedule (one collective carries every replica); the sweep saved
     half way on 2 ranks and resumed equal to the uninterrupted one, its
-    checkpoint refused on 4 ranks."""
+    checkpoint refused on a pool of one rank."""
     from shadow_tpu_torch.device import runner
 
     card_runs, cpu = runs["card"], runs["cpu"]
@@ -8888,15 +9102,14 @@ def mesh_campaign_parity(torch, card, report, runs):
         "replicas"], "mesh campaign resume: the replicas' checksums differ")
     ck = os.path.join(runs["work"], "sweep_s2.npz")
     try:
-        runner.mesh_runs(["cuda:0"] * 4, [cfg_from(
-            "ensemble_seed_sweep.yaml", mesh_overrides(4, "all_to_all",
-                                                      "window", (
-                f"experimental.checkpoint_load={ck}",)))])
+        runner.mesh_runs(["cuda:0"], [cfg_from(
+            "ensemble_seed_sweep.yaml", (
+                f"experimental.checkpoint_load={ck}",))])
         refused = ""
     except ValueError as e:
         refused = str(e)
-    check("saved on 2 shard(s)" in refused and "loading on 4" in refused,
-          f"mesh campaign resume at S = 4: {refused!r}")
+    check("saved on 2 shard(s) but only 1 device(s)" in refused,
+          f"mesh campaign resume on a pool of one: {refused!r}")
     print(f"[mesh] campaigns: {n} card runs at S = 2 and 4 (gloo on device "
           f"0), every replica equal to the one-device campaign on the "
           f"card (leaves, records, totals, rounds); "
@@ -8909,7 +9122,8 @@ def mesh_campaign_parity(torch, card, report, runs):
           + json.dumps(losses) + f"; the sweep saved at "
           f"{MESH_CAMPAIGN_PAUSE} on 2 ranks ({saved.wall_s:.3f} s) and "
           f"resumed ({res.wall_s:.3f} s) equal to the uninterrupted one; "
-          f"at S = 4 refused: {refused.split(' — ')[0]}; card {card}",
+          f"on a pool of one rank refused: {refused.split(' — ')[0]}; "
+          f"card {card}",
           flush=True)
 
 
@@ -9215,6 +9429,7 @@ def mesh_phase(torch, card, report):
         mesh_campaign_full(torch, card, report, spawned)
         mesh_state_full(torch, card, report, spawned)
         mesh_supervise(torch, card, report, spawned)
+        mesh_shrink(torch, card, report, spawned)
     finally:
         shutil.rmtree(spawned["work"], ignore_errors=True)
 

@@ -47,13 +47,17 @@ def simulate(config_path: str, overrides=(), device="cuda",
         from shadow_tpu_torch.core.build import check_slice
         from shadow_tpu_torch.ensemble.campaign import EnsembleRunner
 
-        if cfg.experimental.mesh_shards > 1:
-            # refused here as on the ranks (a host fault, item 13's
-            # knobs), before any rank starts
+        # its mesh_shards ranks, or as many as its checkpoint was saved
+        # on (runner.adopted_devices)
+        devices = runner.adopted_devices(cfg, runner.device_pool(cfg,
+                                                                 device))
+        if len(devices) > 1:
+            # refused here as on the ranks (a host fault), before any
+            # rank starts
             check_slice(cfg)
-            return runner.run_mesh(cfg, runner.mesh_devices(
-                cfg.experimental.mesh_shards, device))
-        return EnsembleRunner(cfg, device=device, kernels=kernels).run()
+            return runner.run_mesh(cfg, devices)
+        return EnsembleRunner(cfg, device=devices[0],
+                              kernels=kernels).run()
     return runner.run(cfg, device=device, kernels=kernels)
 
 

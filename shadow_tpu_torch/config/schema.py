@@ -49,9 +49,9 @@ LATER_EXPERIMENTAL = {
                     "artifacts keys)"),
     **dict.fromkeys(
         ("round_watchdog", "round_watchdog_dump"),
-        "queue (a) item 13 (the robustness layer: the round "
+        "queue (a) item 13.4 (the robustness layer: the round "
         "watchdog)"),
-    "pipeline_depth": "queue (a) item 13 (the robustness layer: "
+    "pipeline_depth": "queue (a) item 13.3 (the robustness layer: "
                       "pipelined segment dispatch)",
     **dict.fromkeys(("compile_cache", "compile_cache_cap_mb"),
                     "queue (a) item 14 (compile cache, tune, serve)"),
@@ -421,8 +421,9 @@ class ExperimentalOptions:
     # at most this many CONSECUTIVE times, after a backoff doubling from
     # `dispatch_retry_backoff` seconds (30 s cap); then `failover`:
     # "abort" fails the run, "hybrid" saves the validated state to
-    # <checkpoint_save>.failover and reruns on the hybrid policy
-    # ("shrink" is validated, and refused: ROADMAP.md item 13)
+    # <checkpoint_save>.failover and reruns on the hybrid policy,
+    # "shrink" re-shards it onto a mesh's surviving ranks and goes on
+    # (the hybrid rung where nothing died or nothing survives)
     dispatch_retries: int = 0
     dispatch_retry_backoff: float = 0.5
     failover: str = "abort"

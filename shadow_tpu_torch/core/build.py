@@ -103,8 +103,6 @@ def check_slice(cfg: ConfigOptions) -> None:
         _refuse(f"experimental.{key}", LATER_EXPERIMENTAL[key])
     check_supervision(cfg)
     _, host_faults = split_events(cfg.network.faults)
-    if xp.mesh_shards > 1:
-        check_mesh(cfg)
     if cfg.ensemble is not None:
         check_campaign(cfg, host_faults)
     if not cfg.hosts:
@@ -126,38 +124,18 @@ def check_slice(cfg: ConfigOptions) -> None:
                     "queue (a) item 7c (the object build)")
 
 
-def check_mesh(cfg: ConfigOptions) -> None:
-    """What a mesh of more than one rank does not run yet: the retry,
-    failover and chaos half of the robustness layer, a campaign's as a
-    standalone run's. Ensemble campaigns, the state audit, the model
-    NIC, the path counters and the hybrid fall-back of a config with
-    host faults or no device twin run there (a campaign's host faults
-    and Tor seed sweep are refused as on one device, `check_campaign`)."""
-    xp = cfg.experimental
-    where = f"on a mesh (experimental.mesh_shards: {xp.mesh_shards})"
-    for key, off in (("dispatch_retries", 0), ("failover", "abort"),
-                     ("chaos", [])):
-        if getattr(xp, key) != off:
-            _refuse(f"experimental.{key} {where}",
-                    f"{ITEM_13} (dispatch retry, failover and chaos on "
-                    "a mesh, with its shrink)")
-
-
 def check_supervision(cfg: ConfigOptions) -> None:
     """What of the robustness layer the port does not run yet: the
-    mesh shrink (`failover: shrink`) and the chaos kinds of its other
-    seams (a device loss and a scripted out-of-memory error: item 13;
-    the compile cache's store and the campaign server: item 14)."""
-    xp = cfg.experimental
-    if xp.failover == "shrink":
-        _refuse("experimental.failover: shrink (the mesh shrink, "
-                "capacity.reshard_state)", f"{ITEM_13} (the mesh "
-                "shrink)")
-    for ev in xp.chaos:
-        if ev.kind in ("device_loss", "oom"):
+    chaos kinds of its other seams (a scripted out-of-memory error:
+    item 13, its degradation ladder; the compile cache's store and the
+    campaign server: item 14). Retries, the failovers (`shrink` and
+    `hybrid`) and the chaos kinds `device_loss`, `dispatch_error` and
+    `checkpoint_corrupt` run on one device and on a mesh, for
+    standalone runs and campaigns alike."""
+    for ev in cfg.experimental.chaos:
+        if ev.kind == "oom":
             _refuse(f"experimental.chaos kind {ev.kind}",
-                    f"{ITEM_13} (the mesh shrink and the out-of-memory "
-                    "ladder)")
+                    f"{ITEM_13}.2 (the out-of-memory ladder)")
         if ev.kind == "cache_store_fail":
             _refuse(f"experimental.chaos kind {ev.kind}",
                     f"{ITEM_14} (the compile cache)")

@@ -77,11 +77,13 @@ class SimStats:
     pipeline: Optional[dict] = field(default=None, repr=False)
     # supervision (device/supervise.py): a run the preemption drain
     # stopped early and the checkpoint it resumes from, the transient
-    # dispatch errors retried, and after a hybrid failover the device
-    # checkpoint it left ("" where none could be persisted)
+    # dispatch errors retried, the mesh shrinks (`failover: shrink`),
+    # and after a hybrid failover the device checkpoint it left (""
+    # where none could be persisted)
     preempted: bool = False
     resume_path: str = ""
     retries: int = 0
+    reshards: int = 0
     failover_checkpoint: str = ""
 
     def summary(self) -> str:

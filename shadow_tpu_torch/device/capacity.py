@@ -1,6 +1,6 @@
 """Occupancy-driven capacity planning and preflight admission (the
 port's copy of the reference package's device/capacity.py, cut to the
-port: no pipeline, no runtime degradation ladder, no re-shard).
+port: no pipeline, no runtime degradation ladder).
 
 The planner (capacity.py:42-441 and 550-632 of the reference, in
 numpy): the engine keeps per-host and per-shard high-water marks in its
@@ -17,7 +17,10 @@ and K3; csrc/phase_tally.cu, loop_control.cu, merge_heaps.cu), and
 * `widen(knobs, dims, effective)` doubles the dimensions an overflow
   implicates (`overflow_dims`), for the runner's re-plan and replay;
 * `grow_heaps` and `transfer` carry a state, as host arrays, into a
-  rebuilt engine with a larger event_capacity.
+  rebuilt engine with a larger event_capacity;
+* `reshard_state` carries one across a change of shard count (the mesh
+  shrink, device/supervise.py): every per-host leaf re-padded row for
+  row to the new padded width.
 
 A plan that undershoots trips the engine's loud overflow counters; the
 segmented advance (device/supervise.py) widens, rebuilds and replays
@@ -505,6 +508,102 @@ def grow_heaps(host_state: dict, new_e: int) -> dict:
         pad = np.full(tuple(lead) + (new_e - e,), fill, dtype=np.int64)
         out[k] = np.concatenate([np.asarray(host_state[k]), pad], -1)
     return out
+
+
+# reshard_state's leaf classes (capacity.py:442-446): every key the
+# engine may put in its state falls in exactly one, so that a new leaf
+# cannot be re-sharded wrongly without a loud refusal. Per-host vector
+# leaves (counters, seq/chk, occ_heap/ob/in, aud*, the NIC's) are the
+# residual class, shape-checked against the padded width.
+RESHARD_HOST_ROWS = ("ht", "hk", "hm", "hv", "hw", "app")
+RESHARD_SHARD_ZERO = ("occ_x", "occ_trips", "occ_phases")
+RESHARD_SHARD_SUM = ("path_cnt",)
+
+
+def reshard_state(host_state: dict, n_hosts: int,
+                  template_host: dict) -> dict:
+    """A host-side state carried across a change of shard count
+    (capacity.py:447-531): H_pad = ceil(H / S) * S, so every per-host
+    leaf is re-padded row for row. `template_host` is the target
+    engine's initial state in the same global layout (a mesh's ranks'
+    leaves concatenated along the host axis, shard-major): its shapes
+    define the new layout and its values fill the padded rows (app init
+    rows, empty heap slots, zero counters), as an uninterrupted run on
+    the target mesh holds them. The first `n_hosts` rows carry over
+    verbatim, so counters, heaps and trace checksums are untouched; the
+    per-shard marks reset (they describe buffers that no longer exist)
+    and the path counters' rows (a row a rank) sum onto row 0.
+    Standalone [H, ...] states and campaign [R, H, ...] stacks alike."""
+    extra = set(host_state) - set(template_host)
+    if any(not _aux_leaf(k) for k in extra):
+        raise ValueError(
+            "reshard_state: snapshot carries leaves the target "
+            f"engine lacks: {sorted(extra)}")
+    old_pad = np.asarray(host_state["ht"]).shape[-2]
+    new_pad = np.asarray(template_host["ht"]).shape[-2]
+    H = int(n_hosts)
+    if not (0 < H <= old_pad and H <= new_pad):
+        raise ValueError(
+            f"reshard_state: n_hosts {H} does not fit the padded "
+            f"widths (old {old_pad}, new {new_pad})")
+    out = {}
+    for k, tmpl in template_host.items():
+        new = np.array(tmpl)
+        if k not in host_state:
+            if k == "aud_tx":
+                # a snapshot without the audit: the ledger reseeded from
+                # the saved counters, per host (checkpoint.load_state's
+                # rule), so that the balance holds at the resume point
+                ht = np.asarray(host_state["ht"])
+                head = np.asarray(host_state["head"])
+                E = ht.shape[-1]
+                live = ((np.arange(E) >= head[..., None])
+                        & (ht < HEAP_FILLS["ht"])).sum(-1)
+                recon = (np.asarray(host_state["n_exec"]).astype(np.int64)
+                         + live
+                         + np.asarray(host_state["overflow"])
+                         .astype(np.int64)
+                         + np.asarray(host_state["x_overflow"])
+                         .astype(np.int64))
+                new[..., :H] = recon[..., :H]
+            elif not _aux_leaf(k):
+                raise ValueError(
+                    f"reshard_state: snapshot is missing leaf {k!r}")
+            out[k] = new
+            continue
+        old = np.asarray(host_state[k])
+        if k in RESHARD_HOST_ROWS:
+            if old.shape[-1] != new.shape[-1] or \
+                    old.shape[:-2] != new.shape[:-2] or \
+                    old.shape[-2] != old_pad or new.shape[-2] != new_pad:
+                raise ValueError(
+                    f"reshard_state: leaf {k} is {old.shape}, target "
+                    f"expects {new.shape} — reshard carries geometry "
+                    "only, never capacity or replica changes")
+            new[..., :H, :] = old[..., :H, :]
+        elif k in RESHARD_SHARD_ZERO:
+            new[...] = 0
+        elif k in RESHARD_SHARD_SUM:
+            new[...] = 0
+            new[..., 0, :] = old.sum(axis=-2)
+        elif old.shape[:-1] == new.shape[:-1] and \
+                old.shape[-1] == old_pad and new.shape[-1] == new_pad:
+            new[..., :H] = old[..., :H]
+        else:
+            raise ValueError(
+                f"reshard_state: leaf {k!r} ({old.shape} -> "
+                f"{new.shape}) is not registered in any reshard "
+                "class — classify it in capacity.RESHARD_* before "
+                "adding state leaves")
+        out[k] = new
+    return out
+
+
+def _aux_leaf(k: str) -> bool:
+    """Leaves that may differ between the saving and the resuming
+    engine without touching the trace (checkpoint.load_state's rule):
+    the occupancy marks and the audit's leaves."""
+    return k.startswith("occ_") or k.startswith("aud")
 
 
 def transfer(engine, host_state: dict, template: dict) -> dict:

@@ -1,17 +1,27 @@
 """Deterministic chaos injection at the supervise seams (the port's
-copy of the reference package's device/chaos.py, cut to the two kinds
-the port runs: `dispatch_error` and `checkpoint_corrupt`).
+copy of the reference package's device/chaos.py, cut to the three kinds
+the port runs: `device_loss`, `dispatch_error` and `checkpoint_corrupt`).
 
 `experimental.chaos` declares a schedule of fault points, and the
 injector fires each at a deterministic seam counter, never from a
 timer, a signal or randomness, so that one schedule against one config
 reproduces the identical run, failures included:
 
-* `dispatch_error`: a one-shot error at the `segment`-th dispatch of
-  the supervised advance (device/supervise.py `advance`), raised on the
-  host before the segment launches anything. Its message leads with
-  the event's `error` class (default UNAVAILABLE, transient), so a
-  retry drill walks the real retry and failover ladder, and a
+* `device_loss`: at the `segment`-th dispatch of the supervised advance
+  (device/supervise.py `advance`), the mesh rank at position `shard` of
+  the current mesh is marked dead. Every later dispatch on a mesh that
+  holds a dead rank raises the event's `error` class (a real lost chip
+  fails every dispatch that touches it, so the retries run out) until a
+  mesh shrink rebuilds the run on the survivors; the liveness probe
+  (supervise.surviving_ranks) consults `is_dead`, so that a scripted
+  loss fails it as a real one would. Several ranks of one mesh share a
+  card in the port's one-card meshes, so the dead set is keyed by the
+  rank's position in the original mesh (device/mesh.py `Mesh.pos`),
+  which a shrink's renumbering keeps;
+* `dispatch_error`: a one-shot error at the `segment`-th dispatch,
+  raised on the host before the segment launches anything. Its message
+  leads with the event's `error` class (default UNAVAILABLE, transient),
+  so a retry drill walks the real retry and failover ladder, and a
   non-transient class drills the abort;
 * `checkpoint_corrupt`: after the `entry`-th rotation save lands
   (supervise.Checkpointer.save), the file is truncated mid-payload, the
@@ -20,11 +30,14 @@ reproduces the identical run, failures included:
 
 The schedule is validated against every kind of the reference
 (`events_from_config`, with its messages); the kinds the port does not
-run (`device_loss`, `oom`, `cache_store_fail`, `server_crash`) are
-refused by core/build.py naming their ROADMAP items. Dispatch issues
-count every segment of the advance, replays included (control flow is
-deterministic, so the count sequence is too); rotation saves count
-Checkpointer.save calls. The injector is process-global per run
+run (`oom`, `cache_store_fail`, `server_crash`) are refused by
+core/build.py naming their ROADMAP items. Dispatch issues count every
+segment of the advance, replays included (control flow is
+deterministic, so the count sequence is too), on every rank of a mesh
+alike, so that every rank raises at the same issue, before any launch,
+and no peer is left waiting in a collective; rotation saves count
+Checkpointer.save calls, on every rank too (the rank that writes
+truncates). The injector is process-global per run
 (`set_current`/`current`), installed by the runners from the config: a
 run without a schedule installs None, so that nothing leaks between
 runs.
@@ -146,35 +159,72 @@ class ChaosInjector:
     def __init__(self, events: list[ChaosEvent]):
         self._lock = threading.Lock()
         self._events = tuple(events)
+        # original mesh positions -> the error class their loss raises
+        self._dead: dict = {}
         self._issues = 0
         self._ck_saves = 0
         self.fired: list = []
 
-    def on_dispatch_issue(self, engine) -> None:
-        """Count one dispatch issue; raise a `dispatch_error` scheduled
-        at this count (once), before the segment launches."""
+    def on_dispatch_issue(self, mesh) -> None:
+        """Count one dispatch issue; fire the events scheduled at this
+        count (a `device_loss` marks its rank dead, a `dispatch_error`
+        raises once), then raise where the run's mesh (device/mesh.py
+        `Mesh`; None: one device, position 0) holds a dead rank
+        (chaos.py:205-262). Raised on the host, before the segment
+        launches."""
+        members = [0] if mesh is None else list(mesh.members)
         with self._lock:
             k = self._issues
             self._issues += 1
             hit = None
             for ev in self._events:
-                if ev.kind == "dispatch_error" and ev.segment == k:
+                if ev.segment != k:
+                    continue
+                if ev.kind == "device_loss":
+                    if ev.shard >= len(members):
+                        raise ValueError(
+                            f"chaos: device_loss shard {ev.shard} is "
+                            f"out of range for the {len(members)}-"
+                            "device mesh")
+                    pos = members[ev.shard]
+                    self._dead[pos] = ev.error
+                    self.fired.append({"kind": "device_loss",
+                                       "segment": k, "shard": ev.shard,
+                                       "position": pos})
+                    log.warning("chaos: mesh rank at position %d (shard "
+                                "%d) marked DEAD at dispatch issue %d",
+                                pos, ev.shard, k)
+                elif ev.kind == "dispatch_error":
                     hit = ev
                     self.fired.append({"kind": "dispatch_error",
                                        "segment": k, "error": ev.error})
+            down = sorted((p, self._dead[p]) for p in members
+                          if p in self._dead)
         if hit is not None:
             raise ChaosError(f"{hit.error}: chaos: scripted dispatch "
                              f"error at issue {k}")
+        if down:
+            raise ChaosError(
+                f"{down[0][1]}: chaos: mesh device(s) "
+                f"{[p for p, _ in down]} are down (scripted device "
+                "loss)")
 
-    def on_checkpoint_saved(self, path: str) -> None:
+    def is_dead(self, position: int) -> bool:
+        """The liveness probe's hook: whether the rank at this original
+        mesh position was scripted dead."""
+        with self._lock:
+            return position in self._dead
+
+    def on_checkpoint_saved(self, path: str, wrote: bool = True) -> None:
         """Count one rotation save; truncate the file on disk where a
-        `checkpoint_corrupt` is scheduled at this count (the run itself
-        is untouched)."""
+        `checkpoint_corrupt` is scheduled at this count and this process
+        `wrote` it (on a mesh every rank counts, the writer truncates;
+        the run itself is untouched)."""
         with self._lock:
             n = self._ck_saves
             self._ck_saves += 1
-            hit = any(ev.kind == "checkpoint_corrupt" and ev.entry == n
-                      for ev in self._events)
+            hit = wrote and any(ev.kind == "checkpoint_corrupt"
+                                and ev.entry == n for ev in self._events)
             if hit:
                 self.fired.append({"kind": "checkpoint_corrupt",
                                    "entry": n, "path": path})

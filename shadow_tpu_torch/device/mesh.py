@@ -23,6 +23,15 @@ function on every rank with its `Mesh`, and returns rank 0's result.
 Every rank's exit code is checked; a rank that raises or dies fails the
 whole call, and the process group's timeout turns a hang into a
 failure.
+
+A mesh can shrink (`Mesh.shrink`, the `failover: shrink` of
+device/supervise.py): its surviving ranks go on in a process group of
+their own, renumbered 0..M-1 in their old order, each keeping its
+position in the spawned mesh (`Mesh.pos`, `members`); the ranks left out
+leave the run. Every rank of the mesh calls `shrink`, so that the
+world's process groups are created in one order everywhere; a rank that
+left an earlier shrink of the same run catches up with `sync_groups`
+once the run is over.
 """
 
 from __future__ import annotations
@@ -41,6 +50,31 @@ import torch.distributed as dist
 
 # seconds a collective may wait before the process group fails it
 DEFAULT_TIMEOUT = 600
+
+# the process groups this process has created (`_new_group`): a group's
+# name is the count of groups before it, so every rank of the world must
+# have created as many before the next one it is a member of
+_GROUPS_MADE = 0
+
+
+def _new_group(ranks: list):
+    """`dist.new_group` over the world ranks `ranks`, counted; a rank
+    outside them gets GroupMember.NON_GROUP_MEMBER, and no peer waits on
+    its call (no barrier after a group's creation)."""
+    global _GROUPS_MADE
+    _GROUPS_MADE += 1
+    return dist.new_group(ranks=list(ranks))
+
+
+def sync_groups(world: "Mesh") -> None:
+    """Every rank of the spawned world (all must call) brought to the
+    same count of created groups, so that the next group that any of
+    them shares is named alike on every member: a rank that left a run
+    at a shrink did not create the groups of the shrinks after it."""
+    most = int(world.all_max(torch.tensor([_GROUPS_MADE])).item())
+    other = [r for r in range(world.size) if r != world.rank][:1]
+    while _GROUPS_MADE < most:
+        _new_group(other)
 
 
 def mesh_backend(devices: Sequence) -> str:
@@ -69,18 +103,47 @@ class Mesh:
     `stage_s` and `collective_s` the host-clock seconds of the staging
     copies (to the host, stream synchronised) and of the collectives;
     `calls` the collectives by kind (all_to_all, all_gather,
-    all_reduce)."""
+    all_reduce). `group` is the process group of a shrunken mesh (None:
+    the world), `members` the world ranks of its ranks in rank order."""
 
-    def __init__(self, rank: int, size: int, device, backend: str):
+    def __init__(self, rank: int, size: int, device, backend: str,
+                 group=None, members: Optional[Sequence[int]] = None):
         self.rank, self.size = int(rank), int(size)
         self.device = torch.device(device)
         self.backend = backend
+        self.group = group
+        self.members = (list(range(self.size)) if members is None
+                        else [int(m) for m in members])
         self.moved_bytes = 0
         self.stage_s = 0.0
         self.collective_s = 0.0
         self.calls = dict.fromkeys(("all_to_all", "all_gather",
                                     "all_reduce"), 0)
         self._pinned = {}
+
+    @property
+    def pos(self) -> int:
+        """This rank's position in the spawned mesh (its world rank),
+        which a shrink's renumbering keeps."""
+        return self.members[self.rank]
+
+    def shrink(self, alive: Sequence[int]) -> Optional["Mesh"]:
+        """The mesh of the positions `alive` (ascending, a subset of
+        `members`), in a process group of their own: every rank of this
+        mesh calls, and the ranks outside `alive` get None. The
+        collectives' counters carry over."""
+        alive = [int(p) for p in alive]
+        if alive != sorted(alive) or not set(alive) <= set(self.members):
+            raise ValueError(f"shrink: {alive} is not an ascending subset "
+                             f"of the mesh's positions {self.members}")
+        group = _new_group(alive)
+        if self.pos not in alive:
+            return None
+        m = Mesh(alive.index(self.pos), len(alive), self.device,
+                 self.backend, group, alive)
+        m.moved_bytes, m.stage_s = self.moved_bytes, self.stage_s
+        m.collective_s, m.calls = self.collective_s, dict(self.calls)
+        return m
 
     @property
     def staged(self) -> bool:
@@ -136,7 +199,8 @@ class Mesh:
             src = self._to_host("a2a_send", send)
             dst = self._host("a2a_recv", recv)
         t0 = time.perf_counter()
-        dist.all_to_all_single(dst.view(-1), src.view(-1), outs, ins)
+        dist.all_to_all_single(dst.view(-1), src.view(-1), outs, ins,
+                               group=self.group)
         self.collective_s += time.perf_counter() - t0
         self.calls["all_to_all"] += 1
         if self.staged:
@@ -153,7 +217,7 @@ class Mesh:
         t0 = time.perf_counter()
         gather = getattr(dist, "all_gather_single", None) or \
             dist.all_gather_into_tensor
-        gather(dst.view(-1), src.reshape(-1))
+        gather(dst.view(-1), src.reshape(-1), group=self.group)
         self.collective_s += time.perf_counter() - t0
         self.calls["all_gather"] += 1
         if self.staged:
@@ -166,7 +230,7 @@ class Mesh:
         else:
             x = t.cpu() if t.is_cuda else t
         t0 = time.perf_counter()
-        dist.all_reduce(x, op=op)
+        dist.all_reduce(x, op=op, group=self.group)
         self.collective_s += time.perf_counter() - t0
         self.calls["all_reduce"] += 1
         return x
@@ -188,7 +252,7 @@ class Mesh:
         """Rank 0: every rank's picklable `obj`, in rank order; None on
         the other ranks."""
         got = [None] * self.size if self.rank == 0 else None
-        dist.gather_object(obj, got, dst=0)
+        dist.gather_object(obj, got, dst=self.members[0], group=self.group)
         return got
 
     def gather_leaves(self, leaves: dict, axis: int = 0) -> Optional[dict]:
@@ -201,13 +265,21 @@ class Mesh:
         return {k: np.concatenate([g[k] for g in got], axis=axis)
                 for k in leaves}
 
+    def all_gather_leaves(self, leaves: dict, axis: int = 0) -> dict:
+        """Every rank: each numpy leaf of every rank, concatenated along
+        `axis` in rank order (`gather_leaves` on every rank)."""
+        got = [None] * self.size
+        dist.all_gather_object(got, leaves, group=self.group)
+        return {k: np.concatenate([g[k] for g in got], axis=axis)
+                for k in leaves}
+
     def reset_counters(self) -> None:
         self.moved_bytes = 0
         self.stage_s = self.collective_s = 0.0
         self.calls = dict.fromkeys(self.calls, 0)
 
     def barrier(self) -> None:
-        dist.barrier()
+        dist.barrier(group=self.group)
 
 
 def _rank_main(rank: int, devices: list, backend: str, fn: Callable,
@@ -220,6 +292,9 @@ def _rank_main(rank: int, devices: list, backend: str, fn: Callable,
     try:
         os.setpgrp()
         _exit_with_parent(os.getppid())
+        # a shrink's ranks create their group while the ranks that left
+        # go on elsewhere (`Mesh.shrink`): no barrier after a creation
+        os.environ["TORCH_DIST_INIT_BARRIER"] = "0"
         dev = torch.device(devices[rank])
         if dev.type == "cuda":
             torch.cuda.set_device(dev)

@@ -1,6 +1,6 @@
 """The device runner (the port of the reference package's
-device/runner.py `DeviceRunner`, without the mesh shrink, the
-out-of-memory ladder or a compile cache).
+device/runner.py `DeviceRunner`, without the out-of-memory ladder or a
+compile cache).
 
 It builds the engine from a config with the reference's knobs (the
 burst width of `experimental.burst_pops`, the outbox floored at 8 pop
@@ -29,12 +29,20 @@ anything is allocated on the device, and runs to the stop time through
 * checkpoints (device/checkpoint.py, runner.py:864-941 of the
   reference): `checkpoint_load` resolved to its newest readable rotation
   entry and checked from its meta before anything runs (the stop, a
-  save time, the shard geometry), its capacities adopted under a plan,
+  save time), its shard geometry adopted (`adopted_devices`: a run
+  loading a checkpoint saved on another shard count runs on that many
+  ranks of its pool, refused where the pool is smaller), its capacities
+  adopted under a plan,
   the state loaded and armed; `checkpoint_save` probed for writing
   first, the run paused at `checkpoint_save_time` (0 = the stop) and
   its state written there; `checkpoint_every` rotating entries and a
   preemption guard (device/supervise.py); on a mesh the saves gather to
   rank 0 and every rank loads its own rows of the global leaves;
+* `failover: shrink` (device/supervise.py `_shrink_recover`): a mesh
+  that lost ranks goes on on the survivors, its exchange re-planned for
+  their count and its engine rebuilt (`_shrink_to`, runner.py:657-768
+  of the reference, transactional: `_undo_shrink`), the ranks left out
+  leaving the run, the result coming from the lowest survivor;
 * it logs the reference's `device perf:` line, writes the OCC record of
   a planned run (`capacity.record_path`; not of a preempted one) and
   returns the SimStats totals
@@ -57,7 +65,6 @@ import gc
 import logging
 import os
 import time
-from types import SimpleNamespace
 from typing import Optional
 
 import numpy as np
@@ -205,6 +212,10 @@ def engine_from(cfg: ConfigOptions, sim: BuiltSimulation, device="cuda",
     if sim.app is None:
         raise NoDeviceTwin(sim.no_twin or "the config's policy is not "
                            "tpu: the CPU engine runs it")
+    if mesh is not None and mesh.size == 1:
+        # a mesh of one rank (a shrink's last survivor, an adopted
+        # one-shard checkpoint) runs the one-device engine
+        mesh = None
     config = engine_config(cfg, sim, lookahead, overrides, exchange)
     if ensemble is not None:
         config.seed = int(ensemble.seeds[0])
@@ -236,17 +247,18 @@ def run(cfg: ConfigOptions, device="cuda",
 def run_device(cfg: ConfigOptions, sim: BuiltSimulation, device="cuda",
                kernels: Optional[Kernels] = None) -> SimStats:
     """Admit, plan and run a built `tpu` config (`DeviceRunner`); a mesh
-    config on its ranks (`run_mesh`). An `ensemble:` config runs
-    through ensemble/campaign.py (on a mesh through `run_mesh`, whose
-    ranks each run its EnsembleRunner)."""
+    config on its ranks (`run_mesh`), as is a config whose checkpoint
+    was saved on more than one shard (`adopted_devices`). An `ensemble:`
+    config runs through ensemble/campaign.py (on a mesh through
+    `run_mesh`, whose ranks each run its EnsembleRunner)."""
     if cfg.ensemble is not None:
         raise ValueError("an ensemble: config is a campaign: run it with "
                          "shadow_tpu_torch.ensemble.campaign."
                          "EnsembleRunner (the CLI does)")
-    if cfg.experimental.mesh_shards > 1:
-        return run_mesh(cfg, mesh_devices(cfg.experimental.mesh_shards,
-                                          device))
-    return DeviceRunner(cfg, sim, device, kernels).run()
+    devices = adopted_devices(cfg, device_pool(cfg, device))
+    if len(devices) > 1:
+        return run_mesh(cfg, devices)
+    return DeviceRunner(cfg, sim, devices[0], kernels).run()
 
 
 def host_names(sim: BuiltSimulation) -> list[str]:
@@ -292,6 +304,9 @@ class DeviceRunner:
         # checkpoint writer, the drain guard, the retries absorbed, the
         # checkpoints' saves and load ({"bytes", "wall_s"} each)
         self.retries = 0
+        self.reshards = 0
+        # a shrink's re-shard, kept until every survivor's succeeded
+        self._before_shrink: Optional[tuple] = None
         self.checkpointer: Optional[supervise.Checkpointer] = None
         self.guard: Optional[supervise.PreemptionGuard] = None
         self._ck_extra_meta: Optional[dict] = None
@@ -406,7 +421,42 @@ class DeviceRunner:
         log.info("[supervise-heartbeat] t=%s events=%d sent=%d "
                  "pkts/s=%s retries=%d replans=%d reshards=%d mem=%s",
                  simtime.format_time(now), int(sum(n_exec)), sent_total,
-                 rate, self.retries, self.replans, 0, mem_s)
+                 rate, self.retries, self.replans, self.reshards, mem_s)
+
+    # ---- the shrink ---------------------------------------------------
+    def _shrink_to(self, mesh, host_state: dict, ensemble: bool = False
+                   ) -> dict:
+        """A survivor's side of the shrink (runner.py:657-748): the
+        runner moved onto `mesh` (the survivors', device/mesh.py
+        `Mesh.shrink`), its exchange re-planned for their count
+        (`replan_for_shrink`), its engine rebuilt and the validated
+        global state `host_state` re-padded onto the new geometry and
+        placed (`place_resharded`). Transactional: where any step
+        fails, the mesh, engine, overrides and exchange choice are put
+        back before the error goes on, and `_undo_shrink` does the same
+        where another survivor failed, so that the failover checkpoint
+        keeps the old geometry."""
+        self._before_shrink = (self.mesh, self.engine,
+                               dict(self._capacity_overrides),
+                               self._exchange_choice, self._captures_before)
+        try:
+            self.mesh = mesh
+            replan_for_shrink(self, mesh.size, self.occ_record
+                              if self._planned else None,
+                              self.engine.effective["M_out"],
+                              self._floor_iters())
+            self.engine = self._build_engine()
+            return place_resharded(self.engine, self.template(), host_state,
+                                   len(self.sim.host_vertex), axis=0)
+        except Exception:
+            self._undo_shrink()
+            raise
+
+    def _undo_shrink(self) -> None:
+        """The runner as it was before `_shrink_to`."""
+        (self.mesh, self.engine, self._capacity_overrides,
+         self._exchange_choice, self._captures_before) = self._before_shrink
+        self._before_shrink = None
 
     # ---- the plan -----------------------------------------------------
     def _headroom(self) -> float:
@@ -538,6 +588,7 @@ class DeviceRunner:
         stop = cfg.general.stop_time
         self.replans = 0
         self.retries = 0
+        self.reshards = 0
         self._hb_mark = None
         self.ck_io = {}
         lead = self.mesh is None or self.mesh.rank == 0
@@ -552,9 +603,9 @@ class DeviceRunner:
             checkpoint.prevalidate_resume(
                 load_path, stop, save_path=xp.checkpoint_save,
                 save_time=xp.checkpoint_save_time)
-            # another shard count is refused with the reference's message
-            # (runner.py:618-650 adopts it instead: a shrunken geometry
-            # waits for ROADMAP.md queue (a) item 13)
+            # the callers adopt the saved shard count (`adopted_devices`,
+            # `_mesh_runs_rank`); a runner built on another is refused
+            # with the reference's message
             checkpoint.validate_geometry(
                 load_path, checkpoint.peek_meta(load_path), self.engine)
         if self._planned:
@@ -630,13 +681,14 @@ class DeviceRunner:
         H = len(self.sim.host_vertex)
         loop = {**engine.loop_stats, "phases": adv.pipeline["phases"],
                 "host_syncs": adv.pipeline["host_syncs"]}
-        if self.mesh is not None:
+        if engine.mesh_params is not None:
             loop["mesh"] = mesh_stats(engine)
         stats = stats_of(cfg, engine, {k: v[:H] for k, v in final.items()},
                          rounds, wall, loop)
         stats.end_time = adv.t_end
         stats.preempted, stats.resume_path = adv.preempted, adv.resume_path
         stats.retries = adv.retries
+        stats.reshards = adv.reshards
         n_exec = stats.events_executed
         log.info("device perf: %d rounds in %.2fs wall (%.0f rounds/s, "
                  "%.0f events/s)", rounds, wall,
@@ -707,6 +759,64 @@ def overflow_counts(state: dict, mesh=None) -> dict:
     got = mesh.all_sum(torch.tensor([counts[k] for k in keys],
                                     dtype=torch.int64))
     return dict(zip(keys, (int(v) for v in got.tolist())))
+
+
+def replan_for_shrink(owner, n_shards: int, record: Optional[dict],
+                      per_iter: int, floor_iters: int) -> None:
+    """The exchange capacities of `owner` (a DeviceRunner or an
+    EnsembleRunner) re-planned for `n_shards` ranks (runner.py:657-704):
+    fewer ranks hold more hosts a pair, so the old caps would only
+    overflow. They go back to the engine's own sizing, `exchange: auto`
+    is re-resolved by capacity.choose_exchange over the record (else
+    all_to_all), and a planned run's record sizes them again
+    (capacity.pair_matrix bounds a pair matrix of another shape by its
+    largest pair). Per-host capacities stay."""
+    xp = owner.cfg.experimental
+    headroom = xp.capacity_headroom or capacity.HEADROOM
+    for k in ("exchange_capacity", "exchange_capacity2"):
+        owner._capacity_overrides[k] = 0
+    exchange = xp.exchange
+    if exchange == "auto":
+        exchange = "all_to_all"
+        if record is not None:
+            exchange, info = capacity.choose_exchange(
+                record, n_shards, per_iter=per_iter,
+                floor_iters=floor_iters, headroom=headroom)
+            record["exchange_auto"] = info
+            log.info("shrink re-plan: exchange auto -> %s at %d shard(s)",
+                     exchange, n_shards)
+        owner._exchange_choice = exchange
+    if record is not None:
+        planned = capacity.plan(record, per_iter=per_iter,
+                                floor_iters=floor_iters, n_shards=n_shards,
+                                headroom=headroom, exchange=exchange)
+        for k in ("exchange_capacity", "exchange_capacity2"):
+            if planned[k]:
+                owner._capacity_overrides[k] = planned[k]
+        log.info("shrink re-plan at %d shard(s): %s", n_shards,
+                 {k: v for k, v in owner._capacity_overrides.items()
+                  if k.startswith("exchange")})
+
+
+def place_resharded(engine: DeviceEngine, template: dict, host_state: dict,
+                    n_hosts: int, axis: int) -> dict:
+    """The shrink's tail (runner.py:750-768): the validated global state
+    `host_state` re-padded onto `engine`'s geometry
+    (capacity.reshard_state), this rank's rows taken and placed through
+    the engine's own initial leaves `template` (`engine.init_arrays`;
+    `axis` 1 for a campaign's [R, H, ...] leaves). The rows of the other
+    ranks in the global template are copies of this rank's: only this
+    rank's rows of the result are kept. A one-device engine takes them
+    all."""
+    mp = engine.mesh_params
+    if mp is None:
+        return capacity.transfer(engine, capacity.reshard_state(
+            host_state, n_hosts, template), template)
+    glob = {k: np.concatenate([np.asarray(v)] * mp.S, axis=axis)
+            for k, v in template.items()}
+    new = capacity.reshard_state(host_state, n_hosts, glob)
+    return capacity.transfer(engine, shard_state(new, mp, axis=axis),
+                             template)
 
 
 def mesh_view(mesh, state: dict) -> dict:
@@ -806,14 +916,70 @@ def mesh_devices(n_shards: int, device="cuda") -> list:
     return [f"cuda:{i}" for i in range(n_shards)]
 
 
+def saved_shards(cfg: ConfigOptions) -> tuple[str, Optional[int]]:
+    """(the resolved checkpoint, the shard count its geometry stamp
+    names) of a config's `checkpoint_load`; ("", None) without one or
+    before its file exists, the count None on an unstamped file."""
+    load = cfg.experimental.checkpoint_load
+    if not load or not (os.path.exists(load)
+                        or supervise.rotation_entries(load)):
+        return "", None
+    path = supervise.resolve_checkpoint(load)
+    n = checkpoint.peek_geometry(checkpoint.peek_meta(path)).get("n_shards")
+    return path, None if n is None else int(n)
+
+
+def device_pool(cfg: ConfigOptions, device="cuda") -> list:
+    """The devices a run of `cfg` may take: its `mesh_shards` ranks
+    (`mesh_devices`), else its one device; where it loads a checkpoint
+    saved on more shards, every card there is (on the CPU, as many CPU
+    ranks as the checkpoint names), for `adopted_devices` to cut."""
+    if cfg.experimental.mesh_shards > 1:
+        return mesh_devices(cfg.experimental.mesh_shards, device)
+    _, n = saved_shards(cfg)
+    if n is None or n <= 1:
+        return [device]
+    if resolve_device(device).type == "cpu":
+        return ["cpu"] * n
+    return [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+
+
+def adopted_devices(cfg: ConfigOptions, devices: list) -> list:
+    """The devices a run of `cfg` takes of the pool `devices`: all of
+    them, or, where it loads a checkpoint stamped with another shard
+    count (a shrunken run's, device/supervise.py), the first that many,
+    so that the resume lands on the saved geometry (runner.py:618-655;
+    traces do not depend on which devices); refused with the reference's
+    message where the pool is smaller. A checkpoint not written yet
+    leaves the pool as it is (its mesh's ranks adopt it,
+    `_mesh_runs_rank`)."""
+    path, n = saved_shards(cfg)
+    if n is None or n == len(devices):
+        return list(devices)
+    if n > len(devices):
+        raise ValueError(
+            f"checkpoint {path} was saved on {n} shard(s) but only "
+            f"{len(devices)} device(s) are available — resume on a pool "
+            "of at least the saved shard count")
+    log.warning("checkpoint %s was saved on %d shard(s) (this pool has "
+                "%d) — rebuilding the mesh to the saved geometry for the "
+                "resume", path, n, len(devices))
+    return list(devices)[:n]
+
+
 def run_mesh(cfg: ConfigOptions, devices, timeout: float = DEFAULT_TIMEOUT
              ) -> SimStats:
     """Run a config on a mesh of one rank per entry of `devices` (the
     counterpart of the reference runner's `mesh=`; S distinct cards run
     NCCL, a card named more than once or the CPU gloo, mesh_backend);
-    the SimStats of its hosts, assembled by rank 0 in the one-device
-    layout, with `mesh` the exchange's record."""
+    the SimStats of its hosts, assembled by the lead rank in the
+    one-device layout, with `mesh` the exchange's record. A hybrid
+    failover of the ranks raises here, in the caller's process, as
+    DeviceFailover (core/controller.py reruns the config on the hybrid
+    policy)."""
     stats = mesh_runs(devices, [cfg], timeout=timeout)[0][0]
+    if isinstance(stats, supervise.DeviceFailover):
+        raise stats
     m = stats.mesh
     log.info("mesh: %d ranks (%s), exchange %s (config: %s), CAP %d, "
              "CAP2 %d; rank 0 sent %d B, staging %.3f s, collectives "
@@ -829,22 +995,29 @@ def mesh_runs(devices, cfgs: list, keep_state=False, timing=False,
     final leaves gathered into the H_pad layout where `keep_state`,
     else None), ...]; a campaign config (`ensemble:`) runs its
     EnsembleRunner on every rank and gives its [R, H_pad, ...] leaves
-    always, the heaps where `keep_state`. `stats.mesh["ranks"]` holds
-    each rank's record:
+    always, the heaps where `keep_state`; a config whose retries ran
+    out under `failover: hybrid` gives (DeviceFailover, None). A run
+    that shrank (`failover: shrink`) gives the lowest survivor's stats
+    and leaves (the shrunken layout). `stats.mesh["ranks"]` holds each
+    rank's record:
     its exchange (mesh_stats), kernel launches, peak device memory (on
     a card) and, with `timing` (Kernels(timing=True): an event pair
-    around each launch), its device ms per kernel;
+    around each launch), its device ms per kernel; a rank that left at
+    a shrink or sat out an adopted geometry records `left`;
     `stats.mesh["launches"]` sums the launches over the ranks.
     `keep_state` and `timing` are each one flag for every config or a
     list of one flag per config. The CUDA kernels are built here, before
-    the ranks start, so that the ranks only load them. A config that
-    loads a checkpoint has its geometry checked here where the file
-    exists, and otherwise by its rank (an earlier config of the same
-    call may write it)."""
+    the ranks start, so that the ranks only load them. A config whose
+    `mesh_shards` names fewer ranks than `devices` runs on the first
+    that many, the others sitting it out (`config_ranks`). A config that
+    loads a checkpoint saved on more shards than `devices` is refused
+    here where the file exists, and by its ranks otherwise (an earlier
+    config of the same call may write it); on fewer, its first ranks
+    adopt the saved count and the others sit it out."""
     keep_state, timing = (_per_config(f, len(cfgs))
                           for f in (keep_state, timing))
     for cfg in cfgs:
-        check_mesh_resume(cfg, len(devices))
+        adopted_devices(cfg, devices)
     if any(torch.device(d).type == "cuda" for d in devices):
         build_library()
     return spawn(devices, _mesh_runs_rank, (cfgs, keep_state, timing),
@@ -859,27 +1032,63 @@ def _per_config(flag, n: int) -> list:
     return [bool(f) for f in flag]
 
 
-def check_mesh_resume(cfg: ConfigOptions, n_shards: int) -> None:
-    """A mesh resume's geometry, refused before any rank starts where
-    the checkpoint was saved on another number of shards (the
-    reference's message, checkpoint.validate_geometry); a checkpoint
-    not written yet is left to the ranks."""
-    load = cfg.experimental.checkpoint_load
-    if not load or not (os.path.exists(load)
-                        or supervise.rotation_entries(load)):
-        return
-    path = supervise.resolve_checkpoint(load)
-    H = cfg.total_hosts()
-    here = SimpleNamespace(n_shards=n_shards,
-                           H_pad=-(-H // n_shards) * n_shards)
-    checkpoint.validate_geometry(path, checkpoint.peek_meta(path), here)
+def config_ranks(cfg: ConfigOptions, devices: list) -> int:
+    """How many of a spawned mesh's `devices` a config runs on: the
+    shard count of the checkpoint it loads (`adopted_devices`), else its
+    `mesh_shards` where that names fewer, else all of them."""
+    n = len(adopted_devices(cfg, devices))
+    S = cfg.experimental.mesh_shards
+    if n == len(devices) and 1 < S < n:
+        return S
+    return n
+
+
+def _leads(mesh) -> bool:
+    """Whether this rank leads the mesh a run ended on."""
+    return mesh.rank == 0
+
+
+def _run_config(mesh, cfg: ConfigOptions, kernels: Kernels,
+                keep_state: bool) -> tuple:
+    """One config on this rank of `mesh`: its DeviceRunner, or its
+    campaign's EnsembleRunner (ensemble/campaign.py). Returns ((stats,
+    leaves), or (DeviceFailover, None), where this rank leads the mesh
+    the run ended on, else None; the rank's exchange record
+    ({"shards": 1} where the run ended on one rank); its admission).
+    Raises supervise.LeftMesh where a shrink left this rank out."""
+    if cfg.ensemble is not None:
+        from shadow_tpu_torch.ensemble.campaign import EnsembleRunner
+
+        # a campaign: its lead gathers its [R, H_pad, ...] leaves, the
+        # heaps where `keep_state`
+        er = EnsembleRunner(cfg, mesh.device, kernels, mesh=mesh)
+        er.keep_heaps = keep_state
+        stats = er.run()
+        return ((stats, er.final_state) if _leads(er.mesh) else None,
+                er.mesh_record or {"shards": 1}, er.admission)
+    dr = DeviceRunner(cfg, build(cfg), mesh.device, kernels, mesh)
+    try:
+        stats = dr.run()
+    except supervise.DeviceFailover as e:
+        # every rank escalated on the mesh that failed; its lead hands
+        # the failover back to the parent
+        return ((e, None) if _leads(dr.mesh) else None,
+                dr.engine.loop_stats.get("mesh", {}), dr.engine.admission)
+    leaves = dr.mesh.gather_leaves(state_to_numpy(dr.final_state)) \
+        if keep_state else None
+    return ((stats, leaves) if _leads(dr.mesh) else None,
+            dr.engine.loop_stats.get("mesh") or {"shards": 1},
+            dr.engine.admission)
 
 
 def _mesh_runs_rank(mesh, cfgs: list, keep_states: list,
                     timings: list) -> list:
-    """mesh_runs on one rank: each config's DeviceRunner, or its
-    campaign's EnsembleRunner (ensemble/campaign.py), on this rank's
-    device; rank 0 returns [(stats, leaves), ...]."""
+    """mesh_runs on one rank: each config on this rank's device, on the
+    whole mesh or on the first ranks of an adopted checkpoint geometry;
+    world rank 0 returns [(stats, leaves), ...], taken from the lowest
+    survivor where a shrink left rank 0 out."""
+    from shadow_tpu_torch.device.mesh import sync_groups
+
     out = []
     cuda = mesh.device.type == "cuda"
     for cfg, keep_state, timing in zip(cfgs, keep_states, timings):
@@ -889,40 +1098,45 @@ def _mesh_runs_rank(mesh, cfgs: list, keep_states: list,
             gc.collect()
             torch.cuda.reset_peak_memory_stats(mesh.device)
         kernels = Kernels(timing=timing)
-        if cfg.ensemble is not None:
-            from shadow_tpu_torch.ensemble.campaign import EnsembleRunner
-
-            # a campaign: rank 0 gathers its [R, H_pad, ...] leaves, the
-            # heaps where `keep_state`
-            er = EnsembleRunner(cfg, mesh.device, kernels, mesh=mesh)
-            er.keep_heaps = keep_state
-            stats = er.run()
-            leaves = er.final_state
-            record, admission = er.mesh_record, er.admission
-        else:
-            dr = DeviceRunner(cfg, build(cfg), mesh.device, kernels, mesh)
-            stats = dr.run()
-            leaves = mesh.gather_leaves(state_to_numpy(dr.final_state)) \
-                if keep_state else None
-            record, admission = dr.engine.loop_stats["mesh"], \
-                dr.engine.admission
+        n = config_ranks(cfg, mesh.members)
+        own = mesh if n == mesh.size else mesh.shrink(list(range(n)))
+        result, record, admission = None, {"left": True}, None
+        if own is not None:
+            try:
+                result, record, admission = _run_config(own, cfg, kernels,
+                                                        keep_state)
+            except supervise.LeftMesh as e:
+                log.warning("%s", e)
+        # the process groups of this config's shrinks, counted alike on
+        # every rank before the next config
+        sync_groups(mesh)
         ranks = mesh.gather({
             **record,
-            "launches": {k: n for k, n in kernels.launches.items() if n},
+            "launches": {k: c for k, c in kernels.launches.items() if c},
             "peak_bytes": (torch.cuda.max_memory_allocated(mesh.device)
                            if cuda else None),
-            "estimate_bytes": admission["estimate"]["per_device"],
+            "estimate_bytes": (admission["estimate"]["per_device"]
+                               if admission else None),
             "kernel_ms": ({k: v for k, v in kernels.kernel_ms().items()
-                           if v} if timing else None)})
+                           if v} if timing else None),
+            "result": None if mesh.rank == 0 else result})
         if mesh.rank == 0:
+            for r in ranks:
+                got = r.pop("result")
+                if result is None:
+                    result = got
+            stats, leaves = result
+            if isinstance(stats, supervise.DeviceFailover):
+                out.append((stats, None))
+                continue
             launches = {}
             for r in ranks:
-                for k, n in r["launches"].items():
-                    launches[k] = launches.get(k, 0) + n
-            stats.mesh = {**stats.mesh, "ranks": ranks,
-                          "launches": launches}
+                for k, c in r["launches"].items():
+                    launches[k] = launches.get(k, 0) + c
+            stats.mesh = {**(stats.mesh or {"shards": 1}),
+                          "ranks": ranks, "launches": launches}
             out.append((stats, leaves))
-        dr = er = None
+        result = None
     return out
 
 

@@ -1,7 +1,7 @@
 """Supervised device runs (the port of the reference package's
 device/supervise.py: the segmented advance, validated rotating
-checkpoints, the preemption drain, dispatch retry and the hybrid
-failover, with the reference's message text).
+checkpoints, the preemption drain, dispatch retry, the mesh shrink and
+the hybrid failover, with the reference's message text).
 
 `advance` is the loop the device runner (device/runner.py) and the
 campaign (ensemble/campaign.py) run a simulation through: segments cut
@@ -34,12 +34,17 @@ captured window loop's graph is keyed on, so it costs no capture.
   so that every rank saves and stops at the same one.
 * Dispatch retry: a transient error (TRANSIENT_MARKERS) replays from the
   validated copy after a capped backoff; past `dispatch_retries`
-  consecutive failures `failover: hybrid` persists the copy and raises
-  DeviceFailover, which core/controller.py answers with a hybrid rerun.
-  A second consecutive out-of-memory error at one boundary is a
-  capacity fact, whose degradation ladder is not ported: it raises,
-  naming ROADMAP.md queue (a) item 13, as do the mesh shrink, the
-  pipelined window and the watchdog.
+  consecutive failures `failover: shrink` probes the mesh's ranks
+  (`surviving_ranks`) and, where some died and some live, re-shards the
+  validated copy onto the survivors (`_shrink_recover`: device/mesh.py
+  `Mesh.shrink`, the runner's `_shrink_to`, capacity.reshard_state) and
+  goes on on the device with a fresh retry budget; otherwise, and under
+  `failover: hybrid`, the copy is persisted and DeviceFailover raised,
+  which core/controller.py answers with a hybrid rerun (a campaign
+  re-raises). A second consecutive out-of-memory error at one boundary
+  is a capacity fact, whose degradation ladder is not ported: it
+  raises, naming ROADMAP.md queue (a) item 13, as do the pipelined
+  window and the watchdog.
 * Chaos (device/chaos.py): the dispatch seam before each segment's
   launch, the checkpoint seam after each rotation save.
 """
@@ -101,6 +106,13 @@ AUDIT_BIT_NAMES = {
 }
 
 
+class LeftMesh(Exception):
+    """This rank's device failed the liveness probe of a mesh shrink:
+    the survivors go on without it, and it leaves the run (the ranks'
+    loop, device/runner.py `_mesh_runs_rank`, goes on to its next
+    config)."""
+
+
 class AuditFailure(RuntimeError):
     """The on-device invariant audit found a corrupted state. The run
     stops rather than writing (or running past) a checkpoint that a
@@ -121,6 +133,11 @@ class DeviceFailover(RuntimeError):
         self.checkpoint_path = checkpoint_path
         self.sim_time = int(sim_time)
         self.persist_error = persist_error
+
+    def __reduce__(self):
+        # a mesh rank hands it back to the parent (device/runner.py)
+        return (DeviceFailover, (str(self), self.checkpoint_path,
+                                 self.sim_time, self.persist_error))
 
 
 def is_transient(exc: BaseException) -> bool:
@@ -419,14 +436,15 @@ class Checkpointer:
             extra_meta=self.extra_meta,
             audit_meta={"enabled": self.audit_enabled, "violations": 0})
         self.last_path, self.last_t = path, t
-        if io is None:          # a mesh rank other than 0
-            return path
-        self.io.append(io)
         inj = chaosmod.current()
         if inj is not None:
             # a scripted checkpoint_corrupt truncates the entry just
-            # landed; the run goes on, a resume falls back
-            inj.on_checkpoint_saved(path)
+            # landed (every mesh rank counts, the writer truncates); the
+            # run goes on, a resume falls back
+            inj.on_checkpoint_saved(path, wrote=io is not None)
+        if io is None:          # a mesh rank other than 0
+            return path
+        self.io.append(io)
         self._prune()
         log.info("rotating checkpoint at t=%d ns -> %s "
                  "(keep %d; resume with checkpoint_load: %s)",
@@ -447,10 +465,12 @@ class AdvanceResult:
     """What `advance` hands back beside the final state: the summed
     rounds (an [R] array in a campaign), where it ended, every way it
     can end short of `pause` (the round budget, an unplanned overflow,
-    a preemption and its resume checkpoint), the retries it absorbed,
-    and the segment loop's record (`pipeline`: segments run, replayed
-    after a re-plan or a retry, host syncs, graph captures, the kept
-    segments' phases, the retries' recovery and replay walls)."""
+    a preemption and its resume checkpoint), the retries it absorbed and
+    the mesh shrinks it made, and the segment loop's record
+    (`pipeline`: segments run, replayed after a re-plan, a retry or a
+    shrink, host syncs, graph captures, the kept segments' phases, the
+    retries' recovery and replay walls, each shrink's walls:
+    `_shrink_recover`)."""
 
     rounds: np.ndarray = field(default_factory=lambda: np.int64(0))
     t_end: int = 0
@@ -459,6 +479,7 @@ class AdvanceResult:
     preempted: bool = False
     resume_path: str = ""
     retries: int = 0
+    reshards: int = 0
     pipeline: dict = field(default_factory=dict)
 
 
@@ -501,11 +522,13 @@ def advance(runner, state, t_start: int, pause: int, stop: int,
     the health word under the state audit, the heartbeats (not at
     `stop`), the validated copy, the rotation save (not at `stop`).
     `runner` is the device runner or the campaign: its `engine`, `cfg`,
-    `replans`, `retries`, `_capacity_overrides`, `checkpointer`,
-    `guard`, `chaos`, `_ck_extra_meta`, `mesh` (or None),
-    `overflow_counts(state)` (a mesh's sums), `replan(host_state)` (the
-    rebuilt engine's state), `reload(path, stop)` (a rebuilt engine's
-    state from a checkpoint) and `_emit_heartbeats(t, state)`.
+    `replans`, `retries`, `reshards`, `_capacity_overrides`,
+    `checkpointer`, `guard`, `chaos`, `_ck_extra_meta`, `mesh` (or
+    None), `overflow_counts(state)` (a mesh's sums), `replan(host_state)`
+    (the rebuilt engine's state), `reload(path, stop)` (a rebuilt
+    engine's state from a checkpoint), `_shrink_to(mesh, host_state)`
+    and `_undo_shrink()` (the shrink's re-shard and its rollback) and
+    `_emit_heartbeats(t, state)`.
 
     Returns (state, AdvanceResult)."""
     from shadow_tpu_torch.device import capacity, checkpoint
@@ -527,7 +550,8 @@ def advance(runner, state, t_start: int, pause: int, stop: int,
     label = "ensemble " if ensemble else ""
     res = AdvanceResult()
     stats = {"segments": 0, "replayed": 0, "host_syncs": 0,
-             "captures": 0, "recover_s": [], "replay_s": []}
+             "captures": 0, "recover_s": [], "replay_s": [],
+             "reshards": []}
     phases = np.int64(0)
     res.pipeline = stats
     good = _snapshot(state, None) if keep_good else None
@@ -566,9 +590,10 @@ def advance(runner, state, t_start: int, pause: int, stop: int,
         """A dispatch error: re-raised unless transient with a validated
         copy to replay from; a second consecutive out-of-memory error
         at one boundary raises (the ladder is item 13); past
-        `dispatch_retries` consecutive failures `_escalate`; else back
-        off and put the validated copy back. Returns the state to go on
-        from; rewinds t to its boundary."""
+        `dispatch_retries` consecutive failures the shrink under
+        `failover: shrink` (the survivors earn a fresh retry budget),
+        else `_escalate`; else back off and put the validated copy back.
+        Returns the state to go on from; rewinds t to its boundary."""
         nonlocal failures, oom_streak, t, good, good_t, next_hb, next_ck
         nonlocal replay_from, captures0
         if not is_transient(e) or good is None:
@@ -586,6 +611,27 @@ def advance(runner, state, t_start: int, pause: int, stop: int,
         res.retries += 1
         runner.retries = res.retries
         if failures > xp.dispatch_retries:
+            if xp.failover == "shrink":
+                old = runner.engine
+                walls = {}
+                shrunk = _shrink_recover(runner, e, good, good_t, ensemble,
+                                         ck, walls)
+                if shrunk is not None:
+                    new_state, t_shrunk = shrunk
+                    stats["reshards"].append(walls)
+                    failures = 0
+                    res.reshards += 1
+                    runner.reshards = res.reshards
+                    stats["captures"] += old.captures - captures0
+                    captures0 = runner.engine.captures
+                    del old, live
+                    good = _snapshot(new_state, None)
+                    good_t = t = int(t_shrunk)
+                    next_hb = (t // hb + 1) * hb if hb else None
+                    next_ck = ck.next_after(t) if ck is not None else None
+                    stats["replayed"] += 1
+                    replay_from = time.perf_counter()
+                    return new_state
             _escalate(runner, e, good, good_t, stop, ensemble, ck)
         delay = min(xp.dispatch_retry_backoff * (2 ** (failures - 1)),
                     BACKOFF_CAP_S)
@@ -632,7 +678,7 @@ def advance(runner, state, t_start: int, pause: int, stop: int,
             if chaos_inj is not None:
                 # the deterministic chaos seam: raises on the host,
                 # before the segment launches anything
-                chaos_inj.on_dispatch_issue(runner.engine)
+                chaos_inj.on_dispatch_issue(getattr(runner, "mesh", None))
             state, seg_rounds = runner.engine.run(state, stop=nxt,
                                                   final_stop=stop)
             dims = capacity.overflow_dims(state,
@@ -708,6 +754,157 @@ def advance(runner, state, t_start: int, pause: int, stop: int,
     stats["phases"] = phases.tolist()
     res.t_end = t
     return state, res
+
+
+def surviving_ranks(mesh, device) -> list[int]:
+    """The liveness probe of a shrink (supervise.py:417-442): each rank
+    probes its own device (a one-element tensor placed on it, the
+    device synchronised), after consulting the chaos injector, so that
+    a scripted loss fails the probe as a real one would; the verdicts
+    are summed over the mesh's ranks, so that every rank returns the
+    same survivors: their positions (device/mesh.py `Mesh.pos`), in
+    mesh order. On one device (`mesh` None) [0], or [] where it
+    failed."""
+    from shadow_tpu_torch.device import chaos as chaosmod
+
+    inj = chaosmod.current()
+    pos = 0 if mesh is None else mesh.pos
+    dev = torch.device(device if mesh is None else mesh.device)
+    ok = 1
+    if inj is not None and inj.is_dead(pos):
+        log.warning("device %s (mesh position %d) failed the liveness "
+                    "probe (scripted device loss)", dev, pos)
+        ok = 0
+    else:
+        try:
+            torch.zeros(1, dtype=torch.int32, device=dev)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+        except Exception as e:      # noqa: BLE001 — any failure = dead
+            log.warning("device %s (mesh position %d) failed the "
+                        "liveness probe: %s", dev, pos, e)
+            ok = 0
+    if mesh is None:
+        return [0] if ok else []
+    flags = torch.zeros(mesh.size, dtype=torch.int64)
+    flags[mesh.rank] = ok
+    return [p for p, f in zip(mesh.members, mesh.all_sum(flags).tolist())
+            if f]
+
+
+def _host_copy(state: dict) -> dict:
+    """A state's leaves read back to the host (the shrink's gather of
+    the validated copy; a dead device's copy may not read)."""
+    return {k: v.cpu().numpy() for k, v in state.items()}
+
+
+def _shrink_recover(runner, exc, good, good_t, ensemble, ck,
+                    walls: Optional[dict] = None):
+    """`failover: shrink` with the retries spent (supervise.py:445-536):
+    probe the mesh, and where some ranks died and some live, re-shard
+    the last validated state onto the survivors and hand back the state
+    the advance goes on from on the device. Returns (state, its sim
+    time), or None where no shrink is possible (nothing dead, nothing
+    alive, the state unrecoverable, the re-shard failed on any rank):
+    every rank then escalates on the old mesh. A rank found dead raises
+    LeftMesh once the survivors' re-shard has succeeded.
+
+    On every rank of the old mesh, in one order: the probe; the
+    validated copy, every rank's rows gathered on every rank (where any
+    rank cannot read its copy, the newest readable rotation entry, and
+    the replay rewinds to its time); the survivors' process group
+    (`Mesh.shrink`); each survivor's re-shard and rebuild
+    (`runner._shrink_to`: exchange re-planned for M ranks, the engine
+    rebuilt, the state re-padded, capacity.reshard_state, and placed);
+    the verdicts reduced, so that one failed survivor rolls every
+    survivor back (`runner._undo_shrink`) and the failover checkpoint
+    keeps the old geometry. Traces do not depend on the mesh's shape and
+    the re-shard carries every per-host leaf verbatim, so the N-rank
+    prefix and the M-rank rest equal an uninterrupted M-rank run.
+    `walls` gets the host seconds of each step (probe_s, gather_s,
+    group_s, rebuild_s: the re-plan, the engine and the placed state,
+    total_s)."""
+    from shadow_tpu_torch.device import checkpoint
+
+    walls = {} if walls is None else walls
+    t0 = time.perf_counter()
+    mesh = getattr(runner, "mesh", None)
+    old_n = 1 if mesh is None else mesh.size
+    alive = surviving_ranks(mesh, runner.engine.device)
+    walls["probe_s"] = time.perf_counter() - t0
+    n_dead = old_n - len(alive)
+    if n_dead == 0:
+        log.error("shrink failover: every mesh device passed the "
+                  "liveness probe — the dispatch failure (%s) cannot "
+                  "be attributed to a dead device; escalating", exc)
+        return None
+    if not alive:
+        log.error("shrink failover: no mesh device survived the "
+                  "liveness probe; escalating")
+        return None
+    axis = 1 if ensemble else 0
+    t_good = good_t
+    try:
+        mine = _host_copy(good)
+        fetch_err = None
+    except Exception as e:          # noqa: BLE001 — a dead device's copy
+        mine, fetch_err = None, e
+    if int(mesh.all_min(torch.tensor([int(fetch_err is None)])).item()):
+        host_state = mesh.all_gather_leaves(mine, axis=axis)
+    else:
+        if ck is None or not ck.last_path:
+            log.error("shrink failover: the last validated state is "
+                      "unrecoverable (%s) and no rotating checkpoint "
+                      "exists; escalating", fetch_err)
+            return None
+        log.warning("shrink failover: could not fetch the in-memory "
+                    "state (%s); re-sharding the newest readable "
+                    "rotating checkpoint instead", fetch_err)
+        host_state = None
+        for _, p in reversed(rotation_entries(ck.base)):
+            try:
+                host_state, meta = checkpoint.load_host_state(p)
+                break
+            except Exception as load_err:   # noqa: BLE001 — torn entry
+                log.warning("shrink failover: rotation entry %s is "
+                            "unreadable (%s); trying the previous one",
+                            p, load_err)
+        if host_state is None:
+            log.error("shrink failover: no readable rotation entry "
+                      "under %s; escalating", ck.base)
+            return None
+        t_good = int(meta["sim_time"])
+    t1 = time.perf_counter()
+    walls["gather_s"] = t1 - t0 - walls["probe_s"]
+    survivor = mesh.shrink(alive)
+    t2 = time.perf_counter()
+    walls["group_s"] = t2 - t1
+    state, ok = None, 1
+    if survivor is not None:
+        try:
+            state = runner._shrink_to(survivor, host_state, ensemble)
+            walls["rebuild_s"] = time.perf_counter() - t2
+        except Exception as re_err:     # noqa: BLE001 — escalate, not crash
+            log.error("shrink failover: re-sharding onto the %d "
+                      "surviving device(s) failed (%s); escalating",
+                      len(alive), re_err)
+            ok = 0
+    if not int(mesh.all_min(torch.tensor([ok])).item()):
+        if state is not None:
+            runner._undo_shrink()
+        return None
+    if survivor is None:
+        raise LeftMesh(f"mesh position {mesh.pos} failed the liveness "
+                       f"probe; the run goes on on positions {alive}")
+    walls["total_s"] = time.perf_counter() - t0
+    if survivor.rank == 0:
+        log.warning(
+            "MESH SHRINK: %d device(s) dead (%s) — re-sharded the last "
+            "validated state (t=%d ns) onto the %d surviving device(s) "
+            "and continuing on-device at %d/%d of mesh throughput; "
+            "checkpoints from here stamp the shrunken geometry",
+            n_dead, exc, t_good, len(alive), len(alive), old_n)
+    return state, t_good
 
 
 def _recover_state(runner, live: dict, good: dict, ck, stop: int):

@@ -1,7 +1,7 @@
 """EnsembleRunner: R-replica simulation campaigns in one window loop (the
 port's copy of the reference package's ensemble/campaign.py, on one GPU
-or on the host mesh, without the mesh shrink or the out-of-memory
-ladder: ROADMAP.md queue (a) item 13).
+or on the host mesh, without the out-of-memory ladder: ROADMAP.md queue
+(a) item 13.2).
 
 On a mesh (`mesh=`, device/mesh.py; `experimental.mesh_shards`) every
 rank runs one EnsembleRunner whose engine holds its H_loc hosts of all R
@@ -12,7 +12,11 @@ Every decision that ends, widens or replays the campaign is taken from
 values reduced over the ranks; rank 0 gathers the final leaves along
 the host axis ([R, H_pad, ...]), prints the `[ensemble-heartbeat]`
 lines, writes the record and returns the stats (the other ranks return
-None).
+None). A campaign's failover is the shrink (campaign.py:182-215): a mesh
+that lost ranks re-shards every replica onto the survivors (the replica
+axis stays whole, `_Segments._shrink_to`) and goes on; on one device,
+or where nothing died, the campaign re-raises with its checkpoints on
+disk (the hybrid rung cannot run replicas).
 
 Checkpoints (device/checkpoint.py) carry the campaign's stamp
 (`ensemble`: its `campaign_fp` and R), so that a standalone run refuses
@@ -149,6 +153,7 @@ class EnsembleRunner:
         # supervision (device/supervise.py), set per run; campaign
         # checkpoints carry the campaign's stamp
         self.retries = 0
+        self.reshards = 0
         self.guard: Optional[supervise.PreemptionGuard] = None
         self._ck_extra_meta = {"campaign": self.worlds.campaign_fp,
                                "replicas": int(self.worlds.R)}
@@ -493,7 +498,7 @@ class EnsembleRunner:
         final = self._gather(state_to_numpy(
             state, [k for k in state
                     if self.keep_heaps or k not in HEAP_FIELDS]))
-        if self.mesh is not None:
+        if engine.mesh_params is not None:
             self.mesh_record = mesh_stats(engine)
         self._last_engine = engine
         return final, rounds, adv
@@ -539,6 +544,7 @@ class EnsembleRunner:
                 load=resume[0] if b == b_resume else "", ck=ck)
             combined.t_end = adv.t_end
             combined.retries += adv.retries
+            combined.reshards += adv.reshards
             combined.budget_hit |= adv.budget_hit
             combined.overflowed |= adv.overflowed
             if adv.preempted:
@@ -618,6 +624,7 @@ class EnsembleRunner:
         self.segments = []
         self.replans = 0
         self.retries = 0
+        self.reshards = 0
         self.captures = 0
         self.ck_io = {}
         self._hb_mark = None
@@ -668,7 +675,7 @@ class EnsembleRunner:
                 final, rounds_r, adv = self._run_once(
                     w, stop, pause=pause, load=load_path, ck=ck,
                     final_save=bool(xp.checkpoint_save))
-        self.retries = adv.retries
+        self.retries, self.reshards = adv.retries, adv.reshards
         wall = time.perf_counter() - t0
         if not self.lead:
             self._last_engine = None
@@ -684,6 +691,7 @@ class EnsembleRunner:
                 wall_s=wall, preempted=True,
                 resume_path=adv.resume_path, retries=adv.retries,
                 admission=self.admission, replans=self.replans,
+                reshards=adv.reshards,
                 pipeline={"checkpoint_io": self.ck_io})
         self.final_state = final
         H = len(self.sim.host_vertex)
@@ -733,11 +741,13 @@ class EnsembleRunner:
                       "replayed": sum(p["replayed"] for p in self.segments),
                       "host_syncs": sum(p["host_syncs"]
                                         for p in self.segments),
+                      "reshards": [w for p in self.segments
+                                   for w in p["reshards"]],
                       "graph_captures": self.captures,
                       "engines": self.engines_built,
                       "warmup_wall_s": self.warmup_wall_s,
                       "checkpoint_io": self.ck_io},
-            retries=adv.retries)
+            retries=adv.retries, reshards=adv.reshards)
         if self.hb_monitor is not None:
             stats.stale_heartbeats = self.hb_monitor.stale_events
         stats.mesh = self.mesh_record
@@ -766,20 +776,24 @@ def _free(device) -> None:
 class _Segments:
     """The campaign's side of the segmented advance (the runner
     `supervise.advance` asks for): the campaign engine of one batch of
-    worlds, its rotating checkpointer, the campaign's guard, chaos,
-    stamp, retries, re-plans and capacity knobs, and its heartbeats
-    with the batch's first replica."""
+    worlds, its rotating checkpointer, the campaign's mesh, guard,
+    chaos, stamp, retries, shrinks, re-plans and capacity knobs, and
+    its heartbeats with the batch's first replica."""
 
     def __init__(self, er: EnsembleRunner, worlds: EnsembleWorlds,
                  offset: int, checkpointer=None):
         self.er, self.worlds, self.offset = er, worlds, offset
         self.cfg = er.cfg
-        self.mesh = er.mesh
         self.checkpointer = checkpointer
         self.guard, self.chaos = er.guard, er.chaos
         stamp = None if checkpointer is None else checkpointer.extra_meta
         self._ck_extra_meta = stamp or er._ck_extra_meta
+        self._before_shrink: Optional[tuple] = None
         self.engine = er.engine(worlds)
+
+    @property
+    def mesh(self):
+        return self.er.mesh
 
     @property
     def replans(self) -> int:
@@ -796,6 +810,14 @@ class _Segments:
     @retries.setter
     def retries(self, n: int) -> None:
         self.er.retries = n
+
+    @property
+    def reshards(self) -> int:
+        return self.er.reshards
+
+    @reshards.setter
+    def reshards(self, n: int) -> None:
+        self.er.reshards = n
 
     @property
     def _capacity_overrides(self) -> dict:
@@ -826,6 +848,38 @@ class _Segments:
         state, _, _ = checkpoint.load_state(self.engine, self.template(),
                                             path, final_stop=stop)
         return state
+
+    def _shrink_to(self, mesh, host_state: dict, ensemble: bool = True
+                   ) -> dict:
+        """The campaign's shrink (campaign.py:182-215): the campaign
+        moved onto the survivors' `mesh`, its exchange re-planned for
+        their count (runner.replan_for_shrink), the campaign engine of
+        this batch rebuilt and the [R, H_pad, ...] validated state
+        re-padded onto it, every replica whole
+        (runner.place_resharded). Transactional, as the runner's."""
+        er = self.er
+        self._before_shrink = (er.mesh, self.engine,
+                               dict(er._capacity_overrides),
+                               er._exchange_choice)
+        try:
+            er.mesh = mesh
+            runner.replan_for_shrink(
+                er, mesh.size, er.occ_record if er._planned else None,
+                self.engine.effective["M_out"],
+                4 if max(1, er.app.burst_pops) > 1 else 8)
+            self._rebuild()
+            return runner.place_resharded(self.engine, self.template(),
+                                          host_state,
+                                          len(er.sim.host_vertex), axis=1)
+        except Exception:
+            self._undo_shrink()
+            raise
+
+    def _undo_shrink(self) -> None:
+        er = self.er
+        (er.mesh, self.engine, er._capacity_overrides,
+         er._exchange_choice) = self._before_shrink
+        self._before_shrink = None
 
     def _emit_heartbeats(self, now: int, state: dict) -> None:
         self.er._emit_heartbeats(now, state, self.offset)

@@ -567,7 +567,8 @@ def test_what_a_mesh_does_not_run_yet_is_refused(override):
     """A campaign on a mesh, the audit, the model NIC, the path counters
     and the hybrid fall-back are admitted (the last two build with the
     reference's reason to run hybrid in `no_twin`); nothing of these is
-    refused any more (a campaign's item-13 knobs are,
+    refused any more (nor, since ROADMAP (a) item 13.1, a campaign's
+    retries, shrink and chaos on a mesh,
     `test_a_campaign_on_a_mesh_refuses_item_13`)."""
     from shadow_tpu_torch.core.build import OutsideSlice, build
 
@@ -590,6 +591,7 @@ def test_what_a_mesh_does_not_run_yet_is_refused(override):
         assert sim.app is None and reason in sim.no_twin
 
 
+# what the refusals said until ROADMAP (a) item 13.1 admitted the keys
 ITEM_13_ON_A_MESH = (r"on a mesh .*ROADMAP.md queue \(a\) item 13 "
                      r"\(dispatch retry, failover and chaos on a mesh")
 
@@ -597,22 +599,25 @@ ITEM_13_ON_A_MESH = (r"on a mesh .*ROADMAP.md queue \(a\) item 13 "
 @pytest.mark.parametrize("override,match", [
     ("experimental.dispatch_retries=2", ITEM_13_ON_A_MESH),
     # a campaign's failover is the shrink (the schema refuses `hybrid`
-    # for campaigns with the reference's message), which is item 13's
+    # for campaigns with the reference's message)
     ("experimental.failover=shrink", r"failover: shrink \(the mesh "
      r"shrink.*ROADMAP.md queue \(a\) item 13 \(the mesh shrink\)"),
     ("experimental.chaos=[{kind: dispatch_error, segment: 1}]",
      ITEM_13_ON_A_MESH),
 ])
 def test_a_campaign_on_a_mesh_refuses_item_13(override, match):
-    """A campaign on a mesh with dispatch retries, a failover or chaos is
-    refused naming ROADMAP (a) item 13, as a standalone mesh run is."""
+    """A campaign on a mesh with dispatch retries, the shrink or chaos,
+    refused naming ROADMAP (a) item 13 (`match`) until 13.1, is
+    admitted: it builds with its device twin, as a standalone mesh run
+    does, and no refusal is raised."""
     from shadow_tpu_torch.config import load_config_str
-    from shadow_tpu_torch.core.build import OutsideSlice, build
+    from shadow_tpu_torch.core.build import build
 
     cfg = load_config_str(PHOLD, ovr(2) + [
         "ensemble={replicas: 2, vary: {seed: [5, 6]}}", override])
-    with pytest.raises(OutsideSlice, match=match):
-        build(cfg)
+    sim = build(cfg)
+    assert sim.app is not None and sim.no_twin is None
+    assert match.startswith(("on a mesh", "failover"))
 
 
 def test_mesh_shards_needs_the_tpu_policy_and_a_known_exchange():

@@ -79,9 +79,15 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     assert runner.run(cfg, device="cpu").ok
 
 
-# admitted since ROADMAP (a) item 9a
+# admitted since ROADMAP (a) item 9a (the audit on a mesh) and 13.1
+# (the mesh shrink, the device_loss chaos kind, retries on a mesh)
 MESH_ADMITTED = ("experimental={scheduler_policy: tpu, mesh_shards: 2, "
-                 "state_audit: true}",)
+                 "state_audit: true}",
+                 "experimental.failover=shrink",
+                 "experimental.chaos=[{kind: device_loss, segment: 1, "
+                 "shard: 0}]",
+                 "experimental={scheduler_policy: tpu, mesh_shards: 2, "
+                 "dispatch_retries: 1}")
 
 
 @pytest.mark.parametrize("override,item", [
@@ -103,7 +109,8 @@ MESH_ADMITTED = ("experimental={scheduler_policy: tpu, mesh_shards: 2, "
 def test_configs_outside_the_slice_are_refused_by_roadmap_item(
         override, item):
     """Each refused key names its ROADMAP item; the audit on a mesh,
-    refused until ROADMAP (a) item 9a, is admitted."""
+    refused until ROADMAP (a) item 9a, and the shrink, a device loss and
+    retries on a mesh, refused until item 13.1, are admitted."""
     from shadow_tpu_torch.config.loader import load_config_str as load
 
     cfg = load(PHOLD, [override])
@@ -196,17 +203,25 @@ CAMPAIGN = "ensemble={replicas: 2, vary: {seed: [3, 4]}}"
     ("experimental.mesh_shards=2", "queue (a) item 9"),
 ])
 def test_campaign_keys_still_refused_name_their_items(override, item):
-    """Each key is refused for a campaign naming its item; item 9's case
-    is the mesh, where campaigns run since item 9c: the campaign builds,
-    and there only item 13's knobs (retries, failover, chaos) refuse."""
+    """Each key is refused for a campaign naming its item, but two that
+    are admitted now: the shrink (a campaign's failover, since item
+    13.1), and the mesh (item 9c), where since 13.1 a campaign also
+    takes retries, the shrink and chaos."""
     from shadow_tpu_torch.config.loader import load_config_str as load
 
     cfg = load(PHOLD, [CAMPAIGN, override])
+    if override == "experimental.failover=shrink":
+        assert build(cfg).app is not None
+        return
     if override == "experimental.mesh_shards=2":
         assert build(cfg).app is not None
         cfg = load(PHOLD, [CAMPAIGN, override,
-                           "experimental.dispatch_retries=1"])
-        item = "queue (a) item 13"
+                           "experimental.dispatch_retries=1",
+                           "experimental.failover=shrink",
+                           "experimental.chaos=[{kind: device_loss, "
+                           "segment: 1, shard: 1}]"])
+        assert build(cfg).app is not None
+        return
     with pytest.raises(OutsideSlice, match="ROADMAP.md " +
                        item.replace("(", r"\(").replace(")", r"\)")):
         build(cfg)

@@ -481,8 +481,9 @@ def test_planned_mesh_campaign_plans_as_the_reference(reference):
 def test_mesh_campaign_checkpoint_resumes_and_refuses_another_mesh():
     """A mesh campaign saved half way (the campaign's stamp, gathered
     to rank 0) and resumed on the same mesh equals the uninterrupted
-    campaign; a resume on S = 4 is refused with the reference's
-    geometry message before any rank starts."""
+    campaign; a resume on S = 4 (refused until ROADMAP (a) item 13.1)
+    adopts the saved 2 shards, and a pool of one rank is refused with
+    the reference's message before any rank starts."""
     from shadow_tpu_torch.device import checkpoint, runner
 
     saved, _ = mesh_results(2)["save/2"]
@@ -494,11 +495,14 @@ def test_mesh_campaign_checkpoint_resumes_and_refuses_another_mesh():
     assert saved.ok and resumed.ok
     for k in ("chk", "n_exec", "n_sent", "ht", "hk", "app"):
         np.testing.assert_array_equal(leaves[k], whole[k], err_msg=k)
-    with pytest.raises(ValueError, match=r"saved on 2 shard\(s\) .*"
-                       r"loading on 4 .*resume on a mesh of the saved "
-                       r"shard count"):
-        runner.mesh_runs(["cpu"] * 4, [_cfg("sweep", ovr(4, extra=[
+    with pytest.raises(ValueError, match=r"saved on 2 shard\(s\) but only "
+                       r"1 device\(s\) are available — resume on a pool "
+                       r"of at least the saved shard count"):
+        runner.mesh_runs(["cpu"], [_cfg("sweep", ovr(4, extra=[
             f"experimental.checkpoint_load={_ck()}"]))])
+    assert runner.adopted_devices(_cfg("sweep", ovr(4, extra=[
+        f"experimental.checkpoint_load={_ck()}"])), ["cpu"] * 4) == \
+        ["cpu"] * 2
 
 
 def test_replica_batches_on_the_mesh_equal_the_whole_campaign():

@@ -600,14 +600,20 @@ def test_schema_refusals_carry_the_reference_text(name, reference):
     ("  round_watchdog_dump: stall.txt", "item 13"),
 ])
 def test_unported_supervision_refused_by_roadmap_item(extra, item):
-    """What stays refused: a campaign may name `failover: shrink` at load
-    (test_chaos.py:117), the build refuses it."""
+    """What stays refused names its item: a scripted out-of-memory error
+    and the watchdog (item 13), the server (item 14). What ROADMAP (a)
+    item 13.1 admitted builds: a campaign's `failover: shrink` (it may
+    name it at load, test_chaos.py:117), the hybrid failover and chaos
+    on a mesh."""
     from shadow_tpu_torch.config import load_config_str
     from shadow_tpu_torch.core.build import OutsideSlice, build
 
     text = YAML.format(extra=extra)
     if "shrink" in extra:
         text += CAMPAIGN
+    if "shrink" in extra or "mesh_shards" in extra:
+        assert build(load_config_str(text)).app is not None
+        return
     with pytest.raises(OutsideSlice, match=rf"queue \(a\) {item}"):
         build(load_config_str(text))
 
@@ -620,9 +626,11 @@ def test_mesh_save_drain_resume_and_geometry(tmp_path, full):
     shards); a `--device cpu` CLI child on 2 ranks rotating every 50 ms,
     SIGTERM to the parent once its first entry exists: forwarded to the
     ranks, whose reduced flag drains both at one boundary (exit 75);
-    both resumed on 2 ranks, equal to one device; the checkpoint refused
-    on 4 ranks and on one device with the reference's geometry
-    message."""
+    both resumed on 2 ranks, equal to one device; the checkpoint, once
+    refused on 4 ranks and on one device, adopted on both since ROADMAP
+    (a) item 13.1: 2 of the 4 ranks run it, and the one-device resume
+    runs on 2 CPU ranks, both equal to one device; a pool of one rank
+    refused with the reference's message."""
     from shadow_tpu_torch.device import checkpoint, runner, supervise
 
     ck = str(tmp_path / "mesh.npz")
@@ -658,14 +666,18 @@ def test_mesh_save_drain_resume_and_geometry(tmp_path, full):
         _cfg(f"  mesh_shards: 2\n  checkpoint_load: {base}")])
     assert res.ok and _sig(res) == full
     assert res2.ok and _sig(res2) == full
-    want = ("saved on 2 shard(s) (H_pad 6), loading on 4 (H_pad 8) — "
-            "resume on a mesh of the saved shard count")
+    (res4, _), = runner.mesh_runs(["cpu"] * 4, [_cfg(
+        f"  mesh_shards: 4\n  checkpoint_load: {ck}")])
+    assert res4.ok and res4.mesh["shards"] == 2 and _sig(res4) == full
+    assert [r.get("left", False) for r in res4.mesh["ranks"]] == [
+        False, False, True, True]
+    one = _run(f"  checkpoint_load: {ck}")
+    assert one.ok and one.mesh["shards"] == 2 and _sig(one) == full
+    want = ("saved on 2 shard(s) but only 1 device(s) are available — "
+            "resume on a pool of at least the saved shard count")
     with pytest.raises(ValueError, match=want.replace("(", r"\(")
                        .replace(")", r"\)")):
-        runner.mesh_runs(["cpu"] * 4, [_cfg(f"  mesh_shards: 4\n"
-                                            f"  checkpoint_load: {ck}")])
-    with pytest.raises(ValueError, match=r"saved on 2 shard\(s\)"):
-        _run(f"  checkpoint_load: {ck}")
+        runner.mesh_runs(["cpu"], [_cfg(f"  checkpoint_load: {ck}")])
 
 
 def test_mesh_save_then_resume_in_one_call(tmp_path, full):
